@@ -1,0 +1,169 @@
+"""Accumulator widths for the serve-path attention, per context bucket.
+
+Counterpart of ``repro.serve.plan`` for the single-device engine.  Context
+lengths split into geometric buckets; each bucket gets the narrowest
+(1, e_acc, m_acc) online-softmax carry that passes both the paper's §4.4
+knee test for the kernels' semantics (ideal f32 within one ``page_size``
+KV block, quantized carry across the ``n2 = ceil(ctx / page_size)``
+blocks) and the overflow bound ``|o| <= ctx * v_hint`` on the exponent.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+from repro_torch.core.vrr import CUTOFF_LOG_V, vrr
+from repro_torch.kernels.attention import AttnCall
+from repro_torch.quant.formats import FPFormat
+
+__all__ = ["AttnBucket", "AttnPlan", "certified_log_v", "decode_m_acc",
+           "min_e_acc", "extra_carry_events", "max_carry_resumptions",
+           "plan_attention", "DEFAULT_V_HINT"]
+
+# the f32 carry is the emulation ceiling
+_M_ACC_MAX = 23
+# fallback bound on the dequantized KV magnitude: the (1,5,2) KV format's
+# |value| at exponent 4
+DEFAULT_V_HINT = 16.0
+
+
+def predicted_kernel_vrr(m_acc: int, m_p: int, n1: int, n2: int,
+                         *, nzr: float = 1.0) -> float:
+    """Closed-form VRR of the kernels' semantics: ideal intra-chunk sums,
+    (1, e_acc, m_acc) inter-chunk carry with the grown operand mantissa
+    ``min(m_acc, m_p + log2 n1)`` (private copy of
+    ``repro.telemetry.stats.predicted_kernel_vrr``)."""
+    n1_eff = max(int(round(nzr * n1)), 1)
+    m_inter = min(m_acc, m_p + int(round(math.log2(max(n1_eff, 1)))))
+    return vrr(m_acc, m_inter, max(int(n2), 1))
+
+
+@dataclass(frozen=True)
+class AttnBucket:
+    """Contexts up to ``max_ctx`` run with the (1, e_acc, m_acc) carry;
+    ``resumptions`` is the worst-case number of chunked-prefill carry
+    hand-offs it was certified for."""
+
+    max_ctx: int
+    e_acc: int
+    m_acc: int
+    resumptions: int = 0
+
+    @property
+    def acc(self) -> tuple[int, int]:
+        return (self.e_acc, self.m_acc)
+
+    def max_pages(self, page_size: int) -> int:
+        return -(-self.max_ctx // page_size)
+
+
+@dataclass(frozen=True)
+class AttnPlan:
+    """Bucketed carry formats; ``prefill_chunk`` is the chunked-prefill slab
+    (tokens) the buckets were certified for, None = one-shot prefill."""
+
+    page_size: int
+    m_p: int
+    buckets: tuple[AttnBucket, ...]
+    prefill_chunk: int | None = None
+    v_hint: float = DEFAULT_V_HINT
+
+    def bucket_for(self, ctx: int) -> tuple[int, AttnBucket]:
+        """(index, bucket) of the narrowest bucket covering ``ctx``."""
+        for i, b in enumerate(self.buckets):
+            if ctx <= b.max_ctx:
+                return i, b
+        raise ValueError(
+            f"context {ctx} exceeds the plan's {self.buckets[-1].max_ctx}")
+
+    def kernel_call(self, index: int, *, kv_fmt=None) -> AttnCall:
+        """The paged-prefill call of bucket ``index``: the bucket's carry
+        format and padded page-row width."""
+        b = self.buckets[index]
+        return AttnCall(e_acc=b.e_acc, m_acc=b.m_acc, kv_fmt=kv_fmt,
+                        max_pages=b.max_pages(self.page_size))
+
+
+def max_carry_resumptions(ctx: int, prefill_chunk: int | None) -> int:
+    """Worst-case chunked-prefill carry hand-offs for a ``ctx`` context."""
+    if prefill_chunk is None or ctx <= prefill_chunk:
+        return 0
+    return -(-ctx // prefill_chunk) - 1
+
+
+def extra_carry_events(page_size: int, prefill_chunk: int | None,
+                       resumptions: int) -> int:
+    """Extra carry roundings per query row from carry resumption: zero for
+    page-aligned slabs (the hand-off lands on a block edge), one per
+    resumption otherwise."""
+    if prefill_chunk is None or resumptions == 0:
+        return 0
+    return 0 if prefill_chunk % page_size == 0 else resumptions
+
+
+def certified_log_v(m_acc: int, m_p: int, page_size: int, max_ctx: int,
+                    extra_events: int = 0) -> float:
+    """Knee statistic ``v = n2 (1 - VRR)`` at a bucket's worst case."""
+    n2 = max(-(-max_ctx // page_size), 1) + max(extra_events, 0)
+    if n2 <= 1:
+        return 0.0
+    return n2 * (1.0 - predicted_kernel_vrr(m_acc, m_p, page_size, n2))
+
+
+def decode_m_acc(ctx: int, page_size: int, m_p: int, *,
+                 extra_events: int = 0, cutoff: float = CUTOFF_LOG_V) -> int:
+    """Narrowest carry mantissa passing the knee test for a ``ctx``-token
+    context at chunk length ``page_size``."""
+    n2 = max(-(-ctx // page_size), 1) + max(extra_events, 0)
+    if n2 <= 1:
+        return m_p  # a single block never rounds the carry mid-sum
+    for m in range(m_p, _M_ACC_MAX + 1):
+        if certified_log_v(m, m_p, page_size, ctx, extra_events) < cutoff:
+            return m
+    return _M_ACC_MAX
+
+
+def min_e_acc(ctx: int, *, v_hint: float | None = None, e_min: int = 6,
+              boundaries: tuple[int, ...] = ()) -> int:
+    """Smallest exponent width whose saturating range covers ``ctx *
+    v_hint`` at the end and at every chunked-prefill boundary where the
+    unnormalized carry is materialized."""
+    hint = DEFAULT_V_HINT if v_hint is None else v_hint
+    need = max((math.log2(max(c, 1) * max(hint, 1.0))
+                for c in (*boundaries, ctx)), default=0.0)
+    for e in range(e_min, 9):
+        if FPFormat(e=e, m=1).max_exp >= need:
+            return e
+    return 8
+
+
+def plan_attention(max_context: int, page_size: int, *, m_p: int = 5,
+                   growth: int = 4, v_hint: float | None = None,
+                   prefill_chunk_tokens: int | None = None) -> AttnPlan:
+    """Bucketed plan covering contexts up to ``max_context``: bucket edges
+    grow ``growth``x in pages from one page; ``prefill_chunk_tokens``
+    certifies each bucket for its worst-case chunked-prefill resumptions."""
+    hint = DEFAULT_V_HINT if v_hint is None else v_hint
+    edges: list[int] = []
+    ctx = page_size
+    while ctx < max_context:
+        edges.append(ctx)
+        ctx *= growth
+    edges.append(max(max_context, page_size))
+
+    def _bucket(c: int) -> AttnBucket:
+        r = max_carry_resumptions(c, prefill_chunk_tokens)
+        extra = extra_carry_events(page_size, prefill_chunk_tokens, r)
+        bounds = (tuple(min(i * prefill_chunk_tokens, c)
+                        for i in range(1, r + 1))
+                  if prefill_chunk_tokens else ())
+        return AttnBucket(
+            max_ctx=c,
+            e_acc=min_e_acc(c, v_hint=hint, boundaries=bounds),
+            m_acc=decode_m_acc(c, page_size, m_p, extra_events=extra),
+            resumptions=r)
+
+    return AttnPlan(page_size=page_size, m_p=m_p,
+                    buckets=tuple(_bucket(c) for c in edges),
+                    prefill_chunk=prefill_chunk_tokens, v_hint=hint)

@@ -1,0 +1,406 @@
+"""Continuous-batching scheduler over the paged int8 KV cache.
+
+Counterpart of ``repro.serve.scheduler`` for one device.  ``ServeEngine``
+keeps the JAX engine's schedule:
+
+* optimistic admission: a request is admitted when the pages of its FIRST
+  prefill slab fit; growth past that goes through preemption;
+* one prefill slab per engine step (``prefill_chunk_tokens``, page
+  aligned, or the whole prompt), interleaved with
+* one batched decode token for every running sequence, the batch padded
+  to ``max_batch`` rows (padded rows: null-page table, length 0);
+* preemption of the youngest resident sequence when a page is short: its
+  int8 pages and exponents are copied to a host ``SwapStore`` and restored
+  byte-identically, oldest first, when pages free up;
+* eviction of a sequence's pages when it completes.
+
+``ModelExecutor`` is the only place device work happens.  Eager PyTorch
+compiles nothing per shape, so a prefill slab is not padded to its
+bucket's width (the JAX engine pads for its compile cache; its padded rows
+are byte-neutral, so the arena and logits are the same).  The serve-time
+VRR monitor, tracing, metrics and speculative decoding are not ported yet.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.models.api import DecodeRequest, PrefillRequest, get_paged_model
+from repro_torch.quant.formats import FPFormat
+from repro_torch.serve.kvcache import (
+    PagedKVConfig,
+    PagePool,
+    SwapStore,
+    init_arena,
+    kv_bytes_per_token,
+    swap_in_pages,
+    swap_out_pages,
+)
+from repro_torch.serve.plan import plan_attention
+
+__all__ = ["Request", "ModelExecutor", "ServeEngine", "resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device must exist (the port
+    does not fall back to the CPU on its own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "plain PyTorch versions on the CPU")
+    return dev
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: list[int]
+    max_new: int
+
+
+@dataclass
+class _Seq:
+    rid: int
+    tokens: list[int]          # prompt + generated
+    prompt_len: int
+    max_new: int
+    generated: list[int] = field(default_factory=list)
+    prefilled: int = 0         # prompt tokens whose KV is cached
+
+    @property
+    def pos(self) -> int:
+        """Write position of the next token's KV (= tokens cached)."""
+        return len(self.tokens) - 1
+
+    @property
+    def in_prefill(self) -> bool:
+        return self.prefilled < self.prompt_len
+
+    @property
+    def done(self) -> bool:
+        return len(self.generated) >= self.max_new
+
+
+@dataclass
+class _Swapped:
+    """A preempted sequence: its store entry covers ``n_tokens`` cached
+    tokens (0 = preempted before its first slab claimed pages)."""
+
+    seq: _Seq
+    n_tokens: int
+
+
+class ModelExecutor:
+    """Device-side executor: the model, its params and the paged arena."""
+
+    def __init__(self, model, params, pc: PagedKVConfig, *, kv_fmt: FPFormat,
+                 max_batch: int = 8, device="cuda"):
+        self.cfg = model.cfg
+        self.params = params
+        self.pc = pc
+        self.kv_fmt = kv_fmt
+        self.max_batch = max_batch
+        self.device = resolve_device(device)
+        self.kv = init_arena(pc, self.device)
+        self.pm = get_paged_model(model.cfg)
+
+    def _int32(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, np.int32), device=self.device)
+
+    def prefill_logits(self, req: PrefillRequest) -> torch.Tensor | None:
+        """Run one prefill slab; the (1, V) logits of its last row on the
+        final slab, else None."""
+        n_tok = len(req.tokens)
+        n_hist = len(req.hist_pages)
+        row = np.zeros((max(req.bucket_pages or 0,
+                            n_hist + len(req.slab_pages)),), np.int32)
+        row[:n_hist] = req.hist_pages
+        row[n_hist:n_hist + len(req.slab_pages)] = req.slab_pages
+        toks = torch.as_tensor([list(req.tokens)], dtype=torch.int64,
+                               device=self.device)
+        slab = self._int32(req.slab_pages).long()
+        with torch.no_grad():
+            return self.pm.prefill(
+                self.params, toks, self.kv, self._int32(row), slab, req.t0,
+                n_tok, kv_fmt=self.kv_fmt, acc=req.acc, call=req.call,
+                want_logits=req.final)
+
+    def prefill(self, req: PrefillRequest) -> int | None:
+        """One prefill slab; the first generated token (greedy) on the
+        final slab."""
+        logits = self.prefill_logits(req)
+        return int(torch.argmax(logits[0])) if req.final else None
+
+    def decode_logits(self, req: DecodeRequest) -> torch.Tensor:
+        """One batched decode step, padded to ``max_batch`` rows (padded
+        rows are no-ops: null-page table row, length 0, write to page 0);
+        returns the live rows' logits (n, V)."""
+        pt_in = np.asarray(req.page_table, np.int32)
+        n, width = pt_in.shape
+        pt = np.zeros((self.max_batch, width), np.int32)
+        pt[:n] = pt_in
+        tokens = np.zeros((self.max_batch, 1), np.int64)
+        tokens[:n, 0] = req.last_tokens
+        pos = np.zeros((self.max_batch,), np.int64)
+        pos[:n] = req.positions
+        sl = np.zeros((self.max_batch,), np.int32)
+        sl[:n] = req.seq_lens
+        with torch.no_grad():
+            logits = self.pm.decode(
+                self.params, torch.as_tensor(tokens, device=self.device),
+                self.kv, self._int32(pt),
+                torch.as_tensor(pos, device=self.device), self._int32(sl),
+                kv_fmt=self.kv_fmt, acc=req.acc)
+        return logits[:n, 0]
+
+    def decode(self, req: DecodeRequest) -> list[int]:
+        """One batched decode token per row; returns the next tokens."""
+        return torch.argmax(self.decode_logits(req), dim=-1).tolist()
+
+    def swap_out(self, rid: int, pages: list[int]) -> dict:
+        return swap_out_pages(self.kv, pages)
+
+    def swap_in(self, rid: int, pages: list[int], blob: dict) -> None:
+        swap_in_pages(self.kv, pages, blob)
+
+
+class ServeEngine:
+    """Continuous-batching serving over one model's paged KV arena."""
+
+    def __init__(self, model, params, *, n_pages: int, page_size: int,
+                 kv_fmt: FPFormat | None = None, max_batch: int = 8,
+                 prefill_chunk_tokens: int | None = None,
+                 monitor_cadence: int = 0, executor=None, device="cuda"):
+        if prefill_chunk_tokens is not None and (
+                prefill_chunk_tokens <= 0
+                or prefill_chunk_tokens % page_size != 0):
+            raise ValueError(
+                f"prefill_chunk_tokens {prefill_chunk_tokens} must be a "
+                f"positive multiple of page_size {page_size}: slab "
+                "boundaries must land on page (carry-block) edges")
+        if monitor_cadence > 0:
+            raise NotImplementedError(
+                "the serve-time VRR monitor is not ported yet")
+        self.cfg = model.cfg
+        self.kv_fmt = kv_fmt or FPFormat(e=5, m=2)
+        self.page_size = page_size
+        self.n_pages = n_pages
+        self.pc = PagedKVConfig.for_model(self.cfg, n_pages=n_pages,
+                                          page_size=page_size,
+                                          kv_fmt=self.kv_fmt)
+        self.executor = executor or ModelExecutor(
+            model, params, self.pc, kv_fmt=self.kv_fmt, max_batch=max_batch,
+            device=device)
+        self.pool = PagePool(n_pages, page_size)
+        self.store = SwapStore()
+        self.plan = plan_attention(self.pc.tokens_capacity, page_size,
+                                   prefill_chunk_tokens=prefill_chunk_tokens)
+        self.max_batch = max_batch
+        self.prefill_chunk = prefill_chunk_tokens
+
+        self.pending: deque[Request] = deque()
+        self.active: dict[int, _Seq] = {}
+        self.swapped: dict[int, _Swapped] = {}
+        self.finished: dict[int, list[int]] = {}
+        self._next_rid = 0
+        self.steps = 0
+        self.decoded_tokens = 0
+        self.prefill_tokens = 0
+        self.prefill_slabs = 0
+        self.preemptions = 0
+        self.restores = 0
+        self.max_concurrent = 0
+
+    # ------------------------------ intake ---------------------------------
+    def submit(self, prompt: list[int], max_new: int) -> int:
+        need = self.pool.pages_for(len(prompt) + max_new)
+        if need > self.n_pages - 1:
+            raise ValueError(
+                f"request of {len(prompt)} + {max_new} tokens needs {need} "
+                f"pages; the pool holds {self.n_pages - 1}")
+        rid = self._next_rid
+        self._next_rid += 1
+        self.pending.append(Request(rid, list(prompt), max_new))
+        return rid
+
+    # ------------------------------ admission ------------------------------
+    def _admit_one(self) -> int | None:
+        """Admit at most one pending request when its first slab's pages
+        fit.  While any sequence is swapped out, nothing new is admitted
+        (restore before admit)."""
+        if not self.pending or self.swapped \
+                or len(self.active) >= self.max_batch:
+            return None
+        req = self.pending[0]
+        first = min(self.prefill_chunk or len(req.prompt), len(req.prompt))
+        if self.pool.free_pages < self.pool.pages_for(first):
+            return None
+        self.pending.popleft()
+        self.active[req.rid] = _Seq(rid=req.rid, tokens=list(req.prompt),
+                                    prompt_len=len(req.prompt),
+                                    max_new=req.max_new)
+        return req.rid
+
+    # ------------------------------ preemption -----------------------------
+    def preempt(self, rid: int) -> None:
+        """Swap one resident sequence out to the host store and queue it for
+        an oldest-first restore."""
+        seq = self.active.pop(rid)
+        n_tok = 0
+        if self.pool.owns(rid):
+            n_tok = self.pool.seq_len(rid)
+            self.store.put(rid, self.executor.swap_out(rid, self.pool.pages(rid)),
+                           n_tok)
+            self.pool.release(rid)
+        self.swapped[rid] = _Swapped(seq=seq, n_tokens=n_tok)
+        self.preemptions += 1
+
+    def _ensure_pages(self, rid: int, new_len: int) -> bool:
+        """Make room to grow ``rid`` to ``new_len`` tokens by preempting
+        strictly younger residents, youngest first.  The youngest that is
+        still short stalls (False) and retries next step; the oldest never
+        stalls, so the engine cannot livelock."""
+        held = len(self.pool.pages(rid)) if self.pool.owns(rid) else 0
+        need = self.pool.pages_for(new_len) - held
+        while need > self.pool.free_pages:
+            victim = max((r for r in self.active if r > rid), default=None)
+            if victim is None:
+                return False
+            self.preempt(victim)
+        return True
+
+    def _restore_one(self) -> int | None:
+        """Re-admit the oldest swapped sequence once its pages fit."""
+        if not self.swapped or len(self.active) >= self.max_batch:
+            return None
+        rid = min(self.swapped)
+        ent = self.swapped[rid]
+        if ent.n_tokens and \
+                self.pool.free_pages < self.pool.pages_for(ent.n_tokens):
+            return None
+        if ent.n_tokens:
+            pages = self.pool.allocate(rid, ent.n_tokens)
+            blob, _ = self.store.take(rid)
+            self.executor.swap_in(rid, pages, blob)
+        del self.swapped[rid]
+        self.active[rid] = ent.seq
+        self.restores += 1
+        return rid
+
+    # ------------------------------ prefill --------------------------------
+    def _prefill_slab(self) -> int | None:
+        """Advance the oldest prefilling sequence by one slab."""
+        rid = next((r for r in sorted(self.active)
+                    if self.active[r].in_prefill), None)
+        if rid is None:
+            return None
+        seq = self.active[rid]
+        t0 = seq.prefilled
+        t1 = min(t0 + (self.prefill_chunk or seq.prompt_len), seq.prompt_len)
+        if not self._ensure_pages(rid, t1):
+            return None
+        if self.pool.owns(rid):
+            self.pool.extend(rid, t1 - t0)
+        else:
+            self.pool.allocate(rid, t1)
+        pages = self.pool.pages(rid)
+        n_hist = t0 // self.page_size
+        final = t1 == seq.prompt_len
+        # every slab runs at the FULL prompt's bucket, so each query row's
+        # carry format is the one-shot walk's
+        bucket_i, bucket = self.plan.bucket_for(seq.prompt_len)
+        call = self.plan.kernel_call(bucket_i, kv_fmt=self.kv_fmt)
+        tok = self.executor.prefill(PrefillRequest(
+            rid=rid, tokens=tuple(seq.tokens[t0:t1]),
+            hist_pages=tuple(pages[:n_hist]),
+            slab_pages=tuple(pages[n_hist:]), t0=t0, acc=bucket.acc,
+            final=final, bucket_pages=bucket.max_pages(self.page_size),
+            call=call))
+        seq.prefilled = t1
+        self.prefill_slabs += 1
+        self.prefill_tokens += t1 - t0
+        if final:
+            seq.tokens.append(int(tok))
+            seq.generated.append(int(tok))
+            self._maybe_finish(seq)
+        return rid
+
+    # ------------------------------ decode ---------------------------------
+    def _decode_batch(self) -> list[int]:
+        """One decode token for every running (fully prefilled) sequence."""
+        batch: list[_Seq] = []
+        for rid in sorted(self.active):
+            seq = self.active.get(rid)
+            if seq is None or seq.in_prefill:
+                continue
+            if not self._ensure_pages(rid, self.pool.seq_len(rid) + 1):
+                continue
+            self.pool.extend(rid)
+            batch.append(seq)
+        if not batch:
+            return []
+        _, bucket = self.plan.bucket_for(
+            max(self.pool.seq_len(s.rid) for s in batch))
+        pt = self.pool.page_table([s.rid for s in batch],
+                                  bucket.max_pages(self.page_size))
+        next_toks = self.executor.decode(DecodeRequest(
+            rids=tuple(s.rid for s in batch),
+            last_tokens=tuple(s.tokens[-1] for s in batch),
+            page_table=tuple(tuple(r) for r in pt.tolist()),
+            positions=tuple(s.pos for s in batch),
+            seq_lens=tuple(s.pos + 1 for s in batch), acc=bucket.acc))
+        finished = []
+        for seq, tok in zip(batch, next_toks):
+            seq.tokens.append(int(tok))
+            seq.generated.append(int(tok))
+            self.decoded_tokens += 1
+            if self._maybe_finish(seq):
+                finished.append(seq.rid)
+        return finished
+
+    def _maybe_finish(self, seq: _Seq) -> bool:
+        if seq.done:
+            self.finished[seq.rid] = list(seq.generated)
+            self.pool.release(seq.rid)
+            del self.active[seq.rid]
+            return True
+        return False
+
+    # ------------------------------ stepping -------------------------------
+    def step(self) -> dict:
+        """One tick: at most one restore or admission, at most one prefill
+        slab, one batched decode."""
+        self.steps += 1
+        restored = self._restore_one()
+        admitted = self._admit_one() if restored is None else None
+        self.max_concurrent = max(self.max_concurrent, len(self.active))
+        prefilled = self._prefill_slab()
+        finished = self._decode_batch() if self.active else []
+        return {"admitted": admitted, "restored": restored,
+                "prefilled": prefilled, "finished": finished,
+                "active": len(self.active), "pending": len(self.pending),
+                "swapped": len(self.swapped),
+                "free_pages": self.pool.free_pages}
+
+    def run(self, max_steps: int = 100_000) -> dict[int, list[int]]:
+        """Drive to completion; returns {rid: generated tokens}."""
+        for _ in range(max_steps):
+            if not self.pending and not self.active and not self.swapped:
+                break
+            self.step()
+        else:
+            raise RuntimeError("serve loop did not drain (pool too small "
+                               "for the pending prompts?)")
+        return dict(self.finished)
+
+    # ------------------------------ accounting -----------------------------
+    def utilization(self) -> float:
+        """Decoded tokens per decode-batch slot."""
+        return self.decoded_tokens / max(self.steps * self.max_batch, 1)
+
+    def kv_bytes_per_token(self, *, carrier_bytes: int = 1) -> float:
+        return kv_bytes_per_token(self.pc, carrier_bytes=carrier_bytes)
