@@ -16,7 +16,20 @@ on its own line:
    lengths, 32 generated tokens each, one-shot and then with 64-token
    prefill slabs.  Every kernel's launch count over each run must be > 0,
    and one request's prefill logits are held against the plain versions;
-4. result: one JSON line per kernel, the card's name and power limit, and
+4. train kernels: E (the forward GEMM with int8 residual codes) and B
+   (the backward pair) against their plain versions at every distinct
+   layer shape of the training step (T = 512 tokens) and on a slice of
+   the tied lm_head, the lm_head's backward chained over 10 N segments
+   with the dx carry (K7) against the unsplit call, and one step's E and
+   B launches timed as a sequence;
+5. train: qwen2-1.5b at full width and depth through the training
+   launcher's set-up (predicted plan, chunk 64, batch 8 x seq 64, seeded
+   f32 weights, ``SyntheticLM``), 6 AdamW steps at lr 1e-3 with 2 warmup
+   steps: per-step loss, gradient norm, step time, tokens/s, peak memory
+   and launches (E 196, G 1, B 197 a step); the loss must be finite and
+   fall; then one step of a 2-layer cut through the kernels and through
+   their plain versions, bitwise;
+6. result: one JSON line per kernel, the card's name and power limit, and
    the final JSON line.
 
 Any failed check exits non-zero.  Without a CUDA device it exits non-zero
@@ -158,14 +171,10 @@ def _lattice(gen, shape, device):
 def gemm_shapes(cfg):
     """(name, K, N, QDotConfig) of the dense GEMMs of one layer plus the
     tied lm_head, in the order a layer runs them."""
-    d, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                       cfg.head_dim, cfg.d_ff)
-    q = cfg.quant
-    return [("wq", d, h * dh, q.attn_qkv), ("wk", d, kv * dh, q.attn_qkv),
-            ("wv", d, kv * dh, q.attn_qkv), ("wo", h * dh, d, q.attn_out),
-            ("w_gate", d, f, q.mlp_up), ("w_up", d, f, q.mlp_up),
-            ("w_down", f, d, q.mlp_down),
-            ("lm_head", d, cfg.vocab_size, q.lm_head)]
+    from repro_torch.models.api import dense_gemm_shapes
+
+    shapes = dense_gemm_shapes(cfg, seq_len=1, global_batch=1)
+    return [(tag, k, n, qc) for tag, _, k, n, qc in shapes[1:] + shapes[:1]]
 
 
 def _gemm_kw(qc) -> dict:
@@ -433,20 +442,24 @@ def _counters():
 @contextmanager
 def plain_versions():
     """Route the model's kernel calls to the plain PyTorch versions (for
-    the logit check only; the port itself never does this)."""
+    the kernels-vs-plain checks only; the port itself never does this)."""
     from repro_torch.kernels import attention as A
+    from repro_torch.kernels import bwd_pair as B
     from repro_torch.kernels import fused as F
     from repro_torch.kernels import ops as O
     from repro_torch.models import layers as L
 
-    saved = (O.qmatmul_fused, L.paged_attn_decode, L.flash_prefill_paged)
+    saved = (O.qmatmul_fused, O.qmatmul_bwd_pair, L.paged_attn_decode,
+             L.flash_prefill_paged)
     O.qmatmul_fused = F.qmatmul_fused_reference
+    O.qmatmul_bwd_pair = B.qmatmul_bwd_pair_reference
     L.paged_attn_decode = A.paged_attn_decode_reference
     L.flash_prefill_paged = A.flash_prefill_paged_reference
     try:
         yield
     finally:
-        O.qmatmul_fused, L.paged_attn_decode, L.flash_prefill_paged = saved
+        (O.qmatmul_fused, O.qmatmul_bwd_pair, L.paged_attn_decode,
+         L.flash_prefill_paged) = saved
 
 
 def build_engine(cfg, params, dev, prefill_chunk):
@@ -561,6 +574,421 @@ def phase_logits(cfg, params, dev, prompt) -> float:
     return err
 
 
+# --------------------------------------------------------------------------
+# phase 4: the training path: kernels E and B, then the trainer
+# --------------------------------------------------------------------------
+
+TRAIN_SEQ, TRAIN_BATCH = 64, 8          # the JAX launcher's defaults
+TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 6, 1e-3, 2
+HEAD_SLICE = 4096                       # lm_head columns checked vs plain
+HEAD_SEGMENTS = 10                      # the JAX N-split of the lm_head
+
+
+def _train_cfg(n_layers=None, seq=TRAIN_SEQ, batch=TRAIN_BATCH):
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import AccumulationPolicy, plan_for_model
+
+    cfg = get_config("qwen2-1.5b")
+    if n_layers is not None:
+        cfg = replace(cfg, n_layers=n_layers)
+    return plan_for_model(cfg, seq_len=seq, global_batch=batch,
+                          policy=AccumulationPolicy(mode="predicted", chunk=64))
+
+
+def _roles(qc):
+    """(e_acc, m_acc, chunk) of the three roles of a QDotConfig."""
+    from repro_torch.kernels.ops import _acc_params, _pair_chunks
+
+    f = _acc_params(qc.fwd)
+    (eb, mb, _), (eg, mg, _) = _acc_params(qc.bwd), _acc_params(qc.grad)
+    gc, bc = _pair_chunks(qc)
+    return f, (eb, mb, bc), (eg, mg, gc)
+
+
+def _e_kw(qc):
+    (e, m, c), _, _ = _roles(qc)
+    return dict(repr_fmt=qc.repr_fmt, e_acc=e, m_acc=m, block_k=c or 128)
+
+
+def _b_kw(qc):
+    _, (eb, mb, bc), (eg, mg, gc) = _roles(qc)
+    return dict(repr_fmt=qc.repr_fmt, bwd_acc=(eb, mb), grad_acc=(eg, mg),
+                bwd_chunk=bc, grad_chunk=gc, packed=qc.packs,
+                quantize_g=qc.repr_fmt is not None)
+
+
+def _e_cost(t, k, n):
+    # x f32 and w bf16 read, y f32 and both code tensors written
+    return t * k * 4 + k * n * 2 + t * n * 4 + t * k + k * n, 2 * t * k * n
+
+
+def _b_cost(t, k, n, packed=True, w_bytes=1, x_bytes=1):
+    # g f32 and the residuals read, dx and dw f32 written
+    xb, wb = (1, 1) if packed else (x_bytes, w_bytes)
+    return (t * n * 4 + t * k * xb + k * n * wb + t * k * 4 + k * n * 4,
+            4 * t * k * n)
+
+
+def phase_train_kernels(dev) -> dict:
+    """E and B against their plain versions at every distinct layer shape
+    of the training step (T = 512 tokens) and on a 4096-column slice of
+    the tied lm_head; the lm_head's backward chained over the JAX
+    package's 10 N segments (K7) against the unsplit call; and one step's
+    worth of E and B launches timed as a sequence."""
+    from repro_torch.kernels.bwd_pair import (
+        qmatmul_bwd_pair, qmatmul_bwd_pair_nsplit, qmatmul_bwd_pair_reference)
+    from repro_torch.kernels.fused import qmatmul_fused, qmatmul_fused_reference
+    from repro_torch.models.api import dense_gemm_shapes
+
+    cfg = _train_cfg()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    shapes = dense_gemm_shapes(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    head, layer = shapes[0], shapes[1:]
+    t = head[1]
+    print(f"[kernels] E qmatmul_fused(return_quantized) and B "
+          f"qmatmul_bwd_pair vs plain at T={t} (per shape: kernel ms, bf16 "
+          f"torch.matmul ms, bound ms; plain ms over a whole step below)",
+          flush=True)
+    e_err = b_err = 0.0
+    tensors = {}
+    for tag, _, k, n, qc in layer:
+        if (k, n) in tensors:
+            continue
+        ekw, bkw = _e_kw(qc), _b_kw(qc)
+        (_, m_f, _), (eb, mb, _), (eg, mg, _) = _roles(qc)
+        x = torch.randn((t, k), generator=gen, device=dev)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             / math.sqrt(k)).to(torch.bfloat16)
+        g = torch.randn((t, n), generator=gen, device=dev) / math.sqrt(n)
+        y, xq, wq = qmatmul_fused(x, w, return_quantized=True, **ekw)
+        ry, rxq, rwq = qmatmul_fused_reference(x, w, return_quantized=True,
+                                               **ekw)
+        e_err = max(e_err, compare(f"E {tag} K={k} N={n} random", y, ry,
+                                   m_f, ekw["e_acc"], bitwise=False))
+        check(torch.equal(xq, rxq) and torch.equal(wq, rwq),
+              f"E {tag}: codes differ from pack_block")
+        dx, dw = qmatmul_bwd_pair(g, xq, wq, **bkw)
+        rdx, rdw = qmatmul_bwd_pair_reference(g, xq, wq, **bkw)
+        b_err = max(b_err, compare(f"B dx {tag} random", dx, rdx, mb, eb,
+                                   bitwise=False),
+                    compare(f"B dw {tag} random", dw, rdw, mg, eg,
+                            bitwise=False))
+        xl, wl = _lattice(gen, (t, k), dev), _lattice(gen, (k, n), dev)
+        gl = _lattice(gen, (t, n), dev)
+        lat = qmatmul_fused(xl, wl.to(torch.bfloat16), return_quantized=True,
+                            **ekw)
+        rlat = qmatmul_fused_reference(xl, wl.to(torch.bfloat16),
+                                       return_quantized=True, **ekw)
+        compare(f"E {tag} lattice", lat[0], rlat[0], m_f, ekw["e_acc"],
+                bitwise=True)
+        check(torch.equal(lat[1], rlat[1]) and torch.equal(lat[2], rlat[2]),
+              f"E {tag} lattice: codes differ")
+        for got, want, (e_, m_), r in zip(
+                qmatmul_bwd_pair(gl, lat[1], lat[2], **bkw),
+                qmatmul_bwd_pair_reference(gl, lat[1], lat[2], **bkw),
+                ((eb, mb), (eg, mg)), ("dx", "dw")):
+            compare(f"B {r} {tag} lattice", got, want, m_, e_, bitwise=True)
+        tensors[(k, n)] = (x, w, g, xq, wq)
+        e_ms = cuda_time(lambda: qmatmul_fused(x, w, return_quantized=True,
+                                               **ekw), reps=10)
+        b_ms = cuda_time(lambda: qmatmul_bwd_pair(g, xq, wq, **bkw), reps=5)
+        xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
+        e_lib = cuda_time(lambda: torch.matmul(xb, w), reps=10)
+        b_lib = cuda_time(lambda: (torch.matmul(gb, w.T),
+                                   torch.matmul(xb.T, gb)), reps=10)
+        e_b, e_by = bound_ms(*_e_cost(t, k, n), BF16_FLOPS)
+        b_b, b_by = bound_ms(*_b_cost(t, k, n), BF16_FLOPS)
+        print(f"  time {tag} K={k} N={n}: E kernel {e_ms:.4f} ms, library "
+              f"{e_lib:.4f} ms, bound {e_b:.4f} ms ({e_by}); B kernel "
+              f"{b_ms:.4f} ms, library {b_lib:.4f} ms, bound {b_b:.4f} ms "
+              f"({b_by})", flush=True)
+
+    # the tied lm_head: raw f32 x and the bf16 embed.T view, no quantization
+    _, _, k, n, qc = head
+    hkw = _b_kw(qc)
+    _, (eb, mb, _), (eg, mg, _) = _roles(qc)
+    emb = (torch.randn((n, k), generator=gen, device=dev)
+           / math.sqrt(k)).to(torch.bfloat16)
+    hx = torch.randn((t, k), generator=gen, device=dev)
+    hg = torch.randn((t, n), generator=gen, device=dev) / math.sqrt(n)
+    sl = slice(0, HEAD_SLICE)
+    for lattice in (False, True):
+        gs = _lattice(gen, (t, HEAD_SLICE), dev) if lattice else hg[:, sl]
+        xs = _lattice(gen, (t, k), dev) if lattice else hx
+        ws = (_lattice(gen, (HEAD_SLICE, k), dev).to(torch.bfloat16).T
+              if lattice else emb[sl].T)
+        got = qmatmul_bwd_pair(gs, xs, ws, **hkw)
+        want = qmatmul_bwd_pair_reference(gs, xs, ws, **hkw)
+        label = "lattice" if lattice else "random"
+        err = max(compare(f"B dx lm_head[:, :{HEAD_SLICE}] {label}", got[0],
+                          want[0], mb, eb, bitwise=lattice),
+                  compare(f"B dw lm_head[:, :{HEAD_SLICE}] {label}", got[1],
+                          want[1], mg, eg, bitwise=lattice))
+        b_err = max(b_err, 0.0 if lattice else err)
+    full = qmatmul_bwd_pair(hg, hx, emb.T, **hkw)
+    chained = qmatmul_bwd_pair_nsplit(hg, hx, emb.T, n_split=HEAD_SEGMENTS,
+                                      **hkw)
+    torch.cuda.synchronize()
+    seg_same = torch.equal(full[0], chained[0]) and torch.equal(full[1],
+                                                                chained[1])
+    print(f"  K7 lm_head backward in {HEAD_SEGMENTS} chained N segments vs "
+          f"the unsplit call: {'bitwise equal' if seg_same else 'DIFFERENT'}",
+          flush=True)
+    check(seg_same, "chained dx_carry segments differ from the unsplit call")
+    del full, chained
+    seg = lambda fn: fn(hg, hx, emb.T, n_split=HEAD_SEGMENTS, **hkw)  # noqa
+    k7_ms = cuda_time(lambda: seg(qmatmul_bwd_pair_nsplit), reps=2, warmup=1)
+    k7_plain = cuda_time(lambda: _nsplit_plain(hg, hx, emb.T, hkw), reps=1,
+                         warmup=0)
+    hxb, hgb, embt = hx.to(torch.bfloat16), hg.to(torch.bfloat16), emb.T
+    head_lib = lambda: (torch.matmul(hgb, embt.T),  # noqa: E731
+                        torch.matmul(hxb.T, hgb))
+    k7_lib = cuda_time(head_lib, reps=3)
+    k7_b, k7_by = bound_ms(*_b_cost(t, k, n, packed=False, x_bytes=4,
+                                    w_bytes=2), BF16_FLOPS)
+    print(f"  time K7 lm_head T={t} K={k} N={n}: kernel {k7_ms:.3f} ms, "
+          f"plain {k7_plain:.1f} ms, library {k7_lib:.3f} ms, bound "
+          f"{k7_b:.4f} ms ({k7_by})", flush=True)
+    gkw = _e_kw(qc)
+    head_g = cuda_time(lambda: qmatmul_fused(hx, emb.T, **gkw), reps=3)
+    print(f"  time G lm_head forward T={t} K={k} N={n}: kernel {head_g:.3f} "
+          f"ms, library {cuda_time(lambda: torch.matmul(hxb, embt), reps=3):.3f}"
+          f" ms", flush=True)
+
+    # one training step's launches of E and B (7 per layer x depth, plus
+    # the lm_head's B), in layer order on the per-shape tensors above
+    depth = cfg.n_layers
+    calls = [(tensors[(k, n)], qc) for _ in range(depth)
+             for _, _, k, n, qc in layer]
+
+    def run_e(fn):
+        for (x, w, _, _, _), qc in calls:
+            fn(x, w, return_quantized=True, **_e_kw(qc))
+
+    def run_b(fn):
+        for (_, _, g, xq, wq), qc in calls:
+            fn(g, xq, wq, **_b_kw(qc))
+        fn(hg, hx, emb.T, **hkw)
+
+    def lib_e():
+        for (x, w, _, _, _), _ in calls:
+            torch.matmul(x.to(torch.bfloat16), w)
+
+    def lib_b():
+        for (x, w, g, _, _), _ in calls:
+            gb = g.to(torch.bfloat16)
+            torch.matmul(gb, w.T)
+            torch.matmul(x.to(torch.bfloat16).T, gb)
+        head_lib()
+
+    e_cost = [_e_cost(t, k, n) for _ in range(depth) for _, _, k, n, _ in layer]
+    b_cost = [_b_cost(t, k, n) for _ in range(depth)
+              for _, _, k, n, _ in layer]
+    b_cost.append(_b_cost(t, head[2], head[3], packed=False, x_bytes=4,
+                          w_bytes=2))
+    out = {}
+    for name, run, lib, cost in (
+            ("E", run_e, lib_e, e_cost), ("B", run_b, lib_b, b_cost)):
+        fn = qmatmul_fused if name == "E" else qmatmul_bwd_pair
+        ref = (qmatmul_fused_reference if name == "E"
+               else qmatmul_bwd_pair_reference)
+        ms = cuda_time(lambda: run(fn), reps=2, warmup=1)
+        plain = cuda_time(lambda: run(ref), reps=1, warmup=0)
+        lib_ms = cuda_time(lib, reps=3)
+        b_ms, b_by = bound_ms(sum(c[0] for c in cost), sum(c[1] for c in cost),
+                              BF16_FLOPS)
+        print(f"[kernels] {name} one training step ({len(cost)} launches, "
+              f"T={t}): kernel {ms:.3f} ms, plain {plain:.1f} ms, library "
+              f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / ms:.4f} of bound", flush=True)
+        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=e_err if name == "E" else b_err)
+    out["K7"] = dict(ms=k7_ms, plain_ms=k7_plain, library_ms=k7_lib,
+                     bound_ms=k7_b, bound_by=k7_by, max_abs_err=0.0)
+    return out
+
+
+def _nsplit_plain(g, x, w, kw):
+    """The chained segments through the plain version."""
+    from repro_torch.kernels.bwd_pair import (pair_segment_width,
+                                              qmatmul_bwd_pair_reference)
+
+    t, n = g.shape
+    seg = pair_segment_width(n, HEAD_SEGMENTS, kw["bwd_chunk"])
+    dx = torch.zeros((t, x.shape[1]), dtype=torch.float32, device=g.device)
+    for lo in range(0, n, seg):
+        hi = min(lo + seg, n)
+        dx, _ = qmatmul_bwd_pair_reference(g[:, lo:hi], x, w[:, lo:hi],
+                                           dx_carry=dx, n_offset=lo, **kw)
+    return dx
+
+
+def _train_counters():
+    from repro_torch.kernels.bwd_pair import (qmatmul_bwd_pair,
+                                              qmatmul_bwd_pair_seg)
+    from repro_torch.kernels.fused import qmatmul_fused, qmatmul_fused_emitq
+
+    return {"qmatmul_fused": qmatmul_fused,
+            "qmatmul_fused_emitq": qmatmul_fused_emitq,
+            "qmatmul_bwd_pair": qmatmul_bwd_pair,
+            "qmatmul_bwd_pair_seg": qmatmul_bwd_pair_seg}
+
+
+def phase_train(dev) -> dict:
+    """qwen2-1.5b at full width and depth through the training launcher's
+    own set-up (``repro_torch.launch.train.build``): predicted plan, chunk
+    64, seeded f32 weights, ``SyntheticLM`` batches, AdamW."""
+    from repro_torch.launch.train import build, parse_args
+    from repro_torch.models.api import dense_gemm_shapes, param_count
+    from repro_torch.train.loop import make_train_step
+
+    args = parse_args(["--arch", "qwen2-1.5b", "--steps", str(TRAIN_STEPS),
+                       "--global-batch", str(TRAIN_BATCH), "--seq-len",
+                       str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--warmup",
+                       str(TRAIN_WARMUP), "--policy", "predicted", "--chunk",
+                       "64", "--seed", str(SEED), "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    model, tc, state, data, _ = build(args)
+    cfg = model.cfg
+    step_fn = make_train_step(model, tc)
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    n_layer_gemms = len(dense_gemm_shapes(cfg, seq_len=TRAIN_SEQ,
+                                          global_batch=TRAIN_BATCH)) - 1
+    want = {"qmatmul_fused_emitq": n_layer_gemms * cfg.n_layers,
+            "qmatmul_fused": 1,
+            "qmatmul_bwd_pair": n_layer_gemms * cfg.n_layers + 1,
+            "qmatmul_bwd_pair_seg": 0}
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{param_count(state['params']) / 1e6:.1f}M params (f32 masters), "
+          f"predicted plan chunk 64, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+          f"lr {TRAIN_LR} warmup {TRAIN_WARMUP}", flush=True)
+    counters = _train_counters()
+    losses, step_ms, launches = [], [], {k: 0 for k in counters}
+    for step in range(TRAIN_STEPS):
+        batch = next(data)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        per = {k: fn.launches for k, fn in counters.items()}
+        for k, v in per.items():
+            launches[k] += v
+        losses.append(loss)
+        step_ms.append(dt)
+        print(f"[train] step {step + 1}: loss {loss:.5f}, grad norm "
+              f"{gnorm:.4f}, lr {float(m['lr']):.3g}, skipped "
+              f"{float(m['skipped']):.0f}, {dt:.1f} ms ({tokens / dt * 1e3:.1f}"
+              f" tokens/s), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+              f"launches {per}", flush=True)
+        check(per == want, f"step {step + 1}: launches {per} != {want}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for k in ("qmatmul_fused", "qmatmul_fused_emitq", "qmatmul_bwd_pair"):
+        check(launches[k] > 0, f"kernel {k} was not launched by the trainer")
+    _profile_step(step_fn, state, next(data), min(step_ms[1:]))
+    from repro_torch.train import optimizer as O
+
+    grads = O.tree_map(torch.zeros_like, state["params"])
+    no_skip = torch.zeros((), dtype=torch.bool, device=dev)
+    opt_ms = cuda_time(lambda: O.adamw_update(state["params"], grads,
+                                              state["opt"], tc.opt,
+                                              skip=no_skip), reps=1, warmup=1)
+    print(f"[train] the AdamW update alone (in place, {param_count(grads) / 1e6:.1f}M"
+          f" f32 parameters): {opt_ms:.1f} ms", flush=True)
+    del grads
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train] {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; steady step {min(step_ms[1:]):.1f} ms "
+          f"({tokens / min(step_ms[1:]) * 1e3:.1f} tokens/s); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; launches {launches}", flush=True)
+    del state
+    return dict(launches=launches, losses=losses, step_ms=step_ms, peak=peak)
+
+
+def _profile_step(step_fn, state, batch, step_ms: float) -> None:
+    """One more step under ``torch.profiler``: device time by kernel, and
+    the kernels' summed time against ``step_ms``, a step's wall time
+    measured without the profiler (kernels run one at a time on one
+    stream, so their sum is the device's busy time)."""
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+        rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+    except Exception as exc:  # the profiler is a reading, not a check
+        print(f"[train] profile: not measured ({type(exc).__name__}: {exc})",
+              flush=True)
+        return
+    busy = sum(r[0] for r in rows)
+    print(f"[train] profile of one step: kernels {busy:.1f} ms in all "
+          f"({len(rows)} kernel names), {busy / step_ms:.3f} of the steady "
+          f"step's {step_ms:.1f} ms (device idle share "
+          f"{1 - busy / step_ms:.3f})", flush=True)
+    for ms, count, key in sorted(rows, reverse=True)[:12]:
+        print(f"  profile {ms:9.3f} ms {count:6d} x {key[:90]}", flush=True)
+
+
+def phase_train_vs_plain(dev) -> None:
+    """One step of a 2-layer cut of qwen2-1.5b at full width (batch 2 x
+    seq 64): loss and every gradient through the kernels, then through
+    their plain versions on the same card, bitwise."""
+    from repro_torch.models.api import get_model
+    from repro_torch.train.loop import _grads, compute_copy
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = _train_cfg(n_layers=2, batch=2)
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    params = model.init_params(gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, TRAIN_SEQ), generator=gen,
+                           device=dev, dtype=torch.int32)
+
+    def step():
+        c = compute_copy(params)
+        loss, _ = model.loss_fn(c, {"tokens": tokens}, cfg)
+        loss.backward()
+        return loss.detach(), _grads(c, params)
+
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    lk, gk = step()
+    used = {k: fn.launches for k, fn in counters.items()}
+    with plain_versions():
+        t0 = time.perf_counter()
+        lp, gp = step()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    leaves = list(zip(tree_leaves(gk), tree_leaves(gp)))
+    same = sum(bool(torch.equal(a, b)) for a, b in leaves)
+    err = max(float((a - b).abs().max()) for a, b in leaves)
+    print(f"[train] kernels vs plain, 2 layers at full width, batch 2 x seq "
+          f"{TRAIN_SEQ}: loss {float(lk):.6f} vs {float(lp):.6f}; "
+          f"{same}/{len(leaves)} gradient leaves bitwise equal (max |err| "
+          f"{err:.3g}); kernel launches {used}; plain step {plain_s:.1f} s",
+          flush=True)
+    check(used["qmatmul_fused_emitq"] > 0 and used["qmatmul_bwd_pair"] > 0,
+          "the kernel step launched no E or B")
+    check(torch.equal(lk, lp), "loss differs between kernels and plain")
+    check(same == len(leaves), "a gradient differs between kernels and plain")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -608,6 +1036,14 @@ def main() -> None:
           "identical", flush=True)
     check(same == len(prompts), "chunked prefill changed a token stream")
     phase_logits(cfg, params, dev, prompts[0])
+    del params
+    torch.cuda.empty_cache()
+
+    tk = phase_train_kernels(dev)
+    torch.cuda.empty_cache()
+    tr = phase_train(dev)
+    torch.cuda.empty_cache()
+    phase_train_vs_plain(dev)
 
     kernels = [
         dict(name="qmatmul_fused", route="cuda",
@@ -624,6 +1060,20 @@ def main() -> None:
              source="src/repro_torch/csrc/paged_prefill.cu",
              replaces="src/repro/kernels/attention.py:930",
              launches=one["launches"]["flash_prefill_paged"], **p),
+        dict(name="qmatmul_fused_emitq", route="cuda",
+             source="src/repro_torch/csrc/qgemm.cu",
+             replaces="src/repro/kernels/fused.py:136",
+             launches=tr["launches"]["qmatmul_fused_emitq"], **tk["E"]),
+        dict(name="qmatmul_bwd_pair", route="cuda",
+             source="src/repro_torch/csrc/bwd_pair.cu",
+             replaces="src/repro/kernels/bwd_pair.py:96",
+             launches=tr["launches"]["qmatmul_bwd_pair"], **tk["B"]),
+        # the dx carry-in entry: the trainer makes one unsplit B call per
+        # layer (no VMEM slab to fit), so it is not launched on the path
+        dict(name="qmatmul_bwd_pair_seg", route="cuda",
+             source="src/repro_torch/csrc/bwd_pair.cu",
+             replaces="src/repro/kernels/bwd_pair.py:155",
+             launches=tr["launches"]["qmatmul_bwd_pair_seg"], **tk["K7"]),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,8 @@
 """AccumulationPolicy: per-GEMM accumulator formats from the VRR solver.
 
-Counterpart of ``repro.core.policy`` for the serving slice: the ``exact``
-and ``predicted`` modes and ``plan_for_model``, which builds a
-``QuantPlan`` of the port's ``QDotConfig`` per dense GEMM type.
+Counterpart of ``repro.core.policy``: the ``exact``, ``predicted`` and
+``perturbed`` modes (the paper's PP sweep) and ``plan_for_model``, which
+builds a ``QuantPlan`` of the port's ``QDotConfig`` per dense GEMM type.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from repro_torch.quant.formats import FP8_152, FPFormat
 
 __all__ = ["GEMMPrecision", "AccumulationPolicy", "plan_for_model"]
 
-MODES = ("exact", "predicted")
+MODES = ("exact", "predicted", "perturbed")
 
 
 @dataclass(frozen=True)
@@ -34,13 +34,20 @@ class GEMMPrecision:
 @dataclass(frozen=True)
 class AccumulationPolicy:
     """``mode="exact"``: native wide accumulation everywhere.
-    ``mode="predicted"``: the solver's narrowest suitable width (PP = 0)."""
+    ``mode="predicted"``: the solver's narrowest suitable width (PP = 0).
+    ``mode="perturbed"``: the solver's width plus ``perturbation`` bits
+    (negative = fewer), clamped to [1, M_ACC_CARRIER]."""
 
     mode: str = "exact"
     m_p: int = 5          # (1,5,2) x (1,5,2) products carry 5 mantissa bits
     chunk: int = 64
+    perturbation: int = 0
     nzr: float = 1.0
     e_acc: int = 6
+
+    # the narrow carry lives in an f32 register: its mantissa cannot be
+    # wider than f32's 23 bits
+    M_ACC_CARRIER = 23
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -52,7 +59,12 @@ class AccumulationPolicy:
             return None
         m = min_m_acc(n, self.m_p, chunked=self.chunk > 0,
                       chunk=self.chunk or 64, nzr=self.nzr)
+        if self.mode == "perturbed":
+            m = min(max(m + self.perturbation, 1), self.M_ACC_CARRIER)
         return GEMMPrecision(m_acc=m, e_acc=self.e_acc, chunk=self.chunk)
+
+    def perturbed(self, pp: int) -> "AccumulationPolicy":
+        return replace(self, mode="perturbed", perturbation=pp)
 
 
 def plan_for_model(cfg, *, seq_len: int, global_batch: int,

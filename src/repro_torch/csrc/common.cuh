@@ -51,6 +51,22 @@ __device__ __forceinline__ float unpack_code(int8_t code, int e, int m) {
   return __uint_as_float((sign << 31) | mag);
 }
 
+// float -> int8 code, the exact inverse of unpack_code on (1, e, m) values
+// and bitwise repro_torch.quant.qtensor.pack_block on every float: the
+// mantissa is truncated (quantize first), zero, subnormal and non-finite
+// inputs pack to signed zero, and an exponent outside the format wraps in
+// the low 8 bits exactly as pack_block's integer arithmetic does.
+__device__ __forceinline__ int8_t pack_code(float x, int e, int m) {
+  const unsigned xi = __float_as_uint(x);
+  const unsigned sign = xi >> 31;
+  const unsigned ieee_exp = (xi >> 23) & 0xffu;
+  const unsigned bias = (1u << (e - 1)) - 1u;
+  const bool normal = ieee_exp != 0u && ieee_exp != 0xffu;
+  const unsigned ef = normal ? ieee_exp - (127u - bias - 1u) : 0u;
+  const unsigned man = normal ? (xi >> (23 - m)) & ((1u << m) - 1u) : 0u;
+  return (int8_t)(uint8_t)(((sign << (e + m)) | (ef << m) | man) & 0xffu);
+}
+
 // 2^se for an integer page scale exponent (|se| <= 120), exact.
 __device__ __forceinline__ float exp2_int(int se) {
   return __uint_as_float((unsigned)(se + 127) << 23);

@@ -47,7 +47,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import exp2_int, qfmt_params, quantize_block
+from repro_torch.kernels.common import exp2_int, qfmt_args, quantize_block
 from repro_torch.quant.formats import fmt_tuple
 from repro_torch.quant.qtensor import unpack_block
 
@@ -176,10 +176,6 @@ def _launch_limits(g, dh, page_size):
             f"{MAX_PAGE}; got dh={dh}, g={g}, page_size={page_size}")
 
 
-def _qfmt_args(acc):
-    identity, shift, maxv, minn = qfmt_params(*acc)
-    return (int(identity), shift, ctypes.c_float(maxv), ctypes.c_float(minn))
-
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -258,7 +254,7 @@ def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
         k_se.data_ptr(), v_se.data_ptr(), page_table.data_ptr(),
         page_table.shape[1], seq_lens.data_ptr(), out.data_ptr(),
         b, kv, h // kv, page_size, dh, ctypes.c_float(float(_scale(dh))),
-        *fmt, *_qfmt_args(acc), torch.cuda.current_stream(q.device).cuda_stream)
+        *fmt, *qfmt_args(acc), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode launch failed: CUDA error {rc}")
     paged_attn_decode.launches += 1
@@ -363,7 +359,7 @@ def flash_prefill_paged(q, k_pages, v_pages, k_se, v_se, page_row,
         k_se.data_ptr(), v_se.data_ptr(), page_row.data_ptr(), out.data_ptr(),
         t, h, kv, page_size, dh, int(q_offset), int(q_len), int(kv_len),
         int(start_page), ctypes.c_float(float(_scale(dh))), *fmt,
-        *_qfmt_args(acc), torch.cuda.current_stream(q.device).cuda_stream)
+        *qfmt_args(acc), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_prefill launch failed: CUDA error {rc}")
     flash_prefill_paged.launches += 1

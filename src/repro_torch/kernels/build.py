@@ -27,13 +27,15 @@ __all__ = ["KERNELS", "build_all", "library", "function", "BUILD_DIR",
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
-# kernel name -> source file in csrc/ (each includes common.cuh)
+# kernel library name -> source file in csrc/ (each includes common.cuh;
+# qgemm.cu, G and E, and bwd_pair.cu, B, share qgemm_core.cuh)
 KERNELS = {
     "qgemm": "qgemm.cu",
+    "bwd_pair": "bwd_pair.cu",
     "paged_decode": "paged_decode.cu",
     "paged_prefill": "paged_prefill.cu",
 }
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "qgemm_core.cuh")
 
 # --fmad=false: no multiply-add is contracted behind the source's back;
 # the kernels call __fmaf_rn where a fused multiply-add is intended.

@@ -11,9 +11,12 @@ carry of a NaN payload from overflowing.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-__all__ = ["quantize_block", "qfmt_params", "pad2d", "exp2_int"]
+__all__ = ["quantize_block", "qfmt_params", "qfmt_args", "pad2d",
+           "exp2_int"]
 
 
 def qfmt_params(e: int, m: int) -> tuple[bool, int, float, float]:
@@ -24,6 +27,13 @@ def qfmt_params(e: int, m: int) -> tuple[bool, int, float, float]:
     max_value = float(2.0 ** (2 ** (e - 1) - 1) * (2.0 - 2.0 ** (-m)))
     min_normal = float(2.0 ** -(2 ** (e - 1) - 1))
     return identity, max(23 - m, 0), max_value, min_normal
+
+
+def qfmt_args(fmt) -> tuple:
+    """``qfmt_params`` of ``fmt`` = (e, m) as the C arguments of a
+    ``QFmt`` (``csrc/common.cuh``): int, int, c_float, c_float."""
+    identity, shift, maxv, minn = qfmt_params(*fmt)
+    return (int(identity), shift, ctypes.c_float(maxv), ctypes.c_float(minn))
 
 
 def _as_float(bits: torch.Tensor) -> torch.Tensor:

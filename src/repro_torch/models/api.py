@@ -1,6 +1,7 @@
 """Model API: the launcher-facing model and the paged serving protocol.
 
-Counterpart of ``repro.models.api`` for the dense family's serving path.
+Counterpart of ``repro.models.api`` for the dense family: training
+(``Model.loss_fn``), the GEMM work-list ``dense_gemm_shapes`` and serving.
 """
 
 from __future__ import annotations
@@ -11,21 +12,53 @@ from typing import Any, Callable
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["Model", "get_model", "PagedModel", "get_paged_model",
-           "paged_init_state", "PrefillRequest", "DecodeRequest"]
+__all__ = ["Model", "get_model", "param_count", "dense_gemm_shapes",
+           "PagedModel", "get_paged_model", "paged_init_state",
+           "PrefillRequest", "DecodeRequest"]
 
 
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
     init_params: Callable  # (generator, device) -> params
+    loss_fn: Callable      # (params, batch, cfg) -> (loss, metrics)
 
 
 def get_model(cfg: ModelConfig) -> Model:
     lm._check_paged(cfg)
     return Model(cfg=cfg,
                  init_params=lambda gen, device: lm.init_params(cfg, gen,
-                                                                device))
+                                                                device),
+                 loss_fn=lm.loss_fn)
+
+
+def param_count(params: Any) -> int:
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    return params.numel()
+
+
+def dense_gemm_shapes(cfg: ModelConfig, *, seq_len: int, global_batch: int
+                      ) -> list[tuple[str, int, int, int, Any]]:
+    """Every quantized dense GEMM of one layer, and the lm_head, as (tag, M,
+    K, N, qcfg): M the tokens of a step, K/N the fan-in/fan-out, ``qcfg``
+    the layer's ``QDotConfig`` from the plan (exact GEMMs are left out).
+    The lm_head comes first, then one layer's GEMMs in the order it runs
+    them."""
+    t = seq_len * global_batch
+    d, dh = cfg.d_model, cfg.head_dim
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    f = cfg.d_ff or d
+    q = cfg.quant
+    entries = [("lm_head", t, d, cfg.vocab_size, q.lm_head),
+               ("attn_q", t, d, h * dh, q.attn_qkv),
+               ("attn_k", t, d, kv * dh, q.attn_qkv),
+               ("attn_v", t, d, kv * dh, q.attn_qkv),
+               ("attn_out", t, h * dh, d, q.attn_out),
+               ("mlp_gate", t, d, f, q.mlp_up),
+               ("mlp_up", t, d, f, q.mlp_up),
+               ("mlp_down", t, f, d, q.mlp_down)]
+    return [e for e in entries if e[4] is not None and not e[4].is_exact]
 
 
 @dataclass(frozen=True)

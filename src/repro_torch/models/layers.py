@@ -1,9 +1,11 @@
 """Layer functions of the dense decoder (plain functions on tensors).
 
-Counterpart of ``repro.models.layers`` for the serving slice.  Params are
-nested dicts of tensors; compute is bf16 with float32 where the JAX
-package uses it.  Every dense GEMM goes through ``dense``, which runs the
-fused quantized GEMM when the model's QuantPlan assigns a config.
+Counterpart of ``repro.models.layers`` for the dense family: training
+attention (``attn_apply``), the paged serving entries and the SwiGLU MLP.
+Params are nested dicts of tensors; compute is bf16 with float32 where the
+JAX package uses it.  Every dense GEMM goes through ``dense``, which runs
+the differentiable quantized ``qdot`` when the model's QuantPlan assigns a
+config.
 """
 
 from __future__ import annotations
@@ -110,6 +112,43 @@ def _kv_proj(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return rope(k, positions, cfg.rope_theta), v
 
 
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c as a true division on every backend (PyTorch on CUDA multiplies
+    by the reciprocal of a Python-number divisor, one bit off at times)."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def _gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """q (b, s, h, dh), k/v (b, t, kv, dh) bf16; ``mask`` broadcastable to
+    (b, kv, g, s, t).  Scores and p.v accumulate in f32 (products of
+    bf16 are exact in f32), the softmax runs in f32 and the probabilities
+    are rounded to bf16, as the JAX package's einsums with
+    ``preferred_element_type=float32`` do.  Returns (b, s, h*dh) bf16."""
+    b, s, h, dh = q.shape
+    kv = cfg.n_kv_heads
+    g = h // kv
+    qg = q.reshape(b, s, kv, g, dh).to(torch.float32)
+    sc = torch.einsum("bskgd,btkd->bkgst", qg, k.to(torch.float32))
+    sc = torch.where(mask, true_div(sc, math.sqrt(dh)), -math.inf)
+    w = torch.softmax(sc, dim=-1).to(COMPUTE_DTYPE)
+    o = torch.einsum("bkgst,btkd->bskgd", w.to(torch.float32),
+                     v.to(torch.float32))
+    return o.to(COMPUTE_DTYPE).reshape(b, s, h * dh)
+
+
+def attn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+               positions: torch.Tensor) -> torch.Tensor:
+    """Causal (training) self-attention over x (B, S, D) at ``positions``
+    (B, S); plain PyTorch ops, differentiable."""
+    k, v = _kv_proj(p, x, cfg, positions)
+    m = positions[:, :, None] >= positions[:, None, :]          # (B, S, S)
+    mask = m[:, None, None]                                     # (B,1,1,S,S)
+    q = _q_proj(p, x, cfg, positions)
+    o = _gqa_attend(q, k, v, mask, cfg)
+    return dense(o, p["wo"], cfg.quant.attn_out)
+
+
 def attn_decode_paged(p: Params, x: torch.Tensor, kv: dict[str, torch.Tensor],
                       page_table: torch.Tensor, positions: torch.Tensor,
                       seq_lens: torch.Tensor, cfg: ModelConfig, *, kv_fmt,
@@ -165,11 +204,33 @@ def attn_prefill_bucketed(p: Params, x: torch.Tensor,
     return dense(o, p["wo"], cfg.quant.attn_out)
 
 
+def _logistic(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)), every op rounded to x's dtype: XLA's expansion of
+    ``lax.logistic`` (``torch.sigmoid`` rounds once instead)."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+class _SiLU(torch.autograd.Function):
+    """x * logistic(x) whose backward is JAX's: ``lax.logistic``'s
+    derivative is g * (ans * (1 - ans)), and the product rule adds
+    g * ans, every op in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = _logistic(x)
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (x * g) * (s * (1.0 - s))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """x * logistic(x) with logistic(x) = 1 / (1 + exp(-x)), every op
-    rounded to x's dtype: the JAX package's bf16 ``jax.nn.silu`` as XLA
-    evaluates it (``torch.nn.functional.silu`` rounds once instead)."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    """x * logistic(x) as the JAX package's bf16 ``jax.nn.silu`` evaluates
+    it, forward and backward (see ``_logistic`` and ``_SiLU``)."""
+    return _SiLU.apply(x)
 
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -189,3 +189,133 @@ def test_smoke_engine_on_gpu_matches_cpu(dev):
                 else t.to(d))
 
     assert run(dev, to(params, dev)) == run("cpu", params)
+
+
+# --------------------------------------------------------------------------
+# training: E (forward + codes), B (backward pair) and pack_code
+# --------------------------------------------------------------------------
+
+
+def test_pack_code_matches_pack_block(dev):
+    """E's codes are pack_code(quantize(a)): every one of the 256 codes (as
+    its value), and specials: +-0, +-inf and overflow (saturate), NaN
+    (packs to signed zero), values below the smallest normal (flush)."""
+    from repro_torch.quant.qtensor import unpack_block
+
+    codes = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)
+    vals = unpack_block(codes, 5, 2)
+    specials = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                             float("nan"), 1e9, -1e9, 3e-5, -3e-5, 1e-40,
+                             57344.0, 65535.0, 2.0 ** -15, 0.1])
+    a = torch.cat([vals, specials])[None].to(dev)
+    b = torch.zeros((a.shape[1], 1), device=dev)
+    _, aq, _ = qmatmul_fused(a, b, repr_fmt=FP8_152, e_acc=6, m_acc=5,
+                             block_k=64, return_quantized=True)
+    want = pack_block(quantize_block(a.cpu(), 5, 2), 5, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(aq.cpu(), want)
+    # a code with a nonzero exponent field comes back as itself (field 0 is
+    # +-0 whatever the mantissa, and packs as the bare sign)
+    live = ((codes.to(torch.int32) >> 2) & 31) != 0
+    assert torch.equal(aq.cpu()[0, :256][live], codes[live])
+
+
+@pytest.mark.parametrize("t,k,n,w_bf16", [
+    (512, 1536, 256, True), (64, 200, 75, False), (8, 96, 130, True)])
+def test_emitq_kernel_matches_plain(dev, t, k, n, w_bf16):
+    from repro_torch.kernels.fused import qmatmul_fused_emitq
+
+    gen = torch.Generator(device=dev).manual_seed(t + k + n)
+    kw = dict(repr_fmt=FP8_152, e_acc=6, m_acc=5, block_k=64)
+    for lattice in (False, True):
+        a = (_lattice(gen, (t, k), dev) if lattice
+             else torch.randn((t, k), generator=gen, device=dev))
+        b = (_lattice(gen, (k, n), dev) if lattice
+             else torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k))
+        b = b.to(torch.bfloat16) if w_bf16 else b
+        n0 = qmatmul_fused_emitq.launches
+        got = qmatmul_fused(a, b, return_quantized=True, **kw)
+        want = qmatmul_fused_reference(a, b, return_quantized=True, **kw)
+        torch.cuda.synchronize()
+        assert qmatmul_fused_emitq.launches == n0 + 1
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        if lattice:
+            assert torch.equal(got[0], want[0])
+        else:
+            assert _ulps(got[0], want[0], 5, 6) <= 1.0
+
+
+@pytest.mark.parametrize("t,k,n,packed", [
+    (512, 1536, 256, True), (96, 130, 200, True), (64, 1536, 1000, False)])
+def test_bwd_pair_kernel_matches_plain(dev, t, k, n, packed):
+    """B against its plain version, packed residuals and the raw lm_head
+    (f32 x, bf16 w behind the embed.T view); the chained dx carry (K7)
+    bitwise the unsplit call."""
+    from repro_torch.kernels.bwd_pair import (
+        qmatmul_bwd_pair, qmatmul_bwd_pair_reference, qmatmul_bwd_pair_seg)
+
+    gen = torch.Generator(device=dev).manual_seed(t * 3 + n)
+    acc = (6, 5) if packed else (6, 9)
+    rf = FP8_152 if packed else None
+    kw = dict(repr_fmt=rf, bwd_acc=acc, grad_acc=acc, bwd_chunk=64,
+              grad_chunk=64, packed=packed, quantize_g=packed)
+    for lattice in (False, True):
+        mk = (lambda s: _lattice(gen, s, dev)) if lattice else (
+            lambda s: torch.randn(s, generator=gen, device=dev))
+        g, x = mk((t, n)), mk((t, k))
+        if packed:
+            _, xq, wq = qmatmul_fused(x, mk((k, n)) / 8, repr_fmt=FP8_152,
+                                      return_quantized=True)
+        else:
+            xq, wq = x, (mk((n, k)) / 8).to(torch.bfloat16).T
+        got = qmatmul_bwd_pair(g, xq, wq, **kw)
+        want = qmatmul_bwd_pair_reference(g, xq, wq, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            if lattice:
+                assert torch.equal(a, b)
+            else:
+                assert _ulps(a, b, acc[1], acc[0]) <= 1.0
+        cut = 64 * (n // 128)
+        n0 = qmatmul_bwd_pair_seg.launches
+        dx0, dw0 = qmatmul_bwd_pair(g[:, :cut], xq, wq[:, :cut], **kw)
+        dx1, dw1 = qmatmul_bwd_pair(g[:, cut:], xq, wq[:, cut:],
+                                    dx_carry=dx0, n_offset=cut, **kw)
+        torch.cuda.synchronize()
+        assert qmatmul_bwd_pair_seg.launches == n0 + 1
+        assert torch.equal(dx1, got[0])
+        assert torch.equal(torch.cat([dw0, dw1], 1), got[1])
+
+
+def test_train_step_kernels_match_plain(dev):
+    """One training step of the smoke model on the card, through the
+    kernels and then through their plain versions (``chip_smoke``'s
+    ``plain_versions``): bitwise loss and gradients."""
+    from chip_smoke import plain_versions
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.policy import AccumulationPolicy, plan_for_model
+    from repro_torch.models.api import get_model
+    from repro_torch.train.loop import _grads, compute_copy
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = plan_for_model(get_smoke_config("qwen2-1.5b"), seq_len=32,
+                         global_batch=4,
+                         policy=AccumulationPolicy(mode="predicted", chunk=16))
+    model = get_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (4, 32)).astype(np.int32)).to(dev)
+
+    def step():
+        c = compute_copy(params)
+        loss, _ = model.loss_fn(c, {"tokens": tokens}, cfg)
+        loss.backward()
+        return loss.detach(), _grads(c, params)
+
+    lk, gk = step()
+    with plain_versions():
+        lp, gp = step()
+    torch.cuda.synchronize()
+    assert torch.equal(lk, lp)
+    for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+        assert torch.equal(a, b)

@@ -31,7 +31,7 @@ from repro_torch.kernels.attention import (
 from repro_torch.kernels.common import quantize_block
 from repro_torch.kernels.fused import qmatmul_fused, qmatmul_fused_reference
 from repro_torch.kernels.ops import QDotConfig, qdot
-from repro_torch.quant.formats import FP8_152
+from repro_torch.quant.formats import FP8_152, FPFormat
 from repro_torch.quant.qtensor import pack_block
 
 
@@ -117,19 +117,38 @@ def test_gemm_plain_within_one_ulp_on_random(m, k, n, chunk, rf, e_acc, m_acc):
 
 
 def test_qdot_reshapes_and_refuses_grad():
+    """``qdot`` flattens the leading axes; with a gradient to take it runs
+    the backward pair (dx over N, dw over T, in the plain versions' order)
+    and refuses only a representation whose residual codes would not fit
+    in 8 bits."""
     rng = np.random.RandomState(1)
     x = torch.from_numpy(rng.randn(2, 3, 48).astype(np.float32))
     w = torch.from_numpy(rng.randn(48, 20).astype(np.float32))
     from repro_torch.core.policy import GEMMPrecision
+    from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair_reference
 
-    cfg = QDotConfig(fwd=GEMMPrecision(m_acc=5, chunk=16), repr_fmt=FP8_152)
+    p = GEMMPrecision(m_acc=5, chunk=16)
+    cfg = QDotConfig(fwd=p, bwd=p, grad=p, repr_fmt=FP8_152)
     y = qdot(x, w, cfg)
     assert y.shape == (2, 3, 20) and y.dtype == torch.float32
     ref = qmatmul_fused_reference(x.reshape(6, 48), w, repr_fmt=FP8_152,
                                   e_acc=6, m_acc=5, block_k=16)
     np.testing.assert_array_equal(_bits(y.reshape(6, 20)), _bits(ref))
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    yg = qdot(xg, wg, cfg)
+    np.testing.assert_array_equal(_bits(yg.detach()), _bits(y))
+    g = torch.from_numpy(rng.randn(2, 3, 20).astype(np.float32))
+    yg.backward(g)
+    xq = pack_block(quantize_block(x.reshape(6, 48), 5, 2), 5, 2)
+    wq = pack_block(quantize_block(w, 5, 2), 5, 2)
+    dx, dw = qmatmul_bwd_pair_reference(
+        g.reshape(6, 20), xq, wq, repr_fmt=FP8_152, bwd_acc=(6, 5),
+        grad_acc=(6, 5), bwd_chunk=16, grad_chunk=16, packed=True)
+    np.testing.assert_array_equal(_bits(xg.grad.reshape(6, 48)), _bits(dx))
+    np.testing.assert_array_equal(_bits(wg.grad), _bits(dw))
+    wide = QDotConfig(fwd=p, repr_fmt=FPFormat(5, 7))
     with pytest.raises(NotImplementedError):
-        qdot(x.requires_grad_(), w, cfg)
+        qdot(x.requires_grad_(), w, wide)
 
 
 # --------------------------------------------------------------------------

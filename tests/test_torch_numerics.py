@@ -215,8 +215,11 @@ def _fmt(f):
     return None if f is None else (f.e, f.m)
 
 
-@pytest.mark.parametrize("mode", ["exact", "predicted"])
+@pytest.mark.parametrize("mode", ["exact", "predicted", "perturbed"])
 def test_plan_for_model_matches_jax(mode):
+    """Every role of every GEMM type gets the JAX plan's format; the
+    perturbed mode (the paper's PP sweep) at every PP in -4..+4, including
+    the clamps at 1 and at the f32 carrier's 23 bits."""
     from repro.configs import get_config as jget
     from repro.core.policy import AccumulationPolicy as JPol
     from repro.core.policy import plan_for_model as jplan
@@ -224,23 +227,33 @@ def test_plan_for_model_matches_jax(mode):
     from repro_torch.core.policy import AccumulationPolicy as TPol
     from repro_torch.core.policy import plan_for_model as tplan
 
-    jq = jplan(jget("qwen2-1.5b"), seq_len=416, global_batch=8,
-               policy=JPol(mode=mode, chunk=64)).quant
-    tq = tplan(tget("qwen2-1.5b"), seq_len=416, global_batch=8,
-               policy=TPol(mode=mode, chunk=64)).quant
-    for name in ("attn_qkv", "attn_out", "mlp_up", "mlp_down", "lm_head"):
-        j, t = getattr(jq, name), getattr(tq, name)
-        if j is None:
-            assert t is None, name
-            continue
-        assert [_prec(getattr(t, r)) for r in ("fwd", "bwd", "grad")] == \
-            [_prec(getattr(j, r)) for r in ("fwd", "bwd", "grad")], name
-        assert _fmt(t.repr_fmt) == _fmt(j.repr_fmt), name
-        assert _fmt(t.out_fmt) == _fmt(j.out_fmt), name
+    for pp in (range(-4, 5) if mode == "perturbed" else (0,)):
+        jq = jplan(jget("qwen2-1.5b"), seq_len=416, global_batch=8,
+                   policy=JPol(mode=mode, chunk=64, perturbation=pp)).quant
+        tq = tplan(tget("qwen2-1.5b"), seq_len=416, global_batch=8,
+                   policy=TPol(mode=mode, chunk=64, perturbation=pp)).quant
+        for name in ("attn_qkv", "attn_out", "mlp_up", "mlp_down", "lm_head"):
+            j, t = getattr(jq, name), getattr(tq, name)
+            if j is None:
+                assert t is None, name
+                continue
+            assert [_prec(getattr(t, r)) for r in ("fwd", "bwd", "grad")] == \
+                [_prec(getattr(j, r)) for r in ("fwd", "bwd", "grad")], \
+                (name, pp)
+            assert _fmt(t.repr_fmt) == _fmt(j.repr_fmt), name
+            assert _fmt(t.out_fmt) == _fmt(j.out_fmt), name
+        if mode == "perturbed":
+            base = TPol(mode="predicted", chunk=64).for_length(1536).m_acc
+            assert tq.attn_qkv.fwd.m_acc == max(base + pp, 1)
     if mode == "predicted":
         # the paper's subject: (1,6,5) carries on the attention/MLP GEMMs
         assert _prec(tq.attn_qkv.fwd) == (5, 6, 64)
         assert _prec(tq.lm_head.fwd) == (9, 6, 64)
+    for pp, want in ((-40, 1), (40, TPol.M_ACC_CARRIER)):
+        pol = TPol(mode="perturbed", chunk=64, perturbation=pp)
+        assert pol.for_length(1536).m_acc == want
+        assert JPol(mode="perturbed", chunk=64,
+                    perturbation=pp).for_length(1536).m_acc == want
 
 
 @pytest.mark.parametrize("chunk", [None, 64])
