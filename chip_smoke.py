@@ -19,9 +19,10 @@ on its own line:
 4. train kernels: E (the forward GEMM with int8 residual codes) and B
    (the backward pair) against their plain versions at every distinct
    layer shape of the training step (T = 512 tokens) and on a slice of
-   the tied lm_head, the lm_head's backward chained over 10 N segments
-   with the dx carry (K7) against the unsplit call, and one step's E and
-   B launches timed as a sequence;
+   the tied lm_head, the whole lm_head backward (T = 512, N = 151936)
+   unsplit and chained over 10 N segments with the dx carry (K7), both
+   against the unsplit call and the chained plain version (bitwise), and
+   one step's E and B launches timed as a sequence;
 5. train: qwen2-1.5b at full width and depth through the training
    launcher's set-up (predicted plan, chunk 64, batch 8 x seq 64, seeded
    f32 weights, ``SyntheticLM``), 6 AdamW steps at lr 1e-3 with 2 warmup
@@ -431,12 +432,22 @@ def phase_prefill(cfg, dev, plan) -> dict:
 
 
 def _counters():
+    """Kernel name -> (wrapper, attribute holding its launch count)."""
     from repro_torch.kernels.attention import flash_prefill_paged, paged_attn_decode
     from repro_torch.kernels.fused import qmatmul_fused
 
-    return {"qmatmul_fused": qmatmul_fused,
-            "paged_attn_decode": paged_attn_decode,
-            "flash_prefill_paged": flash_prefill_paged}
+    return {"qmatmul_fused": (qmatmul_fused, "launches"),
+            "paged_attn_decode": (paged_attn_decode, "launches"),
+            "flash_prefill_paged": (flash_prefill_paged, "launches")}
+
+
+def zero_counts(counters) -> None:
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def read_counts(counters) -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
 
 
 @contextmanager
@@ -501,14 +512,13 @@ def phase_serve(cfg, params, dev, prompts, prefill_chunk) -> dict:
     counters = _counters()
     eng = build_engine(cfg, params, dev, prefill_chunk)
     rids = [eng.submit(p, GEN) for p in prompts]
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = eng.run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = read_counts(counters)
     ex = eng.executor
     label = f"chunk={prefill_chunk or 'one-shot'}"
     print(f"[serve] {label}: {len(rids)} requests, prompts {list(PROMPT_LENS)}, "
@@ -634,9 +644,10 @@ def _b_cost(t, k, n, packed=True, w_bytes=1, x_bytes=1):
 def phase_train_kernels(dev) -> dict:
     """E and B against their plain versions at every distinct layer shape
     of the training step (T = 512 tokens) and on a 4096-column slice of
-    the tied lm_head; the lm_head's backward chained over the JAX
-    package's 10 N segments (K7) against the unsplit call; and one step's
-    worth of E and B launches timed as a sequence."""
+    the tied lm_head; the whole lm_head backward unsplit (B) and chained
+    over the JAX package's 10 N segments (K7), each against the other and
+    against the chained plain version, bitwise; and one step's worth of E
+    and B launches timed as a sequence."""
     from repro_torch.kernels.bwd_pair import (
         qmatmul_bwd_pair, qmatmul_bwd_pair_nsplit, qmatmul_bwd_pair_reference)
     from repro_torch.kernels.fused import qmatmul_fused, qmatmul_fused_reference
@@ -737,11 +748,23 @@ def phase_train_kernels(dev) -> dict:
           f"the unsplit call: {'bitwise equal' if seg_same else 'DIFFERENT'}",
           flush=True)
     check(seg_same, "chained dx_carry segments differ from the unsplit call")
-    del full, chained
+    plain = []
+    k7_plain = cuda_time(lambda: plain.append(_nsplit_plain(hg, hx, emb.T,
+                                                            hkw)),
+                         reps=1, warmup=0)
+    (pdx, pdw), = plain
+    k7_err = max(compare(f"K7 dx lm_head T={t} N={n} chained vs plain",
+                         chained[0], pdx, mb, eb, bitwise=True),
+                 compare(f"K7 dw lm_head T={t} N={n} chained vs plain",
+                         chained[1], pdw, mg, eg, bitwise=True))
+    b_err = max(b_err,
+                compare(f"B dx lm_head T={t} N={n} unsplit vs plain",
+                        full[0], pdx, mb, eb, bitwise=True),
+                compare(f"B dw lm_head T={t} N={n} unsplit vs plain",
+                        full[1], pdw, mg, eg, bitwise=True))
+    del full, chained, plain, pdx, pdw
     seg = lambda fn: fn(hg, hx, emb.T, n_split=HEAD_SEGMENTS, **hkw)  # noqa
     k7_ms = cuda_time(lambda: seg(qmatmul_bwd_pair_nsplit), reps=2, warmup=1)
-    k7_plain = cuda_time(lambda: _nsplit_plain(hg, hx, emb.T, hkw), reps=1,
-                         warmup=0)
     hxb, hgb, embt = hx.to(torch.bfloat16), hg.to(torch.bfloat16), emb.T
     head_lib = lambda: (torch.matmul(hgb, embt.T),  # noqa: E731
                         torch.matmul(hxb.T, hgb))
@@ -807,34 +830,40 @@ def phase_train_kernels(dev) -> dict:
                          bound_ms=b_ms, bound_by=b_by,
                          max_abs_err=e_err if name == "E" else b_err)
     out["K7"] = dict(ms=k7_ms, plain_ms=k7_plain, library_ms=k7_lib,
-                     bound_ms=k7_b, bound_by=k7_by, max_abs_err=0.0)
+                     bound_ms=k7_b, bound_by=k7_by, max_abs_err=k7_err)
     return out
 
 
 def _nsplit_plain(g, x, w, kw):
-    """The chained segments through the plain version."""
+    """The chained segments through the plain version: (dx, dw)."""
     from repro_torch.kernels.bwd_pair import (pair_segment_width,
                                               qmatmul_bwd_pair_reference)
 
     t, n = g.shape
     seg = pair_segment_width(n, HEAD_SEGMENTS, kw["bwd_chunk"])
     dx = torch.zeros((t, x.shape[1]), dtype=torch.float32, device=g.device)
+    dws = []
     for lo in range(0, n, seg):
         hi = min(lo + seg, n)
-        dx, _ = qmatmul_bwd_pair_reference(g[:, lo:hi], x, w[:, lo:hi],
-                                           dx_carry=dx, n_offset=lo, **kw)
-    return dx
+        dx, dw = qmatmul_bwd_pair_reference(g[:, lo:hi], x, w[:, lo:hi],
+                                            dx_carry=dx, **kw)
+        dws.append(dw)
+    return dx, torch.cat(dws, dim=1)
+
+
+E_NAME = "qmatmul_fused(return_quantized)"     # kernel E
+K7_NAME = "qmatmul_bwd_pair(dx_carry)"          # B's carry-in entry
 
 
 def _train_counters():
-    from repro_torch.kernels.bwd_pair import (qmatmul_bwd_pair,
-                                              qmatmul_bwd_pair_seg)
-    from repro_torch.kernels.fused import qmatmul_fused, qmatmul_fused_emitq
+    """G, E, B and B's dx carry-in entry (K7), as ``_counters``."""
+    from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
+    from repro_torch.kernels.fused import qmatmul_fused
 
-    return {"qmatmul_fused": qmatmul_fused,
-            "qmatmul_fused_emitq": qmatmul_fused_emitq,
-            "qmatmul_bwd_pair": qmatmul_bwd_pair,
-            "qmatmul_bwd_pair_seg": qmatmul_bwd_pair_seg}
+    return {"qmatmul_fused": (qmatmul_fused, "launches"),
+            E_NAME: (qmatmul_fused, "emitq_launches"),
+            "qmatmul_bwd_pair": (qmatmul_bwd_pair, "launches"),
+            K7_NAME: (qmatmul_bwd_pair, "carry_launches")}
 
 
 def phase_train(dev) -> dict:
@@ -857,10 +886,10 @@ def phase_train(dev) -> dict:
     tokens = TRAIN_SEQ * TRAIN_BATCH
     n_layer_gemms = len(dense_gemm_shapes(cfg, seq_len=TRAIN_SEQ,
                                           global_batch=TRAIN_BATCH)) - 1
-    want = {"qmatmul_fused_emitq": n_layer_gemms * cfg.n_layers,
+    want = {E_NAME: n_layer_gemms * cfg.n_layers,
             "qmatmul_fused": 1,
             "qmatmul_bwd_pair": n_layer_gemms * cfg.n_layers + 1,
-            "qmatmul_bwd_pair_seg": 0}
+            K7_NAME: 0}
     print(f"[train] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{param_count(state['params']) / 1e6:.1f}M params (f32 masters), "
@@ -870,15 +899,14 @@ def phase_train(dev) -> dict:
     losses, step_ms, launches = [], [], {k: 0 for k in counters}
     for step in range(TRAIN_STEPS):
         batch = next(data)
-        for fn in counters.values():
-            fn.launches = 0
+        zero_counts(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step_fn(state, batch)
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) * 1e3
-        per = {k: fn.launches for k, fn in counters.items()}
+        per = read_counts(counters)
         for k, v in per.items():
             launches[k] += v
         losses.append(loss)
@@ -892,7 +920,7 @@ def phase_train(dev) -> dict:
         check(per == want, f"step {step + 1}: launches {per} != {want}")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    for k in ("qmatmul_fused", "qmatmul_fused_emitq", "qmatmul_bwd_pair"):
+    for k in ("qmatmul_fused", E_NAME, "qmatmul_bwd_pair"):
         check(launches[k] > 0, f"kernel {k} was not launched by the trainer")
     _profile_step(step_fn, state, next(data), min(step_ms[1:]))
     from repro_torch.train import optimizer as O
@@ -966,10 +994,9 @@ def phase_train_vs_plain(dev) -> None:
         return loss.detach(), _grads(c, params)
 
     counters = _train_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     lk, gk = step()
-    used = {k: fn.launches for k, fn in counters.items()}
+    used = read_counts(counters)
     with plain_versions():
         t0 = time.perf_counter()
         lp, gp = step()
@@ -983,7 +1010,7 @@ def phase_train_vs_plain(dev) -> None:
           f"{same}/{len(leaves)} gradient leaves bitwise equal (max |err| "
           f"{err:.3g}); kernel launches {used}; plain step {plain_s:.1f} s",
           flush=True)
-    check(used["qmatmul_fused_emitq"] > 0 and used["qmatmul_bwd_pair"] > 0,
+    check(used[E_NAME] > 0 and used["qmatmul_bwd_pair"] > 0,
           "the kernel step launched no E or B")
     check(torch.equal(lk, lp), "loss differs between kernels and plain")
     check(same == len(leaves), "a gradient differs between kernels and plain")
@@ -1060,20 +1087,20 @@ def main() -> None:
              source="src/repro_torch/csrc/paged_prefill.cu",
              replaces="src/repro/kernels/attention.py:930",
              launches=one["launches"]["flash_prefill_paged"], **p),
-        dict(name="qmatmul_fused_emitq", route="cuda",
+        dict(name=E_NAME, route="cuda",
              source="src/repro_torch/csrc/qgemm.cu",
              replaces="src/repro/kernels/fused.py:136",
-             launches=tr["launches"]["qmatmul_fused_emitq"], **tk["E"]),
+             launches=tr["launches"][E_NAME], **tk["E"]),
         dict(name="qmatmul_bwd_pair", route="cuda",
              source="src/repro_torch/csrc/bwd_pair.cu",
              replaces="src/repro/kernels/bwd_pair.py:96",
              launches=tr["launches"]["qmatmul_bwd_pair"], **tk["B"]),
         # the dx carry-in entry: the trainer makes one unsplit B call per
         # layer (no VMEM slab to fit), so it is not launched on the path
-        dict(name="qmatmul_bwd_pair_seg", route="cuda",
+        dict(name=K7_NAME, route="cuda",
              source="src/repro_torch/csrc/bwd_pair.cu",
              replaces="src/repro/kernels/bwd_pair.py:155",
-             launches=tr["launches"]["qmatmul_bwd_pair_seg"], **tk["K7"]),
+             launches=tr["launches"][K7_NAME], **tk["K7"]),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -20,7 +20,7 @@ with the previous segment's dx as its carry, is bitwise the unsplit call
 (``qmatmul_bwd_pair_nsplit``, the counterpart of the TPU's VMEM-driven
 split).  Hopper has no dw slab to fit, so the port's training step makes
 one unsplit call per layer; the carry entry is counted apart, on
-``qmatmul_bwd_pair_seg.launches``.
+``qmatmul_bwd_pair.carry_launches``.
 
 What bounds it on the H100: the f32 arithmetic, 4TKN operations on the
 CUDA cores.  The lm_head's dx is the longest sum of the step (N = 151936
@@ -43,16 +43,14 @@ from repro_torch.kernels.fused import chunked_gemm_reference
 from repro_torch.quant.formats import fmt_tuple
 from repro_torch.quant.qtensor import unpack_block
 
-__all__ = ["qmatmul_bwd_pair", "qmatmul_bwd_pair_seg",
-           "qmatmul_bwd_pair_nsplit", "qmatmul_bwd_pair_reference",
+__all__ = ["qmatmul_bwd_pair", "qmatmul_bwd_pair_nsplit", "qmatmul_bwd_pair_reference",
            "pair_segment_width"]
 
 _WIDE = (8, 23)
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk,
-           n_offset):
+def _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk):
     if g.ndim != 2 or xq.ndim != 2 or wq.ndim != 2:
         raise ValueError("2-D operands required")
     t, n = g.shape
@@ -77,20 +75,16 @@ def _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk,
     if dx_carry is not None and tuple(dx_carry.shape) != (t, xq.shape[1]):
         raise ValueError(f"dx_carry {tuple(dx_carry.shape)} != "
                          f"{(t, xq.shape[1])}")
-    if n_offset % bwd_chunk:
-        raise ValueError(f"a segment starts on a bwd_chunk boundary: "
-                         f"n_offset {n_offset}, bwd_chunk {bwd_chunk}")
 
 
 def qmatmul_bwd_pair_reference(g, xq, wq, *, repr_fmt, bwd_acc, grad_acc,
                                bwd_chunk: int, grad_chunk: int, packed: bool,
-                               quantize_g: bool = True, dx_carry=None,
-                               n_offset: int = 0):
+                               quantize_g: bool = True, dx_carry=None):
     """Plain PyTorch version: unpack the residuals, quantize g, then the two
     chunked GEMMs in the kernel's order (``chunked_gemm_reference``), dx
     resuming from ``dx_carry``.  Bitwise the kernel."""
     fmt = fmt_tuple(repr_fmt)
-    _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk, n_offset)
+    _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk)
     if packed:
         x32, w32 = unpack_block(xq, *fmt), unpack_block(wq, *fmt)
     else:
@@ -102,7 +96,6 @@ def qmatmul_bwd_pair_reference(g, xq, wq, *, repr_fmt, bwd_acc, grad_acc,
     dw = chunked_gemm_reference(x32.T, g32, e_acc=grad_acc[0],
                                 m_acc=grad_acc[1], block_k=grad_chunk)
     return dx, dw
-
 
 
 _LL, _I, _P, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
@@ -144,33 +137,17 @@ def _launch(g, xq, wq, dx_carry, *, fmt, bwd_acc, grad_acc, bwd_chunk,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bwd_pair launch failed: CUDA error {rc}")
+    if dx_carry is None:
+        qmatmul_bwd_pair.launches += 1
+    else:
+        qmatmul_bwd_pair.carry_launches += 1
     return dx, dw
-
-
-def _run(counter, g, xq, wq, dx_carry, *, repr_fmt, bwd_acc, grad_acc,
-         bwd_chunk, grad_chunk, packed, quantize_g, n_offset):
-    """The plain version for CPU tensors; else a launch, counted on
-    ``counter``."""
-    fmt = fmt_tuple(repr_fmt)
-    bwd_acc, grad_acc = tuple(bwd_acc), tuple(grad_acc)
-    tensors = [t for t in (g, xq, wq, dx_carry) if t is not None]
-    if all(t.device.type == "cpu" for t in tensors):
-        return qmatmul_bwd_pair_reference(
-            g, xq, wq, repr_fmt=fmt, bwd_acc=bwd_acc, grad_acc=grad_acc,
-            bwd_chunk=bwd_chunk, grad_chunk=grad_chunk, packed=packed,
-            quantize_g=quantize_g, dx_carry=dx_carry, n_offset=n_offset)
-    _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk, n_offset)
-    out = _launch(g, xq, wq, dx_carry, fmt=fmt, bwd_acc=bwd_acc,
-                  grad_acc=grad_acc, bwd_chunk=bwd_chunk,
-                  grad_chunk=grad_chunk, quantize_g=quantize_g)
-    counter.launches += 1
-    return out
 
 
 def qmatmul_bwd_pair(g, xq, wq, *, repr_fmt, bwd_acc=_WIDE, grad_acc=_WIDE,
                      bwd_chunk: int = 128, grad_chunk: int = 128,
                      packed: bool = True, quantize_g: bool = True,
-                     dx_carry=None, n_offset: int = 0):
+                     dx_carry=None):
     """``(dx, dw)`` of one dense layer, both float32, in one launch.
 
     * ``g`` [T, N] float32, any strides; quantized to ``repr_fmt`` on load
@@ -179,35 +156,26 @@ def qmatmul_bwd_pair(g, xq, wq, *, repr_fmt, bwd_acc=_WIDE, grad_acc=_WIDE,
       operands when ``packed``, else raw float32/bfloat16 of any strides;
     * ``bwd_acc``/``grad_acc``: (e, m) carry formats; ``bwd_chunk`` rounds
       dx's carry over N, ``grad_chunk`` dw's over T;
-    * ``dx_carry`` [T, K]: resume dx from this running carry, the segment
-      entry ``qmatmul_bwd_pair_seg`` (K7); ``n_offset`` is the segment's
-      first column and must sit on a ``bwd_chunk`` boundary.
+    * ``dx_carry`` [T, K]: resume dx from this running carry (the segment
+      entry, K7): dw is then this N segment's columns.  Launches with a
+      carry are counted on ``carry_launches``, the others on ``launches``.
     """
-    kw = dict(repr_fmt=repr_fmt, bwd_acc=bwd_acc, grad_acc=grad_acc,
-              bwd_chunk=bwd_chunk, grad_chunk=grad_chunk, packed=packed,
-              quantize_g=quantize_g, n_offset=n_offset)
-    if dx_carry is not None:
-        return qmatmul_bwd_pair_seg(g, xq, wq, dx_carry, **kw)
-    return _run(qmatmul_bwd_pair, g, xq, wq, None, **kw)
+    fmt = fmt_tuple(repr_fmt)
+    bwd_acc, grad_acc = tuple(bwd_acc), tuple(grad_acc)
+    tensors = [t for t in (g, xq, wq, dx_carry) if t is not None]
+    if all(t.device.type == "cpu" for t in tensors):
+        return qmatmul_bwd_pair_reference(
+            g, xq, wq, repr_fmt=fmt, bwd_acc=bwd_acc, grad_acc=grad_acc,
+            bwd_chunk=bwd_chunk, grad_chunk=grad_chunk, packed=packed,
+            quantize_g=quantize_g, dx_carry=dx_carry)
+    _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk)
+    return _launch(g, xq, wq, dx_carry, fmt=fmt, bwd_acc=bwd_acc,
+                   grad_acc=grad_acc, bwd_chunk=bwd_chunk,
+                   grad_chunk=grad_chunk, quantize_g=quantize_g)
 
 
 qmatmul_bwd_pair.launches = 0
-
-
-def qmatmul_bwd_pair_seg(g, xq, wq, dx_carry, *, repr_fmt, bwd_acc=_WIDE,
-                         grad_acc=_WIDE, bwd_chunk: int = 128,
-                         grad_chunk: int = 128, packed: bool = True,
-                         quantize_g: bool = True, n_offset: int = 0):
-    """Kernel B on one N segment with the dx carry in (the counterpart of
-    K7 ``_pair_kernel_seg``): dx continues ``dx_carry``; dw is this
-    segment's columns.  Same arguments as ``qmatmul_bwd_pair``."""
-    return _run(qmatmul_bwd_pair_seg, g, xq, wq, dx_carry,
-                repr_fmt=repr_fmt, bwd_acc=bwd_acc, grad_acc=grad_acc,
-                bwd_chunk=bwd_chunk, grad_chunk=grad_chunk, packed=packed,
-                quantize_g=quantize_g, n_offset=n_offset)
-
-
-qmatmul_bwd_pair_seg.launches = 0
+qmatmul_bwd_pair.carry_launches = 0
 
 
 def pair_segment_width(n: int, n_split: int, block_n: int) -> int:
@@ -219,7 +187,7 @@ def pair_segment_width(n: int, n_split: int, block_n: int) -> int:
 def qmatmul_bwd_pair_nsplit(g, xq, wq, *, n_split: int, **kw):
     """The pair over ``n_split`` N segments of ``bwd_chunk``-aligned width
     (the JAX package's ``pair_segment_width``), dx chained through
-    ``qmatmul_bwd_pair_seg``: bitwise ``qmatmul_bwd_pair``."""
+    ``dx_carry``: bitwise the unsplit ``qmatmul_bwd_pair``."""
     if n_split < 2:
         raise ValueError("n_split >= 2; use qmatmul_bwd_pair for one pass")
     t, n = g.shape
@@ -228,7 +196,7 @@ def qmatmul_bwd_pair_nsplit(g, xq, wq, *, n_split: int, **kw):
     dws = []
     for lo in range(0, n, seg):
         hi = min(lo + seg, n)
-        dx, dw = qmatmul_bwd_pair_seg(g[:, lo:hi], xq, wq[:, lo:hi], dx,
-                                      n_offset=lo, **kw)
+        dx, dw = qmatmul_bwd_pair(g[:, lo:hi], xq, wq[:, lo:hi],
+                                  dx_carry=dx, **kw)
         dws.append(dw)
     return dx, torch.cat(dws, dim=1)

@@ -43,7 +43,7 @@ from repro_torch.kernels.common import qfmt_args, quantize_block
 from repro_torch.quant.formats import fmt_tuple
 from repro_torch.quant.qtensor import pack_block
 
-__all__ = ["qmatmul_fused", "qmatmul_fused_emitq", "qmatmul_fused_reference",
+__all__ = ["qmatmul_fused", "qmatmul_fused_reference",
            "chunked_gemm_reference"]
 
 _WIDE = (8, 23)
@@ -125,12 +125,15 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
     * ``repr_fmt``: operand format (``FPFormat``/``(e, m)``), None = no
       operand quantization;
     * returns float32 (M, N);
-    * ``return_quantized=True`` is kernel E (``qmatmul_fused_emitq``):
-      returns ``(C, codes of Q(A) [M, K], codes of Q(B) [K, N])``.
+    * ``return_quantized=True`` is kernel E: returns ``(C, xq, wq)``, the
+      int8 codes (``quant.qtensor`` layout) of Q(A) [M, K] and Q(B) [K, N]
+      each written once; ``repr_fmt`` must then fit in 8 bits.
+
+    G's launches are counted on ``launches``, E's on ``emitq_launches``.
     """
     if return_quantized:
-        return qmatmul_fused_emitq(a, b, repr_fmt=repr_fmt, e_acc=e_acc,
-                                   m_acc=m_acc, block_k=block_k)
+        return _emitq(a, b, repr_fmt=repr_fmt, e_acc=e_acc, m_acc=m_acc,
+                      block_k=block_k)
     _check(a, b)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return qmatmul_fused_reference(a, b, repr_fmt=repr_fmt, e_acc=e_acc,
@@ -157,6 +160,7 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
 
 
 qmatmul_fused.launches = 0
+qmatmul_fused.emitq_launches = 0
 
 
 def _check_cuda(a, b, block_k) -> None:
@@ -170,13 +174,8 @@ _EMITQ_ARGTYPES = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I,
                    _I, _I, _I, _I, _F, _F, _I, _I, _F, _F, _P, _P, _P]
 
 
-def qmatmul_fused_emitq(a: torch.Tensor, b: torch.Tensor, *, repr_fmt,
-                        e_acc: int = 8, m_acc: int = 23,
-                        block_k: int = 128):
-    """Kernel E: ``(C, xq, wq)`` with C = Q(A) @ Q(B) as in
-    ``qmatmul_fused`` and the int8 codes (``quant.qtensor`` layout) of the
-    quantized operands, xq [M, K] and wq [K, N], each written once.
-    ``repr_fmt`` must fit in 8 bits."""
+def _emitq(a, b, *, repr_fmt, e_acc, m_acc, block_k):
+    """Kernel E, ``qmatmul_fused(..., return_quantized=True)``."""
     _check(a, b)
     fmt = fmt_tuple(repr_fmt)
     _check_packable(fmt)
@@ -201,8 +200,5 @@ def qmatmul_fused_emitq(a: torch.Tensor, b: torch.Tensor, *, repr_fmt,
         torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qgemm_emitq launch failed: CUDA error {rc}")
-    qmatmul_fused_emitq.launches += 1
+    qmatmul_fused.emitq_launches += 1
     return out, aq, bq
-
-
-qmatmul_fused_emitq.launches = 0

@@ -223,8 +223,6 @@ def test_pack_code_matches_pack_block(dev):
 @pytest.mark.parametrize("t,k,n,w_bf16", [
     (512, 1536, 256, True), (64, 200, 75, False), (8, 96, 130, True)])
 def test_emitq_kernel_matches_plain(dev, t, k, n, w_bf16):
-    from repro_torch.kernels.fused import qmatmul_fused_emitq
-
     gen = torch.Generator(device=dev).manual_seed(t + k + n)
     kw = dict(repr_fmt=FP8_152, e_acc=6, m_acc=5, block_k=64)
     for lattice in (False, True):
@@ -233,11 +231,11 @@ def test_emitq_kernel_matches_plain(dev, t, k, n, w_bf16):
         b = (_lattice(gen, (k, n), dev) if lattice
              else torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k))
         b = b.to(torch.bfloat16) if w_bf16 else b
-        n0 = qmatmul_fused_emitq.launches
+        n0 = qmatmul_fused.emitq_launches
         got = qmatmul_fused(a, b, return_quantized=True, **kw)
         want = qmatmul_fused_reference(a, b, return_quantized=True, **kw)
         torch.cuda.synchronize()
-        assert qmatmul_fused_emitq.launches == n0 + 1
+        assert qmatmul_fused.emitq_launches == n0 + 1
         assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
         if lattice:
             assert torch.equal(got[0], want[0])
@@ -252,7 +250,7 @@ def test_bwd_pair_kernel_matches_plain(dev, t, k, n, packed):
     (f32 x, bf16 w behind the embed.T view); the chained dx carry (K7)
     bitwise the unsplit call."""
     from repro_torch.kernels.bwd_pair import (
-        qmatmul_bwd_pair, qmatmul_bwd_pair_reference, qmatmul_bwd_pair_seg)
+        qmatmul_bwd_pair, qmatmul_bwd_pair_reference)
 
     gen = torch.Generator(device=dev).manual_seed(t * 3 + n)
     acc = (6, 5) if packed else (6, 9)
@@ -277,12 +275,14 @@ def test_bwd_pair_kernel_matches_plain(dev, t, k, n, packed):
             else:
                 assert _ulps(a, b, acc[1], acc[0]) <= 1.0
         cut = 64 * (n // 128)
-        n0 = qmatmul_bwd_pair_seg.launches
+        n0 = qmatmul_bwd_pair.launches
+        c0 = qmatmul_bwd_pair.carry_launches
         dx0, dw0 = qmatmul_bwd_pair(g[:, :cut], xq, wq[:, :cut], **kw)
         dx1, dw1 = qmatmul_bwd_pair(g[:, cut:], xq, wq[:, cut:],
-                                    dx_carry=dx0, n_offset=cut, **kw)
+                                    dx_carry=dx0, **kw)
         torch.cuda.synchronize()
-        assert qmatmul_bwd_pair_seg.launches == n0 + 1
+        assert qmatmul_bwd_pair.launches == n0 + 1
+        assert qmatmul_bwd_pair.carry_launches == c0 + 1
         assert torch.equal(dx1, got[0])
         assert torch.equal(torch.cat([dw0, dw1], 1), got[1])
 

@@ -40,7 +40,6 @@ from repro_torch.core.policy import GEMMPrecision
 from repro_torch.kernels.bwd_pair import (
     qmatmul_bwd_pair,
     qmatmul_bwd_pair_nsplit,
-    qmatmul_bwd_pair_seg,
 )
 from repro_torch.kernels.fused import qmatmul_fused
 from repro_torch.kernels.ops import QDotConfig, qdot
@@ -207,7 +206,7 @@ def test_bwd_pair_carry_chain_is_the_unsplit_call(packed):
     # two segments by hand: [0, 96) and [96, 200), dx carried across
     dx0, dw0 = qmatmul_bwd_pair(gt[:, :96], xq, wq[:, :96], **kw)
     dx1, dw1 = qmatmul_bwd_pair(gt[:, 96:], xq, wq[:, 96:], dx_carry=dx0,
-                                n_offset=96, **kw)
+                                **kw)
     np.testing.assert_array_equal(_bits(dx1), _bits(dx))
     np.testing.assert_array_equal(_bits(torch.cat([dw0, dw1], 1)), _bits(dw))
     sdx, sdw = qmatmul_bwd_pair_nsplit(gt, xq, wq, n_split=3, **kw)
@@ -218,9 +217,9 @@ def test_bwd_pair_carry_chain_is_the_unsplit_call(packed):
                                                     packed))
     _check("nsplit dx", sdx.numpy(), np.asarray(jdx), acc, False)
     _check("nsplit dw", sdw.numpy(), np.asarray(jdw), acc, False)
-    with pytest.raises(ValueError):  # a segment must start on a chunk edge
-        qmatmul_bwd_pair_seg(gt[:, 40:], xq, wq[:, 40:], dx0, n_offset=40,
-                             **kw)
+    with pytest.raises(ValueError):  # the carry in must have dx's shape
+        qmatmul_bwd_pair(gt[:, 96:], xq, wq[:, 96:], dx_carry=dx0[:, 1:],
+                         **kw)
 
 
 # --------------------------------------------------------------------------
