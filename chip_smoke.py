@@ -10,26 +10,43 @@ on its own line:
    the carry format on random ones, mismatch fractions printed), with its
    time, the plain version's time, one PyTorch library call's time as a
    yardstick and the least time the card could take (its bound);
+   D's stats variant (K12's kernel) is held at D's arena against D and
+   its plain version (o bitwise, the stats row's counters and MAX_ABS
+   bitwise, its sums within ``SUM_REL``/``SUM_ABS``, two launches bitwise);
 3. serve: qwen2-1.5b at full width and depth (28 layers, d 1536, vocab
    151936) under the predicted accumulation plan (chunk 64, page 16), bf16
    random weights from a seeded generator, 8 requests of mixed prompt
    lengths, 32 generated tokens each, one-shot and then with 64-token
    prefill slabs.  Every kernel's launch count over each run must be > 0,
    and one request's prefill logits are held against the plain versions;
-4. train kernels: E (the forward GEMM with int8 residual codes) and B
-   (the backward pair) against their plain versions at every distinct
-   layer shape of the training step (T = 512 tokens) and on a slice of
-   the tied lm_head, the whole lm_head backward (T = 512, N = 151936)
-   unsplit and chained over 10 N segments with the dx carry (K7), both
-   against the unsplit call and the chained plain version (bitwise), and
-   one step's E and B launches timed as a sequence;
+   then the one-shot run with the serve-time VRR monitor every 4 decode
+   steps (K12; its streams equal the monitor-off run's unless it
+   re-buckets) and a forced 1-bit-carry plan that must re-bucket;
+4. train kernels: E (the forward GEMM with int8 residual codes), B (the
+   backward pair) and the stats variants K8 (G's, on f32/bf16 operands and
+   on E's int8 codes) and K9 (B's) against their plain versions and their
+   stats-off kernels at every distinct layer shape of the training step
+   (T = 512 tokens) and on a slice of the tied lm_head; the whole lm_head
+   backward (T = 512, N = 151936) unsplit, through K9, and chained over 10
+   N segments with the dx carry (K7), each against the plain version
+   (bitwise); K8 at the eager telemetry tick's own FWD/BWD/GRAD calls of
+   every layer tag and of the whole lm_head; one step's E and B launches
+   and one in-graph telemetry tick's K8 and K9 launches timed as
+   sequences;
 5. train: qwen2-1.5b at full width and depth through the training
    launcher's set-up (predicted plan, chunk 64, batch 8 x seq 64, seeded
    f32 weights, ``SyntheticLM``), 6 AdamW steps at lr 1e-3 with 2 warmup
-   steps: per-step loss, gradient norm, step time, tokens/s, peak memory
-   and launches (E 196, G 1, B 197 a step); the loss must be finite and
-   fall; then one step of a 2-layer cut through the kernels and through
-   their plain versions, bitwise;
+   steps and the eager telemetry tick every 2 steps
+   (``--telemetry-cadence 2``): per-step loss, gradient norm, step time,
+   tokens/s, peak memory and launches (E 196, G 1, B 197 a step; G 197 and
+   K8 24 a tick), each tick's time, events and schedule; the loss must be
+   finite and fall; one step of a 2-layer cut through the kernels and
+   through their plain versions, bitwise; then one full-depth in-graph
+   tick (``--ingraph-telemetry``: K9 197, K8 197, B 0) and, at the 2-layer
+   cut, the tagged step against the untagged one, bitwise; then the
+   launcher's ``main`` under ``--policy perturbed --pp -2`` with a tick
+   every step (eager, then in-graph), 3 full-depth steps each: the
+   controller must bump, the model be re-planned and training go on;
 6. result: one JSON line per kernel, the card's name and power limit, and
    the final JSON line.
 
@@ -41,6 +58,7 @@ before printing a result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -58,6 +76,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet; dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12      # tensor cores, f32 accumulate
+FP8_FLOPS = 1979e12      # tensor cores, E4M3/E5M2 operands
 F32_FLOPS = 67e12        # CUDA cores
 
 SEED = 0
@@ -94,8 +113,15 @@ def cuda_time(fn, reps: int, warmup: int = 2) -> float:
 
 
 def bound_ms(n_bytes: float, flops: float, peak_flops: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
+    return seq_bound([(n_bytes, flops, peak_flops)])
+
+
+def seq_bound(costs):
+    """The bound of a sequence of launches, each (bytes, operations, the
+    peak rate of its operand type): all bytes over the memory rate against
+    each launch's operations over its own peak, summed."""
+    t_bytes = sum(c[0] for c in costs) / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(c[1] / c[2] for c in costs) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -120,6 +146,55 @@ def compare(label: str, got, want, m: int, e: int, *, bitwise: bool) -> float:
     check(u <= 1.0, f"{label}: {u} ulp > 1")
     if bitwise:
         check(mism == 0.0, f"{label}: not bitwise on lattice operands")
+    return err
+
+
+# Stats rows (kernels.common.N_STATS) of a stats kernel against its plain
+# version: the counters (COUNT, SWAMPED, ADDS) and MAX_ABS bitwise; the sum
+# slots add the same float64 terms in another order and round once to f32,
+# so each is held to SUM_REL (2 f32 ulps) of its value, plus, for the
+# first-moment slots (whose terms may cancel), SUM_ABS times the
+# Cauchy-Schwarz bound sqrt(count * sum of squares) on the sum of |terms|.
+STAT_EXACT = (0, 5, 6, 7)
+STAT_FIRST = {1: 2, 3: 4, 8: 9}      # first-moment slot -> its square slot
+STAT_SQUARE = (2, 4, 9)
+SUM_REL, SUM_ABS = 2.0 ** -22, 2.0 ** -40
+
+
+def stats_gap(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, float]:
+    """(exact slots bitwise equal, largest |got - want| / bound over the
+    sum slots) for two rows of the same shape (..., N_STATS)."""
+    got = got.detach().double().cpu().reshape(-1, 10)
+    want = want.detach().double().cpu().reshape(-1, 10)
+    exact = bool(torch.equal(got[:, list(STAT_EXACT)],
+                             want[:, list(STAT_EXACT)]))
+    ratio = 0.0
+    for i in range(got.shape[0]):
+        for s in STAT_SQUARE:
+            bound = SUM_REL * abs(float(want[i, s]))
+            ratio = max(ratio, _over(got[i, s], want[i, s], bound))
+        for s, sq in STAT_FIRST.items():
+            bound = SUM_REL * abs(float(want[i, s])) + SUM_ABS * math.sqrt(
+                max(float(want[i, 0] * want[i, sq]), 0.0))
+            ratio = max(ratio, _over(got[i, s], want[i, s], bound))
+    return exact, ratio
+
+
+def _over(a, b, bound: float) -> float:
+    d = abs(float(a) - float(b))
+    return 0.0 if d == 0.0 else (d / bound if bound > 0 else math.inf)
+
+
+def check_stats(label: str, got, want) -> float:
+    """Print and check a stats row against its plain version; returns the
+    largest |error| over the sum slots."""
+    exact, ratio = stats_gap(got, want)
+    err = float((got.double().cpu() - want.double().cpu()).abs().max())
+    print(f"  {label} stats: counters and MAX_ABS "
+          f"{'bitwise' if exact else 'DIFFERENT'}, sum slots at "
+          f"{ratio:.3g} of their bound, max |err| {err:.3g}", flush=True)
+    check(exact, f"{label}: stats counters differ from the plain version")
+    check(ratio <= 1.0, f"{label}: stats sums beyond their bound")
     return err
 
 
@@ -305,7 +380,8 @@ def _attn_check(label, got, want, acc, *, bitwise) -> float:
 
 def phase_decode(cfg, dev, plan) -> dict:
     from repro_torch.kernels.attention import (
-        paged_attn_decode, paged_attn_decode_reference)
+        paged_attn_decode, paged_attn_decode_reference,
+        paged_attn_decode_stats_reference)
     from repro_torch.quant.formats import FP8_152
 
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -341,6 +417,25 @@ def phase_decode(cfg, dev, plan) -> dict:
     ms = cuda_time(lambda: paged_attn_decode(q, *args, **kw), reps=50)
     plain = cuda_time(lambda: paged_attn_decode_reference(q, *args, **kw),
                       reps=1, warmup=0)
+    # K12 at the same arena: the page table is wider than most rows' pages
+    # (the kernel stops at each row's last page, the plain version walks
+    # every column as the TPU kernel does)
+    s_err = 0.0
+    for label, qq in (("random q", q), ("lattice q", ql)):
+        o, row = paged_attn_decode(qq, *args, collect_stats=True, **kw)
+        o2, row2 = paged_attn_decode(qq, *args, collect_stats=True, **kw)
+        po, prow = paged_attn_decode_stats_reference(qq, *args, **kw)
+        _attn_check(f"K12 {label} vs D", o, paged_attn_decode(qq, *args, **kw),
+                    acc, bitwise=True)
+        s_err = max(s_err, _attn_check(f"K12 {label} vs plain", o, po, acc,
+                                       bitwise=True),
+                    check_stats(f"K12 {label}", row, prow))
+        check(torch.equal(o, o2) and torch.equal(row, row2),
+              f"K12 {label}: two launches differ")
+    s_ms = cuda_time(lambda: paged_attn_decode(q, *args, collect_stats=True,
+                                               **kw), reps=50)
+    s_plain = cuda_time(lambda: paged_attn_decode_stats_reference(
+        q, *args, **kw), reps=1, warmup=0)
     # yardstick: SDPA over the same K/V gathered dense (bf16), length-masked
     lens = seq_lens.long()
     lmax = int(lens.max())
@@ -365,8 +460,16 @@ def phase_decode(cfg, dev, plan) -> dict:
     b_ms, b_by = bound_ms(n_bytes, flops, F32_FLOPS)
     print(f"  time D: kernel {ms:.4f} ms, plain {plain:.2f} ms, SDPA "
           f"{lib:.4f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+    # K12 also writes one partial row of 10 doubles per block and the row
+    s_bytes = n_bytes + MAX_BATCH * kv * 80 + 40
+    s_b, s_by = bound_ms(s_bytes, flops, F32_FLOPS)
+    print(f"  time K12: kernel {s_ms:.4f} ms ({s_ms / ms:.3f}x D), plain "
+          f"{s_plain:.2f} ms, SDPA {lib:.4f} ms, bound {s_b:.5f} ms "
+          f"({s_by})", flush=True)
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=max_err)
+                bound_by=b_by, max_abs_err=max_err,
+                stats=dict(ms=s_ms, plain_ms=s_plain, library_ms=lib,
+                           bound_ms=s_b, bound_by=s_by, max_abs_err=s_err))
 
 
 def phase_prefill(cfg, dev, plan) -> dict:
@@ -473,7 +576,7 @@ def plain_versions():
          L.flash_prefill_paged) = saved
 
 
-def build_engine(cfg, params, dev, prefill_chunk):
+def build_engine(cfg, params, dev, prefill_chunk, **engine_kw):
     from repro_torch.models.api import get_model
     from repro_torch.serve import scheduler as S
     from repro_torch.serve.kvcache import PagedKVConfig
@@ -505,7 +608,7 @@ def build_engine(cfg, params, dev, prefill_chunk):
                        max_batch=MAX_BATCH, device=dev)
     return S.ServeEngine(model, params, n_pages=n_pages, page_size=PAGE,
                          max_batch=MAX_BATCH, prefill_chunk_tokens=prefill_chunk,
-                         executor=ex, device=dev)
+                         executor=ex, device=dev, **engine_kw)
 
 
 def phase_serve(cfg, params, dev, prompts, prefill_chunk) -> dict:
@@ -541,6 +644,73 @@ def phase_serve(cfg, params, dev, prompts, prefill_chunk) -> dict:
                 seconds=dt, decoded=eng.decoded_tokens,
                 decode_s=ex.decode_s, prefill_s=ex.prefill_s,
                 prefill_tokens=eng.prefill_tokens)
+
+
+MONITOR_CADENCE = 4
+MONITOR_LOG = ROOT / "build" / "monitor.jsonl"      # gitignored
+
+
+def phase_serve_monitor(cfg, params, dev, prompts, one_shot) -> dict:
+    """The one-shot serving run again with the serve-time VRR monitor
+    (``monitor_cadence`` 4: K12 on the longest context's layer-0 pages);
+    its streams equal the monitor-off run's unless it re-buckets.  Then a
+    plan forced to a 1-bit carry (``m_acc`` 1 in every bucket) on the two
+    longest prompts, whose monitor must log a re-bucket."""
+    from dataclasses import replace
+
+    from repro_torch.kernels.attention import paged_attn_decode
+    from repro_torch.serve.plan import plan_attention
+
+    counters = dict(_counters(), **{K12_NAME: (paged_attn_decode,
+                                               "stats_launches")})
+    MONITOR_LOG.unlink(missing_ok=True)
+    eng = build_engine(cfg, params, dev, None,
+                       monitor_cadence=MONITOR_CADENCE,
+                       monitor_log=str(MONITOR_LOG), seed=SEED)
+    rids = [eng.submit(p, GEN) for p in prompts]
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts(counters)
+    kinds = [e["event"] for e in eng.events]
+    streams = [results[r] for r in rids]
+    same = sum(a == b for a, b in zip(streams, one_shot["streams"]))
+    print(f"[serve] monitor every {MONITOR_CADENCE} decode steps: "
+          f"{len(kinds)} ticks ({kinds.count('rebucket')} rebucket, "
+          f"{kinds.count('ok')} ok), swamp rates "
+          f"{[e['swamp_rate'] for e in eng.events]}, {dt:.3f}s end to end "
+          f"({dt - one_shot['seconds']:+.3f}s against the monitor-off run), "
+          f"{same}/{len(rids)} streams equal the monitor-off run's, "
+          f"launches {launches}", flush=True)
+    for k, v in launches.items():
+        check(v > 0, f"monitored run: kernel {k} was not launched")
+    check(launches[K12_NAME] == len(kinds), "one K12 launch per tick")
+    check(sum(1 for _ in open(MONITOR_LOG)) == len(kinds),
+          "the monitor log lost events")
+    if "rebucket" not in kinds:
+        check(same == len(rids), "the monitor changed a stream without "
+                                 "re-bucketing")
+    plan = plan_attention(eng.pc.tokens_capacity, PAGE)
+    narrow = replace(plan, buckets=tuple(replace(b, m_acc=1)
+                                         for b in plan.buckets))
+    eng = build_engine(cfg, params, dev, None, plan=narrow,
+                       monitor_cadence=MONITOR_CADENCE, seed=SEED)
+    for p in prompts[-2:]:
+        eng.submit(p, GEN)
+    zero_counts(counters)
+    eng.run()
+    n12 = read_counts(counters)[K12_NAME]
+    kinds = [e["event"] for e in eng.events]
+    first = next((e for e in eng.events if e["event"] == "rebucket"), None)
+    print(f"[serve] forced 1-bit carry plan: {len(kinds)} ticks, "
+          f"{kinds.count('rebucket')} rebucket; first rebucket "
+          f"{json.dumps(first)}; bucket m_acc now "
+          f"{[b.m_acc for b in eng.plan.buckets]}", flush=True)
+    check(first is not None, "the forced narrow plan did not re-bucket")
+    return dict(launches=launches[K12_NAME] + n12, events=len(kinds))
 
 
 # One request's prefill logits, kernels vs plain versions on the card.
@@ -629,28 +799,127 @@ def _b_kw(qc):
                 quantize_g=qc.repr_fmt is not None)
 
 
+# The costs below are (bytes, operations, peak rate).  A layer GEMM of the
+# training step contracts (1,5,2) values (E5M2: quantized in the kernel or
+# decoded from int8 codes), which the FP8 tensor cores take, so its bound
+# is at FP8_FLOPS; the lm_head contracts raw f32 x bf16 values, bounded at
+# BF16_FLOPS.  The bound is of the work, not of this design: FP8 MMA keeps
+# fewer accumulator bits than f32, so it cannot form the kernels' exact
+# chunk partials, and that gap is the design's cost.
 def _e_cost(t, k, n):
     # x f32 and w bf16 read, y f32 and both code tensors written
-    return t * k * 4 + k * n * 2 + t * n * 4 + t * k + k * n, 2 * t * k * n
+    return (t * k * 4 + k * n * 2 + t * n * 4 + t * k + k * n, 2 * t * k * n,
+            FP8_FLOPS)
 
 
 def _b_cost(t, k, n, packed=True, w_bytes=1, x_bytes=1):
     # g f32 and the residuals read, dx and dw f32 written
     xb, wb = (1, 1) if packed else (x_bytes, w_bytes)
     return (t * n * 4 + t * k * xb + k * n * wb + t * k * 4 + k * n * 4,
-            4 * t * k * n)
+            4 * t * k * n, FP8_FLOPS if packed else BF16_FLOPS)
+
+
+def _k8_cost(t, k, n, codes):
+    # operands read (int8 codes, or the lm_head's f32 x and bf16 w), C f32
+    # written; the partial rows (80 bytes a 64 x 64 tile) are negligible
+    ab, bb, peak = (1, 1, FP8_FLOPS) if codes else (4, 2, BF16_FLOPS)
+    return t * k * ab + k * n * bb + t * n * 4, 2 * t * k * n, peak
+
+
+def _k8_codes_kw(ekw):
+    """K8 on the saved int8 codes of E (the in-graph FWD replay)."""
+    return dict(ekw, quantize_a=False, quantize_b=False, a_packed=True,
+                b_packed=True)
+
+
+def check_k8(label, a, b, kw, *, base) -> float:
+    """K8 at one shape: C bitwise the stats-off kernel's (``base``: G, or
+    E's y for codes) and the plain version's, the row against the plain
+    version's (``check_stats``), two launches bitwise.  Returns the max
+    |error| against the plain version (C and row)."""
+    from repro_torch.kernels.fused import (qmatmul_fused,
+                                           qmatmul_fused_stats_reference)
+
+    c, row = qmatmul_fused(a, b, collect_stats=True, **kw)
+    c2, row2 = qmatmul_fused(a, b, collect_stats=True, **kw)
+    pc, prow = qmatmul_fused_stats_reference(a, b, **kw)
+    m = kw["m_acc"]
+    e = kw["e_acc"]
+    compare(f"K8 {label} vs stats-off kernel", c, base, m, e, bitwise=True)
+    err = compare(f"K8 {label} vs plain", c, pc, m, e, bitwise=True)
+    check(torch.equal(c, c2) and torch.equal(row, row2),
+          f"K8 {label}: two launches differ")
+    return max(err, check_stats(f"K8 {label}", row, prow))
+
+
+def check_k9(label, g, xq, wq, kw) -> float:
+    """K9 at one shape: dx, dw bitwise B's and the plain version's, both
+    rows against the plain version's, two launches bitwise."""
+    from repro_torch.kernels.bwd_pair import (
+        qmatmul_bwd_pair, qmatmul_bwd_pair_stats_reference)
+
+    dx, dw, rows = qmatmul_bwd_pair(g, xq, wq, collect_stats=True, **kw)
+    _, _, rows2 = qmatmul_bwd_pair(g, xq, wq, collect_stats=True, **kw)
+    bdx, bdw = qmatmul_bwd_pair(g, xq, wq, **kw)
+    pdx, pdw, prows = qmatmul_bwd_pair_stats_reference(g, xq, wq, **kw)
+    (eb, mb), (eg, mg) = kw["bwd_acc"], kw["grad_acc"]
+    compare(f"K9 dx {label} vs B", dx, bdx, mb, eb, bitwise=True)
+    compare(f"K9 dw {label} vs B", dw, bdw, mg, eg, bitwise=True)
+    err = max(compare(f"K9 dx {label} vs plain", dx, pdx, mb, eb,
+                      bitwise=True),
+              compare(f"K9 dw {label} vs plain", dw, pdw, mg, eg,
+                      bitwise=True))
+    check(torch.equal(rows, rows2), f"K9 {label}: two launches differ")
+    return max(err, check_stats(f"K9 {label}", rows, prows))
+
+
+def check_probe_roles(gen, layer, head, hx, emb) -> float:
+    """K8 at the eager telemetry tick's own calls
+    (``telemetry.probe.role_operands``): FWD, BWD (g @ Q(w).T with
+    ``quantize_b=False``) and GRAD (Q(x).T @ g with ``quantize_a=False``)
+    of every synthetic layer tag at its T = 512 shape on the probe's
+    unit-Gaussian f32 operands, and of the lm_head on f32 hidden states and
+    the f32 embed.T view (the probe runs on the f32 masters).  Each against
+    its plain version and G, which quantizes both operands again (Q(Q(v))
+    = Q(v), so C is the same); returns the largest |error|."""
+    from repro_torch.kernels.fused import qmatmul_fused
+    from repro_torch.telemetry.probe import _normal, role_operands
+    from repro_torch.telemetry.stats import stats_kw
+
+    err, seen = 0.0, set()
+    for tag, t, k, n, qc in layer + [head]:
+        if (k, n, repr(qc)) in seen:
+            continue
+        seen.add((k, n, repr(qc)))
+        if tag == "lm_head":
+            x, w = hx, emb.T.float()
+        else:
+            x, w = _normal(gen, (t, k)), _normal(gen, (k, n))
+        g = _normal(gen, (t, n))
+        for role, (a, b, p, flags, _) in role_operands(x, w, qc, g).items():
+            kw = dict(repr_fmt=qc.repr_fmt, **stats_kw(p))
+            label = (f"probe {tag} {role} M={a.shape[0]} K={a.shape[1]} "
+                     f"N={b.shape[1]}")
+            err = max(err, check_k8(label, a, b, dict(kw, **flags),
+                                    base=qmatmul_fused(a, b, **kw)))
+        del x, w, g
+    return err
 
 
 def phase_train_kernels(dev) -> dict:
-    """E and B against their plain versions at every distinct layer shape
-    of the training step (T = 512 tokens) and on a 4096-column slice of
-    the tied lm_head; the whole lm_head backward unsplit (B) and chained
-    over the JAX package's 10 N segments (K7), each against the other and
-    against the chained plain version, bitwise; and one step's worth of E
-    and B launches timed as a sequence."""
+    """E, B, K8 and K9 against their plain versions (and K8/K9 against G,
+    E and B) at every distinct layer shape of the training step (T = 512
+    tokens) and on a 4096-column slice of the tied lm_head; the whole
+    lm_head backward unsplit (B, K9) and chained over the JAX package's 10
+    N segments (K7), against each other and the chained plain version,
+    bitwise; K8 at the eager tick's own role calls
+    (``check_probe_roles``); and one step's worth of E and B launches, and
+    one in-graph tick's K8 and K9 launches, timed as sequences."""
     from repro_torch.kernels.bwd_pair import (
-        qmatmul_bwd_pair, qmatmul_bwd_pair_nsplit, qmatmul_bwd_pair_reference)
-    from repro_torch.kernels.fused import qmatmul_fused, qmatmul_fused_reference
+        qmatmul_bwd_pair, qmatmul_bwd_pair_nsplit, qmatmul_bwd_pair_reference,
+        qmatmul_bwd_pair_stats_reference)
+    from repro_torch.kernels.fused import (
+        qmatmul_fused, qmatmul_fused_reference, qmatmul_fused_stats_reference)
     from repro_torch.models.api import dense_gemm_shapes
 
     cfg = _train_cfg()
@@ -662,7 +931,7 @@ def phase_train_kernels(dev) -> dict:
           f"qmatmul_bwd_pair vs plain at T={t} (per shape: kernel ms, bf16 "
           f"torch.matmul ms, bound ms; plain ms over a whole step below)",
           flush=True)
-    e_err = b_err = 0.0
+    e_err = b_err = s_err = p_err = 0.0
     tensors = {}
     for tag, _, k, n, qc in layer:
         if (k, n) in tensors:
@@ -702,15 +971,40 @@ def phase_train_kernels(dev) -> dict:
                 ((eb, mb), (eg, mg)), ("dx", "dw")):
             compare(f"B {r} {tag} lattice", got, want, m_, e_, bitwise=True)
         tensors[(k, n)] = (x, w, g, xq, wq)
+        s_err = max(s_err, check_k8(
+            f"{tag} K={k} N={n} f32 x bf16 w", x, w, ekw,
+            base=qmatmul_fused(x, w, **ekw)))
+        s_err = max(s_err, check_k8(
+            f"{tag} K={k} N={n} int8 codes", xq, wq, _k8_codes_kw(ekw),
+            base=y))
+        s_err = max(s_err, check_k8(
+            f"{tag} K={k} N={n} f32 lattice", xl, wl, ekw,
+            base=qmatmul_fused(xl, wl, **ekw)))
+        p_err = max(p_err, check_k9(f"{tag} K={k} N={n}", g, xq, wq, bkw),
+                    check_k9(f"{tag} K={k} N={n} lattice", gl, lat[1],
+                             lat[2], bkw))
         e_ms = cuda_time(lambda: qmatmul_fused(x, w, return_quantized=True,
                                                **ekw), reps=10)
         b_ms = cuda_time(lambda: qmatmul_bwd_pair(g, xq, wq, **bkw), reps=5)
+        g_ms = cuda_time(lambda: qmatmul_fused(x, w, **ekw), reps=10)
+        s_ms = cuda_time(lambda: qmatmul_fused(x, w, collect_stats=True,
+                                               **ekw), reps=10)
+        sq_ms = cuda_time(lambda: qmatmul_fused(
+            xq, wq, collect_stats=True, **_k8_codes_kw(ekw)), reps=10)
+        p_ms = cuda_time(lambda: qmatmul_bwd_pair(g, xq, wq,
+                                                  collect_stats=True, **bkw),
+                         reps=5)
+        print(f"  time {tag} K={k} N={n} stats vs stats-off: K8 f32 "
+              f"{s_ms:.4f} ms vs G {g_ms:.4f} ms ({s_ms / g_ms:.3f}x); K8 "
+              f"int8 codes {sq_ms:.4f} ms vs E {e_ms:.4f} ms "
+              f"({sq_ms / e_ms:.3f}x); K9 {p_ms:.4f} ms vs B {b_ms:.4f} ms "
+              f"({p_ms / b_ms:.3f}x)", flush=True)
         xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
         e_lib = cuda_time(lambda: torch.matmul(xb, w), reps=10)
         b_lib = cuda_time(lambda: (torch.matmul(gb, w.T),
                                    torch.matmul(xb.T, gb)), reps=10)
-        e_b, e_by = bound_ms(*_e_cost(t, k, n), BF16_FLOPS)
-        b_b, b_by = bound_ms(*_b_cost(t, k, n), BF16_FLOPS)
+        e_b, e_by = bound_ms(*_e_cost(t, k, n))
+        b_b, b_by = bound_ms(*_b_cost(t, k, n))
         print(f"  time {tag} K={k} N={n}: E kernel {e_ms:.4f} ms, library "
               f"{e_lib:.4f} ms, bound {e_b:.4f} ms ({e_by}); B kernel "
               f"{b_ms:.4f} ms, library {b_lib:.4f} ms, bound {b_b:.4f} ms "
@@ -738,6 +1032,12 @@ def phase_train_kernels(dev) -> dict:
                   compare(f"B dw lm_head[:, :{HEAD_SLICE}] {label}", got[1],
                           want[1], mg, eg, bitwise=lattice))
         b_err = max(b_err, 0.0 if lattice else err)
+        gkw = _e_kw(qc)
+        s_err = max(s_err, check_k8(
+            f"lm_head[:, :{HEAD_SLICE}] {label}", xs, ws, gkw,
+            base=qmatmul_fused(xs, ws, **gkw)))
+        p_err = max(p_err, check_k9(f"lm_head[:, :{HEAD_SLICE}] {label}",
+                                    gs, xs, ws, hkw))
     full = qmatmul_bwd_pair(hg, hx, emb.T, **hkw)
     chained = qmatmul_bwd_pair_nsplit(hg, hx, emb.T, n_split=HEAD_SEGMENTS,
                                       **hkw)
@@ -763,6 +1063,9 @@ def phase_train_kernels(dev) -> dict:
                 compare(f"B dw lm_head T={t} N={n} unsplit vs plain",
                         full[1], pdw, mg, eg, bitwise=True))
     del full, chained, plain, pdx, pdw
+    # K9 on the whole lm_head, as the in-graph tick runs it
+    p_err = max(p_err, check_k9(f"lm_head T={t} N={n}", hg, hx, emb.T, hkw))
+    s_err = max(s_err, check_probe_roles(gen, layer, head, hx, emb))
     seg = lambda fn: fn(hg, hx, emb.T, n_split=HEAD_SEGMENTS, **hkw)  # noqa
     k7_ms = cuda_time(lambda: seg(qmatmul_bwd_pair_nsplit), reps=2, warmup=1)
     hxb, hgb, embt = hx.to(torch.bfloat16), hg.to(torch.bfloat16), emb.T
@@ -770,7 +1073,7 @@ def phase_train_kernels(dev) -> dict:
                         torch.matmul(hxb.T, hgb))
     k7_lib = cuda_time(head_lib, reps=3)
     k7_b, k7_by = bound_ms(*_b_cost(t, k, n, packed=False, x_bytes=4,
-                                    w_bytes=2), BF16_FLOPS)
+                                    w_bytes=2))
     print(f"  time K7 lm_head T={t} K={k} N={n}: kernel {k7_ms:.3f} ms, "
           f"plain {k7_plain:.1f} ms, library {k7_lib:.3f} ms, bound "
           f"{k7_b:.4f} ms ({k7_by})", flush=True)
@@ -806,29 +1109,59 @@ def phase_train_kernels(dev) -> dict:
             torch.matmul(x.to(torch.bfloat16).T, gb)
         head_lib()
 
+    # one in-graph telemetry tick's K8 and K9 launches: the FWD replays on
+    # the saved codes (and the raw lm_head) and the stats pairs
+    hkw8 = _e_kw(qc)
+
+    def run_k8(fn):
+        for (_, _, _, xq, wq), qc_ in calls:
+            fn(xq, wq, **_k8_codes_kw(_e_kw(qc_)))
+        fn(hx, emb.T, **hkw8)
+
+    def run_k9(fn):
+        for (_, _, g, xq, wq), qc_ in calls:
+            fn(g, xq, wq, **_b_kw(qc_))
+        fn(hg, hx, emb.T, **hkw)
+
+    def lib_k8():
+        lib_e()
+        torch.matmul(hxb, embt)
+
     e_cost = [_e_cost(t, k, n) for _ in range(depth) for _, _, k, n, _ in layer]
     b_cost = [_b_cost(t, k, n) for _ in range(depth)
               for _, _, k, n, _ in layer]
     b_cost.append(_b_cost(t, head[2], head[3], packed=False, x_bytes=4,
                           w_bytes=2))
+    k8_cost = [_k8_cost(t, k, n, True) for _ in range(depth)
+               for _, _, k, n, _ in layer]
+    k8_cost.append(_k8_cost(t, head[2], head[3], False))
+    k8 = functools.partial(qmatmul_fused, collect_stats=True)
+    k9 = functools.partial(qmatmul_bwd_pair, collect_stats=True)
+    k9_plain = qmatmul_bwd_pair_stats_reference
     out = {}
-    for name, run, lib, cost in (
-            ("E", run_e, lib_e, e_cost), ("B", run_b, lib_b, b_cost)):
-        fn = qmatmul_fused if name == "E" else qmatmul_bwd_pair
-        ref = (qmatmul_fused_reference if name == "E"
-               else qmatmul_bwd_pair_reference)
+    for name, run, fn, ref, lib, cost, err in (
+            ("E", run_e, qmatmul_fused, qmatmul_fused_reference, lib_e,
+             e_cost, e_err),
+            ("B", run_b, qmatmul_bwd_pair, qmatmul_bwd_pair_reference, lib_b,
+             b_cost, b_err),
+            ("K8", run_k8, k8, qmatmul_fused_stats_reference, lib_k8,
+             k8_cost, s_err),
+            ("K9", run_k9, k9, k9_plain, lib_b, b_cost, p_err)):
         ms = cuda_time(lambda: run(fn), reps=2, warmup=1)
         plain = cuda_time(lambda: run(ref), reps=1, warmup=0)
         lib_ms = cuda_time(lib, reps=3)
-        b_ms, b_by = bound_ms(sum(c[0] for c in cost), sum(c[1] for c in cost),
-                              BF16_FLOPS)
-        print(f"[kernels] {name} one training step ({len(cost)} launches, "
+        b_ms, b_by = seq_bound(cost)
+        what = ("one in-graph telemetry tick" if name in ("K8", "K9")
+                else "one training step")
+        print(f"[kernels] {name} {what} ({len(cost)} launches, "
               f"T={t}): kernel {ms:.3f} ms, plain {plain:.1f} ms, library "
               f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
               f"{b_ms / ms:.4f} of bound", flush=True)
         out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by,
-                         max_abs_err=e_err if name == "E" else b_err)
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    print(f"[kernels] stats overhead over one step's sequence: K8 "
+          f"{out['K8']['ms'] / out['E']['ms']:.3f}x E, K9 "
+          f"{out['K9']['ms'] / out['B']['ms']:.3f}x B", flush=True)
     out["K7"] = dict(ms=k7_ms, plain_ms=k7_plain, library_ms=k7_lib,
                      bound_ms=k7_b, bound_by=k7_by, max_abs_err=k7_err)
     return out
@@ -855,32 +1188,62 @@ E_NAME = "qmatmul_fused(return_quantized)"     # kernel E
 K7_NAME = "qmatmul_bwd_pair(dx_carry)"          # B's carry-in entry
 
 
+K8_NAME = "qmatmul_fused(collect_stats)"        # K8's kernel
+K9_NAME = "qmatmul_bwd_pair(collect_stats)"     # K9's kernel
+K12_NAME = "paged_attn_decode(collect_stats)"   # K12's kernel
+
+
 def _train_counters():
-    """G, E, B and B's dx carry-in entry (K7), as ``_counters``."""
+    """G, E, B, B's dx carry-in entry (K7) and the stats kernels K8 and
+    K9, as ``_counters``."""
     from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
     from repro_torch.kernels.fused import qmatmul_fused
 
     return {"qmatmul_fused": (qmatmul_fused, "launches"),
             E_NAME: (qmatmul_fused, "emitq_launches"),
             "qmatmul_bwd_pair": (qmatmul_bwd_pair, "launches"),
-            K7_NAME: (qmatmul_bwd_pair, "carry_launches")}
+            K7_NAME: (qmatmul_bwd_pair, "carry_launches"),
+            K8_NAME: (qmatmul_fused, "stats_launches"),
+            K9_NAME: (qmatmul_bwd_pair, "stats_launches")}
+
+
+TELEMETRY_CADENCE = 2
+TELEMETRY_LOG = ROOT / "build" / "telemetry.jsonl"   # gitignored
+
+
+def _train_argv(*extra) -> list[str]:
+    """The training launcher's arguments of the train cell; a flag in
+    ``extra`` overrides its earlier value."""
+    return ["--arch", "qwen2-1.5b", "--steps", str(TRAIN_STEPS),
+            "--global-batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+            "--lr", str(TRAIN_LR), "--warmup", str(TRAIN_WARMUP), "--policy",
+            "predicted", "--chunk", "64", "--seed", str(SEED), "--device",
+            "cuda", "--telemetry-log", str(TELEMETRY_LOG), *extra]
+
+
+def _train_args(*extra):
+    from repro_torch.launch.train import parse_args
+
+    return parse_args(_train_argv(*extra))
 
 
 def phase_train(dev) -> dict:
     """qwen2-1.5b at full width and depth through the training launcher's
     own set-up (``repro_torch.launch.train.build``): predicted plan, chunk
-    64, seeded f32 weights, ``SyntheticLM`` batches, AdamW."""
-    from repro_torch.launch.train import build, parse_args
+    64, seeded f32 weights, ``SyntheticLM`` batches, AdamW, and the eager
+    swamping-telemetry tick every ``TELEMETRY_CADENCE`` steps
+    (``--telemetry-cadence``: ``run_telemetry_tick`` and the controller, as
+    the launcher's loop drives them); a re-planned model goes on
+    training."""
+    from repro_torch.launch.train import build, build_telemetry
     from repro_torch.models.api import dense_gemm_shapes, param_count
-    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.loop import make_train_step, run_telemetry_tick
 
-    args = parse_args(["--arch", "qwen2-1.5b", "--steps", str(TRAIN_STEPS),
-                       "--global-batch", str(TRAIN_BATCH), "--seq-len",
-                       str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--warmup",
-                       str(TRAIN_WARMUP), "--policy", "predicted", "--chunk",
-                       "64", "--seed", str(SEED), "--device", "cuda"])
+    args = _train_args("--telemetry-cadence", str(TELEMETRY_CADENCE))
+    TELEMETRY_LOG.unlink(missing_ok=True)
     torch.cuda.reset_peak_memory_stats()
     model, tc, state, data, _ = build(args)
+    controller, _ = build_telemetry(args, tc)
     cfg = model.cfg
     step_fn = make_train_step(model, tc)
     tokens = TRAIN_SEQ * TRAIN_BATCH
@@ -889,7 +1252,12 @@ def phase_train(dev) -> dict:
     want = {E_NAME: n_layer_gemms * cfg.n_layers,
             "qmatmul_fused": 1,
             "qmatmul_bwd_pair": n_layer_gemms * cfg.n_layers + 1,
-            K7_NAME: 0}
+            K7_NAME: 0, K8_NAME: 0, K9_NAME: 0}
+    # a tick: the probe's forward (G on every quantized GEMM, no autograd),
+    # then K8 on the lm_head's 3 roles and on the 7 synthetic layer tags'
+    want_tick = {E_NAME: 0, "qmatmul_fused": n_layer_gemms * cfg.n_layers + 1,
+                 "qmatmul_bwd_pair": 0, K7_NAME: 0,
+                 K8_NAME: 3 * (n_layer_gemms + 1), K9_NAME: 0}
     print(f"[train] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{param_count(state['params']) / 1e6:.1f}M params (f32 masters), "
@@ -897,6 +1265,8 @@ def phase_train(dev) -> dict:
           f"lr {TRAIN_LR} warmup {TRAIN_WARMUP}", flush=True)
     counters = _train_counters()
     losses, step_ms, launches = [], [], {k: 0 for k in counters}
+    tick_ms, tick_launches, n_events = [], {k: 0 for k in counters}, 0
+    from repro_torch.telemetry.controller import PLAN_FIELDS, ROLES
     for step in range(TRAIN_STEPS):
         batch = next(data)
         zero_counts(counters)
@@ -918,6 +1288,40 @@ def phase_train(dev) -> dict:
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
               f"launches {per}", flush=True)
         check(per == want, f"step {step + 1}: launches {per} != {want}")
+        if controller.due(step + 1):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(args.seed * 1000003 + step + 1)
+            zero_counts(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            events, new_model = run_telemetry_tick(
+                controller, model, state, batch, step=step + 1, gen=gen,
+                seq_len=args.seq_len, global_batch=args.global_batch)
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            per = read_counts(counters)
+            for k, v in per.items():
+                tick_launches[k] += v
+            kinds = {}
+            for e in events:
+                kinds[e["event"]] = kinds.get(e["event"], 0) + 1
+                if e["event"] != "ok":
+                    print(json.dumps({"telemetry": e}), flush=True)
+            roles = {(e["gemm"], e["role"]) for e in events}
+            print(f"[train] telemetry tick at step {step + 1}: "
+                  f"{tick_ms[-1]:.1f} ms ({tick_ms[-1] / dt:.3f} of this "
+                  f"step), events {kinds} over {len(roles)} (field, role) "
+                  f"keys, schedule {controller.to_meta()}, launches {per}",
+                  flush=True)
+            check(per == want_tick, f"tick launches {per} != {want_tick}")
+            check(roles == {(f, r) for f in PLAN_FIELDS for r in ROLES},
+                  f"tick gave verdicts for {sorted(roles)} only")
+            check(all(math.isfinite(e["measured_vrr"]) for e in events),
+                  "non-finite measured VRR")
+            n_events += len(events)
+            if new_model is not None:   # the launcher goes on re-planned
+                model = new_model
+                step_fn = make_train_step(model, tc)
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     for k in ("qmatmul_fused", E_NAME, "qmatmul_bwd_pair"):
@@ -938,8 +1342,17 @@ def phase_train(dev) -> dict:
           f"{losses[-1]:.4f}; steady step {min(step_ms[1:]):.1f} ms "
           f"({tokens / min(step_ms[1:]) * 1e3:.1f} tokens/s); peak memory "
           f"{peak / 2 ** 30:.2f} GiB; launches {launches}", flush=True)
+    logged = sum(1 for _ in open(TELEMETRY_LOG))
+    print(f"[train] telemetry: {len(tick_ms)} ticks at cadence "
+          f"{TELEMETRY_CADENCE}, {min(tick_ms):.1f}-{max(tick_ms):.1f} ms a "
+          f"tick ({sum(tick_ms) / len(tick_ms) / min(step_ms[1:]):.3f} of a "
+          f"steady step), {n_events} events ({logged} logged to "
+          f"{TELEMETRY_LOG.name}), final schedule {controller.to_meta()}, "
+          f"launches {tick_launches}", flush=True)
+    check(logged == n_events, "the event log lost events")
     del state
-    return dict(launches=launches, losses=losses, step_ms=step_ms, peak=peak)
+    return dict(launches=launches, losses=losses, step_ms=step_ms, peak=peak,
+                tick_ms=tick_ms, tick_launches=tick_launches)
 
 
 def _profile_step(step_fn, state, batch, step_ms: float) -> None:
@@ -1016,6 +1429,194 @@ def phase_train_vs_plain(dev) -> None:
     check(same == len(leaves), "a gradient differs between kernels and plain")
 
 
+def phase_train_ingraph(dev, steady_step_ms: float) -> dict:
+    """One full-depth in-graph telemetry tick (``--ingraph-telemetry``:
+    ``InGraphTelemetry.tick``, the tagged step in the normal step's place):
+    its time against the steady untagged step, its peak memory, and its
+    launches (every qdot backward through K9 and a K8 FWD replay, no B).
+    Then, at the 2-layer full-width cut (batch 2 x seq 64), the tagged
+    step against the untagged step from the same state: loss and every
+    state leaf bitwise."""
+    import copy
+
+    from repro_torch.launch.train import build, build_telemetry
+    from repro_torch.models.api import dense_gemm_shapes, get_model
+    from repro_torch.obs.ingraph import (InGraphCollector, collecting,
+                                         tag_quant_plan)
+    from repro_torch.train.loop import TrainConfig, make_train_step
+    from repro_torch.train.optimizer import (init_opt_state, init_scaler,
+                                             tree_leaves)
+
+    args = _train_args("--telemetry-cadence", "1", "--ingraph-telemetry")
+    TELEMETRY_LOG.unlink(missing_ok=True)
+    model, tc, state, data, _ = build(args)
+    _, ingraph = build_telemetry(args, tc)
+    cfg = model.cfg
+    n_gemms = len(dense_gemm_shapes(cfg, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH)) - 1
+    n_qdot = n_gemms * cfg.n_layers + 1
+    want = {"qmatmul_fused": 1, E_NAME: n_qdot - 1, "qmatmul_bwd_pair": 0,
+            K7_NAME: 0, K8_NAME: n_qdot, K9_NAME: n_qdot}
+    counters = _train_counters()
+    batch = next(data)
+    ingraph.stats_step(model)       # build the tagged step outside the clock
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    state, m, events, new_model = ingraph.tick(model, state, batch, step=1)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t0) * 1e3
+    per = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    kinds = {}
+    for e in events:
+        kinds[e["event"]] = kinds.get(e["event"], 0) + 1
+    print(f"[train] in-graph tick, full depth: {tick_ms:.1f} ms "
+          f"({tick_ms / steady_step_ms:.3f} of the steady untagged step's "
+          f"{steady_step_ms:.1f} ms), loss {loss:.5f}, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB, events {kinds} over "
+          f"{len({(e['gemm'], e['role']) for e in events})} (field, role) "
+          f"keys, re-planned {new_model is not None}, launches {per}",
+          flush=True)
+    check(per == want, f"in-graph tick launches {per} != {want}")
+    check(math.isfinite(loss), "in-graph tick: non-finite loss")
+    check(len(events) == 15, f"in-graph tick gave {len(events)} verdicts")
+    del state, m
+    torch.cuda.empty_cache()
+
+    cfg2 = _train_cfg(n_layers=2, batch=2)
+    untagged, tagged = get_model(cfg2), get_model(tag_quant_plan(cfg2))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    params = untagged.init_params(gen, dev)
+    tokens = torch.randint(0, cfg2.vocab_size, (2, TRAIN_SEQ), generator=gen,
+                           device=dev, dtype=torch.int32)
+    tc2 = TrainConfig()
+    state0 = {"params": params, "opt": init_opt_state(params),
+              "scaler": init_scaler(tc2.scaler, dev)}
+    s0, m0 = make_train_step(untagged, tc2)(copy.deepcopy(state0),
+                                            {"tokens": tokens})
+    col = InGraphCollector()
+    zero_counts(counters)
+    with collecting(col):
+        s1, m1 = make_train_step(tagged, tc2)(copy.deepcopy(state0),
+                                              {"tokens": tokens})
+    used = read_counts(counters)
+    rows = col.rows()
+    leaves = list(zip(tree_leaves(s0), tree_leaves(s1)))
+    same = sum(bool(torch.equal(a, b)) for a, b in leaves)
+    print(f"[train] tagged vs untagged step, 2 layers at full width, batch 2"
+          f" x seq {TRAIN_SEQ}: loss {float(m0['loss']):.6f} vs "
+          f"{float(m1['loss']):.6f}; {same}/{len(leaves)} state leaves "
+          f"bitwise equal; {len(rows)} (field, role) windows; launches "
+          f"{used}", flush=True)
+    check(torch.equal(m0["loss"], m1["loss"]), "tagged step changed the loss")
+    check(same == len(leaves), "tagged step changed the state")
+    check(len(rows) == 15 and all(r[0] > 0 for r in rows.values()),
+          "tagged step: a window is missing or empty")
+    return dict(tick_ms=tick_ms, launches=per, peak=peak)
+
+
+REPLAN_STEPS = 3
+
+
+def phase_train_replan(dev) -> dict:
+    """The controller acting on the card: the training launcher's own
+    ``main`` at full width and depth under ``--policy perturbed --pp -2``
+    (every quantized width 2 bits under the predicted plan) with a
+    telemetry tick every step, ``REPLAN_STEPS`` steps, once with the eager
+    tick and once in-graph (``--ingraph-telemetry``).  The narrowed long
+    accumulations breach (the closed form flags mlp_up's BWD and
+    mlp_down's FWD, N = 8960); after the controller's hysteresis (2
+    agreeing ticks) it bumps them, ``apply_schedule`` re-plans the model,
+    and the launcher builds the new model's step and trains on.  Checks:
+    a bump logged before the last step, the last step built for a model
+    that carries every width the controller set, 15 verdicts a tick,
+    finite losses, and the whole run's launches (a step's E, G and B, an
+    eager tick's G and K8; in-graph, K8 and K9 and no B)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as LT
+    from repro_torch.models.api import dense_gemm_shapes
+
+    cfg = _train_cfg()
+    n_qdot = (len(dense_gemm_shapes(cfg, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH)) - 1
+              ) * cfg.n_layers + 1
+    s = REPLAN_STEPS
+    wants = {
+        False: {E_NAME: s * (n_qdot - 1), "qmatmul_fused": s * (1 + n_qdot),
+                "qmatmul_bwd_pair": s * n_qdot, K7_NAME: 0, K8_NAME: s * 24,
+                K9_NAME: 0},
+        True: {E_NAME: s * (n_qdot - 1), "qmatmul_fused": s,
+               "qmatmul_bwd_pair": 0, K7_NAME: 0, K8_NAME: s * n_qdot,
+               K9_NAME: s * n_qdot}}
+    make_step, built = LT.make_train_step, []
+
+    def recording(model, tc):   # the plan of every step the launcher builds
+        built.append(model.cfg)
+        return make_step(model, tc)
+
+    counters = _train_counters()
+    out = {}
+    for ingraph in (False, True):
+        argv = _train_argv("--policy", "perturbed", "--pp", "-2",
+                           "--telemetry-cadence", "1", "--steps", str(s),
+                           "--log-every", "1",
+                           *(("--ingraph-telemetry",) if ingraph else ()))
+        TELEMETRY_LOG.unlink(missing_ok=True)
+        built.clear()
+        buf = io.StringIO()
+        LT.make_train_step = recording
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                res = LT.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            LT.make_train_step = make_step
+        secs = time.perf_counter() - t0
+        used = read_counts(counters)
+        recs = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                if ln.startswith("{")]
+        losses = [r["loss"] for r in recs if "loss" in r]
+        logged = [json.loads(ln) for ln in open(TELEMETRY_LOG)]
+        acted = [e for e in logged if e["event"] != "ok"]
+        what = "in-graph" if ingraph else "eager"
+        actions = [tuple(e[k] for k in ("step", "gemm", "role", "event",
+                                        "m_acc", "source")) for e in acted]
+        print(f"[train] re-plan, {what} tick every step under perturbed PP "
+              f"-2, {s} full-depth steps in {secs:.1f} s: losses "
+              f"{[round(x, 5) for x in losses]}, actions {actions}, "
+              f"schedule {res['schedule']}, steps built for {len(built)} "
+              f"plans, launches {used}", flush=True)
+        check(len(losses) == s and all(math.isfinite(x) for x in losses),
+              f"re-plan ({what}): losses {losses}")
+        check(len(logged) == 15 * s, f"re-plan ({what}): {len(logged)} "
+              f"verdicts for {s} ticks")
+        check(any(e["event"] == "bump" and e["step"] < s for e in acted),
+              f"re-plan ({what}): no bump before the last step")
+        check(len(built) >= 2 and built[-1].quant != built[0].quant,
+              f"re-plan ({what}): no step built for a re-planned model")
+        final = {(e["gemm"], e["role"]): e["m_acc"] for e in acted}
+        check(all(getattr(getattr(built[-1].quant, g), r).m_acc == m
+                  for (g, r), m in final.items()),
+              f"re-plan ({what}): the last plan lacks a width the "
+              f"controller set")
+        check(res["schedule"] == {f"{g}:{r}": m for (g, r), m in
+                                  sorted(final.items())},
+              f"re-plan ({what}): schedule {res['schedule']}")
+        check(used == wants[ingraph],
+              f"re-plan ({what}): launches {used} != {wants[ingraph]}")
+        out[what] = dict(launches=used, losses=losses, acted=len(acted))
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1042,6 +1643,7 @@ def main() -> None:
     g_err = g["max_abs_err"]
     del g
     d = phase_decode(cfg, dev, plan)
+    k12 = d.pop("stats")
     p = phase_prefill(cfg, dev, plan)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1063,6 +1665,7 @@ def main() -> None:
           "identical", flush=True)
     check(same == len(prompts), "chunked prefill changed a token stream")
     phase_logits(cfg, params, dev, prompts[0])
+    mon = phase_serve_monitor(cfg, params, dev, prompts, one)
     del params
     torch.cuda.empty_cache()
 
@@ -1071,6 +1674,10 @@ def main() -> None:
     tr = phase_train(dev)
     torch.cuda.empty_cache()
     phase_train_vs_plain(dev)
+    torch.cuda.empty_cache()
+    ig = phase_train_ingraph(dev, min(tr["step_ms"][1:]))
+    torch.cuda.empty_cache()
+    phase_train_replan(dev)
 
     kernels = [
         dict(name="qmatmul_fused", route="cuda",
@@ -1101,6 +1708,21 @@ def main() -> None:
              source="src/repro_torch/csrc/bwd_pair.cu",
              replaces="src/repro/kernels/bwd_pair.py:155",
              launches=tr["launches"][K7_NAME], **tk["K7"]),
+        # the stats kernels: K8 on the eager ticks and the in-graph tick,
+        # K9 on the in-graph tick, K12 on the serve monitor's ticks
+        dict(name=K8_NAME, route="cuda",
+             source="src/repro_torch/csrc/qgemm_stats.cu",
+             replaces="src/repro/kernels/fused.py:174",
+             launches=tr["tick_launches"][K8_NAME] + ig["launches"][K8_NAME],
+             **tk["K8"]),
+        dict(name=K9_NAME, route="cuda",
+             source="src/repro_torch/csrc/bwd_pair.cu",
+             replaces="src/repro/kernels/bwd_pair.py:214",
+             launches=ig["launches"][K9_NAME], **tk["K9"]),
+        dict(name=K12_NAME, route="cuda",
+             source="src/repro_torch/csrc/paged_decode.cu",
+             replaces="src/repro/kernels/attention.py:607",
+             launches=mon["launches"], **k12),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -14,16 +14,29 @@
 // step.  The page walk is sequential (the carry rounding is per page), so
 // the kernel is latency-bound; it loads the next page's codes into
 // registers while the current page is computed.
+//
+// paged_decode_stats (STATS) replaces ::_decode_kernel_stats (K12): the
+// same walk, so o is bitwise D's, plus an f32 shadow o_i = o_i * alpha + pv
+// with D's alpha and pv, and the N_STATS row over the output ensemble of
+// the sequences with seq_len > 0: per page update, adds (pv != 0) and
+// swamped (the new carry equals the rescaled previous one, prev * alpha),
+// max |o|; at the last page the moments of (o, o_i).  The TPU kernel walks
+// every page-table column and takes the moments on the last one; a page
+// past seq_len is a carry no-op there (alpha = 1, pv = 0, no add counted),
+// so stopping at the last valid page gives the same row.  One partial row
+// per (sequence, KV head) block, summed by common.cuh's second pass.
 #include "common.cuh"
 
 namespace {
 
+template <bool STATS>
 __global__ void __launch_bounds__(ATTN_THREADS) paged_decode_kernel(
     const float* __restrict__ q, const int8_t* __restrict__ kp,
     const int8_t* __restrict__ vp, const int* __restrict__ kse,
     const int* __restrict__ vse, const int* __restrict__ page_table,
     int max_pages, const int* __restrict__ seq_lens, float* __restrict__ out,
-    int KV, int G, int PS, int DH, float scale, int e_kv, int m_kv, QFmt qacc) {
+    int KV, int G, int PS, int DH, float scale, int e_kv, int m_kv, QFmt qacc,
+    double* __restrict__ part) {
   __shared__ float qs[MAX_G][MAX_DH];
   __shared__ float ks[MAX_PAGE][MAX_DH + 1];  // +1: score reads hit distinct banks
   __shared__ float vs[MAX_PAGE][MAX_DH];
@@ -45,8 +58,14 @@ __global__ void __launch_bounds__(ATTN_THREADS) paged_decode_kernel(
   }
   if (tid < G) { m_s[tid] = REPRO_NEG; l_s[tid] = 0.0f; }
   float o[MAX_G];
+  float oi[MAX_G];  // STATS: the f32 shadow of o
 #pragma unroll
-  for (int gg = 0; gg < MAX_G; ++gg) o[gg] = 0.0f;
+  for (int gg = 0; gg < MAX_G; ++gg) o[gg] = oi[gg] = 0.0f;
+  int n_adds = 0, n_swamped = 0;  // STATS
+  float max_abs = 0.0f;
+  double v[N_STATS];
+#pragma unroll
+  for (int s = 0; s < N_STATS; ++s) v[s] = 0.0;
 
   int8_t rk[PER], rv[PER];
   auto fetch = [&](int p) {
@@ -112,7 +131,17 @@ __global__ void __launch_bounds__(ATTN_THREADS) paged_decode_kernel(
         if (gg >= G) break;
         float pv = 0.0f;
         for (int t = 0; t < PS; ++t) pv = __fadd_rn(pv, __fmul_rn(pr[gg][t], vs[t][tid]));
-        o[gg] = quantize_rne(__fadd_rn(__fmul_rn(o[gg], alpha_s[gg]), pv), qacc);
+        const float scaled = __fmul_rn(o[gg], alpha_s[gg]);
+        o[gg] = quantize_rne(__fadd_rn(scaled, pv), qacc);
+        if constexpr (STATS) {
+          oi[gg] = __fadd_rn(__fmul_rn(oi[gg], alpha_s[gg]), pv);
+          if (pv != 0.0f) {
+            ++n_adds;
+            if (o[gg] == scaled) ++n_swamped;
+          }
+          max_abs = fmaxf(max_abs, fabsf(o[gg]));
+          if (p == n_pages - 1) stats_moments(v, o[gg], oi[gg]);
+        }
       }
     }
   }
@@ -125,6 +154,31 @@ __global__ void __launch_bounds__(ATTN_THREADS) paged_decode_kernel(
       out[((long long)b * H + hk * G + gg) * DH + tid] = l > 0.0f ? __fdiv_rn(o[gg], l) : 0.0f;
     }
   }
+  if constexpr (STATS) {
+    __shared__ double sh[ATTN_THREADS / 32 * N_STATS];
+    v[STAT_MAX_ABS] = max_abs;
+    v[STAT_SWAMPED] = n_swamped;
+    v[STAT_ADDS] = n_adds;
+    stats_block_row<ATTN_THREADS>(v, part + ((long long)b * KV + hk) * N_STATS, sh);
+  }
+}
+
+template <bool STATS>
+int launch(const void* q, const void* kp, const void* vp, const void* kse,
+           const void* vse, const void* page_table, int max_pages,
+           const void* seq_lens, void* out, int B, int KV, int G, int PS,
+           int DH, float scale, int e_kv, int m_kv, QFmt qacc, double* part,
+           float* stats, cudaStream_t s) {
+  dim3 grid(B, KV);
+  paged_decode_kernel<STATS><<<grid, ATTN_THREADS, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const int8_t*>(kp),
+      static_cast<const int8_t*>(vp), static_cast<const int*>(kse),
+      static_cast<const int*>(vse), static_cast<const int*>(page_table),
+      max_pages, static_cast<const int*>(seq_lens), static_cast<float*>(out),
+      KV, G, PS, DH, scale, e_kv, m_kv, qacc, part);
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (!STATS || rc != 0) return rc;
+  return stats_finish(part, B * KV, B * KV, 1, stats, s);
 }
 
 }  // namespace
@@ -138,13 +192,26 @@ extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
                             int G, int PS, int DH, float scale, int e_kv,
                             int m_kv, int c_identity, int c_shift, float c_max,
                             float c_min, void* stream) {
-  const QFmt qacc{c_identity, c_shift, c_max, c_min};
-  dim3 grid(B, KV);
-  paged_decode_kernel<<<grid, ATTN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const int8_t*>(kp),
-      static_cast<const int8_t*>(vp), static_cast<const int*>(kse),
-      static_cast<const int*>(vse), static_cast<const int*>(page_table),
-      max_pages, static_cast<const int*>(seq_lens), static_cast<float*>(out),
-      KV, G, PS, DH, scale, e_kv, m_kv, qacc);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(q, kp, vp, kse, vse, page_table, max_pages, seq_lens,
+                       out, B, KV, G, PS, DH, scale, e_kv, m_kv,
+                       QFmt{c_identity, c_shift, c_max, c_min}, nullptr,
+                       nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// K12: paged_decode plus stats [N_STATS] f32; part is a workspace of
+// B * KV * N_STATS doubles (one partial row per block).
+extern "C" int paged_decode_stats(const void* q, const void* kp,
+                                  const void* vp, const void* kse,
+                                  const void* vse, const void* page_table,
+                                  int max_pages, const void* seq_lens,
+                                  void* out, int B, int KV, int G, int PS,
+                                  int DH, float scale, int e_kv, int m_kv,
+                                  int c_identity, int c_shift, float c_max,
+                                  float c_min, void* part, void* stats,
+                                  void* stream) {
+  return launch<true>(q, kp, vp, kse, vse, page_table, max_pages, seq_lens,
+                      out, B, KV, G, PS, DH, scale, e_kv, m_kv,
+                      QFmt{c_identity, c_shift, c_max, c_min},
+                      static_cast<double*>(part), static_cast<float*>(stats),
+                      static_cast<cudaStream_t>(stream));
 }

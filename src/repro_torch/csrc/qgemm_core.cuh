@@ -16,6 +16,15 @@
 // Operands are read through element strides, so a transposed view (the
 // tied lm_head's embed.T, w^T in dx, x^T in dw) needs no copy; loads run
 // along whichever axis is contiguous in memory.
+//
+// STATS (the swamping-telemetry variants K8/K9, qgemm_stats.cu and
+// bwd_pair.cu) adds an f32 shadow carry ideal += partial beside the carry
+// and, over the valid (unpadded) outputs, counts every chunk update whose
+// partial is non-zero (adds) and those the carry absorbed (swamped: new ==
+// prev), takes the max |carry|, and at the tile's last chunk the ensemble
+// moments of (carry, ideal); the block's partial stats row goes to `stats`.
+// The carry arithmetic is the same code, so the output is bitwise the
+// stats-off tile's.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -56,12 +65,16 @@ struct Args {
   Dec enc;     // EMIT: code format
 };
 
-// One BM x BN tile at (m0, n0); As/Bs are the block's shared tiles.
+// One BM x BN tile at (m0, n0); As/Bs are the block's shared tiles; with
+// STATS, `stats` receives the block's partial row and `sh` holds
+// NT / 32 * N_STATS doubles of shared scratch.
 template <int BM, int BN, int TM, int TN, int KT, int NT, bool EMIT,
-          typename TA, typename TB>
+          bool STATS = false, typename TA, typename TB>
 __device__ __forceinline__ void tile(const Args<TA, TB>& p, int m0, int n0,
                                      bool emit_a, bool emit_b,
-                                     float (*As)[BM + 1], float (*Bs)[BN + 1]) {
+                                     float (*As)[BM + 1], float (*Bs)[BN + 1],
+                                     double* stats = nullptr,
+                                     double* sh = nullptr) {
   constexpr int TX = BN / TN;
   constexpr int TY = BM / TM;
   static_assert(TX * TY == NT, "thread tile does not cover the block");
@@ -77,11 +90,15 @@ __device__ __forceinline__ void tile(const Args<TA, TB>& p, int m0, int n0,
 
   float ra[A_PER], rb[B_PER];
   float part[TM][TN], carry[TM][TN];
+  float ideal[TM][TN];          // STATS: the f32 shadow carry
+  int n_adds = 0, n_swamped = 0;  // STATS: chunk updates over valid outputs
+  float max_abs = 0.0f;           // STATS: max |carry| over those updates
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       part[i][j] = 0.0f;
+      ideal[i][j] = 0.0f;
       const int gm = m0 + ty + i * TY, gn = n0 + tx + j * TX;
       carry[i][j] = (p.Cin != nullptr && gm < M && gn < N)
                         ? p.Cin[(long long)gm * p.ldc + gn]
@@ -109,6 +126,28 @@ __device__ __forceinline__ void tile(const Args<TA, TB>& p, int m0, int n0,
       const int gk = k0 + kk, gn = n0 + nn;
       rb[i] = (gk < K && gn < N) ? ld(p.B, gk * p.sbk + gn * p.sbn, p.dec) : 0.0f;
     }
+  };
+
+  // a chunk ends: carry = q(carry + partial), the partial restarts
+  auto fold = [&]() {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float prev = carry[i][j];
+        carry[i][j] = quantize_rne(__fadd_rn(prev, part[i][j]), p.qacc);
+        if constexpr (STATS) {
+          ideal[i][j] = __fadd_rn(ideal[i][j], part[i][j]);
+          if (m0 + ty + i * TY < M && n0 + tx + j * TX < N) {
+            if (part[i][j] != 0.0f) {
+              ++n_adds;
+              if (carry[i][j] == prev) ++n_swamped;
+            }
+            max_abs = fmaxf(max_abs, fabsf(carry[i][j]));
+          }
+        }
+        part[i][j] = 0.0f;
+      }
   };
 
   int left = p.chunk;  // products until the current chunk ends
@@ -153,23 +192,26 @@ __device__ __forceinline__ void tile(const Args<TA, TB>& p, int m0, int n0,
 #pragma unroll
         for (int j = 0; j < TN; ++j) part[i][j] = __fmaf_rn(a[i], b[j], part[i][j]);
       if (--left == 0) {
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            carry[i][j] = quantize_rne(__fadd_rn(carry[i][j], part[i][j]), p.qacc);
-            part[i][j] = 0.0f;
-          }
+        fold();
         left = p.chunk;
       }
     }
   }
-  if (left != p.chunk) {  // ragged last chunk (the zero pad adds nothing)
+  if (left != p.chunk) fold();  // ragged last chunk (the zero pad adds nothing)
+  if constexpr (STATS) {
+    double v[N_STATS];
+#pragma unroll
+    for (int s = 0; s < N_STATS; ++s) v[s] = 0.0;
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j)
-        carry[i][j] = quantize_rne(__fadd_rn(carry[i][j], part[i][j]), p.qacc);
+        if (m0 + ty + i * TY < M && n0 + tx + j * TX < N)
+          stats_moments(v, carry[i][j], ideal[i][j]);
+    v[STAT_MAX_ABS] = max_abs;
+    v[STAT_SWAMPED] = n_swamped;
+    v[STAT_ADDS] = n_adds;
+    stats_block_row<NT>(v, stats, sh);
   }
 #pragma unroll
   for (int i = 0; i < TM; ++i) {

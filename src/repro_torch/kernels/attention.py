@@ -34,6 +34,13 @@ added).  The kernels and the plain versions here follow the same order,
 so on the card they agree bit for bit; against the JAX package, whose
 contractions are XLA dots, they agree to the carry's rounding.
 
+``paged_attn_decode(..., collect_stats=True)`` is K12's port
+(``paged_decode_stats`` in ``csrc/paged_decode.cu``, replacing
+``_decode_kernel_stats``, the serve-time swamping monitor's probe): D's
+output, bitwise, plus the (N_STATS,) float32 stats row of the o carry
+against an f32 shadow ``o_i = o_i * alpha + p.v`` of the same rescaled
+addends, over the outputs of the sequences with ``seq_len > 0``.
+
 On CPU tensors the wrappers run the ``*_reference`` plain versions; on
 CUDA tensors they launch the kernel or raise.
 """
@@ -47,7 +54,15 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import exp2_int, qfmt_args, quantize_block
+from repro_torch.kernels.common import (
+    N_STATS,
+    exp2_int,
+    qfmt_args,
+    quantize_block,
+    stats_delta_row,
+    stats_row,
+    stats_update,
+)
 from repro_torch.quant.formats import fmt_tuple
 from repro_torch.quant.qtensor import unpack_block
 
@@ -55,6 +70,7 @@ __all__ = [
     "AttnCall",
     "paged_attn_decode",
     "paged_attn_decode_reference",
+    "paged_attn_decode_stats_reference",
     "flash_prefill_paged",
     "flash_prefill_paged_reference",
     "NEG",
@@ -119,6 +135,8 @@ def _online_update(o, m, l, t, valid, v, e_acc: int, m_acc: int):
     ``o`` (..., R, D), ``m``/``l`` (..., R, 1) carries; ``t`` (..., R, T)
     base-2 scores (NEG where invalid); ``v`` (..., T, D).  Sums in token
     order (see module docstring).  A fully-masked page is a carry no-op.
+    Returns ``(o, m, l, alpha, pv)``: the new carries, the rescale and the
+    page's value sum (the stats variant's shadow takes the same two).
     """
     m_new = torch.maximum(m, torch.ceil(torch.amax(t, dim=-1, keepdim=True)))
     alpha = torch.exp2(m - m_new)
@@ -130,7 +148,7 @@ def _online_update(o, m, l, t, valid, v, e_acc: int, m_acc: int):
         pv = pv + p[..., j:j + 1] * v[..., None, j, :]
     l_new = quantize_block(l * alpha + lsum, e_acc, m_acc)
     o_new = quantize_block(o * alpha + pv, e_acc, m_acc)
-    return o_new, m_new, l_new
+    return o_new, m_new, l_new, alpha, pv
 
 
 def _finalize(o, l):
@@ -191,6 +209,24 @@ def paged_attn_decode_reference(q, k_pages, v_pages, k_se, v_se, page_table,
     through the page table, dequantizes with the per-page scales and walks
     every page-table column in order (columns past a row's length are
     masked, hence carry no-ops), with the kernel's summation order."""
+    return _decode_walk(q, k_pages, v_pages, k_se, v_se, page_table,
+                        seq_lens, kv_fmt=kv_fmt, acc=acc, stats=False)
+
+
+def paged_attn_decode_stats_reference(q, k_pages, v_pages, k_se, v_se,
+                                      page_table, seq_lens, *, kv_fmt=None,
+                                      acc=_WIDE):
+    """Plain PyTorch version of K12's kernel: ``(out, row)``.  It walks
+    every page-table column, as the TPU kernel does, and takes the ensemble
+    moments on the last one; the kernel stops at each sequence's last valid
+    page, where the row is already complete (a masked page changes neither
+    carry nor shadow and counts no add)."""
+    return _decode_walk(q, k_pages, v_pages, k_se, v_se, page_table,
+                        seq_lens, kv_fmt=kv_fmt, acc=acc, stats=True)
+
+
+def _decode_walk(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens, *,
+                 kv_fmt, acc, stats: bool):
     fmt = _check_pages(q, k_pages, v_pages, kv_fmt)
     b, h, dh = q.shape
     kv, page_size = k_pages.shape[1], k_pages.shape[2]
@@ -204,7 +240,12 @@ def paged_attn_decode_reference(q, k_pages, v_pages, k_se, v_se, page_table,
     scale = _scale(dh).to(dev)
     seq_lens = seq_lens.to(device=dev, dtype=torch.int64)
     page_table = page_table.to(device=dev, dtype=torch.int64)
-    for p in range(page_table.shape[1]):
+    if stats:
+        ideal = torch.zeros_like(o)
+        row = stats_row(dev)
+        mask = (seq_lens > 0)[:, None, None, None].expand_as(o)
+    n_cols = page_table.shape[1]
+    for p in range(n_cols):
         pid = page_table[:, p]
         kb = _page_values(k_pages[pid], k_se[pid], fmt)  # (B, KV, ps, dh)
         vb = _page_values(v_pages[pid], v_se[pid], fmt)
@@ -212,8 +253,17 @@ def paged_attn_decode_reference(q, k_pages, v_pages, k_se, v_se, page_table,
         tok = p * page_size + torch.arange(page_size, device=dev)
         valid = (tok < seq_lens[:, None, None, None]).expand_as(s)
         s = torch.where(valid, s, torch.full_like(s, NEG))
-        o, m, l = _online_update(o, m, l, s, valid, vb, e_acc, m_acc)
-    return _finalize(o, l).reshape(b, h, dh)
+        prev = o
+        o, m, l, alpha, pv = _online_update(o, m, l, s, valid, vb, e_acc,
+                                            m_acc)
+        if stats:
+            ideal = ideal * alpha + pv
+            row = stats_update(row, *stats_delta_row(
+                o, prev * alpha, ideal, pv, mask, p == n_cols - 1))
+    out = _finalize(o, l).reshape(b, h, dh)
+    if stats:
+        return out, row.to(torch.float32)
+    return out
 
 
 _DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F,
@@ -221,7 +271,8 @@ _DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F,
 
 
 def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
-                      *, kv_fmt=None, acc=_WIDE):
+                      *, kv_fmt=None, acc=_WIDE, collect_stats: bool = False,
+                      rounding: str = "rne"):
     """One decode token of attention per sequence against the paged arena.
 
     * ``q`` (B, H, dh) float32, heads kv-major;
@@ -229,14 +280,22 @@ def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
       ``k_se``/``v_se`` (P,) int32 page scale exponents;
     * ``page_table`` (B, max_pages) int32, padded with the null page 0;
     * ``seq_lens`` (B,) int32 attended tokens (0 = padded row, output 0);
-    * ``acc`` the (e_acc, m_acc) carry of the context bucket.
+    * ``acc`` the (e_acc, m_acc) carry of the context bucket;
+    * ``collect_stats=True`` is K12's kernel: returns ``(out, row)``, out
+      bitwise the stats-off call's and ``row`` the (N_STATS,) float32
+      swamping stats on the device, counted on ``stats_launches``;
+    * ``rounding``: only ``"rne"`` is ported (SR raises).
 
-    Returns (B, H, dh) float32.
+    Returns (B, H, dh) float32 [, row].
     """
+    if rounding != "rne":
+        raise NotImplementedError("stochastic-rounding carries are not "
+                                  "ported yet (ROADMAP Queue 1 item 5)")
     if q.device.type == "cpu":
-        return paged_attn_decode_reference(
-            q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
-            kv_fmt=kv_fmt, acc=acc)
+        fn = (paged_attn_decode_stats_reference if collect_stats
+              else paged_attn_decode_reference)
+        return fn(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
+                  kv_fmt=kv_fmt, acc=acc)
     fmt = _check_pages(q, k_pages, v_pages, kv_fmt)
     if q.dtype != torch.float32 or q.ndim != 3:
         raise TypeError(f"q must be (B, H, dh) float32, got {q.dtype} "
@@ -249,12 +308,28 @@ def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
     kv, page_size = k_pages.shape[1], k_pages.shape[2]
     _launch_limits(h // kv, dh, page_size)
     out = torch.empty_like(q)
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_se.data_ptr(), v_se.data_ptr(), page_table.data_ptr(),
+            page_table.shape[1], seq_lens.data_ptr(), out.data_ptr(),
+            b, kv, h // kv, page_size, dh, ctypes.c_float(float(_scale(dh))),
+            *fmt, *qfmt_args(acc))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if collect_stats:
+        row = torch.zeros((N_STATS,), dtype=torch.float32, device=q.device)
+        if b == 0:
+            return out, row
+        part = torch.empty((b * kv, N_STATS), dtype=torch.float64,
+                           device=q.device)
+        rc = build.function("paged_decode", "paged_decode_stats",
+                            _DECODE_ARGS[:-1] + [_P, _P, _P])(
+            *args, part.data_ptr(), row.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"paged_decode_stats launch failed: CUDA "
+                               f"error {rc}")
+        paged_attn_decode.stats_launches += 1
+        return out, row
     rc = build.function("paged_decode", "paged_decode", _DECODE_ARGS)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        k_se.data_ptr(), v_se.data_ptr(), page_table.data_ptr(),
-        page_table.shape[1], seq_lens.data_ptr(), out.data_ptr(),
-        b, kv, h // kv, page_size, dh, ctypes.c_float(float(_scale(dh))),
-        *fmt, *qfmt_args(acc), torch.cuda.current_stream(q.device).cuda_stream)
+        *args, stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode launch failed: CUDA error {rc}")
     paged_attn_decode.launches += 1
@@ -262,6 +337,7 @@ def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
 
 
 paged_attn_decode.launches = 0
+paged_attn_decode.stats_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -304,7 +380,8 @@ def flash_prefill_paged_reference(q, k_pages, v_pages, k_se, v_se, page_row,
         valid = ((cols <= rows) & (cols < kv_len) & (rloc < q_len)
                  & (p >= start_page)).expand_as(s)
         s = torch.where(valid, s, torch.full_like(s, NEG))
-        o, m, l = _online_update(o, m, l, s, valid, vb, e_acc, m_acc)
+        o, m, l, _, _ = _online_update(o, m, l, s, valid, vb, e_acc,
+                                        m_acc)
     return _finalize(o, l).transpose(0, 1)
 
 

@@ -28,9 +28,11 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 # kernel library name -> source file in csrc/ (each includes common.cuh;
-# qgemm.cu, G and E, and bwd_pair.cu, B, share qgemm_core.cuh)
+# qgemm.cu, G and E, qgemm_stats.cu, K8's kernel, and bwd_pair.cu, B and
+# its stats variant, share qgemm_core.cuh)
 KERNELS = {
     "qgemm": "qgemm.cu",
+    "qgemm_stats": "qgemm_stats.cu",
     "bwd_pair": "bwd_pair.cu",
     "paged_decode": "paged_decode.cu",
     "paged_prefill": "paged_prefill.cu",

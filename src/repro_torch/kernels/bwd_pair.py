@@ -27,6 +27,13 @@ CUDA cores.  The lm_head's dx is the longest sum of the step (N = 151936
 columns, one sequential carry per output) over only (T/64)(K/64) output
 tiles, so it runs on part of the card.
 
+``collect_stats=True`` is K9's port (``bwd_pair_stats`` in the same
+source, replacing ``_pair_kernel_stats``): the same dx and dw, bitwise,
+plus a (2, N_STATS) float32 stats row, row 0 the dx (BWD) accumulator and
+row 1 the dw (GRAD) one, each from f32 shadow carries of the same
+partials; the dx tiles' and dw tiles' partial rows are summed apart by a
+fixed-order second pass.
+
 On CPU tensors the wrappers run the plain PyTorch version; on CUDA tensors
 they launch the kernel or raise.
 """
@@ -38,13 +45,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import qfmt_args, quantize_block
+from repro_torch.kernels.common import N_STATS, qfmt_args, quantize_block
 from repro_torch.kernels.fused import chunked_gemm_reference
 from repro_torch.quant.formats import fmt_tuple
 from repro_torch.quant.qtensor import unpack_block
 
 __all__ = ["qmatmul_bwd_pair", "qmatmul_bwd_pair_nsplit", "qmatmul_bwd_pair_reference",
-           "pair_segment_width"]
+           "qmatmul_bwd_pair_stats_reference", "pair_segment_width"]
 
 _WIDE = (8, 23)
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -77,6 +84,15 @@ def _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk):
                          f"{(t, xq.shape[1])}")
 
 
+def _operands32(g, xq, wq, fmt, packed, quantize_g):
+    if packed:
+        x32, w32 = unpack_block(xq, *fmt), unpack_block(wq, *fmt)
+    else:
+        x32, w32 = xq.to(torch.float32), wq.to(torch.float32)
+    g32 = quantize_block(g, *fmt) if (quantize_g and fmt is not None) else g
+    return g32, x32, w32
+
+
 def qmatmul_bwd_pair_reference(g, xq, wq, *, repr_fmt, bwd_acc, grad_acc,
                                bwd_chunk: int, grad_chunk: int, packed: bool,
                                quantize_g: bool = True, dx_carry=None):
@@ -85,11 +101,7 @@ def qmatmul_bwd_pair_reference(g, xq, wq, *, repr_fmt, bwd_acc, grad_acc,
     resuming from ``dx_carry``.  Bitwise the kernel."""
     fmt = fmt_tuple(repr_fmt)
     _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk)
-    if packed:
-        x32, w32 = unpack_block(xq, *fmt), unpack_block(wq, *fmt)
-    else:
-        x32, w32 = xq.to(torch.float32), wq.to(torch.float32)
-    g32 = quantize_block(g, *fmt) if (quantize_g and fmt is not None) else g
+    g32, x32, w32 = _operands32(g, xq, wq, fmt, packed, quantize_g)
     dx = chunked_gemm_reference(g32, w32.T, e_acc=bwd_acc[0],
                                 m_acc=bwd_acc[1], block_k=bwd_chunk,
                                 carry=dx_carry)
@@ -98,18 +110,79 @@ def qmatmul_bwd_pair_reference(g, xq, wq, *, repr_fmt, bwd_acc, grad_acc,
     return dx, dw
 
 
+def qmatmul_bwd_pair_stats_reference(g, xq, wq, *, repr_fmt, bwd_acc,
+                                     grad_acc, bwd_chunk: int,
+                                     grad_chunk: int, packed: bool,
+                                     quantize_g: bool = True):
+    """Plain PyTorch version of K9's kernel: ``(dx, dw, rows)`` with dx, dw
+    as ``qmatmul_bwd_pair_reference`` and ``rows`` the (2, N_STATS)
+    float32 stats of the dx and dw accumulators
+    (``chunked_gemm_reference(..., stats=True)``)."""
+    fmt = fmt_tuple(repr_fmt)
+    _check(g, xq, wq, fmt, packed, None, bwd_chunk, grad_chunk)
+    g32, x32, w32 = _operands32(g, xq, wq, fmt, packed, quantize_g)
+    dx, rx = chunked_gemm_reference(g32, w32.T, e_acc=bwd_acc[0],
+                                    m_acc=bwd_acc[1], block_k=bwd_chunk,
+                                    stats=True)
+    dw, rw = chunked_gemm_reference(x32.T, g32, e_acc=grad_acc[0],
+                                    m_acc=grad_acc[1], block_k=grad_chunk,
+                                    stats=True)
+    return dx, dw, torch.stack([rx, rw])
+
+
 _LL, _I, _P, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 _ARGTYPES = ([_P, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _P, _P,
               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I]
              + [_I, _I, _F, _F] * 2 + [_P])
 
 
+_STATS_ARGTYPES = ([_P, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _P,
+                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I]
+                   + [_I, _I, _F, _F] * 2 + [_P, _P, _P])
+
+
+def _check_devices(*ts):
+    devs = {t.device for t in ts if t is not None}
+    if len(devs) != 1 or not ts[0].is_cuda:
+        raise ValueError(f"operands on {sorted(map(str, devs))}")
+
+
+def _launch_stats(g, xq, wq, *, fmt, bwd_acc, grad_acc, bwd_chunk,
+                  grad_chunk, quantize_g):
+    """K9, ``qmatmul_bwd_pair(..., collect_stats=True)``."""
+    _check_devices(g, xq, wq)
+    t, n = g.shape
+    k = xq.shape[1]
+    dev = g.device
+    dx = torch.zeros((t, k), dtype=torch.float32, device=dev)
+    dw = torch.zeros((k, n), dtype=torch.float32, device=dev)
+    rows = torch.zeros((2, N_STATS), dtype=torch.float32, device=dev)
+    if t == 0 or k == 0 or n == 0:
+        return dx, dw, rows
+    blocks = build.function("bwd_pair", "bwd_pair_stats_blocks",
+                            [_I, _I, _I])(t, k, n)
+    if blocks < 0:
+        raise ValueError(f"pair of {t}x{k}x{n} needs too many blocks")
+    part = torch.empty((blocks, N_STATS), dtype=torch.float64, device=dev)
+    quant = quantize_g and fmt is not None
+    e_r, m_r = fmt or _WIDE
+    rc = build.function("bwd_pair", "bwd_pair_stats", _STATS_ARGTYPES)(
+        g.data_ptr(), g.stride(0), g.stride(1),
+        xq.data_ptr(), _KINDS[xq.dtype], xq.stride(0), xq.stride(1),
+        wq.data_ptr(), _KINDS[wq.dtype], wq.stride(0), wq.stride(1),
+        dx.data_ptr(), dw.data_ptr(), t, k, n, bwd_chunk, grad_chunk,
+        e_r, m_r, *qfmt_args(fmt or _WIDE), int(quant),
+        *qfmt_args(bwd_acc), *qfmt_args(grad_acc), part.data_ptr(),
+        rows.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bwd_pair_stats launch failed: CUDA error {rc}")
+    qmatmul_bwd_pair.stats_launches += 1
+    return dx, dw, rows
+
+
 def _launch(g, xq, wq, dx_carry, *, fmt, bwd_acc, grad_acc, bwd_chunk,
             grad_chunk, quantize_g):
-    devs = {t.device for t in (g, xq, wq)} | (
-        {dx_carry.device} if dx_carry is not None else set())
-    if len(devs) != 1 or not g.is_cuda:
-        raise ValueError(f"operands on {sorted(map(str, devs))}")
+    _check_devices(g, xq, wq, dx_carry)
     t, n = g.shape
     k = xq.shape[1]
     dev = g.device
@@ -147,7 +220,8 @@ def _launch(g, xq, wq, dx_carry, *, fmt, bwd_acc, grad_acc, bwd_chunk,
 def qmatmul_bwd_pair(g, xq, wq, *, repr_fmt, bwd_acc=_WIDE, grad_acc=_WIDE,
                      bwd_chunk: int = 128, grad_chunk: int = 128,
                      packed: bool = True, quantize_g: bool = True,
-                     dx_carry=None):
+                     dx_carry=None, collect_stats: bool = False,
+                     rounding: str = "rne"):
     """``(dx, dw)`` of one dense layer, both float32, in one launch.
 
     * ``g`` [T, N] float32, any strides; quantized to ``repr_fmt`` on load
@@ -158,11 +232,31 @@ def qmatmul_bwd_pair(g, xq, wq, *, repr_fmt, bwd_acc=_WIDE, grad_acc=_WIDE,
       dx's carry over N, ``grad_chunk`` dw's over T;
     * ``dx_carry`` [T, K]: resume dx from this running carry (the segment
       entry, K7): dw is then this N segment's columns.  Launches with a
-      carry are counted on ``carry_launches``, the others on ``launches``.
+      carry are counted on ``carry_launches``, the others on ``launches``;
+    * ``collect_stats=True`` is K9's kernel: returns ``(dx, dw, rows)``
+      with ``rows`` the (2, N_STATS) float32 stats on the device (row 0
+      dx, row 1 dw), counted on ``stats_launches``; no ``dx_carry``;
+    * ``rounding``: only ``"rne"`` is ported (SR raises).
     """
+    if rounding != "rne":
+        raise NotImplementedError("stochastic-rounding carries are not "
+                                  "ported yet (ROADMAP Queue 1 item 5)")
     fmt = fmt_tuple(repr_fmt)
     bwd_acc, grad_acc = tuple(bwd_acc), tuple(grad_acc)
     tensors = [t for t in (g, xq, wq, dx_carry) if t is not None]
+    if collect_stats:
+        if dx_carry is not None:
+            raise ValueError("collect_stats takes no dx_carry (the stats "
+                             "pair is the unsplit one)")
+        kw = dict(repr_fmt=fmt, bwd_acc=bwd_acc, grad_acc=grad_acc,
+                  bwd_chunk=bwd_chunk, grad_chunk=grad_chunk,
+                  quantize_g=quantize_g)
+        if all(t.device.type == "cpu" for t in tensors):
+            return qmatmul_bwd_pair_stats_reference(g, xq, wq, packed=packed,
+                                                    **kw)
+        _check(g, xq, wq, fmt, packed, None, bwd_chunk, grad_chunk)
+        kw["fmt"] = kw.pop("repr_fmt")
+        return _launch_stats(g, xq, wq, **kw)
     if all(t.device.type == "cpu" for t in tensors):
         return qmatmul_bwd_pair_reference(
             g, xq, wq, repr_fmt=fmt, bwd_acc=bwd_acc, grad_acc=grad_acc,
@@ -176,6 +270,7 @@ def qmatmul_bwd_pair(g, xq, wq, *, repr_fmt, bwd_acc=_WIDE, grad_acc=_WIDE,
 
 qmatmul_bwd_pair.launches = 0
 qmatmul_bwd_pair.carry_launches = 0
+qmatmul_bwd_pair.stats_launches = 0
 
 
 def pair_segment_width(n: int, n_split: int, block_n: int) -> int:

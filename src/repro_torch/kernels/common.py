@@ -16,7 +16,10 @@ import ctypes
 import torch
 
 __all__ = ["quantize_block", "qfmt_params", "qfmt_args", "pad2d",
-           "exp2_int"]
+           "exp2_int", "N_STATS", "STAT_COUNT", "STAT_SUM_Q", "STAT_SUMSQ_Q",
+           "STAT_SUM_I", "STAT_SUMSQ_I", "STAT_MAX_ABS", "STAT_SWAMPED",
+           "STAT_ADDS", "STAT_SUM_ERR", "STAT_SUMSQ_ERR", "stats_delta_row",
+           "stats_update", "stats_row"]
 
 
 def qfmt_params(e: int, m: int) -> tuple[bool, int, float, float]:
@@ -88,3 +91,73 @@ def exp2_int(se: torch.Tensor) -> torch.Tensor:
     """2^se as float32 for integer ``se`` in [-126, 127], built from the
     exponent bits (exact; the page scales are clipped to +-120)."""
     return ((se.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+# --------------------------------------------------------------------------
+# swamping-telemetry stats row
+# --------------------------------------------------------------------------
+#
+# One row of N_STATS slots per monitored accumulator, reduced over the whole
+# output by the stats kernels (csrc/common.cuh, the same layout) and read
+# by ``repro_torch.telemetry.stats.EnsembleStats``.  The row is float32;
+# the kernels and the plain versions below reduce it in float64 and round
+# once, so the counters are exact integers up to 2^24 events and the sums
+# are the float64 sums rounded (the JAX row adds f32 tile sums: ROADMAP F6).
+
+N_STATS = 10
+(
+    STAT_COUNT,     # valid output elements (the ensemble size)
+    STAT_SUM_Q,     # sum of reduced-precision outputs
+    STAT_SUMSQ_Q,   # sum of squared reduced-precision outputs
+    STAT_SUM_I,     # sum of ideal (f32-accumulated) outputs
+    STAT_SUMSQ_I,   # sum of squared ideal outputs
+    STAT_MAX_ABS,   # max |carry| over all chunk updates
+    STAT_SWAMPED,   # chunk-carry adds fully absorbed: q(c + p) == c, p != 0
+    STAT_ADDS,      # chunk-carry adds with a non-zero addend
+    STAT_SUM_ERR,   # sum of (q - ideal) over final outputs
+    STAT_SUMSQ_ERR,  # sum of (q - ideal)^2 over final outputs
+) = range(N_STATS)
+
+
+def stats_delta_row(new, prev, ideal, partial, mask, emit_out: bool):
+    """One chunk-carry update's contribution, in float64.
+
+    ``new``/``prev`` are the carry after/before ``q(prev + partial)``,
+    ``ideal`` the f32 shadow carry after it, ``mask`` the valid outputs and
+    ``emit_out`` True on the last chunk, when the carry is the output and
+    its ensemble moments are taken.  Returns ``(delta, step_max)``: the
+    additive (N_STATS,) float64 contribution (0 in the MAX_ABS slot) and
+    the update's max |carry| over the valid outputs."""
+    f64 = torch.float64
+    nz = (partial != 0.0) & mask
+    delta = torch.zeros((N_STATS,), dtype=f64, device=new.device)
+    delta[STAT_ADDS] = nz.sum()
+    delta[STAT_SWAMPED] = ((new == prev) & nz).sum()
+    if emit_out:
+        q = new.to(f64)[mask]
+        w = ideal.to(f64)[mask]
+        err = q - w
+        delta[STAT_COUNT] = q.numel()
+        delta[STAT_SUM_Q] = q.sum()
+        delta[STAT_SUMSQ_Q] = (q * q).sum()
+        delta[STAT_SUM_I] = w.sum()
+        delta[STAT_SUMSQ_I] = (w * w).sum()
+        delta[STAT_SUM_ERR] = err.sum()
+        delta[STAT_SUMSQ_ERR] = (err * err).sum()
+    a = new.abs()[mask]
+    step_max = a.max().to(f64) if a.numel() else delta.new_zeros(())
+    return delta, step_max
+
+
+def stats_update(acc, delta, step_max):
+    """Fold one contribution into the float64 accumulator row ``acc``
+    (N_STATS,): every slot adds, MAX_ABS max-merges."""
+    mx = torch.maximum(acc[STAT_MAX_ABS], step_max)
+    acc = acc + delta
+    acc[STAT_MAX_ABS] = mx
+    return acc
+
+
+def stats_row(device) -> torch.Tensor:
+    """A fresh float64 accumulator row (all zero: the merge identity)."""
+    return torch.zeros((N_STATS,), dtype=torch.float64, device=device)

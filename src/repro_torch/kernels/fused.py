@@ -28,6 +28,18 @@ computes the current one.  There is no split over K (the carry is
 sequential in chunks), so a GEMM with few N tiles runs on few SMs.
 ``wgmma`` and TMA are for a later change.
 
+``collect_stats=True`` is K8's port (``csrc/qgemm_stats.cu``, replacing
+``_fused_kernel_stats``): the same C, bitwise, plus the swamping-telemetry
+stats row (``kernels.common.N_STATS``) of the carry against an f32 shadow
+carry of the same partials.  Its operands may also be int8 codes of
+``repr_fmt`` (``a_packed``/``b_packed``: the saved residuals of the
+in-graph telemetry's FWD replay), and ``quantize_a``/``quantize_b`` turn
+the operand quantization off per operand (the telemetry probe's backward
+roles, whose residual operand is already quantized).  Every block of the
+kernel reduces its tile to a partial row in float64 and a second, fixed-
+order pass sums the rows and rounds once to float32, so the row is the
+same bits on every launch.
+
 On CPU tensors each wrapper runs its plain PyTorch version; on CUDA tensors
 it launches its kernel or raises.
 """
@@ -39,43 +51,80 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import qfmt_args, quantize_block
+from repro_torch.kernels.common import (
+    N_STATS,
+    qfmt_args,
+    quantize_block,
+    stats_delta_row,
+    stats_row,
+    stats_update,
+)
 from repro_torch.quant.formats import fmt_tuple
-from repro_torch.quant.qtensor import pack_block
+from repro_torch.quant.qtensor import pack_block, unpack_block
 
 __all__ = ["qmatmul_fused", "qmatmul_fused_reference",
-           "chunked_gemm_reference"]
+           "qmatmul_fused_stats_reference", "chunked_gemm_reference"]
 
 _WIDE = (8, 23)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def _check(a, b):
+def _check(a, b, fmt=None, a_packed=False, b_packed=False):
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"bad shapes {tuple(a.shape)} @ {tuple(b.shape)}")
-    for name, t in (("a", a), ("b", b)):
-        if t.dtype not in _DTYPES:
+    if (a_packed or b_packed) and fmt is None:
+        raise ValueError("packed operands need repr_fmt to decode")
+    for name, t, packed in (("a", a, a_packed), ("b", b, b_packed)):
+        if packed and t.dtype != torch.int8:
+            raise TypeError(f"{name}_packed expects int8 codes, got {t.dtype}")
+        if not packed and t.dtype not in _DTYPES:
             raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
 
 
 def chunked_gemm_reference(a32: torch.Tensor, b32: torch.Tensor, *,
                            e_acc: int, m_acc: int, block_k: int,
-                           carry: torch.Tensor | None = None) -> torch.Tensor:
+                           carry: torch.Tensor | None = None,
+                           stats: bool = False):
     """The kernels' chunked carry on float32 operands taken as they are:
     per chunk of K, an f32 partial of rank-1 updates in increasing k (one
     multiply-add each), then ``carry = q_acc(carry + partial)``, with a
     ragged last chunk.  ``carry`` resumes a running carry (the dx segment
-    chain); a fresh one starts at 0.  The kernels' order, so bitwise them."""
+    chain); a fresh one starts at 0.  The kernels' order, so bitwise them.
+
+    ``stats=True`` also keeps the f32 shadow carry ``ideal += partial`` and
+    returns ``(carry, row)``: the float32 (N_STATS,) stats row, reduced in
+    float64 (``kernels.common.stats_delta_row``) and rounded once."""
     m, k = a32.shape
     n = b32.shape[1]
     carry = (torch.zeros((m, n), dtype=torch.float32, device=a32.device)
              if carry is None else carry.to(torch.float32).clone())
+    if stats:
+        ideal = torch.zeros_like(carry)
+        acc = stats_row(carry.device)
+        mask = torch.ones((m, n), dtype=torch.bool, device=carry.device)
     for k0 in range(0, k, block_k):
         part = torch.zeros_like(carry)
         for kk in range(k0, min(k0 + block_k, k)):
             part = torch.addcmul(part, a32[:, kk:kk + 1], b32[kk:kk + 1, :])
+        prev = carry
         carry = quantize_block(carry + part, e_acc, m_acc)
+        if stats:
+            ideal = ideal + part
+            acc = stats_update(acc, *stats_delta_row(
+                carry, prev, ideal, part, mask, k0 + block_k >= k))
+    if stats:
+        return carry, acc.to(torch.float32)
     return carry
+
+
+def _operand32(x, packed: bool, quantize: bool, fmt):
+    """An operand as the kernels see it after its load: int8 codes
+    unpacked, float values widened and quantized to ``fmt`` when asked."""
+    if packed:
+        return unpack_block(x, *fmt)
+    x32 = x.to(torch.float32)
+    return quantize_block(x32, *fmt) if (quantize and fmt is not None) else x32
 
 
 def qmatmul_fused_reference(a: torch.Tensor, b: torch.Tensor, *,
@@ -89,17 +138,36 @@ def qmatmul_fused_reference(a: torch.Tensor, b: torch.Tensor, *,
     wherever the intra-chunk f32 sums are exact (the reference's dot sums
     in another order)."""
     _check(a, b)
-    a32, b32 = a.to(torch.float32), b.to(torch.float32)
     fmt = fmt_tuple(repr_fmt)
     if return_quantized:
         _check_packable(fmt)
-    if fmt is not None:
-        a32, b32 = quantize_block(a32, *fmt), quantize_block(b32, *fmt)
+    a32 = _operand32(a, False, True, fmt)
+    b32 = _operand32(b, False, True, fmt)
     y = chunked_gemm_reference(a32, b32, e_acc=e_acc, m_acc=m_acc,
                                block_k=block_k)
     if return_quantized:
         return y, pack_block(a32, *fmt), pack_block(b32, *fmt)
     return y
+
+
+def qmatmul_fused_stats_reference(a: torch.Tensor, b: torch.Tensor, *,
+                                  repr_fmt=None, e_acc: int = 8,
+                                  m_acc: int = 23, block_k: int = 128,
+                                  quantize_a: bool = True,
+                                  quantize_b: bool = True,
+                                  a_packed: bool = False,
+                                  b_packed: bool = False):
+    """Plain PyTorch version of K8's kernel: ``(C, row)``, C as
+    ``qmatmul_fused_reference`` and the float32 (N_STATS,) stats row of
+    ``chunked_gemm_reference(..., stats=True)``.  C, the counters and
+    MAX_ABS are bitwise the kernel's; the float64 sums add the same terms
+    in another order."""
+    fmt = fmt_tuple(repr_fmt)
+    _check(a, b, fmt, a_packed, b_packed)
+    a32 = _operand32(a, a_packed, quantize_a, fmt)
+    b32 = _operand32(b, b_packed, quantize_b, fmt)
+    return chunked_gemm_reference(a32, b32, e_acc=e_acc, m_acc=m_acc,
+                                  block_k=block_k, stats=True)
 
 
 def _check_packable(fmt) -> None:
@@ -116,7 +184,10 @@ _ARGTYPES = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I,
 
 def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
                   e_acc: int = 8, m_acc: int = 23, block_k: int = 128,
-                  return_quantized: bool = False):
+                  quantize_a: bool = True, quantize_b: bool = True,
+                  a_packed: bool = False, b_packed: bool = False,
+                  return_quantized: bool = False,
+                  collect_stats: bool = False, rounding: str = "rne"):
     """C[M, N] = Q(A) @ Q(B) with a (1, e_acc, m_acc) carry rounded every
     ``block_k`` products (the chunk n1).
 
@@ -124,13 +195,37 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
       tied lm_head passes ``embed.T`` as a view);
     * ``repr_fmt``: operand format (``FPFormat``/``(e, m)``), None = no
       operand quantization;
+    * ``collect_stats`` only: ``quantize_a``/``quantize_b`` turn the
+      quantization off per operand, and ``a_packed``/``b_packed`` take the
+      operand as int8 codes of ``repr_fmt`` (not quantized again);
     * returns float32 (M, N);
     * ``return_quantized=True`` is kernel E: returns ``(C, xq, wq)``, the
       int8 codes (``quant.qtensor`` layout) of Q(A) [M, K] and Q(B) [K, N]
-      each written once; ``repr_fmt`` must then fit in 8 bits.
+      each written once; ``repr_fmt`` must then fit in 8 bits;
+    * ``collect_stats=True`` is K8's kernel: returns ``(C, row)``, C
+      bitwise the stats-off call's and ``row`` the float32 (N_STATS,)
+      swamping stats on the device (read with
+      ``telemetry.stats.EnsembleStats.from_raw``); exclusive with
+      ``return_quantized``;
+    * ``rounding``: only ``"rne"`` is ported (SR raises).
 
-    G's launches are counted on ``launches``, E's on ``emitq_launches``.
+    G's launches are counted on ``launches``, E's on ``emitq_launches``,
+    K8's on ``stats_launches``.
     """
+    if rounding != "rne":
+        raise NotImplementedError("stochastic-rounding carries are not "
+                                  "ported yet (ROADMAP Queue 1 item 5)")
+    if collect_stats and return_quantized:
+        raise ValueError("collect_stats is a probe-path epilogue; residual "
+                         "emission is a train-path epilogue: pick one")
+    if collect_stats:
+        return _stats(a, b, repr_fmt=repr_fmt, e_acc=e_acc, m_acc=m_acc,
+                      block_k=block_k, quantize_a=quantize_a,
+                      quantize_b=quantize_b, a_packed=a_packed,
+                      b_packed=b_packed)
+    if not (quantize_a and quantize_b) or a_packed or b_packed:
+        raise ValueError("per-operand quantization and packed operands are "
+                         "K8's (collect_stats=True)")
     if return_quantized:
         return _emitq(a, b, repr_fmt=repr_fmt, e_acc=e_acc, m_acc=m_acc,
                       block_k=block_k)
@@ -161,6 +256,48 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
 
 qmatmul_fused.launches = 0
 qmatmul_fused.emitq_launches = 0
+qmatmul_fused.stats_launches = 0
+
+_STATS_ARGTYPES = ([_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I,
+                    _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _P, _P,
+                    _P])
+
+
+def _stats(a, b, *, repr_fmt, e_acc, m_acc, block_k, quantize_a, quantize_b,
+           a_packed, b_packed):
+    """K8, ``qmatmul_fused(..., collect_stats=True)``."""
+    fmt = fmt_tuple(repr_fmt)
+    _check(a, b, fmt, a_packed, b_packed)
+    kw = dict(repr_fmt=fmt, e_acc=e_acc, m_acc=m_acc, block_k=block_k,
+              quantize_a=quantize_a, quantize_b=quantize_b,
+              a_packed=a_packed, b_packed=b_packed)
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return qmatmul_fused_stats_reference(a, b, **kw)
+    _check_cuda(a, b, block_k)
+    m, k = a.shape
+    n = b.shape[1]
+    dev = a.device
+    out = torch.zeros((m, n), dtype=torch.float32, device=dev)
+    row = torch.zeros((N_STATS,), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0 or k == 0:
+        return out, row
+    blocks = build.function("qgemm_stats", "qgemm_stats_blocks", [_I, _I])(
+        m, n)
+    part = torch.empty((blocks, N_STATS), dtype=torch.float64, device=dev)
+    e_r, m_r = fmt or _WIDE
+    quant = fmt is not None
+    rc = build.function("qgemm_stats", "qgemm_stats", _STATS_ARGTYPES)(
+        a.data_ptr(), _KINDS[a.dtype], a.stride(0), a.stride(1),
+        b.data_ptr(), _KINDS[b.dtype], b.stride(0), b.stride(1),
+        out.data_ptr(), m, n, k, block_k, e_r, m_r, *qfmt_args(fmt or _WIDE),
+        int(quant and quantize_a and not a_packed),
+        int(quant and quantize_b and not b_packed),
+        *qfmt_args((e_acc, m_acc)), part.data_ptr(), row.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"qgemm_stats launch failed: CUDA error {rc}")
+    qmatmul_fused.stats_launches += 1
+    return out, row
 
 
 def _check_cuda(a, b, block_k) -> None:

@@ -17,6 +17,15 @@ solver-assigned carry format:
 straight-through in the backward.  dx and dw come back in the dtypes of x
 and w, as the JAX package's casts round them (bf16 weights get bf16
 gradients).
+
+Telemetry: inside ``telemetry.capture.capture_gemms()`` every quantized
+``qdot`` records its 2-D operands and config (the eager probe's replay
+list).  A config with ``stats_tag`` (``obs.ingraph.tag_quant_plan``) runs
+its backward through the stats variant of B (K9's kernel: the same dx and
+dw, bitwise, plus the BWD and GRAD rows) and replays the forward on the
+saved residuals through K8's kernel (the FWD row), and hands the three
+device rows to the active in-graph collector (``obs.ingraph``) without a
+host sync.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
 from repro_torch.kernels.common import quantize_block
 from repro_torch.kernels.fused import qmatmul_fused
 from repro_torch.quant.formats import FPFormat
+from repro_torch.telemetry import capture as _capture
 
 __all__ = ["QDotConfig", "qdot"]
 
@@ -44,7 +54,10 @@ class QDotConfig:
 
     ``None`` for a role means ideal (wide) accumulation for that GEMM;
     ``repr_fmt=None`` disables operand quantization; ``out_fmt`` rounds the
-    forward output to a consumer's representation format.
+    forward output to a consumer's representation format.  ``stats_tag``
+    turns on the in-graph telemetry of the backward (numerics untouched);
+    ``stats_axis``, the mesh axis to reduce the rows over, comes with the
+    sharding slice and must be None.
     """
 
     fwd: GEMMPrecision | None = None
@@ -52,6 +65,14 @@ class QDotConfig:
     grad: GEMMPrecision | None = None
     repr_fmt: FPFormat | None = None
     out_fmt: FPFormat | None = None
+    stats_tag: str | None = None
+    stats_axis: str | None = None
+
+    def __post_init__(self):
+        if self.stats_axis is not None:
+            raise NotImplementedError(
+                "stats_axis (a mesh-wide reduction of the stats rows) comes "
+                "with the sharding slice (ROADMAP Queue 1 item 8)")
 
     @property
     def is_exact(self) -> bool:
@@ -119,13 +140,44 @@ class _QDot(torch.autograd.Function):
         e_g, m_g, _ = _acc_params(cfg.grad)
         grad_chunk, bwd_chunk = _pair_chunks(cfg)
         # out_fmt's rounding is straight-through: g passes unscaled
-        dx, dw = qmatmul_bwd_pair(
-            g.to(torch.float32), xq, wq, repr_fmt=cfg.repr_fmt,
-            bwd_acc=(e_b, m_b), grad_acc=(e_g, m_g), bwd_chunk=bwd_chunk,
-            grad_chunk=grad_chunk, packed=cfg.packs,
-            quantize_g=cfg.repr_fmt is not None)
+        kw = dict(repr_fmt=cfg.repr_fmt, bwd_acc=(e_b, m_b),
+                  grad_acc=(e_g, m_g), bwd_chunk=bwd_chunk,
+                  grad_chunk=grad_chunk, packed=cfg.packs,
+                  quantize_g=cfg.repr_fmt is not None)
+        if cfg.stats_tag is None:
+            dx, dw = qmatmul_bwd_pair(g.to(torch.float32), xq, wq, **kw)
+        else:
+            dx, dw, rows = qmatmul_bwd_pair(g.to(torch.float32), xq, wq,
+                                            collect_stats=True, **kw)
+            _emit_qdot_stats(cfg, xq, wq, rows)
         x_dtype, w_dtype = ctx.dtypes
         return dx.to(x_dtype), dw.to(w_dtype), None
+
+
+def _emit_qdot_stats(cfg: QDotConfig, xq, wq, pair_rows) -> None:
+    """The three roles' stats rows of one tagged backward, to the active
+    in-graph collector: BWD and GRAD from the stats pair's rows, FWD from
+    one K8 replay of the saved residuals (the forward itself stays G/E).
+    Geometry as the eager probe's: accumulation length K / N / T, chunk
+    the role's rounding cadence."""
+    from repro_torch.obs.ingraph import dispatch_raw
+    from repro_torch.telemetry.stats import stats_kw
+
+    tag = cfg.stats_tag
+    t, k = xq.shape
+    n = wq.shape[1]
+    if cfg.fwd is not None:
+        _, raw = qmatmul_fused(xq, wq, repr_fmt=cfg.repr_fmt,
+                               quantize_a=False, quantize_b=False,
+                               a_packed=cfg.packs, b_packed=cfg.packs,
+                               collect_stats=True, **stats_kw(cfg.fwd))
+        dispatch_raw(tag, "fwd", k, stats_kw(cfg.fwd)["block_k"],
+                     cfg.fwd.m_acc, raw)
+    for role, p, length, row in (("bwd", cfg.bwd, n, 0),
+                                 ("grad", cfg.grad, t, 1)):
+        if p is not None:
+            dispatch_raw(tag, role, length, stats_kw(p)["block_k"], p.m_acc,
+                         pair_rows[row])
 
 
 def qdot(x: torch.Tensor, w: torch.Tensor, cfg: QDotConfig) -> torch.Tensor:
@@ -133,6 +185,10 @@ def qdot(x: torch.Tensor, w: torch.Tensor, cfg: QDotConfig) -> torch.Tensor:
     accumulation; float32 out.  Differentiable in x and w."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
+    if _capture.active() and not cfg.is_exact:
+        # the telemetry probe replays each recorded GEMM through the stats
+        # kernel (repro_torch.telemetry.probe); no SR in the port yet
+        _capture.record(x=x2, w=w, cfg=cfg, sr_seed=0)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         y = _QDot.apply(x2, w, cfg)
     else:

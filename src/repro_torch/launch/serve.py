@@ -3,8 +3,11 @@
 Counterpart of ``repro.launch.serve`` for the dense family on one device:
 paged int8 KV pages, the hand-written Hopper kernels for the quantized
 GEMMs and the paged attention, optimistic admission with preemption/swap,
-chunked prefill slabs interleaved with batched decode.  Runs on CUDA
-unless ``--device cpu`` (the plain PyTorch versions; small configs only).
+chunked prefill slabs interleaved with batched decode, and the serve-time
+VRR monitor (``--monitor-cadence N``: every N decode steps K12's kernel
+probes the longest context and a swamping breach widens its bucket's
+carry; events append to ``--monitor-log``).  Runs on CUDA unless
+``--device cpu`` (the plain PyTorch versions; small configs only).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --smoke --prompt-lens 16,32,48 --gen 16 --policy predicted --device cpu
@@ -41,6 +44,11 @@ def parse_args(argv=None):
     ap.add_argument("--policy", choices=["exact", "predicted"],
                     default="exact")
     ap.add_argument("--chunk", type=int, default=64)
+    ap.add_argument("--monitor-cadence", type=int, default=0,
+                    help="decode steps between serve-time VRR probes "
+                         "(0 = off)")
+    ap.add_argument("--monitor-log", default="",
+                    help="JSONL path for the monitor's events")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
@@ -70,6 +78,8 @@ def build(args):
     eng = ServeEngine(model, params, n_pages=n_pages,
                       page_size=args.page_size, max_batch=args.max_batch,
                       prefill_chunk_tokens=args.prefill_chunk or None,
+                      monitor_cadence=args.monitor_cadence,
+                      monitor_log=args.monitor_log or None, seed=args.seed,
                       device=device)
     rng = np.random.RandomState(args.seed + 1)
     prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
@@ -108,6 +118,11 @@ def main(argv=None) -> dict:
           f"preemptions / {eng.restores} restores, utilization "
           f"{eng.utilization():.3f}")
     print(f"KV bytes/token: packed {packed:.1f} vs f32 {f32:.1f}")
+    if args.monitor_cadence:
+        kinds = [e["event"] for e in eng.events]
+        print(f"monitor: {len(kinds)} ticks, "
+              f"{kinds.count('rebucket')} rebuckets, bucket m_acc "
+              f"{[b.m_acc for b in eng.plan.buckets]}")
     print("sample generation (request 0):", results[rids[0]])
     eng.pool.check_invariants()
     return {"seconds": dt, "results": results,

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.telemetry import capture
 
 Params = dict[str, Any]
 
@@ -133,12 +134,19 @@ def forward_hidden(params: Params, batch: dict, cfg: ModelConfig
     x = _embed(params, tokens)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        x = x + L.attn_apply(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                             cfg, positions=positions)
-        z = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], z, cfg)
+    # The telemetry probe must capture the JAX package's set of GEMMs.
+    # There the layer stack runs under lax.scan, whose operands are
+    # tracers that capture never records: only the GEMMs outside the stack
+    # (the lm_head) are replayed, and every layer GEMM is probed on
+    # synthetic operands.  So this loop records nothing.
+    with capture.suspended():
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            x = x + L.attn_apply(lp["attn"],
+                                 L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                                 cfg, positions=positions)
+            z = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + L.mlp_apply(lp["mlp"], z, cfg)
     return x
 
 

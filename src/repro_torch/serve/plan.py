@@ -11,32 +11,22 @@ blocks) and the overflow bound ``|o| <= ctx * v_hint`` on the exponent.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
-from repro_torch.core.vrr import CUTOFF_LOG_V, vrr
+from repro_torch.core.vrr import CUTOFF_LOG_V
 from repro_torch.kernels.attention import AttnCall
 from repro_torch.quant.formats import FPFormat
+from repro_torch.telemetry.stats import predicted_kernel_vrr
 
 __all__ = ["AttnBucket", "AttnPlan", "certified_log_v", "decode_m_acc",
            "min_e_acc", "extra_carry_events", "max_carry_resumptions",
-           "plan_attention", "DEFAULT_V_HINT"]
+           "plan_attention", "derive_v_hint", "DEFAULT_V_HINT"]
 
 # the f32 carry is the emulation ceiling
 _M_ACC_MAX = 23
 # fallback bound on the dequantized KV magnitude: the (1,5,2) KV format's
 # |value| at exponent 4
 DEFAULT_V_HINT = 16.0
-
-
-def predicted_kernel_vrr(m_acc: int, m_p: int, n1: int, n2: int,
-                         *, nzr: float = 1.0) -> float:
-    """Closed-form VRR of the kernels' semantics: ideal intra-chunk sums,
-    (1, e_acc, m_acc) inter-chunk carry with the grown operand mantissa
-    ``min(m_acc, m_p + log2 n1)`` (private copy of
-    ``repro.telemetry.stats.predicted_kernel_vrr``)."""
-    n1_eff = max(int(round(nzr * n1)), 1)
-    m_inter = min(m_acc, m_p + int(round(math.log2(max(n1_eff, 1)))))
-    return vrr(m_acc, m_inter, max(int(n2), 1))
 
 
 @dataclass(frozen=True)
@@ -76,6 +66,17 @@ class AttnPlan:
                 return i, b
         raise ValueError(
             f"context {ctx} exceeds the plan's {self.buckets[-1].max_ctx}")
+
+    def bumped(self, index: int) -> "AttnPlan":
+        """One-bit m_acc bump of bucket ``index`` (and of any wider bucket
+        now narrower than it: widths stay monotone in context length),
+        clamped to the f32 carrier.  The serve-time monitor's re-bucket."""
+        bs = list(self.buckets)
+        m = min(bs[index].m_acc + 1, _M_ACC_MAX)
+        for i in range(index, len(bs)):
+            if bs[i].m_acc < m:
+                bs[i] = replace(bs[i], m_acc=m)
+        return replace(self, buckets=tuple(bs))
 
     def kernel_call(self, index: int, *, kv_fmt=None) -> AttnCall:
         """The paged-prefill call of bucket ``index``: the bucket's carry
@@ -136,6 +137,18 @@ def min_e_acc(ctx: int, *, v_hint: float | None = None, e_min: int = 6,
         if FPFormat(e=e, m=1).max_exp >= need:
             return e
     return 8
+
+
+def derive_v_hint(stats, ctx: int, *, margin_bits: int = 1) -> float:
+    """Measured KV-magnitude hint from a stats window: ``|o| <= ctx *
+    v_hint`` holds for any hint >= ``max_abs / ctx``; rounded up to a power
+    of two with ``margin_bits`` of headroom, never looser than
+    ``DEFAULT_V_HINT`` (which an empty or non-finite window returns)."""
+    ma = float(stats.max_abs)
+    if not math.isfinite(ma) or ma <= 0.0 or ctx <= 0:
+        return DEFAULT_V_HINT
+    hint = 2.0 ** (math.ceil(math.log2(ma / ctx)) + margin_bits)
+    return float(min(hint, DEFAULT_V_HINT))
 
 
 def plan_attention(max_context: int, page_size: int, *, m_p: int = 5,

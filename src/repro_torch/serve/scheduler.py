@@ -17,8 +17,17 @@ keeps the JAX engine's schedule:
 ``ModelExecutor`` is the only place device work happens.  Eager PyTorch
 compiles nothing per shape, so a prefill slab is not padded to its
 bucket's width (the JAX engine pads for its compile cache; its padded rows
-are byte-neutral, so the arena and logits are the same).  The serve-time
-VRR monitor, tracing, metrics and speculative decoding are not ported yet.
+are byte-neutral, so the arena and logits are the same).
+
+The serve-time VRR monitor (``monitor_cadence``): every N decode steps it
+probes the longest running context's layer-0 decode accumulator with a
+unit-Gaussian query through K12's kernel (``measure_decode_vrr``).  A
+breach, the measured swamp rate at or over ``swamp_threshold`` or the
+closed-form knee test of the context's bucket, bumps that bucket's m_acc
+(``AttnPlan.bumped``) before the context swamps; the bucket is the one of
+the grown context.  Each tick logs one event (``self.events``, and
+``monitor_log`` as JSON lines).  Tracing, metrics and speculative decoding
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +38,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.core.vrr import CUTOFF_LOG_V
 from repro_torch.models.api import DecodeRequest, PrefillRequest, get_paged_model
+from repro_torch.obs.sink import jsonl_append
 from repro_torch.quant.formats import FPFormat
 from repro_torch.serve.kvcache import (
     PagedKVConfig,
@@ -40,9 +51,17 @@ from repro_torch.serve.kvcache import (
     swap_in_pages,
     swap_out_pages,
 )
-from repro_torch.serve.plan import plan_attention
+from repro_torch.serve.plan import (
+    AttnPlan,
+    certified_log_v,
+    derive_v_hint,
+    extra_carry_events,
+    plan_attention,
+)
+from repro_torch.telemetry.stats import EnsembleStats
 
-__all__ = ["Request", "ModelExecutor", "ServeEngine", "resolve_device"]
+__all__ = ["Request", "ModelExecutor", "ServeEngine", "resolve_device",
+           "measure_decode_vrr"]
 
 
 def resolve_device(device) -> torch.device:
@@ -92,6 +111,28 @@ class _Swapped:
 
     seq: _Seq
     n_tokens: int
+
+
+def measure_decode_vrr(kv_state, page_row, seq_len: int, *, cfg,
+                       kv_fmt: FPFormat, acc: tuple[int, int],
+                       gen: torch.Generator) -> EnsembleStats:
+    """Probe one context's decode-attention accumulator: a unit-Gaussian
+    query (drawn from ``gen``, on any device) against the sequence's
+    layer-0 KV pages, through K12's kernel.  Returns the window for the
+    knee test."""
+    from repro_torch.kernels.attention import paged_attn_decode
+
+    dev = kv_state["k"].device
+    q = torch.randn((1, cfg.n_heads, cfg.head_dim), generator=gen,
+                    device=gen.device).to(dev)
+    row = torch.as_tensor(np.asarray(page_row, np.int32), device=dev)
+    with torch.no_grad():
+        _, raw = paged_attn_decode(
+            q, kv_state["k"][0], kv_state["v"][0], kv_state["k_se"][0],
+            kv_state["v_se"][0], row[None],
+            torch.tensor([seq_len], dtype=torch.int32, device=dev),
+            kv_fmt=kv_fmt, acc=acc, collect_stats=True)
+    return EnsembleStats.from_raw(raw)
 
 
 class ModelExecutor:
@@ -161,6 +202,11 @@ class ModelExecutor:
         """One batched decode token per row; returns the next tokens."""
         return torch.argmax(self.decode_logits(req), dim=-1).tolist()
 
+    def measure_vrr(self, page_row, ctx: int, acc: tuple[int, int],
+                    gen: torch.Generator) -> EnsembleStats:
+        return measure_decode_vrr(self.kv, page_row, ctx, cfg=self.cfg,
+                                  kv_fmt=self.kv_fmt, acc=acc, gen=gen)
+
     def swap_out(self, rid: int, pages: list[int]) -> dict:
         return swap_out_pages(self.kv, pages)
 
@@ -174,7 +220,10 @@ class ServeEngine:
     def __init__(self, model, params, *, n_pages: int, page_size: int,
                  kv_fmt: FPFormat | None = None, max_batch: int = 8,
                  prefill_chunk_tokens: int | None = None,
-                 monitor_cadence: int = 0, executor=None, device="cuda"):
+                 plan: AttnPlan | None = None, monitor_cadence: int = 0,
+                 monitor_log: str | None = None,
+                 swamp_threshold: float = 0.15, seed: int = 0,
+                 executor=None, device="cuda"):
         if prefill_chunk_tokens is not None and (
                 prefill_chunk_tokens <= 0
                 or prefill_chunk_tokens % page_size != 0):
@@ -182,9 +231,6 @@ class ServeEngine:
                 f"prefill_chunk_tokens {prefill_chunk_tokens} must be a "
                 f"positive multiple of page_size {page_size}: slab "
                 "boundaries must land on page (carry-block) edges")
-        if monitor_cadence > 0:
-            raise NotImplementedError(
-                "the serve-time VRR monitor is not ported yet")
         self.cfg = model.cfg
         self.kv_fmt = kv_fmt or FPFormat(e=5, m=2)
         self.page_size = page_size
@@ -197,10 +243,19 @@ class ServeEngine:
             device=device)
         self.pool = PagePool(n_pages, page_size)
         self.store = SwapStore()
-        self.plan = plan_attention(self.pc.tokens_capacity, page_size,
-                                   prefill_chunk_tokens=prefill_chunk_tokens)
+        self.plan = plan or plan_attention(
+            self.pc.tokens_capacity, page_size,
+            prefill_chunk_tokens=prefill_chunk_tokens)
         self.max_batch = max_batch
         self.prefill_chunk = prefill_chunk_tokens
+        self.monitor_cadence = monitor_cadence
+        self.monitor_log = monitor_log
+        self.swamp_threshold = swamp_threshold
+        # the monitor's query draws, on the host (the JAX engine splits a
+        # PRNGKey(seed)); one (1, H, dh) query a tick
+        self._gen = torch.Generator().manual_seed(seed)
+        self.events: list[dict] = []
+        self._decode_steps = 0
 
         self.pending: deque[Request] = deque()
         self.active: dict[int, _Seq] = {}
@@ -360,6 +415,10 @@ class ServeEngine:
             self.decoded_tokens += 1
             if self._maybe_finish(seq):
                 finished.append(seq.rid)
+        self._decode_steps += 1
+        if self.monitor_cadence and \
+                self._decode_steps % self.monitor_cadence == 0:
+            self._monitor()
         return finished
 
     def _maybe_finish(self, seq: _Seq) -> bool:
@@ -396,6 +455,62 @@ class ServeEngine:
             raise RuntimeError("serve loop did not drain (pool too small "
                                "for the pending prompts?)")
         return dict(self.finished)
+
+    # ------------------------------ monitor --------------------------------
+    def _monitor(self) -> None:
+        """Swamping probe of the longest running context; a breach (the
+        measured swamp rate, or the closed-form knee test at the bucket's
+        worst case ``certified_log_v``) re-buckets before the context
+        swamps.  The bucket is keyed by the GROWN context length, not by
+        the prompt's admission bucket."""
+        running = [r for r, s in self.active.items() if not s.in_prefill]
+        if not running:
+            return
+        sid = max(running, key=lambda r: self.pool.seq_len(r))
+        ctx = self.pool.seq_len(sid)
+        bucket_i, bucket = self.plan.bucket_for(ctx)
+        width = bucket.max_pages(self.page_size)
+        stats = self.executor.measure_vrr(
+            self.pool.page_table([sid], width)[0], ctx, bucket.acc,
+            self._gen)
+        n2 = -(-ctx // self.page_size)
+        swamp = float(stats.swamp_rate)
+        v_pred = certified_log_v(
+            bucket.m_acc, self.plan.m_p, self.page_size, bucket.max_ctx,
+            extra_carry_events(self.page_size, self.plan.prefill_chunk,
+                               bucket.resumptions))
+        breach_m = swamp >= self.swamp_threshold
+        breach_p = v_pred >= CUTOFF_LOG_V
+        breach = breach_m or breach_p
+        if breach:
+            self.plan = self.plan.bumped(bucket_i)
+        # the width after the (carrier-clamped) bump: at the m_acc ceiling
+        # a breach is a saturated no-op, and the log says so
+        m_now = self.plan.buckets[bucket_i].m_acc
+        event = {
+            "step": self._decode_steps,
+            "event": ("rebucket" if breach and m_now > bucket.m_acc
+                      else "saturated" if breach else "ok"),
+            "source": ("both" if breach_m and breach_p
+                       else "measured" if breach_m
+                       else "predicted" if breach_p else None),
+            "gemm": "attn_decode", "role": "serve",
+            "bucket": bucket_i, "ctx": ctx, "n1": self.page_size, "n2": n2,
+            "m_acc": m_now,
+            "measured_vrr": round(float(stats.measured_vrr), 6),
+            "log_v": round(float(stats.measured_log_v(n2)), 4),
+            "log_v_pred": round(float(v_pred), 4),
+            "cutoff": round(CUTOFF_LOG_V, 4),
+            "swamp_rate": round(swamp, 6),
+            "swamp_threshold": self.swamp_threshold,
+            # the KV-magnitude hint this window certifies, beside the one
+            # the plan was built under
+            "v_hint_plan": self.plan.v_hint,
+            "v_hint_measured": derive_v_hint(stats, ctx),
+        }
+        self.events.append(event)
+        if self.monitor_log:
+            jsonl_append(self.monitor_log, [event])
 
     # ------------------------------ accounting -----------------------------
     def utilization(self) -> float:

@@ -22,7 +22,8 @@ import torch
 from repro_torch.models.api import Model
 from repro_torch.train import optimizer as O
 
-__all__ = ["TrainConfig", "init_train_state", "make_train_step"]
+__all__ = ["TrainConfig", "init_train_state", "make_train_step",
+           "run_telemetry_tick"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,3 +139,31 @@ def make_train_step(model: Model, train_cfg: TrainConfig
         return new_state, metrics
 
     return train_step
+
+
+def run_telemetry_tick(controller, model: Model, state: dict, batch: dict, *,
+                       step: int, gen: torch.Generator, seq_len: int,
+                       global_batch: int):
+    """One swamping-telemetry cadence tick (``repro_torch.telemetry``):
+    probe every quantized GEMM's accumulators on the live params and batch
+    (one forward without autograd, then K8 replays), feed the measurements
+    to the closed-loop controller and, when it changed some ``m_acc``,
+    return the re-planned model (the caller builds its train step anew).
+
+    Returns ``(events, new_model_or_None)``.  The training numerics are
+    untouched by the tick.  The JAX package's ``retune`` (re-warming the
+    autotuner for the new widths) has no counterpart: the port's kernels
+    take no tuned schedule.
+    """
+    from repro_torch.models.api import get_model
+    from repro_torch.telemetry.controller import apply_schedule
+    from repro_torch.telemetry.probe import probe_model_stats
+
+    probes = probe_model_stats(model, state["params"], batch, gen=gen)
+    events = controller.observe(step, probes)
+    if not controller.dirty:
+        return events, None
+    new_cfg = apply_schedule(model.cfg, controller.policy,
+                             controller.schedule(), seq_len=seq_len,
+                             global_batch=global_batch)
+    return events, get_model(new_cfg)

@@ -319,3 +319,153 @@ def test_train_step_kernels_match_plain(dev):
     assert torch.equal(lk, lp)
     for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# telemetry: the stats variants K8 (GEMM), K9 (backward pair), K12 (decode)
+# --------------------------------------------------------------------------
+
+
+def _stats_ok(got, want):
+    """Counters and MAX_ABS bitwise; sum slots within chip_smoke's stated
+    bound (SUM_REL / SUM_ABS)."""
+    from chip_smoke import stats_gap
+
+    exact, ratio = stats_gap(got, want)
+    assert exact, (got, want)
+    assert ratio <= 1.0, ratio
+
+
+@pytest.mark.parametrize("m,k,n,kind", [
+    (37, 200, 75, "f32"), (512, 1536, 256, "bf16"), (96, 130, 200, "int8"),
+    (64, 1536, 1000, "head"), (40, 300, 24, "prequantized_b")])
+def test_gemm_stats_kernel_matches_plain_and_g(dev, m, k, n, kind):
+    """K8: C bitwise its plain version's and the stats-off kernel's (G, or
+    E's y for int8-code operands); the row's counters and MAX_ABS bitwise,
+    its sums within the bound; two launches give the same row."""
+    from repro_torch.kernels.fused import qmatmul_fused_stats_reference
+
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    acc = (6, 9) if kind == "head" else (6, 5)
+    kw = dict(repr_fmt=None if kind == "head" else FP8_152, e_acc=acc[0],
+              m_acc=acc[1], block_k=64)
+    for lattice in (False, True):
+        mk = (lambda s: _lattice(gen, s, dev)) if lattice else (
+            lambda s: torch.randn(s, generator=gen, device=dev))
+        a, b = mk((m, k)), mk((k, n)) / math.sqrt(k)
+        extra = {}
+        if kind in ("bf16", "head"):
+            b = b.to(torch.bfloat16)
+        if kind == "head":
+            b = b.T.contiguous().T          # the embed.T view's strides
+        if kind == "int8":
+            base, a, b = qmatmul_fused(a, b, return_quantized=True, **kw)
+            extra = dict(a_packed=True, b_packed=True)
+        elif kind == "prequantized_b":
+            b = quantize_block(b, 5, 2)
+            extra = dict(quantize_b=False)
+            base = qmatmul_fused(a, b, **kw)    # Q(Q(b)) = Q(b)
+        else:
+            base = qmatmul_fused(a, b, **kw)
+        n0 = qmatmul_fused.stats_launches
+        c, row = qmatmul_fused(a, b, collect_stats=True, **kw, **extra)
+        c2, row2 = qmatmul_fused(a, b, collect_stats=True, **kw, **extra)
+        pc, prow = qmatmul_fused_stats_reference(a, b, **kw, **extra)
+        torch.cuda.synchronize()
+        assert qmatmul_fused.stats_launches == n0 + 2
+        assert torch.equal(c, base) and torch.equal(c, pc)
+        assert torch.equal(row, row2) and torch.equal(c, c2)
+        assert float(row[0]) == m * n
+        _stats_ok(row, prow)
+
+
+@pytest.mark.parametrize("t,k,n,packed", [
+    (512, 1536, 256, True), (96, 130, 200, True), (64, 1536, 1000, False)])
+def test_bwd_pair_stats_kernel_matches_plain_and_b(dev, t, k, n, packed):
+    """K9: dx and dw bitwise B's and the plain version's; both rows'
+    counters and MAX_ABS bitwise, sums within the bound; deterministic."""
+    from repro_torch.kernels.bwd_pair import (
+        qmatmul_bwd_pair, qmatmul_bwd_pair_stats_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(t * 5 + n)
+    acc = (6, 5) if packed else (6, 9)
+    kw = dict(repr_fmt=FP8_152 if packed else None, bwd_acc=acc,
+              grad_acc=acc, bwd_chunk=64, grad_chunk=64, packed=packed,
+              quantize_g=packed)
+    for lattice in (False, True):
+        mk = (lambda s: _lattice(gen, s, dev)) if lattice else (
+            lambda s: torch.randn(s, generator=gen, device=dev))
+        g, x = mk((t, n)), mk((t, k))
+        if packed:
+            _, xq, wq = qmatmul_fused(x, mk((k, n)) / 8, repr_fmt=FP8_152,
+                                      return_quantized=True)
+        else:
+            xq, wq = x, (mk((n, k)) / 8).to(torch.bfloat16).T
+        n0 = qmatmul_bwd_pair.stats_launches
+        dx, dw, rows = qmatmul_bwd_pair(g, xq, wq, collect_stats=True, **kw)
+        _, _, rows2 = qmatmul_bwd_pair(g, xq, wq, collect_stats=True, **kw)
+        bdx, bdw = qmatmul_bwd_pair(g, xq, wq, **kw)
+        pdx, pdw, prows = qmatmul_bwd_pair_stats_reference(g, xq, wq, **kw)
+        torch.cuda.synchronize()
+        assert qmatmul_bwd_pair.stats_launches == n0 + 2
+        assert torch.equal(dx, bdx) and torch.equal(dw, bdw)
+        assert torch.equal(dx, pdx) and torch.equal(dw, pdw)
+        assert torch.equal(rows, rows2)
+        assert rows.shape == (2, 10)
+        assert float(rows[0, 0]) == t * k and float(rows[1, 0]) == k * n
+        _stats_ok(rows, prows)
+
+
+def test_decode_stats_kernel_matches_plain_and_d(dev):
+    """K12 on a page table wider than the pages in use (the kernel stops at
+    each sequence's last page, the plain version walks every column as the
+    TPU kernel does): o bitwise D's and the plain version's, the row's
+    counters and MAX_ABS bitwise, sums within the bound; deterministic."""
+    from repro_torch.kernels.attention import paged_attn_decode_stats_reference
+
+    h, kv, dh, acc = 12, 2, 128, (6, 5)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    lens = [384, 0, 17, 64, 100, 129, 256, 311]
+    width = 32
+    n_pages = 1 + sum(-(-s // 16) for s in lens)
+    kc, vc, kse, vse = _arena(gen, dev, n_pages, kv, 16, dh)
+    pt = torch.zeros((len(lens), width), dtype=torch.int32, device=dev)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    used = 0
+    for b, s in enumerate(lens):
+        np_ = -(-s // 16)
+        pt[b, :np_] = perm[used:used + np_].to(torch.int32)
+        used += np_
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    args = (kc, vc, kse, vse, pt, sl)
+    kw = dict(kv_fmt=FP8_152, acc=acc)
+    for q in (torch.randn((len(lens), h, dh), generator=gen, device=dev),
+              _lattice(gen, (len(lens), h, dh), dev)):
+        n0 = paged_attn_decode.stats_launches
+        o, row = paged_attn_decode(q, *args, collect_stats=True, **kw)
+        o2, row2 = paged_attn_decode(q, *args, collect_stats=True, **kw)
+        d = paged_attn_decode(q, *args, **kw)
+        po, prow = paged_attn_decode_stats_reference(q, *args, **kw)
+        torch.cuda.synchronize()
+        assert paged_attn_decode.stats_launches == n0 + 2
+        assert torch.equal(o, d) and torch.equal(o, po)
+        assert torch.equal(row, row2) and torch.equal(o, o2)
+        assert float(row[0]) == 7 * h * dh      # the 7 rows of length > 0
+        _stats_ok(row, prow)
+
+
+def test_stats_wrappers_raise_on_the_card(dev):
+    a = torch.randn((8, 16), device=dev)
+    with pytest.raises(ValueError):     # stats and residual emission
+        qmatmul_fused(a, torch.randn((16, 4), device=dev), repr_fmt=FP8_152,
+                      collect_stats=True, return_quantized=True)
+    with pytest.raises(NotImplementedError):
+        qmatmul_fused(a, torch.randn((16, 4), device=dev), repr_fmt=FP8_152,
+                      collect_stats=True, rounding="sr")
+    codes = torch.zeros((8, 16), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):     # G takes no int8 codes
+        qmatmul_fused(codes, codes.T.contiguous(), repr_fmt=FP8_152,
+                      a_packed=True, b_packed=True)
+    with pytest.raises(ValueError):     # nor per-operand quantization
+        qmatmul_fused(a, torch.randn((16, 4), device=dev), repr_fmt=FP8_152,
+                      quantize_b=False)
