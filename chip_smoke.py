@@ -47,7 +47,18 @@ on its own line:
    launcher's ``main`` under ``--policy perturbed --pp -2`` with a tick
    every step (eager, then in-graph), 3 full-depth steps each: the
    controller must bump, the model be re-planned and training go on;
-6. result: one JSON line per kernel, the card's name and power limit, and
+6. this slice's paths: on the serve cell, one request's full-depth
+   prefill logits under the unfused oracle plan (``QDotConfig(
+   fused=False)``: K2 quantize and K3 chunked qmatmul) against the fused
+   plan, bitwise, and the dense resumable prefill K10 on layer 0 at full
+   width over the 8 prompts (one-shot, 64-token slabs with the carry out
+   and in, and the bucketed P: outputs and arena bitwise), K10 against its
+   plain version there and at S = 512 with chunk 64 and 128; K2 and K3
+   against their plain versions at the training shapes and one oracle
+   step's launches timed; the 2-layer oracle step against the fused step
+   (loss and every gradient bitwise) and 2 full-depth steps of the train
+   cell under each (losses bitwise, step time and peak memory);
+7. result: one JSON line per kernel, the card's name and power limit, and
    the final JSON line.
 
 Any failed check exits non-zero.  Without a CUDA device it exits non-zero
@@ -110,6 +121,41 @@ def cuda_time(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@functools.cache
+def _side_stream():
+    """One warm-up stream for every ``lib_time`` call: cuBLAS keeps a
+    workspace for each stream it has run on, so a new stream a call would
+    hold about 32 MiB of the card for the rest of the run."""
+    return torch.cuda.Stream()
+
+
+def lib_time(fn, reps: int = 5, rounds: int = 5):
+    """The library's card time for ``fn()``: its launches captured once in
+    a CUDA graph and replayed, so the host's cost of launching many small
+    PyTorch calls (which bounded eager timings of the library sequences
+    and moved them up to 2x between runs) is left out.  Returns the median
+    of ``rounds`` means over ``reps`` replays, and (min, max) of the means."""
+    side = _side_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    means = sorted(cuda_time(graph.replay, reps=reps, warmup=1)
+                   for _ in range(rounds))
+    del graph
+    return means[rounds // 2], (means[0], means[-1])
+
+
+def lib_str(lib) -> str:
+    """``lib_time``'s result as text: the median and the spread."""
+    med, (lo, hi) = lib
+    return f"{med:.4f} ms [{lo:.4f}-{hi:.4f}]"
 
 
 def bound_ms(n_bytes: float, flops: float, peak_flops: float):
@@ -294,12 +340,12 @@ def phase_gemm(cfg, dev) -> dict:
             plain = cuda_time(lambda: qmatmul_fused_reference(a, w, **kw),
                               reps=1, warmup=0)
             ab = a.to(torch.bfloat16)
-            lib = cuda_time(lambda: torch.matmul(ab, w), reps=20)
+            lib = lib_time(lambda: torch.matmul(ab, w))
             b_ms, b_by = bound_ms(m * k * 4 + k * n * 2 + m * n * 4,
                                   2 * m * n * k, BF16_FLOPS)
-            rows.append((name, m, k, n, ms, plain, lib, b_ms, b_by))
+            rows.append((name, m, k, n, ms, plain, lib[0], b_ms, b_by))
             print(f"  time {name} M={m} K={k} N={n}: kernel {ms:.4f} ms, "
-                  f"plain {plain:.2f} ms, library {lib:.4f} ms, bound "
+                  f"plain {plain:.2f} ms, library {lib_str(lib)}, bound "
                   f"{b_ms:.4f} ms ({b_by})", flush=True)
     return {"weights": weights, "rows": rows, "max_abs_err": max_err}
 
@@ -335,15 +381,16 @@ def gemm_step(cfg, dev, weights: dict) -> dict:
 
     ms = cuda_time(lambda: run(qmatmul_fused), reps=5)
     plain = cuda_time(lambda: run(qmatmul_fused_reference), reps=1, warmup=0)
-    lib = cuda_time(lambda: run(lambda a, w, **kw: torch.matmul(
-        a.to(torch.bfloat16), w)), reps=5)
+    lib = lib_time(lambda: run(lambda a, w, **kw: torch.matmul(
+        a.to(torch.bfloat16), w)))
     b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS)
     print(f"[kernels] G one decode step ({len(calls)} GEMMs, M={MAX_BATCH}, "
           f"{n_bytes / 1e9:.3f} GB): kernel {ms:.3f} ms, plain {plain:.1f} "
-          f"ms, library {lib:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
+          f"ms, library {lib_str(lib)}, bound {b_ms:.3f} ms ({b_by}), "
           f"{b_ms / ms:.3f} of bound", flush=True)
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by, calls=len(calls))
+    return dict(ms=ms, plain_ms=plain, library_ms=lib[0],
+                library_spread_ms=list(lib[1]), bound_ms=b_ms, bound_by=b_by,
+                calls=len(calls))
 
 
 def _attn_arena(gen, dev, n_pages, kv, dh):
@@ -451,7 +498,7 @@ def phase_decode(cfg, dev, plan) -> dict:
     kd, vd = dense(kc, kse), dense(vc, vse)
     mask = (torch.arange(lmax, device=dev)[None, :] < lens[:, None])[:, None, None, :]
     qb = q[:, :, None].to(torch.bfloat16)
-    lib = cuda_time(lambda: torch.nn.functional.scaled_dot_product_attention(
+    lib = lib_time(lambda: torch.nn.functional.scaled_dot_product_attention(
         qb, kd, vd, attn_mask=mask), reps=50)
     pages_read = int(sum(-(-s // PAGE) for s in seq_lens.tolist()))
     n_bytes = (pages_read * kv * PAGE * dh * 2 + q.numel() * 4 * 2
@@ -459,17 +506,20 @@ def phase_decode(cfg, dev, plan) -> dict:
     flops = 4 * int(lens.sum()) * dh * h
     b_ms, b_by = bound_ms(n_bytes, flops, F32_FLOPS)
     print(f"  time D: kernel {ms:.4f} ms, plain {plain:.2f} ms, SDPA "
-          f"{lib:.4f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+          f"{lib_str(lib)}, bound {b_ms:.5f} ms ({b_by})", flush=True)
     # K12 also writes one partial row of 10 doubles per block and the row
     s_bytes = n_bytes + MAX_BATCH * kv * 80 + 40
     s_b, s_by = bound_ms(s_bytes, flops, F32_FLOPS)
     print(f"  time K12: kernel {s_ms:.4f} ms ({s_ms / ms:.3f}x D), plain "
-          f"{s_plain:.2f} ms, SDPA {lib:.4f} ms, bound {s_b:.5f} ms "
+          f"{s_plain:.2f} ms, SDPA {lib_str(lib)}, bound {s_b:.5f} ms "
           f"({s_by})", flush=True)
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=max_err,
-                stats=dict(ms=s_ms, plain_ms=s_plain, library_ms=lib,
-                           bound_ms=s_b, bound_by=s_by, max_abs_err=s_err))
+    spread = list(lib[1])
+    return dict(ms=ms, plain_ms=plain, library_ms=lib[0],
+                library_spread_ms=spread, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=max_err,
+                stats=dict(ms=s_ms, plain_ms=s_plain, library_ms=lib[0],
+                           library_spread_ms=spread, bound_ms=s_b,
+                           bound_by=s_by, max_abs_err=s_err))
 
 
 def phase_prefill(cfg, dev, plan) -> dict:
@@ -517,16 +567,17 @@ def phase_prefill(cfg, dev, plan) -> dict:
     rows = q_off + torch.arange(q_len, device=dev)
     mask = (torch.arange(kv_len, device=dev)[None, :] <= rows[:, None])[None, None]
     qb = q.permute(1, 0, 2)[None].to(torch.bfloat16)
-    lib = cuda_time(lambda: torch.nn.functional.scaled_dot_product_attention(
+    lib = lib_time(lambda: torch.nn.functional.scaled_dot_product_attention(
         qb, kd, vd, attn_mask=mask), reps=50)
     attended = int(sum(q_off + r + 1 for r in range(q_len)))
     n_bytes = (n_used * kv * PAGE * dh * 2 + q.numel() * 4 * 2 + width * 4
                + n_used * 2 * 4)
     b_ms, b_by = bound_ms(n_bytes, 4 * attended * dh * h, F32_FLOPS)
     print(f"  time P: kernel {ms:.4f} ms, plain {plain:.2f} ms, SDPA "
-          f"{lib:.4f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=max_err)
+          f"{lib_str(lib)}, bound {b_ms:.5f} ms ({b_by})", flush=True)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib[0],
+                library_spread_ms=list(lib[1]), bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=max_err)
 
 
 # --------------------------------------------------------------------------
@@ -563,17 +614,23 @@ def plain_versions():
     from repro_torch.kernels import ops as O
     from repro_torch.models import layers as L
 
-    saved = (O.qmatmul_fused, O.qmatmul_bwd_pair, L.paged_attn_decode,
-             L.flash_prefill_paged)
+    from repro_torch.kernels import qmatmul as K3
+    from repro_torch.kernels import quantize as K2
+
+    saved = (O.qmatmul_fused, O.qmatmul_bwd_pair, O.quantize, O.qmatmul,
+             L.paged_attn_decode, L.flash_prefill_paged, L.flash_prefill)
     O.qmatmul_fused = F.qmatmul_fused_reference
     O.qmatmul_bwd_pair = B.qmatmul_bwd_pair_reference
+    O.quantize = K2.quantize_reference
+    O.qmatmul = K3.qmatmul_reference
     L.paged_attn_decode = A.paged_attn_decode_reference
     L.flash_prefill_paged = A.flash_prefill_paged_reference
+    L.flash_prefill = A.flash_prefill_reference
     try:
         yield
     finally:
-        (O.qmatmul_fused, O.qmatmul_bwd_pair, L.paged_attn_decode,
-         L.flash_prefill_paged) = saved
+        (O.qmatmul_fused, O.qmatmul_bwd_pair, O.quantize, O.qmatmul,
+         L.paged_attn_decode, L.flash_prefill_paged, L.flash_prefill) = saved
 
 
 def build_engine(cfg, params, dev, prefill_chunk, **engine_kw):
@@ -1000,14 +1057,14 @@ def phase_train_kernels(dev) -> dict:
               f"({sq_ms / e_ms:.3f}x); K9 {p_ms:.4f} ms vs B {b_ms:.4f} ms "
               f"({p_ms / b_ms:.3f}x)", flush=True)
         xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
-        e_lib = cuda_time(lambda: torch.matmul(xb, w), reps=10)
-        b_lib = cuda_time(lambda: (torch.matmul(gb, w.T),
-                                   torch.matmul(xb.T, gb)), reps=10)
+        e_lib = lib_time(lambda: torch.matmul(xb, w))
+        b_lib = lib_time(lambda: (torch.matmul(gb, w.T),
+                                  torch.matmul(xb.T, gb)))
         e_b, e_by = bound_ms(*_e_cost(t, k, n))
         b_b, b_by = bound_ms(*_b_cost(t, k, n))
         print(f"  time {tag} K={k} N={n}: E kernel {e_ms:.4f} ms, library "
-              f"{e_lib:.4f} ms, bound {e_b:.4f} ms ({e_by}); B kernel "
-              f"{b_ms:.4f} ms, library {b_lib:.4f} ms, bound {b_b:.4f} ms "
+              f"{lib_str(e_lib)}, bound {e_b:.4f} ms ({e_by}); B kernel "
+              f"{b_ms:.4f} ms, library {lib_str(b_lib)}, bound {b_b:.4f} ms "
               f"({b_by})", flush=True)
 
     # the tied lm_head: raw f32 x and the bf16 embed.T view, no quantization
@@ -1071,17 +1128,17 @@ def phase_train_kernels(dev) -> dict:
     hxb, hgb, embt = hx.to(torch.bfloat16), hg.to(torch.bfloat16), emb.T
     head_lib = lambda: (torch.matmul(hgb, embt.T),  # noqa: E731
                         torch.matmul(hxb.T, hgb))
-    k7_lib = cuda_time(head_lib, reps=3)
+    k7_lib = lib_time(head_lib)
     k7_b, k7_by = bound_ms(*_b_cost(t, k, n, packed=False, x_bytes=4,
                                     w_bytes=2))
     print(f"  time K7 lm_head T={t} K={k} N={n}: kernel {k7_ms:.3f} ms, "
-          f"plain {k7_plain:.1f} ms, library {k7_lib:.3f} ms, bound "
+          f"plain {k7_plain:.1f} ms, library {lib_str(k7_lib)}, bound "
           f"{k7_b:.4f} ms ({k7_by})", flush=True)
     gkw = _e_kw(qc)
     head_g = cuda_time(lambda: qmatmul_fused(hx, emb.T, **gkw), reps=3)
     print(f"  time G lm_head forward T={t} K={k} N={n}: kernel {head_g:.3f} "
-          f"ms, library {cuda_time(lambda: torch.matmul(hxb, embt), reps=3):.3f}"
-          f" ms", flush=True)
+          f"ms, library {lib_str(lib_time(lambda: torch.matmul(hxb, embt)))}",
+          flush=True)
 
     # one training step's launches of E and B (7 per layer x depth, plus
     # the lm_head's B), in layer order on the per-shape tensors above
@@ -1149,21 +1206,23 @@ def phase_train_kernels(dev) -> dict:
             ("K9", run_k9, k9, k9_plain, lib_b, b_cost, p_err)):
         ms = cuda_time(lambda: run(fn), reps=2, warmup=1)
         plain = cuda_time(lambda: run(ref), reps=1, warmup=0)
-        lib_ms = cuda_time(lib, reps=3)
+        lib_ms = lib_time(lib, reps=3)
         b_ms, b_by = seq_bound(cost)
         what = ("one in-graph telemetry tick" if name in ("K8", "K9")
                 else "one training step")
         print(f"[kernels] {name} {what} ({len(cost)} launches, "
               f"T={t}): kernel {ms:.3f} ms, plain {plain:.1f} ms, library "
-              f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{lib_str(lib_ms)}, bound {b_ms:.4f} ms ({b_by}), "
               f"{b_ms / ms:.4f} of bound", flush=True)
-        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms[0],
+                         library_spread_ms=list(lib_ms[1]), bound_ms=b_ms,
+                         bound_by=b_by, max_abs_err=err)
     print(f"[kernels] stats overhead over one step's sequence: K8 "
           f"{out['K8']['ms'] / out['E']['ms']:.3f}x E, K9 "
           f"{out['K9']['ms'] / out['B']['ms']:.3f}x B", flush=True)
-    out["K7"] = dict(ms=k7_ms, plain_ms=k7_plain, library_ms=k7_lib,
-                     bound_ms=k7_b, bound_by=k7_by, max_abs_err=k7_err)
+    out["K7"] = dict(ms=k7_ms, plain_ms=k7_plain, library_ms=k7_lib[0],
+                     library_spread_ms=list(k7_lib[1]), bound_ms=k7_b,
+                     bound_by=k7_by, max_abs_err=k7_err)
     return out
 
 
@@ -1617,6 +1676,571 @@ def phase_train_replan(dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the oracle (K2, K3) and the dense resumable prefill (K10)
+# --------------------------------------------------------------------------
+
+K2_NAME = "quantize"                   # K2: the oracle's operand quantizer
+K3_NAME = "qmatmul"                    # K3: the oracle's chunked GEMM
+K10_NAME = "flash_prefill"             # K10: the dense resumable prefill
+
+
+def oracle_plan(cfg):
+    """``cfg`` with ``fused=False`` in every QDotConfig of its plan: the
+    unfused oracle (K2 and K3) in place of G, E and B.  The JAX package
+    has no such helper; the tests keep their own."""
+    from dataclasses import replace
+
+    from repro_torch.telemetry.controller import PLAN_FIELDS
+
+    fields = {name: replace(getattr(cfg.quant, name), fused=False)
+              for name in PLAN_FIELDS if getattr(cfg.quant, name) is not None}
+    return replace(cfg, quant=replace(cfg.quant, **fields))
+
+
+def _oracle_counters():
+    """The training counters plus K2 and K3."""
+    from repro_torch.kernels.qmatmul import qmatmul
+    from repro_torch.kernels.quantize import quantize
+
+    return dict(_train_counters(), **{K2_NAME: (quantize, "launches"),
+                                      K3_NAME: (qmatmul, "launches")})
+
+
+def _k3_kw(p) -> dict:
+    """K3's arguments for one role (``kernels.ops._mm``)."""
+    from repro_torch.kernels.ops import _WIDE_CHUNK, _acc_params
+
+    e, m, c = _acc_params(p)
+    return dict(e_acc=e, m_acc=m, block_k=c or _WIDE_CHUNK)
+
+
+def _k3_cost(a, b, peak):
+    """(bytes, operations, peak) of one K3 call: A and B read in their
+    dtypes, C f32 written; 2MNK operations."""
+    m, k = a.shape
+    n = b.shape[1]
+    return (a.numel() * a.element_size() + b.numel() * b.element_size()
+            + m * n * 4, 2 * m * n * k, peak)
+
+
+def phase_oracle_kernels(dev) -> dict:
+    """K2 and K3 against their plain versions, bitwise, at the training
+    cell's layer shapes (T = 512; the four distinct (K, N) of a layer; K2
+    on x, w and g, K3 in its three roles FWD Q(x) @ Q(w), BWD Q(g) @ Q(w)^T
+    and GRAD Q(x)^T @ Q(g), on K2's outputs and on lattice operands) and
+    on ``HEAD_SLICE`` columns of the tied lm_head (raw f32 x, the bf16
+    embed.T view); then one oracle training step's K2 launches (3 a
+    quantized qdot) and K3 launches (3 a qdot, the whole lm_head
+    included) timed as sequences against the plain versions and, for K3,
+    bf16 ``torch.matmul`` at the same shapes.  The timed step's three
+    calls on the whole lm_head are also held bitwise against the plain
+    step's outputs."""
+    from repro_torch.kernels.qmatmul import qmatmul, qmatmul_reference
+    from repro_torch.kernels.quantize import quantize, quantize_reference
+    from repro_torch.models.api import dense_gemm_shapes
+
+    cfg = _train_cfg()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    shapes = dense_gemm_shapes(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    head, layer = shapes[0], shapes[1:]
+    t = head[1]
+    print(f"[kernels] K2 quantize and K3 qmatmul (the fused=False oracle) vs "
+          f"plain at T={t} (per shape and role: kernel ms, bf16 "
+          f"torch.matmul ms; plain ms over a whole step below)", flush=True)
+    k3_err = 0.0
+    tensors = {}
+    for tag, _, k, n, qc in layer:
+        if (k, n) in tensors:
+            continue
+        f = qc.repr_fmt
+        x = torch.randn((t, k), generator=gen, device=dev)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             / math.sqrt(k)).to(torch.bfloat16)
+        g = torch.randn((t, n), generator=gen, device=dev) / math.sqrt(n)
+        q = {}
+        for name, v in (("x", x), ("w", w), ("g", g)):
+            got = quantize(v, e=f.e, m=f.m)
+            want = quantize_reference(v, e=f.e, m=f.m)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"K2 {tag} {name}: not bitwise the plain version")
+            q[name] = got
+        print(f"  K2 {tag} x ({t}, {k}) f32, w ({k}, {n}) bf16, g ({t}, {n})"
+              f" f32 to {f}: bitwise the plain version", flush=True)
+        lat = [_lattice(gen, s_, dev) for s_ in ((t, k), (k, n), (t, n))]
+        for label, (xq, wq, gq) in (("random", (q["x"], q["w"], q["g"])),
+                                    ("lattice", lat)):
+            for role, a, b, p in (("FWD", xq, wq, qc.fwd),
+                                  ("BWD", gq, wq.T, qc.bwd),
+                                  ("GRAD", xq.T, gq, qc.grad)):
+                kw = _k3_kw(p)
+                k3_err = max(k3_err, compare(
+                    f"K3 {tag} {role} {label} M={a.shape[0]} K={a.shape[1]} "
+                    f"N={b.shape[1]}", qmatmul(a, b, **kw),
+                    qmatmul_reference(a, b, **kw), kw["m_acc"], kw["e_acc"],
+                    bitwise=True))
+        xq, wq, gq = q["x"], q["w"], q["g"]
+        xb, wb, gb = (v.to(torch.bfloat16) for v in (xq, wq, gq))
+        times = []
+        for role, a, b, p, la, lb in (("FWD", xq, wq, qc.fwd, xb, wb),
+                                      ("BWD", gq, wq.T, qc.bwd, gb, wb.T),
+                                      ("GRAD", xq.T, gq, qc.grad, xb.T, gb)):
+            kw = _k3_kw(p)
+            ms = cuda_time(lambda: qmatmul(a, b, **kw), reps=5)
+            lib = lib_time(lambda: torch.matmul(la, lb))
+            times.append(f"{role} {ms:.4f} ms (library {lib_str(lib)})")
+        k2_ms = cuda_time(lambda: quantize(w, e=f.e, m=f.m), reps=10)
+        print(f"  time {tag} K={k} N={n}: K3 {', '.join(times)}; K2 on w "
+              f"{k2_ms:.4f} ms", flush=True)
+        tensors[(k, n)] = (x, w, g, xq, wq, gq, xb, wb, gb)
+
+    # the tied lm_head: repr_fmt None, so no K2; raw f32 x, bf16 embed.T
+    _, _, k, n, hq = head
+    emb = (torch.randn((n, k), generator=gen, device=dev)
+           / math.sqrt(k)).to(torch.bfloat16)
+    hx = torch.randn((t, k), generator=gen, device=dev)
+    hg = torch.randn((t, n), generator=gen, device=dev) / math.sqrt(n)
+    sl = slice(0, HEAD_SLICE)
+    for lattice in (False, True):
+        xs = _lattice(gen, (t, k), dev) if lattice else hx
+        ws = (_lattice(gen, (HEAD_SLICE, k), dev).to(torch.bfloat16).T
+              if lattice else emb[sl].T)
+        gs = _lattice(gen, (t, HEAD_SLICE), dev) if lattice else hg[:, sl]
+        for role, a, b, p in (("FWD", xs, ws, hq.fwd), ("BWD", gs, ws.T, hq.bwd),
+                              ("GRAD", xs.T, gs, hq.grad)):
+            kw = _k3_kw(p)
+            k3_err = max(k3_err, compare(
+                f"K3 lm_head[:, :{HEAD_SLICE}] {role} "
+                f"{'lattice' if lattice else 'random'}", qmatmul(a, b, **kw),
+                qmatmul_reference(a, b, **kw), kw["m_acc"], kw["e_acc"],
+                bitwise=True))
+
+    # one oracle training step's launches, in layer order
+    depth = cfg.n_layers
+    calls = [(tensors[(k, n)], qc) for _ in range(depth)
+             for _, _, k, n, qc in layer]
+    hxb, hgb = hx.to(torch.bfloat16), hg.to(torch.bfloat16)
+
+    def run_k2(fn):
+        for (x, w, g, *_), qc in calls:
+            f = qc.repr_fmt
+            for v in (x, w, g):
+                fn(v, e=f.e, m=f.m)
+
+    def k3_calls():
+        """(A, B, role precision, peak rate): the layers contract (1,5,2)
+        values (K2's outputs) at the FP8 rate, the lm_head raw f32 x bf16
+        at the bf16 rate, as the E and B rows count them."""
+        for (_, _, _, xq, wq, gq, *_), qc in calls:
+            yield xq, wq, qc.fwd, FP8_FLOPS
+            yield gq, wq.T, qc.bwd, FP8_FLOPS
+            yield xq.T, gq, qc.grad, FP8_FLOPS
+        yield hx, emb.T, hq.fwd, BF16_FLOPS
+        yield hg, emb, hq.bwd, BF16_FLOPS
+        yield hx.T, hg, hq.grad, BF16_FLOPS
+
+    k3_list = list(k3_calls())
+    head_out = {}
+
+    def run_k3(fn):
+        """One step's K3 calls; keeps the whole lm_head's three outputs."""
+        outs = head_out[fn] = []
+        for i, (a, b, p, _) in enumerate(k3_list):
+            y = fn(a, b, **_k3_kw(p))
+            if i >= len(k3_list) - 3:
+                outs.append(y)
+
+    def check_head() -> float:
+        """K3 on the whole tied lm_head (FWD N = vocab, BWD contracting K =
+        vocab, GRAD writing the (d, vocab) dw) against the plain version's
+        outputs of the same step, bitwise."""
+        err = 0.0
+        for role, got, want, p in zip(
+                ("FWD", "BWD", "GRAD"), head_out.pop(qmatmul),
+                head_out.pop(qmatmul_reference), (hq.fwd, hq.bwd, hq.grad)):
+            kw = _k3_kw(p)
+            err = max(err, compare(
+                f"K3 lm_head {role} whole (T={t}, N={n}) vs plain", got, want,
+                kw["m_acc"], kw["e_acc"], bitwise=True))
+        return err
+
+    def lib_k3():
+        for (*_, xb, wb, gb), _ in calls:
+            torch.matmul(xb, wb)
+            torch.matmul(gb, wb.T)
+            torch.matmul(xb.T, gb)
+        torch.matmul(hxb, emb.T)
+        torch.matmul(hgb, emb)
+        torch.matmul(hxb.T, hgb)
+
+    k2_cost = [(v.numel() * (v.element_size() + 4), 0, F32_FLOPS)
+               for (x, w, g, *_), _ in calls for v in (x, w, g)]
+    k3_cost = [_k3_cost(a, b, peak) for a, b, _, peak in k3_list]
+    out = {}
+    for name, run, fn, ref, lib, cost, err in (
+            ("K2", run_k2, quantize, quantize_reference, None, k2_cost, 0.0),
+            ("K3", run_k3, qmatmul, qmatmul_reference, lib_k3, k3_cost,
+             k3_err)):
+        ms = cuda_time(lambda: run(fn), reps=2, warmup=1)
+        plain = cuda_time(lambda: run(ref), reps=1, warmup=0)
+        if name == "K3":
+            err = max(err, check_head())
+        lib_ms = lib_time(lib, reps=3) if lib is not None else None
+        b_ms, b_by = seq_bound(cost)
+        lib_s = (f"library {lib_str(lib_ms)}" if lib_ms is not None else
+                 "library none (no PyTorch call rounds to (1,e,m) with "
+                 "saturation and flush to zero: a float8_e5m2 cast has "
+                 "another exponent range and overflows to inf)")
+        print(f"[kernels] {name} one oracle training step ({len(cost)} "
+              f"launches, T={t}): kernel {ms:.3f} ms, plain {plain:.1f} ms, "
+              f"{lib_s}, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.4f} of "
+              f"bound", flush=True)
+        out[name] = dict(ms=ms, plain_ms=plain,
+                         library_ms=lib_ms and lib_ms[0],
+                         library_spread_ms=lib_ms and list(lib_ms[1]),
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    return out
+
+
+def phase_train_oracle(dev) -> dict:
+    """The unfused oracle on the training path.  At the 2-layer cut of
+    qwen2-1.5b at full width (batch 2 x seq 64): one step under the oracle
+    plan (``oracle_plan``: every qdot through K2 and K3) against the fused
+    step, the loss and every gradient leaf bitwise, and no G, E or B
+    launch in the oracle step.  Then the train cell at full depth (the
+    training launcher's own set-up, the same seeded weights and batches)
+    for 2 steps, fused and then oracle: the losses bitwise, each run's
+    second step time and peak memory, and its launches."""
+    from repro_torch.launch.train import build
+    from repro_torch.models.api import dense_gemm_shapes, get_model
+    from repro_torch.train.loop import _grads, compute_copy, make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+
+    fused_names = ("qmatmul_fused", E_NAME, "qmatmul_bwd_pair")
+    counters = _oracle_counters()
+    cfg = _train_cfg(n_layers=2, batch=2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    params = get_model(cfg).init_params(gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, TRAIN_SEQ), generator=gen,
+                           device=dev, dtype=torch.int32)
+
+    def step(c):
+        model = get_model(c)
+        cc = compute_copy(params)
+        loss, _ = model.loss_fn(cc, {"tokens": tokens}, c)
+        loss.backward()
+        return loss.detach(), _grads(cc, params)
+
+    zero_counts(counters)
+    lf, gf = step(cfg)
+    used_f = read_counts(counters)
+    zero_counts(counters)
+    lo, go = step(oracle_plan(cfg))
+    used_o = read_counts(counters)
+    leaves = list(zip(tree_leaves(gf), tree_leaves(go)))
+    same = sum(bool(torch.equal(a, b)) for a, b in leaves)
+    err = max(float((a - b).abs().max()) for a, b in leaves)
+    print(f"[train] oracle vs fused, 2 layers at full width, batch 2 x seq "
+          f"{TRAIN_SEQ}: loss {float(lo):.6f} vs {float(lf):.6f}; "
+          f"{same}/{len(leaves)} gradient leaves bitwise equal (max |err| "
+          f"{err:.3g}); launches oracle {used_o}, fused {used_f}", flush=True)
+    check(torch.equal(lo, lf), "oracle loss differs from the fused loss")
+    check(same == len(leaves), "an oracle gradient differs from the fused")
+    check(used_o[K2_NAME] > 0 and used_o[K3_NAME] > 0,
+          "the oracle step launched no K2 or K3")
+    check(all(used_o[k] == 0 for k in fused_names),
+          "the oracle step launched a fused kernel")
+    check(used_f[K2_NAME] == 0 and used_f[K3_NAME] == 0,
+          "the fused step launched an oracle kernel")
+    del params, gf, go, leaves
+    torch.cuda.empty_cache()
+
+    full = _train_cfg()
+    n_qdot = (len(dense_gemm_shapes(full, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH)) - 1
+              ) * full.n_layers + 1
+    steps = 2
+    want = {True: {K2_NAME: steps * 3 * (n_qdot - 1),
+                   K3_NAME: steps * 3 * n_qdot},
+            False: {K2_NAME: 0, K3_NAME: 0, E_NAME: steps * (n_qdot - 1),
+                    "qmatmul_fused": steps,
+                    "qmatmul_bwd_pair": steps * n_qdot}}
+    runs = {}
+    for oracle in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        model, tc, state, data, _ = build(_train_args())
+        if oracle:
+            model = get_model(oracle_plan(model.cfg))
+        step_fn = make_train_step(model, tc)
+        zero_counts(counters)
+        losses, ms = [], []
+        for _ in range(steps):
+            batch = next(data)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        used = read_counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+        what = "oracle" if oracle else "fused"
+        print(f"[train] {what} full depth, batch {TRAIN_BATCH} x seq "
+              f"{TRAIN_SEQ}: losses {losses}, step ms {[round(x, 1) for x in ms]}"
+              f", peak memory {peak / 2 ** 30:.2f} GiB, launches {used}",
+              flush=True)
+        check(all(used[k] == v for k, v in want[oracle].items()),
+              f"{what} full-depth launches {used} != {want[oracle]}")
+        if oracle:
+            check(all(used[k] == 0 for k in fused_names),
+                  "the oracle step launched a fused kernel")
+        runs[oracle] = dict(losses=losses, ms=ms[-1], peak=peak,
+                            launches=used)
+        del model, state, data, step_fn
+        torch.cuda.empty_cache()
+    o, f = runs[True], runs[False]
+    print(f"[train] oracle vs fused step at full depth: losses "
+          f"{'bitwise equal' if o['losses'] == f['losses'] else 'DIFFERENT'};"
+          f" second step {o['ms']:.1f} ms vs {f['ms']:.1f} ms "
+          f"({o['ms'] / f['ms']:.3f}x); peak memory "
+          f"{o['peak'] / 2 ** 30:.2f} vs {f['peak'] / 2 ** 30:.2f} GiB",
+          flush=True)
+    check(o["losses"] == f["losses"], "full-depth oracle loss differs")
+    return dict(launches=o["launches"], ms=o["ms"], fused_ms=f["ms"])
+
+
+def phase_serve_oracle(cfg, params, dev, prompt) -> dict:
+    """The serve cell's prefill logits of one request at full depth under
+    the oracle plan (K2 and K3 at serving shapes, P for attention)
+    against the fused plan's (G), bitwise, with the oracle run's
+    launches."""
+    from repro_torch.kernels.attention import flash_prefill_paged
+    from repro_torch.models.api import get_paged_model, paged_init_state
+    from repro_torch.quant.formats import FPFormat
+    from repro_torch.serve.plan import plan_attention
+
+    n = len(prompt)
+    plan = plan_attention(4 * PAGE * (-(-n // PAGE)), PAGE)
+    _, bucket = plan.bucket_for(n)
+    pages = torch.arange(1, -(-n // PAGE) + 1, device=dev)
+    counters = dict(_oracle_counters(), flash_prefill_paged=(
+        flash_prefill_paged, "launches"))
+
+    def run(c):
+        kv = paged_init_state(c, n_pages=int(pages[-1]) + 1, page_size=PAGE,
+                              device=dev)
+        zero_counts(counters)
+        with torch.no_grad():
+            logits = get_paged_model(c).prefill(
+                params, torch.tensor([prompt], device=dev), kv,
+                pages.to(torch.int32), pages, 0, n, kv_fmt=FPFormat(5, 2),
+                acc=bucket.acc)
+        torch.cuda.synchronize()
+        return logits, kv, read_counts(counters)
+
+    lf, kvf, _ = run(cfg)
+    lo, kvo, used = run(oracle_plan(cfg))
+    same_kv = all(torch.equal(kvf[k], kvo[k]) for k in kvf)
+    print(f"[serve] oracle vs fused prefill logits of a {n}-token request at "
+          f"full depth: {'bitwise equal' if torch.equal(lf, lo) else 'DIFFERENT'}"
+          f" (max |err| {float((lf.float() - lo.float()).abs().max()):.3g}), "
+          f"arena {'bitwise equal' if same_kv else 'DIFFERENT'}; oracle "
+          f"launches {used}", flush=True)
+    check(torch.equal(lf, lo) and same_kv, "oracle prefill differs")
+    check(used[K2_NAME] > 0 and used[K3_NAME] > 0
+          and used["flash_prefill_paged"] > 0, "oracle serving launches")
+    check(used["qmatmul_fused"] == 0, "the oracle prefill launched G")
+    return dict(launches=used)
+
+
+DENSE_SPLIT = 256                      # a resume point of the K10 checks
+
+
+def phase_dense_prefill(cfg, params, dev, plan, prompts) -> dict:
+    """The dense resumable prefill at qwen2-1.5b's widths (H 12, KV 2, dh
+    128, page 16), on layer 0's attention weights and the serve cell's 8
+    prompts (the layer's rms-normed embeddings), each prompt at its
+    predicted bucket's carry: ``attn_prefill_paged`` (one-shot, K10),
+    ``attn_prefill_chunk_paged`` in ``SLAB``-token slabs (K10 with the
+    carry out, then in) and ``attn_prefill_bucketed`` (P): outputs and
+    arena bytes bitwise equal, and both K10 paths bitwise through the plain
+    versions.  Then K10 against its plain version on the one-shot calls'
+    own inputs and at S = 512 with chunk 64 and 128 (random and lattice,
+    one-shot and resumed at ``DENSE_SPLIT``, block_q 8, 16 and 32), and
+    the 8 one-shot calls timed as a sequence against the plain version and
+    bf16 causal SDPA."""
+    from repro_torch.kernels import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models.api import paged_init_state
+    from repro_torch.quant.formats import FPFormat
+
+    fmt = FPFormat(5, 2)
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    lp = {k: v[0] for k, v in params["layers"]["attn"].items()}
+    ln1 = params["layers"]["ln1"][0]
+    counters = {K10_NAME: (A.flash_prefill, "launches"),
+                "flash_prefill_paged": (A.flash_prefill_paged, "launches")}
+    oneshot_inputs = []
+    real = L.flash_prefill
+
+    def recording(q, k, v, **kw):
+        oneshot_inputs.append((q, k, v, kw))
+        return real(q, k, v, **kw)
+
+    def arena(npg):
+        st = paged_init_state(cfg, n_pages=npg + 1, page_size=PAGE,
+                              device=dev)
+        return {k: v[0] for k, v in st.items()}
+
+    def paths(x, pages, n, acc, width):
+        """The three layer paths' outputs and arenas."""
+        npg = pages.shape[0]
+        kv1 = arena(npg)
+        y1 = L.attn_prefill_paged(lp, x, kv1, pages, torch.arange(
+            n, device=dev)[None], cfg, kv_fmt=fmt, acc=acc)
+        kv2, ys = arena(npg), []
+        for a in range(0, n, SLAB):
+            b = min(a + SLAB, n)
+            ys.append(L.attn_prefill_chunk_paged(
+                lp, x[:, a:b], kv2, pages[:a // PAGE],
+                pages[a // PAGE:-(-b // PAGE)], a, cfg, kv_fmt=fmt, acc=acc))
+        kv3, ys3 = arena(npg), []
+        row = torch.zeros((width,), dtype=torch.int32, device=dev)
+        row[:npg] = pages
+        for a in range(0, n, SLAB):
+            q_len = min(SLAB, n - a)
+            xs = torch.nn.functional.pad(x[:, a:a + q_len],
+                                         (0, 0, 0, SLAB - q_len))
+            sp = torch.zeros((SLAB // PAGE,), dtype=torch.int32, device=dev)
+            used = -(-q_len // PAGE)
+            sp[:used] = pages[a // PAGE:a // PAGE + used]
+            ys3.append(L.attn_prefill_bucketed(
+                lp, xs, kv3, row, sp, a, q_len, cfg, kv_fmt=fmt,
+                acc=acc)[:, :q_len])
+        return (y1, torch.cat(ys, 1), torch.cat(ys3, 1)), (kv1, kv2, kv3)
+
+    print(f"[serve] dense prefill at full width: layer 0, H={h} KV={kv} "
+          f"dh={dh} page {PAGE}, prompts {list(PROMPT_LENS)}, slabs {SLAB}",
+          flush=True)
+    zero_counts(counters)
+    results, equal = [], 0
+    L.flash_prefill = recording
+    try:
+        for prompt in prompts:
+            n = len(prompt)
+            _, bucket = plan.bucket_for(n)
+            tok = torch.tensor(prompt, device=dev)
+            x = L.rms_norm(params["embed"][tok].to(torch.bfloat16), ln1,
+                           cfg.norm_eps)[None]
+            pages = torch.arange(1, -(-n // PAGE) + 1, dtype=torch.int32,
+                                 device=dev)
+            n_before = len(oneshot_inputs)
+            ys, kvs = paths(x, pages, n, bucket.acc, bucket.max_pages(PAGE))
+            # keep the one-shot call's inputs only (the first of the prompt)
+            del oneshot_inputs[n_before + 1:]
+            ok = (all(torch.equal(ys[0], y) for y in ys[1:])
+                  and all(torch.equal(kvs[0][k], kk[k]) for kk in kvs[1:]
+                          for k in kvs[0]))
+            equal += ok
+            results.append((x, pages, n, bucket, ys[0]))
+    finally:
+        L.flash_prefill = real
+    launches = read_counts(counters)
+    print(f"[serve] dense prefill: {equal}/{len(prompts)} prompts with "
+          f"one-shot K10, {SLAB}-token K10 slabs and bucketed P bitwise "
+          f"equal (outputs and arena bytes); launches {launches}", flush=True)
+    check(equal == len(prompts), "the three prefill paths differ")
+    check(launches[K10_NAME] > 0 and launches["flash_prefill_paged"] > 0,
+          "the dense prefill phase launched no K10 or P")
+    with plain_versions():
+        for x, pages, n, bucket, y in results:
+            ys, _ = paths(x, pages, n, bucket.acc, bucket.max_pages(PAGE))
+            check(all(torch.equal(y, yy) for yy in ys),
+                  f"{n}-token prompt: kernels differ from the plain versions")
+    print("[serve] dense prefill: the three paths bitwise through the plain "
+          "versions too", flush=True)
+
+    err = 0.0
+    for q, k, v, kw in oneshot_inputs:
+        got = A.flash_prefill(q, k, v, **kw)
+        err = max(err, _attn_check(
+            f"K10 one-shot S={q.shape[0]} chunk {kw['chunk']} acc "
+            f"{kw['acc']}", got, A.flash_prefill_reference(q, k, v, **kw),
+            kw["acc"], bitwise=True))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+    s512, acc = 512, plan.bucket_for(512)[1].acc
+    for chunk in (64, 128):
+        for label in ("random", "lattice"):
+            mk = ((lambda s_: _lattice(gen, s_, dev)) if label == "lattice"
+                  else (lambda s_: torch.randn(s_, generator=gen,
+                                               device=dev)))
+            q, k, v = mk((s512, h, dh)), mk((s512, kv, dh)), mk((s512, kv, dh))
+            kw = dict(acc=acc, chunk=chunk)
+            want = A.flash_prefill_reference(q, k, v, **kw)
+            for bq in A.BLOCK_QS:
+                err = max(err, _attn_check(
+                    f"K10 S={s512} chunk {chunk} block_q {bq} {label}",
+                    A.flash_prefill(q, k, v, block_q=bq, **kw), want, acc,
+                    bitwise=True))
+            c = A.flash_prefill(q, k[:DENSE_SPLIT], v[:DENSE_SPLIT],
+                                return_carry=True, **kw)
+            pc = A.flash_prefill_reference(q, k[:DENSE_SPLIT], v[:DENSE_SPLIT],
+                                           return_carry=True, **kw)
+            for got_, want_, name in zip(c, pc, ("o", "m", "l")):
+                check(torch.equal(got_, want_),
+                      f"K10 carry {name} differs from the plain version")
+            res = A.flash_prefill(q, k[DENSE_SPLIT:], v[DENSE_SPLIT:],
+                                  kv_offset=DENSE_SPLIT, carry=c, **kw)
+            err = max(err, _attn_check(
+                f"K10 S={s512} chunk {chunk} {label} resumed at "
+                f"{DENSE_SPLIT} vs one-shot", res, want, acc, bitwise=True))
+        ms = cuda_time(lambda: A.flash_prefill(q, k, v, **kw), reps=20)
+        qb = q.permute(1, 0, 2)[None].to(torch.bfloat16)
+        kb = k.repeat_interleave(h // kv, dim=1).permute(1, 0, 2)[None].to(
+            torch.bfloat16)
+        vb = v.repeat_interleave(h // kv, dim=1).permute(1, 0, 2)[None].to(
+            torch.bfloat16)
+        lib = lib_time(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qb, kb, vb, is_causal=True), reps=20)
+        print(f"  time K10 S={s512} chunk {chunk}: kernel {ms:.4f} ms, SDPA "
+              f"{lib_str(lib)}", flush=True)
+
+    def run(fn):
+        for q, k, v, kw in oneshot_inputs:
+            fn(q, k, v, **kw)
+
+    dense = []
+    for q, k, v, _ in oneshot_inputs:
+        rep = lambda t: t.repeat_interleave(h // kv, dim=1).permute(  # noqa
+            1, 0, 2)[None].to(torch.bfloat16)
+        dense.append((q.permute(1, 0, 2)[None].to(torch.bfloat16), rep(k),
+                      rep(v)))
+
+    def lib_run():
+        for qb, kb, vb in dense:
+            torch.nn.functional.scaled_dot_product_attention(
+                qb, kb, vb, is_causal=True)
+
+    ms = cuda_time(lambda: run(A.flash_prefill), reps=10)
+    plain = cuda_time(lambda: run(A.flash_prefill_reference), reps=1,
+                      warmup=0)
+    lib = lib_time(lib_run, reps=10)
+    # bytes: q, k, v read and the output written (f32); operations: the
+    # score and value contractions over the attended (row, column) pairs
+    cost = [((q.numel() * 2 + k.numel() * 2) * 4,
+             4 * h * dh * q.shape[0] * (q.shape[0] + 1) // 2, F32_FLOPS)
+            for q, k, _, _ in oneshot_inputs]
+    b_ms, b_by = seq_bound(cost)
+    print(f"[kernels] K10 the serve prompts' one-shot prefill "
+          f"({len(cost)} launches, S {list(PROMPT_LENS)}, chunk {PAGE}): "
+          f"kernel {ms:.4f} ms, plain {plain:.1f} ms, SDPA {lib_str(lib)}, "
+          f"bound {b_ms:.5f} ms ({b_by}), {b_ms / ms:.4f} of bound",
+          flush=True)
+    return dict(launches=launches[K10_NAME], ms=ms, plain_ms=plain,
+                library_ms=lib[0], library_spread_ms=list(lib[1]),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1666,14 +2290,20 @@ def main() -> None:
     check(same == len(prompts), "chunked prefill changed a token stream")
     phase_logits(cfg, params, dev, prompts[0])
     mon = phase_serve_monitor(cfg, params, dev, prompts, one)
+    phase_serve_oracle(cfg, params, dev, prompts[0])
+    dp = phase_dense_prefill(cfg, params, dev, plan, prompts)
     del params
     torch.cuda.empty_cache()
 
     tk = phase_train_kernels(dev)
     torch.cuda.empty_cache()
+    ok = phase_oracle_kernels(dev)
+    torch.cuda.empty_cache()
     tr = phase_train(dev)
     torch.cuda.empty_cache()
     phase_train_vs_plain(dev)
+    torch.cuda.empty_cache()
+    to = phase_train_oracle(dev)
     torch.cuda.empty_cache()
     ig = phase_train_ingraph(dev, min(tr["step_ms"][1:]))
     torch.cuda.empty_cache()
@@ -1685,7 +2315,8 @@ def main() -> None:
              replaces="src/repro/kernels/fused.py:107",
              launches=one["launches"]["qmatmul_fused"],
              max_abs_err=g_err, **{k: g_step[k] for k in (
-                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "library_spread_ms")}),
         dict(name="paged_attn_decode", route="cuda",
              source="src/repro_torch/csrc/paged_decode.cu",
              replaces="src/repro/kernels/attention.py:560",
@@ -1723,6 +2354,20 @@ def main() -> None:
              source="src/repro_torch/csrc/paged_decode.cu",
              replaces="src/repro/kernels/attention.py:607",
              launches=mon["launches"], **k12),
+        # the oracle's kernels over the full-depth oracle training steps,
+        # and the dense prefill over the dense-prefill phase's layer paths
+        dict(name=K2_NAME, route="cuda",
+             source="src/repro_torch/csrc/quantize.cu",
+             replaces="src/repro/kernels/quantize.py:22",
+             launches=to["launches"][K2_NAME], **ok["K2"]),
+        dict(name=K3_NAME, route="cuda",
+             source="src/repro_torch/csrc/qmatmul.cu",
+             replaces="src/repro/kernels/qmatmul.py:31",
+             launches=to["launches"][K3_NAME], **ok["K3"]),
+        dict(name=K10_NAME, route="cuda",
+             source="src/repro_torch/csrc/flash_prefill.cu",
+             replaces="src/repro/kernels/attention.py:258",
+             launches=dp.pop("launches"), **dp),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

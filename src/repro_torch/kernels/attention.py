@@ -1,6 +1,6 @@
-"""Serve-path attention over the paged int8 KV arena.
+"""Serve-path attention: over the paged int8 KV arena, and dense.
 
-Two CUDA C++ kernels replace the TPU kernels of ``repro/kernels/
+Three CUDA C++ kernels replace the TPU kernels of ``repro/kernels/
 attention.py``:
 
 * ``paged_attn_decode`` (``csrc/paged_decode.cu``) replaces
@@ -22,6 +22,14 @@ attention.py``:
   in the causal future of the block are skipped (provable carry no-ops).
   Bound: its score and value contractions, 4 * T * kv_len * dh * H flops
   for a T-row slab, in f32 on the CUDA cores in this simple design.
+* ``flash_prefill`` (``csrc/flash_prefill.cu``, K10) replaces
+  ``_prefill_kernel``: the dense, resumable causal prefill of one sequence
+  over float32 K/V (the arena's dequantized view, ``serve.kvcache``),
+  ``chunk``-long KV blocks, query and KV rows at absolute positions
+  ``q_offset + i`` and ``kv_offset + j``, a carry ``(o, m, l)`` in and
+  ``return_carry`` out.  Same grid and discipline as P, so on the same
+  values it is bitwise P; a walk resumed at a chunk multiple is bitwise
+  the one-shot walk.  Bound: as P's, in f32 on the CUDA cores.
 
 Accumulation discipline (``_online_update``): base-2 scores pre-scaled by
 ``LOG2E / sqrt(dh)``, a running max on the integer lattice (``ceil``) so
@@ -73,6 +81,8 @@ __all__ = [
     "paged_attn_decode_stats_reference",
     "flash_prefill_paged",
     "flash_prefill_paged_reference",
+    "flash_prefill",
+    "flash_prefill_reference",
     "NEG",
     "LOG2E",
     "BLOCK_Q",
@@ -86,25 +96,36 @@ LOG2E = 1.4426950408889634
 # query rows per thread block of the prefill kernel (schedule only: any
 # value gives the same bits, since every row's page walk is its own)
 BLOCK_Q = 16
-# limits of the kernels' shared-memory tiles (csrc/common.cuh)
+# limits of the kernels' shared-memory tiles (csrc/common.cuh,
+# csrc/flash_prefill.cu)
 MAX_DH = 128
 MAX_G = 8
 MAX_PAGE = 32
+MAX_CHUNK = 128
+# query rows per block that the dense prefill kernel is built for
+BLOCK_QS = (8, 16, 32)
 
 _WIDE = (8, 23)
 
 
 @dataclass(frozen=True)
 class AttnCall:
-    """One paged-prefill call of an attention bucket: the fields of
-    ``repro.kernels.autotune.AttnCall`` the paged prefill uses, i.e. the
-    bucket's carry format, the KV code format and the padded page-row
-    width ``max_pages`` (0 = any)."""
+    """One attention call, the fields of ``repro.kernels.autotune.AttnCall``
+    the port's prefill kernels read.  The paged prefill takes the carry
+    format, the KV code format and the padded page-row width ``max_pages``
+    (0 = any); the dense ``flash_prefill`` takes the carry format, the KV
+    block length ``chunk`` (0 = the caller's), ``block_q`` (0 =
+    ``BLOCK_Q``; schedule only), the offsets and ``return_carry``."""
 
     e_acc: int = 8
     m_acc: int = 23
     kv_fmt: tuple | None = None
     max_pages: int = 0
+    chunk: int = 0
+    block_q: int = 0
+    q_offset: int = 0
+    kv_offset: int = 0
+    return_carry: bool = False
 
     def __post_init__(self):
         object.__setattr__(self, "kv_fmt", fmt_tuple(self.kv_fmt))
@@ -112,6 +133,10 @@ class AttnCall:
     @property
     def acc(self) -> tuple[int, int]:
         return (self.e_acc, self.m_acc)
+
+    def resolve_block_q(self) -> int:
+        """``block_q``, or the port's default (it has no tuner)."""
+        return self.block_q or BLOCK_Q
 
 
 def _scale(dh: int) -> torch.Tensor:
@@ -444,3 +469,157 @@ def flash_prefill_paged(q, k_pages, v_pages, k_se, v_se, page_row,
 
 
 flash_prefill_paged.launches = 0
+
+
+# --------------------------------------------------------------------------
+# dense resumable prefill
+# --------------------------------------------------------------------------
+
+
+def _check_dense(q, k, v, carry, chunk, kv_offset):
+    if q.ndim != 3 or k.ndim != 3 or v.ndim != 3 or k.shape != v.shape:
+        raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)}")
+    if q.shape[1] % k.shape[1] != 0 or q.shape[2] != k.shape[2]:
+        raise ValueError(f"H={q.shape[1]} not a multiple of KV={k.shape[1]}"
+                         f" or head dims differ")
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    if kv_offset % chunk != 0:
+        raise ValueError(
+            f"kv_offset {kv_offset} must be a multiple of chunk {chunk}: a "
+            "mid-block resumption would insert an extra carry-rounding "
+            "event and break bit-exactness vs the one-shot walk")
+    if carry is not None:
+        s, h, dh = q.shape
+        co, cm, cl = carry
+        if (tuple(co.shape) != (s, h, dh) or tuple(cm.shape) != (s, h)
+                or tuple(cl.shape) != (s, h)):
+            raise ValueError(
+                f"carry shapes {tuple(co.shape)}/{tuple(cm.shape)}/"
+                f"{tuple(cl.shape)} do not match q {tuple(q.shape)}")
+
+
+def flash_prefill_reference(q, k, v, *, acc=_WIDE, chunk: int = 128,
+                            block_q: int = BLOCK_Q, q_offset: int = 0,
+                            kv_offset: int = 0, carry=None,
+                            return_carry: bool = False):
+    """Plain PyTorch version of ``flash_prefill``: every ``chunk``-long KV
+    block in order (blocks in a row's causal future are masked, hence
+    carry no-ops), with the kernels' summation order (``_seq_dot``,
+    ``_online_update``).  It has no query blocks: ``block_q``, schedule
+    only, is taken and ignored so that the two share a signature."""
+    _check_dense(q, k, v, carry, chunk, kv_offset)
+    s, h, dh = q.shape
+    sk = k.shape[0]
+    g = h // k.shape[1]
+    e_acc, m_acc = acc
+    dev = q.device
+    qt = q.to(torch.float32).transpose(0, 1)                        # (h, s, dh)
+    kh = k.to(torch.float32).repeat_interleave(g, dim=1).transpose(0, 1)
+    vh = v.to(torch.float32).repeat_interleave(g, dim=1).transpose(0, 1)
+    if carry is None:
+        o = torch.zeros((h, s, dh), dtype=torch.float32, device=dev)
+        m = torch.full((h, s, 1), NEG, dtype=torch.float32, device=dev)
+        l = torch.zeros((h, s, 1), dtype=torch.float32, device=dev)
+    else:
+        co, cm, cl = (c.to(torch.float32) for c in carry)
+        o = co.transpose(0, 1).contiguous()
+        m = cm.T[..., None].contiguous()
+        l = cl.T[..., None].contiguous()
+    scale = _scale(dh).to(dev)
+    rows = q_offset + torch.arange(s, device=dev)[:, None]
+    for c0 in range(0, sk, chunk):
+        kb = kh[:, c0:c0 + chunk]
+        vb = vh[:, c0:c0 + chunk]
+        sc = _seq_dot(qt, kb) * scale                              # (h, s, t)
+        cols = c0 + torch.arange(kb.shape[1], device=dev)[None, :]
+        valid = (kv_offset + cols <= rows).expand_as(sc)
+        sc = torch.where(valid, sc, torch.full_like(sc, NEG))
+        o, m, l, _, _ = _online_update(o, m, l, sc, valid, vb, e_acc, m_acc)
+    if return_carry:
+        return o.transpose(0, 1), m[..., 0].T, l[..., 0].T
+    return _finalize(o, l).transpose(0, 1)
+
+
+_DENSE_ARGS = [_P] * 9 + [_I] * 9 + [_F, _I, _I, _F, _F, _P]
+
+
+def flash_prefill(q, k, v, *, acc=_WIDE, chunk: int = 128,
+                  block_q: int = BLOCK_Q, q_offset: int = 0,
+                  kv_offset: int = 0, carry=None, return_carry: bool = False,
+                  call: AttnCall | None = None, rounding: str = "rne"):
+    """Causal flash attention for one sequence's prefill (resumable).
+
+    * ``q`` (S, H, dh): query rows at absolute positions ``q_offset + i``;
+      ``k``/``v`` (Sk, KV, dh): KV rows at ``kv_offset + j`` (heads
+      kv-major: head ``hh`` reads KV head ``hh // (H / KV)``), the values
+      the KV arena holds (``serve.kvcache.write_prompt``'s view);
+    * ``acc``: the (e_acc, m_acc) carry format; ``chunk``: the KV block
+      length n1 (numerics: the carry rounding cadence; the serve path pins
+      it to the page size); ``block_q``: query rows per block, schedule
+      only (8, 16 or 32);
+    * ``carry``: a previous call's ``(o, m, l)``, shapes (S, H, dh), (S, H),
+      (S, H), covering KV ``[0, kv_offset)``; ``return_carry=True`` returns
+      the raw state instead of the finalized output.  ``kv_offset`` must be
+      a multiple of ``chunk``; resuming there is bitwise the one-shot walk;
+    * ``call``: an ``AttnCall`` supplying acc, chunk (when set), block_q,
+      the offsets and ``return_carry``;
+    * ``rounding``: only ``"rne"`` is ported (SR raises).
+
+    The kernel holds dh <= ``MAX_DH`` and chunk <= ``MAX_CHUNK``.  Returns
+    (S, H, dh) float32, or ``(o, m, l)``.  Launches are counted on
+    ``flash_prefill.launches``.
+    """
+    if rounding != "rne":
+        raise NotImplementedError("stochastic-rounding carries are not "
+                                  "ported yet (ROADMAP Queue 1 item 5)")
+    if call is not None:
+        acc = call.acc
+        chunk = call.chunk or chunk
+        block_q = call.resolve_block_q()
+        q_offset, kv_offset = call.q_offset, call.kv_offset
+        return_carry = bool(return_carry or call.return_carry)
+    _check_dense(q, k, v, carry, chunk, kv_offset)
+    if block_q not in BLOCK_QS:
+        raise NotImplementedError(f"the kernel is built for block_q in "
+                                  f"{BLOCK_QS}, got {block_q}")
+    kw = dict(acc=acc, chunk=chunk, q_offset=q_offset, kv_offset=kv_offset,
+              carry=carry, return_carry=return_carry)
+    if q.device.type == "cpu":
+        return flash_prefill_reference(q, k, v, **kw)
+    s, h, dh = q.shape
+    sk, kv = k.shape[0], k.shape[1]
+    if dh > MAX_DH or chunk > MAX_CHUNK:
+        raise NotImplementedError(
+            f"the kernel's tiles hold dh <= {MAX_DH} and chunk <= "
+            f"{MAX_CHUNK}; got dh={dh}, chunk={chunk}")
+    ts = [q, k, v] + ([] if carry is None else list(carry))
+    for t in ts:
+        if t.dtype != torch.float32:
+            raise TypeError(f"flash_prefill takes float32, got {t.dtype}")
+    _check_cuda(*ts)
+    out = torch.empty_like(q)
+    om = ol = None
+    if return_carry:
+        om = torch.empty((s, h), dtype=torch.float32, device=q.device)
+        ol = torch.empty_like(om)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    co, cm, cl = carry if carry is not None else (None, None, None)
+    if s > 0:
+        rc = build.function("flash_prefill", "flash_prefill", _DENSE_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(co), ptr(cm),
+            ptr(cl), out.data_ptr(), ptr(om), ptr(ol), s, h, sk, kv, dh,
+            chunk, block_q, int(q_offset), int(kv_offset),
+            ctypes.c_float(float(_scale(dh))), *qfmt_args(acc),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"flash_prefill launch failed: CUDA error "
+                               f"{rc}")
+        flash_prefill.launches += 1
+    if return_carry:
+        return out, om, ol
+    return out
+
+
+flash_prefill.launches = 0

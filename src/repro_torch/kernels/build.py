@@ -29,13 +29,17 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 # kernel library name -> source file in csrc/ (each includes common.cuh;
 # qgemm.cu, G and E, qgemm_stats.cu, K8's kernel, and bwd_pair.cu, B and
-# its stats variant, share qgemm_core.cuh)
+# its stats variant, share qgemm_core.cuh; the oracle's quantize.cu (K2)
+# and qmatmul.cu (K3), and flash_prefill.cu (K10), stand alone)
 KERNELS = {
     "qgemm": "qgemm.cu",
     "qgemm_stats": "qgemm_stats.cu",
     "bwd_pair": "bwd_pair.cu",
     "paged_decode": "paged_decode.cu",
     "paged_prefill": "paged_prefill.cu",
+    "quantize": "quantize.cu",
+    "qmatmul": "qmatmul.cu",
+    "flash_prefill": "flash_prefill.cu",
 }
 _HEADERS = ("common.cuh", "qgemm_core.cuh")
 

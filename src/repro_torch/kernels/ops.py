@@ -13,6 +13,15 @@ solver-assigned carry format:
 * BWD ``dx = Q(g) @ Q(w)^T`` and GRAD ``dw = Q(x)^T @ Q(g)``: one launch
   of kernel B (``qmatmul_bwd_pair``) per layer.
 
+``QDotConfig(fused=False)`` is the unfused reference oracle, as in the JAX
+package: ``y = out_fmt(Q(x) @ Q(w))`` with Q the standalone quantize
+kernel K2 (``kernels.quantize``, ``quantize_op``) and the GEMM the chunked
+kernel K3 (``kernels.qmatmul``, ``_mm``), the f32 outputs of K2 saved as
+the residuals; the backward quantizes g once and runs
+``dx = Q(g) @ Q(w)^T`` and ``dw = Q(x)^T @ Q(g)`` as two K3 calls.  It is
+the fused path's function bit for bit, forward and both gradients, and
+its kernels are written apart from G, E and B.
+
 ``out_fmt`` rounds the forward output to a consumer's format and is
 straight-through in the backward.  dx and dw come back in the dtypes of x
 and w, as the JAX package's casts round them (bf16 weights get bf16
@@ -38,10 +47,12 @@ from repro_torch.core.policy import GEMMPrecision
 from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
 from repro_torch.kernels.common import quantize_block
 from repro_torch.kernels.fused import qmatmul_fused
+from repro_torch.kernels.qmatmul import qmatmul
+from repro_torch.kernels.quantize import quantize
 from repro_torch.quant.formats import FPFormat
 from repro_torch.telemetry import capture as _capture
 
-__all__ = ["QDotConfig", "qdot"]
+__all__ = ["QDotConfig", "qdot", "quantize_op"]
 
 # f32 grouping of the partial sum when a role accumulates wide (chunk 0):
 # schedule only, the carry is not rounded
@@ -53,17 +64,20 @@ class QDotConfig:
     """Precision configuration of one logical dense layer.
 
     ``None`` for a role means ideal (wide) accumulation for that GEMM;
-    ``repr_fmt=None`` disables operand quantization; ``out_fmt`` rounds the
-    forward output to a consumer's representation format.  ``stats_tag``
-    turns on the in-graph telemetry of the backward (numerics untouched);
-    ``stats_axis``, the mesh axis to reduce the rows over, comes with the
-    sharding slice and must be None.
+    ``repr_fmt=None`` disables operand quantization; ``fused=False`` runs
+    the unfused oracle composition (K2 and K3, f32 residuals);
+    ``out_fmt`` rounds the forward output to a consumer's representation
+    format.  ``stats_tag`` turns on the in-graph telemetry of the backward
+    (numerics untouched; fused path only so far); ``stats_axis``, the mesh
+    axis to reduce the rows over, comes with the sharding slice and must
+    be None.
     """
 
     fwd: GEMMPrecision | None = None
     bwd: GEMMPrecision | None = None
     grad: GEMMPrecision | None = None
     repr_fmt: FPFormat | None = None
+    fused: bool = True
     out_fmt: FPFormat | None = None
     stats_tag: str | None = None
     stats_axis: str | None = None
@@ -73,6 +87,10 @@ class QDotConfig:
             raise NotImplementedError(
                 "stats_axis (a mesh-wide reduction of the stats rows) comes "
                 "with the sharding slice (ROADMAP Queue 1 item 8)")
+        if self.stats_tag is not None and not self.fused:
+            raise NotImplementedError(
+                "stats rows of the unfused oracle (K8 on its f32 residuals) "
+                "are not ported yet (ROADMAP Queue 1 item 1)")
 
     @property
     def is_exact(self) -> bool:
@@ -82,7 +100,8 @@ class QDotConfig:
     @property
     def packs(self) -> bool:
         """Whether the forward's residuals are int8 codes."""
-        return self.repr_fmt is not None and self.repr_fmt.bits <= 8
+        return (self.fused and self.repr_fmt is not None
+                and self.repr_fmt.bits <= 8)
 
 
 def _acc_params(p: GEMMPrecision | None) -> tuple[int, int, int]:
@@ -113,11 +132,45 @@ def _out(y: torch.Tensor, cfg: QDotConfig) -> torch.Tensor:
     return quantize_block(y, cfg.out_fmt.e, cfg.out_fmt.m)
 
 
+# ------------------------- unfused reference oracle -------------------------
+
+
+def quantize_op(x: torch.Tensor, fmt: FPFormat) -> torch.Tensor:
+    """``x`` rounded to ``fmt`` as float32 by the standalone kernel K2."""
+    return quantize(x, e=fmt.e, m=fmt.m)
+
+
+def _maybe_q(x: torch.Tensor, fmt: FPFormat | None) -> torch.Tensor:
+    return x if fmt is None else quantize_op(x, fmt)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor,
+        p: GEMMPrecision | None) -> torch.Tensor:
+    """One role's GEMM through K3: the role's carry format and chunk; a
+    wide role (None) is the (8, 23) carry at chunk 128."""
+    e_acc, m_acc, chunk = _acc_params(p)
+    return qmatmul(a, b, e_acc=e_acc, m_acc=m_acc,
+                   block_k=chunk or _WIDE_CHUNK)
+
+
+def _oracle_fwd(x2: torch.Tensor, w: torch.Tensor, cfg: QDotConfig):
+    """(y, xq, wq): the oracle forward and its f32 residuals."""
+    xq, wq = _maybe_q(x2, cfg.repr_fmt), _maybe_q(w, cfg.repr_fmt)
+    return _maybe_q(_mm(xq, wq, cfg.fwd), cfg.out_fmt), xq, wq
+
+
 class _QDot(torch.autograd.Function):
-    """FWD through E (or G), BWD and GRAD through one B launch."""
+    """FWD through E (or G), BWD and GRAD through one B launch; the
+    oracle through K2 and K3."""
 
     @staticmethod
     def forward(ctx, x2, w, cfg):
+        ctx.cfg = cfg
+        ctx.dtypes = (x2.dtype, w.dtype)
+        if not cfg.fused:
+            y, xq, wq = _oracle_fwd(x2, w, cfg)
+            ctx.save_for_backward(xq, wq)
+            return y
         if cfg.packs:
             y, xq, wq = qmatmul_fused(x2, w, return_quantized=True,
                                       **_fwd_kw(cfg))
@@ -128,14 +181,19 @@ class _QDot(torch.autograd.Function):
                 f"residuals of a {cfg.repr_fmt} representation need more "
                 "than 8 bits: f32 residuals are not ported")
         ctx.save_for_backward(xq, wq)
-        ctx.cfg = cfg
-        ctx.dtypes = (x2.dtype, w.dtype)
         return _out(y, cfg)
 
     @staticmethod
     def backward(ctx, g):
         xq, wq = ctx.saved_tensors
         cfg = ctx.cfg
+        x_dtype, w_dtype = ctx.dtypes
+        if not cfg.fused:
+            # out_fmt is straight-through here too: g passes unscaled
+            gq = _maybe_q(g.to(torch.float32), cfg.repr_fmt)
+            dx = _mm(gq, wq.T, cfg.bwd)
+            dw = _mm(xq.T, gq, cfg.grad)
+            return dx.to(x_dtype), dw.to(w_dtype), None
         e_b, m_b, _ = _acc_params(cfg.bwd)
         e_g, m_g, _ = _acc_params(cfg.grad)
         grad_chunk, bwd_chunk = _pair_chunks(cfg)
@@ -150,7 +208,6 @@ class _QDot(torch.autograd.Function):
             dx, dw, rows = qmatmul_bwd_pair(g.to(torch.float32), xq, wq,
                                             collect_stats=True, **kw)
             _emit_qdot_stats(cfg, xq, wq, rows)
-        x_dtype, w_dtype = ctx.dtypes
         return dx.to(x_dtype), dw.to(w_dtype), None
 
 
@@ -191,6 +248,8 @@ def qdot(x: torch.Tensor, w: torch.Tensor, cfg: QDotConfig) -> torch.Tensor:
         _capture.record(x=x2, w=w, cfg=cfg, sr_seed=0)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         y = _QDot.apply(x2, w, cfg)
+    elif not cfg.fused:
+        y = _oracle_fwd(x2, w, cfg)[0]
     else:
         y = _out(qmatmul_fused(x2, w, **_fwd_kw(cfg)), cfg)
     return y.reshape(*lead, w.shape[1])

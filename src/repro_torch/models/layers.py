@@ -1,7 +1,10 @@
 """Layer functions of the dense decoder (plain functions on tensors).
 
 Counterpart of ``repro.models.layers`` for the dense family: training
-attention (``attn_apply``), the paged serving entries and the SwiGLU MLP.
+attention (``attn_apply``), the paged serving entries (the bucketed slab
+``attn_prefill_bucketed`` through P, the dense one-shot and slab prefills
+``attn_prefill_paged`` and ``attn_prefill_chunk_paged`` through K10, and
+``attn_decode_paged``) and the SwiGLU MLP.
 Params are nested dicts of tensors; compute is bf16 with float32 where the
 JAX package uses it.  Every dense GEMM goes through ``dense``, which runs
 the differentiable quantized ``qdot`` when the model's QuantPlan assigns a
@@ -15,7 +18,12 @@ from typing import Any
 
 import torch
 
-from repro_torch.kernels.attention import flash_prefill_paged, paged_attn_decode
+from repro_torch.kernels.attention import (
+    BLOCK_Q,
+    flash_prefill,
+    flash_prefill_paged,
+    paged_attn_decode,
+)
 from repro_torch.kernels.ops import QDotConfig, qdot
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve import kvcache as KV
@@ -201,6 +209,70 @@ def attn_prefill_bucketed(p: Params, x: torch.Tensor,
                             q_len, q_offset + q_len, kv_fmt=kv_fmt, acc=acc,
                             call=call)
     o = o.reshape(1, t, -1).to(COMPUTE_DTYPE)
+    return dense(o, p["wo"], cfg.quant.attn_out)
+
+
+def attn_prefill_paged(p: Params, x: torch.Tensor, kv: dict[str, torch.Tensor],
+                       page_ids: torch.Tensor, positions: torch.Tensor,
+                       cfg: ModelConfig, *, kv_fmt, acc: tuple[int, int],
+                       block_q: int | None = None) -> torch.Tensor:
+    """Causal prefill of ONE whole sequence through a layer: its K/V are
+    quantized into ``page_ids`` (in place), then the queries attend the
+    values the arena now holds (``write_prompt``'s dequantized view) in one
+    dense ``flash_prefill`` call at the page-size carry cadence.  ``x``
+    (1, S, D); ``positions`` (1, S).  Bitwise ``attn_prefill_bucketed``
+    over the same prompt."""
+    s = x.shape[1]
+    q = _q_proj(p, x, cfg, positions)              # (1, S, H, dh)
+    k, v = _kv_proj(p, x, cfg, positions)
+    kdq = KV.write_prompt(kv["k"], kv["k_se"], k[0].to(torch.float32),
+                          page_ids, kv_fmt)
+    vdq = KV.write_prompt(kv["v"], kv["v_se"], v[0].to(torch.float32),
+                          page_ids, kv_fmt)
+    o = flash_prefill(q[0].to(torch.float32), kdq, vdq, acc=acc,
+                      chunk=kv["k"].shape[2], block_q=block_q or BLOCK_Q)
+    o = o.reshape(1, s, -1).to(COMPUTE_DTYPE)
+    return dense(o, p["wo"], cfg.quant.attn_out)
+
+
+def attn_prefill_chunk_paged(p: Params, x: torch.Tensor,
+                             kv: dict[str, torch.Tensor],
+                             hist_page_ids: torch.Tensor,
+                             slab_page_ids: torch.Tensor, t0: int,
+                             cfg: ModelConfig, *, kv_fmt,
+                             acc: tuple[int, int],
+                             block_q: int | None = None) -> torch.Tensor:
+    """One chunked-prefill slab of ONE sequence through a layer.  ``x``
+    (1, T, D) holds the slab's hidden states at absolute positions
+    ``t0 + i``; ``t0`` is page-aligned.  The slab's K/V go into
+    ``slab_page_ids`` (in place) with the one-shot page grouping; its
+    queries then attend the history ``hist_page_ids`` (``gather_pages``
+    view) in a carry-out ``flash_prefill`` pass, resumed by a carry-in
+    causal pass over the slab's own K/V.  Per query row the same page-size
+    blocks in the same order as a one-shot prefill: bitwise outputs and
+    arena."""
+    s = x.shape[1]
+    page_size = kv["k"].shape[2]
+    if t0 % page_size != 0:
+        raise ValueError(f"slab offset {t0} not page-aligned ({page_size})")
+    positions = (t0 + torch.arange(s, dtype=torch.int32,
+                                   device=x.device))[None]
+    q = _q_proj(p, x, cfg, positions)              # (1, T, H, dh)
+    k, v = _kv_proj(p, x, cfg, positions)
+    kdq = KV.write_prompt(kv["k"], kv["k_se"], k[0].to(torch.float32),
+                          slab_page_ids, kv_fmt)
+    vdq = KV.write_prompt(kv["v"], kv["v_se"], v[0].to(torch.float32),
+                          slab_page_ids, kv_fmt)
+    kw = dict(acc=acc, chunk=page_size, block_q=block_q or BLOCK_Q,
+              q_offset=t0)
+    qf = q[0].to(torch.float32)
+    carry = None
+    if t0 > 0:
+        kh = KV.gather_pages(kv["k"], kv["k_se"], hist_page_ids, kv_fmt)
+        vh = KV.gather_pages(kv["v"], kv["v_se"], hist_page_ids, kv_fmt)
+        carry = flash_prefill(qf, kh[:t0], vh[:t0], return_carry=True, **kw)
+    o = flash_prefill(qf, kdq, vdq, kv_offset=t0, carry=carry, **kw)
+    o = o.reshape(1, s, -1).to(COMPUTE_DTYPE)
     return dense(o, p["wo"], cfg.quant.attn_out)
 
 

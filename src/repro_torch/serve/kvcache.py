@@ -36,6 +36,8 @@ __all__ = [
     "init_arena",
     "append_token",
     "write_prompt",
+    "gather_pages",
+    "dequantize_pages",
     "swap_out_pages",
     "swap_in_pages",
     "kv_bytes_per_token",
@@ -131,11 +133,13 @@ def append_token(arena_l: torch.Tensor, se_l: torch.Tensor, x: torch.Tensor,
 
 
 def write_prompt(arena_l: torch.Tensor, se_l: torch.Tensor, x: torch.Tensor,
-                 page_ids: torch.Tensor, fmt: FPFormat) -> None:
+                 page_ids: torch.Tensor, fmt: FPFormat) -> torch.Tensor:
     """Write one sequence's slab of K (or V), ``x`` (S, KV, dh) float32, into
     the pages ``page_ids`` of a layer's arena slice, in place.  The tail
     page is zero-padded (code 0 decodes to 0.0; padded tokens are masked
-    out of attention)."""
+    out of attention).  Returns the (S, KV, dh) float32 values the arena
+    now holds (the dequantized view the dense prefill attends, exactly the
+    values the paged kernels decode)."""
     s, kv, dh = x.shape
     npg = page_ids.shape[0]
     page_size = arena_l.shape[2]
@@ -143,8 +147,34 @@ def write_prompt(arena_l: torch.Tensor, se_l: torch.Tensor, x: torch.Tensor,
                                  (0, 0, 0, 0, 0, npg * page_size - s))
     blocks = xp.reshape(npg, page_size, kv, dh).transpose(1, 2)
     se = _scale_exp(torch.amax(torch.abs(blocks), dim=(1, 2, 3)))
-    arena_l[page_ids] = _encode(blocks, se[:, None, None, None], fmt)
+    codes = _encode(blocks, se[:, None, None, None], fmt)
+    arena_l[page_ids] = codes
     se_l[page_ids] = se
+    return _token_major(_decode(codes, se[:, None, None, None], fmt))[:s]
+
+
+def _token_major(pages: torch.Tensor) -> torch.Tensor:
+    """(n, KV, page_size, dh) -> (n * page_size, KV, dh)."""
+    n, kv, page_size, dh = pages.shape
+    return pages.transpose(1, 2).reshape(n * page_size, kv, dh)
+
+
+def gather_pages(arena_l: torch.Tensor, se_l: torch.Tensor,
+                 page_ids: torch.Tensor, fmt: FPFormat) -> torch.Tensor:
+    """Dequantized token-major view of one sequence's pages in a layer:
+    (len(page_ids) * page_size, KV, dh) float32, exactly the values
+    ``write_prompt`` returned when the pages were written.  Chunked
+    prefill attends its history through it."""
+    ids = page_ids.long()
+    return _token_major(_decode(arena_l[ids], se_l[ids][:, None, None, None],
+                                fmt))
+
+
+def dequantize_pages(arena_l: torch.Tensor, se_l: torch.Tensor,
+                     fmt: FPFormat) -> torch.Tensor:
+    """Float32 view of all of a layer's pages, (P, KV, page_size, dh): the
+    values the paged kernels decode in shared memory."""
+    return _decode(arena_l, se_l[:, None, None, None], fmt)
 
 
 # --------------------------------------------------------------------------

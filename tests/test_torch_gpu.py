@@ -469,3 +469,147 @@ def test_stats_wrappers_raise_on_the_card(dev):
     with pytest.raises(ValueError):     # nor per-operand quantization
         qmatmul_fused(a, torch.randn((16, 4), device=dev), repr_fmt=FP8_152,
                       quantize_b=False)
+
+
+# --------------------------------------------------------------------------
+# the oracle's kernels K2 (quantize) and K3 (chunked qmatmul), and the dense
+# resumable prefill K10
+# --------------------------------------------------------------------------
+
+
+def test_quantize_kernel_matches_plain(dev):
+    """K2 bitwise its plain version on f32 and bf16 inputs of every
+    magnitude and the specials (+-0, +-inf, NaN, subnormals), aligned and
+    not (an odd offset into the storage takes the scalar path), on a
+    transposed view (copied first), and the (8, 23) identity; one launch
+    a call."""
+    from repro_torch.kernels.quantize import quantize, quantize_reference
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((1027, 33), generator=gen, device=dev) * torch.exp2(
+        torch.randint(-60, 60, (1027, 33), generator=gen, device=dev).float())
+    x[0, :8] = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                             float("nan"), 1e-40, -1e-40, 3e38], device=dev)
+    for fmt in ((5, 2), (6, 5), (6, 9), (8, 23)):
+        for v in (x, x.to(torch.bfloat16), x.reshape(-1)[1:], x.T):
+            n0 = quantize.launches
+            got = quantize(v, e=fmt[0], m=fmt[1])
+            want = quantize_reference(v, e=fmt[0], m=fmt[1])
+            torch.cuda.synchronize()
+            assert quantize.launches == n0 + 1
+            assert got.shape == v.shape and got.dtype == torch.float32
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("m,k,n,bk,acc,kind", [
+    (512, 1536, 256, 64, (6, 5), "f32"),
+    (37, 200, 75, 16, (6, 5), "f32"),
+    (512, 1536, 4000, 64, (6, 9), "head"),     # f32 x, bf16 embed.T view
+    (96, 130, 200, 128, (8, 23), "bf16"),
+    (1536, 512, 300, 64, (6, 5), "grad"),      # x^T: a transposed A
+])
+def test_qmatmul_kernel_matches_plain(dev, m, k, n, bk, acc, kind):
+    """K3 bitwise its plain version (the same operation sequence: fused
+    multiply-adds in increasing k, the carry rounded once a chunk) on
+    random and lattice operands, through strides; one launch a call."""
+    from repro_torch.kernels.qmatmul import qmatmul, qmatmul_reference
+
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    kw = dict(e_acc=acc[0], m_acc=acc[1], block_k=bk)
+    for lattice in (False, True):
+        mk = (lambda s: _lattice(gen, s, dev)) if lattice else (
+            lambda s: torch.randn(s, generator=gen, device=dev))
+        a = mk((m, k))
+        b = mk((k, n)) if lattice else mk((k, n)) / math.sqrt(k)
+        if kind == "head":
+            b = mk((n, k)).to(torch.bfloat16).T
+        elif kind == "bf16":
+            a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        elif kind == "grad":
+            a = mk((k, m)).T
+        n0 = qmatmul.launches
+        got = qmatmul(a, b, **kw)
+        want = qmatmul_reference(a, b, **kw)
+        torch.cuda.synchronize()
+        assert qmatmul.launches == n0 + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("s,chunk,acc", [(384, 16, (6, 5)), (512, 64, (6, 7)),
+                                         (200, 128, (8, 23))])
+def test_flash_prefill_kernel_matches_plain(dev, s, chunk, acc):
+    """K10 at qwen2-1.5b's widths (H 12, KV 2, dh 128) bitwise its plain
+    version, for every block_q; carry out at a chunk multiple, then in:
+    bitwise the one-shot walk; one launch a call."""
+    from repro_torch.kernels.attention import (BLOCK_QS, flash_prefill,
+                                               flash_prefill_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(s + chunk)
+    q = torch.randn((s, 12, 128), generator=gen, device=dev)
+    k = torch.randn((s, 2, 128), generator=gen, device=dev)
+    v = torch.randn((s, 2, 128), generator=gen, device=dev)
+    kw = dict(acc=acc, chunk=chunk)
+    want = flash_prefill_reference(q, k, v, **kw)
+    for bq in BLOCK_QS:
+        n0 = flash_prefill.launches
+        got = flash_prefill(q, k, v, block_q=bq, **kw)
+        torch.cuda.synchronize()
+        assert flash_prefill.launches == n0 + 1
+        assert torch.equal(got, want)
+    split = chunk * (s // (2 * chunk))
+    c = flash_prefill(q, k[:split], v[:split], return_carry=True, **kw)
+    pc = flash_prefill_reference(q, k[:split], v[:split], return_carry=True,
+                                 **kw)
+    for a, b in zip(c, pc):
+        assert torch.equal(a, b)
+    res = flash_prefill(q, k[split:], v[split:], kv_offset=split, carry=c,
+                        **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(res, want)
+    with pytest.raises(NotImplementedError):     # beyond the kernel's tiles
+        flash_prefill(q, k, v, acc=acc, chunk=256)
+
+
+def test_oracle_train_step_matches_fused(dev):
+    """One training step of the smoke model under the unfused oracle plan
+    (K2 and K3 only) against the fused plan (G, E and B only): the loss
+    and every gradient leaf bitwise."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.policy import AccumulationPolicy, plan_for_model
+    from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
+    from repro_torch.kernels.qmatmul import qmatmul
+    from repro_torch.kernels.quantize import quantize
+    from repro_torch.models.api import get_model
+    from repro_torch.train.loop import _grads, compute_copy
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = plan_for_model(get_smoke_config("qwen2-1.5b"), seq_len=32,
+                         global_batch=4,
+                         policy=AccumulationPolicy(mode="predicted", chunk=16))
+    plan = cfg.quant
+    oracle = replace(cfg, quant=replace(plan, **{
+        f: replace(getattr(plan, f), fused=False) for f in
+        ("attn_qkv", "attn_out", "mlp_up", "mlp_down", "lm_head")}))
+    params = get_model(cfg).init_params(
+        torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (4, 32)).astype(np.int32)).to(dev)
+
+    def step(c):
+        cc = compute_copy(params)
+        loss, _ = get_model(c).loss_fn(cc, {"tokens": tokens}, c)
+        loss.backward()
+        return loss.detach(), _grads(cc, params)
+
+    lf, gf = step(cfg)
+    n = (quantize.launches, qmatmul.launches, qmatmul_fused.emitq_launches,
+         qmatmul_bwd_pair.launches)
+    lo, go = step(oracle)
+    torch.cuda.synchronize()
+    assert quantize.launches > n[0] and qmatmul.launches > n[1]
+    assert (qmatmul_fused.emitq_launches, qmatmul_bwd_pair.launches) == n[2:]
+    assert torch.equal(lf, lo)
+    for a, b in zip(tree_leaves(gf), tree_leaves(go)):
+        assert torch.equal(a, b)
