@@ -4,7 +4,11 @@ Drives ``repro_torch`` (never ``jax`` or ``repro``) in phases, each printed
 on its own line:
 
 1. build: compiles the Hopper kernels of ``src/repro_torch/csrc`` with
-   ``nvcc`` (one process per source, in parallel) into ``build/``;
+   ``nvcc`` (one process per source, in parallel) into ``build/``, and
+   prints each instantiation of the Hopper tile ``qgemm_sm90.cuh`` (K8, B)
+   with its registers and spill bytes and, at the training path's operand
+   kinds, its shared memory and resident 256-thread blocks an SM (fails on
+   a spill or on fewer than two);
 2. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (bitwise on lattice operands, at most 1 ulp of
    the carry format on random ones, mismatch fractions printed), with its
@@ -30,9 +34,12 @@ on its own line:
    backward (T = 512, N = 151936) unsplit, through K9, and chained over 10
    N segments with the dx carry (K7), each against the plain version
    (bitwise); K8 at the eager telemetry tick's own FWD/BWD/GRAD calls of
-   every layer tag and of the whole lm_head; one step's E and B launches
-   and one in-graph telemetry tick's K8 and K9 launches timed as
-   sequences;
+   every layer tag and of the whole lm_head; at each distinct layer
+   shape and the whole lm_head, B beside K9 (the old tile) and K3's BWD +
+   GRAD, and K8 beside E (G for the lm_head), each new kernel with the
+   share of its f32-FMA bound; one step's E and B launches and one
+   in-graph telemetry tick's K8 and K9 launches timed as sequences, with
+   their f32-FMA bounds;
 5. train: qwen2-1.5b at full width and depth through the training
    launcher's set-up (predicted plan, chunk 64, batch 8 x seq 64, seeded
    f32 weights, ``SyntheticLM``), 6 AdamW steps at lr 1e-3 with 2 warmup
@@ -72,6 +79,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -169,6 +177,13 @@ def seq_bound(costs):
     t_bytes = sum(c[0] for c in costs) / HBM_BYTES_PER_S * 1e3
     t_ops = sum(c[1] / c[2] for c in costs) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fma_bound(costs) -> float:
+    """A GEMM sequence's f32-FMA bound (ms): its multiply-adds at the f32
+    rate of the CUDA cores, where the bitwise kernels run (a tensor-core
+    MMA does not form their sequential f32 chunk partials)."""
+    return sum(c[1] for c in costs) / F32_FLOPS * 1e3
 
 
 def ulps(got, want, m: int, min_exp: int) -> torch.Tensor:
@@ -271,7 +286,78 @@ def phase_build() -> str:
         print(f"[build] {name}: {' | '.join(regs) or 'no ptxas report'}")
     print(f"[build] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{nvcc}; card: {smi}", flush=True)
+    sm90_report(build)
     return smi
+
+
+# The Hopper tile's kernels (csrc/qgemm_sm90.cuh) by library, and the
+# operand kinds of the training path, at which two 256-thread blocks (4
+# chunk groups) must be resident on an SM: K8 on int8 codes and on the
+# lm_head's f32 x and bf16 embed.T; B on codes with g as bf16 Q(g), and on
+# the lm_head's f32 x, bf16 w and f32 g.
+SM90_TILES = {"qgemm_stats": ("qgemm_stats_kernel", [(2, 2), (0, 1)]),
+              "bwd_pair": ("bwd_pair_kernel", [(2, 2, 1), (0, 1, 0)])}
+
+
+def _tile_name(fn: str):
+    """``kernel<types>`` of a mangled instantiation of a Hopper tile kernel,
+    or None."""
+    m = re.search(r"(qgemm_stats_kernel|bwd_pair_kernel)I(.*?)EEv", fn)
+    if m is None:
+        return None
+    args, names = m.group(2), []
+    while args:
+        sub = re.match(r"13__nv_bfloat16|S\d*_", args)
+        if sub:         # bf16 is the only class type, so every substitution
+            names.append("bf16")
+            args = args[sub.end():]
+        else:
+            names.append({"a": "int8", "f": "f32"}[args[0]])
+            args = args[1:]
+    return f"{m.group(1)}<{', '.join(names)}>"
+
+
+def _ptxas_entries(log: str) -> dict:
+    """{mangled function: (registers, spill bytes)} of a ptxas -v log."""
+    out, fn, spill = {}, None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn is not None:
+            out[fn] = (int(m.group(1)), spill)
+    return out
+
+
+def sm90_report(build) -> None:
+    """Registers and spill bytes of every instantiation of the Hopper tile
+    (from ptxas), the dynamic shared memory and resident blocks an SM at 4
+    chunk groups at the training path's operand kinds; fails on a spill or
+    on fewer than two resident blocks there."""
+    import ctypes
+
+    for lib, (kernel, kinds) in SM90_TILES.items():
+        log = build._lib_path(lib).with_suffix(".log").read_text()
+        for fn, (regs, spill) in sorted(_ptxas_entries(log).items()):
+            name = _tile_name(fn)
+            if name is None:
+                continue
+            print(f"[build] sm90 {name}: {regs} registers, {spill} spill "
+                  f"bytes", flush=True)
+            check(spill == 0, f"{name} spills {spill} bytes")
+        args = [ctypes.c_int] * (len(kinds[0]) + 1)
+        smem = build.function(lib, f"{lib}_smem", args)
+        occ = build.function(lib, f"{lib}_occupancy", args)
+        for k in kinds:
+            n = occ(*k, 4)
+            print(f"[build] sm90 {kernel} kinds {k} at 4 chunk groups (256 "
+                  f"threads): {smem(*k, 4)} bytes of dynamic shared memory, "
+                  f"{n} resident blocks an SM", flush=True)
+            check(n >= 2, f"{kernel} kinds {k}: {n} resident blocks an SM")
 
 
 # --------------------------------------------------------------------------
@@ -384,13 +470,15 @@ def gemm_step(cfg, dev, weights: dict) -> dict:
     lib = lib_time(lambda: run(lambda a, w, **kw: torch.matmul(
         a.to(torch.bfloat16), w)))
     b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    f_ms = fma_bound([(n_bytes, flops, BF16_FLOPS)])
     print(f"[kernels] G one decode step ({len(calls)} GEMMs, M={MAX_BATCH}, "
           f"{n_bytes / 1e9:.3f} GB): kernel {ms:.3f} ms, plain {plain:.1f} "
           f"ms, library {lib_str(lib)}, bound {b_ms:.3f} ms ({b_by}), "
-          f"{b_ms / ms:.3f} of bound", flush=True)
+          f"{b_ms / ms:.3f} of bound; f32-FMA bound {f_ms:.4f} ms",
+          flush=True)
     return dict(ms=ms, plain_ms=plain, library_ms=lib[0],
                 library_spread_ms=list(lib[1]), bound_ms=b_ms, bound_by=b_by,
-                calls=len(calls))
+                fma_bound_ms=f_ms, calls=len(calls))
 
 
 def _attn_arena(gen, dev, n_pages, kv, dh):
@@ -963,6 +1051,35 @@ def check_probe_roles(gen, layer, head, hx, emb) -> float:
     return err
 
 
+def _k3_pair_ms(g, x, w, qc) -> float:
+    """K3's BWD + GRAD on the values B contracts (g quantized, the
+    residuals decoded to f32, as the oracle's K2 would hand them over):
+    the same math on the independent tile, timed."""
+    from repro_torch.kernels.common import quantize_block
+    from repro_torch.kernels.qmatmul import qmatmul
+    from repro_torch.quant.qtensor import unpack_block
+
+    f = qc.repr_fmt
+    if qc.packs:
+        x, w = unpack_block(x, f.e, f.m), unpack_block(w, f.e, f.m)
+    gq = quantize_block(g, f.e, f.m) if f is not None else g
+    bwd, grad = _k3_kw(qc.bwd), _k3_kw(qc.grad)
+    return cuda_time(lambda: (qmatmul(gq, w.T, **bwd),
+                              qmatmul(x.T, gq, **grad)), reps=2)
+
+
+def sm90_line(tag, t, k, n, b_ms, k9_ms, k3_ms, k8_ms, fwd_ms, fwd) -> None:
+    """One shape's line for the Hopper tile: B beside K9 (the old tile,
+    the same math plus stats) and K3's BWD + GRAD, K8 beside the forward
+    kernel on the old tile (E, or G for the lm_head), each new kernel with
+    its f32-FMA bound and the share of it reached."""
+    fb = 4 * t * k * n / F32_FLOPS * 1e3
+    print(f"  sm90 {tag} T={t} K={k} N={n}: B {b_ms:.4f} ms ({fb / b_ms:.3f}"
+          f" of its f32-FMA bound {fb:.4f} ms) vs K9 {k9_ms:.4f} ms vs K3 "
+          f"BWD+GRAD {k3_ms:.4f} ms; K8 {k8_ms:.4f} ms ({fb / 2 / k8_ms:.3f}"
+          f" of {fb / 2:.4f} ms) vs {fwd} {fwd_ms:.4f} ms", flush=True)
+
+
 def phase_train_kernels(dev) -> dict:
     """E, B, K8 and K9 against their plain versions (and K8/K9 against G,
     E and B) at every distinct layer shape of the training step (T = 512
@@ -1066,6 +1183,8 @@ def phase_train_kernels(dev) -> dict:
               f"{lib_str(e_lib)}, bound {e_b:.4f} ms ({e_by}); B kernel "
               f"{b_ms:.4f} ms, library {lib_str(b_lib)}, bound {b_b:.4f} ms "
               f"({b_by})", flush=True)
+        sm90_line(tag, t, k, n, b_ms, p_ms, _k3_pair_ms(g, xq, wq, qc),
+                  sq_ms, e_ms, "E")
 
     # the tied lm_head: raw f32 x and the bf16 embed.T view, no quantization
     _, _, k, n, qc = head
@@ -1131,14 +1250,24 @@ def phase_train_kernels(dev) -> dict:
     k7_lib = lib_time(head_lib)
     k7_b, k7_by = bound_ms(*_b_cost(t, k, n, packed=False, x_bytes=4,
                                     w_bytes=2))
+    k7_f = fma_bound([_b_cost(t, k, n)])
     print(f"  time K7 lm_head T={t} K={k} N={n}: kernel {k7_ms:.3f} ms, "
           f"plain {k7_plain:.1f} ms, library {lib_str(k7_lib)}, bound "
-          f"{k7_b:.4f} ms ({k7_by})", flush=True)
+          f"{k7_b:.4f} ms ({k7_by}); f32-FMA bound {k7_f:.3f} ms, "
+          f"{k7_f / k7_ms:.4f} of it", flush=True)
     gkw = _e_kw(qc)
     head_g = cuda_time(lambda: qmatmul_fused(hx, emb.T, **gkw), reps=3)
     print(f"  time G lm_head forward T={t} K={k} N={n}: kernel {head_g:.3f} "
           f"ms, library {lib_str(lib_time(lambda: torch.matmul(hxb, embt)))}",
           flush=True)
+    head_b = cuda_time(lambda: qmatmul_bwd_pair(hg, hx, emb.T, **hkw), reps=2)
+    head_k9 = cuda_time(lambda: qmatmul_bwd_pair(hg, hx, emb.T,
+                                                 collect_stats=True, **hkw),
+                        reps=2)
+    head_k8 = cuda_time(lambda: qmatmul_fused(hx, emb.T, collect_stats=True,
+                                              **gkw), reps=2)
+    sm90_line("lm_head", t, k, n, head_b, head_k9,
+              _k3_pair_ms(hg, hx, emb.T, qc), head_k8, head_g, "G")
 
     # one training step's launches of E and B (7 per layer x depth, plus
     # the lm_head's B), in layer order on the per-shape tensors above
@@ -1208,21 +1337,24 @@ def phase_train_kernels(dev) -> dict:
         plain = cuda_time(lambda: run(ref), reps=1, warmup=0)
         lib_ms = lib_time(lib, reps=3)
         b_ms, b_by = seq_bound(cost)
+        f_ms = fma_bound(cost)
         what = ("one in-graph telemetry tick" if name in ("K8", "K9")
                 else "one training step")
         print(f"[kernels] {name} {what} ({len(cost)} launches, "
               f"T={t}): kernel {ms:.3f} ms, plain {plain:.1f} ms, library "
               f"{lib_str(lib_ms)}, bound {b_ms:.4f} ms ({b_by}), "
-              f"{b_ms / ms:.4f} of bound", flush=True)
+              f"{b_ms / ms:.4f} of bound; f32-FMA bound {f_ms:.3f} ms, "
+              f"{f_ms / ms:.4f} of it; {ms / lib_ms[0]:.2f}x the library",
+              flush=True)
         out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms[0],
                          library_spread_ms=list(lib_ms[1]), bound_ms=b_ms,
-                         bound_by=b_by, max_abs_err=err)
+                         bound_by=b_by, fma_bound_ms=f_ms, max_abs_err=err)
     print(f"[kernels] stats overhead over one step's sequence: K8 "
           f"{out['K8']['ms'] / out['E']['ms']:.3f}x E, K9 "
           f"{out['K9']['ms'] / out['B']['ms']:.3f}x B", flush=True)
     out["K7"] = dict(ms=k7_ms, plain_ms=k7_plain, library_ms=k7_lib[0],
                      library_spread_ms=list(k7_lib[1]), bound_ms=k7_b,
-                     bound_by=k7_by, max_abs_err=k7_err)
+                     bound_by=k7_by, fma_bound_ms=k7_f, max_abs_err=k7_err)
     return out
 
 
@@ -1891,14 +2023,19 @@ def phase_oracle_kernels(dev) -> dict:
                  "library none (no PyTorch call rounds to (1,e,m) with "
                  "saturation and flush to zero: a float8_e5m2 cast has "
                  "another exponent range and overflows to inf)")
+        f_ms = fma_bound(cost) if name == "K3" else None
+        fma_s = ("" if f_ms is None else
+                 f"; f32-FMA bound {f_ms:.3f} ms, {f_ms / ms:.4f} of it")
         print(f"[kernels] {name} one oracle training step ({len(cost)} "
               f"launches, T={t}): kernel {ms:.3f} ms, plain {plain:.1f} ms, "
               f"{lib_s}, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.4f} of "
-              f"bound", flush=True)
+              f"bound{fma_s}", flush=True)
         out[name] = dict(ms=ms, plain_ms=plain,
                          library_ms=lib_ms and lib_ms[0],
                          library_spread_ms=lib_ms and list(lib_ms[1]),
                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        if f_ms is not None:
+            out[name]["fma_bound_ms"] = f_ms
     return out
 
 
@@ -2316,7 +2453,7 @@ def main() -> None:
              launches=one["launches"]["qmatmul_fused"],
              max_abs_err=g_err, **{k: g_step[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                 "library_spread_ms")}),
+                 "library_spread_ms", "fma_bound_ms")}),
         dict(name="paged_attn_decode", route="cuda",
              source="src/repro_torch/csrc/paged_decode.cu",
              replaces="src/repro/kernels/attention.py:560",

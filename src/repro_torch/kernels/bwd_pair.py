@@ -22,13 +22,21 @@ split).  Hopper has no dw slab to fit, so the port's training step makes
 one unsplit call per layer; the carry entry is counted apart, on
 ``qmatmul_bwd_pair.carry_launches``.
 
-What bounds it on the H100: the f32 arithmetic, 4TKN operations on the
-CUDA cores.  The lm_head's dx is the longest sum of the step (N = 151936
-columns, one sequential carry per output) over only (T/64)(K/64) output
-tiles, so it runs on part of the card.
+What bounds it on the H100: the f32 arithmetic, 4TKN multiply-adds on the
+CUDA cores (a tensor-core MMA does not form the sequential f32 chunk
+partial the contract fixes).  The kernel runs the Hopper tile
+``csrc/qgemm_sm90.cuh``: 8 x 8 partials a thread, the carries in shared
+memory, and chunk groups that form the partials of different chunks of one
+output tile at once and fold them in chunk order, so the long sums (the
+lm_head's dx walks N = 151936 columns over only (T/64)(K/64) output tiles)
+run on 4 x 64 threads a tile; ``kernels.sm90`` picks the groups from the
+shape.  When ``quantize_g`` with a format of at most 7 mantissa bits, g is
+quantized once a call into a bf16 scratch (Q(Q(v)) = Q(v), and such a
+format's values are exact in bf16), which both roles then land and widen.
 
 ``collect_stats=True`` is K9's port (``bwd_pair_stats`` in the same
-source, replacing ``_pair_kernel_stats``): the same dx and dw, bitwise,
+source, replacing ``_pair_kernel_stats``, still on ``qgemm_core.cuh``'s
+tile): the same dx and dw, bitwise,
 plus a (2, N_STATS) float32 stats row, row 0 the dx (BWD) accumulator and
 row 1 the dw (GRAD) one, each from f32 shadow carries of the same
 partials; the dx tiles' and dw tiles' partial rows are summed apart by a
@@ -44,7 +52,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, sm90
 from repro_torch.kernels.common import N_STATS, qfmt_args, quantize_block
 from repro_torch.kernels.fused import chunked_gemm_reference
 from repro_torch.quant.formats import fmt_tuple
@@ -133,7 +141,7 @@ def qmatmul_bwd_pair_stats_reference(g, xq, wq, *, repr_fmt, bwd_acc,
 _LL, _I, _P, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 _ARGTYPES = ([_P, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _P, _P,
               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I]
-             + [_I, _I, _F, _F] * 2 + [_P])
+             + [_I, _I, _F, _F] * 2 + [_I, _P, _P])
 
 
 _STATS_ARGTYPES = ([_P, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _P,
@@ -199,6 +207,12 @@ def _launch(g, xq, wq, dx_carry, *, fmt, bwd_acc, grad_acc, bwd_chunk,
         return dx, dw
     quant = quantize_g and fmt is not None
     e_r, m_r = fmt or _WIDE
+    # Q(g) once into bf16 (exact for formats of at most 7 mantissa bits)
+    gq = (torch.empty((t, n), dtype=torch.bfloat16, device=dev)
+          if quant and m_r <= 7 else None)
+    sched = sm90.pair_schedule(t, k, n, bwd_chunk, grad_chunk,
+                               _KINDS[xq.dtype], _KINDS[wq.dtype],
+                               0 if gq is None else 1)
     rc = build.function("bwd_pair", "bwd_pair", _ARGTYPES)(
         g.data_ptr(), g.stride(0), g.stride(1),
         xq.data_ptr(), _KINDS[xq.dtype], xq.stride(0), xq.stride(1),
@@ -206,7 +220,8 @@ def _launch(g, xq, wq, dx_carry, *, fmt, bwd_acc, grad_acc, bwd_chunk,
         carry.data_ptr() if carry is not None else None,
         dx.data_ptr(), dw.data_ptr(), t, k, n, bwd_chunk, grad_chunk,
         e_r, m_r, *qfmt_args(fmt or _WIDE), int(quant),
-        *qfmt_args(bwd_acc), *qfmt_args(grad_acc),
+        *qfmt_args(bwd_acc), *qfmt_args(grad_acc), sched.groups,
+        None if gq is None else gq.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bwd_pair launch failed: CUDA error {rc}")

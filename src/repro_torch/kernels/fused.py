@@ -18,20 +18,27 @@ f32, so a fused multiply-add equals a multiply then add here.
 What bounds it on the H100: at decode (M = max_batch = 8) every GEMM reads
 its whole weight once: the 197 GEMMs of one qwen2-1.5b decode step read
 3.1 GB of bf16 weights, about 0.93 ms at 3.35 TB/s; the arithmetic is
-negligible.  At training (M = 512 tokens) it is the arithmetic, which this
-simple design runs in f32 on the CUDA cores.  The kernel reads the bf16
-weights straight from their row-major (K, N) layout (or the tied embedding
-through its transposed strides, so no 467 MB copy is made per step),
-converts and quantizes them in shared memory, and keeps the carry in
-registers; each block prefetches its next K tile into registers while it
-computes the current one.  There is no split over K (the carry is
-sequential in chunks), so a GEMM with few N tiles runs on few SMs.
-``wgmma`` and TMA are for a later change.
+negligible.  At training (M = 512 tokens) it is the arithmetic, in f32 on
+the CUDA cores: the bitwise contract fixes each chunk's partial to the
+sequential round-to-nearest f32 chain, which a tensor-core MMA (``wgmma``,
+``mma.sync``) does not form, so the tensor cores are not an option for
+these kernels.  G and E run ``csrc/qgemm_core.cuh``'s first, simple tile:
+it reads the bf16 weights straight from their row-major (K, N) layout (or
+the tied embedding through its transposed strides, so no 467 MB copy is
+made per step), converts and quantizes them in shared memory, and keeps
+the carry in registers; each block prefetches its next K tile into
+registers while it computes the current one, and there is no split over
+K, so a GEMM with few N tiles runs on few SMs.
 
 ``collect_stats=True`` is K8's port (``csrc/qgemm_stats.cu``, replacing
-``_fused_kernel_stats``): the same C, bitwise, plus the swamping-telemetry
-stats row (``kernels.common.N_STATS``) of the carry against an f32 shadow
-carry of the same partials.  Its operands may also be int8 codes of
+``_fused_kernel_stats``) on the Hopper tile ``csrc/qgemm_sm90.cuh``: 8 x 8
+partials a thread in registers, the carries in shared memory, chunk groups
+that form the partials of different chunks of one tile at once and fold
+them in chunk order (``kernels.sm90`` picks the groups from the shape),
+operands landed by ``cp.async`` in their stored type.  The same C as G,
+bitwise, plus the swamping-telemetry stats row (``kernels.common.N_STATS``)
+of the carry against an f32 shadow carry of the same partials.  Its
+operands may also be int8 codes of
 ``repr_fmt`` (``a_packed``/``b_packed``: the saved residuals of the
 in-graph telemetry's FWD replay), and ``quantize_a``/``quantize_b`` turn
 the operand quantization off per operand (the telemetry probe's backward
@@ -50,7 +57,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, sm90
 from repro_torch.kernels.common import (
     N_STATS,
     qfmt_args,
@@ -259,8 +266,8 @@ qmatmul_fused.emitq_launches = 0
 qmatmul_fused.stats_launches = 0
 
 _STATS_ARGTYPES = ([_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I,
-                    _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _P, _P,
-                    _P])
+                    _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _P,
+                    _P, _P])
 
 
 def _stats(a, b, *, repr_fmt, e_acc, m_acc, block_k, quantize_a, quantize_b,
@@ -286,14 +293,16 @@ def _stats(a, b, *, repr_fmt, e_acc, m_acc, block_k, quantize_a, quantize_b,
     part = torch.empty((blocks, N_STATS), dtype=torch.float64, device=dev)
     e_r, m_r = fmt or _WIDE
     quant = fmt is not None
+    sched = sm90.gemm_schedule(m, n, k, block_k, _KINDS[a.dtype],
+                               _KINDS[b.dtype])
     rc = build.function("qgemm_stats", "qgemm_stats", _STATS_ARGTYPES)(
         a.data_ptr(), _KINDS[a.dtype], a.stride(0), a.stride(1),
         b.data_ptr(), _KINDS[b.dtype], b.stride(0), b.stride(1),
         out.data_ptr(), m, n, k, block_k, e_r, m_r, *qfmt_args(fmt or _WIDE),
         int(quant and quantize_a and not a_packed),
         int(quant and quantize_b and not b_packed),
-        *qfmt_args((e_acc, m_acc)), part.data_ptr(), row.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        *qfmt_args((e_acc, m_acc)), sched.groups, part.data_ptr(),
+        row.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qgemm_stats launch failed: CUDA error {rc}")
     qmatmul_fused.stats_launches += 1

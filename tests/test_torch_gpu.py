@@ -472,6 +472,175 @@ def test_stats_wrappers_raise_on_the_card(dev):
 
 
 # --------------------------------------------------------------------------
+# the Hopper tile of K8 and B (csrc/qgemm_sm90.cuh): every schedule it can
+# pick, reached through the shapes that select it
+# --------------------------------------------------------------------------
+
+
+def _operand(gen, shape, dev, lattice):
+    return (_lattice(gen, shape, dev) if lattice
+            else torch.randn(shape, generator=gen, device=dev))
+
+
+def _codes(v):
+    return pack_block(quantize_block(v, 5, 2), 5, 2)
+
+
+@pytest.mark.parametrize("t,k,n,chunk,kind,groups", [
+    (40, 70, 50, 64, "int8", 1),      # K < chunk in both roles; ragged
+    (100, 130, 150, 64, "int8", 2),   # 3 and 2 chunks; pitches off 16 bytes
+    (96, 80, 520, 64, "int8", 4),     # 9 chunks, N not a chunk multiple
+    (64, 96, 200, 24, "int8", 4),     # chunk 24 cuts the codes' 16-byte pieces
+    (70, 96, 300, 100, "f32", 2),     # raw f32, x a transposed view, chunk 100
+    (48, 64, 1000, 64, "head", 4),    # f32 x, bf16 w behind the embed.T view
+    (33, 40, 260, 32, "bf16", 4),     # bf16 x and w
+])
+def test_sm90_bwd_pair_schedules_match_plain(dev, t, k, n, chunk, kind,
+                                            groups):
+    """B on the Hopper tile at each chunk-group count, operand kind and
+    layout: dx and dw bitwise the plain version on random and lattice
+    operands, and a dx_carry chain of two chunk-aligned N segments (K7)
+    bitwise the unsplit call."""
+    from repro_torch.kernels.bwd_pair import (
+        qmatmul_bwd_pair, qmatmul_bwd_pair_reference)
+    from repro_torch.kernels.sm90 import pair_schedule
+
+    kinds = {"int8": (2, 2), "f32": (0, 0), "head": (0, 1), "bf16": (1, 1)}
+    assert pair_schedule(t, k, n, chunk, chunk, *kinds[kind],
+                         int(kind != "head")).groups == groups
+    gen = torch.Generator(device=dev).manual_seed(t + 7 * k + n)
+    packed = kind == "int8"
+    rf = None if kind == "head" else FP8_152
+    acc = (6, 9) if kind == "head" else (6, 5)
+    kw = dict(repr_fmt=rf, bwd_acc=acc, grad_acc=(6, 7), bwd_chunk=chunk,
+              grad_chunk=chunk, packed=packed, quantize_g=rf is not None)
+    for lattice in (False, True):
+        g = _operand(gen, (t, n), dev, lattice)
+        x = _operand(gen, (t, k), dev, lattice)
+        w = _operand(gen, (k, n), dev, lattice) / 8
+        if kind == "int8":
+            x, w = _codes(x), _codes(w)
+        elif kind == "f32":
+            x = x.T.contiguous().T
+        elif kind == "head":
+            w = w.to(torch.bfloat16).T.contiguous().T
+        else:
+            x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        n0 = qmatmul_bwd_pair.launches
+        got = qmatmul_bwd_pair(g, x, w, **kw)
+        want = qmatmul_bwd_pair_reference(g, x, w, **kw)
+        torch.cuda.synchronize()
+        assert qmatmul_bwd_pair.launches == n0 + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        cut = chunk * max(1, n // chunk // 2)
+        if cut >= n:                    # one chunk of N: nothing to chain
+            continue
+        c0 = qmatmul_bwd_pair.carry_launches
+        dx0, dw0 = qmatmul_bwd_pair(g[:, :cut], x, w[:, :cut], **kw)
+        dx1, dw1 = qmatmul_bwd_pair(g[:, cut:], x, w[:, cut:], dx_carry=dx0,
+                                    **kw)
+        torch.cuda.synchronize()
+        assert qmatmul_bwd_pair.carry_launches == c0 + 1
+        assert torch.equal(dx1, got[0])
+        assert torch.equal(torch.cat([dw0, dw1], 1), got[1])
+
+
+@pytest.mark.parametrize("m,k,n,chunk,kind,groups", [
+    (37, 48, 80, 64, "f32", 1),       # K < chunk
+    (70, 150, 130, 64, "bf16", 2),    # 3 chunks; pitches off 16 bytes
+    (100, 608, 96, 64, "int8", 4),    # int8 codes, K not a chunk multiple
+    (64, 304, 200, 48, "head", 4),    # f32 x, bf16 embed.T view, chunk 48
+    (48, 200, 70, 40, "a_view", 4),   # A a transposed view (GRAD's x.T)
+])
+def test_sm90_gemm_stats_schedules_match_plain(dev, m, k, n, chunk, kind,
+                                              groups):
+    """K8 on the Hopper tile at each chunk-group count, operand kind and
+    layout: C bitwise the plain version's, the row's counters and MAX_ABS
+    bitwise and its sums within the bound, two launches identical."""
+    from repro_torch.kernels.fused import qmatmul_fused_stats_reference
+    from repro_torch.kernels.sm90 import gemm_schedule
+
+    kinds = {"f32": (0, 0), "bf16": (0, 1), "int8": (2, 2), "head": (0, 1),
+             "a_view": (0, 0)}
+    assert gemm_schedule(m, n, k, chunk, *kinds[kind]).groups == groups
+    gen = torch.Generator(device=dev).manual_seed(m + 3 * k + n)
+    acc = (6, 9) if kind == "head" else (6, 5)
+    kw = dict(repr_fmt=None if kind == "head" else FP8_152, e_acc=acc[0],
+              m_acc=acc[1], block_k=chunk)
+    for lattice in (False, True):
+        a = _operand(gen, (m, k), dev, lattice)
+        b = _operand(gen, (k, n), dev, lattice) / math.sqrt(k)
+        extra = {}
+        if kind == "bf16":
+            b = b.to(torch.bfloat16)
+        elif kind == "head":
+            b = b.to(torch.bfloat16).T.contiguous().T
+        elif kind == "int8":
+            a, b = _codes(a), _codes(b)
+            extra = dict(a_packed=True, b_packed=True)
+        elif kind == "a_view":
+            a = a.T.contiguous().T
+            extra = dict(quantize_a=False)
+        n0 = qmatmul_fused.stats_launches
+        c, row = qmatmul_fused(a, b, collect_stats=True, **kw, **extra)
+        c2, row2 = qmatmul_fused(a, b, collect_stats=True, **kw, **extra)
+        pc, prow = qmatmul_fused_stats_reference(a, b, **kw, **extra)
+        torch.cuda.synchronize()
+        assert qmatmul_fused.stats_launches == n0 + 2
+        assert torch.equal(c, pc)
+        assert torch.equal(c, c2) and torch.equal(row, row2)
+        assert float(row[0]) == m * n
+        _stats_ok(row, prow)
+
+
+def test_sm90_unpacks_every_code(dev):
+    """The tile's int8 decode on all 256 codes of (1,5,2), along k and
+    along mn: C = codes @ identity carries each code's value exactly."""
+    from repro_torch.kernels.fused import qmatmul_fused_stats_reference
+    from repro_torch.quant.qtensor import unpack_block
+
+    codes = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)
+    eye = _codes(torch.eye(16, device=dev))
+    kw = dict(repr_fmt=FP8_152, e_acc=8, m_acc=23, block_k=64,
+              a_packed=True, b_packed=True)
+    for a in (codes.reshape(16, 16).to(dev),
+              codes.reshape(16, 16).T.contiguous().to(dev).T):
+        c, _ = qmatmul_fused(a, eye, collect_stats=True, **kw)
+        pc, _ = qmatmul_fused_stats_reference(a, eye, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(c, pc)
+        assert torch.equal(c, unpack_block(a, 5, 2))
+
+
+def test_sm90_smem_matches_schedule_and_two_blocks_fit(dev):
+    """The kernels' shared memory a block equals kernels/sm90.py's mirror
+    for every operand kind and group count, and at the training path's
+    operands (int8 codes; the lm_head's f32 x and bf16 w) two 256-thread
+    blocks of B and of K8 are resident on an SM."""
+    import ctypes
+
+    from repro_torch.kernels import build, sm90
+
+    i3, i4 = [ctypes.c_int] * 3, [ctypes.c_int] * 4
+    k8_smem = build.function("qgemm_stats", "qgemm_stats_smem", i3)
+    k8_occ = build.function("qgemm_stats", "qgemm_stats_occupancy", i3)
+    b_smem = build.function("bwd_pair", "bwd_pair_smem", i4)
+    b_occ = build.function("bwd_pair", "bwd_pair_occupancy", i4)
+    for groups in (1, 2, 4):
+        for a in (0, 1, 2):
+            for b in (0, 1, 2):
+                assert k8_smem(a, b, groups) == sm90.smem_bytes(
+                    sm90.stage_bytes(a, b), groups, True)
+        for x, w in ((2, 2), (0, 0), (0, 1), (1, 1), (1, 0)):
+            for g in (0, 1):
+                stage = max(sm90.stage_bytes(g, w), sm90.stage_bytes(x, g))
+                assert b_smem(x, w, g, groups) == sm90.smem_bytes(
+                    stage, groups, False)
+    assert k8_occ(2, 2, 4) >= 2 and k8_occ(0, 1, 4) >= 2
+    assert b_occ(2, 2, 1, 4) >= 2 and b_occ(0, 1, 0, 4) >= 2
+
+
+# --------------------------------------------------------------------------
 # the oracle's kernels K2 (quantize) and K3 (chunked qmatmul), and the dense
 # resumable prefill K10
 # --------------------------------------------------------------------------
