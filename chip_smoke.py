@@ -5,10 +5,11 @@ on its own line:
 
 1. build: compiles the Hopper kernels of ``src/repro_torch/csrc`` with
    ``nvcc`` (one process per source, in parallel) into ``build/``, and
-   prints each instantiation of the Hopper tile ``qgemm_sm90.cuh`` (K8, B)
-   with its registers and spill bytes and, at the training path's operand
-   kinds, its shared memory and resident 256-thread blocks an SM (fails on
-   a spill or on fewer than two);
+   prints each instantiation of the Hopper tile ``qgemm_sm90.cuh`` (E,
+   K8, B, K9) with its registers and spill bytes and, at the training
+   path's operand kinds, its shared memory and resident 256-thread blocks
+   an SM (fails on a spill, or on fewer than two, one for K9's lm_head
+   call);
 2. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (bitwise on lattice operands, at most 1 ulp of
    the carry format on random ones, mismatch fractions printed), with its
@@ -34,10 +35,11 @@ on its own line:
    backward (T = 512, N = 151936) unsplit, through K9, and chained over 10
    N segments with the dx carry (K7), each against the plain version
    (bitwise); K8 at the eager telemetry tick's own FWD/BWD/GRAD calls of
-   every layer tag and of the whole lm_head; at each distinct layer
-   shape and the whole lm_head, B beside K9 (the old tile) and K3's BWD +
-   GRAD, and K8 beside E (G for the lm_head), each new kernel with the
-   share of its f32-FMA bound; one step's E and B launches and one
+   every layer tag and of the whole lm_head; E's C against K8's on the
+   same operands, bitwise; at each distinct layer shape and the whole
+   lm_head, K9 beside B (the stats overhead on one tile) and K3's BWD +
+   GRAD, and K8 beside E (G, on the old tile, for the lm_head), each with
+   the share of its f32-FMA bound; one step's E and B launches and one
    in-graph telemetry tick's K8 and K9 launches timed as sequences, with
    their f32-FMA bounds;
 5. train: qwen2-1.5b at full width and depth through the training
@@ -48,8 +50,9 @@ on its own line:
    tokens/s, peak memory and launches (E 196, G 1, B 197 a step; G 197 and
    K8 24 a tick), each tick's time, events and schedule; the loss must be
    finite and fall; one step of a 2-layer cut through the kernels and
-   through their plain versions, bitwise; then one full-depth in-graph
-   tick (``--ingraph-telemetry``: K9 197, K8 197, B 0) and, at the 2-layer
+   through their plain versions, bitwise; then 3 full-depth in-graph
+   ticks (``--ingraph-telemetry``: K9 197, K8 197, B 0 each; median and
+   spread of their times) and, at the 2-layer
    cut, the tagged step against the untagged one, bitwise; then the
    launcher's ``main`` under ``--policy perturbed --pp -2`` with a tick
    every step (eager, then in-graph), 3 full-depth steps each: the
@@ -290,21 +293,33 @@ def phase_build() -> str:
     return smi
 
 
-# The Hopper tile's kernels (csrc/qgemm_sm90.cuh) by library, and the
-# operand kinds of the training path, at which two 256-thread blocks (4
-# chunk groups) must be resident on an SM: K8 on int8 codes and on the
-# lm_head's f32 x and bf16 embed.T; B on codes with g as bf16 Q(g), and on
-# the lm_head's f32 x, bf16 w and f32 g.
-SM90_TILES = {"qgemm_stats": ("qgemm_stats_kernel", [(2, 2), (0, 1)]),
-              "bwd_pair": ("bwd_pair_kernel", [(2, 2, 1), (0, 1, 0)])}
+# The Hopper tile's kernels (csrc/qgemm_sm90.cuh): (library, entry prefix
+# of its *_smem / *_occupancy functions, kernel, [(operand kinds, resident
+# 256-thread blocks an SM it must reach)]) at the training path's kinds:
+# K8 on int8 codes and on the lm_head's f32 x and bf16 embed.T; E on its
+# bf16 scratches; B and K9 on codes with g as bf16 Q(g), and on the
+# lm_head's f32 x, bf16 w and f32 g, where K9's shadow carry leaves room
+# for one block (reported, not required to be two).
+SM90_TILES = [
+    ("qgemm_stats", "qgemm_stats", "qgemm_stats_kernel", [((2, 2), 2), ((0, 1), 2)]),
+    ("qgemm_emitq", "qgemm_emitq", "qgemm_emitq_kernel", [((), 2)]),
+    ("bwd_pair", "bwd_pair", "bwd_pair_kernel", [((2, 2, 1), 2), ((0, 1, 0), 2)]),
+    ("bwd_pair", "bwd_pair_stats", "bwd_pair_stats_kernel",
+     [((2, 2, 1), 2), ((0, 1, 0), 1)]),
+]
+_TILE_KERNEL = re.compile(r"(qgemm_stats_kernel|qgemm_emitq_kernel|"
+                          r"bwd_pair_stats_kernel|bwd_pair_kernel)"
+                          r"(?:I(.*?)EEv|E)")
 
 
 def _tile_name(fn: str):
-    """``kernel<types>`` of a mangled instantiation of a Hopper tile kernel,
-    or None."""
-    m = re.search(r"(qgemm_stats_kernel|bwd_pair_kernel)I(.*?)EEv", fn)
+    """``kernel<types>`` of a mangled instantiation of a Hopper tile kernel
+    (``kernel`` alone for one that is not a template), or None."""
+    m = _TILE_KERNEL.search(fn)
     if m is None:
         return None
+    if m.group(2) is None:
+        return m.group(1)
     args, names = m.group(2), []
     while args:
         sub = re.match(r"13__nv_bfloat16|S\d*_", args)
@@ -337,10 +352,10 @@ def sm90_report(build) -> None:
     """Registers and spill bytes of every instantiation of the Hopper tile
     (from ptxas), the dynamic shared memory and resident blocks an SM at 4
     chunk groups at the training path's operand kinds; fails on a spill or
-    on fewer than two resident blocks there."""
+    on fewer resident blocks than ``SM90_TILES`` asks there."""
     import ctypes
 
-    for lib, (kernel, kinds) in SM90_TILES.items():
+    for lib in dict.fromkeys(lib for lib, *_ in SM90_TILES):
         log = build._lib_path(lib).with_suffix(".log").read_text()
         for fn, (regs, spill) in sorted(_ptxas_entries(log).items()):
             name = _tile_name(fn)
@@ -349,15 +364,17 @@ def sm90_report(build) -> None:
             print(f"[build] sm90 {name}: {regs} registers, {spill} spill "
                   f"bytes", flush=True)
             check(spill == 0, f"{name} spills {spill} bytes")
-        args = [ctypes.c_int] * (len(kinds[0]) + 1)
-        smem = build.function(lib, f"{lib}_smem", args)
-        occ = build.function(lib, f"{lib}_occupancy", args)
-        for k in kinds:
+    for lib, entry, kernel, kinds in SM90_TILES:
+        args = [ctypes.c_int] * (len(kinds[0][0]) + 1)
+        smem = build.function(lib, f"{entry}_smem", args)
+        occ = build.function(lib, f"{entry}_occupancy", args)
+        for k, need in kinds:
             n = occ(*k, 4)
             print(f"[build] sm90 {kernel} kinds {k} at 4 chunk groups (256 "
                   f"threads): {smem(*k, 4)} bytes of dynamic shared memory, "
-                  f"{n} resident blocks an SM", flush=True)
-            check(n >= 2, f"{kernel} kinds {k}: {n} resident blocks an SM")
+                  f"{n} resident blocks an SM (at least {need} required)",
+                  flush=True)
+            check(n >= need, f"{kernel} kinds {k}: {n} resident blocks an SM")
 
 
 # --------------------------------------------------------------------------
@@ -1069,15 +1086,19 @@ def _k3_pair_ms(g, x, w, qc) -> float:
 
 
 def sm90_line(tag, t, k, n, b_ms, k9_ms, k3_ms, k8_ms, fwd_ms, fwd) -> None:
-    """One shape's line for the Hopper tile: B beside K9 (the old tile,
-    the same math plus stats) and K3's BWD + GRAD, K8 beside the forward
-    kernel on the old tile (E, or G for the lm_head), each new kernel with
-    its f32-FMA bound and the share of it reached."""
+    """One shape's line for the Hopper tile: B beside K9 (the same grid
+    and tile plus the stats shadow, so K9 over B is the stats overhead)
+    and K3's BWD + GRAD; the forward kernel (E on the same tile, or G on
+    the old one for the lm_head) beside K8 (K8 over E is the stats
+    overhead); each kernel with the share of its f32-FMA bound."""
     fb = 4 * t * k * n / F32_FLOPS * 1e3
+    ff = fb / 2
     print(f"  sm90 {tag} T={t} K={k} N={n}: B {b_ms:.4f} ms ({fb / b_ms:.3f}"
-          f" of its f32-FMA bound {fb:.4f} ms) vs K9 {k9_ms:.4f} ms vs K3 "
-          f"BWD+GRAD {k3_ms:.4f} ms; K8 {k8_ms:.4f} ms ({fb / 2 / k8_ms:.3f}"
-          f" of {fb / 2:.4f} ms) vs {fwd} {fwd_ms:.4f} ms", flush=True)
+          f" of its f32-FMA bound {fb:.4f} ms), K9 {k9_ms:.4f} ms "
+          f"({fb / k9_ms:.3f}; {k9_ms / b_ms:.3f}x B), K3 BWD+GRAD "
+          f"{k3_ms:.4f} ms; {fwd} {fwd_ms:.4f} ms ({ff / fwd_ms:.3f} of "
+          f"{ff:.4f} ms), K8 {k8_ms:.4f} ms ({ff / k8_ms:.3f}; "
+          f"{k8_ms / fwd_ms:.3f}x {fwd})", flush=True)
 
 
 def phase_train_kernels(dev) -> dict:
@@ -1120,9 +1141,12 @@ def phase_train_kernels(dev) -> dict:
         ry, rxq, rwq = qmatmul_fused_reference(x, w, return_quantized=True,
                                                **ekw)
         e_err = max(e_err, compare(f"E {tag} K={k} N={n} random", y, ry,
-                                   m_f, ekw["e_acc"], bitwise=False))
+                                   m_f, ekw["e_acc"], bitwise=True))
         check(torch.equal(xq, rxq) and torch.equal(wq, rwq),
               f"E {tag}: codes differ from pack_block")
+        compare(f"E {tag} vs K8 on the same operands", y, qmatmul_fused(
+            x, w, collect_stats=True, **ekw)[0], m_f, ekw["e_acc"],
+            bitwise=True)
         dx, dw = qmatmul_bwd_pair(g, xq, wq, **bkw)
         rdx, rdw = qmatmul_bwd_pair_reference(g, xq, wq, **bkw)
         b_err = max(b_err, compare(f"B dx {tag} random", dx, rdx, mb, eb,
@@ -1135,8 +1159,8 @@ def phase_train_kernels(dev) -> dict:
                             **ekw)
         rlat = qmatmul_fused_reference(xl, wl.to(torch.bfloat16),
                                        return_quantized=True, **ekw)
-        compare(f"E {tag} lattice", lat[0], rlat[0], m_f, ekw["e_acc"],
-                bitwise=True)
+        e_err = max(e_err, compare(f"E {tag} lattice", lat[0], rlat[0], m_f,
+                                   ekw["e_acc"], bitwise=True))
         check(torch.equal(lat[1], rlat[1]) and torch.equal(lat[2], rlat[2]),
               f"E {tag} lattice: codes differ")
         for got, want, (e_, m_), r in zip(
@@ -1620,14 +1644,18 @@ def phase_train_vs_plain(dev) -> None:
     check(same == len(leaves), "a gradient differs between kernels and plain")
 
 
+INGRAPH_TICKS = 3
+
+
 def phase_train_ingraph(dev, steady_step_ms: float) -> dict:
-    """One full-depth in-graph telemetry tick (``--ingraph-telemetry``:
-    ``InGraphTelemetry.tick``, the tagged step in the normal step's place):
-    its time against the steady untagged step, its peak memory, and its
-    launches (every qdot backward through K9 and a K8 FWD replay, no B).
-    Then, at the 2-layer full-width cut (batch 2 x seq 64), the tagged
-    step against the untagged step from the same state: loss and every
-    state leaf bitwise."""
+    """``INGRAPH_TICKS`` full-depth in-graph telemetry ticks in a row
+    (``--ingraph-telemetry``: ``InGraphTelemetry.tick``, the tagged step in
+    the normal step's place), each on the next batch: their median time
+    and spread against the steady untagged step, their peak memory, and
+    each tick's launches (every qdot backward through K9 and a K8 FWD
+    replay, no B).  Then, at the 2-layer full-width cut (batch 2 x seq
+    64), the tagged step against the untagged step from the same state:
+    loss and every state leaf bitwise."""
     import copy
 
     from repro_torch.launch.train import build, build_telemetry
@@ -1649,31 +1677,43 @@ def phase_train_ingraph(dev, steady_step_ms: float) -> dict:
     want = {"qmatmul_fused": 1, E_NAME: n_qdot - 1, "qmatmul_bwd_pair": 0,
             K7_NAME: 0, K8_NAME: n_qdot, K9_NAME: n_qdot}
     counters = _train_counters()
-    batch = next(data)
-    ingraph.stats_step(model)       # build the tagged step outside the clock
-    torch.cuda.synchronize()
+    total = {k: 0 for k in counters}
+    tick_ms, replanned = [], 0
     torch.cuda.reset_peak_memory_stats()
-    zero_counts(counters)
-    t0 = time.perf_counter()
-    state, m, events, new_model = ingraph.tick(model, state, batch, step=1)
-    loss = float(m["loss"])
-    torch.cuda.synchronize()
-    tick_ms = (time.perf_counter() - t0) * 1e3
-    per = read_counts(counters)
+    for i in range(INGRAPH_TICKS):
+        batch = next(data)
+        ingraph.stats_step(model)   # build the tagged step outside the clock
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        state, m, events, new_model = ingraph.tick(model, state, batch,
+                                                   step=i + 1)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        per = read_counts(counters)
+        kinds = {}
+        for e in events:
+            kinds[e["event"]] = kinds.get(e["event"], 0) + 1
+        print(f"[train] in-graph tick {i + 1}, full depth: {tick_ms[-1]:.1f} "
+              f"ms, loss {loss:.5f}, events {kinds} over "
+              f"{len({(e['gemm'], e['role']) for e in events})} (field, "
+              f"role) keys, re-planned {new_model is not None}, launches "
+              f"{per}", flush=True)
+        check(per == want, f"in-graph tick launches {per} != {want}")
+        check(math.isfinite(loss), "in-graph tick: non-finite loss")
+        check(len(events) == 15, f"in-graph tick gave {len(events)} verdicts")
+        for k, v in per.items():
+            total[k] += v
+        if new_model is not None:
+            model, replanned = new_model, replanned + 1
     peak = torch.cuda.max_memory_allocated()
-    kinds = {}
-    for e in events:
-        kinds[e["event"]] = kinds.get(e["event"], 0) + 1
-    print(f"[train] in-graph tick, full depth: {tick_ms:.1f} ms "
-          f"({tick_ms / steady_step_ms:.3f} of the steady untagged step's "
-          f"{steady_step_ms:.1f} ms), loss {loss:.5f}, peak memory "
-          f"{peak / 2 ** 30:.2f} GiB, events {kinds} over "
-          f"{len({(e['gemm'], e['role']) for e in events})} (field, role) "
-          f"keys, re-planned {new_model is not None}, launches {per}",
-          flush=True)
-    check(per == want, f"in-graph tick launches {per} != {want}")
-    check(math.isfinite(loss), "in-graph tick: non-finite loss")
-    check(len(events) == 15, f"in-graph tick gave {len(events)} verdicts")
+    med = float(np.median(tick_ms))
+    print(f"[train] in-graph tick, full depth, {INGRAPH_TICKS} ticks: median "
+          f"{med:.1f} ms [{min(tick_ms):.1f}-{max(tick_ms):.1f}] "
+          f"({med / steady_step_ms:.3f} of the steady untagged step's "
+          f"{steady_step_ms:.1f} ms), peak memory {peak / 2 ** 30:.2f} GiB, "
+          f"re-planned {replanned} times, launches {total}", flush=True)
     del state, m
     torch.cuda.empty_cache()
 
@@ -1706,7 +1746,7 @@ def phase_train_ingraph(dev, steady_step_ms: float) -> dict:
     check(same == len(leaves), "tagged step changed the state")
     check(len(rows) == 15 and all(r[0] > 0 for r in rows.values()),
           "tagged step: a window is missing or empty")
-    return dict(tick_ms=tick_ms, launches=per, peak=peak)
+    return dict(tick_ms=med, ticks_ms=tick_ms, launches=total, peak=peak)
 
 
 REPLAN_STEPS = 3
@@ -2463,7 +2503,7 @@ def main() -> None:
              replaces="src/repro/kernels/attention.py:930",
              launches=one["launches"]["flash_prefill_paged"], **p),
         dict(name=E_NAME, route="cuda",
-             source="src/repro_torch/csrc/qgemm.cu",
+             source="src/repro_torch/csrc/qgemm_emitq.cu",
              replaces="src/repro/kernels/fused.py:136",
              launches=tr["launches"][E_NAME], **tk["E"]),
         dict(name="qmatmul_bwd_pair", route="cuda",
@@ -2476,8 +2516,8 @@ def main() -> None:
              source="src/repro_torch/csrc/bwd_pair.cu",
              replaces="src/repro/kernels/bwd_pair.py:155",
              launches=tr["launches"][K7_NAME], **tk["K7"]),
-        # the stats kernels: K8 on the eager ticks and the in-graph tick,
-        # K9 on the in-graph tick, K12 on the serve monitor's ticks
+        # the stats kernels: K8 on the eager ticks and the in-graph ticks,
+        # K9 on the in-graph ticks, K12 on the serve monitor's ticks
         dict(name=K8_NAME, route="cuda",
              source="src/repro_torch/csrc/qgemm_stats.cu",
              replaces="src/repro/kernels/fused.py:174",

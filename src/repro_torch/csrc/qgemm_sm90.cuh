@@ -1,7 +1,8 @@
-// The Hopper tile of K8 (qgemm_stats.cu) and of the backward pair B
-// (bwd_pair.cu, whose dx carry-in entry is K7): one thread block computes
+// The Hopper tile of the training path's GEMMs: E (qgemm_emitq.cu), K8
+// (qgemm_stats.cu), and the backward pair B and its stats variant K9
+// (bwd_pair.cu; B's dx carry-in entry is K7).  One thread block computes
 // one 64 x 64 tile of C = Q(A) . Q(B) with a chunked (1, e_acc, m_acc)
-// carry, bitwise qgemm_core.cuh's tile and the plain versions.
+// carry, bitwise G's tile (qgemm_core.cuh) and the plain versions.
 //
 // The contract per output: within a chunk (length `chunk` from k = 0; a
 // ragged last chunk folds what it has) part = fma(a_k, b_k, part) in
@@ -162,6 +163,14 @@ __device__ __forceinline__ float quant(float x, const Quant& q) {
   y = __uint_as_float(__float_as_uint(y) | (xb & 0x80000000u));
   y = isnan(x) ? x : y;
   return q.identity ? x : y;
+}
+
+// v, a value of a format with at most 7 mantissa and 8 exponent bits, as
+// the bf16 of the same value (exact: such values are a subset of bf16's);
+// NaN as the canonical 0x7fc0.  The operand scratches of E and B/K9.
+__device__ __forceinline__ __nv_bfloat16 bf16_exact(float v) {
+  return __ushort_as_bfloat16(
+      isnan(v) ? (unsigned short)0x7fc0u : (unsigned short)(__float_as_uint(v) >> 16));
 }
 
 // unpack_code (common.cuh) of the code in the low byte of b: a non-zero

@@ -10,9 +10,9 @@
 //   carry   = q_acc(carry + partial)
 //
 // once per chunk (a ragged last chunk folds what it has).  This is its own
-// tile loop, written apart from qgemm_core.cuh, so that the oracle on the
-// card checks G, E and B against an independent kernel; the operation
-// sequence per output is the same by design.
+// tile loop, written apart from qgemm_core.cuh and qgemm_sm90.cuh, so that
+// the oracle on the card checks G, E and B against an independent kernel;
+// the operation sequence per output is the same by design.
 //
 // A block computes a 64 x 64 tile of C with 256 threads, each holding a
 // 4 x 4 patch of partials and carries in registers.  K is staged 16 values

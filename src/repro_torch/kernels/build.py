@@ -28,12 +28,13 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 # kernel library name -> source file in csrc/ (each includes common.cuh;
-# qgemm.cu, G and E, and bwd_pair.cu's stats variant K9 share
-# qgemm_core.cuh; qgemm_stats.cu, K8's kernel, and bwd_pair.cu's B share
-# the Hopper tile qgemm_sm90.cuh; the oracle's quantize.cu (K2) and
-# qmatmul.cu (K3), and flash_prefill.cu (K10), stand alone)
+# qgemm.cu, G, runs qgemm_core.cuh; qgemm_emitq.cu (E), qgemm_stats.cu
+# (K8) and bwd_pair.cu (B and K9) run the Hopper tile qgemm_sm90.cuh; the
+# oracle's quantize.cu (K2) and qmatmul.cu (K3), and flash_prefill.cu
+# (K10), stand alone)
 KERNELS = {
     "qgemm": "qgemm.cu",
+    "qgemm_emitq": "qgemm_emitq.cu",
     "qgemm_stats": "qgemm_stats.cu",
     "bwd_pair": "bwd_pair.cu",
     "paged_decode": "paged_decode.cu",

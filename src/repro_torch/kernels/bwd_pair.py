@@ -35,12 +35,15 @@ quantized once a call into a bf16 scratch (Q(Q(v)) = Q(v), and such a
 format's values are exact in bf16), which both roles then land and widen.
 
 ``collect_stats=True`` is K9's port (``bwd_pair_stats`` in the same
-source, replacing ``_pair_kernel_stats``, still on ``qgemm_core.cuh``'s
-tile): the same dx and dw, bitwise,
-plus a (2, N_STATS) float32 stats row, row 0 the dx (BWD) accumulator and
-row 1 the dw (GRAD) one, each from f32 shadow carries of the same
-partials; the dx tiles' and dw tiles' partial rows are summed apart by a
-fixed-order second pass.
+source, replacing ``_pair_kernel_stats``): B's grid, schedule and Q(g)
+scratch on the same tile with its shadow carries, so dx and dw are B's,
+bitwise, plus a (2, N_STATS) float32 stats row, row 0 the dx (BWD)
+accumulator and row 1 the dw (GRAD) one, each from f32 shadow carries of
+the same partials; every block writes its tile's partial row, and the dx
+tiles' and dw tiles' rows are summed apart by a fixed-order second pass.
+The shadow carry takes a second 16 KiB tile a block: at the layers'
+operands two 256-thread blocks still fit an SM, at the lm_head's (f32 x
+and g) one does (``kernels.sm90.pair_schedule``).
 
 On CPU tensors the wrappers run the plain PyTorch version; on CUDA tensors
 they launch the kernel or raise.
@@ -146,13 +149,24 @@ _ARGTYPES = ([_P, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _P, _P,
 
 _STATS_ARGTYPES = ([_P, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I]
-                   + [_I, _I, _F, _F] * 2 + [_P, _P, _P])
+                   + [_I, _I, _F, _F] * 2 + [_I, _P, _P, _P, _P])
 
 
 def _check_devices(*ts):
     devs = {t.device for t in ts if t is not None}
     if len(devs) != 1 or not ts[0].is_cuda:
         raise ValueError(f"operands on {sorted(map(str, devs))}")
+
+
+def _g_scratch(g, fmt, quantize_g):
+    """(quant, e_r, m_r, gq): whether g is quantized, the representation
+    format, and the [T, N] bf16 scratch that takes Q(g) once a call (exact
+    for formats of at most 7 mantissa bits), or None."""
+    quant = quantize_g and fmt is not None
+    e_r, m_r = fmt or _WIDE
+    gq = (torch.empty(g.shape, dtype=torch.bfloat16, device=g.device)
+          if quant and m_r <= 7 else None)
+    return quant, e_r, m_r, gq
 
 
 def _launch_stats(g, xq, wq, *, fmt, bwd_acc, grad_acc, bwd_chunk,
@@ -172,15 +186,18 @@ def _launch_stats(g, xq, wq, *, fmt, bwd_acc, grad_acc, bwd_chunk,
     if blocks < 0:
         raise ValueError(f"pair of {t}x{k}x{n} needs too many blocks")
     part = torch.empty((blocks, N_STATS), dtype=torch.float64, device=dev)
-    quant = quantize_g and fmt is not None
-    e_r, m_r = fmt or _WIDE
+    quant, e_r, m_r, gq = _g_scratch(g, fmt, quantize_g)
+    sched = sm90.pair_schedule(t, k, n, bwd_chunk, grad_chunk,
+                               _KINDS[xq.dtype], _KINDS[wq.dtype],
+                               0 if gq is None else 1, stats=True)
     rc = build.function("bwd_pair", "bwd_pair_stats", _STATS_ARGTYPES)(
         g.data_ptr(), g.stride(0), g.stride(1),
         xq.data_ptr(), _KINDS[xq.dtype], xq.stride(0), xq.stride(1),
         wq.data_ptr(), _KINDS[wq.dtype], wq.stride(0), wq.stride(1),
         dx.data_ptr(), dw.data_ptr(), t, k, n, bwd_chunk, grad_chunk,
         e_r, m_r, *qfmt_args(fmt or _WIDE), int(quant),
-        *qfmt_args(bwd_acc), *qfmt_args(grad_acc), part.data_ptr(),
+        *qfmt_args(bwd_acc), *qfmt_args(grad_acc), sched.groups,
+        None if gq is None else gq.data_ptr(), part.data_ptr(),
         rows.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bwd_pair_stats launch failed: CUDA error {rc}")
@@ -205,11 +222,7 @@ def _launch(g, xq, wq, dx_carry, *, fmt, bwd_acc, grad_acc, bwd_chunk,
             dx.copy_(carry)
         dw.zero_()
         return dx, dw
-    quant = quantize_g and fmt is not None
-    e_r, m_r = fmt or _WIDE
-    # Q(g) once into bf16 (exact for formats of at most 7 mantissa bits)
-    gq = (torch.empty((t, n), dtype=torch.bfloat16, device=dev)
-          if quant and m_r <= 7 else None)
+    quant, e_r, m_r, gq = _g_scratch(g, fmt, quantize_g)
     sched = sm90.pair_schedule(t, k, n, bwd_chunk, grad_chunk,
                                _KINDS[xq.dtype], _KINDS[wq.dtype],
                                0 if gq is None else 1)

@@ -1,19 +1,19 @@
-"""Fused quantized GEMM with a chunked low-precision carry: G and E.
+"""Fused quantized GEMM with a chunked low-precision carry: G, E and K8.
 
 G replaces the TPU kernel ``repro/kernels/fused.py::_fused_kernel`` (RNE
 carry, f32 or bf16 operands, no ``out_fmt``/``pack_out`` epilogue); E
 replaces ``_fused_kernel_emitq``, the training forward, which also emits
-the int8 codes of both quantized operands for the backward.  Both are the
-CUDA C++ kernels of ``csrc/qgemm.cu``::
+the int8 codes of both quantized operands for the backward.  G is the CUDA
+C++ kernel of ``csrc/qgemm.cu``, E that of ``csrc/qgemm_emitq.cu``::
 
     C[M, N] = sum over chunks of K:  carry = q_acc(carry + Q(A_c) @ Q(B_c))
 
-``Q`` rounds each operand tile to ``repr_fmt`` (skipped when it is None)
-right after the tile lands in shared memory; the intra-chunk partial is an
-f32 sum in increasing k order kept apart from the carry, and the carry is
-rounded to (1, e_acc, m_acc) once per ``block_k`` (= the plan's chunk)
-products.  Products of (1,5,2) values, and of bf16 values, are exact in
-f32, so a fused multiply-add equals a multiply then add here.
+``Q`` rounds each operand to ``repr_fmt`` (skipped when it is None) before
+it enters a product; the intra-chunk partial is an f32 sum in increasing k
+order kept apart from the carry, and the carry is rounded to (1, e_acc,
+m_acc) once per ``block_k`` (= the plan's chunk) products.  Products of
+(1,5,2) values, and of bf16 values, are exact in f32, so a fused
+multiply-add equals a multiply then add here.
 
 What bounds it on the H100: at decode (M = max_batch = 8) every GEMM reads
 its whole weight once: the 197 GEMMs of one qwen2-1.5b decode step read
@@ -22,30 +22,37 @@ negligible.  At training (M = 512 tokens) it is the arithmetic, in f32 on
 the CUDA cores: the bitwise contract fixes each chunk's partial to the
 sequential round-to-nearest f32 chain, which a tensor-core MMA (``wgmma``,
 ``mma.sync``) does not form, so the tensor cores are not an option for
-these kernels.  G and E run ``csrc/qgemm_core.cuh``'s first, simple tile:
-it reads the bf16 weights straight from their row-major (K, N) layout (or
-the tied embedding through its transposed strides, so no 467 MB copy is
-made per step), converts and quantizes them in shared memory, and keeps
-the carry in registers; each block prefetches its next K tile into
-registers while it computes the current one, and there is no split over
-K, so a GEMM with few N tiles runs on few SMs.
+these kernels.
+
+G runs ``csrc/qgemm_core.cuh``'s first, simple tile: it reads the bf16
+weights straight from their row-major (K, N) layout (or the tied
+embedding through its transposed strides, so no 467 MB copy is made per
+step), converts and quantizes them in shared memory, and keeps the carry
+in registers; each block prefetches its next K tile into registers while
+it computes the current one, and there is no split over K, so a GEMM
+with few N tiles runs on few SMs.
+
+E and K8 run the Hopper tile ``csrc/qgemm_sm90.cuh``: 8 x 8 partials a
+thread in registers, the carries in shared memory, chunk groups that form
+the partials of different chunks of one tile at once and fold them in
+chunk order (``kernels.sm90`` picks the groups from the shape), operands
+landed by ``cp.async`` in their stored type.  E (``csrc/qgemm_emitq.cu``)
+first runs one quantize-and-pack pass over both operands: it writes the
+int8 codes, each once, and bf16 scratches of Q(A) and Q(B) (exact for a
+packable format; NaN stays NaN), on which the tile then runs with nothing
+left to quantize.  C is bitwise G's and K8's.
 
 ``collect_stats=True`` is K8's port (``csrc/qgemm_stats.cu``, replacing
-``_fused_kernel_stats``) on the Hopper tile ``csrc/qgemm_sm90.cuh``: 8 x 8
-partials a thread in registers, the carries in shared memory, chunk groups
-that form the partials of different chunks of one tile at once and fold
-them in chunk order (``kernels.sm90`` picks the groups from the shape),
-operands landed by ``cp.async`` in their stored type.  The same C as G,
-bitwise, plus the swamping-telemetry stats row (``kernels.common.N_STATS``)
-of the carry against an f32 shadow carry of the same partials.  Its
-operands may also be int8 codes of
-``repr_fmt`` (``a_packed``/``b_packed``: the saved residuals of the
-in-graph telemetry's FWD replay), and ``quantize_a``/``quantize_b`` turn
-the operand quantization off per operand (the telemetry probe's backward
-roles, whose residual operand is already quantized).  Every block of the
-kernel reduces its tile to a partial row in float64 and a second, fixed-
-order pass sums the rows and rounds once to float32, so the row is the
-same bits on every launch.
+``_fused_kernel_stats``): the same C as G, bitwise, plus the
+swamping-telemetry stats row (``kernels.common.N_STATS``) of the carry
+against an f32 shadow carry of the same partials.  Its operands may also
+be int8 codes of ``repr_fmt`` (``a_packed``/``b_packed``: the saved
+residuals of the in-graph telemetry's FWD replay), and
+``quantize_a``/``quantize_b`` turn the operand quantization off per
+operand (the telemetry probe's backward roles, whose residual operand is
+already quantized).  Every block of the kernel reduces its tile to a
+partial row in float64 and a second, fixed-order pass sums the rows and
+rounds once to float32, so the row is the same bits on every launch.
 
 On CPU tensors each wrapper runs its plain PyTorch version; on CUDA tensors
 it launches its kernel or raises.
@@ -317,11 +324,13 @@ def _check_cuda(a, b, block_k) -> None:
 
 
 _EMITQ_ARGTYPES = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I,
-                   _I, _I, _I, _I, _F, _F, _I, _I, _F, _F, _P, _P, _P]
+                   _I, _I, _I, _I, _F, _F, _I, _I, _F, _F, _I, _P, _P, _P, _P,
+                   _P]
 
 
 def _emitq(a, b, *, repr_fmt, e_acc, m_acc, block_k):
-    """Kernel E, ``qmatmul_fused(..., return_quantized=True)``."""
+    """Kernel E, ``qmatmul_fused(..., return_quantized=True)``: the
+    quantize-and-pack pass, then the GEMM; one count a call."""
     _check(a, b)
     fmt = fmt_tuple(repr_fmt)
     _check_packable(fmt)
@@ -332,18 +341,24 @@ def _emitq(a, b, *, repr_fmt, e_acc, m_acc, block_k):
     _check_cuda(a, b, block_k)
     m, k = a.shape
     n = b.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    aq = torch.empty((m, k), dtype=torch.int8, device=a.device)
-    bq = torch.empty((k, n), dtype=torch.int8, device=a.device)
+    dev = a.device
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    aq = torch.empty((m, k), dtype=torch.int8, device=dev)
+    bq = torch.empty((k, n), dtype=torch.int8, device=dev)
     if m == 0 or n == 0 or k == 0:
         out.zero_()
         return out, aq, bq
-    rc = build.function("qgemm", "qgemm_emitq", _EMITQ_ARGTYPES)(
+    # the bf16 values of Q(A) and Q(B) the GEMM reads
+    qa = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
+    qb = torch.empty((k, n), dtype=torch.bfloat16, device=dev)
+    sched = sm90.emitq_schedule(m, n, k, block_k)
+    rc = build.function("qgemm_emitq", "qgemm_emitq", _EMITQ_ARGTYPES)(
         a.data_ptr(), _DTYPES[a.dtype], a.stride(0), a.stride(1),
         b.data_ptr(), _DTYPES[b.dtype], b.stride(0), b.stride(1),
         out.data_ptr(), m, n, k, block_k, fmt[0], fmt[1], *qfmt_args(fmt),
-        *qfmt_args((e_acc, m_acc)), aq.data_ptr(), bq.data_ptr(),
-        torch.cuda.current_stream(a.device).cuda_stream)
+        *qfmt_args((e_acc, m_acc)), sched.groups, aq.data_ptr(),
+        bq.data_ptr(), qa.data_ptr(), qb.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qgemm_emitq launch failed: CUDA error {rc}")
     qmatmul_fused.emitq_launches += 1

@@ -15,8 +15,9 @@ this is a plain chunked f32 GEMM, the oracle's wide roles.
 It is the GEMM of the unfused ``qdot`` oracle (``kernels.ops``,
 ``QDotConfig(fused=False)``): FWD ``Q(x) @ Q(w)``, BWD ``Q(g) @ Q(w)^T``
 and GRAD ``Q(x)^T @ Q(g)``, the operands already quantized by K2 (or raw,
-where ``repr_fmt`` is None).  Its tile loop is written apart from G, E and
-B's (``csrc/qgemm_core.cuh``), so the oracle on the card is an independent
+where ``repr_fmt`` is None).  Its tile loop is written apart from G's
+(``csrc/qgemm_core.cuh``) and from E, K8, B and K9's
+(``csrc/qgemm_sm90.cuh``), so the oracle on the card is an independent
 check of them; the operation sequence of each output is the same.
 
 The bound of its work on the H100 (``chip_smoke.py``, PERF.md section 6)

@@ -1,4 +1,4 @@
-"""Schedule of the Hopper tile ``csrc/qgemm_sm90.cuh`` (K8 and B).
+"""Schedule of the Hopper tile ``csrc/qgemm_sm90.cuh`` (E, K8, B and K9).
 
 One thread block computes one ``TILE`` x ``TILE`` output tile with
 ``groups`` chunk groups of ``GROUP_THREADS`` threads; group g forms the
@@ -17,8 +17,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 __all__ = ["TILE", "KT", "GROUP_THREADS", "SMEM_LIMIT", "Schedule",
-           "chunk_groups", "gemm_schedule", "pair_schedule", "gemm_tile",
-           "pair_tile", "pair_blocks"]
+           "chunk_groups", "gemm_schedule", "emitq_schedule", "pair_schedule",
+           "gemm_tile", "pair_tile", "pair_blocks"]
 
 TILE = 64               # output rows and columns of a block
 KT = 16                 # K values a pipeline step stages
@@ -71,17 +71,24 @@ class Schedule:
 
 
 def gemm_schedule(m: int, n: int, k: int, chunk: int, a_kind: int,
-                  b_kind: int) -> Schedule:
-    """K8's launch for C[m, n] over k in chunks of ``chunk``."""
+                  b_kind: int, stats: bool = True) -> Schedule:
+    """K8's launch for C[m, n] over k in chunks of ``chunk`` (without the
+    shadow carry's tile when not ``stats``)."""
     stage = stage_bytes(a_kind, b_kind)
     g = chunk_groups(_chunks(k, chunk))
-    return Schedule(g, ring_stages(stage), smem_bytes(stage, g, True),
+    return Schedule(g, ring_stages(stage), smem_bytes(stage, g, stats),
                     _tiles(m) * _tiles(n))
 
 
+def emitq_schedule(m: int, n: int, k: int, chunk: int) -> Schedule:
+    """E's GEMM launch: K8's grid without stats, on the bf16 scratches of
+    Q(A) and Q(B) that E's pass writes."""
+    return gemm_schedule(m, n, k, chunk, 1, 1, stats=False)
+
+
 def gemm_tile(block: int, m: int, n: int) -> tuple[int, int]:
-    """Origin (m0, n0) of K8's block ``block`` (row-major over the grid's
-    (y, x) = (m tiles, n tiles))."""
+    """Origin (m0, n0) of K8's or E's block ``block`` (row-major over the
+    grid's (y, x) = (m tiles, n tiles))."""
     return (block // _tiles(n)) * TILE, (block % _tiles(n)) * TILE
 
 
@@ -102,12 +109,14 @@ def pair_tile(block: int, t: int, k: int, n: int) -> tuple[str, int, int]:
 
 
 def pair_schedule(t: int, k: int, n: int, bwd_chunk: int, grad_chunk: int,
-                  x_kind: int, w_kind: int, g_kind: int) -> Schedule:
-    """B's launch: dx sums N in ``bwd_chunk``s, dw sums T in
+                  x_kind: int, w_kind: int, g_kind: int,
+                  stats: bool = False) -> Schedule:
+    """B's launch (K9's with ``stats``, the same grid with the shadow
+    carry's tile): dx sums N in ``bwd_chunk``s, dw sums T in
     ``grad_chunk``s; one block size for both roles, so the groups follow
     the longer role's chunk count, and one ring step holds either role's
     tiles (g f32, or bf16 when Q(g) is formed once first)."""
     stage = max(stage_bytes(g_kind, w_kind), stage_bytes(x_kind, g_kind))
     g = chunk_groups(max(_chunks(n, bwd_chunk), _chunks(t, grad_chunk)))
-    return Schedule(g, ring_stages(stage), smem_bytes(stage, g, False),
+    return Schedule(g, ring_stages(stage), smem_bytes(stage, g, stats),
                     pair_blocks(t, k, n)[1])

@@ -472,7 +472,7 @@ def test_stats_wrappers_raise_on_the_card(dev):
 
 
 # --------------------------------------------------------------------------
-# the Hopper tile of K8 and B (csrc/qgemm_sm90.cuh): every schedule it can
+# the Hopper tile of E, K8, B and K9 (csrc/qgemm_sm90.cuh): every schedule it can
 # pick, reached through the shapes that select it
 # --------------------------------------------------------------------------
 
@@ -593,6 +593,118 @@ def test_sm90_gemm_stats_schedules_match_plain(dev, m, k, n, chunk, kind,
         _stats_ok(row, prow)
 
 
+def _same(got, want):
+    """Bitwise as values, a NaN where the other has a NaN."""
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def _specials(x, gen):
+    """A copy of x with NaN, +-inf and an overflowing value at seeded
+    positions."""
+    x = x.contiguous().clone()
+    idx = torch.randperm(x.numel(), generator=gen, device=x.device)[:4]
+    x.view(-1)[idx] = torch.tensor([float("nan"), float("inf"),
+                                    -float("inf"), 1e9],
+                                   device=x.device).to(x.dtype)
+    return x
+
+
+@pytest.mark.parametrize("m,k,n,chunk,kind,groups", [
+    (37, 48, 80, 64, "f32", 1),       # K < chunk; ragged M and N
+    (70, 150, 130, 64, "bf16", 2),    # bf16 A; 3 chunks; pitches off 16 bytes
+    (100, 608, 96, 64, "f32", 4),     # K not a chunk multiple
+    (64, 304, 200, 20, "f32", 4),     # chunk 20 cuts the scratch's pieces
+    (48, 200, 70, 40, "views", 4),    # A and B transposed views
+    (40, 136, 72, 32, "specials", 4), # NaN, inf and overflow in A and B
+])
+def test_sm90_emitq_schedules_match_plain(dev, m, k, n, chunk, kind, groups):
+    """E on the Hopper tile at each chunk-group count, operand kind and
+    layout: C and both code tensors bitwise the plain version (NaN for
+    NaN) on random and lattice operands, and C bitwise K8's on the same
+    operands; one count a call."""
+    from repro_torch.kernels.sm90 import emitq_schedule
+
+    assert emitq_schedule(m, n, k, chunk).groups == groups
+    gen = torch.Generator(device=dev).manual_seed(m + 5 * k + n)
+    kw = dict(repr_fmt=FP8_152, e_acc=6, m_acc=5, block_k=chunk)
+    for lattice in (False, True):
+        a = _operand(gen, (m, k), dev, lattice)
+        b = (_operand(gen, (k, n), dev, lattice) / math.sqrt(k)).to(
+            torch.bfloat16)
+        if kind == "bf16":
+            a = a.to(torch.bfloat16)
+        elif kind == "views":
+            a, b = a.T.contiguous().T, b.T.contiguous().T
+        elif kind == "specials":
+            a, b = _specials(a, gen), _specials(b, gen)
+        n0 = qmatmul_fused.emitq_launches
+        c, aq, bq = qmatmul_fused(a, b, return_quantized=True, **kw)
+        pc, paq, pbq = qmatmul_fused_reference(a, b, return_quantized=True,
+                                               **kw)
+        k8, _ = qmatmul_fused(a, b, collect_stats=True, **kw)
+        torch.cuda.synchronize()
+        assert qmatmul_fused.emitq_launches == n0 + 1
+        assert torch.equal(aq, paq) and torch.equal(bq, pbq)
+        _same(c, pc)
+        _same(c, k8)
+        if kind == "specials":
+            assert bool(torch.isnan(c).any())
+
+
+@pytest.mark.parametrize("t,k,n,chunk,kind,groups", [
+    (40, 70, 50, 64, "int8", 1),      # K < chunk in both roles; ragged
+    (100, 130, 150, 64, "int8", 2),   # 3 and 2 chunks; pitches off 16 bytes
+    (96, 80, 520, 64, "int8", 4),     # 9 chunks, N not a chunk multiple
+    (64, 96, 200, 24, "int8", 4),     # chunk 24 cuts the codes' 16-byte pieces
+    (70, 96, 300, 100, "f32", 2),     # raw f32, x a transposed view, chunk 100
+    (48, 64, 1000, 64, "head", 4),    # f32 x, bf16 w behind the embed.T view
+    (33, 40, 260, 32, "bf16", 4),     # bf16 x and w
+])
+def test_sm90_bwd_pair_stats_schedules_match_plain(dev, t, k, n, chunk, kind,
+                                                  groups):
+    """K9 on the Hopper tile at each chunk-group count and residual kind:
+    dx and dw bitwise B's and the plain version's, both rows' counters and
+    MAX_ABS bitwise and sums within the bound, two launches identical."""
+    from repro_torch.kernels.bwd_pair import (
+        qmatmul_bwd_pair, qmatmul_bwd_pair_stats_reference)
+    from repro_torch.kernels.sm90 import pair_schedule
+
+    kinds = {"int8": (2, 2), "f32": (0, 0), "head": (0, 1), "bf16": (1, 1)}
+    assert pair_schedule(t, k, n, chunk, chunk, *kinds[kind],
+                         int(kind != "head"), stats=True).groups == groups
+    gen = torch.Generator(device=dev).manual_seed(3 * t + k + n)
+    packed = kind == "int8"
+    rf = None if kind == "head" else FP8_152
+    acc = (6, 9) if kind == "head" else (6, 5)
+    kw = dict(repr_fmt=rf, bwd_acc=acc, grad_acc=(6, 7), bwd_chunk=chunk,
+              grad_chunk=chunk, packed=packed, quantize_g=rf is not None)
+    for lattice in (False, True):
+        g = _operand(gen, (t, n), dev, lattice)
+        x = _operand(gen, (t, k), dev, lattice)
+        w = _operand(gen, (k, n), dev, lattice) / 8
+        if kind == "int8":
+            x, w = _codes(x), _codes(w)
+        elif kind == "f32":
+            x = x.T.contiguous().T
+        elif kind == "head":
+            w = w.to(torch.bfloat16).T.contiguous().T
+        else:
+            x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        n0 = qmatmul_bwd_pair.stats_launches
+        dx, dw, rows = qmatmul_bwd_pair(g, x, w, collect_stats=True, **kw)
+        dx2, dw2, rows2 = qmatmul_bwd_pair(g, x, w, collect_stats=True, **kw)
+        bdx, bdw = qmatmul_bwd_pair(g, x, w, **kw)
+        pdx, pdw, prows = qmatmul_bwd_pair_stats_reference(g, x, w, **kw)
+        torch.cuda.synchronize()
+        assert qmatmul_bwd_pair.stats_launches == n0 + 2
+        assert torch.equal(dx, bdx) and torch.equal(dw, bdw)
+        assert torch.equal(dx, pdx) and torch.equal(dw, pdw)
+        assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+        assert torch.equal(rows, rows2)
+        assert float(rows[0, 0]) == t * k and float(rows[1, 0]) == k * n
+        _stats_ok(rows, prows)
+
+
 def test_sm90_unpacks_every_code(dev):
     """The tile's int8 decode on all 256 codes of (1,5,2), along k and
     along mn: C = codes @ identity carries each code's value exactly."""
@@ -616,28 +728,39 @@ def test_sm90_smem_matches_schedule_and_two_blocks_fit(dev):
     """The kernels' shared memory a block equals kernels/sm90.py's mirror
     for every operand kind and group count, and at the training path's
     operands (int8 codes; the lm_head's f32 x and bf16 w) two 256-thread
-    blocks of B and of K8 are resident on an SM."""
+    blocks of B and of K8 are resident on an SM, and of E and of K9 at the
+    layers' operands; K9's lm_head call (f32 x and g) fits one."""
     import ctypes
 
     from repro_torch.kernels import build, sm90
 
-    i3, i4 = [ctypes.c_int] * 3, [ctypes.c_int] * 4
+    i1, i3, i4 = [ctypes.c_int], [ctypes.c_int] * 3, [ctypes.c_int] * 4
     k8_smem = build.function("qgemm_stats", "qgemm_stats_smem", i3)
     k8_occ = build.function("qgemm_stats", "qgemm_stats_occupancy", i3)
+    e_smem = build.function("qgemm_emitq", "qgemm_emitq_smem", i1)
+    e_occ = build.function("qgemm_emitq", "qgemm_emitq_occupancy", i1)
     b_smem = build.function("bwd_pair", "bwd_pair_smem", i4)
     b_occ = build.function("bwd_pair", "bwd_pair_occupancy", i4)
+    k9_smem = build.function("bwd_pair", "bwd_pair_stats_smem", i4)
+    k9_occ = build.function("bwd_pair", "bwd_pair_stats_occupancy", i4)
     for groups in (1, 2, 4):
         for a in (0, 1, 2):
             for b in (0, 1, 2):
                 assert k8_smem(a, b, groups) == sm90.smem_bytes(
                     sm90.stage_bytes(a, b), groups, True)
+        assert e_smem(groups) == sm90.emitq_schedule(
+            64, 64, 64 * groups, 64).smem
         for x, w in ((2, 2), (0, 0), (0, 1), (1, 1), (1, 0)):
             for g in (0, 1):
                 stage = max(sm90.stage_bytes(g, w), sm90.stage_bytes(x, g))
                 assert b_smem(x, w, g, groups) == sm90.smem_bytes(
                     stage, groups, False)
+                assert k9_smem(x, w, g, groups) == sm90.smem_bytes(
+                    stage, groups, True)
     assert k8_occ(2, 2, 4) >= 2 and k8_occ(0, 1, 4) >= 2
     assert b_occ(2, 2, 1, 4) >= 2 and b_occ(0, 1, 0, 4) >= 2
+    assert e_occ(4) >= 2 and k9_occ(2, 2, 1, 4) >= 2
+    assert k9_occ(0, 1, 0, 4) >= 1
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The schedule of the Hopper tile of K8 and B (``kernels/sm90.py``): the
+"""The schedule of the Hopper tile of E, K8, B and K9 (``kernels/sm90.py``): the
 shape-to-schedule logic and the sizes the kernels' launches take, on the
 CPU.  The kernels themselves run only on the card (``tests/test_torch_gpu.py``
 holds every schedule against the plain versions there)."""
@@ -104,3 +104,70 @@ def test_stats_workspace_is_one_row_a_tile():
     sched = sm90.gemm_schedule(m, n, 1536, 64, 0, 1)
     assert sched.blocks == -(-m // sm90.TILE) * -(-n // sm90.TILE) == 18992
     assert sched.blocks * N_STATS * 8 < 2 ** 24
+
+
+@pytest.mark.parametrize("m,n", [(37, 75), (64, 64), (100, 130), (512, 1536),
+                                 (512, 256), (1, 1)])
+def test_emitq_grid_covers_every_output_once(m, n):
+    """E's GEMM grid (K8's layout): every output in exactly one block."""
+    sched = sm90.emitq_schedule(m, n, 200, 64)
+    hits = torch.zeros((m, n), dtype=torch.int32)
+    for b in range(sched.blocks):
+        m0, n0 = sm90.gemm_tile(b, m, n)
+        assert m0 < m and n0 < n
+        hits[m0:m0 + sm90.TILE, n0:n0 + sm90.TILE] += 1
+    assert bool((hits == 1).all())
+
+
+@pytest.mark.parametrize("groups", [1, 2, 4])
+def test_emitq_and_k9_shared_memory_within_a_block_limit(groups):
+    """E's and K9's launches at each group count and operand kind stay
+    within a block's shared memory with a ring of two steps at least; K9
+    is B's schedule plus the shadow carry's tile."""
+    k = 64 * groups                 # chunks of 64: `groups` of them
+    e = sm90.emitq_schedule(64, 64, k, 64)
+    assert e.groups == groups and e.smem <= sm90.SMEM_LIMIT and e.stages >= 2
+    for x, w in ((2, 2), (0, 0), (0, 1), (1, 1), (1, 0)):
+        for g in (0, 1):
+            b = sm90.pair_schedule(64, 64, k, 64, 64, x, w, g)
+            k9 = sm90.pair_schedule(64, 64, k, 64, 64, x, w, g, stats=True)
+            assert k9.groups == b.groups == groups
+            assert (k9.stages, k9.blocks) == (b.stages, b.blocks)
+            assert k9.stages >= 2
+            assert k9.smem == b.smem + sm90.TILE * sm90.TILE * 4
+            assert k9.smem <= sm90.SMEM_LIMIT
+
+
+def test_training_path_e_and_k9_fit_two_blocks_an_sm():
+    """At T = 512 every layer call of E (bf16 scratches) and of K9 (int8
+    codes, bf16 Q(g)) takes 4 chunk groups and 114688 bytes (112 KiB), so
+    two 256-thread blocks are resident on an SM."""
+    for k, n in LAYER_KN:
+        for sched in (sm90.emitq_schedule(512, n, k, 64),
+                      sm90.pair_schedule(512, k, n, 64, 64, 2, 2, 1,
+                                         stats=True)):
+            assert sched.groups == 4 and sched.threads == 256
+            assert sched.stages == 4 and sched.smem == 114688
+            assert 2 * (sched.smem + BLOCK_RESERVED) <= SM_BYTES
+
+
+def test_k9_lm_head_call_fits_one_block_an_sm():
+    """K9's lm_head call (f32 x, bf16 embed.T, f32 g: no format to round g
+    to) stages 8192 bytes a step, a ring of 2, and with the shadow carry
+    takes 131072 bytes: one block an SM (B's, without the shadow, fits
+    two)."""
+    k, n = HEAD_KN
+    sched = sm90.pair_schedule(512, k, n, 64, 64, 0, 1, 0, stats=True)
+    assert sched.groups == 4 and sched.stages == 2
+    assert sched.smem == 131072
+    assert sched.smem + BLOCK_RESERVED <= SM_BYTES
+    assert 2 * (sched.smem + BLOCK_RESERVED) > SM_BYTES
+
+
+@pytest.mark.parametrize("m,k,n,chunk", [(512, 1536, 8960, 64),
+                                         (70, 300, 96, 100), (40, 50, 70, 64)])
+def test_emitq_same_shape_same_schedule(m, k, n, chunk):
+    assert sm90.emitq_schedule(m, n, k, chunk) == \
+        sm90.emitq_schedule(m, n, k, chunk)
+    assert sm90.emitq_schedule(m, n, k, chunk).groups == \
+        sm90.chunk_groups(-(-k // chunk))
