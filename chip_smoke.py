@@ -6,15 +6,19 @@ on its own line:
 1. build: compiles the Hopper kernels of ``src/repro_torch/csrc`` with
    ``nvcc`` (one process per source, in parallel) into ``build/``, and
    prints each instantiation of the Hopper tile ``qgemm_sm90.cuh`` (E,
-   K8, B, K9) with its registers and spill bytes and, at the training
-   path's operand kinds, its shared memory and resident 256-thread blocks
-   an SM (fails on a spill, or on fewer than two, one for K9's lm_head
-   call);
+   K8, B, K9, G's large route), of G's decode kernel and of K3's tile
+   with its registers and spill bytes and, at the path's operand kinds
+   and schedules, its shared memory and resident blocks an SM (fails on a
+   spill, or on fewer than two 256-thread blocks of the tile, one for
+   K9's lm_head call, G's decode kernel and K3);
 2. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (bitwise on lattice operands, at most 1 ulp of
    the carry format on random ones, mismatch fractions printed), with its
    time, the plain version's time, one PyTorch library call's time as a
-   yardstick and the least time the card could take (its bound);
+   yardstick and the least time the card could take (its bound); G per
+   shape at M = 1, 8, 16, 32 and 64 through both of its routes (the
+   decode kernel and the Hopper tile), each held against the plain
+   version and timed;
    D's stats variant (K12's kernel) is held at D's arena against D and
    its plain version (o bitwise, the stats row's counters and MAX_ABS
    bitwise, its sums within ``SUM_REL``/``SUM_ABS``, two launches bitwise);
@@ -38,8 +42,9 @@ on its own line:
    every layer tag and of the whole lm_head; E's C against K8's on the
    same operands, bitwise; at each distinct layer shape and the whole
    lm_head, K9 beside B (the stats overhead on one tile) and K3's BWD +
-   GRAD, and K8 beside E (G, on the old tile, for the lm_head), each with
-   the share of its f32-FMA bound; one step's E and B launches and one
+   GRAD, and K8 beside E (G's tile route for the lm_head, whose C is
+   held bitwise against K8's), each with the share of its f32-FMA bound;
+   one step's E and B launches and one
    in-graph telemetry tick's K8 and K9 launches timed as sequences, with
    their f32-FMA bounds;
 5. train: qwen2-1.5b at full width and depth through the training
@@ -198,14 +203,17 @@ def ulps(got, want, m: int, min_exp: int) -> torch.Tensor:
     return (got - want).abs() / ulp
 
 
-def compare(label: str, got, want, m: int, e: int, *, bitwise: bool) -> float:
-    """Print the mismatch fraction and max ulps; fail past 1 ulp of the
-    (1, e, m) format, or on any mismatch when ``bitwise``."""
+def compare(label: str, got, want, m: int, e: int, *, bitwise: bool,
+            quiet: bool = False) -> float:
+    """Print the mismatch fraction and max ulps (unless ``quiet``); fail
+    past 1 ulp of the (1, e, m) format, or on any mismatch when
+    ``bitwise``.  Returns max |err|."""
     mism = float((got != want).float().mean())
     u = float(ulps(got, want, m, -(2 ** (e - 1) - 1)).max())
     err = float((got - want).abs().max())
-    print(f"  {label}: mismatch fraction {mism:.6f}, max {u:.3f} ulp of "
-          f"(1,{e},{m}), max |err| {err:.3g}", flush=True)
+    if not quiet:
+        print(f"  {label}: mismatch fraction {mism:.6f}, max {u:.3f} ulp of "
+              f"(1,{e},{m}), max |err| {err:.3g}", flush=True)
     check(torch.isfinite(got).all().item(), f"{label}: non-finite output")
     check(u <= 1.0, f"{label}: {u} ulp > 1")
     if bitwise:
@@ -299,32 +307,39 @@ def phase_build() -> str:
 # K8 on int8 codes and on the lm_head's f32 x and bf16 embed.T; E on its
 # bf16 scratches; B and K9 on codes with g as bf16 Q(g), and on the
 # lm_head's f32 x, bf16 w and f32 g, where K9's shadow carry leaves room
-# for one block (reported, not required to be two).
+# for one block (reported, not required to be two); G's large route on f32
+# x and bf16 weights (its kinds are bf16 flags).
 SM90_TILES = [
     ("qgemm_stats", "qgemm_stats", "qgemm_stats_kernel", [((2, 2), 2), ((0, 1), 2)]),
     ("qgemm_emitq", "qgemm_emitq", "qgemm_emitq_kernel", [((), 2)]),
     ("bwd_pair", "bwd_pair", "bwd_pair_kernel", [((2, 2, 1), 2), ((0, 1, 0), 2)]),
     ("bwd_pair", "bwd_pair_stats", "bwd_pair_stats_kernel",
      [((2, 2, 1), 2), ((0, 1, 0), 1)]),
+    ("qgemm", "qgemm_tile", "qgemm_tile_kernel", [((0, 1), 2), ((0, 0), 2)]),
 ]
-_TILE_KERNEL = re.compile(r"(qgemm_stats_kernel|qgemm_emitq_kernel|"
-                          r"bwd_pair_stats_kernel|bwd_pair_kernel)"
-                          r"(?:I(.*?)EEv|E)")
+# Kernels whose instantiations the build phase reports (registers, spill
+# bytes; a spill fails): the tile's, G's decode kernel and K3's tile.
+_KERNEL = re.compile(r"(qgemm_stats_kernel|qgemm_emitq_kernel|qgemm_tile_kernel|"
+                     r"qgemm_decode_kernel|qmatmul_kernel|"
+                     r"bwd_pair_stats_kernel|bwd_pair_kernel)"
+                     r"(?:I(.*?)EEv|E)")
+_TILE_KERNELS = {k for _, _, k, _ in SM90_TILES}
 
 
 def _tile_name(fn: str):
-    """``kernel<types>`` of a mangled instantiation of a Hopper tile kernel
+    """``kernel<types>`` of a mangled instantiation of a reported kernel
     (``kernel`` alone for one that is not a template), or None."""
-    m = _TILE_KERNEL.search(fn)
+    m = _KERNEL.search(fn)
     if m is None:
         return None
     if m.group(2) is None:
         return m.group(1)
     args, names = m.group(2), []
     while args:
-        sub = re.match(r"13__nv_bfloat16|S\d*_", args)
+        sub = re.match(r"13__nv_bfloat16|S\d*_|Lb([01])E", args)
         if sub:         # bf16 is the only class type, so every substitution
-            names.append("bf16")
+            names.append(("false", "true")[int(sub.group(1))]
+                         if sub.group(1) else "bf16")
             args = args[sub.end():]
         else:
             names.append({"a": "int8", "f": "f32"}[args[0]])
@@ -349,19 +364,25 @@ def _ptxas_entries(log: str) -> dict:
 
 
 def sm90_report(build) -> None:
-    """Registers and spill bytes of every instantiation of the Hopper tile
-    (from ptxas), the dynamic shared memory and resident blocks an SM at 4
-    chunk groups at the training path's operand kinds; fails on a spill or
-    on fewer resident blocks than ``SM90_TILES`` asks there."""
+    """Registers and spill bytes of every instantiation of the Hopper tile,
+    of G's decode kernel and of K3's tile (from ptxas); the tile's dynamic
+    shared memory and resident blocks an SM at 4 chunk groups at the
+    training path's operand kinds, and the resident blocks of G's decode
+    kernel at the decode step's schedules and of K3 at 4 slices; fails on
+    a spill or on fewer resident blocks than asked."""
     import ctypes
 
-    for lib in dict.fromkeys(lib for lib, *_ in SM90_TILES):
+    from repro_torch.kernels import sm90
+    from repro_torch.kernels.qmatmul import smem_bytes
+
+    for lib in ("qgemm_stats", "qgemm_emitq", "bwd_pair", "qgemm", "qmatmul"):
         log = build._lib_path(lib).with_suffix(".log").read_text()
         for fn, (regs, spill) in sorted(_ptxas_entries(log).items()):
             name = _tile_name(fn)
             if name is None:
                 continue
-            print(f"[build] sm90 {name}: {regs} registers, {spill} spill "
+            tag = "sm90 " if name.split("<")[0] in _TILE_KERNELS else ""
+            print(f"[build] {tag}{name}: {regs} registers, {spill} spill "
                   f"bytes", flush=True)
             check(spill == 0, f"{name} spills {spill} bytes")
     for lib, entry, kernel, kinds in SM90_TILES:
@@ -375,6 +396,28 @@ def sm90_report(build) -> None:
                   f"{n} resident blocks an SM (at least {need} required)",
                   flush=True)
             check(n >= need, f"{kernel} kinds {k}: {n} resident blocks an SM")
+    occ = build.function("qgemm", "qgemm_decode_occupancy", [ctypes.c_int] * 5)
+    seen = set()
+    for k, n, kfast in ((1536, 1536, 0), (1536, 256, 0), (1536, 8960, 0),
+                        (8960, 1536, 0), (1536, 151936, 1)):
+        s = sm90.decode_schedule(MAX_BATCH, n, k, 64, 1)
+        if (s.slots, kfast) in seen:
+            continue
+        seen.add((s.slots, kfast))
+        r = occ(0, 1, kfast, s.slots, 64)
+        print(f"[build] qgemm_decode_kernel<f32, bf16, "
+              f"{('false', 'true')[kfast]}> at {s.slots} slots ({s.threads} "
+              f"threads, K={k} N={n} M={MAX_BATCH}): {s.smem} bytes of dynamic "
+              f"shared memory, {r} resident blocks an SM", flush=True)
+        check(r >= 1, f"G's decode kernel: {r} resident blocks an SM")
+    occ = build.function("qmatmul", "qmatmul_occupancy", [ctypes.c_int] * 3)
+    for a, b in ((0, 0), (0, 1), (1, 1)):
+        r = occ(a, b, 4)
+        print(f"[build] qmatmul_kernel<{('f32', 'bf16')[a]}, "
+              f"{('f32', 'bf16')[b]}> at 4 slices (256 threads): "
+              f"{smem_bytes(4)} bytes of dynamic shared memory, {r} resident "
+              f"blocks an SM", flush=True)
+        check(r >= 1, f"K3: {r} resident blocks an SM")
 
 
 # --------------------------------------------------------------------------
@@ -408,14 +451,44 @@ def _gemm_kw(qc) -> dict:
                 block_k=p.chunk)
 
 
+# M at which G's two routes are timed per shape: the decode route's switch
+# (sm90.DECODE_MAX_M) is set from these lines
+G_ROUTE_MS = (1, MAX_BATCH, 16, 32, SLAB)
+
+
+def _g_schedules(m, n, k, chunk):
+    """{label: schedule} of G's two routes at one shape: the decode route
+    (as it would be scheduled there) and the tile."""
+    from repro_torch.kernels import sm90
+
+    out = {}
+    dec = sm90.decode_schedule(m, n, k, chunk, 1)
+    if dec is not None:
+        out[f"decode (slots {dec.slots}, slices {dec.slices})"] = dec
+    tile = sm90.gemm_schedule(m, n, k, chunk, 0, 1, stats=False)
+    out[f"tile (groups {tile.groups})"] = tile
+    return out
+
+
 def phase_gemm(cfg, dev) -> dict:
-    from repro_torch.kernels.fused import qmatmul_fused, qmatmul_fused_reference
+    """G per shape of the serve cell (each layer GEMM, and the tied head's
+    embed.T view) at every M of ``G_ROUTE_MS``: each route (the decode
+    kernel, the Hopper tile) bitwise the plain version on lattice
+    operands and within 1 carry ulp on random ones, and timed beside bf16
+    ``torch.matmul`` and the bound; the route ``qmatmul_fused`` takes is
+    marked ``*``."""
+    from repro_torch.kernels import sm90
+    from repro_torch.kernels.fused import (qmatmul_fused,
+                                           qmatmul_fused_reference,
+                                           qmatmul_fused_with)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     weights = {}
-    print("[kernels] G qmatmul_fused vs plain (per shape: kernel ms, plain "
-          "ms, bf16 torch.matmul ms, bound ms)", flush=True)
-    rows, max_err = [], 0.0
+    print("[kernels] G qmatmul_fused per shape and M: each route vs plain "
+          "(bitwise on lattice operands; random: mismatch fraction), kernel "
+          "ms; bf16 torch.matmul ms and the bound; * marks the route G takes",
+          flush=True)
+    max_err = 0.0
     for name, k, n, qc in gemm_shapes(cfg):
         p = qc.fwd
         is_head = name == "lm_head"
@@ -427,30 +500,42 @@ def phase_gemm(cfg, dev) -> dict:
             w = (torch.randn((k, n), generator=gen, device=dev)
                  / math.sqrt(k)).to(torch.bfloat16)
         weights[name] = w
-        for m in ((1, MAX_BATCH) if is_head else (MAX_BATCH, SLAB)):
-            kw = _gemm_kw(qc)
+        kw = _gemm_kw(qc)
+        wl = (_lattice(gen, (n, k), dev).to(torch.bfloat16).T if is_head
+              else _lattice(gen, (k, n), dev).to(torch.bfloat16))
+        for m in G_ROUTE_MS:
             a = torch.randn((m, k), generator=gen, device=dev)
-            got = qmatmul_fused(a, w, **kw)
-            want = qmatmul_fused_reference(a, w, **kw)
-            max_err = max(max_err, compare(f"{name} M={m} random", got, want,
-                                           p.m_acc, p.e_acc, bitwise=False))
             al = _lattice(gen, (m, k), dev)
-            wl = _lattice(gen, (k, n), dev).to(torch.bfloat16)
-            compare(f"{name} M={m} lattice", qmatmul_fused(al, wl, **kw),
-                    qmatmul_fused_reference(al, wl, **kw), p.m_acc, p.e_acc,
-                    bitwise=True)
-            ms = cuda_time(lambda: qmatmul_fused(a, w, **kw), reps=20)
-            plain = cuda_time(lambda: qmatmul_fused_reference(a, w, **kw),
-                              reps=1, warmup=0)
+            want = qmatmul_fused_reference(a, w, **kw)
+            want_l = qmatmul_fused_reference(al, wl, **kw)
+            taken = sm90.g_schedule(m, n, k, p.chunk, 0, 1)
+            parts = []
+            for label, sched in _g_schedules(m, n, k, p.chunk).items():
+                got = qmatmul_fused_with(a, w, sched, **kw)
+                err = compare(f"G {name} M={m} {label} random", got, want,
+                              p.m_acc, p.e_acc, bitwise=False, quiet=True)
+                mism = float((got != want).float().mean())
+                if sched == taken:
+                    max_err = max(max_err, err)
+                    check(torch.equal(qmatmul_fused(a, w, **kw), got),
+                          f"G {name} M={m}: qmatmul_fused differs from its "
+                          "schedule")
+                compare(f"G {name} M={m} {label} lattice",
+                        qmatmul_fused_with(al, wl, sched, **kw), want_l,
+                        p.m_acc, p.e_acc, bitwise=True, quiet=True)
+                ms = cuda_time(lambda: qmatmul_fused_with(a, w, sched, **kw),
+                               reps=20)
+                star = "*" if sched == taken else ""
+                parts.append(f"{label}{star} {ms:.4f} ms (random mismatch "
+                             f"{mism:.6f})")
             ab = a.to(torch.bfloat16)
             lib = lib_time(lambda: torch.matmul(ab, w))
             b_ms, b_by = bound_ms(m * k * 4 + k * n * 2 + m * n * 4,
                                   2 * m * n * k, BF16_FLOPS)
-            rows.append((name, m, k, n, ms, plain, lib[0], b_ms, b_by))
-            print(f"  time {name} M={m} K={k} N={n}: kernel {ms:.4f} ms, "
-                  f"plain {plain:.2f} ms, library {lib_str(lib)}, bound "
+            print(f"  G {name} M={m} K={k} N={n}: {'; '.join(parts)}; "
+                  f"lattice bitwise; library {lib_str(lib)}, bound "
                   f"{b_ms:.4f} ms ({b_by})", flush=True)
-    return {"weights": weights, "rows": rows, "max_abs_err": max_err}
+    return {"weights": weights, "max_abs_err": max_err}
 
 
 def gemm_step(cfg, dev, weights: dict) -> dict:
@@ -490,9 +575,9 @@ def gemm_step(cfg, dev, weights: dict) -> dict:
     f_ms = fma_bound([(n_bytes, flops, BF16_FLOPS)])
     print(f"[kernels] G one decode step ({len(calls)} GEMMs, M={MAX_BATCH}, "
           f"{n_bytes / 1e9:.3f} GB): kernel {ms:.3f} ms, plain {plain:.1f} "
-          f"ms, library {lib_str(lib)}, bound {b_ms:.3f} ms ({b_by}), "
-          f"{b_ms / ms:.3f} of bound; f32-FMA bound {f_ms:.4f} ms",
-          flush=True)
+          f"ms, library {lib_str(lib)} ({ms / lib[0]:.2f}x), bound "
+          f"{b_ms:.3f} ms ({b_by}), {b_ms / ms:.3f} of bound; f32-FMA bound "
+          f"{f_ms:.4f} ms", flush=True)
     return dict(ms=ms, plain_ms=plain, library_ms=lib[0],
                 library_spread_ms=list(lib[1]), bound_ms=b_ms, bound_by=b_by,
                 fma_bound_ms=f_ms, calls=len(calls))
@@ -1088,9 +1173,9 @@ def _k3_pair_ms(g, x, w, qc) -> float:
 def sm90_line(tag, t, k, n, b_ms, k9_ms, k3_ms, k8_ms, fwd_ms, fwd) -> None:
     """One shape's line for the Hopper tile: B beside K9 (the same grid
     and tile plus the stats shadow, so K9 over B is the stats overhead)
-    and K3's BWD + GRAD; the forward kernel (E on the same tile, or G on
-    the old one for the lm_head) beside K8 (K8 over E is the stats
-    overhead); each kernel with the share of its f32-FMA bound."""
+    and K3's BWD + GRAD; the forward kernel (E, or G for the lm_head, both
+    on the same tile) beside K8 (K8 over it is the stats overhead); each
+    kernel with the share of its f32-FMA bound."""
     fb = 4 * t * k * n / F32_FLOPS * 1e3
     ff = fb / 2
     print(f"  sm90 {tag} T={t} K={k} N={n}: B {b_ms:.4f} ms ({fb / b_ms:.3f}"
@@ -1280,6 +1365,11 @@ def phase_train_kernels(dev) -> dict:
           f"{k7_b:.4f} ms ({k7_by}); f32-FMA bound {k7_f:.3f} ms, "
           f"{k7_f / k7_ms:.4f} of it", flush=True)
     gkw = _e_kw(qc)
+    s_err = max(s_err, compare(
+        f"G lm_head forward T={t} N={n} (tile route) vs K8's C",
+        qmatmul_fused(hx, emb.T, **gkw),
+        qmatmul_fused(hx, emb.T, collect_stats=True, **gkw)[0], qc.fwd.m_acc,
+        qc.fwd.e_acc, bitwise=True))
     head_g = cuda_time(lambda: qmatmul_fused(hx, emb.T, **gkw), reps=3)
     print(f"  time G lm_head forward T={t} K={k} N={n}: kernel {head_g:.3f} "
           f"ms, library {lib_str(lib_time(lambda: torch.matmul(hxb, embt)))}",

@@ -1,8 +1,9 @@
-// The Hopper tile of the training path's GEMMs: E (qgemm_emitq.cu), K8
-// (qgemm_stats.cu), and the backward pair B and its stats variant K9
-// (bwd_pair.cu; B's dx carry-in entry is K7).  One thread block computes
-// one 64 x 64 tile of C = Q(A) . Q(B) with a chunked (1, e_acc, m_acc)
-// carry, bitwise G's tile (qgemm_core.cuh) and the plain versions.
+// The Hopper tile of the GEMMs: E (qgemm_emitq.cu), K8 (qgemm_stats.cu),
+// the backward pair B and its stats variant K9 (bwd_pair.cu; B's dx
+// carry-in entry is K7), and G above decode (qgemm.cu).  One thread block
+// computes one 64 x 64 tile of C = Q(A) . Q(B) with a chunked (1, e_acc,
+// m_acc) carry, bitwise the plain versions (kernels/fused.py
+// chunked_gemm_reference) and the oracle's independent K3 (qmatmul.cu).
 //
 // The contract per output: within a chunk (length `chunk` from k = 0; a
 // ragged last chunk folds what it has) part = fma(a_k, b_k, part) in

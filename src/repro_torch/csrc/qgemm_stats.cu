@@ -2,8 +2,8 @@
 // epilogue.
 //
 // Replaces repro/kernels/fused.py::_fused_kernel_stats (RNE carry): G's
-// chunked carry, bitwise (qgemm_sm90.cuh holds the same per-output
-// contract as G's qgemm_core.cuh), plus an f32 shadow carry and the
+// chunked carry, bitwise (G runs the same tile above decode, and its decode
+// kernel holds the same per-output contract), plus an f32 shadow carry and the
 // N_STATS row of common.cuh reduced over the whole output.  Operands are
 // f32, bf16 or int8 codes of the representation format (unpacked on load,
 // the in-graph telemetry's FWD replay of the saved residuals); quantize_a /

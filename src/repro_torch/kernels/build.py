@@ -28,10 +28,10 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 # kernel library name -> source file in csrc/ (each includes common.cuh;
-# qgemm.cu, G, runs qgemm_core.cuh; qgemm_emitq.cu (E), qgemm_stats.cu
-# (K8) and bwd_pair.cu (B and K9) run the Hopper tile qgemm_sm90.cuh; the
-# oracle's quantize.cu (K2) and qmatmul.cu (K3), and flash_prefill.cu
-# (K10), stand alone)
+# qgemm.cu (G: its decode kernel, and the Hopper tile qgemm_sm90.cuh above
+# decode), qgemm_emitq.cu (E), qgemm_stats.cu (K8) and bwd_pair.cu (B and
+# K9) run the tile; the oracle's quantize.cu (K2) and qmatmul.cu (K3), and
+# flash_prefill.cu (K10), stand alone)
 KERNELS = {
     "qgemm": "qgemm.cu",
     "qgemm_emitq": "qgemm_emitq.cu",
@@ -43,7 +43,7 @@ KERNELS = {
     "qmatmul": "qmatmul.cu",
     "flash_prefill": "flash_prefill.cu",
 }
-_HEADERS = ("common.cuh", "qgemm_core.cuh", "qgemm_sm90.cuh")
+_HEADERS = ("common.cuh", "qgemm_sm90.cuh")
 
 # --fmad=false: no multiply-add is contracted behind the source's back;
 # the kernels call __fmaf_rn where a fused multiply-add is intended.

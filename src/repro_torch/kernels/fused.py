@@ -24,13 +24,20 @@ sequential round-to-nearest f32 chain, which a tensor-core MMA (``wgmma``,
 ``mma.sync``) does not form, so the tensor cores are not an option for
 these kernels.
 
-G runs ``csrc/qgemm_core.cuh``'s first, simple tile: it reads the bf16
-weights straight from their row-major (K, N) layout (or the tied
-embedding through its transposed strides, so no 467 MB copy is made per
-step), converts and quantizes them in shared memory, and keeps the carry
-in registers; each block prefetches its next K tile into registers while
-it computes the current one, and there is no split over K, so a GEMM
-with few N tiles runs on few SMs.
+G has two routes (``kernels.sm90.g_schedule`` picks one from the shape;
+every output is bitwise either way).  Up to ``sm90.DECODE_MAX_M`` rows
+(twice that where the tile would leave SMs idle) it runs the decode
+kernel of ``csrc/qgemm.cu``: a thread forms the 8 x V
+partials of one chunk for V columns (one 32-bit word of the weight's type),
+reading the bf16 weights along whichever axis is contiguous (a warp takes
+a 128-byte row of the row-major (K, N) layout a load, or 16 bytes of k a
+column of the tied embedding through its transposed strides, so no 467 MB
+copy is made per step) and quantizing each once in registers; the chunks
+of a column strip are split over blocks at chunk boundaries where the
+strips alone leave the card short of warps, and their partials are folded
+in chunk order from an f32 workspace by a second kernel.  Above it G
+runs the Hopper tile below without the shadow carry, so its C is bitwise
+K8's.
 
 E and K8 run the Hopper tile ``csrc/qgemm_sm90.cuh``: 8 x 8 partials a
 thread in registers, the carries in shared memory, chunk groups that form
@@ -40,7 +47,9 @@ landed by ``cp.async`` in their stored type.  E (``csrc/qgemm_emitq.cu``)
 first runs one quantize-and-pack pass over both operands: it writes the
 int8 codes, each once, and bf16 scratches of Q(A) and Q(B) (exact for a
 packable format; NaN stays NaN), on which the tile then runs with nothing
-left to quantize.  C is bitwise G's and K8's.
+left to quantize.  C is bitwise G's and K8's.  On the CPU every route runs
+the plain version; on the card ``python3 chip_smoke.py`` holds each
+against it.
 
 ``collect_stats=True`` is K8's port (``csrc/qgemm_stats.cu``, replacing
 ``_fused_kernel_stats``): the same C as G, bitwise, plus the
@@ -61,6 +70,7 @@ it launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -76,7 +86,7 @@ from repro_torch.kernels.common import (
 from repro_torch.quant.formats import fmt_tuple
 from repro_torch.quant.qtensor import pack_block, unpack_block
 
-__all__ = ["qmatmul_fused", "qmatmul_fused_reference",
+__all__ = ["qmatmul_fused", "qmatmul_fused_reference", "qmatmul_fused_with",
            "qmatmul_fused_stats_reference", "chunked_gemm_reference"]
 
 _WIDE = (8, 23)
@@ -193,7 +203,53 @@ def _check_packable(fmt) -> None:
 
 _LL, _I, _P, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 _ARGTYPES = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I,
-             _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _P]
+             _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P, _P]
+
+
+def qmatmul_fused_with(a: torch.Tensor, b: torch.Tensor, schedule, *,
+                       repr_fmt=None, e_acc: int = 8, m_acc: int = 23,
+                       block_k: int = 128) -> torch.Tensor:
+    """G on CUDA tensors under a given schedule: a ``sm90.DecodeSchedule``
+    (the decode route, any split) or a ``sm90.Schedule`` (the tile).
+    Every schedule gives the same bits; ``qmatmul_fused`` takes
+    ``sm90.g_schedule``'s.  Counts nothing: it serves route timings and
+    the tests of each schedule."""
+    _check(a, b)
+    _check_cuda(a, b, block_k)
+    return _g(a, b, schedule, fmt_tuple(repr_fmt), e_acc, m_acc, block_k)
+
+
+# qfmt_args of the few formats in use, built once (G runs ~200 times a
+# decode step, where the host's work a call is what the step waits on)
+_qfmt = functools.lru_cache(maxsize=64)(qfmt_args)
+
+
+def _g(a, b, schedule, fmt, e_acc, m_acc, block_k) -> torch.Tensor:
+    """G's launch on checked CUDA operands."""
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    ws = None
+    if isinstance(schedule, sm90.DecodeSchedule):
+        route, par, slices = 0, schedule.slots, schedule.slices
+        if slices > 1:
+            ws = torch.empty((schedule.ws_floats,), dtype=torch.float32,
+                             device=a.device)
+    else:
+        route, par, slices = 1, schedule.groups, 1
+    quant = int(fmt is not None)
+    rc = build.function("qgemm", "qgemm", _ARGTYPES)(
+        a.data_ptr(), _DTYPES[a.dtype], a.stride(0), a.stride(1),
+        b.data_ptr(), _DTYPES[b.dtype], b.stride(0), b.stride(1),
+        out.data_ptr(), m, n, k, block_k, *_qfmt(fmt or _WIDE), quant, quant,
+        *_qfmt((e_acc, m_acc)), route, par, slices,
+        None if ws is None else ws.data_ptr(),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"qgemm launch failed: CUDA error {rc}")
+    return out
 
 
 def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
@@ -250,21 +306,11 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
     _check_cuda(a, b, block_k)
     m, k = a.shape
     n = b.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    if m == 0 or n == 0:
-        return out
-    fmt = fmt_tuple(repr_fmt)
-    quant = fmt is not None
-    rc = build.function("qgemm", "qgemm", _ARGTYPES)(
-        a.data_ptr(), _DTYPES[a.dtype], a.stride(0), a.stride(1),
-        b.data_ptr(), _DTYPES[b.dtype], b.stride(0), b.stride(1),
-        out.data_ptr(), m, n, k, block_k,
-        *qfmt_args(fmt or _WIDE), int(quant), int(quant),
-        *qfmt_args((e_acc, m_acc)),
-        torch.cuda.current_stream(a.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"qgemm launch failed: CUDA error {rc}")
-    qmatmul_fused.launches += 1
+    sched = sm90.g_schedule(m, n, k, block_k, _KINDS[a.dtype],
+                            _KINDS[b.dtype])
+    out = _g(a, b, sched, fmt_tuple(repr_fmt), e_acc, m_acc, block_k)
+    if m and n:
+        qmatmul_fused.launches += 1
     return out
 
 

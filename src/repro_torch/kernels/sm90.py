@@ -1,4 +1,5 @@
-"""Schedule of the Hopper tile ``csrc/qgemm_sm90.cuh`` (E, K8, B and K9).
+"""Schedules of the Hopper GEMM kernels: the tile ``csrc/qgemm_sm90.cuh``
+(E, K8, B, K9 and G's large route) and G's decode route (``csrc/qgemm.cu``).
 
 One thread block computes one ``TILE`` x ``TILE`` output tile with
 ``groups`` chunk groups of ``GROUP_THREADS`` threads; group g forms the
@@ -10,15 +11,27 @@ call, so the same shape always gets the same schedule.
 The shared-memory sizes mirror ``qgemm_sm90.cuh`` (``stage_bytes``,
 ``ring_stages``, ``smem_bytes``); the kernels' ``*_smem`` entry points
 report theirs, which the GPU tests hold against these.
+
+G (``g_schedule``) takes the decode route up to ``DECODE_MAX_M`` rows and
+the tile above: ``decode_schedule`` gives a thread one chunk of V columns
+(one 32-bit word of the weight's type) for a row group of 8 rows, a strip
+of 32 V columns to a warp and ``slots`` chunks of a strip to a block, and
+splits the chunks over ``slices`` blocks, at chunk boundaries, where the
+strips alone leave the card short of warps; a split call's partials go to
+a workspace that a fold kernel folds in chunk order.  Either route and any
+split gives the same bits.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 __all__ = ["TILE", "KT", "GROUP_THREADS", "SMEM_LIMIT", "Schedule",
            "chunk_groups", "gemm_schedule", "emitq_schedule", "pair_schedule",
-           "gemm_tile", "pair_tile", "pair_blocks"]
+           "gemm_tile", "pair_tile", "pair_blocks", "DECODE_MAX_M",
+           "DecodeSchedule", "decode_schedule", "decode_smem", "decode_ws",
+           "g_schedule"]
 
 TILE = 64               # output rows and columns of a block
 KT = 16                 # K values a pipeline step stages
@@ -120,3 +133,94 @@ def pair_schedule(t: int, k: int, n: int, bwd_chunk: int, grad_chunk: int,
     g = chunk_groups(max(_chunks(n, bwd_chunk), _chunks(t, grad_chunk)))
     return Schedule(g, ring_stages(stage), smem_bytes(stage, g, stats),
                     pair_blocks(t, k, n)[1])
+
+
+# ------------------------------------------------------- G's decode route
+
+# G takes the decode route up to this many rows, and up to twice as many
+# where the tile would have fewer output tiles than the card has SMs: on
+# the H100 it is at least as fast as the tile at every qwen2-1.5b shape up
+# to M = 32, and at M = 64 faster on attn_* and mlp_down (24 and 4 tiles)
+# but slower on mlp_gate/up (140) and the lm_head (2374) (chip_smoke.py's
+# per-shape G lines, PERF.md PR 17)
+DECODE_MAX_M = 32
+DECODE_ROWS = 8         # rows of A a block takes (its row group)
+DECODE_LANES = 32       # threads across a strip (a warp), V columns each
+DECODE_SLOTS = 8        # chunk slots (warps) a block, at most
+SMS = 132               # the H100's SMs
+DECODE_WARPS = 16 * SMS  # warps a decode grid should give the card
+
+
+@dataclass(frozen=True)
+class DecodeSchedule:
+    slots: int          # chunk slots (warps) a block
+    slices: int         # blocks along the chunks (1: no split, no workspace)
+    strips: int         # blocks along N
+    row_groups: int     # blocks along M (8 rows each)
+    width: int          # columns of a strip
+    ws_floats: int      # the workspace of a split call: chunks x M x N
+    smem: int           # dynamic shared memory a block, bytes
+
+    @property
+    def threads(self) -> int:
+        return self.slots * DECODE_LANES
+
+    @property
+    def blocks(self) -> int:
+        return self.strips * self.slices * self.row_groups
+
+
+def decode_smem(slots: int, chunk: int, width: int) -> int:
+    """``csrc/qgemm.cu``'s ``decode_smem``: one region for a round's rows
+    of A (slots chunks, 8 rows) or its partials (slots x 8 x width), then
+    the carries (8 x width)."""
+    return (slots * DECODE_ROWS * max(chunk, width)
+            + DECODE_ROWS * width) * 4
+
+
+def decode_ws(m: int, n: int, k: int, chunk: int, slices: int) -> int:
+    """Workspace floats of a decode call (``qgemm_decode_ws``)."""
+    return _chunks(k, chunk) * m * n if slices > 1 else 0
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_schedule(m: int, n: int, k: int, chunk: int,
+                    b_kind: int) -> DecodeSchedule | None:
+    """G's decode launch for C[m, n] over k in chunks of ``chunk``, B of
+    kind ``b_kind`` (0 f32, 1 bf16), or None where even one chunk slot
+    overflows a block's shared memory (the tile takes that call).
+
+    A warp takes one chunk of a strip.  Blocks hold up to DECODE_SLOTS
+    slots; where the strips (times the row groups) with that many warps
+    each give the card DECODE_WARPS warps, a block walks all chunks of its
+    strip in rounds and nothing is split.  Otherwise the chunks are split
+    at chunk boundaries over blocks of DECODE_SLOTS slots, a warp a chunk
+    of every strip."""
+    width = DECODE_LANES * (4 // _ELEM[b_kind])
+    strips, groups = -(-n // width), -(-m // DECODE_ROWS)
+    nc = _chunks(k, chunk)
+    slots = max(1, min(DECODE_SLOTS, nc))
+    while slots > 1 and decode_smem(slots, chunk, width) > SMEM_LIMIT:
+        slots //= 2
+    if decode_smem(slots, chunk, width) > SMEM_LIMIT:
+        return None
+    split = strips * groups * slots < DECODE_WARPS and nc > slots
+    slices = -(-nc // slots) if split else 1
+    return DecodeSchedule(slots, slices, strips, groups, width,
+                          decode_ws(m, n, k, chunk, slices),
+                          decode_smem(slots, chunk, width))
+
+
+@functools.lru_cache(maxsize=4096)
+def g_schedule(m: int, n: int, k: int, chunk: int, a_kind: int,
+               b_kind: int) -> Schedule | DecodeSchedule:
+    """G's launch: the decode route up to ``DECODE_MAX_M`` rows, or up to
+    twice that where the tile's grid would leave SMs idle (where a
+    block's shared memory holds it), else the tile over K8's grid without
+    the shadow carry."""
+    if m <= DECODE_MAX_M or (m <= 2 * DECODE_MAX_M
+                             and _tiles(m) * _tiles(n) < SMS):
+        sched = decode_schedule(m, n, k, chunk, b_kind)
+        if sched is not None:
+            return sched
+    return gemm_schedule(m, n, k, chunk, a_kind, b_kind, stats=False)

@@ -905,3 +905,259 @@ def test_oracle_train_step_matches_fused(dev):
     assert torch.equal(lf, lo)
     for a, b in zip(tree_leaves(gf), tree_leaves(go)):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# G's two routes (the decode kernel and the Hopper tile) and K3's
+# chunk-sliced tile
+# --------------------------------------------------------------------------
+
+# qwen2-1.5b's decode GEMMs: (name, K, N); the tied lm_head is embed.T
+QWEN_DECODE = [("attn_q", 1536, 1536), ("attn_k", 1536, 256),
+               ("mlp_gate", 1536, 8960), ("mlp_down", 8960, 1536),
+               ("lm_head", 1536, 151936)]
+
+
+def _g_operands(gen, dev, m, k, n, *, head, lattice):
+    a = _operand(gen, (m, k), dev, lattice)
+    if head:
+        b = (_operand(gen, (n, k), dev, lattice) / 8).to(torch.bfloat16).T
+    else:
+        b = (_operand(gen, (k, n), dev, lattice) / 8).to(torch.bfloat16)
+    return a, b
+
+
+def _g_kw(head, chunk=64):
+    return dict(repr_fmt=None if head else FP8_152, e_acc=6,
+                m_acc=9 if head else 5, block_k=chunk)
+
+
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("name,k,n", QWEN_DECODE)
+def test_g_decode_route_at_decode_shapes(dev, name, k, n, m):
+    """G at every qwen2-1.5b decode shape takes the decode route and is
+    bitwise the plain version on random and lattice operands; one count a
+    call."""
+    from repro_torch.kernels import sm90
+
+    head = name == "lm_head"
+    assert isinstance(sm90.g_schedule(m, n, k, 64, 0, 1), sm90.DecodeSchedule)
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    kw = _g_kw(head)
+    for lattice in (False, True):
+        a, b = _g_operands(gen, dev, m, k, n, head=head, lattice=lattice)
+        n0 = qmatmul_fused.launches
+        got = qmatmul_fused(a, b, **kw)
+        want = qmatmul_fused_reference(a, b, **kw)
+        torch.cuda.synchronize()
+        assert qmatmul_fused.launches == n0 + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["head_view", "ragged", "unaligned",
+                                  "specials", "f32_b", "chunk_cut", "a_view",
+                                  "a_bf16"])
+def test_g_decode_route_layouts_and_edges(dev, case):
+    """The decode route on the tied head's transposed view (k-contiguous
+    16-byte loads), ragged M, K and N, strides off 16 bytes and a chunk
+    that cuts the 16-byte pieces (element paths), NaN and Inf in the
+    weights (propagated as the plain version does), f32 weights, and A as
+    a transposed view or bf16: bitwise the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    m, k, n, chunk, head = 5, 200, 75, 64, False
+    if case == "head_view":
+        m, k, n, head = 8, 320, 1000, True
+    elif case == "chunk_cut":
+        m, k, n, chunk, head = 7, 300, 260, 20, True
+    a, b = _g_operands(gen, dev, m, k, n, head=head, lattice=False)
+    if case == "unaligned":
+        b = torch.randn((k, n + 1), generator=gen, device=dev).to(
+            torch.bfloat16)[:, 1:]
+    elif case == "specials":
+        b = _specials(b, gen)
+        a = _specials(a, gen)
+    elif case == "f32_b":
+        b = b.float()
+    elif case == "a_view":
+        a = a.T.contiguous().T
+    elif case == "a_bf16":
+        a = a.to(torch.bfloat16)
+    kw = _g_kw(head, chunk)
+    got = qmatmul_fused(a, b, **kw)
+    want = qmatmul_fused_reference(a, b, **kw)
+    torch.cuda.synchronize()
+    _same(got, want)
+    if case == "specials":
+        assert bool(torch.isnan(got).any())
+
+
+def _decode(m, n, k, chunk, b_kind, slots, split):
+    """A decode schedule with the given slots, split or not."""
+    from repro_torch.kernels import sm90
+
+    width = sm90.DECODE_LANES * (4 // (4 if b_kind == 0 else 2))
+    nc = -(-k // chunk)
+    slices = -(-nc // slots) if split else 1
+    return sm90.DecodeSchedule(
+        slots, slices, -(-n // width), -(-m // sm90.DECODE_ROWS), width,
+        sm90.decode_ws(m, n, k, chunk, slices),
+        sm90.decode_smem(slots, chunk, width))
+
+
+@pytest.mark.parametrize("m,k,n,chunk,slots,split", [
+    (8, 1536, 256, 64, 8, True),      # attn_k as scheduled: 3 slices
+    (8, 1536, 256, 256, 6, False),    # no split, one round, chunk 256
+    (3, 8960, 200, 64, 8, True),      # 18 slices of 8 chunks, ragged N
+    (8, 8960, 136, 64, 8, False),     # no split, 18 rounds
+    (13, 700, 90, 48, 5, True),       # two row groups, ragged last chunk
+    (13, 700, 90, 48, 3, False),      # 5 rounds of 3 slots
+    (8, 200, 90, 48, 8, False),       # more slots than chunks
+    (8, 300, 70, 64, 1, True),        # a block a chunk
+])
+@pytest.mark.parametrize("b_kind", [0, 1])
+def test_g_decode_schedules_match_plain(dev, m, k, n, chunk, slots, split,
+                                        b_kind):
+    """The decode route at each split (no split, rounds; a split over
+    slices, folded by the fold kernel) for bf16 and f32 weights, and the
+    tile route at the same operands: all bitwise the plain version."""
+    from repro_torch.kernels import sm90
+    from repro_torch.kernels.fused import qmatmul_fused_with
+
+    gen = torch.Generator(device=dev).manual_seed(m * k + n)
+    kw = _g_kw(False, chunk)
+    sched = _decode(m, n, k, chunk, b_kind, slots, split)
+    assert (sched.slices > 1) == split
+    tile = sm90.gemm_schedule(m, n, k, chunk, 0, b_kind, stats=False)
+    for lattice in (False, True):
+        a, b = _g_operands(gen, dev, m, k, n, head=False, lattice=lattice)
+        b = b.float() if b_kind == 0 else b
+        want = qmatmul_fused_reference(a, b, **kw)
+        got = qmatmul_fused_with(a, b, sched, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(qmatmul_fused_with(a, b, tile, **kw), want)
+
+
+@pytest.mark.parametrize("m,k,n,chunk,kind", [
+    (65, 1536, 1536, 64, "bf16"),     # just past the decode route
+    (64, 1536, 8960, 64, "bf16"),     # mlp_gate at a prefill slab
+    (70, 150, 130, 64, "f32"),        # 3 chunks; pitches off 16 bytes
+    (96, 300, 1000, 64, "head"),      # f32 x, bf16 embed.T view
+    (80, 200, 70, 40, "a_view"),      # A a transposed view
+])
+def test_g_tile_route_matches_k8(dev, m, k, n, chunk, kind):
+    """G above the decode route runs the Hopper tile without the shadow
+    carry: C bitwise K8's on the same operands and the plain version's."""
+    from repro_torch.kernels import sm90
+    from repro_torch.kernels.fused import qmatmul_fused_stats_reference
+
+    kinds = {"bf16": (0, 1), "f32": (0, 0), "head": (0, 1), "a_view": (0, 0)}
+    sched = sm90.g_schedule(m, n, k, chunk, *kinds[kind])
+    assert isinstance(sched, sm90.Schedule)
+    assert sched.groups == sm90.chunk_groups(-(-k // chunk))
+    gen = torch.Generator(device=dev).manual_seed(m + 2 * k + n)
+    kw = _g_kw(kind == "head", chunk)
+    for lattice in (False, True):
+        a = _operand(gen, (m, k), dev, lattice)
+        b = _operand(gen, (k, n), dev, lattice) / math.sqrt(k)
+        if kind == "bf16":
+            b = b.to(torch.bfloat16)
+        elif kind == "head":
+            b = b.to(torch.bfloat16).T.contiguous().T
+        elif kind == "a_view":
+            a = a.T.contiguous().T
+        got = qmatmul_fused(a, b, **kw)
+        k8, _ = qmatmul_fused(a, b, collect_stats=True, **kw)
+        want, _ = qmatmul_fused_stats_reference(a, b, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, k8) and torch.equal(got, want)
+
+
+def test_g_entries_match_their_mirrors(dev):
+    """G's workspace and shared-memory entries equal kernels/sm90.py's
+    mirrors; every decode schedule of the model's shapes fits a block
+    with at least one resident, and the tile route at the lm_head's kinds
+    two 256-thread blocks an SM."""
+    import ctypes
+
+    from repro_torch.kernels import build, sm90
+
+    lib = build.library("qgemm")
+    ws = lib.qgemm_decode_ws
+    ws.restype, ws.argtypes = ctypes.c_longlong, [ctypes.c_int] * 5
+    i3, i5 = [ctypes.c_int] * 3, [ctypes.c_int] * 5
+    smem = build.function("qgemm", "qgemm_decode_smem", i3)
+    occ = build.function("qgemm", "qgemm_decode_occupancy", i5)
+    t_smem = build.function("qgemm", "qgemm_tile_smem", i3)
+    t_occ = build.function("qgemm", "qgemm_tile_occupancy", i3)
+    for m in (1, 3, 8, 16):
+        for _, k, n in QWEN_DECODE:
+            s = sm90.decode_schedule(m, n, k, 64, 1)
+            assert ws(m, n, k, 64, s.slices) == s.ws_floats
+            assert smem(1, s.slots, 64) == s.smem
+            assert occ(0, 1, int(n == 151936), s.slots, 64) >= 1
+    for slots in (1, 3, 5, 8):
+        for chunk in (16, 64, 128, 200):
+            for b_bf16 in (0, 1):
+                width = sm90.DECODE_LANES * (2 if b_bf16 else 1)
+                assert smem(b_bf16, slots, chunk) == sm90.decode_smem(
+                    slots, chunk, width)
+    for groups in (1, 2, 4):
+        for a in (0, 1):
+            for b in (0, 1):
+                assert t_smem(a, b, groups) == sm90.smem_bytes(
+                    sm90.stage_bytes(a, b), groups, False)
+    assert t_occ(0, 1, 4) >= 2
+
+
+@pytest.mark.parametrize("m,k,n,bk,kind,slices", [
+    (96, 50, 80, 64, "f32", 1),       # one chunk, ragged K
+    (70, 150, 130, 64, "bwd", 2),     # 3 chunks; B = w.T (k-contiguous)
+    (512, 1536, 256, 64, "f32", 4),   # attn_k's FWD: 32 tiles
+    (1536, 512, 300, 64, "grad", 4),  # A = x.T (m-contiguous)
+    (100, 700, 90, 128, "bf16", 4),   # the wide roles' chunk 128, ragged K
+    (64, 300, 72, 20, "bwd", 4),      # chunk 20 cuts the 16-byte pieces
+    (33, 200, 60, 128, "unaligned", 2),  # pitches off 16 bytes
+])
+def test_qmatmul_slices_match_plain(dev, m, k, n, bk, kind, slices):
+    """K3 at each slice count (from the chunk count) with k-contiguous and
+    m-contiguous views, f32 and bf16 operands, chunks 64, 128 and 20, and
+    ragged K: bitwise its plain version on random and lattice operands."""
+    from repro_torch.kernels.qmatmul import qmatmul, qmatmul_reference, slices_for
+
+    assert slices_for(-(-k // bk)) == slices
+    gen = torch.Generator(device=dev).manual_seed(m + 3 * k + n)
+    kw = dict(e_acc=6, m_acc=5, block_k=bk)
+    for lattice in (False, True):
+        a = _operand(gen, (m, k), dev, lattice)
+        b = _operand(gen, (k, n), dev, lattice) / math.sqrt(k)
+        if kind == "bwd":
+            b = b.T.contiguous().T
+        elif kind == "grad":
+            a = a.T.contiguous().T
+        elif kind == "bf16":
+            a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        elif kind == "unaligned":
+            a = torch.randn((m, k + 1), generator=gen, device=dev)[:, 1:]
+            b = torch.randn((k, n + 3), generator=gen, device=dev)[:, 3:]
+        got = qmatmul(a, b, **kw)
+        want = qmatmul_reference(a, b, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_qmatmul_entries_match_their_mirrors(dev):
+    """K3's shared memory a block equals kernels/qmatmul.py's mirror at
+    each slice count, and a block of each is resident."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.qmatmul import smem_bytes
+
+    smem = build.function("qmatmul", "qmatmul_smem", [ctypes.c_int])
+    occ = build.function("qmatmul", "qmatmul_occupancy", [ctypes.c_int] * 3)
+    for s in (1, 2, 4):
+        assert smem(s) == smem_bytes(s)
+        for a in (0, 1):
+            for b in (0, 1):
+                assert occ(a, b, s) >= 1

@@ -1,9 +1,10 @@
-"""G's kernel (csrc/qgemm.cu) with its arguments as a __grid_constant__
-kernel parameter (as built) and passed by value: registers (ptxas) and
-times at the serve cell's decode step (197 GEMMs at M = 8) and at the
-training step's lm_head forward (T = 512), outputs compared.  Each variant
-is built from a copy of the sources under build/g_params/.  Run on a
-machine with the card, from the repo root:
+"""G's kernels (csrc/qgemm.cu: the decode kernel and the Hopper tile of
+its large route) with their arguments as a __grid_constant__ kernel
+parameter (as built) and passed by value: registers (ptxas) and times at
+the serve cell's decode step (197 GEMMs at M = 8, the decode route) and at
+the training step's lm_head forward (T = 512, the tile), outputs compared.
+Each variant is built from a copy of the sources under build/g_params/.
+Run on a machine with the card, from the repo root:
 
   python tools/sm90/g_params.py
 """
@@ -22,18 +23,20 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 import chip_smoke as cs  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import build, sm90  # noqa: E402
 from repro_torch.kernels.common import qfmt_args  # noqa: E402
 
-BY_VALUE = ("qgemm_kernel(const __grid_constant__ qcore::Args<TA, TB> p)",
-            "qgemm_kernel(qcore::Args<TA, TB> p)")
-VARIANTS = {"__grid_constant__ (as built)": [], "by value": [BY_VALUE]}
+BY_VALUE = [("qgemm_decode_kernel(const __grid_constant__ Decode p)",
+             "qgemm_decode_kernel(Decode p)"),
+            ("qgemm_tile_kernel(const __grid_constant__ sm90::Gemm p)",
+             "qgemm_tile_kernel(sm90::Gemm p)")]
+VARIANTS = {"__grid_constant__ (as built)": [], "by value": BY_VALUE}
 LAYER_KN = [(1536, 1536), (1536, 256), (1536, 256), (1536, 1536),
             (1536, 8960), (1536, 8960), (8960, 1536)]
 DEPTH, VOCAB, D = 28, 151936, 1536
 _LL, _I, _P, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 ARGTYPES = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I, _I, _I,
-            _F, _F, _I, _I, _I, _I, _F, _F, _P]
+            _F, _F, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P, _P]
 
 
 def build_variants(out: Path) -> dict:
@@ -58,7 +61,8 @@ def build_variants(out: Path) -> dict:
         if p.returncode != 0:
             raise RuntimeError(f"{name} did not build:\n{log}")
         regs = sorted(r for fn, (r, _) in cs._ptxas_entries(log).items()
-                      if "qgemm_kernel" in fn)
+                      if "qgemm_decode_kernel" in fn
+                      or "qgemm_tile_kernel" in fn)
         libs[name] = (so, regs)
     return libs
 
@@ -75,16 +79,22 @@ def main() -> None:
     emb = torch.randn((VOCAB, D), generator=gen, device=dev).to(torch.bfloat16)
     x8 = {k: torch.randn((8, k), generator=gen, device=dev) for k in (D, 8960)}
     x512 = torch.randn((512, D), generator=gen, device=dev)
-    stream = torch.cuda.current_stream().cuda_stream
 
     def call(f, a, b, fmt, acc):
         m, k = a.shape
         n = b.shape[1]
         out = torch.empty((m, n), device=dev)
+        s = sm90.g_schedule(m, n, k, 64, 0, 1)
+        if isinstance(s, sm90.DecodeSchedule):
+            ws = torch.empty((max(s.ws_floats, 1),), device=dev)
+            route = (0, s.slots, s.slices, ws.data_ptr())
+        else:
+            route = (1, s.groups, 1, None)
         rc = f(a.data_ptr(), 0, a.stride(0), a.stride(1), b.data_ptr(), 1,
                b.stride(0), b.stride(1), out.data_ptr(), m, n, k, 64,
                *qfmt_args(fmt or (8, 23)), int(fmt is not None),
-               int(fmt is not None), *qfmt_args(acc), stream)
+               int(fmt is not None), *qfmt_args(acc), *route,
+               torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"qgemm launch failed: CUDA error {rc}")
         return out
