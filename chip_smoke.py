@@ -859,16 +859,20 @@ def build_engine(cfg, params, dev, prefill_chunk, **engine_kw):
 
 
 def phase_serve(cfg, params, dev, prompts, prefill_chunk) -> dict:
+    from repro_torch.kernels.fused import qmatmul_fused
+
     counters = _counters()
     eng = build_engine(cfg, params, dev, prefill_chunk)
     rids = [eng.submit(p, GEN) for p in prompts]
     zero_counts(counters)
+    qmatmul_fused.fold_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = eng.run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts(counters)
+    folds = qmatmul_fused.fold_launches
     ex = eng.executor
     label = f"chunk={prefill_chunk or 'one-shot'}"
     print(f"[serve] {label}: {len(rids)} requests, prompts {list(PROMPT_LENS)}, "
@@ -878,16 +882,20 @@ def phase_serve(cfg, params, dev, prompts, prefill_chunk) -> dict:
           f"prefill {eng.prefill_tokens} tokens in {eng.prefill_slabs} slabs, "
           f"{ex.prefill_s:.3f}s ({eng.prefill_tokens / ex.prefill_s:.1f} "
           f"tok/s); KV bytes/token {eng.kv_bytes_per_token():.1f}; "
-          f"preemptions {eng.preemptions}; launches {launches}", flush=True)
+          f"preemptions {eng.preemptions}; launches {launches} (G's count "
+          f"is of calls; its split calls' fold kernels: {folds} launches)",
+          flush=True)
     for k, v in launches.items():
         check(v > 0, f"{label}: kernel {k} was not launched on the main path")
+    check(folds > 0, f"{label}: G's split decode route was not taken")
     check(all(len(results[r]) == GEN for r in rids), f"{label}: short stream")
     vocab = cfg.vocab_size
     check(all(0 <= t < vocab for r in rids for t in results[r]),
           f"{label}: token out of range")
     eng.pool.check_invariants()
     check(eng.pool.free_pages == eng.pool.n_pages - 1, f"{label}: page leak")
-    return dict(launches=launches, streams=[results[r] for r in rids],
+    return dict(launches=launches, fold_launches=folds,
+                streams=[results[r] for r in rids],
                 seconds=dt, decoded=eng.decoded_tokens,
                 decode_s=ex.decode_s, prefill_s=ex.prefill_s,
                 prefill_tokens=eng.prefill_tokens)
@@ -2581,6 +2589,7 @@ def main() -> None:
              source="src/repro_torch/csrc/qgemm.cu",
              replaces="src/repro/kernels/fused.py:107",
              launches=one["launches"]["qmatmul_fused"],
+             fold_launches=one["fold_launches"],
              max_abs_err=g_err, **{k: g_step[k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "library_spread_ms", "fma_bound_ms")}),

@@ -31,8 +31,10 @@
 //   folds each round's partials in chunk order in shared memory, with no
 //   workspace.  Otherwise the chunks are split over `slices` blocks at
 //   chunk boundaries: each writes its partials to an f32 workspace
-//   [chunks, M, N] (L2-resident: at most 6.6 MB at M = 8, 27.5 MB at 32),
-//   and a second kernel, one thread an output, folds them in chunk order.
+//   [chunks, M, N], and a second kernel, one thread an output, folds them
+//   in chunk order.  At qwen2-1.5b's shapes the workspace is at most 6.9 MB
+//   at M = 8 and 27.5 MB at 32, inside the H100's 50 MB L2; mlp_down's at
+//   M = 64 is 55 MB, past it, and the route still beat the tile there.
 //   (A fold by the last block of a strip to finish, behind a ticket
 //   counter, saves that launch but ran slower on the H100: its few threads
 //   fold whole strips; PERF.md, PR 17.)  Rows past M are zeros in shared
@@ -58,10 +60,6 @@ using bf = __nv_bfloat16;
 constexpr int ROWS = 8;    // rows of A a block takes (its row group)
 constexpr int LANES = 32;  // threads across a strip: a warp, V columns each
 constexpr int KS = 8;      // k a step loads
-// Whether a step's loads are issued a step ahead.  Without, the warps of
-// four resident blocks an SM hide the load latency, and the kernel fits
-// 64 registers a thread with no spill (tools/sm90/g_ablate.py).
-constexpr bool PREFETCH = false;
 constexpr int MAX_SLOTS = 8;
 constexpr int FOLD_THREADS = 256;
 
@@ -202,24 +200,19 @@ __device__ __forceinline__ void step_fma(const Decode& p, const unsigned (&t)[8]
   }
 }
 
-// The partial of one chunk, k in [kb, ke), for columns [n, n + V)
+// The partial of one chunk, k in [kb, ke), for columns [n, n + V).  A
+// step's loads are issued just before its FMAs: the warps of four resident
+// blocks an SM hide their latency, and the kernel fits 64 registers a
+// thread with no spill (issued a step ahead, it spills and runs slower;
+// tools/sm90/g_ablate.py).
 template <typename TB, bool KFAST, bool QB>
 __device__ __forceinline__ void chunk_partial(const Decode& p, const float* As, int kb, int ke,
                                               int n, float (&part)[ROWS][vlen<TB>()]) {
-  unsigned cur[8], nxt[8];
-  if constexpr (PREFETCH) load_step<TB, KFAST>(p, n, kb, ke, cur);
+  unsigned cur[8];
 #pragma unroll 1
   for (int k0 = kb; k0 < ke; k0 += KS) {
-    if constexpr (PREFETCH) {
-      if (k0 + KS < ke) load_step<TB, KFAST>(p, n, k0 + KS, ke, nxt);  // in flight below
-    } else {
-      load_step<TB, KFAST>(p, n, k0, ke, cur);
-    }
+    load_step<TB, KFAST>(p, n, k0, ke, cur);
     step_fma<TB, KFAST, QB>(p, cur, As + (k0 - kb) * ROWS, min(KS, ke - k0), part);
-    if constexpr (PREFETCH) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) cur[i] = nxt[i];
-    }
   }
 }
 

@@ -279,8 +279,10 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
       ``return_quantized``;
     * ``rounding``: only ``"rne"`` is ported (SR raises).
 
-    G's launches are counted on ``launches``, E's on ``emitq_launches``,
-    K8's on ``stats_launches``.
+    G's calls are counted on ``launches`` (one a call) and the fold
+    kernels of its split decode calls, each a second launch, on
+    ``fold_launches``; E's on ``emitq_launches``, K8's on
+    ``stats_launches``.
     """
     if rounding != "rne":
         raise NotImplementedError("stochastic-rounding carries are not "
@@ -311,10 +313,13 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
     out = _g(a, b, sched, fmt_tuple(repr_fmt), e_acc, m_acc, block_k)
     if m and n:
         qmatmul_fused.launches += 1
+        if isinstance(sched, sm90.DecodeSchedule) and sched.slices > 1:
+            qmatmul_fused.fold_launches += 1
     return out
 
 
 qmatmul_fused.launches = 0
+qmatmul_fused.fold_launches = 0
 qmatmul_fused.emitq_launches = 0
 qmatmul_fused.stats_launches = 0
 

@@ -92,16 +92,71 @@ def test_decode_workspace_within_its_bound(m):
         assert s.smem <= sm90.SMEM_LIMIT
 
 
+# The largest workspace G's decode route writes at M rows (bytes): mlp_down's
+# 140 chunks x M x 1536 f32, 27.5 MB at 32, inside the H100's 50 MB L2, and
+# 55 MB at 64, past it, where the route was timed faster than the tile all
+# the same (PERF.md, PR 17)
+WS_BOUND = {32: 140 * 32 * 1536 * 4, 64: 140 * 64 * 1536 * 4}
+
+
+@pytest.mark.parametrize("m", [32, 64])
+@pytest.mark.parametrize("k,n", LAYER_KN + [HEAD_KN])
+def test_decode_workspace_above_decode_within_its_bound(m, k, n):
+    """At M = 32 and at a 64-row slab, where G still takes the decode
+    route (at 64 only where the tile has fewer output tiles than SMs), a
+    split call's workspace stays within the largest the route was timed
+    at; mlp_down's reaches it."""
+    s = sm90.g_schedule(m, n, k, 64, 0, 1)
+    if not isinstance(s, sm90.DecodeSchedule):
+        assert m == 64 and n in (8960, 151936)
+        return
+    assert s.ws_floats == sm90.decode_ws(m, n, k, 64, s.slices)
+    assert s.ws_floats * 4 <= WS_BOUND[m]
+    assert (s.ws_floats * 4 == WS_BOUND[m]) == ((k, n) == (8960, 1536))
+    assert s.smem <= sm90.SMEM_LIMIT
+
+
+# G's schedule at the model's shapes, worked out by hand from
+# csrc/qgemm.cu's mapping: a strip of 32 V columns a warp (V = 2 bf16 or
+# 1 f32), 8 rows a row group, 8 chunk slots a block, and a split into
+# ceil(chunks / 8) slices where strips x row groups x 8 warps fall short
+# of 16 warps an SM (2112); the tile's blocks are 64 x 64 output tiles
+SCHED_AT = {
+    # (m, k, n, chunk, b_kind): (slots, slices, strips, row_groups, width,
+    #                            ws_floats, smem)
+    (8, 1536, 8960, 64, 1): (8, 3, 140, 1, 64, 24 * 8 * 8960,
+                             (8 * 8 * 64 + 8 * 64) * 4),
+    (3, 700, 90, 48, 0): (8, 2, 3, 1, 32, 15 * 3 * 90,
+                          (8 * 8 * 48 + 8 * 32) * 4),
+    (64, 1536, 1536, 64, 1): (8, 3, 24, 8, 64, 24 * 64 * 1536,
+                              (8 * 8 * 64 + 8 * 64) * 4),
+    (8, 1536, 151936, 64, 1): (8, 1, 2374, 1, 64, 0,
+                               (8 * 8 * 64 + 8 * 64) * 4),
+}
+
+
 @pytest.mark.parametrize("shape", [(8, 1536, 8960, 64, 1), (3, 700, 90, 48, 0),
                                    (64, 1536, 1536, 64, 1),
+                                   (8, 1536, 151936, 64, 1),
                                    (512, 1536, 151936, 64, 1)])
 def test_g_same_shape_same_schedule(shape):
+    """G's schedule is a function of the shape alone, pinned to the
+    mapping's values: computed afresh it is the same, field by field.  The
+    lm_head's forward at T = 512 takes the tile: 4 chunk groups (24
+    chunks), a 2-deep ring of 6 KiB steps (f32 A, bf16 B), 8 x 2374
+    tiles."""
     m, k, n, chunk, b_kind = shape
-    assert sm90.g_schedule(m, n, k, chunk, 0, b_kind) == \
-        sm90.g_schedule(m, n, k, chunk, 0, b_kind)
     sm90.decode_schedule.cache_clear()
-    assert sm90.decode_schedule(m, n, k, chunk, b_kind) == \
-        sm90.decode_schedule(m, n, k, chunk, b_kind)
+    sm90.g_schedule.cache_clear()
+    got = sm90.g_schedule(m, n, k, chunk, 0, b_kind)
+    if shape in SCHED_AT:
+        want = sm90.DecodeSchedule(*SCHED_AT[shape])
+    else:
+        want = sm90.Schedule(groups=4, stages=2,
+                             smem=64 * 64 * 4 + 4 * (2 * 16 * 64 * 4
+                                                     + 2 * 64 * 16 * 6),
+                             blocks=8 * 2374)
+    assert got == want
 
 
 def test_g_route_switch():

@@ -937,20 +937,22 @@ def _g_kw(head, chunk=64):
 def test_g_decode_route_at_decode_shapes(dev, name, k, n, m):
     """G at every qwen2-1.5b decode shape takes the decode route and is
     bitwise the plain version on random and lattice operands; one count a
-    call."""
+    call, and one fold launch a split call."""
     from repro_torch.kernels import sm90
 
     head = name == "lm_head"
-    assert isinstance(sm90.g_schedule(m, n, k, 64, 0, 1), sm90.DecodeSchedule)
+    sched = sm90.g_schedule(m, n, k, 64, 0, 1)
+    assert isinstance(sched, sm90.DecodeSchedule)
     gen = torch.Generator(device=dev).manual_seed(m + k + n)
     kw = _g_kw(head)
     for lattice in (False, True):
         a, b = _g_operands(gen, dev, m, k, n, head=head, lattice=lattice)
-        n0 = qmatmul_fused.launches
+        n0, f0 = qmatmul_fused.launches, qmatmul_fused.fold_launches
         got = qmatmul_fused(a, b, **kw)
         want = qmatmul_fused_reference(a, b, **kw)
         torch.cuda.synchronize()
         assert qmatmul_fused.launches == n0 + 1
+        assert qmatmul_fused.fold_launches == f0 + int(sched.slices > 1)
         assert torch.equal(got, want)
 
 
@@ -1090,7 +1092,7 @@ def test_g_entries_match_their_mirrors(dev):
     occ = build.function("qgemm", "qgemm_decode_occupancy", i5)
     t_smem = build.function("qgemm", "qgemm_tile_smem", i3)
     t_occ = build.function("qgemm", "qgemm_tile_occupancy", i3)
-    for m in (1, 3, 8, 16):
+    for m in (1, 3, 8, 16, 32, 64):
         for _, k, n in QWEN_DECODE:
             s = sm90.decode_schedule(m, n, k, 64, 1)
             assert ws(m, n, k, 64, s.slices) == s.ws_floats

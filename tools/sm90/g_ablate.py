@@ -28,6 +28,26 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build, fused, sm90  # noqa: E402
 from repro_torch.kernels.common import qfmt_args  # noqa: E402
 
+# chunk_partial's loop, and the same loop with the next step's weights
+# loaded before a step's FMAs
+_STEP_LOOP = """  unsigned cur[8];
+#pragma unroll 1
+  for (int k0 = kb; k0 < ke; k0 += KS) {
+    load_step<TB, KFAST>(p, n, k0, ke, cur);
+    step_fma<TB, KFAST, QB>(p, cur, As + (k0 - kb) * ROWS, min(KS, ke - k0), part);
+  }
+"""
+_PREFETCH_LOOP = """  unsigned cur[8], nxt[8];
+  load_step<TB, KFAST>(p, n, kb, ke, cur);
+#pragma unroll 1
+  for (int k0 = kb; k0 < ke; k0 += KS) {
+    if (k0 + KS < ke) load_step<TB, KFAST>(p, n, k0 + KS, ke, nxt);
+    step_fma<TB, KFAST, QB>(p, cur, As + (k0 - kb) * ROWS, min(KS, ke - k0), part);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) cur[i] = nxt[i];
+  }
+"""
+
 VARIANTS = {
     "as built": [],
     "no weight quantize": [("if (qb)\n", "if (false)\n")],
@@ -38,8 +58,7 @@ VARIANTS = {
          "make_uint4((unsigned)off, q, 0u, 0u)"),
         ("__ldg(reinterpret_cast<const unsigned*>(B + off))", "(unsigned)off")],
     "no fold kernel": [("if (rc != 0 || !split) return rc;", "return rc;")],
-    "next step's loads in flight": [("constexpr bool PREFETCH = false;",
-                                     "constexpr bool PREFETCH = true;")],
+    "next step's loads in flight": [(_STEP_LOOP, _PREFETCH_LOOP)],
     "3 blocks an SM": [("__launch_bounds__(MAX_SLOTS * LANES, 4)",
                         "__launch_bounds__(MAX_SLOTS * LANES, 3)")],
     "2 blocks an SM": [("__launch_bounds__(MAX_SLOTS * LANES, 4)",
