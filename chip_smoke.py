@@ -19,9 +19,12 @@ on its own line:
    shape at M = 1, 8, 16, 32 and 64 through both of its routes (the
    decode kernel and the Hopper tile), each held against the plain
    version and timed;
-   D's stats variant (K12's kernel) is held at D's arena against D and
-   its plain version (o bitwise, the stats row's counters and MAX_ABS
-   bitwise, its sums within ``SUM_REL``/``SUM_ABS``, two launches bitwise);
+   D and its stats variant (K12's kernel) at the serve arena (B 8), the
+   monitor's B 1 and a 4096-token row, each with the cluster its schedule
+   picks: D bitwise its plain version on random and lattice q, K12 against
+   D and its plain version (o bitwise, the stats row's counters and
+   MAX_ABS bitwise, its sums within ``SUM_REL``/``SUM_ABS``), two launches
+   bitwise; both timed as a CUDA graph replay and eagerly;
 3. serve: qwen2-1.5b at full width and depth (28 layers, d 1536, vocab
    151936) under the predicted accumulation plan (chunk 64, page 16), bf16
    random weights from a seeded generator, 8 requests of mixed prompt
@@ -318,9 +321,10 @@ SM90_TILES = [
     ("qgemm", "qgemm_tile", "qgemm_tile_kernel", [((0, 1), 2), ((0, 0), 2)]),
 ]
 # Kernels whose instantiations the build phase reports (registers, spill
-# bytes; a spill fails): the tile's, G's decode kernel and K3's tile.
+# bytes; a spill fails): the tile's, G's decode kernel, K3's tile and the
+# decode attention's (D, K12).
 _KERNEL = re.compile(r"(qgemm_stats_kernel|qgemm_emitq_kernel|qgemm_tile_kernel|"
-                     r"qgemm_decode_kernel|qmatmul_kernel|"
+                     r"qgemm_decode_kernel|qmatmul_kernel|paged_decode_kernel|"
                      r"bwd_pair_stats_kernel|bwd_pair_kernel)"
                      r"(?:I(.*?)EEv|E)")
 _TILE_KERNELS = {k for _, _, k, _ in SM90_TILES}
@@ -375,7 +379,8 @@ def sm90_report(build) -> None:
     from repro_torch.kernels import sm90
     from repro_torch.kernels.qmatmul import smem_bytes
 
-    for lib in ("qgemm_stats", "qgemm_emitq", "bwd_pair", "qgemm", "qmatmul"):
+    for lib in ("qgemm_stats", "qgemm_emitq", "bwd_pair", "qgemm", "qmatmul",
+                "paged_decode"):
         log = build._lib_path(lib).with_suffix(".log").read_text()
         for fn, (regs, spill) in sorted(_ptxas_entries(log).items()):
             name = _tile_name(fn)
@@ -418,6 +423,23 @@ def sm90_report(build) -> None:
               f"{smem_bytes(4)} bytes of dynamic shared memory, {r} resident "
               f"blocks an SM", flush=True)
         check(r >= 1, f"K3: {r} resident blocks an SM")
+    # D and K12 (qwen2-1.5b: g 6, dh 128): the cluster, its blocks' shared
+    # memory and the clusters that fit the card at once, at the serve
+    # arena and the monitor's B 1 (the 1024-token bucket's 64 pages) and
+    # at the 4096-token row
+    smem = build.function("paged_decode", "paged_decode_smem", [ctypes.c_int] * 5)
+    fit = build.function("paged_decode", "paged_decode_clusters", [ctypes.c_int] * 6)
+    for b, width, what in ((MAX_BATCH, 64, "serve arena"), (1, 64, "monitor"),
+                           (1, 256, "4096-token row")):
+        s = sm90.attn_decode_schedule(b, 2, width, 6, PAGE, 128)
+        n = [fit(k, 6, PAGE, 128, s.cluster, s.rank_pages) for k in (0, 1)]
+        print(f"[build] paged_decode_kernel at the {what} (B={b}, KV 2, "
+              f"width {width}): cluster {s.cluster}, {s.rank_pages} pages a "
+              f"block a round, {s.blocks} blocks of {sm90.ATTN_THREADS} "
+              f"threads, {smem(6, PAGE, 128, s.cluster, s.rank_pages)} bytes "
+              f"of dynamic shared memory; clusters that fit at once: D {n[0]}, "
+              f"K12 {n[1]}", flush=True)
+        check(min(n) >= b * 2, f"D/K12 at the {what}: {n} clusters fit")
 
 
 # --------------------------------------------------------------------------
@@ -615,101 +637,150 @@ def _attn_check(label, got, want, acc, *, bitwise) -> float:
     return float(err.max())
 
 
-def phase_decode(cfg, dev, plan) -> dict:
-    from repro_torch.kernels.attention import (
-        paged_attn_decode, paged_attn_decode_reference,
-        paged_attn_decode_stats_reference)
-    from repro_torch.quant.formats import FP8_152
-
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
-    seq_lens = torch.tensor([384, 0, 17, 64, 100, 129, 256, 311],
-                            dtype=torch.int32, device=dev)
-    _, bucket = plan.bucket_for(int(seq_lens.max()))
-    acc, width = bucket.acc, bucket.max_pages(PAGE)
-    n_pages = 1 + sum(-(-int(s) // PAGE) for s in seq_lens)
-    kc, vc, kse, vse = _attn_arena(gen, dev, n_pages, kv, dh)
-    pt = torch.zeros((MAX_BATCH, width), dtype=torch.int32, device=dev)
+def _decode_table(gen, dev, lens, width):
+    """A page table of ``width`` columns holding the rows' pages of a
+    fresh arena in a random order (padded with the null page 0)."""
+    n_pages = 1 + sum(-(-s // PAGE) for s in lens)
+    pt = torch.zeros((len(lens), width), dtype=torch.int32, device=dev)
     perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
     used = 0
-    for b, s in enumerate(seq_lens.tolist()):
+    for b, s in enumerate(lens):
         np_ = -(-s // PAGE)
         pt[b, :np_] = perm[used:used + np_].to(torch.int32)
         used += np_
-    q = torch.randn((MAX_BATCH, h, dh), generator=gen, device=dev)
-    args = (kc, vc, kse, vse, pt, seq_lens)
-    kw = dict(kv_fmt=FP8_152, acc=acc)
-    print(f"[kernels] D paged_attn_decode vs plain: B={MAX_BATCH} H={h} "
-          f"KV={kv} dh={dh} page {PAGE}, lengths {seq_lens.tolist()}, "
-          f"acc {acc}", flush=True)
-    got = paged_attn_decode(q, *args, **kw)
-    max_err = _attn_check("D random q", got,
-                          paged_attn_decode_reference(q, *args, **kw), acc,
-                          bitwise=False)
-    check(bool((got[1] == 0).all()), "D: a length-0 row is not exactly 0")
-    ql = _lattice(gen, (MAX_BATCH, h, dh), dev)
-    _attn_check("D lattice q", paged_attn_decode(ql, *args, **kw),
-                paged_attn_decode_reference(ql, *args, **kw), acc,
-                bitwise=True)
-    ms = cuda_time(lambda: paged_attn_decode(q, *args, **kw), reps=50)
-    plain = cuda_time(lambda: paged_attn_decode_reference(q, *args, **kw),
-                      reps=1, warmup=0)
-    # K12 at the same arena: the page table is wider than most rows' pages
-    # (the kernel stops at each row's last page, the plain version walks
-    # every column as the TPU kernel does)
-    s_err = 0.0
-    for label, qq in (("random q", q), ("lattice q", ql)):
-        o, row = paged_attn_decode(qq, *args, collect_stats=True, **kw)
-        o2, row2 = paged_attn_decode(qq, *args, collect_stats=True, **kw)
-        po, prow = paged_attn_decode_stats_reference(qq, *args, **kw)
-        _attn_check(f"K12 {label} vs D", o, paged_attn_decode(qq, *args, **kw),
-                    acc, bitwise=True)
-        s_err = max(s_err, _attn_check(f"K12 {label} vs plain", o, po, acc,
-                                       bitwise=True),
-                    check_stats(f"K12 {label}", row, prow))
-        check(torch.equal(o, o2) and torch.equal(row, row2),
-              f"K12 {label}: two launches differ")
-    s_ms = cuda_time(lambda: paged_attn_decode(q, *args, collect_stats=True,
-                                               **kw), reps=50)
-    s_plain = cuda_time(lambda: paged_attn_decode_stats_reference(
-        q, *args, **kw), reps=1, warmup=0)
-    # yardstick: SDPA over the same K/V gathered dense (bf16), length-masked
-    lens = seq_lens.long()
-    lmax = int(lens.max())
+    return n_pages, pt
+
+
+# D's and K12's shapes: the serve arena (B 8, the 1024-token bucket's
+# width), the serve monitor's K12 call (B 1, the same width) and a
+# 4096-token row (256 pages: the cluster takes it in 6 rounds)
+DECODE_SHAPES = (("serve arena", [384, 0, 17, 64, 100, 129, 256, 311], None),
+                 ("monitor B=1", [384], None), ("4096-token row", [4096], 256))
+
+
+def phase_decode(cfg, dev, plan) -> dict:
+    """D and K12 at each of ``DECODE_SHAPES``: bitwise their plain versions
+    on random and on lattice q, K12's o bitwise D's, its counters and
+    MAX_ABS bitwise and sums within the bound, two launches bitwise, a
+    length-0 row exactly 0; each timed eagerly (CUDA events around 50
+    calls: at tens of us this measures the wrapper) and as a CUDA graph
+    replay (``lib_time``: the kernel), beside SDPA over the same K/V and
+    the bound.  The plain versions are timed at the serve arena."""
+    from repro_torch.kernels import sm90
+    from repro_torch.kernels.attention import (
+        paged_attn_decode, paged_attn_decode_reference,
+        paged_attn_decode_stats_reference)
     from repro_torch.kernels.common import exp2_int
+    from repro_torch.quant.formats import FP8_152
     from repro_torch.quant.qtensor import unpack_block
 
-    def dense(codes, se):
-        x = unpack_block(codes[pt.long()], 5, 2) * exp2_int(
-            se[pt.long()])[..., None, None, None]      # (B, W, KV, ps, dh)
-        x = x.permute(0, 2, 1, 3, 4).reshape(MAX_BATCH, kv, -1, dh)[:, :, :lmax]
-        return x.repeat_interleave(h // kv, dim=1).to(torch.bfloat16)
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    _, bucket = plan.bucket_for(384)
+    acc = bucket.acc
+    res = {}
+    for what, lens, width in DECODE_SHAPES:
+        width = width or bucket.max_pages(PAGE)
+        nb = len(lens)
+        n_pages, pt = _decode_table(gen, dev, lens, width)
+        kc, vc, kse, vse = _attn_arena(gen, dev, n_pages, kv, dh)
+        seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn((nb, h, dh), generator=gen, device=dev)
+        ql = _lattice(gen, (nb, h, dh), dev)
+        args = (kc, vc, kse, vse, pt, seq_lens)
+        kw = dict(kv_fmt=FP8_152, acc=acc)
+        sched = sm90.attn_decode_schedule(nb, kv, width, h // kv, PAGE, dh)
+        print(f"[kernels] D paged_attn_decode vs plain at the {what}: B={nb} "
+              f"H={h} KV={kv} dh={dh} page {PAGE}, width {width}, lengths "
+              f"{lens}, acc {acc}; cluster {sched.cluster}, "
+              f"{sched.rank_pages} pages a block a round, {sched.blocks} "
+              f"blocks", flush=True)
+        d_err = s_err = 0.0
+        for label, qq in (("random q", q), ("lattice q", ql)):
+            got = paged_attn_decode(qq, *args, **kw)
+            got2 = paged_attn_decode(qq, *args, **kw)
+            d_err = max(d_err, _attn_check(
+                f"D {label}", got, paged_attn_decode_reference(qq, *args, **kw),
+                acc, bitwise=True))
+            check(torch.equal(got.view(torch.int32), got2.view(torch.int32)),
+                  f"D {what} {label}: two launches differ")
+            for b, n in enumerate(lens):
+                check(n > 0 or bool((got[b] == 0).all()),
+                      "D: a length-0 row is not exactly 0")
+            # the page table is wider than the rows' pages (the kernel stops
+            # at each row's last page, the plain version walks every column
+            # as the TPU kernel does)
+            o, row = paged_attn_decode(qq, *args, collect_stats=True, **kw)
+            o2, row2 = paged_attn_decode(qq, *args, collect_stats=True, **kw)
+            po, prow = paged_attn_decode_stats_reference(qq, *args, **kw)
+            _attn_check(f"K12 {label} vs D", o, got, acc, bitwise=True)
+            s_err = max(s_err, _attn_check(f"K12 {label} vs plain", o, po, acc,
+                                           bitwise=True),
+                        check_stats(f"K12 {label}", row, prow))
+            check(torch.equal(o, o2) and torch.equal(row, row2),
+                  f"K12 {what} {label}: two launches differ")
+        run_d = lambda: paged_attn_decode(q, *args, **kw)
+        run_k12 = lambda: paged_attn_decode(q, *args, collect_stats=True, **kw)
+        eager, eager_s = cuda_time(run_d, reps=50), cuda_time(run_k12, reps=50)
+        graph, graph_s = lib_time(run_d, reps=50), lib_time(run_k12, reps=50)
+        # yardstick: SDPA over the same K/V gathered dense (bf16),
+        # length-masked
+        ln = seq_lens.long()
+        lmax = int(ln.max())
+        ptl = pt.long()
 
-    kd, vd = dense(kc, kse), dense(vc, vse)
-    mask = (torch.arange(lmax, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-    qb = q[:, :, None].to(torch.bfloat16)
-    lib = lib_time(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qb, kd, vd, attn_mask=mask), reps=50)
-    pages_read = int(sum(-(-s // PAGE) for s in seq_lens.tolist()))
-    n_bytes = (pages_read * kv * PAGE * dh * 2 + q.numel() * 4 * 2
-               + pt.numel() * 4 + MAX_BATCH * 4 + pages_read * 2 * 4)
-    flops = 4 * int(lens.sum()) * dh * h
-    b_ms, b_by = bound_ms(n_bytes, flops, F32_FLOPS)
-    print(f"  time D: kernel {ms:.4f} ms, plain {plain:.2f} ms, SDPA "
-          f"{lib_str(lib)}, bound {b_ms:.5f} ms ({b_by})", flush=True)
-    # K12 also writes one partial row of 10 doubles per block and the row
-    s_bytes = n_bytes + MAX_BATCH * kv * 80 + 40
-    s_b, s_by = bound_ms(s_bytes, flops, F32_FLOPS)
-    print(f"  time K12: kernel {s_ms:.4f} ms ({s_ms / ms:.3f}x D), plain "
-          f"{s_plain:.2f} ms, SDPA {lib_str(lib)}, bound {s_b:.5f} ms "
-          f"({s_by})", flush=True)
-    spread = list(lib[1])
-    return dict(ms=ms, plain_ms=plain, library_ms=lib[0],
-                library_spread_ms=spread, bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=max_err,
-                stats=dict(ms=s_ms, plain_ms=s_plain, library_ms=lib[0],
-                           library_spread_ms=spread, bound_ms=s_b,
-                           bound_by=s_by, max_abs_err=s_err))
+        def dense(codes, se):
+            x = unpack_block(codes[ptl], 5, 2) * exp2_int(
+                se[ptl])[..., None, None, None]      # (B, W, KV, ps, dh)
+            x = x.permute(0, 2, 1, 3, 4).reshape(nb, kv, -1, dh)[:, :, :lmax]
+            return x.repeat_interleave(h // kv, dim=1).to(torch.bfloat16)
+
+        kd, vd = dense(kc, kse), dense(vc, vse)
+        mask = (torch.arange(lmax, device=dev)[None, :] < ln[:, None])[:, None, None, :]
+        qb = q[:, :, None].to(torch.bfloat16)
+        lib = lib_time(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qb, kd, vd, attn_mask=mask), reps=50)
+        del kd, vd
+        pages_read = sum(-(-n // PAGE) for n in lens)
+        n_bytes = (pages_read * kv * PAGE * dh * 2 + q.numel() * 4 * 2
+                   + pt.numel() * 4 + nb * 4 + pages_read * 2 * 4)
+        flops = 4 * sum(lens) * dh * h
+        b_ms, b_by = bound_ms(n_bytes, flops, F32_FLOPS)
+        # K12 also writes one partial row of 10 doubles a block and the row
+        s_b, s_by = bound_ms(n_bytes + sched.blocks * 80 + 40, flops, F32_FLOPS)
+        print(f"  time D at the {what}: graph replay {lib_str(graph)}, eager "
+              f"{eager:.4f} ms; SDPA {lib_str(lib)} ({graph[0] / lib[0]:.2f}x); "
+              f"bound {b_ms:.7f} ms ({b_by})", flush=True)
+        print(f"  time K12 at the {what}: graph replay {lib_str(graph_s)} "
+              f"({graph_s[0] / graph[0]:.3f}x D), eager {eager_s:.4f} ms; "
+              f"bound {s_b:.7f} ms ({s_by})", flush=True)
+        base = dict(library_ms=lib[0], library_spread_ms=list(lib[1]),
+                    cluster=sched.cluster, rank_pages=sched.rank_pages)
+        res[what] = dict(
+            D=dict(ms=graph[0], graph_spread_ms=list(graph[1]), eager_ms=eager,
+                   bound_ms=b_ms, bound_by=b_by, max_abs_err=d_err, **base),
+            K12=dict(ms=graph_s[0], graph_spread_ms=list(graph_s[1]),
+                     eager_ms=eager_s, bound_ms=s_b, bound_by=s_by,
+                     max_abs_err=s_err, **base))
+        if what == "serve arena":
+            plain = cuda_time(lambda: paged_attn_decode_reference(q, *args, **kw),
+                              reps=1, warmup=0)
+            s_plain = cuda_time(lambda: paged_attn_decode_stats_reference(
+                q, *args, **kw), reps=1, warmup=0)
+            print(f"  plain versions at the {what}: D {plain:.2f} ms, K12 "
+                  f"{s_plain:.2f} ms", flush=True)
+            res[what]["D"]["plain_ms"] = plain
+            res[what]["K12"]["plain_ms"] = s_plain
+    # the kernels line: the serve arena's numbers, the other shapes beside
+    out = {}
+    for k in ("D", "K12"):
+        out[k] = dict(res["serve arena"][k])
+        out[k]["max_abs_err"] = max(r[k]["max_abs_err"] for r in res.values())
+        out[k]["at"] = {w: {x: r[k][x] for x in ("ms", "graph_spread_ms",
+                                                 "eager_ms", "bound_ms",
+                                                 "library_ms", "cluster")}
+                        for w, r in res.items() if w != "serve arena"}
+    return dict(out["D"], stats=out["K12"])
 
 
 def phase_prefill(cfg, dev, plan) -> dict:
@@ -916,8 +987,9 @@ def phase_serve_monitor(cfg, params, dev, prompts, one_shot) -> dict:
     from repro_torch.kernels.attention import paged_attn_decode
     from repro_torch.serve.plan import plan_attention
 
-    counters = dict(_counters(), **{K12_NAME: (paged_attn_decode,
-                                               "stats_launches")})
+    counters = dict(_counters(), **{
+        K12_NAME: (paged_attn_decode, "stats_launches"),
+        K12_FINISH: (paged_attn_decode, "finish_launches")})
     MONITOR_LOG.unlink(missing_ok=True)
     eng = build_engine(cfg, params, dev, None,
                        monitor_cadence=MONITOR_CADENCE,
@@ -943,6 +1015,8 @@ def phase_serve_monitor(cfg, params, dev, prompts, one_shot) -> dict:
     for k, v in launches.items():
         check(v > 0, f"monitored run: kernel {k} was not launched")
     check(launches[K12_NAME] == len(kinds), "one K12 launch per tick")
+    check(launches[K12_FINISH] == len(kinds),
+          "one pass summing K12's partial rows per tick")
     check(sum(1 for _ in open(MONITOR_LOG)) == len(kinds),
           "the monitor log lost events")
     if "rebucket" not in kinds:
@@ -957,7 +1031,7 @@ def phase_serve_monitor(cfg, params, dev, prompts, one_shot) -> dict:
         eng.submit(p, GEN)
     zero_counts(counters)
     eng.run()
-    n12 = read_counts(counters)[K12_NAME]
+    n12, f12 = (read_counts(counters)[k] for k in (K12_NAME, K12_FINISH))
     kinds = [e["event"] for e in eng.events]
     first = next((e for e in eng.events if e["event"] == "rebucket"), None)
     print(f"[serve] forced 1-bit carry plan: {len(kinds)} ticks, "
@@ -965,7 +1039,8 @@ def phase_serve_monitor(cfg, params, dev, prompts, one_shot) -> dict:
           f"{json.dumps(first)}; bucket m_acc now "
           f"{[b.m_acc for b in eng.plan.buckets]}", flush=True)
     check(first is not None, "the forced narrow plan did not re-bucket")
-    return dict(launches=launches[K12_NAME] + n12, events=len(kinds))
+    return dict(launches=launches[K12_NAME] + n12,
+                finish_launches=launches[K12_FINISH] + f12, events=len(kinds))
 
 
 # One request's prefill logits, kernels vs plain versions on the card.
@@ -1504,6 +1579,7 @@ K7_NAME = "qmatmul_bwd_pair(dx_carry)"          # B's carry-in entry
 K8_NAME = "qmatmul_fused(collect_stats)"        # K8's kernel
 K9_NAME = "qmatmul_bwd_pair(collect_stats)"     # K9's kernel
 K12_NAME = "paged_attn_decode(collect_stats)"   # K12's kernel
+K12_FINISH = "paged_attn_decode(collect_stats) second pass"
 
 
 def _train_counters():
@@ -2629,7 +2705,8 @@ def main() -> None:
         dict(name=K12_NAME, route="cuda",
              source="src/repro_torch/csrc/paged_decode.cu",
              replaces="src/repro/kernels/attention.py:607",
-             launches=mon["launches"], **k12),
+             launches=mon["launches"],
+             finish_launches=mon["finish_launches"], **k12),
         # the oracle's kernels over the full-depth oracle training steps,
         # and the dense prefill over the dense-prefill phase's layer paths
         dict(name=K2_NAME, route="cuda",

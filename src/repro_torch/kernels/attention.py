@@ -4,17 +4,20 @@ Three CUDA C++ kernels replace the TPU kernels of ``repro/kernels/
 attention.py``:
 
 * ``paged_attn_decode`` (``csrc/paged_decode.cu``) replaces
-  ``_decode_kernel``: one query token per sequence, one thread block per
-  (sequence, KV head) holding its g query heads (kv-major grouping: head
-  ``hh = hk * g + gg``).  It walks only the pages ``p < ceil(seq_len /
-  page_size)`` of the sequence's page-table row, decodes each int8 K/V
-  page in shared memory with the page's 2^se scale, and folds it into the
-  online softmax.  Bound on the H100: the bytes of the int8 pages it
-  reads (plus q and out), a few MB per decode step, i.e. microseconds at
-  3.35 TB/s; the sequential page walk (the carry is rounded once per
-  page, so pages cannot be split across blocks) makes it latency-bound
-  instead.  The design keeps the next page's codes in flight (loaded into
-  registers) while the current page is computed.
+  ``_decode_kernel``: one query token per sequence; the g query heads of
+  a KV head (kv-major grouping: head ``hh = hk * g + gg``) attend over the
+  pages ``p < ceil(seq_len / page_size)`` of the sequence's page-table
+  row, each int8 K/V page decoded with its 2^se scale.  The page walk of
+  each (sequence, KV head) is split over the blocks of a thread-block
+  cluster (``sm90.attn_decode_schedule``): each block forms the scores of
+  a contiguous run of pages and publishes their ceil maxima, reads every
+  rank's maxima through distributed shared memory to form the walk's
+  running max and rescales, forms its pages' probabilities, l sums and
+  p.v, and the carries fold in page order.  The running max is the prefix
+  max of the pages' maxima, so every partial is the sequential walk's and
+  the output is bitwise the walk's.  Bound on the H100: the bytes of the
+  int8 pages it reads (plus q and out), microseconds at 3.35 TB/s; at the
+  serve shapes the launch and each page's dependent chains bound it.
 * ``flash_prefill_paged`` (``csrc/paged_prefill.cu``) replaces
   ``_prefill_paged_kernel``: a grid of (query head, block of
   ``BLOCK_Q`` rows); query head ``hh`` reads KV head ``hh // g`` straight
@@ -47,7 +50,8 @@ contractions are XLA dots, they agree to the carry's rounding.
 ``_decode_kernel_stats``, the serve-time swamping monitor's probe): D's
 output, bitwise, plus the (N_STATS,) float32 stats row of the o carry
 against an f32 shadow ``o_i = o_i * alpha + p.v`` of the same rescaled
-addends, over the outputs of the sequences with ``seq_len > 0``.
+addends, over the outputs of the sequences with ``seq_len > 0``, formed
+in the same fold; one partial row a block, summed by a second launch.
 
 On CPU tensors the wrappers run the ``*_reference`` plain versions; on
 CUDA tensors they launch the kernel or raise.
@@ -56,12 +60,13 @@ CUDA tensors they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, sm90
 from repro_torch.kernels.common import (
     N_STATS,
     exp2_int,
@@ -141,6 +146,13 @@ class AttnCall:
 
 def _scale(dh: int) -> torch.Tensor:
     return torch.tensor(LOG2E / math.sqrt(dh), dtype=torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _scale_f32(dh: int) -> float:
+    """``_scale(dh)`` as a Python float, the same f32 bits, formed once per
+    dh (a kernel launch takes it without building a tensor)."""
+    return float(_scale(dh))
 
 
 def _seq_dot(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -291,8 +303,15 @@ def _decode_walk(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens, *,
     return out
 
 
-_DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F,
-                _I, _I, _I, _I, _F, _F, _P]
+_DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                _I, _F, _I, _I, _I, _I, _F, _F, _P]
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_consts(dh: int, acc) -> tuple:
+    """The launch's constant C arguments of a head width and carry format:
+    the score scale and the carry quantizer's."""
+    return (ctypes.c_float(_scale_f32(dh)), *qfmt_args(acc))
 
 
 def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
@@ -308,10 +327,14 @@ def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
     * ``acc`` the (e_acc, m_acc) carry of the context bucket;
     * ``collect_stats=True`` is K12's kernel: returns ``(out, row)``, out
       bitwise the stats-off call's and ``row`` the (N_STATS,) float32
-      swamping stats on the device, counted on ``stats_launches``;
+      swamping stats on the device, counted on ``stats_launches`` (its
+      second pass, which sums the blocks' partial rows, on
+      ``finish_launches``);
     * ``rounding``: only ``"rne"`` is ported (SR raises).
 
-    Returns (B, H, dh) float32 [, row].
+    The launch reads only host-known shapes (the schedule follows B, KV
+    and the page-table width); it allocates only its output, and K12 its
+    row and partial rows.  Returns (B, H, dh) float32 [, row].
     """
     if rounding != "rne":
         raise NotImplementedError("stochastic-rounding carries are not "
@@ -331,19 +354,22 @@ def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
     _check_cuda(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens)
     b, h, dh = q.shape
     kv, page_size = k_pages.shape[1], k_pages.shape[2]
-    _launch_limits(h // kv, dh, page_size)
+    g, width = h // kv, page_table.shape[1]
+    _launch_limits(g, dh, page_size)
     out = torch.empty_like(q)
-    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            k_se.data_ptr(), v_se.data_ptr(), page_table.data_ptr(),
-            page_table.shape[1], seq_lens.data_ptr(), out.data_ptr(),
-            b, kv, h // kv, page_size, dh, ctypes.c_float(float(_scale(dh))),
-            *fmt, *qfmt_args(acc))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     if collect_stats:
         row = torch.zeros((N_STATS,), dtype=torch.float32, device=q.device)
-        if b == 0:
-            return out, row
-        part = torch.empty((b * kv, N_STATS), dtype=torch.float64,
+    if b == 0:
+        return (out, row) if collect_stats else out
+    sched = sm90.attn_decode_schedule(b, kv, width, g, page_size, dh)
+    scale, *qacc = _decode_consts(dh, tuple(acc))
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_se.data_ptr(), v_se.data_ptr(), page_table.data_ptr(), width,
+            seq_lens.data_ptr(), out.data_ptr(), b, kv, g, page_size, dh,
+            sched.cluster, sched.rank_pages, scale, *fmt, *qacc)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if collect_stats:
+        part = torch.empty((sched.blocks, N_STATS), dtype=torch.float64,
                            device=q.device)
         rc = build.function("paged_decode", "paged_decode_stats",
                             _DECODE_ARGS[:-1] + [_P, _P, _P])(
@@ -352,6 +378,7 @@ def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
             raise RuntimeError(f"paged_decode_stats launch failed: CUDA "
                                f"error {rc}")
         paged_attn_decode.stats_launches += 1
+        paged_attn_decode.finish_launches += 1
         return out, row
     rc = build.function("paged_decode", "paged_decode", _DECODE_ARGS)(
         *args, stream)
@@ -363,6 +390,7 @@ def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
 
 paged_attn_decode.launches = 0
 paged_attn_decode.stats_launches = 0
+paged_attn_decode.finish_launches = 0
 
 
 # --------------------------------------------------------------------------

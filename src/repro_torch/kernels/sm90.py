@@ -23,6 +23,14 @@ split gives the same bits.  At qwen2-1.5b's shapes the workspace is at
 most 6.9 MB at M = 8 and 27.5 MB at 32, inside the H100's 50 MB L2;
 mlp_down's at a 64-row slab is 55 MB, past it, and the decode route still
 beat the tile there (PERF.md, PR 17).
+
+D and K12 (``csrc/paged_decode.cu``, ``attn_decode_schedule``) split the
+page walk of each (sequence, KV head) over the ``cluster`` blocks of a
+thread-block cluster: ``decode_cluster`` picks the cluster from the
+batch, the KV heads and the page-table width alone (never from the
+lengths, which live on the device), and ``decode_rounds`` gives each rank
+its contiguous pages, at most ``rank_pages`` of them a round.  Any
+cluster and any round size give the same bits.
 """
 
 from __future__ import annotations
@@ -34,7 +42,10 @@ __all__ = ["TILE", "KT", "GROUP_THREADS", "SMEM_LIMIT", "Schedule",
            "chunk_groups", "gemm_schedule", "emitq_schedule", "pair_schedule",
            "gemm_tile", "pair_tile", "pair_blocks", "DECODE_MAX_M",
            "DecodeSchedule", "decode_schedule", "decode_smem", "decode_ws",
-           "g_schedule"]
+           "g_schedule", "ATTN_THREADS", "ATTN_CLUSTER_MAX", "ATTN_RANK_PAGES",
+           "ATTN_SMEM_BUDGET",
+           "AttnDecodeSchedule", "decode_cluster", "attn_decode_smem",
+           "attn_decode_schedule", "decode_rounds"]
 
 TILE = 64               # output rows and columns of a block
 KT = 16                 # K values a pipeline step stages
@@ -227,3 +238,88 @@ def g_schedule(m: int, n: int, k: int, chunk: int, a_kind: int,
         if sched is not None:
             return sched
     return gemm_schedule(m, n, k, chunk, a_kind, b_kind, stats=False)
+
+
+# ------------------------------------------------ D's and K12's page walk
+
+ATTN_THREADS = 256      # threads of a decode-attention block
+ATTN_CLUSTER_MAX = 8    # blocks of a cluster, at most (the portable size)
+ATTN_RANK_PAGES = 8     # pages a block holds a round, at most
+# shared memory a block takes where it can, so that two blocks fit an SM
+# (each also holds 1 KiB for the system and its static shared memory)
+ATTN_SMEM_BUDGET = 112 * 1024
+
+
+def _al4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+@dataclass(frozen=True)
+class AttnDecodeSchedule:
+    cluster: int        # blocks a (sequence, KV head), one cluster
+    rank_pages: int     # pages a block holds a round
+    smem: int           # dynamic shared memory a block, bytes
+    blocks: int         # blocks of the launch
+
+
+def decode_cluster(b: int, kv: int, width: int) -> int:
+    """Blocks a (sequence, KV head) of D and K12: the largest power of two
+    up to ATTN_CLUSTER_MAX that keeps the grid within the card's SMs and
+    no larger than the page-table width (a row has at most that many
+    pages).  B 8 and KV 2 give 8 (128 blocks); the monitor's B 1 gives 8
+    (16 blocks) from a width of 8 on."""
+    cap = min(ATTN_CLUSTER_MAX, width, SMS // max(1, b * kv))
+    cl = 1
+    while cl * 2 <= cap:
+        cl *= 2
+    return cl
+
+
+def attn_decode_smem(g: int, ps: int, dh: int, cluster: int,
+                     rank_pages: int) -> int:
+    """``csrc/paged_decode.cu``'s ``Layout``: q; the round's K values,
+    whose region then takes the partials gathered for the fold; scores
+    (then probabilities); the value partials; the published page maxima
+    and l sums; the round's maxima, rescales and l sums of every rank; the
+    m and l carries; the block's o carries and (K12) their f32 shadows;
+    (K12) each thread's counters; the pages' scales and ids; then the K
+    and V codes."""
+    r, dp = rank_pages, _al4(dh)
+    per_o = -(-g * dh // cluster)
+    floats = (_al4(g * dp) + _al4(max(r * ps * (dp + 4), cluster * r * per_o))
+              + _al4(r * g * ps) + _al4(r * g * dh) + 2 * _al4(r * g)
+              + 3 * _al4(cluster * r * g) + _al4(2 * g) + 2 * _al4(per_o)
+              + 3 * ATTN_THREADS + _al4(2 * r) + _al4(r))
+    return floats * 4 + 2 * r * ((ps * dh + 15) & ~15)
+
+
+@functools.lru_cache(maxsize=4096)
+def attn_decode_schedule(b: int, kv: int, width: int, g: int, ps: int,
+                         dh: int) -> AttnDecodeSchedule:
+    """D's and K12's launch for B sequences, KV heads and a page table of
+    ``width`` columns: the cluster, and pages a block a round enough for
+    the widest row in one round, at most ATTN_RANK_PAGES and within
+    ATTN_SMEM_BUDGET (a longer row takes rounds), so shared memory is
+    bounded at any width.  Heads too wide for the budget at one page take
+    one page a round in up to a block's whole shared memory."""
+    cl = decode_cluster(b, kv, width)
+    r = max(1, min(ATTN_RANK_PAGES, -(-width // cl)))
+    while r > 1 and attn_decode_smem(g, ps, dh, cl, r) > ATTN_SMEM_BUDGET:
+        r -= 1
+    return AttnDecodeSchedule(cl, r, attn_decode_smem(g, ps, dh, cl, r),
+                              b * kv * cl)
+
+
+def decode_rounds(n_pages: int, cluster: int, rank_pages: int):
+    """The kernel's page walk of a row of ``n_pages`` pages: a list of
+    rounds, each the ``cluster`` ranks' contiguous ``[start, end)`` page
+    ranges in page order, together the round's ``cluster * rank_pages``
+    pages (fewer in the last), split as evenly as whole pages allow."""
+    cap = cluster * rank_pages
+    rounds = []
+    for base in range(0, n_pages, cap):
+        npr = min(cap, n_pages - base)
+        per = -(-npr // cluster)
+        rounds.append([(base + min(q * per, npr), base + min((q + 1) * per, npr))
+                       for q in range(cluster)])
+    return rounds

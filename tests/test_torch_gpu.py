@@ -98,28 +98,99 @@ def _attn_ok(got, want, acc):
     assert bool(((got - want).abs() <= tol).all())
 
 
-@pytest.mark.parametrize("h,kv,dh,acc", [(12, 2, 128, (6, 5)),
-                                         (4, 2, 16, (8, 23))])
-def test_decode_kernel_matches_plain(dev, h, kv, dh, acc):
-    gen = torch.Generator(device=dev).manual_seed(h * dh)
-    lens = [0, 17, 64, 100, 129, 256, 311, 384]
-    width = 24
-    n_pages = 1 + sum(-(-s // 16) for s in lens)
-    kc, vc, kse, vse = _arena(gen, dev, n_pages, kv, 16, dh)
+def _decode_case(gen, dev, lens, width, kv, dh, ps=16):
+    """An arena holding the rows' pages in a random order, the page table
+    (padded with the null page 0 to ``width``) and the lengths."""
+    n_pages = 1 + sum(-(-s // ps) for s in lens)
+    kc, vc, kse, vse = _arena(gen, dev, n_pages, kv, ps, dh)
     pt = torch.zeros((len(lens), width), dtype=torch.int32, device=dev)
-    nxt = 1
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    used = 0
     for b, s in enumerate(lens):
-        np_ = -(-s // 16)
-        pt[b, :np_] = torch.arange(nxt, nxt + np_, device=dev)
-        nxt += np_
+        np_ = -(-s // ps)
+        pt[b, :np_] = perm[used:used + np_].to(torch.int32)
+        used += np_
     sl = torch.tensor(lens, dtype=torch.int32, device=dev)
-    q = torch.randn((len(lens), h, dh), generator=gen, device=dev)
-    args = (kc, vc, kse, vse, pt, sl)
-    got = paged_attn_decode(q, *args, kv_fmt=FP8_152, acc=acc)
-    want = paged_attn_decode_reference(q, *args, kv_fmt=FP8_152, acc=acc)
-    torch.cuda.synchronize()
-    assert bool((got[0] == 0).all())
-    _attn_ok(got, want, acc)
+    return kc, vc, kse, vse, pt, sl
+
+
+SERVE_LENS = [0, 17, 64, 100, 129, 256, 311, 384]
+
+
+# (h, kv, dh, acc, lengths, page-table width, the cluster the schedule
+# picks[, page size]): the serve arena (B 8), narrow heads, every cluster
+# size the schedule can pick (by width, and by batch), the monitor's B 1,
+# a 4096-token row (256 pages: 8 blocks of 6 pages a round, 6 rounds),
+# and a head width that is not a multiple of 4 with pages of 5 tokens (30
+# bytes a page slice: codes staged a byte a thread)
+DECODE_CASES = [
+    (12, 2, 128, (6, 5), SERVE_LENS, 24, 8),
+    (4, 2, 16, (8, 23), SERVE_LENS, 24, 8),
+    (12, 2, 128, (6, 5), [0, 5, 16, 33, 48, 64, 70, 80], 5, 4),
+    (12, 2, 128, (6, 5), [0, 5, 16, 33, 48, 9, 40, 30], 3, 2),
+    (12, 2, 128, (6, 5), [0, 1, 16, 9, 15, 3, 12, 7], 1, 1),
+    (12, 2, 128, (6, 5), (SERVE_LENS * 2)[1:], 26, 4),       # B 15
+    (12, 2, 128, (6, 5), (SERVE_LENS * 5)[:33], 26, 2),      # B 33
+    (12, 2, 128, (6, 5), (SERVE_LENS * 5)[:40], 26, 1),      # B 40
+    (12, 2, 128, (6, 5), [300], 26, 8),                       # the monitor's
+    (12, 2, 128, (6, 5), [4096, 0, 1000], 256, 8),
+    (6, 3, 6, (6, 5), [0, 13, 40, 3], 9, 8, 5),
+]
+
+
+@pytest.mark.parametrize("h,kv,dh,acc,lens,width,cluster,ps",
+                         [c + (16,) * (len(c) == 7) for c in DECODE_CASES])
+def test_decode_kernel_matches_plain(dev, h, kv, dh, acc, lens, width,
+                                     cluster, ps):
+    """D bitwise its plain version on random and on lattice q (the split
+    walk keeps every bit on any operands), at the schedule's cluster; one
+    launch a call; two launches equal; a length-0 row exactly 0."""
+    from repro_torch.kernels import sm90
+
+    assert sm90.attn_decode_schedule(len(lens), kv, width, h // kv, ps,
+                                     dh).cluster == cluster
+    gen = torch.Generator(device=dev).manual_seed(h * dh + width + len(lens))
+    args = _decode_case(gen, dev, lens, width, kv, dh, ps)
+    for q in (torch.randn((len(lens), h, dh), generator=gen, device=dev),
+              _lattice(gen, (len(lens), h, dh), dev)):
+        n0, s0 = paged_attn_decode.launches, paged_attn_decode.stats_launches
+        got = paged_attn_decode(q, *args, kv_fmt=FP8_152, acc=acc)
+        again = paged_attn_decode(q, *args, kv_fmt=FP8_152, acc=acc)
+        want = paged_attn_decode_reference(q, *args, kv_fmt=FP8_152, acc=acc)
+        torch.cuda.synchronize()
+        assert paged_attn_decode.launches == n0 + 2
+        assert paged_attn_decode.stats_launches == s0
+        assert bool(torch.isfinite(got).all())
+        assert torch.equal(got, want)
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        for b, s in enumerate(lens):
+            if s == 0:
+                assert bool((got[b] == 0).all())
+
+
+def test_decode_entries_match_their_mirrors(dev):
+    """The kernel's shared memory equals ``sm90.attn_decode_smem`` at every
+    head shape and schedule; at the serve arena's schedule (the 1024-token
+    bucket's 64 pages) all 16 clusters of D and of K12 fit the card at
+    once, and the 4096-token row's fit."""
+    import ctypes
+
+    from repro_torch.kernels import build, sm90
+
+    smem = build.function("paged_decode", "paged_decode_smem",
+                          [ctypes.c_int] * 5)
+    clusters = build.function("paged_decode", "paged_decode_clusters",
+                              [ctypes.c_int] * 6)
+    for g, ps, dh in ((6, 16, 128), (2, 16, 16), (8, 32, 128), (3, 5, 7)):
+        for cl in range(1, 9):
+            for r in (1, 3, 8):
+                assert smem(g, ps, dh, cl, r) == sm90.attn_decode_smem(
+                    g, ps, dh, cl, r)
+    for b, width in ((8, 64), (1, 256)):
+        s = sm90.attn_decode_schedule(b, 2, width, 6, 16, 128)
+        for stats in (0, 1):
+            n = clusters(stats, 6, 16, 128, s.cluster, s.rank_pages)
+            assert n >= 2 * b, (b, width, stats, n)
 
 
 @pytest.mark.parametrize("t,q_off,q_len,start_page", [
@@ -416,41 +487,40 @@ def test_bwd_pair_stats_kernel_matches_plain_and_b(dev, t, k, n, packed):
         _stats_ok(rows, prows)
 
 
-def test_decode_stats_kernel_matches_plain_and_d(dev):
+@pytest.mark.parametrize("lens,width", [
+    ([384, 0, 17, 64, 100, 129, 256, 311], 32),     # the serve arena
+    ([300], 26),                                    # the monitor's B 1
+    ([4096], 256),                                  # 6 rounds of 48 pages
+])
+def test_decode_stats_kernel_matches_plain_and_d(dev, lens, width):
     """K12 on a page table wider than the pages in use (the kernel stops at
     each sequence's last page, the plain version walks every column as the
     TPU kernel does): o bitwise D's and the plain version's, the row's
-    counters and MAX_ABS bitwise, sums within the bound; deterministic."""
+    counters and MAX_ABS bitwise, sums within the bound; deterministic;
+    two launches a call (the kernel and the pass that sums its partial
+    rows)."""
     from repro_torch.kernels.attention import paged_attn_decode_stats_reference
 
     h, kv, dh, acc = 12, 2, 128, (6, 5)
-    gen = torch.Generator(device=dev).manual_seed(7)
-    lens = [384, 0, 17, 64, 100, 129, 256, 311]
-    width = 32
-    n_pages = 1 + sum(-(-s // 16) for s in lens)
-    kc, vc, kse, vse = _arena(gen, dev, n_pages, kv, 16, dh)
-    pt = torch.zeros((len(lens), width), dtype=torch.int32, device=dev)
-    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
-    used = 0
-    for b, s in enumerate(lens):
-        np_ = -(-s // 16)
-        pt[b, :np_] = perm[used:used + np_].to(torch.int32)
-        used += np_
-    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
-    args = (kc, vc, kse, vse, pt, sl)
+    gen = torch.Generator(device=dev).manual_seed(7 + width)
+    args = _decode_case(gen, dev, lens, width, kv, dh)
     kw = dict(kv_fmt=FP8_152, acc=acc)
     for q in (torch.randn((len(lens), h, dh), generator=gen, device=dev),
               _lattice(gen, (len(lens), h, dh), dev)):
-        n0 = paged_attn_decode.stats_launches
+        n0, f0 = (paged_attn_decode.stats_launches,
+                  paged_attn_decode.finish_launches)
+        d0 = paged_attn_decode.launches
         o, row = paged_attn_decode(q, *args, collect_stats=True, **kw)
         o2, row2 = paged_attn_decode(q, *args, collect_stats=True, **kw)
+        assert paged_attn_decode.launches == d0
         d = paged_attn_decode(q, *args, **kw)
         po, prow = paged_attn_decode_stats_reference(q, *args, **kw)
         torch.cuda.synchronize()
         assert paged_attn_decode.stats_launches == n0 + 2
+        assert paged_attn_decode.finish_launches == f0 + 2
         assert torch.equal(o, d) and torch.equal(o, po)
         assert torch.equal(row, row2) and torch.equal(o, o2)
-        assert float(row[0]) == 7 * h * dh      # the 7 rows of length > 0
+        assert float(row[0]) == sum(s > 0 for s in lens) * h * dh
         _stats_ok(row, prow)
 
 
