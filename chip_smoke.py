@@ -224,45 +224,12 @@ def compare(label: str, got, want, m: int, e: int, *, bitwise: bool,
     return err
 
 
-# Stats rows (kernels.common.N_STATS) of a stats kernel against its plain
-# version: the counters (COUNT, SWAMPED, ADDS) and MAX_ABS bitwise; the sum
-# slots add the same float64 terms in another order and round once to f32,
-# so each is held to SUM_REL (2 f32 ulps) of its value, plus, for the
-# first-moment slots (whose terms may cancel), SUM_ABS times the
-# Cauchy-Schwarz bound sqrt(count * sum of squares) on the sum of |terms|.
-STAT_EXACT = (0, 5, 6, 7)
-STAT_FIRST = {1: 2, 3: 4, 8: 9}      # first-moment slot -> its square slot
-STAT_SQUARE = (2, 4, 9)
-SUM_REL, SUM_ABS = 2.0 ** -22, 2.0 ** -40
-
-
-def stats_gap(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, float]:
-    """(exact slots bitwise equal, largest |got - want| / bound over the
-    sum slots) for two rows of the same shape (..., N_STATS)."""
-    got = got.detach().double().cpu().reshape(-1, 10)
-    want = want.detach().double().cpu().reshape(-1, 10)
-    exact = bool(torch.equal(got[:, list(STAT_EXACT)],
-                             want[:, list(STAT_EXACT)]))
-    ratio = 0.0
-    for i in range(got.shape[0]):
-        for s in STAT_SQUARE:
-            bound = SUM_REL * abs(float(want[i, s]))
-            ratio = max(ratio, _over(got[i, s], want[i, s], bound))
-        for s, sq in STAT_FIRST.items():
-            bound = SUM_REL * abs(float(want[i, s])) + SUM_ABS * math.sqrt(
-                max(float(want[i, 0] * want[i, sq]), 0.0))
-            ratio = max(ratio, _over(got[i, s], want[i, s], bound))
-    return exact, ratio
-
-
-def _over(a, b, bound: float) -> float:
-    d = abs(float(a) - float(b))
-    return 0.0 if d == 0.0 else (d / bound if bound > 0 else math.inf)
-
-
 def check_stats(label: str, got, want) -> float:
     """Print and check a stats row against its plain version; returns the
-    largest |error| over the sum slots."""
+    largest |error| over the sum slots (``kernels.common.stats_gap``: the
+    counters and MAX_ABS bitwise, the sums within SUM_REL/SUM_ABS)."""
+    from repro_torch.kernels.common import stats_gap
+
     exact, ratio = stats_gap(got, want)
     err = float((got.double().cpu() - want.double().cpu()).abs().max())
     print(f"  {label} stats: counters and MAX_ABS "
@@ -746,8 +713,9 @@ def phase_decode(cfg, dev, plan) -> dict:
                    + pt.numel() * 4 + nb * 4 + pages_read * 2 * 4)
         flops = 4 * sum(lens) * dh * h
         b_ms, b_by = bound_ms(n_bytes, flops, F32_FLOPS)
-        # K12 also writes one partial row of 10 doubles a block and the row
-        s_b, s_by = bound_ms(n_bytes + sched.blocks * 80 + 40, flops, F32_FLOPS)
+        # K12's function also writes its stats row (its partial rows are
+        # the design's own workspace, not the function's bytes)
+        s_b, s_by = bound_ms(n_bytes + 40, flops, F32_FLOPS)
         print(f"  time D at the {what}: graph replay {lib_str(graph)}, eager "
               f"{eager:.4f} ms; SDPA {lib_str(lib)} ({graph[0] / lib[0]:.2f}x); "
               f"bound {b_ms:.7f} ms ({b_by})", flush=True)
@@ -988,8 +956,7 @@ def phase_serve_monitor(cfg, params, dev, prompts, one_shot) -> dict:
     from repro_torch.serve.plan import plan_attention
 
     counters = dict(_counters(), **{
-        K12_NAME: (paged_attn_decode, "stats_launches"),
-        K12_FINISH: (paged_attn_decode, "finish_launches")})
+        K12_NAME: (paged_attn_decode, "stats_launches")})
     MONITOR_LOG.unlink(missing_ok=True)
     eng = build_engine(cfg, params, dev, None,
                        monitor_cadence=MONITOR_CADENCE,
@@ -1014,9 +981,7 @@ def phase_serve_monitor(cfg, params, dev, prompts, one_shot) -> dict:
           f"launches {launches}", flush=True)
     for k, v in launches.items():
         check(v > 0, f"monitored run: kernel {k} was not launched")
-    check(launches[K12_NAME] == len(kinds), "one K12 launch per tick")
-    check(launches[K12_FINISH] == len(kinds),
-          "one pass summing K12's partial rows per tick")
+    check(launches[K12_NAME] == len(kinds), "one K12 call per tick")
     check(sum(1 for _ in open(MONITOR_LOG)) == len(kinds),
           "the monitor log lost events")
     if "rebucket" not in kinds:
@@ -1031,7 +996,7 @@ def phase_serve_monitor(cfg, params, dev, prompts, one_shot) -> dict:
         eng.submit(p, GEN)
     zero_counts(counters)
     eng.run()
-    n12, f12 = (read_counts(counters)[k] for k in (K12_NAME, K12_FINISH))
+    n12 = read_counts(counters)[K12_NAME]
     kinds = [e["event"] for e in eng.events]
     first = next((e for e in eng.events if e["event"] == "rebucket"), None)
     print(f"[serve] forced 1-bit carry plan: {len(kinds)} ticks, "
@@ -1039,8 +1004,7 @@ def phase_serve_monitor(cfg, params, dev, prompts, one_shot) -> dict:
           f"{json.dumps(first)}; bucket m_acc now "
           f"{[b.m_acc for b in eng.plan.buckets]}", flush=True)
     check(first is not None, "the forced narrow plan did not re-bucket")
-    return dict(launches=launches[K12_NAME] + n12,
-                finish_launches=launches[K12_FINISH] + f12, events=len(kinds))
+    return dict(launches=launches[K12_NAME] + n12, events=len(kinds))
 
 
 # One request's prefill logits, kernels vs plain versions on the card.
@@ -1578,8 +1542,8 @@ K7_NAME = "qmatmul_bwd_pair(dx_carry)"          # B's carry-in entry
 
 K8_NAME = "qmatmul_fused(collect_stats)"        # K8's kernel
 K9_NAME = "qmatmul_bwd_pair(collect_stats)"     # K9's kernel
-K12_NAME = "paged_attn_decode(collect_stats)"   # K12's kernel
-K12_FINISH = "paged_attn_decode(collect_stats) second pass"
+# K12's kernel; each call is two launches, the kernel and its second pass
+K12_NAME = "paged_attn_decode(collect_stats)"
 
 
 def _train_counters():
@@ -2705,8 +2669,7 @@ def main() -> None:
         dict(name=K12_NAME, route="cuda",
              source="src/repro_torch/csrc/paged_decode.cu",
              replaces="src/repro/kernels/attention.py:607",
-             launches=mon["launches"],
-             finish_launches=mon["finish_launches"], **k12),
+             launches=mon["launches"], **k12),
         # the oracle's kernels over the full-depth oracle training steps,
         # and the dense prefill over the dense-prefill phase's layer paths
         dict(name=K2_NAME, route="cuda",

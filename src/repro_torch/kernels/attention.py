@@ -327,9 +327,9 @@ def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
     * ``acc`` the (e_acc, m_acc) carry of the context bucket;
     * ``collect_stats=True`` is K12's kernel: returns ``(out, row)``, out
       bitwise the stats-off call's and ``row`` the (N_STATS,) float32
-      swamping stats on the device, counted on ``stats_launches`` (its
-      second pass, which sums the blocks' partial rows, on
-      ``finish_launches``);
+      swamping stats on the device, counted once a call on
+      ``stats_launches``; each call is two launches, the kernel and the
+      second pass that sums the blocks' partial rows;
     * ``rounding``: only ``"rne"`` is ported (SR raises).
 
     The launch reads only host-known shapes (the schedule follows B, KV
@@ -378,7 +378,6 @@ def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
             raise RuntimeError(f"paged_decode_stats launch failed: CUDA "
                                f"error {rc}")
         paged_attn_decode.stats_launches += 1
-        paged_attn_decode.finish_launches += 1
         return out, row
     rc = build.function("paged_decode", "paged_decode", _DECODE_ARGS)(
         *args, stream)
@@ -390,7 +389,6 @@ def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
 
 paged_attn_decode.launches = 0
 paged_attn_decode.stats_launches = 0
-paged_attn_decode.finish_launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -12,6 +12,7 @@ carry of a NaN payload from overflowing.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -19,7 +20,7 @@ __all__ = ["quantize_block", "qfmt_params", "qfmt_args", "pad2d",
            "exp2_int", "N_STATS", "STAT_COUNT", "STAT_SUM_Q", "STAT_SUMSQ_Q",
            "STAT_SUM_I", "STAT_SUMSQ_I", "STAT_MAX_ABS", "STAT_SWAMPED",
            "STAT_ADDS", "STAT_SUM_ERR", "STAT_SUMSQ_ERR", "stats_delta_row",
-           "stats_update", "stats_row"]
+           "stats_update", "stats_row", "SUM_REL", "SUM_ABS", "stats_gap"]
 
 
 def qfmt_params(e: int, m: int) -> tuple[bool, int, float, float]:
@@ -161,3 +162,40 @@ def stats_update(acc, delta, step_max):
 def stats_row(device) -> torch.Tensor:
     """A fresh float64 accumulator row (all zero: the merge identity)."""
     return torch.zeros((N_STATS,), dtype=torch.float64, device=device)
+
+
+# A stats row against its plain version: the counters (COUNT, SWAMPED,
+# ADDS) and MAX_ABS bitwise; the sum slots add the same float64 terms in
+# another order and round once to f32, so each is held to SUM_REL (2 f32
+# ulps) of its value, plus, for the first-moment slots (whose terms may
+# cancel), SUM_ABS times the Cauchy-Schwarz bound sqrt(count * sum of
+# squares) on the sum of |terms|.
+STAT_EXACT = (STAT_COUNT, STAT_MAX_ABS, STAT_SWAMPED, STAT_ADDS)
+STAT_FIRST = {STAT_SUM_Q: STAT_SUMSQ_Q, STAT_SUM_I: STAT_SUMSQ_I,
+              STAT_SUM_ERR: STAT_SUMSQ_ERR}   # first moment -> its square
+STAT_SQUARE = (STAT_SUMSQ_Q, STAT_SUMSQ_I, STAT_SUMSQ_ERR)
+SUM_REL, SUM_ABS = 2.0 ** -22, 2.0 ** -40
+
+
+def stats_gap(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, float]:
+    """(exact slots bitwise equal, largest |got - want| / bound over the
+    sum slots) for two rows of the same shape (..., N_STATS)."""
+    got = got.detach().double().cpu().reshape(-1, N_STATS)
+    want = want.detach().double().cpu().reshape(-1, N_STATS)
+    exact = bool(torch.equal(got[:, list(STAT_EXACT)],
+                             want[:, list(STAT_EXACT)]))
+    ratio = 0.0
+    for i in range(got.shape[0]):
+        for s in STAT_SQUARE:
+            bound = SUM_REL * abs(float(want[i, s]))
+            ratio = max(ratio, _over(got[i, s], want[i, s], bound))
+        for s, sq in STAT_FIRST.items():
+            bound = SUM_REL * abs(float(want[i, s])) + SUM_ABS * math.sqrt(
+                max(float(want[i, STAT_COUNT] * want[i, sq]), 0.0))
+            ratio = max(ratio, _over(got[i, s], want[i, s], bound))
+    return exact, ratio
+
+
+def _over(a, b, bound: float) -> float:
+    d = abs(float(a) - float(b))
+    return 0.0 if d == 0.0 else (d / bound if bound > 0 else math.inf)

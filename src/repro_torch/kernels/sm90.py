@@ -28,9 +28,9 @@ D and K12 (``csrc/paged_decode.cu``, ``attn_decode_schedule``) split the
 page walk of each (sequence, KV head) over the ``cluster`` blocks of a
 thread-block cluster: ``decode_cluster`` picks the cluster from the
 batch, the KV heads and the page-table width alone (never from the
-lengths, which live on the device), and ``decode_rounds`` gives each rank
-its contiguous pages, at most ``rank_pages`` of them a round.  Any
-cluster and any round size give the same bits.
+lengths, which live on the device); each rank takes a contiguous run of
+at most ``rank_pages`` pages a round, worked out on the device from the
+row's length.  Any cluster and any round size give the same bits.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ __all__ = ["TILE", "KT", "GROUP_THREADS", "SMEM_LIMIT", "Schedule",
            "g_schedule", "ATTN_THREADS", "ATTN_CLUSTER_MAX", "ATTN_RANK_PAGES",
            "ATTN_SMEM_BUDGET",
            "AttnDecodeSchedule", "decode_cluster", "attn_decode_smem",
-           "attn_decode_schedule", "decode_rounds"]
+           "attn_decode_schedule"]
 
 TILE = 64               # output rows and columns of a block
 KT = 16                 # K values a pipeline step stages
@@ -308,18 +308,3 @@ def attn_decode_schedule(b: int, kv: int, width: int, g: int, ps: int,
         r -= 1
     return AttnDecodeSchedule(cl, r, attn_decode_smem(g, ps, dh, cl, r),
                               b * kv * cl)
-
-
-def decode_rounds(n_pages: int, cluster: int, rank_pages: int):
-    """The kernel's page walk of a row of ``n_pages`` pages: a list of
-    rounds, each the ``cluster`` ranks' contiguous ``[start, end)`` page
-    ranges in page order, together the round's ``cluster * rank_pages``
-    pages (fewer in the last), split as evenly as whole pages allow."""
-    cap = cluster * rank_pages
-    rounds = []
-    for base in range(0, n_pages, cap):
-        npr = min(cap, n_pages - base)
-        per = -(-npr // cluster)
-        rounds.append([(base + min(q * per, npr), base + min((q + 1) * per, npr))
-                       for q in range(cluster)])
-    return rounds
