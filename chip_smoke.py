@@ -10,7 +10,10 @@ on its own line:
    with its registers and spill bytes and, at the path's operand kinds
    and schedules, its shared memory and resident blocks an SM (fails on a
    spill, or on fewer than two 256-thread blocks of the tile, one for
-   K9's lm_head call, G's decode kernel and K3);
+   K9's lm_head call, G's decode kernel and K3), and the prefill walk of
+   P and K10 (``attn_prefill_sm90.cuh``) at the serve shapes' schedules:
+   tile rows, cluster, pages a round, shared memory, resident blocks an SM
+   (at least two) and clusters that fit;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (bitwise on lattice operands, at most 1 ulp of
    the carry format on random ones, mismatch fractions printed), with its
@@ -24,7 +27,12 @@ on its own line:
    picks: D bitwise its plain version on random and lattice q, K12 against
    D and its plain version (o bitwise, the stats row's counters and
    MAX_ABS bitwise, its sums within ``SUM_REL``/``SUM_ABS``), two launches
-   bitwise; both timed as a CUDA graph replay and eagerly;
+   bitwise; both timed as a CUDA graph replay and eagerly; P at the
+   64-token slab (q_offset 320), over the 8 serve prompts' one-shot calls
+   and at a 2048-token one-shot prompt under the plan's bucket for it,
+   bitwise its plain version on random and lattice q (padded rows exactly
+   0), each timed as a CUDA graph replay and eagerly beside SDPA, the
+   bound and the CUDA-core bound of its rounded mul-then-add;
 3. serve: qwen2-1.5b at full width and depth (28 layers, d 1536, vocab
    151936) under the predicted accumulation plan (chunk 64, page 16), bf16
    random weights from a seeded generator, 8 requests of mixed prompt
@@ -71,7 +79,8 @@ on its own line:
    plan, bitwise, and the dense resumable prefill K10 on layer 0 at full
    width over the 8 prompts (one-shot, 64-token slabs with the carry out
    and in, and the bucketed P: outputs and arena bitwise), K10 against its
-   plain version there and at S = 512 with chunk 64 and 128; K2 and K3
+   plain version there and at S = 512 with chunk 64 and 128, its 8
+   one-shot calls timed as a CUDA graph replay and eagerly; K2 and K3
    against their plain versions at the training shapes and one oracle
    step's launches timed; the 2-layer oracle step against the fused step
    (loss and every gradient bitwise) and 2 full-depth steps of the train
@@ -288,10 +297,11 @@ SM90_TILES = [
     ("qgemm", "qgemm_tile", "qgemm_tile_kernel", [((0, 1), 2), ((0, 0), 2)]),
 ]
 # Kernels whose instantiations the build phase reports (registers, spill
-# bytes; a spill fails): the tile's, G's decode kernel, K3's tile and the
-# decode attention's (D, K12).
+# bytes; a spill fails): the tile's, G's decode kernel, K3's tile, the
+# decode attention's (D, K12) and the prefill walk's (P, K10).
 _KERNEL = re.compile(r"(qgemm_stats_kernel|qgemm_emitq_kernel|qgemm_tile_kernel|"
                      r"qgemm_decode_kernel|qmatmul_kernel|paged_decode_kernel|"
+                     r"attn_prefill_kernel|"
                      r"bwd_pair_stats_kernel|bwd_pair_kernel)"
                      r"(?:I(.*?)EEv|E)")
 _TILE_KERNELS = {k for _, _, k, _ in SM90_TILES}
@@ -347,7 +357,7 @@ def sm90_report(build) -> None:
     from repro_torch.kernels.qmatmul import smem_bytes
 
     for lib in ("qgemm_stats", "qgemm_emitq", "bwd_pair", "qgemm", "qmatmul",
-                "paged_decode"):
+                "paged_decode", "paged_prefill", "flash_prefill"):
         log = build._lib_path(lib).with_suffix(".log").read_text()
         for fn, (regs, spill) in sorted(_ptxas_entries(log).items()):
             name = _tile_name(fn)
@@ -407,6 +417,24 @@ def sm90_report(build) -> None:
               f"of dynamic shared memory; clusters that fit at once: D {n[0]}, "
               f"K12 {n[1]}", flush=True)
         check(min(n) >= b * 2, f"D/K12 at the {what}: {n} clusters fit")
+    # P and K10 (qwen2-1.5b: g 6, dh 128) at the schedules of the serve
+    # shapes: tile rows, cluster, pages a block a round, shared memory,
+    # resident blocks an SM (at least two) and clusters that fit at once
+    for lib, what, t, ps, n_pages in PREFILL_BUILD_SHAPES:
+        s = sm90.attn_prefill_schedule(t, 2, 6, ps, 128, n_pages)
+        args = (6, s.rows, ps, 128, s.cluster, s.rank_pages)
+        smem = build.function(lib, f"{lib}_smem", [ctypes.c_int] * 6)(*args)
+        occ = build.function(lib, f"{lib}_occupancy", [ctypes.c_int] * 6)(*args)
+        fit = build.function(lib, f"{lib}_clusters", [ctypes.c_int] * 6)(*args)
+        print(f"[build] attn_prefill_kernel<{str(lib == 'paged_prefill').lower()}> "
+              f"({lib}) at "
+              f"{what} (T={t}, page {ps}, {n_pages} pages): {s.rows} rows a "
+              f"tile, cluster {s.cluster}, {s.rank_pages} pages a block a "
+              f"round, {s.blocks} blocks of {sm90.PREFILL_THREADS} threads, "
+              f"{smem} bytes of dynamic shared memory, {occ} resident blocks "
+              f"an SM, {fit} clusters fit at once", flush=True)
+        check(smem == s.smem, f"{lib} at {what}: smem {smem} != {s.smem}")
+        check(occ >= 2, f"{lib} at {what}: {occ} resident blocks an SM")
 
 
 # --------------------------------------------------------------------------
@@ -618,6 +646,16 @@ def _decode_table(gen, dev, lens, width):
     return n_pages, pt
 
 
+# P's and K10's schedules reported by the build phase: (library, what, T,
+# page or chunk, pages the longest tile walks)
+PREFILL_BUILD_SHAPES = (
+    ("paged_prefill", "the 64-token slab", SLAB, PAGE, 24),
+    ("paged_prefill", "the 384-token one-shot prompt", 384, PAGE, 24),
+    ("paged_prefill", "the 2048-token one-shot prompt", 2048, PAGE, 128),
+    ("flash_prefill", "the 384-token one-shot prompt", 384, PAGE, 24),
+    ("flash_prefill", "S = 512 at chunk 128", 512, 128, 4))
+
+
 # D's and K12's shapes: the serve arena (B 8, the 1024-token bucket's
 # width), the serve monitor's K12 call (B 1, the same width) and a
 # 4096-token row (256 pages: the cluster takes it in 6 rounds)
@@ -751,40 +789,24 @@ def phase_decode(cfg, dev, plan) -> dict:
     return dict(out["D"], stats=out["K12"])
 
 
-def phase_prefill(cfg, dev, plan) -> dict:
-    from repro_torch.kernels.attention import (
-        flash_prefill_paged, flash_prefill_paged_reference)
+def _p_case(gen, dev, cfg, plan, t, q_off, q_len):
+    """P's operands for a T-row slab at ``q_off`` with ``q_len`` live rows:
+    a fresh arena holding the sequence's pages in a random order, the
+    page row padded to the bucket's width, random q, and SDPA's dense
+    bf16 K/V and causal mask over the same values (its yardstick)."""
     from repro_torch.kernels.common import exp2_int
-    from repro_torch.quant.formats import FP8_152
     from repro_torch.quant.qtensor import unpack_block
 
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
-    q_off, q_len = 320, SLAB                       # a 64-token slab, history 320
     kv_len = q_off + q_len
     _, bucket = plan.bucket_for(kv_len)
-    acc, width = bucket.acc, bucket.max_pages(PAGE)
+    width = bucket.max_pages(PAGE)
     n_used = -(-kv_len // PAGE)
     kc, vc, kse, vse = _attn_arena(gen, dev, n_used + 1, kv, dh)
     row = torch.zeros((width,), dtype=torch.int32, device=dev)
     row[:n_used] = (torch.randperm(n_used, generator=gen, device=dev) + 1
                     ).to(torch.int32)
-    q = torch.randn((q_len, h, dh), generator=gen, device=dev)
-    args = (kc, vc, kse, vse, row, q_off, q_len, kv_len)
-    kw = dict(kv_fmt=FP8_152, acc=acc)
-    print(f"[kernels] P flash_prefill_paged vs plain: T={q_len} H={h} "
-          f"KV={kv} dh={dh}, q_offset {q_off}, kv_len {kv_len}, acc {acc}",
-          flush=True)
-    max_err = _attn_check("P random q", flash_prefill_paged(q, *args, **kw),
-                          flash_prefill_paged_reference(q, *args, **kw), acc,
-                          bitwise=False)
-    ql = _lattice(gen, (q_len, h, dh), dev)
-    _attn_check("P lattice q", flash_prefill_paged(ql, *args, **kw),
-                flash_prefill_paged_reference(ql, *args, **kw), acc,
-                bitwise=True)
-    ms = cuda_time(lambda: flash_prefill_paged(q, *args, **kw), reps=50)
-    plain = cuda_time(lambda: flash_prefill_paged_reference(q, *args, **kw),
-                      reps=1, warmup=0)
+    q = torch.randn((t, h, dh), generator=gen, device=dev)
     rl = row[:n_used].long()
 
     def dense(codes, se):
@@ -792,21 +814,119 @@ def phase_prefill(cfg, dev, plan) -> dict:
         x = x.permute(1, 0, 2, 3).reshape(kv, -1, dh)[:, :kv_len]
         return x.repeat_interleave(h // kv, dim=0)[None].to(torch.bfloat16)
 
-    kd, vd = dense(kc, kse), dense(vc, vse)
+    # a one-shot prompt's mask is SDPA's own causal one (as in K10's row)
     rows = q_off + torch.arange(q_len, device=dev)
-    mask = (torch.arange(kv_len, device=dev)[None, :] <= rows[:, None])[None, None]
-    qb = q.permute(1, 0, 2)[None].to(torch.bfloat16)
-    lib = lib_time(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qb, kd, vd, attn_mask=mask), reps=50)
-    attended = int(sum(q_off + r + 1 for r in range(q_len)))
+    mask = None if q_off == 0 else (
+        torch.arange(kv_len, device=dev)[None, :] <= rows[:, None])[None, None]
+    qb = q[:q_len].permute(1, 0, 2)[None].to(torch.bfloat16)
+    attended = sum(q_off + r + 1 for r in range(q_len))
     n_bytes = (n_used * kv * PAGE * dh * 2 + q.numel() * 4 * 2 + width * 4
                + n_used * 2 * 4)
-    b_ms, b_by = bound_ms(n_bytes, 4 * attended * dh * h, F32_FLOPS)
-    print(f"  time P: kernel {ms:.4f} ms, plain {plain:.2f} ms, SDPA "
-          f"{lib_str(lib)}, bound {b_ms:.5f} ms ({b_by})", flush=True)
-    return dict(ms=ms, plain_ms=plain, library_ms=lib[0],
+    return dict(args=(kc, vc, kse, vse, row, q_off, q_len, kv_len),
+                q=q, acc=bucket.acc, sdpa=(qb, dense(kc, kse), dense(vc, vse), mask),
+                bytes=n_bytes, flops=4 * attended * dh * h)
+
+
+def _p_check(label, cases, dev) -> float:
+    """P bitwise its plain version on the cases' random q and on lattice q;
+    padded rows exactly 0; one launch a call."""
+    from repro_torch.kernels.attention import (
+        flash_prefill_paged, flash_prefill_paged_reference)
+    from repro_torch.quant.formats import FP8_152
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    err = 0.0
+    for c in cases:
+        kw = dict(kv_fmt=FP8_152, acc=c["acc"])
+        for what, q in (("random q", c["q"]),
+                        ("lattice q", _lattice(gen, tuple(c["q"].shape), dev))):
+            n0 = flash_prefill_paged.launches
+            got = flash_prefill_paged(q, *c["args"], **kw)
+            check(flash_prefill_paged.launches == n0 + q.is_cuda,
+                  f"P {label}: not one launch a call")
+            err = max(err, _attn_check(
+                f"P {label} T={q.shape[0]} q_offset {c['args'][5]} {what}",
+                got, flash_prefill_paged_reference(q, *c["args"], **kw),
+                c["acc"], bitwise=True))
+            check(bool((got[c["args"][6]:] == 0).all()),
+                  f"P {label}: padded rows are not exactly 0")
+    return err
+
+
+def _p_time(label, cases, plain_reps=1) -> dict:
+    """P over the cases' calls in sequence: as a CUDA graph replay (the
+    kernel's card time), eagerly (CUDA events, the host's share in it),
+    the plain version once, SDPA over the same values, the bound and the
+    CUDA-core bound of the design's rounded mul-then-add."""
+    from repro_torch.kernels.attention import (
+        flash_prefill_paged, flash_prefill_paged_reference)
+    from repro_torch.quant.formats import FP8_152
+
+    def run(fn):
+        for c in cases:
+            fn(c["q"], *c["args"], kv_fmt=FP8_152, acc=c["acc"])
+
+    graph = lib_time(lambda: run(flash_prefill_paged), reps=20)
+    eager = cuda_time(lambda: run(flash_prefill_paged), reps=20)
+    plain = cuda_time(lambda: run(flash_prefill_paged_reference),
+                      reps=plain_reps, warmup=0)
+
+    def sdpa():
+        for c in cases:
+            qb, kb, vb, mask = c["sdpa"]
+            torch.nn.functional.scaled_dot_product_attention(
+                qb, kb, vb, attn_mask=mask, is_causal=mask is None)
+
+    lib = lib_time(sdpa, reps=20)
+    b_ms, b_by = seq_bound([(c["bytes"], c["flops"], F32_FLOPS) for c in cases])
+    ma_ms = 2 * sum(c["flops"] for c in cases) / F32_FLOPS * 1e3
+    print(f"  time P {label} ({len(cases)} launches): graph replay "
+          f"{lib_str(graph)}, eager {eager:.4f} ms, plain {plain:.2f} ms, "
+          f"SDPA {lib_str(lib)} ({graph[0] / lib[0]:.2f}x); bound {b_ms:.6f} "
+          f"ms ({b_by}), {b_ms / graph[0]:.4f} of it; mul-then-add bound "
+          f"{ma_ms:.6f} ms, {ma_ms / graph[0]:.4f} of it", flush=True)
+    return dict(ms=graph[0], graph_spread_ms=list(graph[1]), eager_ms=eager,
+                plain_ms=plain, library_ms=lib[0],
                 library_spread_ms=list(lib[1]), bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=max_err)
+                mul_add_bound_ms=ma_ms)
+
+
+def phase_prefill(cfg, dev, plan) -> dict:
+    """P (``flash_prefill_paged``) at three shapes: a 64-token slab at
+    q_offset 320 (the serve cell's slab run), the 8 serve prompts' one-shot
+    calls (K10's row does the same work) and a 2048-token one-shot prompt
+    under the plan's bucket for it; bitwise its plain version on random and
+    lattice q, each timed as a CUDA graph replay and eagerly beside SDPA
+    and the bound."""
+    from repro_torch.kernels import sm90
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    shapes = {"slab": [(SLAB, 320, SLAB)],
+              "8 one-shot prompts": [(n, 0, n) for n in PROMPT_LENS],
+              "2048-token prompt": [(2048, 0, 2048)]}
+    res, err = {}, 0.0
+    for what, calls in shapes.items():
+        cases = [_p_case(gen, dev, cfg, plan, *c) for c in calls]
+        scheds = [sm90.attn_prefill_schedule(
+            t, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, PAGE,
+            cfg.head_dim, sm90.prefill_pages(PAGE, q_off, q_len, 0,
+                                             q_off + q_len))
+            for t, q_off, q_len in calls]
+        print(f"[kernels] P flash_prefill_paged vs plain at the {what}: "
+              f"H={cfg.n_heads} KV={cfg.n_kv_heads} dh={cfg.head_dim}, "
+              f"(T, q_offset) {[c[:2] for c in calls]}, acc "
+              f"{sorted({c['acc'] for c in cases})}; (rows, cluster, pages a "
+              f"round) {[(s.rows, s.cluster, s.rank_pages) for s in scheds]}",
+              flush=True)
+        err = max(err, _p_check(what, cases, dev))
+        res[what] = _p_time(what, cases)
+        del cases
+    out = dict(res["slab"], max_abs_err=err)
+    out["at"] = {w: {k: r[k] for k in ("ms", "graph_spread_ms", "eager_ms",
+                                       "plain_ms", "library_ms", "bound_ms",
+                                       "mul_add_bound_ms")}
+                 for w, r in res.items() if w != "slab"}
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2509,7 +2629,7 @@ def phase_dense_prefill(cfg, params, dev, plan, prompts) -> dict:
             err = max(err, _attn_check(
                 f"K10 S={s512} chunk {chunk} {label} resumed at "
                 f"{DENSE_SPLIT} vs one-shot", res, want, acc, bitwise=True))
-        ms = cuda_time(lambda: A.flash_prefill(q, k, v, **kw), reps=20)
+        ms = lib_time(lambda: A.flash_prefill(q, k, v, **kw), reps=20)[0]
         qb = q.permute(1, 0, 2)[None].to(torch.bfloat16)
         kb = k.repeat_interleave(h // kv, dim=1).permute(1, 0, 2)[None].to(
             torch.bfloat16)
@@ -2517,8 +2637,8 @@ def phase_dense_prefill(cfg, params, dev, plan, prompts) -> dict:
             torch.bfloat16)
         lib = lib_time(lambda: torch.nn.functional.scaled_dot_product_attention(
             qb, kb, vb, is_causal=True), reps=20)
-        print(f"  time K10 S={s512} chunk {chunk}: kernel {ms:.4f} ms, SDPA "
-              f"{lib_str(lib)}", flush=True)
+        print(f"  time K10 S={s512} chunk {chunk}: graph replay {ms:.4f} ms, "
+              f"SDPA {lib_str(lib)}", flush=True)
 
     def run(fn):
         for q, k, v, kw in oneshot_inputs:
@@ -2536,7 +2656,8 @@ def phase_dense_prefill(cfg, params, dev, plan, prompts) -> dict:
             torch.nn.functional.scaled_dot_product_attention(
                 qb, kb, vb, is_causal=True)
 
-    ms = cuda_time(lambda: run(A.flash_prefill), reps=10)
+    graph = lib_time(lambda: run(A.flash_prefill), reps=10)
+    eager = cuda_time(lambda: run(A.flash_prefill), reps=10)
     plain = cuda_time(lambda: run(A.flash_prefill_reference), reps=1,
                       warmup=0)
     lib = lib_time(lib_run, reps=10)
@@ -2546,14 +2667,19 @@ def phase_dense_prefill(cfg, params, dev, plan, prompts) -> dict:
              4 * h * dh * q.shape[0] * (q.shape[0] + 1) // 2, F32_FLOPS)
             for q, k, _, _ in oneshot_inputs]
     b_ms, b_by = seq_bound(cost)
+    ma_ms = 2 * sum(c[1] for c in cost) / F32_FLOPS * 1e3
     print(f"[kernels] K10 the serve prompts' one-shot prefill "
           f"({len(cost)} launches, S {list(PROMPT_LENS)}, chunk {PAGE}): "
-          f"kernel {ms:.4f} ms, plain {plain:.1f} ms, SDPA {lib_str(lib)}, "
-          f"bound {b_ms:.5f} ms ({b_by}), {b_ms / ms:.4f} of bound",
+          f"graph replay {lib_str(graph)}, eager {eager:.4f} ms, plain "
+          f"{plain:.1f} ms, SDPA {lib_str(lib)} ({graph[0] / lib[0]:.2f}x), "
+          f"bound {b_ms:.5f} ms ({b_by}), {b_ms / graph[0]:.4f} of it; "
+          f"mul-then-add bound {ma_ms:.5f} ms, {ma_ms / graph[0]:.4f} of it",
           flush=True)
-    return dict(launches=launches[K10_NAME], ms=ms, plain_ms=plain,
-                library_ms=lib[0], library_spread_ms=list(lib[1]),
-                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    return dict(launches=launches[K10_NAME], ms=graph[0],
+                graph_spread_ms=list(graph[1]), eager_ms=eager,
+                plain_ms=plain, library_ms=lib[0],
+                library_spread_ms=list(lib[1]), bound_ms=b_ms, bound_by=b_by,
+                mul_add_bound_ms=ma_ms, max_abs_err=err)
 
 
 def main() -> None:

@@ -165,9 +165,7 @@ static inline int stats_finish(const double* part, int split, int total,
 
 }  // namespace
 
-// limits of the attention kernels' shared-memory tiles (mirrored in
+// limits of the attention kernels' tiles (mirrored in
 // repro_torch/kernels/attention.py)
-#define ATTN_THREADS 128
 #define MAX_DH 128
 #define MAX_G 8
-#define MAX_PAGE 32

@@ -19,20 +19,23 @@ attention.py``:
   int8 pages it reads (plus q and out), microseconds at 3.35 TB/s; at the
   serve shapes the launch and each page's dependent chains bound it.
 * ``flash_prefill_paged`` (``csrc/paged_prefill.cu``) replaces
-  ``_prefill_paged_kernel``: a grid of (query head, block of
-  ``BLOCK_Q`` rows); query head ``hh`` reads KV head ``hh // g`` straight
-  from the arena.  Pages before ``start_page``, past ``kv_len`` or wholly
-  in the causal future of the block are skipped (provable carry no-ops).
-  Bound: its score and value contractions, 4 * T * kv_len * dh * H flops
-  for a T-row slab, in f32 on the CUDA cores in this simple design.
-* ``flash_prefill`` (``csrc/flash_prefill.cu``, K10) replaces
-  ``_prefill_kernel``: the dense, resumable causal prefill of one sequence
-  over float32 K/V (the arena's dequantized view, ``serve.kvcache``),
-  ``chunk``-long KV blocks, query and KV rows at absolute positions
+  ``_prefill_paged_kernel`` and ``flash_prefill`` (``csrc/flash_prefill.cu``,
+  K10) replaces ``_prefill_kernel``: one prefill walk
+  (``csrc/attn_prefill_sm90.cuh``), over the int8 arena's pages for P and
+  over float32 K/V rows in ``chunk``-long steps for K10 (the dense,
+  resumable prefill of one sequence over the arena's dequantized view,
+  ``serve.kvcache``, query and KV rows at absolute positions
   ``q_offset + i`` and ``kv_offset + j``, a carry ``(o, m, l)`` in and
-  ``return_carry`` out.  Same grid and discipline as P, so on the same
-  values it is bitwise P; a walk resumed at a chunk multiple is bitwise
-  the one-shot walk.  Bound: as P's, in f32 on the CUDA cores.
+  ``return_carry`` out).  A block serves a tile of query rows of one KV
+  head for all g of its query heads, so each page is loaded and decoded
+  once for all of them; the tile's page walk is split over the blocks of
+  a thread-block cluster (``sm90.attn_prefill_schedule``) by the same
+  exact prefix maxima as D's, with the carries folded in page order.
+  Pages before ``start_page``, past the last column or wholly in the
+  causal future of the tile are not walked (carry no-ops).  On the same
+  values K10 is bitwise P; a walk resumed at a chunk multiple is bitwise
+  the one-shot walk.  Bound: the score and value contractions, 4 * rows *
+  attended tokens * dh flops a query head, in f32 on the CUDA cores.
 
 Accumulation discipline (``_online_update``): base-2 scores pre-scaled by
 ``LOG2E / sqrt(dh)``, a running max on the integer lattice (``ceil``) so
@@ -98,16 +101,17 @@ __all__ = [
 NEG = -1e30
 # base-2 softmax: scores are pre-scaled by log2(e)
 LOG2E = 1.4426950408889634
-# query rows per thread block of the prefill kernel (schedule only: any
-# value gives the same bits, since every row's page walk is its own)
+# the JAX kernels' query rows a block, taken by ``flash_prefill`` and
+# ``AttnCall`` for the JAX signature; the port's walk takes its tiles from
+# ``sm90.attn_prefill_schedule`` and reads no ``block_q`` (any value gives
+# the same bits, since every row's page walk is its own)
 BLOCK_Q = 16
-# limits of the kernels' shared-memory tiles (csrc/common.cuh,
-# csrc/flash_prefill.cu)
+# limits of the kernels' tiles (csrc/common.cuh, csrc/flash_prefill.cu)
 MAX_DH = 128
 MAX_G = 8
 MAX_PAGE = 32
 MAX_CHUNK = 128
-# query rows per block that the dense prefill kernel is built for
+# the ``block_q`` values ``flash_prefill`` takes (the JAX kernel's)
 BLOCK_QS = (8, 16, 32)
 
 _WIDE = (8, 23)
@@ -308,7 +312,7 @@ _DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
 
 
 @functools.lru_cache(maxsize=None)
-def _decode_consts(dh: int, acc) -> tuple:
+def _attn_consts(dh: int, acc) -> tuple:
     """The launch's constant C arguments of a head width and carry format:
     the score scale and the carry quantizer's."""
     return (ctypes.c_float(_scale_f32(dh)), *qfmt_args(acc))
@@ -362,7 +366,7 @@ def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
     if b == 0:
         return (out, row) if collect_stats else out
     sched = sm90.attn_decode_schedule(b, kv, width, g, page_size, dh)
-    scale, *qacc = _decode_consts(dh, tuple(acc))
+    scale, *qacc = _attn_consts(dh, tuple(acc))
     args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_se.data_ptr(), v_se.data_ptr(), page_table.data_ptr(), width,
             seq_lens.data_ptr(), out.data_ptr(), b, kv, g, page_size, dh,
@@ -437,7 +441,7 @@ def flash_prefill_paged_reference(q, k_pages, v_pages, k_se, v_se, page_row,
 
 
 _PREFILL_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                 _I, _F, _I, _I, _I, _I, _F, _F, _P]
+                 _I, _F, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P]
 
 
 def flash_prefill_paged(q, k_pages, v_pages, k_se, v_se, page_row,
@@ -456,7 +460,9 @@ def flash_prefill_paged(q, k_pages, v_pages, k_se, v_se, page_row,
       arguments;
     * ``call`` supplies ``acc``/``kv_fmt`` from the bucket's ``AttnCall``.
 
-    Returns (T, H, dh) float32.
+    The launch reads only host ints and shapes (the schedule follows T,
+    the heads and the pages the last live row walks); it allocates only
+    its output.  Returns (T, H, dh) float32.
     """
     if call is not None:
         acc, kv_fmt = call.acc, call.kv_fmt
@@ -482,12 +488,17 @@ def flash_prefill_paged(q, k_pages, v_pages, k_se, v_se, page_row,
         raise ValueError(f"kv_len {kv_len} needs more pages than the row's "
                          f"{page_row.shape[0]}")
     out = torch.empty_like(q)
+    sched = sm90.attn_prefill_schedule(t, kv, h // kv, page_size, dh,
+                                       sm90.prefill_pages(
+                                           page_size, q_offset, q_len, 0,
+                                           kv_len, start_page))
+    scale, *qacc = _attn_consts(dh, tuple(acc))
     rc = build.function("paged_prefill", "paged_prefill", _PREFILL_ARGS)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_se.data_ptr(), v_se.data_ptr(), page_row.data_ptr(), out.data_ptr(),
         t, h, kv, page_size, dh, int(q_offset), int(q_len), int(kv_len),
-        int(start_page), ctypes.c_float(float(_scale(dh))), *fmt,
-        *qfmt_args(acc), torch.cuda.current_stream(q.device).cuda_stream)
+        int(start_page), scale, *fmt, *qacc, sched.rows, sched.cluster,
+        sched.rank_pages, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_prefill launch failed: CUDA error {rc}")
     flash_prefill_paged.launches += 1
@@ -568,7 +579,7 @@ def flash_prefill_reference(q, k, v, *, acc=_WIDE, chunk: int = 128,
     return _finalize(o, l).transpose(0, 1)
 
 
-_DENSE_ARGS = [_P] * 9 + [_I] * 9 + [_F, _I, _I, _F, _F, _P]
+_DENSE_ARGS = [_P] * 9 + [_I] * 8 + [_F, _I, _I, _F, _F, _I, _I, _I, _P]
 
 
 def flash_prefill(q, k, v, *, acc=_WIDE, chunk: int = 128,
@@ -583,8 +594,9 @@ def flash_prefill(q, k, v, *, acc=_WIDE, chunk: int = 128,
       the KV arena holds (``serve.kvcache.write_prompt``'s view);
     * ``acc``: the (e_acc, m_acc) carry format; ``chunk``: the KV block
       length n1 (numerics: the carry rounding cadence; the serve path pins
-      it to the page size); ``block_q``: query rows per block, schedule
-      only (8, 16 or 32);
+      it to the page size); ``block_q``: the JAX kernel's query rows a
+      block (8, 16 or 32), checked and otherwise not read: the port's walk
+      takes its tiles from ``sm90.attn_prefill_schedule``;
     * ``carry``: a previous call's ``(o, m, l)``, shapes (S, H, dh), (S, H),
       (S, H), covering KV ``[0, kv_offset)``; ``return_carry=True`` returns
       the raw state instead of the finalized output.  ``kv_offset`` must be
@@ -633,11 +645,15 @@ def flash_prefill(q, k, v, *, acc=_WIDE, chunk: int = 128,
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     co, cm, cl = carry if carry is not None else (None, None, None)
     if s > 0:
+        sched = sm90.attn_prefill_schedule(
+            s, kv, h // kv, chunk, dh,
+            sm90.prefill_pages(chunk, q_offset, s, kv_offset, sk))
+        scale, *qacc = _attn_consts(dh, tuple(acc))
         rc = build.function("flash_prefill", "flash_prefill", _DENSE_ARGS)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(co), ptr(cm),
             ptr(cl), out.data_ptr(), ptr(om), ptr(ol), s, h, sk, kv, dh,
-            chunk, block_q, int(q_offset), int(kv_offset),
-            ctypes.c_float(float(_scale(dh))), *qfmt_args(acc),
+            chunk, int(q_offset), int(kv_offset), scale, *qacc, sched.rows,
+            sched.cluster, sched.rank_pages,
             torch.cuda.current_stream(q.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"flash_prefill launch failed: CUDA error "

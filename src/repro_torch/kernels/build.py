@@ -30,8 +30,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 # kernel library name -> source file in csrc/ (each includes common.cuh;
 # qgemm.cu (G: its decode kernel, and the Hopper tile qgemm_sm90.cuh above
 # decode), qgemm_emitq.cu (E), qgemm_stats.cu (K8) and bwd_pair.cu (B and
-# K9) run the tile; the oracle's quantize.cu (K2) and qmatmul.cu (K3), and
-# flash_prefill.cu (K10), stand alone)
+# K9) run the tile; paged_prefill.cu (P) and flash_prefill.cu (K10) run the
+# prefill walk attn_prefill_sm90.cuh; the oracle's quantize.cu (K2) and
+# qmatmul.cu (K3) stand alone)
 KERNELS = {
     "qgemm": "qgemm.cu",
     "qgemm_emitq": "qgemm_emitq.cu",
@@ -43,7 +44,7 @@ KERNELS = {
     "qmatmul": "qmatmul.cu",
     "flash_prefill": "flash_prefill.cu",
 }
-_HEADERS = ("common.cuh", "qgemm_sm90.cuh")
+_HEADERS = ("common.cuh", "qgemm_sm90.cuh", "attn_prefill_sm90.cuh")
 
 # --fmad=false: no multiply-add is contracted behind the source's back;
 # the kernels call __fmaf_rn where a fused multiply-add is intended.

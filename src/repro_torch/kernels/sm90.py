@@ -31,6 +31,13 @@ batch, the KV heads and the page-table width alone (never from the
 lengths, which live on the device); each rank takes a contiguous run of
 at most ``rank_pages`` pages a round, worked out on the device from the
 row's length.  Any cluster and any round size give the same bits.
+
+P and K10 (``csrc/attn_prefill_sm90.cuh``, ``attn_prefill_schedule``)
+give a block a tile of ``rows`` query rows of one KV head, all g of its
+query heads, and split each tile's page walk over the ``cluster`` blocks
+of a thread-block cluster, ``rank_pages`` pages a block a round: from the
+rows, the KV heads, the head shape and the pages the longest tile walks,
+all host-known.  Any tile, cluster and round size give the same bits.
 """
 
 from __future__ import annotations
@@ -45,7 +52,9 @@ __all__ = ["TILE", "KT", "GROUP_THREADS", "SMEM_LIMIT", "Schedule",
            "g_schedule", "ATTN_THREADS", "ATTN_CLUSTER_MAX", "ATTN_RANK_PAGES",
            "ATTN_SMEM_BUDGET",
            "AttnDecodeSchedule", "decode_cluster", "attn_decode_smem",
-           "attn_decode_schedule"]
+           "attn_decode_schedule", "PREFILL_THREADS", "PREFILL_PIECE",
+           "PREFILL_ROWS", "PREFILL_RANK_PAGES", "AttnPrefillSchedule",
+           "attn_prefill_smem", "prefill_pages", "attn_prefill_schedule"]
 
 TILE = 64               # output rows and columns of a block
 KT = 16                 # K values a pipeline step stages
@@ -308,3 +317,99 @@ def attn_decode_schedule(b: int, kv: int, width: int, g: int, ps: int,
         r -= 1
     return AttnDecodeSchedule(cl, r, attn_decode_smem(g, ps, dh, cl, r),
                               b * kv * cl)
+
+
+# ------------------------------------------------- P's and K10's page walk
+
+PREFILL_THREADS = 256   # threads of a prefill block
+PREFILL_PIECE = 32      # K tokens a block stages a step, at most
+PREFILL_PV_PAGES = 4    # pages of p.v chains a thread runs at once
+PREFILL_V_FLOATS = 4096  # a V piece's floats, at most, where pages fit
+PREFILL_ROWS = 8        # query rows a tile, at most
+PREFILL_RANK_PAGES = 8  # pages a block holds a round, at most
+
+
+@dataclass(frozen=True)
+class AttnPrefillSchedule:
+    rows: int           # query rows a tile (a block serves its g heads)
+    cluster: int        # blocks a tile, one cluster
+    rank_pages: int     # pages a block holds a round
+    smem: int           # dynamic shared memory a block, bytes
+    blocks: int         # blocks of the launch
+
+
+def _piece(ps: int) -> int:
+    return (PREFILL_PIECE // ps) * ps if ps <= PREFILL_PIECE else PREFILL_PIECE
+
+
+def _vpiece(ps: int, dsl: int) -> int:
+    if ps > PREFILL_PIECE:
+        return PREFILL_PIECE
+    return max(1, min(PREFILL_PV_PAGES, PREFILL_V_FLOATS // (ps * dsl))) * ps
+
+
+def attn_prefill_smem(g: int, rows: int, ps: int, dh: int, cluster: int,
+                      rank_pages: int) -> int:
+    """``csrc/attn_prefill_sm90.cuh``'s ``Layout``: the tile's q rows; a K
+    piece; the block's scores (then probabilities) and, in a cluster, one
+    other block's copied; a V piece (up to PREFILL_PV_PAGES pages) of the
+    block's output columns; their p.v partials (pages longer than a piece
+    only) and o carries; the published page maxima and l sums; the round's
+    maxima, rescales and l sums; the m and l carries; the pages' ids and
+    scales."""
+    hr, dp = g * rows, _al4(dh)
+    qst, dsl = dp + 4, _al4(-(-dh // cluster))
+    sst = (_al4(rank_pages * ps) // 4 | 1) * 4
+    cap, pl = cluster * rank_pages, _piece(ps)
+    floats = (hr * qst + pl * qst + _al4(hr * sst)
+              + (_al4(hr * sst) if cluster > 1 else 0) + _vpiece(ps, dsl) * dsl
+              + (hr * dsl if ps > PREFILL_PIECE else 0) + hr * dsl
+              + 2 * _al4(rank_pages * hr) + 3 * _al4(cap * hr) + _al4(2 * hr)
+              + 3 * _al4(cap))
+    return floats * 4
+
+
+def prefill_pages(ps: int, q_offset: int, live_rows: int, kv_offset: int,
+                  n_cols: int, first_page: int = 0) -> int:
+    """Pages the walk of the last live row takes: from ``first_page`` up to
+    that row's causal reach and the last column (the tile of that row
+    walks the most)."""
+    reach = q_offset + live_rows - 1 - kv_offset
+    if live_rows < 1 or reach < 0:
+        return 0
+    return max(0, min(-(-n_cols // ps), reach // ps + 1) - first_page)
+
+
+@functools.lru_cache(maxsize=4096)
+def attn_prefill_schedule(t: int, kv: int, g: int, ps: int, dh: int,
+                          n_pages: int) -> AttnPrefillSchedule:
+    """P's and K10's launch for ``t`` query rows, KV heads of g query heads,
+    pages (chunks) of ``ps`` tokens, head width ``dh``, and a longest walk
+    of ``n_pages`` pages.  Rows a tile: PREFILL_ROWS, halved while the
+    tiles times the largest cluster would leave more than half the SMs
+    idle (short prompts).  The cluster: the largest power of two up to
+    ATTN_CLUSTER_MAX and the pages that keeps the grid within four blocks
+    an SM (more blocks than two an SM shorten the tail of a one-shot
+    prompt, whose last tiles walk the most; PERF.md, PR 19).  Pages a block
+    a round: enough for the walk in one round, at most PREFILL_RANK_PAGES
+    and within ATTN_SMEM_BUDGET; where even one page overflows the budget,
+    the tile's rows halve."""
+    n_pages = max(1, n_pages)
+    rows = PREFILL_ROWS
+    while rows > 1 and 2 * kv * -(-t // rows) * min(
+            ATTN_CLUSTER_MAX, n_pages) <= SMS:
+        rows //= 2
+    while True:
+        tiles = kv * -(-t // rows)
+        cap = min(ATTN_CLUSTER_MAX, n_pages, max(1, 4 * SMS // tiles))
+        cl = 1
+        while cl * 2 <= cap:
+            cl *= 2
+        r = max(1, min(PREFILL_RANK_PAGES, -(-n_pages // cl)))
+        while r > 1 and attn_prefill_smem(g, rows, ps, dh, cl,
+                                          r) > ATTN_SMEM_BUDGET:
+            r -= 1
+        smem = attn_prefill_smem(g, rows, ps, dh, cl, r)
+        if rows == 1 or smem <= ATTN_SMEM_BUDGET:
+            return AttnPrefillSchedule(rows, cl, r, smem, tiles * cl)
+        rows //= 2

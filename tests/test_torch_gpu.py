@@ -193,24 +193,86 @@ def test_decode_entries_match_their_mirrors(dev):
             assert n >= 2 * b, (b, width, stats, n)
 
 
-@pytest.mark.parametrize("t,q_off,q_len,start_page", [
-    (64, 320, 64, 0), (24, 16, 21, 0), (16, 48, 16, 2)])
-def test_prefill_kernel_matches_plain(dev, t, q_off, q_len, start_page):
-    gen = torch.Generator(device=dev).manual_seed(t + q_off)
-    h, kv, dh, acc = 12, 2, 128, (6, 5)
+# (T, q_offset, q_len, start_page[, h, kv, dh, page size]) and the
+# (rows, cluster) the schedule picks: the serve slab (cluster 8), rows not
+# a multiple of the tile and ending mid-page (cluster 2), start_page > 0,
+# T = 1 (one row a tile; no cluster, and cluster 8 over a 383-token
+# history), a one-shot 64-token prompt (cluster 4), a 128-page history,
+# a 2048-token one-shot prompt (no cluster: 512 tiles), and a head width
+# and page size other than the serve ones (dh 7: codes loaded a byte at a
+# time; 5-token pages)
+PREFILL_CASES = [
+    ((64, 320, 64, 0), (8, 8)),
+    ((24, 16, 21, 0), (2, 2)),
+    ((16, 48, 16, 2), (1, 2)),
+    ((1, 0, 1, 0), (1, 1)),
+    ((1, 383, 1, 0), (1, 8)),
+    ((64, 0, 64, 0), (4, 4)),
+    ((64, 1984, 64, 0), (8, 8)),
+    ((2048, 0, 2048, 0), (8, 1)),
+    ((37, 5, 30, 1, 6, 3, 7, 5), (8, 4)),
+]
+
+
+@pytest.mark.parametrize("case,sched", PREFILL_CASES)
+def test_prefill_kernel_matches_plain(dev, case, sched):
+    """P bitwise its plain version on random and on lattice q (the split
+    walk keeps every bit on any operands) at the schedule's tile and
+    cluster; padded rows exactly 0; one launch a call; two launches equal."""
+    from repro_torch.kernels import sm90
+
+    t, q_off, q_len, start_page, h, kv, dh, ps = case + (12, 2, 128, 16)[
+        len(case) - 4:]
     kv_len = q_off + q_len
-    n_used = -(-kv_len // 16)
-    kc, vc, kse, vse = _arena(gen, dev, n_used + 1, kv, 16, dh)
+    got_s = sm90.attn_prefill_schedule(
+        t, kv, h // kv, ps, dh,
+        sm90.prefill_pages(ps, q_off, q_len, 0, kv_len, start_page))
+    assert (got_s.rows, got_s.cluster) == sched
+    gen = torch.Generator(device=dev).manual_seed(t + q_off)
+    acc = (6, 5)
+    n_used = -(-kv_len // ps)
+    kc, vc, kse, vse = _arena(gen, dev, n_used + 1, kv, ps, dh)
     row = torch.zeros((n_used + 3,), dtype=torch.int32, device=dev)
     row[:n_used] = torch.randperm(n_used, generator=gen, device=dev) + 1
-    q = torch.randn((t, h, dh), generator=gen, device=dev)
     args = (kc, vc, kse, vse, row, q_off, q_len, kv_len)
     kw = dict(kv_fmt=FP8_152, acc=acc, start_page=start_page)
-    got = flash_prefill_paged(q, *args, **kw)
-    want = flash_prefill_paged_reference(q, *args, **kw)
-    torch.cuda.synchronize()
-    assert bool((got[q_len:] == 0).all())
-    _attn_ok(got, want, acc)
+    for q in (torch.randn((t, h, dh), generator=gen, device=dev),
+              _lattice(gen, (t, h, dh), dev)):
+        n0 = flash_prefill_paged.launches
+        got = flash_prefill_paged(q, *args, **kw)
+        again = flash_prefill_paged(q, *args, **kw)
+        want = flash_prefill_paged_reference(q, *args, **kw)
+        torch.cuda.synchronize()
+        assert flash_prefill_paged.launches == n0 + 2
+        assert bool(torch.isfinite(got).all())
+        assert bool((got[q_len:] == 0).all())
+        assert torch.equal(got, want)
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_prefill_entries_match_their_mirrors(dev):
+    """P's and K10's shared memory equals ``sm90.attn_prefill_smem`` at
+    every head shape and schedule; at the serve shapes' schedules two
+    blocks fit an SM."""
+    import ctypes
+
+    from repro_torch.kernels import build, sm90
+
+    for lib in ("paged_prefill", "flash_prefill"):
+        smem = build.function(lib, f"{lib}_smem", [ctypes.c_int] * 6)
+        occ = build.function(lib, f"{lib}_occupancy", [ctypes.c_int] * 6)
+        for g, ps, dh in ((6, 16, 128), (2, 16, 16), (8, 32, 128), (3, 5, 7),
+                          (6, 128, 128), (6, 100, 64)):
+            for br in (1, 8):
+                for cl in (1, 2, 8):
+                    for r in (1, 3, 8):
+                        assert smem(g, br, ps, dh, cl, r) == \
+                            sm90.attn_prefill_smem(g, br, ps, dh, cl, r)
+        for t, ps, n_pages in ((64, 16, 24), (384, 16, 24), (2048, 16, 128),
+                               (512, 64, 8), (512, 128, 4)):
+            s = sm90.attn_prefill_schedule(t, 2, 6, ps, 128, n_pages)
+            n = occ(6, s.rows, ps, 128, s.cluster, s.rank_pages)
+            assert n >= 2, (lib, t, ps, s, n)
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -895,37 +957,48 @@ def test_qmatmul_kernel_matches_plain(dev, m, k, n, bk, acc, kind):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("s,chunk,acc", [(384, 16, (6, 5)), (512, 64, (6, 7)),
-                                         (200, 128, (8, 23))])
-def test_flash_prefill_kernel_matches_plain(dev, s, chunk, acc):
-    """K10 at qwen2-1.5b's widths (H 12, KV 2, dh 128) bitwise its plain
-    version, for every block_q; carry out at a chunk multiple, then in:
-    bitwise the one-shot walk; one launch a call."""
+# (S, chunk, acc[, h, kv, dh]): the serve prompts' chunk, K10's S = 512
+# calls at chunk 64, chunk 128 (carry out and in at a chunk multiple),
+# S = 1, a 17-row prompt (one row a tile, cluster 2), and a head width and
+# chunk other than the serve ones (dh 7: rows loaded a float at a time; 150
+# rows in tiles of 8, the last one short)
+FLASH_CASES = [(384, 16, (6, 5)), (512, 64, (6, 7)), (200, 128, (8, 23)),
+               (512, 128, (6, 5)), (1, 16, (6, 5)), (17, 16, (6, 5)),
+               (150, 48, (6, 5), 6, 3, 7)]
+
+
+@pytest.mark.parametrize("s,chunk,acc,h,kv,dh",
+                         [c + (12, 2, 128)[len(c) - 3:] for c in FLASH_CASES])
+def test_flash_prefill_kernel_matches_plain(dev, s, chunk, acc, h, kv, dh):
+    """K10 bitwise its plain version on random and on lattice operands, for
+    every block_q (which the walk does not read); carry out at a chunk
+    multiple (o, m, l bitwise the plain version's), then in: bitwise the
+    one-shot walk; one launch a call."""
     from repro_torch.kernels.attention import (BLOCK_QS, flash_prefill,
                                                flash_prefill_reference)
 
     gen = torch.Generator(device=dev).manual_seed(s + chunk)
-    q = torch.randn((s, 12, 128), generator=gen, device=dev)
-    k = torch.randn((s, 2, 128), generator=gen, device=dev)
-    v = torch.randn((s, 2, 128), generator=gen, device=dev)
-    kw = dict(acc=acc, chunk=chunk)
-    want = flash_prefill_reference(q, k, v, **kw)
-    for bq in BLOCK_QS:
-        n0 = flash_prefill.launches
-        got = flash_prefill(q, k, v, block_q=bq, **kw)
+    for mk in (lambda shape: torch.randn(shape, generator=gen, device=dev),
+               lambda shape: _lattice(gen, shape, dev)):
+        q, k, v = mk((s, h, dh)), mk((s, kv, dh)), mk((s, kv, dh))
+        kw = dict(acc=acc, chunk=chunk)
+        want = flash_prefill_reference(q, k, v, **kw)
+        for bq in BLOCK_QS:
+            n0 = flash_prefill.launches
+            got = flash_prefill(q, k, v, block_q=bq, **kw)
+            torch.cuda.synchronize()
+            assert flash_prefill.launches == n0 + 1
+            assert torch.equal(got, want)
+        split = chunk * (s // (2 * chunk))
+        c = flash_prefill(q, k[:split], v[:split], return_carry=True, **kw)
+        pc = flash_prefill_reference(q, k[:split], v[:split],
+                                     return_carry=True, **kw)
+        for a, b in zip(c, pc):
+            assert torch.equal(a, b)
+        res = flash_prefill(q, k[split:], v[split:], kv_offset=split, carry=c,
+                            **kw)
         torch.cuda.synchronize()
-        assert flash_prefill.launches == n0 + 1
-        assert torch.equal(got, want)
-    split = chunk * (s // (2 * chunk))
-    c = flash_prefill(q, k[:split], v[:split], return_carry=True, **kw)
-    pc = flash_prefill_reference(q, k[:split], v[:split], return_carry=True,
-                                 **kw)
-    for a, b in zip(c, pc):
-        assert torch.equal(a, b)
-    res = flash_prefill(q, k[split:], v[split:], kv_offset=split, carry=c,
-                        **kw)
-    torch.cuda.synchronize()
-    assert torch.equal(res, want)
+        assert torch.equal(res, want)
     with pytest.raises(NotImplementedError):     # beyond the kernel's tiles
         flash_prefill(q, k, v, acc=acc, chunk=256)
 

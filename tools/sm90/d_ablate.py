@@ -113,7 +113,7 @@ def main() -> None:
         for name, (q, kc, vc, kse, vse, pt, sl) in cases:
             b, width = q.shape[0], pt.shape[1]
             s = sm90.attn_decode_schedule(b, KV, width, H // KV, cs.PAGE, DH)
-            scale, *qacc = attention._decode_consts(DH, (6, 5))
+            scale, *qacc = attention._attn_consts(DH, (6, 5))
             out = torch.empty_like(q)
             part = torch.zeros((s.blocks, N_STATS), dtype=torch.float64,
                                device=dev)
