@@ -82,10 +82,23 @@ on its own line:
    plain version there and at S = 512 with chunk 64 and 128, its 8
    one-shot calls timed as a CUDA graph replay and eagerly; K2 and K3
    against their plain versions at the training shapes and one oracle
-   step's launches timed; the 2-layer oracle step against the fused step
-   (loss and every gradient bitwise) and 2 full-depth steps of the train
-   cell under each (losses bitwise, step time and peak memory);
-7. result: one JSON line per kernel, the card's name and power limit, and
+   step's launches timed (K2 as a CUDA graph replay, each of its 12
+   distinct calls alone too, and eagerly); the 2-layer oracle step
+   against the fused step (loss and every gradient bitwise) and 2
+   full-depth steps of the train cell under each (losses bitwise, step
+   time and peak memory);
+7. analysis: the Monte Carlo of swamped accumulation on the card at
+   ``tests/test_vrr_montecarlo.py``'s points under its assertions, Table
+   1's assignment of the paper's three networks against the published
+   table (the JAX package's match count), and qwen2-1.5b's accumulation
+   lengths beside the train cell's plan;
+8. ckpt: the train cell at full width and 2 layers through the launcher,
+   uninterrupted and then under the restart supervisor with a crash at
+   step 3 and a checkpoint every 2 steps (losses after the resume bitwise
+   the uninterrupted run's; bytes on disk, save and restore ms), and the
+   last checkpoint served through ``launch/serve.py --ckpt-dir`` under
+   its recorded precision schedule;
+9. result: one JSON line per kernel, the card's name and power limit, and
    the final JSON line.
 
 Any failed check exits non-zero.  Without a CUDA device it exits non-zero
@@ -2154,6 +2167,29 @@ def _k3_cost(a, b, peak):
             + m * n * 4, 2 * m * n * k, peak)
 
 
+def _k2_call_times(k, n, f, x, w, g) -> list[dict]:
+    """K2 on one (K, N)'s three calls of the oracle step (x f32 (T, K), w
+    bf16 (K, N), g f32 (T, N)), each alone: a CUDA graph replay of one
+    call (median and spread), eagerly, and its bound (the input read and
+    the f32 output written, over the memory rate)."""
+    from repro_torch.kernels.quantize import quantize
+
+    res = []
+    for what, v in (("x", x), ("w", w), ("g", g)):
+        call = functools.partial(quantize, v, e=f.e, m=f.m)
+        graph = lib_time(call, reps=50)
+        eager = cuda_time(call, reps=50, warmup=5)
+        b_ms, _ = bound_ms(v.numel() * (v.element_size() + 4), 0, F32_FLOPS)
+        print(f"  K2 call {what} {tuple(v.shape)} {str(v.dtype)[6:]}: graph "
+              f"replay {lib_str(graph)}, eager {eager:.4f} ms, bound "
+              f"{b_ms:.5f} ms, {b_ms / graph[0]:.4f} of it", flush=True)
+        res.append(dict(kn=(k, n), call=what, shape=list(v.shape),
+                        dtype=str(v.dtype)[6:], ms=graph[0],
+                        graph_spread_ms=list(graph[1]), eager_ms=eager,
+                        bound_ms=b_ms))
+    return res
+
+
 def phase_oracle_kernels(dev) -> dict:
     """K2 and K3 against their plain versions, bitwise, at the training
     cell's layer shapes (T = 512; the four distinct (K, N) of a layer; K2
@@ -2163,9 +2199,11 @@ def phase_oracle_kernels(dev) -> dict:
     embed.T view); then one oracle training step's K2 launches (3 a
     quantized qdot) and K3 launches (3 a qdot, the whole lm_head
     included) timed as sequences against the plain versions and, for K3,
-    bf16 ``torch.matmul`` at the same shapes.  The timed step's three
-    calls on the whole lm_head are also held bitwise against the plain
-    step's outputs."""
+    bf16 ``torch.matmul`` at the same shapes; K2's 588 short launches as a
+    CUDA graph replay (median and spread; eagerly they measure the host),
+    the eager time beside, and each of its 12 distinct calls alone.  The
+    timed step's three calls on the whole lm_head are also held bitwise
+    against the plain step's outputs."""
     from repro_torch.kernels.qmatmul import qmatmul, qmatmul_reference
     from repro_torch.kernels.quantize import quantize, quantize_reference
     from repro_torch.models.api import dense_gemm_shapes
@@ -2179,7 +2217,7 @@ def phase_oracle_kernels(dev) -> dict:
           f"plain at T={t} (per shape and role: kernel ms, bf16 "
           f"torch.matmul ms; plain ms over a whole step below)", flush=True)
     k3_err = 0.0
-    tensors = {}
+    tensors, k2_calls = {}, []
     for tag, _, k, n, qc in layer:
         if (k, n) in tensors:
             continue
@@ -2219,9 +2257,9 @@ def phase_oracle_kernels(dev) -> dict:
             ms = cuda_time(lambda: qmatmul(a, b, **kw), reps=5)
             lib = lib_time(lambda: torch.matmul(la, lb))
             times.append(f"{role} {ms:.4f} ms (library {lib_str(lib)})")
-        k2_ms = cuda_time(lambda: quantize(w, e=f.e, m=f.m), reps=10)
-        print(f"  time {tag} K={k} N={n}: K3 {', '.join(times)}; K2 on w "
-              f"{k2_ms:.4f} ms", flush=True)
+        print(f"  time {tag} K={k} N={n}: K3 {', '.join(times)}",
+              flush=True)
+        k2_calls += _k2_call_times(k, n, f, x, w, g)
         tensors[(k, n)] = (x, w, g, xq, wq, gq, xb, wb, gb)
 
     # the tied lm_head: repr_fmt None, so no K2; raw f32 x, bf16 embed.T
@@ -2311,7 +2349,13 @@ def phase_oracle_kernels(dev) -> dict:
             ("K2", run_k2, quantize, quantize_reference, None, k2_cost, 0.0),
             ("K3", run_k3, qmatmul, qmatmul_reference, lib_k3, k3_cost,
              k3_err)):
-        ms = cuda_time(lambda: run(fn), reps=2, warmup=1)
+        graph = None
+        if name == "K2":
+            # 588 short launches: the eager sequence measures the host, so
+            # the card's time is a CUDA graph replay, the eager time beside
+            graph = lib_time(lambda: run(fn), reps=3)
+        eager = cuda_time(lambda: run(fn), reps=2, warmup=1)
+        ms = graph[0] if graph else eager
         plain = cuda_time(lambda: run(ref), reps=1, warmup=0)
         if name == "K3":
             err = max(err, check_head())
@@ -2324,16 +2368,29 @@ def phase_oracle_kernels(dev) -> dict:
         f_ms = fma_bound(cost) if name == "K3" else None
         fma_s = ("" if f_ms is None else
                  f"; f32-FMA bound {f_ms:.3f} ms, {f_ms / ms:.4f} of it")
+        k_s = (f"graph replay {lib_str(graph)}, eager {eager:.4f} ms" if graph
+               else f"kernel {ms:.3f} ms")
         print(f"[kernels] {name} one oracle training step ({len(cost)} "
-              f"launches, T={t}): kernel {ms:.3f} ms, plain {plain:.1f} ms, "
+              f"launches, T={t}): {k_s}, plain {plain:.1f} ms, "
               f"{lib_s}, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.4f} of "
               f"bound{fma_s}", flush=True)
         out[name] = dict(ms=ms, plain_ms=plain,
                          library_ms=lib_ms and lib_ms[0],
                          library_spread_ms=lib_ms and list(lib_ms[1]),
                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        if graph:
+            out[name].update(graph_spread_ms=list(graph[1]), eager_ms=eager)
         if f_ms is not None:
             out[name]["fma_bound_ms"] = f_ms
+    # the step's sequence against the sum of its calls' replays: the calls
+    # of a layer, each (K, N) as often as the layer runs it
+    per_layer = {}
+    for _, _, k, n, _ in layer:
+        per_layer[(k, n)] = per_layer.get((k, n), 0) + 1
+    step_sum = depth * sum(per_layer[c["kn"]] * c["ms"] for c in k2_calls)
+    print(f"  K2 the step as the sum of its calls' replays: {step_sum:.4f} ms "
+          f"(the sequence's replay {out['K2']['ms']:.4f} ms)", flush=True)
+    out["K2"]["calls"] = k2_calls
     return out
 
 
@@ -2682,6 +2739,311 @@ def phase_dense_prefill(cfg, params, dev, plan, prompts) -> dict:
                 mul_add_bound_ms=ma_ms, max_abs_err=err)
 
 
+# --------------------------------------------------------------------------
+# the paper's analysis: the Monte Carlo of swamping, Table 1
+# --------------------------------------------------------------------------
+
+MC_ENSEMBLE = 2048
+# tests/test_vrr_montecarlo.py's points: (m_acc, n, chunk, ensemble)
+MC_HIGH = ((8, 1024), (10, 16384), (12, 65536), (14, 65536))
+MC_KNEE = ((5, 1024), (6, 2048), (7, 4096), (9, 65536))
+# Paper Table 1, (normal, chunked-64) mantissa bits, as
+# benchmarks/table1_precisions.py holds the published table
+TABLE1 = {
+    "CIFAR-10 ResNet 32": {
+        ("Conv 0", "FWD"): (6, 5), ("ResBlock 1", "FWD"): (6, 5),
+        ("ResBlock 2", "FWD"): (7, 5), ("ResBlock 3", "FWD"): (7, 5),
+        ("ResBlock 1", "BWD"): (6, 5), ("ResBlock 2", "BWD"): (7, 5),
+        ("ResBlock 3", "BWD"): (8, 5),
+        ("Conv 0", "GRAD"): (11, 8), ("ResBlock 1", "GRAD"): (11, 8),
+        ("ResBlock 2", "GRAD"): (10, 6), ("ResBlock 3", "GRAD"): (9, 6),
+    },
+    "ImageNet ResNet 18": {
+        ("Conv 0", "FWD"): (9, 6), ("ResBlock 1", "FWD"): (7, 5),
+        ("ResBlock 2", "FWD"): (8, 5), ("ResBlock 3", "FWD"): (8, 5),
+        ("ResBlock 4", "FWD"): (9, 6),
+        ("ResBlock 1", "BWD"): (8, 6), ("ResBlock 2", "BWD"): (9, 6),
+        ("ResBlock 3", "BWD"): (9, 6), ("ResBlock 4", "BWD"): (10, 6),
+        ("Conv 0", "GRAD"): (15, 10), ("ResBlock 1", "GRAD"): (15, 9),
+        ("ResBlock 2", "GRAD"): (12, 8), ("ResBlock 3", "GRAD"): (10, 6),
+        ("ResBlock 4", "GRAD"): (9, 5),
+    },
+    "ImageNet AlexNet": {
+        ("Conv 1", "FWD"): (7, 5), ("Conv 2", "FWD"): (9, 5),
+        ("Conv 3", "FWD"): (9, 5), ("Conv 4", "FWD"): (8, 5),
+        ("Conv 5", "FWD"): (8, 5), ("FC 1", "FWD"): (9, 6),
+        ("FC 2", "FWD"): (8, 5),
+        ("Conv 2", "BWD"): (8, 5), ("Conv 3", "BWD"): (8, 5),
+        ("Conv 4", "BWD"): (10, 8), ("Conv 5", "BWD"): (8, 5),
+        ("FC 1", "BWD"): (8, 5), ("FC 2", "BWD"): (8, 5),
+        ("Conv 1", "GRAD"): (10, 7), ("Conv 2", "GRAD"): (9, 6),
+        ("Conv 3", "GRAD"): (8, 6), ("Conv 4", "GRAD"): (6, 5),
+        ("Conv 5", "GRAD"): (6, 5), ("FC 1", "GRAD"): (6, 5),
+        ("FC 2", "GRAD"): (6, 5),
+    },
+}
+# the JAX package's own count on it, pinned by tests/test_torch_analysis.py:
+# (layer, role) entries equal to the published pair, single cells equal
+TABLE1_EQUAL = (12, 43)
+
+
+def _mc(dev, m_acc, n, *, chunk=0, ensemble=MC_ENSEMBLE):
+    """(simulated VRR, card seconds) of one Monte Carlo point: an ensemble
+    of N(0, 1) (1,5,5) product streams of length n accumulated at
+    (1,6,m_acc) by ``swamped_variance``, over n."""
+    from repro_torch.quant import FPFormat, swamped_variance
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v = float(swamped_variance(gen, n, FPFormat(6, m_acc), FPFormat(5, 5),
+                               ensemble=ensemble, chunk=chunk, device=dev))
+    return v / n, time.perf_counter() - t0
+
+
+def phase_analysis(dev) -> dict:
+    """The paper's analysis on the card.  The Monte Carlo of swamped
+    accumulation (``quant.accumulate.swamped_variance``, ensemble 2048,
+    (1,6,m_acc) accumulator, (1,5,5) products) at
+    ``tests/test_vrr_montecarlo.py``'s points under its assertions: the
+    high-VRR points within 0.08 of ``vrr``, the knee points where theory
+    is at most the simulation + 0.08, deep swamping where both collapse,
+    and chunk 64 against ``vrr_chunked`` (and above the plain sum).  Then
+    Table 1: ``assign_network`` on the paper's three networks against
+    the published table (the match count must be the JAX package's), and
+    qwen2-1.5b's ``transformer_specs`` beside the m_acc of the train
+    cell's plan."""
+    from repro_torch.core import acc_lengths as AL
+    from repro_torch.core.precision import assign_network
+    from repro_torch.core.vrr import vrr, vrr_chunked
+
+    t_start = time.perf_counter()
+    print(f"[analysis] Monte Carlo of swamping on the card: ensemble "
+          f"{MC_ENSEMBLE}, (1,6,m_acc) accumulator, (1,5,5) products "
+          "(simulated VRR, theory, card seconds)", flush=True)
+    points = []
+
+    def point(kind, m_acc, n, th, ok, **kw):
+        mc, secs = _mc(dev, m_acc, n, **kw)
+        good = ok(mc, th)
+        print(f"  {kind} (m_acc {m_acc}, n {n}"
+              f"{', chunk ' + str(kw['chunk']) if kw.get('chunk') else ''}"
+              f"{', ensemble ' + str(kw['ensemble']) if 'ensemble' in kw else ''}"
+              f"): MC {mc:.5f}, theory {th:.5f}, {secs:.2f} s "
+              f"{'ok' if good else 'MISS'}", flush=True)
+        points.append(dict(kind=kind, m_acc=m_acc, n=n, mc=mc, theory=th,
+                           seconds=secs, **kw))
+        check(good, f"Monte Carlo point {kind} ({m_acc}, {n}) missed: MC "
+              f"{mc} against theory {th}")
+        return mc
+
+    for m_acc, n in MC_HIGH:
+        th = vrr(m_acc, 5, n)
+        check(th > 0.99, f"({m_acc}, {n}) is not a high-VRR point")
+        point("high-VRR", m_acc, n, th, lambda mc, th: abs(mc - th) <= 0.08)
+    for m_acc, n in MC_KNEE:
+        th = vrr(m_acc, 5, n)
+        check(0.3 < th < 0.999, f"({m_acc}, {n}) is not inside the knee")
+        point("knee", m_acc, n, th, lambda mc, th: th <= mc + 0.08)
+    point("deep swamping", 4, 16384, vrr(4, 5, 16384),
+          lambda mc, th: th < 0.45 and mc < 0.35, ensemble=1024)
+    plain = point("plain at the chunk point", 6, 8192, vrr(6, 5, 8192),
+                  lambda mc, th: True, ensemble=1024)
+    point("chunk 64", 6, 8192, vrr_chunked(6, 5, 64, 8192 // 64),
+          lambda mc, th: mc > plain and mc > 0.85 and abs(mc - th) <= 0.12,
+          chunk=64, ensemble=1024)
+
+    entries = cells = total = 0
+    for net, fn in (("CIFAR-10 ResNet 32", AL.resnet32_cifar),
+                    ("ImageNet ResNet 18", AL.resnet18_imagenet),
+                    ("ImageNet AlexNet", AL.alexnet_imagenet)):
+        a = assign_network(net, fn(), m_p=5)
+        e = c = 0
+        for (layer, role), pub in TABLE1[net].items():
+            got = a.get(layer, role)
+            e += got == pub
+            c += (got[0] == pub[0]) + (got[1] == pub[1])
+        print(f"[analysis] Table 1 {net}: {e}/{len(TABLE1[net])} (layer, "
+              f"role) entries equal the published (normal, chunked) pair, "
+              f"{c}/{2 * len(TABLE1[net])} cells", flush=True)
+        entries, cells, total = entries + e, cells + c, total + len(TABLE1[net])
+    print(f"[analysis] Table 1 total: {entries}/{total} entries, {cells}/"
+          f"{2 * total} cells equal the published table (the JAX package: "
+          f"{TABLE1_EQUAL[0]}, {TABLE1_EQUAL[1]})", flush=True)
+    check((entries, cells) == TABLE1_EQUAL,
+          "Table 1 match count differs from the JAX package's")
+
+    cfg = _train_cfg()
+    specs = AL.transformer_specs(
+        d_model=cfg.d_model, d_ff=cfg.d_ff, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, d_head=cfg.head_dim, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, vocab_size=cfg.vocab_size)
+    a = assign_network("qwen2-1.5b", specs, m_p=5)
+    print(f"[analysis] qwen2-1.5b transformer_specs at batch {TRAIN_BATCH} x "
+          f"seq {TRAIN_SEQ}, (normal, chunked-64) m_acc beside the train "
+          "cell's plan:", flush=True)
+    fields = {"attn.qkv": "attn_qkv", "attn.out": "attn_out",
+              "mlp.up": "mlp_up", "mlp.down": "mlp_down", "lm_head": "lm_head"}
+    for s_ in specs:
+        q = getattr(cfg.quant, fields.get(s_.layer, ""), None)
+        prec = None if q is None else getattr(q, s_.role.lower())
+        plan_s = (f"plan m_acc {prec.m_acc} (chunk {prec.chunk})"
+                  if prec is not None else "no dense GEMM of the plan")
+        print(f"  {s_.layer} {s_.role} n={s_.n}: {a.get(s_.layer, s_.role)}; "
+              f"{plan_s}", flush=True)
+    secs = time.perf_counter() - t_start
+    print(f"[analysis] phase {secs:.1f} s", flush=True)
+    return dict(points=points, table1=(entries, cells, total), seconds=secs)
+
+
+# --------------------------------------------------------------------------
+# checkpoints and restarts
+# --------------------------------------------------------------------------
+
+CKPT_DIR = ROOT / "build" / "ckpt"      # gitignored; deleted afterwards
+CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, CKPT_CRASH = 2, 4, 2, 3
+
+
+def _ckpt_argv(*extra) -> list[str]:
+    """The train cell at CKPT_LAYERS layers, full width, under the plan
+    perturbed by -4 bits with a telemetry tick every step, so the
+    controller widens every layer GEMM twice in the 4 steps and its
+    schedule (below the predicted plan's widths) is part of the state."""
+    return _train_argv("--n-layers", str(CKPT_LAYERS), "--steps",
+                       str(CKPT_STEPS), "--log-every", "1", "--policy",
+                       "perturbed", "--pp", "-4", "--telemetry-cadence", "1",
+                       *extra)
+
+
+def _records(path: Path) -> list[dict]:
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def phase_ckpt(dev) -> dict:
+    """Checkpoints and restarts on the card: qwen2-1.5b at full width, the
+    depth cut to CKPT_LAYERS layers (at full depth a checkpoint holds about
+    18.5 GB of f32 masters and moments).  CKPT_STEPS steps through the
+    training launcher uninterrupted, then the same steps under the restart
+    supervisor with ``--crash-at-step 3 --ckpt-every 2``: a checkpoint
+    before the crash, the restart resuming from it, one at the end; every
+    loss after the resume bitwise the uninterrupted run's.  Then the last
+    checkpoint served through ``launch/serve.py --ckpt-dir``: one request,
+    under the recorded precision schedule.  Prints the checkpoint's bytes
+    on disk and its save and restore ms; deletes the checkpoints."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    from repro_torch.core.policy import AccumulationPolicy, plan_for_model
+    from repro_torch.launch import serve as LS
+    from repro_torch.launch import train as LT
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    counters = dict(_train_counters(), **_counters())
+    try:
+        plain = CKPT_DIR / "plain.jsonl"
+        zero_counts(counters)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            LT.main(_ckpt_argv("--metrics-out", str(plain)))
+        torch.cuda.synchronize()
+        train_used = read_counts(counters)
+        want = [(r["step"], r["loss"], r["grad_norm"]) for r in _records(plain)]
+        print(f"[ckpt] uninterrupted: {CKPT_STEPS} steps at {CKPT_LAYERS} "
+              f"layers, full width: losses {[w[1] for w in want]}, launches "
+              f"{train_used}", flush=True)
+        check(all(math.isfinite(w[1]) for w in want), "a loss is not finite")
+        torch.cuda.empty_cache()        # room for the child processes
+        check(all(train_used[k] > 0 for k in (E_NAME, "qmatmul_bwd_pair",
+                                              "qmatmul_fused", K8_NAME)),
+              "the uninterrupted run missed a kernel of the training path")
+
+        run, resumed = CKPT_DIR / "run", CKPT_DIR / "resumed.jsonl"
+        cmd = [sys.executable, "-m", "repro_torch.launch.supervisor",
+               "--max-restarts", "2", "--backoff-s", "0.1", "--",
+               sys.executable, "-m", "repro_torch.launch.train",
+               *_ckpt_argv("--ckpt-dir", str(run), "--ckpt-every",
+                           str(CKPT_EVERY), "--crash-at-step",
+                           str(CKPT_CRASH), "--metrics-out", str(resumed),
+                           "--telemetry-log", str(CKPT_DIR / "t.jsonl"))]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             cwd=ROOT, timeout=600)
+        secs = time.perf_counter() - t0
+        log = out.stdout
+        check(out.returncode == 0, f"supervised run exit {out.returncode}: "
+              f"{log[-2000:]} {out.stderr[-2000:]}")
+        for want_s in (f"FAULT INJECTION: dying at step {CKPT_CRASH}",
+                       "restart 1/2", f"resumed from step {CKPT_EVERY}"):
+            check(want_s in log, f"supervised run: no {want_s!r} in its log")
+        saves = [json.loads(line)["checkpoint"] for line in log.splitlines()
+                 if line.startswith('{"checkpoint"')]
+        restore_ms = float(re.search(r"restored in ([0-9.]+) ms", log)[1])
+        got = [(r["step"], r["loss"], r["grad_norm"])
+               for r in _records(resumed)]
+        check([g[0] for g in got] == [1, 2, 3, 3, 4],
+              f"supervised run logged steps {[g[0] for g in got]}")
+        after = got[CKPT_CRASH:]
+        same = after == want[CKPT_EVERY:] and got[:CKPT_CRASH] == want[:CKPT_CRASH]
+        print(f"[ckpt] supervised (--crash-at-step {CKPT_CRASH}, "
+              f"--ckpt-every {CKPT_EVERY}): {secs:.1f} s, one restart; "
+              f"losses after the resume {[a[1] for a in after]} "
+              f"{'bitwise' if same else 'DIFFERENT from'} the uninterrupted "
+              f"run's; schedule restored at the resume: "
+              f"{'restored precision schedule' in log}", flush=True)
+        check(same, "a loss after the resume differs from the uninterrupted "
+              "run's")
+        for sv in saves:
+            print(f"[ckpt] checkpoint step {sv['step']}: {sv['bytes']} bytes "
+                  f"on disk ({sv['bytes'] / 2 ** 30:.3f} GiB), save "
+                  f"{sv['save_ms']} ms", flush=True)
+        print(f"[ckpt] restore of step {CKPT_EVERY}: {restore_ms} ms "
+              "(read, then copied to the card)", flush=True)
+        check([sv["step"] for sv in saves] == [CKPT_EVERY, CKPT_STEPS],
+              f"checkpoint writes {[sv['step'] for sv in saves]}")
+
+        last = json.loads((run / f"step_{CKPT_STEPS:08d}" /
+                           "meta.json").read_text())
+        schedule = last.get("precision_schedule")
+        check(bool(schedule), "the last checkpoint records no precision "
+              "schedule: the controller never re-planned")
+        serve_argv = ["--arch", "qwen2-1.5b", "--n-layers", str(CKPT_LAYERS),
+                      "--policy", "predicted", "--chunk", "64",
+                      "--prompt-lens", "64", "--gen", "8", "--seed",
+                      str(SEED), "--device", "cuda"]
+        zero_counts(counters)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = LS.main([*serve_argv, "--ckpt-dir", str(run)])
+        torch.cuda.synchronize()
+        serve_used = read_counts(counters)
+        plan = LS.plan_widths(plan_for_model(
+            LT.model_config(LT.parse_args(_ckpt_argv())), seq_len=64 + 8,
+            global_batch=1, policy=AccumulationPolicy(mode="predicted",
+                                                       chunk=64)))
+        print(f"[ckpt] served one request from the step-{CKPT_STEPS} "
+              f"checkpoint: {res['decoded_tokens']} decoded tokens, tokens "
+              f"{next(iter(res['results'].values()))}; restored schedule "
+              f"{schedule}; serve plan m_acc {res['plan']} (without the "
+              f"schedule: {plan}); launches {serve_used}", flush=True)
+        check(res["schedule"] == schedule, "serve restored another schedule")
+        check(all(res["plan"][k] == v for k, v in schedule.items()),
+              "the serve plan does not carry the recorded schedule")
+        check(any(plan[k] != v for k, v in schedule.items()),
+              "the recorded schedule equals the serve plan's own widths")
+        check(all(serve_used[k] > 0 for k in ("qmatmul_fused",
+                                              "paged_attn_decode",
+                                              "flash_prefill_paged")),
+              "serving from the checkpoint missed a kernel of the serve path")
+        return dict(saves=saves, restore_ms=restore_ms, seconds=secs,
+                    train_launches=train_used, serve_launches=serve_used)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2749,6 +3111,10 @@ def main() -> None:
     ig = phase_train_ingraph(dev, min(tr["step_ms"][1:]))
     torch.cuda.empty_cache()
     phase_train_replan(dev)
+    torch.cuda.empty_cache()
+    phase_analysis(dev)
+    torch.cuda.empty_cache()
+    phase_ckpt(dev)
 
     kernels = [
         dict(name="qmatmul_fused", route="cuda",

@@ -1,15 +1,20 @@
 """Minimal accumulation-precision solver (paper §4.4).
 
-Counterpart of ``repro.core.precision`` (``suitable`` and ``min_m_acc``).
+Counterpart of ``repro.core.precision``: given an accumulation length
+``n`` (sparsity-corrected and/or chunked), the smallest accumulator
+mantissa width ``m_acc`` whose variance lost satisfies ``v(n) < 50``, and
+Table 1's (normal, chunked) assignment of a whole network.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass, field
 
 from repro_torch.core.vrr import CUTOFF_LOG_V, log_variance_lost, vrr
 
-__all__ = ["suitable", "min_m_acc"]
+__all__ = ["suitable", "min_m_acc", "AccumSpec", "PrecisionAssignment",
+           "assign_network"]
 
 
 def suitable(m_acc: int, m_p: int, n: int, *, chunked: bool = False,
@@ -53,3 +58,38 @@ def min_m_acc(n: int, m_p: int, *, chunked: bool = False, chunk: int = 64,
         else:
             lo = mid + 1
     return lo
+
+
+@dataclass(frozen=True)
+class AccumSpec:
+    """One GEMM accumulation in a network (per role: FWD / BWD / GRAD)."""
+
+    layer: str
+    role: str  # "FWD" | "BWD" | "GRAD"
+    n: int
+    nzr: float = 1.0
+
+
+@dataclass
+class PrecisionAssignment:
+    """Solved (normal, chunked) accumulator widths for every accumulation."""
+
+    network: str
+    m_p: int
+    chunk: int
+    entries: dict[tuple[str, str], tuple[int, int]] = field(
+        default_factory=dict)
+
+    def get(self, layer: str, role: str) -> tuple[int, int]:
+        return self.entries[(layer, role)]
+
+
+def assign_network(name: str, specs: list[AccumSpec], *, m_p: int = 5,
+                   chunk: int = 64) -> PrecisionAssignment:
+    """Table-1-style (normal, chunked) mantissa widths for a network."""
+    out = PrecisionAssignment(network=name, m_p=m_p, chunk=chunk)
+    for s in specs:
+        normal = min_m_acc(s.n, m_p, nzr=s.nzr)
+        chunked = min_m_acc(s.n, m_p, chunked=True, chunk=chunk, nzr=s.nzr)
+        out.entries[(s.layer, s.role)] = (normal, chunked)
+    return out

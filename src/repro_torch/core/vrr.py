@@ -1,10 +1,11 @@
 """Variance Retention Ratio (VRR), closed form (float64 numpy).
 
-Counterpart of ``repro.core.vrr``, restricted to what the serving slice
-uses: ``vrr`` (Theorem 1), ``vrr_chunked`` (Corollary 1),
-``log_variance_lost`` (log of Eq. 6) and the §4.4 cutoff.  ``m_p`` is the
-mantissa width of the product terms, ``m_acc`` the accumulator mantissa
-width, ``n`` the accumulation length.
+Counterpart of ``repro.core.vrr``: ``vrr_full_swamping`` (Lemma 1),
+``vrr`` (Theorem 1), ``vrr_chunked`` (Corollary 1), ``vrr_sparse`` (Eq.
+4), ``vrr_chunked_sparse`` (Eq. 5), ``log_variance_lost`` (log of Eq. 6)
+and the §4.4 cutoff, with the same float64 operations, so the values are
+JAX's own.  ``m_p`` is the mantissa width of the product terms, ``m_acc``
+the accumulator mantissa width, ``n`` the accumulation length.
 """
 
 from __future__ import annotations
@@ -13,8 +14,8 @@ import math
 
 import numpy as np
 
-__all__ = ["qfunc", "vrr", "vrr_chunked", "log_variance_lost",
-           "CUTOFF_LOG_V"]
+__all__ = ["qfunc", "vrr_full_swamping", "vrr", "vrr_chunked", "vrr_sparse",
+           "vrr_chunked_sparse", "log_variance_lost", "CUTOFF_LOG_V"]
 
 # Paper §4.4: m_acc is suitable for length n iff v(n) < 50.
 CUTOFF_LOG_V = math.log(50.0)
@@ -22,10 +23,15 @@ CUTOFF_LOG_V = math.log(50.0)
 _erfc_vec = np.vectorize(math.erfc, otypes=[np.float64])
 
 
+def _erfc(x: np.ndarray) -> np.ndarray:
+    """``math.erfc`` (exact to double precision) over an array."""
+    return _erfc_vec(x)
+
+
 def qfunc(x):
     """Q(x) = P[N(0,1) > x] = 0.5 * erfc(x / sqrt(2)), vectorized float64."""
     x = np.asarray(x, dtype=np.float64)
-    return 0.5 * _erfc_vec(x / np.sqrt(2.0))
+    return 0.5 * _erfc(x / np.sqrt(2.0))
 
 
 # Above this length the exact O(n) sums over i are replaced by trapezoidal
@@ -54,6 +60,18 @@ def _q_i_terms(n: int, m_acc: int):
     t = float(2.0 ** m_acc)
     q = 2.0 * qfunc(t / np.sqrt(i)) * (1.0 - 2.0 * qfunc(t / np.sqrt(i - 1.0)))
     return i, q, w
+
+
+def vrr_full_swamping(m_acc: int, n: int) -> float:
+    """Lemma 1: VRR considering full swamping only."""
+    if n <= 1:
+        return 1.0
+    i, q, w = _q_i_terms(n, m_acc)
+    q_tilde = 1.0 - 2.0 * qfunc(2.0 ** m_acc / math.sqrt(n))
+    k = float(np.dot(q, w)) + q_tilde
+    if k <= 0.0:
+        return 1.0
+    return float((np.dot(i * q, w) + n * q_tilde) / (k * n))
 
 
 def _alpha_partial(m_acc: int, m_p: int, j_hi: int) -> float:
@@ -102,6 +120,19 @@ def vrr_chunked(m_acc: int, m_p: int, n1: int, n2: int) -> float:
     ``min(m_acc, m_p + log2 n1)`` mantissa bits."""
     m_inter = min(m_acc, m_p + int(round(math.log2(max(n1, 1)))))
     return vrr(m_acc, m_p, n1) * vrr(m_acc, m_inter, n2)
+
+
+def vrr_sparse(m_acc: int, m_p: int, n: int, nzr: float) -> float:
+    """Eq. (4): sparsity-aware VRR with non-zero ratio ``nzr`` in (0, 1]."""
+    n_eff = max(int(round(nzr * n)), 1)
+    return vrr(m_acc, m_p, n_eff)
+
+
+def vrr_chunked_sparse(m_acc: int, m_p: int, n1: int, n2: int,
+                       nzr: float) -> float:
+    """Eq. (5): chunked accumulation with sparse inputs (the non-zero ratio
+    applies within a chunk)."""
+    return vrr_chunked(m_acc, m_p, max(int(round(nzr * n1)), 1), n2)
 
 
 def log_variance_lost(vrr_value: float, n: int) -> float:

@@ -8,6 +8,9 @@ VRR monitor (``--monitor-cadence N``: every N decode steps K12's kernel
 probes the longest context and a swamping breach widens its bucket's
 carry; events append to ``--monitor-log``).  Runs on CUDA unless
 ``--device cpu`` (the plain PyTorch versions; small configs only).
+``--ckpt-dir`` serves the parameters of the latest training checkpoint
+there, under the plan with the run's recorded ``precision_schedule``
+applied; ``--n-layers`` cuts the depth (to match such a checkpoint).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --smoke --prompt-lens 16,32,48 --gen 16 --policy predicted --device cpu
@@ -16,6 +19,7 @@ carry; events append to ``--monitor-log``).  Runs on CUDA unless
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -49,17 +53,66 @@ def parse_args(argv=None):
                          "(0 = off)")
     ap.add_argument("--monitor-log", default="",
                     help="JSONL path for the monitor's events")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="restore params (and the recorded precision "
+                         "schedule) from the latest training checkpoint")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="cut the model to this many layers (0 = the "
+                         "config's depth)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
 
+def _restore_params(ckpt_dir: str, cfg, policy, params, *, seq_len: int,
+                    global_batch: int):
+    """(config, params, schedule): the latest checkpoint's params, and the
+    config re-planned under the precision schedule the run trained with
+    (as recorded; None when there is none)."""
+    from repro_torch.telemetry.controller import (
+        PrecisionController,
+        apply_schedule,
+    )
+    from repro_torch.train.checkpoint import latest_step, restore_checkpoint
+
+    step = latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    state, meta = restore_checkpoint(ckpt_dir, step, {"params": params})
+    schedule = meta.get("precision_schedule")
+    if schedule:
+        ctl = PrecisionController(policy)
+        ctl.restore_meta(schedule)
+        cfg = apply_schedule(cfg, policy, ctl.schedule(), seq_len=seq_len,
+                             global_batch=global_batch)
+        print(f"restored step {step} with precision schedule {schedule}")
+    else:
+        print(f"restored step {step} (no precision schedule recorded)")
+    return cfg, state["params"], schedule
+
+
+def plan_widths(cfg) -> dict:
+    """``{"<gemm>:<role>": m_acc}`` of the config's quantized GEMMs."""
+    from repro_torch.telemetry.controller import PLAN_FIELDS, ROLES
+
+    out = {}
+    for name in PLAN_FIELDS:
+        q = getattr(cfg.quant, name, None)
+        for role in ROLES:
+            prec = None if q is None else getattr(q, role)
+            if prec is not None:
+                out[f"{name}:{role}"] = prec.m_acc
+    return out
+
+
 def build(args):
-    """(engine, prompts) for parsed ``args``: planned config, bf16 params
-    from a seeded generator on the device, the engine, and seeded
-    prompts."""
+    """(engine, prompts, restored schedule) for parsed ``args``: planned
+    config, bf16 params from a seeded generator on the device (or from
+    ``--ckpt-dir``), the engine, and seeded prompts."""
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     prompt_lens = [int(x) for x in args.prompt_lens.split(",")]
     max_ctx = max(prompt_lens) + args.gen
     policy = AccumulationPolicy(mode=args.policy, chunk=args.chunk)
@@ -69,6 +122,12 @@ def build(args):
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = model.init_params(gen, device)
+    schedule = None
+    if args.ckpt_dir:
+        cfg, params, schedule = _restore_params(
+            args.ckpt_dir, cfg, policy, params, seq_len=max_ctx,
+            global_batch=len(prompt_lens))
+        model = get_model(cfg)
     # the JAX driver serves bf16 params
     params = _map(lambda x: x.to(torch.bfloat16)
                   if x.dtype == torch.float32 else x, params)
@@ -84,7 +143,7 @@ def build(args):
     rng = np.random.RandomState(args.seed + 1)
     prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
                for n in prompt_lens]
-    return eng, prompts
+    return eng, prompts, schedule
 
 
 def _map(fn, tree):
@@ -95,7 +154,7 @@ def _map(fn, tree):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    eng, prompts = build(args)
+    eng, prompts, schedule = build(args)
     rids = [eng.submit(p, args.gen) for p in prompts]
     dev = eng.executor.device
     if dev.type == "cuda":
@@ -123,9 +182,12 @@ def main(argv=None) -> dict:
         print(f"monitor: {len(kinds)} ticks, "
               f"{kinds.count('rebucket')} rebuckets, bucket m_acc "
               f"{[b.m_acc for b in eng.plan.buckets]}")
+    if args.ckpt_dir:
+        print(f"plan m_acc: {plan_widths(eng.cfg)}")
     print("sample generation (request 0):", results[rids[0]])
     eng.pool.check_invariants()
     return {"seconds": dt, "results": results,
+            "schedule": schedule, "plan": plan_widths(eng.cfg),
             "decoded_tokens": eng.decoded_tokens,
             "prefill_tokens": eng.prefill_tokens,
             "kv_bytes_per_token": packed, "max_concurrent": eng.max_concurrent,

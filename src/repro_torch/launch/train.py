@@ -15,9 +15,17 @@ bump or trim each GEMM's ``m_acc``; ``--ingraph-telemetry`` makes the
 cadence step itself the tagged step (``obs.ingraph``: the stats variants
 K9 and K8 on the true gradients, the same numerics).  Events print as
 ``{"telemetry": ...}`` lines and append to ``--telemetry-log``; a
-re-planned model goes on training.  Not ported: stochastic rounding, A2Q,
-the metrics registry, meshes and checkpoints (so no ``precision_schedule``
-in a checkpoint's meta yet).
+re-planned model goes on training.
+
+Checkpoints (``--ckpt-dir``, every ``--ckpt-every`` steps and at the end;
+``train.checkpoint``, the JAX package's layout) hold the parameters, the
+AdamW moments and step, the loss scaler, the data cursor and the
+controller's realized ``precision_schedule`` (with its hysteresis streaks,
+so a resumed run re-plans as the uninterrupted one does).  A run started
+with a checkpoint in ``--ckpt-dir`` resumes from the latest one.
+``--crash-at-step N`` kills a fresh run before step N (exit 42), for the
+restart supervisor (``launch.supervisor``).  ``--n-layers`` cuts the depth.
+Not ported: stochastic rounding, A2Q, the metrics registry and meshes.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --smoke --steps 20 --policy predicted --device cpu \\
@@ -27,7 +35,9 @@ in a checkpoint's meta yet).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import time
 
 import torch
@@ -38,6 +48,11 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.models.api import get_model, param_count
 from repro_torch.serve.scheduler import resolve_device
 from repro_torch.train import optimizer as O
+from repro_torch.train.checkpoint import (
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from repro_torch.train.loop import (
     TrainConfig,
     init_train_state,
@@ -75,6 +90,14 @@ def parse_args(argv=None):
                     help="measure on the true training gradients: the "
                          "cadence tick is the tagged step itself (the same "
                          "numerics, bit for bit)")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--crash-at-step", type=int, default=-1,
+                    help="fault injection: hard-exit at this step "
+                         "(supervisor test)")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="cut the model to this many layers (0 = the "
+                         "config's depth)")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
@@ -96,7 +119,8 @@ def build_telemetry(args, tc):
 
     controller = PrecisionController(
         _policy(args), ControllerConfig(cadence=args.telemetry_cadence),
-        log_path=args.telemetry_log or "telemetry.jsonl")
+        log_path=args.telemetry_log or os.path.join(args.ckpt_dir or ".",
+                                                    "telemetry.jsonl"))
     ingraph = None
     if args.ingraph_telemetry:
         ingraph = InGraphTelemetry(controller, tc, seq_len=args.seq_len,
@@ -110,10 +134,62 @@ def _policy(args) -> AccumulationPolicy:
         perturbation=args.pp if args.policy == "perturbed" else 0)
 
 
+def model_config(args):
+    """The unplanned model config of ``--arch``/``--smoke``, cut to
+    ``--n-layers`` when given."""
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    return cfg
+
+
+def _save(args, step, state, data, controller) -> None:
+    """Write the step's checkpoint; prints its bytes on disk and the
+    write's wall milliseconds as a ``{"checkpoint": ...}`` line."""
+    meta = {"data": data.state_dict()}
+    if controller is not None:
+        meta["telemetry_streaks"] = controller.streaks_meta()
+    t0 = time.perf_counter()
+    path = save_checkpoint(args.ckpt_dir, step, state, meta=meta,
+                           precision_schedule=controller.to_meta()
+                           if controller else None)
+    ms = (time.perf_counter() - t0) * 1e3
+    size = sum(f.stat().st_size for f in os.scandir(path))
+    print(json.dumps({"checkpoint": {"step": step, "bytes": size,
+                                     "save_ms": round(ms, 1)}}), flush=True)
+
+
+def resume(args, model, state, data, controller):
+    """(model, state, first step): from the latest checkpoint in
+    ``--ckpt-dir``, if there is one; the controller's schedule and streaks
+    restored and the model re-planned under the schedule."""
+    last = latest_step(args.ckpt_dir) if args.ckpt_dir else None
+    if last is None:
+        return model, state, 0
+    t0 = time.perf_counter()
+    state, meta = restore_checkpoint(args.ckpt_dir, last, state)
+    ms = (time.perf_counter() - t0) * 1e3
+    data.load_state_dict(meta["data"])
+    start = int(meta["step"])
+    print(f"resumed from step {start} (restored in {ms:.1f} ms)", flush=True)
+    schedule = meta.get("precision_schedule")
+    if controller is not None:
+        controller.restore_streaks(meta.get("telemetry_streaks"))
+        if schedule:
+            from repro_torch.telemetry.controller import apply_schedule
+
+            controller.restore_meta(schedule)
+            model = get_model(apply_schedule(
+                model.cfg, _policy(args), controller.schedule(),
+                seq_len=args.seq_len, global_batch=args.global_batch))
+            print(f"restored precision schedule: {schedule}", flush=True)
+    return model, state, start
+
+
 def build(args):
     """(model, train config, state, data, device) for parsed ``args``."""
     device = resolve_device(args.device)
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = model_config(args)
     cfg = plan_for_model(cfg, seq_len=args.seq_len,
                          global_batch=args.global_batch, policy=_policy(args))
     model = get_model(cfg)
@@ -139,11 +215,17 @@ def main(argv=None) -> dict:
           f"{param_count(state['params']) / 1e6:.1f}M policy={args.policy} "
           f"pp={args.pp} device={device}", flush=True)
     controller, ingraph = build_telemetry(args, tc)
+    model, state, start = resume(args, model, state, data, controller)
     step_fn = make_train_step(model, tc)
     metrics_f = open(args.metrics_out, "a") if args.metrics_out else None
     t0 = time.time()
     last_loss = float("nan")
-    for step in range(args.steps):
+    for step in range(start, args.steps):
+        if step == args.crash_at_step and start == 0:
+            # one-shot fault injection: only a fresh run dies here; the
+            # supervisor's restart resumes from the latest checkpoint
+            print(f"FAULT INJECTION: dying at step {step}", flush=True)
+            os._exit(42)
         batch = next(data)
         events, new_model = [], None
         if ingraph is not None and ingraph.due(step + 1):
@@ -177,6 +259,10 @@ def main(argv=None) -> dict:
             if metrics_f:
                 metrics_f.write(json.dumps(rec) + "\n")
                 metrics_f.flush()
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            _save(args, step + 1, state, data, controller)
+    if args.ckpt_dir and latest_step(args.ckpt_dir) != args.steps:
+        _save(args, args.steps, state, data, controller)
     if metrics_f:
         metrics_f.close()
     return {"final_loss": last_loss, "steps": args.steps,

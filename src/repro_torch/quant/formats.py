@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["FPFormat", "FP8_152"]
+__all__ = ["FPFormat", "FP8_152", "FP16_161", "BF16_LIKE", "FP32_LIKE"]
 
 
 @dataclass(frozen=True)
@@ -45,6 +45,10 @@ class FPFormat:
 
 # the paper's representation format for weights/activations/KV codes
 FP8_152 = FPFormat(e=5, m=2)
+# common reference points
+FP16_161 = FPFormat(e=6, m=9)
+BF16_LIKE = FPFormat(e=8, m=7)
+FP32_LIKE = FPFormat(e=8, m=23)
 
 
 def fmt_tuple(fmt) -> tuple[int, int] | None:

@@ -94,7 +94,7 @@ class PrecisionController:
     event records it logged; ``schedule()`` is the realized per-GEMM
     ``m_acc`` map (empty until the controller first acts), consumed by
     ``apply_schedule``; ``to_meta``/``restore_meta`` serialize it for a
-    checkpoint's meta (the port's checkpoints are still to come).
+    checkpoint's meta (``train.checkpoint``).
     """
 
     policy: Any                      # the base AccumulationPolicy
@@ -216,6 +216,17 @@ class PrecisionController:
             g, r = key.split(":")
             self._schedule[(g, r)] = int(m)
         self.dirty = bool(self._schedule)
+
+    def streaks_meta(self) -> dict:
+        """The hysteresis streaks, ``"<gemm>:<role>" -> streak``: with the
+        schedule, what a resumed run needs to act on the same ticks as an
+        uninterrupted one (the JAX package's checkpoints leave them out)."""
+        return {f"{g}:{r}": s for (g, r), s in sorted(self._streak.items())}
+
+    def restore_streaks(self, meta: dict | None) -> None:
+        for key, s in (meta or {}).items():
+            g, r = key.split(":")
+            self._streak[(g, r)] = int(s)
 
 
 def apply_schedule(model_cfg, policy, schedule: dict[tuple[str, str], int],

@@ -1304,3 +1304,29 @@ def test_qmatmul_entries_match_their_mirrors(dev):
         for a in (0, 1):
             for b in (0, 1):
                 assert occ(a, b, s) >= 1
+
+
+@pytest.mark.parametrize("n,chunk", [(1300, 0), (2048, 0), (4100, 8)])
+def test_accumulate_on_card_bitwise_cpu(dev, n, chunk):
+    """The software accumulators (``quant.accumulate``): on the card the
+    scan runs whole blocks of steps as CUDA graph replays
+    (``GRAPH_STEPS``), the rest eagerly; bitwise the CPU's sequential
+    loop, with a tail and as a chunked two-level sum."""
+    from repro_torch.quant import (
+        FPFormat,
+        chunked_accumulate,
+        quantize,
+        sequential_accumulate,
+    )
+
+    rs = np.random.RandomState(n + chunk)
+    x = quantize(torch.from_numpy(rs.standard_normal((333, n)).astype(
+        np.float32)), FPFormat(5, 5))
+    fmt = FPFormat(6, 7)
+    if chunk:
+        got = chunked_accumulate(x.to(dev), fmt, chunk)
+        want = chunked_accumulate(x, fmt, chunk)
+    else:
+        got = sequential_accumulate(x.to(dev), fmt)
+        want = sequential_accumulate(x, fmt)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
