@@ -73,7 +73,7 @@ on its own line:
    launcher's ``main`` under ``--policy perturbed --pp -2`` with a tick
    every step (eager, then in-graph), 3 full-depth steps each: the
    controller must bump, the model be re-planned and training go on;
-6. this slice's paths: on the serve cell, one request's full-depth
+6. the oracle and the dense prefill: on the serve cell, one request's full-depth
    prefill logits under the unfused oracle plan (``QDotConfig(
    fused=False)``: K2 quantize and K3 chunked qmatmul) against the fused
    plan, bitwise, and the dense resumable prefill K10 on layer 0 at full
@@ -87,19 +87,33 @@ on its own line:
    against the fused step (loss and every gradient bitwise) and 2
    full-depth steps of the train cell under each (losses bitwise, step
    time and peak memory);
-7. analysis: the Monte Carlo of swamped accumulation on the card at
+7. stochastic rounding (``--rounding sr``): E, B, K8 and K9 with SR
+   carries at one layer's four GEMM shapes of the train cell, on random and
+   lattice operands, each bitwise its plain version, K8's C bitwise E's,
+   K9's dx/dw bitwise B's, B's dx and dw bitwise the plain fused call on
+   (g, Q(w)^T) and (Q(x)^T, g) at the role seeds, another seed changing
+   every output, and each SR kernel timed beside its RNE run (per shape
+   and over one layer's seven calls); ``tests/test_below_knee.py``'s
+   regression on the card (K 8192, chunk 32, ``m_acc = knee - 2``: RNE
+   stalls, SR reaches the wide loss); the train cell under ``--rounding
+   sr --sr-seed 7 --policy perturbed --pp -2`` at full width and depth, 6
+   steps with the eager tick every 2 steps and step 5 in-graph (the loss
+   must fall; the SR launches of E, B, K8 and K9 counted); a 2-layer SR
+   step bitwise through the plain versions;
+8. analysis: the Monte Carlo of swamped accumulation on the card at
    ``tests/test_vrr_montecarlo.py``'s points under its assertions, Table
    1's assignment of the paper's three networks against the published
    table (the JAX package's match count), and qwen2-1.5b's accumulation
    lengths beside the train cell's plan;
-8. ckpt: the train cell at full width and 2 layers through the launcher,
+9. ckpt: the train cell at full width and 2 layers through the launcher,
    uninterrupted and then under the restart supervisor with a crash at
    step 3 and a checkpoint every 2 steps (losses after the resume bitwise
    the uninterrupted run's; bytes on disk, save and restore ms), and the
    last checkpoint served through ``launch/serve.py --ckpt-dir`` under
    its recorded precision schedule;
-9. result: one JSON line per kernel, the card's name and power limit, and
-   the final JSON line.
+10. result: one JSON line per kernel (the SR carries of E, B, K8 and K9
+   as entries of their own), the card's name and power limit, and the
+   final JSON line.
 
 Any failed check exits non-zero.  Without a CUDA device it exits non-zero
 before printing a result.
@@ -1187,11 +1201,13 @@ def phase_logits(cfg, params, dev, prompt) -> float:
 
 TRAIN_SEQ, TRAIN_BATCH = 64, 8          # the JAX launcher's defaults
 TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 6, 1e-3, 2
+TRAIN_SR_SEED = 7                       # --sr-seed of the SR phases
 HEAD_SLICE = 4096                       # lm_head columns checked vs plain
 HEAD_SEGMENTS = 10                      # the JAX N-split of the lm_head
 
 
-def _train_cfg(n_layers=None, seq=TRAIN_SEQ, batch=TRAIN_BATCH):
+def _train_cfg(n_layers=None, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+               rounding="rne"):
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -1201,7 +1217,9 @@ def _train_cfg(n_layers=None, seq=TRAIN_SEQ, batch=TRAIN_BATCH):
     if n_layers is not None:
         cfg = replace(cfg, n_layers=n_layers)
     return plan_for_model(cfg, seq_len=seq, global_batch=batch,
-                          policy=AccumulationPolicy(mode="predicted", chunk=64))
+                          policy=AccumulationPolicy(mode="predicted", chunk=64,
+                                                    rounding=rounding,
+                                                    sr_seed=TRAIN_SR_SEED))
 
 
 def _roles(qc):
@@ -1871,15 +1889,17 @@ def _profile_step(step_fn, state, batch, step_ms: float) -> None:
         print(f"  profile {ms:9.3f} ms {count:6d} x {key[:90]}", flush=True)
 
 
-def phase_train_vs_plain(dev) -> None:
+def phase_train_vs_plain(dev, rounding: str = "rne") -> None:
     """One step of a 2-layer cut of qwen2-1.5b at full width (batch 2 x
     seq 64): loss and every gradient through the kernels, then through
-    their plain versions on the same card, bitwise."""
+    their plain versions on the same card, bitwise; ``rounding="sr"``
+    runs the plan's carries stochastically (E and B under SR, the lm_head
+    RNE)."""
     from repro_torch.models.api import get_model
     from repro_torch.train.loop import _grads, compute_copy
     from repro_torch.train.optimizer import tree_leaves
 
-    cfg = _train_cfg(n_layers=2, batch=2)
+    cfg = _train_cfg(n_layers=2, batch=2, rounding=rounding)
     model = get_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(SEED + 31)
     params = model.init_params(gen, dev)
@@ -1892,7 +1912,7 @@ def phase_train_vs_plain(dev) -> None:
         loss.backward()
         return loss.detach(), _grads(c, params)
 
-    counters = _train_counters()
+    counters = {**_train_counters(), **_sr_counters()}
     zero_counts(counters)
     lk, gk = step()
     used = read_counts(counters)
@@ -1904,13 +1924,16 @@ def phase_train_vs_plain(dev) -> None:
     leaves = list(zip(tree_leaves(gk), tree_leaves(gp)))
     same = sum(bool(torch.equal(a, b)) for a, b in leaves)
     err = max(float((a - b).abs().max()) for a, b in leaves)
-    print(f"[train] kernels vs plain, 2 layers at full width, batch 2 x seq "
-          f"{TRAIN_SEQ}: loss {float(lk):.6f} vs {float(lp):.6f}; "
-          f"{same}/{len(leaves)} gradient leaves bitwise equal (max |err| "
-          f"{err:.3g}); kernel launches {used}; plain step {plain_s:.1f} s",
-          flush=True)
-    check(used[E_NAME] > 0 and used["qmatmul_bwd_pair"] > 0,
-          "the kernel step launched no E or B")
+    tag = "[sr]" if rounding == "sr" else "[train]"
+    print(f"{tag} kernels vs plain, 2 layers at full width, batch 2 x seq "
+          f"{TRAIN_SEQ}, rounding {rounding}: loss {float(lk):.6f} vs "
+          f"{float(lp):.6f}; {same}/{len(leaves)} gradient leaves bitwise "
+          f"equal (max |err| {err:.3g}); kernel launches {used}; plain step "
+          f"{plain_s:.1f} s", flush=True)
+    e, b = (E_SR_NAME, B_SR_NAME) if rounding == "sr" else (
+        E_NAME, "qmatmul_bwd_pair")
+    check(used[e] > 0 and used[b] > 0, f"the kernel step launched no {e} or "
+          f"{b}")
     check(torch.equal(lk, lp), "loss differs between kernels and plain")
     check(same == len(leaves), "a gradient differs between kernels and plain")
 
@@ -2740,6 +2763,402 @@ def phase_dense_prefill(cfg, params, dev, plan, prompts) -> dict:
 
 
 # --------------------------------------------------------------------------
+# stochastic rounding: E, B, K8 and K9 under --rounding sr
+# --------------------------------------------------------------------------
+
+E_SR_NAME = "qmatmul_fused(return_quantized, rounding=sr)"
+B_SR_NAME = "qmatmul_bwd_pair(rounding=sr)"
+K8_SR_NAME = "qmatmul_fused(collect_stats, rounding=sr)"
+K9_SR_NAME = "qmatmul_bwd_pair(collect_stats, rounding=sr)"
+
+
+def _sr_counters():
+    """The SR launches of E, B, K8 and K9, counted apart, as
+    ``_counters``."""
+    from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
+    from repro_torch.kernels.fused import qmatmul_fused
+
+    return {E_SR_NAME: (qmatmul_fused, "sr_emitq_launches"),
+            B_SR_NAME: (qmatmul_bwd_pair, "sr_launches"),
+            K8_SR_NAME: (qmatmul_fused, "sr_stats_launches"),
+            K9_SR_NAME: (qmatmul_bwd_pair, "sr_stats_launches")}
+
+
+def _sr_kw(qc):
+    """E's and B's keywords of a layer's QDotConfig under its SR plan: the
+    FWD role seed for E, the BWD and GRAD ones for B (``sr_role_seed``)."""
+    from repro_torch.kernels.ops import sr_role_seed
+
+    ekw = dict(_e_kw(qc), rounding="sr",
+               sr_seed=sr_role_seed(qc.sr_seed, "fwd"))
+    bkw = dict(_b_kw(qc), rounding="sr",
+               sr_seed_bwd=sr_role_seed(qc.sr_seed, "bwd"),
+               sr_seed_grad=sr_role_seed(qc.sr_seed, "grad"))
+    return ekw, bkw
+
+
+def _sr_shape_checks(label, x, w, g, qc) -> float:
+    """E, K8, B and K9 under SR on one layer shape's operands: each bitwise
+    its plain version; K8's C (on the f32 operands and on E's codes)
+    bitwise E's and K9's dx/dw bitwise B's; B's dx and dw bitwise the
+    plain fused call on (g, Q(w)^T) and (Q(x)^T, g) at the role seeds;
+    another seed changes E's C and B's dx and dw.  Returns the max |error|
+    against the plain versions."""
+    from repro_torch.kernels.bwd_pair import (
+        qmatmul_bwd_pair, qmatmul_bwd_pair_reference,
+        qmatmul_bwd_pair_stats_reference)
+    from repro_torch.kernels.fused import (
+        qmatmul_fused, qmatmul_fused_reference, qmatmul_fused_stats_reference)
+    from repro_torch.quant.qtensor import unpack_block
+
+    ekw, bkw = _sr_kw(qc)
+    (_, m_f, _), (eb, mb, bc), (eg, mg, gc) = _roles(qc)
+    e_f = ekw["e_acc"]
+    y, xq, wq = qmatmul_fused(x, w, return_quantized=True, **ekw)
+    ry, rxq, rwq = qmatmul_fused_reference(x, w, return_quantized=True, **ekw)
+    err = compare(f"E sr {label}", y, ry, m_f, e_f, bitwise=True)
+    check(torch.equal(xq, rxq) and torch.equal(wq, rwq),
+          f"E sr {label}: codes differ from pack_block")
+    for what, a, b, kw in (("f32", x, w, ekw),
+                           ("codes", xq, wq, _k8_codes_kw(ekw))):
+        c, row = qmatmul_fused(a, b, collect_stats=True, **kw)
+        pc, prow = qmatmul_fused_stats_reference(a, b, **kw)
+        compare(f"K8 sr {label} {what} vs E", c, y, m_f, e_f, bitwise=True,
+                quiet=True)
+        err = max(err, compare(f"K8 sr {label} {what}", c, pc, m_f, e_f,
+                               bitwise=True),
+                  check_stats(f"K8 sr {label} {what}", row, prow))
+    dx, dw = qmatmul_bwd_pair(g, xq, wq, **bkw)
+    pdx, pdw = qmatmul_bwd_pair_reference(g, xq, wq, **bkw)
+    err = max(err, compare(f"B sr dx {label}", dx, pdx, mb, eb, bitwise=True),
+              compare(f"B sr dw {label}", dw, pdw, mg, eg, bitwise=True))
+    sdx, sdw, rows = qmatmul_bwd_pair(g, xq, wq, collect_stats=True, **bkw)
+    _, _, prows = qmatmul_bwd_pair_stats_reference(g, xq, wq, **bkw)
+    check(torch.equal(sdx, dx) and torch.equal(sdw, dw),
+          f"K9 sr {label}: dx/dw differ from B's")
+    err = max(err, check_stats(f"K9 sr {label}", rows, prows))
+    f = qc.repr_fmt
+    x32, w32 = unpack_block(xq, f.e, f.m), unpack_block(wq, f.e, f.m)
+    fdx = qmatmul_fused_reference(g, w32.T, repr_fmt=f, e_acc=eb, m_acc=mb,
+                                  block_k=bc, rounding="sr",
+                                  sr_seed=bkw["sr_seed_bwd"])
+    fdw = qmatmul_fused_reference(x32.T, g, repr_fmt=f, e_acc=eg, m_acc=mg,
+                                  block_k=gc, rounding="sr",
+                                  sr_seed=bkw["sr_seed_grad"])
+    compare(f"B sr dx {label} vs the fused call on (g, Q(w)^T)", dx, fdx, mb,
+            eb, bitwise=True)
+    compare(f"B sr dw {label} vs the fused call on (Q(x)^T, g)", dw, fdw, mg,
+            eg, bitwise=True)
+    oy = qmatmul_fused(x, w, return_quantized=True,
+                       **dict(ekw, sr_seed=ekw["sr_seed"] + 1))[0]
+    odx, odw = qmatmul_bwd_pair(g, xq, wq, **dict(
+        bkw, sr_seed_bwd=bkw["sr_seed_bwd"] + 1,
+        sr_seed_grad=bkw["sr_seed_grad"] + 1))
+    differ = [not torch.equal(a, b) for a, b in ((oy, y), (odx, dx),
+                                                  (odw, dw))]
+    print(f"  sr {label}: another seed changes E's C, B's dx, B's dw: "
+          f"{differ}", flush=True)
+    check(all(differ), f"sr {label}: another seed left an output unchanged")
+    return err
+
+
+def phase_sr_kernels(dev) -> dict:
+    """E, B, K8 and K9 under SR at one layer's four distinct GEMM shapes of
+    the train cell (T = 512, the plan's chunk 64, the SR plan's role seeds
+    of ``--sr-seed 7``), on random and on lattice operands
+    (``_sr_shape_checks``); then each SR kernel timed by CUDA events beside
+    its RNE run on the same inputs (the ratio and each one's share of the
+    f32-FMA bound), per shape and over one layer's seven calls, with the
+    plain version's time over those seven.  The bound is the RNE kernel's
+    (SR adds integer work only) and SR has no library call."""
+    from repro_torch.kernels.bwd_pair import (
+        qmatmul_bwd_pair, qmatmul_bwd_pair_reference,
+        qmatmul_bwd_pair_stats_reference)
+    from repro_torch.kernels.fused import (
+        qmatmul_fused, qmatmul_fused_reference, qmatmul_fused_stats_reference)
+    from repro_torch.models.api import dense_gemm_shapes
+
+    cfg = _train_cfg(rounding="sr")
+    layer = dense_gemm_shapes(cfg, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH)[1:]
+    t = layer[0][1]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    print(f"[sr] kernels: E, B, K8 and K9 under SR at T={t}, seed "
+          f"{TRAIN_SR_SEED} (role seeds), vs plain and vs each other",
+          flush=True)
+    tensors, err = {}, 0.0
+    for tag, _, k, n, qc in layer:
+        if (k, n) in tensors:
+            continue
+        x = torch.randn((t, k), generator=gen, device=dev)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             / math.sqrt(k)).to(torch.bfloat16)
+        g = torch.randn((t, n), generator=gen, device=dev) / math.sqrt(n)
+        err = max(err, _sr_shape_checks(f"{tag} K={k} N={n} random", x, w,
+                                        g, qc))
+        err = max(err, _sr_shape_checks(
+            f"{tag} K={k} N={n} lattice", _lattice(gen, (t, k), dev),
+            _lattice(gen, (k, n), dev).to(torch.bfloat16),
+            _lattice(gen, (t, n), dev), qc))
+        ekw, _ = _sr_kw(qc)
+        _, xq, wq = qmatmul_fused(x, w, return_quantized=True, **ekw)
+        tensors[(k, n)] = (x, w, g, xq, wq)
+    print("[sr] kernel times, SR beside RNE on the same inputs (ms; share "
+          "of the f32-FMA bound)", flush=True)
+    for (k, n), (x, w, g, xq, wq) in tensors.items():
+        qc = next(q for _, _, kk, nn, q in layer if (kk, nn) == (k, n))
+        ekw, bkw = _sr_kw(qc)
+        rne_e = dict(ekw, rounding="rne")
+        rne_b = dict(bkw, rounding="rne")
+        fb = 4 * t * k * n / F32_FLOPS * 1e3
+        cols = []
+        for name, sr_fn, rne_fn, reps, bound in (
+                ("E", lambda: qmatmul_fused(x, w, return_quantized=True,
+                                            **ekw),
+                 lambda: qmatmul_fused(x, w, return_quantized=True, **rne_e),
+                 10, fb / 2),
+                ("B", lambda: qmatmul_bwd_pair(g, xq, wq, **bkw),
+                 lambda: qmatmul_bwd_pair(g, xq, wq, **rne_b), 5, fb),
+                ("K8", lambda: qmatmul_fused(xq, wq, collect_stats=True,
+                                             **_k8_codes_kw(ekw)),
+                 lambda: qmatmul_fused(xq, wq, collect_stats=True,
+                                       **_k8_codes_kw(rne_e)), 10, fb / 2),
+                ("K9", lambda: qmatmul_bwd_pair(g, xq, wq,
+                                                collect_stats=True, **bkw),
+                 lambda: qmatmul_bwd_pair(g, xq, wq, collect_stats=True,
+                                          **rne_b), 5, fb)):
+            rne_ms = cuda_time(rne_fn, reps=reps)
+            sr_ms = cuda_time(sr_fn, reps=reps)
+            cols.append(f"{name} {sr_ms:.4f} vs {rne_ms:.4f} "
+                        f"({sr_ms / rne_ms:.3f}x; {bound / sr_ms:.3f} vs "
+                        f"{bound / rne_ms:.3f})")
+        print(f"  sr time K={k} N={n}: " + ", ".join(cols), flush=True)
+
+    # one layer's seven calls of each kernel, in layer order
+    calls = [(tensors[(k, n)], qc) for _, _, k, n, qc in layer]
+    costs = {"E": [_e_cost(t, k, n) for _, _, k, n, _ in layer],
+             "B": [_b_cost(t, k, n) for _, _, k, n, _ in layer],
+             "K8": [_k8_cost(t, k, n, True) for _, _, k, n, _ in layer]}
+    costs["K9"] = costs["B"]
+
+    def run(name, rounding, plain=False):
+        for (x, w, g, xq, wq), qc in calls:
+            ekw, bkw = _sr_kw(qc)
+            ekw, bkw = dict(ekw, rounding=rounding), dict(bkw,
+                                                          rounding=rounding)
+            if name == "E":
+                (qmatmul_fused_reference if plain else qmatmul_fused)(
+                    x, w, return_quantized=True, **ekw)
+            elif name == "B":
+                (qmatmul_bwd_pair_reference if plain else qmatmul_bwd_pair)(
+                    g, xq, wq, **bkw)
+            elif name == "K8":
+                kw = _k8_codes_kw(ekw)
+                if plain:
+                    qmatmul_fused_stats_reference(xq, wq, **kw)
+                else:
+                    qmatmul_fused(xq, wq, collect_stats=True, **kw)
+            elif plain:
+                qmatmul_bwd_pair_stats_reference(g, xq, wq, **bkw)
+            else:
+                qmatmul_bwd_pair(g, xq, wq, collect_stats=True, **bkw)
+
+    out = {}
+    for name in ("E", "B", "K8", "K9"):
+        rne_ms = cuda_time(lambda: run(name, "rne"), reps=3, warmup=1)
+        ms = cuda_time(lambda: run(name, "sr"), reps=3, warmup=1)
+        plain = cuda_time(lambda: run(name, "sr", plain=True), reps=1,
+                          warmup=0)
+        b_ms, b_by = seq_bound(costs[name])
+        f_ms = fma_bound(costs[name])
+        print(f"[sr] {name} one layer's {len(calls)} calls (T={t}): SR "
+              f"{ms:.3f} ms, RNE {rne_ms:.3f} ms ({ms / rne_ms:.3f}x), plain "
+              f"(SR) {plain:.1f} ms, bound {b_ms:.4f} ms ({b_by}); f32-FMA "
+              f"bound {f_ms:.3f} ms, SR at {f_ms / ms:.4f} of it, RNE at "
+              f"{f_ms / rne_ms:.4f}", flush=True)
+        out[name] = dict(ms=ms, rne_ms=rne_ms, sr_over_rne=ms / rne_ms,
+                         plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         fma_bound_ms=f_ms, library_ms=None, max_abs_err=err)
+    return out
+
+
+KNEE_K, KNEE_CHUNK, KNEE_STEPS, KNEE_LR = 8192, 32, 30, 2e-4
+
+
+def phase_sr_below_knee(dev) -> dict:
+    """``tests/test_below_knee.py``'s regression at its own size through
+    the port's ``qdot`` on the card: a linear model x[8, 8192] @ w[8192, 8]
+    trained 30 steps at lr 2e-4 (a seed a step under SR) with a (1,6,m)
+    carry every 32 products at ``m_acc = knee - 2``, under RNE and SR,
+    beside the wide (1,8,23) carry.  Checks the JAX gate: RNE stalls (its
+    final loss above 5x the wide one) while SR reaches the wide loss
+    (below 2x it, and below a quarter of RNE's).  Runs E and B under SR."""
+    from repro_torch.core.policy import GEMMPrecision
+    from repro_torch.core.precision import min_m_acc
+    from repro_torch.kernels.ops import QDotConfig, qdot
+    from repro_torch.quant.formats import FP8_152
+
+    knee = min_m_acc(KNEE_K, 5, chunked=True, chunk=KNEE_CHUNK)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.standard_normal((8, KNEE_K)).astype(
+        np.float32)).to(dev)
+    w_true = torch.from_numpy((rng.standard_normal((KNEE_K, 8))
+                               / np.sqrt(KNEE_K)).astype(np.float32)).to(dev)
+    y = x @ w_true
+
+    def cfg(rounding, m_acc, e_acc=6):
+        return QDotConfig(fwd=GEMMPrecision(m_acc=m_acc, e_acc=e_acc,
+                                            chunk=KNEE_CHUNK),
+                          repr_fmt=FP8_152, rounding=rounding)
+
+    def train(c, sr):
+        w = torch.zeros((KNEE_K, 8), device=dev)
+        for s in range(KNEE_STEPS):
+            wl = w.clone().requires_grad_()
+            pred = qdot(x, wl, c, sr_seed=s) if sr else qdot(x, wl, c)
+            torch.mean((pred - y) ** 2).backward()
+            w = w - KNEE_LR * wl.grad
+        with torch.no_grad():
+            pred = qdot(x, w, c, sr_seed=10_000) if sr else qdot(x, w, c)
+            return float(torch.mean((pred - y) ** 2))
+
+    counters = _sr_counters()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    wide = train(cfg("rne", 23, 8), False)
+    rne = train(cfg("rne", knee - 2), False)
+    sr = train(cfg("sr", knee - 2), True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    used = read_counts(counters)
+    print(f"[sr] below-knee: K {KNEE_K}, chunk {KNEE_CHUNK}, 8 x 8, "
+          f"{KNEE_STEPS} steps at lr {KNEE_LR}, m_acc {knee - 2} (knee "
+          f"{knee}): final loss wide {wide:.6f}, RNE {rne:.6f} "
+          f"({rne / wide:.2f}x wide), SR {sr:.6f} ({sr / wide:.3f}x wide, "
+          f"{sr / rne:.3f}x RNE); {secs:.1f} s; SR launches {used}",
+          flush=True)
+    check(rne > 5 * wide, "below-knee: RNE did not stall above 5x wide")
+    check(sr < 2 * wide, "below-knee: SR did not reach 2x the wide loss")
+    check(sr < 0.25 * rne, "below-knee: SR not below a quarter of RNE")
+    check(used[E_SR_NAME] > 0 and used[B_SR_NAME] > 0,
+          "below-knee: E or B launched no SR carry")
+    return dict(wide=wide, rne=rne, sr=sr, launches=used)
+
+
+def phase_train_sr(dev, rne_step_ms: float) -> dict:
+    """The train cell under ``--rounding sr --sr-seed 7 --policy perturbed
+    --pp -2`` (every quantized width 2 bits under the predicted plan) at
+    full width and depth through the launcher's set-up: 6 steps of 8 x 64
+    tokens with the eager telemetry tick every 2 steps (K8 under SR on the
+    synthetic layer roles) and step 5 as the in-graph tagged step (K9
+    under SR).  The loss must fall; launches are checked each step (a
+    step's E and B under SR, the lm_head's G and B under RNE); prints the
+    steady step against the RNE run's."""
+    from repro_torch.launch.train import build, build_telemetry
+    from repro_torch.models.api import dense_gemm_shapes
+    from repro_torch.obs.ingraph import InGraphTelemetry
+    from repro_torch.train.loop import make_train_step, run_telemetry_tick
+
+    args = _train_args("--telemetry-cadence", str(TELEMETRY_CADENCE),
+                       "--rounding", "sr", "--sr-seed", str(TRAIN_SR_SEED),
+                       "--policy", "perturbed", "--pp", "-2")
+    TELEMETRY_LOG.unlink(missing_ok=True)
+    torch.cuda.reset_peak_memory_stats()
+    model, tc, state, data, _ = build(args)
+    controller, _ = build_telemetry(args, tc)
+    ingraph = InGraphTelemetry(controller, tc, seq_len=args.seq_len,
+                               global_batch=args.global_batch)
+    cfg = model.cfg
+    n = (len(dense_gemm_shapes(cfg, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH)) - 1) * cfg.n_layers
+    counters = {**_train_counters(), **_sr_counters()}
+    zero = {k: 0 for k in counters}
+    want_step = dict(zero, **{E_SR_NAME: n, B_SR_NAME: n,
+                              "qmatmul_fused": 1, "qmatmul_bwd_pair": 1})
+    # the probe's forward (E under SR, G on the lm_head), K8 under SR on
+    # the 7 layer tags' 3 roles and under RNE on the lm_head's 3
+    want_tick = dict(zero, **{E_SR_NAME: n, "qmatmul_fused": 1,
+                              K8_SR_NAME: 21, K8_NAME: 3})
+    want_tagged = dict(zero, **{E_SR_NAME: n, "qmatmul_fused": 1,
+                                K9_SR_NAME: n, K9_NAME: 1, K8_SR_NAME: n,
+                                K8_NAME: 1})
+    print(f"[train] sr: {cfg.name} {cfg.n_layers} layers, --rounding sr "
+          f"--sr-seed {TRAIN_SR_SEED} --policy perturbed --pp -2, batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_STEPS} steps, eager tick "
+          f"every {TELEMETRY_CADENCE} steps, step 5 in-graph", flush=True)
+    losses, step_ms, total = [], [], dict(zero)
+    step_fn = make_train_step(model, tc)
+    for step in range(TRAIN_STEPS):
+        batch = next(data)
+        tagged = step + 1 == 5
+        if tagged:
+            ingraph.stats_step(model)   # built outside the clock
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if tagged:
+            state, m, events, new_model = ingraph.tick(model, state, batch,
+                                                       step=step + 1)
+        else:
+            state, m = step_fn(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        per = read_counts(counters)
+        losses.append(loss)
+        if not tagged:
+            step_ms.append(dt)
+        want = want_tagged if tagged else want_step
+        print(f"[train] sr step {step + 1}{' (in-graph)' if tagged else ''}"
+              f": loss {loss:.5f}, {dt:.1f} ms, launches "
+              f"{ {k: v for k, v in per.items() if v} }", flush=True)
+        check(per == want, f"sr step {step + 1}: launches {per} != {want}")
+        for k, v in per.items():
+            total[k] += v
+        if tagged and new_model is not None:
+            model = new_model
+            step_fn = make_train_step(model, tc)
+        if controller.due(step + 1):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(args.seed * 1000003 + step + 1)
+            zero_counts(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            events, new_model = run_telemetry_tick(
+                controller, model, state, batch, step=step + 1, gen=gen,
+                seq_len=args.seq_len, global_batch=args.global_batch)
+            torch.cuda.synchronize()
+            per = read_counts(counters)
+            acts = [(e["gemm"], e["role"], e["event"], e["m_acc"],
+                     e["rounding"]) for e in events if e["event"] != "ok"]
+            print(f"[train] sr telemetry tick at step {step + 1}: "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms, "
+                  f"{len(events)} verdicts, actions {acts}, launches "
+                  f"{ {k: v for k, v in per.items() if v} }", flush=True)
+            check(per == want_tick, f"sr tick launches {per} != {want_tick}")
+            check({e["rounding"] for e in events} == {"rne", "sr"},
+                  "sr tick: the probes' rounding is not the plan's")
+            for k, v in per.items():
+                total[k] += v
+            if new_model is not None:
+                model = new_model
+                step_fn = make_train_step(model, tc)
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"sr: loss did not fall: {losses}")
+    steady = min(step_ms[1:])
+    print(f"[train] sr: {TRAIN_STEPS} steps, loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}; steady step {steady:.1f} ms against the RNE "
+          f"run's {rne_step_ms:.1f} ms ({steady / rne_step_ms:.3f}x); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"schedule {controller.to_meta()}; SR launches "
+          f"{ {k: total[k] for k in _sr_counters()} }", flush=True)
+    for k in _sr_counters():
+        check(total[k] > 0, f"sr: {k} was not launched by the trainer")
+    del state
+    return dict(launches=total, losses=losses, step_ms=steady)
+
+
+# --------------------------------------------------------------------------
 # the paper's analysis: the Monte Carlo of swamping, Table 1
 # --------------------------------------------------------------------------
 
@@ -3112,6 +3531,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_train_replan(dev)
     torch.cuda.empty_cache()
+    sk = phase_sr_kernels(dev)
+    torch.cuda.empty_cache()
+    phase_sr_below_knee(dev)
+    ts = phase_train_sr(dev, min(tr["step_ms"][1:]))
+    torch.cuda.empty_cache()
+    phase_train_vs_plain(dev, rounding="sr")
+    torch.cuda.empty_cache()
     phase_analysis(dev)
     torch.cuda.empty_cache()
     phase_ckpt(dev)
@@ -3176,6 +3602,24 @@ def main() -> None:
              source="src/repro_torch/csrc/flash_prefill.cu",
              replaces="src/repro/kernels/attention.py:258",
              launches=dp.pop("launches"), **dp),
+        # the SR carries of E, B, K8 and K9 (the tile's SR instantiations),
+        # launched over the [train] sr run; timed over one layer's calls
+        dict(name=E_SR_NAME, route="cuda",
+             source="src/repro_torch/csrc/qgemm_emitq.cu",
+             replaces="src/repro/kernels/fused.py:136",
+             launches=ts["launches"][E_SR_NAME], **sk["E"]),
+        dict(name=B_SR_NAME, route="cuda",
+             source="src/repro_torch/csrc/bwd_pair.cu",
+             replaces="src/repro/kernels/bwd_pair.py:96",
+             launches=ts["launches"][B_SR_NAME], **sk["B"]),
+        dict(name=K8_SR_NAME, route="cuda",
+             source="src/repro_torch/csrc/qgemm_stats.cu",
+             replaces="src/repro/kernels/fused.py:174",
+             launches=ts["launches"][K8_SR_NAME], **sk["K8"]),
+        dict(name=K9_SR_NAME, route="cuda",
+             source="src/repro_torch/csrc/bwd_pair.cu",
+             replaces="src/repro/kernels/bwd_pair.py:214",
+             launches=ts["launches"][K9_SR_NAME], **sk["K9"]),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

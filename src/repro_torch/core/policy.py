@@ -36,7 +36,12 @@ class AccumulationPolicy:
     """``mode="exact"``: native wide accumulation everywhere.
     ``mode="predicted"``: the solver's narrowest suitable width (PP = 0).
     ``mode="perturbed"``: the solver's width plus ``perturbation`` bits
-    (negative = fewer), clamped to [1, M_ACC_CARRIER]."""
+    (negative = fewer), clamped to [1, M_ACC_CARRIER].
+
+    ``rounding`` is the carry rounding of every solver-assigned GEMM:
+    ``"rne"`` (the paper's round to nearest) or ``"sr"`` (stochastic
+    rounding seeded by ``sr_seed``, the below-the-knee mode); the lm_head's
+    fixed 16-bit carry stays RNE."""
 
     mode: str = "exact"
     m_p: int = 5          # (1,5,2) x (1,5,2) products carry 5 mantissa bits
@@ -44,6 +49,8 @@ class AccumulationPolicy:
     perturbation: int = 0
     nzr: float = 1.0
     e_acc: int = 6
+    rounding: str = "rne"
+    sr_seed: int = 0
 
     # the narrow carry lives in an f32 register: its mantissa cannot be
     # wider than f32's 23 bits
@@ -85,7 +92,8 @@ def plan_for_model(cfg, *, seq_len: int, global_batch: int,
             fwd=policy.for_length(fan_in),
             bwd=policy.for_length(fan_out),
             grad=policy.for_length(int(tokens * policy.nzr) or 1),
-            repr_fmt=FP8_152)
+            repr_fmt=FP8_152, rounding=policy.rounding,
+            sr_seed=policy.sr_seed)
 
     d, dh = cfg.d_model, cfg.head_dim
     qkv_out = (cfg.n_heads + 2 * cfg.n_kv_heads) * dh

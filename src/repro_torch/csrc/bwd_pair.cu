@@ -34,6 +34,14 @@
 // together fill the card.  The groups come from the chunk count of the
 // longer role (kernels/sm90.py); one launch, one block size.
 //
+// Under stochastic rounding (sr) each role's fold dithers its carry
+// (qgemm_sm90.cuh): dx under seed_bwd at its (t, k) output of N = K columns
+// and its N-chunk, dw under seed_grad at its (k, n) output and its
+// T-chunk, so dx is bitwise the fused GEMM of Q(g) and w^T under seed_bwd,
+// and dw that of x^T and Q(g) under seed_grad (repro/kernels/bwd_pair.py's
+// contract).  The dx carry-in entry takes no SR: its dither would key on
+// the global N chunk and dw column, an offset the entry does not take.
+//
 // bwd_pair_stats is the swamping-telemetry variant (K9, replacing
 // ::_pair_kernel_stats): the same pair grid on the same tile with its STATS
 // shadow carries, so dx and dw are bitwise B's, plus a (2, N_STATS) f32
@@ -69,41 +77,41 @@ __host__ __device__ constexpr int pair_stage() {
 }
 
 // The block's role and tile; with STATS its partial row goes to part[b].
-template <typename TX, typename TW, typename TG, bool STATS>
+template <typename TX, typename TW, typename TG, bool STATS, bool SR>
 __device__ __forceinline__ void pair_tile(const Pair& p, unsigned char* smem, double* part) {
   constexpr int STAGE = pair_stage<TX, TW, TG>();
   const int b = blockIdx.x;
   double* row = STATS ? part + (long long)b * N_STATS : nullptr;
   if (b < p.dx_blocks) {
-    sm90::block_tile<TG, TW, STAGE, STATS>(p.dx, (b / p.dx_tiles_n) * TILE,
-                                           (b % p.dx_tiles_n) * TILE, smem, row);
+    sm90::block_tile<TG, TW, STAGE, STATS, SR>(p.dx, (b / p.dx_tiles_n) * TILE,
+                                               (b % p.dx_tiles_n) * TILE, smem, row);
   } else {
     const int d = b - p.dx_blocks;
-    sm90::block_tile<TX, TG, STAGE, STATS>(p.dw, (d / p.dw_tiles_n) * TILE,
-                                           (d % p.dw_tiles_n) * TILE, smem, row);
+    sm90::block_tile<TX, TG, STAGE, STATS, SR>(p.dw, (d / p.dw_tiles_n) * TILE,
+                                               (d % p.dw_tiles_n) * TILE, smem, row);
   }
 }
 
-template <typename TX, typename TW, typename TG>
+template <typename TX, typename TW, typename TG, bool SR>
 __global__ void __launch_bounds__(4 * sm90::GT, 2) bwd_pair_kernel(Pair p, double*) {
   extern __shared__ __align__(16) unsigned char smem[];
-  pair_tile<TX, TW, TG, false>(p, smem, nullptr);
+  pair_tile<TX, TW, TG, false, SR>(p, smem, nullptr);
 }
 
-template <typename TX, typename TW, typename TG>
+template <typename TX, typename TW, typename TG, bool SR>
 __global__ void __launch_bounds__(4 * sm90::GT, 2) bwd_pair_stats_kernel(Pair p, double* part) {
   extern __shared__ __align__(16) unsigned char smem[];
-  pair_tile<TX, TW, TG, true>(p, smem, part);
+  pair_tile<TX, TW, TG, true, SR>(p, smem, part);
 }
 
 using PairKernel = void (*)(Pair, double*);
 
-template <typename TX, typename TW, typename TG, bool STATS>
+template <typename TX, typename TW, typename TG, bool STATS, bool SR = false>
 PairKernel pair_kernel() {
   if constexpr (STATS)
-    return bwd_pair_stats_kernel<TX, TW, TG>;
+    return bwd_pair_stats_kernel<TX, TW, TG, SR>;
   else
-    return bwd_pair_kernel<TX, TW, TG>;
+    return bwd_pair_kernel<TX, TW, TG, SR>;
 }
 
 // g's representation once a call: gq = Q(g) as bf16 (exact: a format of at
@@ -133,24 +141,27 @@ int pair_smem(int groups) {
   return sm90::smem_bytes(pair_stage<TX, TW, TG>(), groups, STATS);
 }
 
-template <typename TX, typename TW, typename TG, bool STATS>
+template <typename TX, typename TW, typename TG, bool STATS, bool SR = false>
 int set_smem(int groups) {
-  return static_cast<int>(cudaFuncSetAttribute(pair_kernel<TX, TW, TG, STATS>(),
+  return static_cast<int>(cudaFuncSetAttribute(pair_kernel<TX, TW, TG, STATS, SR>(),
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                pair_smem<TX, TW, TG, STATS>(groups)));
 }
 
 // TG bf16: g goes through quantize_g_kernel into gq first; TG float: g is
 // read as it is and quantized on landing where quant_g.  STATS (K9): each
-// block's partial row into part, then the two rows into stats.
-template <typename TX, typename TW, typename TG, bool STATS>
+// block's partial row into part, then the two rows into stats.  SR: dx's
+// carry dithered under seed_bwd, dw's under seed_grad.
+template <typename TX, typename TW, typename TG, bool STATS, bool SR>
 int launch(const float* g, long long sgt, long long sgn, const void* x,
            long long sxt, long long sxk, const void* w, long long swk,
            long long swn, const float* dx_carry, float* dx, float* dw, int T,
            int K, int N, int bwd_chunk, int grad_chunk, sm90::Quant qr, int quant_g,
            sm90::Dec dec, sm90::Quant qbwd, sm90::Quant qgrad, int groups,
-           __nv_bfloat16* gq, double* part, float* stats, cudaStream_t s) {
+           unsigned seed_bwd, unsigned seed_grad, __nv_bfloat16* gq, double* part,
+           float* stats, cudaStream_t s) {
   if (!valid_groups(groups)) return static_cast<int>(cudaErrorInvalidValue);
+  if (SR && dx_carry != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = pair_blocks(T, K, N);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const void* G = g;
@@ -170,17 +181,17 @@ int launch(const float* g, long long sgt, long long sgn, const void* x,
   // (k = n, n = k)
   p.dx = sm90::Gemm{sm90::operand(G, sizeof(TG), sgt, sgn, T, bwd_chunk, quant_g),
                     sm90::operand(w, sizeof(TW), swk, swn, K, bwd_chunk, 0),
-                    dx, K, dx_carry, T, K, N, bwd_chunk, qr, qbwd, dec};
+                    dx, K, dx_carry, T, K, N, bwd_chunk, qr, qbwd, dec, seed_bwd};
   // dw[k, n] = sum_t x[t, k] g[t, n]: A = x^T (m = k, k = t), B = g
   p.dw = sm90::Gemm{sm90::operand(x, sizeof(TX), sxk, sxt, K, grad_chunk, 0),
                     sm90::operand(G, sizeof(TG), sgn, sgt, N, grad_chunk, quant_g),
-                    dw, N, nullptr, K, N, T, grad_chunk, qr, qgrad, dec};
+                    dw, N, nullptr, K, N, T, grad_chunk, qr, qgrad, dec, seed_grad};
   p.dx_tiles_n = (K + TILE - 1) / TILE;
   p.dx_blocks = ((T + TILE - 1) / TILE) * p.dx_tiles_n;
   p.dw_tiles_n = (N + TILE - 1) / TILE;
-  int rc = set_smem<TX, TW, TG, STATS>(groups);
+  int rc = set_smem<TX, TW, TG, STATS, SR>(groups);
   if (rc != 0) return rc;
-  const PairKernel kernel = pair_kernel<TX, TW, TG, STATS>();
+  const PairKernel kernel = pair_kernel<TX, TW, TG, STATS, SR>();
   kernel<<<(unsigned)blocks, groups * sm90::GT, pair_smem<TX, TW, TG, STATS>(groups), s>>>(
       p, part);
   rc = static_cast<int>(cudaGetLastError());
@@ -221,6 +232,8 @@ int by_kinds(int x_kind, int w_kind, int g_kind, F f) {
 struct Call {
   sm90::Quant qr, qbwd, qgrad;
   sm90::Dec dec;
+  int sr;
+  unsigned seed_bwd, seed_grad;
   __nv_bfloat16* gq;
   cudaStream_t s;
 };
@@ -233,19 +246,26 @@ int run(const void* g, long long sgt, long long sgn, const void* x, int x_kind,
         void* part, void* stats) {
   if (c.gq != nullptr && !quant_g) return static_cast<int>(cudaErrorInvalidValue);
   return by_kinds(x_kind, w_kind, c.gq != nullptr, [&](auto tx, auto tw, auto tg) {
-    return launch<decltype(tx), decltype(tw), decltype(tg), STATS>(
-        static_cast<const float*>(g), sgt, sgn, x, sxt, sxk, w, swk, swn,
-        static_cast<const float*>(dx_carry), static_cast<float*>(dx),
-        static_cast<float*>(dw), T, K, N, bwd_chunk, grad_chunk, c.qr, quant_g, c.dec,
-        c.qbwd, c.qgrad, groups, c.gq, static_cast<double*>(part),
-        static_cast<float*>(stats), c.s);
+    using TX = decltype(tx);
+    using TW = decltype(tw);
+    using TG = decltype(tg);
+    auto go = [&](auto sr) {
+      return launch<TX, TW, TG, STATS, decltype(sr)::value>(
+          static_cast<const float*>(g), sgt, sgn, x, sxt, sxk, w, swk, swn,
+          static_cast<const float*>(dx_carry), static_cast<float*>(dx),
+          static_cast<float*>(dw), T, K, N, bwd_chunk, grad_chunk, c.qr, quant_g, c.dec,
+          c.qbwd, c.qgrad, groups, c.seed_bwd, c.seed_grad, c.gq,
+          static_cast<double*>(part), static_cast<float*>(stats), c.s);
+    };
+    return c.sr ? go(std::true_type{}) : go(std::false_type{});
   });
 }
 
-Call call_of(int e_r, int m_r, QFmt qr, QFmt qbwd, QFmt qgrad, void* gq, void* stream) {
+Call call_of(int e_r, int m_r, QFmt qr, QFmt qbwd, QFmt qgrad, int sr, unsigned seed_bwd,
+             unsigned seed_grad, void* gq, void* stream) {
   return Call{sm90::quant_of(qr), sm90::quant_of(qbwd), sm90::quant_of(qgrad),
-              sm90::dec_of(e_r, m_r), static_cast<__nv_bfloat16*>(gq),
-              static_cast<cudaStream_t>(stream)};
+              sm90::dec_of(e_r, m_r), sr, seed_bwd, seed_grad,
+              static_cast<__nv_bfloat16*>(gq), static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
@@ -254,8 +274,9 @@ Call call_of(int e_r, int m_r, QFmt qr, QFmt qbwd, QFmt qgrad, void* gq, void* s
 // is [T, K] row-major or null.  x_kind / w_kind: 0 f32, 1 bf16, 2 int8
 // codes of (1, e_r, m_r).  gq: null (g read as f32), or a [T, N] bf16
 // scratch that takes Q(g) first (quant_g with m_r <= 7).  groups: chunk
-// groups a block (1, 2 or 4; kernels/sm90.py picks them).  Returns the
-// cudaError_t of the launches.
+// groups a block (1, 2 or 4; kernels/sm90.py picks them).  sr: stochastic
+// rounding of both carries, dx's dithered under seed_bwd and dw's under
+// seed_grad (no dx_carry then).  Returns the cudaError_t of the launches.
 extern "C" int bwd_pair(const void* g, long long sgt, long long sgn,
                         const void* x, int x_kind, long long sxt,
                         long long sxk, const void* w, int w_kind,
@@ -265,19 +286,21 @@ extern "C" int bwd_pair(const void* g, long long sgt, long long sgn,
                         int r_identity, int r_shift, float r_max, float r_min,
                         int quant_g, int b_identity, int b_shift, float b_max,
                         float b_min, int w_identity, int w_shift,
-                        float w_max, float w_min, int groups, void* gq,
+                        float w_max, float w_min, int groups, int sr,
+                        unsigned seed_bwd, unsigned seed_grad, void* gq,
                         void* stream) {
   const Call c = call_of(e_r, m_r, QFmt{r_identity, r_shift, r_max, r_min},
                          QFmt{b_identity, b_shift, b_max, b_min},
-                         QFmt{w_identity, w_shift, w_max, w_min}, gq, stream);
+                         QFmt{w_identity, w_shift, w_max, w_min}, sr, seed_bwd,
+                         seed_grad, gq, stream);
   return run<false>(g, sgt, sgn, x, x_kind, sxt, sxk, w, w_kind, swk, swn, dx_carry, dx,
                     dw, T, K, N, bwd_chunk, grad_chunk, quant_g, groups, c, nullptr,
                     nullptr);
 }
 
-// K9: bwd_pair (no carry in) plus stats [2, N_STATS] f32: row 0 dx (BWD),
-// row 1 dw (GRAD); part holds bwd_pair_stats_blocks(T, K, N) rows of
-// N_STATS doubles.
+// K9: bwd_pair (no carry in; sr and the seeds as there) plus stats
+// [2, N_STATS] f32: row 0 dx (BWD), row 1 dw (GRAD); part holds
+// bwd_pair_stats_blocks(T, K, N) rows of N_STATS doubles.
 extern "C" int bwd_pair_stats(const void* g, long long sgt, long long sgn,
                               const void* x, int x_kind, long long sxt,
                               long long sxk, const void* w, int w_kind,
@@ -288,11 +311,13 @@ extern "C" int bwd_pair_stats(const void* g, long long sgt, long long sgn,
                               float r_min, int quant_g, int b_identity,
                               int b_shift, float b_max, float b_min,
                               int w_identity, int w_shift, float w_max,
-                              float w_min, int groups, void* gq, void* part,
-                              void* stats, void* stream) {
+                              float w_min, int groups, int sr,
+                              unsigned seed_bwd, unsigned seed_grad, void* gq,
+                              void* part, void* stats, void* stream) {
   const Call c = call_of(e_r, m_r, QFmt{r_identity, r_shift, r_max, r_min},
                          QFmt{b_identity, b_shift, b_max, b_min},
-                         QFmt{w_identity, w_shift, w_max, w_min}, gq, stream);
+                         QFmt{w_identity, w_shift, w_max, w_min}, sr, seed_bwd,
+                         seed_grad, gq, stream);
   return run<true>(g, sgt, sgn, x, x_kind, sxt, sxk, w, w_kind, swk, swn, nullptr, dx, dw,
                    T, K, N, bwd_chunk, grad_chunk, quant_g, groups, c, part, stats);
 }

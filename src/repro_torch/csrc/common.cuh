@@ -1,8 +1,9 @@
 // Device helpers shared by the Hopper kernels of repro_torch.
 //
-// Counterparts of repro/kernels/common.py::quantize_block (RNE branch),
-// repro/quant/qtensor.py::unpack_block and the online-softmax constants of
-// repro/kernels/attention.py.  Built without --use_fast_math and with
+// Counterparts of repro/kernels/common.py::quantize_block, its
+// stochastic-rounding quantize_block_sr and the Threefry-2x32 dither
+// (threefry2x32, sr_random_bits), repro/quant/qtensor.py::unpack_block and
+// the online-softmax constants of repro/kernels/attention.py.  Built without --use_fast_math and with
 // --fmad=false, so every rounding below is the IEEE one the plain PyTorch
 // versions perform.
 #pragma once
@@ -30,6 +31,51 @@ __device__ __forceinline__ float quantize_rne(float x, const QFmt q) {
   if (q.shift > 0) {
     const unsigned lsb = (xi >> q.shift) & 1u;
     xi = (xi + ((1u << (q.shift - 1)) - 1u + lsb)) & ~((1u << q.shift) - 1u);
+  }
+  float y = __uint_as_float(xi);
+  if (isinf(x)) y = q.maxv;
+  y = fminf(y, q.maxv);
+  if (y < q.minn) y = 0.0f;
+  if (signbit(x)) y = -y;
+  return isnan(x) ? x : y;
+}
+
+// The 20-round Threefry-2x32 block on uint32 words: (key, counter) -> two
+// words, every add mod 2^32 (repro/kernels/common.py::threefry2x32).
+__device__ __forceinline__ uint2 threefry2x32(unsigned k0, unsigned k1, unsigned c0,
+                                              unsigned c1) {
+  const unsigned ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  unsigned x0 = c0 + ks[0], x1 = c1 + ks[1];
+#pragma unroll
+  for (int g = 0; g < 5; ++g) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      x0 += x1;
+      x1 = __funnelshift_l(x1, x1, rot[g % 2][r]) ^ x0;
+    }
+    x0 += ks[(g + 1) % 3];
+    x1 += ks[(g + 2) % 3] + (unsigned)(g + 1);
+  }
+  return make_uint2(x0, x1);
+}
+
+// The stochastic-rounding dither of the output with flat logical index
+// `flat` (row * n_cols + col, mod 2^32) at chunk `step`: key (seed, seed ^
+// 0x9E3779B9), counter (flat, step), the first word (sr_random_bits).
+__device__ __forceinline__ unsigned sr_bits(unsigned seed, unsigned step, unsigned flat) {
+  return threefry2x32(seed, seed ^ 0x9E3779B9u, flat, step).x;
+}
+
+// (1, e, m) stochastic rounding: the dither's low 23 - m bits added to the
+// magnitude's bits, then the dropped bits truncated; saturation, flush to
+// zero, the sign and NaN as quantize_rne (quantize_block_sr).
+__device__ __forceinline__ float quantize_sr(float x, const QFmt q, unsigned bits) {
+  if (q.identity) return x;
+  unsigned xi = __float_as_uint(x) & 0x7fffffffu;
+  if (q.shift > 0) {
+    const unsigned low = (1u << q.shift) - 1u;
+    xi = (xi + (bits & low)) & ~low;
   }
   float y = __uint_as_float(xi);
   if (isinf(x)) y = q.maxv;

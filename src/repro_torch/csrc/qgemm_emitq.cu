@@ -1,10 +1,13 @@
 // E on Hopper: the training forward, the fused quantized GEMM that also
 // emits the int8 codes of both quantized operands for the backward.
 //
-// Replaces repro/kernels/fused.py::_fused_kernel_emitq (RNE carry):
+// Replaces repro/kernels/fused.py::_fused_kernel_emitq (RNE and SR carry):
 // C[M, N] = sum over chunks of K of carry = q_acc(carry + Q(A_c) . Q(B_c)),
 // chunk = the plan's n1, plus Aq [M, K] and Bq [K, N], the codes of Q(A) and
-// Q(B) in row-major order (quant/qtensor.py's layout).
+// Q(B) in row-major order (quant/qtensor.py's layout).  Under stochastic
+// rounding (sr, seed) the tile's fold dithers each carry update
+// (qgemm_sm90.cuh); the quantize-and-pack pass is the same, since SR
+// touches only the carries.
 //
 // Two launches a call:
 // * quantize_pack_kernel, a grid-stride pass over A and B read once
@@ -121,26 +124,28 @@ __global__ void __launch_bounds__(256) quantize_pack_kernel(Pack a, Pack b, sm90
     pack<TB>(b, q, e, m);
 }
 
+template <bool SR>
 __global__ void __launch_bounds__(4 * sm90::GT, 2) qgemm_emitq_kernel(sm90::Gemm p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sm90::block_tile<bf, bf, STAGE, false>(p, blockIdx.y * TILE, blockIdx.x * TILE, smem,
-                                         nullptr);
+  sm90::block_tile<bf, bf, STAGE, false, SR>(p, blockIdx.y * TILE, blockIdx.x * TILE, smem,
+                                             nullptr);
 }
 
 bool valid_groups(int groups) { return groups == 1 || groups == 2 || groups == 4; }
 
 int gemm_smem(int groups) { return sm90::smem_bytes(STAGE, groups, false); }
 
+template <bool SR>
 int set_smem(int groups) {
   return static_cast<int>(cudaFuncSetAttribute(
-      qgemm_emitq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gemm_smem(groups)));
+      qgemm_emitq_kernel<SR>, cudaFuncAttributeMaxDynamicSharedMemorySize, gemm_smem(groups)));
 }
 
 template <typename TA, typename TB>
 int launch(const void* A, long long sam, long long sak, const void* B, long long sbk,
            long long sbn, float* C, int M, int N, int K, int chunk, int e_r, int m_r,
-           QFmt qr, QFmt qacc, int groups, int8_t* Aq, int8_t* Bq, bf* QA, bf* QB,
-           cudaStream_t s) {
+           QFmt qr, QFmt qacc, int groups, int sr, unsigned seed, int8_t* Aq,
+           int8_t* Bq, bf* QA, bf* QB, cudaStream_t s) {
   if (!valid_groups(groups)) return static_cast<int>(cudaErrorInvalidValue);
   const sm90::Quant q = sm90::quant_of(qr);
   const Pack pa = pack_of<TA>(A, sam, sak, M, K, Aq, QA);
@@ -154,11 +159,14 @@ int launch(const void* A, long long sam, long long sak, const void* B, long long
   const sm90::Gemm p{sm90::operand(QA, 2, K, 1, M, chunk, 0),
                      sm90::operand(QB, 2, 1, N, N, chunk, 0),
                      C, N, nullptr, M, N, K, chunk, q, sm90::quant_of(qacc),
-                     sm90::dec_of(e_r, m_r)};
-  rc = set_smem(groups);
+                     sm90::dec_of(e_r, m_r), seed};
+  rc = sr ? set_smem<true>(groups) : set_smem<false>(groups);
   if (rc != 0) return rc;
   dim3 grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE);
-  qgemm_emitq_kernel<<<grid, groups * sm90::GT, gemm_smem(groups), s>>>(p);
+  if (sr)
+    qgemm_emitq_kernel<true><<<grid, groups * sm90::GT, gemm_smem(groups), s>>>(p);
+  else
+    qgemm_emitq_kernel<false><<<grid, groups * sm90::GT, gemm_smem(groups), s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -170,26 +178,27 @@ int launch(const void* A, long long sam, long long sak, const void* B, long long
 extern "C" int qgemm_emitq_smem(int groups) { return gemm_smem(groups); }
 extern "C" int qgemm_emitq_occupancy(int groups) {
   if (!valid_groups(groups)) return -static_cast<int>(cudaErrorInvalidValue);
-  int rc = set_smem(groups);
+  int rc = set_smem<false>(groups);
   int n = 0;
   if (rc == 0)
     rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, qgemm_emitq_kernel, groups * sm90::GT, gemm_smem(groups)));
+        &n, qgemm_emitq_kernel<false>, groups * sm90::GT, gemm_smem(groups)));
   return rc != 0 ? -rc : n;
 }
 
 // E.  a_bf16 / b_bf16: the operand is bf16, else f32; strides in elements.
 // C [M, N] f32, Aq [M, K] and Bq [K, N] int8 codes of (1, e_r, m_r), all
 // row-major; QA [M, K] and QB [K, N] bf16 scratches; groups: chunk groups a
-// block (1, 2 or 4; kernels/sm90.py picks them).  Returns the cudaError_t
-// of the launches.
+// block (1, 2 or 4; kernels/sm90.py picks them); sr: stochastic rounding of
+// the carry, dithered under seed.  Returns the cudaError_t of the
+// launches.
 extern "C" int qgemm_emitq(const void* A, int a_bf16, long long sam, long long sak,
                            const void* B, int b_bf16, long long sbk, long long sbn,
                            void* C, int M, int N, int K, int chunk, int e_r, int m_r,
                            int r_identity, int r_shift, float r_max, float r_min,
                            int c_identity, int c_shift, float c_max, float c_min,
-                           int groups, void* Aq, void* Bq, void* QA, void* QB,
-                           void* stream) {
+                           int groups, int sr, unsigned seed, void* Aq, void* Bq,
+                           void* QA, void* QB, void* stream) {
   const QFmt qr{r_identity, r_shift, r_max, r_min};
   const QFmt qacc{c_identity, c_shift, c_max, c_min};
   float* out = static_cast<float*>(C);
@@ -199,7 +208,7 @@ extern "C" int qgemm_emitq(const void* A, int a_bf16, long long sam, long long s
   bf* qb = static_cast<bf*>(QB);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define EMITQ_ARGS A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, e_r, m_r, qr, qacc, groups, \
-                   aq, bq, qa, qb, s
+                   sr, seed, aq, bq, qa, qb, s
   if (a_bf16 && b_bf16) return launch<bf, bf>(EMITQ_ARGS);
   if (a_bf16) return launch<bf, float>(EMITQ_ARGS);
   if (b_bf16) return launch<float, bf>(EMITQ_ARGS);

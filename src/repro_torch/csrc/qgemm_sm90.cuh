@@ -44,6 +44,17 @@
 //   (a base or row pitch off 16 bytes, a chunk that cuts a piece, neither
 //   stride 1) is staged element by element instead, into the same layout.
 //
+// Stochastic rounding (the SR template flag of block_tile; E, K8, B and K9
+// instantiate both): the fold rounds carry + partial with quant_sr and the
+// dither sr_bits(seed, c, (m0 + r) * N + n0 + col) of common.cuh, c the
+// chunk's index in the K walk (the global one: under chunk groups, group g
+// folds chunks g, g + G, ...), N the output's column count, every product
+// mod 2^32 as the JAX package's uint32 arithmetic.  The dither depends on
+// the output element and the chunk only, so every tile, group count and
+// kernel variant of one GEMM draws the same bits.  The Threefry rounds run
+// in the fold, once a chunk an output, outside the FMA loop; the RNE
+// instantiations are the same code as without the flag.
+//
 // Transposed views (w^T in dx, x^T in dw, the tied lm_head's embed.T) are
 // read through their strides: the ring keeps each operand along whichever
 // of its axes is contiguous in memory, and the decode transposes.  The
@@ -101,6 +112,7 @@ struct Gemm {
   int M, N, K, chunk;
   Quant qr, qacc;
   Dec dec;
+  unsigned seed = 0;  // the SR dither's seed (SR instantiations only)
 };
 
 // Bytes of one ring step (A's and B's raw tiles), the ring's depth, and the
@@ -162,6 +174,20 @@ __device__ __forceinline__ float quant(float x, const Quant& q) {
   float y = fminf(__uint_as_float(r), q.maxv);
   y = y < q.minn ? 0.0f : y;
   y = __uint_as_float(__float_as_uint(y) | (xb & 0x80000000u));
+  y = isnan(x) ? x : y;
+  return q.identity ? x : y;
+}
+
+// quantize_sr (common.cuh), branch-free as quant: the dither's bits below
+// the kept mantissa (~mask; none for an exact mantissa) are added to the
+// magnitude, then dropped.
+__device__ __forceinline__ float quant_sr(float x, const Quant& q, unsigned bits) {
+  const unsigned sign = __float_as_uint(x) & 0x80000000u;
+  const unsigned mag = __float_as_uint(x) & 0x7fffffffu;
+  const unsigned r = (mag + (bits & ~q.mask)) & q.mask;
+  float y = fminf(__uint_as_float(r), q.maxv);
+  y = y < q.minn ? 0.0f : y;
+  y = __uint_as_float(__float_as_uint(y) | sign);
   y = isnan(x) ? x : y;
   return q.identity ? x : y;
 }
@@ -355,11 +381,13 @@ struct Counts {
 // thread at a time, so that the fold is a rolled loop (small code, as the
 // FMA loop).  rows / cols: bit i of rows (bit h * 4 + j of cols) is set
 // where the thread's output row i (column h * 32 + tx * 4 + j) lies inside
-// the output.
-template <bool STATS>
+// the output.  SR: q is quant_sr with the dither of chunk `chunk` at the
+// output's flat index in the tile at (m0, n0) of p.
+template <bool STATS, bool SR>
 __device__ __forceinline__ void fold(float (&acc)[8][8], float4* P, float* Cs, float* Is,
                                      int gt, int tx, int ty, unsigned rows, unsigned cols,
-                                     const Quant& qacc, Counts& n) {
+                                     const Quant& qacc, Counts& n, const Gemm& p, int m0,
+                                     int n0, int chunk) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
 #pragma unroll
@@ -381,10 +409,16 @@ __device__ __forceinline__ void fold(float (&acc)[8][8], float4* P, float* Cs, f
         const float4 i4 = *reinterpret_cast<const float4*>(Is + r * TILE + c);
         iv[0] = i4.x; iv[1] = i4.y; iv[2] = i4.z; iv[3] = i4.w;
       }
+      // the flat index of the row's first output here (SR)
+      const unsigned flat0 = (unsigned)(m0 + r) * (unsigned)p.N + (unsigned)(n0 + c);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float prev = cv[j];
-        cv[j] = quant(__fadd_rn(prev, part[j]), qacc);
+        if constexpr (SR)
+          cv[j] = quant_sr(__fadd_rn(prev, part[j]), qacc,
+                           sr_bits(p.seed, (unsigned)chunk, flat0 + (unsigned)j));
+        else
+          cv[j] = quant(__fadd_rn(prev, part[j]), qacc);
         if constexpr (STATS) {
           iv[j] = __fadd_rn(iv[j], part[j]);
           const bool live = (rows >> i) & (cols >> (h * 4 + j)) & 1u;
@@ -408,7 +442,7 @@ __device__ __forceinline__ void fold(float (&acc)[8][8], float4* P, float* Cs, f
 // One chunk group's walk over its chunks: ring, decode, FMAs, and the fold
 // hand-off in chunk order.  Barrier ids: 1 + g the group's own, 1 + G + g
 // the hand-off into group g.
-template <typename TA, typename TB, int STAGE, bool STATS>
+template <typename TA, typename TB, int STAGE, bool STATS, bool SR>
 __device__ __forceinline__ void run_group(const Gemm& p, int m0, int n0, unsigned char* gsm,
                                           float* Cs, float* Is, Counts& n) {
   constexpr int S = ring_stages(STAGE);
@@ -461,8 +495,8 @@ __device__ __forceinline__ void run_group(const Gemm& p, int m0, int n0, unsigne
       const int c = g + (s / spc) * G;
       bar_sync(1 + g, GT);  // the step buffers are free to take the partials
       if (G > 1 && c > 0) bar_sync(1 + G + g, 2 * GT);  // chunk c - 1 folded
-      fold<STATS>(acc, reinterpret_cast<float4*>(As), Cs, Is, gt, tx, ty, rows, cols, p.qacc,
-                  n);
+      fold<STATS, SR>(acc, reinterpret_cast<float4*>(As), Cs, Is, gt, tx, ty, rows, cols,
+                      p.qacc, n, p, m0, n0, c);
       if (G > 1 && c + 1 < n_chunks) {
         __threadfence_block();
         bar_arrive(1 + G + (g + 1) % G, 2 * GT);
@@ -474,8 +508,9 @@ __device__ __forceinline__ void run_group(const Gemm& p, int m0, int n0, unsigne
 
 // The block's tile at (m0, n0): carry in, the groups, then C (and, with
 // STATS, the block's partial stats row into `stats`).  smem holds
-// smem_bytes(STAGE, blockDim / GT, STATS) bytes.
-template <typename TA, typename TB, int STAGE, bool STATS>
+// smem_bytes(STAGE, blockDim / GT, STATS) bytes.  SR: the carries round
+// stochastically under p.seed.
+template <typename TA, typename TB, int STAGE, bool STATS, bool SR = false>
 __device__ __forceinline__ void block_tile(const Gemm& p, int m0, int n0, unsigned char* smem,
                                            double* stats) {
   float* Cs = reinterpret_cast<float*>(smem);
@@ -489,8 +524,9 @@ __device__ __forceinline__ void block_tile(const Gemm& p, int m0, int n0, unsign
   }
   __syncthreads();
   Counts n;
-  run_group<TA, TB, STAGE, STATS>(p, m0, n0, groups + (threadIdx.x / GT) * group_bytes(STAGE),
-                                  Cs, Is, n);
+  run_group<TA, TB, STAGE, STATS, SR>(p, m0, n0,
+                                      groups + (threadIdx.x / GT) * group_bytes(STAGE), Cs,
+                                      Is, n);
   __syncthreads();
   double v[N_STATS];
 #pragma unroll

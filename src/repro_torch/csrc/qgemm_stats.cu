@@ -1,10 +1,13 @@
 // K8-on-Hopper: the fused quantized GEMM with the swamping-telemetry stats
 // epilogue.
 //
-// Replaces repro/kernels/fused.py::_fused_kernel_stats (RNE carry): G's
-// chunked carry, bitwise (G runs the same tile above decode, and its decode
-// kernel holds the same per-output contract), plus an f32 shadow carry and the
-// N_STATS row of common.cuh reduced over the whole output.  Operands are
+// Replaces repro/kernels/fused.py::_fused_kernel_stats (RNE and SR carry):
+// G's chunked carry, bitwise (G runs the same tile above decode, and its
+// decode kernel holds the same per-output contract), plus an f32 shadow
+// carry and the N_STATS row of common.cuh reduced over the whole output.
+// Under stochastic rounding (sr, seed) C is bitwise E's under the same seed
+// (the dither keys on the output element and the chunk only); the shadow
+// carry and the counters are the same in form.  Operands are
 // f32, bf16 or int8 codes of the representation format (unpacked on load,
 // the in-graph telemetry's FWD replay of the saved residuals); quantize_a /
 // quantize_b apply to float operands only.
@@ -29,12 +32,12 @@ namespace {
 using bf = __nv_bfloat16;
 using sm90::TILE;
 
-template <typename TA, typename TB>
+template <typename TA, typename TB, bool SR>
 __global__ void __launch_bounds__(4 * sm90::GT, 2)
     qgemm_stats_kernel(sm90::Gemm p, double* part) {
   extern __shared__ __align__(16) unsigned char smem[];
   const long long blk = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-  sm90::block_tile<TA, TB, sm90::stage_bytes<TA, TB>(), true>(
+  sm90::block_tile<TA, TB, sm90::stage_bytes<TA, TB>(), true, SR>(
       p, blockIdx.y * TILE, blockIdx.x * TILE, smem, part + blk * N_STATS);
 }
 
@@ -45,21 +48,22 @@ int smem(int groups) {
   return sm90::smem_bytes(sm90::stage_bytes<TA, TB>(), groups, true);
 }
 
-template <typename TA, typename TB>
+template <typename TA, typename TB, bool SR>
 int launch(const void* A, long long sam, long long sak, const void* B,
            long long sbk, long long sbn, float* C, int M, int N, int K,
            int chunk, QFmt qr, int qa, int qb, sm90::Dec dec, QFmt qacc,
-           int groups, double* part, float* stats, cudaStream_t s) {
+           int groups, unsigned seed, double* part, float* stats, cudaStream_t s) {
   if (!valid_groups(groups)) return static_cast<int>(cudaErrorInvalidValue);
   sm90::Gemm p{sm90::operand(A, sizeof(TA), sam, sak, M, chunk, qa),
                sm90::operand(B, sizeof(TB), sbn, sbk, N, chunk, qb),
-               C, N, nullptr, M, N, K, chunk, sm90::quant_of(qr), sm90::quant_of(qacc), dec};
+               C, N, nullptr, M, N, K, chunk, sm90::quant_of(qr), sm90::quant_of(qacc), dec,
+               seed};
   const int bytes = smem<TA, TB>(groups);
   int rc = static_cast<int>(cudaFuncSetAttribute(
-      qgemm_stats_kernel<TA, TB>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+      qgemm_stats_kernel<TA, TB, SR>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
   if (rc != 0) return rc;
   dim3 grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE);
-  qgemm_stats_kernel<TA, TB><<<grid, groups * sm90::GT, bytes, s>>>(p, part);
+  qgemm_stats_kernel<TA, TB, SR><<<grid, groups * sm90::GT, bytes, s>>>(p, part);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   const int blocks = (int)(grid.x * grid.y);
@@ -72,11 +76,11 @@ int occupancy(int groups) {
   if (!valid_groups(groups)) return -static_cast<int>(cudaErrorInvalidValue);
   const int bytes = smem<TA, TB>(groups);
   int rc = static_cast<int>(cudaFuncSetAttribute(
-      qgemm_stats_kernel<TA, TB>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+      qgemm_stats_kernel<TA, TB, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
   int n = 0;
   if (rc == 0)
     rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, qgemm_stats_kernel<TA, TB>, groups * sm90::GT, bytes));
+        &n, qgemm_stats_kernel<TA, TB, false>, groups * sm90::GT, bytes));
   return rc != 0 ? -rc : n;
 }
 
@@ -119,8 +123,9 @@ extern "C" int qgemm_stats_occupancy(int a_kind, int b_kind, int groups) {
 
 // K8.  a_kind / b_kind: 0 f32, 1 bf16, 2 int8 codes of (1, e_r, m_r).
 // Strides are in elements; C [M, N] row-major; stats [N_STATS] f32;
-// groups: chunk groups a block (1, 2 or 4; kernels/sm90.py picks them).
-// Returns the cudaError_t of the launches.
+// groups: chunk groups a block (1, 2 or 4; kernels/sm90.py picks them); sr:
+// stochastic rounding of the carry, dithered under seed.  Returns the
+// cudaError_t of the launches.
 extern "C" int qgemm_stats(const void* A, int a_kind, long long sam,
                            long long sak, const void* B, int b_kind,
                            long long sbk, long long sbn, void* C, int M,
@@ -128,8 +133,8 @@ extern "C" int qgemm_stats(const void* A, int a_kind, long long sam,
                            int r_identity, int r_shift, float r_max,
                            float r_min, int quant_a, int quant_b,
                            int c_identity, int c_shift, float c_max,
-                           float c_min, int groups, void* part, void* stats,
-                           void* stream) {
+                           float c_min, int groups, int sr, unsigned seed,
+                           void* part, void* stats, void* stream) {
   const QFmt qr{r_identity, r_shift, r_max, r_min};
   const QFmt qacc{c_identity, c_shift, c_max, c_min};
   const sm90::Dec dec = sm90::dec_of(e_r, m_r);
@@ -138,8 +143,11 @@ extern "C" int qgemm_stats(const void* A, int a_kind, long long sam,
   double* P = static_cast<double*>(part);
   float* S = static_cast<float*>(stats);
   return by_kinds(a_kind, b_kind, [&](auto ta, auto tb) {
-    return launch<decltype(ta), decltype(tb)>(A, sam, sak, B, sbk, sbn, out, M, N, K,
-                                              chunk, qr, quant_a, quant_b, dec, qacc,
-                                              groups, P, S, s);
+    using TA = decltype(ta);
+    using TB = decltype(tb);
+    return sr ? launch<TA, TB, true>(A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, qr,
+                                     quant_a, quant_b, dec, qacc, groups, seed, P, S, s)
+              : launch<TA, TB, false>(A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, qr,
+                                      quant_a, quant_b, dec, qacc, groups, seed, P, S, s);
   });
 }

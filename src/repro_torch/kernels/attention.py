@@ -334,15 +334,16 @@ def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
       swamping stats on the device, counted once a call on
       ``stats_launches``; each call is two launches, the kernel and the
       second pass that sums the blocks' partial rows;
-    * ``rounding``: only ``"rne"`` is ported (SR raises).
+    * ``rounding``: only ``"rne"``, as the JAX package's decode kernel
+      (SR raises).
 
     The launch reads only host-known shapes (the schedule follows B, KV
     and the page-table width); it allocates only its output, and K12 its
     row and partial rows.  Returns (B, H, dh) float32 [, row].
     """
     if rounding != "rne":
-        raise NotImplementedError("stochastic-rounding carries are not "
-                                  "ported yet (ROADMAP Queue 1 item 5)")
+        raise NotImplementedError("the decode kernel's carries round to "
+                                  "nearest only, as the JAX package's do")
     if q.device.type == "cpu":
         fn = (paged_attn_decode_stats_reference if collect_stats
               else paged_attn_decode_reference)
@@ -610,8 +611,8 @@ def flash_prefill(q, k, v, *, acc=_WIDE, chunk: int = 128,
     ``flash_prefill.launches``.
     """
     if rounding != "rne":
-        raise NotImplementedError("stochastic-rounding carries are not "
-                                  "ported yet (ROADMAP Queue 1 item 5)")
+        raise NotImplementedError("K10's stochastic-rounding carries are "
+                                  "not ported yet (ROADMAP [sr-rest])")
     if call is not None:
         acc = call.acc
         chunk = call.chunk or chunk

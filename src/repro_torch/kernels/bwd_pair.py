@@ -45,6 +45,16 @@ The shadow carry takes a second 16 KiB tile a block: at the layers'
 operands two 256-thread blocks still fit an SM, at the lm_head's (f32 x
 and g) one does (``kernels.sm90.pair_schedule``).
 
+``rounding="sr"`` rounds both carries stochastically, each with its own
+seed: dx draws from ``sr_seed_bwd`` at its (t, k) output of N = K columns
+and its N-chunk index, dw from ``sr_seed_grad`` at its (k, n) output and
+its T-chunk index, so dx is bitwise ``qmatmul_fused(Q(g), Q(w)^T,
+sr_seed=sr_seed_bwd)`` and dw ``qmatmul_fused(Q(x)^T, Q(g),
+sr_seed=sr_seed_grad)`` (the JAX package's contract).  SR launches of B and
+K9 are counted apart (``sr_launches``, ``sr_stats_launches``).  The dx
+carry-in entry keys its dither on the global N-chunk and dw column, which
+needs an N offset the entry does not take yet: it raises under SR.
+
 On CPU tensors the wrappers run the plain PyTorch version; on CUDA tensors
 they launch the kernel or raise.
 """
@@ -57,7 +67,8 @@ import torch
 
 from repro_torch.kernels import build, sm90
 from repro_torch.kernels.common import N_STATS, qfmt_args, quantize_block
-from repro_torch.kernels.fused import chunked_gemm_reference
+from repro_torch.kernels.fused import (as_sr_seed, check_rounding,
+                                       chunked_gemm_reference)
 from repro_torch.quant.formats import fmt_tuple
 from repro_torch.quant.qtensor import unpack_block
 
@@ -104,52 +115,75 @@ def _operands32(g, xq, wq, fmt, packed, quantize_g):
     return g32, x32, w32
 
 
+def _check_sr(rounding, dx_carry) -> bool:
+    sr = check_rounding(rounding)
+    if sr and dx_carry is not None:
+        raise NotImplementedError(
+            "the dx carry-in entry under stochastic rounding keys its dither "
+            "on the global N chunk and dw column: its N offset is not "
+            "ported yet (ROADMAP [sr-rest])")
+    return sr
+
+
 def qmatmul_bwd_pair_reference(g, xq, wq, *, repr_fmt, bwd_acc, grad_acc,
                                bwd_chunk: int, grad_chunk: int, packed: bool,
-                               quantize_g: bool = True, dx_carry=None):
+                               quantize_g: bool = True, dx_carry=None,
+                               rounding: str = "rne", sr_seed_bwd: int = 0,
+                               sr_seed_grad: int = 0):
     """Plain PyTorch version: unpack the residuals, quantize g, then the two
     chunked GEMMs in the kernel's order (``chunked_gemm_reference``), dx
     resuming from ``dx_carry``.  Bitwise the kernel."""
     fmt = fmt_tuple(repr_fmt)
     _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk)
+    _check_sr(rounding, dx_carry)
     g32, x32, w32 = _operands32(g, xq, wq, fmt, packed, quantize_g)
     dx = chunked_gemm_reference(g32, w32.T, e_acc=bwd_acc[0],
                                 m_acc=bwd_acc[1], block_k=bwd_chunk,
-                                carry=dx_carry)
+                                carry=dx_carry, rounding=rounding,
+                                sr_seed=as_sr_seed(sr_seed_bwd))
     dw = chunked_gemm_reference(x32.T, g32, e_acc=grad_acc[0],
-                                m_acc=grad_acc[1], block_k=grad_chunk)
+                                m_acc=grad_acc[1], block_k=grad_chunk,
+                                rounding=rounding,
+                                sr_seed=as_sr_seed(sr_seed_grad))
     return dx, dw
 
 
 def qmatmul_bwd_pair_stats_reference(g, xq, wq, *, repr_fmt, bwd_acc,
                                      grad_acc, bwd_chunk: int,
                                      grad_chunk: int, packed: bool,
-                                     quantize_g: bool = True):
+                                     quantize_g: bool = True,
+                                     rounding: str = "rne",
+                                     sr_seed_bwd: int = 0,
+                                     sr_seed_grad: int = 0):
     """Plain PyTorch version of K9's kernel: ``(dx, dw, rows)`` with dx, dw
     as ``qmatmul_bwd_pair_reference`` and ``rows`` the (2, N_STATS)
     float32 stats of the dx and dw accumulators
     (``chunked_gemm_reference(..., stats=True)``)."""
     fmt = fmt_tuple(repr_fmt)
     _check(g, xq, wq, fmt, packed, None, bwd_chunk, grad_chunk)
+    check_rounding(rounding)
     g32, x32, w32 = _operands32(g, xq, wq, fmt, packed, quantize_g)
     dx, rx = chunked_gemm_reference(g32, w32.T, e_acc=bwd_acc[0],
                                     m_acc=bwd_acc[1], block_k=bwd_chunk,
-                                    stats=True)
+                                    stats=True, rounding=rounding,
+                                    sr_seed=as_sr_seed(sr_seed_bwd))
     dw, rw = chunked_gemm_reference(x32.T, g32, e_acc=grad_acc[0],
                                     m_acc=grad_acc[1], block_k=grad_chunk,
-                                    stats=True)
+                                    stats=True, rounding=rounding,
+                                    sr_seed=as_sr_seed(sr_seed_grad))
     return dx, dw, torch.stack([rx, rw])
 
 
 _LL, _I, _P, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+_U = ctypes.c_uint
 _ARGTYPES = ([_P, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _P, _P,
               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I]
-             + [_I, _I, _F, _F] * 2 + [_I, _P, _P])
+             + [_I, _I, _F, _F] * 2 + [_I, _I, _U, _U, _P, _P])
 
 
 _STATS_ARGTYPES = ([_P, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I]
-                   + [_I, _I, _F, _F] * 2 + [_I, _P, _P, _P, _P])
+                   + [_I, _I, _F, _F] * 2 + [_I, _I, _U, _U, _P, _P, _P, _P])
 
 
 def _check_devices(*ts):
@@ -170,7 +204,7 @@ def _g_scratch(g, fmt, quantize_g):
 
 
 def _launch_stats(g, xq, wq, *, fmt, bwd_acc, grad_acc, bwd_chunk,
-                  grad_chunk, quantize_g):
+                  grad_chunk, quantize_g, sr, seeds):
     """K9, ``qmatmul_bwd_pair(..., collect_stats=True)``."""
     _check_devices(g, xq, wq)
     t, n = g.shape
@@ -196,17 +230,20 @@ def _launch_stats(g, xq, wq, *, fmt, bwd_acc, grad_acc, bwd_chunk,
         wq.data_ptr(), _KINDS[wq.dtype], wq.stride(0), wq.stride(1),
         dx.data_ptr(), dw.data_ptr(), t, k, n, bwd_chunk, grad_chunk,
         e_r, m_r, *qfmt_args(fmt or _WIDE), int(quant),
-        *qfmt_args(bwd_acc), *qfmt_args(grad_acc), sched.groups,
-        None if gq is None else gq.data_ptr(), part.data_ptr(),
+        *qfmt_args(bwd_acc), *qfmt_args(grad_acc), sched.groups, int(sr),
+        *seeds, None if gq is None else gq.data_ptr(), part.data_ptr(),
         rows.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bwd_pair_stats launch failed: CUDA error {rc}")
-    qmatmul_bwd_pair.stats_launches += 1
+    if sr:
+        qmatmul_bwd_pair.sr_stats_launches += 1
+    else:
+        qmatmul_bwd_pair.stats_launches += 1
     return dx, dw, rows
 
 
 def _launch(g, xq, wq, dx_carry, *, fmt, bwd_acc, grad_acc, bwd_chunk,
-            grad_chunk, quantize_g):
+            grad_chunk, quantize_g, sr, seeds):
     _check_devices(g, xq, wq, dx_carry)
     t, n = g.shape
     k = xq.shape[1]
@@ -233,12 +270,14 @@ def _launch(g, xq, wq, dx_carry, *, fmt, bwd_acc, grad_acc, bwd_chunk,
         carry.data_ptr() if carry is not None else None,
         dx.data_ptr(), dw.data_ptr(), t, k, n, bwd_chunk, grad_chunk,
         e_r, m_r, *qfmt_args(fmt or _WIDE), int(quant),
-        *qfmt_args(bwd_acc), *qfmt_args(grad_acc), sched.groups,
-        None if gq is None else gq.data_ptr(),
+        *qfmt_args(bwd_acc), *qfmt_args(grad_acc), sched.groups, int(sr),
+        *seeds, None if gq is None else gq.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bwd_pair launch failed: CUDA error {rc}")
-    if dx_carry is None:
+    if sr:
+        qmatmul_bwd_pair.sr_launches += 1
+    elif dx_carry is None:
         qmatmul_bwd_pair.launches += 1
     else:
         qmatmul_bwd_pair.carry_launches += 1
@@ -249,7 +288,8 @@ def qmatmul_bwd_pair(g, xq, wq, *, repr_fmt, bwd_acc=_WIDE, grad_acc=_WIDE,
                      bwd_chunk: int = 128, grad_chunk: int = 128,
                      packed: bool = True, quantize_g: bool = True,
                      dx_carry=None, collect_stats: bool = False,
-                     rounding: str = "rne"):
+                     rounding: str = "rne", sr_seed_bwd: int = 0,
+                     sr_seed_grad: int = 0):
     """``(dx, dw)`` of one dense layer, both float32, in one launch.
 
     * ``g`` [T, N] float32, any strides; quantized to ``repr_fmt`` on load
@@ -264,14 +304,18 @@ def qmatmul_bwd_pair(g, xq, wq, *, repr_fmt, bwd_acc=_WIDE, grad_acc=_WIDE,
     * ``collect_stats=True`` is K9's kernel: returns ``(dx, dw, rows)``
       with ``rows`` the (2, N_STATS) float32 stats on the device (row 0
       dx, row 1 dw), counted on ``stats_launches``; no ``dx_carry``;
-    * ``rounding``: only ``"rne"`` is ported (SR raises).
+    * ``rounding``: ``"rne"`` or ``"sr"``, both carries' rounding;
+      ``sr_seed_bwd`` keys dx's dither and ``sr_seed_grad`` dw's (ints,
+      taken mod 2^32).  SR launches count on ``sr_launches`` (B) and
+      ``sr_stats_launches`` (K9); SR with ``dx_carry`` raises.
     """
-    if rounding != "rne":
-        raise NotImplementedError("stochastic-rounding carries are not "
-                                  "ported yet (ROADMAP Queue 1 item 5)")
+    sr = _check_sr(rounding, dx_carry)
+    seeds = (as_sr_seed(sr_seed_bwd), as_sr_seed(sr_seed_grad))
     fmt = fmt_tuple(repr_fmt)
     bwd_acc, grad_acc = tuple(bwd_acc), tuple(grad_acc)
     tensors = [t for t in (g, xq, wq, dx_carry) if t is not None]
+    sr_kw = dict(rounding=rounding, sr_seed_bwd=seeds[0],
+                 sr_seed_grad=seeds[1])
     if collect_stats:
         if dx_carry is not None:
             raise ValueError("collect_stats takes no dx_carry (the stats "
@@ -281,24 +325,27 @@ def qmatmul_bwd_pair(g, xq, wq, *, repr_fmt, bwd_acc=_WIDE, grad_acc=_WIDE,
                   quantize_g=quantize_g)
         if all(t.device.type == "cpu" for t in tensors):
             return qmatmul_bwd_pair_stats_reference(g, xq, wq, packed=packed,
-                                                    **kw)
+                                                    **kw, **sr_kw)
         _check(g, xq, wq, fmt, packed, None, bwd_chunk, grad_chunk)
         kw["fmt"] = kw.pop("repr_fmt")
-        return _launch_stats(g, xq, wq, **kw)
+        return _launch_stats(g, xq, wq, sr=sr, seeds=seeds, **kw)
     if all(t.device.type == "cpu" for t in tensors):
         return qmatmul_bwd_pair_reference(
             g, xq, wq, repr_fmt=fmt, bwd_acc=bwd_acc, grad_acc=grad_acc,
             bwd_chunk=bwd_chunk, grad_chunk=grad_chunk, packed=packed,
-            quantize_g=quantize_g, dx_carry=dx_carry)
+            quantize_g=quantize_g, dx_carry=dx_carry, **sr_kw)
     _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk)
     return _launch(g, xq, wq, dx_carry, fmt=fmt, bwd_acc=bwd_acc,
                    grad_acc=grad_acc, bwd_chunk=bwd_chunk,
-                   grad_chunk=grad_chunk, quantize_g=quantize_g)
+                   grad_chunk=grad_chunk, quantize_g=quantize_g, sr=sr,
+                   seeds=seeds)
 
 
 qmatmul_bwd_pair.launches = 0
 qmatmul_bwd_pair.carry_launches = 0
 qmatmul_bwd_pair.stats_launches = 0
+qmatmul_bwd_pair.sr_launches = 0
+qmatmul_bwd_pair.sr_stats_launches = 0
 
 
 def pair_segment_width(n: int, n_split: int, block_n: int) -> int:

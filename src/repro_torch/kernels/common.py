@@ -1,12 +1,15 @@
 """Elementwise helpers shared by the kernels' plain versions.
 
-Counterpart of ``repro.kernels.common`` (RNE branch).  The CUDA kernels
-carry the same arithmetic in ``csrc/common.cuh``; the two are held
-against each other on the card and against the JAX package here.
+Counterpart of ``repro.kernels.common``: the (1, e, m) quantizer under
+round-to-nearest-even and under stochastic rounding (SR), the
+counter-based Threefry-2x32 that makes SR's dither bits, the carry update
+and the swamping-stats row.  The CUDA kernels carry the same arithmetic
+in ``csrc/common.cuh``; the two are held against each other on the card
+and against the JAX package here.
 
 Bit math runs on ``x.view(torch.int32)`` widened to int64 and masked to
-32 bits: torch's uint32 support is partial, and int64 keeps the rounding
-carry of a NaN payload from overflowing.
+32 bits after every add and shift: torch's uint32 support is partial, and
+int64 keeps the rounding carry of a NaN payload from overflowing.
 """
 
 from __future__ import annotations
@@ -16,7 +19,10 @@ import math
 
 import torch
 
-__all__ = ["quantize_block", "qfmt_params", "qfmt_args", "pad2d",
+__all__ = ["quantize_block", "quantize_block_sr", "quantize_carry",
+           "carry_update", "threefry2x32", "sr_random_bits", "sr_bits",
+           "sr_flat_index", "ROUNDINGS",
+           "qfmt_params", "qfmt_args", "pad2d",
            "exp2_int", "N_STATS", "STAT_COUNT", "STAT_SUM_Q", "STAT_SUMSQ_Q",
            "STAT_SUM_I", "STAT_SUMSQ_I", "STAT_MAX_ABS", "STAT_SWAMPED",
            "STAT_ADDS", "STAT_SUM_ERR", "STAT_SUMSQ_ERR", "stats_delta_row",
@@ -71,6 +77,116 @@ def quantize_block(x: torch.Tensor, e: int, m: int) -> torch.Tensor:
     y = torch.where(y < min_normal, 0.0, y)
     y = torch.where(torch.signbit(x), -y, y)
     return torch.where(torch.isnan(x), x, y)
+
+
+# --------------------------------------------------------------------------
+# stochastic-rounding carry (rounding="sr")
+# --------------------------------------------------------------------------
+#
+# The dither of a carry update is a pure function of (seed, chunk step,
+# flat logical output index): never of the tile or the schedule, so every
+# kernel variant of one GEMM draws the same bits.  Values are python ints
+# or int64 tensors holding uint32 patterns.
+
+ROUNDINGS = ("rne", "sr")
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl32(x, d: int):
+    return ((x << d) | (x >> (32 - d))) & _M32
+
+
+def threefry2x32(key0, key1, ctr0, ctr1):
+    """The 20-round Threefry-2x32 block: (key, counter) -> two uint32
+    words, bitwise ``repro.kernels.common.threefry2x32``.  Arguments are
+    python ints or int64 tensors of uint32 values and broadcast; every add
+    wraps mod 2^32."""
+    k0, k1 = key0 & _M32, key1 & _M32
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = ((ctr0 & _M32) + ks[0]) & _M32
+    x1 = ((ctr1 & _M32) + ks[1]) & _M32
+    for g in range(5):
+        for d in _ROTATIONS[g % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl32(x1, d) ^ x0
+        x0 = (x0 + ks[(g + 1) % 3]) & _M32
+        x1 = (x1 + ks[(g + 2) % 3] + g + 1) & _M32
+    return x0, x1
+
+
+def sr_flat_index(row_ids, col_ids, n_cols: int):
+    """``row * n_cols + col`` mod 2^32, the row taken as uint32 first (as
+    the JAX package casts it): the Threefry counter of an output element
+    of a GEMM with ``n_cols`` logical output columns."""
+    return ((row_ids & _M32) * (n_cols & _M32) + (col_ids & _M32)) & _M32
+
+
+def sr_random_bits(seed: int, step, row_ids, col_ids, n_cols: int):
+    """The uint32 dither of one carry update (an int64 tensor), bitwise
+    ``repro.kernels.common.sr_random_bits``: key (seed, seed ^
+    0x9E3779B9), counter (flat logical output index, chunk step).  Padded
+    elements may alias a logical index; their outputs are discarded."""
+    return sr_bits(seed, step, sr_flat_index(row_ids, col_ids, n_cols))
+
+
+def sr_bits(seed: int, step, flat):
+    """The dither of the output with flat index ``flat`` at chunk
+    ``step`` (``csrc/common.cuh`` ``sr_bits``)."""
+    seed = int(seed) & _M32
+    out, _ = threefry2x32(seed, seed ^ 0x9E3779B9, flat, step)
+    return out
+
+
+def quantize_block_sr(x: torch.Tensor, e: int, m: int,
+                      rbits: torch.Tensor) -> torch.Tensor:
+    """(1, e, m) stochastic rounding of a float32 tensor: add ``rbits &
+    (2^(23-m) - 1)`` to the magnitude's bits, then truncate the dropped
+    mantissa bits (rounds up with probability the discarded fraction).
+    Saturation, flush to zero, the sign and NaN as ``quantize_block``; an
+    exact format is the identity.  Bitwise the JAX
+    ``quantize_block_sr``."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"quantize_block_sr takes float32, got {x.dtype}")
+    identity, shift, max_value, min_normal = qfmt_params(e, m)
+    if identity:
+        return x
+    y = x.abs()
+    if shift > 0:
+        low = (1 << shift) - 1
+        xi = y.view(torch.int32).to(torch.int64)
+        y = _as_float((xi + (rbits & low)) & ~low)
+    y = torch.where(torch.isinf(x), max_value, y)
+    y = torch.clamp(y, max=max_value)
+    y = torch.where(y < min_normal, 0.0, y)
+    y = torch.where(torch.signbit(x), -y, y)
+    return torch.where(torch.isnan(x), x, y)
+
+
+def quantize_carry(x: torch.Tensor, e: int, m: int, rounding: str,
+                   rbits=None) -> torch.Tensor:
+    """The carry's quantizer: RNE, or SR with the caller's dither bits."""
+    if rounding == "sr":
+        return quantize_block_sr(x, e, m, rbits)
+    return quantize_block(x, e, m)
+
+
+def carry_update(prev, partial, *, e_acc: int, m_acc: int, rounding: str,
+                 seed: int = 0, step: int = 0, row0: int = 0,
+                 col0: int = 0, n_cols: int = 1) -> torch.Tensor:
+    """One chunk's carry update ``q(prev + partial)`` of a 2-D tile whose
+    first element is logical output (row0, col0); SR draws its dither
+    from the seed, the chunk step and each element's flat logical index.
+    Bitwise the JAX ``carry_update``."""
+    if rounding != "sr":
+        return quantize_block(prev + partial, e_acc, m_acc)
+    r, c = prev.shape
+    dev = prev.device
+    rows = row0 + torch.arange(r, dtype=torch.int64, device=dev)[:, None]
+    cols = col0 + torch.arange(c, dtype=torch.int64, device=dev)[None, :]
+    rbits = sr_random_bits(seed, step, rows, cols, n_cols)
+    return quantize_block_sr(prev + partial, e_acc, m_acc, rbits)
 
 
 def pad2d(x: torch.Tensor, rows: int, cols: int,

@@ -63,6 +63,15 @@ already quantized).  Every block of the kernel reduces its tile to a
 partial row in float64 and a second, fixed-order pass sums the rows and
 rounds once to float32, so the row is the same bits on every launch.
 
+``rounding="sr"`` rounds every chunk carry stochastically: the dither of
+an output's carry update is a Threefry draw keyed on the seed, the chunk's
+index in the K walk and the output's flat logical index
+(``kernels.common.sr_random_bits``), the JAX package's stream bit for
+bit, so E's and K8's C agree under one seed.  E and K8 carry it on the
+card (the tile's fold, ``csrc/qgemm_sm90.cuh``); G's kernels do not yet
+(ROADMAP [sr-rest]), and G's SR call raises on CUDA tensors.  SR launches
+are counted apart (``sr_emitq_launches``, ``sr_stats_launches``).
+
 On CPU tensors each wrapper runs its plain PyTorch version; on CUDA tensors
 it launches its kernel or raises.
 """
@@ -77,8 +86,12 @@ import torch
 from repro_torch.kernels import build, sm90
 from repro_torch.kernels.common import (
     N_STATS,
+    ROUNDINGS,
     qfmt_args,
     quantize_block,
+    quantize_carry,
+    sr_bits,
+    sr_flat_index,
     stats_delta_row,
     stats_row,
     stats_update,
@@ -87,11 +100,26 @@ from repro_torch.quant.formats import fmt_tuple
 from repro_torch.quant.qtensor import pack_block, unpack_block
 
 __all__ = ["qmatmul_fused", "qmatmul_fused_reference", "qmatmul_fused_with",
-           "qmatmul_fused_stats_reference", "chunked_gemm_reference"]
+           "qmatmul_fused_stats_reference", "chunked_gemm_reference",
+           "as_sr_seed"]
 
 _WIDE = (8, 23)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def as_sr_seed(seed) -> int:
+    """An SR seed as the kernels take it: an int masked to 32 bits (the
+    JAX package's ``as_sr_seed`` casts to uint32)."""
+    return int(seed) & 0xFFFFFFFF
+
+
+def check_rounding(rounding: str) -> bool:
+    """True for ``"sr"``; ValueError for a mode that is not a rounding."""
+    if rounding not in ROUNDINGS:
+        raise ValueError(f"rounding must be one of {ROUNDINGS}, "
+                         f"got {rounding!r}")
+    return rounding == "sr"
 
 
 def _check(a, b, fmt=None, a_packed=False, b_packed=False):
@@ -109,12 +137,17 @@ def _check(a, b, fmt=None, a_packed=False, b_packed=False):
 def chunked_gemm_reference(a32: torch.Tensor, b32: torch.Tensor, *,
                            e_acc: int, m_acc: int, block_k: int,
                            carry: torch.Tensor | None = None,
-                           stats: bool = False):
+                           stats: bool = False, rounding: str = "rne",
+                           sr_seed: int = 0):
     """The kernels' chunked carry on float32 operands taken as they are:
     per chunk of K, an f32 partial of rank-1 updates in increasing k (one
     multiply-add each), then ``carry = q_acc(carry + partial)``, with a
     ragged last chunk.  ``carry`` resumes a running carry (the dx segment
     chain); a fresh one starts at 0.  The kernels' order, so bitwise them.
+
+    ``rounding="sr"`` rounds each update stochastically, the dither keyed
+    on ``sr_seed``, the chunk's index (from 0, the first chunk dithered
+    too) and the flat index ``row * N + col`` of the (M, N) output.
 
     ``stats=True`` also keeps the f32 shadow carry ``ideal += partial`` and
     returns ``(carry, row)``: the float32 (N_STATS,) stats row, reduced in
@@ -127,12 +160,20 @@ def chunked_gemm_reference(a32: torch.Tensor, b32: torch.Tensor, *,
         ideal = torch.zeros_like(carry)
         acc = stats_row(carry.device)
         mask = torch.ones((m, n), dtype=torch.bool, device=carry.device)
+    flat = None
+    if rounding == "sr":
+        dev = carry.device
+        flat = sr_flat_index(
+            torch.arange(m, dtype=torch.int64, device=dev)[:, None],
+            torch.arange(n, dtype=torch.int64, device=dev)[None, :], n)
     for k0 in range(0, k, block_k):
         part = torch.zeros_like(carry)
         for kk in range(k0, min(k0 + block_k, k)):
             part = torch.addcmul(part, a32[:, kk:kk + 1], b32[kk:kk + 1, :])
         prev = carry
-        carry = quantize_block(carry + part, e_acc, m_acc)
+        rbits = None if flat is None else sr_bits(sr_seed, k0 // block_k,
+                                                  flat)
+        carry = quantize_carry(carry + part, e_acc, m_acc, rounding, rbits)
         if stats:
             ideal = ideal + part
             acc = stats_update(acc, *stats_delta_row(
@@ -154,21 +195,24 @@ def _operand32(x, packed: bool, quantize: bool, fmt):
 def qmatmul_fused_reference(a: torch.Tensor, b: torch.Tensor, *,
                             repr_fmt=None, e_acc: int = 8, m_acc: int = 23,
                             block_k: int = 128,
-                            return_quantized: bool = False):
+                            return_quantized: bool = False,
+                            rounding: str = "rne", sr_seed: int = 0):
     """Plain PyTorch version of G (and of E with ``return_quantized``), in
     the kernel's order: quantize both operands, then
-    ``chunked_gemm_reference``; E's codes are ``pack_block`` of the
-    quantized operands.  Bitwise the kernels; bitwise the JAX reference
-    wherever the intra-chunk f32 sums are exact (the reference's dot sums
-    in another order)."""
+    ``chunked_gemm_reference`` (under ``rounding``/``sr_seed``); E's codes
+    are ``pack_block`` of the quantized operands.  Bitwise the kernels;
+    bitwise the JAX reference wherever the intra-chunk f32 sums are exact
+    (the reference's dot sums in another order)."""
     _check(a, b)
+    check_rounding(rounding)
     fmt = fmt_tuple(repr_fmt)
     if return_quantized:
         _check_packable(fmt)
     a32 = _operand32(a, False, True, fmt)
     b32 = _operand32(b, False, True, fmt)
     y = chunked_gemm_reference(a32, b32, e_acc=e_acc, m_acc=m_acc,
-                               block_k=block_k)
+                               block_k=block_k, rounding=rounding,
+                               sr_seed=as_sr_seed(sr_seed))
     if return_quantized:
         return y, pack_block(a32, *fmt), pack_block(b32, *fmt)
     return y
@@ -180,7 +224,8 @@ def qmatmul_fused_stats_reference(a: torch.Tensor, b: torch.Tensor, *,
                                   quantize_a: bool = True,
                                   quantize_b: bool = True,
                                   a_packed: bool = False,
-                                  b_packed: bool = False):
+                                  b_packed: bool = False,
+                                  rounding: str = "rne", sr_seed: int = 0):
     """Plain PyTorch version of K8's kernel: ``(C, row)``, C as
     ``qmatmul_fused_reference`` and the float32 (N_STATS,) stats row of
     ``chunked_gemm_reference(..., stats=True)``.  C, the counters and
@@ -188,10 +233,13 @@ def qmatmul_fused_stats_reference(a: torch.Tensor, b: torch.Tensor, *,
     in another order."""
     fmt = fmt_tuple(repr_fmt)
     _check(a, b, fmt, a_packed, b_packed)
+    check_rounding(rounding)
     a32 = _operand32(a, a_packed, quantize_a, fmt)
     b32 = _operand32(b, b_packed, quantize_b, fmt)
     return chunked_gemm_reference(a32, b32, e_acc=e_acc, m_acc=m_acc,
-                                  block_k=block_k, stats=True)
+                                  block_k=block_k, stats=True,
+                                  rounding=rounding,
+                                  sr_seed=as_sr_seed(sr_seed))
 
 
 def _check_packable(fmt) -> None:
@@ -257,7 +305,8 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
                   quantize_a: bool = True, quantize_b: bool = True,
                   a_packed: bool = False, b_packed: bool = False,
                   return_quantized: bool = False,
-                  collect_stats: bool = False, rounding: str = "rne"):
+                  collect_stats: bool = False, rounding: str = "rne",
+                  sr_seed: int = 0):
     """C[M, N] = Q(A) @ Q(B) with a (1, e_acc, m_acc) carry rounded every
     ``block_k`` products (the chunk n1).
 
@@ -277,16 +326,19 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
       swamping stats on the device (read with
       ``telemetry.stats.EnsembleStats.from_raw``); exclusive with
       ``return_quantized``;
-    * ``rounding``: only ``"rne"`` is ported (SR raises).
+    * ``rounding``: ``"rne"`` or ``"sr"``, the carry's rounding;
+      ``sr_seed`` (an int, taken mod 2^32) keys SR's dither.  E and K8
+      carry SR on the card; G's SR runs only as the plain version (CPU
+      tensors) and raises on CUDA tensors.
 
     G's calls are counted on ``launches`` (one a call) and the fold
     kernels of its split decode calls, each a second launch, on
     ``fold_launches``; E's on ``emitq_launches``, K8's on
-    ``stats_launches``.
+    ``stats_launches``; E's and K8's SR launches apart, on
+    ``sr_emitq_launches`` and ``sr_stats_launches``.
     """
-    if rounding != "rne":
-        raise NotImplementedError("stochastic-rounding carries are not "
-                                  "ported yet (ROADMAP Queue 1 item 5)")
+    sr = check_rounding(rounding)
+    seed = as_sr_seed(sr_seed)
     if collect_stats and return_quantized:
         raise ValueError("collect_stats is a probe-path epilogue; residual "
                          "emission is a train-path epilogue: pick one")
@@ -294,17 +346,23 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
         return _stats(a, b, repr_fmt=repr_fmt, e_acc=e_acc, m_acc=m_acc,
                       block_k=block_k, quantize_a=quantize_a,
                       quantize_b=quantize_b, a_packed=a_packed,
-                      b_packed=b_packed)
+                      b_packed=b_packed, rounding=rounding, seed=seed)
     if not (quantize_a and quantize_b) or a_packed or b_packed:
         raise ValueError("per-operand quantization and packed operands are "
                          "K8's (collect_stats=True)")
     if return_quantized:
         return _emitq(a, b, repr_fmt=repr_fmt, e_acc=e_acc, m_acc=m_acc,
-                      block_k=block_k)
+                      block_k=block_k, rounding=rounding, seed=seed)
     _check(a, b)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return qmatmul_fused_reference(a, b, repr_fmt=repr_fmt, e_acc=e_acc,
-                                       m_acc=m_acc, block_k=block_k)
+                                       m_acc=m_acc, block_k=block_k,
+                                       rounding=rounding, sr_seed=seed)
+    if sr:
+        raise NotImplementedError(
+            "G's stochastic-rounding carry (its decode kernel, its fold "
+            "kernel and its tile route) is not ported yet (ROADMAP "
+            "[sr-rest])")
     _check_cuda(a, b, block_k)
     m, k = a.shape
     n = b.shape[1]
@@ -322,20 +380,24 @@ qmatmul_fused.launches = 0
 qmatmul_fused.fold_launches = 0
 qmatmul_fused.emitq_launches = 0
 qmatmul_fused.stats_launches = 0
+qmatmul_fused.sr_emitq_launches = 0
+qmatmul_fused.sr_stats_launches = 0
 
+_U = ctypes.c_uint
 _STATS_ARGTYPES = ([_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I,
-                    _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _P,
-                    _P, _P])
+                    _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _I,
+                    _U, _P, _P, _P])
 
 
 def _stats(a, b, *, repr_fmt, e_acc, m_acc, block_k, quantize_a, quantize_b,
-           a_packed, b_packed):
+           a_packed, b_packed, rounding, seed):
     """K8, ``qmatmul_fused(..., collect_stats=True)``."""
     fmt = fmt_tuple(repr_fmt)
     _check(a, b, fmt, a_packed, b_packed)
     kw = dict(repr_fmt=fmt, e_acc=e_acc, m_acc=m_acc, block_k=block_k,
               quantize_a=quantize_a, quantize_b=quantize_b,
-              a_packed=a_packed, b_packed=b_packed)
+              a_packed=a_packed, b_packed=b_packed, rounding=rounding,
+              sr_seed=seed)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return qmatmul_fused_stats_reference(a, b, **kw)
     _check_cuda(a, b, block_k)
@@ -359,11 +421,15 @@ def _stats(a, b, *, repr_fmt, e_acc, m_acc, block_k, quantize_a, quantize_b,
         out.data_ptr(), m, n, k, block_k, e_r, m_r, *qfmt_args(fmt or _WIDE),
         int(quant and quantize_a and not a_packed),
         int(quant and quantize_b and not b_packed),
-        *qfmt_args((e_acc, m_acc)), sched.groups, part.data_ptr(),
-        row.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        *qfmt_args((e_acc, m_acc)), sched.groups, int(rounding == "sr"),
+        seed, part.data_ptr(), row.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qgemm_stats launch failed: CUDA error {rc}")
-    qmatmul_fused.stats_launches += 1
+    if rounding == "sr":
+        qmatmul_fused.sr_stats_launches += 1
+    else:
+        qmatmul_fused.stats_launches += 1
     return out, row
 
 
@@ -375,11 +441,11 @@ def _check_cuda(a, b, block_k) -> None:
 
 
 _EMITQ_ARGTYPES = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I,
-                   _I, _I, _I, _I, _F, _F, _I, _I, _F, _F, _I, _P, _P, _P, _P,
-                   _P]
+                   _I, _I, _I, _I, _F, _F, _I, _I, _F, _F, _I, _I, _U, _P, _P,
+                   _P, _P, _P]
 
 
-def _emitq(a, b, *, repr_fmt, e_acc, m_acc, block_k):
+def _emitq(a, b, *, repr_fmt, e_acc, m_acc, block_k, rounding, seed):
     """Kernel E, ``qmatmul_fused(..., return_quantized=True)``: the
     quantize-and-pack pass, then the GEMM; one count a call."""
     _check(a, b)
@@ -388,7 +454,8 @@ def _emitq(a, b, *, repr_fmt, e_acc, m_acc, block_k):
     if a.device.type == "cpu" and b.device.type == "cpu":
         return qmatmul_fused_reference(a, b, repr_fmt=fmt, e_acc=e_acc,
                                        m_acc=m_acc, block_k=block_k,
-                                       return_quantized=True)
+                                       return_quantized=True,
+                                       rounding=rounding, sr_seed=seed)
     _check_cuda(a, b, block_k)
     m, k = a.shape
     n = b.shape[1]
@@ -407,10 +474,13 @@ def _emitq(a, b, *, repr_fmt, e_acc, m_acc, block_k):
         a.data_ptr(), _DTYPES[a.dtype], a.stride(0), a.stride(1),
         b.data_ptr(), _DTYPES[b.dtype], b.stride(0), b.stride(1),
         out.data_ptr(), m, n, k, block_k, fmt[0], fmt[1], *qfmt_args(fmt),
-        *qfmt_args((e_acc, m_acc)), sched.groups, aq.data_ptr(),
-        bq.data_ptr(), qa.data_ptr(), qb.data_ptr(),
+        *qfmt_args((e_acc, m_acc)), sched.groups, int(rounding == "sr"),
+        seed, aq.data_ptr(), bq.data_ptr(), qa.data_ptr(), qb.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qgemm_emitq launch failed: CUDA error {rc}")
-    qmatmul_fused.emitq_launches += 1
+    if rounding == "sr":
+        qmatmul_fused.sr_emitq_launches += 1
+    else:
+        qmatmul_fused.emitq_launches += 1
     return out, aq, bq

@@ -27,6 +27,14 @@ straight-through in the backward.  dx and dw come back in the dtypes of x
 and w, as the JAX package's casts round them (bf16 weights get bf16
 gradients).
 
+``rounding="sr"`` (fused only) rounds the carries of all three roles
+stochastically.  Each role draws its own stream from one base seed
+(``sr_role_seed``: ``cfg.sr_seed``, or ``qdot``'s ``sr_seed`` for one
+call): E takes the FWD seed, B the BWD seed for dx and the GRAD seed for
+dw, as the JAX package's kernels do.  G has no SR carry on the card yet
+(ROADMAP [sr-rest]), so under SR a forward without a gradient to take
+runs E and drops its codes (its C is the G call's, bitwise).
+
 Telemetry: inside ``telemetry.capture.capture_gemms()`` every quantized
 ``qdot`` records its 2-D operands and config (the eager probe's replay
 list).  A config with ``stats_tag`` (``obs.ingraph.tag_quant_plan``) runs
@@ -45,18 +53,29 @@ import torch
 
 from repro_torch.core.policy import GEMMPrecision
 from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
-from repro_torch.kernels.common import quantize_block
-from repro_torch.kernels.fused import qmatmul_fused
+from repro_torch.kernels.common import ROUNDINGS, quantize_block, threefry2x32
+from repro_torch.kernels.fused import as_sr_seed, qmatmul_fused
 from repro_torch.kernels.qmatmul import qmatmul
 from repro_torch.kernels.quantize import quantize
 from repro_torch.quant.formats import FPFormat
 from repro_torch.telemetry import capture as _capture
 
-__all__ = ["QDotConfig", "qdot", "quantize_op"]
+__all__ = ["QDotConfig", "qdot", "quantize_op", "sr_role_seed"]
 
 # f32 grouping of the partial sum when a role accumulates wide (chunk 0):
 # schedule only, the carry is not rounded
 _WIDE_CHUNK = 128
+
+# Threefry key salts deriving the three roles' SR streams from one base
+# seed (the JAX package's)
+_ROLE_SALT = {"fwd": 0x9E3779B1, "bwd": 0x85EBCA77, "grad": 0xC2B2AE3D}
+
+
+def sr_role_seed(seed: int, role: str) -> int:
+    """A role's SR seed from the base seed: the first word of
+    ``threefry2x32(seed, salt, 0, 1)``, bitwise JAX's ``sr_role_seed``."""
+    out, _ = threefry2x32(as_sr_seed(seed), _ROLE_SALT[role], 0, 1)
+    return int(out)
 
 
 @dataclass(frozen=True)
@@ -70,7 +89,9 @@ class QDotConfig:
     format.  ``stats_tag`` turns on the in-graph telemetry of the backward
     (numerics untouched; fused path only so far); ``stats_axis``, the mesh
     axis to reduce the rows over, comes with the sharding slice and must
-    be None.
+    be None.  ``rounding`` is the carries' rounding in all three roles,
+    ``"rne"`` or ``"sr"`` (fused only); ``sr_seed`` the base seed the
+    roles' SR streams derive from.
     """
 
     fwd: GEMMPrecision | None = None
@@ -81,16 +102,21 @@ class QDotConfig:
     out_fmt: FPFormat | None = None
     stats_tag: str | None = None
     stats_axis: str | None = None
+    rounding: str = "rne"
+    sr_seed: int = 0
 
     def __post_init__(self):
         if self.stats_axis is not None:
             raise NotImplementedError(
                 "stats_axis (a mesh-wide reduction of the stats rows) comes "
-                "with the sharding slice (ROADMAP Queue 1 item 8)")
+                "with the sharding slice (ROADMAP [dist])")
         if self.stats_tag is not None and not self.fused:
             raise NotImplementedError(
                 "stats rows of the unfused oracle (K8 on its f32 residuals) "
-                "are not ported yet (ROADMAP Queue 1 item 1)")
+                "are not ported yet (ROADMAP [sr-rest])")
+        if self.rounding not in ROUNDINGS:
+            raise ValueError(f"rounding must be one of {ROUNDINGS}, got "
+                             f"{self.rounding!r}")
 
     @property
     def is_exact(self) -> bool:
@@ -120,10 +146,16 @@ def _pair_chunks(cfg: QDotConfig) -> tuple[int, int]:
     return grad_chunk or _WIDE_CHUNK, bwd_chunk or _WIDE_CHUNK
 
 
-def _fwd_kw(cfg: QDotConfig) -> dict:
+def _fwd_kw(cfg: QDotConfig, seed: int) -> dict:
+    """The forward's ``qmatmul_fused`` keywords under base seed ``seed``."""
     e_acc, m_acc, chunk = _acc_params(cfg.fwd)
     return dict(repr_fmt=cfg.repr_fmt, e_acc=e_acc, m_acc=m_acc,
-                block_k=chunk or _WIDE_CHUNK)
+                block_k=chunk or _WIDE_CHUNK, rounding=cfg.rounding,
+                sr_seed=_role_seed(cfg, seed, "fwd"))
+
+
+def _role_seed(cfg: QDotConfig, seed: int, role: str) -> int:
+    return sr_role_seed(seed, role) if cfg.rounding == "sr" else 0
 
 
 def _out(y: torch.Tensor, cfg: QDotConfig) -> torch.Tensor:
@@ -164,8 +196,9 @@ class _QDot(torch.autograd.Function):
     oracle through K2 and K3."""
 
     @staticmethod
-    def forward(ctx, x2, w, cfg):
+    def forward(ctx, x2, w, cfg, seed):
         ctx.cfg = cfg
+        ctx.seed = seed
         ctx.dtypes = (x2.dtype, w.dtype)
         if not cfg.fused:
             y, xq, wq = _oracle_fwd(x2, w, cfg)
@@ -173,9 +206,9 @@ class _QDot(torch.autograd.Function):
             return y
         if cfg.packs:
             y, xq, wq = qmatmul_fused(x2, w, return_quantized=True,
-                                      **_fwd_kw(cfg))
+                                      **_fwd_kw(cfg, seed))
         elif cfg.repr_fmt is None:
-            y, xq, wq = qmatmul_fused(x2, w, **_fwd_kw(cfg)), x2, w
+            y, xq, wq = qmatmul_fused(x2, w, **_fwd_kw(cfg, seed)), x2, w
         else:
             raise NotImplementedError(
                 f"residuals of a {cfg.repr_fmt} representation need more "
@@ -193,7 +226,7 @@ class _QDot(torch.autograd.Function):
             gq = _maybe_q(g.to(torch.float32), cfg.repr_fmt)
             dx = _mm(gq, wq.T, cfg.bwd)
             dw = _mm(xq.T, gq, cfg.grad)
-            return dx.to(x_dtype), dw.to(w_dtype), None
+            return dx.to(x_dtype), dw.to(w_dtype), None, None
         e_b, m_b, _ = _acc_params(cfg.bwd)
         e_g, m_g, _ = _acc_params(cfg.grad)
         grad_chunk, bwd_chunk = _pair_chunks(cfg)
@@ -201,22 +234,26 @@ class _QDot(torch.autograd.Function):
         kw = dict(repr_fmt=cfg.repr_fmt, bwd_acc=(e_b, m_b),
                   grad_acc=(e_g, m_g), bwd_chunk=bwd_chunk,
                   grad_chunk=grad_chunk, packed=cfg.packs,
-                  quantize_g=cfg.repr_fmt is not None)
+                  quantize_g=cfg.repr_fmt is not None,
+                  rounding=cfg.rounding,
+                  sr_seed_bwd=_role_seed(cfg, ctx.seed, "bwd"),
+                  sr_seed_grad=_role_seed(cfg, ctx.seed, "grad"))
         if cfg.stats_tag is None:
             dx, dw = qmatmul_bwd_pair(g.to(torch.float32), xq, wq, **kw)
         else:
             dx, dw, rows = qmatmul_bwd_pair(g.to(torch.float32), xq, wq,
                                             collect_stats=True, **kw)
-            _emit_qdot_stats(cfg, xq, wq, rows)
-        return dx.to(x_dtype), dw.to(w_dtype), None
+            _emit_qdot_stats(cfg, xq, wq, rows, ctx.seed)
+        return dx.to(x_dtype), dw.to(w_dtype), None, None
 
 
-def _emit_qdot_stats(cfg: QDotConfig, xq, wq, pair_rows) -> None:
+def _emit_qdot_stats(cfg: QDotConfig, xq, wq, pair_rows, seed: int) -> None:
     """The three roles' stats rows of one tagged backward, to the active
     in-graph collector: BWD and GRAD from the stats pair's rows, FWD from
-    one K8 replay of the saved residuals (the forward itself stays G/E).
-    Geometry as the eager probe's: accumulation length K / N / T, chunk
-    the role's rounding cadence."""
+    one K8 replay of the saved residuals (the forward itself stays G/E),
+    under the forward's rounding and role seed.  Geometry as the eager
+    probe's: accumulation length K / N / T, chunk the role's rounding
+    cadence."""
     from repro_torch.obs.ingraph import dispatch_raw
     from repro_torch.telemetry.stats import stats_kw
 
@@ -227,7 +264,9 @@ def _emit_qdot_stats(cfg: QDotConfig, xq, wq, pair_rows) -> None:
         _, raw = qmatmul_fused(xq, wq, repr_fmt=cfg.repr_fmt,
                                quantize_a=False, quantize_b=False,
                                a_packed=cfg.packs, b_packed=cfg.packs,
-                               collect_stats=True, **stats_kw(cfg.fwd))
+                               collect_stats=True, rounding=cfg.rounding,
+                               sr_seed=_role_seed(cfg, seed, "fwd"),
+                               **stats_kw(cfg.fwd))
         dispatch_raw(tag, "fwd", k, stats_kw(cfg.fwd)["block_k"],
                      cfg.fwd.m_acc, raw)
     for role, p, length, row in (("bwd", cfg.bwd, n, 0),
@@ -237,19 +276,28 @@ def _emit_qdot_stats(cfg: QDotConfig, xq, wq, pair_rows) -> None:
                          pair_rows[row])
 
 
-def qdot(x: torch.Tensor, w: torch.Tensor, cfg: QDotConfig) -> torch.Tensor:
+def qdot(x: torch.Tensor, w: torch.Tensor, cfg: QDotConfig, *,
+         sr_seed: int | None = None) -> torch.Tensor:
     """y[..., N] = x[..., K] @ w[K, N] with the plan's per-role
-    accumulation; float32 out.  Differentiable in x and w."""
+    accumulation; float32 out.  Differentiable in x and w.  ``sr_seed``
+    overrides ``cfg.sr_seed`` for this call (SR only)."""
+    if cfg.rounding == "sr" and not cfg.fused:
+        raise ValueError("rounding='sr' requires cfg.fused=True")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
+    seed = as_sr_seed(cfg.sr_seed if sr_seed is None else sr_seed)
     if _capture.active() and not cfg.is_exact:
         # the telemetry probe replays each recorded GEMM through the stats
-        # kernel (repro_torch.telemetry.probe); no SR in the port yet
-        _capture.record(x=x2, w=w, cfg=cfg, sr_seed=0)
+        # kernel at the roles' seeds of this one (repro_torch.telemetry.probe)
+        _capture.record(x=x2, w=w, cfg=cfg, sr_seed=seed)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        y = _QDot.apply(x2, w, cfg)
+        y = _QDot.apply(x2, w, cfg, seed)
     elif not cfg.fused:
         y = _oracle_fwd(x2, w, cfg)[0]
+    elif cfg.rounding == "sr" and cfg.packs:
+        # G carries no SR on the card yet: E's C is G's, bitwise
+        y = _out(qmatmul_fused(x2, w, return_quantized=True,
+                               **_fwd_kw(cfg, seed))[0], cfg)
     else:
-        y = _out(qmatmul_fused(x2, w, **_fwd_kw(cfg)), cfg)
+        y = _out(qmatmul_fused(x2, w, **_fwd_kw(cfg, seed)), cfg)
     return y.reshape(*lead, w.shape[1])

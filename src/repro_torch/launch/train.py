@@ -25,7 +25,12 @@ so a resumed run re-plans as the uninterrupted one does).  A run started
 with a checkpoint in ``--ckpt-dir`` resumes from the latest one.
 ``--crash-at-step N`` kills a fresh run before step N (exit 42), for the
 restart supervisor (``launch.supervisor``).  ``--n-layers`` cuts the depth.
-Not ported: stochastic rounding, A2Q, the metrics registry and meshes.
+
+``--rounding sr`` rounds every solver-assigned GEMM's chunk carries
+stochastically (the below-the-knee mode), seeded by ``--sr-seed``: the
+same seed reproduces the run bitwise.  E, B and the stats kernels K8 and
+K9 carry it on the card; the lm_head keeps its RNE 16-bit carry.
+Not ported: A2Q, the metrics registry and meshes.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --smoke --steps 20 --policy predicted --device cpu \\
@@ -76,6 +81,14 @@ def parse_args(argv=None):
     ap.add_argument("--pp", type=int, default=0,
                     help="precision perturbation (bits) for --policy perturbed")
     ap.add_argument("--chunk", type=int, default=64)
+    ap.add_argument("--rounding", choices=["rne", "sr"], default="rne",
+                    help="inter-chunk carry rounding of the quantized "
+                         "GEMMs: round to nearest even (the paper's) or "
+                         "seeded stochastic rounding (the below-the-knee "
+                         "mode)")
+    ap.add_argument("--sr-seed", type=int, default=0,
+                    help="seed of --rounding sr (the same seed reproduces "
+                         "the run bitwise)")
     ap.add_argument("--loss-scaling", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--metrics-out", default="")
@@ -129,9 +142,13 @@ def build_telemetry(args, tc):
 
 
 def _policy(args) -> AccumulationPolicy:
+    if args.rounding == "sr" and args.policy == "exact":
+        raise SystemExit("--rounding sr needs a non-exact --policy (exact "
+                         "mode has no emulated carries to dither)")
     return AccumulationPolicy(
         mode=args.policy, chunk=args.chunk,
-        perturbation=args.pp if args.policy == "perturbed" else 0)
+        perturbation=args.pp if args.policy == "perturbed" else 0,
+        rounding=args.rounding, sr_seed=args.sr_seed)
 
 
 def model_config(args):
@@ -213,7 +230,8 @@ def main(argv=None) -> dict:
     model, tc, state, data, device = build(args)
     print(f"arch={model.cfg.name} params="
           f"{param_count(state['params']) / 1e6:.1f}M policy={args.policy} "
-          f"pp={args.pp} device={device}", flush=True)
+          f"pp={args.pp} rounding={args.rounding} device={device}",
+          flush=True)
     controller, ingraph = build_telemetry(args, tc)
     model, state, start = resume(args, model, state, data, controller)
     step_fn = make_train_step(model, tc)

@@ -17,6 +17,12 @@ order in float64 (slot-wise ``+``, ``max`` for MAX_ABS: the exact ensemble
 union, so layers sharing a plan field and microbatches compose).  There is
 no host sync per GEMM.
 
+Under stochastic rounding the tagged backward draws its roles' streams as
+the untagged one does: K9 takes the BWD and GRAD role seeds and the FWD
+replay the FWD seed (``kernels.ops``), so the tagged step stays the
+untagged step bitwise.  The windows reach the controller as RNE probes,
+as in the JAX package, whose collector records no rounding.
+
 ``InGraphTelemetry`` runs the cadence tick: it caches the tagged model's
 step and runs observe -> (on a schedule change) re-plan, as
 ``repro_torch.train.loop.run_telemetry_tick`` does.  The JAX package's
@@ -162,7 +168,7 @@ class InGraphTelemetry:
         if registry is not None:
             raise NotImplementedError(
                 "the metrics registry comes with the observability slice "
-                "(ROADMAP Queue 1 item 7)")
+                "(ROADMAP [obs])")
         self.controller = controller
         self.train_cfg = train_cfg
         self.seq_len = seq_len

@@ -13,6 +13,7 @@ from repro_torch.telemetry import capture  # noqa: F401
 _LAZY = {
     "EnsembleStats": "repro_torch.telemetry.stats",
     "gemm_stats": "repro_torch.telemetry.stats",
+    "bwd_pair_stats": "repro_torch.telemetry.stats",
     "predicted_kernel_vrr": "repro_torch.telemetry.stats",
     "ControllerConfig": "repro_torch.telemetry.controller",
     "PrecisionController": "repro_torch.telemetry.controller",

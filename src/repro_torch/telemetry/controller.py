@@ -30,8 +30,8 @@ the knee test runs at ``n2 = ceil(n / n1)``.  Every decision (and every
      "noise_ratio", "jitter_fraction"}           # SR-mode error decomposition
 
 A stochastic-rounding probe (``rounding="sr"``) runs the knee test on the
-jitter statistic and acts on the measured breach only; the port's kernels
-carry RNE only so far (ROADMAP Queue 1 item 5).
+jitter statistic and acts on the measured breach only; the eager probe
+hands the controller its configs' rounding (``telemetry.probe``).
 """
 
 from __future__ import annotations

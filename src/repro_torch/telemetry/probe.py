@@ -20,6 +20,12 @@ is captured and every layer GEMM is probed on synthetic unit-Gaussian
 operands at the geometry ``dense_gemm_shapes`` reports for it, which gives
 every plan field a verdict.
 
+An SR config is replayed with SR carries at the per-role seeds its
+training kernels derive (``kernels.ops.sr_role_seed`` of the recorded
+seed, or of the config's own for the synthetic fallback), so the probe
+measures the jitter the model trains in; each probe carries the config's
+``rounding``, which picks the controller's knee statistic.
+
 Random draws go through ``_normal`` (one ``torch.Generator``): the same
 seed gives other draws than the JAX package's ``jax.random`` keys (ROADMAP
 F5); the parity tests replace ``_normal`` to feed both the same arrays.
@@ -97,15 +103,23 @@ def role_operands(x: torch.Tensor, w: torch.Tensor, qcfg,
 
 
 def probe_gemm(x: torch.Tensor, w: torch.Tensor, qcfg, *,
-               gen: torch.Generator) -> dict[str, GemmProbe]:
-    """Stats for all three roles of one dense GEMM x[T, K] @ w[K, N]."""
+               gen: torch.Generator, sr_seed: int | None = None
+               ) -> dict[str, GemmProbe]:
+    """Stats for all three roles of one dense GEMM x[T, K] @ w[K, N];
+    under SR at the role seeds of ``sr_seed`` (default the config's)."""
+    from repro_torch.kernels.ops import sr_role_seed
+
+    rnd = qcfg.rounding
+    base = qcfg.sr_seed if sr_seed is None else sr_seed
     g = (None if qcfg.bwd is None and qcfg.grad is None
          else _normal(gen, (x.shape[0], w.shape[1])))
     out: dict[str, GemmProbe] = {}
     for role, (a, b, p, flags, n) in role_operands(x, w, qcfg, g).items():
+        seed = sr_role_seed(base, role) if rnd == "sr" else 0
         _, st = gemm_stats(a, b, precision=p, repr_fmt=qcfg.repr_fmt,
-                           **flags)
-        out[role] = GemmProbe(stats=st, n=n, n1=_chunk(p), m_acc=p.m_acc)
+                           rounding=rnd, sr_seed=seed, **flags)
+        out[role] = GemmProbe(stats=st, n=n, n1=_chunk(p), m_acc=p.m_acc,
+                              rounding=rnd)
     return out
 
 
@@ -121,9 +135,9 @@ def probe_model_stats(model, params, batch, *, gen: torch.Generator
 
     probes: dict[tuple[str, str], GemmProbe] = {}
 
-    def ingest(name, x, w, qcfg):
+    def ingest(name, x, w, qcfg, sr_seed=None):
         with torch.no_grad():
-            found = probe_gemm(x, w, qcfg, gen=gen)
+            found = probe_gemm(x, w, qcfg, gen=gen, sr_seed=sr_seed)
         for role, p in found.items():
             prev = probes.get((name, role))
             if prev is None:
@@ -139,7 +153,7 @@ def probe_model_stats(model, params, batch, *, gen: torch.Generator
     for rec in buf:
         name = _plan_field(cfg.quant, rec["cfg"])
         if name is not None:
-            ingest(name, rec["x"], rec["w"], rec["cfg"])
+            ingest(name, rec["x"], rec["w"], rec["cfg"], rec.get("sr_seed"))
 
     # synthetic fallback for the plan fields the forward did not record
     from repro_torch.models.api import dense_gemm_shapes

@@ -151,7 +151,7 @@ class EnsembleStats:
     def psum(self, axis_name: str) -> "EnsembleStats":
         raise NotImplementedError(
             "mesh-wide reduction of stats windows comes with the sharding "
-            "slice (ROADMAP Queue 1 item 8)")
+            "slice (ROADMAP [dist])")
 
     # ----------------------------- read-outs -------------------------------
     @property
@@ -249,8 +249,8 @@ def stats_kw(p) -> dict:
 def gemm_stats(a: torch.Tensor, b: torch.Tensor, *, precision=None,
                repr_fmt=None, quantize_a: bool = True,
                quantize_b: bool = True, a_packed: bool = False,
-               b_packed: bool = False, rounding: str = "rne"
-               ) -> tuple[torch.Tensor, EnsembleStats]:
+               b_packed: bool = False, rounding: str = "rne",
+               sr_seed: int = 0) -> tuple[torch.Tensor, EnsembleStats]:
     """One GEMM through K8's kernel: ``(c, EnsembleStats)``, c bitwise the
     stats-off call's; ``block_k`` is the precision's chunk."""
     from repro_torch.kernels.fused import qmatmul_fused
@@ -258,5 +258,26 @@ def gemm_stats(a: torch.Tensor, b: torch.Tensor, *, precision=None,
     y, raw = qmatmul_fused(
         a, b, repr_fmt=repr_fmt, quantize_a=quantize_a,
         quantize_b=quantize_b, a_packed=a_packed, b_packed=b_packed,
-        collect_stats=True, rounding=rounding, **stats_kw(precision))
+        collect_stats=True, rounding=rounding, sr_seed=sr_seed,
+        **stats_kw(precision))
     return y, EnsembleStats.from_raw(raw)
+
+
+def bwd_pair_stats(g: torch.Tensor, xq: torch.Tensor, wq: torch.Tensor, *,
+                   repr_fmt=None, bwd=None, grad=None, packed: bool = True,
+                   quantize_g: bool = True, rounding: str = "rne",
+                   sr_seed_bwd: int = 0, sr_seed_grad: int = 0):
+    """The backward pair through K9's kernel: ``(dx, dw, bwd_stats,
+    grad_stats)``, dx and dw bitwise the stats-off pair's; each role's
+    chunk is its precision's (128, schedule only, for a wide role)."""
+    from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
+
+    b, gr = stats_kw(bwd), stats_kw(grad)
+    dx, dw, raw = qmatmul_bwd_pair(
+        g, xq, wq, repr_fmt=repr_fmt, bwd_acc=(b["e_acc"], b["m_acc"]),
+        grad_acc=(gr["e_acc"], gr["m_acc"]), bwd_chunk=b["block_k"],
+        grad_chunk=gr["block_k"], packed=packed, quantize_g=quantize_g,
+        collect_stats=True, rounding=rounding, sr_seed_bwd=sr_seed_bwd,
+        sr_seed_grad=sr_seed_grad)
+    return (dx, dw, EnsembleStats.from_raw(raw[0]),
+            EnsembleStats.from_raw(raw[1]))

@@ -454,6 +454,49 @@ def test_train_step_kernels_match_plain(dev):
         assert torch.equal(a, b)
 
 
+def test_sr_train_step_kernels_match_plain(dev):
+    """``test_train_step_kernels_match_plain`` under ``--rounding sr``: E
+    and B run their SR carries (counted on ``sr_emitq_launches`` and
+    ``sr_launches``), the lm_head stays RNE; bitwise the plain versions."""
+    from chip_smoke import plain_versions
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.policy import AccumulationPolicy, plan_for_model
+    from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
+    from repro_torch.models.api import get_model
+    from repro_torch.train.loop import _grads, compute_copy
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = plan_for_model(get_smoke_config("qwen2-1.5b"), seq_len=32,
+                         global_batch=4,
+                         policy=AccumulationPolicy(mode="predicted", chunk=16,
+                                                   rounding="sr", sr_seed=7))
+    model = get_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (4, 32)).astype(np.int32)).to(dev)
+
+    def step():
+        c = compute_copy(params)
+        loss, _ = model.loss_fn(c, {"tokens": tokens}, cfg)
+        loss.backward()
+        return loss.detach(), _grads(c, params)
+
+    e0, b0 = qmatmul_fused.sr_emitq_launches, qmatmul_bwd_pair.sr_launches
+    r0 = qmatmul_fused.emitq_launches
+    lk, gk = step()
+    torch.cuda.synchronize()
+    n_gemms = 7 * cfg.n_layers
+    assert qmatmul_fused.sr_emitq_launches == e0 + n_gemms
+    assert qmatmul_bwd_pair.sr_launches == b0 + n_gemms
+    assert qmatmul_fused.emitq_launches == r0
+    with plain_versions():
+        lp, gp = step()
+    torch.cuda.synchronize()
+    assert torch.equal(lk, lp)
+    for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+        assert torch.equal(a, b)
+
+
 # --------------------------------------------------------------------------
 # telemetry: the stats variants K8 (GEMM), K9 (backward pair), K12 (decode)
 # --------------------------------------------------------------------------
@@ -589,9 +632,9 @@ def test_stats_wrappers_raise_on_the_card(dev):
     with pytest.raises(ValueError):     # stats and residual emission
         qmatmul_fused(a, torch.randn((16, 4), device=dev), repr_fmt=FP8_152,
                       collect_stats=True, return_quantized=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):     # not a rounding mode
         qmatmul_fused(a, torch.randn((16, 4), device=dev), repr_fmt=FP8_152,
-                      collect_stats=True, rounding="sr")
+                      collect_stats=True, rounding="nearest")
     codes = torch.zeros((8, 16), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError):     # G takes no int8 codes
         qmatmul_fused(codes, codes.T.contiguous(), repr_fmt=FP8_152,
@@ -1330,3 +1373,150 @@ def test_accumulate_on_card_bitwise_cpu(dev, n, chunk):
         got = sequential_accumulate(x.to(dev), fmt)
         want = sequential_accumulate(x, fmt)
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+# --------------------------------------------------------------------------
+# stochastic rounding on the Hopper tile: E, K8, B and K9 under SR
+# --------------------------------------------------------------------------
+
+SR = dict(rounding="sr")
+
+
+@pytest.mark.parametrize("m,k,n,chunk,groups", [
+    (37, 48, 80, 64, 1),       # K < chunk; ragged M and N (padded tiles)
+    (70, 150, 130, 64, 2),     # 3 chunks
+    (100, 608, 96, 64, 4),     # K not a chunk multiple
+    (64, 304, 200, 20, 4),     # chunk 20
+    (130, 1536, 256, 64, 4),   # a layer's K, N = 256
+])
+def test_sr_emitq_and_stats_match_plain(dev, m, k, n, chunk, groups):
+    """E and K8 under SR at each chunk-group count: C (and E's codes)
+    bitwise the plain version on random and lattice operands, K8's C
+    bitwise E's (f32 operands, and on E's codes), its row against the plain
+    one; SR launches counted apart; another seed, and RNE, differ."""
+    from repro_torch.kernels.fused import qmatmul_fused_stats_reference
+    from repro_torch.kernels.sm90 import emitq_schedule
+
+    assert emitq_schedule(m, n, k, chunk).groups == groups
+    gen = torch.Generator(device=dev).manual_seed(m + 5 * k + n)
+    kw = dict(repr_fmt=FP8_152, e_acc=6, m_acc=5, block_k=chunk, sr_seed=77,
+              **SR)
+    codes = dict(kw, quantize_a=False, quantize_b=False, a_packed=True,
+                 b_packed=True)
+    for lattice in (False, True):
+        a = _operand(gen, (m, k), dev, lattice)
+        b = (_operand(gen, (k, n), dev, lattice) / math.sqrt(k)).to(
+            torch.bfloat16)
+        counts = (qmatmul_fused.sr_emitq_launches,
+                  qmatmul_fused.sr_stats_launches,
+                  qmatmul_fused.emitq_launches, qmatmul_fused.stats_launches)
+        c, aq, bq = qmatmul_fused(a, b, return_quantized=True, **kw)
+        pc, paq, pbq = qmatmul_fused_reference(a, b, return_quantized=True,
+                                               **kw)
+        k8, row = qmatmul_fused(a, b, collect_stats=True, **kw)
+        k8c, rowc = qmatmul_fused(aq, bq, collect_stats=True, **codes)
+        _, prow = qmatmul_fused_stats_reference(a, b, **kw)
+        _, prowc = qmatmul_fused_stats_reference(aq, bq, **codes)
+        other = qmatmul_fused(a, b, return_quantized=True,
+                              **dict(kw, sr_seed=78))[0]
+        rne = qmatmul_fused(a, b, return_quantized=True,
+                            **dict(kw, rounding="rne"))[0]
+        torch.cuda.synchronize()
+        assert (qmatmul_fused.sr_emitq_launches,
+                qmatmul_fused.sr_stats_launches,
+                qmatmul_fused.emitq_launches,
+                qmatmul_fused.stats_launches) == (
+                    counts[0] + 2, counts[1] + 2, counts[2] + 1, counts[3])
+        assert torch.equal(aq, paq) and torch.equal(bq, pbq)
+        assert torch.equal(c, pc)
+        assert torch.equal(k8, c) and torch.equal(k8c, c)
+        _stats_ok(row, prow)
+        _stats_ok(rowc, prowc)
+        assert not torch.equal(c, other) and not torch.equal(c, rne)
+
+
+@pytest.mark.parametrize("t,k,n,chunk,kind,groups", [
+    (40, 70, 50, 64, "int8", 1),      # K < chunk in both roles; ragged
+    (100, 130, 150, 64, "int8", 2),   # 3 and 2 chunks
+    (96, 80, 520, 64, "int8", 4),     # 9 chunks, N not a chunk multiple
+    (64, 96, 200, 24, "int8", 4),     # chunk 24
+    (48, 64, 1000, 64, "head", 4),    # f32 x, bf16 w behind the embed.T view
+])
+def test_sr_bwd_pair_and_stats_match_plain(dev, t, k, n, chunk, kind,
+                                          groups):
+    """B and K9 under SR at each chunk-group count: dx and dw bitwise the
+    plain version on random and lattice operands, K9's bitwise B's and its
+    rows against the plain ones; dx bitwise K8 on (Q(g), Q(w)^T) under the
+    BWD seed and dw K8 on (Q(x)^T, Q(g)) under the GRAD seed; SR launches
+    counted apart; other seeds differ."""
+    from repro_torch.kernels.bwd_pair import (
+        qmatmul_bwd_pair, qmatmul_bwd_pair_reference,
+        qmatmul_bwd_pair_stats_reference)
+    from repro_torch.kernels.sm90 import pair_schedule
+    from repro_torch.quant.qtensor import unpack_block
+
+    kinds = {"int8": (2, 2), "head": (0, 1)}
+    assert pair_schedule(t, k, n, chunk, chunk, *kinds[kind],
+                         int(kind != "head")).groups == groups
+    gen = torch.Generator(device=dev).manual_seed(t + 11 * k + n)
+    packed = kind == "int8"
+    rf = FP8_152 if packed else None
+    acc = (6, 5) if packed else (6, 9)
+    sb, sg = 1001, 2002
+    kw = dict(repr_fmt=rf, bwd_acc=acc, grad_acc=(6, 7), bwd_chunk=chunk,
+              grad_chunk=chunk, packed=packed, quantize_g=packed,
+              sr_seed_bwd=sb, sr_seed_grad=sg, **SR)
+    for lattice in (False, True):
+        g = _operand(gen, (t, n), dev, lattice)
+        x = _operand(gen, (t, k), dev, lattice)
+        w = _operand(gen, (k, n), dev, lattice) / 8
+        if packed:
+            x, w = _codes(x), _codes(w)
+            x32, w32 = unpack_block(x, 5, 2), unpack_block(w, 5, 2)
+            gq = quantize_block(g, 5, 2)
+        else:
+            w = w.to(torch.bfloat16).T.contiguous().T
+            x32, w32, gq = x, w.float(), g
+        counts = (qmatmul_bwd_pair.sr_launches,
+                  qmatmul_bwd_pair.sr_stats_launches,
+                  qmatmul_bwd_pair.launches)
+        dx, dw = qmatmul_bwd_pair(g, x, w, **kw)
+        pdx, pdw = qmatmul_bwd_pair_reference(g, x, w, **kw)
+        sdx, sdw, rows = qmatmul_bwd_pair(g, x, w, collect_stats=True, **kw)
+        _, _, prows = qmatmul_bwd_pair_stats_reference(g, x, w, **kw)
+        odx, odw = qmatmul_bwd_pair(g, x, w, **dict(kw, sr_seed_bwd=sb + 1,
+                                                    sr_seed_grad=sg + 1))
+        fkw = dict(collect_stats=True, quantize_a=False, quantize_b=False,
+                   block_k=chunk, **SR)
+        fdx, _ = qmatmul_fused(gq, w32.T, e_acc=acc[0], m_acc=acc[1],
+                               sr_seed=sb, **fkw)
+        fdw, _ = qmatmul_fused(x32.T, gq, e_acc=6, m_acc=7, sr_seed=sg,
+                               **fkw)
+        torch.cuda.synchronize()
+        assert (qmatmul_bwd_pair.sr_launches,
+                qmatmul_bwd_pair.sr_stats_launches,
+                qmatmul_bwd_pair.launches) == (counts[0] + 2, counts[1] + 1,
+                                               counts[2])
+        assert torch.equal(dx, pdx) and torch.equal(dw, pdw)
+        assert torch.equal(sdx, dx) and torch.equal(sdw, dw)
+        _stats_ok(rows, prows)
+        assert torch.equal(fdx, dx) and torch.equal(fdw, dw)
+        assert not torch.equal(odx, dx) and not torch.equal(odw, dw)
+
+
+def test_sr_entries_raise_on_the_card(dev):
+    """G has no SR carry on the card yet, nor B's dx carry-in entry: both
+    raise instead of falling back to the plain version."""
+    from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
+
+    a = torch.randn((8, 64), device=dev)
+    b = torch.randn((64, 32), device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        qmatmul_fused(a, b, repr_fmt=FP8_152, e_acc=6, m_acc=5, block_k=32,
+                      **SR)
+    g = torch.randn((8, 32), device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        qmatmul_bwd_pair(g, a, b, repr_fmt=None, packed=False, bwd_chunk=32,
+                         grad_chunk=32, dx_carry=torch.zeros((8, 64),
+                                                             device=dev),
+                         **SR)

@@ -225,16 +225,16 @@ def test_stats_entries_reject_what_jax_rejects():
                       return_quantized=True)
     with pytest.raises(ValueError):   # packed operands need a format
         qmatmul_fused(a.to(torch.int8), b, a_packed=True, collect_stats=True)
-    with pytest.raises(NotImplementedError):   # SR is not ported yet
+    with pytest.raises(ValueError):   # not a rounding mode
         qmatmul_fused(a, b, repr_fmt=FP8_152, collect_stats=True,
-                      rounding="sr")
+                      rounding="nearest")
     g = torch.zeros((4, 3))
     with pytest.raises(ValueError):   # the stats pair takes no carry in
         qmatmul_bwd_pair(g, a, b, repr_fmt=None, packed=False,
                          collect_stats=True, dx_carry=torch.zeros((4, 8)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         qmatmul_bwd_pair(g, a, b, repr_fmt=None, packed=False,
-                         collect_stats=True, rounding="sr")
+                         collect_stats=True, rounding="nearest")
 
 
 @pytest.mark.parametrize("extra", [

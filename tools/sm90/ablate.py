@@ -31,8 +31,8 @@ from repro_torch.kernels.fused import qmatmul_fused  # noqa: E402
 from repro_torch.models.api import dense_gemm_shapes  # noqa: E402
 
 HEADER = "qgemm_sm90.cuh"
-FOLD = ("      fold<STATS>(acc,",
-        "      if (s == steps - 1) fold<STATS>(acc,")
+FOLD = ("      fold<STATS, SR>(acc,",
+        "      if (s == steps - 1) fold<STATS, SR>(acc,")
 DECODE = ("      decode<TA>(p.a, slot, As, gt, p.qr, p.dec);\n"
           "      decode<TB>(p.b, slot + B_OFF, Bs, gt, p.qr, p.dec);\n", "")
 ISSUE = ("    if (si < steps) {", "    if (si < steps && s < 0) {")
