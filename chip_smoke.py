@@ -93,13 +93,26 @@ on its own line:
    K9's dx/dw bitwise B's, B's dx and dw bitwise the plain fused call on
    (g, Q(w)^T) and (Q(x)^T, g) at the role seeds, another seed changing
    every output, and each SR kernel timed beside its RNE run (per shape
-   and over one layer's seven calls); ``tests/test_below_knee.py``'s
+   and over one layer's seven calls); ``[sr] G``: G under SR at those
+   shapes, its decode route at M = 1, 8, 32 and 64 under each split it
+   can take and its tile route at M = 512, bitwise the plain version and
+   E's C, each timed beside RNE; ``[sr] K7``: B's dx carry-in entry under
+   SR chained over 10 N segments at mlp gate/up (N = 8960), bitwise the
+   unsplit SR B and the chained plain version, timed beside the RNE chain;
+   ``[sr] K10``: the serve prompts' dense prefill under SR, one-shot and in
+   64-token slabs through the carry, bitwise the plain version and the
+   one-shot walk, another seed changing every output, timed by CUDA-graph
+   replay beside RNE; ``tests/test_below_knee.py``'s
    regression on the card (K 8192, chunk 32, ``m_acc = knee - 2``: RNE
    stalls, SR reaches the wide loss); the train cell under ``--rounding
    sr --sr-seed 7 --policy perturbed --pp -2`` at full width and depth, 6
-   steps with the eager tick every 2 steps and step 5 in-graph (the loss
-   must fall; the SR launches of E, B, K8 and K9 counted); a 2-layer SR
-   step bitwise through the plain versions;
+   steps with the eager tick every 2 steps (its no-grad forward through G
+   under SR, no E) and step 5 in-graph (the loss must fall; the SR
+   launches of G, E, B, K8 and K9 counted); a 2-layer SR step bitwise
+   through the plain versions; a 2-layer tagged oracle step
+   (``fused=False``: the rows from K8 on its f32 residuals) against the
+   tagged fused step, loss and gradients bitwise, every row's counters and
+   MAX_ABS bitwise and its sums within ``SUM_REL``/``SUM_ABS``;
 8. analysis: the Monte Carlo of swamped accumulation on the card at
    ``tests/test_vrr_montecarlo.py``'s points under its assertions, Table
    1's assignment of the paper's three networks against the published
@@ -111,9 +124,9 @@ on its own line:
    the uninterrupted run's; bytes on disk, save and restore ms), and the
    last checkpoint served through ``launch/serve.py --ckpt-dir`` under
    its recorded precision schedule;
-10. result: one JSON line per kernel (the SR carries of E, B, K8 and K9
-   as entries of their own), the card's name and power limit, and the
-   final JSON line.
+10. result: one JSON line per kernel (the SR carries of G, E, B, K7, K8,
+   K9 and K10 as entries of their own), the card's name and power limit,
+   and the final JSON line.
 
 Any failed check exits non-zero.  Without a CUDA device it exits non-zero
 before printing a result.
@@ -324,10 +337,13 @@ SM90_TILES = [
     ("qgemm", "qgemm_tile", "qgemm_tile_kernel", [((0, 1), 2), ((0, 0), 2)]),
 ]
 # Kernels whose instantiations the build phase reports (registers, spill
-# bytes; a spill fails): the tile's, G's decode kernel, K3's tile, the
-# decode attention's (D, K12) and the prefill walk's (P, K10).
+# bytes; a spill fails): the tile's, G's decode kernel and its fold kernel
+# (each with a last template flag false/true, RNE/SR), K3's tile, the
+# decode attention's (D, K12) and the prefill walk's (P; K10 under RNE and
+# SR).
 _KERNEL = re.compile(r"(qgemm_stats_kernel|qgemm_emitq_kernel|qgemm_tile_kernel|"
-                     r"qgemm_decode_kernel|qmatmul_kernel|paged_decode_kernel|"
+                     r"qgemm_decode_kernel|qgemm_fold_kernel|qmatmul_kernel|"
+                     r"paged_decode_kernel|"
                      r"attn_prefill_kernel|"
                      r"bwd_pair_stats_kernel|bwd_pair_kernel)"
                      r"(?:I(.*?)EEv|E)")
@@ -453,8 +469,8 @@ def sm90_report(build) -> None:
         smem = build.function(lib, f"{lib}_smem", [ctypes.c_int] * 6)(*args)
         occ = build.function(lib, f"{lib}_occupancy", [ctypes.c_int] * 6)(*args)
         fit = build.function(lib, f"{lib}_clusters", [ctypes.c_int] * 6)(*args)
-        print(f"[build] attn_prefill_kernel<{str(lib == 'paged_prefill').lower()}> "
-              f"({lib}) at "
+        print(f"[build] attn_prefill_kernel<{str(lib == 'paged_prefill').lower()}, "
+              f"false> ({lib}) at "
               f"{what} (T={t}, page {ps}, {n_pages} pages): {s.rows} rows a "
               f"tile, cluster {s.cluster}, {s.rank_pages} pages a block a "
               f"round, {s.blocks} blocks of {sm90.PREFILL_THREADS} threads, "
@@ -1670,19 +1686,21 @@ def phase_train_kernels(dev) -> dict:
     return out
 
 
-def _nsplit_plain(g, x, w, kw):
-    """The chained segments through the plain version: (dx, dw)."""
+def _nsplit_plain(g, x, w, kw, segs=HEAD_SEGMENTS):
+    """The ``segs`` chained segments through the plain version, each at
+    its place in N: (dx, dw)."""
     from repro_torch.kernels.bwd_pair import (pair_segment_width,
                                               qmatmul_bwd_pair_reference)
 
     t, n = g.shape
-    seg = pair_segment_width(n, HEAD_SEGMENTS, kw["bwd_chunk"])
+    seg = pair_segment_width(n, segs, kw["bwd_chunk"])
     dx = torch.zeros((t, x.shape[1]), dtype=torch.float32, device=g.device)
     dws = []
     for lo in range(0, n, seg):
         hi = min(lo + seg, n)
         dx, dw = qmatmul_bwd_pair_reference(g[:, lo:hi], x, w[:, lo:hi],
-                                            dx_carry=dx, **kw)
+                                            dx_carry=dx, n_offset=lo,
+                                            n_total=n, **kw)
         dws.append(dw)
     return dx, torch.cat(dws, dim=1)
 
@@ -2759,7 +2777,8 @@ def phase_dense_prefill(cfg, params, dev, plan, prompts) -> dict:
                 graph_spread_ms=list(graph[1]), eager_ms=eager,
                 plain_ms=plain, library_ms=lib[0],
                 library_spread_ms=list(lib[1]), bound_ms=b_ms, bound_by=b_by,
-                mul_add_bound_ms=ma_ms, max_abs_err=err)
+                mul_add_bound_ms=ma_ms, max_abs_err=err,
+                oneshot_inputs=oneshot_inputs)
 
 
 # --------------------------------------------------------------------------
@@ -2770,16 +2789,24 @@ E_SR_NAME = "qmatmul_fused(return_quantized, rounding=sr)"
 B_SR_NAME = "qmatmul_bwd_pair(rounding=sr)"
 K8_SR_NAME = "qmatmul_fused(collect_stats, rounding=sr)"
 K9_SR_NAME = "qmatmul_bwd_pair(collect_stats, rounding=sr)"
+G_SR_NAME = "qmatmul_fused(rounding=sr)"
+G_SR_FOLD = "qmatmul_fused(rounding=sr) fold"   # a split call's fold kernel
+K7_SR_NAME = "qmatmul_bwd_pair(dx_carry, rounding=sr)"
+K10_SR_NAME = "flash_prefill(rounding=sr)"
 
 
 def _sr_counters():
-    """The SR launches of E, B, K8 and K9, counted apart, as
+    """The SR launches of G (and its split calls' fold kernel), E, B,
+    B's dx carry-in entry (K7), K8 and K9, counted apart, as
     ``_counters``."""
     from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
     from repro_torch.kernels.fused import qmatmul_fused
 
-    return {E_SR_NAME: (qmatmul_fused, "sr_emitq_launches"),
+    return {G_SR_NAME: (qmatmul_fused, "sr_launches"),
+            G_SR_FOLD: (qmatmul_fused, "sr_fold_launches"),
+            E_SR_NAME: (qmatmul_fused, "sr_emitq_launches"),
             B_SR_NAME: (qmatmul_bwd_pair, "sr_launches"),
+            K7_SR_NAME: (qmatmul_bwd_pair, "sr_carry_launches"),
             K8_SR_NAME: (qmatmul_fused, "sr_stats_launches"),
             K9_SR_NAME: (qmatmul_bwd_pair, "sr_stats_launches")}
 
@@ -3045,15 +3072,17 @@ def phase_sr_below_knee(dev) -> dict:
     return dict(wide=wide, rne=rne, sr=sr, launches=used)
 
 
-def phase_train_sr(dev, rne_step_ms: float) -> dict:
+def phase_train_sr(dev, rne_step_ms: float, rne_tick_ms=None) -> dict:
     """The train cell under ``--rounding sr --sr-seed 7 --policy perturbed
     --pp -2`` (every quantized width 2 bits under the predicted plan) at
     full width and depth through the launcher's set-up: 6 steps of 8 x 64
-    tokens with the eager telemetry tick every 2 steps (K8 under SR on the
-    synthetic layer roles) and step 5 as the in-graph tagged step (K9
-    under SR).  The loss must fall; launches are checked each step (a
-    step's E and B under SR, the lm_head's G and B under RNE); prints the
-    steady step against the RNE run's."""
+    tokens with the eager telemetry tick every 2 steps (the probe's no-grad
+    forward through G under SR, K8 under SR on the synthetic layer roles)
+    and step 5 as the in-graph tagged step (K9 under SR).  The loss must
+    fall; launches are checked each step (a step's E and B under SR, the
+    lm_head's G and B under RNE) and each tick (G under SR on every layer
+    GEMM, no E); prints the steady step against the RNE run's, and each
+    tick's time against the RNE ticks' (``rne_tick_ms``)."""
     from repro_torch.launch.train import build, build_telemetry
     from repro_torch.models.api import dense_gemm_shapes
     from repro_torch.obs.ingraph import InGraphTelemetry
@@ -3075,9 +3104,10 @@ def phase_train_sr(dev, rne_step_ms: float) -> dict:
     zero = {k: 0 for k in counters}
     want_step = dict(zero, **{E_SR_NAME: n, B_SR_NAME: n,
                               "qmatmul_fused": 1, "qmatmul_bwd_pair": 1})
-    # the probe's forward (E under SR, G on the lm_head), K8 under SR on
-    # the 7 layer tags' 3 roles and under RNE on the lm_head's 3
-    want_tick = dict(zero, **{E_SR_NAME: n, "qmatmul_fused": 1,
+    # the probe's no-grad forward (G under SR on the layer GEMMs, G under
+    # RNE on the lm_head), K8 under SR on the 7 layer tags' 3 roles and
+    # under RNE on the lm_head's 3
+    want_tick = dict(zero, **{G_SR_NAME: n, "qmatmul_fused": 1,
                               K8_SR_NAME: 21, K8_NAME: 3})
     want_tagged = dict(zero, **{E_SR_NAME: n, "qmatmul_fused": 1,
                                 K9_SR_NAME: n, K9_NAME: 1, K8_SR_NAME: n,
@@ -3086,7 +3116,7 @@ def phase_train_sr(dev, rne_step_ms: float) -> dict:
           f"--sr-seed {TRAIN_SR_SEED} --policy perturbed --pp -2, batch "
           f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_STEPS} steps, eager tick "
           f"every {TELEMETRY_CADENCE} steps, step 5 in-graph", flush=True)
-    losses, step_ms, total = [], [], dict(zero)
+    losses, step_ms, tick_ms, total = [], [], [], dict(zero)
     step_fn = make_train_step(model, tc)
     for step in range(TRAIN_STEPS):
         batch = next(data)
@@ -3128,11 +3158,15 @@ def phase_train_sr(dev, rne_step_ms: float) -> dict:
                 controller, model, state, batch, step=step + 1, gen=gen,
                 seq_len=args.seq_len, global_batch=args.global_batch)
             torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
             per = read_counts(counters)
             acts = [(e["gemm"], e["role"], e["event"], e["m_acc"],
                      e["rounding"]) for e in events if e["event"] != "ok"]
+            rne = ("" if not rne_tick_ms else
+                   f" (the RNE run's ticks {min(rne_tick_ms):.1f}-"
+                   f"{max(rne_tick_ms):.1f} ms)")
             print(f"[train] sr telemetry tick at step {step + 1}: "
-                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms, "
+                  f"{tick_ms[-1]:.1f} ms{rne}, "
                   f"{len(events)} verdicts, actions {acts}, launches "
                   f"{ {k: v for k, v in per.items() if v} }", flush=True)
             check(per == want_tick, f"sr tick launches {per} != {want_tick}")
@@ -3152,10 +3186,349 @@ def phase_train_sr(dev, rne_step_ms: float) -> dict:
           f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
           f"schedule {controller.to_meta()}; SR launches "
           f"{ {k: total[k] for k in _sr_counters()} }", flush=True)
-    for k in _sr_counters():
+    for k in (G_SR_NAME, E_SR_NAME, B_SR_NAME, K8_SR_NAME, K9_SR_NAME):
         check(total[k] > 0, f"sr: {k} was not launched by the trainer")
     del state
-    return dict(launches=total, losses=losses, step_ms=steady)
+    return dict(launches=total, losses=losses, step_ms=steady,
+                tick_ms=tick_ms)
+
+
+# --------------------------------------------------------------------------
+# stochastic rounding: G, K7 and K10 under --rounding sr; the oracle's rows
+# --------------------------------------------------------------------------
+
+G_SR_MS = (1, MAX_BATCH, 32, 64)        # M of G's decode route under SR
+G_SR_TILE_M = TRAIN_BATCH * TRAIN_SEQ   # the eager tick's forward: the tile
+# B's dx carry-in entry (K7) under SR is chained over the lm_head's JAX
+# split count at mlp gate/up (N = 8960): the JAX package splits no layer GEMM
+# at its default 8 MiB VMEM budget (one segment would be the unsplit call)
+K7_SR_SEGMENTS = HEAD_SEGMENTS
+
+
+def _g_sr_schedules(m, n, k, chunk):
+    """{label: schedule} of G's decode route at one shape under every split
+    it can take there: the one ``sm90.decode_schedule`` picks, and the
+    other of unsplit and split at the same slots."""
+    from dataclasses import replace
+
+    from repro_torch.kernels import sm90
+
+    dec = sm90.decode_schedule(m, n, k, chunk, 1)
+    if dec is None:
+        return {}
+    slices = -(-(-(-k // chunk)) // dec.slots)   # a split: a slot a chunk
+    other = replace(dec, slices=1 if dec.slices > 1 else slices,
+                    ws_floats=sm90.decode_ws(
+                        m, n, k, chunk, 1 if dec.slices > 1 else slices))
+    # where a round holds every chunk a split has one slice: no other split
+    return {f"decode (slots {s.slots}, slices {s.slices})": s
+            for s in (dec, other)}
+
+
+def phase_sr_g(dev) -> dict:
+    """``[sr] G``: G under SR at one layer's four distinct GEMM shapes of
+    the train cell (the plan's chunk 64, the SR plan's FWD role seed), on
+    random and on lattice operands: the decode route at M = 1, 8, 32 and
+    64 under each split it can take (``_g_sr_schedules``, through
+    ``qmatmul_fused_with``) and the tile route at M = 512, each bitwise the
+    plain version and E's C under the same seed; ``qmatmul_fused`` takes
+    ``sm90.g_schedule``'s route (marked ``*``).  Each case timed by CUDA
+    events beside RNE on the same inputs; then one layer's seven SR calls
+    at M = 512 (the eager tick's forward) against RNE, the plain version
+    and the bound."""
+    from repro_torch.kernels import sm90
+    from repro_torch.kernels.fused import (qmatmul_fused,
+                                           qmatmul_fused_reference,
+                                           qmatmul_fused_with)
+    from repro_torch.models.api import dense_gemm_shapes
+
+    cfg = _train_cfg(rounding="sr")
+    layer = dense_gemm_shapes(cfg, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH)[1:]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 81)
+    print(f"[sr] G: decode route at M {list(G_SR_MS)} (every split), tile "
+          f"route at M {G_SR_TILE_M}, seed {TRAIN_SR_SEED} (FWD role seed), "
+          f"vs plain and E; ms SR vs RNE by CUDA events", flush=True)
+    err, seen, weights = 0.0, set(), {}
+    for tag, _, k, n, qc in layer:
+        if (k, n) in seen:
+            continue
+        seen.add((k, n))
+        ekw, _ = _sr_kw(qc)
+        rne = dict(ekw, rounding="rne")
+        chunk = ekw["block_k"]
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             / math.sqrt(k)).to(torch.bfloat16)
+        wl = _lattice(gen, (k, n), dev).to(torch.bfloat16)
+        weights[(k, n)] = w
+        for m in G_SR_MS + (G_SR_TILE_M,):
+            routed = sm90.g_schedule(m, n, k, chunk, 0, 1)
+            tile = sm90.gemm_schedule(m, n, k, chunk, 0, 1, stats=False)
+            scheds = (_g_sr_schedules(m, n, k, chunk) if m in G_SR_MS else
+                      {f"tile (groups {tile.groups})": tile})
+            times = []
+            for label, bw in (("random", w), ("lattice", wl)):
+                a = (torch.randn((m, k), generator=gen, device=dev)
+                     if label == "random" else _lattice(gen, (m, k), dev))
+                want = qmatmul_fused_reference(a, bw, **ekw)
+                e = qmatmul_fused(a, bw, return_quantized=True, **ekw)[0]
+                err = max(err, compare(
+                    f"G sr {tag} K={k} N={n} M={m} {label} routed",
+                    qmatmul_fused(a, bw, **ekw), want, ekw["m_acc"],
+                    ekw["e_acc"], bitwise=True, quiet=True))
+                check(torch.equal(e, want), f"G sr {tag} M={m}: E's C differs")
+                for sl, sched in scheds.items():
+                    got = qmatmul_fused_with(a, bw, sched, **ekw)
+                    err = max(err, compare(
+                        f"G sr {tag} K={k} N={n} M={m} {sl} {label}", got,
+                        want, ekw["m_acc"], ekw["e_acc"], bitwise=True,
+                        quiet=True))
+                    if label == "random":
+                        sr_ms = cuda_time(lambda: qmatmul_fused_with(
+                            a, bw, sched, **ekw), reps=20)
+                        rne_ms = cuda_time(lambda: qmatmul_fused_with(
+                            a, bw, sched, **rne), reps=20)
+                        mark = "*" if sched == routed else ""
+                        times.append(f"{sl}{mark} {sr_ms:.4f} vs {rne_ms:.4f}"
+                                     f" ({sr_ms / rne_ms:.3f}x)")
+            print(f"  sr G {tag} K={k} N={n} M={m}: bitwise plain and E "
+                  f"(random, lattice); " + ", ".join(times), flush=True)
+
+    # one layer's seven SR calls at the eager tick's M, in layer order
+    t = G_SR_TILE_M
+    xs = {k: torch.randn((t, k), generator=gen, device=dev)
+          for k in {k for _, _, k, _, _ in layer}}
+    calls = [(xs[k], weights[(k, n)], _sr_kw(qc)[0])
+             for _, _, k, n, qc in layer]
+
+    def run(rounding, fn=qmatmul_fused):
+        for a, b, kw in calls:
+            fn(a, b, **dict(kw, rounding=rounding))
+
+    rne_ms = cuda_time(lambda: run("rne"), reps=5)
+    ms = cuda_time(lambda: run("sr"), reps=5)
+    plain = cuda_time(lambda: run("sr", qmatmul_fused_reference), reps=1,
+                      warmup=0)
+    # x f32 and w bf16 read, C f32 written; (1,5,2) operands at the FP8 rate
+    costs = [(t * k * 4 + k * n * 2 + t * n * 4, 2 * t * k * n, FP8_FLOPS)
+             for _, _, k, n, _ in layer]
+    b_ms, b_by = seq_bound(costs)
+    f_ms = fma_bound(costs)
+    print(f"[sr] G one layer's {len(calls)} calls at M={t} (the tile route): "
+          f"SR {ms:.3f} ms, RNE {rne_ms:.3f} ms ({ms / rne_ms:.3f}x), plain "
+          f"(SR) {plain:.1f} ms, bound {b_ms:.4f} ms ({b_by}); f32-FMA bound "
+          f"{f_ms:.3f} ms, SR at {f_ms / ms:.4f} of it, RNE at "
+          f"{f_ms / rne_ms:.4f}", flush=True)
+    return dict(ms=ms, rne_ms=rne_ms, sr_over_rne=ms / rne_ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, fma_bound_ms=f_ms,
+                library_ms=None, max_abs_err=err)
+
+
+def phase_sr_k7(dev) -> dict:
+    """``[sr] K7``: B's dx carry-in entry under SR at the train cell's
+    widest layer GEMM (mlp gate/up, T = 512, K = 1536, N = 8960, E's codes
+    at the SR plan's role seeds), chained over ``K7_SR_SEGMENTS`` N
+    segments at their place in N: dx and dw bitwise the unsplit SR B and
+    the chained plain version, on random and lattice operands, one SR
+    carry launch a segment; the chain timed beside the chained RNE call."""
+    from repro_torch.kernels.bwd_pair import (qmatmul_bwd_pair,
+                                              qmatmul_bwd_pair_nsplit)
+    from repro_torch.kernels.fused import qmatmul_fused
+    from repro_torch.models.api import dense_gemm_shapes
+
+    cfg = _train_cfg(rounding="sr")
+    tag, t, k, n, qc = max(dense_gemm_shapes(
+        cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)[1:],
+        key=lambda s: s[3])
+    ekw, bkw = _sr_kw(qc)
+    (eb, mb), (eg, mg) = bkw["bwd_acc"], bkw["grad_acc"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 91)
+    counters = _sr_counters()
+    print(f"[sr] K7: {tag} T={t} K={k} N={n} in {K7_SR_SEGMENTS} chained "
+          f"N segments under SR (role seeds of --sr-seed {TRAIN_SR_SEED})",
+          flush=True)
+    err, launches = 0.0, 0
+    for label in ("random", "lattice"):
+        mk = ((lambda s_: _lattice(gen, s_, dev)) if label == "lattice"
+              else (lambda s_: torch.randn(s_, generator=gen, device=dev)))
+        x = mk((t, k))
+        w = (mk((k, n)) / math.sqrt(k)).to(torch.bfloat16)
+        g = mk((t, n)) / (1 if label == "lattice" else math.sqrt(n))
+        _, xq, wq = qmatmul_fused(x, w, return_quantized=True, **ekw)
+        full = qmatmul_bwd_pair(g, xq, wq, **bkw)
+        zero_counts(counters)
+        chained = qmatmul_bwd_pair_nsplit(g, xq, wq, n_split=K7_SR_SEGMENTS,
+                                          **bkw)
+        used = read_counts(counters)
+        pdx, pdw = _nsplit_plain(g, xq, wq, bkw, K7_SR_SEGMENTS)
+        for what, a, b, m_, e_ in (("dx", chained[0], full[0], mb, eb),
+                                   ("dw", chained[1], full[1], mg, eg)):
+            compare(f"K7 sr {what} {label} chained vs unsplit B", a, b, m_,
+                    e_, bitwise=True)
+        err = max(err, compare(f"K7 sr dx {label} chained vs plain",
+                               chained[0], pdx, mb, eb, bitwise=True),
+                  compare(f"K7 sr dw {label} chained vs plain", chained[1],
+                          pdw, mg, eg, bitwise=True))
+        check(used[K7_SR_NAME] == K7_SR_SEGMENTS and used[B_SR_NAME] == 0,
+              f"K7 sr: launches {used} (want every segment on the SR carry "
+              f"entry)")
+        launches += used[K7_SR_NAME]
+        del full, chained, pdx, pdw
+    rne = dict(bkw, rounding="rne")
+    chain = lambda kw: qmatmul_bwd_pair_nsplit(  # noqa: E731
+        g, xq, wq, n_split=K7_SR_SEGMENTS, **kw)
+    rne_ms = cuda_time(lambda: chain(rne), reps=3, warmup=1)
+    ms = cuda_time(lambda: chain(bkw), reps=3, warmup=1)
+    plain = cuda_time(lambda: _nsplit_plain(g, xq, wq, bkw, K7_SR_SEGMENTS),
+                      reps=1, warmup=0)
+    b_ms, b_by = bound_ms(*_b_cost(t, k, n))
+    f_ms = fma_bound([_b_cost(t, k, n)])
+    print(f"[sr] K7 chain of {K7_SR_SEGMENTS} at T={t} K={k} N={n}: SR "
+          f"{ms:.3f} ms, RNE {rne_ms:.3f} ms ({ms / rne_ms:.3f}x), plain (SR) "
+          f"{plain:.1f} ms, bound {b_ms:.4f} ms ({b_by}); f32-FMA bound "
+          f"{f_ms:.3f} ms, SR at {f_ms / ms:.4f} of it, RNE at "
+          f"{f_ms / rne_ms:.4f}", flush=True)
+    return dict(ms=ms, rne_ms=rne_ms, sr_over_rne=ms / rne_ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, fma_bound_ms=f_ms,
+                library_ms=None, max_abs_err=err, phase_launches=launches)
+
+
+def phase_sr_prefill(dev, oneshot_inputs) -> dict:
+    """``[sr] K10``: the dense-prefill phase's K10 calls under SR (seed
+    ``TRAIN_SR_SEED``): the 8 serve prompts' one-shot calls at chunk 16
+    (layer 0's q, k and v), each bitwise its plain version, then walked in
+    ``SLAB``-token query slabs, the history's carry out and the slab's KV
+    in, bitwise the one-shot rows; a lattice prompt of 384 tokens bitwise
+    its plain version; another seed changes every output.  The 8 one-shot
+    calls timed by CUDA-graph replay beside RNE (as the dense-prefill
+    phase times K10), eagerly, and through the plain version."""
+    from repro_torch.kernels import attention as A
+
+    sr = dict(rounding="sr", sr_seed=TRAIN_SR_SEED)
+    h, kv = oneshot_inputs[0][0].shape[1], oneshot_inputs[0][1].shape[1]
+    dh = oneshot_inputs[0][0].shape[2]
+    print(f"[sr] K10: the {len(oneshot_inputs)} serve prompts' one-shot "
+          f"calls (H={h} KV={kv} dh={dh}) under SR, seed {TRAIN_SR_SEED}, "
+          f"and in {SLAB}-token slabs through the carry", flush=True)
+    A.flash_prefill.sr_launches = 0
+    err, resumed, differ = 0.0, 0, 0
+    for q, k, v, kw in oneshot_inputs:
+        s = q.shape[0]
+        got = A.flash_prefill(q, k, v, **kw, **sr)
+        err = max(err, _attn_check(
+            f"K10 sr one-shot S={s} chunk {kw['chunk']} acc {kw['acc']}",
+            got, A.flash_prefill_reference(q, k, v, **kw, **sr), kw["acc"],
+            bitwise=True))
+        slabs = []
+        for a in range(0, s, SLAB):
+            b = min(a + SLAB, s)
+            c = None if a == 0 else A.flash_prefill(
+                q[a:b], k[:a], v[:a], return_carry=True,
+                **dict(kw, q_offset=a), **sr)
+            slabs.append(A.flash_prefill(q[a:b], k[a:b], v[a:b], carry=c,
+                                         **dict(kw, q_offset=a, kv_offset=a),
+                                         **sr))
+        resumed += bool(torch.equal(torch.cat(slabs), got))
+        other = A.flash_prefill(q, k, v, **kw, rounding="sr",
+                                sr_seed=TRAIN_SR_SEED + 1)
+        differ += not torch.equal(other, got)
+    print(f"  K10 sr: {resumed}/{len(oneshot_inputs)} prompts' {SLAB}-token "
+          f"slabs through the carry bitwise the one-shot walk; another seed "
+          f"changes {differ}/{len(oneshot_inputs)}", flush=True)
+    check(resumed == len(oneshot_inputs), "K10 sr: a resumed walk differs")
+    check(differ == len(oneshot_inputs), "K10 sr: another seed changed "
+          "no output")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 101)
+    q, k, v, kw = oneshot_inputs[-1]
+    ql, kl, vl = (_lattice(gen, t.shape, dev) for t in (q, k, v))
+    err = max(err, _attn_check(
+        f"K10 sr S={q.shape[0]} lattice", A.flash_prefill(ql, kl, vl, **kw,
+                                                          **sr),
+        A.flash_prefill_reference(ql, kl, vl, **kw, **sr), kw["acc"],
+        bitwise=True))
+    launches = A.flash_prefill.sr_launches
+
+    def run(fn, **extra):
+        for q, k, v, kw in oneshot_inputs:
+            fn(q, k, v, **kw, **extra)
+
+    rne = lib_time(lambda: run(A.flash_prefill), reps=10)
+    graph = lib_time(lambda: run(A.flash_prefill, **sr), reps=10)
+    eager = cuda_time(lambda: run(A.flash_prefill, **sr), reps=10)
+    plain = cuda_time(lambda: run(A.flash_prefill_reference, **sr), reps=1,
+                      warmup=0)
+    cost = [((q.numel() * 2 + k.numel() * 2) * 4,
+             4 * h * dh * q.shape[0] * (q.shape[0] + 1) // 2, F32_FLOPS)
+            for q, k, _, _ in oneshot_inputs]
+    b_ms, b_by = seq_bound(cost)
+    print(f"[sr] K10 the serve prompts' one-shot prefill under SR "
+          f"({len(cost)} launches): graph replay {lib_str(graph)}, RNE "
+          f"{lib_str(rne)} ({graph[0] / rne[0]:.3f}x), eager {eager:.4f} ms, "
+          f"plain (SR) {plain:.1f} ms, bound {b_ms:.5f} ms ({b_by}), "
+          f"{b_ms / graph[0]:.4f} of it", flush=True)
+    return dict(ms=graph[0], graph_spread_ms=list(graph[1]),
+                rne_ms=rne[0], sr_over_rne=graph[0] / rne[0], eager_ms=eager,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, max_abs_err=err, phase_launches=launches)
+
+
+def phase_train_oracle_rows(dev) -> dict:
+    """The oracle's stats rows: at the 2-layer full-width cut (batch 2 x
+    seq 64) one tagged step under the oracle plan (every qdot through K2
+    and K3, its three roles' rows from K8 replays on the f32 residuals and
+    g) against the tagged fused step (FWD from K8 on E's codes, BWD and
+    GRAD from K9) on the same weights and batch: the loss and every
+    gradient leaf bitwise, the same 15 (field, role) windows, each row's
+    counters and MAX_ABS bitwise and its sums within SUM_REL/SUM_ABS
+    (``check_stats``); no K9, E or B in the oracle step."""
+    from repro_torch.models.api import get_model
+    from repro_torch.obs.ingraph import (InGraphCollector, collecting,
+                                         tag_quant_plan)
+    from repro_torch.train.loop import _grads, compute_copy
+    from repro_torch.train.optimizer import tree_leaves
+
+    counters = _oracle_counters()
+    cfg = _train_cfg(n_layers=2, batch=2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 111)
+    params = get_model(cfg).init_params(gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, TRAIN_SEQ), generator=gen,
+                           device=dev, dtype=torch.int32)
+
+    def step(c):
+        model = get_model(c)
+        col = InGraphCollector()
+        zero_counts(counters)
+        with collecting(col):
+            cc = compute_copy(params)
+            loss, _ = model.loss_fn(cc, {"tokens": tokens}, c)
+            loss.backward()
+        return loss.detach(), _grads(cc, params), col.rows(), read_counts(
+            counters)
+
+    lf, gf, rf, used_f = step(tag_quant_plan(cfg))
+    lo, go, ro, used_o = step(tag_quant_plan(oracle_plan(cfg)))
+    same = sum(bool(torch.equal(a, b)) for a, b in zip(tree_leaves(gf),
+                                                        tree_leaves(go)))
+    print(f"[train] tagged oracle vs tagged fused step, 2 layers at full "
+          f"width, batch 2 x seq {TRAIN_SEQ}: loss {float(lo):.6f} vs "
+          f"{float(lf):.6f}; {same}/{len(tree_leaves(gf))} gradient leaves "
+          f"bitwise; {len(ro)} vs {len(rf)} (field, role) windows; launches "
+          f"oracle { {k: v for k, v in used_o.items() if v} }, fused "
+          f"{ {k: v for k, v in used_f.items() if v} }", flush=True)
+    check(torch.equal(lo, lf), "tagged oracle: the loss differs")
+    check(same == len(tree_leaves(gf)), "tagged oracle: a gradient differs")
+    check(sorted(ro) == sorted(rf) and len(ro) == 15,
+          f"tagged oracle windows {sorted(ro)} != {sorted(rf)}")
+    check(used_o[K8_NAME] > 0 and all(used_o[k] == 0 for k in (
+        K9_NAME, E_NAME, "qmatmul_bwd_pair")), f"tagged oracle launches "
+          f"{used_o}")
+    err = 0.0
+    for key in sorted(rf):
+        err = max(err, check_stats(
+            f"oracle row {key[0]}/{key[1]} vs the fused step's",
+            torch.as_tensor(ro[key]), torch.as_tensor(rf[key])))
+    del params, gf, go
+    return dict(max_abs_err=err, launches=used_o)
 
 
 # --------------------------------------------------------------------------
@@ -3514,6 +3887,7 @@ def main() -> None:
     mon = phase_serve_monitor(cfg, params, dev, prompts, one)
     phase_serve_oracle(cfg, params, dev, prompts[0])
     dp = phase_dense_prefill(cfg, params, dev, plan, prompts)
+    k10_inputs = dp.pop("oneshot_inputs")
     del params
     torch.cuda.empty_cache()
 
@@ -3533,10 +3907,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     sk = phase_sr_kernels(dev)
     torch.cuda.empty_cache()
+    sg = phase_sr_g(dev)
+    torch.cuda.empty_cache()
+    s7 = phase_sr_k7(dev)
+    torch.cuda.empty_cache()
+    s10 = phase_sr_prefill(dev, k10_inputs)
+    del k10_inputs
+    torch.cuda.empty_cache()
     phase_sr_below_knee(dev)
-    ts = phase_train_sr(dev, min(tr["step_ms"][1:]))
+    ts = phase_train_sr(dev, min(tr["step_ms"][1:]), tr["tick_ms"])
     torch.cuda.empty_cache()
     phase_train_vs_plain(dev, rounding="sr")
+    torch.cuda.empty_cache()
+    phase_train_oracle_rows(dev)
     torch.cuda.empty_cache()
     phase_analysis(dev)
     torch.cuda.empty_cache()
@@ -3620,6 +4003,26 @@ def main() -> None:
              source="src/repro_torch/csrc/bwd_pair.cu",
              replaces="src/repro/kernels/bwd_pair.py:214",
              launches=ts["launches"][K9_SR_NAME], **sk["K9"]),
+        # G's SR carry on both routes: the [train] sr run's eager ticks (the
+        # probe's no-grad forward at M = 512, the tile route); timed over
+        # one layer's calls there
+        dict(name=G_SR_NAME, route="cuda",
+             source="src/repro_torch/csrc/qgemm.cu",
+             replaces="src/repro/kernels/fused.py:107",
+             launches=ts["launches"][G_SR_NAME],
+             fold_launches=ts["launches"][G_SR_FOLD], **sg),
+        # the SR carries of K7 and K10 are on no path of the train and serve
+        # cells (one unsplit B a layer; serving is RNE, as the JAX
+        # package's engine): 0 launches there; phase_launches counts their
+        # own phases' calls
+        dict(name=K7_SR_NAME, route="cuda",
+             source="src/repro_torch/csrc/bwd_pair.cu",
+             replaces="src/repro/kernels/bwd_pair.py:155",
+             launches=ts["launches"][K7_SR_NAME], **s7),
+        dict(name=K10_SR_NAME, route="cuda",
+             source="src/repro_torch/csrc/flash_prefill.cu",
+             replaces="src/repro/kernels/attention.py:258",
+             launches=0, **s10),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

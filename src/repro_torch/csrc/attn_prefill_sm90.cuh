@@ -53,6 +53,17 @@
 // R and PIECE) change no bit.  No tensor-core MMA forms a sum: its order
 // would differ from the sequential chains.
 //
+// Stochastic rounding (K10 only; an SR template flag, so P and K10 under
+// RNE keep their code): the o and l carries round with quantize_sr and
+// dither bits keyed as repro/kernels/attention.py::_sr_attn_bits keys
+// them.  Page p of the walk is KV block col0 / PS + p of the sequence (the
+// step); o's flat index is (absolute row) * H * DH + head * DH + d, l's
+// (absolute row) * H + head under seed ^ L_SALT, every product mod 2^32.
+// The bits depend on the absolute block, row, head and feature only, so a
+// resumed walk draws the one-shot walk's.  Pages the walk skips are
+// carry no-ops under SR too: a representable carry is a fixed point of the
+// dither, as the JAX package's predication argues.
+//
 // Shared memory.  q of the tile, one K piece, the rank's R pages of scores,
 // one copied rank's probabilities, one V piece of the rank's columns, the
 // o carries (and the p.v partials of a page longer than a piece), and the
@@ -67,6 +78,9 @@
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
+
+// the l carry's seed salt (repro/kernels/attention.py::_L_SALT)
+#define PREFILL_L_SALT 0x6A09E667u
 
 // mirrored in repro_torch/kernels/sm90.py (PREFILL_*)
 #define PREFILL_THREADS 256
@@ -164,7 +178,17 @@ struct PrefillArgs {
   float scale;
   int e_kv, m_kv;
   QFmt qacc;
+  unsigned seed;  // the SR dither's seed (SR instantiations only)
 };
+
+// SR: the flat index of chain hr's carry column 0 over absolute rows, o's
+// (width H * DH, the chain's head * DH on) with d = DH, l's (width H) with
+// d = 1
+__device__ __forceinline__ unsigned sr_flat(const PrefillArgs& a, int r0, int hk, int hr,
+                                            int d) {
+  const unsigned row = (unsigned)(a.q_off + r0 + hr / a.G);
+  return row * (unsigned)(a.H * d) + (unsigned)((hk * a.G + hr % a.G) * d);
+}
 
 // 4 codes of a K or V page row from d, packed in an int (zero past DH)
 __device__ __forceinline__ int code4(const PrefillArgs& a, const int8_t* codes,
@@ -241,12 +265,15 @@ __device__ __forceinline__ void pv_step(float4& acc, float x, float4 v) {
 // order.  A piece holds nb whole pages of len tokens, or (nb = 1) a run of
 // len tokens of one page: its p.v goes on from pva unless the run starts
 // the page (first), and is left in pva unless it ends the page (last).
-template <int RB, int KB>
+// SR: page k of the round is the walk's step step0 + k; the tile's rows
+// start at r0, its KV head is hk and this rank's columns at d0.
+template <int RB, int KB, bool SR>
 __device__ __forceinline__ void pv_piece(const PrefillArgs& a, const Layout& L,
                                          const float* P, const float* vf,
                                          float* oc, float* pva,
                                          const float* al_all, int o0, int s0,
-                                         int len, int nb, bool first, bool last) {
+                                         int len, int nb, bool first, bool last,
+                                         int step0, int r0, int hk, int d0) {
   const int HR = L.HR, nd4 = L.dsl / 4, HH = cdiv(HR, RB);
   const float4* V = reinterpret_cast<const float4*>(vf);
   const bool vec = (len | s0) % 4 == 0;
@@ -307,14 +334,29 @@ __device__ __forceinline__ void pv_piece(const PrefillArgs& a, const Layout& L,
         }
         float4* ov = reinterpret_cast<float4*>(oc + hr[r] * L.dsl) + dq;
         float4 o = *ov;
+        unsigned flat = 0;  // SR: the flat index of the thread's first column
+        if constexpr (SR) flat = sr_flat(a, r0, hk, hr[r], a.DH) + (unsigned)(d0 + 4 * dq);
 #pragma unroll
         for (int k = 0; k < KB; ++k) {
           if (kb + k >= nb) continue;
-          const float al = al_all[(o0 + (s0 + (kb + k) * len) / a.PS) * HR + hr[r]];
-          o.x = quantize_rne(__fadd_rn(__fmul_rn(o.x, al), acc[r][k].x), a.qacc);
-          o.y = quantize_rne(__fadd_rn(__fmul_rn(o.y, al), acc[r][k].y), a.qacc);
-          o.z = quantize_rne(__fadd_rn(__fmul_rn(o.z, al), acc[r][k].z), a.qacc);
-          o.w = quantize_rne(__fadd_rn(__fmul_rn(o.w, al), acc[r][k].w), a.qacc);
+          const int pg = o0 + (s0 + (kb + k) * len) / a.PS;
+          const float al = al_all[pg * HR + hr[r]];
+          if constexpr (SR) {
+            const unsigned st = (unsigned)(step0 + pg);
+            o.x = quantize_sr(__fadd_rn(__fmul_rn(o.x, al), acc[r][k].x), a.qacc,
+                              sr_bits(a.seed, st, flat));
+            o.y = quantize_sr(__fadd_rn(__fmul_rn(o.y, al), acc[r][k].y), a.qacc,
+                              sr_bits(a.seed, st, flat + 1u));
+            o.z = quantize_sr(__fadd_rn(__fmul_rn(o.z, al), acc[r][k].z), a.qacc,
+                              sr_bits(a.seed, st, flat + 2u));
+            o.w = quantize_sr(__fadd_rn(__fmul_rn(o.w, al), acc[r][k].w), a.qacc,
+                              sr_bits(a.seed, st, flat + 3u));
+          } else {
+            o.x = quantize_rne(__fadd_rn(__fmul_rn(o.x, al), acc[r][k].x), a.qacc);
+            o.y = quantize_rne(__fadd_rn(__fmul_rn(o.y, al), acc[r][k].y), a.qacc);
+            o.z = quantize_rne(__fadd_rn(__fmul_rn(o.z, al), acc[r][k].z), a.qacc);
+            o.w = quantize_rne(__fadd_rn(__fmul_rn(o.w, al), acc[r][k].w), a.qacc);
+          }
         }
         *ov = o;
       }
@@ -377,7 +419,7 @@ __device__ __forceinline__ void score_piece(const PrefillArgs& a,
   }
 }
 
-template <bool PAGED>
+template <bool PAGED, bool SR>
 __global__ void __launch_bounds__(PREFILL_THREADS, 2)
     attn_prefill_kernel(const __grid_constant__ PrefillArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -450,6 +492,7 @@ __global__ void __launch_bounds__(PREFILL_THREADS, 2)
 
   for (int base = a.first_page; base < p_end; base += cap) {
     const int npr = min(cap, p_end - base);  // the round's pages
+    const int step0 = a.col0 / PS + base;    // SR: the round's first KV block
     const int per = cdiv(npr, CL);
     const int my0 = min(rank * per, npr), mine = min(my0 + per, npr) - my0;
     if constexpr (PAGED) {
@@ -526,9 +569,14 @@ __global__ void __launch_bounds__(PREFILL_THREADS, 2)
     // the l fold on the last threads, which take the fewest p.v outputs
     for (int hr = PREFILL_THREADS - 1 - tid; hr < HR; hr += PREFILL_THREADS) {
       float l = ml[HR + hr];
-      for (int k = 0; k < npr; ++k)
-        l = quantize_rne(__fadd_rn(__fmul_rn(l, al_all[k * HR + hr]), ls_all[k * HR + hr]),
-                         a.qacc);
+      const unsigned flat = SR ? sr_flat(a, r0, hk, hr, 1) : 0u;
+      for (int k = 0; k < npr; ++k) {
+        const float v = __fadd_rn(__fmul_rn(l, al_all[k * HR + hr]), ls_all[k * HR + hr]);
+        if constexpr (SR)
+          l = quantize_sr(v, a.qacc, sr_bits(a.seed ^ PREFILL_L_SALT, (unsigned)(step0 + k), flat));
+        else
+          l = quantize_rne(v, a.qacc);
+      }
       ml[HR + hr] = l;
     }
 
@@ -558,9 +606,11 @@ __global__ void __launch_bounds__(PREFILL_THREADS, 2)
         stage<PAGED>(a, vf, dsl, dsl, a.vp, a.v, ids, vsc, hk, base, c_on + s0, n, d0);
         __syncthreads();
         if (HR * (dsl / 4) >= PREFILL_PV_TWO_ROWS)
-          pv_piece<2, PREFILL_PV_PAGES / 2>(a, L, P, vf, oc, pva, al_all, o0, s0, len, nb, first, last);
+          pv_piece<2, PREFILL_PV_PAGES / 2, SR>(a, L, P, vf, oc, pva, al_all, o0, s0, len, nb,
+                                                first, last, step0, r0, hk, d0);
         else
-          pv_piece<1, PREFILL_PV_PAGES>(a, L, P, vf, oc, pva, al_all, o0, s0, len, nb, first, last);
+          pv_piece<1, PREFILL_PV_PAGES, SR>(a, L, P, vf, oc, pva, al_all, o0, s0, len, nb, first,
+                                            last, step0, r0, hk, d0);
         s0 += n;
       }
     }
@@ -590,12 +640,12 @@ __global__ void __launch_bounds__(PREFILL_THREADS, 2)
 }
 
 // the dynamic shared memory a launch may take, raised once per size
-template <bool PAGED>
+template <bool PAGED, bool SR>
 int allow_smem(int bytes) {
   static int allowed = 48 * 1024;
   if (bytes <= allowed) return 0;
   const cudaError_t e = cudaFuncSetAttribute(
-      attn_prefill_kernel<PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      attn_prefill_kernel<PAGED, SR>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   allowed = bytes;
   return 0;
@@ -618,7 +668,7 @@ inline cudaLaunchConfig_t launch_config(int blocks, int smem, cudaStream_t s,
 }
 
 // one launch over every (KV head, row tile), CL blocks a tile
-template <bool PAGED>
+template <bool PAGED, bool SR = false>
 int launch(PrefillArgs a, int CL, cudaStream_t s) {
   if (a.T <= 0) return 0;
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) & 15 | (PAGED
@@ -626,35 +676,36 @@ int launch(PrefillArgs a, int CL, cudaStream_t s) {
       : (reinterpret_cast<uintptr_t>(a.k) | reinterpret_cast<uintptr_t>(a.v)) & 15);
   a.vec = a.DH % 4 == 0 && ptrs == 0;
   const int smem = Layout(a.G, a.BR, a.PS, a.DH, CL, a.R).bytes();
-  if (const int rc = allow_smem<PAGED>(smem)) return rc;
+  if (const int rc = allow_smem<PAGED, SR>(smem)) return rc;
   cudaLaunchAttribute attr;
   const int blocks = a.KV * cdiv(a.T, a.BR) * CL;
   const cudaLaunchConfig_t cfg = launch_config(blocks, smem, s, &attr, CL);
-  cudaError_t e = cudaLaunchKernelEx(&cfg, attn_prefill_kernel<PAGED>, a);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, attn_prefill_kernel<PAGED, SR>, a);
   if (e == cudaSuccess) e = cudaGetLastError();
   return static_cast<int>(e);
 }
 
 // resident blocks an SM, or minus the CUDA error
-template <bool PAGED>
+template <bool PAGED, bool SR = false>
 int occupancy(int G, int BR, int PS, int DH, int CL, int R) {
   const int smem = Layout(G, BR, PS, DH, CL, R).bytes();
-  if (const int rc = allow_smem<PAGED>(smem)) return -rc;
+  if (const int rc = allow_smem<PAGED, SR>(smem)) return -rc;
   int n = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, attn_prefill_kernel<PAGED>, PREFILL_THREADS, smem);
+      &n, attn_prefill_kernel<PAGED, SR>, PREFILL_THREADS, smem);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 // clusters that fit the card at once, or minus the CUDA error
-template <bool PAGED>
+template <bool PAGED, bool SR = false>
 int clusters(int G, int BR, int PS, int DH, int CL, int R) {
   const int smem = Layout(G, BR, PS, DH, CL, R).bytes();
-  if (const int rc = allow_smem<PAGED>(smem)) return -rc;
+  if (const int rc = allow_smem<PAGED, SR>(smem)) return -rc;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(CL * 1024, smem, nullptr, &attr, CL);
   int n = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, attn_prefill_kernel<PAGED>, &cfg);
+  const cudaError_t e =
+      cudaOccupancyMaxActiveClusters(&n, attn_prefill_kernel<PAGED, SR>, &cfg);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 

@@ -39,8 +39,13 @@
 // and its N-chunk, dw under seed_grad at its (k, n) output and its
 // T-chunk, so dx is bitwise the fused GEMM of Q(g) and w^T under seed_bwd,
 // and dw that of x^T and Q(g) under seed_grad (repro/kernels/bwd_pair.py's
-// contract).  The dx carry-in entry takes no SR: its dither would key on
-// the global N chunk and dw column, an offset the entry does not take.
+// contract).  A segment of the split pair (K7, with the dx carry in) keys
+// on the unsplit call's coordinates, as _pair_kernel_seg's step_off,
+// col_off and n_total: its dx chunks start at N chunk n_offset / bwd_chunk
+// (Gemm::chunk0; the flat index (t, k) of K columns is unchanged), and its
+// dw column n is logical column n_offset + n of n_total (Gemm::col0, ldf;
+// the T chunk is unchanged).  So the chained segments draw the unsplit
+// call's bits.
 //
 // bwd_pair_stats is the swamping-telemetry variant (K9, replacing
 // ::_pair_kernel_stats): the same pair grid on the same tile with its STATS
@@ -159,9 +164,10 @@ int launch(const float* g, long long sgt, long long sgn, const void* x,
            int K, int N, int bwd_chunk, int grad_chunk, sm90::Quant qr, int quant_g,
            sm90::Dec dec, sm90::Quant qbwd, sm90::Quant qgrad, int groups,
            unsigned seed_bwd, unsigned seed_grad, __nv_bfloat16* gq, double* part,
-           float* stats, cudaStream_t s) {
+           float* stats, int n_offset, int n_total, cudaStream_t s) {
   if (!valid_groups(groups)) return static_cast<int>(cudaErrorInvalidValue);
-  if (SR && dx_carry != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (SR && (n_offset % bwd_chunk != 0 || n_total < n_offset + N))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = pair_blocks(T, K, N);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const void* G = g;
@@ -181,11 +187,13 @@ int launch(const float* g, long long sgt, long long sgn, const void* x,
   // (k = n, n = k)
   p.dx = sm90::Gemm{sm90::operand(G, sizeof(TG), sgt, sgn, T, bwd_chunk, quant_g),
                     sm90::operand(w, sizeof(TW), swk, swn, K, bwd_chunk, 0),
-                    dx, K, dx_carry, T, K, N, bwd_chunk, qr, qbwd, dec, seed_bwd};
+                    dx, K, dx_carry, T, K, N, bwd_chunk, qr, qbwd, dec, seed_bwd,
+                    n_offset / bwd_chunk};
   // dw[k, n] = sum_t x[t, k] g[t, n]: A = x^T (m = k, k = t), B = g
   p.dw = sm90::Gemm{sm90::operand(x, sizeof(TX), sxk, sxt, K, grad_chunk, 0),
                     sm90::operand(G, sizeof(TG), sgn, sgt, N, grad_chunk, quant_g),
-                    dw, N, nullptr, K, N, T, grad_chunk, qr, qgrad, dec, seed_grad};
+                    dw, N, nullptr, K, N, T, grad_chunk, qr, qgrad, dec, seed_grad,
+                    0, n_offset, n_total};
   p.dx_tiles_n = (K + TILE - 1) / TILE;
   p.dx_blocks = ((T + TILE - 1) / TILE) * p.dx_tiles_n;
   p.dw_tiles_n = (N + TILE - 1) / TILE;
@@ -243,7 +251,7 @@ int run(const void* g, long long sgt, long long sgn, const void* x, int x_kind,
         long long sxt, long long sxk, const void* w, int w_kind, long long swk,
         long long swn, const void* dx_carry, void* dx, void* dw, int T, int K, int N,
         int bwd_chunk, int grad_chunk, int quant_g, int groups, const Call& c,
-        void* part, void* stats) {
+        void* part, void* stats, int n_offset, int n_total) {
   if (c.gq != nullptr && !quant_g) return static_cast<int>(cudaErrorInvalidValue);
   return by_kinds(x_kind, w_kind, c.gq != nullptr, [&](auto tx, auto tw, auto tg) {
     using TX = decltype(tx);
@@ -255,7 +263,7 @@ int run(const void* g, long long sgt, long long sgn, const void* x, int x_kind,
           static_cast<const float*>(dx_carry), static_cast<float*>(dx),
           static_cast<float*>(dw), T, K, N, bwd_chunk, grad_chunk, c.qr, quant_g, c.dec,
           c.qbwd, c.qgrad, groups, c.seed_bwd, c.seed_grad, c.gq,
-          static_cast<double*>(part), static_cast<float*>(stats), c.s);
+          static_cast<double*>(part), static_cast<float*>(stats), n_offset, n_total, c.s);
     };
     return c.sr ? go(std::true_type{}) : go(std::false_type{});
   });
@@ -276,7 +284,10 @@ Call call_of(int e_r, int m_r, QFmt qr, QFmt qbwd, QFmt qgrad, int sr, unsigned 
 // scratch that takes Q(g) first (quant_g with m_r <= 7).  groups: chunk
 // groups a block (1, 2 or 4; kernels/sm90.py picks them).  sr: stochastic
 // rounding of both carries, dx's dithered under seed_bwd and dw's under
-// seed_grad (no dx_carry then).  Returns the cudaError_t of the launches.
+// seed_grad, at the coordinates of the unsplit N: this call's g and w are
+// columns [n_offset, n_offset + N) of n_total (n_offset a multiple of
+// bwd_chunk; 0 and N for an unsplit call).  Returns the cudaError_t of the
+// launches.
 extern "C" int bwd_pair(const void* g, long long sgt, long long sgn,
                         const void* x, int x_kind, long long sxt,
                         long long sxk, const void* w, int w_kind,
@@ -287,15 +298,15 @@ extern "C" int bwd_pair(const void* g, long long sgt, long long sgn,
                         int quant_g, int b_identity, int b_shift, float b_max,
                         float b_min, int w_identity, int w_shift,
                         float w_max, float w_min, int groups, int sr,
-                        unsigned seed_bwd, unsigned seed_grad, void* gq,
-                        void* stream) {
+                        unsigned seed_bwd, unsigned seed_grad, int n_offset,
+                        int n_total, void* gq, void* stream) {
   const Call c = call_of(e_r, m_r, QFmt{r_identity, r_shift, r_max, r_min},
                          QFmt{b_identity, b_shift, b_max, b_min},
                          QFmt{w_identity, w_shift, w_max, w_min}, sr, seed_bwd,
                          seed_grad, gq, stream);
   return run<false>(g, sgt, sgn, x, x_kind, sxt, sxk, w, w_kind, swk, swn, dx_carry, dx,
                     dw, T, K, N, bwd_chunk, grad_chunk, quant_g, groups, c, nullptr,
-                    nullptr);
+                    nullptr, n_offset, n_total);
 }
 
 // K9: bwd_pair (no carry in; sr and the seeds as there) plus stats
@@ -319,7 +330,7 @@ extern "C" int bwd_pair_stats(const void* g, long long sgt, long long sgn,
                          QFmt{w_identity, w_shift, w_max, w_min}, sr, seed_bwd,
                          seed_grad, gq, stream);
   return run<true>(g, sgt, sgn, x, x_kind, sxt, sxk, w, w_kind, swk, swn, nullptr, dx, dw,
-                   T, K, N, bwd_chunk, grad_chunk, quant_g, groups, c, part, stats);
+                   T, K, N, bwd_chunk, grad_chunk, quant_g, groups, c, part, stats, 0, N);
 }
 
 // Partial rows bwd_pair_stats writes (its workspace `part`, in doubles:

@@ -1,6 +1,10 @@
 // K10: dense causal flash prefill of one sequence, resumable.
 //
-// Replaces repro/kernels/attention.py::_prefill_kernel (flash_prefill, RNE).
+// Replaces repro/kernels/attention.py::_prefill_kernel (flash_prefill, RNE
+// and, with sr, its stochastic-rounding carries: the walk's SR
+// instantiation, keyed on the absolute KV block, row, head and feature as
+// _sr_attn_bits keys them, so a resumed walk stays bitwise the one-shot
+// walk under SR too).
 // q (S, H, dh) f32 at absolute rows q_off + i; k, v (Sk, KV, dh) f32 (the
 // dequantized KV view) at absolute columns kv_off + j, walked in
 // chunk-long steps by attn_prefill_sm90.cuh's walk: each chunk's K/V rows
@@ -28,14 +32,16 @@
 // out (S, H, dh); om/ol (S, H) or null (finalized output).  All f32,
 // contiguous.  chunk <= MAX_CHUNK, dh <= MAX_DH; BR rows a tile, CL blocks
 // a tile (one cluster), R chunks a block a round
-// (sm90.attn_prefill_schedule).  Returns the cudaError_t of the launch.
+// (sm90.attn_prefill_schedule); sr: the carries round stochastically under
+// `seed`.  Returns the cudaError_t of the launch.
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              const void* co, const void* cm, const void* cl,
                              void* out, void* om, void* ol, int S, int H,
                              int Sk, int KV, int DH, int chunk, int q_off,
                              int kv_off, float scale, int c_identity,
                              int c_shift, float c_max, float c_min, int BR,
-                             int CL, int R, void* stream) {
+                             int CL, int R, int sr, unsigned seed,
+                             void* stream) {
   if (DH > MAX_DH || chunk > MAX_CHUNK || chunk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   prefill::PrefillArgs a = {};
@@ -54,7 +60,9 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
   a.BR = BR; a.R = R;
   a.scale = scale;
   a.qacc = QFmt{c_identity, c_shift, c_max, c_min};
-  return prefill::launch<false>(a, CL, static_cast<cudaStream_t>(stream));
+  a.seed = seed;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return sr ? prefill::launch<false, true>(a, CL, s) : prefill::launch<false>(a, CL, s);
 }
 
 // a block's dynamic shared memory (sm90.attn_prefill_smem mirrors it)

@@ -2,8 +2,8 @@
 // serving path's GEMM (decode, prefill slabs, the tied lm_head) and the
 // training step's lm_head forward and the eager telemetry tick's forwards.
 //
-// G replaces repro/kernels/fused.py::_fused_kernel (RNE carry, f32 or bf16
-// operands, no out_fmt/pack_out epilogue).  C[M,N] = sum over chunks of
+// G replaces repro/kernels/fused.py::_fused_kernel (RNE and SR carries, f32
+// or bf16 operands, no out_fmt/pack_out epilogue).  C[M,N] = sum over chunks of
 // carry = q_acc(carry + Q(A_chunk) . Q(B_chunk)), chunk = the plan's n1:
 // within a chunk part = fma(a_k, b_k, part) in increasing k from 0, f32
 // round to nearest; once a chunk carry = q_acc(carry + part); a ragged last
@@ -43,6 +43,17 @@
 //   carry over K8's grid (chunk groups from the chunk count), bounded by
 //   the f32 FMAs on the CUDA cores since the bitwise contract keeps the
 //   tensor cores out; its C is bitwise K8's on the same operands.
+//
+// Stochastic rounding (an SR template flag on the decode kernel, its fold
+// kernel and the tile): each carry update rounds with quant_sr and the
+// dither sr_bits(seed, c, m * N + n) of common.cuh, c the chunk's index in
+// the K walk and (m, n) the output, every product mod 2^32: the stream of
+// the JAX package's SR kernel and of E, K8 and the plain version, so C is
+// bitwise theirs under one seed on either route and any split.  In the
+// unsplit decode route a block folds its chunks in rounds of `slots`, so a
+// round's chunk q is c0 + q; the split call's fold kernel walks c from 0.
+// The flag is a template argument, so the RNE kernels keep their code,
+// their 64 registers and their four blocks an SM.
 //
 // Both kernels take their arguments in the parameter space
 // (__grid_constant__): passed by value, nvcc 12.9 built G's earlier tile
@@ -89,7 +100,18 @@ struct Decode {
   int slices;     // blocks along the chunks (1: no split)
   int b_vec;      // whole-word (row) or 16-byte (k-contiguous) loads of B
   sm90::Quant qa, qb, qacc;  // qa/qb: the identity where not quantized
+  unsigned seed;  // the SR dither's seed (SR instantiations only)
 };
+
+// A carry update: carry + part rounded to q, stochastically (SR) with the
+// dither of chunk c at flat index `flat`
+template <bool SR>
+__device__ __forceinline__ float carry_add(float carry, float part, const Decode& p,
+                                           unsigned c, unsigned flat) {
+  const float v = __fadd_rn(carry, part);
+  if constexpr (SR) return sm90::quant_sr(v, p.qacc, sr_bits(p.seed, c, flat));
+  return sm90::quant(v, p.qacc);
+}
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(bf v) { return __bfloat162float(v); }
@@ -257,7 +279,7 @@ __device__ __forceinline__ void stage_a(const Decode& p, const TA* A, int m0, lo
 // One warp takes one chunk of a strip (a chunk slot) for the block's row
 // group; the block's slots take consecutive chunks, in rounds of `slots`
 // chunks where the call is not split.
-template <typename TA, typename TB, bool KFAST>
+template <typename TA, typename TB, bool KFAST, bool SR>
 __global__ void __launch_bounds__(MAX_SLOTS * LANES, 4)
     qgemm_decode_kernel(const __grid_constant__ Decode p) {
   constexpr int V = vlen<TB>(), W = LANES * V;
@@ -324,9 +346,11 @@ __global__ void __launch_bounds__(MAX_SLOTS * LANES, 4)
       __syncthreads();
       const int nr = min(slots, c_end - c0);
       for (int o = threadIdx.x; o < ROWS * W; o += blockDim.x) {
+        // rows past M and columns past N alias flat indices: never stored
+        const unsigned flat = (unsigned)(m0 + o / W) * (unsigned)p.N + (unsigned)(n0 + o % W);
         float carry = Cs[o];
         for (int q = 0; q < nr; ++q)
-          carry = sm90::quant(__fadd_rn(carry, As[q * ROWS * W + o]), p.qacc);
+          carry = carry_add<SR>(carry, As[q * ROWS * W + o], p, (unsigned)(c0 + q), flat);
         Cs[o] = carry;
       }
     }
@@ -341,6 +365,7 @@ __global__ void __launch_bounds__(MAX_SLOTS * LANES, 4)
 
 // A split call's fold, one thread an output: its chunk partials in chunk
 // order
+template <bool SR>
 __global__ void __launch_bounds__(FOLD_THREADS) qgemm_fold_kernel(const __grid_constant__ Decode p) {
   const long long o = (long long)blockIdx.x * FOLD_THREADS + threadIdx.x;
   if (o >= (long long)p.M * p.N) return;
@@ -349,19 +374,19 @@ __global__ void __launch_bounds__(FOLD_THREADS) qgemm_fold_kernel(const __grid_c
   float carry = 0.0f;
 #pragma unroll 4
   for (int c = 0; c < nc; ++c)
-    carry = sm90::quant(__fadd_rn(carry, p.ws[o + c * stride]), p.qacc);
+    carry = carry_add<SR>(carry, p.ws[o + c * stride], p, (unsigned)c, (unsigned)o);
   p.C[o] = carry;
 }
 
 bool valid_slots(int slots) { return slots >= 1 && slots <= MAX_SLOTS; }
 
-template <typename TA, typename TB, bool KFAST>
+template <typename TA, typename TB, bool KFAST, bool SR = false>
 int decode_set_smem(int bytes) {
-  return static_cast<int>(cudaFuncSetAttribute(qgemm_decode_kernel<TA, TB, KFAST>,
+  return static_cast<int>(cudaFuncSetAttribute(qgemm_decode_kernel<TA, TB, KFAST, SR>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-template <typename TA, typename TB, bool KFAST>
+template <typename TA, typename TB, bool KFAST, bool SR>
 int decode_launch(const Decode& p, int slots, cudaStream_t s) {
   constexpr int W = LANES * vlen<TB>();
   const long long nc = ((long long)p.K + p.chunk - 1) / p.chunk;
@@ -371,40 +396,41 @@ int decode_launch(const Decode& p, int slots, cudaStream_t s) {
     return static_cast<int>(cudaErrorInvalidValue);
   const int bytes = decode_smem(slots, p.chunk, W);
   // above the default 48 KiB only (a long chunk): the call costs host time
-  int rc = bytes > 48 * 1024 ? decode_set_smem<TA, TB, KFAST>(bytes) : 0;
+  int rc = bytes > 48 * 1024 ? decode_set_smem<TA, TB, KFAST, SR>(bytes) : 0;
   if (rc != 0) return rc;
   dim3 grid((p.N + W - 1) / W, p.slices, (p.M + ROWS - 1) / ROWS);
-  qgemm_decode_kernel<TA, TB, KFAST><<<grid, slots * LANES, bytes, s>>>(p);
+  qgemm_decode_kernel<TA, TB, KFAST, SR><<<grid, slots * LANES, bytes, s>>>(p);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0 || !split) return rc;
   const long long outs = (long long)p.M * p.N;
-  qgemm_fold_kernel<<<(unsigned)((outs + FOLD_THREADS - 1) / FOLD_THREADS), FOLD_THREADS, 0, s>>>(p);
+  qgemm_fold_kernel<SR><<<(unsigned)((outs + FOLD_THREADS - 1) / FOLD_THREADS), FOLD_THREADS, 0,
+                          s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // B's layout: KFAST where k is the contiguous axis (the tied head's embed.T)
 bool b_kfast(long long sbk, long long sbn) { return sbk == 1 && sbn != 1; }
 
-template <typename TA, typename TB>
+template <typename TA, typename TB, bool SR>
 int decode(const Decode& p0, int slots, cudaStream_t s) {
   Decode p = p0;
   const long long E = sizeof(TB);
   const uintptr_t base = reinterpret_cast<uintptr_t>(p.B);
   if (b_kfast(p.sbk, p.sbn)) {  // 16-byte pieces of KS values of k
     p.b_vec = base % 16 == 0 && (p.sbn * E) % 16 == 0 && ((long long)p.chunk * E) % 16 == 0;
-    return decode_launch<TA, TB, true>(p, slots, s);
+    return decode_launch<TA, TB, true, SR>(p, slots, s);
   }
   p.b_vec = base % 4 == 0 && p.sbn == 1 && (p.sbk * E) % 4 == 0;  // one word a row
-  return decode_launch<TA, TB, false>(p, slots, s);
+  return decode_launch<TA, TB, false, SR>(p, slots, s);
 }
 
 // --------------------------------------------------------------- tile ---
 
-template <typename TA, typename TB>
+template <typename TA, typename TB, bool SR>
 __global__ void __launch_bounds__(4 * sm90::GT, 2)
     qgemm_tile_kernel(const __grid_constant__ sm90::Gemm p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sm90::block_tile<TA, TB, sm90::stage_bytes<TA, TB>(), false>(
+  sm90::block_tile<TA, TB, sm90::stage_bytes<TA, TB>(), false, SR>(
       p, blockIdx.y * sm90::TILE, blockIdx.x * sm90::TILE, smem, nullptr);
 }
 
@@ -415,26 +441,26 @@ int tile_smem(int groups) {
   return sm90::smem_bytes(sm90::stage_bytes<TA, TB>(), groups, false);
 }
 
-template <typename TA, typename TB>
+template <typename TA, typename TB, bool SR = false>
 int tile_set_smem(int groups) {
   return static_cast<int>(cudaFuncSetAttribute(
-      qgemm_tile_kernel<TA, TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      qgemm_tile_kernel<TA, TB, SR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       tile_smem<TA, TB>(groups)));
 }
 
-template <typename TA, typename TB>
+template <typename TA, typename TB, bool SR>
 int tile(const void* A, long long sam, long long sak, const void* B, long long sbk,
          long long sbn, float* C, int M, int N, int K, int chunk, QFmt qr, int qa, int qb,
-         QFmt qacc, int groups, cudaStream_t s) {
+         QFmt qacc, unsigned seed, int groups, cudaStream_t s) {
   if (!valid_groups(groups)) return static_cast<int>(cudaErrorInvalidValue);
   const sm90::Gemm p{sm90::operand(A, sizeof(TA), sam, sak, M, chunk, qa),
                      sm90::operand(B, sizeof(TB), sbn, sbk, N, chunk, qb),
                      C, N, nullptr, M, N, K, chunk, sm90::quant_of(qr), sm90::quant_of(qacc),
-                     sm90::dec_of(5, 2)};  // no int8 operands here
-  int rc = tile_set_smem<TA, TB>(groups);
+                     sm90::dec_of(5, 2), seed};  // no int8 operands here
+  int rc = tile_set_smem<TA, TB, SR>(groups);
   if (rc != 0) return rc;
   dim3 grid((N + sm90::TILE - 1) / sm90::TILE, (M + sm90::TILE - 1) / sm90::TILE);
-  qgemm_tile_kernel<TA, TB><<<grid, groups * sm90::GT, tile_smem<TA, TB>(groups), s>>>(p);
+  qgemm_tile_kernel<TA, TB, SR><<<grid, groups * sm90::GT, tile_smem<TA, TB>(groups), s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -473,10 +499,10 @@ extern "C" int qgemm_decode_occupancy(int a_bf16, int b_bf16, int kfast, int slo
     using TB = decltype(tb);
     const int bytes = decode_smem(slots, chunk, LANES * vlen<TB>());
     if (kfast)
-      return occupancy_of((const void*)qgemm_decode_kernel<TA, TB, true>, slots * LANES, bytes,
-                          decode_set_smem<TA, TB, true>(bytes));
-    return occupancy_of((const void*)qgemm_decode_kernel<TA, TB, false>, slots * LANES, bytes,
-                        decode_set_smem<TA, TB, false>(bytes));
+      return occupancy_of((const void*)qgemm_decode_kernel<TA, TB, true, false>, slots * LANES,
+                          bytes, decode_set_smem<TA, TB, true>(bytes));
+    return occupancy_of((const void*)qgemm_decode_kernel<TA, TB, false, false>, slots * LANES,
+                        bytes, decode_set_smem<TA, TB, false>(bytes));
   });
 }
 
@@ -492,7 +518,7 @@ extern "C" int qgemm_tile_occupancy(int a_bf16, int b_bf16, int groups) {
   return by_types(a_bf16, b_bf16, [&](auto ta, auto tb) {
     using TA = decltype(ta);
     using TB = decltype(tb);
-    return occupancy_of((const void*)qgemm_tile_kernel<TA, TB>, groups * sm90::GT,
+    return occupancy_of((const void*)qgemm_tile_kernel<TA, TB, false>, groups * sm90::GT,
                         tile_smem<TA, TB>(groups), tile_set_smem<TA, TB>(groups));
   });
 }
@@ -501,14 +527,15 @@ extern "C" int qgemm_tile_occupancy(int a_bf16, int b_bf16, int groups) {
 // `par` chunk slots a block (warps, 1 to 8), `slices` blocks along the
 // chunks (1: no split; else a fold kernel follows), `ws` the workspace of
 // qgemm_decode_ws floats.  route 1 is the tile: `par` chunk groups a block
-// (1, 2 or 4).  kernels/sm90.py picks all of them.  Returns the cudaError_t
-// of the launches.
+// (1, 2 or 4).  kernels/sm90.py picks all of them.  sr: the carries round
+// stochastically under `seed`.  Returns the cudaError_t of the launches.
 extern "C" int qgemm(const void* A, int a_bf16, long long sam, long long sak,
                      const void* B, int b_bf16, long long sbk, long long sbn,
                      void* C, int M, int N, int K, int chunk,
                      int r_identity, int r_shift, float r_max, float r_min,
                      int quant_a, int quant_b,
                      int c_identity, int c_shift, float c_max, float c_min,
+                     int sr, unsigned seed,
                      int route, int par, int slices, void* ws, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(C);
@@ -516,15 +543,21 @@ extern "C" int qgemm(const void* A, int a_bf16, long long sam, long long sak,
   const QFmt qacc{c_identity, c_shift, c_max, c_min};
   if (route == 1)
     return by_types(a_bf16, b_bf16, [&](auto ta, auto tb) {
-      return tile<decltype(ta), decltype(tb)>(A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, qr,
-                                              quant_a, quant_b, qacc, par, s);
+      using TA = decltype(ta);
+      using TB = decltype(tb);
+      return sr ? tile<TA, TB, true>(A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, qr, quant_a,
+                                     quant_b, qacc, seed, par, s)
+                : tile<TA, TB, false>(A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, qr, quant_a,
+                                      quant_b, qacc, seed, par, s);
     });
   if (route != 0 || chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
   const QFmt ident{1, 0, 0.0f, 0.0f};
   const Decode p{A, sam, sak, B, sbk, sbn, out, static_cast<float*>(ws), M, N, K, chunk,
                  slices, 0, sm90::quant_of(quant_a ? qr : ident),
-                 sm90::quant_of(quant_b ? qr : ident), sm90::quant_of(qacc)};
+                 sm90::quant_of(quant_b ? qr : ident), sm90::quant_of(qacc), seed};
   return by_types(a_bf16, b_bf16, [&](auto ta, auto tb) {
-    return decode<decltype(ta), decltype(tb)>(p, par, s);
+    using TA = decltype(ta);
+    using TB = decltype(tb);
+    return sr ? decode<TA, TB, true>(p, par, s) : decode<TA, TB, false>(p, par, s);
   });
 }

@@ -44,12 +44,15 @@
 //   (a base or row pitch off 16 bytes, a chunk that cuts a piece, neither
 //   stride 1) is staged element by element instead, into the same layout.
 //
-// Stochastic rounding (the SR template flag of block_tile; E, K8, B and K9
-// instantiate both): the fold rounds carry + partial with quant_sr and the
-// dither sr_bits(seed, c, (m0 + r) * N + n0 + col) of common.cuh, c the
-// chunk's index in the K walk (the global one: under chunk groups, group g
-// folds chunks g, g + G, ...), N the output's column count, every product
-// mod 2^32 as the JAX package's uint32 arithmetic.  The dither depends on
+// Stochastic rounding (the SR template flag of block_tile; E, K8, B, K9 and
+// G's tile route instantiate both): the fold rounds carry + partial with
+// quant_sr and the dither sr_bits(seed, chunk0 + c, (m0 + r) * ldf + col0 +
+// n0 + col) of common.cuh, c the chunk's index in this call's K walk (the
+// global one: under chunk groups, group g folds chunks g, g + G, ...),
+// every product mod 2^32 as the JAX package's uint32 arithmetic.  chunk0,
+// col0 and ldf place a segment of a longer GEMM (K7's dx carry entry: its
+// N segment's first chunk, and the dw segment's first column of ldf); by
+// default they are 0, 0 and N, the whole output.  The dither depends on
 // the output element and the chunk only, so every tile, group count and
 // kernel variant of one GEMM draws the same bits.  The Threefry rounds run
 // in the fold, once a chunk an output, outside the FMA loop; the RNE
@@ -112,7 +115,11 @@ struct Gemm {
   int M, N, K, chunk;
   Quant qr, qacc;
   Dec dec;
-  unsigned seed = 0;  // the SR dither's seed (SR instantiations only)
+  // SR instantiations only: the dither's seed, the K-walk index of this
+  // call's first chunk, the logical column of output column 0 and the
+  // logical output's column count (0: N)
+  unsigned seed = 0;
+  int chunk0 = 0, col0 = 0, ldf = 0;
 };
 
 // Bytes of one ring step (A's and B's raw tiles), the ring's depth, and the
@@ -381,8 +388,8 @@ struct Counts {
 // thread at a time, so that the fold is a rolled loop (small code, as the
 // FMA loop).  rows / cols: bit i of rows (bit h * 4 + j of cols) is set
 // where the thread's output row i (column h * 32 + tx * 4 + j) lies inside
-// the output.  SR: q is quant_sr with the dither of chunk `chunk` at the
-// output's flat index in the tile at (m0, n0) of p.
+// the output.  SR: q is quant_sr with the dither of chunk p.chunk0 + chunk
+// at the output's logical flat index in the tile at (m0, n0) of p.
 template <bool STATS, bool SR>
 __device__ __forceinline__ void fold(float (&acc)[8][8], float4* P, float* Cs, float* Is,
                                      int gt, int tx, int ty, unsigned rows, unsigned cols,
@@ -409,14 +416,15 @@ __device__ __forceinline__ void fold(float (&acc)[8][8], float4* P, float* Cs, f
         const float4 i4 = *reinterpret_cast<const float4*>(Is + r * TILE + c);
         iv[0] = i4.x; iv[1] = i4.y; iv[2] = i4.z; iv[3] = i4.w;
       }
-      // the flat index of the row's first output here (SR)
-      const unsigned flat0 = (unsigned)(m0 + r) * (unsigned)p.N + (unsigned)(n0 + c);
+      // the logical flat index of the row's first output here (SR)
+      const unsigned flat0 = (unsigned)(m0 + r) * (unsigned)(p.ldf ? p.ldf : p.N) +
+                             (unsigned)(p.col0 + n0 + c);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float prev = cv[j];
         if constexpr (SR)
           cv[j] = quant_sr(__fadd_rn(prev, part[j]), qacc,
-                           sr_bits(p.seed, (unsigned)chunk, flat0 + (unsigned)j));
+                           sr_bits(p.seed, (unsigned)(p.chunk0 + chunk), flat0 + (unsigned)j));
         else
           cv[j] = quant(__fadd_rn(prev, part[j]), qacc);
         if constexpr (STATS) {

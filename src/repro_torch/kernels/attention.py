@@ -31,6 +31,11 @@ attention.py``:
   once for all of them; the tile's page walk is split over the blocks of
   a thread-block cluster (``sm90.attn_prefill_schedule``) by the same
   exact prefix maxima as D's, with the carries folded in page order.
+  K10 also takes ``rounding="sr"`` (the walk's SR instantiation, JAX's
+  ``_prefill_kernel`` SR branch): the o and l carries round
+  stochastically with dither keyed on the absolute KV block, query row,
+  head and feature (``_sr_attn_bits``; l under a salted seed), so a
+  resumed walk stays bitwise the one-shot walk.
   Pages before ``start_page``, past the last column or wholly in the
   causal future of the tile are not walked (carry no-ops).  On the same
   values K10 is bitwise P; a walk resumed at a chunk multiple is bitwise
@@ -74,11 +79,13 @@ from repro_torch.kernels.common import (
     N_STATS,
     exp2_int,
     qfmt_args,
-    quantize_block,
+    quantize_carry,
+    sr_random_bits,
     stats_delta_row,
     stats_row,
     stats_update,
 )
+from repro_torch.kernels.fused import as_sr_seed, check_rounding
 from repro_torch.quant.formats import fmt_tuple
 from repro_torch.quant.qtensor import unpack_block
 
@@ -115,6 +122,10 @@ MAX_CHUNK = 128
 BLOCK_QS = (8, 16, 32)
 
 _WIDE = (8, 23)
+
+# the l carry's dither comes from a salted seed, so that it never shares
+# bits with the o carry of the same (row, block) (the JAX package's salt)
+_L_SALT = 0x6A09E667
 
 
 @dataclass(frozen=True)
@@ -170,14 +181,38 @@ def _seq_dot(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _online_update(o, m, l, t, valid, v, e_acc: int, m_acc: int):
+def _sr_attn_bits(seed: int, step, *, abs_row0: int, h: int, s: int,
+                  dh: int, device=None):
+    """``(rbits_o, rbits_l)``, the dither of one KV-block carry update of
+    a slab of ``s`` query rows from absolute row ``abs_row0``, shaped
+    (h, s, dh) and (h, s, 1): bitwise ``repro.kernels.attention.
+    _sr_attn_bits`` with ``shape3=(h, s, dh)``.  Keyed on the seed, the
+    absolute KV block ``step``, the absolute row, the head and the
+    feature: o's flat index is ``row * h * dh + head * dh + d``, l's
+    ``row * h + head`` under ``seed ^ _L_SALT``.  Int64 tensors of uint32
+    values on ``device``."""
+    seed = as_sr_seed(seed)
+    rows = torch.arange(s, dtype=torch.int64, device=device)[None, :, None]
+    heads = torch.arange(h, dtype=torch.int64, device=device)[:, None, None]
+    feats = torch.arange(dh, dtype=torch.int64, device=device)
+    rows = rows + abs_row0
+    rbits_o = sr_random_bits(seed, step, rows, heads * dh + feats, h * dh)
+    rbits_l = sr_random_bits(seed ^ _L_SALT, step, rows, heads, h)
+    return rbits_o, rbits_l
+
+
+def _online_update(o, m, l, t, valid, v, e_acc: int, m_acc: int,
+                   rounding: str = "rne", rbits=None):
     """One page step of the online softmax with the chunked carry.
 
     ``o`` (..., R, D), ``m``/``l`` (..., R, 1) carries; ``t`` (..., R, T)
     base-2 scores (NEG where invalid); ``v`` (..., T, D).  Sums in token
-    order (see module docstring).  A fully-masked page is a carry no-op.
-    Returns ``(o, m, l, alpha, pv)``: the new carries, the rescale and the
-    page's value sum (the stats variant's shadow takes the same two).
+    order (see module docstring).  A fully-masked page is a carry no-op,
+    under SR too (a representable carry is a fixed point of the dither).
+    ``rounding="sr"`` rounds the carries with ``rbits``, an ``(rbits_o,
+    rbits_l)`` pair from ``_sr_attn_bits``.  Returns ``(o, m, l, alpha,
+    pv)``: the new carries, the rescale and the page's value sum (the
+    stats variant's shadow takes the same two).
     """
     m_new = torch.maximum(m, torch.ceil(torch.amax(t, dim=-1, keepdim=True)))
     alpha = torch.exp2(m - m_new)
@@ -187,8 +222,9 @@ def _online_update(o, m, l, t, valid, v, e_acc: int, m_acc: int):
     for j in range(t.shape[-1]):
         lsum = lsum + p[..., j:j + 1]
         pv = pv + p[..., j:j + 1] * v[..., None, j, :]
-    l_new = quantize_block(l * alpha + lsum, e_acc, m_acc)
-    o_new = quantize_block(o * alpha + pv, e_acc, m_acc)
+    rbits_o, rbits_l = rbits if rounding == "sr" else (None, None)
+    l_new = quantize_carry(l * alpha + lsum, e_acc, m_acc, rounding, rbits_l)
+    o_new = quantize_carry(o * alpha + pv, e_acc, m_acc, rounding, rbits_o)
     return o_new, m_new, l_new, alpha, pv
 
 
@@ -541,13 +577,17 @@ def _check_dense(q, k, v, carry, chunk, kv_offset):
 def flash_prefill_reference(q, k, v, *, acc=_WIDE, chunk: int = 128,
                             block_q: int = BLOCK_Q, q_offset: int = 0,
                             kv_offset: int = 0, carry=None,
-                            return_carry: bool = False):
+                            return_carry: bool = False,
+                            rounding: str = "rne", sr_seed: int = 0):
     """Plain PyTorch version of ``flash_prefill``: every ``chunk``-long KV
     block in order (blocks in a row's causal future are masked, hence
     carry no-ops), with the kernels' summation order (``_seq_dot``,
     ``_online_update``).  It has no query blocks: ``block_q``, schedule
-    only, is taken and ignored so that the two share a signature."""
+    only, is taken and ignored so that the two share a signature.  Under
+    ``rounding="sr"`` block ``kk`` of this call is KV block ``kv_offset //
+    chunk + kk``, its dither ``_sr_attn_bits`` of the whole slab."""
     _check_dense(q, k, v, carry, chunk, kv_offset)
+    sr = check_rounding(rounding)
     s, h, dh = q.shape
     sk = k.shape[0]
     g = h // k.shape[1]
@@ -574,19 +614,27 @@ def flash_prefill_reference(q, k, v, *, acc=_WIDE, chunk: int = 128,
         cols = c0 + torch.arange(kb.shape[1], device=dev)[None, :]
         valid = (kv_offset + cols <= rows).expand_as(sc)
         sc = torch.where(valid, sc, torch.full_like(sc, NEG))
-        o, m, l, _, _ = _online_update(o, m, l, sc, valid, vb, e_acc, m_acc)
+        rbits = None
+        if sr:
+            rbits = _sr_attn_bits(sr_seed, kv_offset // chunk + c0 // chunk,
+                                  abs_row0=q_offset, h=h, s=s, dh=dh,
+                                  device=dev)
+        o, m, l, _, _ = _online_update(o, m, l, sc, valid, vb, e_acc, m_acc,
+                                       rounding, rbits)
     if return_carry:
         return o.transpose(0, 1), m[..., 0].T, l[..., 0].T
     return _finalize(o, l).transpose(0, 1)
 
 
-_DENSE_ARGS = [_P] * 9 + [_I] * 8 + [_F, _I, _I, _F, _F, _I, _I, _I, _P]
+_DENSE_ARGS = ([_P] * 9 + [_I] * 8
+               + [_F, _I, _I, _F, _F, _I, _I, _I, _I, ctypes.c_uint, _P])
 
 
 def flash_prefill(q, k, v, *, acc=_WIDE, chunk: int = 128,
                   block_q: int = BLOCK_Q, q_offset: int = 0,
                   kv_offset: int = 0, carry=None, return_carry: bool = False,
-                  call: AttnCall | None = None, rounding: str = "rne"):
+                  call: AttnCall | None = None, rounding: str = "rne",
+                  sr_seed: int = 0):
     """Causal flash attention for one sequence's prefill (resumable).
 
     * ``q`` (S, H, dh): query rows at absolute positions ``q_offset + i``;
@@ -604,15 +652,17 @@ def flash_prefill(q, k, v, *, acc=_WIDE, chunk: int = 128,
       a multiple of ``chunk``; resuming there is bitwise the one-shot walk;
     * ``call``: an ``AttnCall`` supplying acc, chunk (when set), block_q,
       the offsets and ``return_carry``;
-    * ``rounding``: only ``"rne"`` is ported (SR raises).
+    * ``rounding``: ``"rne"`` or ``"sr"``, the o and l carries' rounding;
+      ``sr_seed`` (an int, taken mod 2^32) keys SR's dither, on the
+      absolute KV block, row, head and feature, so resuming at a chunk
+      multiple is bitwise the one-shot walk under SR too.
 
     The kernel holds dh <= ``MAX_DH`` and chunk <= ``MAX_CHUNK``.  Returns
     (S, H, dh) float32, or ``(o, m, l)``.  Launches are counted on
-    ``flash_prefill.launches``.
+    ``flash_prefill.launches``, SR ones on ``flash_prefill.sr_launches``.
     """
-    if rounding != "rne":
-        raise NotImplementedError("K10's stochastic-rounding carries are "
-                                  "not ported yet (ROADMAP [sr-rest])")
+    sr = check_rounding(rounding)
+    seed = as_sr_seed(sr_seed)
     if call is not None:
         acc = call.acc
         chunk = call.chunk or chunk
@@ -624,7 +674,8 @@ def flash_prefill(q, k, v, *, acc=_WIDE, chunk: int = 128,
         raise NotImplementedError(f"the kernel is built for block_q in "
                                   f"{BLOCK_QS}, got {block_q}")
     kw = dict(acc=acc, chunk=chunk, q_offset=q_offset, kv_offset=kv_offset,
-              carry=carry, return_carry=return_carry)
+              carry=carry, return_carry=return_carry, rounding=rounding,
+              sr_seed=seed)
     if q.device.type == "cpu":
         return flash_prefill_reference(q, k, v, **kw)
     s, h, dh = q.shape
@@ -654,15 +705,19 @@ def flash_prefill(q, k, v, *, acc=_WIDE, chunk: int = 128,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(co), ptr(cm),
             ptr(cl), out.data_ptr(), ptr(om), ptr(ol), s, h, sk, kv, dh,
             chunk, int(q_offset), int(kv_offset), scale, *qacc, sched.rows,
-            sched.cluster, sched.rank_pages,
+            sched.cluster, sched.rank_pages, int(sr), seed,
             torch.cuda.current_stream(q.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"flash_prefill launch failed: CUDA error "
                                f"{rc}")
-        flash_prefill.launches += 1
+        if sr:
+            flash_prefill.sr_launches += 1
+        else:
+            flash_prefill.launches += 1
     if return_carry:
         return out, om, ol
     return out
 
 
 flash_prefill.launches = 0
+flash_prefill.sr_launches = 0

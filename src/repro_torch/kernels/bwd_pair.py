@@ -20,7 +20,7 @@ with the previous segment's dx as its carry, is bitwise the unsplit call
 (``qmatmul_bwd_pair_nsplit``, the counterpart of the TPU's VMEM-driven
 split).  Hopper has no dw slab to fit, so the port's training step makes
 one unsplit call per layer; the carry entry is counted apart, on
-``qmatmul_bwd_pair.carry_launches``.
+``qmatmul_bwd_pair.carry_launches`` (``sr_carry_launches`` under SR).
 
 What bounds it on the H100: the f32 arithmetic, 4TKN multiply-adds on the
 CUDA cores (a tensor-core MMA does not form the sequential f32 chunk
@@ -51,9 +51,13 @@ and its N-chunk index, dw from ``sr_seed_grad`` at its (k, n) output and
 its T-chunk index, so dx is bitwise ``qmatmul_fused(Q(g), Q(w)^T,
 sr_seed=sr_seed_bwd)`` and dw ``qmatmul_fused(Q(x)^T, Q(g),
 sr_seed=sr_seed_grad)`` (the JAX package's contract).  SR launches of B and
-K9 are counted apart (``sr_launches``, ``sr_stats_launches``).  The dx
-carry-in entry keys its dither on the global N-chunk and dw column, which
-needs an N offset the entry does not take yet: it raises under SR.
+K9 are counted apart (``sr_launches``, ``sr_stats_launches``).  A segment
+of the split pair keys its dither on the unsplit call's coordinates, as
+JAX's ``_pair_kernel_seg`` does (``step_off``, ``col_off``, ``n_total``):
+``n_offset``, the segment's first column in the unsplit N, shifts dx's
+N-chunk index by ``n_offset / bwd_chunk`` and dw's column by ``n_offset``
+of ``n_total`` columns, so the chained SR segments are bitwise the
+unsplit SR pair.
 
 On CPU tensors the wrappers run the plain PyTorch version; on CUDA tensors
 they launch the kernel or raise.
@@ -79,7 +83,8 @@ _WIDE = (8, 23)
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk):
+def _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk,
+           n_offset=0, n_total=None):
     if g.ndim != 2 or xq.ndim != 2 or wq.ndim != 2:
         raise ValueError("2-D operands required")
     t, n = g.shape
@@ -104,6 +109,9 @@ def _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk):
     if dx_carry is not None and tuple(dx_carry.shape) != (t, xq.shape[1]):
         raise ValueError(f"dx_carry {tuple(dx_carry.shape)} != "
                          f"{(t, xq.shape[1])}")
+    if n_offset < 0 or (n_total is not None and n_total < n_offset + n):
+        raise ValueError(f"segment [{n_offset}, {n_offset + n}) outside "
+                         f"n_total {n_total}")
 
 
 def _operands32(g, xq, wq, fmt, packed, quantize_g):
@@ -115,13 +123,13 @@ def _operands32(g, xq, wq, fmt, packed, quantize_g):
     return g32, x32, w32
 
 
-def _check_sr(rounding, dx_carry) -> bool:
+def _check_sr(rounding, n_offset, bwd_chunk) -> bool:
     sr = check_rounding(rounding)
-    if sr and dx_carry is not None:
-        raise NotImplementedError(
-            "the dx carry-in entry under stochastic rounding keys its dither "
-            "on the global N chunk and dw column: its N offset is not "
-            "ported yet (ROADMAP [sr-rest])")
+    if sr and n_offset % bwd_chunk != 0:
+        raise ValueError(
+            f"n_offset {n_offset} must be a multiple of bwd_chunk "
+            f"{bwd_chunk} under stochastic rounding: dx's dither keys on "
+            "the global N chunk")
     return sr
 
 
@@ -129,22 +137,27 @@ def qmatmul_bwd_pair_reference(g, xq, wq, *, repr_fmt, bwd_acc, grad_acc,
                                bwd_chunk: int, grad_chunk: int, packed: bool,
                                quantize_g: bool = True, dx_carry=None,
                                rounding: str = "rne", sr_seed_bwd: int = 0,
-                               sr_seed_grad: int = 0):
+                               sr_seed_grad: int = 0, n_offset: int = 0,
+                               n_total: int | None = None):
     """Plain PyTorch version: unpack the residuals, quantize g, then the two
     chunked GEMMs in the kernel's order (``chunked_gemm_reference``), dx
-    resuming from ``dx_carry``.  Bitwise the kernel."""
+    resuming from ``dx_carry``; under SR at the segment's place
+    ``n_offset`` in ``n_total`` columns.  Bitwise the kernel."""
     fmt = fmt_tuple(repr_fmt)
-    _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk)
-    _check_sr(rounding, dx_carry)
+    _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk,
+           n_offset, n_total)
+    _check_sr(rounding, n_offset, bwd_chunk)
     g32, x32, w32 = _operands32(g, xq, wq, fmt, packed, quantize_g)
     dx = chunked_gemm_reference(g32, w32.T, e_acc=bwd_acc[0],
                                 m_acc=bwd_acc[1], block_k=bwd_chunk,
                                 carry=dx_carry, rounding=rounding,
-                                sr_seed=as_sr_seed(sr_seed_bwd))
+                                sr_seed=as_sr_seed(sr_seed_bwd),
+                                step0=n_offset // bwd_chunk)
     dw = chunked_gemm_reference(x32.T, g32, e_acc=grad_acc[0],
                                 m_acc=grad_acc[1], block_k=grad_chunk,
                                 rounding=rounding,
-                                sr_seed=as_sr_seed(sr_seed_grad))
+                                sr_seed=as_sr_seed(sr_seed_grad),
+                                col0=n_offset, n_cols=n_total)
     return dx, dw
 
 
@@ -178,7 +191,7 @@ _LL, _I, _P, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_flo
 _U = ctypes.c_uint
 _ARGTYPES = ([_P, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _P, _P,
               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I]
-             + [_I, _I, _F, _F] * 2 + [_I, _I, _U, _U, _P, _P])
+             + [_I, _I, _F, _F] * 2 + [_I, _I, _U, _U, _I, _I, _P, _P])
 
 
 _STATS_ARGTYPES = ([_P, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _P,
@@ -243,7 +256,7 @@ def _launch_stats(g, xq, wq, *, fmt, bwd_acc, grad_acc, bwd_chunk,
 
 
 def _launch(g, xq, wq, dx_carry, *, fmt, bwd_acc, grad_acc, bwd_chunk,
-            grad_chunk, quantize_g, sr, seeds):
+            grad_chunk, quantize_g, sr, seeds, n_offset, n_total):
     _check_devices(g, xq, wq, dx_carry)
     t, n = g.shape
     k = xq.shape[1]
@@ -271,14 +284,18 @@ def _launch(g, xq, wq, dx_carry, *, fmt, bwd_acc, grad_acc, bwd_chunk,
         dx.data_ptr(), dw.data_ptr(), t, k, n, bwd_chunk, grad_chunk,
         e_r, m_r, *qfmt_args(fmt or _WIDE), int(quant),
         *qfmt_args(bwd_acc), *qfmt_args(grad_acc), sched.groups, int(sr),
-        *seeds, None if gq is None else gq.data_ptr(),
+        *seeds, n_offset, n_offset + n if n_total is None else n_total,
+        None if gq is None else gq.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bwd_pair launch failed: CUDA error {rc}")
-    if sr:
-        qmatmul_bwd_pair.sr_launches += 1
-    elif dx_carry is None:
-        qmatmul_bwd_pair.launches += 1
+    if dx_carry is None:
+        if sr:
+            qmatmul_bwd_pair.sr_launches += 1
+        else:
+            qmatmul_bwd_pair.launches += 1
+    elif sr:
+        qmatmul_bwd_pair.sr_carry_launches += 1
     else:
         qmatmul_bwd_pair.carry_launches += 1
     return dx, dw
@@ -289,7 +306,8 @@ def qmatmul_bwd_pair(g, xq, wq, *, repr_fmt, bwd_acc=_WIDE, grad_acc=_WIDE,
                      packed: bool = True, quantize_g: bool = True,
                      dx_carry=None, collect_stats: bool = False,
                      rounding: str = "rne", sr_seed_bwd: int = 0,
-                     sr_seed_grad: int = 0):
+                     sr_seed_grad: int = 0, n_offset: int = 0,
+                     n_total: int | None = None):
     """``(dx, dw)`` of one dense layer, both float32, in one launch.
 
     * ``g`` [T, N] float32, any strides; quantized to ``repr_fmt`` on load
@@ -301,15 +319,21 @@ def qmatmul_bwd_pair(g, xq, wq, *, repr_fmt, bwd_acc=_WIDE, grad_acc=_WIDE,
     * ``dx_carry`` [T, K]: resume dx from this running carry (the segment
       entry, K7): dw is then this N segment's columns.  Launches with a
       carry are counted on ``carry_launches``, the others on ``launches``;
+    * ``n_offset``/``n_total``: this call's g and w columns are
+      ``[n_offset, n_offset + N)`` of an unsplit N of ``n_total`` (None:
+      ``n_offset + N``), read only under SR, where ``n_offset`` must be a
+      multiple of ``bwd_chunk``: the segment's dither keys on the unsplit
+      call's N chunks and dw columns;
     * ``collect_stats=True`` is K9's kernel: returns ``(dx, dw, rows)``
       with ``rows`` the (2, N_STATS) float32 stats on the device (row 0
       dx, row 1 dw), counted on ``stats_launches``; no ``dx_carry``;
     * ``rounding``: ``"rne"`` or ``"sr"``, both carries' rounding;
       ``sr_seed_bwd`` keys dx's dither and ``sr_seed_grad`` dw's (ints,
-      taken mod 2^32).  SR launches count on ``sr_launches`` (B) and
-      ``sr_stats_launches`` (K9); SR with ``dx_carry`` raises.
+      taken mod 2^32).  SR launches count on ``sr_launches`` (B),
+      ``sr_carry_launches`` (B with ``dx_carry``) and
+      ``sr_stats_launches`` (K9).
     """
-    sr = _check_sr(rounding, dx_carry)
+    sr = _check_sr(rounding, n_offset, bwd_chunk)
     seeds = (as_sr_seed(sr_seed_bwd), as_sr_seed(sr_seed_grad))
     fmt = fmt_tuple(repr_fmt)
     bwd_acc, grad_acc = tuple(bwd_acc), tuple(grad_acc)
@@ -317,9 +341,9 @@ def qmatmul_bwd_pair(g, xq, wq, *, repr_fmt, bwd_acc=_WIDE, grad_acc=_WIDE,
     sr_kw = dict(rounding=rounding, sr_seed_bwd=seeds[0],
                  sr_seed_grad=seeds[1])
     if collect_stats:
-        if dx_carry is not None:
-            raise ValueError("collect_stats takes no dx_carry (the stats "
-                             "pair is the unsplit one)")
+        if dx_carry is not None or n_offset or n_total is not None:
+            raise ValueError("collect_stats takes no dx_carry or segment "
+                             "(the stats pair is the unsplit one)")
         kw = dict(repr_fmt=fmt, bwd_acc=bwd_acc, grad_acc=grad_acc,
                   bwd_chunk=bwd_chunk, grad_chunk=grad_chunk,
                   quantize_g=quantize_g)
@@ -333,16 +357,19 @@ def qmatmul_bwd_pair(g, xq, wq, *, repr_fmt, bwd_acc=_WIDE, grad_acc=_WIDE,
         return qmatmul_bwd_pair_reference(
             g, xq, wq, repr_fmt=fmt, bwd_acc=bwd_acc, grad_acc=grad_acc,
             bwd_chunk=bwd_chunk, grad_chunk=grad_chunk, packed=packed,
-            quantize_g=quantize_g, dx_carry=dx_carry, **sr_kw)
-    _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk)
+            quantize_g=quantize_g, dx_carry=dx_carry, n_offset=n_offset,
+            n_total=n_total, **sr_kw)
+    _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk,
+           n_offset, n_total)
     return _launch(g, xq, wq, dx_carry, fmt=fmt, bwd_acc=bwd_acc,
                    grad_acc=grad_acc, bwd_chunk=bwd_chunk,
                    grad_chunk=grad_chunk, quantize_g=quantize_g, sr=sr,
-                   seeds=seeds)
+                   seeds=seeds, n_offset=n_offset, n_total=n_total)
 
 
 qmatmul_bwd_pair.launches = 0
 qmatmul_bwd_pair.carry_launches = 0
+qmatmul_bwd_pair.sr_carry_launches = 0
 qmatmul_bwd_pair.stats_launches = 0
 qmatmul_bwd_pair.sr_launches = 0
 qmatmul_bwd_pair.sr_stats_launches = 0
@@ -357,7 +384,9 @@ def pair_segment_width(n: int, n_split: int, block_n: int) -> int:
 def qmatmul_bwd_pair_nsplit(g, xq, wq, *, n_split: int, **kw):
     """The pair over ``n_split`` N segments of ``bwd_chunk``-aligned width
     (the JAX package's ``pair_segment_width``), dx chained through
-    ``dx_carry``: bitwise the unsplit ``qmatmul_bwd_pair``."""
+    ``dx_carry``, each segment at its place in N (``n_offset``,
+    ``n_total``): bitwise the unsplit ``qmatmul_bwd_pair``, under RNE and
+    SR."""
     if n_split < 2:
         raise ValueError("n_split >= 2; use qmatmul_bwd_pair for one pass")
     t, n = g.shape
@@ -367,6 +396,6 @@ def qmatmul_bwd_pair_nsplit(g, xq, wq, *, n_split: int, **kw):
     for lo in range(0, n, seg):
         hi = min(lo + seg, n)
         dx, dw = qmatmul_bwd_pair(g[:, lo:hi], xq, wq[:, lo:hi],
-                                  dx_carry=dx, **kw)
+                                  dx_carry=dx, n_offset=lo, n_total=n, **kw)
         dws.append(dw)
     return dx, torch.cat(dws, dim=1)

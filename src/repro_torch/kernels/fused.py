@@ -1,7 +1,8 @@
 """Fused quantized GEMM with a chunked low-precision carry: G, E and K8.
 
 G replaces the TPU kernel ``repro/kernels/fused.py::_fused_kernel`` (RNE
-carry, f32 or bf16 operands, no ``out_fmt``/``pack_out`` epilogue); E
+and SR carries, f32 or bf16 operands, no ``out_fmt``/``pack_out``
+epilogue); E
 replaces ``_fused_kernel_emitq``, the training forward, which also emits
 the int8 codes of both quantized operands for the backward.  G is the CUDA
 C++ kernel of ``csrc/qgemm.cu``, E that of ``csrc/qgemm_emitq.cu``::
@@ -67,10 +68,13 @@ rounds once to float32, so the row is the same bits on every launch.
 an output's carry update is a Threefry draw keyed on the seed, the chunk's
 index in the K walk and the output's flat logical index
 (``kernels.common.sr_random_bits``), the JAX package's stream bit for
-bit, so E's and K8's C agree under one seed.  E and K8 carry it on the
-card (the tile's fold, ``csrc/qgemm_sm90.cuh``); G's kernels do not yet
-(ROADMAP [sr-rest]), and G's SR call raises on CUDA tensors.  SR launches
-are counted apart (``sr_emitq_launches``, ``sr_stats_launches``).
+bit, so G's, E's and K8's C agree under one seed.  All three carry it on
+the card: the tile's fold (``csrc/qgemm_sm90.cuh``) for E, K8 and G's
+tile route, and G's decode kernel and its split call's fold kernel
+(``csrc/qgemm.cu``), each an SR instantiation beside the RNE one.  The
+route and the split do not depend on the rounding.  SR launches are
+counted apart (``sr_launches`` and ``sr_fold_launches`` for G,
+``sr_emitq_launches``, ``sr_stats_launches``).
 
 On CPU tensors each wrapper runs its plain PyTorch version; on CUDA tensors
 it launches its kernel or raises.
@@ -138,7 +142,8 @@ def chunked_gemm_reference(a32: torch.Tensor, b32: torch.Tensor, *,
                            e_acc: int, m_acc: int, block_k: int,
                            carry: torch.Tensor | None = None,
                            stats: bool = False, rounding: str = "rne",
-                           sr_seed: int = 0):
+                           sr_seed: int = 0, step0: int = 0, col0: int = 0,
+                           n_cols: int | None = None):
     """The kernels' chunked carry on float32 operands taken as they are:
     per chunk of K, an f32 partial of rank-1 updates in increasing k (one
     multiply-add each), then ``carry = q_acc(carry + partial)``, with a
@@ -146,8 +151,10 @@ def chunked_gemm_reference(a32: torch.Tensor, b32: torch.Tensor, *,
     chain); a fresh one starts at 0.  The kernels' order, so bitwise them.
 
     ``rounding="sr"`` rounds each update stochastically, the dither keyed
-    on ``sr_seed``, the chunk's index (from 0, the first chunk dithered
-    too) and the flat index ``row * N + col`` of the (M, N) output.
+    on ``sr_seed``, the chunk's index ``step0 + c`` (c from 0, the first
+    chunk dithered too) and the flat index ``row * n_cols + col0 + col``
+    of the (M, N) output (``n_cols`` None: N).  ``step0``, ``col0`` and
+    ``n_cols`` place a segment in a longer GEMM, as K7's kernel does.
 
     ``stats=True`` also keeps the f32 shadow carry ``ideal += partial`` and
     returns ``(carry, row)``: the float32 (N_STATS,) stats row, reduced in
@@ -165,14 +172,15 @@ def chunked_gemm_reference(a32: torch.Tensor, b32: torch.Tensor, *,
         dev = carry.device
         flat = sr_flat_index(
             torch.arange(m, dtype=torch.int64, device=dev)[:, None],
-            torch.arange(n, dtype=torch.int64, device=dev)[None, :], n)
+            col0 + torch.arange(n, dtype=torch.int64, device=dev)[None, :],
+            n if n_cols is None else n_cols)
     for k0 in range(0, k, block_k):
         part = torch.zeros_like(carry)
         for kk in range(k0, min(k0 + block_k, k)):
             part = torch.addcmul(part, a32[:, kk:kk + 1], b32[kk:kk + 1, :])
         prev = carry
-        rbits = None if flat is None else sr_bits(sr_seed, k0 // block_k,
-                                                  flat)
+        rbits = None if flat is None else sr_bits(
+            sr_seed, step0 + k0 // block_k, flat)
         carry = quantize_carry(carry + part, e_acc, m_acc, rounding, rbits)
         if stats:
             ideal = ideal + part
@@ -250,21 +258,26 @@ def _check_packable(fmt) -> None:
 
 
 _LL, _I, _P, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+_U = ctypes.c_uint
 _ARGTYPES = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I,
-             _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P, _P]
+             _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _U, _I, _I, _I, _P,
+             _P]
 
 
 def qmatmul_fused_with(a: torch.Tensor, b: torch.Tensor, schedule, *,
                        repr_fmt=None, e_acc: int = 8, m_acc: int = 23,
-                       block_k: int = 128) -> torch.Tensor:
+                       block_k: int = 128, rounding: str = "rne",
+                       sr_seed: int = 0) -> torch.Tensor:
     """G on CUDA tensors under a given schedule: a ``sm90.DecodeSchedule``
-    (the decode route, any split) or a ``sm90.Schedule`` (the tile).
-    Every schedule gives the same bits; ``qmatmul_fused`` takes
-    ``sm90.g_schedule``'s.  Counts nothing: it serves route timings and
-    the tests of each schedule."""
+    (the decode route, any split) or a ``sm90.Schedule`` (the tile), under
+    ``rounding``/``sr_seed``.  Every schedule gives the same bits;
+    ``qmatmul_fused`` takes ``sm90.g_schedule``'s.  Counts nothing: it
+    serves route timings and the tests of each schedule."""
     _check(a, b)
+    sr = check_rounding(rounding)
     _check_cuda(a, b, block_k)
-    return _g(a, b, schedule, fmt_tuple(repr_fmt), e_acc, m_acc, block_k)
+    return _g(a, b, schedule, fmt_tuple(repr_fmt), e_acc, m_acc, block_k,
+              sr, as_sr_seed(sr_seed))
 
 
 # qfmt_args of the few formats in use, built once (G runs ~200 times a
@@ -272,8 +285,9 @@ def qmatmul_fused_with(a: torch.Tensor, b: torch.Tensor, schedule, *,
 _qfmt = functools.lru_cache(maxsize=64)(qfmt_args)
 
 
-def _g(a, b, schedule, fmt, e_acc, m_acc, block_k) -> torch.Tensor:
-    """G's launch on checked CUDA operands."""
+def _g(a, b, schedule, fmt, e_acc, m_acc, block_k, sr: bool,
+       seed: int) -> torch.Tensor:
+    """G's launch on checked CUDA operands (SR: under ``seed``)."""
     m, k = a.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
@@ -292,7 +306,7 @@ def _g(a, b, schedule, fmt, e_acc, m_acc, block_k) -> torch.Tensor:
         a.data_ptr(), _DTYPES[a.dtype], a.stride(0), a.stride(1),
         b.data_ptr(), _DTYPES[b.dtype], b.stride(0), b.stride(1),
         out.data_ptr(), m, n, k, block_k, *_qfmt(fmt or _WIDE), quant, quant,
-        *_qfmt((e_acc, m_acc)), route, par, slices,
+        *_qfmt((e_acc, m_acc)), int(sr), seed, route, par, slices,
         None if ws is None else ws.data_ptr(),
         torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
@@ -327,15 +341,14 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
       ``telemetry.stats.EnsembleStats.from_raw``); exclusive with
       ``return_quantized``;
     * ``rounding``: ``"rne"`` or ``"sr"``, the carry's rounding;
-      ``sr_seed`` (an int, taken mod 2^32) keys SR's dither.  E and K8
-      carry SR on the card; G's SR runs only as the plain version (CPU
-      tensors) and raises on CUDA tensors.
+      ``sr_seed`` (an int, taken mod 2^32) keys SR's dither.
 
     G's calls are counted on ``launches`` (one a call) and the fold
     kernels of its split decode calls, each a second launch, on
     ``fold_launches``; E's on ``emitq_launches``, K8's on
-    ``stats_launches``; E's and K8's SR launches apart, on
-    ``sr_emitq_launches`` and ``sr_stats_launches``.
+    ``stats_launches``; the SR launches apart, G's on ``sr_launches``
+    and ``sr_fold_launches``, E's on ``sr_emitq_launches`` and K8's on
+    ``sr_stats_launches``.
     """
     sr = check_rounding(rounding)
     seed = as_sr_seed(sr_seed)
@@ -358,32 +371,33 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
         return qmatmul_fused_reference(a, b, repr_fmt=repr_fmt, e_acc=e_acc,
                                        m_acc=m_acc, block_k=block_k,
                                        rounding=rounding, sr_seed=seed)
-    if sr:
-        raise NotImplementedError(
-            "G's stochastic-rounding carry (its decode kernel, its fold "
-            "kernel and its tile route) is not ported yet (ROADMAP "
-            "[sr-rest])")
     _check_cuda(a, b, block_k)
     m, k = a.shape
     n = b.shape[1]
     sched = sm90.g_schedule(m, n, k, block_k, _KINDS[a.dtype],
                             _KINDS[b.dtype])
-    out = _g(a, b, sched, fmt_tuple(repr_fmt), e_acc, m_acc, block_k)
+    out = _g(a, b, sched, fmt_tuple(repr_fmt), e_acc, m_acc, block_k, sr,
+             seed)
     if m and n:
-        qmatmul_fused.launches += 1
-        if isinstance(sched, sm90.DecodeSchedule) and sched.slices > 1:
-            qmatmul_fused.fold_launches += 1
+        fold = isinstance(sched, sm90.DecodeSchedule) and sched.slices > 1
+        if sr:
+            qmatmul_fused.sr_launches += 1
+            qmatmul_fused.sr_fold_launches += fold
+        else:
+            qmatmul_fused.launches += 1
+            qmatmul_fused.fold_launches += fold
     return out
 
 
 qmatmul_fused.launches = 0
 qmatmul_fused.fold_launches = 0
+qmatmul_fused.sr_launches = 0
+qmatmul_fused.sr_fold_launches = 0
 qmatmul_fused.emitq_launches = 0
 qmatmul_fused.stats_launches = 0
 qmatmul_fused.sr_emitq_launches = 0
 qmatmul_fused.sr_stats_launches = 0
 
-_U = ctypes.c_uint
 _STATS_ARGTYPES = ([_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I,
                     _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _I,
                     _U, _P, _P, _P])

@@ -30,10 +30,8 @@ gradients).
 ``rounding="sr"`` (fused only) rounds the carries of all three roles
 stochastically.  Each role draws its own stream from one base seed
 (``sr_role_seed``: ``cfg.sr_seed``, or ``qdot``'s ``sr_seed`` for one
-call): E takes the FWD seed, B the BWD seed for dx and the GRAD seed for
-dw, as the JAX package's kernels do.  G has no SR carry on the card yet
-(ROADMAP [sr-rest]), so under SR a forward without a gradient to take
-runs E and drops its codes (its C is the G call's, bitwise).
+call): E and G take the FWD seed, B the BWD seed for dx and the GRAD seed
+for dw, as the JAX package's kernels do.
 
 Telemetry: inside ``telemetry.capture.capture_gemms()`` every quantized
 ``qdot`` records its 2-D operands and config (the eager probe's replay
@@ -42,7 +40,8 @@ its backward through the stats variant of B (K9's kernel: the same dx and
 dw, bitwise, plus the BWD and GRAD rows) and replays the forward on the
 saved residuals through K8's kernel (the FWD row), and hands the three
 device rows to the active in-graph collector (``obs.ingraph``) without a
-host sync.
+host sync.  A tagged oracle (``fused=False``) replays all three roles
+through K8's kernel on its f32 residuals and g, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -87,7 +86,7 @@ class QDotConfig:
     the unfused oracle composition (K2 and K3, f32 residuals);
     ``out_fmt`` rounds the forward output to a consumer's representation
     format.  ``stats_tag`` turns on the in-graph telemetry of the backward
-    (numerics untouched; fused path only so far); ``stats_axis``, the mesh
+    (numerics untouched); ``stats_axis``, the mesh
     axis to reduce the rows over, comes with the sharding slice and must
     be None.  ``rounding`` is the carries' rounding in all three roles,
     ``"rne"`` or ``"sr"`` (fused only); ``sr_seed`` the base seed the
@@ -110,10 +109,6 @@ class QDotConfig:
             raise NotImplementedError(
                 "stats_axis (a mesh-wide reduction of the stats rows) comes "
                 "with the sharding slice (ROADMAP [dist])")
-        if self.stats_tag is not None and not self.fused:
-            raise NotImplementedError(
-                "stats rows of the unfused oracle (K8 on its f32 residuals) "
-                "are not ported yet (ROADMAP [sr-rest])")
         if self.rounding not in ROUNDINGS:
             raise ValueError(f"rounding must be one of {ROUNDINGS}, got "
                              f"{self.rounding!r}")
@@ -223,9 +218,12 @@ class _QDot(torch.autograd.Function):
         x_dtype, w_dtype = ctx.dtypes
         if not cfg.fused:
             # out_fmt is straight-through here too: g passes unscaled
-            gq = _maybe_q(g.to(torch.float32), cfg.repr_fmt)
+            g32 = g.to(torch.float32)
+            gq = _maybe_q(g32, cfg.repr_fmt)
             dx = _mm(gq, wq.T, cfg.bwd)
             dw = _mm(xq.T, gq, cfg.grad)
+            if cfg.stats_tag is not None:
+                _emit_qdot_stats(cfg, xq, wq, None, ctx.seed, g=g32)
             return dx.to(x_dtype), dw.to(w_dtype), None, None
         e_b, m_b, _ = _acc_params(cfg.bwd)
         e_g, m_g, _ = _acc_params(cfg.grad)
@@ -247,11 +245,16 @@ class _QDot(torch.autograd.Function):
         return dx.to(x_dtype), dw.to(w_dtype), None, None
 
 
-def _emit_qdot_stats(cfg: QDotConfig, xq, wq, pair_rows, seed: int) -> None:
+def _emit_qdot_stats(cfg: QDotConfig, xq, wq, pair_rows, seed: int, *,
+                     g=None) -> None:
     """The three roles' stats rows of one tagged backward, to the active
-    in-graph collector: BWD and GRAD from the stats pair's rows, FWD from
-    one K8 replay of the saved residuals (the forward itself stays G/E),
-    under the forward's rounding and role seed.  Geometry as the eager
+    in-graph collector.  FWD is one K8 replay of the saved residuals (the
+    forward itself stays G/E/K3), under the forward's rounding and role
+    seed.  BWD and GRAD come from the stats pair's rows (``pair_rows``),
+    or, without them (the oracle), from K8 replays of the same
+    contractions on the f32 ``g``: (g, wq^T) with g quantized and (xq^T,
+    g) with g quantized, the residuals taken as they are (the JAX
+    package's branch without ``raw_pair``).  Geometry as the eager
     probe's: accumulation length K / N / T, chunk the role's rounding
     cadence."""
     from repro_torch.obs.ingraph import dispatch_raw
@@ -260,20 +263,35 @@ def _emit_qdot_stats(cfg: QDotConfig, xq, wq, pair_rows, seed: int) -> None:
     tag = cfg.stats_tag
     t, k = xq.shape
     n = wq.shape[1]
-    if cfg.fwd is not None:
-        _, raw = qmatmul_fused(xq, wq, repr_fmt=cfg.repr_fmt,
-                               quantize_a=False, quantize_b=False,
-                               a_packed=cfg.packs, b_packed=cfg.packs,
+    quantize = cfg.repr_fmt is not None
+
+    def replay(role, p, a, b, **kw):
+        _, raw = qmatmul_fused(a, b, repr_fmt=cfg.repr_fmt,
                                collect_stats=True, rounding=cfg.rounding,
-                               sr_seed=_role_seed(cfg, seed, "fwd"),
-                               **stats_kw(cfg.fwd))
+                               sr_seed=_role_seed(cfg, seed, role),
+                               **kw, **stats_kw(p))
+        return raw
+
+    if cfg.fwd is not None:
+        raw = replay("fwd", cfg.fwd, xq, wq, quantize_a=False,
+                     quantize_b=False, a_packed=cfg.packs,
+                     b_packed=cfg.packs)
         dispatch_raw(tag, "fwd", k, stats_kw(cfg.fwd)["block_k"],
                      cfg.fwd.m_acc, raw)
     for role, p, length, row in (("bwd", cfg.bwd, n, 0),
                                  ("grad", cfg.grad, t, 1)):
-        if p is not None:
-            dispatch_raw(tag, role, length, stats_kw(p)["block_k"], p.m_acc,
-                         pair_rows[row])
+        if p is None:
+            continue
+        if pair_rows is not None:
+            raw = pair_rows[row]
+        elif role == "bwd":
+            raw = replay(role, p, g, wq.T, quantize_a=quantize,
+                         quantize_b=False)
+        else:
+            raw = replay(role, p, xq.T, g, quantize_a=False,
+                         quantize_b=quantize)
+        dispatch_raw(tag, role, length, stats_kw(p)["block_k"], p.m_acc,
+                     raw)
 
 
 def qdot(x: torch.Tensor, w: torch.Tensor, cfg: QDotConfig, *,
@@ -294,10 +312,6 @@ def qdot(x: torch.Tensor, w: torch.Tensor, cfg: QDotConfig, *,
         y = _QDot.apply(x2, w, cfg, seed)
     elif not cfg.fused:
         y = _oracle_fwd(x2, w, cfg)[0]
-    elif cfg.rounding == "sr" and cfg.packs:
-        # G carries no SR on the card yet: E's C is G's, bitwise
-        y = _out(qmatmul_fused(x2, w, return_quantized=True,
-                               **_fwd_kw(cfg, seed))[0], cfg)
     else:
         y = _out(qmatmul_fused(x2, w, **_fwd_kw(cfg, seed)), cfg)
     return y.reshape(*lead, w.shape[1])

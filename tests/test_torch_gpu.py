@@ -1504,19 +1504,148 @@ def test_sr_bwd_pair_and_stats_match_plain(dev, t, k, n, chunk, kind,
         assert not torch.equal(odx, dx) and not torch.equal(odw, dw)
 
 
-def test_sr_entries_raise_on_the_card(dev):
-    """G has no SR carry on the card yet, nor B's dx carry-in entry: both
-    raise instead of falling back to the plain version."""
-    from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
+@pytest.mark.parametrize("m,k,n,chunk,slots,split", [
+    (1, 1536, 1536, 64, 8, True),     # decode, M = 1, split
+    (8, 1536, 256, 64, 8, True),      # attn_k as scheduled: 3 slices
+    (8, 8960, 136, 64, 8, False),     # no split, 18 rounds of 8 chunks
+    (13, 700, 90, 48, 3, False),      # two row groups, ragged last chunk
+    (13, 700, 90, 48, 5, True),       # the fold kernel, ragged
+    (64, 1536, 8960, 64, 8, True),    # mlp_gate at a prefill slab
+])
+@pytest.mark.parametrize("b_kind", [0, 1])
+def test_g_sr_schedules_match_plain(dev, m, k, n, chunk, slots, split,
+                                    b_kind):
+    """G under SR through each decode schedule (rounds folded in the block
+    at chunk c0 + q; a split folded by the SR fold kernel) and through the
+    tile route at the same operands: all bitwise the plain version and E's
+    C on random and lattice operands; another seed and RNE differ."""
+    from repro_torch.kernels import sm90
+    from repro_torch.kernels.fused import qmatmul_fused_with
 
-    a = torch.randn((8, 64), device=dev)
-    b = torch.randn((64, 32), device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qmatmul_fused(a, b, repr_fmt=FP8_152, e_acc=6, m_acc=5, block_k=32,
-                      **SR)
-    g = torch.randn((8, 32), device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qmatmul_bwd_pair(g, a, b, repr_fmt=None, packed=False, bwd_chunk=32,
-                         grad_chunk=32, dx_carry=torch.zeros((8, 64),
-                                                             device=dev),
-                         **SR)
+    gen = torch.Generator(device=dev).manual_seed(m * k + n + 1)
+    kw = dict(_g_kw(False, chunk), sr_seed=991, **SR)
+    sched = _decode(m, n, k, chunk, b_kind, slots, split)
+    tile = sm90.gemm_schedule(m, n, k, chunk, 0, b_kind, stats=False)
+    for lattice in (False, True):
+        a, b = _g_operands(gen, dev, m, k, n, head=False, lattice=lattice)
+        b = b.float() if b_kind == 0 else b
+        want = qmatmul_fused_reference(a, b, **kw)
+        got = qmatmul_fused_with(a, b, sched, **kw)
+        e = qmatmul_fused(a, b, return_quantized=True, **kw)[0]
+        other = qmatmul_fused_with(a, b, sched, **dict(kw, sr_seed=992))
+        rne = qmatmul_fused_with(a, b, sched, **dict(kw, rounding="rne"))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(e, want)
+        assert torch.equal(qmatmul_fused_with(a, b, tile, **kw), want)
+        assert not torch.equal(other, got) and not torch.equal(rne, got)
+
+
+@pytest.mark.parametrize("m,name,k,n", [
+    (1, "attn_q", 1536, 1536), (8, "attn_k", 1536, 256),
+    (8, "lm_head", 1536, 151936), (64, "mlp_down", 8960, 1536),
+    (512, "attn_q", 1536, 1536)])
+def test_g_sr_routes_count_apart(dev, m, name, k, n):
+    """``qmatmul_fused`` under SR takes ``sm90.g_schedule``'s route (the
+    rounding does not move it) and counts on ``sr_launches`` (and
+    ``sr_fold_launches`` for a split call), never on the RNE counters;
+    bitwise the plain version."""
+    from repro_torch.kernels import sm90
+
+    head = name == "lm_head"
+    sched = sm90.g_schedule(m, n, k, 64, 0, 1)
+    gen = torch.Generator(device=dev).manual_seed(m + n)
+    kw = dict(_g_kw(head), sr_seed=5, **SR)
+    a, b = _g_operands(gen, dev, m, k, n, head=head, lattice=False)
+    counts = (qmatmul_fused.sr_launches, qmatmul_fused.sr_fold_launches,
+              qmatmul_fused.launches, qmatmul_fused.fold_launches)
+    got = qmatmul_fused(a, b, **kw)
+    torch.cuda.synchronize()
+    split = isinstance(sched, sm90.DecodeSchedule) and sched.slices > 1
+    assert (qmatmul_fused.sr_launches, qmatmul_fused.sr_fold_launches,
+            qmatmul_fused.launches, qmatmul_fused.fold_launches) == (
+                counts[0] + 1, counts[1] + split, counts[2], counts[3])
+    assert torch.equal(got, qmatmul_fused_reference(a, b, **kw))
+
+
+@pytest.mark.parametrize("t,k,n,chunk,segs,kind", [
+    (64, 1536, 8960, 64, 10, "int8"),   # mlp gate/up, as the JAX split
+    (100, 130, 300, 32, 3, "int8"),     # ragged tiles and segments
+    (96, 200, 1000, 64, 4, "head"),     # f32 x, bf16 w, f32 g
+])
+def test_sr_carry_chain_matches_unsplit_and_plain(dev, t, k, n, chunk, segs,
+                                                  kind):
+    """B's dx carry-in entry (K7) under SR, chained over ``segs`` N
+    segments at their place in N: dx and dw bitwise the unsplit SR B and
+    the chained plain version; SR carry launches counted apart."""
+    from chip_smoke import _nsplit_plain
+    from repro_torch.kernels.bwd_pair import (qmatmul_bwd_pair,
+                                              qmatmul_bwd_pair_nsplit,
+                                              qmatmul_bwd_pair_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(t + k + n)
+    for lattice in (False, True):
+        x = _operand(gen, (t, k), dev, lattice)
+        w = _operand(gen, (k, n), dev, lattice) / math.sqrt(k)
+        g = _operand(gen, (t, n), dev, lattice) / math.sqrt(n)
+        if kind == "int8":
+            _, xq, wq = qmatmul_fused(x, w, repr_fmt=FP8_152,
+                                      return_quantized=True)
+            kw = dict(repr_fmt=FP8_152, packed=True)
+        else:
+            xq, wq = x, w.to(torch.bfloat16)
+            kw = dict(repr_fmt=None, packed=False)
+        kw.update(bwd_acc=(6, 5), grad_acc=(6, 7), bwd_chunk=chunk,
+                  grad_chunk=chunk, sr_seed_bwd=3, sr_seed_grad=4, **SR)
+        dx, dw = qmatmul_bwd_pair(g, xq, wq, **kw)
+        n0 = (qmatmul_bwd_pair.sr_carry_launches,
+              qmatmul_bwd_pair.carry_launches)
+        sdx, sdw = qmatmul_bwd_pair_nsplit(g, xq, wq, n_split=segs, **kw)
+        torch.cuda.synchronize()
+        assert qmatmul_bwd_pair.carry_launches == n0[1]
+        assert qmatmul_bwd_pair.sr_carry_launches - n0[0] == segs
+        assert torch.equal(sdx, dx) and torch.equal(sdw, dw)
+        pdx, pdw = _nsplit_plain(g, xq, wq, kw, segs)
+        assert torch.equal(sdx, pdx) and torch.equal(sdw, pdw)
+        udx, udw = qmatmul_bwd_pair_reference(g, xq, wq, **kw)
+        assert torch.equal(udx, dx) and torch.equal(udw, dw)
+
+
+@pytest.mark.parametrize("s,chunk,acc,q_off", [
+    (384, 16, (6, 5), 0), (64, 16, (6, 5), 320), (512, 64, (6, 7), 0),
+    (150, 48, (6, 5), 0), (17, 16, (6, 5), 0)])
+def test_flash_prefill_sr_matches_plain_and_resumes(dev, s, chunk, acc,
+                                                    q_off):
+    """K10 under SR (qwen2-1.5b's heads: H 12, KV 2, dh 128): bitwise its
+    plain version on random and lattice operands, one-shot and with the
+    carry out at a chunk multiple and back in (bitwise the one-shot walk);
+    another seed and RNE differ; SR launches counted apart."""
+    from repro_torch.kernels.attention import (flash_prefill,
+                                               flash_prefill_reference)
+
+    h, kv, dh = 12, 2, 128
+    gen = torch.Generator(device=dev).manual_seed(s + chunk + q_off)
+    kw = dict(acc=acc, chunk=chunk, q_offset=q_off, sr_seed=123, **SR)
+    sk = q_off + s
+    for mk in (lambda shape: torch.randn(shape, generator=gen, device=dev),
+               lambda shape: _lattice(gen, shape, dev)):
+        q, k, v = mk((s, h, dh)), mk((sk, kv, dh)), mk((sk, kv, dh))
+        want = flash_prefill_reference(q, k, v, **kw)
+        n0 = (flash_prefill.sr_launches, flash_prefill.launches)
+        got = flash_prefill(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert (flash_prefill.sr_launches, flash_prefill.launches) == (
+            n0[0] + 1, n0[1])
+        assert torch.equal(got, want)
+        split = chunk * (sk // (2 * chunk))
+        c = flash_prefill(q, k[:split], v[:split], return_carry=True, **kw)
+        pc = flash_prefill_reference(q, k[:split], v[:split],
+                                     return_carry=True, **kw)
+        for a, b in zip(c, pc):
+            assert torch.equal(a, b)
+        res = flash_prefill(q, k[split:], v[split:], kv_offset=split,
+                            carry=c, **kw)
+        other = flash_prefill(q, k, v, **dict(kw, sr_seed=124))
+        rne = flash_prefill(q, k, v, **dict(kw, rounding="rne"))
+        torch.cuda.synchronize()
+        assert torch.equal(res, want)
+        assert not torch.equal(other, got) and not torch.equal(rne, got)

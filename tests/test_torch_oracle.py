@@ -291,11 +291,41 @@ def test_oracle_on_lattice_operands_is_bitwise_jax():
 
 
 def test_oracle_refuses_stats_tag():
-    """The oracle's stats rows (K8 on its f32 residuals) are not ported:
-    a tagged oracle config raises, pointing at ROADMAP."""
+    """A tagged oracle config (the JAX package's branch without the pair's
+    rows) runs: its three roles' rows come from K8's plain version on the
+    f32 residuals and g, and equal the tagged fused qdot's rows (K8 and
+    K9's plain versions: the same chained sums), with y, dx and dw
+    unchanged by the tag; a mesh-wide reduction is still refused, and the
+    oracle never packs its residuals."""
+    from repro_torch.obs.ingraph import InGraphCollector, collecting
+
+    p = GEMMPrecision(m_acc=5, chunk=16)
+    rng = np.random.RandomState(21)
+    x = torch.from_numpy(rng.randn(24, 80).astype(np.float32))
+    w = torch.from_numpy((rng.randn(80, 48) / 9).astype(np.float32)).to(
+        torch.bfloat16)
+    g = torch.from_numpy(rng.randn(24, 48).astype(np.float32))
+    rows, outs = {}, {}
+    for fused in (True, False):
+        for tag in (None, "mlp_up"):
+            cfg = QDotConfig(fwd=p, bwd=p, grad=p, repr_fmt=FP8_152,
+                             fused=fused, stats_tag=tag)
+            col = InGraphCollector()
+            with collecting(col):
+                outs[fused, tag] = _port_vjp(x, w, cfg, g)
+            rows[fused, tag] = col.rows()
+    for fused in (True, False):
+        assert not rows[fused, None]
+        assert sorted(rows[fused, "mlp_up"]) == [
+            ("mlp_up", r) for r in ("bwd", "fwd", "grad")]
+        for a, b in zip(outs[fused, None], outs[fused, "mlp_up"]):
+            assert torch.equal(a, b)
+    for key, row in rows[True, "mlp_up"].items():
+        np.testing.assert_array_equal(np.asarray(row),
+                                      np.asarray(rows[False, "mlp_up"][key]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        QDotConfig(fwd=GEMMPrecision(m_acc=5, chunk=16), repr_fmt=FP8_152,
-                   fused=False, stats_tag="mlp_up")
+        QDotConfig(fwd=p, repr_fmt=FP8_152, fused=False, stats_tag="mlp_up",
+                   stats_axis="dp")
     assert not QDotConfig(repr_fmt=FP8_152, fused=False).packs
     assert QDotConfig(repr_fmt=FP8_152).packs
 

@@ -184,8 +184,10 @@ def test_flash_prefill_refuses():
     with pytest.raises(ValueError):
         flash_prefill(q, k, v, carry=(torch.zeros(8, 4, 16),
                                       torch.zeros(8, 4), torch.zeros(7, 4)))
-    with pytest.raises(NotImplementedError):
-        flash_prefill(q, k, v, rounding="sr")
+    with pytest.raises(ValueError, match="rounding"):
+        flash_prefill(q, k, v, rounding="nearest")
+    with pytest.raises(ValueError, match="rounding"):
+        flash_prefill_reference(q, k, v, rounding="nearest")
     with pytest.raises(NotImplementedError):
         flash_prefill(q, k, v, block_q=12)
 

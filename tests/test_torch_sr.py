@@ -485,17 +485,38 @@ def test_sr_backward_pair_matches_fused_gemms():
 
 
 def test_sr_carry_entry_raises():
-    """The dx carry-in entry (K7) keys JAX's dither on the global N chunk
-    and dw column, an offset the port's entry does not take yet: SR with
-    a carry, and the N-split pair under SR, raise."""
+    """The dx carry-in entry (K7) under SR keys its dither on the unsplit
+    call's N chunks and dw columns (``n_offset`` of ``n_total``, JAX's
+    ``step_off``/``col_off``/``n_total``): an offset off the ``bwd_chunk``
+    grid raises, as does a segment past ``n_total`` or on the stats pair;
+    the N-split pair under SR is bitwise the unsplit SR pair at 2 and 3
+    segments, and a segment keyed as if it were the whole call draws
+    other bits."""
     x, w = _fused_operands(t=32, k=40, n=96)
-    g = torch.zeros((32, 96))
+    g = torch.from_numpy(np.random.RandomState(4).standard_normal(
+        (32, 96)).astype(np.float32))
     kw = dict(repr_fmt=None, packed=False, bwd_chunk=32, grad_chunk=32,
-              rounding="sr")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qmatmul_bwd_pair(g, x, w, dx_carry=torch.zeros((32, 40)), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qmatmul_bwd_pair_nsplit(g, x, w, n_split=2, **kw)
+              bwd_acc=ACC, grad_acc=ACC, rounding="sr",
+              sr_seed_bwd=SR_SEED + 1, sr_seed_grad=SR_SEED + 2)
+    carry = torch.zeros((32, 40))
+    with pytest.raises(ValueError, match="multiple of bwd_chunk"):
+        qmatmul_bwd_pair(g[:, 16:], x, w[:, 16:], dx_carry=carry,
+                         n_offset=16, n_total=96, **kw)
+    with pytest.raises(ValueError, match="n_total"):
+        qmatmul_bwd_pair(g[:, 32:], x, w[:, 32:], dx_carry=carry,
+                         n_offset=32, n_total=64, **kw)
+    with pytest.raises(ValueError, match="segment"):
+        qmatmul_bwd_pair(g, x, w, collect_stats=True, n_offset=32, **kw)
+    dx, dw = qmatmul_bwd_pair(g, x, w, **kw)
+    for n_split in (2, 3):
+        sdx, sdw = qmatmul_bwd_pair_nsplit(g, x, w, n_split=n_split, **kw)
+        assert torch.equal(sdx, dx) and torch.equal(sdw, dw), n_split
+    dx0, _ = qmatmul_bwd_pair(g[:, :32], x, w[:, :32], **kw)
+    dx1, dw1 = qmatmul_bwd_pair(g[:, 32:], x, w[:, 32:], dx_carry=dx0,
+                                n_offset=32, n_total=96, **kw)
+    odx, odw = qmatmul_bwd_pair(g[:, 32:], x, w[:, 32:], dx_carry=dx0, **kw)
+    assert torch.equal(dx1, dx) and torch.equal(dw1, dw[:, 32:])
+    assert not torch.equal(odx, dx) and not torch.equal(odw, dw[:, 32:])
 
 
 def test_sr_stats_epilogue_neutral():

@@ -125,7 +125,7 @@ def main() -> None:
                        1, w.stride(0), w.stride(1), out.data_ptr(), M, n, k,
                        64, *qfmt_args(fmt or (8, 23)), int(fmt is not None),
                        int(fmt is not None), *qfmt_args((6, 9 if head else 5)),
-                       0, s.slots, s.slices, ws.data_ptr(),
+                       0, 0, 0, s.slots, s.slices, ws.data_ptr(),
                        torch.cuda.current_stream().cuda_stream)
                 assert rc == 0, rc
 

@@ -36,7 +36,8 @@ LAYER_KN = [(1536, 1536), (1536, 256), (1536, 256), (1536, 1536),
 DEPTH, VOCAB, D = 28, 151936, 1536
 _LL, _I, _P, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 ARGTYPES = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I, _I, _I,
-            _F, _F, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P, _P]
+            _F, _F, _I, _I, _I, _I, _F, _F, _I, ctypes.c_uint, _I, _I, _I,
+            _P, _P]
 
 
 def build_variants(out: Path) -> dict:
@@ -93,7 +94,7 @@ def main() -> None:
         rc = f(a.data_ptr(), 0, a.stride(0), a.stride(1), b.data_ptr(), 1,
                b.stride(0), b.stride(1), out.data_ptr(), m, n, k, 64,
                *qfmt_args(fmt or (8, 23)), int(fmt is not None),
-               int(fmt is not None), *qfmt_args(acc), *route,
+               int(fmt is not None), *qfmt_args(acc), 0, 0, *route,
                torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"qgemm launch failed: CUDA error {rc}")

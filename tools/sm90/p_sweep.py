@@ -62,7 +62,7 @@ def main() -> None:
         def run(rows, cl, r):
             rc = fk(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
                     None, out.data_ptr(), None, None, s, H, s, KV, DH, chunk,
-                    0, 0, scale, *qacc, rows, cl, r, stream())
+                    0, 0, scale, *qacc, rows, cl, r, 0, 0, stream())
             assert rc == 0, rc
         return run, -(-s // chunk), chunk
 
