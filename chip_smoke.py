@@ -421,7 +421,7 @@ def sm90_report(build) -> None:
                   f"{n} resident blocks an SM (at least {need} required)",
                   flush=True)
             check(n >= need, f"{kernel} kinds {k}: {n} resident blocks an SM")
-    occ = build.function("qgemm", "qgemm_decode_occupancy", [ctypes.c_int] * 5)
+    occ = build.function("qgemm", "qgemm_decode_occupancy", [ctypes.c_int] * 6)
     seen = set()
     for k, n, kfast in ((1536, 1536, 0), (1536, 256, 0), (1536, 8960, 0),
                         (8960, 1536, 0), (1536, 151936, 1)):
@@ -429,12 +429,15 @@ def sm90_report(build) -> None:
         if (s.slots, kfast) in seen:
             continue
         seen.add((s.slots, kfast))
-        r = occ(0, 1, kfast, s.slots, 64)
-        print(f"[build] qgemm_decode_kernel<f32, bf16, "
-              f"{('false', 'true')[kfast]}> at {s.slots} slots ({s.threads} "
-              f"threads, K={k} N={n} M={MAX_BATCH}): {s.smem} bytes of dynamic "
-              f"shared memory, {r} resident blocks an SM", flush=True)
-        check(r >= 1, f"G's decode kernel: {r} resident blocks an SM")
+        for sr in (0, 1):
+            r = occ(0, 1, kfast, s.slots, 64, sr)
+            print(f"[build] qgemm_decode_kernel<f32, bf16, "
+                  f"{('false', 'true')[kfast]}, {('false', 'true')[sr]}> at "
+                  f"{s.slots} slots ({s.threads} threads, K={k} N={n} "
+                  f"M={MAX_BATCH}): {s.smem} bytes of dynamic shared memory, "
+                  f"{r} resident blocks an SM", flush=True)
+            check(r >= 1, f"G's decode kernel (sr {sr}): {r} resident blocks "
+                  f"an SM")
     occ = build.function("qmatmul", "qmatmul_occupancy", [ctypes.c_int] * 3)
     for a, b in ((0, 0), (0, 1), (1, 1)):
         r = occ(a, b, 4)
@@ -460,24 +463,30 @@ def sm90_report(build) -> None:
               f"of dynamic shared memory; clusters that fit at once: D {n[0]}, "
               f"K12 {n[1]}", flush=True)
         check(min(n) >= b * 2, f"D/K12 at the {what}: {n} clusters fit")
-    # P and K10 (qwen2-1.5b: g 6, dh 128) at the schedules of the serve
-    # shapes: tile rows, cluster, pages a block a round, shared memory,
-    # resident blocks an SM (at least two) and clusters that fit at once
+    # P and K10 (qwen2-1.5b: g 6, dh 128; K10 under RNE and SR) at the
+    # schedules of the serve shapes: tile rows, cluster, pages a block a
+    # round, shared memory, resident blocks an SM (at least two) and
+    # clusters that fit at once
     for lib, what, t, ps, n_pages in PREFILL_BUILD_SHAPES:
         s = sm90.attn_prefill_schedule(t, 2, 6, ps, 128, n_pages)
         args = (6, s.rows, ps, 128, s.cluster, s.rank_pages)
         smem = build.function(lib, f"{lib}_smem", [ctypes.c_int] * 6)(*args)
-        occ = build.function(lib, f"{lib}_occupancy", [ctypes.c_int] * 6)(*args)
-        fit = build.function(lib, f"{lib}_clusters", [ctypes.c_int] * 6)(*args)
-        print(f"[build] attn_prefill_kernel<{str(lib == 'paged_prefill').lower()}, "
-              f"false> ({lib}) at "
-              f"{what} (T={t}, page {ps}, {n_pages} pages): {s.rows} rows a "
-              f"tile, cluster {s.cluster}, {s.rank_pages} pages a block a "
-              f"round, {s.blocks} blocks of {sm90.PREFILL_THREADS} threads, "
-              f"{smem} bytes of dynamic shared memory, {occ} resident blocks "
-              f"an SM, {fit} clusters fit at once", flush=True)
         check(smem == s.smem, f"{lib} at {what}: smem {smem} != {s.smem}")
-        check(occ >= 2, f"{lib} at {what}: {occ} resident blocks an SM")
+        for sr in ((False, True) if lib == "flash_prefill" else (False,)):
+            entry = f"{lib}_sr" if sr else lib
+            occ = build.function(lib, f"{entry}_occupancy",
+                                 [ctypes.c_int] * 6)(*args)
+            fit = build.function(lib, f"{entry}_clusters",
+                                 [ctypes.c_int] * 6)(*args)
+            print(f"[build] attn_prefill_kernel<"
+                  f"{str(lib == 'paged_prefill').lower()}, {str(sr).lower()}> "
+                  f"({lib}) at {what} (T={t}, page {ps}, {n_pages} pages): "
+                  f"{s.rows} rows a tile, cluster {s.cluster}, {s.rank_pages} "
+                  f"pages a block a round, {s.blocks} blocks of "
+                  f"{sm90.PREFILL_THREADS} threads, {smem} bytes of dynamic "
+                  f"shared memory, {occ} resident blocks an SM, {fit} clusters "
+                  f"fit at once", flush=True)
+            check(occ >= 2, f"{entry} at {what}: {occ} resident blocks an SM")
 
 
 # --------------------------------------------------------------------------
@@ -2797,8 +2806,9 @@ K10_SR_NAME = "flash_prefill(rounding=sr)"
 
 def _sr_counters():
     """The SR launches of G (and its split calls' fold kernel), E, B,
-    B's dx carry-in entry (K7), K8 and K9, counted apart, as
+    B's dx carry-in entry (K7), K8, K9 and K10, counted apart, as
     ``_counters``."""
+    from repro_torch.kernels.attention import flash_prefill
     from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
     from repro_torch.kernels.fused import qmatmul_fused
 
@@ -2808,7 +2818,8 @@ def _sr_counters():
             B_SR_NAME: (qmatmul_bwd_pair, "sr_launches"),
             K7_SR_NAME: (qmatmul_bwd_pair, "sr_carry_launches"),
             K8_SR_NAME: (qmatmul_fused, "sr_stats_launches"),
-            K9_SR_NAME: (qmatmul_bwd_pair, "sr_stats_launches")}
+            K9_SR_NAME: (qmatmul_bwd_pair, "sr_stats_launches"),
+            K10_SR_NAME: (flash_prefill, "sr_launches")}
 
 
 def _sr_kw(qc):
@@ -4013,8 +4024,8 @@ def main() -> None:
              fold_launches=ts["launches"][G_SR_FOLD], **sg),
         # the SR carries of K7 and K10 are on no path of the train and serve
         # cells (one unsplit B a layer; serving is RNE, as the JAX
-        # package's engine): 0 launches there; phase_launches counts their
-        # own phases' calls
+        # package's engine): the [train] sr run counts 0 of each there;
+        # phase_launches counts their own phases' calls
         dict(name=K7_SR_NAME, route="cuda",
              source="src/repro_torch/csrc/bwd_pair.cu",
              replaces="src/repro/kernels/bwd_pair.py:155",
@@ -4022,7 +4033,7 @@ def main() -> None:
         dict(name=K10_SR_NAME, route="cuda",
              source="src/repro_torch/csrc/flash_prefill.cu",
              replaces="src/repro/kernels/attention.py:258",
-             launches=0, **s10),
+             launches=ts["launches"][K10_SR_NAME], **s10),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

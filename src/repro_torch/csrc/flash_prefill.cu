@@ -70,10 +70,17 @@ extern "C" int flash_prefill_smem(int G, int BR, int chunk, int DH, int CL, int 
   return prefill::Layout(G, BR, chunk, DH, CL, R).bytes();
 }
 
-// resident blocks an SM, and clusters of CL that fit the card at once
+// resident blocks an SM, and clusters of CL that fit the card at once,
+// under RNE and (the _sr_ entries) under SR
 extern "C" int flash_prefill_occupancy(int G, int BR, int chunk, int DH, int CL, int R) {
   return prefill::occupancy<false>(G, BR, chunk, DH, CL, R);
 }
 extern "C" int flash_prefill_clusters(int G, int BR, int chunk, int DH, int CL, int R) {
   return prefill::clusters<false>(G, BR, chunk, DH, CL, R);
+}
+extern "C" int flash_prefill_sr_occupancy(int G, int BR, int chunk, int DH, int CL, int R) {
+  return prefill::occupancy<false, true>(G, BR, chunk, DH, CL, R);
+}
+extern "C" int flash_prefill_sr_clusters(int G, int BR, int chunk, int DH, int CL, int R) {
+  return prefill::clusters<false, true>(G, BR, chunk, DH, CL, R);
 }

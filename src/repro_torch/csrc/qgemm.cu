@@ -62,6 +62,8 @@
 // either way: E's kernel takes them by value.)
 #include "qgemm_sm90.cuh"
 
+#include <type_traits>
+
 namespace {
 
 using bf = __nv_bfloat16;
@@ -485,24 +487,29 @@ int occupancy_of(const void* kernel, int threads, int bytes, int rc) {
 
 // The decode route's workspace (floats) for `slices` blocks along the
 // chunks, its dynamic shared memory (bytes) and its resident blocks an SM
-// (or a negative error); kernels/sm90.py mirrors the first two.
+// (or a negative error) under RNE (sr 0) or SR (sr 1); kernels/sm90.py
+// mirrors the first two.
 extern "C" long long qgemm_decode_ws(int M, int N, int K, int chunk, int slices) {
   return slices > 1 ? (((long long)K + chunk - 1) / chunk) * M * N : 0;
 }
 extern "C" int qgemm_decode_smem(int b_bf16, int slots, int chunk) {
   return decode_smem(slots, chunk, LANES * (b_bf16 ? vlen<bf>() : vlen<float>()));
 }
-extern "C" int qgemm_decode_occupancy(int a_bf16, int b_bf16, int kfast, int slots, int chunk) {
+extern "C" int qgemm_decode_occupancy(int a_bf16, int b_bf16, int kfast, int slots, int chunk,
+                                      int sr) {
   if (!valid_slots(slots)) return -static_cast<int>(cudaErrorInvalidValue);
   return by_types(a_bf16, b_bf16, [&](auto ta, auto tb) {
     using TA = decltype(ta);
     using TB = decltype(tb);
     const int bytes = decode_smem(slots, chunk, LANES * vlen<TB>());
+    auto go = [&](auto kf, auto rounds_sr) {
+      constexpr bool KF = decltype(kf)::value, SR = decltype(rounds_sr)::value;
+      return occupancy_of((const void*)qgemm_decode_kernel<TA, TB, KF, SR>, slots * LANES,
+                          bytes, decode_set_smem<TA, TB, KF, SR>(bytes));
+    };
     if (kfast)
-      return occupancy_of((const void*)qgemm_decode_kernel<TA, TB, true, false>, slots * LANES,
-                          bytes, decode_set_smem<TA, TB, true>(bytes));
-    return occupancy_of((const void*)qgemm_decode_kernel<TA, TB, false, false>, slots * LANES,
-                        bytes, decode_set_smem<TA, TB, false>(bytes));
+      return sr ? go(std::true_type{}, std::true_type{}) : go(std::true_type{}, std::false_type{});
+    return sr ? go(std::false_type{}, std::true_type{}) : go(std::false_type{}, std::false_type{});
   });
 }
 
@@ -543,12 +550,12 @@ extern "C" int qgemm(const void* A, int a_bf16, long long sam, long long sak,
   const QFmt qacc{c_identity, c_shift, c_max, c_min};
   if (route == 1)
     return by_types(a_bf16, b_bf16, [&](auto ta, auto tb) {
-      using TA = decltype(ta);
-      using TB = decltype(tb);
-      return sr ? tile<TA, TB, true>(A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, qr, quant_a,
-                                     quant_b, qacc, seed, par, s)
-                : tile<TA, TB, false>(A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, qr, quant_a,
-                                      quant_b, qacc, seed, par, s);
+      auto go = [&](auto rounds_sr) {
+        return tile<decltype(ta), decltype(tb), decltype(rounds_sr)::value>(
+            A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, qr, quant_a, quant_b, qacc, seed,
+            par, s);
+      };
+      return sr ? go(std::true_type{}) : go(std::false_type{});
     });
   if (route != 0 || chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
   const QFmt ident{1, 0, 0.0f, 0.0f};
@@ -556,8 +563,9 @@ extern "C" int qgemm(const void* A, int a_bf16, long long sam, long long sak,
                  slices, 0, sm90::quant_of(quant_a ? qr : ident),
                  sm90::quant_of(quant_b ? qr : ident), sm90::quant_of(qacc), seed};
   return by_types(a_bf16, b_bf16, [&](auto ta, auto tb) {
-    using TA = decltype(ta);
-    using TB = decltype(tb);
-    return sr ? decode<TA, TB, true>(p, par, s) : decode<TA, TB, false>(p, par, s);
+    auto go = [&](auto rounds_sr) {
+      return decode<decltype(ta), decltype(tb), decltype(rounds_sr)::value>(p, par, s);
+    };
+    return sr ? go(std::true_type{}) : go(std::false_type{});
   });
 }

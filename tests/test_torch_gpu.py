@@ -253,14 +253,16 @@ def test_prefill_kernel_matches_plain(dev, case, sched):
 def test_prefill_entries_match_their_mirrors(dev):
     """P's and K10's shared memory equals ``sm90.attn_prefill_smem`` at
     every head shape and schedule; at the serve shapes' schedules two
-    blocks fit an SM."""
+    blocks fit an SM (K10 under RNE and under SR)."""
     import ctypes
 
     from repro_torch.kernels import build, sm90
 
     for lib in ("paged_prefill", "flash_prefill"):
         smem = build.function(lib, f"{lib}_smem", [ctypes.c_int] * 6)
-        occ = build.function(lib, f"{lib}_occupancy", [ctypes.c_int] * 6)
+        occs = [build.function(lib, f"{e}_occupancy", [ctypes.c_int] * 6)
+                for e in ((lib, f"{lib}_sr") if lib == "flash_prefill"
+                          else (lib,))]
         for g, ps, dh in ((6, 16, 128), (2, 16, 16), (8, 32, 128), (3, 5, 7),
                           (6, 128, 128), (6, 100, 64)):
             for br in (1, 8):
@@ -271,8 +273,9 @@ def test_prefill_entries_match_their_mirrors(dev):
         for t, ps, n_pages in ((64, 16, 24), (384, 16, 24), (2048, 16, 128),
                                (512, 64, 8), (512, 128, 4)):
             s = sm90.attn_prefill_schedule(t, 2, 6, ps, 128, n_pages)
-            n = occ(6, s.rows, ps, 128, s.cluster, s.rank_pages)
-            assert n >= 2, (lib, t, ps, s, n)
+            for occ in occs:
+                n = occ(6, s.rows, ps, 128, s.cluster, s.rank_pages)
+                assert n >= 2, (lib, t, ps, s, n)
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -1262,7 +1265,7 @@ def test_g_tile_route_matches_k8(dev, m, k, n, chunk, kind):
 def test_g_entries_match_their_mirrors(dev):
     """G's workspace and shared-memory entries equal kernels/sm90.py's
     mirrors; every decode schedule of the model's shapes fits a block
-    with at least one resident, and the tile route at the lm_head's kinds
+    with at least one resident (under RNE and under SR), and the tile route at the lm_head's kinds
     two 256-thread blocks an SM."""
     import ctypes
 
@@ -1271,9 +1274,9 @@ def test_g_entries_match_their_mirrors(dev):
     lib = build.library("qgemm")
     ws = lib.qgemm_decode_ws
     ws.restype, ws.argtypes = ctypes.c_longlong, [ctypes.c_int] * 5
-    i3, i5 = [ctypes.c_int] * 3, [ctypes.c_int] * 5
+    i3, i5, i6 = [ctypes.c_int] * 3, [ctypes.c_int] * 5, [ctypes.c_int] * 6
     smem = build.function("qgemm", "qgemm_decode_smem", i3)
-    occ = build.function("qgemm", "qgemm_decode_occupancy", i5)
+    occ = build.function("qgemm", "qgemm_decode_occupancy", i6)
     t_smem = build.function("qgemm", "qgemm_tile_smem", i3)
     t_occ = build.function("qgemm", "qgemm_tile_occupancy", i3)
     for m in (1, 3, 8, 16, 32, 64):
@@ -1281,7 +1284,8 @@ def test_g_entries_match_their_mirrors(dev):
             s = sm90.decode_schedule(m, n, k, 64, 1)
             assert ws(m, n, k, 64, s.slices) == s.ws_floats
             assert smem(1, s.slots, 64) == s.smem
-            assert occ(0, 1, int(n == 151936), s.slots, 64) >= 1
+            for sr in (0, 1):
+                assert occ(0, 1, int(n == 151936), s.slots, 64, sr) >= 1
     for slots in (1, 3, 5, 8):
         for chunk in (16, 64, 128, 200):
             for b_bf16 in (0, 1):
