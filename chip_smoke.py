@@ -118,15 +118,35 @@ on its own line:
    1's assignment of the paper's three networks against the published
    table (the JAX package's match count), and qwen2-1.5b's accumulation
    lengths beside the train cell's plan;
-9. ckpt: the train cell at full width and 2 layers through the launcher,
+9. tp (after the dense prefill, before training): tensor-parallel
+   serving, 2 ranks sharing the one card (gloo).  Kernels: D's carry entry
+   (``return_carry=True``) at the serve arena for a rank's share (KV 1, g
+   6) and unsplit, P's carry out at the 64-token slab (a rank's share and
+   unsplit) and over the 8 one-shot prompts, each o, m and l bitwise its
+   plain version on random and lattice q and its finalize bitwise the
+   finalized kernel, timed by CUDA-graph replay beside it; P resumed at
+   pages 1, 7, 12 and 23 of the 384-token prompt from the carry of the
+   pages before, bitwise the one-shot walk; G at a rank's seven weight
+   slices at M = 8, 64 and 384, bitwise.  Engine: the serve prompts at
+   full width and depth, half the serve cell's tokens each, one-shot
+   through ``launch/serve.py --serve-mesh 2`` and with 64-token slabs and
+   a forced preemption through ``serve_job``, each against the
+   single-device engine under the same ``tp_shards=2`` plan: tokens, every
+   decode step's logits (sha256; one step bitwise), the arena gathered
+   from the ranks byte for byte, the per-rank pools in lockstep; the
+   decode step's time beside the single device's (2 ranks sharing one
+   card: not a TP speed figure); which gloo collectives take CUDA
+   tensors; the int8 logit wire bitwise the gather wire on a lattice
+   input; the carry entries' launches counted on rank 0;
+10. ckpt: the train cell at full width and 2 layers through the launcher,
    uninterrupted and then under the restart supervisor with a crash at
    step 3 and a checkpoint every 2 steps (losses after the resume bitwise
    the uninterrupted run's; bytes on disk, save and restore ms), and the
    last checkpoint served through ``launch/serve.py --ckpt-dir`` under
    its recorded precision schedule;
-10. result: one JSON line per kernel (the SR carries of G, E, B, K7, K8,
-   K9 and K10 as entries of their own), the card's name and power limit,
-   and the final JSON line.
+11. result: one JSON line per kernel (the SR carries of G, E, B, K7, K8,
+   K9 and K10, and D's and P's carry variants, as entries of their own),
+   the card's name and power limit, and the final JSON line.
 
 Any failed check exits non-zero.  Without a CUDA device it exits non-zero
 before printing a result.
@@ -136,6 +156,7 @@ before printing a result.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
@@ -450,19 +471,24 @@ def sm90_report(build) -> None:
     # memory and the clusters that fit the card at once, at the serve
     # arena and the monitor's B 1 (the 1024-token bucket's 64 pages) and
     # at the 4096-token row
+    # (and D's carry entry, at a rank's share of the arena under 2 ranks,
+    # KV 1, too: it must fit as D does)
     smem = build.function("paged_decode", "paged_decode_smem", [ctypes.c_int] * 5)
     fit = build.function("paged_decode", "paged_decode_clusters", [ctypes.c_int] * 6)
-    for b, width, what in ((MAX_BATCH, 64, "serve arena"), (1, 64, "monitor"),
-                           (1, 256, "4096-token row")):
-        s = sm90.attn_decode_schedule(b, 2, width, 6, PAGE, 128)
-        n = [fit(k, 6, PAGE, 128, s.cluster, s.rank_pages) for k in (0, 1)]
-        print(f"[build] paged_decode_kernel at the {what} (B={b}, KV 2, "
+    for b, kv, width, what in ((MAX_BATCH, 2, 64, "serve arena"),
+                               (1, 2, 64, "monitor"),
+                               (1, 2, 256, "4096-token row"),
+                               (MAX_BATCH, 1, 64, "rank's share")):
+        s = sm90.attn_decode_schedule(b, kv, width, 6, PAGE, 128)
+        n = [fit(k, 6, PAGE, 128, s.cluster, s.rank_pages) for k in (0, 1, 2)]
+        print(f"[build] paged_decode_kernel at the {what} (B={b}, KV {kv}, "
               f"width {width}): cluster {s.cluster}, {s.rank_pages} pages a "
               f"block a round, {s.blocks} blocks of {sm90.ATTN_THREADS} "
               f"threads, {smem(6, PAGE, 128, s.cluster, s.rank_pages)} bytes "
               f"of dynamic shared memory; clusters that fit at once: D {n[0]}, "
-              f"K12 {n[1]}", flush=True)
+              f"K12 {n[1]}, D's carry entry {n[2]}", flush=True)
         check(min(n) >= b * 2, f"D/K12 at the {what}: {n} clusters fit")
+        check(n[2] == n[0], f"D's carry entry fits {n[2]} clusters, D {n[0]}")
     # P and K10 (qwen2-1.5b: g 6, dh 128; K10 under RNE and SR) at the
     # schedules of the serve shapes: tile rows, cluster, pages a block a
     # round, shared memory, resident blocks an SM (at least two) and
@@ -3847,6 +3873,449 @@ def phase_ckpt(dev) -> dict:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phase 10: tensor-parallel serving, 2 ranks on the one card
+# --------------------------------------------------------------------------
+
+TP_RANKS = 2
+# tokens generated a request in the [tp] engine runs: half the serve cell's
+# (a decode step of 2 ranks sharing the card takes about 4x one device's)
+TP_GEN = GEN // 2
+TP_PREEMPT_AFTER = 6            # engine steps before the forced preemption
+TP_RESUME_PAGES = (1, 7, 12, 23)  # P resumed there on the 384-token prompt
+TP_G_MS = (MAX_BATCH, SLAB, 384)  # G's M: decode, a slab, a one-shot prompt
+D_CARRY_NAME = "paged_attn_decode(return_carry)"
+P_CARRY_NAME = "flash_prefill_paged(return_carry)"
+P_RESUME_NAME = "flash_prefill_paged(carry, start_page)"
+
+
+def _tp_heads(cfg, ranks):
+    """(what, heads, KV heads) of the attention calls: a rank's share and
+    the unsplit model."""
+    return (("rank's share", cfg.n_heads // ranks, cfg.n_kv_heads // ranks),
+            ("unsplit", cfg.n_heads, cfg.n_kv_heads))
+
+
+def _tp_decode(cfg, dev, plan) -> dict:
+    """D's carry entry at the serve arena (B 8) for a rank's share (KV 1, g
+    6) and unsplit: o, m, l bitwise the plain walk's carry on random and
+    lattice q, its finalize bitwise D's output; timed by graph replay
+    beside D on the same inputs."""
+    from repro_torch.kernels.attention import (
+        finalize_carry, paged_attn_decode, paged_attn_decode_reference)
+    from repro_torch.quant.formats import FP8_152
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    lens = DECODE_SHAPES[0][1]
+    _, bucket = plan.bucket_for(max(lens))
+    acc, width, dh = bucket.acc, bucket.max_pages(PAGE), cfg.head_dim
+    kw = dict(kv_fmt=FP8_152, acc=acc)
+    res = {}
+    for what, h, kv in _tp_heads(cfg, TP_RANKS):
+        n_pages, pt = _decode_table(gen, dev, lens, width)
+        kc, vc, kse, vse = _attn_arena(gen, dev, n_pages, kv, dh)
+        sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (kc, vc, kse, vse, pt, sl)
+        q = torch.randn((len(lens), h, dh), generator=gen, device=dev)
+        print(f"[tp] D's carry entry vs plain at the serve arena, {what}: "
+              f"B={len(lens)} H={h} KV={kv} dh={dh}, width {width}, acc {acc}",
+              flush=True)
+        err = 0.0
+        for label, qq in (("random q", q),
+                          ("lattice q", _lattice(gen, tuple(q.shape), dev))):
+            got = paged_attn_decode(qq, *args, return_carry=True, **kw)
+            want = paged_attn_decode_reference(qq, *args, return_carry=True,
+                                               **kw)
+            for part, a, b in zip("oml", got, want):
+                check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                      f"D carry {what} {label}: {part} not bitwise the plain "
+                      "walk's")
+            fin = finalize_carry(got[0], got[2])
+            check(torch.equal(fin, paged_attn_decode(qq, *args, **kw)),
+                  f"D carry {what} {label}: its finalize differs from D")
+            err = max(err, float((got[0] - want[0]).abs().max()))
+            print(f"  D carry {what} {label}: o, m, l bitwise the plain "
+                  "walk's; finalize bitwise D", flush=True)
+        carry = lib_time(lambda: paged_attn_decode(q, *args, return_carry=True,
+                                                   **kw), reps=50)
+        fin = lib_time(lambda: paged_attn_decode(q, *args, **kw), reps=50)
+        plain = cuda_time(lambda: paged_attn_decode_reference(
+            q, *args, return_carry=True, **kw), reps=1, warmup=0)
+        pages = sum(-(-n // PAGE) for n in lens)
+        n_bytes = (pages * kv * PAGE * dh * 2 + q.numel() * 4 * 2
+                   + pt.numel() * 4 + len(lens) * 4 + pages * 2 * 4
+                   + 2 * len(lens) * h * 4)
+        b_ms, b_by = bound_ms(n_bytes, 4 * sum(lens) * dh * h, F32_FLOPS)
+        print(f"  time at the {what}: D's carry entry graph replay "
+              f"{lib_str(carry)} against D's {lib_str(fin)} "
+              f"({carry[0] / fin[0]:.3f}x); plain {plain:.2f} ms; bound "
+              f"{b_ms:.7f} ms ({b_by})", flush=True)
+        res[what] = dict(ms=carry[0], graph_spread_ms=list(carry[1]),
+                         finalized_ms=fin[0], plain_ms=plain, bound_ms=b_ms,
+                         bound_by=b_by, max_abs_err=err)
+    out = dict(res["rank's share"], library_ms=None)
+    out["unsplit"] = res["unsplit"]
+    return out
+
+
+def _tp_prefill(cfg, dev, plan) -> dict:
+    """P's carry out at the 64-token slab (a rank's share and unsplit) and
+    over the 8 one-shot prompts (a rank's share): bitwise the plain walk's
+    carry on random and lattice q, its finalize bitwise P; then P resumed at
+    ``TP_RESUME_PAGES`` of the 384-token prompt from the carry of the pages
+    before (a carry-out call with ``kv_len = start_page * page``): bitwise
+    the one-shot walk and the plain resumed walk.  Each timed by graph
+    replay beside P on the same inputs."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels.attention import (
+        finalize_carry, flash_prefill_paged, flash_prefill_paged_reference)
+    from repro_torch.quant.formats import FP8_152
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    heads = dict((w, SimpleNamespace(n_heads=h, n_kv_heads=kv,
+                                     head_dim=cfg.head_dim))
+                 for w, h, kv in _tp_heads(cfg, TP_RANKS))
+    shapes = (("slab", "rank's share", [(SLAB, 320, SLAB)]),
+              ("slab", "unsplit", [(SLAB, 320, SLAB)]),
+              ("8 one-shot prompts", "rank's share",
+               [(n, 0, n) for n in PROMPT_LENS]))
+    res, err = {}, 0.0
+    for what, share, calls in shapes:
+        cases = [_p_case(gen, dev, heads[share], plan, *c) for c in calls]
+        print(f"[tp] P's carry out vs plain at the {what}, {share}: H="
+              f"{heads[share].n_heads} KV={heads[share].n_kv_heads}, (T, "
+              f"q_offset) {[c[:2] for c in calls]}", flush=True)
+        for c in cases:
+            kw = dict(kv_fmt=FP8_152, acc=c["acc"])
+            for label, qq in (("random q", c["q"]),
+                              ("lattice q", _lattice(gen, tuple(c["q"].shape),
+                                                     dev))):
+                got = flash_prefill_paged(qq, *c["args"], return_carry=True,
+                                          **kw)
+                want = flash_prefill_paged_reference(qq, *c["args"],
+                                                     return_carry=True, **kw)
+                for part, a, b in zip("oml", got, want):
+                    check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                          f"P carry {what} {share} {label}: {part} not bitwise")
+                check(torch.equal(finalize_carry(got[0], got[2]),
+                                  flash_prefill_paged(qq, *c["args"], **kw)),
+                      f"P carry {what} {share}: its finalize differs from P")
+                err = max(err, float((got[0] - want[0]).abs().max()))
+        print(f"  P carry out {what} {share}: o, m, l bitwise the plain walk's "
+              f"on random and lattice q ({len(cases)} calls); finalize "
+              f"bitwise P", flush=True)
+
+        def run(carry, cases=cases):
+            for c in cases:
+                flash_prefill_paged(c["q"], *c["args"], kv_fmt=FP8_152,
+                                    acc=c["acc"], return_carry=carry)
+
+        carry = lib_time(lambda: run(True), reps=20)
+        fin = lib_time(lambda: run(False), reps=20)
+        plain = cuda_time(lambda: [flash_prefill_paged_reference(
+            c["q"], *c["args"], kv_fmt=FP8_152, acc=c["acc"],
+            return_carry=True) for c in cases], reps=1, warmup=0)
+        n_bytes = sum(c["bytes"] + 2 * c["q"].shape[0] * c["q"].shape[1] * 4
+                      for c in cases)
+        b_ms, b_by = bound_ms(n_bytes, sum(c["flops"] for c in cases),
+                              F32_FLOPS)
+        print(f"  time P carry out {what} {share}: graph replay "
+              f"{lib_str(carry)} against P's {lib_str(fin)} "
+              f"({carry[0] / fin[0]:.3f}x); plain {plain:.2f} ms; bound "
+              f"{b_ms:.6f} ms ({b_by})", flush=True)
+        res[(what, share)] = dict(ms=carry[0], graph_spread_ms=list(carry[1]),
+                                  finalized_ms=fin[0], plain_ms=plain,
+                                  bound_ms=b_ms, bound_by=b_by)
+        del cases
+    out = dict(res[("slab", "rank's share")], max_abs_err=err,
+               library_ms=None)
+    out["at"] = {f"{w}, {s}": r for (w, s), r in res.items()
+                 if (w, s) != ("slab", "rank's share")}
+
+    # the resumed walk, on the 384-token prompt at a rank's share
+    share = heads["rank's share"]
+    c = _p_case(gen, dev, share, plan, 384, 0, 384)
+    kw = dict(kv_fmt=FP8_152, acc=c["acc"])
+    q, (kc, vc, kse, vse, row, q_off, q_len, kv_len) = c["q"], c["args"]
+    pages = (kc, vc, kse, vse, row, q_off, q_len)
+    one = flash_prefill_paged(q, *pages, kv_len, **kw)
+    one_c = flash_prefill_paged(q, *pages, kv_len, return_carry=True, **kw)
+    carries = {sp: flash_prefill_paged(q, *pages, sp * PAGE, return_carry=True,
+                                       **kw) for sp in TP_RESUME_PAGES}
+    n0 = flash_prefill_paged.resume_launches
+    for sp, cin in carries.items():
+        res_o = flash_prefill_paged(q, *pages, kv_len, carry=cin,
+                                    start_page=sp, **kw)
+        res_c = flash_prefill_paged(q, *pages, kv_len, carry=cin,
+                                    start_page=sp, return_carry=True, **kw)
+        plain_o = flash_prefill_paged_reference(q, *pages, kv_len, carry=cin,
+                                                start_page=sp, **kw)
+        check(torch.equal(res_o.view(torch.int32), one.view(torch.int32)),
+              f"P resumed at page {sp}: not bitwise the one-shot walk")
+        check(torch.equal(res_o, plain_o),
+              f"P resumed at page {sp}: not bitwise the plain resumed walk")
+        check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in zip(res_c, one_c)),
+              f"P resumed at page {sp}: its carry is not the one-shot's")
+    launches = flash_prefill_paged.resume_launches - n0
+    sp = TP_RESUME_PAGES[len(TP_RESUME_PAGES) // 2]
+    resumed = lib_time(lambda: flash_prefill_paged(
+        q, *pages, kv_len, carry=carries[sp], start_page=sp, **kw), reps=20)
+    fin = lib_time(lambda: flash_prefill_paged(q, *pages, kv_len, **kw),
+                   reps=20)
+    plain = cuda_time(lambda: flash_prefill_paged_reference(
+        q, *pages, kv_len, carry=carries[sp], start_page=sp, **kw), reps=1,
+        warmup=0)
+    # the rows' columns from page sp on: those pages, q, the carry in (o,
+    # m, l) and the output, each once
+    attended = sum(max(0, r + 1 - sp * PAGE) for r in range(384))
+    rows = 384 * share.n_heads
+    n_bytes = ((-(-384 // PAGE) - sp) * share.n_kv_heads * PAGE
+               * share.head_dim * 2 + 3 * rows * share.head_dim * 4
+               + 2 * rows * 4 + row.numel() * 4)
+    b_ms, b_by = bound_ms(n_bytes, 4 * attended * share.head_dim
+                          * share.n_heads, F32_FLOPS)
+    print(f"[tp] P resumed at pages {list(TP_RESUME_PAGES)} of the 384-token "
+          f"prompt ({share.n_heads} heads, KV {share.n_kv_heads}) from the "
+          f"carry of the pages before: bitwise the one-shot walk, its carry "
+          f"and the plain resumed walk ({launches} launches); at page {sp}: "
+          f"graph replay {lib_str(resumed)} against the one-shot P "
+          f"{lib_str(fin)}; plain {plain:.2f} ms; bound {b_ms:.6f} ms "
+          f"({b_by})", flush=True)
+    resume = dict(ms=resumed[0], graph_spread_ms=list(resumed[1]),
+                  one_shot_ms=fin[0], plain_ms=plain, bound_ms=b_ms,
+                  bound_by=b_by, max_abs_err=0.0, library_ms=None,
+                  launches=launches, start_page=sp)
+    return dict(carry=out, resume=resume)
+
+
+def _tp_gemms(cfg, dev) -> None:
+    """G at a rank's output-dim slices of the layer weights (the seven per
+    layer), at M = ``TP_G_MS``: bitwise the plain version on random and on
+    lattice operands; the route G takes is printed."""
+    from repro_torch.kernels import sm90
+    from repro_torch.kernels.fused import (qmatmul_fused,
+                                           qmatmul_fused_reference)
+
+    s, q = TP_RANKS, cfg.quant
+    d, hd, kvd, f = (cfg.d_model, cfg.n_heads * cfg.head_dim,
+                     cfg.n_kv_heads * cfg.head_dim, cfg.d_ff)
+    shapes = (("wq", d, hd // s, q.attn_qkv), ("wk", d, kvd // s, q.attn_qkv),
+              ("wv", d, kvd // s, q.attn_qkv), ("wo", hd, d // s, q.attn_out),
+              ("w_gate", d, f // s, q.mlp_up), ("w_up", d, f // s, q.mlp_up),
+              ("w_down", f, d // s, q.mlp_down))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+    lines = []
+    for name, k, n, qc in shapes:
+        kw = _gemm_kw(qc)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             / math.sqrt(k)).to(torch.bfloat16)
+        wl = _lattice(gen, (k, n), dev).to(torch.bfloat16)
+        for m in TP_G_MS:
+            for what, a, b in (("random", torch.randn((m, k), generator=gen,
+                                                      device=dev), w),
+                               ("lattice", _lattice(gen, (m, k), dev), wl)):
+                check(torch.equal(qmatmul_fused(a, b, **kw),
+                                  qmatmul_fused_reference(a, b, **kw)),
+                      f"G at the rank's {name} (K={k}, N={n}), M={m}, {what}: "
+                      "not bitwise the plain version")
+            sched = sm90.g_schedule(m, n, k, qc.fwd.chunk, 0, 1)
+            route = ("tile" if isinstance(sched, sm90.Schedule) else
+                     f"decode (slots {sched.slots}, slices {sched.slices})")
+            lines.append(f"{name} M={m} {route}")
+    print(f"[tp] G at a rank's slices (K, N): "
+          f"{[(n, k, nn) for n, k, nn, _ in shapes]}, M {list(TP_G_MS)}: "
+          f"bitwise the plain version on random and lattice operands; routes "
+          f"{'; '.join(lines)}", flush=True)
+
+
+def phase_tp_kernels(cfg, dev, plan) -> dict:
+    d = _tp_decode(cfg, dev, plan)
+    p = _tp_prefill(cfg, dev, plan)
+    _tp_gemms(cfg, dev)
+    return dict(D=d, P=p["carry"], resume=p["resume"])
+
+
+def _tp_counters():
+    from repro_torch.kernels.attention import flash_prefill_paged, paged_attn_decode
+    from repro_torch.kernels.fused import qmatmul_fused
+
+    return {"qmatmul_fused": (qmatmul_fused, "launches"),
+            "paged_attn_decode": (paged_attn_decode, "launches"),
+            D_CARRY_NAME: (paged_attn_decode, "carry_launches"),
+            "flash_prefill_paged": (flash_prefill_paged, "launches"),
+            P_CARRY_NAME: (flash_prefill_paged, "carry_launches")}
+
+
+def _tp_int8_wire(cfg, dist, dev) -> dict:
+    """The int8 logit wire against the gather wire on a lattice input: x
+    and the head in {-1, 0, 1} (sparse), rank 0's partial logit (0, 0)
+    pinned at 127 (x[0, 0] = 127, the only nonzero of its head row and
+    column in rank 0's slice), so every partial is an integer of the
+    wire's unit scale; the two wires' logits bitwise.  Then
+    ``compressed_psum`` against the f32 sum on integer partials, bitwise
+    (JAX's lattice test)."""
+    from repro_torch.dist import psum
+    from repro_torch.models.lm import _unembed_sharded
+    from repro_torch.train.compression import compressed_psum
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 34)
+    d, v = cfg.d_model, 4096
+
+    def tern(shape, p):
+        x = torch.randint(-1, 2, shape, generator=gen, device=dev).float()
+        return torch.where(torch.rand(shape, generator=gen, device=dev) < p,
+                           x, torch.zeros_like(x))
+
+    x, head = tern((3, d), 0.05), tern((d, v), 0.05)
+    d_loc = d // dist.size
+    x[0, 0], head[0, :], head[:d_loc, 0] = 127.0, 0.0, 0.0
+    head[0, 0] = 1.0
+    x, head = x.to(torch.bfloat16), head.to(torch.bfloat16)
+    gather = _unembed_sharded(x, head, cfg, dataclasses.replace(
+        dist, logit_wire="gather"))
+    int8 = _unembed_sharded(x, head, cfg, dataclasses.replace(
+        dist, logit_wire="int8"))
+    parts = torch.randint(-127, 128, (3, 16), generator=gen,
+                          device=dev).float()
+    parts[0, 0] = 127.0
+    wire, _ = compressed_psum(parts, dist)
+    return dict(logits=torch.equal(gather.view(torch.int16),
+                                   int8.view(torch.int16)),
+                max_logit=float(gather.float().abs().max()),
+                psum=torch.equal(wire, psum(parts, dist)))
+
+
+def tp_rank(rank: int, size: int, init_method: str, jobs: list, cfg,
+            device: str) -> dict:
+    """One rank of the ``[tp]`` engine phase on ``device`` (card 0, gloo):
+    which gloo collectives take CUDA tensors directly, the int8 wire on a
+    lattice input, then each job through ``serve_job`` with the kernel
+    counts set to 0 just before and read just after."""
+    import torch.distributed as tdist
+
+    from repro_torch.dist import init_group
+    from repro_torch.launch.serve import serve_job
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist = init_group(rank, size, init_method, "gloo", device=dev)
+    probe = {}
+    for name, fn in (("all_reduce", lambda t: tdist.all_reduce(t)),
+                     ("all_gather", lambda t: tdist.all_gather(
+                         [torch.empty_like(t) for _ in range(size)], t))):
+        try:
+            fn(torch.ones(4, device=dev))
+            probe[name] = f"takes {dev.type} tensors"
+        except Exception as e:  # noqa: BLE001 -- reported
+            probe[name] = f"refuses {dev.type} tensors ({type(e).__name__})"
+    out = dict(gloo=probe, int8=_tp_int8_wire(cfg, dist, dev), runs=[])
+    counters = _tp_counters()
+    for job in jobs:
+        zero_counts(counters)
+        r = serve_job(job, dist, dev)
+        r["launches"] = read_counts(counters)
+        out["runs"].append(r)
+    return out
+
+
+def phase_tp_engine(cfg, dev, prompts) -> dict:
+    """2 ranks (gloo) on the one card serve the serve cell's prompts at
+    full width and depth (``TP_GEN`` tokens each): one-shot through the
+    launcher (``launch/serve.py
+    --serve-mesh 2``) and with 64-token slabs and a forced preemption
+    through ``serve_job`` (the kernel counts read there); each against the
+    single-device engine under the same ``tp_shards=2`` plan: tokens, the
+    logits of every decode step (sha256) and of one bitwise, the arena
+    gathered from the ranks byte for byte; the pools checked
+    (``ShardedPagePool.check_invariants`` in ``serve_job``)."""
+    from repro_torch.dist import spawn
+    from repro_torch.launch import serve as S
+    from repro_torch.serve.plan import plan_attention
+
+    # the launcher's pool for these requests, and its engine's plan
+    n_pages = -(-int(sum(n + TP_GEN for n in PROMPT_LENS) * 1.25) // PAGE) + 1
+    base = dict(cfg=cfg, seed=SEED, n_pages=n_pages, page_size=PAGE,
+                max_batch=MAX_BATCH, prompts=prompts, gen=TP_GEN,
+                plan=plan_attention((n_pages - 1) * PAGE, PAGE,
+                                    tp_shards=TP_RANKS))
+    # the launcher keeps the first decode step's logits; the slab run a
+    # later step's, when more rows are running
+    one_job = dict(base, prefill_chunk=None, logit_step=0)
+    chunk_job = dict(base, prefill_chunk=SLAB, preempt_after=TP_PREEMPT_AFTER,
+                     logit_step=3)
+    t0 = time.perf_counter()
+    single = [S.serve_job(j, device=dev) for j in (one_job, chunk_job)]
+    t_single = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    argv = ["--arch", "qwen2-1.5b", "--policy", "predicted", "--chunk", "64",
+            "--prompt-lens", ",".join(map(str, PROMPT_LENS)), "--gen",
+            str(TP_GEN), "--page-size", str(PAGE), "--max-batch", str(MAX_BATCH),
+            "--seed", str(SEED), "--serve-mesh", str(TP_RANKS),
+            "--device", dev.type]
+    launched = S.main(argv)["rank0"]
+    t_launcher = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = spawn(tp_rank, TP_RANKS, ([chunk_job], cfg, str(dev)),
+                  timeout_s=600)
+    t_spawn = time.perf_counter() - t0
+    print(f"[tp] engine: single device {t_single:.1f}s (2 runs), the "
+          f"launcher's 2 ranks {t_launcher:.1f}s, chip_smoke's 2 ranks "
+          f"{t_spawn:.1f}s (process start included); gloo: "
+          f"{ranks[0]['gloo']}", flush=True)
+    runs = (("one-shot (launch/serve.py --serve-mesh 2)", single[0], launched),
+            (f"{SLAB}-token slabs, forced preemption", single[1],
+             ranks[0]["runs"][0]))
+    for label, one, tp in runs:
+        check(tp["tp_shards"] == TP_RANKS, f"{label}: not {TP_RANKS} ranks")
+        check(tp["tokens"] == one["tokens"],
+              f"[tp] {label}: tokens differ from the single device's")
+        check(tp["logit_hashes"] == one["logit_hashes"],
+              f"[tp] {label}: a decode step's logits differ")
+        check(np.array_equal(tp["logits"].view(np.int32),
+                             one["logits"].view(np.int32)),
+              f"[tp] {label}: a decode step's logits not bitwise")
+        for name in ("k", "v", "k_se", "v_se"):
+            check(np.array_equal(tp["arena"][name], one["arena"][name]),
+                  f"[tp] {label}: arena {name} differs")
+        check(all(len(t) == TP_GEN for t in tp["tokens"]), f"{label}: short")
+        steps = len(one["logit_hashes"])
+        print(f"[tp] {label}: tokens, {steps} decode steps' logits (one "
+              f"bitwise, every step by sha256) and the gathered arena "
+              f"({sum(a.nbytes for a in tp['arena'].values())} bytes) bitwise "
+              f"the single device's under the tp_shards=2 plan (bucket m_acc "
+              f"{one['plan_m_acc']}); preemptions {tp['preemptions']}, "
+              f"restores {tp['restores']}; decode step {1e3 * one['decode_s'] / steps:.2f} "
+              f"ms on one device, {1e3 * tp['decode_s'] / steps:.2f} ms with 2 "
+              f"ranks sharing one card (not a TP speed figure); KV "
+              f"bytes/token {tp['kv_bytes_per_token']:.1f}, a rank "
+              f"{tp['kv_bytes_per_token_shard']:.1f}", flush=True)
+    chunked = ranks[0]["runs"][0]
+    check(chunked["preemptions"] >= 1 and chunked["restores"] >= 1,
+          "[tp] the forced preemption did not happen")
+    for r in ranks:
+        check(r["int8"]["logits"] and r["int8"]["psum"],
+              f"[tp] the int8 wire is not bitwise on the lattice input: "
+              f"{r['int8']}")
+    print(f"[tp] int8 logit wire on the lattice input: logits bitwise the "
+          f"gather wire's (max |logit| {ranks[0]['int8']['max_logit']:.0f}); "
+          f"compressed_psum bitwise the f32 sum on integer partials",
+          flush=True)
+    launches = chunked["launches"]
+    print(f"[tp] launches on rank 0 over the slab run: {launches}", flush=True)
+    for name in ("qmatmul_fused", D_CARRY_NAME, P_CARRY_NAME):
+        check(launches[name] > 0, f"[tp] {name} was not launched")
+    check(launches["paged_attn_decode"] == 0
+          and launches["flash_prefill_paged"] == 0,
+          "[tp] a rank ran a finalized attention call")
+    return dict(launches=launches,
+                decode_ms=[1e3 * r["decode_s"] / len(r["logit_hashes"])
+                           for r in (single[1], chunked)])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -3900,6 +4369,10 @@ def main() -> None:
     dp = phase_dense_prefill(cfg, params, dev, plan, prompts)
     k10_inputs = dp.pop("oneshot_inputs")
     del params
+    torch.cuda.empty_cache()
+    tpk = phase_tp_kernels(cfg, dev, plan)
+    torch.cuda.empty_cache()
+    tpe = phase_tp_engine(cfg, dev, prompts)
     torch.cuda.empty_cache()
 
     tk = phase_train_kernels(dev)
@@ -4034,6 +4507,22 @@ def main() -> None:
              source="src/repro_torch/csrc/flash_prefill.cu",
              replaces="src/repro/kernels/attention.py:258",
              launches=ts["launches"][K10_SR_NAME], **s10),
+        # the carry variants of D and P on the tensor-parallel serving path
+        # ([tp]): D's carry entry and P's carry out over the 2-rank slab run
+        # (rank 0's counts); P's carry in is on no JAX path, and its
+        # launches are the [tp] resume walk's
+        dict(name=D_CARRY_NAME, route="cuda",
+             source="src/repro_torch/csrc/paged_decode.cu",
+             replaces="src/repro/kernels/attention.py:560",
+             launches=tpe["launches"][D_CARRY_NAME], **tpk["D"]),
+        dict(name=P_CARRY_NAME, route="cuda",
+             source="src/repro_torch/csrc/paged_prefill.cu",
+             replaces="src/repro/kernels/attention.py:930",
+             launches=tpe["launches"][P_CARRY_NAME], **tpk["P"]),
+        dict(name=P_RESUME_NAME, route="cuda",
+             source="src/repro_torch/csrc/paged_prefill.cu",
+             replaces="src/repro/kernels/attention.py:930",
+             launches_from="the [tp] resume walk", **tpk["resume"]),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

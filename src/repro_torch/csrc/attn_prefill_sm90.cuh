@@ -153,9 +153,11 @@ struct Layout {
 };
 
 // The walk's operands.  P: the arena's int8 pages (P, KV, PS, DH) with
-// their 2^se scales and the sequence's page row; K10: f32 rows (Sk, KV, DH)
-// and the carry in (co, cm, cl) and out (om, ol).  Column c of the walk is
-// absolute column col0 + c; row i is absolute row q_off + i.
+// their 2^se scales and the sequence's page row; K10: f32 rows (Sk, KV,
+// DH).  Both take the carry in (co, cm, cl; the walk then starts at
+// first_page, P's start_page) and out (om, ol), each optional, indexed by
+// the slab's row.  Column c of the walk is absolute column col0 + c; row i
+// is absolute row q_off + i.
 struct PrefillArgs {
   const float* q;  // (T, H, DH)
   const int8_t* kp;

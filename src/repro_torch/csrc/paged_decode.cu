@@ -2,8 +2,9 @@
 // of each (sequence, KV head) split over the blocks of a thread-block
 // cluster.
 //
-// Replaces repro/kernels/attention.py::_decode_kernel (D, finalized
-// output) and ::_decode_kernel_stats (K12, paged_decode_stats).  The query
+// Replaces repro/kernels/attention.py::_decode_kernel (D: the finalized
+// output, and with CARRY its emit_carry variant, paged_decode_carry) and
+// ::_decode_kernel_stats (K12, paged_decode_stats).  The query
 // heads hh = hk * g + gg of KV head hk attend over the pages
 // p < ceil(seq_len / page_size) of the sequence's page-table row.  A page
 // is decoded with its 2^se scale, its base-2 scores are sums over d in
@@ -54,6 +55,13 @@
 // page-table width.  A page's K and V codes (one contiguous 2 KB slice at
 // the serve shape) land by 16-byte cp.async in a ring of rank_pages
 // slots; K is decoded to floats for the scores, V in the p.v threads.
+//
+// CARRY (paged_decode_carry, return_carry=True: the tensor-parallel
+// engine's carry merge owns the finalize) writes the raw o carries of its
+// slice instead of o / l, and rank 0 of the cluster writes each (row,
+// head)'s m and l, which every rank holds.  The split and the page-order
+// fold are D's, so the carry is bitwise the plain walk's before its
+// finalize.
 //
 // K12 (STATS) keeps D's o bitwise and forms, in the fold, an f32 shadow
 // o_i = o_i * alpha + pv with D's alpha and pv and the N_STATS row over
@@ -183,14 +191,15 @@ __device__ __forceinline__ void score_pass(int c0, int n, const float* kf,
   }
 }
 
-template <bool STATS>
+template <bool STATS, bool CARRY>
 __global__ void __launch_bounds__(DECODE_THREADS, 2) paged_decode_kernel(
     const float* __restrict__ q, const int8_t* __restrict__ kp,
     const int8_t* __restrict__ vp, const int* __restrict__ kse,
     const int* __restrict__ vse, const int* __restrict__ page_table,
     int max_pages, const int* __restrict__ seq_lens, float* __restrict__ out,
     int KV, int G, int PS, int DH, int R, float scale, int e_kv, int m_kv,
-    QFmt qacc, double* __restrict__ part) {
+    QFmt qacc, double* __restrict__ part, float* __restrict__ om,
+    float* __restrict__ ol) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int CL = static_cast<int>(cluster.num_blocks());
@@ -415,9 +424,20 @@ __global__ void __launch_bounds__(DECODE_THREADS, 2) paged_decode_kernel(
   }
   __syncthreads();
   for (int i = tid; i < per_o && o_lo + i < GD; i += DECODE_THREADS) {
-    const float l = ml[G + (o_lo + i) / DH];
-    out[((long long)b * H + hk * G) * DH + o_lo + i] =
-        l > 0.0f ? __fdiv_rn(oc[i], l) : 0.0f;
+    float* o = out + ((long long)b * H + hk * G) * DH + o_lo + i;
+    if constexpr (CARRY) {
+      *o = oc[i];
+    } else {
+      const float l = ml[G + (o_lo + i) / DH];
+      *o = l > 0.0f ? __fdiv_rn(oc[i], l) : 0.0f;
+    }
+  }
+  if constexpr (CARRY) {
+    if (rank == 0 && tid < G) {
+      const long long at = (long long)b * H + hk * G + tid;
+      om[at] = ml[tid];
+      ol[at] = ml[G + tid];
+    }
   }
   if constexpr (STATS) {
     // the moments of the outputs after the row's last page
@@ -437,12 +457,12 @@ __global__ void __launch_bounds__(DECODE_THREADS, 2) paged_decode_kernel(
 }
 
 // the dynamic shared memory a launch may take, raised once per size
-template <bool STATS>
+template <bool STATS, bool CARRY>
 int allow_smem(int bytes) {
   static int allowed = 48 * 1024;
   if (bytes <= allowed) return 0;
   const cudaError_t e = cudaFuncSetAttribute(
-      paged_decode_kernel<STATS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      paged_decode_kernel<STATS, CARRY>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   allowed = bytes;
   return 0;
@@ -464,23 +484,24 @@ cudaLaunchConfig_t launch_config(int blocks, int smem, cudaStream_t s,
   return cfg;
 }
 
-template <bool STATS>
+template <bool STATS, bool CARRY = false>
 int launch(const void* q, const void* kp, const void* vp, const void* kse,
            const void* vse, const void* page_table, int max_pages,
            const void* seq_lens, void* out, int B, int KV, int G, int PS,
            int DH, int CL, int R, float scale, int e_kv, int m_kv, QFmt qacc,
-           double* part, float* stats, cudaStream_t s) {
+           double* part, float* stats, cudaStream_t s, float* om = nullptr,
+           float* ol = nullptr) {
   const int smem = Layout(G, PS, DH, CL, R).bytes();
-  if (const int rc = allow_smem<STATS>(smem)) return rc;
+  if (const int rc = allow_smem<STATS, CARRY>(smem)) return rc;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(B * KV * CL, smem, s, &attr, CL);
   cudaError_t e = cudaLaunchKernelEx(
-      &cfg, paged_decode_kernel<STATS>, static_cast<const float*>(q),
+      &cfg, paged_decode_kernel<STATS, CARRY>, static_cast<const float*>(q),
       static_cast<const int8_t*>(kp), static_cast<const int8_t*>(vp),
       static_cast<const int*>(kse), static_cast<const int*>(vse),
       static_cast<const int*>(page_table), max_pages,
       static_cast<const int*>(seq_lens), static_cast<float*>(out), KV, G, PS,
-      DH, R, scale, e_kv, m_kv, qacc, part);
+      DH, R, scale, e_kv, m_kv, qacc, part, om, ol);
   if (e == cudaSuccess) e = cudaGetLastError();
   if (!STATS || e != cudaSuccess) return static_cast<int>(e);
   return stats_finish(part, B * KV * CL, B * KV * CL, 1, stats, s);
@@ -503,6 +524,24 @@ extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
                        out, B, KV, G, PS, DH, CL, R, scale, e_kv, m_kv,
                        QFmt{c_identity, c_shift, c_max, c_min}, nullptr,
                        nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// D's carry entry (return_carry=True): out receives the raw o carry
+// (B, H, dh), om and ol (B, H) the running max and the l carry.
+extern "C" int paged_decode_carry(const void* q, const void* kp,
+                                  const void* vp, const void* kse,
+                                  const void* vse, const void* page_table,
+                                  int max_pages, const void* seq_lens,
+                                  void* out, int B, int KV, int G, int PS,
+                                  int DH, int CL, int R, float scale, int e_kv,
+                                  int m_kv, int c_identity, int c_shift,
+                                  float c_max, float c_min, void* om, void* ol,
+                                  void* stream) {
+  return launch<false, true>(q, kp, vp, kse, vse, page_table, max_pages,
+                             seq_lens, out, B, KV, G, PS, DH, CL, R, scale,
+                             e_kv, m_kv, QFmt{c_identity, c_shift, c_max, c_min},
+                             nullptr, nullptr, static_cast<cudaStream_t>(stream),
+                             static_cast<float*>(om), static_cast<float*>(ol));
 }
 
 // K12: paged_decode plus stats [N_STATS] f32; part is a workspace of
@@ -528,18 +567,23 @@ extern "C" int paged_decode_smem(int G, int PS, int DH, int CL, int R) {
   return Layout(G, PS, DH, CL, R).bytes();
 }
 
-// clusters of the kernel (stats 0: D, 1: K12) that fit the card at once,
-// or minus the CUDA error
-extern "C" int paged_decode_clusters(int stats, int G, int PS, int DH, int CL,
-                                     int R) {
-  const int smem = Layout(G, PS, DH, CL, R).bytes();
-  const int rc = stats ? allow_smem<true>(smem) : allow_smem<false>(smem);
-  if (rc) return -rc;
+// clusters of the kernel (kind 0: D, 1: K12, 2: D's carry entry) that fit
+// the card at once, or minus the CUDA error
+template <bool STATS, bool CARRY>
+int fit_clusters(int smem, int CL) {
+  if (const int rc = allow_smem<STATS, CARRY>(smem)) return -rc;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(CL * 1024, smem, nullptr, &attr, CL);
   int n = 0;
   const cudaError_t e =
-      stats ? cudaOccupancyMaxActiveClusters(&n, paged_decode_kernel<true>, &cfg)
-            : cudaOccupancyMaxActiveClusters(&n, paged_decode_kernel<false>, &cfg);
+      cudaOccupancyMaxActiveClusters(&n, paged_decode_kernel<STATS, CARRY>, &cfg);
   return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+extern "C" int paged_decode_clusters(int kind, int G, int PS, int DH, int CL,
+                                     int R) {
+  const int smem = Layout(G, PS, DH, CL, R).bytes();
+  return kind == 2 ? fit_clusters<false, true>(smem, CL)
+       : kind == 1 ? fit_clusters<true, false>(smem, CL)
+                   : fit_clusters<false, false>(smem, CL);
 }

@@ -53,6 +53,17 @@ added).  The kernels and the plain versions here follow the same order,
 so on the card they agree bit for bit; against the JAX package, whose
 contractions are XLA dots, they agree to the carry's rounding.
 
+The carry variants serve tensor-parallel serving, where each rank walks
+its own heads and the ranks' carries merge exactly (``merge_carries``,
+``finalize_carry``; ``repro_torch.dist.psum_carry`` across processes):
+``paged_attn_decode(..., return_carry=True)`` (``paged_decode_carry``, D's
+``CARRY`` instantiation, JAX's ``emit_carry``) returns the raw ``(o, m,
+l)``; ``flash_prefill_paged`` takes a ``carry`` covering the pages before
+``start_page`` and resumes the walk there (``has_carry``), and returns the
+raw carry with ``return_carry=True`` (``paged_prefill_carry``).  A walk
+resumed at ``start_page`` is bitwise the one-shot walk: the carry is a
+point of the carry format with a running max on the integer lattice.
+
 ``paged_attn_decode(..., collect_stats=True)`` is K12's port
 (``paged_decode_stats`` in ``csrc/paged_decode.cu``, replacing
 ``_decode_kernel_stats``, the serve-time swamping monitor's probe): D's
@@ -98,6 +109,8 @@ __all__ = [
     "flash_prefill_paged_reference",
     "flash_prefill",
     "flash_prefill_reference",
+    "merge_carries",
+    "finalize_carry",
     "NEG",
     "LOG2E",
     "BLOCK_Q",
@@ -281,13 +294,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def paged_attn_decode_reference(q, k_pages, v_pages, k_se, v_se, page_table,
-                                seq_lens, *, kv_fmt=None, acc=_WIDE):
+                                seq_lens, *, kv_fmt=None, acc=_WIDE,
+                                return_carry: bool = False):
     """Plain PyTorch version of ``paged_attn_decode``: gathers pages
     through the page table, dequantizes with the per-page scales and walks
     every page-table column in order (columns past a row's length are
-    masked, hence carry no-ops), with the kernel's summation order."""
+    masked, hence carry no-ops), with the kernel's summation order.
+    ``return_carry=True`` returns the raw ``(o (B,H,dh), m (B,H), l
+    (B,H))``."""
     return _decode_walk(q, k_pages, v_pages, k_se, v_se, page_table,
-                        seq_lens, kv_fmt=kv_fmt, acc=acc, stats=False)
+                        seq_lens, kv_fmt=kv_fmt, acc=acc, stats=False,
+                        carry=return_carry)
 
 
 def paged_attn_decode_stats_reference(q, k_pages, v_pages, k_se, v_se,
@@ -303,7 +320,7 @@ def paged_attn_decode_stats_reference(q, k_pages, v_pages, k_se, v_se,
 
 
 def _decode_walk(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens, *,
-                 kv_fmt, acc, stats: bool):
+                 kv_fmt, acc, stats: bool, carry: bool = False):
     fmt = _check_pages(q, k_pages, v_pages, kv_fmt)
     b, h, dh = q.shape
     kv, page_size = k_pages.shape[1], k_pages.shape[2]
@@ -337,6 +354,8 @@ def _decode_walk(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens, *,
             ideal = ideal * alpha + pv
             row = stats_update(row, *stats_delta_row(
                 o, prev * alpha, ideal, pv, mask, p == n_cols - 1))
+    if carry:
+        return o.reshape(b, h, dh), m.reshape(b, h), l.reshape(b, h)
     out = _finalize(o, l).reshape(b, h, dh)
     if stats:
         return out, row.to(torch.float32)
@@ -356,7 +375,7 @@ def _attn_consts(dh: int, acc) -> tuple:
 
 def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
                       *, kv_fmt=None, acc=_WIDE, collect_stats: bool = False,
-                      rounding: str = "rne"):
+                      return_carry: bool = False, rounding: str = "rne"):
     """One decode token of attention per sequence against the paged arena.
 
     * ``q`` (B, H, dh) float32, heads kv-major;
@@ -370,21 +389,30 @@ def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
       swamping stats on the device, counted once a call on
       ``stats_launches``; each call is two launches, the kernel and the
       second pass that sums the blocks' partial rows;
+    * ``return_carry=True`` skips the finalize and returns the raw carry
+      ``(o (B,H,dh), m (B,H), l (B,H))`` (exclusive with
+      ``collect_stats``), counted on ``carry_launches``;
     * ``rounding``: only ``"rne"``, as the JAX package's decode kernel
       (SR raises).
 
     The launch reads only host-known shapes (the schedule follows B, KV
-    and the page-table width); it allocates only its output, and K12 its
-    row and partial rows.  Returns (B, H, dh) float32 [, row].
+    and the page-table width); it allocates only its outputs, and K12 its
+    row and partial rows.  Returns (B, H, dh) float32 [, row], or the
+    carry triple.
     """
+    if collect_stats and return_carry:
+        raise ValueError("collect_stats and return_carry are exclusive")
     if rounding != "rne":
         raise NotImplementedError("the decode kernel's carries round to "
                                   "nearest only, as the JAX package's do")
     if q.device.type == "cpu":
-        fn = (paged_attn_decode_stats_reference if collect_stats
-              else paged_attn_decode_reference)
-        return fn(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
-                  kv_fmt=kv_fmt, acc=acc)
+        if collect_stats:
+            return paged_attn_decode_stats_reference(
+                q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
+                kv_fmt=kv_fmt, acc=acc)
+        return paged_attn_decode_reference(
+            q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
+            kv_fmt=kv_fmt, acc=acc, return_carry=return_carry)
     fmt = _check_pages(q, k_pages, v_pages, kv_fmt)
     if q.dtype != torch.float32 or q.ndim != 3:
         raise TypeError(f"q must be (B, H, dh) float32, got {q.dtype} "
@@ -400,8 +428,12 @@ def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
     out = torch.empty_like(q)
     if collect_stats:
         row = torch.zeros((N_STATS,), dtype=torch.float32, device=q.device)
+    if return_carry:
+        om = torch.empty((b, h), dtype=torch.float32, device=q.device)
+        ol = torch.empty_like(om)
     if b == 0:
-        return (out, row) if collect_stats else out
+        return ((out, row) if collect_stats
+                else (out, om, ol) if return_carry else out)
     sched = sm90.attn_decode_schedule(b, kv, width, g, page_size, dh)
     scale, *qacc = _attn_consts(dh, tuple(acc))
     args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -420,6 +452,15 @@ def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
                                f"error {rc}")
         paged_attn_decode.stats_launches += 1
         return out, row
+    if return_carry:
+        rc = build.function("paged_decode", "paged_decode_carry",
+                            _DECODE_ARGS[:-1] + [_P, _P, _P])(
+            *args, om.data_ptr(), ol.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"paged_decode_carry launch failed: CUDA "
+                               f"error {rc}")
+        paged_attn_decode.carry_launches += 1
+        return out, om, ol
     rc = build.function("paged_decode", "paged_decode", _DECODE_ARGS)(
         *args, stream)
     if rc != 0:
@@ -430,6 +471,37 @@ def paged_attn_decode(q, k_pages, v_pages, k_se, v_se, page_table, seq_lens,
 
 paged_attn_decode.launches = 0
 paged_attn_decode.stats_launches = 0
+paged_attn_decode.carry_launches = 0
+
+
+# --------------------------------------------------------------------------
+# the exact carry merge (tensor-parallel serving)
+# --------------------------------------------------------------------------
+
+
+def merge_carries(carries):
+    """Fold a list of ``(o (..., dh), m (...), l (...))`` carries into one
+    with the exponent-shift rescale: ``m = max(m1, m2)``, each side scaled
+    by ``2^(m_i - m)`` (an exact power of two: the running maxima are on
+    the integer lattice), then added.  The plain counterpart of
+    ``repro_torch.dist.psum_carry``; with one owner a (row, head) and the
+    neutral ``(0, NEG, 0)`` elsewhere (head-sharded serving) the fold is
+    exact in any order.  JAX's ``merge_carries``, op for op."""
+    o, m, l = carries[0]
+    for o2, m2, l2 in carries[1:]:
+        m_new = torch.maximum(m, m2)
+        a1 = torch.exp2(m - m_new)
+        a2 = torch.exp2(m2 - m_new)
+        o = o * a1[..., None] + o2 * a2[..., None]
+        l = l * a1 + l2 * a2
+        m = m_new
+    return o, m, l
+
+
+def finalize_carry(o, l):
+    """``o / l`` where attended, exactly 0 where nothing was (``l ==
+    0``): the kernels' own finalize on a merged carry."""
+    return _finalize(o, l[..., None])
 
 
 # --------------------------------------------------------------------------
@@ -439,24 +511,27 @@ paged_attn_decode.stats_launches = 0
 
 def flash_prefill_paged_reference(q, k_pages, v_pages, k_se, v_se, page_row,
                                   q_offset: int, q_len: int, kv_len: int, *,
-                                  kv_fmt=None, acc=_WIDE, start_page: int = 0,
+                                  kv_fmt=None, acc=_WIDE, carry=None,
+                                  start_page: int = 0,
+                                  return_carry: bool = False,
                                   call: AttnCall | None = None):
     """Plain PyTorch version of ``flash_prefill_paged``: walks the pages
     ``[0, ceil(kv_len / page_size))`` of the page row in order (the rest
-    are masked, hence carry no-ops), pages before ``start_page`` masked,
-    with the kernel's summation order."""
+    are masked, hence carry no-ops), pages before ``start_page`` masked
+    and ``carry`` as the state before them, with the kernel's summation
+    order; ``return_carry=True`` returns the raw ``(o, m, l)``."""
     if call is not None:
         acc, kv_fmt = call.acc, call.kv_fmt
+        return_carry = bool(return_carry or call.return_carry)
     fmt = _check_pages(q, k_pages, v_pages, kv_fmt)
+    _check_carry(q, carry)
     t, h, dh = q.shape
     kv, page_size = k_pages.shape[1], k_pages.shape[2]
     g = h // kv
     e_acc, m_acc = acc
     dev = q.device
     qt = q.to(torch.float32).transpose(0, 1)             # (h, t, dh)
-    o = torch.zeros((h, t, dh), dtype=torch.float32, device=dev)
-    m = torch.full((h, t, 1), NEG, dtype=torch.float32, device=dev)
-    l = torch.zeros((h, t, 1), dtype=torch.float32, device=dev)
+    o, m, l = _carry_state(carry, h, t, dh, dev)
     scale = _scale(dh).to(dev)
     rloc = torch.arange(t, device=dev)[:, None]
     rows = q_offset + rloc
@@ -474,16 +549,48 @@ def flash_prefill_paged_reference(q, k_pages, v_pages, k_se, v_se, page_row,
         s = torch.where(valid, s, torch.full_like(s, NEG))
         o, m, l, _, _ = _online_update(o, m, l, s, valid, vb, e_acc,
                                         m_acc)
+    if return_carry:
+        return o.transpose(0, 1), m[..., 0].T, l[..., 0].T
     return _finalize(o, l).transpose(0, 1)
+
+
+def _carry_state(carry, h: int, t: int, dh: int, dev):
+    """The walk's (o (h,t,dh), m (h,t,1), l (h,t,1)) state: a carry in the
+    JAX layouts ((t,h,dh), (t,h), (t,h)), or the empty walk's."""
+    if carry is None:
+        return (torch.zeros((h, t, dh), dtype=torch.float32, device=dev),
+                torch.full((h, t, 1), NEG, dtype=torch.float32, device=dev),
+                torch.zeros((h, t, 1), dtype=torch.float32, device=dev))
+    co, cm, cl = (c.to(device=dev, dtype=torch.float32) for c in carry)
+    return (co.transpose(0, 1).contiguous(), cm.T[..., None].contiguous(),
+            cl.T[..., None].contiguous())
+
+
+def _check_carry(q, carry):
+    """A carry in the JAX layouts of q (T, H, dh): (T, H, dh), (T, H),
+    (T, H)."""
+    if carry is None:
+        return
+    t, h, dh = q.shape
+    co, cm, cl = carry
+    if (tuple(co.shape) != (t, h, dh) or tuple(cm.shape) != (t, h)
+            or tuple(cl.shape) != (t, h)):
+        raise ValueError(
+            f"carry shapes {tuple(co.shape)}/{tuple(cm.shape)}/"
+            f"{tuple(cl.shape)} do not match q {tuple(q.shape)}")
 
 
 _PREFILL_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                  _I, _F, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P]
+# paged_prefill_carry: q, pages, scales, page row, (co, cm, cl), out,
+# (om, ol), then paged_prefill's ints and floats
+_PREFILL_CARRY_ARGS = [_P] * 12 + _PREFILL_ARGS[7:]
 
 
 def flash_prefill_paged(q, k_pages, v_pages, k_se, v_se, page_row,
                         q_offset: int, q_len: int, kv_len: int, *,
-                        kv_fmt=None, acc=_WIDE, start_page: int = 0,
+                        kv_fmt=None, acc=_WIDE, carry=None,
+                        start_page: int = 0, return_carry: bool = False,
                         call: AttnCall | None = None):
     """Causal prefill of one query slab straight off the paged arena.
 
@@ -495,29 +602,45 @@ def flash_prefill_paged(q, k_pages, v_pages, k_se, v_se, page_row,
     * ``q_offset``/``q_len``/``kv_len``: host ints (absolute position of
       row 0, live rows, live KV tokens), passed to the kernel as launch
       arguments;
-    * ``call`` supplies ``acc``/``kv_fmt`` from the bucket's ``AttnCall``.
+    * ``carry``/``start_page``/``return_carry``: the resumable walk of the
+      JAX kernel, ``carry`` ((T,H,dh), (T,H), (T,H) float32) the state
+      after the pages ``[0, start_page)``, where the walk resumes; a
+      resumed walk is bitwise the one-shot walk; ``return_carry=True``
+      returns the raw ``(o, m, l)`` instead of ``o / l``.  Without a carry,
+      ``start_page`` masks the pages before it;
+    * ``call`` supplies ``acc``/``kv_fmt`` (and ``return_carry``) from the
+      bucket's ``AttnCall``.
 
     The launch reads only host ints and shapes (the schedule follows T,
     the heads and the pages the last live row walks); it allocates only
-    its output.  Returns (T, H, dh) float32.
+    its outputs.  Launches are counted on ``launches`` (no carry),
+    ``carry_launches`` (carry out, no carry in) and ``resume_launches``
+    (carry in).  Returns (T, H, dh) float32, or the carry triple.
     """
     if call is not None:
         acc, kv_fmt = call.acc, call.kv_fmt
+        return_carry = bool(return_carry or call.return_carry)
         if call.max_pages and page_row.shape[0] != call.max_pages:
             raise ValueError(f"page_row width {page_row.shape[0]} != bucket "
                              f"max_pages {call.max_pages}")
     if q.device.type == "cpu":
         return flash_prefill_paged_reference(
             q, k_pages, v_pages, k_se, v_se, page_row, q_offset, q_len,
-            kv_len, kv_fmt=kv_fmt, acc=acc, start_page=start_page)
+            kv_len, kv_fmt=kv_fmt, acc=acc, carry=carry,
+            start_page=start_page, return_carry=return_carry)
     fmt = _check_pages(q, k_pages, v_pages, kv_fmt)
+    _check_carry(q, carry)
     if q.dtype != torch.float32 or q.ndim != 3:
         raise TypeError(f"q must be (T, H, dh) float32, got {q.dtype} "
                         f"{tuple(q.shape)}")
     for x in (k_se, v_se, page_row):
         if x.dtype != torch.int32:
             raise TypeError("page scales and page row are int32")
-    _check_cuda(q, k_pages, v_pages, k_se, v_se, page_row)
+    carry = None if carry is None else tuple(carry)
+    for x in carry or ():
+        if x.dtype != torch.float32:
+            raise TypeError(f"the carry is float32, got {x.dtype}")
+    _check_cuda(q, k_pages, v_pages, k_se, v_se, page_row, *(carry or ()))
     t, h, dh = q.shape
     kv, page_size = k_pages.shape[1], k_pages.shape[2]
     _launch_limits(h // kv, dh, page_size)
@@ -525,24 +648,45 @@ def flash_prefill_paged(q, k_pages, v_pages, k_se, v_se, page_row,
         raise ValueError(f"kv_len {kv_len} needs more pages than the row's "
                          f"{page_row.shape[0]}")
     out = torch.empty_like(q)
+    om = ol = None
+    if return_carry:
+        om = torch.empty((t, h), dtype=torch.float32, device=q.device)
+        ol = torch.empty_like(om)
     sched = sm90.attn_prefill_schedule(t, kv, h // kv, page_size, dh,
                                        sm90.prefill_pages(
                                            page_size, q_offset, q_len, 0,
                                            kv_len, start_page))
     scale, *qacc = _attn_consts(dh, tuple(acc))
-    rc = build.function("paged_prefill", "paged_prefill", _PREFILL_ARGS)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        k_se.data_ptr(), v_se.data_ptr(), page_row.data_ptr(), out.data_ptr(),
-        t, h, kv, page_size, dh, int(q_offset), int(q_len), int(kv_len),
-        int(start_page), scale, *fmt, *qacc, sched.rows, sched.cluster,
-        sched.rank_pages, torch.cuda.current_stream(q.device).cuda_stream)
+    geom = (t, h, kv, page_size, dh, int(q_offset), int(q_len), int(kv_len),
+            int(start_page), scale, *fmt, *qacc, sched.rows, sched.cluster,
+            sched.rank_pages, torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_se.data_ptr(), v_se.data_ptr(), page_row.data_ptr())
+    if carry is None and not return_carry:
+        rc = build.function("paged_prefill", "paged_prefill", _PREFILL_ARGS)(
+            *ptrs, out.data_ptr(), *geom)
+    else:
+        co, cm, cl = (None,) * 3 if carry is None else (
+            x.data_ptr() for x in carry)
+        rc = build.function("paged_prefill", "paged_prefill_carry",
+                            _PREFILL_CARRY_ARGS)(
+            *ptrs, co, cm, cl, out.data_ptr(),
+            None if om is None else om.data_ptr(),
+            None if ol is None else ol.data_ptr(), *geom)
     if rc != 0:
         raise RuntimeError(f"paged_prefill launch failed: CUDA error {rc}")
-    flash_prefill_paged.launches += 1
-    return out
+    if carry is not None:
+        flash_prefill_paged.resume_launches += 1
+    elif return_carry:
+        flash_prefill_paged.carry_launches += 1
+    else:
+        flash_prefill_paged.launches += 1
+    return (out, om, ol) if return_carry else out
 
 
 flash_prefill_paged.launches = 0
+flash_prefill_paged.carry_launches = 0
+flash_prefill_paged.resume_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -564,14 +708,7 @@ def _check_dense(q, k, v, carry, chunk, kv_offset):
             f"kv_offset {kv_offset} must be a multiple of chunk {chunk}: a "
             "mid-block resumption would insert an extra carry-rounding "
             "event and break bit-exactness vs the one-shot walk")
-    if carry is not None:
-        s, h, dh = q.shape
-        co, cm, cl = carry
-        if (tuple(co.shape) != (s, h, dh) or tuple(cm.shape) != (s, h)
-                or tuple(cl.shape) != (s, h)):
-            raise ValueError(
-                f"carry shapes {tuple(co.shape)}/{tuple(cm.shape)}/"
-                f"{tuple(cl.shape)} do not match q {tuple(q.shape)}")
+    _check_carry(q, carry)
 
 
 def flash_prefill_reference(q, k, v, *, acc=_WIDE, chunk: int = 128,
@@ -596,15 +733,7 @@ def flash_prefill_reference(q, k, v, *, acc=_WIDE, chunk: int = 128,
     qt = q.to(torch.float32).transpose(0, 1)                        # (h, s, dh)
     kh = k.to(torch.float32).repeat_interleave(g, dim=1).transpose(0, 1)
     vh = v.to(torch.float32).repeat_interleave(g, dim=1).transpose(0, 1)
-    if carry is None:
-        o = torch.zeros((h, s, dh), dtype=torch.float32, device=dev)
-        m = torch.full((h, s, 1), NEG, dtype=torch.float32, device=dev)
-        l = torch.zeros((h, s, 1), dtype=torch.float32, device=dev)
-    else:
-        co, cm, cl = (c.to(torch.float32) for c in carry)
-        o = co.transpose(0, 1).contiguous()
-        m = cm.T[..., None].contiguous()
-        l = cl.T[..., None].contiguous()
+    o, m, l = _carry_state(carry, h, s, dh, dev)
     scale = _scale(dh).to(dev)
     rows = q_offset + torch.arange(s, device=dev)[:, None]
     for c0 in range(0, sk, chunk):

@@ -108,7 +108,8 @@ class QDotConfig:
         if self.stats_axis is not None:
             raise NotImplementedError(
                 "stats_axis (a mesh-wide reduction of the stats rows) comes "
-                "with the sharding slice (ROADMAP [dist])")
+                "with the training half of the sharding (ROADMAP "
+                "[dist-train])")
         if self.rounding not in ROUNDINGS:
             raise ValueError(f"rounding must be one of {ROUNDINGS}, got "
                              f"{self.rounding!r}")

@@ -5,6 +5,15 @@ attention (``attn_apply``), the paged serving entries (the bucketed slab
 ``attn_prefill_bucketed`` through P, the dense one-shot and slab prefills
 ``attn_prefill_paged`` and ``attn_prefill_chunk_paged`` through K10, and
 ``attn_decode_paged``) and the SwiGLU MLP.
+
+Under tensor-parallel serving (a sharded ``dist.Dist``) the serve-path
+functions run on the rank's output-dim slices of the params
+(``sharding.specs.serve_param_specs``) and its KV-head slice of the
+arena: each rank walks its heads' whole online softmax with the
+single-device kernel's order and rounding, emits the raw carry, and the
+ranks merge the carries exactly (``_merge_sharded_carry``); every
+output-split GEMM is gathered back on its last dim (``dist.gather_cols``,
+JAX's ``_gather_cols``).
 Params are nested dicts of tensors; compute is bf16 with float32 where the
 JAX package uses it.  Every dense GEMM goes through ``dense``, which runs
 the differentiable quantized ``qdot`` when the model's QuantPlan assigns a
@@ -18,8 +27,11 @@ from typing import Any
 
 import torch
 
+from repro_torch.dist import LOCAL, Dist, gather_cols, psum_carry
 from repro_torch.kernels.attention import (
     BLOCK_Q,
+    NEG,
+    finalize_carry,
     flash_prefill,
     flash_prefill_paged,
     paged_attn_decode,
@@ -157,15 +169,41 @@ def attn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return dense(o, p["wo"], cfg.quant.attn_out)
 
 
+def _merge_sharded_carry(o_l: torch.Tensor, m_l: torch.Tensor,
+                         l_l: torch.Tensor, dist: Dist) -> torch.Tensor:
+    """The ranks' local-head carries ``o_l`` (..., h_loc, dh), ``m_l``/``l_l``
+    (..., h_loc) merged to full heads and finalized, exactly.  Each rank
+    places its carry at heads ``[rank * h_loc, (rank + 1) * h_loc)`` of a
+    full-head carry holding the neutral ``(0, NEG, 0)`` elsewhere, and
+    ``psum_carry`` merges them: owners scale by 2^0 = 1, non-owners by
+    2^(NEG - m_g) = +0, so the sums add exact zeros and the merged carry
+    is the concatenation of the ranks' carries (JAX's order: scale, sum,
+    finalize once).  Returns (..., H, dh) float32."""
+    h_loc, dh = o_l.shape[-2], o_l.shape[-1]
+    lead = tuple(o_l.shape[:-2])
+    h = h_loc * dist.size
+    lo = dist.rank * h_loc
+    dev = o_l.device
+    o_f = torch.zeros(lead + (h, dh), dtype=torch.float32, device=dev)
+    m_f = torch.full(lead + (h,), NEG, dtype=torch.float32, device=dev)
+    l_f = torch.zeros(lead + (h,), dtype=torch.float32, device=dev)
+    o_f[..., lo:lo + h_loc, :] = o_l
+    m_f[..., lo:lo + h_loc] = m_l
+    l_f[..., lo:lo + h_loc] = l_l
+    o_f, _, l_f = psum_carry(o_f, m_f, l_f, dist)
+    return finalize_carry(o_f, l_f)
+
+
 def attn_decode_paged(p: Params, x: torch.Tensor, kv: dict[str, torch.Tensor],
                       page_table: torch.Tensor, positions: torch.Tensor,
                       seq_lens: torch.Tensor, cfg: ModelConfig, *, kv_fmt,
-                      acc: tuple[int, int]) -> torch.Tensor:
+                      acc: tuple[int, int], dist: Dist = LOCAL) -> torch.Tensor:
     """One-token decode against a layer's arena slice ``kv`` (updated in
     place).  ``x`` (B, 1, D); ``page_table`` (B, W) int32; ``positions``
     (B,) each row's write position; ``seq_lens`` (B,) int32 attended
     tokens including this one, 0 for padded rows (whose write lands in the
-    null page)."""
+    null page).  Under a sharded ``dist`` each rank walks its own heads
+    (D's carry entry) and the carries merge exactly."""
     b = x.shape[0]
     pos2 = positions[:, None]
     q = _q_proj(p, x, cfg, pos2)                   # (B, 1, H, dh)
@@ -174,27 +212,36 @@ def attn_decode_paged(p: Params, x: torch.Tensor, kv: dict[str, torch.Tensor],
     page_id = torch.gather(page_table.long(), 1,
                            (positions // page_size)[:, None].long())[:, 0]
     slot = (positions % page_size).long()
+    ax = dist if dist.sharded else None
     KV.append_token(kv["k"], kv["k_se"], k1[:, 0].to(torch.float32),
-                    page_id, slot, kv_fmt)
+                    page_id, slot, kv_fmt, pmax_axis=ax)
     KV.append_token(kv["v"], kv["v_se"], v1[:, 0].to(torch.float32),
-                    page_id, slot, kv_fmt)
-    o = paged_attn_decode(q[:, 0].to(torch.float32), kv["k"], kv["v"],
-                          kv["k_se"], kv["v_se"], page_table, seq_lens,
-                          kv_fmt=kv_fmt, acc=acc)
+                    page_id, slot, kv_fmt, pmax_axis=ax)
+    args = (q[:, 0].to(torch.float32), kv["k"], kv["v"], kv["k_se"],
+            kv["v_se"], page_table, seq_lens)
+    if ax is None:
+        o = paged_attn_decode(*args, kv_fmt=kv_fmt, acc=acc)
+    else:
+        o = _merge_sharded_carry(*paged_attn_decode(
+            *args, kv_fmt=kv_fmt, acc=acc, return_carry=True), dist)
     o = o.reshape(b, 1, -1).to(COMPUTE_DTYPE)
-    return dense(o, p["wo"], cfg.quant.attn_out)
+    y = dense(o, p["wo"], cfg.quant.attn_out)
+    return y if ax is None else gather_cols(y, dist)
 
 
 def attn_prefill_bucketed(p: Params, x: torch.Tensor,
                           kv: dict[str, torch.Tensor], page_row: torch.Tensor,
                           slab_page_ids: torch.Tensor, q_offset: int,
                           q_len: int, cfg: ModelConfig, *, kv_fmt,
-                          acc: tuple[int, int], call=None) -> torch.Tensor:
+                          acc: tuple[int, int], call=None,
+                          dist: Dist = LOCAL) -> torch.Tensor:
     """One prefill slab of one sequence through a layer.  ``x`` (1, T, D)
     holds the slab (rows ``>= q_len`` are padding, zeroed before the
     arena write); the slab's K/V are quantized into ``slab_page_ids``, then
     one ``flash_prefill_paged`` call attends history and slab off the
-    updated arena.  ``q_offset``/``q_len`` are host ints."""
+    updated arena.  ``q_offset``/``q_len`` are host ints.  Under a sharded
+    ``dist`` each rank walks its own heads (P's carry out) and the carries
+    merge exactly."""
     t = x.shape[1]
     positions = (q_offset + torch.arange(t, device=x.device))[None]
     q = _q_proj(p, x, cfg, positions)              # (1, T, H, dh)
@@ -202,14 +249,22 @@ def attn_prefill_bucketed(p: Params, x: torch.Tensor,
     live = (torch.arange(t, device=x.device) < q_len)[:, None, None]
     kf = torch.where(live, k[0].to(torch.float32), 0.0)
     vf = torch.where(live, v[0].to(torch.float32), 0.0)
-    KV.write_prompt(kv["k"], kv["k_se"], kf, slab_page_ids, kv_fmt)
-    KV.write_prompt(kv["v"], kv["v_se"], vf, slab_page_ids, kv_fmt)
-    o = flash_prefill_paged(q[0].to(torch.float32), kv["k"], kv["v"],
-                            kv["k_se"], kv["v_se"], page_row, q_offset,
-                            q_len, q_offset + q_len, kv_fmt=kv_fmt, acc=acc,
-                            call=call)
+    ax = dist if dist.sharded else None
+    KV.write_prompt(kv["k"], kv["k_se"], kf, slab_page_ids, kv_fmt,
+                    pmax_axis=ax)
+    KV.write_prompt(kv["v"], kv["v_se"], vf, slab_page_ids, kv_fmt,
+                    pmax_axis=ax)
+    args = (q[0].to(torch.float32), kv["k"], kv["v"], kv["k_se"], kv["v_se"],
+            page_row, q_offset, q_len, q_offset + q_len)
+    if ax is None:
+        o = flash_prefill_paged(*args, kv_fmt=kv_fmt, acc=acc, call=call)
+    else:
+        o = _merge_sharded_carry(*flash_prefill_paged(
+            *args, kv_fmt=kv_fmt, acc=acc, call=call, return_carry=True),
+            dist)
     o = o.reshape(1, t, -1).to(COMPUTE_DTYPE)
-    return dense(o, p["wo"], cfg.quant.attn_out)
+    y = dense(o, p["wo"], cfg.quant.attn_out)
+    return y if ax is None else gather_cols(y, dist)
 
 
 def attn_prefill_paged(p: Params, x: torch.Tensor, kv: dict[str, torch.Tensor],
@@ -305,8 +360,16 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return _SiLU.apply(x)
 
 
-def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """SwiGLU."""
+def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              dist: Dist = LOCAL) -> torch.Tensor:
+    """SwiGLU.  Under a sharded ``dist`` every weight is split on its
+    output dim: w_gate/w_up give the rank's d_ff slice, the gate is
+    elementwise, the hidden is gathered to the full d_ff for w_down's
+    contraction, and w_down's d_model slice is gathered back."""
     g = dense(x, p["w_gate"], cfg.quant.mlp_up)
     u = dense(x, p["w_up"], cfg.quant.mlp_up)
-    return dense(silu(g) * u, p["w_down"], cfg.quant.mlp_down)
+    h = silu(g) * u
+    if dist.sharded:
+        h = gather_cols(h, dist)
+        return gather_cols(dense(h, p["w_down"], cfg.quant.mlp_down), dist)
+    return dense(h, p["w_down"], cfg.quant.mlp_down)

@@ -14,6 +14,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.dist import LOCAL, Dist, gather_cols
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.telemetry import capture
@@ -116,12 +117,40 @@ def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
         L.COMPUTE_DTYPE)
 
 
-def _unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _unembed(params: Params, x: torch.Tensor, cfg: ModelConfig,
+             dist: Dist = LOCAL) -> torch.Tensor:
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     # the tied head is a transposed VIEW of the embedding: the GEMM kernel
     # reads it through its strides, no copy is made
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if dist.sharded:
+        return _unembed_sharded(x, head, cfg, dist)
     return L.dense(x, head, cfg.quant.lm_head)
+
+
+def _unembed_sharded(x: torch.Tensor, head: torch.Tensor, cfg: ModelConfig,
+                     dist: Dist) -> torch.Tensor:
+    """The tensor-parallel logits.  ``logit_wire="gather"``: a tied head is
+    replicated and its GEMM fully local (trivially exact); an untied
+    ``lm_head`` is vocab-split and its logits gathered (pure movement).
+    ``logit_wire="int8"``: the head stays replicated, each rank computes
+    partial logits over its d_model slice and the partials cross the wire
+    as int8 codes under a pmax-shared scale
+    (``train.compression.compressed_psum``): exact only where the partials
+    sit on the wire's lattice."""
+    if dist.logit_wire == "int8":
+        from repro_torch.train.compression import compressed_psum
+
+        d_loc = head.shape[0] // dist.size
+        lo = dist.rank * d_loc
+        part = L.dense(x[..., lo:lo + d_loc], head[lo:lo + d_loc],
+                       cfg.quant.lm_head).to(torch.float32)
+        logits, _ = compressed_psum(part, dist)
+        return logits.to(L.COMPUTE_DTYPE)
+    logits = L.dense(x, head, cfg.quant.lm_head)
+    if not cfg.tie_embeddings:
+        logits = gather_cols(logits, dist)
+    return logits
 
 
 def forward_hidden(params: Params, batch: dict, cfg: ModelConfig
@@ -175,11 +204,13 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig
 def paged_decode(params: Params, tokens: torch.Tensor, kv_state: dict,
                  page_table: torch.Tensor, positions: torch.Tensor,
                  seq_lens: torch.Tensor, cfg: ModelConfig, *, kv_fmt,
-                 acc: tuple[int, int]) -> torch.Tensor:
+                 acc: tuple[int, int], dist: Dist = LOCAL) -> torch.Tensor:
     """One continuous-batching decode token per sequence: ``tokens`` (B, 1),
     ``page_table`` (B, W) int32, ``positions`` (B,) per-row write
     positions, ``seq_lens`` (B,) int32 (0 for padded rows).  Appends each
-    row's K/V to ``kv_state`` in place; returns logits (B, 1, V) bf16."""
+    row's K/V to ``kv_state`` in place; returns logits (B, 1, V) bf16.
+    Under a sharded ``dist``: the rank's slices of params and arena, the
+    full logits on every rank."""
     _check_paged(cfg)
     x = _embed(params, tokens)
     for i in range(cfg.n_layers):
@@ -187,17 +218,18 @@ def paged_decode(params: Params, tokens: torch.Tensor, kv_state: dict,
         kvl = {name: t[i] for name, t in kv_state.items()}
         x = x + L.attn_decode_paged(
             lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), kvl,
-            page_table, positions, seq_lens, cfg, kv_fmt=kv_fmt, acc=acc)
+            page_table, positions, seq_lens, cfg, kv_fmt=kv_fmt, acc=acc,
+            dist=dist)
         z = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], z, cfg)
-    return _unembed(params, x, cfg)
+        x = x + L.mlp_apply(lp["mlp"], z, cfg, dist)
+    return _unembed(params, x, cfg, dist)
 
 
 def paged_prefill(params: Params, tokens: torch.Tensor, kv_state: dict,
                   page_row: torch.Tensor, slab_page_ids: torch.Tensor,
                   q_offset: int, q_len: int, cfg: ModelConfig, *, kv_fmt,
-                  acc: tuple[int, int], call=None,
-                  want_logits: bool = True) -> torch.Tensor | None:
+                  acc: tuple[int, int], call=None, want_logits: bool = True,
+                  dist: Dist = LOCAL) -> torch.Tensor | None:
     """One prefill slab of one sequence through the stack: each layer
     writes the slab's K/V into its pages (in place) and attends history
     and slab in one ``flash_prefill_paged`` pass.  ``tokens`` (1, T);
@@ -214,10 +246,10 @@ def paged_prefill(params: Params, tokens: torch.Tensor, kv_state: dict,
         x = x + L.attn_prefill_bucketed(
             lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), kvl,
             page_row, slab_page_ids, q_offset, q_len, cfg, kv_fmt=kv_fmt,
-            acc=acc, call=call)
+            acc=acc, call=call, dist=dist)
         z = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], z, cfg)
+        x = x + L.mlp_apply(lp["mlp"], z, cfg, dist)
     if not want_logits:
         return None
     last = max(q_len - 1, 0)
-    return _unembed(params, x[:, last:last + 1], cfg)[:, 0]
+    return _unembed(params, x[:, last:last + 1], cfg, dist)[:, 0]

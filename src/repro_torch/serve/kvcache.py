@@ -15,6 +15,13 @@ tokens of the page quantize under it.
 Unlike the functional JAX version, ``append_token`` and ``write_prompt``
 update the arena in place: an arena is the largest tensor of the server
 and a copy per step would double it.  The values written are the same.
+
+Tensor-parallel serving: each rank holds its KV-head slice of every page
+(page ids are global, so one host page table addresses every rank's
+slice), and ``pmax_axis`` shares each page's max magnitude over the ranks
+before its scale exponent is fixed, so every rank's codes are a bitwise
+slice of the single-device arena.  ``ShardedPagePool`` keeps one replica
+pool a rank in lockstep with the primary and catches any drift.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.dist import Dist, pmax
 from repro_torch.kernels.common import exp2_int, quantize_block
 from repro_torch.quant.formats import FPFormat
 from repro_torch.quant.qtensor import pack_block, unpack_block
@@ -32,6 +40,7 @@ from repro_torch.quant.qtensor import pack_block, unpack_block
 __all__ = [
     "PagedKVConfig",
     "PagePool",
+    "ShardedPagePool",
     "SwapStore",
     "init_arena",
     "append_token",
@@ -118,35 +127,45 @@ def _decode(codes: torch.Tensor, se: torch.Tensor,
     return unpack_block(codes, fmt.e, fmt.m) * exp2_int(se)
 
 
+def _shared_amax(amax: torch.Tensor, pmax_axis: Dist | None) -> torch.Tensor:
+    return amax if pmax_axis is None else pmax(amax, pmax_axis)
+
+
 def append_token(arena_l: torch.Tensor, se_l: torch.Tensor, x: torch.Tensor,
                  page_id: torch.Tensor, slot: torch.Tensor,
-                 fmt: FPFormat) -> None:
+                 fmt: FPFormat, pmax_axis: Dist | None = None) -> None:
     """Write one decode token per sequence into a layer's arena slice, in
     place.  ``arena_l`` (P, KV, page_size, dh) int8, ``se_l`` (P,) int32,
     ``x`` (B, KV, dh) float32, ``page_id``/``slot`` (B,) int64.  A write at
     ``slot == 0`` is the page's first and fixes its scale exponent; padded
-    rows carry ``page_id == 0`` (the null page)."""
-    amax = torch.amax(torch.abs(x), dim=(1, 2))
+    rows carry ``page_id == 0`` (the null page).  ``pmax_axis``: the group
+    of a KV-head-sharded arena, over which each page's max magnitude is
+    shared before the exponent is fixed (every rank then derives the
+    single-device exponent)."""
+    amax = _shared_amax(torch.amax(torch.abs(x), dim=(1, 2)), pmax_axis)
     se = torch.where(slot == 0, _scale_exp(amax), se_l[page_id])
     se_l[page_id] = se
     arena_l[page_id, :, slot] = _encode(x, se[:, None, None], fmt)
 
 
 def write_prompt(arena_l: torch.Tensor, se_l: torch.Tensor, x: torch.Tensor,
-                 page_ids: torch.Tensor, fmt: FPFormat) -> torch.Tensor:
+                 page_ids: torch.Tensor, fmt: FPFormat,
+                 pmax_axis: Dist | None = None) -> torch.Tensor:
     """Write one sequence's slab of K (or V), ``x`` (S, KV, dh) float32, into
     the pages ``page_ids`` of a layer's arena slice, in place.  The tail
     page is zero-padded (code 0 decodes to 0.0; padded tokens are masked
     out of attention).  Returns the (S, KV, dh) float32 values the arena
     now holds (the dequantized view the dense prefill attends, exactly the
-    values the paged kernels decode)."""
+    values the paged kernels decode).  ``pmax_axis`` as in
+    ``append_token``."""
     s, kv, dh = x.shape
     npg = page_ids.shape[0]
     page_size = arena_l.shape[2]
     xp = torch.nn.functional.pad(x.to(torch.float32),
                                  (0, 0, 0, 0, 0, npg * page_size - s))
     blocks = xp.reshape(npg, page_size, kv, dh).transpose(1, 2)
-    se = _scale_exp(torch.amax(torch.abs(blocks), dim=(1, 2, 3)))
+    se = _scale_exp(_shared_amax(torch.amax(torch.abs(blocks), dim=(1, 2, 3)),
+                                 pmax_axis))
     codes = _encode(blocks, se[:, None, None, None], fmt)
     arena_l[page_ids] = codes
     se_l[page_ids] = se
@@ -227,11 +246,14 @@ class SwapStore:
                    for blob, _ in self._entries.values())
 
 
-def kv_bytes_per_token(pc: PagedKVConfig, *, carrier_bytes: int = 1) -> float:
+def kv_bytes_per_token(pc: PagedKVConfig, *, carrier_bytes: int = 1,
+                       tp_shards: int = 1) -> float:
     """Cache bytes per cached token across all layers: K + V payloads plus
     the amortized per-page scale exponents (``carrier_bytes=4`` prices the
-    f32 carrier, 2 bf16)."""
-    per_layer = 2 * pc.n_kv_heads * pc.head_dim * carrier_bytes
+    f32 carrier, 2 bf16).  ``tp_shards > 1`` prices one rank's slice of a
+    tensor-parallel arena: the payloads split with the KV heads, the page
+    exponents are replicated on every rank."""
+    per_layer = 2 * (pc.n_kv_heads // tp_shards) * pc.head_dim * carrier_bytes
     if carrier_bytes == 1:
         per_layer += 2 * 4 / pc.page_size
     return pc.n_layers * per_layer
@@ -327,3 +349,55 @@ class PagePool:
                 raise AssertionError(
                     f"seq {sid}: {len(pages)} pages for {self._lens[sid]} "
                     "tokens")
+
+
+class ShardedPagePool(PagePool):
+    """Page accounting for a tensor-parallel arena: one logical allocator
+    (page ids are global: rank i holds its KV-head slice of page p at index
+    p, so every rank's page table is the same host array) and one replica
+    ``PagePool`` a rank, kept in lockstep.  The engine talks only to the
+    primary; every mutation is mirrored and checked, and
+    ``check_invariants`` also proves the replicas never drifted (a path
+    that changed one rank's accounting without the others fails here
+    instead of corrupting a remote arena)."""
+
+    def __init__(self, n_pages: int, page_size: int, *, n_shards: int):
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        super().__init__(n_pages, page_size)
+        self.n_shards = n_shards
+        self._replicas = [PagePool(n_pages, page_size)
+                          for _ in range(n_shards)]
+
+    def _mirror(self, op: str, sid: int, *args) -> None:
+        want = self._pages.get(sid)
+        for i, rep in enumerate(self._replicas):
+            got = getattr(rep, op)(sid, *args)
+            if op != "release" and rep._pages.get(sid) != want:
+                raise AssertionError(
+                    f"shard {i} pool drifted on {op}(sid={sid}): {got} vs "
+                    f"primary {want}")
+
+    def allocate(self, sid: int, n_tokens: int) -> list[int]:
+        got = super().allocate(sid, n_tokens)
+        self._mirror("allocate", sid, n_tokens)
+        return got
+
+    def extend(self, sid: int, n_new: int = 1) -> list[int]:
+        got = super().extend(sid, n_new)
+        self._mirror("extend", sid, n_new)
+        return got
+
+    def release(self, sid: int) -> None:
+        super().release(sid)
+        self._mirror("release", sid)
+
+    def check_invariants(self) -> None:
+        super().check_invariants()
+        for i, rep in enumerate(self._replicas):
+            rep.check_invariants()
+            for what in ("_pages", "_lens", "_free"):
+                if getattr(rep, what) != getattr(self, what):
+                    raise AssertionError(
+                        f"shard {i} {what.strip('_')} drifted from the "
+                        "primary")

@@ -6,6 +6,9 @@ lengths split into geometric buckets; each bucket gets the narrowest
 knee test for the kernels' semantics (ideal f32 within one ``page_size``
 KV block, quantized carry across the ``n2 = ceil(ctx / page_size)``
 blocks) and the overflow bound ``|o| <= ctx * v_hint`` on the exponent.
+A tensor-parallel plan (``tp_shards``) certifies the cross-rank carry
+merge as one more accumulation stage: up to ``tp_shards - 1`` carry
+combines a row, with the unnormalized carry materialized at the merge.
 """
 
 from __future__ import annotations
@@ -51,12 +54,14 @@ class AttnBucket:
 @dataclass(frozen=True)
 class AttnPlan:
     """Bucketed carry formats; ``prefill_chunk`` is the chunked-prefill slab
-    (tokens) the buckets were certified for, None = one-shot prefill."""
+    (tokens) the buckets were certified for, None = one-shot prefill;
+    ``tp_shards`` the ranks whose carry merge they were certified for."""
 
     page_size: int
     m_p: int
     buckets: tuple[AttnBucket, ...]
     prefill_chunk: int | None = None
+    tp_shards: int = 1
     v_hint: float = DEFAULT_V_HINT
 
     def bucket_for(self, ctx: int) -> tuple[int, AttnBucket]:
@@ -153,10 +158,18 @@ def derive_v_hint(stats, ctx: int, *, margin_bits: int = 1) -> float:
 
 def plan_attention(max_context: int, page_size: int, *, m_p: int = 5,
                    growth: int = 4, v_hint: float | None = None,
-                   prefill_chunk_tokens: int | None = None) -> AttnPlan:
+                   prefill_chunk_tokens: int | None = None,
+                   tp_shards: int = 1) -> AttnPlan:
     """Bucketed plan covering contexts up to ``max_context``: bucket edges
     grow ``growth``x in pages from one page; ``prefill_chunk_tokens``
-    certifies each bucket for its worst-case chunked-prefill resumptions."""
+    certifies each bucket for its worst-case chunked-prefill resumptions.
+
+    ``tp_shards`` certifies the buckets for tensor-parallel serving: a
+    rank owns its heads' whole walks, so a head's accumulation length is
+    the full context, but the cross-rank merge adds up to ``tp_shards -
+    1`` carry-combine events a row, and the unnormalized carry is
+    materialized at the merge, so the e_acc bound is checked there too.
+    So a TP plan can pick other carry formats than the single-device one."""
     hint = DEFAULT_V_HINT if v_hint is None else v_hint
     edges: list[int] = []
     ctx = page_size
@@ -168,9 +181,12 @@ def plan_attention(max_context: int, page_size: int, *, m_p: int = 5,
     def _bucket(c: int) -> AttnBucket:
         r = max_carry_resumptions(c, prefill_chunk_tokens)
         extra = extra_carry_events(page_size, prefill_chunk_tokens, r)
+        extra += max(tp_shards - 1, 0)   # the cross-rank merge
         bounds = (tuple(min(i * prefill_chunk_tokens, c)
                         for i in range(1, r + 1))
                   if prefill_chunk_tokens else ())
+        if tp_shards > 1:
+            bounds = (*bounds, c)        # the carry on the wire
         return AttnBucket(
             max_ctx=c,
             e_acc=min_e_acc(c, v_hint=hint, boundaries=bounds),
@@ -179,4 +195,5 @@ def plan_attention(max_context: int, page_size: int, *, m_p: int = 5,
 
     return AttnPlan(page_size=page_size, m_p=m_p,
                     buckets=tuple(_bucket(c) for c in edges),
-                    prefill_chunk=prefill_chunk_tokens, v_hint=hint)
+                    prefill_chunk=prefill_chunk_tokens, tp_shards=tp_shards,
+                    v_hint=hint)

@@ -28,6 +28,14 @@ closed-form knee test of the context's bucket, bumps that bucket's m_acc
 the grown context.  Each tick logs one event (``self.events``, and
 ``monitor_log`` as JSON lines).  Tracing, metrics and speculative decoding
 are not ported yet.
+
+Tensor-parallel serving (``ShardedModelExecutor``): each rank of a
+``torch.distributed`` group runs the same engine schedule in lockstep on
+its output-dim slice of the params and its KV-head slice of the arena;
+the engine then allocates through a ``ShardedPagePool`` and plans for the
+cross-rank carry merge (``plan_attention(tp_shards=)``).  The ranks'
+logits are gathered exactly, so every rank takes the same host decisions
+(greedy tokens, preemptions, the monitor's draws).
 """
 
 from __future__ import annotations
@@ -39,12 +47,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.vrr import CUTOFF_LOG_V
+from repro_torch.dist import LOCAL, Dist, all_gather
 from repro_torch.models.api import DecodeRequest, PrefillRequest, get_paged_model
 from repro_torch.obs.sink import jsonl_append
 from repro_torch.quant.formats import FPFormat
 from repro_torch.serve.kvcache import (
     PagedKVConfig,
     PagePool,
+    ShardedPagePool,
     SwapStore,
     init_arena,
     kv_bytes_per_token,
@@ -60,8 +70,8 @@ from repro_torch.serve.plan import (
 )
 from repro_torch.telemetry.stats import EnsembleStats
 
-__all__ = ["Request", "ModelExecutor", "ServeEngine", "resolve_device",
-           "measure_decode_vrr"]
+__all__ = ["Request", "ModelExecutor", "ShardedModelExecutor", "ServeEngine",
+           "resolve_device", "measure_decode_vrr"]
 
 
 def resolve_device(device) -> torch.device:
@@ -138,6 +148,8 @@ def measure_decode_vrr(kv_state, page_row, seq_len: int, *, cfg,
 class ModelExecutor:
     """Device-side executor: the model, its params and the paged arena."""
 
+    dist: Dist = LOCAL
+
     def __init__(self, model, params, pc: PagedKVConfig, *, kv_fmt: FPFormat,
                  max_batch: int = 8, device="cuda"):
         self.cfg = model.cfg
@@ -168,7 +180,7 @@ class ModelExecutor:
             return self.pm.prefill(
                 self.params, toks, self.kv, self._int32(row), slab, req.t0,
                 n_tok, kv_fmt=self.kv_fmt, acc=req.acc, call=req.call,
-                want_logits=req.final)
+                want_logits=req.final, dist=self.dist)
 
     def prefill(self, req: PrefillRequest) -> int | None:
         """One prefill slab; the first generated token (greedy) on the
@@ -195,7 +207,7 @@ class ModelExecutor:
                 self.params, torch.as_tensor(tokens, device=self.device),
                 self.kv, self._int32(pt),
                 torch.as_tensor(pos, device=self.device), self._int32(sl),
-                kv_fmt=self.kv_fmt, acc=req.acc)
+                kv_fmt=self.kv_fmt, acc=req.acc, dist=self.dist)
         return logits[:n, 0]
 
     def decode(self, req: DecodeRequest) -> list[int]:
@@ -212,6 +224,83 @@ class ModelExecutor:
 
     def swap_in(self, rid: int, pages: list[int], blob: dict) -> None:
         swap_in_pages(self.kv, pages, blob)
+
+
+class ShardedModelExecutor(ModelExecutor):
+    """Tensor-parallel executor: this rank's share of the model over the
+    group of ``dist``, behind the same engine seam.
+
+    Partitioning is output-dim only (``sharding.specs.serve_param_specs``):
+    the attention heads and the arena's KV-head axis split over the ranks,
+    so each rank owns its heads' whole online-softmax walks (the
+    single-device kernel's page order and rounding) and the cross-rank
+    merge is the exact carry combine (``dist.psum_carry``).  The logits on
+    every rank are therefore bitwise the single-device engine's.  Page
+    tables stay on the host, the same on every rank (one allocator's
+    global page ids address each rank's slice; ``ServeEngine`` pairs this
+    executor with a ``ShardedPagePool``).  Swap-out and swap-in move the
+    rank's slice.
+
+    ``params`` are the full params (on this rank's device) and ``pc`` the
+    whole arena's config; the executor keeps its slices (``self.pc`` is
+    its own arena's).  ``dist.logit_wire`` picks the unembed: ``"gather"``
+    (exact) or ``"int8"`` (``train.compression.compressed_psum``, lossy in
+    general).  Families other than dense (MoE: its expert sharding would
+    nest) are refused; heads, KV heads and d_ff must split evenly."""
+
+    def __init__(self, model, params, pc: PagedKVConfig, *, kv_fmt: FPFormat,
+                 dist: Dist, max_batch: int = 8, device="cuda"):
+        from dataclasses import replace
+
+        from repro_torch.sharding.specs import serve_param_specs, shard_params
+
+        cfg = model.cfg
+        s = dist.size
+        if dist.logit_wire not in ("gather", "int8"):
+            raise ValueError(f"unknown logit_wire {dist.logit_wire!r}")
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"tensor-parallel serving covers the dense family; "
+                f"{cfg.family!r} (MoE's expert sharding) is refused")
+        for name, dim in (("n_heads", cfg.n_heads),
+                          ("n_kv_heads", cfg.n_kv_heads), ("d_ff", cfg.d_ff)):
+            if dim % s != 0:
+                raise ValueError(f"a serve group of {s} ranks cannot split "
+                                 f"{name}={dim}")
+        if dist.logit_wire == "int8" and cfg.d_model % s != 0:
+            raise ValueError(f"the int8 logit wire slices d_model="
+                             f"{cfg.d_model} over {s} ranks; not divisible")
+        self.dist = dist
+        self.n_shards = s
+        specs = serve_param_specs(params, n_shards=s,
+                                  logit_wire=dist.logit_wire)
+        super().__init__(model, shard_params(params, specs, dist.rank, s),
+                         replace(pc, n_kv_heads=pc.n_kv_heads // s),
+                         kv_fmt=kv_fmt, max_batch=max_batch, device=device)
+
+    def measure_vrr(self, page_row, ctx: int, acc: tuple[int, int],
+                    gen: torch.Generator) -> EnsembleStats:
+        """The single-device monitor's probe: the probed row's layer-0
+        pages gathered to full heads on every rank (pure movement), then
+        K12 on the full-head query, so the stats (and the tick) are the
+        single-device engine's.  The gathered pages sit at indices 1..n of
+        a small arena whose page 0 is the null page."""
+        row = np.asarray(page_row, np.int64)
+        used = row[row > 0]
+        idx = torch.as_tensor(used, device=self.device)
+        arena = {}
+        for name, t in self.kv.items():
+            t = t[0][idx]
+            if name in ("k", "v"):   # every rank's KV heads, in head order
+                t = torch.cat(all_gather(t, self.dist), dim=1)
+            pages = torch.zeros((1, len(used) + 1) + tuple(t.shape[1:]),
+                                dtype=t.dtype, device=self.device)
+            pages[0, 1:] = t
+            arena[name] = pages
+        local = np.zeros_like(row)
+        local[:len(used)] = np.arange(1, len(used) + 1)
+        return measure_decode_vrr(arena, local, ctx, cfg=self.cfg,
+                                  kv_fmt=self.kv_fmt, acc=acc, gen=gen)
 
 
 class ServeEngine:
@@ -241,11 +330,18 @@ class ServeEngine:
         self.executor = executor or ModelExecutor(
             model, params, self.pc, kv_fmt=self.kv_fmt, max_batch=max_batch,
             device=device)
-        self.pool = PagePool(n_pages, page_size)
+        # a tensor-parallel executor gives its rank count: the engine then
+        # allocates through a ShardedPagePool (one allocator, a mirrored
+        # pool a rank) and plans for the cross-rank carry merge
+        self.tp_shards = int(getattr(self.executor, "n_shards", 1) or 1)
+        self.pool = (ShardedPagePool(n_pages, page_size,
+                                     n_shards=self.tp_shards)
+                     if self.tp_shards > 1 else PagePool(n_pages, page_size))
         self.store = SwapStore()
         self.plan = plan or plan_attention(
             self.pc.tokens_capacity, page_size,
-            prefill_chunk_tokens=prefill_chunk_tokens)
+            prefill_chunk_tokens=prefill_chunk_tokens,
+            tp_shards=self.tp_shards)
         self.max_batch = max_batch
         self.prefill_chunk = prefill_chunk_tokens
         self.monitor_cadence = monitor_cadence
@@ -517,5 +613,11 @@ class ServeEngine:
         """Decoded tokens per decode-batch slot."""
         return self.decoded_tokens / max(self.steps * self.max_batch, 1)
 
-    def kv_bytes_per_token(self, *, carrier_bytes: int = 1) -> float:
-        return kv_bytes_per_token(self.pc, carrier_bytes=carrier_bytes)
+    def kv_bytes_per_token(self, *, carrier_bytes: int = 1,
+                           per_shard: bool = False) -> float:
+        """Arena bytes a cached token: the whole arena's (the same under
+        tensor parallelism, split), or with ``per_shard=True`` what one
+        rank holds (its KV heads, the replicated page exponents)."""
+        return kv_bytes_per_token(
+            self.pc, carrier_bytes=carrier_bytes,
+            tp_shards=self.tp_shards if per_shard else 1)

@@ -150,8 +150,8 @@ class EnsembleStats:
 
     def psum(self, axis_name: str) -> "EnsembleStats":
         raise NotImplementedError(
-            "mesh-wide reduction of stats windows comes with the sharding "
-            "slice (ROADMAP [dist])")
+            "mesh-wide reduction of stats windows comes with the training "
+            "half of the sharding (ROADMAP [dist-train])")
 
     # ----------------------------- read-outs -------------------------------
     @property

@@ -1653,3 +1653,168 @@ def test_flash_prefill_sr_matches_plain_and_resumes(dev, s, chunk, acc,
         torch.cuda.synchronize()
         assert torch.equal(res, want)
         assert not torch.equal(other, got) and not torch.equal(rne, got)
+
+
+# --------------------------------------------------------------------------
+# the carry variants of D and P (tensor-parallel serving)
+# --------------------------------------------------------------------------
+
+
+# (h, kv, dh, lengths, page-table width): a rank's share of the serve arena
+# under 2 ranks (g 6 of KV 1), the unsplit serve arena, the monitor's B 1,
+# a 4096-token row, and heads and pages other than the serve ones
+DECODE_CARRY_CASES = [
+    (6, 1, 128, SERVE_LENS, 24),
+    (12, 2, 128, SERVE_LENS, 24),
+    (12, 2, 128, [300], 26),
+    (6, 1, 128, [4096, 0, 1000], 256),
+    (6, 3, 6, [0, 13, 40, 3], 9, 5),
+]
+
+
+@pytest.mark.parametrize("h,kv,dh,lens,width,ps",
+                         [c + (16,) * (len(c) == 5) for c in DECODE_CARRY_CASES])
+def test_decode_carry_kernel_matches_plain(dev, h, kv, dh, lens, width, ps):
+    """D's carry entry (``return_carry=True``): o, m and l bitwise the plain
+    walk's carry on random and lattice q, its finalize bitwise D's output;
+    counted on ``carry_launches`` only; a length-0 row is the neutral
+    carry (0, NEG, 0)."""
+    from repro_torch.kernels.attention import NEG, finalize_carry
+
+    gen = torch.Generator(device=dev).manual_seed(h * dh + width + 7)
+    args = _decode_case(gen, dev, lens, width, kv, dh, ps)
+    kw = dict(kv_fmt=FP8_152, acc=(6, 5))
+    for q in (torch.randn((len(lens), h, dh), generator=gen, device=dev),
+              _lattice(gen, (len(lens), h, dh), dev)):
+        n0 = (paged_attn_decode.launches, paged_attn_decode.carry_launches)
+        got = paged_attn_decode(q, *args, return_carry=True, **kw)
+        want = paged_attn_decode_reference(q, *args, return_carry=True, **kw)
+        out = paged_attn_decode(q, *args, **kw)
+        torch.cuda.synchronize()
+        assert (paged_attn_decode.launches,
+                paged_attn_decode.carry_launches) == (n0[0] + 1, n0[1] + 1)
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(finalize_carry(got[0], got[2]), out)
+        for b, s in enumerate(lens):
+            if s == 0:
+                assert bool((got[0][b] == 0).all() and (got[1][b] == NEG).all()
+                            and (got[2][b] == 0).all())
+    with pytest.raises(ValueError):
+        paged_attn_decode(q, *args, return_carry=True, collect_stats=True,
+                          **kw)
+
+
+def test_decode_carry_entry_fits_like_d(dev):
+    """D's carry instantiation fits as many clusters at once as D at the
+    serve arena and at a rank's share of it."""
+    import ctypes
+
+    from repro_torch.kernels import build, sm90
+
+    clusters = build.function("paged_decode", "paged_decode_clusters",
+                              [ctypes.c_int] * 6)
+    for b, kv, g in ((8, 2, 6), (8, 1, 6), (1, 2, 6)):
+        s = sm90.attn_decode_schedule(b, kv, 64, g, 16, 128)
+        d, c = (clusters(kind, g, 16, 128, s.cluster, s.rank_pages)
+                for kind in (0, 2))
+        assert c == d and c >= 2 * b, (b, kv, d, c)
+
+
+# (T, q_offset, q_len[, h, kv, dh, page size]): a rank's share of the
+# serve slab under 2 ranks (6 heads, KV 1), the unsplit slab, a one-shot
+# prompt, a ragged slab, and other heads and pages
+PREFILL_CARRY_CASES = [
+    (64, 320, 64, 6, 1, 128, 16),
+    (64, 320, 64),
+    (384, 0, 384, 6, 1, 128, 16),
+    (24, 16, 21),
+    (37, 5, 30, 6, 3, 7, 5),
+]
+
+
+@pytest.mark.parametrize("case", PREFILL_CARRY_CASES)
+def test_prefill_carry_out_and_resume_match_plain(dev, case):
+    """P's carry out bitwise the plain walk's, its finalize bitwise P's
+    output; P resumed at every ``start_page`` from the carry of the pages
+    before it (itself a carry-out call with ``kv_len = start_page *
+    page_size``) bitwise the one-shot walk, out and carry, and bitwise the
+    plain resumed walk; each variant counted on its own counter."""
+    from repro_torch.kernels.attention import finalize_carry
+
+    t, q_off, q_len, h, kv, dh, ps = case + (12, 2, 128, 16)[len(case) - 3:]
+    kv_len = q_off + q_len
+    gen = torch.Generator(device=dev).manual_seed(t + q_off + 11)
+    n_used = -(-kv_len // ps)
+    kc, vc, kse, vse = _arena(gen, dev, n_used + 1, kv, ps, dh)
+    row = torch.zeros((n_used + 3,), dtype=torch.int32, device=dev)
+    row[:n_used] = torch.randperm(n_used, generator=gen, device=dev) + 1
+    pages = (kc, vc, kse, vse, row)
+    kw = dict(kv_fmt=FP8_152, acc=(6, 5))
+    for q in (torch.randn((t, h, dh), generator=gen, device=dev),
+              _lattice(gen, (t, h, dh), dev)):
+        args = (q, *pages, q_off, q_len)
+        n0 = (flash_prefill_paged.launches, flash_prefill_paged.carry_launches,
+              flash_prefill_paged.resume_launches)
+        one = flash_prefill_paged(*args, kv_len, **kw)
+        carry = flash_prefill_paged(*args, kv_len, return_carry=True, **kw)
+        want = flash_prefill_paged_reference(*args, kv_len,
+                                             return_carry=True, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(carry, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(finalize_carry(carry[0], carry[2]), one)
+        stops = sorted({1, n_used // 2, n_used - 1} - {0})
+        for sp in stops:
+            c = flash_prefill_paged(*args, sp * ps, return_carry=True, **kw)
+            res = flash_prefill_paged(*args, kv_len, carry=c, start_page=sp,
+                                      **kw)
+            resc = flash_prefill_paged(*args, kv_len, carry=c,
+                                       start_page=sp, return_carry=True, **kw)
+            plain = flash_prefill_paged_reference(*args, kv_len, carry=c,
+                                                  start_page=sp, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(res, one), sp
+            assert torch.equal(res, plain), sp
+            for a, b in zip(resc, carry):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert (flash_prefill_paged.launches,
+                flash_prefill_paged.carry_launches,
+                flash_prefill_paged.resume_launches) == (
+            n0[0] + 1, n0[1] + 1 + len(stops), n0[2] + 2 * len(stops))
+
+
+def test_tp_engine_on_one_card_matches_single_device(dev):
+    """Two ranks on one card (gloo, collectives through host memory) serve
+    qwen2-1.5b at full width and 2 layers with 32-token prefill slabs and
+    a forced preemption: tokens, every decode step's logits and the arena
+    gathered from both ranks bitwise the single-device engine's under the
+    same ``tp_shards=2`` plan."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import AccumulationPolicy, plan_for_model
+    from repro_torch.launch.serve import run_tp, serve_job
+    from repro_torch.serve.plan import plan_attention
+
+    cfg = plan_for_model(dataclasses.replace(get_config("qwen2-1.5b"),
+                                             n_layers=2),
+                         seq_len=96, global_batch=4,
+                         policy=AccumulationPolicy(mode="predicted", chunk=64))
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in (17, 40, 64, 9)]
+    n_pages = 40
+    job = dict(cfg=cfg, seed=0, n_pages=n_pages, page_size=16, max_batch=4,
+               prefill_chunk=32, prompts=prompts, gen=8, preempt_after=3,
+               logit_step=2, plan=plan_attention((n_pages - 1) * 16, 16,
+                                                 prefill_chunk_tokens=32,
+                                                 tp_shards=2))
+    one = serve_job(job, device=dev)
+    ranks = run_tp(job, 2, dev, timeout_s=600)
+    assert all(r["tokens"] == one["tokens"] for r in ranks)
+    assert ranks[0]["logit_hashes"] == one["logit_hashes"]
+    assert np.array_equal(ranks[0]["logits"], one["logits"])
+    for name, a in one["arena"].items():
+        assert np.array_equal(ranks[0]["arena"][name], a), name
+    assert ranks[0]["preemptions"] == 1 and ranks[0]["restores"] == 1
