@@ -165,7 +165,7 @@ def _rank_entry(fn, rank, size, init_method, args, queue):
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     try:
         queue.put((rank, True, fn(rank, size, init_method, *args)))
-    except BaseException:  # noqa: BLE001 -- reported to the parent
+    except Exception:  # noqa: BLE001 -- the rank's failure, reported
         queue.put((rank, False, traceback.format_exc()))
     finally:
         if tdist.is_initialized():
