@@ -144,9 +144,32 @@ on its own line:
    the uninterrupted run's; bytes on disk, save and restore ms), and the
    last checkpoint served through ``launch/serve.py --ckpt-dir`` under
    its recorded precision schedule;
-11. result: one JSON line per kernel (the SR carries of G, E, B, K7, K8,
-   K9 and K10, and D's and P's carry variants, as entries of their own),
-   the card's name and power limit, and the final JSON line.
+11. variants, quantize_outputs and A2Q (after the SR phases; ``[qout]``'s
+   serving right after the dense prefill): ``[variants]``, every variant
+   of the fused GEMM against its plain version on lattice (bitwise) and
+   random operands under RNE and SR: G's ``out_fmt``/``pack_out``
+   epilogue, int8-code (``a_packed``/``b_packed``) and unquantized
+   operands on both routes (codes on the tile) at M = 8 and 512, E's
+   epilogue and f32 residuals at (1,5,2) and (1,6,9), K8's epilogue on
+   E's codes and on f32 x and bf16 w; each epilogue bitwise K2 (and
+   ``pack_block``) of the call without it, K8's row bitwise unchanged by
+   it; each timed by CUDA-graph replay beside its base call (G's over one
+   layer's 7 GEMMs and the decode step's 197 at M = 8, the rest over one
+   layer's 7 calls at M = 512); ``[qout]``, under
+   ``AccumulationPolicy(quantize_outputs=True)``: the serve prompts at
+   full depth (G's epilogue counted), 2-layer serving bitwise the plain
+   path (tokens, arena), ``qdot_packed`` at the decode shapes bitwise
+   ``QTensor.pack`` of the plain rounding, 3 full-depth training steps
+   (the loss falls, E's epilogue 196 launches a step, every dense output
+   on the (1,5,2) lattice), a 2-layer step bitwise its plain versions and
+   with ``pack_residuals=False`` bitwise the packed step; ``[a2q]``, the
+   launcher under ``--a2q-reg 1e-4 --a2q-x-bound 16`` at full width and
+   depth for 3 steps with the certificate ok after each, and
+   ``tests/test_a2q.py``'s adversarial check through K8 under RNE and SR;
+12. result: one JSON line per kernel (the SR carries of G, E, B, K7, K8,
+   K9 and K10, D's and P's carry variants, and the fused GEMM's variants
+   as entries of their own), the card's name and power limit, and the
+   final JSON line.
 
 Any failed check exits non-zero.  Without a CUDA device it exits non-zero
 before printing a result.
@@ -356,6 +379,15 @@ SM90_TILES = [
     ("bwd_pair", "bwd_pair_stats", "bwd_pair_stats_kernel",
      [((2, 2, 1), 2), ((0, 1, 0), 1)]),
     ("qgemm", "qgemm_tile", "qgemm_tile_kernel", [((0, 1), 2), ((0, 0), 2)]),
+    # the output epilogue's kernels (the tile's OUT flag): K8's and G's at
+    # the paths' kinds and on int8 codes, E's on its bf16 scratch (0) and
+    # on f32 residuals (1)
+    ("qgemm_stats", "qgemm_stats_out", "qgemm_stats_out_kernel",
+     [((2, 2), 2), ((0, 1), 2)]),
+    ("qgemm_emitq", "qgemm_emitq_out", "qgemm_emitq_out_kernel",
+     [((0,), 2), ((1,), 2)]),
+    ("qgemm", "qgemm_tile_out", "qgemm_tile_out_kernel",
+     [((0, 1), 2), ((2, 2), 2), ((2, 0), 2)]),
 ]
 # Kernels whose instantiations the build phase reports (registers, spill
 # bytes; a spill fails): the tile's, G's decode kernel and its fold kernel
@@ -364,6 +396,9 @@ SM90_TILES = [
 # SR).
 _KERNEL = re.compile(r"(qgemm_stats_kernel|qgemm_emitq_kernel|qgemm_tile_kernel|"
                      r"qgemm_decode_kernel|qgemm_fold_kernel|qmatmul_kernel|"
+                     r"qgemm_stats_out_kernel|qgemm_emitq_out_kernel|"
+                     r"qgemm_tile_out_kernel|qgemm_decode_out_kernel|"
+                     r"qgemm_fold_out_kernel|quantize_pass_kernel|"
                      r"paged_decode_kernel|"
                      r"attn_prefill_kernel|"
                      r"bwd_pair_stats_kernel|bwd_pair_kernel)"
@@ -443,6 +478,8 @@ def sm90_report(build) -> None:
                   flush=True)
             check(n >= need, f"{kernel} kinds {k}: {n} resident blocks an SM")
     occ = build.function("qgemm", "qgemm_decode_occupancy", [ctypes.c_int] * 6)
+    occ_out = build.function("qgemm", "qgemm_decode_out_occupancy",
+                             [ctypes.c_int] * 6)
     seen = set()
     for k, n, kfast in ((1536, 1536, 0), (1536, 256, 0), (1536, 8960, 0),
                         (8960, 1536, 0), (1536, 151936, 1)):
@@ -451,14 +488,16 @@ def sm90_report(build) -> None:
             continue
         seen.add((s.slots, kfast))
         for sr in (0, 1):
-            r = occ(0, 1, kfast, s.slots, 64, sr)
-            print(f"[build] qgemm_decode_kernel<f32, bf16, "
-                  f"{('false', 'true')[kfast]}, {('false', 'true')[sr]}> at "
-                  f"{s.slots} slots ({s.threads} threads, K={k} N={n} "
-                  f"M={MAX_BATCH}): {s.smem} bytes of dynamic shared memory, "
-                  f"{r} resident blocks an SM", flush=True)
-            check(r >= 1, f"G's decode kernel (sr {sr}): {r} resident blocks "
-                  f"an SM")
+            for kernel, fn in (("qgemm_decode_kernel", occ),
+                               ("qgemm_decode_out_kernel", occ_out)):
+                r = fn(0, 1, kfast, s.slots, 64, sr)
+                print(f"[build] {kernel}<f32, bf16, "
+                      f"{('false', 'true')[kfast]}, {('false', 'true')[sr]}> "
+                      f"at {s.slots} slots ({s.threads} threads, K={k} N={n} "
+                      f"M={MAX_BATCH}): {s.smem} bytes of dynamic shared "
+                      f"memory, {r} resident blocks an SM", flush=True)
+                check(r >= 1, f"{kernel} (sr {sr}): {r} resident blocks an "
+                      f"SM")
     occ = build.function("qmatmul", "qmatmul_occupancy", [ctypes.c_int] * 3)
     for a, b in ((0, 0), (0, 1), (1, 1)):
         r = occ(a, b, 4)
@@ -4316,6 +4355,745 @@ def phase_tp_engine(cfg, dev, prompts) -> dict:
                            for r in (single[1], chunked)])
 
 
+# --------------------------------------------------------------------------
+# phase 12: the fused GEMM's last variants, quantize_outputs and A2Q
+# --------------------------------------------------------------------------
+
+G_OUT_NAME = "qmatmul_fused(out_fmt)"                   # G's epilogue
+G_OUT_FOLD = "qmatmul_fused(out_fmt) fold"              # its split folds
+G_OPERAND_NAME = "qmatmul_fused(a_packed/b_packed, quantize_a/b)"
+E_OUT_NAME = "qmatmul_fused(return_quantized, out_fmt)"  # E's epilogue
+E_F32_NAME = "qmatmul_fused(return_quantized, pack_residuals=False)"
+K8_OUT_NAME = "qmatmul_fused(collect_stats, out_fmt)"
+VAR_M = TRAIN_BATCH * TRAIN_SEQ         # E's, K8's and G's tile M: 512
+R152, R169 = (5, 2), (6, 9)
+TF32_FLOPS = 495e12      # tensor cores, TF32 operands: (1,6,9) fits them
+# G's variants on both routes: at M = 8 (the decode route) on the layer's
+# four distinct shapes, at M = 512 (the tile) on attn_q and attn_k
+G_VARIANTS = {
+    "out_fmt": dict(out_fmt=R152),
+    "pack_out": dict(out_fmt=R152, pack_out=True),
+    "packed": dict(a_packed=True, b_packed=True),
+    "unquantized_b": dict(quantize_b=False),
+    "unquantized_a_out": dict(quantize_a=False, out_fmt=R152),
+}
+E_VARIANTS = {
+    "out_fmt": dict(out_fmt=R152),
+    "pack_out": dict(out_fmt=R152, pack_out=True),
+    "f32 residuals (1,5,2)": dict(pack_residuals=False),
+    "f32 residuals (1,6,9)": dict(pack_residuals=False, repr_fmt=R169),
+    "f32 residuals, pack_out": dict(pack_residuals=False, out_fmt=R152,
+                                    pack_out=True),
+}
+
+
+def _var_counters():
+    """The variants' launch counts, as ``_counters``."""
+    from repro_torch.kernels.fused import qmatmul_fused as f
+
+    return {G_OUT_NAME: (f, "out_launches"),
+            G_OUT_FOLD: (f, "out_fold_launches"),
+            G_OPERAND_NAME: (f, "operand_launches"),
+            E_OUT_NAME: (f, "emitq_out_launches"),
+            E_F32_NAME: (f, "emitq_f32_launches"),
+            K8_OUT_NAME: (f, "stats_out_launches")}
+
+
+def _codes(x):
+    """int8 codes of ``x`` rounded to (1,5,2) (test operands)."""
+    from repro_torch.kernels.common import quantize_block
+    from repro_torch.quant.qtensor import pack_block
+
+    return pack_block(quantize_block(x.float(), *R152), *R152)
+
+
+def _k2(x, fmt=R152):
+    """K2 on the card: the standalone rounding of ``x`` to ``fmt``."""
+    from repro_torch.kernels.quantize import quantize
+
+    return quantize(x, e=fmt[0], m=fmt[1])
+
+
+def _check_epilogue(label, got, base, kw) -> None:
+    """An ``out_fmt`` call's C against the same call without it: bitwise
+    K2 of that C, and with ``pack_out`` bitwise ``pack_block`` of that."""
+    from repro_torch.quant.qtensor import pack_block
+
+    want = _k2(base, kw["out_fmt"])
+    if kw.get("pack_out"):
+        want = pack_block(want, *kw["out_fmt"])
+    check(got.dtype == want.dtype and torch.equal(got, want),
+          f"{label}: the epilogue is not K2 (and pack_block) of the call "
+          "without it")
+
+
+def _var_compare(label, got, want, kw, acc, lattice) -> float:
+    """A variant's C against its plain version: int8 codes bitwise on
+    lattice operands and decoded within 1 ulp of the output format on
+    random ones; floats as ``compare``, in ulps of the output format (of
+    the carry without one)."""
+    from repro_torch.quant.qtensor import unpack_block
+
+    fmt = kw.get("out_fmt") or acc
+    if kw.get("pack_out"):
+        check(got.dtype == torch.int8, f"{label}: pack_out gave {got.dtype}")
+        if lattice:
+            check(torch.equal(got, want), f"{label}: codes differ")
+        got, want = unpack_block(got, *fmt), unpack_block(want, *fmt)
+    return compare(label, got, want, fmt[1], fmt[0], bitwise=lattice,
+                   quiet=True)
+
+
+def _variant_operands(gen, dev, m, k, n, lattice):
+    a = (_lattice(gen, (m, k), dev) if lattice
+         else torch.randn((m, k), generator=gen, device=dev))
+    w = (_lattice(gen, (k, n), dev) if lattice
+         else torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k))
+    return a, w.to(torch.bfloat16)
+
+
+def _distinct_shapes(cfg):
+    """(name, K, N, QDotConfig) of one layer's distinct GEMM shapes."""
+    seen, out = set(), []
+    for name, k, n, qc in gemm_shapes(cfg)[:-1]:
+        if (k, n) not in seen:
+            seen.add((k, n))
+            out.append((name, k, n, qc))
+    return out
+
+
+def _variant_checks(cfg, dev) -> float:
+    """Every variant of G (both routes where it runs), E and K8 against
+    its plain version on lattice and random operands under RNE and SR;
+    each epilogue bitwise K2 (and ``pack_block``) of the call without it,
+    and K8's row bitwise the same with and without it.  Returns the
+    largest |error| on random operands."""
+    from repro_torch.kernels import sm90
+    from repro_torch.kernels.common import stats_gap
+    from repro_torch.kernels.fused import (qmatmul_fused,
+                                           qmatmul_fused_reference,
+                                           qmatmul_fused_stats_reference,
+                                           qmatmul_fused_with)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    shapes = _distinct_shapes(cfg)
+    max_err, n_checks = 0.0, 0
+    for m, cases in ((MAX_BATCH, shapes), (VAR_M, shapes[:2])):
+        for name, k, n, qc in cases:
+            for rounding in ("rne", "sr"):
+                kw = dict(_gemm_kw(qc), rounding=rounding,
+                          sr_seed=TRAIN_SR_SEED)
+                acc = (qc.fwd.e_acc, qc.fwd.m_acc)
+                for lattice in (True, False):
+                    a, w = _variant_operands(gen, dev, m, k, n, lattice)
+                    base = qmatmul_fused(a, w, **kw)
+                    for vname, vkw in G_VARIANTS.items():
+                        packed = "a_packed" in vkw
+                        aa, ww = (_codes(a), _codes(w)) if packed else (a, w)
+                        want = qmatmul_fused_reference(aa, ww, **kw, **vkw)
+                        kinds = (2, 2) if packed else (0, 1)
+                        scheds = [sm90.gemm_schedule(m, n, k, kw["block_k"],
+                                                     *kinds, stats=False)]
+                        dec = sm90.decode_schedule(m, n, k, kw["block_k"], 1)
+                        if not packed and dec is not None:
+                            scheds.append(dec)
+                        label = (f"G {vname} {name} M={m} {rounding} "
+                                 f"{'lattice' if lattice else 'random'}")
+                        for s in scheds:
+                            got = qmatmul_fused_with(aa, ww, s, **kw, **vkw)
+                            err = _var_compare(f"{label} {type(s).__name__}",
+                                               got, want, vkw, acc, lattice)
+                            max_err = max(max_err, 0 if lattice else err)
+                            n_checks += 1
+                        routed = qmatmul_fused(aa, ww, **kw, **vkw)
+                        check(any(torch.equal(routed, qmatmul_fused_with(
+                            aa, ww, s, **kw, **vkw)) for s in scheds),
+                            f"{label}: qmatmul_fused left its routes")
+                        if "out_fmt" in vkw and "quantize_a" not in vkw:
+                            _check_epilogue(label, routed, base, vkw)
+                    if m != VAR_M:
+                        continue
+                    # E at the training M: every variant, and its epilogue
+                    # against the base E call; then K8 with out_fmt
+                    ekw = dict(kw, return_quantized=True)
+                    c0, xq0, wq0 = qmatmul_fused(a, w, **ekw)
+                    for vname, vkw in E_VARIANTS.items():
+                        vkw = dict(vkw)
+                        rf = vkw.pop("repr_fmt", None)
+                        vk = dict(ekw, **vkw) if rf is None else dict(
+                            ekw, **vkw, repr_fmt=rf)
+                        c, xq, wq = qmatmul_fused(a, w, **vk)
+                        pc, pxq, pwq = qmatmul_fused_reference(a, w, **vk)
+                        label = (f"E {vname} {name} {rounding} "
+                                 f"{'lattice' if lattice else 'random'}")
+                        check(torch.equal(xq, pxq) and torch.equal(wq, pwq),
+                              f"{label}: residuals differ from plain")
+                        check(xq.dtype == (torch.int8 if vkw.get(
+                            "pack_residuals", True) else torch.float32),
+                            f"{label}: residuals of {xq.dtype}")
+                        err = _var_compare(label, c, pc, vkw, acc, lattice)
+                        max_err = max(max_err, 0 if lattice else err)
+                        n_checks += 1
+                        if rf is None and "out_fmt" in vkw:
+                            _check_epilogue(label, c, c0, vkw)
+                        if rf is None and "out_fmt" not in vkw:
+                            check(torch.equal(c, c0), f"{label}: C differs "
+                                  "from the packed call's")
+                    skw = dict(kw, collect_stats=True)
+                    for kinds, (aa, ww) in (((2, 2), (xq0, wq0)),
+                                            ((0, 1), (a, w))):
+                        pk = dict(a_packed=kinds[0] == 2,
+                                  b_packed=kinds[1] == 2)
+                        b0, row0 = qmatmul_fused(aa, ww, **pk, **skw)
+                        for pack in (False, True):
+                            vkw = dict(out_fmt=R152, pack_out=pack)
+                            c, row = qmatmul_fused(aa, ww, **pk, **skw, **vkw)
+                            pc, prow = qmatmul_fused_stats_reference(
+                                aa, ww, **pk, **kw, **vkw)
+                            label = (f"K8 out_fmt pack_out={pack} kinds "
+                                     f"{kinds} {name} {rounding} "
+                                     f"{'lattice' if lattice else 'random'}")
+                            err = _var_compare(label, c, pc, vkw, acc,
+                                               lattice)
+                            max_err = max(max_err, 0 if lattice else err)
+                            check(torch.equal(row, row0),
+                                  f"{label}: the stats row moved")
+                            exact, ratio = stats_gap(row, prow)
+                            check(exact and ratio <= 1.0,
+                                  f"{label}: stats row differs from plain")
+                            _check_epilogue(label, c, b0, vkw)
+                            n_checks += 1
+    print(f"[variants] {n_checks} variant calls against their plain versions "
+          f"(G on both routes at M = {MAX_BATCH} and {VAR_M}, E and K8 at "
+          f"M = {VAR_M}; lattice bitwise, random max |err| {max_err:.3g}); "
+          f"every epilogue bitwise K2 (and pack_block) of the call without "
+          f"it; K8's rows unchanged by out_fmt", flush=True)
+    return max_err
+
+
+def _replay_pair(label, run, base_run, n_bytes, flops, peak, plain_run,
+                 lib_run) -> dict:
+    """A variant's sequence and its base sequence on the same inputs, each
+    by CUDA-graph replay (median [spread] of ``lib_time``), the plain
+    version's eager time, the bf16 library yardstick and the bound."""
+    var = lib_time(run)
+    base = lib_time(base_run)
+    plain = cuda_time(plain_run, reps=1, warmup=0)
+    lib = lib_time(lib_run)
+    b_ms, b_by = bound_ms(n_bytes, flops, peak)
+    print(f"[variants] {label}: {lib_str(var)} by graph replay against the "
+          f"base {lib_str(base)} ({var[0] / base[0]:.3f}x); plain "
+          f"{plain:.1f} ms; bf16 torch.matmul {lib_str(lib)}; bound "
+          f"{b_ms:.4f} ms ({b_by}), {b_ms / var[0]:.3f} of it", flush=True)
+    return dict(ms=var[0], spread_ms=list(var[1]), base_ms=base[0],
+                base_spread_ms=list(base[1]), plain_ms=plain,
+                library_ms=lib[0], library_spread_ms=list(lib[1]),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_variants(cfg, dev) -> dict:
+    """``[variants]``: the fused GEMM's last variants on the card.  Checks
+    (``_variant_checks``), then each variant timed by CUDA-graph replay
+    beside its base call on the same inputs: G's epilogue over one layer's
+    7 GEMMs and the decode step's 197 GEMMs at M = 8 (``out_fmt``,
+    ``pack_out``), G's operand variants (int8 codes at M = 512 on the
+    tile, an unquantized operand at M = 8), and one layer's 7 calls at M =
+    512 of E with the epilogue, E with f32 residuals at (1,5,2) and
+    (1,6,9), and K8 with the epilogue on E's codes."""
+    from repro_torch.kernels.fused import (qmatmul_fused,
+                                           qmatmul_fused_reference,
+                                           qmatmul_fused_stats_reference)
+
+    t0 = time.perf_counter()
+    max_err = _variant_checks(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    shapes = gemm_shapes(cfg)
+    layer = shapes[:-1]
+    calls8 = [(torch.randn((MAX_BATCH, k), generator=gen, device=dev),
+               (torch.randn((k, n), generator=gen, device=dev)
+                / math.sqrt(k)).to(torch.bfloat16), _gemm_kw(qc))
+              for _ in range(cfg.n_layers) for _, k, n, qc in layer]
+    # the decode step's lm_head: the tied embedding's transposed view, which
+    # the quantize_outputs plan leaves without an output format
+    _, hk, hn, hqc = shapes[-1]
+    head = (torch.randn((MAX_BATCH, hk), generator=gen, device=dev),
+            (torch.randn((hn, hk), generator=gen, device=dev)
+             / math.sqrt(hk)).to(torch.bfloat16).T, _gemm_kw(hqc))
+    calls512 = [(torch.randn((VAR_M, k), generator=gen, device=dev),
+                 (torch.randn((k, n), generator=gen, device=dev)
+                  / math.sqrt(k)).to(torch.bfloat16), _gemm_kw(qc))
+                for _, k, n, qc in layer]
+    out = {}
+    counters = _var_counters()
+
+    def seq(calls, fn, **extra):
+        def run():
+            for a, w, kw in calls:
+                fn(a, w, **kw, **extra)
+        return run
+
+    def lib_seq(calls):
+        return seq(calls, lambda a, w, **kw: torch.matmul(
+            a.to(torch.bfloat16), w.to(torch.bfloat16)))
+
+    def g_bytes(calls, a_bytes=4, w_bytes=2, c_bytes=4):
+        return sum(a.shape[0] * a.shape[1] * a_bytes + w.numel() * w_bytes
+                   + a.shape[0] * w.shape[1] * c_bytes for a, w, _ in calls)
+
+    def flops(calls):
+        return sum(2 * a.shape[0] * a.shape[1] * w.shape[1]
+                   for a, w, _ in calls)
+
+    lay8 = calls8[:len(layer)]
+    # G's epilogue: one layer's 7 (the entry), then the decode step's 197
+    g_out = _replay_pair(
+        f"G out_fmt, one layer's {len(lay8)} GEMMs at M={MAX_BATCH}",
+        seq(lay8, qmatmul_fused, out_fmt=R152), seq(lay8, qmatmul_fused),
+        g_bytes(lay8), flops(lay8), BF16_FLOPS,
+        seq(lay8, qmatmul_fused_reference, out_fmt=R152), lib_seq(lay8))
+    step_calls = calls8 + [head]
+
+    def with_out(**extra):
+        return [(a, w, dict(kw, **extra)) for a, w, kw in calls8] + [head]
+
+    step = lib_time(seq(with_out(out_fmt=R152), qmatmul_fused))
+    step_pack = lib_time(seq(with_out(out_fmt=R152, pack_out=True),
+                             qmatmul_fused))
+    step_base = lib_time(seq(step_calls, qmatmul_fused))
+    sb, sby = bound_ms(g_bytes(step_calls), flops(step_calls), BF16_FLOPS)
+    print(f"[variants] G the decode step's {len(step_calls)} GEMMs at "
+          f"M={MAX_BATCH} by graph replay ({len(calls8)} with the epilogue, "
+          f"the lm_head without, as the quantize_outputs plan runs them): "
+          f"out_fmt {lib_str(step)}, pack_out {lib_str(step_pack)}, base "
+          f"{lib_str(step_base)} ({step[0] / step_base[0]:.3f}x, "
+          f"{step_pack[0] / step_base[0]:.3f}x); bound {sb:.4f} ms ({sby})",
+          flush=True)
+    g_out.update(step_ms=step[0], step_pack_ms=step_pack[0],
+                 step_base_ms=step_base[0], step_bound_ms=sb,
+                 step_gemms=len(step_calls))
+    out["G_out"] = g_out
+    # G's operand variants: int8 codes of E's residual layout on the tile
+    codes = [(_codes(a), _codes(w), kw) for a, w, kw in calls512]
+    pk = dict(a_packed=True, b_packed=True)
+    zero_counts(counters)
+    seq(codes, qmatmul_fused, **pk)()
+    torch.cuda.synchronize()
+    op_launches = read_counts(counters)[G_OPERAND_NAME]
+    g_op = _replay_pair(
+        f"G int8-code operands, one layer's {len(codes)} GEMMs at M={VAR_M} "
+        "(the tile), base G on the f32 x and bf16 w",
+        seq(codes, qmatmul_fused, **pk), seq(calls512, qmatmul_fused),
+        g_bytes(codes, 1, 1), flops(codes), FP8_FLOPS,
+        seq(codes, qmatmul_fused_reference, **pk), lib_seq(calls512))
+    unq = lib_time(seq(lay8, qmatmul_fused, quantize_a=False))
+    print(f"[variants] G with x unquantized, one layer's {len(lay8)} GEMMs at "
+          f"M={MAX_BATCH}: {lib_str(unq)} ({unq[0] / g_out['base_ms']:.3f}x "
+          f"the base)", flush=True)
+    g_op.update(launches=op_launches, unquantized_ms=unq[0])
+    out["G_operand"] = g_op
+    # E's epilogue and f32 residuals, one layer's 7 calls at M = 512
+    def e_bytes(res_bytes, c_bytes=4):
+        return sum(a.numel() * 4 + w.numel() * 2 + a.shape[0] * w.shape[1]
+                   * c_bytes + (a.numel() + w.numel()) * res_bytes
+                   for a, w, _ in calls512)
+
+    eq = dict(return_quantized=True)
+    out["E_out"] = _replay_pair(
+        f"E out_fmt, one layer's {len(calls512)} calls at M={VAR_M}",
+        seq(calls512, qmatmul_fused, **eq, out_fmt=R152),
+        seq(calls512, qmatmul_fused, **eq), e_bytes(1), flops(calls512),
+        FP8_FLOPS, seq(calls512, qmatmul_fused_reference, **eq,
+                       out_fmt=R152), lib_seq(calls512))
+    f32 = dict(eq, pack_residuals=False)
+    out["E_f32"] = _replay_pair(
+        f"E f32 residuals (1,5,2), one layer's {len(calls512)} calls at "
+        f"M={VAR_M}",
+        seq(calls512, qmatmul_fused, **f32), seq(calls512, qmatmul_fused, **eq),
+        e_bytes(4), flops(calls512), FP8_FLOPS,
+        seq(calls512, qmatmul_fused_reference, **f32), lib_seq(calls512))
+    wide = [(a, w, dict(kw, repr_fmt=R169)) for a, w, kw in calls512]
+    w169 = _replay_pair(
+        f"E f32 residuals (1,6,9), one layer's {len(wide)} calls at "
+        f"M={VAR_M}, beside the base E at (1,5,2)",
+        seq(wide, qmatmul_fused, **f32), seq(calls512, qmatmul_fused, **eq),
+        e_bytes(4), flops(wide), TF32_FLOPS,
+        seq(wide, qmatmul_fused_reference, **f32), lib_seq(calls512))
+    out["E_f32"]["wide_ms"] = w169["ms"]
+    out["E_f32"]["wide_bound_ms"] = w169["bound_ms"]
+    # K8's epilogue on E's codes (the in-graph FWD replay's operands)
+    codes8 = [(c[0], c[1], dict(kw, quantize_a=False, quantize_b=False,
+                                a_packed=True, b_packed=True,
+                                collect_stats=True)) for c, (_, _, kw) in
+              zip(codes, calls512)]
+    zero_counts(counters)
+    seq(codes8, qmatmul_fused, out_fmt=R152)()
+    torch.cuda.synchronize()
+    k8_launches = read_counts(counters)[K8_OUT_NAME]
+
+    def k8_plain(a, w, **kw):
+        kw = {k_: v for k_, v in kw.items() if k_ != "collect_stats"}
+        return qmatmul_fused_stats_reference(a, w, **kw)
+
+    out["K8_out"] = _replay_pair(
+        f"K8 out_fmt on E's codes, one layer's {len(codes8)} calls at "
+        f"M={VAR_M}",
+        seq(codes8, qmatmul_fused, out_fmt=R152), seq(codes8, qmatmul_fused),
+        g_bytes(codes8, 1, 1), flops(codes8), FP8_FLOPS,
+        seq(codes8, k8_plain, out_fmt=R152), lib_seq(calls512))
+    out["K8_out"]["launches"] = k8_launches
+    for v in out.values():
+        v["max_abs_err"] = max_err
+    print(f"[variants] phase {time.perf_counter() - t0:.1f}s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------- quantize_outputs
+
+QOUT_STEPS = 3
+QOUT_SERVE = 2          # requests of the 2-layer kernels-vs-plain serve run
+QOUT_SERVE_GEN = 4
+
+
+@contextmanager
+def quantize_outputs_policy():
+    """The training launcher's set-up under ``AccumulationPolicy(
+    quantize_outputs=True)``: neither launcher has a flag for it, so the
+    launcher's policy is wrapped (the path is reached through the API, as
+    the JAX package's tests reach it)."""
+    from repro_torch.launch import train as L
+
+    orig = L._policy
+    L._policy = lambda args: dataclasses.replace(orig(args),
+                                                 quantize_outputs=True)
+    try:
+        yield
+    finally:
+        L._policy = orig
+
+
+def _qout_cfg(cfg, seq, batch, **policy):
+    from repro_torch.core.policy import AccumulationPolicy, plan_for_model
+
+    return plan_for_model(cfg, seq_len=seq, global_batch=batch,
+                          policy=AccumulationPolicy(
+                              mode="predicted", chunk=64,
+                              quantize_outputs=True, **policy))
+
+
+def phase_qout_train(dev, rne_step_ms: float) -> dict:
+    """``[qout]`` training: the train cell at full width and depth through
+    the launcher's set-up under quantize_outputs, ``QOUT_STEPS`` steps:
+    the loss falls, E runs with its epilogue (196 launches a step, the
+    base E none) and every dense forward output of the first step lies on
+    the (1,5,2) lattice."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build
+    from repro_torch.quant.formats import FP8_152
+    from repro_torch.train.loop import make_train_step
+
+    args = _train_args("--steps", str(QOUT_STEPS))
+    with quantize_outputs_policy():
+        model, tc, state, data, _ = build(args)
+    q = model.cfg.quant
+    check(q.attn_qkv.out_fmt == FP8_152 and q.lm_head.out_fmt is None,
+          "quantize_outputs did not set the plan's out_fmt")
+    step_fn = make_train_step(model, tc)
+    counters = {**_train_counters(), **_var_counters()}
+    real = ops.qmatmul_fused
+    on_lattice = []
+    n_dense = 7 * model.cfg.n_layers        # 196 at full depth
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        if kw.get("out_fmt") is not None:
+            y = out[0] if isinstance(out, tuple) else out
+            on_lattice.append(bool(torch.equal(_k2(y), y)))
+        return out
+
+    losses, times, launches = [], [], []
+    for step in range(QOUT_STEPS):
+        batch = next(data)
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.qmatmul_fused = spy if step == 0 else real
+        try:
+            state, m = step_fn(state, batch)
+        finally:
+            ops.qmatmul_fused = real
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        used = read_counts(counters)
+        losses.append(loss)
+        launches.append(used)
+        print(f"[qout] train step {step + 1}: loss {loss:.5f}, "
+              f"{times[-1]:.1f} ms (RNE step without the epilogue "
+              f"{rne_step_ms:.1f} ms), launches {E_OUT_NAME} "
+              f"{used[E_OUT_NAME]}, {E_NAME} {used[E_NAME]}, G "
+              f"{used['qmatmul_fused']}, B {used['qmatmul_bwd_pair']}",
+              flush=True)
+        check(math.isfinite(loss), "quantize_outputs: non-finite loss")
+        check(used[E_OUT_NAME] == n_dense and used[E_NAME] == 0,
+              f"quantize_outputs step: E's epilogue launched "
+              f"{used[E_OUT_NAME]} times, the base E {used[E_NAME]}")
+    check(losses[-1] < losses[0], f"quantize_outputs: loss did not fall "
+          f"({losses})")
+    check(len(on_lattice) == n_dense and all(on_lattice),
+          f"{len(on_lattice)} dense outputs seen, "
+          f"{sum(on_lattice)} on the (1,5,2) lattice")
+    print(f"[qout] train: {QOUT_STEPS} full-depth steps, loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}; all {n_dense} dense forward "
+          f"outputs of step 1 on the (1,5,2) lattice; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    del state, step_fn
+    return dict(launches=sum(u[E_OUT_NAME] for u in launches),
+                step_ms=times, losses=losses)
+
+
+def phase_qout_vs_plain(dev) -> dict:
+    """``[qout]`` at 2 layers (full width, batch 2 x seq 64): one step
+    under quantize_outputs through the kernels, then through their plain
+    versions, bitwise (loss and every gradient); and the same step with
+    ``pack_residuals=False`` (E's f32 residuals, B on them) bitwise the
+    packed one."""
+    from repro_torch.models.api import get_model
+    from repro_torch.train.loop import _grads, compute_copy
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = _qout_cfg(_base_cfg(2), TRAIN_SEQ, 2)
+    f32_plan = dataclasses.replace(cfg.quant, **{
+        f: dataclasses.replace(getattr(cfg.quant, f), pack_residuals=False)
+        for f in ("attn_qkv", "attn_out", "mlp_up", "mlp_down")})
+    cfg_f32 = dataclasses.replace(cfg, quant=f32_plan)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 47)
+    model = get_model(cfg)
+    params = model.init_params(gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, TRAIN_SEQ), generator=gen,
+                           device=dev, dtype=torch.int32)
+
+    def step(c):
+        m = get_model(c)
+        cc = compute_copy(params)
+        loss, _ = m.loss_fn(cc, {"tokens": tokens}, c)
+        loss.backward()
+        return loss.detach(), _grads(cc, params)
+
+    counters = {**_train_counters(), **_var_counters()}
+    zero_counts(counters)
+    lk, gk = step(cfg)
+    used = read_counts(counters)
+    zero_counts(counters)
+    lf, gf = step(cfg_f32)
+    used_f32 = read_counts(counters)
+    with plain_versions():
+        t0 = time.perf_counter()
+        lp, gp = step(cfg)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    out = {}
+    for label, (l2, g2) in (("plain", (lp, gp)), ("f32 residuals", (lf, gf))):
+        leaves = list(zip(tree_leaves(gk), tree_leaves(g2)))
+        same = sum(bool(torch.equal(a, b)) for a, b in leaves)
+        print(f"[qout] 2 layers, kernels vs {label}: loss {float(lk):.6f} "
+              f"vs {float(l2):.6f}; {same}/{len(leaves)} gradient leaves "
+              f"bitwise equal", flush=True)
+        check(torch.equal(lk, l2), f"[qout] loss differs from {label}")
+        check(same == len(leaves), f"[qout] a gradient differs from {label}")
+    print(f"[qout] launches packed {used[E_OUT_NAME]} E with the epilogue, "
+          f"f32 residuals {used_f32[E_F32_NAME]} E with f32 residuals; plain "
+          f"step {plain_s:.1f} s", flush=True)
+    check(used[E_OUT_NAME] == 14 and used_f32[E_F32_NAME] == 14,
+          f"[qout] E variants launched {used[E_OUT_NAME]} and "
+          f"{used_f32[E_F32_NAME]} times")
+    out["f32_launches"] = used_f32[E_F32_NAME]
+    return out
+
+
+def _base_cfg(n_layers=None):
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen2-1.5b")
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def phase_qout_serve(params, dev, prompts, one_shot) -> dict:
+    """``[qout]`` serving: the serve cell's prompts at full depth under
+    the quantize_outputs plan (G's epilogue on the 196 layer GEMMs of every
+    step, the base G on the lm_head; launches counted); at 2 layers, the
+    tokens and the arena through the kernels bitwise the plain path; one
+    ``qdot_packed`` per decode shape bitwise ``QTensor.pack`` of the plain
+    rounding."""
+    from repro_torch.kernels.fused import qmatmul_fused_reference
+    from repro_torch.kernels.ops import qdot_packed
+    from repro_torch.quant.qtensor import QTensor
+    from repro_torch.train.optimizer import tree_map
+
+    max_ctx = max(PROMPT_LENS) + GEN
+    cfg = _qout_cfg(_base_cfg(), max_ctx, len(PROMPT_LENS))
+    counters = {**_counters(), **_var_counters()}
+    eng = build_engine(cfg, params, dev, None)
+    rids = [eng.submit(p, GEN) for p in prompts]
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    used = read_counts(counters)
+    ex = eng.executor
+    print(f"[qout] serve one-shot, full depth: {eng.decoded_tokens} decoded "
+          f"tokens in {dt:.3f} s (decode steps {ex.decode_s:.3f} s; the RNE "
+          f"plan's one-shot run {one_shot['decode_s']:.3f} s); launches "
+          f"{used}", flush=True)
+    check(used[G_OUT_NAME] > 0 and used["qmatmul_fused"] > 0,
+          "[qout] serving launched no G epilogue or no base G (lm_head)")
+    check(all(len(res[r]) == GEN and all(0 <= t < cfg.vocab_size
+                                         for t in res[r]) for r in rids),
+          "[qout] serving: a short or out-of-range stream")
+    same = sum(res[r] == s for r, s in zip(rids, one_shot["streams"]))
+    print(f"[qout] {same}/{len(rids)} streams equal the RNE plan's (the "
+          f"outputs are rounded to (1,5,2), so they may part)", flush=True)
+    eng.pool.check_invariants()
+    g_launches = used[G_OUT_NAME]
+    del eng
+    # 2 layers: kernels vs plain, tokens and the arena
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params2 = {k: (tree_map(lambda t: t[:2], v) if k == "layers" else v)
+               for k, v in params.items()}
+    runs = []
+    for plain in (False, True):
+        e2 = build_engine(cfg2, params2, dev, None)
+        r2 = [e2.submit(p, QOUT_SERVE_GEN) for p in prompts[:QOUT_SERVE]]
+        if plain:
+            with plain_versions():
+                out2 = e2.run()
+        else:
+            out2 = e2.run()
+        runs.append(([out2[r] for r in r2],
+                     {k: v.clone() for k, v in e2.executor.kv.items()}))
+    (tk, ak), (tp, ap) = runs
+    arena_same = all(torch.equal(ak[k], ap[k]) for k in ak)
+    print(f"[qout] serve at 2 layers, {QOUT_SERVE} requests x "
+          f"{QOUT_SERVE_GEN} tokens: kernels vs plain tokens "
+          f"{'equal' if tk == tp else 'DIFFERENT'}, arena "
+          f"{'bitwise' if arena_same else 'DIFFERENT'}", flush=True)
+    check(tk == tp and arena_same, "[qout] serving differs from plain")
+    # qdot_packed at each decode shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+    for name, k, n, qc in gemm_shapes(cfg)[:-1]:
+        x = torch.randn((MAX_BATCH, k), generator=gen, device=dev)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             / math.sqrt(k)).to(torch.bfloat16)
+        qt = qdot_packed(x, w, qc)
+        want = QTensor.pack(qmatmul_fused_reference(x, w, **_gemm_kw(qc)),
+                            qc.out_fmt)
+        check(torch.equal(qt.payload, want.payload),
+              f"[qout] qdot_packed {name} differs from QTensor.pack")
+    print(f"[qout] qdot_packed at the {len(gemm_shapes(cfg)) - 1} decode "
+          f"shapes bitwise QTensor.pack of the plain rounding", flush=True)
+    return dict(launches=g_launches)
+
+
+# ---------------------------------------------------------------------- a2q
+
+A2Q_STEPS = 3
+
+
+def _adversarial_x(w: np.ndarray, x_bound: float, rng, mode: str):
+    """tests/test_a2q.py's worst-case bounded input for max |x @ w|."""
+    col = int(np.argmax(np.abs(w).sum(0)))
+    if mode == "aligned":
+        return (np.sign(w[:, col]) * x_bound).astype(np.float32)[None, :]
+    if mode == "anti":
+        return (-np.sign(w[:, col]) * x_bound).astype(np.float32)[None, :]
+    return (rng.choice([-1.0, 1.0], size=(4, w.shape[0])) * x_bound *
+            rng.uniform(0.5, 1.0, size=(4, w.shape[0]))).astype(np.float32)
+
+
+def phase_a2q(dev) -> dict:
+    """``[a2q]``: ``launch/train.py --policy predicted --a2q-reg 1e-4
+    --a2q-x-bound 16`` at full width and depth through the launcher's
+    set-up, ``A2Q_STEPS`` steps, the certificate ok after each; the
+    launcher's refusal under ``--policy exact``; then the adversarial
+    check of ``tests/test_a2q.py`` through K8 on the card under RNE and
+    SR: projected weights keep STAT_MAX_ABS below the clamp, weights 4x
+    over the cap trip it."""
+    from repro_torch.core.policy import GEMMPrecision
+    from repro_torch.launch.train import build, parse_args
+    from repro_torch.telemetry.stats import gemm_stats
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.loop import make_train_step
+
+    t0 = time.perf_counter()
+    args = _train_args("--steps", str(A2Q_STEPS), "--a2q-reg", "1e-4",
+                       "--a2q-x-bound", "16")
+    model, tc, state, data, _ = build(args)
+    check(tc.a2q is not None and tc.a2q.strength == 1e-4,
+          "--a2q-reg set no A2Q constraint")
+    step_fn = make_train_step(model, tc)
+    for step in range(A2Q_STEPS):
+        state, m = step_fn(state, next(data))
+        cert = O.a2q_certificate(state["params"], tc.a2q)
+        loss = float(m["loss"])
+        print(f"[a2q] launcher step {step + 1}: loss {loss:.5f}, certificate "
+              f"{cert}", flush=True)
+        check(math.isfinite(loss) and cert["ok"],
+              f"[a2q] step {step + 1}: certificate {cert}")
+    del state, step_fn
+    try:
+        build(parse_args(_train_argv("--policy", "exact", "--a2q-reg",
+                                     "1e-4")))
+        fail("[a2q] --a2q-reg under --policy exact was not refused")
+    except SystemExit:
+        pass
+    torch.cuda.empty_cache()
+    cfg = O.A2QConfig(e_acc=4, m_acc=9, x_bound=4.0, margin_bits=1,
+                      strength=1e-3)
+    acc_max = O.acc_format_max(cfg.e_acc, cfg.m_acc)
+    prec = GEMMPrecision(m_acc=cfg.m_acc, e_acc=cfg.e_acc, chunk=32)
+
+    def max_carry(x, w, rounding="rne", seed=0):
+        _, st = gemm_stats(torch.from_numpy(x).to(dev), w, precision=prec,
+                           rounding=rounding, sr_seed=seed)
+        return float(st.max_abs)
+
+    for rounding in ("rne", "sr"):
+        rng = np.random.RandomState(0)
+        worst = 0.0
+        for trial in range(12):
+            k, n = int(rng.randint(16, 257)), int(rng.randint(4, 49))
+            scale = float(rng.uniform(0.5, 20.0))
+            w = torch.from_numpy(rng.standard_normal((k, n)).astype(
+                np.float32) * scale).to(dev)
+            wp = O.a2q_project({"w": w}, cfg)["w"]
+            check(O.a2q_certificate({"w": wp}, cfg)["ok"],
+                  "[a2q] a projected weight is not certified")
+            for mode in ("aligned", "anti", "random"):
+                x = _adversarial_x(wp.cpu().numpy(), cfg.x_bound, rng, mode)
+                worst = max(worst, max_carry(x, wp, rounding, trial))
+        rng = np.random.RandomState(1)
+        tripped = 0
+        for _ in range(6):
+            k, n = int(rng.randint(64, 257)), int(rng.randint(4, 33))
+            w = torch.from_numpy(rng.standard_normal((k, n)).astype(
+                np.float32)).to(dev)
+            wp = O.a2q_project({"w": w}, cfg)["w"] * 4.0
+            x = _adversarial_x(wp.cpu().numpy(), cfg.x_bound, rng, "aligned")
+            tripped += max_carry(x, wp, rounding) >= acc_max
+        print(f"[a2q] adversarial through K8, {rounding}: projected weights' "
+              f"largest STAT_MAX_ABS {worst} < clamp {acc_max} over 36 "
+              f"inputs; weights 4x over the cap trip it {tripped}/6",
+              flush=True)
+        check(worst < acc_max, f"[a2q] {rounding}: a certified carry reached "
+              "the clamp")
+        check(tripped == 6, f"[a2q] {rounding}: unprojected weights tripped "
+              f"{tripped}/6")
+    print(f"[a2q] phase {time.perf_counter() - t0:.1f}s", flush=True)
+    return {}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -4368,6 +5146,7 @@ def main() -> None:
     phase_serve_oracle(cfg, params, dev, prompts[0])
     dp = phase_dense_prefill(cfg, params, dev, plan, prompts)
     k10_inputs = dp.pop("oneshot_inputs")
+    qs = phase_qout_serve(params, dev, prompts, one)
     del params
     torch.cuda.empty_cache()
     tpk = phase_tp_kernels(cfg, dev, plan)
@@ -4404,6 +5183,14 @@ def main() -> None:
     phase_train_vs_plain(dev, rounding="sr")
     torch.cuda.empty_cache()
     phase_train_oracle_rows(dev)
+    torch.cuda.empty_cache()
+    var = phase_variants(cfg, dev)
+    torch.cuda.empty_cache()
+    qt = phase_qout_train(dev, min(tr["step_ms"][1:]))
+    torch.cuda.empty_cache()
+    qp = phase_qout_vs_plain(dev)
+    torch.cuda.empty_cache()
+    phase_a2q(dev)
     torch.cuda.empty_cache()
     phase_analysis(dev)
     torch.cuda.empty_cache()
@@ -4523,6 +5310,30 @@ def main() -> None:
              source="src/repro_torch/csrc/paged_prefill.cu",
              replaces="src/repro/kernels/attention.py:930",
              launches_from="the [tp] resume walk", **tpk["resume"]),
+        # the fused GEMM's last variants: G's and E's output epilogue over
+        # the quantize_outputs runs ([qout]: serving, 3 training steps), E's
+        # f32 residuals over the 2-layer pack_residuals=False step; G's
+        # operand variants and K8's epilogue, on no path of the cells, over
+        # one eager run of their [variants] sequence; each timed over one
+        # layer's 7 calls (G's epilogue at M = 8, the rest at M = 512)
+        dict(name=G_OUT_NAME, route="cuda",
+             source="src/repro_torch/csrc/qgemm.cu",
+             replaces="src/repro/kernels/fused.py:96",
+             launches=qs["launches"], **var["G_out"]),
+        dict(name=G_OPERAND_NAME, route="cuda",
+             source="src/repro_torch/csrc/qgemm.cu",
+             replaces="src/repro/kernels/fused.py:86", **var["G_operand"]),
+        dict(name=E_OUT_NAME, route="cuda",
+             source="src/repro_torch/csrc/qgemm_emitq.cu",
+             replaces="src/repro/kernels/fused.py:96",
+             launches=qt["launches"], **var["E_out"]),
+        dict(name=E_F32_NAME, route="cuda",
+             source="src/repro_torch/csrc/qgemm_emitq.cu",
+             replaces="src/repro/kernels/fused.py:136",
+             launches=qp["f32_launches"], **var["E_f32"]),
+        dict(name=K8_OUT_NAME, route="cuda",
+             source="src/repro_torch/csrc/qgemm_stats.cu",
+             replaces="src/repro/kernels/fused.py:229", **var["K8_out"]),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

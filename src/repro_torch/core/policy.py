@@ -38,6 +38,12 @@ class AccumulationPolicy:
     ``mode="perturbed"``: the solver's width plus ``perturbation`` bits
     (negative = fewer), clamped to [1, M_ACC_CARRIER].
 
+    ``quantize_outputs=True`` also rounds every solver-assigned GEMM's
+    output to the representation format (the paper stores activations in
+    (1,5,2) too): the plan's ``out_fmt``, which the fused kernels apply in
+    their epilogue, so a consumer that quantizes the unchanged tensor
+    again changes nothing.
+
     ``rounding`` is the carry rounding of every solver-assigned GEMM:
     ``"rne"`` (the paper's round to nearest) or ``"sr"`` (stochastic
     rounding seeded by ``sr_seed``, the below-the-knee mode); the lm_head's
@@ -49,6 +55,7 @@ class AccumulationPolicy:
     perturbation: int = 0
     nzr: float = 1.0
     e_acc: int = 6
+    quantize_outputs: bool = False
     rounding: str = "rne"
     sr_seed: int = 0
 
@@ -79,7 +86,8 @@ def plan_for_model(cfg, *, seq_len: int, global_batch: int,
     """``cfg`` with a QuantPlan of solver-assigned formats for every dense
     GEMM type.  FWD length = fan-in, BWD = fan-out, GRAD = tokens
     (``seq_len * global_batch``).  The lm_head keeps the paper's 16-bit
-    practice: a fixed (1,6,9) carry with unquantized operands."""
+    practice: a fixed (1,6,9) carry with unquantized operands, and no
+    ``out_fmt`` under ``quantize_outputs``."""
     from repro_torch.kernels.ops import QDotConfig
     from repro_torch.models.config import QuantPlan
 
@@ -92,8 +100,9 @@ def plan_for_model(cfg, *, seq_len: int, global_batch: int,
             fwd=policy.for_length(fan_in),
             bwd=policy.for_length(fan_out),
             grad=policy.for_length(int(tokens * policy.nzr) or 1),
-            repr_fmt=FP8_152, rounding=policy.rounding,
-            sr_seed=policy.sr_seed)
+            repr_fmt=FP8_152,
+            out_fmt=FP8_152 if policy.quantize_outputs else None,
+            rounding=policy.rounding, sr_seed=policy.sr_seed)
 
     d, dh = cfg.d_model, cfg.head_dim
     qkv_out = (cfg.n_heads + 2 * cfg.n_kv_heads) * dh

@@ -3,7 +3,8 @@
 // training step's lm_head forward and the eager telemetry tick's forwards.
 //
 // G replaces repro/kernels/fused.py::_fused_kernel (RNE and SR carries, f32
-// or bf16 operands, no out_fmt/pack_out epilogue).  C[M,N] = sum over chunks of
+// or bf16 operands, either one unquantized, and int8 codes; the out_fmt /
+// pack_out epilogue).  C[M,N] = sum over chunks of
 // carry = q_acc(carry + Q(A_chunk) . Q(B_chunk)), chunk = the plan's n1:
 // within a chunk part = fma(a_k, b_k, part) in increasing k from 0, f32
 // round to nearest; once a chunk carry = q_acc(carry + part); a ragged last
@@ -55,6 +56,18 @@
 // The flag is a template argument, so the RNE kernels keep their code,
 // their 64 registers and their four blocks an SM.
 //
+// The output epilogue (fused.py::_emit_output, entry qgemm_out): the
+// finished carry rounded to nearest even into the output format and, with
+// pack, stored as its int8 code (qgemm_sm90.cuh's emit_out).  It runs
+// where C is stored: the unsplit decode kernel's store, the split call's
+// fold kernel (never the partials' store into the workspace) and the
+// tile's store loop, in kernels of their own (qgemm_decode_out_kernel,
+// qgemm_fold_out_kernel, qgemm_tile_out_kernel) whose bodies are the
+// base kernels' with an OUT flag, so the base kernels keep their code.
+// int8 operand codes (a_packed / b_packed) take the tile's out kernel,
+// which lands and unpacks them as K8's does; kernels/sm90.py routes them
+// there at every M.  An unquantized operand is a flag of either route.
+//
 // Both kernels take their arguments in the parameter space
 // (__grid_constant__): passed by value, nvcc 12.9 built G's earlier tile
 // with 190-194 registers a thread against 101-126, and G ran 1.26x slower
@@ -103,6 +116,9 @@ struct Decode {
   int b_vec;      // whole-word (row) or 16-byte (k-contiguous) loads of B
   sm90::Quant qa, qb, qacc;  // qa/qb: the identity where not quantized
   unsigned seed;  // the SR dither's seed (SR instantiations only)
+  // the output epilogue (OUT bodies only): format, int8 codes, code layout
+  sm90::Quant qout;
+  int pack, e_o, m_o;
 };
 
 // A carry update: carry + part rounded to q, stochastically (SR) with the
@@ -278,12 +294,21 @@ __device__ __forceinline__ void stage_a(const Decode& p, const TA* A, int m0, lo
   }
 }
 
+// C[i] of an unsplit call or a fold: the carry as it is, or (OUT) through
+// the output epilogue
+template <bool OUT>
+__device__ __forceinline__ void store_c(const Decode& p, long long i, float v) {
+  if constexpr (OUT)
+    sm90::emit_out(p.C, i, v, p.qout, p.pack, p.e_o, p.m_o);
+  else
+    p.C[i] = v;
+}
+
 // One warp takes one chunk of a strip (a chunk slot) for the block's row
 // group; the block's slots take consecutive chunks, in rounds of `slots`
 // chunks where the call is not split.
-template <typename TA, typename TB, bool KFAST, bool SR>
-__global__ void __launch_bounds__(MAX_SLOTS * LANES, 4)
-    qgemm_decode_kernel(const __grid_constant__ Decode p) {
+template <typename TA, typename TB, bool KFAST, bool SR, bool OUT>
+__device__ __forceinline__ void decode_body(const Decode& p) {
   constexpr int V = vlen<TB>(), W = LANES * V;
   extern __shared__ __align__(16) float sm[];
   const int slots = blockDim.x / LANES, slot = threadIdx.x / LANES;
@@ -361,14 +386,26 @@ __global__ void __launch_bounds__(MAX_SLOTS * LANES, 4)
   __syncthreads();
   for (int o = threadIdx.x; o < ROWS * W; o += blockDim.x) {
     const int m = m0 + o / W, nn = n0 + o % W;
-    if (m < p.M && nn < p.N) p.C[(long long)m * p.N + nn] = Cs[o];
+    if (m < p.M && nn < p.N) store_c<OUT>(p, (long long)m * p.N + nn, Cs[o]);
   }
+}
+
+template <typename TA, typename TB, bool KFAST, bool SR>
+__global__ void __launch_bounds__(MAX_SLOTS * LANES, 4)
+    qgemm_decode_kernel(const __grid_constant__ Decode p) {
+  decode_body<TA, TB, KFAST, SR, false>(p);
+}
+
+template <typename TA, typename TB, bool KFAST, bool SR>
+__global__ void __launch_bounds__(MAX_SLOTS * LANES, 4)
+    qgemm_decode_out_kernel(const __grid_constant__ Decode p) {
+  decode_body<TA, TB, KFAST, SR, true>(p);
 }
 
 // A split call's fold, one thread an output: its chunk partials in chunk
 // order
-template <bool SR>
-__global__ void __launch_bounds__(FOLD_THREADS) qgemm_fold_kernel(const __grid_constant__ Decode p) {
+template <bool SR, bool OUT>
+__device__ __forceinline__ void fold_body(const Decode& p) {
   const long long o = (long long)blockIdx.x * FOLD_THREADS + threadIdx.x;
   if (o >= (long long)p.M * p.N) return;
   const int nc = (int)(((long long)p.K + p.chunk - 1) / p.chunk);
@@ -377,18 +414,46 @@ __global__ void __launch_bounds__(FOLD_THREADS) qgemm_fold_kernel(const __grid_c
 #pragma unroll 4
   for (int c = 0; c < nc; ++c)
     carry = carry_add<SR>(carry, p.ws[o + c * stride], p, (unsigned)c, (unsigned)o);
-  p.C[o] = carry;
+  store_c<OUT>(p, o, carry);
+}
+
+template <bool SR>
+__global__ void __launch_bounds__(FOLD_THREADS) qgemm_fold_kernel(const __grid_constant__ Decode p) {
+  fold_body<SR, false>(p);
+}
+
+template <bool SR>
+__global__ void __launch_bounds__(FOLD_THREADS)
+    qgemm_fold_out_kernel(const __grid_constant__ Decode p) {
+  fold_body<SR, true>(p);
+}
+
+// The decode and fold kernels of an instantiation, with or without the
+// output epilogue
+template <typename TA, typename TB, bool KFAST, bool SR, bool OUT>
+auto decode_kernel() {
+  if constexpr (OUT)
+    return qgemm_decode_out_kernel<TA, TB, KFAST, SR>;
+  else
+    return qgemm_decode_kernel<TA, TB, KFAST, SR>;
+}
+template <bool SR, bool OUT>
+auto fold_kernel() {
+  if constexpr (OUT)
+    return qgemm_fold_out_kernel<SR>;
+  else
+    return qgemm_fold_kernel<SR>;
 }
 
 bool valid_slots(int slots) { return slots >= 1 && slots <= MAX_SLOTS; }
 
-template <typename TA, typename TB, bool KFAST, bool SR = false>
+template <typename TA, typename TB, bool KFAST, bool SR = false, bool OUT = false>
 int decode_set_smem(int bytes) {
-  return static_cast<int>(cudaFuncSetAttribute(qgemm_decode_kernel<TA, TB, KFAST, SR>,
+  return static_cast<int>(cudaFuncSetAttribute(decode_kernel<TA, TB, KFAST, SR, OUT>(),
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-template <typename TA, typename TB, bool KFAST, bool SR>
+template <typename TA, typename TB, bool KFAST, bool SR, bool OUT>
 int decode_launch(const Decode& p, int slots, cudaStream_t s) {
   constexpr int W = LANES * vlen<TB>();
   const long long nc = ((long long)p.K + p.chunk - 1) / p.chunk;
@@ -398,32 +463,33 @@ int decode_launch(const Decode& p, int slots, cudaStream_t s) {
     return static_cast<int>(cudaErrorInvalidValue);
   const int bytes = decode_smem(slots, p.chunk, W);
   // above the default 48 KiB only (a long chunk): the call costs host time
-  int rc = bytes > 48 * 1024 ? decode_set_smem<TA, TB, KFAST, SR>(bytes) : 0;
+  int rc = bytes > 48 * 1024 ? decode_set_smem<TA, TB, KFAST, SR, OUT>(bytes) : 0;
   if (rc != 0) return rc;
   dim3 grid((p.N + W - 1) / W, p.slices, (p.M + ROWS - 1) / ROWS);
-  qgemm_decode_kernel<TA, TB, KFAST, SR><<<grid, slots * LANES, bytes, s>>>(p);
+  const auto kernel = decode_kernel<TA, TB, KFAST, SR, OUT>();
+  kernel<<<grid, slots * LANES, bytes, s>>>(p);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0 || !split) return rc;
   const long long outs = (long long)p.M * p.N;
-  qgemm_fold_kernel<SR><<<(unsigned)((outs + FOLD_THREADS - 1) / FOLD_THREADS), FOLD_THREADS, 0,
-                          s>>>(p);
+  const auto fold = fold_kernel<SR, OUT>();
+  fold<<<(unsigned)((outs + FOLD_THREADS - 1) / FOLD_THREADS), FOLD_THREADS, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // B's layout: KFAST where k is the contiguous axis (the tied head's embed.T)
 bool b_kfast(long long sbk, long long sbn) { return sbk == 1 && sbn != 1; }
 
-template <typename TA, typename TB, bool SR>
+template <typename TA, typename TB, bool SR, bool OUT = false>
 int decode(const Decode& p0, int slots, cudaStream_t s) {
   Decode p = p0;
   const long long E = sizeof(TB);
   const uintptr_t base = reinterpret_cast<uintptr_t>(p.B);
   if (b_kfast(p.sbk, p.sbn)) {  // 16-byte pieces of KS values of k
     p.b_vec = base % 16 == 0 && (p.sbn * E) % 16 == 0 && ((long long)p.chunk * E) % 16 == 0;
-    return decode_launch<TA, TB, true, SR>(p, slots, s);
+    return decode_launch<TA, TB, true, SR, OUT>(p, slots, s);
   }
   p.b_vec = base % 4 == 0 && p.sbn == 1 && (p.sbk * E) % 4 == 0;  // one word a row
-  return decode_launch<TA, TB, false, SR>(p, slots, s);
+  return decode_launch<TA, TB, false, SR, OUT>(p, slots, s);
 }
 
 // --------------------------------------------------------------- tile ---
@@ -436,6 +502,23 @@ __global__ void __launch_bounds__(4 * sm90::GT, 2)
       p, blockIdx.y * sm90::TILE, blockIdx.x * sm90::TILE, smem, nullptr);
 }
 
+// The tile with the output epilogue, on f32, bf16 or int8-code operands
+template <typename TA, typename TB, bool SR>
+__global__ void __launch_bounds__(4 * sm90::GT, 2)
+    qgemm_tile_out_kernel(const __grid_constant__ sm90::Gemm p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  sm90::block_tile<TA, TB, sm90::stage_bytes<TA, TB>(), false, SR, true>(
+      p, blockIdx.y * sm90::TILE, blockIdx.x * sm90::TILE, smem, nullptr);
+}
+
+template <typename TA, typename TB, bool SR, bool OUT>
+auto tile_kernel() {
+  if constexpr (OUT)
+    return qgemm_tile_out_kernel<TA, TB, SR>;
+  else
+    return qgemm_tile_kernel<TA, TB, SR>;
+}
+
 bool valid_groups(int groups) { return groups == 1 || groups == 2 || groups == 4; }
 
 template <typename TA, typename TB>
@@ -443,10 +526,10 @@ int tile_smem(int groups) {
   return sm90::smem_bytes(sm90::stage_bytes<TA, TB>(), groups, false);
 }
 
-template <typename TA, typename TB, bool SR = false>
+template <typename TA, typename TB, bool SR = false, bool OUT = false>
 int tile_set_smem(int groups) {
   return static_cast<int>(cudaFuncSetAttribute(
-      qgemm_tile_kernel<TA, TB, SR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tile_kernel<TA, TB, SR, OUT>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
       tile_smem<TA, TB>(groups)));
 }
 
@@ -463,6 +546,30 @@ int tile(const void* A, long long sam, long long sak, const void* B, long long s
   if (rc != 0) return rc;
   dim3 grid((N + sm90::TILE - 1) / sm90::TILE, (M + sm90::TILE - 1) / sm90::TILE);
   qgemm_tile_kernel<TA, TB, SR><<<grid, groups * sm90::GT, tile_smem<TA, TB>(groups), s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tile's variant launch (qgemm_out): int8 codes decoded with dec, the
+// output epilogue under qout / pack
+template <typename TA, typename TB, bool SR>
+int tile_out(const void* A, long long sam, long long sak, const void* B, long long sbk,
+             long long sbn, void* C, int M, int N, int K, int chunk, QFmt qr, int qa, int qb,
+             QFmt qacc, sm90::Dec dec, QFmt qout, int pack, int e_o, int m_o, unsigned seed,
+             int groups, cudaStream_t s) {
+  if (!valid_groups(groups)) return static_cast<int>(cudaErrorInvalidValue);
+  sm90::Gemm p{sm90::operand(A, sizeof(TA), sam, sak, M, chunk, qa),
+               sm90::operand(B, sizeof(TB), sbn, sbk, N, chunk, qb),
+               static_cast<float*>(C), N, nullptr, M, N, K, chunk, sm90::quant_of(qr),
+               sm90::quant_of(qacc), dec, seed};
+  p.qout = sm90::quant_of(qout);
+  p.pack = pack;
+  p.e_o = e_o;
+  p.m_o = m_o;
+  int rc = tile_set_smem<TA, TB, SR, true>(groups);
+  if (rc != 0) return rc;
+  dim3 grid((N + sm90::TILE - 1) / sm90::TILE, (M + sm90::TILE - 1) / sm90::TILE);
+  qgemm_tile_out_kernel<TA, TB, SR><<<grid, groups * sm90::GT, tile_smem<TA, TB>(groups), s>>>(
+      p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -506,6 +613,25 @@ extern "C" int qgemm_decode_occupancy(int a_bf16, int b_bf16, int kfast, int slo
       constexpr bool KF = decltype(kf)::value, SR = decltype(rounds_sr)::value;
       return occupancy_of((const void*)qgemm_decode_kernel<TA, TB, KF, SR>, slots * LANES,
                           bytes, decode_set_smem<TA, TB, KF, SR>(bytes));
+    };
+    if (kfast)
+      return sr ? go(std::true_type{}, std::true_type{}) : go(std::true_type{}, std::false_type{});
+    return sr ? go(std::false_type{}, std::true_type{}) : go(std::false_type{}, std::false_type{});
+  });
+}
+
+// The same for the decode kernel with the output epilogue (qgemm_out)
+extern "C" int qgemm_decode_out_occupancy(int a_bf16, int b_bf16, int kfast, int slots,
+                                          int chunk, int sr) {
+  if (!valid_slots(slots)) return -static_cast<int>(cudaErrorInvalidValue);
+  return by_types(a_bf16, b_bf16, [&](auto ta, auto tb) {
+    using TA = decltype(ta);
+    using TB = decltype(tb);
+    const int bytes = decode_smem(slots, chunk, LANES * vlen<TB>());
+    auto go = [&](auto kf, auto rounds_sr) {
+      constexpr bool KF = decltype(kf)::value, SR = decltype(rounds_sr)::value;
+      return occupancy_of((const void*)qgemm_decode_out_kernel<TA, TB, KF, SR>, slots * LANES,
+                          bytes, decode_set_smem<TA, TB, KF, SR, true>(bytes));
     };
     if (kfast)
       return sr ? go(std::true_type{}, std::true_type{}) : go(std::true_type{}, std::false_type{});
@@ -565,6 +691,71 @@ extern "C" int qgemm(const void* A, int a_bf16, long long sam, long long sak,
   return by_types(a_bf16, b_bf16, [&](auto ta, auto tb) {
     auto go = [&](auto rounds_sr) {
       return decode<decltype(ta), decltype(tb), decltype(rounds_sr)::value>(p, par, s);
+    };
+    return sr ? go(std::true_type{}) : go(std::false_type{});
+  });
+}
+
+// The tile's out kernel (qgemm_out's route 1) at operand kinds (0 f32,
+// 1 bf16, 2 int8 codes): dynamic shared memory (bytes) and resident blocks
+// an SM at `groups` chunk groups (or a negative error).
+extern "C" int qgemm_tile_out_smem(int a_kind, int b_kind, int groups) {
+  return sm90::by_kinds(a_kind, b_kind, [&](auto ta, auto tb) {
+    return tile_smem<decltype(ta), decltype(tb)>(groups);
+  });
+}
+extern "C" int qgemm_tile_out_occupancy(int a_kind, int b_kind, int groups) {
+  if (!valid_groups(groups)) return -static_cast<int>(cudaErrorInvalidValue);
+  return sm90::by_kinds(a_kind, b_kind, [&](auto ta, auto tb) {
+    using TA = decltype(ta);
+    using TB = decltype(tb);
+    return occupancy_of((const void*)qgemm_tile_out_kernel<TA, TB, false>, groups * sm90::GT,
+                        tile_smem<TA, TB>(groups), tile_set_smem<TA, TB, false, true>(groups));
+  });
+}
+
+// G's variants: qgemm's arguments, with the operands' kinds (0 f32, 1
+// bf16, 2 int8 codes of (1, e_r, m_r); codes are never quantized again),
+// and the output epilogue: C rounded to nearest even into o_* (o_identity:
+// as it is) and, with pack, written as int8 codes of (1, e_o, m_o) into C
+// (M x N bytes) instead of floats.  int8 operands take route 1 only.
+extern "C" int qgemm_out(const void* A, int a_kind, long long sam, long long sak,
+                         const void* B, int b_kind, long long sbk, long long sbn,
+                         void* C, int M, int N, int K, int chunk, int e_r, int m_r,
+                         int r_identity, int r_shift, float r_max, float r_min,
+                         int quant_a, int quant_b,
+                         int c_identity, int c_shift, float c_max, float c_min,
+                         int o_identity, int o_shift, float o_max, float o_min,
+                         int pack, int e_o, int m_o, int sr, unsigned seed,
+                         int route, int par, int slices, void* ws, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const QFmt qr{r_identity, r_shift, r_max, r_min};
+  const QFmt qacc{c_identity, c_shift, c_max, c_min};
+  const QFmt qout{o_identity, o_shift, o_max, o_min};
+  if (route == 1) {
+    const sm90::Dec dec = sm90::dec_of(e_r, m_r);
+    return sm90::by_kinds(a_kind, b_kind, [&](auto ta, auto tb) {
+      auto go = [&](auto rounds_sr) {
+        return tile_out<decltype(ta), decltype(tb), decltype(rounds_sr)::value>(
+            A, sam, sak, B, sbk, sbn, C, M, N, K, chunk, qr, quant_a, quant_b, qacc, dec, qout,
+            pack, e_o, m_o, seed, par, s);
+      };
+      return sr ? go(std::true_type{}) : go(std::false_type{});
+    });
+  }
+  if (route != 0 || chunk < 1 || a_kind > 1 || b_kind > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const QFmt ident{1, 0, 0.0f, 0.0f};
+  Decode p{A, sam, sak, B, sbk, sbn, static_cast<float*>(C), static_cast<float*>(ws), M, N, K,
+           chunk, slices, 0, sm90::quant_of(quant_a ? qr : ident),
+           sm90::quant_of(quant_b ? qr : ident), sm90::quant_of(qacc), seed};
+  p.qout = sm90::quant_of(qout);
+  p.pack = pack;
+  p.e_o = e_o;
+  p.m_o = m_o;
+  return by_types(a_kind, b_kind, [&](auto ta, auto tb) {
+    auto go = [&](auto rounds_sr) {
+      return decode<decltype(ta), decltype(tb), decltype(rounds_sr)::value, true>(p, par, s);
     };
     return sr ? go(std::true_type{}) : go(std::false_type{});
   });

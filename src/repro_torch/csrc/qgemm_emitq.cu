@@ -31,6 +31,18 @@
 // (tools/sm90/emitq_pass.py).  In exchange the tile lands 2 bytes an
 // element and its decode only widens them (no quantize in the hot loop, as
 // B's Q(g) scratch), and no block needs a role for writing the codes.
+//
+// The variants (entry qgemm_emitq_out, the same two launches): the output
+// epilogue of repro/kernels/fused.py::_emit_output (out_fmt, pack_out) on
+// the tile's store (qgemm_emitq_out_kernel, the tile's OUT flag); f32
+// residuals (return_quantized without pack_residuals, any repr_fmt, also
+// one wider than 8 bits): the pass writes Q(A) and Q(B) as floats, which
+// are both the residuals and the operands the tile runs on, so no scratch
+// is needed; and quantize_a / quantize_b off per operand (the residual is
+// then the operand as it is, or its code).  The bf16 scratch is exact only
+// for a quantized packable format (at most 7 mantissa bits); otherwise the
+// pass writes an f32 scratch beside the codes.  The base kernels above keep
+// their code.
 #include "qgemm_sm90.cuh"
 
 #include <algorithm>
@@ -124,14 +136,146 @@ __global__ void __launch_bounds__(256) quantize_pack_kernel(Pack a, Pack b, sm90
     pack<TB>(b, q, e, m);
 }
 
+bool valid_groups(int groups) { return groups == 1 || groups == 2 || groups == 4; }
+
+// ------------------------------------------------------------ variants ---
+
+// One operand of the variant pass: Pack's source, codes (nullptr: f32
+// residuals, none written) and the scratch q, of the pass's scratch type.
+struct PassV {
+  const void* src;
+  long long s_r, s_c;
+  int rows, cols;
+  int vec;
+  int8_t* codes;
+  void* q;
+};
+
+template <typename T>
+PassV pass_of(const void* src, long long s_r, long long s_c, int rows, int cols,
+              int8_t* codes, void* q) {
+  const Pack p = pack_of<T>(src, s_r, s_c, rows, cols, codes, nullptr);
+  return PassV{src, s_r, s_c, rows, cols, p.vec, codes, q};
+}
+
+__device__ __forceinline__ void store1(bf* d, float x) { *d = sm90::bf16_exact(x); }
+__device__ __forceinline__ void store1(float* d, float x) { *d = x; }
+__device__ __forceinline__ void store8(bf* d, const float (&x)[8]) {
+  unsigned qv[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    qv[j >> 1] |= (unsigned)__bfloat16_as_ushort(sm90::bf16_exact(x[j])) << ((j & 1) * 16);
+  *reinterpret_cast<uint4*>(d) = make_uint4(qv[0], qv[1], qv[2], qv[3]);
+}
+__device__ __forceinline__ void store8(float* d, const float (&x)[8]) {
+  reinterpret_cast<float4*>(d)[0] = make_float4(x[0], x[1], x[2], x[3]);
+  reinterpret_cast<float4*>(d)[1] = make_float4(x[4], x[5], x[6], x[7]);
+}
+
+template <typename T, typename TS>
+__device__ __forceinline__ void pass_v(const PassV& p, const sm90::Quant& q, int e, int m) {
+  const T* src = static_cast<const T*>(p.src);
+  TS* dst = static_cast<TS*>(p.q);
+  const long long n = (long long)p.rows * p.cols;
+  const long long items = p.vec ? n / 8 : n, stride = (long long)gridDim.x * blockDim.x;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < items; t += stride) {
+    if (p.vec) {
+      const long long i = t * 8, r = i / p.cols, c = i % p.cols;
+      float v[8], x[8];
+      load8(src + r * p.s_r + c, v);
+      unsigned codes[2] = {0u, 0u};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        x[j] = sm90::quant(v[j], q);
+        codes[j >> 2] |= (unsigned)(uint8_t)pack_code(x[j], e, m) << ((j & 3) * 8);
+      }
+      if (p.codes != nullptr)
+        *reinterpret_cast<uint2*>(p.codes + i) = make_uint2(codes[0], codes[1]);
+      store8(dst + i, x);
+    } else {
+      const long long r = t / p.cols, c = t % p.cols;
+      const float x = sm90::quant(widen(src[r * p.s_r + c * p.s_c]), q);
+      if (p.codes != nullptr) p.codes[t] = pack_code(x, e, m);
+      store1(dst + t, x);
+    }
+  }
+}
+
+// blockIdx.y 0 passes A (quantized under qa), 1 passes B (under qb)
+template <typename TA, typename TB, typename TS>
+__global__ void __launch_bounds__(256) quantize_pass_kernel(PassV a, PassV b, sm90::Quant qa,
+                                                            sm90::Quant qb, int e, int m) {
+  if (blockIdx.y == 0)
+    pass_v<TA, TS>(a, qa, e, m);
+  else
+    pass_v<TB, TS>(b, qb, e, m);
+}
+
+template <typename TS, bool SR>
+__global__ void __launch_bounds__(4 * sm90::GT, 2) qgemm_emitq_out_kernel(sm90::Gemm p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  sm90::block_tile<TS, TS, sm90::stage_bytes<TS, TS>(), false, SR, true>(
+      p, blockIdx.y * TILE, blockIdx.x * TILE, smem, nullptr);
+}
+
+template <typename TS>
+int out_smem(int groups) {
+  return sm90::smem_bytes(sm90::stage_bytes<TS, TS>(), groups, false);
+}
+
+template <typename TS, bool SR>
+int out_set_smem(int groups) {
+  return static_cast<int>(cudaFuncSetAttribute(qgemm_emitq_out_kernel<TS, SR>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                out_smem<TS>(groups)));
+}
+
+// The variant launch: the pass into codes (packr) and a TS scratch, or into
+// the f32 residuals, then the tile with the output epilogue on the scratch
+template <typename TA, typename TB, typename TS>
+int launch_out(const void* A, long long sam, long long sak, const void* B, long long sbk,
+               long long sbn, void* C, int M, int N, int K, int chunk, int e_r, int m_r,
+               QFmt qa, QFmt qb, QFmt qacc, QFmt qout, int pack_out, int e_o, int m_o,
+               int packr, int groups, int sr, unsigned seed, void* Aq, void* Bq, void* QA,
+               void* QB, cudaStream_t s) {
+  if (!valid_groups(groups)) return static_cast<int>(cudaErrorInvalidValue);
+  void* sa = packr ? QA : Aq;
+  void* sb = packr ? QB : Bq;
+  int8_t* ca = packr ? static_cast<int8_t*>(Aq) : nullptr;
+  int8_t* cb = packr ? static_cast<int8_t*>(Bq) : nullptr;
+  const PassV pa = pass_of<TA>(A, sam, sak, M, K, ca, sa);
+  const PassV pb = pass_of<TB>(B, sbk, sbn, K, N, cb, sb);
+  const long long na = (long long)M * K, nb = (long long)K * N;
+  const long long most = std::max(pa.vec ? na / 8 : na, pb.vec ? nb / 8 : nb);
+  const int blocks = (int)std::min<long long>((most + 255) / 256, 65536LL);
+  quantize_pass_kernel<TA, TB, TS><<<dim3(blocks, 2), 256, 0, s>>>(
+      pa, pb, sm90::quant_of(qa), sm90::quant_of(qb), e_r, m_r);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  sm90::Gemm p{sm90::operand(sa, sizeof(TS), K, 1, M, chunk, 0),
+               sm90::operand(sb, sizeof(TS), 1, N, N, chunk, 0),
+               static_cast<float*>(C), N, nullptr, M, N, K, chunk, sm90::quant_of(qa),
+               sm90::quant_of(qacc), sm90::dec_of(5, 2), seed};  // no codes landed
+  p.qout = sm90::quant_of(qout);
+  p.pack = pack_out;
+  p.e_o = e_o;
+  p.m_o = m_o;
+  rc = sr ? out_set_smem<TS, true>(groups) : out_set_smem<TS, false>(groups);
+  if (rc != 0) return rc;
+  dim3 grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE);
+  if (sr)
+    qgemm_emitq_out_kernel<TS, true><<<grid, groups * sm90::GT, out_smem<TS>(groups), s>>>(p);
+  else
+    qgemm_emitq_out_kernel<TS, false><<<grid, groups * sm90::GT, out_smem<TS>(groups), s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool SR>
 __global__ void __launch_bounds__(4 * sm90::GT, 2) qgemm_emitq_kernel(sm90::Gemm p) {
   extern __shared__ __align__(16) unsigned char smem[];
   sm90::block_tile<bf, bf, STAGE, false, SR>(p, blockIdx.y * TILE, blockIdx.x * TILE, smem,
                                              nullptr);
 }
-
-bool valid_groups(int groups) { return groups == 1 || groups == 2 || groups == 4; }
 
 int gemm_smem(int groups) { return sm90::smem_bytes(STAGE, groups, false); }
 
@@ -214,4 +358,62 @@ extern "C" int qgemm_emitq(const void* A, int a_bf16, long long sam, long long s
   if (b_bf16) return launch<float, bf>(EMITQ_ARGS);
   return launch<float, float>(EMITQ_ARGS);
 #undef EMITQ_ARGS
+}
+
+// The variant kernels' shared memory (bytes) and resident blocks an SM at
+// `groups` chunk groups on a bf16 (f32 0) or f32 (1) scratch.
+extern "C" int qgemm_emitq_out_smem(int f32, int groups) {
+  return f32 ? out_smem<float>(groups) : out_smem<bf>(groups);
+}
+extern "C" int qgemm_emitq_out_occupancy(int f32, int groups) {
+  if (!valid_groups(groups)) return -static_cast<int>(cudaErrorInvalidValue);
+  int n = 0, rc = f32 ? out_set_smem<float, false>(groups) : out_set_smem<bf, false>(groups);
+  if (rc == 0)
+    rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, f32 ? (const void*)qgemm_emitq_out_kernel<float, false>
+                : (const void*)qgemm_emitq_out_kernel<bf, false>,
+        groups * sm90::GT, f32 ? out_smem<float>(groups) : out_smem<bf>(groups)));
+  return rc != 0 ? -rc : n;
+}
+
+// E's variants: qgemm_emitq's arguments, with the quantization of A and of
+// B apart (qa_*, qb_*: the identity where an operand is not quantized), the
+// output epilogue (o_*: C rounded to nearest even into it, the identity
+// leaving C as it is; pack_out: C is M x N int8 codes of (1, e_o, m_o)),
+// and the residuals: packr 1, Aq and Bq are int8 codes and QA and QB the
+// scratch, f32 (scratch_f32) or bf16 (exact only for a quantized packable
+// format); packr 0, Aq and Bq are the f32 residuals [M, K] and [K, N] and
+// the tile runs on them (QA, QB unused).  Returns the cudaError_t of the
+// launches.
+extern "C" int qgemm_emitq_out(const void* A, int a_bf16, long long sam, long long sak,
+                               const void* B, int b_bf16, long long sbk, long long sbn,
+                               void* C, int M, int N, int K, int chunk, int e_r, int m_r,
+                               int qa_identity, int qa_shift, float qa_max, float qa_min,
+                               int qb_identity, int qb_shift, float qb_max, float qb_min,
+                               int c_identity, int c_shift, float c_max, float c_min,
+                               int o_identity, int o_shift, float o_max, float o_min,
+                               int pack_out, int e_o, int m_o, int packr, int scratch_f32,
+                               int groups, int sr, unsigned seed, void* Aq, void* Bq,
+                               void* QA, void* QB, void* stream) {
+  const QFmt qa{qa_identity, qa_shift, qa_max, qa_min};
+  const QFmt qb{qb_identity, qb_shift, qb_max, qb_min};
+  const QFmt qacc{c_identity, c_shift, c_max, c_min};
+  const QFmt qout{o_identity, o_shift, o_max, o_min};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool f32 = scratch_f32 || !packr;
+  auto go = [&](auto ta, auto tb) {
+    using TA = decltype(ta);
+    using TB = decltype(tb);
+    if (f32)
+      return launch_out<TA, TB, float>(A, sam, sak, B, sbk, sbn, C, M, N, K, chunk, e_r, m_r,
+                                       qa, qb, qacc, qout, pack_out, e_o, m_o, packr, groups,
+                                       sr, seed, Aq, Bq, QA, QB, s);
+    return launch_out<TA, TB, bf>(A, sam, sak, B, sbk, sbn, C, M, N, K, chunk, e_r, m_r, qa,
+                                  qb, qacc, qout, pack_out, e_o, m_o, packr, groups, sr, seed,
+                                  Aq, Bq, QA, QB, s);
+  };
+  if (a_bf16 && b_bf16) return go(bf{}, bf{});
+  if (a_bf16) return go(bf{}, float{});
+  if (b_bf16) return go(float{}, bf{});
+  return go(float{}, float{});
 }

@@ -58,6 +58,14 @@
 // in the fold, once a chunk an output, outside the FMA loop; the RNE
 // instantiations are the same code as without the flag.
 //
+// The output epilogue (the OUT template flag of block_tile; the variant
+// kernels of G, E and K8 instantiate it): the finished carry is rounded to
+// nearest even into a consumer's format and, with pack, stored as its int8
+// code, as repro/kernels/fused.py::_emit_output does, in the store loop
+// after the walk.  The format is a runtime Quant whose identity stores the
+// carry as it is; the instantiations without the flag are the same code
+// as before it.
+//
 // Transposed views (w^T in dx, x^T in dw, the tied lm_head's embed.T) are
 // read through their strides: the ring keeps each operand along whichever
 // of its axes is contiguous in memory, and the decode transposes.  The
@@ -120,6 +128,11 @@ struct Gemm {
   // logical output's column count (0: N)
   unsigned seed = 0;
   int chunk0 = 0, col0 = 0, ldf = 0;
+  // OUT instantiations only (block_tile's output epilogue): the output's
+  // format (the identity: C as the carry) and, with pack, C as int8 codes
+  // of (1, e_o, m_o) instead of floats
+  Quant qout{1, 0, 0u, 0u, ~0u, 0.0f, 0.0f};
+  int pack = 0, e_o = 5, m_o = 2;
 };
 
 // Bytes of one ring step (A's and B's raw tiles), the ring's depth, and the
@@ -172,6 +185,23 @@ inline Dec dec_of(int e, int m) {
   return d;
 }
 
+// f(TA, TB) over two operands' kinds (0 f32, 1 bf16, 2 int8 codes):
+// G's variants and K8 dispatch their instantiations through it
+template <typename F>
+int by_kinds(int a_kind, int b_kind, F f) {
+  auto b_of = [&](auto ta) -> int {
+    using TA = decltype(ta);
+    if (b_kind == 0) return f(TA{}, float{});
+    if (b_kind == 1) return f(TA{}, __nv_bfloat16{});
+    if (b_kind == 2) return f(TA{}, int8_t{});
+    return static_cast<int>(cudaErrorInvalidValue);
+  };
+  if (a_kind == 0) return b_of(float{});
+  if (a_kind == 1) return b_of(__nv_bfloat16{});
+  if (a_kind == 2) return b_of(int8_t{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // quantize_rne (common.cuh), branch-free: a rounded-up infinity stays
 // infinite and fminf saturates it as quantize_rne's isinf case does; the
 // sign goes back on as a bit (the magnitude is never NaN there).
@@ -214,6 +244,20 @@ __device__ __forceinline__ float unpack(unsigned b, const Dec& d) {
   const unsigned mag = b & d.magmask;
   const float f = mag >= d.minmag ? __fmul_rn(__uint_as_float(mag << d.sh), d.scale) : 0.0f;
   return __uint_as_float(__float_as_uint(f) | (((b >> d.sbit) & 1u) << 31));
+}
+
+// The output epilogue of repro/kernels/fused.py::_emit_output on one
+// finished carry v: rounded to nearest even into the output format q (the
+// identity leaves v, NaN included), then, with pack, stored as its int8
+// code (pack_code: NaN and Inf become signed zero, as pack_block), else as
+// the float.  Whatever the carry's rounding, the epilogue is RNE.
+__device__ __forceinline__ void emit_out(float* C, long long i, float v, const Quant& q,
+                                         int pack, int e, int m) {
+  const float y = quant(v, q);
+  if (pack)
+    reinterpret_cast<int8_t*>(C)[i] = pack_code(y, e, m);
+  else
+    C[i] = y;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -517,8 +561,11 @@ __device__ __forceinline__ void run_group(const Gemm& p, int m0, int n0, unsigne
 // The block's tile at (m0, n0): carry in, the groups, then C (and, with
 // STATS, the block's partial stats row into `stats`).  smem holds
 // smem_bytes(STAGE, blockDim / GT, STATS) bytes.  SR: the carries round
-// stochastically under p.seed.
-template <typename TA, typename TB, int STAGE, bool STATS, bool SR = false>
+// stochastically under p.seed.  OUT: C leaves through emit_out under
+// p.qout / p.pack (the stats row still reads the carry, so it is the same
+// with and without the epilogue); the instantiations without it keep
+// their code.
+template <typename TA, typename TB, int STAGE, bool STATS, bool SR = false, bool OUT = false>
 __device__ __forceinline__ void block_tile(const Gemm& p, int m0, int n0, unsigned char* smem,
                                            double* stats) {
   float* Cs = reinterpret_cast<float*>(smem);
@@ -542,7 +589,10 @@ __device__ __forceinline__ void block_tile(const Gemm& p, int m0, int n0, unsign
   for (int i = threadIdx.x; i < TILE * TILE; i += blockDim.x) {
     const int gm = m0 + i / TILE, gn = n0 + i % TILE;
     if (gm < p.M && gn < p.N) {
-      p.C[(long long)gm * p.ldc + gn] = Cs[i];
+      if constexpr (OUT)
+        emit_out(p.C, (long long)gm * p.ldc + gn, Cs[i], p.qout, p.pack, p.e_o, p.m_o);
+      else
+        p.C[(long long)gm * p.ldc + gn] = Cs[i];
       if constexpr (STATS) stats_moments(v, Cs[i], Is[i]);
     }
   }

@@ -25,6 +25,12 @@
 // once a chunk in chunk order, operands landed by cp.async in their stored
 // type and decoded once a block.  The shadow adds one shared-memory add a
 // output a chunk and a handful of compares to the fold.
+//
+// The output epilogue (out_fmt / pack_out of _emit_output, entry
+// qgemm_stats_out) is qgemm_stats_out_kernel, the tile with its OUT flag:
+// C is rounded to nearest even into the output format (and, with pack,
+// written as int8 codes) in the store loop, while the stats row reads the
+// carry, so it is bitwise the row without the epilogue.
 #include "qgemm_sm90.cuh"
 
 namespace {
@@ -41,6 +47,23 @@ __global__ void __launch_bounds__(4 * sm90::GT, 2)
       p, blockIdx.y * TILE, blockIdx.x * TILE, smem, part + blk * N_STATS);
 }
 
+template <typename TA, typename TB, bool SR>
+__global__ void __launch_bounds__(4 * sm90::GT, 2)
+    qgemm_stats_out_kernel(sm90::Gemm p, double* part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long blk = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+  sm90::block_tile<TA, TB, sm90::stage_bytes<TA, TB>(), true, SR, true>(
+      p, blockIdx.y * TILE, blockIdx.x * TILE, smem, part + blk * N_STATS);
+}
+
+template <typename TA, typename TB, bool SR, bool OUT>
+auto stats_kernel() {
+  if constexpr (OUT)
+    return qgemm_stats_out_kernel<TA, TB, SR>;
+  else
+    return qgemm_stats_kernel<TA, TB, SR>;
+}
+
 bool valid_groups(int groups) { return groups == 1 || groups == 2 || groups == 4; }
 
 template <typename TA, typename TB>
@@ -48,22 +71,31 @@ int smem(int groups) {
   return sm90::smem_bytes(sm90::stage_bytes<TA, TB>(), groups, true);
 }
 
-template <typename TA, typename TB, bool SR>
+// OUT: qout / pack / e_o / m_o are the output epilogue's
+template <typename TA, typename TB, bool SR, bool OUT = false>
 int launch(const void* A, long long sam, long long sak, const void* B,
            long long sbk, long long sbn, float* C, int M, int N, int K,
            int chunk, QFmt qr, int qa, int qb, sm90::Dec dec, QFmt qacc,
-           int groups, unsigned seed, double* part, float* stats, cudaStream_t s) {
+           int groups, unsigned seed, double* part, float* stats, cudaStream_t s,
+           QFmt qout = QFmt{1, 0, 0.0f, 0.0f}, int pack = 0, int e_o = 5, int m_o = 2) {
   if (!valid_groups(groups)) return static_cast<int>(cudaErrorInvalidValue);
   sm90::Gemm p{sm90::operand(A, sizeof(TA), sam, sak, M, chunk, qa),
                sm90::operand(B, sizeof(TB), sbn, sbk, N, chunk, qb),
                C, N, nullptr, M, N, K, chunk, sm90::quant_of(qr), sm90::quant_of(qacc), dec,
                seed};
+  if constexpr (OUT) {
+    p.qout = sm90::quant_of(qout);
+    p.pack = pack;
+    p.e_o = e_o;
+    p.m_o = m_o;
+  }
   const int bytes = smem<TA, TB>(groups);
+  const auto kernel = stats_kernel<TA, TB, SR, OUT>();
   int rc = static_cast<int>(cudaFuncSetAttribute(
-      qgemm_stats_kernel<TA, TB, SR>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
   if (rc != 0) return rc;
   dim3 grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE);
-  qgemm_stats_kernel<TA, TB, SR><<<grid, groups * sm90::GT, bytes, s>>>(p, part);
+  kernel<<<grid, groups * sm90::GT, bytes, s>>>(p, part);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   const int blocks = (int)(grid.x * grid.y);
@@ -84,22 +116,6 @@ int occupancy(int groups) {
   return rc != 0 ? -rc : n;
 }
 
-// f(TA, TB) over the operand kinds: 0 f32, 1 bf16, 2 int8 codes
-template <typename F>
-int by_kinds(int a_kind, int b_kind, F f) {
-  auto b_of = [&](auto ta) -> int {
-    using TA = decltype(ta);
-    if (b_kind == 0) return f(TA{}, float{});
-    if (b_kind == 1) return f(TA{}, bf{});
-    if (b_kind == 2) return f(TA{}, int8_t{});
-    return static_cast<int>(cudaErrorInvalidValue);
-  };
-  if (a_kind == 0) return b_of(float{});
-  if (a_kind == 1) return b_of(bf{});
-  if (a_kind == 2) return b_of(int8_t{});
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 }  // namespace
 
 // Partial rows the kernel writes for an M x N output (the workspace the
@@ -111,12 +127,12 @@ extern "C" int qgemm_stats_blocks(int M, int N) {
 // Dynamic shared memory of one block (bytes) and resident blocks an SM at
 // `groups` chunk groups; kernels/sm90.py mirrors the first.
 extern "C" int qgemm_stats_smem(int a_kind, int b_kind, int groups) {
-  return by_kinds(a_kind, b_kind, [&](auto ta, auto tb) {
+  return sm90::by_kinds(a_kind, b_kind, [&](auto ta, auto tb) {
     return smem<decltype(ta), decltype(tb)>(groups);
   });
 }
 extern "C" int qgemm_stats_occupancy(int a_kind, int b_kind, int groups) {
-  return by_kinds(a_kind, b_kind, [&](auto ta, auto tb) {
+  return sm90::by_kinds(a_kind, b_kind, [&](auto ta, auto tb) {
     return occupancy<decltype(ta), decltype(tb)>(groups);
   });
 }
@@ -142,12 +158,68 @@ extern "C" int qgemm_stats(const void* A, int a_kind, long long sam,
   float* out = static_cast<float*>(C);
   double* P = static_cast<double*>(part);
   float* S = static_cast<float*>(stats);
-  return by_kinds(a_kind, b_kind, [&](auto ta, auto tb) {
+  return sm90::by_kinds(a_kind, b_kind, [&](auto ta, auto tb) {
     using TA = decltype(ta);
     using TB = decltype(tb);
     return sr ? launch<TA, TB, true>(A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, qr,
                                      quant_a, quant_b, dec, qacc, groups, seed, P, S, s)
               : launch<TA, TB, false>(A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, qr,
                                       quant_a, quant_b, dec, qacc, groups, seed, P, S, s);
+  });
+}
+
+// K8 with the output epilogue: qgemm_stats' arguments, then the output
+// format o_* (o_identity: C as it is) and pack (C is M x N int8 codes of
+// (1, e_o, m_o)).  The stats row is the same as without the epilogue.
+extern "C" int qgemm_stats_out(const void* A, int a_kind, long long sam,
+                               long long sak, const void* B, int b_kind,
+                               long long sbk, long long sbn, void* C, int M,
+                               int N, int K, int chunk, int e_r, int m_r,
+                               int r_identity, int r_shift, float r_max,
+                               float r_min, int quant_a, int quant_b,
+                               int c_identity, int c_shift, float c_max,
+                               float c_min, int o_identity, int o_shift,
+                               float o_max, float o_min, int pack, int e_o,
+                               int m_o, int groups, int sr, unsigned seed,
+                               void* part, void* stats, void* stream) {
+  const QFmt qr{r_identity, r_shift, r_max, r_min};
+  const QFmt qacc{c_identity, c_shift, c_max, c_min};
+  const QFmt qout{o_identity, o_shift, o_max, o_min};
+  const sm90::Dec dec = sm90::dec_of(e_r, m_r);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(C);
+  double* P = static_cast<double*>(part);
+  float* S = static_cast<float*>(stats);
+  return sm90::by_kinds(a_kind, b_kind, [&](auto ta, auto tb) {
+    using TA = decltype(ta);
+    using TB = decltype(tb);
+    return sr ? launch<TA, TB, true, true>(A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, qr,
+                                           quant_a, quant_b, dec, qacc, groups, seed, P, S, s,
+                                           qout, pack, e_o, m_o)
+              : launch<TA, TB, false, true>(A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, qr,
+                                            quant_a, quant_b, dec, qacc, groups, seed, P, S, s,
+                                            qout, pack, e_o, m_o);
+  });
+}
+
+// Dynamic shared memory (bytes) and resident blocks an SM of the out
+// kernel at `groups` chunk groups (its shared memory is the base kernel's).
+extern "C" int qgemm_stats_out_smem(int a_kind, int b_kind, int groups) {
+  return qgemm_stats_smem(a_kind, b_kind, groups);
+}
+extern "C" int qgemm_stats_out_occupancy(int a_kind, int b_kind, int groups) {
+  if (!valid_groups(groups)) return -static_cast<int>(cudaErrorInvalidValue);
+  return sm90::by_kinds(a_kind, b_kind, [&](auto ta, auto tb) {
+    using TA = decltype(ta);
+    using TB = decltype(tb);
+    const int bytes = smem<TA, TB>(groups);
+    int rc = static_cast<int>(cudaFuncSetAttribute(qgemm_stats_out_kernel<TA, TB, false>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   bytes));
+    int n = 0;
+    if (rc == 0)
+      rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, qgemm_stats_out_kernel<TA, TB, false>, groups * sm90::GT, bytes));
+    return rc != 0 ? -rc : n;
   });
 }

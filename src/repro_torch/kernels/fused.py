@@ -1,10 +1,10 @@
 """Fused quantized GEMM with a chunked low-precision carry: G, E and K8.
 
 G replaces the TPU kernel ``repro/kernels/fused.py::_fused_kernel`` (RNE
-and SR carries, f32 or bf16 operands, no ``out_fmt``/``pack_out``
-epilogue); E
-replaces ``_fused_kernel_emitq``, the training forward, which also emits
-the int8 codes of both quantized operands for the backward.  G is the CUDA
+and SR carries; f32, bf16 or int8-code operands, each quantized or not;
+the ``out_fmt``/``pack_out`` epilogue); E replaces
+``_fused_kernel_emitq``, the training forward, which also emits both
+quantized operands for the backward, as int8 codes or as float32.  G is the CUDA
 C++ kernel of ``csrc/qgemm.cu``, E that of ``csrc/qgemm_emitq.cu``::
 
     C[M, N] = sum over chunks of K:  carry = q_acc(carry + Q(A_c) @ Q(B_c))
@@ -76,6 +76,23 @@ route and the split do not depend on the rounding.  SR launches are
 counted apart (``sr_launches`` and ``sr_fold_launches`` for G,
 ``sr_emitq_launches``, ``sr_stats_launches``).
 
+The output epilogue (``out_fmt``, ``pack_out``; ``_emit_output`` of the
+JAX kernel): the finished carry is rounded to nearest even into the
+consumer's format, whatever the carry's rounding, and with ``pack_out``
+written as int8 codes.  It runs where C is stored, in variant kernels of
+their own (``csrc/qgemm_sm90.cuh``'s OUT flag, and G's decode and fold
+kernels with it), so the base kernels keep their code: G's decode
+kernel's store, its split call's fold kernel (the partials' store into
+the workspace never), and the tile's store for G's tile route, E and K8.
+K8's stats row reads the carry, so it is the same with and without it.
+E's f32 residuals (``pack_residuals=False``, any ``repr_fmt``, also one
+wider than 8 bits): its pass writes Q(A) and Q(B) as floats, the
+residuals, and the tile runs on them.  G's int8-code operands
+(``a_packed``/``b_packed``) take the tile at every M
+(``sm90.g_schedule``): the tile lands and unpacks codes as it does for
+K8, and the decode kernel reads float words only; an unquantized operand
+(``quantize_a``/``quantize_b`` off) is a flag of either route.
+
 On CPU tensors each wrapper runs its plain PyTorch version; on CUDA tensors
 it launches its kernel or raises.
 """
@@ -105,7 +122,7 @@ from repro_torch.quant.qtensor import pack_block, unpack_block
 
 __all__ = ["qmatmul_fused", "qmatmul_fused_reference", "qmatmul_fused_with",
            "qmatmul_fused_stats_reference", "chunked_gemm_reference",
-           "as_sr_seed"]
+           "emit_output", "as_sr_seed"]
 
 _WIDE = (8, 23)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -136,6 +153,31 @@ def _check(a, b, fmt=None, a_packed=False, b_packed=False):
             raise TypeError(f"{name}_packed expects int8 codes, got {t.dtype}")
         if not packed and t.dtype not in _DTYPES:
             raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+
+
+def _check_out(out_fmt, pack_out: bool):
+    """The output epilogue's (e_o, m_o), None without one, after the JAX
+    package's checks (``pack_out`` needs an ``out_fmt`` that packs)."""
+    out = fmt_tuple(out_fmt)
+    if pack_out:
+        if out is None:
+            raise ValueError("pack_out needs out_fmt to define the code layout")
+        if 1 + out[0] + out[1] > 8:
+            raise ValueError(f"(1,{out[0]},{out[1]}) needs {1 + sum(out)} "
+                             "bits; int8 packing requires <= 8")
+    return out
+
+
+def emit_output(y: torch.Tensor, out_fmt=None,
+                pack_out: bool = False) -> torch.Tensor:
+    """Plain version of the output epilogue (``_emit_output`` of the JAX
+    kernel): the finished carry rounded to nearest even into ``out_fmt``
+    (skipped for None and the identity (8, 23)), then, with ``pack_out``,
+    ``pack_block`` into int8 codes."""
+    out = fmt_tuple(out_fmt) or _WIDE
+    if out != _WIDE:
+        y = quantize_block(y, *out)
+    return pack_block(y, *out) if pack_out else y
 
 
 def chunked_gemm_reference(a32: torch.Tensor, b32: torch.Tensor, *,
@@ -202,27 +244,39 @@ def _operand32(x, packed: bool, quantize: bool, fmt):
 
 def qmatmul_fused_reference(a: torch.Tensor, b: torch.Tensor, *,
                             repr_fmt=None, e_acc: int = 8, m_acc: int = 23,
-                            block_k: int = 128,
+                            block_k: int = 128, quantize_a: bool = True,
+                            quantize_b: bool = True, a_packed: bool = False,
+                            b_packed: bool = False,
                             return_quantized: bool = False,
-                            rounding: str = "rne", sr_seed: int = 0):
+                            pack_residuals: bool = True, out_fmt=None,
+                            pack_out: bool = False, rounding: str = "rne",
+                            sr_seed: int = 0):
     """Plain PyTorch version of G (and of E with ``return_quantized``), in
-    the kernel's order: quantize both operands, then
-    ``chunked_gemm_reference`` (under ``rounding``/``sr_seed``); E's codes
-    are ``pack_block`` of the quantized operands.  Bitwise the kernels;
-    bitwise the JAX reference wherever the intra-chunk f32 sums are exact
-    (the reference's dot sums in another order)."""
-    _check(a, b)
-    check_rounding(rounding)
+    the kernel's order: each operand unpacked (int8 codes) or quantized
+    (unless its ``quantize_*`` is off), then ``chunked_gemm_reference``
+    (under ``rounding``/``sr_seed``), then the output epilogue
+    (``emit_output``); E's residuals are the quantized operands, as int8
+    codes (``pack_block``) with ``pack_residuals`` or as float32.
+    Bitwise the kernels; bitwise the JAX reference wherever the
+    intra-chunk f32 sums are exact (the reference's dot sums in another
+    order)."""
     fmt = fmt_tuple(repr_fmt)
-    if return_quantized:
+    _check(a, b, fmt, a_packed, b_packed)
+    _check_variants(return_quantized, a_packed, b_packed)
+    _check_out(out_fmt, pack_out)
+    check_rounding(rounding)
+    if return_quantized and pack_residuals:
         _check_packable(fmt)
-    a32 = _operand32(a, False, True, fmt)
-    b32 = _operand32(b, False, True, fmt)
+    a32 = _operand32(a, a_packed, quantize_a, fmt)
+    b32 = _operand32(b, b_packed, quantize_b, fmt)
     y = chunked_gemm_reference(a32, b32, e_acc=e_acc, m_acc=m_acc,
                                block_k=block_k, rounding=rounding,
                                sr_seed=as_sr_seed(sr_seed))
-    if return_quantized:
+    y = emit_output(y, out_fmt, pack_out)
+    if return_quantized and pack_residuals:
         return y, pack_block(a32, *fmt), pack_block(b32, *fmt)
+    if return_quantized:
+        return y, a32, b32
     return y
 
 
@@ -232,52 +286,72 @@ def qmatmul_fused_stats_reference(a: torch.Tensor, b: torch.Tensor, *,
                                   quantize_a: bool = True,
                                   quantize_b: bool = True,
                                   a_packed: bool = False,
-                                  b_packed: bool = False,
+                                  b_packed: bool = False, out_fmt=None,
+                                  pack_out: bool = False,
                                   rounding: str = "rne", sr_seed: int = 0):
     """Plain PyTorch version of K8's kernel: ``(C, row)``, C as
     ``qmatmul_fused_reference`` and the float32 (N_STATS,) stats row of
-    ``chunked_gemm_reference(..., stats=True)``.  C, the counters and
-    MAX_ABS are bitwise the kernel's; the float64 sums add the same terms
-    in another order."""
+    ``chunked_gemm_reference(..., stats=True)``, taken from the carry
+    before the output epilogue.  C, the counters and MAX_ABS are bitwise
+    the kernel's; the float64 sums add the same terms in another order."""
     fmt = fmt_tuple(repr_fmt)
     _check(a, b, fmt, a_packed, b_packed)
+    _check_out(out_fmt, pack_out)
     check_rounding(rounding)
     a32 = _operand32(a, a_packed, quantize_a, fmt)
     b32 = _operand32(b, b_packed, quantize_b, fmt)
-    return chunked_gemm_reference(a32, b32, e_acc=e_acc, m_acc=m_acc,
-                                  block_k=block_k, stats=True,
-                                  rounding=rounding,
-                                  sr_seed=as_sr_seed(sr_seed))
+    c, row = chunked_gemm_reference(a32, b32, e_acc=e_acc, m_acc=m_acc,
+                                    block_k=block_k, stats=True,
+                                    rounding=rounding,
+                                    sr_seed=as_sr_seed(sr_seed))
+    return emit_output(c, out_fmt, pack_out), row
 
 
 def _check_packable(fmt) -> None:
     if fmt is None or 1 + fmt[0] + fmt[1] > 8:
-        raise ValueError(f"return_quantized emits int8 codes: repr_fmt must "
-                         f"fit in 8 bits, got {fmt}")
+        raise ValueError(f"return_quantized with pack_residuals emits int8 "
+                         f"codes: repr_fmt must fit in 8 bits, got {fmt}")
 
+
+def _check_variants(return_quantized: bool, a_packed: bool,
+                    b_packed: bool) -> None:
+    if (a_packed or b_packed) and return_quantized:
+        raise ValueError("residual emission is a forward-only epilogue; "
+                         "packed operands are a backward-only input")
 
 
 _LL, _I, _P, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 _U = ctypes.c_uint
+_Q = [_I, _I, _F, _F]           # a QFmt's four C arguments
 _ARGTYPES = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I,
              _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _U, _I, _I, _I, _P,
              _P]
+_OUT_ARGTYPES = ([_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I,
+                  _I, _I] + _Q + [_I, _I] + _Q + _Q
+                 + [_I, _I, _I, _I, _U, _I, _I, _I, _P, _P])
 
 
 def qmatmul_fused_with(a: torch.Tensor, b: torch.Tensor, schedule, *,
                        repr_fmt=None, e_acc: int = 8, m_acc: int = 23,
-                       block_k: int = 128, rounding: str = "rne",
+                       block_k: int = 128, quantize_a: bool = True,
+                       quantize_b: bool = True, a_packed: bool = False,
+                       b_packed: bool = False, out_fmt=None,
+                       pack_out: bool = False, rounding: str = "rne",
                        sr_seed: int = 0) -> torch.Tensor:
     """G on CUDA tensors under a given schedule: a ``sm90.DecodeSchedule``
-    (the decode route, any split) or a ``sm90.Schedule`` (the tile), under
-    ``rounding``/``sr_seed``.  Every schedule gives the same bits;
-    ``qmatmul_fused`` takes ``sm90.g_schedule``'s.  Counts nothing: it
-    serves route timings and the tests of each schedule."""
-    _check(a, b)
+    (the decode route, any split; float operands only) or a
+    ``sm90.Schedule`` (the tile), under ``rounding``/``sr_seed``, with
+    G's operand and output variants.  Every schedule gives the same
+    bits; ``qmatmul_fused`` takes ``sm90.g_schedule``'s.  Counts nothing:
+    it serves route timings and the tests of each schedule."""
+    fmt = fmt_tuple(repr_fmt)
+    _check(a, b, fmt, a_packed, b_packed)
+    out = _check_out(out_fmt, pack_out)
     sr = check_rounding(rounding)
     _check_cuda(a, b, block_k)
-    return _g(a, b, schedule, fmt_tuple(repr_fmt), e_acc, m_acc, block_k,
-              sr, as_sr_seed(sr_seed))
+    return _g(a, b, schedule, fmt, e_acc, m_acc, block_k, sr,
+              as_sr_seed(sr_seed), qa=quantize_a, qb=quantize_b, out=out,
+              pack=pack_out)
 
 
 # qfmt_args of the few formats in use, built once (G runs ~200 times a
@@ -285,14 +359,20 @@ def qmatmul_fused_with(a: torch.Tensor, b: torch.Tensor, schedule, *,
 _qfmt = functools.lru_cache(maxsize=64)(qfmt_args)
 
 
-def _g(a, b, schedule, fmt, e_acc, m_acc, block_k, sr: bool,
-       seed: int) -> torch.Tensor:
-    """G's launch on checked CUDA operands (SR: under ``seed``)."""
+def _g(a, b, schedule, fmt, e_acc, m_acc, block_k, sr: bool, seed: int, *,
+       qa: bool = True, qb: bool = True, out=None,
+       pack: bool = False) -> torch.Tensor:
+    """G's launch on checked CUDA operands (SR: under ``seed``): the base
+    kernels, or with int8 operands or an output format (``out``, ``pack``)
+    the variant entry ``qgemm_out``.  ``qa``/``qb`` off: that operand is
+    not quantized (codes never are)."""
     m, k = a.shape
     n = b.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    variant = out is not None or a.dtype == torch.int8 or b.dtype == torch.int8
+    dt = torch.int8 if pack else torch.float32
+    c = torch.empty((m, n), dtype=dt, device=a.device)
     if m == 0 or n == 0:
-        return out
+        return c
     ws = None
     if isinstance(schedule, sm90.DecodeSchedule):
         route, par, slices = 0, schedule.slots, schedule.slices
@@ -301,17 +381,31 @@ def _g(a, b, schedule, fmt, e_acc, m_acc, block_k, sr: bool,
                              device=a.device)
     else:
         route, par, slices = 1, schedule.groups, 1
-    quant = int(fmt is not None)
-    rc = build.function("qgemm", "qgemm", _ARGTYPES)(
-        a.data_ptr(), _DTYPES[a.dtype], a.stride(0), a.stride(1),
-        b.data_ptr(), _DTYPES[b.dtype], b.stride(0), b.stride(1),
-        out.data_ptr(), m, n, k, block_k, *_qfmt(fmt or _WIDE), quant, quant,
-        *_qfmt((e_acc, m_acc)), int(sr), seed, route, par, slices,
-        None if ws is None else ws.data_ptr(),
-        torch.cuda.current_stream(a.device).cuda_stream)
+    quant = fmt is not None
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if not variant:
+        rc = build.function("qgemm", "qgemm", _ARGTYPES)(
+            a.data_ptr(), _DTYPES[a.dtype], a.stride(0), a.stride(1),
+            b.data_ptr(), _DTYPES[b.dtype], b.stride(0), b.stride(1),
+            c.data_ptr(), m, n, k, block_k, *_qfmt(fmt or _WIDE),
+            int(quant and qa), int(quant and qb), *_qfmt((e_acc, m_acc)),
+            int(sr), seed, route, par, slices,
+            None if ws is None else ws.data_ptr(), stream)
+    else:
+        o = out or _WIDE
+        rc = build.function("qgemm", "qgemm_out", _OUT_ARGTYPES)(
+            a.data_ptr(), _KINDS[a.dtype], a.stride(0), a.stride(1),
+            b.data_ptr(), _KINDS[b.dtype], b.stride(0), b.stride(1),
+            c.data_ptr(), m, n, k, block_k, *(fmt or _WIDE),
+            *_qfmt(fmt or _WIDE),
+            int(quant and qa and a.dtype != torch.int8),
+            int(quant and qb and b.dtype != torch.int8),
+            *_qfmt((e_acc, m_acc)), *_qfmt(o), int(pack), *o, int(sr), seed,
+            route, par, slices, None if ws is None else ws.data_ptr(),
+            stream)
     if rc != 0:
         raise RuntimeError(f"qgemm launch failed: CUDA error {rc}")
-    return out
+    return c
 
 
 def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
@@ -319,8 +413,9 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
                   quantize_a: bool = True, quantize_b: bool = True,
                   a_packed: bool = False, b_packed: bool = False,
                   return_quantized: bool = False,
-                  collect_stats: bool = False, rounding: str = "rne",
-                  sr_seed: int = 0):
+                  pack_residuals: bool = True, out_fmt=None,
+                  pack_out: bool = False, collect_stats: bool = False,
+                  rounding: str = "rne", sr_seed: int = 0):
     """C[M, N] = Q(A) @ Q(B) with a (1, e_acc, m_acc) carry rounded every
     ``block_k`` products (the chunk n1).
 
@@ -328,119 +423,154 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
       tied lm_head passes ``embed.T`` as a view);
     * ``repr_fmt``: operand format (``FPFormat``/``(e, m)``), None = no
       operand quantization;
-    * ``collect_stats`` only: ``quantize_a``/``quantize_b`` turn the
-      quantization off per operand, and ``a_packed``/``b_packed`` take the
-      operand as int8 codes of ``repr_fmt`` (not quantized again);
-    * returns float32 (M, N);
-    * ``return_quantized=True`` is kernel E: returns ``(C, xq, wq)``, the
-      int8 codes (``quant.qtensor`` layout) of Q(A) [M, K] and Q(B) [K, N]
-      each written once; ``repr_fmt`` must then fit in 8 bits;
+    * ``quantize_a``/``quantize_b`` off: that operand enters as it is;
+      ``a_packed``/``b_packed``: it is int8 codes of ``repr_fmt``
+      (``quant.qtensor`` layout), unpacked, not quantized again (the
+      backward's saved residuals);
+    * ``out_fmt``: the consumer's format, into which the finished carry is
+      rounded to nearest even in the kernel's epilogue (whatever the
+      carry's rounding); ``pack_out`` returns C as int8 codes of it;
+    * returns C, float32 (M, N), or int8 (M, N) with ``pack_out``;
+    * ``return_quantized=True`` is kernel E: returns ``(C, xq, wq)``, Q(A)
+      [M, K] and Q(B) [K, N], each written once, as int8 codes with
+      ``pack_residuals`` (``repr_fmt`` must then fit in 8 bits; the
+      default here, where the JAX package's is False) or as float32
+      (any ``repr_fmt``, or None: the operands as they are); exclusive
+      with packed operands;
     * ``collect_stats=True`` is K8's kernel: returns ``(C, row)``, C
       bitwise the stats-off call's and ``row`` the float32 (N_STATS,)
-      swamping stats on the device (read with
-      ``telemetry.stats.EnsembleStats.from_raw``); exclusive with
-      ``return_quantized``;
+      swamping stats of the carry (unchanged by ``out_fmt``) on the
+      device (read with ``telemetry.stats.EnsembleStats.from_raw``);
+      exclusive with ``return_quantized``;
     * ``rounding``: ``"rne"`` or ``"sr"``, the carry's rounding;
       ``sr_seed`` (an int, taken mod 2^32) keys SR's dither.
 
-    G's calls are counted on ``launches`` (one a call) and the fold
-    kernels of its split decode calls, each a second launch, on
-    ``fold_launches``; E's on ``emitq_launches``, K8's on
-    ``stats_launches``; the SR launches apart, G's on ``sr_launches``
-    and ``sr_fold_launches``, E's on ``sr_emitq_launches`` and K8's on
-    ``sr_stats_launches``.
+    Counts, one a call: G's base calls on ``launches`` (RNE) or
+    ``sr_launches``, the fold kernels of split decode calls on
+    ``fold_launches``/``sr_fold_launches``; G's calls with an output
+    format on ``out_launches`` (their folds on ``out_fold_launches``), with
+    packed or unquantized operands and no output format on
+    ``operand_launches``; E's base calls on ``emitq_launches`` or
+    ``sr_emitq_launches``, its variant calls on ``emitq_out_launches``
+    (int8 residuals) or ``emitq_f32_launches`` (f32 residuals); K8's on
+    ``stats_launches`` or ``sr_stats_launches``, with an output format on
+    ``stats_out_launches``.
     """
     sr = check_rounding(rounding)
     seed = as_sr_seed(sr_seed)
+    fmt = fmt_tuple(repr_fmt)
+    _check(a, b, fmt, a_packed, b_packed)
+    _check_variants(return_quantized, a_packed, b_packed)
+    out = _check_out(out_fmt, pack_out)
     if collect_stats and return_quantized:
         raise ValueError("collect_stats is a probe-path epilogue; residual "
                          "emission is a train-path epilogue: pick one")
+    kw = dict(repr_fmt=fmt, e_acc=e_acc, m_acc=m_acc, block_k=block_k,
+              quantize_a=quantize_a, quantize_b=quantize_b, out_fmt=out,
+              pack_out=pack_out, rounding=rounding, sr_seed=seed)
     if collect_stats:
-        return _stats(a, b, repr_fmt=repr_fmt, e_acc=e_acc, m_acc=m_acc,
-                      block_k=block_k, quantize_a=quantize_a,
-                      quantize_b=quantize_b, a_packed=a_packed,
-                      b_packed=b_packed, rounding=rounding, seed=seed)
-    if not (quantize_a and quantize_b) or a_packed or b_packed:
-        raise ValueError("per-operand quantization and packed operands are "
-                         "K8's (collect_stats=True)")
+        return _stats(a, b, a_packed=a_packed, b_packed=b_packed, **kw)
     if return_quantized:
-        return _emitq(a, b, repr_fmt=repr_fmt, e_acc=e_acc, m_acc=m_acc,
-                      block_k=block_k, rounding=rounding, seed=seed)
-    _check(a, b)
+        return _emitq(a, b, pack_residuals=pack_residuals, **kw)
     if a.device.type == "cpu" and b.device.type == "cpu":
-        return qmatmul_fused_reference(a, b, repr_fmt=repr_fmt, e_acc=e_acc,
-                                       m_acc=m_acc, block_k=block_k,
-                                       rounding=rounding, sr_seed=seed)
+        return qmatmul_fused_reference(a, b, a_packed=a_packed,
+                                       b_packed=b_packed, **kw)
     _check_cuda(a, b, block_k)
     m, k = a.shape
     n = b.shape[1]
     sched = sm90.g_schedule(m, n, k, block_k, _KINDS[a.dtype],
                             _KINDS[b.dtype])
-    out = _g(a, b, sched, fmt_tuple(repr_fmt), e_acc, m_acc, block_k, sr,
-             seed)
+    c = _g(a, b, sched, fmt, e_acc, m_acc, block_k, sr, seed,
+           qa=quantize_a, qb=quantize_b, out=out, pack=pack_out)
     if m and n:
         fold = isinstance(sched, sm90.DecodeSchedule) and sched.slices > 1
-        if sr:
+        operands = a_packed or b_packed or (
+            fmt is not None and not (quantize_a and quantize_b))
+        if out is not None:
+            qmatmul_fused.out_launches += 1
+            qmatmul_fused.out_fold_launches += fold
+        elif operands:
+            qmatmul_fused.operand_launches += 1
+            qmatmul_fused.fold_launches += fold
+        elif sr:
             qmatmul_fused.sr_launches += 1
             qmatmul_fused.sr_fold_launches += fold
         else:
             qmatmul_fused.launches += 1
             qmatmul_fused.fold_launches += fold
-    return out
+    return c
 
 
 qmatmul_fused.launches = 0
 qmatmul_fused.fold_launches = 0
 qmatmul_fused.sr_launches = 0
 qmatmul_fused.sr_fold_launches = 0
+qmatmul_fused.out_launches = 0
+qmatmul_fused.out_fold_launches = 0
+qmatmul_fused.operand_launches = 0
 qmatmul_fused.emitq_launches = 0
 qmatmul_fused.stats_launches = 0
 qmatmul_fused.sr_emitq_launches = 0
 qmatmul_fused.sr_stats_launches = 0
+qmatmul_fused.emitq_out_launches = 0
+qmatmul_fused.emitq_f32_launches = 0
+qmatmul_fused.stats_out_launches = 0
 
 _STATS_ARGTYPES = ([_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I,
                     _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _I,
                     _U, _P, _P, _P])
+_STATS_OUT_ARGTYPES = ([_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I,
+                        _I, _I, _I] + _Q + [_I, _I] + _Q + _Q
+                       + [_I, _I, _I, _I, _I, _U, _P, _P, _P])
 
 
 def _stats(a, b, *, repr_fmt, e_acc, m_acc, block_k, quantize_a, quantize_b,
-           a_packed, b_packed, rounding, seed):
-    """K8, ``qmatmul_fused(..., collect_stats=True)``."""
-    fmt = fmt_tuple(repr_fmt)
-    _check(a, b, fmt, a_packed, b_packed)
-    kw = dict(repr_fmt=fmt, e_acc=e_acc, m_acc=m_acc, block_k=block_k,
+           a_packed, b_packed, out_fmt, pack_out, rounding, sr_seed):
+    """K8, ``qmatmul_fused(..., collect_stats=True)``, on checked operands
+    (``out_fmt`` as ``_check_out`` returns it)."""
+    kw = dict(repr_fmt=repr_fmt, e_acc=e_acc, m_acc=m_acc, block_k=block_k,
               quantize_a=quantize_a, quantize_b=quantize_b,
-              a_packed=a_packed, b_packed=b_packed, rounding=rounding,
-              sr_seed=seed)
+              a_packed=a_packed, b_packed=b_packed, out_fmt=out_fmt,
+              pack_out=pack_out, rounding=rounding, sr_seed=sr_seed)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return qmatmul_fused_stats_reference(a, b, **kw)
     _check_cuda(a, b, block_k)
     m, k = a.shape
     n = b.shape[1]
     dev = a.device
-    out = torch.zeros((m, n), dtype=torch.float32, device=dev)
+    out = torch.zeros((m, n), dtype=torch.int8 if pack_out else torch.float32,
+                      device=dev)
     row = torch.zeros((N_STATS,), dtype=torch.float32, device=dev)
     if m == 0 or n == 0 or k == 0:
         return out, row
     blocks = build.function("qgemm_stats", "qgemm_stats_blocks", [_I, _I])(
         m, n)
     part = torch.empty((blocks, N_STATS), dtype=torch.float64, device=dev)
-    e_r, m_r = fmt or _WIDE
-    quant = fmt is not None
+    e_r, m_r = repr_fmt or _WIDE
+    quant = repr_fmt is not None
     sched = sm90.gemm_schedule(m, n, k, block_k, _KINDS[a.dtype],
                                _KINDS[b.dtype])
-    rc = build.function("qgemm_stats", "qgemm_stats", _STATS_ARGTYPES)(
-        a.data_ptr(), _KINDS[a.dtype], a.stride(0), a.stride(1),
-        b.data_ptr(), _KINDS[b.dtype], b.stride(0), b.stride(1),
-        out.data_ptr(), m, n, k, block_k, e_r, m_r, *qfmt_args(fmt or _WIDE),
-        int(quant and quantize_a and not a_packed),
-        int(quant and quantize_b and not b_packed),
-        *qfmt_args((e_acc, m_acc)), sched.groups, int(rounding == "sr"),
-        seed, part.data_ptr(), row.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    args = (a.data_ptr(), _KINDS[a.dtype], a.stride(0), a.stride(1),
+            b.data_ptr(), _KINDS[b.dtype], b.stride(0), b.stride(1),
+            out.data_ptr(), m, n, k, block_k, e_r, m_r,
+            *qfmt_args(repr_fmt or _WIDE),
+            int(quant and quantize_a and not a_packed),
+            int(quant and quantize_b and not b_packed),
+            *qfmt_args((e_acc, m_acc)))
+    tail = (sched.groups, int(rounding == "sr"), sr_seed, part.data_ptr(),
+            row.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if out_fmt is None:
+        rc = build.function("qgemm_stats", "qgemm_stats",
+                            _STATS_ARGTYPES)(*args, *tail)
+    else:
+        rc = build.function("qgemm_stats", "qgemm_stats_out",
+                            _STATS_OUT_ARGTYPES)(
+            *args, *_qfmt(out_fmt), int(pack_out), *out_fmt, *tail)
     if rc != 0:
         raise RuntimeError(f"qgemm_stats launch failed: CUDA error {rc}")
-    if rounding == "sr":
+    if out_fmt is not None:
+        qmatmul_fused.stats_out_launches += 1
+    elif rounding == "sr":
         qmatmul_fused.sr_stats_launches += 1
     else:
         qmatmul_fused.stats_launches += 1
@@ -457,43 +587,87 @@ def _check_cuda(a, b, block_k) -> None:
 _EMITQ_ARGTYPES = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I,
                    _I, _I, _I, _I, _F, _F, _I, _I, _F, _F, _I, _I, _U, _P, _P,
                    _P, _P, _P]
+_EMITQ_OUT_ARGTYPES = ([_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I,
+                        _I, _I, _I] + _Q + _Q + _Q + _Q
+                       + [_I, _I, _I, _I, _I, _I, _I, _U, _P, _P, _P, _P,
+                          _P])
 
 
-def _emitq(a, b, *, repr_fmt, e_acc, m_acc, block_k, rounding, seed):
-    """Kernel E, ``qmatmul_fused(..., return_quantized=True)``: the
-    quantize-and-pack pass, then the GEMM; one count a call."""
-    _check(a, b)
-    fmt = fmt_tuple(repr_fmt)
-    _check_packable(fmt)
+def _emitq(a, b, *, repr_fmt, e_acc, m_acc, block_k, quantize_a, quantize_b,
+           pack_residuals, out_fmt, pack_out, rounding, sr_seed):
+    """Kernel E, ``qmatmul_fused(..., return_quantized=True)``, on checked
+    operands: the quantize-and-pack pass, then the GEMM.  The base entry
+    for int8 residuals of both operands quantized and no output format,
+    the variant entry ``qgemm_emitq_out`` otherwise; one count a call."""
+    fmt, packr = repr_fmt, pack_residuals
+    if packr:
+        _check_packable(fmt)
     if a.device.type == "cpu" and b.device.type == "cpu":
-        return qmatmul_fused_reference(a, b, repr_fmt=fmt, e_acc=e_acc,
-                                       m_acc=m_acc, block_k=block_k,
-                                       return_quantized=True,
-                                       rounding=rounding, sr_seed=seed)
+        return qmatmul_fused_reference(
+            a, b, repr_fmt=fmt, e_acc=e_acc, m_acc=m_acc, block_k=block_k,
+            quantize_a=quantize_a, quantize_b=quantize_b,
+            return_quantized=True, pack_residuals=packr, out_fmt=out_fmt,
+            pack_out=pack_out, rounding=rounding, sr_seed=sr_seed)
     _check_cuda(a, b, block_k)
     m, k = a.shape
     n = b.shape[1]
     dev = a.device
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    aq = torch.empty((m, k), dtype=torch.int8, device=dev)
-    bq = torch.empty((k, n), dtype=torch.int8, device=dev)
+    qa = quantize_a and fmt is not None
+    qb = quantize_b and fmt is not None
+    variant = out_fmt is not None or not packr or not (qa and qb)
+    rdt = torch.int8 if packr else torch.float32
+    out = torch.empty((m, n), dtype=torch.int8 if pack_out else torch.float32,
+                      device=dev)
+    aq = torch.empty((m, k), dtype=rdt, device=dev)
+    bq = torch.empty((k, n), dtype=rdt, device=dev)
     if m == 0 or n == 0 or k == 0:
         out.zero_()
         return out, aq, bq
-    # the bf16 values of Q(A) and Q(B) the GEMM reads
-    qa = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
-    qb = torch.empty((k, n), dtype=torch.bfloat16, device=dev)
-    sched = sm90.emitq_schedule(m, n, k, block_k)
-    rc = build.function("qgemm_emitq", "qgemm_emitq", _EMITQ_ARGTYPES)(
-        a.data_ptr(), _DTYPES[a.dtype], a.stride(0), a.stride(1),
-        b.data_ptr(), _DTYPES[b.dtype], b.stride(0), b.stride(1),
-        out.data_ptr(), m, n, k, block_k, fmt[0], fmt[1], *qfmt_args(fmt),
-        *qfmt_args((e_acc, m_acc)), sched.groups, int(rounding == "sr"),
-        seed, aq.data_ptr(), bq.data_ptr(), qa.data_ptr(), qb.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sr = int(rounding == "sr")
+    if not variant:
+        # the bf16 values of Q(A) and Q(B) the GEMM reads
+        sa = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
+        sb = torch.empty((k, n), dtype=torch.bfloat16, device=dev)
+        sched = sm90.emitq_schedule(m, n, k, block_k)
+        rc = build.function("qgemm_emitq", "qgemm_emitq", _EMITQ_ARGTYPES)(
+            a.data_ptr(), _DTYPES[a.dtype], a.stride(0), a.stride(1),
+            b.data_ptr(), _DTYPES[b.dtype], b.stride(0), b.stride(1),
+            out.data_ptr(), m, n, k, block_k, fmt[0], fmt[1],
+            *qfmt_args(fmt), *qfmt_args((e_acc, m_acc)), sched.groups, sr,
+            sr_seed, aq.data_ptr(), bq.data_ptr(), sa.data_ptr(),
+            sb.data_ptr(), stream)
+    else:
+        # the scratch the tile runs on: the f32 residuals themselves, or
+        # beside int8 codes a bf16 scratch (exact for a quantized packable
+        # format) or an f32 one (an operand taken as it is)
+        f32 = not (packr and qa and qb)
+        sa = sb = None
+        if packr:
+            sdt = torch.float32 if f32 else torch.bfloat16
+            sa = torch.empty((m, k), dtype=sdt, device=dev)
+            sb = torch.empty((k, n), dtype=sdt, device=dev)
+        sched = sm90.emitq_schedule(m, n, k, block_k, f32=f32)
+        o = out_fmt or _WIDE
+        e_r, m_r = fmt or (5, 2)    # the code layout (unused without codes)
+        rc = build.function("qgemm_emitq", "qgemm_emitq_out",
+                            _EMITQ_OUT_ARGTYPES)(
+            a.data_ptr(), _DTYPES[a.dtype], a.stride(0), a.stride(1),
+            b.data_ptr(), _DTYPES[b.dtype], b.stride(0), b.stride(1),
+            out.data_ptr(), m, n, k, block_k, e_r, m_r,
+            *_qfmt(fmt if qa else _WIDE), *_qfmt(fmt if qb else _WIDE),
+            *_qfmt((e_acc, m_acc)), *_qfmt(o), int(pack_out), *o, int(packr),
+            int(f32), sched.groups, sr, sr_seed, aq.data_ptr(),
+            bq.data_ptr(), None if sa is None else sa.data_ptr(),
+            None if sb is None else sb.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"qgemm_emitq launch failed: CUDA error {rc}")
-    if rounding == "sr":
+    if variant:
+        if packr:
+            qmatmul_fused.emitq_out_launches += 1
+        else:
+            qmatmul_fused.emitq_f32_launches += 1
+    elif sr:
         qmatmul_fused.sr_emitq_launches += 1
     else:
         qmatmul_fused.emitq_launches += 1

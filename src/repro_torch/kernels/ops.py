@@ -5,11 +5,13 @@ Counterpart of ``repro.kernels.ops``: ``QDotConfig`` and the differentiable
 solver-assigned carry format:
 
 * FWD, ``y = Q(x) @ Q(w)``: kernel E (``qmatmul_fused(...,
-  return_quantized=True)``), which also emits the int8 codes of Q(x) and
-  Q(w) as the saved residuals, when ``repr_fmt`` fits in 8 bits; kernel G
-  with the raw operands saved when ``repr_fmt`` is None (the lm_head).
-  Without a gradient to take (serving, ``torch.no_grad()``) the forward is
-  G alone and saves nothing.
+  return_quantized=True)``), which also emits Q(x) and Q(w) as the saved
+  residuals: int8 codes when ``repr_fmt`` fits in 8 bits
+  (``QDotConfig.packs``), else float32 (a wider ``repr_fmt``, or
+  ``pack_residuals=False``); kernel G with the raw operands saved when
+  ``repr_fmt`` is None (the lm_head).  Without a gradient to take
+  (serving, ``torch.no_grad()``) the forward is G alone and saves
+  nothing; ``qdot_packed`` returns its output as int8 codes.
 * BWD ``dx = Q(g) @ Q(w)^T`` and GRAD ``dw = Q(x)^T @ Q(g)``: one launch
   of kernel B (``qmatmul_bwd_pair``) per layer.
 
@@ -22,8 +24,9 @@ the residuals; the backward quantizes g once and runs
 the fused path's function bit for bit, forward and both gradients, and
 its kernels are written apart from G, E and B.
 
-``out_fmt`` rounds the forward output to a consumer's format and is
-straight-through in the backward.  dx and dw come back in the dtypes of x
+``out_fmt`` rounds the forward output to a consumer's format in the
+kernel's epilogue (G's or E's; the oracle's K2) and is straight-through
+in the backward.  dx and dw come back in the dtypes of x
 and w, as the JAX package's casts round them (bf16 weights get bf16
 gradients).
 
@@ -52,14 +55,16 @@ import torch
 
 from repro_torch.core.policy import GEMMPrecision
 from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
-from repro_torch.kernels.common import ROUNDINGS, quantize_block, threefry2x32
+from repro_torch.kernels.common import ROUNDINGS, threefry2x32
 from repro_torch.kernels.fused import as_sr_seed, qmatmul_fused
 from repro_torch.kernels.qmatmul import qmatmul
 from repro_torch.kernels.quantize import quantize
 from repro_torch.quant.formats import FPFormat
+from repro_torch.quant.qtensor import QTensor
 from repro_torch.telemetry import capture as _capture
 
-__all__ = ["QDotConfig", "qdot", "quantize_op", "sr_role_seed"]
+__all__ = ["QDotConfig", "qdot", "qdot_packed", "quantize_op",
+           "sr_role_seed"]
 
 # f32 grouping of the partial sum when a role accumulates wide (chunk 0):
 # schedule only, the carry is not rounded
@@ -84,6 +89,8 @@ class QDotConfig:
     ``None`` for a role means ideal (wide) accumulation for that GEMM;
     ``repr_fmt=None`` disables operand quantization; ``fused=False`` runs
     the unfused oracle composition (K2 and K3, f32 residuals);
+    ``pack_residuals`` carries the fused forward's residuals as int8 codes
+    where ``repr_fmt`` fits in 8 bits (float32 otherwise, e.g. (1,6,9));
     ``out_fmt`` rounds the forward output to a consumer's representation
     format.  ``stats_tag`` turns on the in-graph telemetry of the backward
     (numerics untouched); ``stats_axis``, the mesh
@@ -98,6 +105,7 @@ class QDotConfig:
     grad: GEMMPrecision | None = None
     repr_fmt: FPFormat | None = None
     fused: bool = True
+    pack_residuals: bool = True
     out_fmt: FPFormat | None = None
     stats_tag: str | None = None
     stats_axis: str | None = None
@@ -122,8 +130,8 @@ class QDotConfig:
     @property
     def packs(self) -> bool:
         """Whether the forward's residuals are int8 codes."""
-        return (self.fused and self.repr_fmt is not None
-                and self.repr_fmt.bits <= 8)
+        return (self.fused and self.pack_residuals
+                and self.repr_fmt is not None and self.repr_fmt.bits <= 8)
 
 
 def _acc_params(p: GEMMPrecision | None) -> tuple[int, int, int]:
@@ -143,21 +151,16 @@ def _pair_chunks(cfg: QDotConfig) -> tuple[int, int]:
 
 
 def _fwd_kw(cfg: QDotConfig, seed: int) -> dict:
-    """The forward's ``qmatmul_fused`` keywords under base seed ``seed``."""
+    """The forward's ``qmatmul_fused`` keywords under base seed ``seed``,
+    the output format included."""
     e_acc, m_acc, chunk = _acc_params(cfg.fwd)
     return dict(repr_fmt=cfg.repr_fmt, e_acc=e_acc, m_acc=m_acc,
-                block_k=chunk or _WIDE_CHUNK, rounding=cfg.rounding,
-                sr_seed=_role_seed(cfg, seed, "fwd"))
+                block_k=chunk or _WIDE_CHUNK, out_fmt=cfg.out_fmt,
+                rounding=cfg.rounding, sr_seed=_role_seed(cfg, seed, "fwd"))
 
 
 def _role_seed(cfg: QDotConfig, seed: int, role: str) -> int:
     return sr_role_seed(seed, role) if cfg.rounding == "sr" else 0
-
-
-def _out(y: torch.Tensor, cfg: QDotConfig) -> torch.Tensor:
-    if cfg.out_fmt is None:
-        return y
-    return quantize_block(y, cfg.out_fmt.e, cfg.out_fmt.m)
 
 
 # ------------------------- unfused reference oracle -------------------------
@@ -200,17 +203,14 @@ class _QDot(torch.autograd.Function):
             y, xq, wq = _oracle_fwd(x2, w, cfg)
             ctx.save_for_backward(xq, wq)
             return y
-        if cfg.packs:
-            y, xq, wq = qmatmul_fused(x2, w, return_quantized=True,
-                                      **_fwd_kw(cfg, seed))
-        elif cfg.repr_fmt is None:
+        if cfg.repr_fmt is None:
             y, xq, wq = qmatmul_fused(x2, w, **_fwd_kw(cfg, seed)), x2, w
         else:
-            raise NotImplementedError(
-                f"residuals of a {cfg.repr_fmt} representation need more "
-                "than 8 bits: f32 residuals are not ported")
+            y, xq, wq = qmatmul_fused(x2, w, return_quantized=True,
+                                      pack_residuals=cfg.packs,
+                                      **_fwd_kw(cfg, seed))
         ctx.save_for_backward(xq, wq)
-        return _out(y, cfg)
+        return y
 
     @staticmethod
     def backward(ctx, g):
@@ -314,5 +314,29 @@ def qdot(x: torch.Tensor, w: torch.Tensor, cfg: QDotConfig, *,
     elif not cfg.fused:
         y = _oracle_fwd(x2, w, cfg)[0]
     else:
-        y = _out(qmatmul_fused(x2, w, **_fwd_kw(cfg, seed)), cfg)
+        y = qmatmul_fused(x2, w, **_fwd_kw(cfg, seed))
     return y.reshape(*lead, w.shape[1])
+
+
+def qdot_packed(x: torch.Tensor, w: torch.Tensor, cfg: QDotConfig, *,
+                sr_seed: int | None = None) -> QTensor:
+    """Inference-only ``qdot`` whose output leaves the kernel as int8 codes
+    of ``cfg.out_fmt`` (G's ``pack_out`` epilogue: no f32 activation is
+    written), the serve path's and the wire's carrier; with
+    ``fused=False`` the oracle's forward (K2, K3, then K2 for
+    ``out_fmt``), then ``QTensor.pack``.
+    Not differentiable: training uses ``qdot``."""
+    if cfg.out_fmt is None or cfg.out_fmt.bits > 8:
+        raise ValueError("qdot_packed needs an out_fmt with <= 8 bits")
+    if cfg.rounding == "sr" and not cfg.fused:
+        raise ValueError("rounding='sr' requires cfg.fused=True")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if not cfg.fused:
+        # rounded by K2 as the oracle rounds out_fmt, then packed
+        y = _oracle_fwd(x2, w, cfg)[0]
+        return QTensor.pack(y.reshape(*lead, w.shape[1]), cfg.out_fmt,
+                            assume_quantized=True)
+    seed = as_sr_seed(cfg.sr_seed if sr_seed is None else sr_seed)
+    codes = qmatmul_fused(x2, w, pack_out=True, **_fwd_kw(cfg, seed))
+    return QTensor(codes.reshape(*lead, w.shape[1]), fmt=cfg.out_fmt)

@@ -116,10 +116,13 @@ def gemm_schedule(m: int, n: int, k: int, chunk: int, a_kind: int,
                     _tiles(m) * _tiles(n))
 
 
-def emitq_schedule(m: int, n: int, k: int, chunk: int) -> Schedule:
+def emitq_schedule(m: int, n: int, k: int, chunk: int,
+                   f32: bool = False) -> Schedule:
     """E's GEMM launch: K8's grid without stats, on the bf16 scratches of
-    Q(A) and Q(B) that E's pass writes."""
-    return gemm_schedule(m, n, k, chunk, 1, 1, stats=False)
+    Q(A) and Q(B) that E's pass writes (on f32 ones, or on the f32
+    residuals, with ``f32``)."""
+    kind = 0 if f32 else 1
+    return gemm_schedule(m, n, k, chunk, kind, kind, stats=False)
 
 
 def gemm_tile(block: int, m: int, n: int) -> tuple[int, int]:
@@ -240,7 +243,11 @@ def g_schedule(m: int, n: int, k: int, chunk: int, a_kind: int,
     """G's launch: the decode route up to ``DECODE_MAX_M`` rows, or up to
     twice that where the tile's grid would leave SMs idle (where a
     block's shared memory holds it), else the tile over K8's grid without
-    the shadow carry."""
+    the shadow carry.  An operand of int8 codes (kind 2) takes the tile at
+    every M: it lands and unpacks codes as K8 does, and the decode kernel
+    reads float words only."""
+    if 2 in (a_kind, b_kind):
+        return gemm_schedule(m, n, k, chunk, a_kind, b_kind, stats=False)
     if m <= DECODE_MAX_M or (m <= 2 * DECODE_MAX_M
                              and _tiles(m) * _tiles(n) < SMS):
         sched = decode_schedule(m, n, k, chunk, b_kind)

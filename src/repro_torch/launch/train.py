@@ -30,7 +30,12 @@ restart supervisor (``launch.supervisor``).  ``--n-layers`` cuts the depth.
 stochastically (the below-the-knee mode), seeded by ``--sr-seed``: the
 same seed reproduces the run bitwise.  E, B and the stats kernels K8 and
 K9 carry it on the card; the lm_head keeps its RNE 16-bit carry.
-Not ported: A2Q, the metrics registry and meshes.
+
+``--a2q-reg S`` turns on A2Q (``train.optimizer``): the per-column l1 cap
+of every 2-D parameter, from the plan's narrowest accumulator format and
+``--a2q-x-bound``, penalized in the loss at strength S and projected after
+every step, so that carry can never overflow.
+Not ported: the metrics registry and meshes.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --smoke --steps 20 --policy predicted --device cpu \\
@@ -89,6 +94,15 @@ def parse_args(argv=None):
     ap.add_argument("--sr-seed", type=int, default=0,
                     help="seed of --rounding sr (the same seed reproduces "
                          "the run bitwise)")
+    ap.add_argument("--a2q-reg", type=float, default=0.0,
+                    help="A2Q weight-norm regularizer strength (0 = off): "
+                         "the per-output-column l1 caps from the plan's "
+                         "narrowest accumulator format are penalized in "
+                         "the loss and projected after every step, so the "
+                         "reduced carries cannot overflow")
+    ap.add_argument("--a2q-x-bound", type=float, default=16.0,
+                    help="certified bound on the activation operand's "
+                         "magnitude for the --a2q-reg cap")
     ap.add_argument("--loss-scaling", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--metrics-out", default="")
@@ -203,6 +217,30 @@ def resume(args, model, state, data, controller):
     return model, state, start
 
 
+def a2q_config(args, cfg) -> O.A2QConfig | None:
+    """``--a2q-reg``'s constraint for the planned ``cfg``: the cap from
+    the narrowest accumulator format of the plan (a certificate against it
+    covers every wider one); None when off."""
+    if args.a2q_reg <= 0:
+        return None
+    from repro_torch.telemetry.controller import PLAN_FIELDS, ROLES
+
+    precs = [p for f in PLAN_FIELDS
+             for q in [getattr(cfg.quant, f, None)] if q is not None
+             for r in ROLES for p in [getattr(q, r)] if p is not None]
+    if not precs:
+        raise SystemExit("--a2q-reg needs a non-exact --policy (nothing to "
+                         "certify in exact mode)")
+    narrow = min(precs, key=lambda p: (p.e_acc, p.m_acc))
+    a2q = O.A2QConfig(e_acc=narrow.e_acc, m_acc=narrow.m_acc,
+                      x_bound=args.a2q_x_bound, strength=args.a2q_reg,
+                      project=True)
+    print(f"a2q: cap per-column l1 at {O.a2q_l1_cap(a2q):.4g} (acc "
+          f"({narrow.e_acc},{narrow.m_acc}), x_bound {args.a2q_x_bound})",
+          flush=True)
+    return a2q
+
+
 def build(args):
     """(model, train config, state, data, device) for parsed ``args``."""
     device = resolve_device(args.device)
@@ -214,7 +252,8 @@ def build(args):
         opt=O.OptConfig(lr=args.lr, warmup_steps=args.warmup,
                         total_steps=args.steps),
         microbatches=args.microbatches, use_loss_scaling=args.loss_scaling,
-        scaler=O.LossScaleConfig(init_scale=1000.0, dynamic=True))
+        scaler=O.LossScaleConfig(init_scale=1000.0, dynamic=True),
+        a2q=a2q_config(args, cfg))
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     state = init_train_state(model, gen, device, tc)

@@ -22,6 +22,7 @@ config.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -46,15 +47,22 @@ COMPUTE_DTYPE = torch.bfloat16
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, qcfg: QDotConfig | None = None,
-          bias: torch.Tensor | None = None) -> torch.Tensor:
+          bias: torch.Tensor | None = None, out_fmt=None) -> torch.Tensor:
     """y = x @ w (+ bias), bf16 out.
 
     With a QDotConfig: float32 x into ``qdot`` (the bf16 weights go to the
     kernel as they are: bf16 -> f32 is exact, and a float32 copy of the
     weights is never made), output cast to bf16, bias added in bf16.
     Without: a bf16 product (the JAX package leaves it to XLA's dot).
+
+    ``out_fmt`` is the consumer-format hint: the (1, e, m) format of the
+    op that takes y unchanged, into which the GEMM's epilogue rounds y
+    (replacing the config's ``out_fmt``), so that op can skip its own
+    quantization; straight-through in the backward.
     """
     if qcfg is not None and not qcfg.is_exact:
+        if out_fmt is not None and out_fmt != qcfg.out_fmt:
+            qcfg = dataclasses.replace(qcfg, out_fmt=out_fmt)
         y = qdot(x.to(torch.float32), w, qcfg).to(COMPUTE_DTYPE)
     else:
         y = torch.matmul(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))

@@ -9,6 +9,8 @@ blocks) and the overflow bound ``|o| <= ctx * v_hint`` on the exponent.
 A tensor-parallel plan (``tp_shards``) certifies the cross-rank carry
 merge as one more accumulation stage: up to ``tp_shards - 1`` carry
 combines a row, with the unnormalized carry materialized at the merge.
+Under ``guarantee="a2q"`` the exponent covers a certified cap ``v_cap`` on
+the carry itself (A2Q, ``train.optimizer``) instead of ``ctx * v_hint``.
 """
 
 from __future__ import annotations
@@ -55,7 +57,10 @@ class AttnBucket:
 class AttnPlan:
     """Bucketed carry formats; ``prefill_chunk`` is the chunked-prefill slab
     (tokens) the buckets were certified for, None = one-shot prefill;
-    ``tp_shards`` the ranks whose carry merge they were certified for."""
+    ``tp_shards`` the ranks whose carry merge they were certified for;
+    ``guarantee``/``v_cap``/``e_min`` the overflow bound their e_acc was
+    certified under ("bucket": ``ctx * v_hint``; "a2q": the certified
+    carry cap ``v_cap``), which a re-certification must check again."""
 
     page_size: int
     m_p: int
@@ -63,6 +68,9 @@ class AttnPlan:
     prefill_chunk: int | None = None
     tp_shards: int = 1
     v_hint: float = DEFAULT_V_HINT
+    guarantee: str = "bucket"
+    v_cap: float | None = None
+    e_min: int = 6
 
     def bucket_for(self, ctx: int) -> tuple[int, AttnBucket]:
         """(index, bucket) of the narrowest bucket covering ``ctx``."""
@@ -131,13 +139,25 @@ def decode_m_acc(ctx: int, page_size: int, m_p: int, *,
 
 
 def min_e_acc(ctx: int, *, v_hint: float | None = None, e_min: int = 6,
-              boundaries: tuple[int, ...] = ()) -> int:
-    """Smallest exponent width whose saturating range covers ``ctx *
-    v_hint`` at the end and at every chunked-prefill boundary where the
-    unnormalized carry is materialized."""
-    hint = DEFAULT_V_HINT if v_hint is None else v_hint
-    need = max((math.log2(max(c, 1) * max(hint, 1.0))
-                for c in (*boundaries, ctx)), default=0.0)
+              boundaries: tuple[int, ...] = (), guarantee: str = "bucket",
+              v_cap: float | None = None) -> int:
+    """Smallest exponent width whose saturating range covers the carry's
+    worst case.  ``guarantee="bucket"``: ``ctx * v_hint`` at the end and
+    at every chunked-prefill boundary where the unnormalized carry is
+    materialized.  ``guarantee="a2q"``: a certified cap ``v_cap`` on the
+    carry itself (the A2Q weight-norm bound ``|sum w x| <= ||w||_1 max|x|``
+    holds at any length), so the boundaries are moot."""
+    if guarantee == "a2q":
+        if v_cap is None or v_cap <= 0.0:
+            raise ValueError("guarantee='a2q' needs a positive certified "
+                             f"carry cap v_cap, got {v_cap!r}")
+        need = math.log2(max(v_cap, 1.0))
+    elif guarantee == "bucket":
+        hint = DEFAULT_V_HINT if v_hint is None else v_hint
+        need = max((math.log2(max(c, 1) * max(hint, 1.0))
+                    for c in (*boundaries, ctx)), default=0.0)
+    else:
+        raise ValueError(f"unknown overflow guarantee {guarantee!r}")
     for e in range(e_min, 9):
         if FPFormat(e=e, m=1).max_exp >= need:
             return e
@@ -158,8 +178,10 @@ def derive_v_hint(stats, ctx: int, *, margin_bits: int = 1) -> float:
 
 def plan_attention(max_context: int, page_size: int, *, m_p: int = 5,
                    growth: int = 4, v_hint: float | None = None,
+                   e_min: int = 6,
                    prefill_chunk_tokens: int | None = None,
-                   tp_shards: int = 1) -> AttnPlan:
+                   tp_shards: int = 1, guarantee: str = "bucket",
+                   v_cap: float | None = None) -> AttnPlan:
     """Bucketed plan covering contexts up to ``max_context``: bucket edges
     grow ``growth``x in pages from one page; ``prefill_chunk_tokens``
     certifies each bucket for its worst-case chunked-prefill resumptions.
@@ -169,7 +191,9 @@ def plan_attention(max_context: int, page_size: int, *, m_p: int = 5,
     the full context, but the cross-rank merge adds up to ``tp_shards -
     1`` carry-combine events a row, and the unnormalized carry is
     materialized at the merge, so the e_acc bound is checked there too.
-    So a TP plan can pick other carry formats than the single-device one."""
+    So a TP plan can pick other carry formats than the single-device one.
+    ``e_min``, ``guarantee`` and ``v_cap`` go to ``min_e_acc`` and are
+    recorded in the plan."""
     hint = DEFAULT_V_HINT if v_hint is None else v_hint
     edges: list[int] = []
     ctx = page_size
@@ -189,11 +213,13 @@ def plan_attention(max_context: int, page_size: int, *, m_p: int = 5,
             bounds = (*bounds, c)        # the carry on the wire
         return AttnBucket(
             max_ctx=c,
-            e_acc=min_e_acc(c, v_hint=hint, boundaries=bounds),
+            e_acc=min_e_acc(c, v_hint=hint, e_min=e_min, boundaries=bounds,
+                            guarantee=guarantee, v_cap=v_cap),
             m_acc=decode_m_acc(c, page_size, m_p, extra_events=extra),
             resumptions=r)
 
     return AttnPlan(page_size=page_size, m_p=m_p,
                     buckets=tuple(_bucket(c) for c in edges),
                     prefill_chunk=prefill_chunk_tokens, tp_shards=tp_shards,
-                    v_hint=hint)
+                    v_hint=hint, guarantee=guarantee, v_cap=v_cap,
+                    e_min=e_min)

@@ -10,6 +10,13 @@ autograd leaves, one per layer (the per-layer leaves keep autograd from
 summing a full stacked gradient for every layer), reads their bf16
 gradients after each microbatch's backward and accumulates them in
 float32, as the JAX step's scan does.
+
+``TrainConfig.a2q`` turns on A2Q (``train.optimizer``): its penalty joins
+the loss before the loss scale, so its gradient is unscaled with the
+rest, and ``adamw_update`` projects after the step.  Both take the 2-D
+leaves of the stacked parameter tree, as the JAX step does: of the
+per-layer compute copy, the layers' vectors stacked back into their
+(layers, width) leaves.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ class TrainConfig:
     scaler: O.LossScaleConfig = O.LossScaleConfig(dynamic=True)
     microbatches: int = 1
     use_loss_scaling: bool = False
+    # A2Q accumulator-aware weight-norm constraint (train.optimizer)
+    a2q: O.A2QConfig | None = None
 
 
 def init_train_state(model: Model, gen: torch.Generator, device,
@@ -83,15 +92,36 @@ def _grads(compute: dict, params: dict) -> dict:
     return out
 
 
+def stacked_2d(compute: dict) -> list:
+    """The leaves of ``compute`` that are 2-D in the stacked parameter tree,
+    in its sorted-key order: the per-layer vectors stacked back into
+    (layers, width) leaves (differentiable), and the 2-D leaves outside the
+    layers (the embedding).  The per-layer matrices are 3-D there."""
+    out = []
+    for k in sorted(compute):
+        v = compute[k]
+        if k != "layers":
+            out += [x for x in O.tree_leaves(v) if x.ndim == 2]
+        elif v:
+            per = [O.tree_leaves(layer) for layer in v]
+            out += [torch.stack([p[i] for p in per])
+                    for i, x in enumerate(per[0]) if x.ndim == 1]
+    return out
+
+
 def make_train_step(model: Model, train_cfg: TrainConfig
                     ) -> Callable[[dict, dict], tuple[dict, dict]]:
     """Returns ``train_step(state, batch) -> (state, metrics)``; the state's
     tensors are updated in place."""
     cfg = model.cfg
     nmb = train_cfg.microbatches
+    a2q = train_cfg.a2q
 
     def grads_of(compute, batch, scale):
         loss, _ = model.loss_fn(compute, batch, cfg)
+        if a2q is not None and a2q.strength > 0:
+            # before the loss scale: its gradient is unscaled with the rest
+            loss = loss + O.a2q_penalty(stacked_2d(compute), a2q)
         (loss * scale).backward()
         return loss.detach()
 
@@ -132,7 +162,7 @@ def make_train_step(model: Model, train_cfg: TrainConfig
                 lambda g: torch.where(skip, torch.zeros_like(g), g), grads)
         params, opt, stats = O.adamw_update(state["params"], grads,
                                             state["opt"], train_cfg.opt,
-                                            skip=skip)
+                                            skip=skip, a2q=a2q)
         new_state = {"params": params, "opt": opt, "scaler": scaler}
         metrics = {"loss": loss, "skipped": skip.to(torch.float32),
                    "loss_scale": scaler["scale"], **stats}

@@ -1,7 +1,6 @@
 """AdamW with global-norm clipping, warmup-cosine schedule and loss scaling.
 
-Counterpart of ``repro.train.optimizer`` (A2Q is not ported: it raises).
-Written out op by op in the JAX package's order, in float32, rather than
+Counterpart of ``repro.train.optimizer``, A2Q included.  Written out op by op in the JAX package's order, in float32, rather than
 ``torch.optim.AdamW``, which applies the weight decay differently (it
 shrinks the parameter before the Adam step; here the decay joins the
 update).  Python floats enter as float32 constants, as JAX's weak types
@@ -13,6 +12,18 @@ Trees are nested dicts (and lists) of tensors; every reduction over a tree
 visits the leaves in sorted-key order, as ``jax.tree.leaves`` does.
 ``adamw_update`` updates the parameters and moments in place (JAX returns
 new arrays): the full qwen2-1.5b state would otherwise exist twice.
+
+A2Q (accumulator-aware weight norms, Colbert et al. arXiv:2301.13376, as
+the JAX package adapts it to the chunked carries): a GEMM's reduced
+carry can never reach its saturation clamp if every output column of the
+weight satisfies ``||w_col||_1 * x_bound <= acc_max / 2^margin_bits``,
+since ``|sum_i w_i x_i| <= ||w||_1 max|x|``.  ``a2q_penalty`` is the soft
+form (added to the loss), ``a2q_project`` the hard one (inside
+``adamw_update``, after the step), ``a2q_certificate`` the verdict.  As
+in the JAX package, they act on every 2-D leaf of the parameter tree (the
+stacked layers' norm scales and biases, the tied embedding), whose
+columns are the second axis.  Column l1 sums are f32 reductions, so they
+differ from XLA's in the last bits.
 """
 
 from __future__ import annotations
@@ -23,9 +34,13 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.quant.formats import FPFormat
+
 __all__ = ["OptConfig", "schedule", "init_opt_state", "global_norm",
            "adamw_update", "LossScaleConfig", "init_scaler",
-           "unscale_and_check", "all_finite", "tree_leaves", "tree_map"]
+           "unscale_and_check", "all_finite", "tree_leaves", "tree_map",
+           "A2QConfig", "acc_format_max", "a2q_l1_cap", "a2q_penalty",
+           "a2q_project", "a2q_certificate"]
 
 
 @dataclass(frozen=True)
@@ -64,6 +79,91 @@ def _c(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), v, dtype=torch.float32, device=like.device)
 
 
+# ------------------------- A2Q overflow avoidance ---------------------------
+
+
+def acc_format_max(e_acc: int, m_acc: int) -> float:
+    """Largest magnitude of the saturating (1, e_acc, m_acc) carry: the
+    budget the A2Q cap divides up."""
+    return FPFormat(e=e_acc, m=m_acc).max_value
+
+
+@dataclass(frozen=True)
+class A2QConfig:
+    """The weight-norm constraint for one accumulator format.
+    ``x_bound`` bounds the other operand's magnitude; ``margin_bits >= 1``
+    keeps certified carries strictly below the clamp (so the stats row's
+    MAX_ABS tells constrained from unconstrained weights); ``strength`` is
+    the soft penalty's coefficient (0: projection only); ``project`` the
+    hard rescale inside ``adamw_update``."""
+
+    e_acc: int = 6
+    m_acc: int = 9
+    x_bound: float = 16.0
+    margin_bits: int = 1
+    strength: float = 0.0
+    project: bool = True
+
+
+def a2q_l1_cap(cfg: A2QConfig) -> float:
+    """Per-output-column l1 budget: ``acc_max / 2^margin / x_bound``."""
+    return (acc_format_max(cfg.e_acc, cfg.m_acc)
+            / (2.0 ** cfg.margin_bits) / max(cfg.x_bound, 1e-30))
+
+
+def _col_l1(w: torch.Tensor) -> torch.Tensor:
+    # a (K, N) weight accumulates once an output column
+    return torch.sum(torch.abs(w.to(torch.float32)), dim=0)
+
+
+def a2q_penalty(params: Any, cfg: A2QConfig) -> torch.Tensor:
+    """Soft constraint: the squared l1 excess over the cap, summed over
+    the columns of every 2-D leaf, times ``cfg.strength`` (a float32
+    scalar to add to the loss; differentiable)."""
+    cap = a2q_l1_cap(cfg)
+    leaves = tree_leaves(params)
+    excess = torch.zeros((), dtype=torch.float32,
+                         device=leaves[0].device if leaves else "cpu")
+    for p in leaves:
+        if p.ndim == 2:
+            over = torch.clamp(_col_l1(p) - cap, min=0.0)
+            excess = excess + torch.sum(over * over)
+    return cfg.strength * excess
+
+
+def _a2q_leaf(p: torch.Tensor, cap: float) -> torch.Tensor:
+    """One 2-D leaf with every column over the cap scaled onto it."""
+    norm = _col_l1(p)
+    scale = torch.where(norm > cap,
+                        _c(cap, norm) / torch.clamp(norm, min=1e-30),
+                        _c(1.0, norm))
+    return (p.to(torch.float32) * scale[None, :]).to(p.dtype)
+
+
+def a2q_project(params: Any, cfg: A2QConfig) -> Any:
+    """Hard constraint: a new tree whose 2-D leaves have every column with
+    an l1 norm over the cap rescaled onto it (magnitudes shrink uniformly;
+    signs, zeros and the column's shape stay); other leaves as they are."""
+    cap = a2q_l1_cap(cfg)
+    return tree_map(lambda p: _a2q_leaf(p, cap) if p.ndim == 2 else p,
+                    params)
+
+
+def a2q_certificate(params: Any, cfg: A2QConfig) -> dict:
+    """The guarantee, stated: the worst column l1 norm and carry bound
+    against the cap and the format's ceiling; ``ok`` is the verdict that no
+    carry can overflow."""
+    cap = a2q_l1_cap(cfg)
+    worst = 0.0
+    for p in tree_leaves(params):
+        if p.ndim == 2 and p.numel():
+            worst = max(worst, float(torch.max(_col_l1(p))))
+    return {"l1_cap": cap, "max_col_l1": worst,
+            "carry_bound": worst * cfg.x_bound,
+            "acc_max": acc_format_max(cfg.e_acc, cfg.m_acc),
+            "ok": worst <= cap * (1.0 + 1e-6)}
+
+
 def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     """Linear warmup to ``lr``, then cosine to ``lr * min_lr_ratio``."""
     step = step.to(torch.float32)
@@ -93,12 +193,13 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 def adamw_update(params: Any, grads: Any, opt: dict, cfg: OptConfig, *,
                  skip: torch.Tensor | None = None,
-                 a2q=None) -> tuple[Any, dict, dict]:
+                 a2q: A2QConfig | None = None) -> tuple[Any, dict, dict]:
     """One AdamW step, in place.  ``skip`` (bool tensor) makes the whole
-    update a no-op without a host round-trip.  Returns ``(params, opt,
-    {"grad_norm", "lr"})`` (the same tensors, updated)."""
-    if a2q is not None:
-        raise NotImplementedError("A2Q is not ported")
+    update a no-op without a host round-trip.  ``a2q`` (with ``project``)
+    rescales every 2-D leaf's columns onto the A2Q cap after the step, so
+    the certificate holds at every step boundary.  Returns ``(params,
+    opt, {"grad_norm", "lr"})`` (the same tensors, updated)."""
+    cap = a2q_l1_cap(a2q) if (a2q is not None and a2q.project) else None
     step = opt["step"] + 1
     lr = schedule(cfg, step)
     gnorm = global_norm(grads)
@@ -115,9 +216,11 @@ def adamw_update(params: Any, grads: Any, opt: dict, cfg: OptConfig, *,
         v2 = b2 * v + (1 - b2) * g * g
         update = (m2 / c1) / (torch.sqrt(v2 / c2) + cfg.eps)
         update = update + cfg.weight_decay * p.to(torch.float32)
-        p2 = p.to(torch.float32) - lr * update
+        p2 = (p.to(torch.float32) - lr * update).to(p.dtype)
+        if cap is not None and p.ndim == 2:
+            p2 = _a2q_leaf(p2, cap)
         if skip is not None:
-            p2, m2, v2 = (torch.where(skip, p, p2.to(p.dtype)),
+            p2, m2, v2 = (torch.where(skip, p, p2),
                           torch.where(skip, m, m2), torch.where(skip, v, v2))
         p.copy_(p2)
         m.copy_(m2)

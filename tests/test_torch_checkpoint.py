@@ -273,6 +273,39 @@ def test_serve_restore_honors_precision_schedule(tmp_path):
         jax.tree.map(np.asarray, jparams), cfg, "cpu"))
 
 
+def test_schedule_restores_into_a_quantize_outputs_plan(tmp_path):
+    """A checkpoint's meta records the precision schedule, never the
+    ``QDotConfig``s: one written before ``QDotConfig.pack_residuals`` and
+    ``AccumulationPolicy.quantize_outputs`` existed restores into a plan
+    re-made under a ``quantize_outputs`` policy (as the JAX package
+    re-plans), with the schedule's widths, the policy's ``out_fmt`` and
+    the default ``pack_residuals``."""
+    from repro.core.policy import (
+        AccumulationPolicy as JAP,
+        plan_for_model as jax_plan,
+    )
+    from repro_torch.launch.serve import _restore_params
+
+    jcfg = jax_plan(jax_smoke_config("qwen2-1.5b"), seq_len=32,
+                    global_batch=2, policy=JAP(mode="predicted", chunk=64))
+    jparams = jax_get_model(jcfg).init_params(jax.random.PRNGKey(0))
+    JC.save_checkpoint(str(tmp_path), 3, {"params": jparams},
+                       precision_schedule={"mlp_down:bwd": 8})
+    policy = AccumulationPolicy(mode="predicted", chunk=64,
+                                quantize_outputs=True)
+    cfg = plan_for_model(get_smoke_config("qwen2-1.5b"), seq_len=32,
+                         global_batch=2, policy=policy)
+    params = get_model(cfg).init_params(torch.Generator().manual_seed(3),
+                                        "cpu")
+    cfg2, _, schedule = _restore_params(
+        str(tmp_path), cfg, policy, params, seq_len=32, global_batch=2)
+    assert schedule == {"mlp_down:bwd": 8}
+    q = cfg2.quant.mlp_down
+    assert q.bwd.m_acc == 8 and q.pack_residuals and q.packs
+    assert q.out_fmt == cfg.quant.mlp_down.out_fmt is not None
+    assert cfg2.quant.attn_qkv == cfg.quant.attn_qkv
+
+
 def test_serve_main_from_training_checkpoint(tmp_path):
     """The launcher end to end: a training run's last checkpoint served
     with ``--ckpt-dir``; the plan carries the schedule and the served

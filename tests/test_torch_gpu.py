@@ -639,12 +639,21 @@ def test_stats_wrappers_raise_on_the_card(dev):
         qmatmul_fused(a, torch.randn((16, 4), device=dev), repr_fmt=FP8_152,
                       collect_stats=True, rounding="nearest")
     codes = torch.zeros((8, 16), dtype=torch.int8, device=dev)
-    with pytest.raises(ValueError):     # G takes no int8 codes
+    with pytest.raises(ValueError):     # residuals of packed operands
         qmatmul_fused(codes, codes.T.contiguous(), repr_fmt=FP8_152,
-                      a_packed=True, b_packed=True)
-    with pytest.raises(ValueError):     # nor per-operand quantization
+                      a_packed=True, b_packed=True, return_quantized=True)
+    with pytest.raises(ValueError):     # pack_out without out_fmt
         qmatmul_fused(a, torch.randn((16, 4), device=dev), repr_fmt=FP8_152,
-                      quantize_b=False)
+                      pack_out=True)
+    # G takes int8 codes and per-operand quantization (once K8's alone)
+    c = qmatmul_fused(codes, codes.T.contiguous(), repr_fmt=FP8_152,
+                      a_packed=True, b_packed=True)
+    b = torch.randn((16, 4), device=dev)
+    torch.testing.assert_close(
+        qmatmul_fused(a, b, repr_fmt=FP8_152, quantize_b=False),
+        qmatmul_fused_reference(a.cpu(), b.cpu(), repr_fmt=FP8_152,
+                                quantize_b=False).to(dev), rtol=0, atol=0)
+    assert torch.equal(c, torch.zeros_like(c))
 
 
 # --------------------------------------------------------------------------
@@ -1818,3 +1827,237 @@ def test_tp_engine_on_one_card_matches_single_device(dev):
     for name, a in one["arena"].items():
         assert np.array_equal(ranks[0]["arena"][name], a), name
     assert ranks[0]["preemptions"] == 1 and ranks[0]["restores"] == 1
+
+
+# --------------------------------------------------------------------------
+# the fused GEMM's last variants: the out_fmt / pack_out epilogue of G, E
+# and K8, G's int8-code and unquantized operands, E's f32 residuals
+# --------------------------------------------------------------------------
+
+G_VARIANTS = {
+    "out_fmt": dict(out_fmt=(5, 2)),
+    "pack_out": dict(out_fmt=(5, 2), pack_out=True),
+    "packed_ab": dict(a_packed=True, b_packed=True),
+    "packed_b_out": dict(b_packed=True, out_fmt=(5, 2), pack_out=True),
+    "unquantized_a": dict(quantize_a=False),
+    "unquantized_b_out": dict(quantize_b=False, out_fmt=(5, 2)),
+}
+
+
+def _variant_operands(gen, m, k, n, kw, dev, lattice, b_bf16=True):
+    a = _operand(gen, (m, k), dev, lattice)
+    b = _operand(gen, (k, n), dev, lattice) / (1 if lattice else 16)
+    if b_bf16 and not lattice:
+        b = b.to(torch.bfloat16)
+    if kw.get("a_packed"):
+        a = _codes(a)
+    if kw.get("b_packed"):
+        b = _codes(b.float())
+    return a, b
+
+
+def _same_variant(label, got, want, kw, acc, lattice):
+    from repro_torch.quant.qtensor import unpack_block
+
+    torch.cuda.synchronize()
+    if kw.get("pack_out"):
+        assert got.dtype == want.dtype == torch.int8, label
+        if lattice:
+            assert torch.equal(got.cpu(), want.cpu()), label
+        got, want = unpack_block(got, 5, 2), unpack_block(want, 5, 2)
+    fmt = kw.get("out_fmt") or acc
+    if lattice:
+        assert torch.equal(got.cpu(), want.cpu()), label
+    else:
+        assert _ulps(got.cpu(), want.cpu(), fmt[1], fmt[0]) <= 1.0, label
+
+
+@pytest.mark.parametrize("rounding", ["rne", "sr"])
+@pytest.mark.parametrize("m", [8, 96])
+@pytest.mark.parametrize("variant", sorted(G_VARIANTS))
+def test_g_variants_match_plain_on_both_routes(dev, variant, m, rounding):
+    """Each of G's variants on the decode route (float operands; split and
+    unsplit) and on the tile, against the plain version; the epilogue is
+    the plain epilogue of the base call, bitwise."""
+    from repro_torch.kernels import sm90
+    from repro_torch.kernels.fused import emit_output, qmatmul_fused_with
+
+    kw = G_VARIANTS[variant]
+    k, n, chunk = 1536, 256, 64
+    base = dict(repr_fmt=FP8_152, e_acc=6, m_acc=5, block_k=chunk,
+                rounding=rounding, sr_seed=11)
+    packed = kw.get("a_packed") or kw.get("b_packed")
+    for lattice in (True, False):
+        gen = torch.Generator(device=dev).manual_seed(m + len(variant))
+        a, b = _variant_operands(gen, m, k, n, kw, dev, lattice)
+        want = qmatmul_fused_reference(a, b, **base, **kw)
+        kinds = (2 if kw.get("a_packed") else 0,
+                 2 if kw.get("b_packed") else int(b.dtype == torch.bfloat16))
+        scheds = [sm90.gemm_schedule(m, n, k, chunk, *kinds, stats=False)]
+        if not packed:
+            scheds += [_decode(m, n, k, chunk, kinds[1], 8, split)
+                       for split in (False, True)]
+        for s in scheds:
+            got = qmatmul_fused_with(a, b, s, **base, **kw)
+            _same_variant(f"{variant} {s}", got, want, kw, (6, 5), lattice)
+        got = qmatmul_fused(a, b, **base, **kw)
+        _same_variant(f"{variant} routed", got, want, kw, (6, 5), lattice)
+        if kw.get("out_fmt"):
+            plain_kw = {k_: v for k_, v in kw.items()
+                        if k_ not in ("out_fmt", "pack_out")}
+            c = qmatmul_fused(a, b, **base, **plain_kw)
+            assert torch.equal(got.cpu(), emit_output(
+                c, (5, 2), kw.get("pack_out", False)).cpu())
+
+
+E_VARIANTS = {
+    "out_fmt": dict(out_fmt=(5, 2)),
+    "pack_out": dict(out_fmt=(5, 2), pack_out=True),
+    "f32_residuals_152": dict(pack_residuals=False),
+    "f32_residuals_169": dict(pack_residuals=False, repr_fmt=(6, 9)),
+    "f32_residuals_out": dict(pack_residuals=False, out_fmt=(5, 2),
+                              pack_out=True),
+    "unquantized_a_codes": dict(quantize_a=False),
+}
+
+
+@pytest.mark.parametrize("rounding", ["rne", "sr"])
+@pytest.mark.parametrize("variant", sorted(E_VARIANTS))
+def test_emitq_variants_match_plain(dev, variant, rounding):
+    """E's variants: C and the residuals (int8 codes, or float32) against
+    the plain version; C the base E call's C through the plain epilogue;
+    f32 residuals at (1,5,2) give the packed call's C."""
+    from repro_torch.kernels.fused import emit_output
+
+    kw = dict(E_VARIANTS[variant])
+    rf = kw.pop("repr_fmt", (5, 2))
+    t, k, n = 200, 1536, 320
+    base = dict(repr_fmt=rf, e_acc=6, m_acc=5, block_k=64,
+                return_quantized=True, rounding=rounding, sr_seed=5)
+    for lattice in (True, False):
+        gen = torch.Generator(device=dev).manual_seed(len(variant) * 7)
+        x = _operand(gen, (t, k), dev, lattice)
+        w = (_operand(gen, (k, n), dev, lattice) / (1 if lattice else 16)
+             ).to(torch.bfloat16)
+        c, xq, wq = qmatmul_fused(x, w, **base, **kw)
+        pc, pxq, pwq = qmatmul_fused_reference(x, w, **base, **kw)
+        torch.cuda.synchronize()
+        assert xq.dtype == pxq.dtype and wq.dtype == pwq.dtype
+        assert torch.equal(xq.cpu(), pxq.cpu()) and torch.equal(
+            wq.cpu(), pwq.cpu())
+        _same_variant(variant, c, pc, kw, (6, 5), lattice)
+        if kw.get("out_fmt"):
+            plain_kw = {k_: v for k_, v in kw.items()
+                        if k_ not in ("out_fmt", "pack_out")}
+            c0 = qmatmul_fused(x, w, **base, **plain_kw)[0]
+            assert torch.equal(c.cpu(), emit_output(
+                c0, (5, 2), kw.get("pack_out", False)).cpu())
+        if variant == "f32_residuals_152":
+            assert torch.equal(c, qmatmul_fused(x, w, **base)[0])
+
+
+@pytest.mark.parametrize("rounding", ["rne", "sr"])
+@pytest.mark.parametrize("kinds", [(0, 1), (2, 2), (0, 2)])
+@pytest.mark.parametrize("pack_out", [False, True])
+def test_stats_out_matches_plain_and_keeps_the_row(dev, kinds, pack_out,
+                                                   rounding):
+    """K8 with the epilogue: C the plain version's and the epilogue of the
+    base K8 call's C; the stats row bitwise the base call's."""
+    from repro_torch.kernels.fused import emit_output
+
+    m, k, n = 96, 1536, 200
+    gen = torch.Generator(device=dev).manual_seed(sum(kinds) + pack_out)
+    a = _lattice(gen, (m, k), dev)
+    b = _lattice(gen, (k, n), dev)
+    kw = dict(repr_fmt=FP8_152, e_acc=6, m_acc=5, block_k=64,
+              collect_stats=True, rounding=rounding, sr_seed=3)
+    if kinds[0] == 2:
+        a = _codes(a)
+    if kinds[1] == 2:
+        b = _codes(b)
+    elif kinds[1] == 1:
+        b = b.to(torch.bfloat16)
+    pk = dict(a_packed=kinds[0] == 2, b_packed=kinds[1] == 2)
+    c, row = qmatmul_fused(a, b, out_fmt=(5, 2), pack_out=pack_out, **pk,
+                           **kw)
+    c0, row0 = qmatmul_fused(a, b, **pk, **kw)
+    pc = qmatmul_fused_reference(a, b, **pk, out_fmt=(5, 2),
+                                 pack_out=pack_out,
+                                 **{k_: v for k_, v in kw.items()
+                                    if k_ != "collect_stats"})
+    torch.cuda.synchronize()
+    assert torch.equal(row, row0)
+    assert torch.equal(c.cpu(), emit_output(c0, (5, 2), pack_out).cpu())
+    assert torch.equal(c.cpu(), pc.cpu())
+
+
+def test_qdot_variants_on_the_card(dev):
+    """``qdot`` under ``out_fmt`` with f32 residuals bitwise the packed
+    one (y, dx, dw) and the plain versions; ``qdot_packed`` the codes of
+    the no-grad ``qdot``; the variants' launch counts."""
+    from repro_torch.core.policy import GEMMPrecision
+    from repro_torch.kernels.ops import QDotConfig, qdot, qdot_packed
+
+    p = GEMMPrecision(m_acc=5, chunk=64)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn((2, 64, 1536), generator=gen, device=dev)
+    w = (torch.randn((1536, 256), generator=gen, device=dev) / 40).to(
+        torch.bfloat16)
+    g = torch.randn((2, 64, 256), generator=gen, device=dev)
+    runs = []
+    for packs in (True, False):
+        cfg = QDotConfig(fwd=p, bwd=p, grad=p, repr_fmt=FP8_152,
+                         out_fmt=FP8_152, pack_residuals=packs)
+        f = qmatmul_fused
+        n0 = (f.emitq_out_launches, f.emitq_f32_launches)
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = qdot(xg, wg, cfg)
+        y.backward(g)
+        torch.cuda.synchronize()
+        assert (f.emitq_out_launches - n0[0], f.emitq_f32_launches - n0[1]) \
+            == ((1, 0) if packs else (0, 1))
+        runs.append((y.detach(), xg.grad, wg.grad))
+        assert torch.equal(quantize_block(y.detach(), 5, 2), y.detach())
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    cfg = QDotConfig(fwd=p, repr_fmt=FP8_152, out_fmt=FP8_152)
+    n0 = qmatmul_fused.out_launches
+    qt = qdot_packed(x[0, :8], w, cfg)
+    with torch.no_grad():
+        y = qdot(x[0, :8], w, cfg)
+    torch.cuda.synchronize()
+    assert qmatmul_fused.out_launches - n0 == 2
+    assert qt.payload.dtype == torch.int8
+    assert torch.equal(qt.payload, pack_block(y, 5, 2))
+
+
+def test_variant_entries_match_their_mirrors(dev):
+    """The variant kernels' shared memory equals kernels/sm90.py's mirror
+    and two 256-thread blocks fit an SM at the paths' kinds."""
+    import ctypes
+
+    from repro_torch.kernels import build, sm90
+
+    i3, i2 = [ctypes.c_int] * 3, [ctypes.c_int] * 2
+    t_smem = build.function("qgemm", "qgemm_tile_out_smem", i3)
+    t_occ = build.function("qgemm", "qgemm_tile_out_occupancy", i3)
+    e_smem = build.function("qgemm_emitq", "qgemm_emitq_out_smem", i2)
+    e_occ = build.function("qgemm_emitq", "qgemm_emitq_out_occupancy", i2)
+    s_occ = build.function("qgemm_stats", "qgemm_stats_out_occupancy", i3)
+    for a in (0, 1, 2):
+        for b in (0, 1, 2):
+            for groups in (1, 2, 4):
+                assert t_smem(a, b, groups) == sm90.smem_bytes(
+                    sm90.stage_bytes(a, b), groups, False)
+            assert t_occ(a, b, 4) >= 2
+            assert s_occ(a, b, 4) >= 1
+    for f32 in (0, 1):
+        assert e_smem(f32, 4) == sm90.emitq_schedule(
+            512, 1536, 1536, 64, f32=bool(f32)).smem
+        assert e_occ(f32, 4) >= 2
+    occ = build.function("qgemm", "qgemm_decode_out_occupancy",
+                         [ctypes.c_int] * 6)
+    for _, k, n in QWEN_DECODE:
+        s = sm90.decode_schedule(8, n, k, 64, 1)
+        for sr in (0, 1):
+            assert occ(0, 1, int(n == 151936), s.slots, 64, sr) >= 1

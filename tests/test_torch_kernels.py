@@ -118,9 +118,10 @@ def test_gemm_plain_within_one_ulp_on_random(m, k, n, chunk, rf, e_acc, m_acc):
 
 def test_qdot_reshapes_and_refuses_grad():
     """``qdot`` flattens the leading axes; with a gradient to take it runs
-    the backward pair (dx over N, dw over T, in the plain versions' order)
-    and refuses only a representation whose residual codes would not fit
-    in 8 bits."""
+    the backward pair (dx over N, dw over T, in the plain versions' order);
+    a representation whose residual codes would not fit in 8 bits is no
+    longer refused: its residuals are float32, and y, dx and dw are the
+    oracle's."""
     rng = np.random.RandomState(1)
     x = torch.from_numpy(rng.randn(2, 3, 48).astype(np.float32))
     w = torch.from_numpy(rng.randn(48, 20).astype(np.float32))
@@ -146,9 +147,17 @@ def test_qdot_reshapes_and_refuses_grad():
         grad_acc=(6, 5), bwd_chunk=16, grad_chunk=16, packed=True)
     np.testing.assert_array_equal(_bits(xg.grad.reshape(6, 48)), _bits(dx))
     np.testing.assert_array_equal(_bits(wg.grad), _bits(dw))
-    wide = QDotConfig(fwd=p, repr_fmt=FPFormat(5, 7))
-    with pytest.raises(NotImplementedError):
-        qdot(x.requires_grad_(), w, wide)
+    wide = QDotConfig(fwd=p, bwd=p, grad=p, repr_fmt=FPFormat(5, 7))
+    assert not wide.packs
+    runs = []
+    for c in (wide, QDotConfig(fwd=p, bwd=p, grad=p, repr_fmt=FPFormat(5, 7),
+                               fused=False)):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        yg = qdot(xg, wg, c)
+        yg.backward(g)
+        runs.append((yg.detach(), xg.grad, wg.grad))
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
 
 
 # --------------------------------------------------------------------------

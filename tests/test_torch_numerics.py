@@ -242,6 +242,8 @@ def test_plan_for_model_matches_jax(mode):
                 (name, pp)
             assert _fmt(t.repr_fmt) == _fmt(j.repr_fmt), name
             assert _fmt(t.out_fmt) == _fmt(j.out_fmt), name
+            assert (t.pack_residuals, t.packs) == \
+                (j.pack_residuals, j.packs), name
         if mode == "perturbed":
             base = TPol(mode="predicted", chunk=64).for_length(1536).m_acc
             assert tq.attn_qkv.fwd.m_acc == max(base + pp, 1)

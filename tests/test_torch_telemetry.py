@@ -240,18 +240,24 @@ def test_stats_entries_reject_what_jax_rejects():
 @pytest.mark.parametrize("extra", [
     dict(quantize_a=False), dict(quantize_b=False), dict(a_packed=True)])
 def test_stats_only_operand_options_need_collect_stats(extra):
-    """Per-operand quantization and int8-code operands are K8's options:
-    G and E refuse them, K8 takes them."""
+    """Per-operand quantization and int8-code operands, once K8's options
+    alone, are every kernel's where the JAX package's takes them: G's C is
+    K8's; E takes per-operand quantization and refuses int8 operands
+    (residuals are a forward epilogue, packed operands a backward input)."""
     a, b = torch.randn((4, 8)), torch.randn((8, 3))
     if extra.get("a_packed"):
         _, a, _ = qmatmul_fused(a, b, repr_fmt=FP8_152, return_quantized=True)
-    for emit in (False, True):
-        with pytest.raises(ValueError):
-            qmatmul_fused(a, b, repr_fmt=FP8_152, return_quantized=emit,
-                          **extra)
     c, row = qmatmul_fused(a, b, repr_fmt=FP8_152, collect_stats=True,
                            **extra)
     assert c.shape == (4, 3) and float(row[0]) == 12
+    assert torch.equal(qmatmul_fused(a, b, repr_fmt=FP8_152, **extra), c)
+    if extra.get("a_packed"):
+        with pytest.raises(ValueError):
+            qmatmul_fused(a, b, repr_fmt=FP8_152, return_quantized=True,
+                          **extra)
+    else:
+        assert torch.equal(qmatmul_fused(a, b, repr_fmt=FP8_152,
+                                         return_quantized=True, **extra)[0], c)
 
 
 # --------------------------------------------------------------------------
