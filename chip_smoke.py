@@ -181,6 +181,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import math
 import re
@@ -1922,7 +1923,7 @@ def phase_train(dev) -> dict:
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     for k in ("qmatmul_fused", E_NAME, "qmatmul_bwd_pair"):
         check(launches[k] > 0, f"kernel {k} was not launched by the trainer")
-    _profile_step(step_fn, state, next(data), min(step_ms[1:]))
+    profile = _profile_step(step_fn, state, next(data), min(step_ms[1:]))
     from repro_torch.train import optimizer as O
 
     grads = O.tree_map(torch.zeros_like, state["params"])
@@ -1948,14 +1949,16 @@ def phase_train(dev) -> dict:
     check(logged == n_events, "the event log lost events")
     del state
     return dict(launches=launches, losses=losses, step_ms=step_ms, peak=peak,
-                tick_ms=tick_ms, tick_launches=tick_launches)
+                tick_ms=tick_ms, tick_launches=tick_launches, profile=profile)
 
 
-def _profile_step(step_fn, state, batch, step_ms: float) -> None:
+def _profile_step(step_fn, state, batch, step_ms: float,
+                  tag: str = "[train]"):
     """One more step under ``torch.profiler``: device time by kernel, and
     the kernels' summed time against ``step_ms``, a step's wall time
     measured without the profiler (kernels run one at a time on one
-    stream, so their sum is the device's busy time)."""
+    stream, so their sum is the device's busy time).  Returns {kernel:
+    ms}, or None where the profiler saw no device time."""
     try:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -1969,16 +1972,20 @@ def _profile_step(step_fn, state, batch, step_ms: float) -> None:
                 if e.device_type == DeviceType.CUDA
                 and e.self_device_time_total > 0]
     except Exception as exc:  # the profiler is a reading, not a check
-        print(f"[train] profile: not measured ({type(exc).__name__}: {exc})",
+        print(f"{tag} profile: not measured ({type(exc).__name__}: {exc})",
               flush=True)
-        return
+        return None
+    if not rows:
+        print(f"{tag} profile: not measured (no device time)", flush=True)
+        return None
     busy = sum(r[0] for r in rows)
-    print(f"[train] profile of one step: kernels {busy:.1f} ms in all "
+    print(f"{tag} profile of one step: kernels {busy:.1f} ms in all "
           f"({len(rows)} kernel names), {busy / step_ms:.3f} of the steady "
           f"step's {step_ms:.1f} ms (device idle share "
           f"{1 - busy / step_ms:.3f})", flush=True)
     for ms, count, key in sorted(rows, reverse=True)[:12]:
         print(f"  profile {ms:9.3f} ms {count:6d} x {key[:90]}", flush=True)
+    return {key: ms for ms, _, key in rows}
 
 
 def phase_train_vs_plain(dev, rounding: str = "rne") -> None:
@@ -4780,12 +4787,14 @@ def _qout_cfg(cfg, seq, batch, **policy):
                               quantize_outputs=True, **policy))
 
 
-def phase_qout_train(dev, rne_step_ms: float) -> dict:
+def phase_qout_train(dev, rne_step_ms: float, rne_profile=None) -> dict:
     """``[qout]`` training: the train cell at full width and depth through
     the launcher's set-up under quantize_outputs, ``QOUT_STEPS`` steps:
     the loss falls, E runs with its epilogue (196 launches a step, the
     base E none) and every dense forward output of the first step lies on
-    the (1,5,2) lattice."""
+    the (1,5,2) lattice.  One more step is profiled, and its kernels are
+    set beside the RNE step's profile (``rne_profile``): the kernels whose
+    device time moved most."""
     from repro_torch.kernels import ops
     from repro_torch.launch.train import build
     from repro_torch.quant.formats import FP8_152
@@ -4846,6 +4855,20 @@ def phase_qout_train(dev, rne_step_ms: float) -> dict:
           f"{losses[0]:.5f} -> {losses[-1]:.5f}; all {n_dense} dense forward "
           f"outputs of step 1 on the (1,5,2) lattice; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    prof = _profile_step(step_fn, state, next(data), min(times[1:]),
+                         tag="[qout] train")
+    if prof is not None and rne_profile is not None:
+        keys = set(prof) | set(rne_profile)
+        delta = sorted(((prof.get(k, 0.0) - rne_profile.get(k, 0.0), k)
+                        for k in keys), key=lambda d: -abs(d[0]))
+        print(f"[qout] train profile against the RNE step's: kernels "
+              f"{sum(prof.values()):.1f} ms against "
+              f"{sum(rne_profile.values()):.1f} ms, steady step "
+              f"{min(times[1:]):.1f} ms against {rne_step_ms:.1f} ms; the "
+              f"kernels that moved most:", flush=True)
+        for d, k in delta[:8]:
+            print(f"  qout-rne {d:+9.3f} ms ({prof.get(k, 0.0):.3f} against "
+                  f"{rne_profile.get(k, 0.0):.3f}) {k[:90]}", flush=True)
     del state, step_fn
     return dict(launches=sum(u[E_OUT_NAME] for u in launches),
                 step_ms=times, losses=losses)
@@ -5148,6 +5171,7 @@ def main() -> None:
     k10_inputs = dp.pop("oneshot_inputs")
     qs = phase_qout_serve(params, dev, prompts, one)
     del params
+    gc.collect()        # an engine's reference cycles hold the weights
     torch.cuda.empty_cache()
     tpk = phase_tp_kernels(cfg, dev, plan)
     torch.cuda.empty_cache()
@@ -5186,7 +5210,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     var = phase_variants(cfg, dev)
     torch.cuda.empty_cache()
-    qt = phase_qout_train(dev, min(tr["step_ms"][1:]))
+    qt = phase_qout_train(dev, min(tr["step_ms"][1:]), tr["profile"])
     torch.cuda.empty_cache()
     qp = phase_qout_vs_plain(dev)
     torch.cuda.empty_cache()

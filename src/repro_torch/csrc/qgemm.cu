@@ -56,17 +56,18 @@
 // The flag is a template argument, so the RNE kernels keep their code,
 // their 64 registers and their four blocks an SM.
 //
-// The output epilogue (fused.py::_emit_output, entry qgemm_out): the
-// finished carry rounded to nearest even into the output format and, with
-// pack, stored as its int8 code (qgemm_sm90.cuh's emit_out).  It runs
-// where C is stored: the unsplit decode kernel's store, the split call's
-// fold kernel (never the partials' store into the workspace) and the
-// tile's store loop, in kernels of their own (qgemm_decode_out_kernel,
-// qgemm_fold_out_kernel, qgemm_tile_out_kernel) whose bodies are the
-// base kernels' with an OUT flag, so the base kernels keep their code.
-// int8 operand codes (a_packed / b_packed) take the tile's out kernel,
-// which lands and unpacks them as K8's does; kernels/sm90.py routes them
-// there at every M.  An unquantized operand is a flag of either route.
+// The output epilogue (fused.py::_emit_output): the finished carry
+// rounded to nearest even into the output format and, with pack, stored as
+// its int8 code (qgemm_sm90.cuh's emit_out).  It runs where C is stored:
+// the unsplit decode kernel's store, the split call's fold kernel (never
+// the partials' store into the workspace) and the tile's store loop, in
+// kernels of their own (qgemm_decode_out_kernel, qgemm_fold_out_kernel,
+// qgemm_tile_out_kernel) whose bodies are the base kernels' with an OUT
+// flag, so the base kernels keep their code.  The one entry, qgemm, runs
+// the base kernels where the output format is the identity.  int8 operand
+// codes (a_packed / b_packed) take the tile's out kernel, which lands and
+// unpacks them as K8's does; kernels/sm90.py routes them there at every
+// M.  An unquantized operand is a flag of either route.
 //
 // Both kernels take their arguments in the parameter space
 // (__grid_constant__): passed by value, nvcc 12.9 built G's earlier tile
@@ -533,43 +534,14 @@ int tile_set_smem(int groups) {
       tile_smem<TA, TB>(groups)));
 }
 
-template <typename TA, typename TB, bool SR>
-int tile(const void* A, long long sam, long long sak, const void* B, long long sbk,
-         long long sbn, float* C, int M, int N, int K, int chunk, QFmt qr, int qa, int qb,
-         QFmt qacc, unsigned seed, int groups, cudaStream_t s) {
+template <typename TA, typename TB, bool SR, bool OUT>
+int tile(const sm90::Gemm& p, int groups, cudaStream_t s) {
   if (!valid_groups(groups)) return static_cast<int>(cudaErrorInvalidValue);
-  const sm90::Gemm p{sm90::operand(A, sizeof(TA), sam, sak, M, chunk, qa),
-                     sm90::operand(B, sizeof(TB), sbn, sbk, N, chunk, qb),
-                     C, N, nullptr, M, N, K, chunk, sm90::quant_of(qr), sm90::quant_of(qacc),
-                     sm90::dec_of(5, 2), seed};  // no int8 operands here
-  int rc = tile_set_smem<TA, TB, SR>(groups);
+  int rc = tile_set_smem<TA, TB, SR, OUT>(groups);
   if (rc != 0) return rc;
-  dim3 grid((N + sm90::TILE - 1) / sm90::TILE, (M + sm90::TILE - 1) / sm90::TILE);
-  qgemm_tile_kernel<TA, TB, SR><<<grid, groups * sm90::GT, tile_smem<TA, TB>(groups), s>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The tile's variant launch (qgemm_out): int8 codes decoded with dec, the
-// output epilogue under qout / pack
-template <typename TA, typename TB, bool SR>
-int tile_out(const void* A, long long sam, long long sak, const void* B, long long sbk,
-             long long sbn, void* C, int M, int N, int K, int chunk, QFmt qr, int qa, int qb,
-             QFmt qacc, sm90::Dec dec, QFmt qout, int pack, int e_o, int m_o, unsigned seed,
-             int groups, cudaStream_t s) {
-  if (!valid_groups(groups)) return static_cast<int>(cudaErrorInvalidValue);
-  sm90::Gemm p{sm90::operand(A, sizeof(TA), sam, sak, M, chunk, qa),
-               sm90::operand(B, sizeof(TB), sbn, sbk, N, chunk, qb),
-               static_cast<float*>(C), N, nullptr, M, N, K, chunk, sm90::quant_of(qr),
-               sm90::quant_of(qacc), dec, seed};
-  p.qout = sm90::quant_of(qout);
-  p.pack = pack;
-  p.e_o = e_o;
-  p.m_o = m_o;
-  int rc = tile_set_smem<TA, TB, SR, true>(groups);
-  if (rc != 0) return rc;
-  dim3 grid((N + sm90::TILE - 1) / sm90::TILE, (M + sm90::TILE - 1) / sm90::TILE);
-  qgemm_tile_out_kernel<TA, TB, SR><<<grid, groups * sm90::GT, tile_smem<TA, TB>(groups), s>>>(
-      p);
+  dim3 grid((p.N + sm90::TILE - 1) / sm90::TILE, (p.M + sm90::TILE - 1) / sm90::TILE);
+  const auto kernel = tile_kernel<TA, TB, SR, OUT>();
+  kernel<<<grid, groups * sm90::GT, tile_smem<TA, TB>(groups), s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -620,7 +592,7 @@ extern "C" int qgemm_decode_occupancy(int a_bf16, int b_bf16, int kfast, int slo
   });
 }
 
-// The same for the decode kernel with the output epilogue (qgemm_out)
+// The same for the decode kernel with the output epilogue
 extern "C" int qgemm_decode_out_occupancy(int a_bf16, int b_bf16, int kfast, int slots,
                                           int chunk, int sr) {
   if (!valid_slots(slots)) return -static_cast<int>(cudaErrorInvalidValue);
@@ -656,49 +628,9 @@ extern "C" int qgemm_tile_occupancy(int a_bf16, int b_bf16, int groups) {
   });
 }
 
-// G.  Strides are in elements; C [M, N] row-major.  route 0 is decode:
-// `par` chunk slots a block (warps, 1 to 8), `slices` blocks along the
-// chunks (1: no split; else a fold kernel follows), `ws` the workspace of
-// qgemm_decode_ws floats.  route 1 is the tile: `par` chunk groups a block
-// (1, 2 or 4).  kernels/sm90.py picks all of them.  sr: the carries round
-// stochastically under `seed`.  Returns the cudaError_t of the launches.
-extern "C" int qgemm(const void* A, int a_bf16, long long sam, long long sak,
-                     const void* B, int b_bf16, long long sbk, long long sbn,
-                     void* C, int M, int N, int K, int chunk,
-                     int r_identity, int r_shift, float r_max, float r_min,
-                     int quant_a, int quant_b,
-                     int c_identity, int c_shift, float c_max, float c_min,
-                     int sr, unsigned seed,
-                     int route, int par, int slices, void* ws, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* out = static_cast<float*>(C);
-  const QFmt qr{r_identity, r_shift, r_max, r_min};
-  const QFmt qacc{c_identity, c_shift, c_max, c_min};
-  if (route == 1)
-    return by_types(a_bf16, b_bf16, [&](auto ta, auto tb) {
-      auto go = [&](auto rounds_sr) {
-        return tile<decltype(ta), decltype(tb), decltype(rounds_sr)::value>(
-            A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, qr, quant_a, quant_b, qacc, seed,
-            par, s);
-      };
-      return sr ? go(std::true_type{}) : go(std::false_type{});
-    });
-  if (route != 0 || chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const QFmt ident{1, 0, 0.0f, 0.0f};
-  const Decode p{A, sam, sak, B, sbk, sbn, out, static_cast<float*>(ws), M, N, K, chunk,
-                 slices, 0, sm90::quant_of(quant_a ? qr : ident),
-                 sm90::quant_of(quant_b ? qr : ident), sm90::quant_of(qacc), seed};
-  return by_types(a_bf16, b_bf16, [&](auto ta, auto tb) {
-    auto go = [&](auto rounds_sr) {
-      return decode<decltype(ta), decltype(tb), decltype(rounds_sr)::value>(p, par, s);
-    };
-    return sr ? go(std::true_type{}) : go(std::false_type{});
-  });
-}
-
-// The tile's out kernel (qgemm_out's route 1) at operand kinds (0 f32,
-// 1 bf16, 2 int8 codes): dynamic shared memory (bytes) and resident blocks
-// an SM at `groups` chunk groups (or a negative error).
+// The tile's out kernel at operand kinds (0 f32, 1 bf16, 2 int8 codes):
+// dynamic shared memory (bytes) and resident blocks an SM at `groups`
+// chunk groups (or a negative error).
 extern "C" int qgemm_tile_out_smem(int a_kind, int b_kind, int groups) {
   return sm90::by_kinds(a_kind, b_kind, [&](auto ta, auto tb) {
     return tile_smem<decltype(ta), decltype(tb)>(groups);
@@ -714,31 +646,53 @@ extern "C" int qgemm_tile_out_occupancy(int a_kind, int b_kind, int groups) {
   });
 }
 
-// G's variants: qgemm's arguments, with the operands' kinds (0 f32, 1
-// bf16, 2 int8 codes of (1, e_r, m_r); codes are never quantized again),
-// and the output epilogue: C rounded to nearest even into o_* (o_identity:
-// as it is) and, with pack, written as int8 codes of (1, e_o, m_o) into C
-// (M x N bytes) instead of floats.  int8 operands take route 1 only.
-extern "C" int qgemm_out(const void* A, int a_kind, long long sam, long long sak,
-                         const void* B, int b_kind, long long sbk, long long sbn,
-                         void* C, int M, int N, int K, int chunk, int e_r, int m_r,
-                         int r_identity, int r_shift, float r_max, float r_min,
-                         int quant_a, int quant_b,
-                         int c_identity, int c_shift, float c_max, float c_min,
-                         int o_identity, int o_shift, float o_max, float o_min,
-                         int pack, int e_o, int m_o, int sr, unsigned seed,
-                         int route, int par, int slices, void* ws, void* stream) {
+// G.  A and B: f32 (kind 0), bf16 (1) or int8 codes of (1, e_r, m_r) (2;
+// never quantized again); strides in elements.  quant_a / quant_b: the
+// operand is rounded to r_* on its load.  C [M, N] row-major: the carry
+// (c_*) rounded to nearest even into o_* (o_identity: as it is) and, with
+// pack, written as int8 codes of (1, e_o, m_o) (M x N bytes) instead of
+// floats.  route 0 is decode (float operands only): `par` chunk slots a
+// block (warps, 1 to 8), `slices` blocks along the chunks (1: no split;
+// else a fold kernel follows), `ws` the workspace of qgemm_decode_ws
+// floats.  route 1 is the tile: `par` chunk groups a block (1, 2 or 4).
+// kernels/sm90.py picks all of them.  sr: the carries round stochastically
+// under `seed`.  Float operands without an output format run the base
+// kernels, the rest the out kernels.  Returns the cudaError_t of the
+// launches.
+extern "C" int qgemm(const void* A, int a_kind, long long sam, long long sak,
+                     const void* B, int b_kind, long long sbk, long long sbn,
+                     void* C, int M, int N, int K, int chunk, int e_r, int m_r,
+                     int r_identity, int r_shift, float r_max, float r_min,
+                     int quant_a, int quant_b,
+                     int c_identity, int c_shift, float c_max, float c_min,
+                     int o_identity, int o_shift, float o_max, float o_min,
+                     int pack, int e_o, int m_o, int sr, unsigned seed,
+                     int route, int par, int slices, void* ws, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const QFmt qr{r_identity, r_shift, r_max, r_min};
-  const QFmt qacc{c_identity, c_shift, c_max, c_min};
-  const QFmt qout{o_identity, o_shift, o_max, o_min};
+  const sm90::Quant qacc = sm90::quant_of(QFmt{c_identity, c_shift, c_max, c_min});
+  const sm90::Quant qout = sm90::quant_of(QFmt{o_identity, o_shift, o_max, o_min});
+  const bool out = !o_identity || pack;
   if (route == 1) {
     const sm90::Dec dec = sm90::dec_of(e_r, m_r);
     return sm90::by_kinds(a_kind, b_kind, [&](auto ta, auto tb) {
+      using TA = decltype(ta);
+      using TB = decltype(tb);
+      sm90::Gemm p{sm90::operand(A, sizeof(TA), sam, sak, M, chunk, quant_a),
+                   sm90::operand(B, sizeof(TB), sbn, sbk, N, chunk, quant_b),
+                   static_cast<float*>(C), N, nullptr, M, N, K, chunk, sm90::quant_of(qr),
+                   qacc, dec, seed};
+      p.qout = qout;
+      p.pack = pack;
+      p.e_o = e_o;
+      p.m_o = m_o;
       auto go = [&](auto rounds_sr) {
-        return tile_out<decltype(ta), decltype(tb), decltype(rounds_sr)::value>(
-            A, sam, sak, B, sbk, sbn, C, M, N, K, chunk, qr, quant_a, quant_b, qacc, dec, qout,
-            pack, e_o, m_o, seed, par, s);
+        constexpr bool SR = decltype(rounds_sr)::value;
+        // int8 codes have the out kernel only (its epilogue the identity)
+        if constexpr (sizeof(TA) == 1 || sizeof(TB) == 1)
+          return tile<TA, TB, SR, true>(p, par, s);
+        else
+          return out ? tile<TA, TB, SR, true>(p, par, s) : tile<TA, TB, SR, false>(p, par, s);
       };
       return sr ? go(std::true_type{}) : go(std::false_type{});
     });
@@ -746,16 +700,15 @@ extern "C" int qgemm_out(const void* A, int a_kind, long long sam, long long sak
   if (route != 0 || chunk < 1 || a_kind > 1 || b_kind > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const QFmt ident{1, 0, 0.0f, 0.0f};
-  Decode p{A, sam, sak, B, sbk, sbn, static_cast<float*>(C), static_cast<float*>(ws), M, N, K,
-           chunk, slices, 0, sm90::quant_of(quant_a ? qr : ident),
-           sm90::quant_of(quant_b ? qr : ident), sm90::quant_of(qacc), seed};
-  p.qout = sm90::quant_of(qout);
-  p.pack = pack;
-  p.e_o = e_o;
-  p.m_o = m_o;
+  const Decode p{A, sam, sak, B, sbk, sbn, static_cast<float*>(C), static_cast<float*>(ws),
+                 M, N, K, chunk, slices, 0, sm90::quant_of(quant_a ? qr : ident),
+                 sm90::quant_of(quant_b ? qr : ident), qacc, seed, qout, pack, e_o, m_o};
   return by_types(a_kind, b_kind, [&](auto ta, auto tb) {
+    using TA = decltype(ta);
+    using TB = decltype(tb);
     auto go = [&](auto rounds_sr) {
-      return decode<decltype(ta), decltype(tb), decltype(rounds_sr)::value, true>(p, par, s);
+      constexpr bool SR = decltype(rounds_sr)::value;
+      return out ? decode<TA, TB, SR, true>(p, par, s) : decode<TA, TB, SR, false>(p, par, s);
     };
     return sr ? go(std::true_type{}) : go(std::false_type{});
   });

@@ -9,15 +9,16 @@
 // (qgemm_sm90.cuh); the quantize-and-pack pass is the same, since SR
 // touches only the carries.
 //
-// Two launches a call:
-// * quantize_pack_kernel, a grid-stride pass over A and B read once
+// Two launches a call, one entry (qgemm_emitq):
+// * quantize_pass_kernel, a grid-stride pass over A and B read once
 //   through their strides (f32 or bf16; 8 elements a thread in 16-byte
 //   pieces where the rows allow it): each element's Q(v) goes out as
-//   its int8 code (pack_code, written exactly once) and as the bf16 of the
-//   same value into a row-major scratch.  A packable format (1 + e + m <=
-//   8) has at most 7 mantissa bits, so its values are exact in bf16; NaN
-//   stays NaN.  The GEMM does not run on the codes: pack_code maps NaN and
-//   Inf to signed zero, and C must stay bitwise the plain version there.
+//   its int8 code (pack_code, written exactly once) and as the value
+//   itself into a row-major scratch.  A packable format (1 + e + m <=
+//   8) has at most 7 mantissa bits, so its values are exact in a bf16
+//   scratch; NaN stays NaN.  The GEMM does not run on the codes: pack_code
+//   maps NaN and Inf to signed zero, and C must stay bitwise the plain
+//   version there.
 // * qgemm_emitq_kernel, qgemm_sm90.cuh's tile on the two bf16 scratches
 //   with no quantization left to do: C is bitwise K8's on the same
 //   operands, which decodes Q(v) to the same f32 values.
@@ -32,47 +33,48 @@
 // element and its decode only widens them (no quantize in the hot loop, as
 // B's Q(g) scratch), and no block needs a role for writing the codes.
 //
-// The variants (entry qgemm_emitq_out, the same two launches): the output
+// The variants, through the same entry and the same pass: the output
 // epilogue of repro/kernels/fused.py::_emit_output (out_fmt, pack_out) on
 // the tile's store (qgemm_emitq_out_kernel, the tile's OUT flag); f32
 // residuals (return_quantized without pack_residuals, any repr_fmt, also
-// one wider than 8 bits): the pass writes Q(A) and Q(B) as floats, which
-// are both the residuals and the operands the tile runs on, so no scratch
-// is needed; and quantize_a / quantize_b off per operand (the residual is
+// one wider than 8 bits): the pass writes Q(A) and Q(B) as floats and no
+// codes, and the floats are both the residuals and the operands the tile
+// runs on; and quantize_a / quantize_b off per operand (the residual is
 // then the operand as it is, or its code).  The bf16 scratch is exact only
-// for a quantized packable format (at most 7 mantissa bits); otherwise the
-// pass writes an f32 scratch beside the codes.  The base kernels above keep
-// their code.
+// for a quantized packable format; otherwise the scratch is f32 and the
+// tile is the out kernel (its epilogue the identity without out_fmt).  The
+// base call (codes, both operands quantized, no out_fmt) runs
+// qgemm_emitq_kernel, so its code and registers stay as they were.
 #include "qgemm_sm90.cuh"
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
 using bf = __nv_bfloat16;
 using sm90::TILE;
 
-constexpr int STAGE = sm90::stage_bytes<bf, bf>();
-
-// One operand of the pass: src[r, c] = src[r * s_r + c * s_c], out in
-// row-major [rows, cols] order.  vec: rows of 16-byte aligned runs of 8
-// elements (s_c 1, cols a multiple of 8, base and row pitch 16-byte
-// aligned), which a thread takes at once.
-struct Pack {
+// One operand of the pass: src[r, c] = src[r * s_r + c * s_c]; its Q
+// values go out in row-major [rows, cols] order into q, of the scratch's
+// type, and, unless codes is null (f32 residuals), as int8 codes.  vec:
+// rows of 16-byte aligned runs of 8 elements (s_c 1, cols a multiple of 8,
+// base and row pitch 16-byte aligned), which a thread takes at once.
+struct Pass {
   const void* src;
   long long s_r, s_c;
   int rows, cols;
   int vec;
   int8_t* codes;
-  bf* q;
+  void* q;
 };
 
 template <typename T>
-Pack pack_of(const void* src, long long s_r, long long s_c, int rows, int cols, int8_t* codes,
-             bf* q) {
+Pass pass_of(const void* src, long long s_r, long long s_c, int rows, int cols, int8_t* codes,
+             void* q) {
   const int vec = s_c == 1 && cols % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
                   (s_r * (long long)sizeof(T)) % 16 == 0;
-  return Pack{src, s_r, s_c, rows, cols, vec, codes, q};
+  return Pass{src, s_r, s_c, rows, cols, vec, codes, q};
 }
 
 __device__ __forceinline__ float widen(float v) { return v; }
@@ -93,71 +95,6 @@ __device__ __forceinline__ void load8(const bf* s, float (&v)[8]) {
   for (int e = 0; e < 8; ++e) v[e] = __uint_as_float(((w[e >> 1] >> ((e & 1) * 16)) & 0xffffu) << 16);
 }
 
-// Elements (vec: runs of 8) a thread of the pass takes in turn.
-__host__ __device__ inline long long pack_items(const Pack& p) {
-  const long long n = (long long)p.rows * p.cols;
-  return p.vec ? n / 8 : n;
-}
-
-template <typename T>
-__device__ __forceinline__ void pack(const Pack& p, const sm90::Quant& q, int e, int m) {
-  const T* src = static_cast<const T*>(p.src);
-  const long long items = pack_items(p), stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < items; t += stride) {
-    if (p.vec) {  // 16-byte loads, 8 codes and 8 bf16 values stored at once
-      const long long i = t * 8, r = i / p.cols, c = i % p.cols;
-      float v[8];
-      load8(src + r * p.s_r + c, v);
-      unsigned codes[2] = {0u, 0u}, qv[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float x = sm90::quant(v[j], q);
-        codes[j >> 2] |= (unsigned)(uint8_t)pack_code(x, e, m) << ((j & 3) * 8);
-        qv[j >> 1] |= (unsigned)__bfloat16_as_ushort(sm90::bf16_exact(x)) << ((j & 1) * 16);
-      }
-      *reinterpret_cast<uint2*>(p.codes + i) = make_uint2(codes[0], codes[1]);
-      *reinterpret_cast<uint4*>(p.q + i) = make_uint4(qv[0], qv[1], qv[2], qv[3]);
-    } else {
-      const long long r = t / p.cols, c = t % p.cols;
-      const float x = sm90::quant(widen(src[r * p.s_r + c * p.s_c]), q);
-      p.codes[t] = pack_code(x, e, m);
-      p.q[t] = sm90::bf16_exact(x);
-    }
-  }
-}
-
-// blockIdx.y 0 packs A, 1 packs B
-template <typename TA, typename TB>
-__global__ void __launch_bounds__(256) quantize_pack_kernel(Pack a, Pack b, sm90::Quant q,
-                                                            int e, int m) {
-  if (blockIdx.y == 0)
-    pack<TA>(a, q, e, m);
-  else
-    pack<TB>(b, q, e, m);
-}
-
-bool valid_groups(int groups) { return groups == 1 || groups == 2 || groups == 4; }
-
-// ------------------------------------------------------------ variants ---
-
-// One operand of the variant pass: Pack's source, codes (nullptr: f32
-// residuals, none written) and the scratch q, of the pass's scratch type.
-struct PassV {
-  const void* src;
-  long long s_r, s_c;
-  int rows, cols;
-  int vec;
-  int8_t* codes;
-  void* q;
-};
-
-template <typename T>
-PassV pass_of(const void* src, long long s_r, long long s_c, int rows, int cols,
-              int8_t* codes, void* q) {
-  const Pack p = pack_of<T>(src, s_r, s_c, rows, cols, codes, nullptr);
-  return PassV{src, s_r, s_c, rows, cols, p.vec, codes, q};
-}
-
 __device__ __forceinline__ void store1(bf* d, float x) { *d = sm90::bf16_exact(x); }
 __device__ __forceinline__ void store1(float* d, float x) { *d = x; }
 __device__ __forceinline__ void store8(bf* d, const float (&x)[8]) {
@@ -172,14 +109,21 @@ __device__ __forceinline__ void store8(float* d, const float (&x)[8]) {
   reinterpret_cast<float4*>(d)[1] = make_float4(x[4], x[5], x[6], x[7]);
 }
 
+// Elements (vec: runs of 8) a thread of the pass takes in turn.
+__host__ __device__ inline long long pass_items(const Pass& p) {
+  const long long n = (long long)p.rows * p.cols;
+  return p.vec ? n / 8 : n;
+}
+
+// One operand through the pass: Q(v) under q into the TS scratch and, with
+// codes, as its int8 code of (1, e, m)
 template <typename T, typename TS>
-__device__ __forceinline__ void pass_v(const PassV& p, const sm90::Quant& q, int e, int m) {
+__device__ __forceinline__ void pass(const Pass& p, const sm90::Quant& q, int e, int m) {
   const T* src = static_cast<const T*>(p.src);
   TS* dst = static_cast<TS*>(p.q);
-  const long long n = (long long)p.rows * p.cols;
-  const long long items = p.vec ? n / 8 : n, stride = (long long)gridDim.x * blockDim.x;
+  const long long items = pass_items(p), stride = (long long)gridDim.x * blockDim.x;
   for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < items; t += stride) {
-    if (p.vec) {
+    if (p.vec) {  // 16-byte loads, 8 codes and 8 values stored at once
       const long long i = t * 8, r = i / p.cols, c = i % p.cols;
       float v[8], x[8];
       load8(src + r * p.s_r + c, v);
@@ -203,12 +147,24 @@ __device__ __forceinline__ void pass_v(const PassV& p, const sm90::Quant& q, int
 
 // blockIdx.y 0 passes A (quantized under qa), 1 passes B (under qb)
 template <typename TA, typename TB, typename TS>
-__global__ void __launch_bounds__(256) quantize_pass_kernel(PassV a, PassV b, sm90::Quant qa,
+__global__ void __launch_bounds__(256) quantize_pass_kernel(Pass a, Pass b, sm90::Quant qa,
                                                             sm90::Quant qb, int e, int m) {
   if (blockIdx.y == 0)
-    pass_v<TA, TS>(a, qa, e, m);
+    pass<TA, TS>(a, qa, e, m);
   else
-    pass_v<TB, TS>(b, qb, e, m);
+    pass<TB, TS>(b, qb, e, m);
+}
+
+bool valid_groups(int groups) { return groups == 1 || groups == 2 || groups == 4; }
+
+// The GEMM on the scratches: the base kernel on bf16 ones, and the out
+// kernel (the tile's OUT flag: the output epilogue in its store) on bf16
+// or f32 ones
+template <bool SR>
+__global__ void __launch_bounds__(4 * sm90::GT, 2) qgemm_emitq_kernel(sm90::Gemm p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  sm90::block_tile<bf, bf, sm90::stage_bytes<bf, bf>(), false, SR>(
+      p, blockIdx.y * TILE, blockIdx.x * TILE, smem, nullptr);
 }
 
 template <typename TS, bool SR>
@@ -218,183 +174,125 @@ __global__ void __launch_bounds__(4 * sm90::GT, 2) qgemm_emitq_out_kernel(sm90::
       p, blockIdx.y * TILE, blockIdx.x * TILE, smem, nullptr);
 }
 
+template <typename TS, bool SR, bool OUT>
+auto gemm_kernel() {
+  if constexpr (OUT)
+    return qgemm_emitq_out_kernel<TS, SR>;
+  else
+    return qgemm_emitq_kernel<SR>;
+}
+
 template <typename TS>
-int out_smem(int groups) {
+int gemm_smem(int groups) {
   return sm90::smem_bytes(sm90::stage_bytes<TS, TS>(), groups, false);
 }
 
-template <typename TS, bool SR>
-int out_set_smem(int groups) {
-  return static_cast<int>(cudaFuncSetAttribute(qgemm_emitq_out_kernel<TS, SR>,
-                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                out_smem<TS>(groups)));
+template <typename TS, bool SR, bool OUT>
+int set_smem(int groups) {
+  return static_cast<int>(cudaFuncSetAttribute(gemm_kernel<TS, SR, OUT>(),
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               gemm_smem<TS>(groups)));
 }
 
-// The variant launch: the pass into codes (packr) and a TS scratch, or into
-// the f32 residuals, then the tile with the output epilogue on the scratch
+template <typename TS, bool SR, bool OUT>
+int gemm_launch(const sm90::Gemm& p, int groups, cudaStream_t s) {
+  const int rc = set_smem<TS, SR, OUT>(groups);
+  if (rc != 0) return rc;
+  dim3 grid((p.N + TILE - 1) / TILE, (p.M + TILE - 1) / TILE);
+  const auto kernel = gemm_kernel<TS, SR, OUT>();
+  kernel<<<grid, groups * sm90::GT, gemm_smem<TS>(groups), s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TS>
+int occupancy(int groups, bool out) {
+  if (!valid_groups(groups)) return -static_cast<int>(cudaErrorInvalidValue);
+  int rc = out ? set_smem<TS, false, true>(groups) : set_smem<TS, false, false>(groups);
+  int n = 0;
+  if (rc == 0)
+    rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, out ? (const void*)gemm_kernel<TS, false, true>()
+                : (const void*)gemm_kernel<TS, false, false>(),
+        groups * sm90::GT, gemm_smem<TS>(groups)));
+  return rc != 0 ? -rc : n;
+}
+
+// The pass into codes (packr) and a TS scratch, or into the f32 residuals
+// (Aq, Bq), then the tile on the scratch: the base kernel on a bf16 one
+// without an output format, the out kernel otherwise
 template <typename TA, typename TB, typename TS>
-int launch_out(const void* A, long long sam, long long sak, const void* B, long long sbk,
-               long long sbn, void* C, int M, int N, int K, int chunk, int e_r, int m_r,
-               QFmt qa, QFmt qb, QFmt qacc, QFmt qout, int pack_out, int e_o, int m_o,
-               int packr, int groups, int sr, unsigned seed, void* Aq, void* Bq, void* QA,
-               void* QB, cudaStream_t s) {
+int launch(const void* A, long long sam, long long sak, const void* B, long long sbk,
+           long long sbn, void* C, int M, int N, int K, int chunk, int e_r, int m_r, QFmt qa,
+           QFmt qb, QFmt qacc, QFmt qout, int pack_out, int e_o, int m_o, int packr,
+           int groups, int sr, unsigned seed, void* Aq, void* Bq, void* QA, void* QB,
+           cudaStream_t s) {
   if (!valid_groups(groups)) return static_cast<int>(cudaErrorInvalidValue);
   void* sa = packr ? QA : Aq;
   void* sb = packr ? QB : Bq;
   int8_t* ca = packr ? static_cast<int8_t*>(Aq) : nullptr;
   int8_t* cb = packr ? static_cast<int8_t*>(Bq) : nullptr;
-  const PassV pa = pass_of<TA>(A, sam, sak, M, K, ca, sa);
-  const PassV pb = pass_of<TB>(B, sbk, sbn, K, N, cb, sb);
-  const long long na = (long long)M * K, nb = (long long)K * N;
-  const long long most = std::max(pa.vec ? na / 8 : na, pb.vec ? nb / 8 : nb);
+  const Pass pa = pass_of<TA>(A, sam, sak, M, K, ca, sa);
+  const Pass pb = pass_of<TB>(B, sbk, sbn, K, N, cb, sb);
+  const long long most = std::max(pass_items(pa), pass_items(pb));
   const int blocks = (int)std::min<long long>((most + 255) / 256, 65536LL);
   quantize_pass_kernel<TA, TB, TS><<<dim3(blocks, 2), 256, 0, s>>>(
       pa, pb, sm90::quant_of(qa), sm90::quant_of(qb), e_r, m_r);
-  int rc = static_cast<int>(cudaGetLastError());
+  const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
+  // Q(A) [M, K] along k, Q(B) [K, N] along n; no quantization left
   sm90::Gemm p{sm90::operand(sa, sizeof(TS), K, 1, M, chunk, 0),
                sm90::operand(sb, sizeof(TS), 1, N, N, chunk, 0),
                static_cast<float*>(C), N, nullptr, M, N, K, chunk, sm90::quant_of(qa),
-               sm90::quant_of(qacc), sm90::dec_of(5, 2), seed};  // no codes landed
+               sm90::quant_of(qacc), sm90::dec_of(e_r, m_r), seed};
   p.qout = sm90::quant_of(qout);
   p.pack = pack_out;
   p.e_o = e_o;
   p.m_o = m_o;
-  rc = sr ? out_set_smem<TS, true>(groups) : out_set_smem<TS, false>(groups);
-  if (rc != 0) return rc;
-  dim3 grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE);
-  if (sr)
-    qgemm_emitq_out_kernel<TS, true><<<grid, groups * sm90::GT, out_smem<TS>(groups), s>>>(p);
-  else
-    qgemm_emitq_out_kernel<TS, false><<<grid, groups * sm90::GT, out_smem<TS>(groups), s>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool SR>
-__global__ void __launch_bounds__(4 * sm90::GT, 2) qgemm_emitq_kernel(sm90::Gemm p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  sm90::block_tile<bf, bf, STAGE, false, SR>(p, blockIdx.y * TILE, blockIdx.x * TILE, smem,
-                                             nullptr);
-}
-
-int gemm_smem(int groups) { return sm90::smem_bytes(STAGE, groups, false); }
-
-template <bool SR>
-int set_smem(int groups) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      qgemm_emitq_kernel<SR>, cudaFuncAttributeMaxDynamicSharedMemorySize, gemm_smem(groups)));
-}
-
-template <typename TA, typename TB>
-int launch(const void* A, long long sam, long long sak, const void* B, long long sbk,
-           long long sbn, float* C, int M, int N, int K, int chunk, int e_r, int m_r,
-           QFmt qr, QFmt qacc, int groups, int sr, unsigned seed, int8_t* Aq,
-           int8_t* Bq, bf* QA, bf* QB, cudaStream_t s) {
-  if (!valid_groups(groups)) return static_cast<int>(cudaErrorInvalidValue);
-  const sm90::Quant q = sm90::quant_of(qr);
-  const Pack pa = pack_of<TA>(A, sam, sak, M, K, Aq, QA);
-  const Pack pb = pack_of<TB>(B, sbk, sbn, K, N, Bq, QB);
-  const long long most = std::max(pack_items(pa), pack_items(pb));
-  const int blocks = (int)std::min<long long>((most + 255) / 256, 65536LL);
-  quantize_pack_kernel<TA, TB><<<dim3(blocks, 2), 256, 0, s>>>(pa, pb, q, e_r, m_r);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  // Q(A) [M, K] along k, Q(B) [K, N] along n; no quantization left
-  const sm90::Gemm p{sm90::operand(QA, 2, K, 1, M, chunk, 0),
-                     sm90::operand(QB, 2, 1, N, N, chunk, 0),
-                     C, N, nullptr, M, N, K, chunk, q, sm90::quant_of(qacc),
-                     sm90::dec_of(e_r, m_r), seed};
-  rc = sr ? set_smem<true>(groups) : set_smem<false>(groups);
-  if (rc != 0) return rc;
-  dim3 grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE);
-  if (sr)
-    qgemm_emitq_kernel<true><<<grid, groups * sm90::GT, gemm_smem(groups), s>>>(p);
-  else
-    qgemm_emitq_kernel<false><<<grid, groups * sm90::GT, gemm_smem(groups), s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<TS, bf>::value) {
+    if (qout.identity && !pack_out)
+      return sr ? gemm_launch<bf, true, false>(p, groups, s)
+                : gemm_launch<bf, false, false>(p, groups, s);
+  }
+  return sr ? gemm_launch<TS, true, true>(p, groups, s) : gemm_launch<TS, false, true>(p, groups, s);
 }
 
 }  // namespace
 
 // Dynamic shared memory of one GEMM block (bytes) and resident blocks an SM
 // at `groups` chunk groups (or a negative error); kernels/sm90.py mirrors
-// the first.
-extern "C" int qgemm_emitq_smem(int groups) { return gemm_smem(groups); }
-extern "C" int qgemm_emitq_occupancy(int groups) {
-  if (!valid_groups(groups)) return -static_cast<int>(cudaErrorInvalidValue);
-  int rc = set_smem<false>(groups);
-  int n = 0;
-  if (rc == 0)
-    rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, qgemm_emitq_kernel<false>, groups * sm90::GT, gemm_smem(groups)));
-  return rc != 0 ? -rc : n;
+// the first.  The base kernel, and the out kernel on a bf16 (f32 0) or f32
+// (1) scratch.
+extern "C" int qgemm_emitq_smem(int groups) { return gemm_smem<bf>(groups); }
+extern "C" int qgemm_emitq_occupancy(int groups) { return occupancy<bf>(groups, false); }
+extern "C" int qgemm_emitq_out_smem(int f32, int groups) {
+  return f32 ? gemm_smem<float>(groups) : gemm_smem<bf>(groups);
+}
+extern "C" int qgemm_emitq_out_occupancy(int f32, int groups) {
+  return f32 ? occupancy<float>(groups, true) : occupancy<bf>(groups, true);
 }
 
 // E.  a_bf16 / b_bf16: the operand is bf16, else f32; strides in elements.
-// C [M, N] f32, Aq [M, K] and Bq [K, N] int8 codes of (1, e_r, m_r), all
-// row-major; QA [M, K] and QB [K, N] bf16 scratches; groups: chunk groups a
-// block (1, 2 or 4; kernels/sm90.py picks them); sr: stochastic rounding of
-// the carry, dithered under seed.  Returns the cudaError_t of the
-// launches.
+// C [M, N] f32 (with pack_out int8), row-major.  The quantization of A and
+// of B apart (qa_*, qb_*: the identity where an operand is not quantized),
+// the carry's format (c_*), the output epilogue (o_*: C rounded to nearest
+// even into it, the identity leaving C as it is; pack_out: C is M x N int8
+// codes of (1, e_o, m_o)).  The residuals: packr 1, Aq [M, K] and Bq [K, N]
+// are int8 codes of (1, e_r, m_r) and QA and QB the scratches the GEMM
+// reads, f32 (scratch_f32) or bf16 (exact only for a quantized packable
+// format); packr 0, Aq and Bq are the f32 residuals and the GEMM reads them
+// (QA, QB unused).  groups: chunk groups a block (1, 2 or 4;
+// kernels/sm90.py picks them); sr: stochastic rounding of the carry,
+// dithered under seed.  Returns the cudaError_t of the launches.
 extern "C" int qgemm_emitq(const void* A, int a_bf16, long long sam, long long sak,
                            const void* B, int b_bf16, long long sbk, long long sbn,
                            void* C, int M, int N, int K, int chunk, int e_r, int m_r,
-                           int r_identity, int r_shift, float r_max, float r_min,
+                           int qa_identity, int qa_shift, float qa_max, float qa_min,
+                           int qb_identity, int qb_shift, float qb_max, float qb_min,
                            int c_identity, int c_shift, float c_max, float c_min,
+                           int o_identity, int o_shift, float o_max, float o_min,
+                           int pack_out, int e_o, int m_o, int packr, int scratch_f32,
                            int groups, int sr, unsigned seed, void* Aq, void* Bq,
                            void* QA, void* QB, void* stream) {
-  const QFmt qr{r_identity, r_shift, r_max, r_min};
-  const QFmt qacc{c_identity, c_shift, c_max, c_min};
-  float* out = static_cast<float*>(C);
-  int8_t* aq = static_cast<int8_t*>(Aq);
-  int8_t* bq = static_cast<int8_t*>(Bq);
-  bf* qa = static_cast<bf*>(QA);
-  bf* qb = static_cast<bf*>(QB);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define EMITQ_ARGS A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, e_r, m_r, qr, qacc, groups, \
-                   sr, seed, aq, bq, qa, qb, s
-  if (a_bf16 && b_bf16) return launch<bf, bf>(EMITQ_ARGS);
-  if (a_bf16) return launch<bf, float>(EMITQ_ARGS);
-  if (b_bf16) return launch<float, bf>(EMITQ_ARGS);
-  return launch<float, float>(EMITQ_ARGS);
-#undef EMITQ_ARGS
-}
-
-// The variant kernels' shared memory (bytes) and resident blocks an SM at
-// `groups` chunk groups on a bf16 (f32 0) or f32 (1) scratch.
-extern "C" int qgemm_emitq_out_smem(int f32, int groups) {
-  return f32 ? out_smem<float>(groups) : out_smem<bf>(groups);
-}
-extern "C" int qgemm_emitq_out_occupancy(int f32, int groups) {
-  if (!valid_groups(groups)) return -static_cast<int>(cudaErrorInvalidValue);
-  int n = 0, rc = f32 ? out_set_smem<float, false>(groups) : out_set_smem<bf, false>(groups);
-  if (rc == 0)
-    rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, f32 ? (const void*)qgemm_emitq_out_kernel<float, false>
-                : (const void*)qgemm_emitq_out_kernel<bf, false>,
-        groups * sm90::GT, f32 ? out_smem<float>(groups) : out_smem<bf>(groups)));
-  return rc != 0 ? -rc : n;
-}
-
-// E's variants: qgemm_emitq's arguments, with the quantization of A and of
-// B apart (qa_*, qb_*: the identity where an operand is not quantized), the
-// output epilogue (o_*: C rounded to nearest even into it, the identity
-// leaving C as it is; pack_out: C is M x N int8 codes of (1, e_o, m_o)),
-// and the residuals: packr 1, Aq and Bq are int8 codes and QA and QB the
-// scratch, f32 (scratch_f32) or bf16 (exact only for a quantized packable
-// format); packr 0, Aq and Bq are the f32 residuals [M, K] and [K, N] and
-// the tile runs on them (QA, QB unused).  Returns the cudaError_t of the
-// launches.
-extern "C" int qgemm_emitq_out(const void* A, int a_bf16, long long sam, long long sak,
-                               const void* B, int b_bf16, long long sbk, long long sbn,
-                               void* C, int M, int N, int K, int chunk, int e_r, int m_r,
-                               int qa_identity, int qa_shift, float qa_max, float qa_min,
-                               int qb_identity, int qb_shift, float qb_max, float qb_min,
-                               int c_identity, int c_shift, float c_max, float c_min,
-                               int o_identity, int o_shift, float o_max, float o_min,
-                               int pack_out, int e_o, int m_o, int packr, int scratch_f32,
-                               int groups, int sr, unsigned seed, void* Aq, void* Bq,
-                               void* QA, void* QB, void* stream) {
   const QFmt qa{qa_identity, qa_shift, qa_max, qa_min};
   const QFmt qb{qb_identity, qb_shift, qb_max, qb_min};
   const QFmt qacc{c_identity, c_shift, c_max, c_min};
@@ -404,13 +302,10 @@ extern "C" int qgemm_emitq_out(const void* A, int a_bf16, long long sam, long lo
   auto go = [&](auto ta, auto tb) {
     using TA = decltype(ta);
     using TB = decltype(tb);
-    if (f32)
-      return launch_out<TA, TB, float>(A, sam, sak, B, sbk, sbn, C, M, N, K, chunk, e_r, m_r,
-                                       qa, qb, qacc, qout, pack_out, e_o, m_o, packr, groups,
-                                       sr, seed, Aq, Bq, QA, QB, s);
-    return launch_out<TA, TB, bf>(A, sam, sak, B, sbk, sbn, C, M, N, K, chunk, e_r, m_r, qa,
-                                  qb, qacc, qout, pack_out, e_o, m_o, packr, groups, sr, seed,
-                                  Aq, Bq, QA, QB, s);
+#define EMITQ_ARGS A, sam, sak, B, sbk, sbn, C, M, N, K, chunk, e_r, m_r, qa, qb, qacc, qout, \
+                   pack_out, e_o, m_o, packr, groups, sr, seed, Aq, Bq, QA, QB, s
+    return f32 ? launch<TA, TB, float>(EMITQ_ARGS) : launch<TA, TB, bf>(EMITQ_ARGS);
+#undef EMITQ_ARGS
   };
   if (a_bf16 && b_bf16) return go(bf{}, bf{});
   if (a_bf16) return go(bf{}, float{});

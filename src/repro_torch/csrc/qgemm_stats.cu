@@ -26,12 +26,15 @@
 // type and decoded once a block.  The shadow adds one shared-memory add a
 // output a chunk and a handful of compares to the fold.
 //
-// The output epilogue (out_fmt / pack_out of _emit_output, entry
-// qgemm_stats_out) is qgemm_stats_out_kernel, the tile with its OUT flag:
-// C is rounded to nearest even into the output format (and, with pack,
-// written as int8 codes) in the store loop, while the stats row reads the
-// carry, so it is bitwise the row without the epilogue.
+// The output epilogue (out_fmt / pack_out of _emit_output) is
+// qgemm_stats_out_kernel, the tile with its OUT flag, which the entry runs
+// where the output format is not the identity: C is rounded to nearest
+// even into the output format (and, with pack, written as int8 codes) in
+// the store loop, while the stats row reads the carry, so it is bitwise
+// the row without the epilogue.
 #include "qgemm_sm90.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -71,30 +74,15 @@ int smem(int groups) {
   return sm90::smem_bytes(sm90::stage_bytes<TA, TB>(), groups, true);
 }
 
-// OUT: qout / pack / e_o / m_o are the output epilogue's
-template <typename TA, typename TB, bool SR, bool OUT = false>
-int launch(const void* A, long long sam, long long sak, const void* B,
-           long long sbk, long long sbn, float* C, int M, int N, int K,
-           int chunk, QFmt qr, int qa, int qb, sm90::Dec dec, QFmt qacc,
-           int groups, unsigned seed, double* part, float* stats, cudaStream_t s,
-           QFmt qout = QFmt{1, 0, 0.0f, 0.0f}, int pack = 0, int e_o = 5, int m_o = 2) {
+template <typename TA, typename TB, bool SR, bool OUT>
+int launch(const sm90::Gemm& p, int groups, double* part, float* stats, cudaStream_t s) {
   if (!valid_groups(groups)) return static_cast<int>(cudaErrorInvalidValue);
-  sm90::Gemm p{sm90::operand(A, sizeof(TA), sam, sak, M, chunk, qa),
-               sm90::operand(B, sizeof(TB), sbn, sbk, N, chunk, qb),
-               C, N, nullptr, M, N, K, chunk, sm90::quant_of(qr), sm90::quant_of(qacc), dec,
-               seed};
-  if constexpr (OUT) {
-    p.qout = sm90::quant_of(qout);
-    p.pack = pack;
-    p.e_o = e_o;
-    p.m_o = m_o;
-  }
   const int bytes = smem<TA, TB>(groups);
   const auto kernel = stats_kernel<TA, TB, SR, OUT>();
   int rc = static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
   if (rc != 0) return rc;
-  dim3 grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE);
+  dim3 grid((p.N + TILE - 1) / TILE, (p.M + TILE - 1) / TILE);
   kernel<<<grid, groups * sm90::GT, bytes, s>>>(p, part);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
@@ -103,16 +91,17 @@ int launch(const void* A, long long sam, long long sak, const void* B,
 }
 
 // Resident blocks an SM at `groups` chunk groups (or a negative error).
-template <typename TA, typename TB>
+template <typename TA, typename TB, bool OUT>
 int occupancy(int groups) {
   if (!valid_groups(groups)) return -static_cast<int>(cudaErrorInvalidValue);
   const int bytes = smem<TA, TB>(groups);
+  const auto kernel = stats_kernel<TA, TB, false, OUT>();
   int rc = static_cast<int>(cudaFuncSetAttribute(
-      qgemm_stats_kernel<TA, TB, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
   int n = 0;
   if (rc == 0)
     rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, qgemm_stats_kernel<TA, TB, false>, groups * sm90::GT, bytes));
+        &n, kernel, groups * sm90::GT, bytes));
   return rc != 0 ? -rc : n;
 }
 
@@ -133,14 +122,17 @@ extern "C" int qgemm_stats_smem(int a_kind, int b_kind, int groups) {
 }
 extern "C" int qgemm_stats_occupancy(int a_kind, int b_kind, int groups) {
   return sm90::by_kinds(a_kind, b_kind, [&](auto ta, auto tb) {
-    return occupancy<decltype(ta), decltype(tb)>(groups);
+    return occupancy<decltype(ta), decltype(tb), false>(groups);
   });
 }
 
 // K8.  a_kind / b_kind: 0 f32, 1 bf16, 2 int8 codes of (1, e_r, m_r).
-// Strides are in elements; C [M, N] row-major; stats [N_STATS] f32;
-// groups: chunk groups a block (1, 2 or 4; kernels/sm90.py picks them); sr:
-// stochastic rounding of the carry, dithered under seed.  Returns the
+// Strides are in elements; C [M, N] row-major, the carry rounded to
+// nearest even into o_* (o_identity: as it is) and, with pack, written as
+// int8 codes of (1, e_o, m_o) (M x N bytes); the stats row [N_STATS] f32
+// reads the carry, so it is the same with or without that epilogue;
+// groups: chunk groups a block (1, 2 or 4; kernels/sm90.py picks them);
+// sr: stochastic rounding of the carry, dithered under seed.  Returns the
 // cudaError_t of the launches.
 extern "C" int qgemm_stats(const void* A, int a_kind, long long sam,
                            long long sak, const void* B, int b_kind,
@@ -149,56 +141,33 @@ extern "C" int qgemm_stats(const void* A, int a_kind, long long sam,
                            int r_identity, int r_shift, float r_max,
                            float r_min, int quant_a, int quant_b,
                            int c_identity, int c_shift, float c_max,
-                           float c_min, int groups, int sr, unsigned seed,
+                           float c_min, int o_identity, int o_shift,
+                           float o_max, float o_min, int pack, int e_o,
+                           int m_o, int groups, int sr, unsigned seed,
                            void* part, void* stats, void* stream) {
   const QFmt qr{r_identity, r_shift, r_max, r_min};
   const QFmt qacc{c_identity, c_shift, c_max, c_min};
-  const sm90::Dec dec = sm90::dec_of(e_r, m_r);
+  const bool out = !o_identity || pack;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* out = static_cast<float*>(C);
   double* P = static_cast<double*>(part);
   float* S = static_cast<float*>(stats);
   return sm90::by_kinds(a_kind, b_kind, [&](auto ta, auto tb) {
     using TA = decltype(ta);
     using TB = decltype(tb);
-    return sr ? launch<TA, TB, true>(A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, qr,
-                                     quant_a, quant_b, dec, qacc, groups, seed, P, S, s)
-              : launch<TA, TB, false>(A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, qr,
-                                      quant_a, quant_b, dec, qacc, groups, seed, P, S, s);
-  });
-}
-
-// K8 with the output epilogue: qgemm_stats' arguments, then the output
-// format o_* (o_identity: C as it is) and pack (C is M x N int8 codes of
-// (1, e_o, m_o)).  The stats row is the same as without the epilogue.
-extern "C" int qgemm_stats_out(const void* A, int a_kind, long long sam,
-                               long long sak, const void* B, int b_kind,
-                               long long sbk, long long sbn, void* C, int M,
-                               int N, int K, int chunk, int e_r, int m_r,
-                               int r_identity, int r_shift, float r_max,
-                               float r_min, int quant_a, int quant_b,
-                               int c_identity, int c_shift, float c_max,
-                               float c_min, int o_identity, int o_shift,
-                               float o_max, float o_min, int pack, int e_o,
-                               int m_o, int groups, int sr, unsigned seed,
-                               void* part, void* stats, void* stream) {
-  const QFmt qr{r_identity, r_shift, r_max, r_min};
-  const QFmt qacc{c_identity, c_shift, c_max, c_min};
-  const QFmt qout{o_identity, o_shift, o_max, o_min};
-  const sm90::Dec dec = sm90::dec_of(e_r, m_r);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* out = static_cast<float*>(C);
-  double* P = static_cast<double*>(part);
-  float* S = static_cast<float*>(stats);
-  return sm90::by_kinds(a_kind, b_kind, [&](auto ta, auto tb) {
-    using TA = decltype(ta);
-    using TB = decltype(tb);
-    return sr ? launch<TA, TB, true, true>(A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, qr,
-                                           quant_a, quant_b, dec, qacc, groups, seed, P, S, s,
-                                           qout, pack, e_o, m_o)
-              : launch<TA, TB, false, true>(A, sam, sak, B, sbk, sbn, out, M, N, K, chunk, qr,
-                                            quant_a, quant_b, dec, qacc, groups, seed, P, S, s,
-                                            qout, pack, e_o, m_o);
+    sm90::Gemm p{sm90::operand(A, sizeof(TA), sam, sak, M, chunk, quant_a),
+                 sm90::operand(B, sizeof(TB), sbn, sbk, N, chunk, quant_b),
+                 static_cast<float*>(C), N, nullptr, M, N, K, chunk, sm90::quant_of(qr),
+                 sm90::quant_of(qacc), sm90::dec_of(e_r, m_r), seed};
+    p.qout = sm90::quant_of(QFmt{o_identity, o_shift, o_max, o_min});
+    p.pack = pack;
+    p.e_o = e_o;
+    p.m_o = m_o;
+    auto go = [&](auto rounds_sr) {
+      constexpr bool SR = decltype(rounds_sr)::value;
+      return out ? launch<TA, TB, SR, true>(p, groups, P, S, s)
+                 : launch<TA, TB, SR, false>(p, groups, P, S, s);
+    };
+    return sr ? go(std::true_type{}) : go(std::false_type{});
   });
 }
 
@@ -208,18 +177,7 @@ extern "C" int qgemm_stats_out_smem(int a_kind, int b_kind, int groups) {
   return qgemm_stats_smem(a_kind, b_kind, groups);
 }
 extern "C" int qgemm_stats_out_occupancy(int a_kind, int b_kind, int groups) {
-  if (!valid_groups(groups)) return -static_cast<int>(cudaErrorInvalidValue);
   return sm90::by_kinds(a_kind, b_kind, [&](auto ta, auto tb) {
-    using TA = decltype(ta);
-    using TB = decltype(tb);
-    const int bytes = smem<TA, TB>(groups);
-    int rc = static_cast<int>(cudaFuncSetAttribute(qgemm_stats_out_kernel<TA, TB, false>,
-                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                   bytes));
-    int n = 0;
-    if (rc == 0)
-      rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, qgemm_stats_out_kernel<TA, TB, false>, groups * sm90::GT, bytes));
-    return rc != 0 ? -rc : n;
+    return occupancy<decltype(ta), decltype(tb), true>(groups);
   });
 }

@@ -323,12 +323,10 @@ def _check_variants(return_quantized: bool, a_packed: bool,
 _LL, _I, _P, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 _U = ctypes.c_uint
 _Q = [_I, _I, _F, _F]           # a QFmt's four C arguments
-_ARGTYPES = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I,
-             _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _U, _I, _I, _I, _P,
-             _P]
-_OUT_ARGTYPES = ([_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I,
-                  _I, _I] + _Q + [_I, _I] + _Q + _Q
-                 + [_I, _I, _I, _I, _U, _I, _I, _I, _P, _P])
+# the operands, C, M, N, K, the chunk and the code layout (e_r, m_r)
+_GEMM = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I, _I, _I]
+_ARGTYPES = (_GEMM + _Q + [_I, _I] + _Q + _Q
+             + [_I, _I, _I, _I, _U, _I, _I, _I, _P, _P])
 
 
 def qmatmul_fused_with(a: torch.Tensor, b: torch.Tensor, schedule, *,
@@ -362,13 +360,11 @@ _qfmt = functools.lru_cache(maxsize=64)(qfmt_args)
 def _g(a, b, schedule, fmt, e_acc, m_acc, block_k, sr: bool, seed: int, *,
        qa: bool = True, qb: bool = True, out=None,
        pack: bool = False) -> torch.Tensor:
-    """G's launch on checked CUDA operands (SR: under ``seed``): the base
-    kernels, or with int8 operands or an output format (``out``, ``pack``)
-    the variant entry ``qgemm_out``.  ``qa``/``qb`` off: that operand is
-    not quantized (codes never are)."""
+    """G's launch on checked CUDA operands (SR: under ``seed``), with the
+    output format ``out`` (``pack``: as int8 codes).  ``qa``/``qb`` off:
+    that operand is not quantized (codes never are)."""
     m, k = a.shape
     n = b.shape[1]
-    variant = out is not None or a.dtype == torch.int8 or b.dtype == torch.int8
     dt = torch.int8 if pack else torch.float32
     c = torch.empty((m, n), dtype=dt, device=a.device)
     if m == 0 or n == 0:
@@ -382,27 +378,16 @@ def _g(a, b, schedule, fmt, e_acc, m_acc, block_k, sr: bool, seed: int, *,
     else:
         route, par, slices = 1, schedule.groups, 1
     quant = fmt is not None
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    if not variant:
-        rc = build.function("qgemm", "qgemm", _ARGTYPES)(
-            a.data_ptr(), _DTYPES[a.dtype], a.stride(0), a.stride(1),
-            b.data_ptr(), _DTYPES[b.dtype], b.stride(0), b.stride(1),
-            c.data_ptr(), m, n, k, block_k, *_qfmt(fmt or _WIDE),
-            int(quant and qa), int(quant and qb), *_qfmt((e_acc, m_acc)),
-            int(sr), seed, route, par, slices,
-            None if ws is None else ws.data_ptr(), stream)
-    else:
-        o = out or _WIDE
-        rc = build.function("qgemm", "qgemm_out", _OUT_ARGTYPES)(
-            a.data_ptr(), _KINDS[a.dtype], a.stride(0), a.stride(1),
-            b.data_ptr(), _KINDS[b.dtype], b.stride(0), b.stride(1),
-            c.data_ptr(), m, n, k, block_k, *(fmt or _WIDE),
-            *_qfmt(fmt or _WIDE),
-            int(quant and qa and a.dtype != torch.int8),
-            int(quant and qb and b.dtype != torch.int8),
-            *_qfmt((e_acc, m_acc)), *_qfmt(o), int(pack), *o, int(sr), seed,
-            route, par, slices, None if ws is None else ws.data_ptr(),
-            stream)
+    fmt, o = fmt or _WIDE, out or _WIDE
+    ka, kb = _KINDS[a.dtype], _KINDS[b.dtype]
+    rc = build.function("qgemm", "qgemm", _ARGTYPES)(
+        a.data_ptr(), ka, a.stride(0), a.stride(1),
+        b.data_ptr(), kb, b.stride(0), b.stride(1),
+        c.data_ptr(), m, n, k, block_k, *fmt, *_qfmt(fmt),
+        int(quant and qa and ka != 2), int(quant and qb and kb != 2),
+        *_qfmt((e_acc, m_acc)), *_qfmt(o), int(pack), *o, int(sr), seed,
+        route, par, slices, None if ws is None else ws.data_ptr(),
+        torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qgemm launch failed: CUDA error {rc}")
     return c
@@ -460,19 +445,22 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
     seed = as_sr_seed(sr_seed)
     fmt = fmt_tuple(repr_fmt)
     _check(a, b, fmt, a_packed, b_packed)
-    _check_variants(return_quantized, a_packed, b_packed)
-    out = _check_out(out_fmt, pack_out)
-    if collect_stats and return_quantized:
-        raise ValueError("collect_stats is a probe-path epilogue; residual "
-                         "emission is a train-path epilogue: pick one")
-    kw = dict(repr_fmt=fmt, e_acc=e_acc, m_acc=m_acc, block_k=block_k,
-              quantize_a=quantize_a, quantize_b=quantize_b, out_fmt=out,
-              pack_out=pack_out, rounding=rounding, sr_seed=seed)
-    if collect_stats:
-        return _stats(a, b, a_packed=a_packed, b_packed=b_packed, **kw)
-    if return_quantized:
-        return _emitq(a, b, pack_residuals=pack_residuals, **kw)
-    if a.device.type == "cpu" and b.device.type == "cpu":
+    out = (None if out_fmt is None and not pack_out
+           else _check_out(out_fmt, pack_out))
+    on_cpu = a.device.type == "cpu" and b.device.type == "cpu"
+    if collect_stats or return_quantized or on_cpu:
+        _check_variants(return_quantized, a_packed, b_packed)
+        if collect_stats and return_quantized:
+            raise ValueError("collect_stats is a probe-path epilogue; "
+                             "residual emission is a train-path epilogue: "
+                             "pick one")
+        kw = dict(repr_fmt=fmt, e_acc=e_acc, m_acc=m_acc, block_k=block_k,
+                  quantize_a=quantize_a, quantize_b=quantize_b, out_fmt=out,
+                  pack_out=pack_out, rounding=rounding, sr_seed=seed)
+        if collect_stats:
+            return _stats(a, b, a_packed=a_packed, b_packed=b_packed, **kw)
+        if return_quantized:
+            return _emitq(a, b, pack_residuals=pack_residuals, **kw)
         return qmatmul_fused_reference(a, b, a_packed=a_packed,
                                        b_packed=b_packed, **kw)
     _check_cuda(a, b, block_k)
@@ -516,12 +504,8 @@ qmatmul_fused.emitq_out_launches = 0
 qmatmul_fused.emitq_f32_launches = 0
 qmatmul_fused.stats_out_launches = 0
 
-_STATS_ARGTYPES = ([_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I,
-                    _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _I, _I,
-                    _U, _P, _P, _P])
-_STATS_OUT_ARGTYPES = ([_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I,
-                        _I, _I, _I] + _Q + [_I, _I] + _Q + _Q
-                       + [_I, _I, _I, _I, _I, _U, _P, _P, _P])
+_STATS_ARGTYPES = (_GEMM + _Q + [_I, _I] + _Q + _Q
+                   + [_I, _I, _I, _I, _I, _U, _P, _P, _P])
 
 
 def _stats(a, b, *, repr_fmt, e_acc, m_acc, block_k, quantize_a, quantize_b,
@@ -550,22 +534,17 @@ def _stats(a, b, *, repr_fmt, e_acc, m_acc, block_k, quantize_a, quantize_b,
     quant = repr_fmt is not None
     sched = sm90.gemm_schedule(m, n, k, block_k, _KINDS[a.dtype],
                                _KINDS[b.dtype])
-    args = (a.data_ptr(), _KINDS[a.dtype], a.stride(0), a.stride(1),
-            b.data_ptr(), _KINDS[b.dtype], b.stride(0), b.stride(1),
-            out.data_ptr(), m, n, k, block_k, e_r, m_r,
-            *qfmt_args(repr_fmt or _WIDE),
-            int(quant and quantize_a and not a_packed),
-            int(quant and quantize_b and not b_packed),
-            *qfmt_args((e_acc, m_acc)))
-    tail = (sched.groups, int(rounding == "sr"), sr_seed, part.data_ptr(),
-            row.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if out_fmt is None:
-        rc = build.function("qgemm_stats", "qgemm_stats",
-                            _STATS_ARGTYPES)(*args, *tail)
-    else:
-        rc = build.function("qgemm_stats", "qgemm_stats_out",
-                            _STATS_OUT_ARGTYPES)(
-            *args, *_qfmt(out_fmt), int(pack_out), *out_fmt, *tail)
+    o = out_fmt or _WIDE
+    rc = build.function("qgemm_stats", "qgemm_stats", _STATS_ARGTYPES)(
+        a.data_ptr(), _KINDS[a.dtype], a.stride(0), a.stride(1),
+        b.data_ptr(), _KINDS[b.dtype], b.stride(0), b.stride(1),
+        out.data_ptr(), m, n, k, block_k, e_r, m_r,
+        *_qfmt(repr_fmt or _WIDE),
+        int(quant and quantize_a and not a_packed),
+        int(quant and quantize_b and not b_packed),
+        *_qfmt((e_acc, m_acc)), *_qfmt(o), int(pack_out), *o, sched.groups,
+        int(rounding == "sr"), sr_seed, part.data_ptr(), row.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qgemm_stats launch failed: CUDA error {rc}")
     if out_fmt is not None:
@@ -584,21 +563,16 @@ def _check_cuda(a, b, block_k) -> None:
         raise ValueError(f"block_k must be positive, got {block_k}")
 
 
-_EMITQ_ARGTYPES = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I,
-                   _I, _I, _I, _I, _F, _F, _I, _I, _F, _F, _I, _I, _U, _P, _P,
-                   _P, _P, _P]
-_EMITQ_OUT_ARGTYPES = ([_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I,
-                        _I, _I, _I] + _Q + _Q + _Q + _Q
-                       + [_I, _I, _I, _I, _I, _I, _I, _U, _P, _P, _P, _P,
-                          _P])
+_EMITQ_ARGTYPES = (_GEMM + _Q + _Q + _Q + _Q
+                   + [_I, _I, _I, _I, _I, _I, _I, _U, _P, _P, _P, _P, _P])
 
 
 def _emitq(a, b, *, repr_fmt, e_acc, m_acc, block_k, quantize_a, quantize_b,
            pack_residuals, out_fmt, pack_out, rounding, sr_seed):
     """Kernel E, ``qmatmul_fused(..., return_quantized=True)``, on checked
-    operands: the quantize-and-pack pass, then the GEMM.  The base entry
-    for int8 residuals of both operands quantized and no output format,
-    the variant entry ``qgemm_emitq_out`` otherwise; one count a call."""
+    operands: the quantize-and-pack pass, then the GEMM; one count a
+    call, the base calls (int8 residuals of both operands quantized, no
+    output format) apart from the variants."""
     fmt, packr = repr_fmt, pack_residuals
     if packr:
         _check_packable(fmt)
@@ -623,43 +597,29 @@ def _emitq(a, b, *, repr_fmt, e_acc, m_acc, block_k, quantize_a, quantize_b,
     if m == 0 or n == 0 or k == 0:
         out.zero_()
         return out, aq, bq
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the scratch the GEMM reads: the f32 residuals themselves, or beside
+    # int8 codes a bf16 scratch (exact for a quantized packable format) or
+    # an f32 one (an operand taken as it is)
+    f32 = not (packr and qa and qb)
+    sa = sb = None
+    if packr:
+        sdt = torch.float32 if f32 else torch.bfloat16
+        sa = torch.empty((m, k), dtype=sdt, device=dev)
+        sb = torch.empty((k, n), dtype=sdt, device=dev)
+    sched = sm90.emitq_schedule(m, n, k, block_k, f32=f32)
+    o = out_fmt or _WIDE
+    e_r, m_r = fmt or (5, 2)    # the code layout (unused without codes)
     sr = int(rounding == "sr")
-    if not variant:
-        # the bf16 values of Q(A) and Q(B) the GEMM reads
-        sa = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
-        sb = torch.empty((k, n), dtype=torch.bfloat16, device=dev)
-        sched = sm90.emitq_schedule(m, n, k, block_k)
-        rc = build.function("qgemm_emitq", "qgemm_emitq", _EMITQ_ARGTYPES)(
-            a.data_ptr(), _DTYPES[a.dtype], a.stride(0), a.stride(1),
-            b.data_ptr(), _DTYPES[b.dtype], b.stride(0), b.stride(1),
-            out.data_ptr(), m, n, k, block_k, fmt[0], fmt[1],
-            *qfmt_args(fmt), *qfmt_args((e_acc, m_acc)), sched.groups, sr,
-            sr_seed, aq.data_ptr(), bq.data_ptr(), sa.data_ptr(),
-            sb.data_ptr(), stream)
-    else:
-        # the scratch the tile runs on: the f32 residuals themselves, or
-        # beside int8 codes a bf16 scratch (exact for a quantized packable
-        # format) or an f32 one (an operand taken as it is)
-        f32 = not (packr and qa and qb)
-        sa = sb = None
-        if packr:
-            sdt = torch.float32 if f32 else torch.bfloat16
-            sa = torch.empty((m, k), dtype=sdt, device=dev)
-            sb = torch.empty((k, n), dtype=sdt, device=dev)
-        sched = sm90.emitq_schedule(m, n, k, block_k, f32=f32)
-        o = out_fmt or _WIDE
-        e_r, m_r = fmt or (5, 2)    # the code layout (unused without codes)
-        rc = build.function("qgemm_emitq", "qgemm_emitq_out",
-                            _EMITQ_OUT_ARGTYPES)(
-            a.data_ptr(), _DTYPES[a.dtype], a.stride(0), a.stride(1),
-            b.data_ptr(), _DTYPES[b.dtype], b.stride(0), b.stride(1),
-            out.data_ptr(), m, n, k, block_k, e_r, m_r,
-            *_qfmt(fmt if qa else _WIDE), *_qfmt(fmt if qb else _WIDE),
-            *_qfmt((e_acc, m_acc)), *_qfmt(o), int(pack_out), *o, int(packr),
-            int(f32), sched.groups, sr, sr_seed, aq.data_ptr(),
-            bq.data_ptr(), None if sa is None else sa.data_ptr(),
-            None if sb is None else sb.data_ptr(), stream)
+    rc = build.function("qgemm_emitq", "qgemm_emitq", _EMITQ_ARGTYPES)(
+        a.data_ptr(), _DTYPES[a.dtype], a.stride(0), a.stride(1),
+        b.data_ptr(), _DTYPES[b.dtype], b.stride(0), b.stride(1),
+        out.data_ptr(), m, n, k, block_k, e_r, m_r,
+        *_qfmt(fmt if qa else _WIDE), *_qfmt(fmt if qb else _WIDE),
+        *_qfmt((e_acc, m_acc)), *_qfmt(o), int(pack_out), *o, int(packr),
+        int(f32), sched.groups, sr, sr_seed, aq.data_ptr(), bq.data_ptr(),
+        None if sa is None else sa.data_ptr(),
+        None if sb is None else sb.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qgemm_emitq launch failed: CUDA error {rc}")
     if variant:

@@ -262,6 +262,47 @@ def test_qdot_out_fmt_residuals_match_jax_vjp(pack_residuals, repr_fmt):
                                       _bits(jy))
 
 
+@pytest.mark.parametrize("cfg_out,hint", [(None, (5, 2)), ((5, 2), (5, 2)),
+                                          ((4, 3), (5, 2)), (None, None)])
+def test_dense_out_fmt_hint_matches_jax(cfg_out, hint):
+    """``layers.dense``'s consumer-format hint (``out_fmt=``) against JAX's
+    ``dense`` under ``jax.vjp``: y (bf16), dx and dw bitwise on lattice
+    operands.  The hint replaces the config's ``out_fmt``, so y lies on
+    its lattice, and the backward is straight-through (dx, dw as
+    without it)."""
+    from repro.models.layers import dense as jax_dense
+    from repro_torch.models.layers import dense
+
+    rng = np.random.RandomState(11)
+    x, w = _lattice(rng, (24, 48)), _lattice(rng, (48, 40))
+    g = _lattice(rng, (24, 40))
+    tc = _cfg(out_fmt=None if cfg_out is None else FPFormat(*cfg_out))
+    jc = _jcfg(out_fmt=None if cfg_out is None else JF(*cfg_out))
+    jh = None if hint is None else JF(*hint)
+    th = None if hint is None else FPFormat(*hint)
+    jy, vjp = jax.vjp(lambda x, w: jax_dense(x, w, jc, out_fmt=jh),
+                      jnp.asarray(x), jnp.asarray(w))
+    jdx, jdw = vjp(jnp.asarray(g).astype(jnp.bfloat16))
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    y = dense(tx, tw, tc, out_fmt=th)
+    y.backward(torch.from_numpy(g).to(torch.bfloat16))
+    assert y.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_bits(y.detach().float().numpy()),
+                                  _bits(np.asarray(jy.astype(jnp.float32))))
+    for got, want in ((tx.grad, jdx), (tw.grad, jdw)):
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    out = hint or cfg_out
+    if out is not None:
+        y32 = y.detach().float()
+        assert torch.equal(quantize_block(y32, *out), y32)
+    # straight-through: the gradients are those of the call without it
+    tx2 = torch.from_numpy(x).requires_grad_()
+    tw2 = torch.from_numpy(w).requires_grad_()
+    dense(tx2, tw2, _cfg()).backward(torch.from_numpy(g).to(torch.bfloat16))
+    assert torch.equal(tx.grad, tx2.grad) and torch.equal(tw.grad, tw2.grad)
+
+
 @pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("lattice", [True, False])
 def test_qdot_packed_matches_jax(lattice, fused):

@@ -123,9 +123,11 @@ def main() -> None:
             def run():
                 rc = f(a.data_ptr(), 0, a.stride(0), a.stride(1), w.data_ptr(),
                        1, w.stride(0), w.stride(1), out.data_ptr(), M, n, k,
-                       64, *qfmt_args(fmt or (8, 23)), int(fmt is not None),
-                       int(fmt is not None), *qfmt_args((6, 9 if head else 5)),
-                       0, 0, 0, s.slots, s.slices, ws.data_ptr(),
+                       64, *(fmt or (8, 23)), *qfmt_args(fmt or (8, 23)),
+                       int(fmt is not None), int(fmt is not None),
+                       *qfmt_args((6, 9 if head else 5)),
+                       *qfmt_args((8, 23)), 0, 8, 23, 0, 0, 0, s.slots,
+                       s.slices, ws.data_ptr(),
                        torch.cuda.current_stream().cuda_stream)
                 assert rc == 0, rc
 
