@@ -63,9 +63,11 @@ on its own line:
    f32 weights, ``SyntheticLM``), 6 AdamW steps at lr 1e-3 with 2 warmup
    steps and the eager telemetry tick every 2 steps
    (``--telemetry-cadence 2``): per-step loss, gradient norm, step time,
-   tokens/s, peak memory and launches (E 196, G 1, B 197 a step; G 197 and
-   K8 24 a tick), each tick's time, events and schedule; the loss must be
-   finite and fall; one step of a 2-layer cut through the kernels and
+   tokens/s, peak memory and launches (E 392 under the default
+   ``REPRO_REMAT_POLICY=full``, whose backward recomputes each layer, G 1,
+   B 197 a step; G 197 and K8 24 a tick), each tick's time, events and
+   schedule; the loss must be finite and fall; 2 more steps under
+   ``none`` (E 196) beside the steady ``full`` step; one step of a 2-layer cut through the kernels and
    through their plain versions, bitwise; then 3 full-depth in-graph
    ticks (``--ingraph-telemetry``: K9 197, K8 197, B 0 each; median and
    spread of their times) and, at the 2-layer
@@ -73,6 +75,13 @@ on its own line:
    launcher's ``main`` under ``--policy perturbed --pp -2`` with a tick
    every step (eager, then in-graph), 3 full-depth steps each: the
    controller must bump, the model be re-planned and training go on;
+   ``[train-4k]``: the train cell's model at 4096 tokens, batch 1, 3
+   steps under ``full`` (one more profiled), one under ``dots`` (peak
+   and launches within 1% of ``full``'s), the bytes a layer keeps under
+   ``none`` and the 28-layer need they give (not attempted where it
+   cannot fit), 2 steps of 2 microbatches with loss scaling, and 2
+   layers ``full`` bitwise ``none``; ``[fig6]``: the paper's Fig. 6
+   runner at its defaults, its tail losses and verdict;
 6. the oracle and the dense prefill: on the serve cell, one request's full-depth
    prefill logits under the unfused oracle plan (``QDotConfig(
    fused=False)``: K2 quantize and K3 chunked qmatmul) against the fused
@@ -159,8 +168,8 @@ on its own line:
    ``AccumulationPolicy(quantize_outputs=True)``: the serve prompts at
    full depth (G's epilogue counted), 2-layer serving bitwise the plain
    path (tokens, arena), ``qdot_packed`` at the decode shapes bitwise
-   ``QTensor.pack`` of the plain rounding, 3 full-depth training steps
-   (the loss falls, E's epilogue 196 launches a step, every dense output
+   ``QTensor.pack`` of the plain rounding, 6 full-depth training steps
+   (the loss falls, E's epilogue 392 launches a step, every dense output
    on the (1,5,2) lattice), a 2-layer step bitwise its plain versions and
    with ``pack_residuals=False`` bitwise the packed step; ``[a2q]``, the
    launcher under ``--a2q-reg 1e-4 --a2q-x-bound 16`` at full width and
@@ -184,6 +193,7 @@ import functools
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1804,6 +1814,36 @@ def _train_counters():
             K9_NAME: (qmatmul_bwd_pair, "stats_launches")}
 
 
+@contextmanager
+def remat_policy(pol: str):
+    """``REPRO_REMAT_POLICY=pol`` for the body: the training forward reads
+    it each time it runs (``repro_torch.models.lm._remat``)."""
+    old = os.environ.get("REPRO_REMAT_POLICY")
+    os.environ["REPRO_REMAT_POLICY"] = pol
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_REMAT_POLICY", None)
+        else:
+            os.environ["REPRO_REMAT_POLICY"] = old
+
+
+def want_step(cfg, microbatches: int = 1) -> dict:
+    """The launches of one untagged training step of ``cfg`` under the
+    current remat policy: E on every layer GEMM each forward pass, G on
+    the lm_head, B on every GEMM, once a microbatch."""
+    from repro_torch.models.api import dense_gemm_shapes
+    from repro_torch.models.lm import layer_forwards
+
+    n = (len(dense_gemm_shapes(cfg, seq_len=1, global_batch=1)) - 1
+         ) * cfg.n_layers
+    return {E_NAME: microbatches * layer_forwards(cfg) * n,
+            "qmatmul_fused": microbatches,
+            "qmatmul_bwd_pair": microbatches * (n + 1),
+            K7_NAME: 0, K8_NAME: 0, K9_NAME: 0}
+
+
 TELEMETRY_CADENCE = 2
 TELEMETRY_LOG = ROOT / "build" / "telemetry.jsonl"   # gitignored
 
@@ -1846,10 +1886,7 @@ def phase_train(dev) -> dict:
     tokens = TRAIN_SEQ * TRAIN_BATCH
     n_layer_gemms = len(dense_gemm_shapes(cfg, seq_len=TRAIN_SEQ,
                                           global_batch=TRAIN_BATCH)) - 1
-    want = {E_NAME: n_layer_gemms * cfg.n_layers,
-            "qmatmul_fused": 1,
-            "qmatmul_bwd_pair": n_layer_gemms * cfg.n_layers + 1,
-            K7_NAME: 0, K8_NAME: 0, K9_NAME: 0}
+    want = want_step(cfg)
     # a tick: the probe's forward (G on every quantized GEMM, no autograd),
     # then K8 on the lm_head's 3 roles and on the 7 synthetic layer tags'
     want_tick = {E_NAME: 0, "qmatmul_fused": n_layer_gemms * cfg.n_layers + 1,
@@ -1947,9 +1984,28 @@ def phase_train(dev) -> dict:
           f"{TELEMETRY_LOG.name}), final schedule {controller.to_meta()}, "
           f"launches {tick_launches}", flush=True)
     check(logged == n_events, "the event log lost events")
+    none_ms, none_peak = _steps_without_remat(step_fn, state, data, cfg,
+                                              min(step_ms[1:]))
     del state
     return dict(launches=launches, losses=losses, step_ms=step_ms, peak=peak,
-                tick_ms=tick_ms, tick_launches=tick_launches, profile=profile)
+                tick_ms=tick_ms, tick_launches=tick_launches, profile=profile,
+                none_ms=none_ms, none_peak=none_peak)
+
+
+def _steps_without_remat(step_fn, state, data, cfg, full_ms: float,
+                         steps: int = 2):
+    """``steps`` more steps of a training cell under
+    ``REPRO_REMAT_POLICY=none`` (every activation kept for the backward,
+    E once a layer GEMM): the steady step and its peak memory, beside the
+    ``full`` policy's steady step ``full_ms``."""
+    with remat_policy("none"):
+        rows = _timed_steps("[train] none", step_fn, state, data, cfg, steps,
+                            TRAIN_SEQ * TRAIN_BATCH)
+    ms, peak = min(r[1] for r in rows), max(r[2] for r in rows)
+    print(f"[train] the same cell under REPRO_REMAT_POLICY=none: steady step "
+          f"{ms:.1f} ms against full's {full_ms:.1f} ms ({full_ms / ms:.3f}x);"
+          f" peak memory {peak / 2 ** 30:.2f} GiB", flush=True)
+    return ms, peak
 
 
 def _profile_step(step_fn, state, batch, step_ms: float,
@@ -2053,6 +2109,7 @@ def phase_train_ingraph(dev, steady_step_ms: float) -> dict:
 
     from repro_torch.launch.train import build, build_telemetry
     from repro_torch.models.api import dense_gemm_shapes, get_model
+    from repro_torch.models.lm import layer_forwards
     from repro_torch.obs.ingraph import (InGraphCollector, collecting,
                                          tag_quant_plan)
     from repro_torch.train.loop import TrainConfig, make_train_step
@@ -2067,7 +2124,8 @@ def phase_train_ingraph(dev, steady_step_ms: float) -> dict:
     n_gemms = len(dense_gemm_shapes(cfg, seq_len=TRAIN_SEQ,
                                     global_batch=TRAIN_BATCH)) - 1
     n_qdot = n_gemms * cfg.n_layers + 1
-    want = {"qmatmul_fused": 1, E_NAME: n_qdot - 1, "qmatmul_bwd_pair": 0,
+    want = {"qmatmul_fused": 1, E_NAME: layer_forwards(cfg) * (n_qdot - 1),
+            "qmatmul_bwd_pair": 0,
             K7_NAME: 0, K8_NAME: n_qdot, K9_NAME: n_qdot}
     counters = _train_counters()
     total = {k: 0 for k in counters}
@@ -2164,17 +2222,19 @@ def phase_train_replan(dev) -> dict:
 
     from repro_torch.launch import train as LT
     from repro_torch.models.api import dense_gemm_shapes
+    from repro_torch.models.lm import layer_forwards
 
     cfg = _train_cfg()
     n_qdot = (len(dense_gemm_shapes(cfg, seq_len=TRAIN_SEQ,
                                     global_batch=TRAIN_BATCH)) - 1
               ) * cfg.n_layers + 1
-    s = REPLAN_STEPS
+    s, fwd = REPLAN_STEPS, layer_forwards(cfg)
     wants = {
-        False: {E_NAME: s * (n_qdot - 1), "qmatmul_fused": s * (1 + n_qdot),
+        False: {E_NAME: s * fwd * (n_qdot - 1),
+                "qmatmul_fused": s * (1 + n_qdot),
                 "qmatmul_bwd_pair": s * n_qdot, K7_NAME: 0, K8_NAME: s * 24,
                 K9_NAME: 0},
-        True: {E_NAME: s * (n_qdot - 1), "qmatmul_fused": s,
+        True: {E_NAME: s * fwd * (n_qdot - 1), "qmatmul_fused": s,
                "qmatmul_bwd_pair": 0, K7_NAME: 0, K8_NAME: s * n_qdot,
                K9_NAME: s * n_qdot}}
     make_step, built = LT.make_train_step, []
@@ -2239,6 +2299,283 @@ def phase_train_replan(dev) -> dict:
         del res
         torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------
+# [train-4k]: the published 4096-token length under the remat policies
+# --------------------------------------------------------------------------
+
+T4K_SEQ = 4096          # Qwen2's pre-training length (arXiv:2407.10671)
+T4K_STEPS = 3
+
+
+def _t4k_argv(*extra) -> tuple:
+    return ("--seq-len", str(T4K_SEQ), "--global-batch", "1", "--steps",
+            str(T4K_STEPS), *extra)
+
+
+def _timed_steps(label, step_fn, state, data, cfg, steps, tokens,
+                 microbatches=1):
+    """``steps`` training steps, each timed and held to the current remat
+    policy's launches (``want_step``); per step (loss, ms, peak bytes,
+    the launches counted)."""
+    counters = _train_counters()
+    want = want_step(cfg, microbatches)
+    rows = []
+    for step in range(steps):
+        batch = next(data)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        per = read_counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+        rows.append((loss, dt, peak, per))
+        print(f"{label} step {step + 1}: loss {loss:.5f}, grad "
+              f"norm {float(m['grad_norm']):.4f}, skipped "
+              f"{float(m['skipped']):.0f}, {dt:.1f} ms ({tokens / dt * 1e3:.1f}"
+              f" tokens/s), peak memory {peak / 2 ** 30:.2f} GiB, launches "
+              f"{ {k: v for k, v in per.items() if v} }", flush=True)
+        check(per == want, f"{label}: launches {per} != {want}")
+        check(math.isfinite(loss), f"{label}: non-finite loss")
+    return rows
+
+
+def _kept_bytes(dev, n_layers: int) -> int:
+    """Bytes the training forward of qwen2-1.5b cut to ``n_layers`` leaves
+    for its backward at batch 1 x ``T4K_SEQ`` under the current remat
+    policy: memory allocated after the loss, less before it."""
+    from repro_torch.models.api import get_model
+    from repro_torch.train.loop import compute_copy
+
+    cfg = _train_cfg(n_layers=n_layers, seq=T4K_SEQ, batch=1)
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+    params = model.init_params(gen, dev)
+    c = compute_copy(params)
+    tokens = torch.randint(0, cfg.vocab_size, (1, T4K_SEQ), generator=gen,
+                           device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    loss, _ = model.loss_fn(c, {"tokens": tokens}, cfg)
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated() - base
+    del loss, c, params
+    torch.cuda.empty_cache()
+    return kept
+
+
+def phase_train_4k(dev) -> dict:
+    """``[train-4k]``: qwen2-1.5b at full width and depth at the published
+    4096-token length through the training launcher's ``build`` (predicted
+    plan, chunk 64).  (a) global batch 1 under the default ``full`` remat,
+    ``T4K_STEPS`` steps: step ms, tokens/s, peak memory and the launches,
+    held to the policy's counts.  (b) one step under ``dots``: its peak
+    and launches within 1% of (a)'s (the GEMMs are kernels, so ``dots``
+    keeps what ``full`` keeps), after one profiled ``full`` step.  (c)
+    ``none`` at 1 and 2 layers: the
+    bytes one layer keeps, against ``full``'s, and the 28-layer peak they
+    predict; no 28-layer step under ``none`` is attempted.  (d) global
+    batch 2 in 2 microbatches with dynamic loss scaling, 2 steps.  (e) at
+    2 layers, the loss and every gradient under ``full`` bitwise those
+    under ``none`` and those of the plain versions
+    (``_t4k_remat_vs_plain``)."""
+    from repro_torch.launch.train import build
+    from repro_torch.models.api import param_count
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    gib = 2 ** 30
+    out = {}
+    with remat_policy("full"):
+        torch.cuda.reset_peak_memory_stats()
+        model, tc, state, data, _ = build(_train_args(*_t4k_argv()))
+        cfg = model.cfg
+        state_bytes = torch.cuda.memory_allocated()
+        # the step's bf16 compute copy of every parameter of 2+ dimensions
+        copy_bytes = sum(2 * p.numel() for p in tree_leaves(state["params"])
+                         if p.ndim >= 2)
+        print(f"[train-4k] {cfg.name}: {cfg.n_layers} layers, d "
+              f"{cfg.d_model}, vocab {cfg.vocab_size}, "
+              f"{param_count(state['params']) / 1e6:.1f}M params; predicted "
+              f"plan chunk 64, batch 1 x seq {T4K_SEQ}; training state "
+              f"{state_bytes / gib:.2f} GiB on a {total / gib:.2f} GiB card",
+              flush=True)
+        step_fn = make_train_step(model, tc)
+        rows = _timed_steps("[train-4k] full", step_fn, state, data, cfg,
+                            T4K_STEPS, T4K_SEQ)
+        steady = min(r[1] for r in rows[1:])
+        _profile_step(step_fn, state, next(data), steady, tag="[train-4k]")
+    losses = [r[0] for r in rows]
+    peak_full, used = rows[-1][2], rows[-1][3]
+    print(f"[train-4k] (a) full: losses {[round(x, 5) for x in losses]}; "
+          f"steady step {steady:.1f} ms ({T4K_SEQ / steady * 1e3:.1f} "
+          f"tokens/s); peak memory {peak_full / gib:.2f} GiB of "
+          f"{total / gib:.2f}; launches a step {used}", flush=True)
+    check(peak_full < total, "[train-4k] peak above the card's memory")
+    out.update(step_ms=steady, peak=peak_full, losses=losses, launches=used)
+
+    with remat_policy("dots"):
+        (loss_d, ms_d, peak_d, used_d), = _timed_steps(
+            "[train-4k] dots", step_fn, state, data, cfg, 1, T4K_SEQ)
+    print(f"[train-4k] (b) dots: {ms_d:.1f} ms, peak memory "
+          f"{peak_d / gib:.2f} GiB against full's {peak_full / gib:.2f} GiB "
+          f"({peak_d / peak_full:.4f}x); launches {used_d} against full's "
+          f"{used}", flush=True)
+    check(abs(peak_d / peak_full - 1) <= 0.01,
+          "[train-4k] dots' peak is not full's within 1%")
+    check(used_d == used, "[train-4k] dots launches differ from full's")
+    out.update(dots_ms=ms_d, dots_peak=peak_d)
+    del state, step_fn, model, data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kept = {}
+    for pol in ("none", "full"):
+        with remat_policy(pol):
+            kept[pol] = {n: _kept_bytes(dev, n) for n in (1, 2)}
+    layer = {p: k[2] - k[1] for p, k in kept.items()}
+    # at the forward's end under none: the state, the compute copy, what
+    # the embedding, lm_head and loss keep (1 layer's kept bytes less the
+    # layer's) and every layer's residuals; the backward only adds to it
+    need = (state_bytes + copy_bytes + kept["none"][1] - layer["none"]
+            + cfg.n_layers * layer["none"])
+    print(f"[train-4k] (c) none: one layer keeps {layer['none'] / 2 ** 20:.1f}"
+          f" MiB for its backward at batch 1 x seq {T4K_SEQ} (full: "
+          f"{layer['full'] / 2 ** 20:.1f} MiB, its input); the lm_head and "
+          f"loss keep {(kept['none'][1] - layer['none']) / gib:.2f} GiB; "
+          f"{cfg.n_layers} layers under none hold at least {need / gib:.2f} "
+          f"GiB at the forward's end (state {state_bytes / gib:.2f}, compute "
+          f"copy {copy_bytes / gib:.2f}) against the card's "
+          f"{total / gib:.2f} GiB: "
+          f"{'fits' if need < total else 'does not fit, not attempted'}",
+          flush=True)
+    check(layer["none"] > layer["full"] > 0, "[train-4k] none keeps no more "
+          "than full")
+    out.update(layer_none=layer["none"], layer_full=layer["full"],
+               none_need=need)
+
+    with remat_policy("full"):
+        torch.cuda.reset_peak_memory_stats()
+        model, tc, state, data, _ = build(_train_args(*_t4k_argv(
+            "--global-batch", "2", "--microbatches", "2", "--loss-scaling",
+            "--steps", "2")))
+        step_fn = make_train_step(model, tc)
+        rows_mb = _timed_steps("[train-4k] microbatches 2, loss scaling",
+                               step_fn, state, data, model.cfg, 2,
+                               2 * T4K_SEQ, microbatches=2)
+    ms_mb = rows_mb[-1][1]
+    print(f"[train-4k] (d) global batch 2 in 2 microbatches, loss scaling: "
+          f"step {ms_mb:.1f} ms ({ms_mb / steady:.3f}x (a)'s), peak memory "
+          f"{max(r[2] for r in rows_mb) / gib:.2f} GiB", flush=True)
+    out.update(mb_ms=ms_mb, mb_peak=max(r[2] for r in rows_mb))
+    del state, step_fn, model, data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out.update(_t4k_remat_vs_plain(dev))
+    return out
+
+
+def _t4k_remat_vs_plain(dev) -> dict:
+    """``[train-4k]`` (e): qwen2-1.5b cut to 2 layers at full width, batch
+    1 x ``T4K_SEQ``: the loss and every gradient through the kernels under
+    ``full``, then under ``none``, then through the kernels' plain
+    versions under ``full``, all three bitwise.  The plain run holds E, B
+    and G to their plain versions at the 4096-row shapes of the
+    [train-4k] steps (B's weight gradient over 64 chunks of T, the
+    lm_head's 4096 x 151936 G and B, whose f32 g passes 2^31 bytes)."""
+    from repro_torch.models.api import get_model
+    from repro_torch.train.loop import _grads, compute_copy
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = _train_cfg(n_layers=2, seq=T4K_SEQ, batch=1)
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 73)
+    params = model.init_params(gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, T4K_SEQ), generator=gen,
+                           device=dev, dtype=torch.int32)
+
+    def step():
+        c = compute_copy(params)
+        loss, _ = model.loss_fn(c, {"tokens": tokens}, cfg)
+        loss.backward()
+        return loss.detach(), tree_leaves(_grads(c, params))
+
+    counters = _train_counters()
+    got, used = {}, {}
+    for pol in ("full", "none"):
+        with remat_policy(pol):
+            zero_counts(counters)
+            got[pol] = step()
+            used[pol] = read_counts(counters)
+    with remat_policy("full"), plain_versions():
+        t0 = time.perf_counter()
+        got["plain"] = step()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    loss = float(got["full"][0])
+    for label in ("none", "plain"):
+        leaves = list(zip(got["full"][1], got[label][1]))
+        same = sum(bool(torch.equal(a, b)) for a, b in leaves)
+        err = max(float((a - b).abs().max()) for a, b in leaves)
+        print(f"[train-4k] (e) 2 layers at seq {T4K_SEQ}, kernels under full "
+              f"vs {'kernels under none' if label == 'none' else 'plain'}: "
+              f"loss {loss:.6f} vs {float(got[label][0]):.6f}; "
+              f"{same}/{len(leaves)} gradient leaves bitwise equal (max "
+              f"|err| {err:.3g})", flush=True)
+        check(torch.equal(got["full"][0], got[label][0]),
+              f"[train-4k] full's loss differs from {label}'s")
+        check(same == len(leaves), f"[train-4k] a gradient differs between "
+              f"full and {label}")
+    print(f"[train-4k] (e) kernel launches under full "
+          f"{ {k: v for k, v in used['full'].items() if v} }, under none "
+          f"{ {k: v for k, v in used['none'].items() if v} }; plain step "
+          f"{plain_s:.1f} s", flush=True)
+    for k in (E_NAME, "qmatmul_fused", "qmatmul_bwd_pair"):
+        check(used["full"][k] > 0 and used["none"][k] > 0,
+              f"[train-4k] (e) launched no {k}")
+    del got, params
+    torch.cuda.empty_cache()
+    return dict(plain_4k_s=plain_s)
+
+
+def phase_fig6(dev) -> dict:
+    """``[fig6]``: ``repro_torch.paper.fig6_convergence.run()`` at its
+    defaults on the card (the smoke config, 60 steps of 8 x 64 tokens, the
+    exact baseline, PP 0, -2 and -4): its lines, the four tail losses and
+    the verdict, and its kernel launches (E, G and B on the quantized
+    runs)."""
+    import contextlib
+    import io
+
+    from repro_torch.paper.fig6_convergence import run
+
+    counters = _train_counters()
+    zero_counts(counters)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = run(device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    used = read_counts(counters)
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            print(f"[fig6] {line}", flush=True)
+    tails = res["tails"]
+    print(f"[fig6] tail losses {json.dumps(tails)}; {secs:.1f} s; launches "
+          f"{ {k: v for k, v in used.items() if v} }", flush=True)
+    check(set(tails) == {"exact", "PP= 0", "PP=-2", "PP=-4"} and all(
+        math.isfinite(v) for v in tails.values()), f"[fig6] tails {tails}")
+    for k in (E_NAME, "qmatmul_fused", "qmatmul_bwd_pair"):
+        check(used[k] > 0, f"[fig6] {k} was not launched")
+    return dict(secs=secs, **res)
 
 
 # --------------------------------------------------------------------------
@@ -2527,6 +2864,7 @@ def phase_train_oracle(dev) -> dict:
     second step time and peak memory, and its launches."""
     from repro_torch.launch.train import build
     from repro_torch.models.api import dense_gemm_shapes, get_model
+    from repro_torch.models.lm import layer_forwards
     from repro_torch.train.loop import _grads, compute_copy, make_train_step
     from repro_torch.train.optimizer import tree_leaves
 
@@ -2573,10 +2911,13 @@ def phase_train_oracle(dev) -> dict:
     n_qdot = (len(dense_gemm_shapes(full, seq_len=TRAIN_SEQ,
                                     global_batch=TRAIN_BATCH)) - 1
               ) * full.n_layers + 1
-    steps = 2
-    want = {True: {K2_NAME: steps * 3 * (n_qdot - 1),
-                   K3_NAME: steps * 3 * n_qdot},
-            False: {K2_NAME: 0, K3_NAME: 0, E_NAME: steps * (n_qdot - 1),
+    steps, fwd = 2, layer_forwards(full)
+    # a layer qdot: K2 on x and w each forward pass and on g; K3 once a
+    # forward pass and twice in the backward (the lm_head: K3 only)
+    want = {True: {K2_NAME: steps * (2 * fwd + 1) * (n_qdot - 1),
+                   K3_NAME: steps * ((fwd + 2) * (n_qdot - 1) + 3)},
+            False: {K2_NAME: 0, K3_NAME: 0,
+                    E_NAME: steps * fwd * (n_qdot - 1),
                     "qmatmul_fused": steps,
                     "qmatmul_bwd_pair": steps * n_qdot}}
     runs = {}
@@ -3168,6 +3509,7 @@ def phase_train_sr(dev, rne_step_ms: float, rne_tick_ms=None) -> dict:
     tick's time against the RNE ticks' (``rne_tick_ms``)."""
     from repro_torch.launch.train import build, build_telemetry
     from repro_torch.models.api import dense_gemm_shapes
+    from repro_torch.models.lm import layer_forwards
     from repro_torch.obs.ingraph import InGraphTelemetry
     from repro_torch.train.loop import make_train_step, run_telemetry_tick
 
@@ -3185,14 +3527,15 @@ def phase_train_sr(dev, rne_step_ms: float, rne_tick_ms=None) -> dict:
                                global_batch=TRAIN_BATCH)) - 1) * cfg.n_layers
     counters = {**_train_counters(), **_sr_counters()}
     zero = {k: 0 for k in counters}
-    want_step = dict(zero, **{E_SR_NAME: n, B_SR_NAME: n,
+    fwd = layer_forwards(cfg)
+    want_step = dict(zero, **{E_SR_NAME: fwd * n, B_SR_NAME: n,
                               "qmatmul_fused": 1, "qmatmul_bwd_pair": 1})
     # the probe's no-grad forward (G under SR on the layer GEMMs, G under
     # RNE on the lm_head), K8 under SR on the 7 layer tags' 3 roles and
     # under RNE on the lm_head's 3
     want_tick = dict(zero, **{G_SR_NAME: n, "qmatmul_fused": 1,
                               K8_SR_NAME: 21, K8_NAME: 3})
-    want_tagged = dict(zero, **{E_SR_NAME: n, "qmatmul_fused": 1,
+    want_tagged = dict(zero, **{E_SR_NAME: fwd * n, "qmatmul_fused": 1,
                                 K9_SR_NAME: n, K9_NAME: 1, K8_SR_NAME: n,
                                 K8_NAME: 1})
     print(f"[train] sr: {cfg.name} {cfg.n_layers} layers, --rounding sr "
@@ -4756,7 +5099,11 @@ def phase_variants(cfg, dev) -> dict:
 
 # ---------------------------------------------------------- quantize_outputs
 
-QOUT_STEPS = 3
+# Six steps, as the train cell's: over JAX's SyntheticLM batches the loss
+# under (1,5,2) activations rises over the first three (12.410, 12.398,
+# 12.419, the same bits under REPRO_REMAT_POLICY none and full) and
+# falls by the sixth (12.089)
+QOUT_STEPS = 6
 QOUT_SERVE = 2          # requests of the 2-layer kernels-vs-plain serve run
 QOUT_SERVE_GEN = 4
 
@@ -4790,13 +5137,15 @@ def _qout_cfg(cfg, seq, batch, **policy):
 def phase_qout_train(dev, rne_step_ms: float, rne_profile=None) -> dict:
     """``[qout]`` training: the train cell at full width and depth through
     the launcher's set-up under quantize_outputs, ``QOUT_STEPS`` steps:
-    the loss falls, E runs with its epilogue (196 launches a step, the
-    base E none) and every dense forward output of the first step lies on
+    the loss falls, E runs with its epilogue (196 launches a forward pass,
+    392 a step under the default remat, the base E none) and every dense
+    forward output of the first step, the recompute's included, lies on
     the (1,5,2) lattice.  One more step is profiled, and its kernels are
     set beside the RNE step's profile (``rne_profile``): the kernels whose
     device time moved most."""
     from repro_torch.kernels import ops
     from repro_torch.launch.train import build
+    from repro_torch.models.lm import layer_forwards
     from repro_torch.quant.formats import FP8_152
     from repro_torch.train.loop import make_train_step
 
@@ -4810,7 +5159,8 @@ def phase_qout_train(dev, rne_step_ms: float, rne_profile=None) -> dict:
     counters = {**_train_counters(), **_var_counters()}
     real = ops.qmatmul_fused
     on_lattice = []
-    n_dense = 7 * model.cfg.n_layers        # 196 at full depth
+    # 196 at full depth, each forward pass (the recompute included)
+    n_dense = 7 * model.cfg.n_layers * layer_forwards(model.cfg)
 
     def spy(*a, **kw):
         out = real(*a, **kw)
@@ -4881,6 +5231,7 @@ def phase_qout_vs_plain(dev) -> dict:
     ``pack_residuals=False`` (E's f32 residuals, B on them) bitwise the
     packed one."""
     from repro_torch.models.api import get_model
+    from repro_torch.models.lm import layer_forwards
     from repro_torch.train.loop import _grads, compute_copy
     from repro_torch.train.optimizer import tree_leaves
 
@@ -4926,7 +5277,8 @@ def phase_qout_vs_plain(dev) -> dict:
     print(f"[qout] launches packed {used[E_OUT_NAME]} E with the epilogue, "
           f"f32 residuals {used_f32[E_F32_NAME]} E with f32 residuals; plain "
           f"step {plain_s:.1f} s", flush=True)
-    check(used[E_OUT_NAME] == 14 and used_f32[E_F32_NAME] == 14,
+    n_e = 14 * layer_forwards(cfg)      # 2 layers' 7 GEMMs, each pass
+    check(used[E_OUT_NAME] == n_e and used_f32[E_F32_NAME] == n_e,
           f"[qout] E variants launched {used[E_OUT_NAME]} and "
           f"{used_f32[E_F32_NAME]} times")
     out["f32_launches"] = used_f32[E_F32_NAME]
@@ -5192,6 +5544,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_train_replan(dev)
     torch.cuda.empty_cache()
+    phase_train_4k(dev)
+    torch.cuda.empty_cache()
+    phase_fig6(dev)
+    torch.cuda.empty_cache()
     sk = phase_sr_kernels(dev)
     torch.cuda.empty_cache()
     sg = phase_sr_g(dev)
@@ -5335,7 +5691,7 @@ def main() -> None:
              replaces="src/repro/kernels/attention.py:930",
              launches_from="the [tp] resume walk", **tpk["resume"]),
         # the fused GEMM's last variants: G's and E's output epilogue over
-        # the quantize_outputs runs ([qout]: serving, 3 training steps), E's
+        # the quantize_outputs runs ([qout]: serving, 6 training steps), E's
         # f32 residuals over the 2-layer pack_residuals=False step; G's
         # operand variants and K8's epilogue, on no path of the cells, over
         # one eager run of their [variants] sequence; each timed over one

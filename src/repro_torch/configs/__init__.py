@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import SHAPES, ModelConfig, ShapeConfig  # noqa: F401
 
 ALIASES = {"qwen2-1.5b": "qwen2_1_5b"}
 

@@ -1,18 +1,17 @@
 """Synthetic deterministic LM data pipeline.
 
 Counterpart of ``repro.data.pipeline`` (``DataConfig``, ``SyntheticLM``):
-an infinite, seeded, learnable token stream with an O(1) checkpointable
-cursor (the step index).  Each sequence follows the affine recurrence
-t_{i+1} = (a t_i + b) mod V in int32 arithmetic, as the JAX package
-computes it (the product wraps at 2^31 for large vocabularies, so the
-next-token map is the JAX one), with i.i.d. noise tokens replacing a
+an infinite, seeded, learnable token stream, sharded per host, with an O(1)
+checkpointable cursor (the step index).  Each sequence follows the affine
+recurrence t_{i+1} = (a t_i + b) mod V in int32 arithmetic, as the JAX
+package computes it (the product wraps at 2^31 for large vocabularies, so
+the next-token map is the JAX one), with i.i.d. noise tokens replacing a
 ``noise`` fraction of positions.  (a, b) are a property of the dataset
-(drawn from ``seed``); start tokens and noise are drawn per step.  One
-host: the JAX pipeline's per-host sharding is not ported.
+(drawn from ``seed``); start tokens and noise are drawn per step and host.
 
-The draws come from ``torch.Generator``s seeded from (seed, step),
-not from JAX's threefry stream, so the two packages make different
-batches from one seed: tests hand both the same token arrays.
+The draws are JAX's threefry stream (``repro_torch.data.prng``), key for
+key as the JAX pipeline derives them, so both packages make the same
+batches, bit for bit, from one seed.
 """
 
 from __future__ import annotations
@@ -20,6 +19,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from repro_torch.data import prng
 
 __all__ = ["DataConfig", "SyntheticLM"]
 
@@ -31,6 +32,8 @@ class DataConfig:
     global_batch: int
     seed: int = 0
     noise: float = 0.05    # fraction of positions replaced with noise tokens
+    host_id: int = 0
+    n_hosts: int = 1
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -45,32 +48,42 @@ def affine_next(t: torch.Tensor, a: int, b: int, vocab: int) -> torch.Tensor:
 
 
 class SyntheticLM:
-    """Iterator of {"tokens": (B, S) int32} batches on ``device``."""
+    """Iterator of {"tokens": (B_host, S) int32} batches on ``device``."""
 
     def __init__(self, cfg: DataConfig, start_step: int = 0, device="cpu"):
+        if cfg.global_batch % cfg.n_hosts:
+            raise ValueError("global_batch must divide by n_hosts")
         self.cfg = cfg
         self.step = start_step
         self.device = device
-        g = torch.Generator().manual_seed(cfg.seed)
+        # the affine map (a, b) is a dataset property (seed-derived): the
+        # next-token function is a fixed learnable bigram map
         v = cfg.vocab_size
-        self.a_coef = 1 + 2 * int(torch.randint(0, max(v // 2, 1), (),
-                                                generator=g))
-        self.b_coef = int(torch.randint(0, v, (), generator=g))
+        kd = prng.prng_key(cfg.seed)
+        self.a_coef = 1 + 2 * int(prng.randint(kd, (), 0, max(v // 2, 1)))
+        self.b_coef = int(prng.randint(prng.fold_in(kd, 1), (), 0, v))
+
+    @property
+    def host_batch(self) -> int:
+        return self.cfg.global_batch // self.cfg.n_hosts
 
     def batch_at(self, step: int) -> dict:
         c = self.cfg
-        g = torch.Generator().manual_seed((c.seed + 7919) * 1_000_003 + step)
-        b, v = c.global_batch, c.vocab_size
-        t = torch.randint(0, v, (b,), generator=g)
+        key = prng.fold_in(prng.prng_key(c.seed + 7919), step)
+        key = prng.fold_in(key, c.host_id)
+        _, _, k3, k4 = prng.split(key, 4)
+        b, v = self.host_batch, c.vocab_size
+        t = prng.randint(k3, (b, 1), 0, v)[:, 0].to(torch.int64)
         cols = [t]
         for _ in range(c.seq_len - 1):
             t = affine_next(t, self.a_coef, self.b_coef, v)
             cols.append(t)
-        tokens = torch.stack(cols, dim=1)
-        noise_mask = torch.rand(tokens.shape, generator=g) < c.noise
-        noise_tok = torch.randint(0, v, tokens.shape, generator=g)
+        tokens = torch.stack(cols, dim=1).to(torch.int32)
+        # one key feeds both draws, as in the JAX pipeline
+        noise_mask = prng.bernoulli(k4, c.noise, tokens.shape)
+        noise_tok = prng.randint(k4, tokens.shape, 0, v)
         tokens = torch.where(noise_mask, noise_tok, tokens)
-        return {"tokens": tokens.to(torch.int32).to(self.device)}
+        return {"tokens": tokens.to(self.device)}
 
     def __iter__(self):
         return self

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 
-__all__ = ["QuantPlan", "ModelConfig"]
+__all__ = ["QuantPlan", "ModelConfig", "ShapeConfig", "SHAPES"]
 
 
 @dataclass(frozen=True)
@@ -50,3 +50,23 @@ class ModelConfig:
 
     def with_quant(self, quant: QuantPlan) -> "ModelConfig":
         return replace(self, quant=quant)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

@@ -4,15 +4,32 @@ the paged serving entry points.
 Counterpart of ``repro.models.lm`` for the dense family.  The layer stack
 keeps the JAX layout (every per-layer tensor stacked on a leading layer
 axis); the ``scan`` over layers is a Python loop, which also takes the
-stack as a list of per-layer trees (the trainer's compute copy).  Remat is
-left out: it changes memory, not numbers.
+stack as a list of per-layer trees (the trainer's compute copy).
+
+Remat, as in the JAX package: the training forward (``remat=True``, the
+default) runs each layer under the policy that ``REPRO_REMAT_POLICY``
+names when the forward is called (``_remat``).  ``full`` (the default)
+keeps a layer's inputs alone and recomputes its forward in the backward;
+``dots`` also keeps the outputs of the 2-D matmuls of the differentiated
+program (JAX's ``dots_with_no_batch_dims_saveable``); ``none`` keeps
+everything autograd saves.  The recompute is bitwise the forward (every
+kernel is deterministic and the SR dither is keyed by seed, chunk and
+output), so the policy changes memory and time, never numbers.
 """
 
 from __future__ import annotations
 
+import functools
+import os
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.dist import LOCAL, Dist, gather_cols
 from repro_torch.models import layers as L
@@ -153,16 +170,104 @@ def _unembed_sharded(x: torch.Tensor, head: torch.Tensor, cfg: ModelConfig,
     return logits
 
 
-def forward_hidden(params: Params, batch: dict, cfg: ModelConfig
-                   ) -> torch.Tensor:
+def remat_policy() -> str:
+    """The policy ``REPRO_REMAT_POLICY`` names now: ``none``, ``dots``, or
+    ``full`` for anything else (the JAX package's reading)."""
+    pol = os.environ.get("REPRO_REMAT_POLICY", "full")
+    return pol if pol in ("none", "dots") else "full"
+
+
+def layer_forwards(cfg: ModelConfig) -> int:
+    """How many times a training step runs each layer's forward GEMMs under
+    the current policy: 2 where the backward recomputes the layer, 1 under
+    ``none``.  ``dots`` recomputes them too wherever the plan quantizes a
+    GEMM: the hand-written kernels are not matmul ops the policy can keep
+    (as JAX's policy cannot keep a ``pallas_call``'s output); the exact
+    plan's GEMMs are, and ``dots`` keeps them."""
+    pol = remat_policy()
+    if pol == "none" or (pol == "dots" and cfg.quant.is_exact):
+        return 1
+    return 2
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the output of a 2-D matmul of the differentiated program (grad
+    mode on: the counterpart of a ``dot_general`` without batch
+    dimensions); recompute the rest.  A matmul inside a custom autograd
+    function's forward (a GEMM's plain version on the CPU) runs with grad
+    mode off and is recomputed, as JAX's policy sees no dot inside a
+    ``pallas_call``."""
+    if op is torch.ops.aten.mm.default and torch.is_grad_enabled():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _leaves(tree: Any) -> list:
+    """The tensors of a nested dict, in its insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _refill(tree: Any, leaves) -> Any:
+    """``tree``'s structure holding the tensors drawn from ``leaves``."""
+    if isinstance(tree, dict):
+        return {k: _refill(v, leaves) for k, v in tree.items()}
+    return next(leaves)
+
+
+def _remat(body):
+    """``body(x, lp, positions)`` (one layer; ``lp`` its tree of tensors)
+    under the ``REPRO_REMAT_POLICY`` read now, the counterpart of JAX's
+    ``_remat``.  ``none`` returns ``body``.  Otherwise the body runs in
+    ``torch.utils.checkpoint`` (non-reentrant) with x, the positions and
+    the layer's tensors as its saved inputs; ``dots`` adds the selective
+    policy ``_dots_policy``.  The body records no telemetry capture itself:
+    its recompute runs in the backward, outside the layer loop's
+    ``capture.suspended()``."""
+    pol = remat_policy()
+    if pol == "none":
+        return body
+    context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                    _dots_policy)
+                  if pol == "dots" else noop_context_fn)
+
+    def run(x, lp, positions):
+        def inner(x, positions, *leaves):
+            with capture.suspended():
+                return body(x, _refill(lp, iter(leaves)), positions)
+
+        # the body draws no random numbers (the SR dither is keyed), so the
+        # RNG state need not be stashed for the recompute
+        return checkpoint(inner, x, positions, *_leaves(lp),
+                          use_reentrant=False, preserve_rng_state=False,
+                          context_fn=context_fn)
+
+    return run
+
+
+def _block(cfg: ModelConfig, x: torch.Tensor, lp: Params,
+           positions: torch.Tensor) -> torch.Tensor:
+    """One pre-norm attention + SwiGLU layer."""
+    x = x + L.attn_apply(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                         cfg, positions=positions)
+    z = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + L.mlp_apply(lp["mlp"], z, cfg)
+
+
+def forward_hidden(params: Params, batch: dict, cfg: ModelConfig, *,
+                   remat: bool = True) -> torch.Tensor:
     """Full-sequence forward up to the final hidden state (B, S, D) bf16;
-    ``batch["tokens"]`` (B, S)."""
+    ``batch["tokens"]`` (B, S).  ``remat``: each layer under ``_remat``."""
     _check_paged(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = _embed(params, tokens)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
+    block = functools.partial(_block, cfg)
+    if remat:
+        block = _remat(block)
     # The telemetry probe must capture the JAX package's set of GEMMs.
     # There the layer stack runs under lax.scan, whose operands are
     # tracers that capture never records: only the GEMMs outside the stack
@@ -170,25 +275,22 @@ def forward_hidden(params: Params, batch: dict, cfg: ModelConfig
     # synthetic operands.  So this loop records nothing.
     with capture.suspended():
         for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
-            x = x + L.attn_apply(lp["attn"],
-                                 L.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                                 cfg, positions=positions)
-            z = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + L.mlp_apply(lp["mlp"], z, cfg)
+            x = block(x, _layer(params["layers"], i), positions)
     return x
 
 
-def forward(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def forward(params: Params, batch: dict, cfg: ModelConfig, *,
+            remat: bool = True) -> torch.Tensor:
     """Full-sequence forward: logits (B, S, V) bf16."""
-    return _unembed(params, forward_hidden(params, batch, cfg), cfg)
+    return _unembed(params, forward_hidden(params, batch, cfg, remat=remat),
+                    cfg)
 
 
-def loss_fn(params: Params, batch: dict, cfg: ModelConfig
-            ) -> tuple[torch.Tensor, dict]:
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
+            remat: bool = True) -> tuple[torch.Tensor, dict]:
     """Next-token cross entropy in f32: logsumexp as the JAX package takes
     it (max subtracted, exp, sum, log, max added back)."""
-    logits = forward(params, batch, cfg)
+    logits = forward(params, batch, cfg, remat=remat)
     tokens = batch["tokens"]
     tgt = tokens[:, 1:].long()
     lg = logits[:, :-1].to(torch.float32)

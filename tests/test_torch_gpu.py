@@ -466,6 +466,7 @@ def test_sr_train_step_kernels_match_plain(dev):
     from repro_torch.core.policy import AccumulationPolicy, plan_for_model
     from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
     from repro_torch.models.api import get_model
+    from repro_torch.models.lm import layer_forwards
     from repro_torch.train.loop import _grads, compute_copy
     from repro_torch.train.optimizer import tree_leaves
 
@@ -489,7 +490,10 @@ def test_sr_train_step_kernels_match_plain(dev):
     lk, gk = step()
     torch.cuda.synchronize()
     n_gemms = 7 * cfg.n_layers
-    assert qmatmul_fused.sr_emitq_launches == e0 + n_gemms
+    # E once a forward pass: twice under the default remat (the backward
+    # recomputes each layer), once under REPRO_REMAT_POLICY=none
+    assert qmatmul_fused.sr_emitq_launches == e0 + n_gemms * layer_forwards(
+        cfg)
     assert qmatmul_bwd_pair.sr_launches == b0 + n_gemms
     assert qmatmul_fused.emitq_launches == r0
     with plain_versions():
@@ -2061,3 +2065,44 @@ def test_variant_entries_match_their_mirrors(dev):
         s = sm90.decode_schedule(8, n, k, 64, 1)
         for sr in (0, 1):
             assert occ(0, 1, int(n == 151936), s.slots, 64, sr) >= 1
+
+
+@pytest.mark.parametrize("rounding", ["rne", "sr"])
+def test_remat_full_bitwise_none_on_the_card(dev, monkeypatch, rounding):
+    """Two layers of qwen2-1.5b at full width (batch 1 x seq 256) through
+    the kernels: the loss and every gradient under ``REPRO_REMAT_POLICY``
+    ``full`` (the layer forward recomputed in the backward) bitwise those
+    under ``none``; E runs twice a layer GEMM under ``full``, once under
+    ``none``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import AccumulationPolicy, plan_for_model
+    from repro_torch.models.api import get_model
+    from repro_torch.train.loop import _grads, compute_copy
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = plan_for_model(
+        dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2),
+        seq_len=256, global_batch=1,
+        policy=AccumulationPolicy(mode="predicted", chunk=64,
+                                  rounding=rounding, sr_seed=7))
+    model = get_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.from_numpy(np.random.RandomState(4).randint(
+        0, cfg.vocab_size, (1, 256)).astype(np.int32)).to(dev)
+    counter = "sr_emitq_launches" if rounding == "sr" else "emitq_launches"
+    out = {}
+    for pol in ("full", "none"):
+        monkeypatch.setenv("REPRO_REMAT_POLICY", pol)
+        n0 = getattr(qmatmul_fused, counter)
+        c = compute_copy(params)
+        loss, _ = model.loss_fn(c, {"tokens": tokens}, cfg)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[pol] = (loss.detach(), tree_leaves(_grads(c, params)),
+                    getattr(qmatmul_fused, counter) - n0)
+    assert out["full"][2] == 2 * out["none"][2] == 2 * 7 * 2
+    assert torch.equal(out["full"][0], out["none"][0])
+    for a, b in zip(out["full"][1], out["none"][1]):
+        assert torch.equal(a, b)

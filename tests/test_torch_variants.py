@@ -9,7 +9,8 @@ int8-code operands (``a_packed``/``b_packed``), operands taken unquantized
 holds; ``qdot_packed``; ``plan_for_model(quantize_outputs=True)`` field by
 field; and, under that plan, a training step and a serving run of the
 smoke model against the JAX package in a child process with excess
-precision off (ROADMAP F2).
+precision off (ROADMAP F2), and 8 training steps on each package's own
+``SyntheticLM`` batches.
 
 Tolerances, as in ``tests/test_torch_train.py``: codes and residuals
 bitwise on every input; outputs bitwise on lattice operands (every f32
@@ -380,6 +381,9 @@ def test_plan_quantize_outputs_matches_jax(mode, pp):
 
 
 SEQ, BATCH, CHUNK_PLAN = 32, 4, 16
+# the N-step run on each package's own SyntheticLM batches: the learning
+# rate, warm-up and step count of the chip smoke's quantize_outputs run
+QOUT_NSTEPS, QOUT_LR, QOUT_WARMUP, QOUT_DATA_SEED = 8, 1e-3, 2, 0
 
 
 def _plans():
@@ -446,6 +450,24 @@ def jax_child(out_path: str) -> None:
     loss, g = jax.jit(grads)(params, {"tokens": jnp.asarray(_tokens())})
     out["loss"] = np.asarray(loss)
     _flat(g, "g", out)
+
+    from repro.data.pipeline import DataConfig, SyntheticLM
+    from repro.train import optimizer as JO
+    from repro.train.loop import TrainConfig as JTC
+    from repro.train.loop import init_train_state, make_train_step
+
+    tc = JTC(opt=JO.OptConfig(lr=QOUT_LR, warmup_steps=QOUT_WARMUP,
+                              total_steps=QOUT_NSTEPS))
+    state = init_train_state(model, jax.random.PRNGKey(0), tc)
+    step = jax.jit(make_train_step(model, tc))
+    data = SyntheticLM(DataConfig(vocab_size=jcfg.vocab_size, seq_len=SEQ,
+                                  global_batch=BATCH, seed=QOUT_DATA_SEED))
+    for s in range(QOUT_NSTEPS):
+        batch = next(data)
+        state, m = step(state, batch)
+        out[f"n_tokens{s}"] = np.asarray(batch["tokens"])
+        out[f"n_loss{s}"] = np.asarray(m["loss"])
+        out[f"n_grad_norm{s}"] = np.asarray(m["grad_norm"])
 
     bf = jax.tree.map(lambda x: x.astype(jnp.bfloat16), params)
     ex = _JaxRec(model, bf, JPC.for_model(jcfg, n_pages=_serve_pages(),
@@ -566,3 +588,42 @@ def test_quantize_outputs_serving_matches_jax(jax_run):
                 break
     print(f"max decode logit error {max_err:.4f}")
     eng.pool.check_invariants()
+
+
+def test_quantize_outputs_n_steps_on_own_batches_track_jax(jax_run):
+    """``QOUT_NSTEPS`` AdamW steps under quantize_outputs from the same
+    weights, each package drawing its own ``SyntheticLM(seed)`` batches:
+    the tokens are bitwise equal, then the loss and gradient norm of every
+    step stay within F4's 0.03 of JAX's, the bounds of
+    ``tests/test_torch_train.py``'s N-step run."""
+    from test_torch_train import NSTEP_GNORM, NSTEP_LOSS, _unflat
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.api import get_model
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.loop import TrainConfig, make_train_step
+
+    _, tcfg = _plans()
+    tc = TrainConfig(opt=O.OptConfig(lr=QOUT_LR, warmup_steps=QOUT_WARMUP,
+                                     total_steps=QOUT_NSTEPS))
+    params = _unflat(jax_run, "p0")
+    state = {"params": params, "opt": O.init_opt_state(params),
+             "scaler": O.init_scaler(tc.scaler)}
+    step = make_train_step(get_model(tcfg), tc)
+    data = SyntheticLM(DataConfig(vocab_size=tcfg.vocab_size, seq_len=SEQ,
+                                  global_batch=BATCH, seed=QOUT_DATA_SEED))
+    worst_l = worst_g = 0.0
+    for s in range(QOUT_NSTEPS):
+        batch = next(data)
+        np.testing.assert_array_equal(batch["tokens"].numpy(),
+                                      jax_run[f"n_tokens{s}"])
+        state, m = step(state, batch)
+        dl = abs(float(m["loss"]) - float(jax_run[f"n_loss{s}"]))
+        dg = abs(float(m["grad_norm"]) / float(jax_run[f"n_grad_norm{s}"])
+                 - 1)
+        worst_l, worst_g = max(worst_l, dl), max(worst_g, dg)
+        print(f"step {s}: loss {float(m['loss']):.5f} (JAX "
+              f"{float(jax_run[f'n_loss{s}']):.5f}), grad norm rel {dg:.4f}")
+        assert dl <= NSTEP_LOSS and dg <= NSTEP_GNORM
+        assert float(m["skipped"]) == 0.0
+    print(f"worst: loss {worst_l:.5f}, grad norm {worst_g:.5f}")
