@@ -42,6 +42,18 @@ on its own line:
    then the one-shot run with the serve-time VRR monitor every 4 decode
    steps (K12; its streams equal the monitor-off run's unless it
    re-buckets) and a forced 1-bit-carry plan that must re-bucket;
+   ``[serve-graph]``: the same cell on CUDA graphs (the compile cache's
+   signatures captured by the warmup), one-shot and with slabs: streams
+   and arena bitwise the eager runs', 0 steady-state captures, the
+   warmup's captures and seconds, eager and graphed tokens/s, launches
+   counted over the replays, the graph pool's bytes; P's device-geometry
+   entry (``[kernels] P flash_prefill_paged(geom)``) bitwise its
+   launch-argument entry and its plain version on 22 slab geometries and
+   timed beside it; ``[spec]``: speculative decoding at k = 4 on graphs
+   with the seeded qwen2-0.5b draft and with draft = target (every round
+   k + 1 tokens), streams bitwise the eager one-shot run's, 0 steady-state
+   captures, and one batch's verify at full depth bitwise 5 sequential
+   decode steps; D is also timed at verify's 40 rows;
 4. train kernels: E (the forward GEMM with int8 residual codes), B (the
    backward pair) and the stats variants K8 (G's, on f32/bf16 operands and
    on E's int8 codes) and K9 (B's) against their plain versions and their
@@ -198,6 +210,7 @@ import re
 import subprocess
 import sys
 import time
+import weakref
 from contextlib import contextmanager
 from pathlib import Path
 
@@ -785,10 +798,16 @@ PREFILL_BUILD_SHAPES = (
 
 
 # D's and K12's shapes: the serve arena (B 8, the 1024-token bucket's
-# width), the serve monitor's K12 call (B 1, the same width) and a
-# 4096-token row (256 pages: the cluster takes it in 6 rounds)
-DECODE_SHAPES = (("serve arena", [384, 0, 17, 64, 100, 129, 256, 311], None),
-                 ("monitor B=1", [384], None), ("4096-token row", [4096], 256))
+# width), the serve monitor's K12 call (B 1, the same width), a 4096-token
+# row (256 pages: the cluster takes it in 6 rounds), and the speculative
+# verify's B * (k + 1) = 40 rows at k = 4 (row (i, j) of the serve arena's
+# row i at length + j; a padded row stays 0)
+SERVE_LENS = [384, 0, 17, 64, 100, 129, 256, 311]
+SPEC_K = 4
+DECODE_SHAPES = (("serve arena", SERVE_LENS, None),
+                 ("monitor B=1", [384], None), ("4096-token row", [4096], 256),
+                 ("verify B*S=40", [n + j if n else 0 for n in SERVE_LENS
+                                    for j in range(SPEC_K + 1)], None))
 
 
 def phase_decode(cfg, dev, plan) -> dict:
@@ -1095,22 +1114,145 @@ def plain_versions():
     from repro_torch.kernels import quantize as K2
 
     saved = (O.qmatmul_fused, O.qmatmul_bwd_pair, O.quantize, O.qmatmul,
-             L.paged_attn_decode, L.flash_prefill_paged, L.flash_prefill)
+             L.paged_attn_decode, L.flash_prefill_paged,
+             L.flash_prefill_paged_geom, L.flash_prefill)
     O.qmatmul_fused = F.qmatmul_fused_reference
     O.qmatmul_bwd_pair = B.qmatmul_bwd_pair_reference
     O.quantize = K2.quantize_reference
     O.qmatmul = K3.qmatmul_reference
     L.paged_attn_decode = A.paged_attn_decode_reference
     L.flash_prefill_paged = A.flash_prefill_paged_reference
+    L.flash_prefill_paged_geom = A.flash_prefill_paged_geom_reference
     L.flash_prefill = A.flash_prefill_reference
     try:
         yield
     finally:
         (O.qmatmul_fused, O.qmatmul_bwd_pair, O.quantize, O.qmatmul,
-         L.paged_attn_decode, L.flash_prefill_paged, L.flash_prefill) = saved
+         L.paged_attn_decode, L.flash_prefill_paged,
+         L.flash_prefill_paged_geom, L.flash_prefill) = saved
 
 
-def build_engine(cfg, params, dev, prefill_chunk, **engine_kw):
+@contextmanager
+def recording_kernels(calls: dict):
+    """Record the serve path's kernel calls (G, D and P's device-geometry
+    entry, as the model calls them) into ``calls``: one entry a launch
+    shape, ``key -> (args cloned at the call, kwargs)``.  The calls still
+    run their kernels."""
+    from repro_torch.kernels import ops as O
+    from repro_torch.models import layers as L
+
+    def kw_key(kw):
+        return repr(sorted(kw.items()))
+
+    shapes = {
+        "G": lambda a, b, **kw: (tuple(a.shape), tuple(b.shape), b.stride(),
+                                 kw_key(kw)),
+        "D": lambda q, *rest, **kw: (tuple(q.shape), tuple(rest[4].shape),
+                                     kw_key(kw)),
+        "P": lambda q, *rest, **kw: (tuple(q.shape), tuple(rest[4].shape),
+                                     kw_key(kw)),
+    }
+
+    def recorder(kind, fn):
+        def rec(*args, **kw):
+            key = (kind,) + shapes[kind](*args, **kw)
+            if key not in calls:
+                calls[key] = (tuple(a.clone() if torch.is_tensor(a) else a
+                                    for a in args), dict(kw))
+            return fn(*args, **kw)
+        return rec
+
+    saved = (O.qmatmul_fused, L.paged_attn_decode, L.flash_prefill_paged_geom)
+    O.qmatmul_fused = recorder("G", saved[0])
+    L.paged_attn_decode = recorder("D", saved[1])
+    L.flash_prefill_paged_geom = recorder("P", saved[2])
+    try:
+        yield calls
+    finally:
+        (O.qmatmul_fused, L.paged_attn_decode,
+         L.flash_prefill_paged_geom) = saved
+
+
+def check_recorded(label: str, calls: dict, gen, kinds=("G", "D", "P")
+                   ) -> dict:
+    """Each recorded launch shape through its kernel and its plain version:
+    G within 1 carry ulp on the recorded operands and bitwise on lattice
+    ones of the same shapes and layout; D and P bitwise on the recorded
+    query and on a lattice one, P also bitwise its launch-argument entry
+    on the live rows with its padded rows exactly 0.  Returns each kernel's
+    max |err| on the recorded operands and the shapes checked."""
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import fused as F
+
+    err = {"G": 0.0, "D": 0.0, "P": 0.0}
+    seen = {"G": [], "D": [], "P": []}
+    for key, (args, kw) in calls.items():
+        kind = key[0]
+        dev = args[0].device
+        if kind == "G":
+            a, b = args
+            m, e = kw.get("m_acc", 23), kw.get("e_acc", 8)
+            tag = f"{label} G {tuple(a.shape)} x {tuple(b.shape)}"
+            err["G"] = max(err["G"], compare(
+                f"{tag} recorded", F.qmatmul_fused(a, b, **kw),
+                F.qmatmul_fused_reference(a, b, **kw), m, e, bitwise=False,
+                quiet=True))
+            al = _lattice(gen, tuple(a.shape), dev).to(a.dtype)
+            bl = torch.empty_like(b)
+            bl.copy_(_lattice(gen, tuple(b.shape), dev))
+            compare(f"{tag} lattice", F.qmatmul_fused(al, bl, **kw),
+                    F.qmatmul_fused_reference(al, bl, **kw), m, e,
+                    bitwise=True, quiet=True)
+            seen["G"].append((tuple(a.shape), tuple(b.shape)))
+            continue
+        q, rest = args[0], args[1:]
+        ql = _lattice(gen, tuple(q.shape), dev).to(q.dtype)
+        if kind == "D":
+            tag = f"{label} D q {tuple(q.shape)} table {tuple(rest[4].shape)}"
+            for what, qq in (("recorded", q), ("lattice", ql)):
+                got = A.paged_attn_decode(qq, *rest, **kw)
+                want = A.paged_attn_decode_reference(qq, *rest, **kw)
+                check(torch.equal(got, want), f"{tag} {what}: not bitwise "
+                                              "its plain version")
+                if what == "recorded":
+                    err["D"] = max(err["D"], float((got - want).abs().max()))
+            seen["D"].append((tuple(q.shape), tuple(rest[4].shape)))
+            continue
+        geom = rest[5]
+        q0, q_len, kv_len, _ = (int(x) for x in geom.tolist())
+        tag = (f"{label} P(geom) T {q.shape[0]} row {rest[4].shape[0]} "
+               f"({q0}, {q_len})")
+        for what, qq in (("recorded", q), ("lattice", ql)):
+            got = A.flash_prefill_paged_geom(qq, *rest, **kw)
+            want = A.flash_prefill_paged_geom_reference(qq, *rest, **kw)
+            host = A.flash_prefill_paged(qq[:q_len].contiguous(), *rest[:5],
+                                         q0, q_len, kv_len, **kw)
+            check(torch.equal(got, want), f"{tag} {what}: not bitwise its "
+                                          "plain version")
+            check(torch.equal(got[:q_len], host), f"{tag} {what}: not bitwise "
+                                                  "the launch-argument P")
+            check(bool((got[q_len:] == 0).all()), f"{tag} {what}: padded "
+                                                  "rows are not exactly 0")
+            if what == "recorded":
+                err["P"] = max(err["P"], float((got - want).abs().max()))
+        seen["P"].append((q.shape[0], rest[4].shape[0], q0, q_len))
+    print(f"[spec] {label}: {len(calls)} launch shapes recorded and held "
+          f"against the plain versions (G within 1 carry ulp on the recorded "
+          f"operands, bitwise on lattice ones; D and P bitwise): G (M, K) x "
+          f"(K, N) {seen['G']}; D (q, table) {seen['D']}; P (T, row width, "
+          f"q_offset, q_len) {seen['P']}; max |err| {err}", flush=True)
+    missing = [k for k in kinds if not seen[k]]
+    check(not missing, f"{label}: kernels {missing} of the path were not "
+                       "recorded")
+    return dict(err=err, shapes=seen)
+
+
+def build_engine(cfg, params, dev, prefill_chunk, graphs=False, spec=None,
+                 **engine_kw):
+    """The serve cell's engine with a host-clocked executor: eager by
+    default (the bitwise reference of the graphed runs), on CUDA graphs
+    with ``graphs``; ``spec`` (a dict of ``SpecDecodeEngine`` arguments)
+    makes it a speculative engine."""
     from repro_torch.models.api import get_model
     from repro_torch.serve import scheduler as S
     from repro_torch.serve.kvcache import PagedKVConfig
@@ -1139,10 +1281,26 @@ def build_engine(cfg, params, dev, prefill_chunk, **engine_kw):
     n_pages = -(-int(sum(n + GEN for n in PROMPT_LENS) * 1.25) // PAGE) + 1
     pc = PagedKVConfig.for_model(cfg, n_pages=n_pages, page_size=PAGE)
     ex = TimedExecutor(model, params, pc, kv_fmt=FPFormat(5, 2),
-                       max_batch=MAX_BATCH, device=dev)
-    return S.ServeEngine(model, params, n_pages=n_pages, page_size=PAGE,
-                         max_batch=MAX_BATCH, prefill_chunk_tokens=prefill_chunk,
-                         executor=ex, device=dev, **engine_kw)
+                       max_batch=MAX_BATCH, device=dev, graphs=graphs)
+    kw = dict(n_pages=n_pages, page_size=PAGE, max_batch=MAX_BATCH,
+              prefill_chunk_tokens=prefill_chunk, executor=ex, device=dev,
+              **engine_kw)
+    if spec is not None:
+        from repro_torch.serve.spec import SpecDecodeEngine
+
+        eng = SpecDecodeEngine(model, params, **spec, **kw)
+        executors = (ex, eng.draft_executor)
+    else:
+        eng = S.ServeEngine(model, params, **kw)
+        executors = (ex,)
+    if graphs:
+        GRAPH_EXECUTORS.extend((weakref.ref(e), e._cache) for e in executors)
+    return eng
+
+
+# (weak reference, cache entry) of every graph executor ``build_engine``
+# made: ``phase_graph_teardown`` checks they are all released
+GRAPH_EXECUTORS: list = []
 
 
 def phase_serve(cfg, params, dev, prompts, prefill_chunk) -> dict:
@@ -1183,6 +1341,7 @@ def phase_serve(cfg, params, dev, prompts, prefill_chunk) -> dict:
     check(eng.pool.free_pages == eng.pool.n_pages - 1, f"{label}: page leak")
     return dict(launches=launches, fold_launches=folds,
                 streams=[results[r] for r in rids],
+                arena={k: v.clone() for k, v in ex.kv.items()},
                 seconds=dt, decoded=eng.decoded_tokens,
                 decode_s=ex.decode_s, prefill_s=ex.prefill_s,
                 prefill_tokens=eng.prefill_tokens)
@@ -1253,6 +1412,508 @@ def phase_serve_monitor(cfg, params, dev, prompts, one_shot) -> dict:
           f"{[b.m_acc for b in eng.plan.buckets]}", flush=True)
     check(first is not None, "the forced narrow plan did not re-bucket")
     return dict(launches=launches[K12_NAME] + n12, events=len(kinds))
+
+
+# --------------------------------------------------------------------------
+# [serve-graph]: serving's compiled step, CUDA graphs behind the cache
+# --------------------------------------------------------------------------
+
+P_GEOM_NAME = "flash_prefill_paged(geom)"   # P's device-geometry entry
+
+
+def _graph_counters():
+    """The graphed serve path's kernels: G, D and P's device-geometry
+    entry (the launch-argument P must stay at 0 there)."""
+    from repro_torch.kernels.attention import (
+        flash_prefill_paged, flash_prefill_paged_geom, paged_attn_decode)
+    from repro_torch.kernels.fused import qmatmul_fused
+
+    return {"qmatmul_fused": (qmatmul_fused, "launches"),
+            "qmatmul_fused fold": (qmatmul_fused, "fold_launches"),
+            "paged_attn_decode": (paged_attn_decode, "launches"),
+            P_GEOM_NAME: (flash_prefill_paged_geom, "launches"),
+            "flash_prefill_paged": (flash_prefill_paged, "launches")}
+
+
+def _same_arena(a, b) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def phase_serve_graph(cfg, params, dev, prompts, eager_runs) -> dict:
+    """The serve cell on CUDA graphs (``ModelExecutor(graphs=True)``),
+    warmed, one-shot and with ``SLAB``-token slabs: every stream and the
+    arena after the run bitwise the eager ``[serve]`` run's, 0 captures and
+    0 misses after the warmup, hits > 0; the warmup's captures and
+    seconds, decode-steps-only and end-to-end tokens/s beside the eager
+    run's in this call, each kernel's launches counted over the replays
+    and the executor's graph pool bytes."""
+    counters = _graph_counters()
+    out = {}
+    for chunk, eager in zip((None, SLAB), eager_runs):
+        label = f"chunk={chunk or 'one-shot'}"
+        eng = build_engine(cfg, params, dev, chunk, graphs=True)
+        ex = eng.executor
+        warm = eng.warmup()
+        check(warm["compiles"] > 0, f"[serve-graph] {label}: nothing captured")
+        ex.prefill_s = ex.decode_s = 0.0
+        rids = [eng.submit(p, GEN) for p in prompts]
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        with ex.compile_stats_scope() as delta:
+            t0 = time.perf_counter()
+            results = eng.run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches = read_counts(counters)
+        streams = [results[r] for r in rids]
+        same = sum(a == b for a, b in zip(streams, eager["streams"]))
+        arena = _same_arena(ex.kv, eager["arena"])
+        pool = ex.pool_bytes()
+        print(f"[serve-graph] {label}: warmup {warm['compiles']} captures in "
+              f"{warm['seconds']:.2f}s over {warm['buckets']} buckets; "
+              f"{eng.decoded_tokens} decoded tokens in {dt:.3f}s "
+              f"({eng.decoded_tokens / dt:.1f} tok/s end to end; eager "
+              f"{eager['decoded'] / eager['seconds']:.1f}); decode steps "
+              f"{ex.decode_s:.3f}s ({eng.decoded_tokens / ex.decode_s:.1f} "
+              f"tok/s; eager {eager['decoded'] / eager['decode_s']:.1f}, "
+              f"{eager['decode_s'] / ex.decode_s:.2f}x); prefill "
+              f"{eng.prefill_tokens} tokens in {ex.prefill_s:.3f}s (eager "
+              f"{eager['prefill_s']:.3f}s); steady state {delta}; launches "
+              f"over the replays {launches}; graph pool "
+              f"{pool / 2**20:.1f} MiB; {same}/{len(rids)} streams and the "
+              f"arena {'bitwise' if arena else 'DIFFERENT'} against the "
+              f"eager run", flush=True)
+        check(same == len(rids), f"[serve-graph] {label}: a stream differs "
+                                 "from the eager run's")
+        check(arena, f"[serve-graph] {label}: the arena differs from the "
+                     "eager run's")
+        check(delta["compiles"] == 0 and delta["misses"] == 0
+              and delta["hits"] > 0,
+              f"[serve-graph] {label}: steady-state captures {delta}")
+        for k in ("qmatmul_fused", "qmatmul_fused fold", "paged_attn_decode",
+                  P_GEOM_NAME):
+            check(launches[k] > 0, f"[serve-graph] {label}: kernel {k} was "
+                                   "not launched on the main path")
+        check(launches["flash_prefill_paged"] == 0,
+              f"[serve-graph] {label}: the launch-argument P ran")
+        eng.pool.check_invariants()
+        out[label] = dict(launches=launches, warm=warm, seconds=dt,
+                          decode_s=ex.decode_s, prefill_s=ex.prefill_s,
+                          decoded=eng.decoded_tokens, pool_bytes=pool,
+                          eager_decode_s=eager["decode_s"],
+                          eager_seconds=eager["seconds"])
+        del eng, ex
+        gc.collect()
+    return out
+
+
+P_GEOM_CASES = 22
+
+
+def _p_geom_case(label, q, q_len, arena, row, t0, kw) -> float:
+    """P's device-geometry entry at one geometry: bitwise the
+    launch-argument entry on the live rows and its plain version, padded
+    rows exactly 0.  Returns max |err| against the plain version."""
+    from repro_torch.kernels.attention import (
+        flash_prefill_paged, flash_prefill_paged_geom,
+        flash_prefill_paged_geom_reference, prefill_geom)
+
+    geom = prefill_geom(t0, q_len, device=q.device)
+    got = flash_prefill_paged_geom(q, *arena, row, geom, **kw)
+    host = flash_prefill_paged(q[:q_len].contiguous(), *arena, row, t0,
+                               q_len, t0 + q_len, **kw)
+    plain = flash_prefill_paged_geom_reference(q, *arena, row, geom, **kw)
+    check(torch.equal(got[:q_len], host),
+          f"P geom {label}: not bitwise the launch-argument P")
+    check(torch.equal(got, plain), f"P geom {label}: not bitwise its plain "
+                                   "version")
+    check(bool((got[q_len:] == 0).all()),
+          f"P geom {label}: padded rows are not exactly 0")
+    return float((got - plain).abs().max())
+
+
+def _serve_p_shapes(plan) -> list:
+    """The (T, row width, q_offset, q_len, bucket) launches of P's
+    device-geometry entry in the ``[serve-graph]`` runs: each prompt
+    one-shot (T its bucket's max_ctx, as the one-shot run pads it) and its
+    first and last ``SLAB``-token slabs (T ``SLAB``), both over the row
+    of the prompt's bucket."""
+    out = {}
+    for n in PROMPT_LENS:
+        _, b = plan.bucket_for(n)
+        w = b.max_pages(PAGE)
+        out.setdefault((b.max_ctx, w, 0, n), b)
+        for t0 in sorted({0, SLAB * ((n - 1) // SLAB)}):
+            out.setdefault((SLAB, w, t0, min(SLAB, n - t0)), b)
+    return [k + (b,) for k, b in out.items()]
+
+
+def phase_p_geom(cfg, dev, plan) -> dict:
+    """P's device-geometry entry at qwen2-1.5b's widths, bitwise the
+    launch-argument entry on the live rows and the plain version, padded
+    rows exactly 0, on random and lattice q: at a 64-token slab over a
+    24-page row (kv up to 384 tokens) on ``P_GEOM_CASES`` geometries
+    (ragged tails, single rows, page-aligned offsets), then at every launch
+    shape of the ``[serve-graph]`` runs (``_serve_p_shapes``: the one-shot
+    padded slabs at T 64, 256 and 1024 and the 64-token slabs over each
+    bucket's row, each schedule the main path picks; the padded q rows
+    random, as the main path's are not 0); timed by graph replay beside
+    the launch-argument entry on the serve slab (q_offset 320), with the
+    plain version, SDPA and the bound."""
+    from repro_torch.kernels import sm90
+    from repro_torch.kernels.attention import (
+        flash_prefill_paged, flash_prefill_paged_geom,
+        flash_prefill_paged_geom_reference, prefill_geom)
+    from repro_torch.quant.formats import FP8_152
+
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    width, t = 24, SLAB
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    arena = _attn_arena(gen, dev, width + 1, kv, dh)
+    row = (torch.randperm(width, generator=gen, device=dev) + 1).to(
+        torch.int32)
+    rng = np.random.RandomState(SEED + 61)
+    geoms = [(320, SLAB), (0, SLAB), (0, 1), (368, 16), (0, 17)] + [
+        (PAGE * int(rng.randint(0, width - SLAB // PAGE + 1)),
+         int(rng.randint(1, SLAB + 1))) for _ in range(P_GEOM_CASES - 5)]
+    sched = sm90.attn_prefill_schedule(t, kv, h // kv, PAGE, dh, width)
+    print(f"[kernels] P {P_GEOM_NAME} vs the launch-argument entry and the "
+          f"plain version: T={t}, a {width}-page row, {len(geoms)} "
+          f"geometries (q_offset, q_len) {geoms}; schedule from the shapes "
+          f"(rows, cluster, pages a round) ({sched.rows}, {sched.cluster}, "
+          f"{sched.rank_pages})", flush=True)
+    err = 0.0
+    for i, (t0, q_len) in enumerate(geoms):
+        _, bucket = plan.bucket_for(t0 + q_len)
+        kw = dict(kv_fmt=FP8_152, acc=bucket.acc)
+        q = torch.zeros((t, h, dh), device=dev)
+        q[:q_len] = (_lattice(gen, (q_len, h, dh), dev) if i % 2 else
+                     torch.randn((q_len, h, dh), generator=gen, device=dev))
+        err = max(err, _p_geom_case(f"({t0}, {q_len})", q, q_len, arena,
+                                    row, t0, kw))
+    print(f"  {len(geoms)}/{len(geoms)} geometries bitwise the "
+          "launch-argument entry and the plain version, padded rows 0",
+          flush=True)
+    # the [serve-graph] runs' own launch shapes, over a serve-like arena:
+    # page 0 the null page (zeros), the row's pages past the live ones 0
+    shapes = _serve_p_shapes(plan)
+    n_arena = 1 + max(w for _, w, _, _, _ in shapes)
+    arena = _attn_arena(gen, dev, n_arena, kv, dh)
+    for x in arena:
+        x[0] = 0
+    perm = (torch.randperm(n_arena - 1, generator=gen, device=dev) + 1).to(
+        torch.int32)
+    scheds = {}
+    t_start = time.perf_counter()
+    for tt, w, t0, q_len, b in shapes:
+        row = torch.zeros((w,), dtype=torch.int32, device=dev)
+        used = -(-(t0 + q_len) // PAGE)
+        row[:used] = perm[:used]
+        kw = dict(kv_fmt=FP8_152, acc=b.acc)
+        for kind in ("random", "lattice"):
+            q = (_lattice(gen, (tt, h, dh), dev) if kind == "lattice" else
+                 torch.randn((tt, h, dh), generator=gen, device=dev))
+            err = max(err, _p_geom_case(
+                f"T {tt} row {w} ({t0}, {q_len}) {kind}", q, q_len, arena,
+                row, t0, kw))
+        sc = sm90.attn_prefill_schedule(tt, kv, h // kv, PAGE, dh, w)
+        scheds[(tt, w)] = (sc.rows, sc.cluster, sc.rank_pages)
+    print(f"  the [serve-graph] launch shapes: {len(shapes)} (T, row width, "
+          f"q_offset, q_len) {[s[:4] for s in shapes]}, random and lattice "
+          f"q, bitwise the launch-argument entry and the plain version, "
+          f"padded rows 0 ({time.perf_counter() - t_start:.1f}s); schedules "
+          f"(T, width) -> (rows, cluster, pages a round) {scheds}",
+          flush=True)
+    # timing at the serve slab: q_offset 320, 64 live rows
+    case = _p_case(gen, dev, cfg, plan, SLAB, 320, SLAB)
+    kc2, vc2, kse2, vse2, row2, q_off, q_len, kv_len = case["args"]
+    kw = dict(kv_fmt=FP8_152, acc=case["acc"])
+    geom = prefill_geom(q_off, q_len, device=dev)
+    q = case["q"]
+    run_geom = lambda: flash_prefill_paged_geom(q, kc2, vc2, kse2, vse2,
+                                                row2, geom, **kw)
+    run_host = lambda: flash_prefill_paged(q, kc2, vc2, kse2, vse2, row2,
+                                           q_off, q_len, kv_len, **kw)
+    check(torch.equal(run_geom(), run_host()), "P geom at the slab")
+    graph, host = lib_time(run_geom, reps=20), lib_time(run_host, reps=20)
+    eager = cuda_time(run_geom, reps=20)
+    plain = cuda_time(lambda: flash_prefill_paged_geom_reference(
+        q, kc2, vc2, kse2, vse2, row2, geom, **kw), reps=1, warmup=0)
+    qb, kb, vb, mask = case["sdpa"]
+    lib = lib_time(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qb, kb, vb, attn_mask=mask), reps=20)
+    b_ms, b_by = bound_ms(case["bytes"] + 16, case["flops"], F32_FLOPS)
+    print(f"  time P geom at the slab (q_offset 320, row width "
+          f"{row2.shape[0]}): graph replay {lib_str(graph)} beside the "
+          f"launch-argument entry {lib_str(host)} ({graph[0] / host[0]:.3f}x), "
+          f"eager {eager:.4f} ms, plain {plain:.2f} ms, SDPA {lib_str(lib)} "
+          f"({graph[0] / lib[0]:.2f}x); bound {b_ms:.6f} ms ({b_by})",
+          flush=True)
+    return dict(ms=graph[0], graph_spread_ms=list(graph[1]), eager_ms=eager,
+                host_entry_ms=host[0], host_entry_spread_ms=list(host[1]),
+                plain_ms=plain, library_ms=lib[0],
+                library_spread_ms=list(lib[1]), bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err, geometries=len(geoms),
+                serve_shapes=len(shapes))
+
+
+def phase_graph_teardown(allocated_before: int) -> dict:
+    """After ``[serve-graph]`` and ``[spec]``: every graph executor they
+    built is collected, the process cache holds none of their graphs or
+    pools, and the card's allocated memory is back within
+    ``TEARDOWN_SLACK`` of where it stood before them (the pools, the draft
+    weights and the arenas are not carried into the training phases)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    alive = sum(ref() is not None for ref, _ in GRAPH_EXECUTORS)
+    held = sum(bool(e["fns"]) or e["pool"] is not None
+               for _, e in GRAPH_EXECUTORS)
+    now = torch.cuda.memory_allocated()
+    print(f"[serve-graph] teardown: {len(GRAPH_EXECUTORS)} graph executors, "
+          f"{alive} alive, {held} cache entries still holding graphs; "
+          f"allocated {now / 2**20:.1f} MiB against {allocated_before / 2**20:.1f}"
+          f" MiB before [serve-graph], reserved "
+          f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB", flush=True)
+    check(alive == 0, "a graph executor outlived its engine")
+    check(held == 0, "the process cache kept a dead executor's graphs")
+    check(now <= allocated_before + TEARDOWN_SLACK,
+          f"{(now - allocated_before) / 2**20:.1f} MiB still allocated after "
+          "the graphed phases")
+    return dict(allocated=now, before=allocated_before)
+
+
+# what a library may keep after the graphed phases (cuBLAS's workspace of
+# the capture stream): far below a graph pool or the draft's weights
+TEARDOWN_SLACK = 256 * 2**20
+
+
+# --------------------------------------------------------------------------
+# [spec]: speculative decoding with a qwen2-0.5b draft
+# --------------------------------------------------------------------------
+
+
+def _draft(cfg_target, dev):
+    """qwen2-0.5b planned as the target (predicted, chunk 64) and its bf16
+    weights seeded from SEED + 7, as ``launch/serve.py --spec-decode``
+    seeds them."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import AccumulationPolicy, plan_for_model
+    from repro_torch.models.api import get_model
+
+    max_ctx = max(PROMPT_LENS) + GEN
+    dcfg = plan_for_model(get_config("qwen2-0.5b"), seq_len=max_ctx,
+                          global_batch=len(PROMPT_LENS),
+                          policy=AccumulationPolicy(mode="predicted",
+                                                    chunk=64))
+    check(dcfg.vocab_size == cfg_target.vocab_size, "draft vocab differs")
+    model = get_model(dcfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    params = model.init_params(gen, dev)
+
+    def bf16(t):
+        return ({k: bf16(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.to(torch.bfloat16))
+
+    return model, bf16(params)
+
+
+def _draft_kernels(cfg, params, dev, prompts, one_shot, dmodel,
+                   dparams) -> dict:
+    """The draft lane's kernels at the launch shapes ``[spec]`` gives them,
+    held against their plain versions (``check_recorded``): a spec engine's
+    draft executor primes each prompt (a one-shot ``final=False`` slab at
+    its draft bucket's width: P's device-geometry entry at dh 64 and G at
+    d 896 / d_ff 4864) and runs one batched draft step over the 8 rows (G
+    at M 8 with the head, D at g 7, dh 64, the table at the round's
+    bucket), eagerly through the step functions its graphs capture, with
+    every kernel call recorded."""
+    from repro_torch.models.api import DecodeRequest, PrefillRequest
+
+    eng = build_engine(cfg, params, dev, None, graphs=True,
+                       spec=dict(spec_k=SPEC_K, draft_model=dmodel,
+                                 draft_params=dparams))
+    ex, plan, pool = eng.draft_executor, eng.draft_plan, eng.draft_pool
+    calls: dict = {}
+    with recording_kernels(calls):
+        for rid, p in enumerate(prompts):
+            n = len(p)
+            pages = pool.allocate(rid, n)
+            bi, bucket = plan.bucket_for(n)
+            req = PrefillRequest(
+                rid=rid, tokens=tuple(p), hist_pages=(),
+                slab_pages=tuple(pages), t0=0, acc=bucket.acc, final=False,
+                bucket_pages=bucket.max_pages(PAGE),
+                slab_width=bucket.max_ctx,
+                call=plan.kernel_call(bi, kv_fmt=ex.kv_fmt))
+            slab_w, width, values = ex._prefill_inputs(req)
+            ex._eager(ex._prefill_fn(req.acc, width, slab_w, False,
+                                     req.call), values)
+        rids = list(range(len(prompts)))
+        for rid in rids:
+            pool.extend(rid, SPEC_K)       # the round's pos + k, as _draft_ready
+        _, bucket = plan.bucket_for(max(pool.seq_len(r) for r in rids))
+        pt = pool.page_table(rids, bucket.max_pages(PAGE))
+        req = DecodeRequest(
+            rids=tuple(rids),
+            last_tokens=tuple(s[0] for s in one_shot["streams"]),
+            page_table=tuple(tuple(r) for r in pt.tolist()),
+            positions=tuple(len(p) for p in prompts),
+            seq_lens=tuple(len(p) + 1 for p in prompts), acc=bucket.acc)
+        _, width, values = ex._batch_inputs(
+            req, np.asarray(req.last_tokens, np.int32))
+        ex._eager(ex._decode_fn(req.acc, width), values)
+    torch.cuda.synchronize()
+    del eng, ex
+    gen = torch.Generator(device=dev).manual_seed(SEED + 73)
+    out = check_recorded("qwen2-0.5b draft lane", calls, gen)
+    del calls
+    gc.collect()
+    return out
+
+
+def _spec_run(cfg, params, dev, prompts, label, draft_model, draft_params):
+    eng = build_engine(cfg, params, dev, None, graphs=True,
+                       spec=dict(spec_k=SPEC_K, draft_model=draft_model,
+                                 draft_params=draft_params))
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm = (eng.compile_stats()["warm_compiles"],
+            eng.draft_executor.compile_stats()["warm_compiles"])
+    rids = [eng.submit(p, GEN) for p in prompts]
+    with eng.executor.compile_stats_scope() as d_t, \
+            eng.draft_executor.compile_stats_scope() as d_d:
+        t0 = time.perf_counter()
+        results = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    rec = dict(streams=[results[r] for r in rids], seconds=dt,
+               rounds=eng.spec_rounds, proposed=eng.spec_proposed,
+               accepted=eng.spec_accepted, emitted=eng.spec_emitted,
+               rollback=eng.spec_rollback_tokens,
+               fallback=eng.fallback_rows, primes=eng.draft_primes,
+               events=[e for e in eng.events if e["event"] == "spec_round"],
+               warm=warm, warm_s=warm_s, delta=(d_t, d_d),
+               decoded=eng.decoded_tokens,
+               pool_bytes=(eng.executor.pool_bytes(),
+                           eng.draft_executor.pool_bytes()))
+    print(f"[spec] {label}: k={SPEC_K}, warmup {warm[0]} + {warm[1]} (draft) "
+          f"captures in {warm_s:.2f}s; {eng.decoded_tokens} tokens in "
+          f"{dt:.3f}s ({eng.decoded_tokens / dt:.1f} tok/s end to end); "
+          f"{eng.spec_rounds} rounds, acceptance {eng.acceptance_rate():.4f} "
+          f"({eng.spec_accepted}/{eng.spec_proposed}), "
+          f"{eng.spec_emitted} tokens committed by verify, "
+          f"{eng.spec_rollback_tokens} rolled back, {eng.fallback_rows} "
+          f"plain-lane rows, {eng.draft_primes} draft primes; steady state "
+          f"target {d_t}, draft {d_d}; graph pools "
+          f"{rec['pool_bytes'][0] / 2**20:.1f} + "
+          f"{rec['pool_bytes'][1] / 2**20:.1f} MiB", flush=True)
+    for d in (d_t, d_d):
+        check(d["compiles"] == 0 and d["misses"] == 0 and d["hits"] > 0,
+              f"[spec] {label}: steady-state captures {d}")
+    eng.pool.check_invariants()
+    check(eng.draft_pool.free_pages == eng.draft_pool.n_pages - 1,
+          f"[spec] {label}: draft pages leaked")
+    return rec
+
+
+def _verify_vs_decode(cfg, params, dev, prompts) -> dict:
+    """One batch's verify at full width, bitwise k + 1 sequential decode
+    steps: the 8 prompts prefilled (eagerly) into an arena, a random
+    (k + 1)-token candidate a row, ``lm.paged_verify`` (the GEMMs at B *
+    (k + 1) = 40 rows) against 5 ``lm.paged_decode`` steps (8 rows):
+    logits and arena bitwise; the verify's kernel calls recorded and held
+    against their plain versions (``check_recorded``)."""
+    from repro_torch.models import lm
+    from repro_torch.models.api import paged_init_state
+    from repro_torch.quant.formats import FPFormat
+    from repro_torch.serve.plan import plan_attention
+
+    fmt = FPFormat(5, 2)
+    s_v = SPEC_K + 1
+    plan = plan_attention(2048, PAGE)
+    width = plan.bucket_for(max(PROMPT_LENS) + s_v)[1].max_pages(PAGE)
+    _, bucket = plan.bucket_for(max(PROMPT_LENS) + s_v)
+    b = len(prompts)
+    kv = paged_init_state(cfg, n_pages=1 + b * width, page_size=PAGE,
+                          device=dev)
+    pt = torch.zeros((b, width), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            pages = torch.arange(1 + i * width, 1 + (i + 1) * width,
+                                 dtype=torch.int32, device=dev)
+            pt[i] = pages
+            used = pages[:-(-len(p) // PAGE)].long()
+            lm.paged_prefill(params, torch.tensor([p], device=dev), kv,
+                             pages, used, 0, len(p), cfg, kv_fmt=fmt,
+                             acc=bucket.acc, want_logits=False)
+    pos = torch.tensor([len(p) for p in prompts], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+    cand = torch.randint(0, cfg.vocab_size, (b, s_v), generator=gen,
+                         device=dev)
+    kv_seq = {k: v.clone() for k, v in kv.items()}
+    calls: dict = {}
+    with torch.no_grad():
+        with recording_kernels(calls):
+            lv = lm.paged_verify(params, cand, kv, pt, pos,
+                                 (pos + 1).to(torch.int32), cfg, kv_fmt=fmt,
+                                 acc=bucket.acc)
+        same = []
+        for j in range(s_v):
+            lj = lm.paged_decode(params, cand[:, j:j + 1], kv_seq, pt,
+                                 pos + j, (pos + 1 + j).to(torch.int32), cfg,
+                                 kv_fmt=fmt, acc=bucket.acc)
+            same.append(torch.equal(lv[:, j], lj[:, 0]))
+    arena = _same_arena(kv, kv_seq)
+    print(f"[spec] verify of {b} rows x {s_v} tokens (GEMMs at {b * s_v} "
+          f"rows) vs {s_v} sequential decode steps at full depth: logits "
+          f"{sum(same)}/{s_v} slab indices bitwise, arena "
+          f"{'bitwise' if arena else 'DIFFERENT'}", flush=True)
+    check(all(same) and arena, "[spec] verify is not bitwise the sequential "
+                               "decode steps")
+    rec = check_recorded("target verify", calls, gen, kinds=("G", "D"))
+    return dict(slots=s_v, rows=b, kernels=rec)
+
+
+def phase_spec(cfg, params, dev, prompts, one_shot) -> dict:
+    """``[spec]``: the serve cell's 8 prompts (32 tokens each) through the
+    speculative engine on CUDA graphs, warmed, k = 4: with the seeded
+    qwen2-0.5b draft (acceptance near 0 on random weights is expected),
+    then with draft = target (every round commits k + 1 tokens); each
+    stream bitwise the eager ``[serve]`` one-shot run's, 0 steady-state
+    captures on both executors; then one batch's verify at full width
+    bitwise 5 sequential decode steps, its kernels (G at 40 rows, D at 40
+    rows) held against their plain versions at those launch shapes; the
+    draft lane's kernels likewise at theirs (``_draft_kernels``)."""
+    from repro_torch.models.api import get_model
+
+    dmodel, dparams = _draft(cfg, dev)
+    runs = {}
+    for label, dm, dp in (("qwen2-0.5b draft", dmodel, dparams),
+                          ("draft = target", get_model(cfg), params)):
+        r = _spec_run(cfg, params, dev, prompts, label, dm, dp)
+        same = sum(a == b for a, b in zip(r["streams"], one_shot["streams"]))
+        print(f"[spec] {label}: {same}/{len(prompts)} streams bitwise the "
+              f"eager one-shot run's (plain greedy)", flush=True)
+        check(same == len(prompts), f"[spec] {label}: a stream differs from "
+                                    "plain greedy decode")
+        runs[label] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    dk = _draft_kernels(cfg, params, dev, prompts, one_shot, dmodel, dparams)
+    del dparams, dmodel
+    full = runs["draft = target"]
+    last = {}
+    for e in full["events"]:
+        last[e["rid"]] = e
+    check(full["accepted"] == full["proposed"] > 0,
+          "[spec] draft = target: a proposal was rejected")
+    check(all(e["emitted"] == SPEC_K + 1 for e in full["events"]
+              if e is not last[e["rid"]]),
+          "[spec] draft = target: a round committed fewer than k + 1")
+    vv = _verify_vs_decode(cfg, params, dev, prompts)
+    return dict(runs=runs, verify=vv, draft_kernels=dk)
 
 
 # One request's prefill logits, kernels vs plain versions on the card.
@@ -4159,7 +4820,9 @@ def phase_ckpt(dev) -> dict:
 
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     CKPT_DIR.mkdir(parents=True)
-    counters = dict(_train_counters(), **_counters())
+    # the launcher serves on CUDA graphs: its P is the device-geometry entry
+    counters = dict(_train_counters(), **_counters(),
+                    **{P_GEOM_NAME: _graph_counters()[P_GEOM_NAME]})
     try:
         plain = CKPT_DIR / "plain.jsonl"
         zero_counts(counters)
@@ -4254,7 +4917,7 @@ def phase_ckpt(dev) -> dict:
               "the recorded schedule equals the serve plan's own widths")
         check(all(serve_used[k] > 0 for k in ("qmatmul_fused",
                                               "paged_attn_decode",
-                                              "flash_prefill_paged")),
+                                              P_GEOM_NAME)),
               "serving from the checkpoint missed a kernel of the serve path")
         return dict(saves=saves, restore_ms=restore_ms, seconds=secs,
                     train_launches=train_used, serve_launches=serve_used)
@@ -5469,6 +6132,27 @@ def phase_a2q(dev) -> dict:
     return {}
 
 
+# Seconds spent in each phase (a nested phase's time also counts in its
+# caller's), printed before the result: where the script's time limit goes
+PHASE_SECONDS: dict = {}
+
+
+def _timed(fn):
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            PHASE_SECONDS[fn.__name__] = (PHASE_SECONDS.get(fn.__name__, 0.0)
+                                          + time.perf_counter() - t0)
+    return run
+
+
+for _name in [n for n in globals() if n.startswith("phase_")]:
+    globals()[_name] = _timed(globals()[_name])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -5497,6 +6181,7 @@ def main() -> None:
     d = phase_decode(cfg, dev, plan)
     k12 = d.pop("stats")
     p = phase_prefill(cfg, dev, plan)
+    pg = phase_p_geom(cfg, dev, plan)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = get_model(cfg).init_params(gen, dev)
@@ -5518,6 +6203,12 @@ def main() -> None:
     check(same == len(prompts), "chunked prefill changed a token stream")
     phase_logits(cfg, params, dev, prompts[0])
     mon = phase_serve_monitor(cfg, params, dev, prompts, one)
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    sgr = phase_serve_graph(cfg, params, dev, prompts, (one, chunked))
+    phase_spec(cfg, params, dev, prompts, one)
+    phase_graph_teardown(mem0)
+    torch.cuda.empty_cache()
     phase_serve_oracle(cfg, params, dev, prompts[0])
     dp = phase_dense_prefill(cfg, params, dev, plan, prompts)
     k10_inputs = dp.pop("oneshot_inputs")
@@ -5593,6 +6284,12 @@ def main() -> None:
              source="src/repro_torch/csrc/paged_prefill.cu",
              replaces="src/repro/kernels/attention.py:930",
              launches=one["launches"]["flash_prefill_paged"], **p),
+        # P's device-geometry entry: the graphed serve path's prefill
+        # (launches over the [serve-graph] one-shot run's replays)
+        dict(name=P_GEOM_NAME, route="cuda",
+             source="src/repro_torch/csrc/paged_prefill.cu",
+             replaces="src/repro/kernels/attention.py:930",
+             launches=sgr["chunk=one-shot"]["launches"][P_GEOM_NAME], **pg),
         dict(name=E_NAME, route="cuda",
              source="src/repro_torch/csrc/qgemm_emitq.cu",
              replaces="src/repro/kernels/fused.py:136",
@@ -5715,6 +6412,10 @@ def main() -> None:
              source="src/repro_torch/csrc/qgemm_stats.cu",
              replaces="src/repro/kernels/fused.py:229", **var["K8_out"]),
     ]
+    print("[time] seconds by phase " + json.dumps(
+        {k: round(v, 1) for k, v in sorted(PHASE_SECONDS.items(),
+                                           key=lambda kv: -kv[1])}),
+          flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,8 +1,8 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke_config(arch)``.
 
 One module per architecture exposing ``CONFIG`` (the full-size config) and
-``SMOKE`` (a reduced config of the same family for CPU tests).  The
-serving slice ports qwen2-1.5b only.
+``SMOKE`` (a reduced config of the same family for CPU tests).  The port
+has qwen2-1.5b and its speculative-decoding draft, qwen2-0.5b.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ import importlib
 
 from repro_torch.models.config import SHAPES, ModelConfig, ShapeConfig  # noqa: F401
 
-ALIASES = {"qwen2-1.5b": "qwen2_1_5b"}
+ALIASES = {"qwen2-1.5b": "qwen2_1_5b", "qwen2-0.5b": "qwen2_0_5b"}
 
 
 def _module(arch: str):

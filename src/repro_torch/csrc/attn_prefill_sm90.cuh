@@ -175,6 +175,11 @@ struct PrefillArgs {
   float* ol;
   int T, H, KV, G, DH, PS;
   int q_off, col0, ncols, live_rows, first_page;
+  // P's device geometry (GEOM instantiations): int32 (q_off, live_rows,
+  // ncols, first_page) read at the kernel's start instead of the four
+  // launch arguments above; row_pages bounds the walk to the page row
+  const int* geom;
+  int row_pages;
   int BR, R;
   int vec;  // DH % 4 == 0 and aligned operands: 4 codes or floats a load
   float scale;
@@ -366,13 +371,49 @@ __device__ __forceinline__ void pv_piece(const PrefillArgs& a, const Layout& L,
   }
 }
 
-__device__ __forceinline__ bool visible(const PrefillArgs& a, int row, int c) {
-  return row < a.live_rows && a.col0 + c <= a.q_off + row && c < a.ncols;
+// The walk's geometry: the launch arguments, or (GEOM) P's device tensor
+// (q_offset, q_len, kv_len, start_page), clamped to the slab and the page
+// row by a one-thread kernel and copied on the launch's stream into
+// constant memory just before the walk (a kernel and a device-to-constant
+// copy, which a CUDA graph captures as nodes).  Both are constant-bank
+// operands, so the GEOM walk fits the launch-argument walk's 128 registers
+// (a copy of the geometry in registers, in shared memory, or each chain's
+// last visible column in shared memory, spilled there).  The constant
+// copy is one a module: P's GEOM launches on one stream are ordered, and
+// none may run on another stream at the same time.
+__constant__ int geom_c[4];  // q_off, live_rows, ncols, first_page
+__device__ int geom_clamped[4];
+
+__global__ void geom_clamp_kernel(const int* geom, int T, int row_cols) {
+  geom_clamped[0] = geom[0];
+  geom_clamped[1] = min(geom[1], T);
+  geom_clamped[2] = min(geom[2], row_cols);
+  geom_clamped[3] = max(geom[3], 0);
 }
 
-// The scores of columns [c0, c0 + n), staged in kf, into sc[hr][s0 + t]:
-// a thread holds chains (hr, hr + HH) x 4 tokens, each a sum over d in
-// increasing d; masked scores are NEG
+template <bool GEOM>
+__device__ __forceinline__ int g_q_off(const PrefillArgs& a) {
+  if constexpr (GEOM) return geom_c[0]; else return a.q_off;
+}
+template <bool GEOM>
+__device__ __forceinline__ int g_live(const PrefillArgs& a) {
+  if constexpr (GEOM) return geom_c[1]; else return a.live_rows;
+}
+template <bool GEOM>
+__device__ __forceinline__ int g_ncols(const PrefillArgs& a) {
+  if constexpr (GEOM) return geom_c[2]; else return a.ncols;
+}
+template <bool GEOM>
+__device__ __forceinline__ int g_first(const PrefillArgs& a) {
+  if constexpr (GEOM) return geom_c[3]; else return a.first_page;
+}
+
+template <bool GEOM>
+__device__ __forceinline__ bool visible(const PrefillArgs& a, int row, int c) {
+  return row < g_live<GEOM>(a) && a.col0 + c <= g_q_off<GEOM>(a) + row && c < g_ncols<GEOM>(a);
+}
+
+template <bool GEOM>
 __device__ __forceinline__ void score_piece(const PrefillArgs& a,
                                             const Layout& L, const float* qs,
                                             const float* kf, float* sc,
@@ -415,13 +456,13 @@ __device__ __forceinline__ void score_piece(const PrefillArgs& a,
         const int t = 4 * tq + j;
         if (t < n)
           sc[hr * L.sst + s0 + t] =
-              visible(a, row, c0 + t) ? __fmul_rn(acc[i][j], a.scale) : REPRO_NEG;
+              visible<GEOM>(a, row, c0 + t) ? __fmul_rn(acc[i][j], a.scale) : REPRO_NEG;
       }
     }
   }
 }
 
-template <bool PAGED, bool SR>
+template <bool PAGED, bool SR, bool GEOM>
 __global__ void __launch_bounds__(PREFILL_THREADS, 2)
     attn_prefill_kernel(const __grid_constant__ PrefillArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -485,14 +526,16 @@ __global__ void __launch_bounds__(PREFILL_THREADS, 2)
   }
 
   // the pages the tile attends: from first_page, up to the last live row's
-  // causal reach and the last column (later pages are carry no-ops)
-  const int last_row = min(r0 + a.BR, a.live_rows) - 1;
-  const int reach = a.q_off + last_row - a.col0;
+  // causal reach and the last column (later pages are carry no-ops); GEOM:
+  // from the device geometry, which is data, so one launch shape serves
+  // every slab
+  const int last_row = min(r0 + a.BR, g_live<GEOM>(a)) - 1;
+  const int reach = g_q_off<GEOM>(a) + last_row - a.col0;
   const int n_causal = last_row >= r0 && reach >= 0 ? reach / PS + 1 : 0;
-  const int p_end = min(cdiv(a.ncols, PS), n_causal);
+  const int p_end = min(cdiv(g_ncols<GEOM>(a), PS), n_causal);
   const int cap = CL * a.R, pl = L.pl;
 
-  for (int base = a.first_page; base < p_end; base += cap) {
+  for (int base = g_first<GEOM>(a); base < p_end; base += cap) {
     const int npr = min(cap, p_end - base);  // the round's pages
     const int step0 = a.col0 / PS + base;    // SR: the round's first KV block
     const int per = cdiv(npr, CL);
@@ -513,7 +556,7 @@ __global__ void __launch_bounds__(PREFILL_THREADS, 2)
       const int n = min(pl, n_own - s0);
       stage<PAGED>(a, kf, L.qst, L.dp, a.kp, a.k, ids, ksc, hk, base, c_own + s0, n, 0);
       __syncthreads();
-      score_piece(a, L, qs, kf, sc, r0, c_own + s0, n, s0);
+      score_piece<GEOM>(a, L, qs, kf, sc, r0, c_own + s0, n, s0);
       __syncthreads();
     }
     for (int i = tid; i < mine * HR; i += PREFILL_THREADS) {
@@ -550,7 +593,7 @@ __global__ void __launch_bounds__(PREFILL_THREADS, 2)
     for (int i = tid; i < HR * n_own; i += PREFILL_THREADS) {
       const int hr = i / n_own, tt = i - hr * n_own;
       float* s = sc + hr * L.sst + tt;
-      *s = visible(a, r0 + hr / G, c_own + tt)
+      *s = visible<GEOM>(a, r0 + hr / G, c_own + tt)
                ? exp2f(*s - cm_all[(my0 + tt / PS) * HR + hr]) : 0.0f;
     }
     __syncthreads();
@@ -642,12 +685,12 @@ __global__ void __launch_bounds__(PREFILL_THREADS, 2)
 }
 
 // the dynamic shared memory a launch may take, raised once per size
-template <bool PAGED, bool SR>
+template <bool PAGED, bool SR, bool GEOM>
 int allow_smem(int bytes) {
   static int allowed = 48 * 1024;
   if (bytes <= allowed) return 0;
   const cudaError_t e = cudaFuncSetAttribute(
-      attn_prefill_kernel<PAGED, SR>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      attn_prefill_kernel<PAGED, SR, GEOM>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   allowed = bytes;
   return 0;
@@ -670,7 +713,7 @@ inline cudaLaunchConfig_t launch_config(int blocks, int smem, cudaStream_t s,
 }
 
 // one launch over every (KV head, row tile), CL blocks a tile
-template <bool PAGED, bool SR = false>
+template <bool PAGED, bool SR = false, bool GEOM = false>
 int launch(PrefillArgs a, int CL, cudaStream_t s) {
   if (a.T <= 0) return 0;
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) & 15 | (PAGED
@@ -678,36 +721,46 @@ int launch(PrefillArgs a, int CL, cudaStream_t s) {
       : (reinterpret_cast<uintptr_t>(a.k) | reinterpret_cast<uintptr_t>(a.v)) & 15);
   a.vec = a.DH % 4 == 0 && ptrs == 0;
   const int smem = Layout(a.G, a.BR, a.PS, a.DH, CL, a.R).bytes();
-  if (const int rc = allow_smem<PAGED, SR>(smem)) return rc;
+  if (const int rc = allow_smem<PAGED, SR, GEOM>(smem)) return rc;
+  if constexpr (GEOM) {
+    geom_clamp_kernel<<<1, 1, 0, s>>>(a.geom, a.T, a.row_pages * a.PS);
+    void* clamped = nullptr;
+    cudaError_t c = cudaGetLastError();
+    if (c == cudaSuccess) c = cudaGetSymbolAddress(&clamped, geom_clamped);
+    if (c == cudaSuccess)
+      c = cudaMemcpyToSymbolAsync(geom_c, clamped, sizeof(geom_c), 0,
+                                  cudaMemcpyDeviceToDevice, s);
+    if (c != cudaSuccess) return static_cast<int>(c);
+  }
   cudaLaunchAttribute attr;
   const int blocks = a.KV * cdiv(a.T, a.BR) * CL;
   const cudaLaunchConfig_t cfg = launch_config(blocks, smem, s, &attr, CL);
-  cudaError_t e = cudaLaunchKernelEx(&cfg, attn_prefill_kernel<PAGED, SR>, a);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, attn_prefill_kernel<PAGED, SR, GEOM>, a);
   if (e == cudaSuccess) e = cudaGetLastError();
   return static_cast<int>(e);
 }
 
 // resident blocks an SM, or minus the CUDA error
-template <bool PAGED, bool SR = false>
+template <bool PAGED, bool SR = false, bool GEOM = false>
 int occupancy(int G, int BR, int PS, int DH, int CL, int R) {
   const int smem = Layout(G, BR, PS, DH, CL, R).bytes();
-  if (const int rc = allow_smem<PAGED, SR>(smem)) return -rc;
+  if (const int rc = allow_smem<PAGED, SR, GEOM>(smem)) return -rc;
   int n = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, attn_prefill_kernel<PAGED, SR>, PREFILL_THREADS, smem);
+      &n, attn_prefill_kernel<PAGED, SR, GEOM>, PREFILL_THREADS, smem);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 // clusters that fit the card at once, or minus the CUDA error
-template <bool PAGED, bool SR = false>
+template <bool PAGED, bool SR = false, bool GEOM = false>
 int clusters(int G, int BR, int PS, int DH, int CL, int R) {
   const int smem = Layout(G, BR, PS, DH, CL, R).bytes();
-  if (const int rc = allow_smem<PAGED, SR>(smem)) return -rc;
+  if (const int rc = allow_smem<PAGED, SR, GEOM>(smem)) return -rc;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(CL * 1024, smem, nullptr, &attr, CL);
   int n = 0;
   const cudaError_t e =
-      cudaOccupancyMaxActiveClusters(&n, attn_prefill_kernel<PAGED, SR>, &cfg);
+      cudaOccupancyMaxActiveClusters(&n, attn_prefill_kernel<PAGED, SR, GEOM>, &cfg);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 

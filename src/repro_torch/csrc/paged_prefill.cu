@@ -10,7 +10,14 @@
 // future of a tile's last live row are not walked (carry no-ops); the mask
 // is (col <= q_offset + row) & (col < kv_len) & (row < q_len), and rows
 // >= q_len attend nothing and come out 0.  q_offset, q_len and kv_len are
-// launch arguments.
+// launch arguments (paged_prefill, paged_prefill_carry), or read by every
+// block from an int32[4] device tensor (q_offset, q_len, kv_len,
+// start_page) at its start (paged_prefill_geom, JAX's traced geom operand):
+// the launch then depends on the shapes only, so one captured CUDA graph
+// serves every slab geometry of a bucket.  Its schedule is picked from the
+// slab width and the page row's width; tiles past q_len and cluster ranks
+// past the live pages walk nothing.  The walk, and so every bit, is the
+// launch-argument entry's.
 //
 // Bound on the H100: the score and value contractions, 4 * rows * attended
 // tokens * dh flops a query head, in f32 on the CUDA cores (twice the FMA
@@ -48,6 +55,34 @@ static int run(const void* q, const void* kp, const void* vp,
   a.scale = scale; a.e_kv = e_kv; a.m_kv = m_kv;
   a.qacc = QFmt{c_identity, c_shift, c_max, c_min};
   return prefill::launch<true>(a, CL, static_cast<cudaStream_t>(stream));
+}
+
+// P with its geometry on the device: geom int32[4] = (q_offset, q_len,
+// kv_len, start_page); row_pages the page row's width (the walk never
+// passes it).  Finalized output, no carries.
+extern "C" int paged_prefill_geom(const void* q, const void* kp, const void* vp,
+                                  const void* kse, const void* vse,
+                                  const void* page_row, const void* geom, void* out,
+                                  int T, int H, int KV, int PS, int DH, int row_pages,
+                                  float scale, int e_kv, int m_kv, int c_identity,
+                                  int c_shift, float c_max, float c_min, int BR,
+                                  int CL, int R, void* stream) {
+  if (geom == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  prefill::PrefillArgs a = {};
+  a.q = static_cast<const float*>(q);
+  a.kp = static_cast<const int8_t*>(kp);
+  a.vp = static_cast<const int8_t*>(vp);
+  a.kse = static_cast<const int*>(kse);
+  a.vse = static_cast<const int*>(vse);
+  a.page_row = static_cast<const int*>(page_row);
+  a.geom = static_cast<const int*>(geom);
+  a.row_pages = row_pages;
+  a.out = static_cast<float*>(out);
+  a.T = T; a.H = H; a.KV = KV; a.G = H / KV; a.DH = DH; a.PS = PS;
+  a.BR = BR; a.R = R;
+  a.scale = scale; a.e_kv = e_kv; a.m_kv = m_kv;
+  a.qacc = QFmt{c_identity, c_shift, c_max, c_min};
+  return prefill::launch<true, false, true>(a, CL, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int paged_prefill(const void* q, const void* kp, const void* vp,

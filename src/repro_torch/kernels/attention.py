@@ -107,6 +107,9 @@ __all__ = [
     "paged_attn_decode_stats_reference",
     "flash_prefill_paged",
     "flash_prefill_paged_reference",
+    "flash_prefill_paged_geom",
+    "flash_prefill_paged_geom_reference",
+    "prefill_geom",
     "flash_prefill",
     "flash_prefill_reference",
     "merge_carries",
@@ -519,7 +522,10 @@ def flash_prefill_paged_reference(q, k_pages, v_pages, k_se, v_se, page_row,
     ``[0, ceil(kv_len / page_size))`` of the page row in order (the rest
     are masked, hence carry no-ops), pages before ``start_page`` masked
     and ``carry`` as the state before them, with the kernel's summation
-    order; ``return_carry=True`` returns the raw ``(o, m, l)``."""
+    order; ``return_carry=True`` returns the raw ``(o, m, l)``.  With the
+    geometry as 0-d tensors (``flash_prefill_paged_geom_reference``) it
+    enters only the masks and every column of the page row is walked, so
+    nothing reads it on the host; the bits are the same."""
     if call is not None:
         acc, kv_fmt = call.acc, call.kv_fmt
         return_carry = bool(return_carry or call.return_carry)
@@ -536,7 +542,9 @@ def flash_prefill_paged_reference(q, k_pages, v_pages, k_se, v_se, page_row,
     rloc = torch.arange(t, device=dev)[:, None]
     rows = q_offset + rloc
     page_row = page_row.to(device=dev, dtype=torch.int64)
-    for p in range(-(-kv_len // page_size)):
+    n_walk = (page_row.shape[0] if isinstance(kv_len, torch.Tensor)
+              else -(-kv_len // page_size))
+    for p in range(n_walk):
         pid = page_row[p]
         kb = _page_values(k_pages[pid], k_se[pid], fmt)  # (kv, ps, dh)
         vb = _page_values(v_pages[pid], v_se[pid], fmt)
@@ -687,6 +695,107 @@ def flash_prefill_paged(q, k_pages, v_pages, k_se, v_se, page_row,
 flash_prefill_paged.launches = 0
 flash_prefill_paged.carry_launches = 0
 flash_prefill_paged.resume_launches = 0
+
+
+# --------------------------------------------------------------------------
+# bucketed paged prefill, geometry on the device
+# --------------------------------------------------------------------------
+
+
+def prefill_geom(q_offset, q_len, kv_len=None, start_page=0,
+                 device=None) -> torch.Tensor:
+    """P's device geometry: the int32[4] tensor ``(q_offset, q_len, kv_len,
+    start_page)`` (JAX's ``geom`` operand).  Each entry an int or a 0-d
+    integer tensor; ``kv_len`` defaults to ``q_offset + q_len``.  Tensors
+    are stacked where they lie (no host read); ints are placed on
+    ``device``."""
+    parts = [q_offset, q_len,
+             q_offset + q_len if kv_len is None else kv_len, start_page]
+    dev = next((x.device for x in parts if isinstance(x, torch.Tensor)),
+               device)
+    # an int is filled on the device (no host-to-device copy, so the call
+    # can be captured in a CUDA graph)
+    return torch.stack([x.reshape(()).to(torch.int32)
+                        if isinstance(x, torch.Tensor)
+                        else torch.full((), int(x), dtype=torch.int32,
+                                        device=dev)
+                        for x in parts])
+
+
+def flash_prefill_paged_geom_reference(q, k_pages, v_pages, k_se, v_se,
+                                       page_row, geom, *, kv_fmt=None,
+                                       acc=_WIDE, call: AttnCall | None = None):
+    """Plain PyTorch version of ``flash_prefill_paged_geom``:
+    ``flash_prefill_paged_reference`` with the geometry as tensors, which
+    enter only the masks (every column of the page row is walked; the
+    columns past ``kv_len`` or before ``start_page`` are carry no-ops), so
+    the output is bitwise the host-int walk's."""
+    q_offset, q_len, kv_len, start_page = geom.to(
+        device=q.device, dtype=torch.int64).unbind()
+    return flash_prefill_paged_reference(
+        q, k_pages, v_pages, k_se, v_se, page_row, q_offset, q_len, kv_len,
+        kv_fmt=kv_fmt, acc=acc, start_page=start_page, call=call)
+
+
+_PREFILL_GEOM_ARGS = ([_P] * 8 + [_I] * 6
+                      + [_F, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P])
+
+
+def flash_prefill_paged_geom(q, k_pages, v_pages, k_se, v_se, page_row,
+                             geom, *, kv_fmt=None, acc=_WIDE,
+                             call: AttnCall | None = None):
+    """``flash_prefill_paged`` with its geometry on the device, JAX's
+    traced ``geom`` operand (``_prefill_paged_kernel``'s ``gm_ref``):
+    ``geom`` an int32[4] tensor ``(q_offset, q_len, kv_len, start_page)``
+    on q's device (``prefill_geom``), read by the kernel, never by the
+    host.  The launch depends on the shapes only: the schedule
+    (``sm90.attn_prefill_schedule``) is picked from the slab width T and
+    the page row's width, so one captured CUDA graph serves every slab of
+    a bucket.  Bitwise ``flash_prefill_paged`` on the same geometry (the
+    walk is the same code; the schedule changes no bit).  No carries.
+    Counted on ``flash_prefill_paged_geom.launches``.  Returns (T, H, dh) float32; rows
+    ``>= q_len`` exactly 0."""
+    if call is not None:
+        acc, kv_fmt = call.acc, call.kv_fmt
+        if call.max_pages and page_row.shape[0] != call.max_pages:
+            raise ValueError(f"page_row width {page_row.shape[0]} != bucket "
+                             f"max_pages {call.max_pages}")
+    if tuple(geom.shape) != (4,):
+        raise ValueError(f"geom must be int32[4], got {tuple(geom.shape)}")
+    if q.device.type == "cpu":
+        return flash_prefill_paged_geom_reference(
+            q, k_pages, v_pages, k_se, v_se, page_row, geom, kv_fmt=kv_fmt,
+            acc=acc)
+    fmt = _check_pages(q, k_pages, v_pages, kv_fmt)
+    if q.dtype != torch.float32 or q.ndim != 3:
+        raise TypeError(f"q must be (T, H, dh) float32, got {q.dtype} "
+                        f"{tuple(q.shape)}")
+    for x in (k_se, v_se, page_row, geom):
+        if x.dtype != torch.int32:
+            raise TypeError("page scales, page row and geom are int32")
+    _check_cuda(q, k_pages, v_pages, k_se, v_se, page_row, geom)
+    t, h, dh = q.shape
+    kv, page_size = k_pages.shape[1], k_pages.shape[2]
+    _launch_limits(h // kv, dh, page_size)
+    width = page_row.shape[0]
+    out = torch.empty_like(q)
+    sched = sm90.attn_prefill_schedule(t, kv, h // kv, page_size, dh, width)
+    scale, *qacc = _attn_consts(dh, tuple(acc))
+    rc = build.function("paged_prefill", "paged_prefill_geom",
+                        _PREFILL_GEOM_ARGS)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_se.data_ptr(), v_se.data_ptr(), page_row.data_ptr(),
+        geom.data_ptr(), out.data_ptr(), t, h, kv, page_size, dh, width,
+        scale, *fmt, *qacc, sched.rows, sched.cluster, sched.rank_pages,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_prefill_geom launch failed: CUDA error "
+                           f"{rc}")
+    flash_prefill_paged_geom.launches += 1
+    return out
+
+
+flash_prefill_paged_geom.launches = 0
 
 
 # --------------------------------------------------------------------------

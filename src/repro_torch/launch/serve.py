@@ -12,6 +12,16 @@ carry; events append to ``--monitor-log``).  Runs on CUDA unless
 there, under the plan with the run's recorded ``precision_schedule``
 applied; ``--n-layers`` cuts the depth (to match such a checkpoint).
 
+Before traffic the engine makes every certified bucket's signatures
+(``ServeEngine.warmup``: on the card, captures the CUDA graph of each
+bucket's decode step and prefill slab; ``--no-warmup`` leaves them to the
+first request of each), and prints its compile-cache counters after.
+``--spec-decode K`` serves with speculative decoding: a draft model
+(``--draft-config``, default qwen2-0.5b, which must share the target's
+vocabulary; its weights seeded from ``--seed`` + 7) proposes K tokens a
+round, one batched verify scores them, and a rejection is a page-exact
+rollback; the streams stay bitwise plain greedy decode.
+
 ``--serve-mesh N`` serves tensor-parallel over N ranks, which the launcher
 spawns itself (one process a rank, rank r on ``cuda:(r % cards)``): each
 runs the same engine schedule in lockstep on its output-dim slice of the
@@ -25,6 +35,8 @@ int8 wire instead of gathering them (lossy in general).
       --smoke --prompt-lens 16,32,48 --gen 16 --policy predicted --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --policy \
       predicted --device cpu --serve-mesh 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --policy \
+      predicted --device cpu --spec-decode 4
 """
 
 from __future__ import annotations
@@ -79,6 +91,18 @@ def parse_args(argv=None):
                     default="gather",
                     help="sharded unembed: exact gather, or the int8 "
                          "compressed-sum wire (lossy in general)")
+    ap.add_argument("--spec-decode", type=int, default=0, metavar="K",
+                    help="speculative decoding: a draft model proposes K "
+                         "tokens a round, one batched verify scores them, "
+                         "a rejection is a page-exact rollback (0 = off); "
+                         "the streams stay bitwise plain greedy decode")
+    ap.add_argument("--draft-config", default="qwen2-0.5b",
+                    help="the draft model's arch for --spec-decode (it must "
+                         "share the target's vocabulary)")
+    ap.add_argument("--no-warmup", action="store_true",
+                    help="skip the warmup before traffic (each bucket's "
+                         "signatures are then made, on the card captured, "
+                         "by its first request)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
@@ -154,12 +178,37 @@ def build(args):
     tokens_needed = sum(n + args.gen for n in prompt_lens)
     n_pages = args.pages or (
         -(-int(tokens_needed * 1.25) // args.page_size) + 1)
-    eng = ServeEngine(model, params, n_pages=n_pages,
-                      page_size=args.page_size, max_batch=args.max_batch,
-                      prefill_chunk_tokens=args.prefill_chunk or None,
-                      monitor_cadence=args.monitor_cadence,
-                      monitor_log=args.monitor_log or None, seed=args.seed,
-                      device=device)
+    eng_kw = dict(n_pages=n_pages, page_size=args.page_size,
+                  max_batch=args.max_batch,
+                  prefill_chunk_tokens=args.prefill_chunk or None,
+                  monitor_cadence=args.monitor_cadence,
+                  monitor_log=args.monitor_log or None, seed=args.seed,
+                  device=device)
+    if args.spec_decode:
+        from repro_torch.serve.spec import SpecDecodeEngine
+
+        draft_cfg = (get_smoke_config(args.draft_config) if args.smoke
+                     else get_config(args.draft_config))
+        if draft_cfg.vocab_size != cfg.vocab_size:
+            raise SystemExit(
+                f"draft vocab {draft_cfg.vocab_size} != target vocab "
+                f"{cfg.vocab_size}: verify compares token ids")
+        draft_cfg = plan_for_model(draft_cfg, seq_len=max_ctx,
+                                   global_batch=len(prompt_lens),
+                                   policy=policy)
+        draft_model = get_model(draft_cfg)
+        dgen = torch.Generator(device=device)
+        dgen.manual_seed(args.seed + 7)
+        draft_params = _map(lambda x: x.to(torch.bfloat16)
+                            if x.dtype == torch.float32 else x,
+                            draft_model.init_params(dgen, device))
+        eng = SpecDecodeEngine(model, params, spec_k=args.spec_decode,
+                               draft_model=draft_model,
+                               draft_params=draft_params, **eng_kw)
+        print(f"speculative decoding: k={args.spec_decode} draft "
+              f"{draft_cfg.name} ({args.draft_config})")
+    else:
+        eng = ServeEngine(model, params, **eng_kw)
     rng = np.random.RandomState(args.seed + 1)
     prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
                for n in prompt_lens]
@@ -175,8 +224,15 @@ def _map(fn, tree):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.serve_mesh:
+        if args.spec_decode:
+            raise SystemExit("--spec-decode does not compose with "
+                             "--serve-mesh (single device only)")
         return main_tp(args)
     eng, prompts, schedule = build(args)
+    if not args.no_warmup:
+        warm = eng.warmup()
+        print(f"warmup: {warm['compiles']} compiles across "
+              f"{warm['buckets']} buckets in {warm['seconds']:.2f}s")
     rids = [eng.submit(p, args.gen) for p in prompts]
     dev = eng.executor.device
     if dev.type == "cuda":
@@ -206,14 +262,33 @@ def main(argv=None) -> dict:
               f"{[b.m_acc for b in eng.plan.buckets]}")
     if args.ckpt_dir:
         print(f"plan m_acc: {plan_widths(eng.cfg)}")
+    if args.spec_decode:
+        print(f"spec decode: {eng.spec_rounds} rounds, acceptance "
+              f"{eng.acceptance_rate():.3f} "
+              f"({eng.spec_accepted}/{eng.spec_proposed} draft tokens), "
+              f"{eng.spec_emitted} tokens committed by verify, "
+              f"{eng.spec_rollback_tokens} rolled back, "
+              f"{eng.fallback_rows} plain-lane fallbacks")
+    cstats = eng.compile_stats()
+    steady = cstats["compiles"] - cstats["warm_compiles"]
+    print(f"compile cache: {cstats['compiles']} compiles "
+          f"({cstats['warm_compiles']} at warmup, {steady} steady-state), "
+          f"{cstats['hits']} dispatch hits / {cstats['misses']} misses"
+          f"{' (CUDA graphs)' if eng.executor.graphs else ''}")
     print("sample generation (request 0):", results[rids[0]])
     eng.pool.check_invariants()
-    return {"seconds": dt, "results": results,
-            "schedule": schedule, "plan": plan_widths(eng.cfg),
-            "decoded_tokens": eng.decoded_tokens,
-            "prefill_tokens": eng.prefill_tokens,
-            "kv_bytes_per_token": packed, "max_concurrent": eng.max_concurrent,
-            "preemptions": eng.preemptions, "restores": eng.restores}
+    out = {"seconds": dt, "results": results,
+           "schedule": schedule, "plan": plan_widths(eng.cfg),
+           "decoded_tokens": eng.decoded_tokens,
+           "prefill_tokens": eng.prefill_tokens,
+           "kv_bytes_per_token": packed, "max_concurrent": eng.max_concurrent,
+           "preemptions": eng.preemptions, "restores": eng.restores,
+           "compile_stats": cstats}
+    if args.spec_decode:
+        out.update(spec_rounds=eng.spec_rounds,
+                   acceptance_rate=eng.acceptance_rate(),
+                   spec_rollback_tokens=eng.spec_rollback_tokens)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -258,8 +333,11 @@ def serve_job(job: dict, dist: Dist = LOCAL, device="cuda") -> dict:
                                  page_size=job["page_size"],
                                  kv_fmt=FPFormat(e=5, m=2))
     kw = dict(kv_fmt=pc.kv_fmt, max_batch=job["max_batch"], device=device)
+    # eager on one device too: the executor the sharded ranks are held
+    # against, its calls timed one by one
     ex = (ShardedModelExecutor(model, params, pc, dist=dist, **kw)
-          if dist.sharded else ModelExecutor(model, params, pc, **kw))
+          if dist.sharded else ModelExecutor(model, params, pc, graphs=False,
+                                             **kw))
     del params
     times = {"decode": 0.0, "prefill": 0.0}
     hashes, kept = [], {}

@@ -14,7 +14,7 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = ["Model", "get_model", "param_count", "dense_gemm_shapes",
            "PagedModel", "get_paged_model", "paged_init_state",
-           "PrefillRequest", "DecodeRequest"]
+           "PrefillRequest", "DecodeRequest", "VerifyRequest"]
 
 
 @dataclass(frozen=True)
@@ -66,8 +66,10 @@ class PrefillRequest:
     """One prefill slab of one sequence: the slab's ``tokens``, the
     sequence's history pages and the slab's pages, the slab's absolute
     page-aligned offset ``t0``, the bucket's carry format, whether this is
-    the prompt's last slab, and the bucket's page-row width and
-    ``AttnCall``."""
+    the prompt's last slab, the bucket's page-row width, the padded slab
+    width (``slab_width``: tokens past the slab's are zeros, as the JAX
+    executor pads for its compiled signature; None = unpadded) and the
+    bucket's ``AttnCall``."""
 
     rid: int
     tokens: tuple
@@ -77,6 +79,7 @@ class PrefillRequest:
     acc: tuple
     final: bool
     bucket_pages: int | None = None
+    slab_width: int | None = None
     call: Any = None
 
 
@@ -94,12 +97,29 @@ class DecodeRequest:
 
 
 @dataclass(frozen=True)
+class VerifyRequest:
+    """One batched speculative-verify step: per-sequence parallel tuples as
+    in ``DecodeRequest``, but ``tokens`` holds ``k + 1`` candidates a row
+    (the last committed token and the draft's proposals), ``positions``
+    the first write position of each row and ``seq_lens`` the attended
+    length at slab index 0 (``positions + 1``)."""
+
+    rids: tuple
+    tokens: tuple          # of per-sequence (k + 1)-tuples
+    page_table: tuple
+    positions: tuple
+    seq_lens: tuple
+    acc: tuple
+
+
+@dataclass(frozen=True)
 class PagedModel:
     """The paged serving protocol the executor drives."""
 
     cfg: ModelConfig
     prefill: Callable
     decode: Callable
+    verify: Callable | None = None
 
 
 def paged_init_state(cfg: ModelConfig, *, n_pages: int, page_size: int,
@@ -125,4 +145,10 @@ def get_paged_model(cfg: ModelConfig) -> PagedModel:
         return lm.paged_decode(params, tokens, kv_state, page_table,
                                positions, seq_lens, cfg, **kw)
 
-    return PagedModel(cfg=cfg, prefill=_prefill, decode=_decode)
+    def _verify(params, tokens, kv_state, page_table, positions, seq_lens,
+                **kw):
+        return lm.paged_verify(params, tokens, kv_state, page_table,
+                               positions, seq_lens, cfg, **kw)
+
+    return PagedModel(cfg=cfg, prefill=_prefill, decode=_decode,
+                      verify=_verify)

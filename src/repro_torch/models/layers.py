@@ -3,8 +3,9 @@
 Counterpart of ``repro.models.layers`` for the dense family: training
 attention (``attn_apply``), the paged serving entries (the bucketed slab
 ``attn_prefill_bucketed`` through P, the dense one-shot and slab prefills
-``attn_prefill_paged`` and ``attn_prefill_chunk_paged`` through K10, and
-``attn_decode_paged``) and the SwiGLU MLP.
+``attn_prefill_paged`` and ``attn_prefill_chunk_paged`` through K10,
+``attn_decode_paged`` and the speculative verify ``attn_verify_paged``
+through D) and the SwiGLU MLP.
 
 Under tensor-parallel serving (a sharded ``dist.Dist``) the serve-path
 functions run on the rank's output-dim slices of the params
@@ -35,7 +36,9 @@ from repro_torch.kernels.attention import (
     finalize_carry,
     flash_prefill,
     flash_prefill_paged,
+    flash_prefill_paged_geom,
     paged_attn_decode,
+    prefill_geom,
 )
 from repro_torch.kernels.ops import QDotConfig, qdot
 from repro_torch.models.config import ModelConfig
@@ -237,24 +240,87 @@ def attn_decode_paged(p: Params, x: torch.Tensor, kv: dict[str, torch.Tensor],
     return y if ax is None else gather_cols(y, dist)
 
 
+def attn_verify_paged(p: Params, x: torch.Tensor, kv: dict[str, torch.Tensor],
+                      page_table: torch.Tensor, positions: torch.Tensor,
+                      seq_lens: torch.Tensor, cfg: ModelConfig, *, kv_fmt,
+                      acc: tuple[int, int], dist: Dist = LOCAL) -> torch.Tensor:
+    """Speculative-decode verify through a layer: ``S = k + 1`` tokens a
+    sequence in one batched pass, bitwise ``S`` sequential
+    ``attn_decode_paged`` steps.  ``x`` (B, S, D), the last committed
+    token and the k proposals; ``positions`` (B,) the first write
+    position of each row; ``seq_lens`` (B,) int32 the attended length at
+    slab index 0 (0 for padded rows).  The S tokens' K/V append slot by
+    slot, in order, under ``append_token``'s page-scale rule (a slot-0
+    write fixes the page's exponent; appends never read, so writing all S
+    before attending changes nothing); then one D call over the B * S
+    flattened rows, row (i, j) with sequence i's page-table row and its
+    own length ``seq_lens + j``, so each row's walk is the decode walk at
+    that context.  Under a sharded ``dist`` each rank walks its own heads
+    (D's carry entry) and the carries merge exactly."""
+    b, s, _ = x.shape
+    steps = torch.arange(s, device=x.device)
+    pos2 = positions[:, None] + steps[None, :]
+    q = _q_proj(p, x, cfg, pos2)                   # (B, S, H, dh)
+    k1, v1 = _kv_proj(p, x, cfg, pos2)
+    page_size = kv["k"].shape[2]
+    ax = dist if dist.sharded else None
+    pt = page_table.long()
+    for j in range(s):
+        pos_j = positions + j
+        page_id = torch.gather(pt, 1, (pos_j // page_size)[:, None].long())[:, 0]
+        slot = (pos_j % page_size).long()
+        KV.append_token(kv["k"], kv["k_se"], k1[:, j].to(torch.float32),
+                        page_id, slot, kv_fmt, pmax_axis=ax)
+        KV.append_token(kv["v"], kv["v_se"], v1[:, j].to(torch.float32),
+                        page_id, slot, kv_fmt, pmax_axis=ax)
+    q_flat = q.reshape(b * s, *q.shape[2:]).to(torch.float32)
+    pt_flat = torch.repeat_interleave(page_table, s, dim=0)
+    sl_flat = torch.where(seq_lens[:, None] > 0,
+                          seq_lens[:, None] + steps[None, :].to(seq_lens.dtype),
+                          torch.zeros_like(seq_lens)[:, None]).reshape(b * s)
+    args = (q_flat, kv["k"], kv["v"], kv["k_se"], kv["v_se"], pt_flat,
+            sl_flat.to(torch.int32))
+    if ax is None:
+        o = paged_attn_decode(*args, kv_fmt=kv_fmt, acc=acc)
+    else:
+        o = _merge_sharded_carry(*paged_attn_decode(
+            *args, kv_fmt=kv_fmt, acc=acc, return_carry=True), dist)
+    o = o.reshape(b, s, -1).to(COMPUTE_DTYPE)
+    y = dense(o, p["wo"], cfg.quant.attn_out)
+    return y if ax is None else gather_cols(y, dist)
+
+
 def attn_prefill_bucketed(p: Params, x: torch.Tensor,
                           kv: dict[str, torch.Tensor], page_row: torch.Tensor,
-                          slab_page_ids: torch.Tensor, q_offset: int,
-                          q_len: int, cfg: ModelConfig, *, kv_fmt,
+                          slab_page_ids: torch.Tensor, q_offset, q_len,
+                          cfg: ModelConfig, *, kv_fmt,
                           acc: tuple[int, int], call=None,
                           dist: Dist = LOCAL) -> torch.Tensor:
     """One prefill slab of one sequence through a layer.  ``x`` (1, T, D)
     holds the slab (rows ``>= q_len`` are padding, zeroed before the
     arena write); the slab's K/V are quantized into ``slab_page_ids``, then
-    one ``flash_prefill_paged`` call attends history and slab off the
-    updated arena.  ``q_offset``/``q_len`` are host ints.  Under a sharded
-    ``dist`` each rank walks its own heads (P's carry out) and the carries
-    merge exactly."""
+    one P call attends history and slab off the updated arena.
+
+    ``q_offset``/``q_len`` are host ints (P's launch-argument entry
+    ``flash_prefill_paged``) or 0-d int32 tensors on x's device, JAX's
+    traced geometry: then the positions, the live mask and P's ``geom``
+    are formed on the device and nothing reads them on the host
+    (``flash_prefill_paged_geom``), so the layer can be captured in a CUDA
+    graph that serves every slab geometry.  Under a sharded ``dist`` (host
+    ints only) each rank walks its own heads (P's carry out) and the
+    carries merge exactly."""
     t = x.shape[1]
-    positions = (q_offset + torch.arange(t, device=x.device))[None]
+    on_device = isinstance(q_offset, torch.Tensor) or isinstance(
+        q_len, torch.Tensor)
+    rows = torch.arange(t, device=x.device)
+    if on_device:
+        q_offset = torch.as_tensor(q_offset, dtype=torch.int32,
+                                   device=x.device)
+        q_len = torch.as_tensor(q_len, dtype=torch.int32, device=x.device)
+    positions = (q_offset + rows)[None]
     q = _q_proj(p, x, cfg, positions)              # (1, T, H, dh)
     k, v = _kv_proj(p, x, cfg, positions)
-    live = (torch.arange(t, device=x.device) < q_len)[:, None, None]
+    live = (rows < q_len)[:, None, None]
     kf = torch.where(live, k[0].to(torch.float32), 0.0)
     vf = torch.where(live, v[0].to(torch.float32), 0.0)
     ax = dist if dist.sharded else None
@@ -262,14 +328,21 @@ def attn_prefill_bucketed(p: Params, x: torch.Tensor,
                     pmax_axis=ax)
     KV.write_prompt(kv["v"], kv["v_se"], vf, slab_page_ids, kv_fmt,
                     pmax_axis=ax)
-    args = (q[0].to(torch.float32), kv["k"], kv["v"], kv["k_se"], kv["v_se"],
-            page_row, q_offset, q_len, q_offset + q_len)
-    if ax is None:
-        o = flash_prefill_paged(*args, kv_fmt=kv_fmt, acc=acc, call=call)
+    pages = (q[0].to(torch.float32), kv["k"], kv["v"], kv["k_se"],
+             kv["v_se"], page_row)
+    if on_device:
+        if ax is not None:
+            raise NotImplementedError(
+                "the sharded prefill takes its geometry as host ints")
+        o = flash_prefill_paged_geom(*pages, prefill_geom(q_offset, q_len),
+                                     kv_fmt=kv_fmt, acc=acc, call=call)
+    elif ax is None:
+        o = flash_prefill_paged(*pages, q_offset, q_len, q_offset + q_len,
+                                kv_fmt=kv_fmt, acc=acc, call=call)
     else:
         o = _merge_sharded_carry(*flash_prefill_paged(
-            *args, kv_fmt=kv_fmt, acc=acc, call=call, return_carry=True),
-            dist)
+            *pages, q_offset, q_len, q_offset + q_len, kv_fmt=kv_fmt,
+            acc=acc, call=call, return_carry=True), dist)
     o = o.reshape(1, t, -1).to(COMPUTE_DTYPE)
     y = dense(o, p["wo"], cfg.quant.attn_out)
     return y if ax is None else gather_cols(y, dist)

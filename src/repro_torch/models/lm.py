@@ -329,15 +329,18 @@ def paged_decode(params: Params, tokens: torch.Tensor, kv_state: dict,
 
 def paged_prefill(params: Params, tokens: torch.Tensor, kv_state: dict,
                   page_row: torch.Tensor, slab_page_ids: torch.Tensor,
-                  q_offset: int, q_len: int, cfg: ModelConfig, *, kv_fmt,
+                  q_offset, q_len, cfg: ModelConfig, *, kv_fmt,
                   acc: tuple[int, int], call=None, want_logits: bool = True,
                   dist: Dist = LOCAL) -> torch.Tensor | None:
     """One prefill slab of one sequence through the stack: each layer
     writes the slab's K/V into its pages (in place) and attends history
-    and slab in one ``flash_prefill_paged`` pass.  ``tokens`` (1, T);
-    ``page_row`` the sequence's pages (int32); ``q_offset``/``q_len``
-    host ints.  Returns the logits (1, V) of row ``q_len - 1`` when
-    ``want_logits``, else None."""
+    and slab in one P pass.  ``tokens`` (1, T), padded past ``q_len``;
+    ``page_row`` the sequence's pages (int32), padded with the null page;
+    ``q_offset``/``q_len`` host ints, or 0-d int32 tensors on the device
+    (JAX's traced geometry: nothing then reads them on the host, and the
+    logits row is taken by a device index).  Returns the logits (1, V) of
+    row ``q_len - 1`` (row 0 when ``q_len`` is 0) when ``want_logits``,
+    else None."""
     _check_paged(cfg)
     if tokens.shape[0] != 1:
         raise ValueError("prefill is per admitted sequence (B = 1)")
@@ -353,5 +356,40 @@ def paged_prefill(params: Params, tokens: torch.Tensor, kv_state: dict,
         x = x + L.mlp_apply(lp["mlp"], z, cfg, dist)
     if not want_logits:
         return None
-    last = max(q_len - 1, 0)
-    return _unembed(params, x[:, last:last + 1], cfg, dist)[:, 0]
+    if isinstance(q_len, torch.Tensor):
+        last = torch.clamp(q_len.reshape(1).to(device=x.device,
+                                               dtype=torch.int64) - 1, min=0)
+        row = torch.index_select(x, 1, last)
+    else:
+        last = max(q_len - 1, 0)
+        row = x[:, last:last + 1]
+    return _unembed(params, row, cfg, dist)[:, 0]
+
+
+def paged_verify(params: Params, tokens: torch.Tensor, kv_state: dict,
+                 page_table: torch.Tensor, positions: torch.Tensor,
+                 seq_lens: torch.Tensor, cfg: ModelConfig, *, kv_fmt,
+                 acc: tuple[int, int], dist: Dist = LOCAL) -> torch.Tensor:
+    """Speculative-decode verify: ``tokens`` (B, S), the last committed
+    token and the k = S - 1 draft proposals of each row, scored in one
+    pass, bitwise S sequential ``paged_decode`` steps over the same arena
+    (each layer appends the S tokens' K/V slot by slot under the decode
+    path's page-scale rule, then attends every slab index as its own
+    decode row, ``layers.attn_verify_paged``).  ``positions`` (B,) the
+    first write position of each row, ``seq_lens`` (B,) int32 the attended
+    length at slab index 0 (0 for padded rows).  Appends in place; returns
+    logits (B, S, V) bf16, row j the next-token logits after the row's
+    first j + 1 tokens.  The engine rolls the rejected tail back
+    (``serve.kvcache.truncate_pages``)."""
+    _check_paged(cfg)
+    x = _embed(params, tokens)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        kvl = {name: t[i] for name, t in kv_state.items()}
+        x = x + L.attn_verify_paged(
+            lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), kvl,
+            page_table, positions, seq_lens, cfg, kv_fmt=kv_fmt, acc=acc,
+            dist=dist)
+        z = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + L.mlp_apply(lp["mlp"], z, cfg, dist)
+    return _unembed(params, x, cfg, dist)

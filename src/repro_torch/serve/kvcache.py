@@ -49,6 +49,7 @@ __all__ = [
     "dequantize_pages",
     "swap_out_pages",
     "swap_in_pages",
+    "truncate_pages",
     "kv_bytes_per_token",
 ]
 
@@ -223,6 +224,39 @@ def swap_in_pages(kv: dict[str, torch.Tensor], pages: list[int],
         kv[name][:, idx] = torch.from_numpy(blob[name]).to(dev)
 
 
+def truncate_pages(kv: dict[str, torch.Tensor], released: torch.Tensor,
+                   boundary_page, keep_slots) -> dict[str, torch.Tensor]:
+    """Scrub a rolled-back (rejected-draft) tail out of the arena, in
+    place; returns ``kv``.
+
+    ``released`` (R,) int32: the page ids ``PagePool.rollback_seq_len``
+    freed, padded with 0 (re-zeroing the null page is harmless); their
+    codes and scale exponents return to the zero state, so on pages that
+    were fresh before the speculative append the arena is bitwise one that
+    never appended.  ``boundary_page`` is the page holding the rollback
+    point when it lands mid-page: its slots ``>= keep_slots`` are zeroed,
+    its exponent kept (its slot-0 write is part of the accepted prefix);
+    ``boundary_page=0, keep_slots=0`` for a page-aligned rollback.  Both
+    are ints or 0-d integer tensors on the arena's device (read by no
+    host code, so the scrub can be captured in a CUDA graph).  No code is
+    rounded again: the accepted tokens' bytes are untouched."""
+    dev = kv["k"].device
+    page_size = kv["k"].shape[3]
+    rel = torch.as_tensor(released, device=dev).to(torch.int64).reshape(-1)
+    bnd = torch.as_tensor(boundary_page, device=dev).to(torch.int64).reshape(1)
+    keep = torch.as_tensor(keep_slots, device=dev).to(torch.int64)
+    slot_mask = (torch.arange(page_size, device=dev) >= keep).reshape(
+        1, 1, 1, page_size, 1)
+    for name in ("k", "v"):
+        codes = kv[name]
+        codes.index_fill_(1, rel, 0)
+        page = torch.index_select(codes, 1, bnd)          # (L, 1, KV, ps, dh)
+        codes.index_copy_(1, bnd, torch.where(slot_mask, torch.zeros_like(page),
+                                              page))
+        kv[name + "_se"].index_fill_(1, rel, 0)
+    return kv
+
+
 class SwapStore:
     """Host-side store of preempted sequences' packed KV pages: one
     ``swap_out_pages`` blob per sequence plus the cached-token count."""
@@ -325,6 +359,24 @@ class PagePool:
         self._free.extend(reversed(self._pages.pop(sid)))
         del self._lens[sid]
 
+    def rollback_seq_len(self, sid: int, new_len: int) -> list[int]:
+        """Speculative-decode rejection: shrink a sequence to ``new_len``
+        cached tokens, freeing the tail pages its rejected suffix claimed
+        (returned in sequence order, for ``truncate_pages``).  They go back
+        LIFO, as ``release``'s, so a later extend claims exactly the pages
+        a pool that never speculated would hand out."""
+        if not 1 <= new_len <= self._lens[sid]:
+            raise ValueError(
+                f"rollback of seq {sid} to {new_len} tokens "
+                f"(has {self._lens[sid]})")
+        keep = self.pages_for(new_len)
+        pages = self._pages[sid]
+        tail = pages[keep:]
+        self._pages[sid] = pages[:keep]
+        self._lens[sid] = new_len
+        self._free.extend(reversed(tail))
+        return tail
+
     def page_table(self, sids: list[int], width: int) -> np.ndarray:
         """(len(sids), width) int32 page table padded with the null page."""
         out = np.zeros((len(sids), width), np.int32)
@@ -391,6 +443,11 @@ class ShardedPagePool(PagePool):
     def release(self, sid: int) -> None:
         super().release(sid)
         self._mirror("release", sid)
+
+    def rollback_seq_len(self, sid: int, new_len: int) -> list[int]:
+        got = super().rollback_seq_len(sid, new_len)
+        self._mirror("rollback_seq_len", sid, new_len)
+        return got
 
     def check_invariants(self) -> None:
         super().check_invariants()

@@ -25,7 +25,8 @@ from repro_torch.telemetry.stats import predicted_kernel_vrr
 
 __all__ = ["AttnBucket", "AttnPlan", "certified_log_v", "decode_m_acc",
            "min_e_acc", "extra_carry_events", "max_carry_resumptions",
-           "plan_attention", "derive_v_hint", "DEFAULT_V_HINT"]
+           "plan_attention", "derive_v_hint", "DEFAULT_V_HINT",
+           "VerifyPlan", "plan_verify"]
 
 # the f32 carry is the emulation ceiling
 _M_ACC_MAX = 23
@@ -174,6 +175,66 @@ def derive_v_hint(stats, ctx: int, *, margin_bits: int = 1) -> float:
         return DEFAULT_V_HINT
     hint = 2.0 ** (math.ceil(math.log2(ma / ctx)) + margin_bits)
     return float(min(hint, DEFAULT_V_HINT))
+
+
+@dataclass(frozen=True)
+class VerifyPlan:
+    """A base ``AttnPlan`` re-certified for speculative-decode verify
+    batches of ``k`` draft tokens: one verify signature per (bucket, k),
+    sharing the base plan's buckets and carry formats.  A verify batch
+    widens the query-row count, never a row's accumulation length."""
+
+    k: int
+    plan: AttnPlan
+
+    @property
+    def s_v(self) -> int:
+        """Verify width: k draft tokens and the last committed token."""
+        return self.k + 1
+
+    def bucket_for(self, ctx: int) -> tuple[int, AttnBucket]:
+        """The bucket covering the post-round worst case: call with
+        ``base_ctx + k + 1``, so every verify row's walk is within the
+        certified ``max_ctx``."""
+        return self.plan.bucket_for(ctx)
+
+
+def plan_verify(plan: AttnPlan, *, k: int,
+                v_hint: float | None = None) -> VerifyPlan:
+    """Certify ``plan``'s buckets for k-token speculative verify batches.
+
+    Each scored position is an independent query row whose accumulation
+    length is its own context (at most the bucket's certified ``max_ctx``),
+    and the per-slot KV appends add no carry rounding, so the bucket's knee
+    test is re-run at its exact geometry (resumptions and cross-rank events
+    included) and the e_acc overflow bound re-checked at ``max_ctx``
+    under the hint and guarantee the plan was certified with.  A bucket
+    that fails raises: a verify plan never widens a carry silently."""
+    if k < 1:
+        raise ValueError(f"speculative verify needs k >= 1, got {k}")
+    hint = plan.v_hint if v_hint is None else v_hint
+    for i, b in enumerate(plan.buckets):
+        if b.max_ctx < k + 1:
+            raise ValueError(
+                f"bucket {i} (max_ctx {b.max_ctx}) cannot hold a "
+                f"{k + 1}-token verify slab")
+        extra = extra_carry_events(plan.page_size, plan.prefill_chunk,
+                                   b.resumptions)
+        extra += max(plan.tp_shards - 1, 0)
+        v = certified_log_v(b.m_acc, plan.m_p, plan.page_size, b.max_ctx,
+                            extra)
+        if v >= CUTOFF_LOG_V:
+            raise ValueError(
+                f"bucket {i} fails the knee test for k={k} verify: "
+                f"v={v:.2f} >= {CUTOFF_LOG_V} at m_acc={b.m_acc}")
+        e_need = min_e_acc(b.max_ctx, v_hint=hint, e_min=plan.e_min,
+                           guarantee=plan.guarantee, v_cap=plan.v_cap)
+        if b.e_acc < e_need:
+            raise ValueError(
+                f"bucket {i} fails the e_acc overflow bound for k={k} "
+                f"verify: e_acc={b.e_acc} < required {e_need} at "
+                f"ctx={b.max_ctx}")
+    return VerifyPlan(k=k, plan=plan)
 
 
 def plan_attention(max_context: int, page_size: int, *, m_p: int = 5,

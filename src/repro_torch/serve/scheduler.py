@@ -14,10 +14,14 @@ keeps the JAX engine's schedule:
   byte-identically, oldest first, when pages free up;
 * eviction of a sequence's pages when it completes.
 
-``ModelExecutor`` is the only place device work happens.  Eager PyTorch
-compiles nothing per shape, so a prefill slab is not padded to its
-bucket's width (the JAX engine pads for its compile cache; its padded rows
-are byte-neutral, so the arena and logits are the same).
+``ModelExecutor`` is the only place device work happens.  As JAX's, it
+keeps a process-wide compile cache (``_PROCESS_CACHE``) of one signature
+per (bucket, kernel), padded as JAX pads: on the card each signature is a
+captured CUDA graph, replayed with its inputs copied into a static buffer
+and the greedy argmax inside; ``warmup`` makes every certified bucket's
+signatures before traffic, and ``compile_stats`` counts compiles (captures),
+dispatch hits and misses.  The padded rows are byte-neutral, so the arena
+and logits are the eager step's.
 
 The serve-time VRR monitor (``monitor_cadence``): every N decode steps it
 probes the longest running context's layer-0 decode accumulator with a
@@ -27,7 +31,7 @@ closed-form knee test of the context's bucket, bumps that bucket's m_acc
 (``AttnPlan.bumped``) before the context swamps; the bucket is the one of
 the grown context.  Each tick logs one event (``self.events``, and
 ``monitor_log`` as JSON lines).  Tracing, metrics and speculative decoding
-are not ported yet.
+are not ported yet; speculative decoding is ``serve.spec``.
 
 Tensor-parallel serving (``ShardedModelExecutor``): each rank of a
 ``torch.distributed`` group runs the same engine schedule in lockstep on
@@ -35,12 +39,18 @@ its output-dim slice of the params and its KV-head slice of the arena;
 the engine then allocates through a ``ShardedPagePool`` and plans for the
 cross-rank carry merge (``plan_attention(tp_shards=)``).  The ranks'
 logits are gathered exactly, so every rank takes the same host decisions
-(greedy tokens, preemptions, the monitor's draws).
+(greedy tokens, preemptions, the monitor's draws).  Its gloo collectives
+run on the host, so its steps are not captured: it stays eager, and its
+``compile_stats`` count signatures as on the CPU.
 """
 
 from __future__ import annotations
 
+import functools
+import time
+import weakref
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -48,7 +58,12 @@ import torch
 
 from repro_torch.core.vrr import CUTOFF_LOG_V
 from repro_torch.dist import LOCAL, Dist, all_gather
-from repro_torch.models.api import DecodeRequest, PrefillRequest, get_paged_model
+from repro_torch.models.api import (
+    DecodeRequest,
+    PrefillRequest,
+    VerifyRequest,
+    get_paged_model,
+)
 from repro_torch.obs.sink import jsonl_append
 from repro_torch.quant.formats import FPFormat
 from repro_torch.serve.kvcache import (
@@ -60,6 +75,7 @@ from repro_torch.serve.kvcache import (
     kv_bytes_per_token,
     swap_in_pages,
     swap_out_pages,
+    truncate_pages,
 )
 from repro_torch.serve.plan import (
     AttnPlan,
@@ -71,7 +87,7 @@ from repro_torch.serve.plan import (
 from repro_torch.telemetry.stats import EnsembleStats
 
 __all__ = ["Request", "ModelExecutor", "ShardedModelExecutor", "ServeEngine",
-           "resolve_device", "measure_decode_vrr"]
+           "resolve_device", "measure_decode_vrr", "process_cache_stats"]
 
 
 def resolve_device(device) -> torch.device:
@@ -145,74 +161,508 @@ def measure_decode_vrr(kv_state, page_row, seq_len: int, *, cfg,
     return EnsembleStats.from_raw(raw)
 
 
+# One compile cache a serving process, as JAX's ``_PROCESS_CACHE``: keyed
+# on everything a step closes over (config, formats, widths, the device
+# topology) and, unlike JAX, where params and arena are operands, on their
+# storage: a captured CUDA graph holds the pointers it was captured with,
+# so executors with other weights or another arena must not replay it
+# (ROADMAP T7).  An entry holds no reference to its executor; when the
+# executor is collected its signatures and graph pool are dropped (the
+# pointers they hold are then dead, and the pool's memory goes back to the
+# allocator) and its counters stay.
+_PROCESS_CACHE: dict = {}
+
+
+def _device_topology(device: torch.device) -> tuple:
+    """The device count and name folded into every cache key: graphs are
+    captured for a card, so executors that see another card, or a count
+    changed under them, must not share one."""
+    if device.type == "cuda":
+        return (torch.cuda.device_count(), torch.cuda.get_device_name(device))
+    return (1, device.type)
+
+
+def _fresh_cache_entry() -> dict:
+    return {"fns": {}, "pool": None,
+            "stats": {"compiles": 0, "hits": 0, "misses": 0,
+                      "warm_compiles": 0}}
+
+
+def _release_entry(entry: dict) -> None:
+    """Drop a collected executor's signatures and graph pool."""
+    entry["fns"].clear()
+    entry["pool"] = None
+
+
+def process_cache_stats() -> dict:
+    """The compile-cache counters summed over every cached executor
+    configuration of this process; ``entries`` counts the configurations."""
+    agg = {"entries": len(_PROCESS_CACHE), "compiles": 0, "hits": 0,
+           "misses": 0, "warm_compiles": 0}
+    for entry in _PROCESS_CACHE.values():
+        for k, v in entry["stats"].items():
+            agg[k] = agg.get(k, 0) + v
+    return agg
+
+
+def _storage(tree) -> tuple:
+    """The data pointers of a tree's tensors, in insertion order."""
+    if isinstance(tree, dict):
+        return tuple(p for v in tree.values() for p in _storage(v))
+    return (tree.data_ptr(),)
+
+
+def _launch_counters() -> list:
+    """(wrapper, attribute) of every kernel launch count a serving step
+    can move."""
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import fused as F
+    from repro_torch.kernels import qmatmul as K3
+    from repro_torch.kernels import quantize as K2
+
+    fns = (A.paged_attn_decode, A.flash_prefill_paged,
+           A.flash_prefill_paged_geom, A.flash_prefill, F.qmatmul_fused,
+           K2.quantize, K3.qmatmul)
+    return [(fn, name) for fn in fns for name in sorted(vars(fn))
+            if name.endswith("launches")]
+
+
+class _StepGraph:
+    """One captured serving step: a static int32 input buffer, the CUDA
+    graph of ``fn(buffer)`` and its outputs, and the launch counts one
+    replay makes (recorded at capture, when the wrappers count launches
+    the graph only records; the capture's own counts are taken back).
+    The step function, a closure over its executor, is dropped after the
+    capture, so the process cache never keeps an executor alive."""
+
+    def __init__(self, fn, n_inputs: int, device, pool):
+        self.fn = fn
+        self.buf = torch.zeros((n_inputs,), dtype=torch.int32, device=device)
+        self.pool = pool
+        self.graph = None
+        self.outputs = None
+        self.deltas: list = []
+
+    def run_eager(self, values: np.ndarray):
+        """The step on ``values`` without the graph (the warm-up before a
+        capture: it builds and loads the kernels and sets their shared
+        memory), on a side stream as ``torch.cuda.graph`` asks."""
+        self.buf.copy_(torch.from_numpy(values))
+        side = _side_stream(self.buf.device)
+        side.wait_stream(torch.cuda.current_stream(self.buf.device))
+        with torch.cuda.stream(side), torch.no_grad():
+            out = self.fn(self.buf)
+        torch.cuda.current_stream(self.buf.device).wait_stream(side)
+        return out
+
+    def capture(self) -> None:
+        counters = _launch_counters()
+        before = [getattr(fn, a) for fn, a in counters]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=self.pool), torch.no_grad():
+            self.outputs = self.fn(self.buf)
+        self.fn = None
+        self.deltas = []
+        for (fn, a), b in zip(counters, before):
+            d = getattr(fn, a) - b
+            setattr(fn, a, b)
+            if d:
+                self.deltas.append((fn, a, d))
+
+    def replay(self, values: np.ndarray):
+        self.buf.copy_(torch.from_numpy(values))
+        self.graph.replay()
+        for fn, a, d in self.deltas:
+            setattr(fn, a, getattr(fn, a) + d)
+        return self.outputs
+
+
+@functools.cache
+def _side_stream(device) -> torch.cuda.Stream:
+    """One warm-up stream a device for every capture (a library keeps a
+    workspace for each stream it has run on)."""
+    return torch.cuda.Stream(device)
+
+
+def _int32(*parts) -> np.ndarray:
+    return np.concatenate([np.asarray(x, np.int32).reshape(-1)
+                           for x in parts])
+
+
 class ModelExecutor:
-    """Device-side executor: the model, its params and the paged arena."""
+    """Device-side executor: the model, its params, the paged arena and
+    the compile cache.
+
+    A step is one signature of the process cache (``_PROCESS_CACHE``):
+    decode per (carry format, page-table width) at ``max_batch`` rows,
+    prefill per (carry format, page-row width, slab width, final), verify
+    per (carry format, width, k + 1), and the rollback scrub at its padded
+    width.  On the card (``graphs``, the default there) a signature's
+    first call runs the step and captures it in a CUDA graph, and every
+    later call copies its inputs into the graph's static int32 buffer
+    (one host-to-device copy), replays it and reads the ``max_batch``
+    greedy tokens, formed by the argmax inside the graph (one
+    device-to-host read).  All graphs of an executor share one memory
+    pool.  A capture that fails raises; nothing falls back to the eager
+    step.  ``graphs=False`` on the card is the eager executor, kept for
+    the bitwise gates: the same steps, launched call by call, with P's
+    launch-argument geometry.  On the CPU nothing is captured; a
+    signature's first call is its compile.  ``compile_stats`` keeps JAX's
+    counters: ``compiles`` (captures, or first calls), ``hits``/``misses``
+    (calls that found / made their signature) and ``warm_compiles``.
+
+    Inputs are padded as the JAX executor pads them: decode and verify to
+    ``max_batch`` rows (null-page table rows, length 0), a prefill slab to
+    its bucket's slab width (zero tokens past ``q_len``, the slab's pages
+    padded with the null page) and page-row width.  The padded rows write
+    only zeros, or a masked token, into the null page."""
 
     dist: Dist = LOCAL
 
     def __init__(self, model, params, pc: PagedKVConfig, *, kv_fmt: FPFormat,
-                 max_batch: int = 8, device="cuda"):
+                 max_batch: int = 8, device="cuda", graphs: bool | None = None):
         self.cfg = model.cfg
         self.params = params
         self.pc = pc
         self.kv_fmt = kv_fmt
         self.max_batch = max_batch
         self.device = resolve_device(device)
+        cuda = self.device.type == "cuda"
+        if graphs and not cuda:
+            raise ValueError("CUDA graphs need a CUDA device")
+        self.graphs = cuda if graphs is None else bool(graphs)
+        # P's geometry as device tensors, except on the eager executor on
+        # the card (its launch-argument entry)
+        self.device_geometry = self.graphs or not cuda
         self.kv = init_arena(pc, self.device)
         self.pm = get_paged_model(model.cfg)
+        self.rollback_pad: int | None = None
+        key = self._cache_key()
+        entry = _PROCESS_CACHE.get(key)
+        if entry is None:
+            entry = _PROCESS_CACHE[key] = _fresh_cache_entry()
+        self._cache = entry
+        weakref.finalize(self, _release_entry, entry)
+        self._last: dict = {}
 
-    def _int32(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x, np.int32), device=self.device)
+    def _cache_key(self) -> tuple:
+        """What a step closes over: config, formats, padding widths, the
+        device topology, the executor's kind, and the storage of its params
+        and arena (a graph's pointers).  Subclasses add their own."""
+        return ("model-executor", self.cfg, self.kv_fmt, self.max_batch,
+                self.pc, _device_topology(self.device), self.graphs,
+                _storage(self.params), _storage(self.kv))
 
-    def prefill_logits(self, req: PrefillRequest) -> torch.Tensor | None:
-        """Run one prefill slab; the (1, V) logits of its last row on the
-        final slab, else None."""
+    # ------------------------------ dispatch -------------------------------
+    def _pool(self):
+        if self._cache["pool"] is None:
+            self._cache["pool"] = torch.cuda.graph_pool_handle()
+        return self._cache["pool"]
+
+    def _compile(self, key, fn, values: np.ndarray):
+        """Make signature ``key``: run the step on ``values`` and, on the
+        graph executor, capture it.  Returns the run's outputs."""
+        stats = self._cache["stats"]
+        stats["compiles"] += 1
+        if not self.graphs:
+            self._cache["fns"][key] = None
+            return self._eager(fn, values)
+        g = _StepGraph(fn, values.size, self.device, self._pool())
+        out = g.run_eager(values)
+        g.capture()
+        self._cache["fns"][key] = g
+        return out
+
+    def _eager(self, fn, values: np.ndarray):
+        with torch.no_grad():
+            return fn(torch.from_numpy(values).to(self.device))
+
+    def _dispatch(self, key, fn, values: np.ndarray):
+        """Run one step of signature ``key`` (``fn`` on the int32 input
+        vector ``values``), counting a hit or a miss."""
+        stats = self._cache["stats"]
+        fns = self._cache["fns"]
+        if key not in fns:
+            stats["misses"] += 1
+            return self._compile(key, fn, values)
+        stats["hits"] += 1
+        g = fns[key]
+        return self._eager(fn, values) if g is None else g.replay(values)
+
+    def _null_page(self) -> dict:
+        return {name: t[:, 0].clone() for name, t in self.kv.items()}
+
+    def _restore_null_page(self, saved: dict) -> None:
+        for name, t in self.kv.items():
+            t[:, 0].copy_(saved[name])
+
+    # ------------------------------ step functions -------------------------
+    def _decode_fn(self, acc, width: int):
+        b = self.max_batch
+        cuts = np.cumsum([b, b * width, b, b])
+
+        def step(buf):
+            tok, pt, pos, sl = torch.tensor_split(buf, tuple(cuts[:-1]))
+            logits = self.pm.decode(
+                self.params, tok.long().reshape(b, 1), self.kv,
+                pt.reshape(b, width), pos, sl, kv_fmt=self.kv_fmt, acc=acc,
+                dist=self.dist)
+            return {"logits": logits,
+                    "tokens": torch.argmax(logits[:, 0], dim=-1)}
+
+        return step
+
+    def _prefill_fn(self, acc, width: int, slab_w: int, final: bool, call):
+        n_slab = -(-slab_w // self.pc.page_size)
+        cuts = (slab_w, slab_w + width, slab_w + width + n_slab,
+                slab_w + width + n_slab + 1)
+        host = not self.device_geometry
+
+        def step(buf, q_offset=None, q_len=None):
+            toks, row, slab, q0, ql = torch.tensor_split(buf, cuts)
+            if host:
+                geom = (q_offset, q_len)
+            else:
+                geom = (q0.reshape(()), ql.reshape(()))
+            logits = self.pm.prefill(
+                self.params, toks.long().reshape(1, slab_w), self.kv, row,
+                slab.long(), *geom, kv_fmt=self.kv_fmt, acc=acc, call=call,
+                want_logits=final, dist=self.dist)
+            if logits is None:
+                return {"logits": None, "tokens": None}
+            return {"logits": logits,
+                    "tokens": torch.argmax(logits, dim=-1)}
+
+        return step
+
+    def _verify_fn(self, acc, width: int, s_v: int):
+        b = self.max_batch
+        cuts = np.cumsum([b * s_v, b * width, b, b])
+
+        def step(buf):
+            tok, pt, pos, sl = torch.tensor_split(buf, tuple(cuts[:-1]))
+            logits = self.pm.verify(
+                self.params, tok.long().reshape(b, s_v), self.kv,
+                pt.reshape(b, width), pos, sl, kv_fmt=self.kv_fmt, acc=acc,
+                dist=self.dist)
+            return {"logits": logits,
+                    "tokens": torch.argmax(logits, dim=-1)}
+
+        return step
+
+    def _rollback_fn(self, pad: int):
+        def step(buf):
+            truncate_pages(self.kv, buf[:pad], buf[pad], buf[pad + 1])
+            return {}
+
+        return step
+
+    # ------------------------------ engine ops -----------------------------
+    def _prefill_inputs(self, req: PrefillRequest):
+        page_size = self.pc.page_size
         n_tok = len(req.tokens)
+        width = req.slab_width or n_tok
         n_hist = len(req.hist_pages)
-        row = np.zeros((max(req.bucket_pages or 0,
-                            n_hist + len(req.slab_pages)),), np.int32)
+        n_slab = -(-width // page_size)
+        toks = np.zeros((width,), np.int32)
+        toks[:n_tok] = req.tokens
+        slab = np.zeros((n_slab,), np.int32)
+        slab[:len(req.slab_pages)] = req.slab_pages
+        row = np.zeros((req.bucket_pages or (n_hist + n_slab),), np.int32)
         row[:n_hist] = req.hist_pages
         row[n_hist:n_hist + len(req.slab_pages)] = req.slab_pages
-        toks = torch.as_tensor([list(req.tokens)], dtype=torch.int64,
-                               device=self.device)
-        slab = self._int32(req.slab_pages).long()
-        with torch.no_grad():
-            return self.pm.prefill(
-                self.params, toks, self.kv, self._int32(row), slab, req.t0,
-                n_tok, kv_fmt=self.kv_fmt, acc=req.acc, call=req.call,
-                want_logits=req.final, dist=self.dist)
+        return width, row.size, _int32(toks, row, slab, req.t0, n_tok)
+
+    def prefill_logits(self, req: PrefillRequest) -> torch.Tensor | None:
+        """Run one prefill slab, padded as the JAX executor pads it; the
+        (1, V) logits of its last live row on the final slab, else None
+        (on the graph executor, a view of the graph's output, valid until
+        its next replay)."""
+        slab_w, width, values = self._prefill_inputs(req)
+        key = ("prefill", tuple(req.acc), width, slab_w, req.final)
+        fn = self._prefill_fn(req.acc, width, slab_w, req.final, req.call)
+        if not self.device_geometry:
+            fn = functools.partial(fn, q_offset=req.t0,
+                                   q_len=len(req.tokens))
+        out = self._dispatch(key, fn, values)
+        self._last = out
+        return out["logits"]
 
     def prefill(self, req: PrefillRequest) -> int | None:
-        """One prefill slab; the first generated token (greedy) on the
-        final slab."""
-        logits = self.prefill_logits(req)
-        return int(torch.argmax(logits[0])) if req.final else None
+        """One prefill slab; the first generated token (greedy, the step's
+        argmax) on the final slab."""
+        self.prefill_logits(req)
+        return int(self._last["tokens"][0]) if req.final else None
 
-    def decode_logits(self, req: DecodeRequest) -> torch.Tensor:
-        """One batched decode step, padded to ``max_batch`` rows (padded
-        rows are no-ops: null-page table row, length 0, write to page 0);
-        returns the live rows' logits (n, V)."""
+    def _batch_inputs(self, req, tokens: np.ndarray):
         pt_in = np.asarray(req.page_table, np.int32)
         n, width = pt_in.shape
-        pt = np.zeros((self.max_batch, width), np.int32)
+        b = self.max_batch
+        pt = np.zeros((b, width), np.int32)
         pt[:n] = pt_in
-        tokens = np.zeros((self.max_batch, 1), np.int64)
-        tokens[:n, 0] = req.last_tokens
-        pos = np.zeros((self.max_batch,), np.int64)
+        tok = np.zeros((b,) + tokens.shape[1:], np.int32)
+        tok[:n] = tokens
+        pos = np.zeros((b,), np.int32)
         pos[:n] = req.positions
-        sl = np.zeros((self.max_batch,), np.int32)
+        sl = np.zeros((b,), np.int32)
         sl[:n] = req.seq_lens
-        with torch.no_grad():
-            logits = self.pm.decode(
-                self.params, torch.as_tensor(tokens, device=self.device),
-                self.kv, self._int32(pt),
-                torch.as_tensor(pos, device=self.device), self._int32(sl),
-                kv_fmt=self.kv_fmt, acc=req.acc, dist=self.dist)
-        return logits[:n, 0]
+        return n, width, _int32(tok, pt, pos, sl)
+
+    def decode_logits(self, req: DecodeRequest) -> torch.Tensor:
+        """One batched decode step, padded to ``max_batch`` rows; returns
+        the live rows' logits (n, V) (on the graph executor, a view of the
+        graph's output, valid until its next replay)."""
+        n, width, values = self._batch_inputs(
+            req, np.asarray(req.last_tokens, np.int32))
+        out = self._dispatch(("decode", tuple(req.acc), width),
+                             self._decode_fn(req.acc, width), values)
+        self._last = out
+        return out["logits"][:n, 0]
 
     def decode(self, req: DecodeRequest) -> list[int]:
-        """One batched decode token per row; returns the next tokens."""
-        return torch.argmax(self.decode_logits(req), dim=-1).tolist()
+        """One batched decode token per row; returns the next tokens (the
+        step's argmax)."""
+        self.decode_logits(req)
+        return self._last["tokens"][:len(req.rids)].tolist()
+
+    def verify(self, req: VerifyRequest) -> list[list[int]]:
+        """One batched speculative-verify step, padded as ``decode``: each
+        row's greedy argmax at each of its ``k + 1`` slab indices, entry j
+        the target's next token after the row's first j + 1 candidates,
+        bitwise what k + 1 sequential ``decode`` calls return."""
+        s_v = len(req.tokens[0])
+        n, width, values = self._batch_inputs(
+            req, np.asarray(req.tokens, np.int32).reshape(-1, s_v))
+        out = self._dispatch(("verify", tuple(req.acc), width, s_v),
+                             self._verify_fn(req.acc, width, s_v), values)
+        return out["tokens"][:n].tolist()
+
+    def rollback(self, rid: int, pages_old: list[int], keep_len: int,
+                 old_len: int) -> None:
+        """Page-exact rejection: scrub the arena slots of the tokens
+        ``keep_len..old_len-1`` (``kvcache.truncate_pages``) after the pool
+        rolled the sequence back; ``pages_old`` is its page list before the
+        rollback.  The released pages are padded to ``rollback_pad`` (set by
+        ``warmup_verify``), so every rollback is one signature."""
+        del rid, old_len
+        page_size = self.pc.page_size
+        n_keep = -(-keep_len // page_size)
+        released = pages_old[n_keep:]
+        keep_slots = keep_len % page_size
+        boundary = pages_old[n_keep - 1] if keep_slots else 0
+        if self.rollback_pad is None:
+            self.rollback_pad = max(len(released), 1)
+        pad = self.rollback_pad
+        if len(released) > pad:
+            raise ValueError(
+                f"rollback released {len(released)} pages > padded width "
+                f"{pad} (warm with a larger k)")
+        rel = np.zeros((pad,), np.int32)
+        rel[:len(released)] = released
+        self._dispatch(("rollback", pad), self._rollback_fn(pad),
+                       _int32(rel, boundary, keep_slots))
+
+    # ------------------------------ warmup ---------------------------------
+    def _warm(self, key, fn, n_inputs: int) -> None:
+        if key not in self._cache["fns"]:
+            self._compile(key, fn, np.zeros((n_inputs,), np.int32))
+
+    def warmup(self, plan: AttnPlan, prefill_chunk: int | None = None,
+               prefill_finals: tuple[bool, ...] | None = None) -> dict:
+        """Make every certified bucket's signatures before traffic, as
+        JAX's warmup compiles them: the padded decode step and the padded
+        prefill slab, final and, for multi-slab prompts, non-final, each
+        run once on zero operands (on the graph executor, and captured).
+        The zero operands write only into the null page, which is restored,
+        so the arena is untouched.  Returns ``{"buckets", "compiles",
+        "seconds"}``; ``compile_stats()["warm_compiles"]`` adds what it
+        paid."""
+        t0 = time.perf_counter()
+        stats = self._cache["stats"]
+        before = stats["compiles"]
+        page_size = self.pc.page_size
+        saved = self._null_page()
+        b_rows = self.max_batch
+        for i, b in enumerate(plan.buckets):
+            w = b.max_pages(page_size)
+            self._warm(("decode", tuple(b.acc), w),
+                       self._decode_fn(b.acc, w), b_rows * (w + 3))
+            slab_w = prefill_chunk or b.max_ctx
+            call = plan.kernel_call(i, kv_fmt=self.kv_fmt)
+            finals = (list(prefill_finals) if prefill_finals is not None
+                      else [True] + ([False] if prefill_chunk
+                                     and b.max_ctx > prefill_chunk else []))
+            n_slab = -(-slab_w // page_size)
+            for final in finals:
+                fn = self._prefill_fn(b.acc, w, slab_w, final, call)
+                if not self.device_geometry:
+                    fn = functools.partial(fn, q_offset=0, q_len=0)
+                self._warm(("prefill", tuple(b.acc), w, slab_w, final), fn,
+                           slab_w + w + n_slab + 2)
+        self._restore_null_page(saved)
+        self._sync()
+        delta = stats["compiles"] - before
+        stats["warm_compiles"] += delta
+        return {"buckets": len(plan.buckets), "compiles": delta,
+                "seconds": time.perf_counter() - t0}
+
+    def warmup_verify(self, plan: AttnPlan, k: int, *,
+                      include_verify: bool = True) -> dict:
+        """Make the speculative lane's signatures before traffic: the
+        (bucket, k) verify of every bucket and the one padded-width
+        rollback scrub (``include_verify=False``: the scrub only, for the
+        draft lane, which rolls back but is never verified)."""
+        t0 = time.perf_counter()
+        stats = self._cache["stats"]
+        before = stats["compiles"]
+        page_size = self.pc.page_size
+        s_v = k + 1
+        self.rollback_pad = -(-s_v // page_size) + 1
+        saved = self._null_page()
+        for b in plan.buckets if include_verify else ():
+            w = b.max_pages(page_size)
+            self._warm(("verify", tuple(b.acc), w, s_v),
+                       self._verify_fn(b.acc, w, s_v),
+                       self.max_batch * (s_v + w + 2))
+        pad = self.rollback_pad
+        self._warm(("rollback", pad), self._rollback_fn(pad), pad + 2)
+        self._restore_null_page(saved)
+        self._sync()
+        delta = stats["compiles"] - before
+        stats["warm_compiles"] += delta
+        return {"buckets": len(plan.buckets), "k": k, "compiles": delta,
+                "seconds": time.perf_counter() - t0}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def compile_stats(self) -> dict:
+        """Copy of the compile-cache counters: ``compiles`` (captures, or
+        first calls), ``hits``/``misses`` (calls that found / made their
+        signature), ``warm_compiles`` (those made by ``warmup``)."""
+        return dict(self._cache["stats"])
+
+    @contextmanager
+    def compile_stats_scope(self):
+        """Yields a dict filled, on exit, with the with-block's delta of
+        the counters (so tests need not reset the process-wide ones)."""
+        before = dict(self._cache["stats"])
+        delta: dict = {}
+        try:
+            yield delta
+        finally:
+            for k, v in self._cache["stats"].items():
+                delta[k] = v - before.get(k, 0)
+
+    def pool_bytes(self) -> int:
+        """Bytes of the card held by this executor's graph memory pool
+        (its segments in the caching allocator); 0 without graphs."""
+        pool = self._cache["pool"]
+        if pool is None:
+            return 0
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) == tuple(pool))
 
     def measure_vrr(self, page_row, ctx: int, acc: tuple[int, int],
                     gen: torch.Generator) -> EnsembleStats:
@@ -276,7 +726,14 @@ class ShardedModelExecutor(ModelExecutor):
                                   logit_wire=dist.logit_wire)
         super().__init__(model, shard_params(params, specs, dist.rank, s),
                          replace(pc, n_kv_heads=pc.n_kv_heads // s),
-                         kv_fmt=kv_fmt, max_batch=max_batch, device=device)
+                         kv_fmt=kv_fmt, max_batch=max_batch, device=device,
+                         graphs=False)
+        # the sharded prefill takes its geometry as host ints
+        self.device_geometry = False
+
+    def _cache_key(self) -> tuple:
+        return super()._cache_key() + (
+            ("tp", self.dist.rank, self.dist.size, self.dist.logit_wire),)
 
     def measure_vrr(self, page_row, ctx: int, acc: tuple[int, int],
                     gen: torch.Generator) -> EnsembleStats:
@@ -312,7 +769,7 @@ class ServeEngine:
                  plan: AttnPlan | None = None, monitor_cadence: int = 0,
                  monitor_log: str | None = None,
                  swamp_threshold: float = 0.15, seed: int = 0,
-                 executor=None, device="cuda"):
+                 executor=None, device="cuda", warm_start: bool = False):
         if prefill_chunk_tokens is not None and (
                 prefill_chunk_tokens <= 0
                 or prefill_chunk_tokens % page_size != 0):
@@ -365,6 +822,19 @@ class ServeEngine:
         self.preemptions = 0
         self.restores = 0
         self.max_concurrent = 0
+        if warm_start:
+            self.warmup()
+
+    # ------------------------------ compile cache --------------------------
+    def warmup(self) -> dict:
+        """Make every certified bucket's prefill and decode signatures up
+        front (on the card, capture their graphs), so steady-state serving
+        makes none."""
+        return self.executor.warmup(self.plan, self.prefill_chunk)
+
+    def compile_stats(self) -> dict:
+        """The executor's compile-cache counters."""
+        return self.executor.compile_stats()
 
     # ------------------------------ intake ---------------------------------
     def submit(self, prompt: list[int], max_new: int) -> int:
@@ -470,7 +940,7 @@ class ServeEngine:
             hist_pages=tuple(pages[:n_hist]),
             slab_pages=tuple(pages[n_hist:]), t0=t0, acc=bucket.acc,
             final=final, bucket_pages=bucket.max_pages(self.page_size),
-            call=call))
+            slab_width=self.prefill_chunk or bucket.max_ctx, call=call))
         seq.prefilled = t1
         self.prefill_slabs += 1
         self.prefill_tokens += t1 - t0

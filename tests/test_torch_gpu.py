@@ -2106,3 +2106,199 @@ def test_remat_full_bitwise_none_on_the_card(dev, monkeypatch, rounding):
     assert torch.equal(out["full"][0], out["none"][0])
     for a, b in zip(out["full"][1], out["none"][1]):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# serving's compiled step: CUDA graphs, P's device geometry, verify
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("h,kv,dh,ps,t,width", [
+    (12, 2, 128, 16, 64, 24), (14, 2, 64, 16, 32, 8), (4, 2, 8, 4, 8, 6)])
+def test_prefill_device_geometry_matches_host_entry(dev, h, kv, dh, ps, t,
+                                                    width):
+    """P's device-geometry entry (one launch shape for every geometry:
+    the schedule from T and the row width) bitwise the launch-argument
+    entry and the plain version on the live rows, padded rows exactly 0,
+    on 22 slab geometries including ragged tails and single rows."""
+    from repro_torch.kernels.attention import (
+        flash_prefill_paged_geom, flash_prefill_paged_geom_reference,
+        prefill_geom)
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    n_pages = width + 1
+    kc = torch.randint(-127, 128, (n_pages, kv, ps, dh), generator=gen,
+                       device=dev, dtype=torch.int8)
+    vc = torch.randint(-127, 128, (n_pages, kv, ps, dh), generator=gen,
+                       device=dev, dtype=torch.int8)
+    kse = torch.randint(-3, 3, (n_pages,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    vse = torch.randint(-3, 3, (n_pages,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    row = (torch.randperm(width, generator=gen, device=dev) + 1).to(
+        torch.int32)
+    kw = dict(kv_fmt=FP8_152, acc=(6, 5))
+    rng = np.random.RandomState(3)
+    geoms = [(0, t), (0, 1), (0, t - 3)] + [
+        (ps * int(rng.randint(0, width - t // ps)), int(rng.randint(1, t + 1)))
+        for _ in range(19)]
+    n0 = flash_prefill_paged_geom.launches
+    for t0, q_len in geoms:
+        q_len = min(q_len, width * ps - t0)
+        q = torch.zeros((t, h, dh), device=dev)
+        q[:q_len] = torch.randn((q_len, h, dh), generator=gen, device=dev)
+        geom = prefill_geom(t0, q_len, device=dev)
+        got = flash_prefill_paged_geom(q, kc, vc, kse, vse, row, geom, **kw)
+        want = flash_prefill_paged(q[:q_len].contiguous(), kc, vc, kse, vse,
+                                   row, t0, q_len, t0 + q_len, **kw)
+        plain = flash_prefill_paged_geom_reference(q, kc, vc, kse, vse, row,
+                                                   geom, **kw)
+        assert torch.equal(got[:q_len], want), (t0, q_len)
+        assert torch.equal(got, plain), (t0, q_len)
+        assert bool((got[q_len:] == 0).all()), (t0, q_len)
+    assert flash_prefill_paged_geom.launches == n0 + len(geoms)
+
+
+def _serve_smoke(dev, n_layers=2):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import AccumulationPolicy, plan_for_model
+    from repro_torch.models.api import get_model
+
+    cfg = plan_for_model(
+        dataclasses.replace(get_config("qwen2-1.5b"), n_layers=n_layers),
+        seq_len=160, global_batch=4,
+        policy=AccumulationPolicy(mode="predicted", chunk=64))
+    model = get_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+
+    def bf16(t):
+        return ({k: bf16(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.to(torch.bfloat16))
+
+    return model, bf16(params)
+
+
+@pytest.mark.parametrize("chunk", [None, 32])
+def test_graph_replay_bitwise_eager(dev, chunk):
+    """The serve engine on CUDA graphs (warmed: 0 steady-state captures)
+    against the eager executor at 2 layers of qwen2-1.5b: tokens, every
+    decode step's logits and the arena bitwise; launches counted over the
+    replays."""
+    from repro_torch.serve.kvcache import PagedKVConfig
+    from repro_torch.serve.scheduler import ModelExecutor, ServeEngine
+
+    model, params = _serve_smoke(dev)
+    rng = np.random.RandomState(8)
+    prompts = [rng.randint(0, model.cfg.vocab_size, n).tolist()
+               for n in (17, 40, 96, 5)]
+    runs = {}
+    for graphs in (False, True):
+        pc = PagedKVConfig.for_model(model.cfg, n_pages=24, page_size=16)
+        ex = ModelExecutor(model, params, pc, kv_fmt=FP8_152, max_batch=4,
+                           device=dev, graphs=graphs)
+        logits = []
+        inner = ex.decode_logits
+
+        def rec(req, inner=inner, logits=logits):
+            out = inner(req)
+            logits.append(out.float().cpu())
+            return out
+
+        ex.decode_logits = rec
+        eng = ServeEngine(model, params, n_pages=24, page_size=16,
+                          max_batch=4, prefill_chunk_tokens=chunk,
+                          executor=ex, device=dev)
+        eng.warmup()
+        n0 = paged_attn_decode.launches
+        with ex.compile_stats_scope() as delta:
+            rids = [eng.submit(p, 6) for p in prompts]
+            out = eng.run()
+        torch.cuda.synchronize()
+        runs[graphs] = ([out[r] for r in rids], logits,
+                        {k: v.clone() for k, v in ex.kv.items()},
+                        paged_attn_decode.launches - n0, delta)
+    (t0, l0, a0, d0, _), (t1, l1, a1, d1, delta) = runs[False], runs[True]
+    assert t0 == t1
+    assert len(l0) == len(l1) and all(torch.equal(a, b)
+                                      for a, b in zip(l0, l1))
+    for k in a0:
+        assert torch.equal(a0[k], a1[k]), k
+    assert d0 == d1 > 0
+    assert delta["compiles"] == 0 and delta["misses"] == 0
+    assert delta["hits"] > 0
+
+
+def test_collected_graph_executor_frees_its_pool(dev):
+    """A warmed graph executor at 2 layers of qwen2-1.5b: once it is
+    collected the process cache drops its graphs, and its pool's memory
+    goes back to the card."""
+    import gc
+    import weakref
+
+    from repro_torch.serve.kvcache import PagedKVConfig
+    from repro_torch.serve.plan import plan_attention
+    from repro_torch.serve.scheduler import ModelExecutor
+
+    model, params = _serve_smoke(dev)
+    pc = PagedKVConfig.for_model(model.cfg, n_pages=24, page_size=16)
+    ex = ModelExecutor(model, params, pc, kv_fmt=FP8_152, max_batch=4,
+                       device=dev, graphs=True)
+    ex.warmup(plan_attention(pc.tokens_capacity, 16))
+    torch.cuda.synchronize()
+    pool = ex.pool_bytes()
+    held = torch.cuda.memory_reserved(dev)
+    entry = ex._cache
+    assert pool > 0 and entry["fns"]
+    ref = weakref.ref(ex)
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert ref() is None
+    assert entry["fns"] == {} and entry["pool"] is None
+    assert torch.cuda.memory_reserved(dev) <= held - pool
+
+
+def test_verify_bitwise_sequential_decode_on_the_card(dev):
+    """One batched verify of k + 1 = 5 tokens a row at 8 rows (40 GEMM
+    rows) bitwise 5 sequential decode steps at 2 layers of qwen2-1.5b:
+    logits and arena."""
+    from repro_torch.models import lm
+    from repro_torch.models.api import paged_init_state
+    from repro_torch.serve.plan import plan_attention
+
+    model, params = _serve_smoke(dev)
+    cfg = model.cfg
+    b, s_v, ps = 8, 5, 16
+    plan = plan_attention(256, ps)
+    _, bucket = plan.bucket_for(160)
+    kv = paged_init_state(cfg, n_pages=1 + b * 8, page_size=ps, device=dev)
+    rng = np.random.RandomState(4)
+    lens = rng.randint(1, 100, b)
+    pt = torch.zeros((b, 8), dtype=torch.int32, device=dev)
+    for i, n in enumerate(lens):
+        pages = torch.arange(1 + 8 * i, 1 + 8 * i + 8, dtype=torch.int32,
+                             device=dev)
+        pt[i] = pages
+        used = pages[:-(-int(n) // ps)]
+        toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, n))).to(dev)
+        with torch.no_grad():
+            lm.paged_prefill(params, toks, kv, pages, used.long(), 0, int(n),
+                             cfg, kv_fmt=FP8_152, acc=bucket.acc,
+                             want_logits=False)
+    pos = torch.from_numpy(lens).to(dev)
+    cand = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s_v))).to(dev)
+    kv_seq = {k: v.clone() for k, v in kv.items()}
+    with torch.no_grad():
+        lv = lm.paged_verify(params, cand, kv, pt, pos,
+                             (pos + 1).to(torch.int32), cfg, kv_fmt=FP8_152,
+                             acc=bucket.acc)
+        for j in range(s_v):
+            lj = lm.paged_decode(params, cand[:, j:j + 1], kv_seq, pt,
+                                 pos + j, (pos + 1 + j).to(torch.int32), cfg,
+                                 kv_fmt=FP8_152, acc=bucket.acc)
+            assert torch.equal(lv[:, j], lj[:, 0]), j
+    for k in kv:
+        assert torch.equal(kv[k], kv_seq[k]), k

@@ -4,9 +4,9 @@ CPU at a tiny size.
 Table 1, Fig. 5 and Fig. 5c are closed-form: every output line and the
 returned values equal the JAX scripts' (``benchmarks/``).  The precision
 assignment example's lines equal JAX's (``examples/``) for the same
-architecture and shape.  ``fig6_convergence.run(steps=6)`` returns finite
-deltas; ``quickstart`` and ``train_lowprec`` (its supervisor leg included)
-exit 0 at a few steps.
+architecture and shape.  ``quickstart`` and ``train_lowprec`` (its
+supervisor leg included) exit 0 at a few steps.  ``fig6_convergence``'s
+run is ``tests/test_torch_fig6.py``.
 """
 
 from __future__ import annotations
@@ -14,7 +14,6 @@ from __future__ import annotations
 import contextlib
 import importlib.util
 import io
-import math
 import os
 import subprocess
 import sys
@@ -68,17 +67,6 @@ def test_precision_assignment_equals_jax(monkeypatch, argv):
     _, want = _stdout(ref.main)
     assert got == want
     assert "qwen2-1.5b @" in got
-
-
-def test_fig6_run_returns_finite_deltas():
-    from repro_torch.paper.fig6_convergence import run
-
-    out, text = _stdout(run, steps=6, device="cpu")
-    assert math.isfinite(out["pp0_delta"]) and out["pp0_delta"] >= 0
-    assert math.isfinite(out["pp-4_delta"])
-    assert set(out["tails"]) == {"exact", "PP= 0", "PP=-2", "PP=-4"}
-    assert all(math.isfinite(v) for v in out["tails"].values())
-    assert "predictions" in text.splitlines()[-1]
 
 
 def _run_module(*argv):
