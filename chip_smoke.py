@@ -53,7 +53,21 @@ on its own line:
    with the seeded qwen2-0.5b draft and with draft = target (every round
    k + 1 tokens), streams bitwise the eager one-shot run's, 0 steady-state
    captures, and one batch's verify at full depth bitwise 5 sequential
-   decode steps; D is also timed at verify's 40 rows;
+   decode steps, the qwen2-0.5b run traced and metered (its draft, verify
+   and rollback spans, its ``repro_serve_spec_*`` counters the engine's);
+   D is also timed at verify's 40 rows; ``[obs]``: the one-shot and slab
+   runs, eager and graphed, with a ``Tracer`` and a ``MetricsRegistry``:
+   streams and arena bitwise the obs-off runs, one root span a request,
+   the token counter the tokens generated, the Prometheus text parsed, the
+   end-to-end time against the obs-off run's; ``[reserve]``: the engine
+   on graphs with ``reserve_admission=True`` on a pool too small to reserve
+   every request at once: no preemption, its G, D and P(geom) launch shapes
+   recorded and held against their plain versions, each stream against the
+   optimistic run's (bitwise where the request decoded at the same buckets,
+   by the simulation's replay of both schedules); ``[legacy]``: the legacy
+   static batch through ``launch/serve.py --legacy`` (4 prompts of 32
+   tokens, 16 generated, ``decode_step`` over a dense bf16 cache), G's
+   launch shapes recorded and bitwise their plain version, tok/s;
 4. train kernels: E (the forward GEMM with int8 residual codes), B (the
    backward pair) and the stats variants K8 (G's, on f32/bf16 operands and
    on E's int8 codes) and K9 (B's) against their plain versions and their
@@ -69,7 +83,9 @@ on its own line:
    held bitwise against K8's), each with the share of its f32-FMA bound;
    one step's E and B launches and one
    in-graph telemetry tick's K8 and K9 launches timed as sequences, with
-   their f32-FMA bounds;
+   their f32-FMA bounds, their plain versions timed at one layer's 7 calls
+   beside the kernels there (the bitwise checks stay on the operands
+   above);
 5. train: qwen2-1.5b at full width and depth through the training
    launcher's set-up (predicted plan, chunk 64, batch 8 x seq 64, seeded
    f32 weights, ``SyntheticLM``), 6 AdamW steps at lr 1e-3 with 2 warmup
@@ -86,7 +102,10 @@ on its own line:
    cut, the tagged step against the untagged one, bitwise; then the
    launcher's ``main`` under ``--policy perturbed --pp -2`` with a tick
    every step (eager, then in-graph), 3 full-depth steps each: the
-   controller must bump, the model be re-planned and training go on;
+   controller must bump, the model be re-planned and training go on; the
+   in-graph run exports the metrics registry (``--obs-metrics``,
+   ``--obs-prometheus``): every controller event counted, the launch
+   gauges the run's counts;
    ``[train-4k]``: the train cell's model at 4096 tokens, batch 1, 3
    steps under ``full`` (one more profiled), one under ``dots`` (peak
    and launches within 1% of ``full``'s), the bytes a layer keeps under
@@ -104,7 +123,9 @@ on its own line:
    one-shot calls timed as a CUDA graph replay and eagerly; K2 and K3
    against their plain versions at the training shapes and one oracle
    step's launches timed (K2 as a CUDA graph replay, each of its 12
-   distinct calls alone too, and eagerly); the 2-layer oracle step
+   distinct calls alone too, and eagerly; K3's plain version at one
+   layer's calls and the lm_head's, which its whole-head check reads);
+   the 2-layer oracle step
    against the fused step (loss and every gradient bitwise) and 2
    full-depth steps of the train cell under each (losses bitwise, step
    time and peak memory);
@@ -189,8 +210,9 @@ on its own line:
    ``tests/test_a2q.py``'s adversarial check through K8 under RNE and SR;
 12. result: one JSON line per kernel (the SR carries of G, E, B, K7, K8,
    K9 and K10, D's and P's carry variants, and the fused GEMM's variants
-   as entries of their own), the card's name and power limit, and the
-   final JSON line.
+   as entries of their own; ``plain_depth`` says what a ``plain_ms``
+   covers, ``plain_depth_kernel_ms`` the kernel there), the seconds by
+   phase, the card's name and power limit, and the final JSON line.
 
 Any failed check exits non-zero.  Without a CUDA device it exits non-zero
 before printing a result.
@@ -721,22 +743,30 @@ def gemm_step(cfg, dev, weights: dict) -> dict:
         n_bytes += m * k * 4 + k * n * 2 + m * n * 4
         flops += 2 * m * n * k
 
-    def run(fn):
-        for a, w, kw in calls:
+    def run(fn, seq=calls):
+        for a, w, kw in seq:
             fn(a, w, **kw)
 
     ms = cuda_time(lambda: run(qmatmul_fused), reps=5)
-    plain = cuda_time(lambda: run(qmatmul_fused_reference), reps=1, warmup=0)
+    # the plain version timed at a cut depth, one layer's GEMMs, beside the
+    # kernel on the same calls
+    layer = calls[:len(shapes) - 1]
+    plain = cuda_time(lambda: run(qmatmul_fused_reference, layer), reps=1,
+                      warmup=0)
+    layer_ms = cuda_time(lambda: run(qmatmul_fused, layer), reps=5)
     lib = lib_time(lambda: run(lambda a, w, **kw: torch.matmul(
         a.to(torch.bfloat16), w)))
     b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS)
     f_ms = fma_bound([(n_bytes, flops, BF16_FLOPS)])
+    depth = f"one layer's {len(layer)} GEMMs at M={MAX_BATCH}"
     print(f"[kernels] G one decode step ({len(calls)} GEMMs, M={MAX_BATCH}, "
-          f"{n_bytes / 1e9:.3f} GB): kernel {ms:.3f} ms, plain {plain:.1f} "
-          f"ms, library {lib_str(lib)} ({ms / lib[0]:.2f}x), bound "
-          f"{b_ms:.3f} ms ({b_by}), {b_ms / ms:.3f} of bound; f32-FMA bound "
-          f"{f_ms:.4f} ms", flush=True)
-    return dict(ms=ms, plain_ms=plain, library_ms=lib[0],
+          f"{n_bytes / 1e9:.3f} GB): kernel {ms:.3f} ms, library "
+          f"{lib_str(lib)} ({ms / lib[0]:.2f}x), bound {b_ms:.3f} ms "
+          f"({b_by}), {b_ms / ms:.3f} of bound; f32-FMA bound {f_ms:.4f} ms; "
+          f"plain at {depth} {plain:.1f} ms against the kernel's "
+          f"{layer_ms:.4f} ms there", flush=True)
+    return dict(ms=ms, plain_ms=plain, plain_depth=depth,
+                plain_depth_kernel_ms=layer_ms, library_ms=lib[0],
                 library_spread_ms=list(lib[1]), bound_ms=b_ms, bound_by=b_by,
                 fma_bound_ms=f_ms, calls=len(calls))
 
@@ -1173,8 +1203,8 @@ def recording_kernels(calls: dict):
          L.flash_prefill_paged_geom) = saved
 
 
-def check_recorded(label: str, calls: dict, gen, kinds=("G", "D", "P")
-                   ) -> dict:
+def check_recorded(label: str, calls: dict, gen, kinds=("G", "D", "P"),
+                   tag: str = "[spec]") -> dict:
     """Each recorded launch shape through its kernel and its plain version:
     G within 1 carry ulp on the recorded operands and bitwise on lattice
     ones of the same shapes and layout; D and P bitwise on the recorded
@@ -1236,7 +1266,7 @@ def check_recorded(label: str, calls: dict, gen, kinds=("G", "D", "P")
             if what == "recorded":
                 err["P"] = max(err["P"], float((got - want).abs().max()))
         seen["P"].append((q.shape[0], rest[4].shape[0], q0, q_len))
-    print(f"[spec] {label}: {len(calls)} launch shapes recorded and held "
+    print(f"{tag} {label}: {len(calls)} launch shapes recorded and held "
           f"against the plain versions (G within 1 carry ulp on the recorded "
           f"operands, bitwise on lattice ones; D and P bitwise): G (M, K) x "
           f"(K, N) {seen['G']}; D (q, table) {seen['D']}; P (T, row width, "
@@ -1248,7 +1278,7 @@ def check_recorded(label: str, calls: dict, gen, kinds=("G", "D", "P")
 
 
 def build_engine(cfg, params, dev, prefill_chunk, graphs=False, spec=None,
-                 **engine_kw):
+                 n_pages=None, **engine_kw):
     """The serve cell's engine with a host-clocked executor: eager by
     default (the bitwise reference of the graphed runs), on CUDA graphs
     with ``graphs``; ``spec`` (a dict of ``SpecDecodeEngine`` arguments)
@@ -1278,7 +1308,7 @@ def build_engine(cfg, params, dev, prefill_chunk, graphs=False, spec=None,
             return out
 
     model = get_model(cfg)
-    n_pages = -(-int(sum(n + GEN for n in PROMPT_LENS) * 1.25) // PAGE) + 1
+    n_pages = n_pages or serve_pages()
     pc = PagedKVConfig.for_model(cfg, n_pages=n_pages, page_size=PAGE)
     ex = TimedExecutor(model, params, pc, kv_fmt=FPFormat(5, 2),
                        max_batch=MAX_BATCH, device=dev, graphs=graphs)
@@ -1296,6 +1326,12 @@ def build_engine(cfg, params, dev, prefill_chunk, graphs=False, spec=None,
     if graphs:
         GRAPH_EXECUTORS.extend((weakref.ref(e), e._cache) for e in executors)
     return eng
+
+
+def serve_pages() -> int:
+    """The serve cell's pool: its requests' tokens and 25%, as the
+    launcher sizes it, and the null page."""
+    return -(-int(sum(n + GEN for n in PROMPT_LENS) * 1.25) // PAGE) + 1
 
 
 # (weak reference, cache entry) of every graph executor ``build_engine``
@@ -1501,7 +1537,9 @@ def phase_serve_graph(cfg, params, dev, prompts, eager_runs) -> dict:
                           decode_s=ex.decode_s, prefill_s=ex.prefill_s,
                           decoded=eng.decoded_tokens, pool_bytes=pool,
                           eager_decode_s=eager["decode_s"],
-                          eager_seconds=eager["seconds"])
+                          eager_seconds=eager["seconds"], streams=streams,
+                          arena={k: v.clone() for k, v in ex.kv.items()},
+                          executor=ex)
         del eng, ex
         gc.collect()
     return out
@@ -1771,10 +1809,20 @@ def _draft_kernels(cfg, params, dev, prompts, one_shot, dmodel,
     return out
 
 
-def _spec_run(cfg, params, dev, prompts, label, draft_model, draft_params):
+def _spec_run(cfg, params, dev, prompts, label, draft_model, draft_params,
+              obs: bool = False):
+    """One speculative run on graphs; with ``obs`` a tracer and a registry
+    on the engine, whose spans (draft, verify and rollback among them) and
+    ``repro_serve_spec_*`` counters are checked against the engine's."""
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.trace import Tracer, span_forest
+
+    tracer = Tracer() if obs else None
+    registry = MetricsRegistry() if obs else None
     eng = build_engine(cfg, params, dev, None, graphs=True,
                        spec=dict(spec_k=SPEC_K, draft_model=draft_model,
-                                 draft_params=draft_params))
+                                 draft_params=draft_params),
+                       tracer=tracer, metrics=registry)
     t0 = time.perf_counter()
     eng.warmup()
     torch.cuda.synchronize()
@@ -1812,6 +1860,27 @@ def _spec_run(cfg, params, dev, prompts, label, draft_model, draft_params):
     for d in (d_t, d_d):
         check(d["compiles"] == 0 and d["misses"] == 0 and d["hits"] > 0,
               f"[spec] {label}: steady-state captures {d}")
+    if obs:
+        spans = tracer.to_dicts()
+        span_forest(spans)                  # raises on an orphan
+        names = {}
+        for sp in spans:
+            names[sp["name"]] = names.get(sp["name"], 0) + 1
+        count = {m["metric"]: m.get("value") for m in registry.snapshot()}
+        print(f"[spec] {label}: spans by name {names}; registry rounds "
+              f"{count.get('repro_serve_spec_rounds_total')}, rollback "
+              f"tokens {count.get('repro_serve_spec_rollback_tokens_total')}"
+              f", acceptance {count.get('repro_serve_spec_acceptance_rate')}",
+              flush=True)
+        check(all(names.get(n, 0) > 0 for n in ("draft", "verify",
+                                                 "rollback")),
+              f"[spec] {label}: no draft, verify or rollback span")
+        check(names.get("request") == len(prompts)
+              and count["repro_serve_spec_rounds_total"] == eng.spec_rounds
+              and count["repro_serve_spec_rollback_tokens_total"]
+              == eng.spec_rollback_tokens,
+              f"[spec] {label}: spans or counters disagree with the engine")
+        rec["span_names"] = names
     eng.pool.check_invariants()
     check(eng.draft_pool.free_pages == eng.draft_pool.n_pages - 1,
           f"[spec] {label}: draft pages leaked")
@@ -1892,7 +1961,9 @@ def phase_spec(cfg, params, dev, prompts, one_shot) -> dict:
     runs = {}
     for label, dm, dp in (("qwen2-0.5b draft", dmodel, dparams),
                           ("draft = target", get_model(cfg), params)):
-        r = _spec_run(cfg, params, dev, prompts, label, dm, dp)
+        # the first run traced and metered ([obs]): its rejections roll back
+        r = _spec_run(cfg, params, dev, prompts, label, dm, dp,
+                      obs=label == "qwen2-0.5b draft")
         same = sum(a == b for a, b in zip(r["streams"], one_shot["streams"]))
         print(f"[spec] {label}: {same}/{len(prompts)} streams bitwise the "
               f"eager one-shot run's (plain greedy)", flush=True)
@@ -1914,6 +1985,264 @@ def phase_spec(cfg, params, dev, prompts, one_shot) -> dict:
           "[spec] draft = target: a round committed fewer than k + 1")
     vv = _verify_vs_decode(cfg, params, dev, prompts)
     return dict(runs=runs, verify=vv, draft_kernels=dk)
+
+
+# --------------------------------------------------------------------------
+# [obs], [reserve], [legacy]: the rest of serving and its observability
+# --------------------------------------------------------------------------
+
+OBS_SPANS = ROOT / "build" / "spans.jsonl"          # gitignored
+OBS_PROM = ROOT / "build" / "serve.prom"            # gitignored
+# the [reserve] pool: too small to reserve all 8 requests' final lengths at
+# once (97 pages), so reservation holds the last one back
+RESERVE_PAGES = 72
+LEGACY_ARGV = ("--batch", "4", "--prompt-len", "32", "--gen", "16")
+
+
+def _obs_checks(label, tracer, registry, streams, launches):
+    """One root span per request, each closed with a token event per
+    generated token and no orphan; the token counter the tokens
+    generated; the registry's Prometheus text (after the process sweep)
+    parses, with the launch gauges the counts read.  Returns the TTFT and
+    TPOT percentiles from the spans (host seconds)."""
+    from repro_torch.obs.metrics import (collect_process_metrics,
+                                         kernel_launch_counts,
+                                         parse_prometheus)
+    from repro_torch.obs.trace import (percentile, request_latencies,
+                                       span_forest)
+
+    spans = tracer.to_dicts()
+    forest = span_forest(spans)             # raises on an orphan
+    roots = [n["span"] for n in forest.values()
+             if n["span"]["name"] == "request"]
+    check(len(roots) == len(streams) and all(
+        r["t_end"] is not None for r in roots),
+        f"[obs] {label}: {len(roots)} request roots for {len(streams)} "
+        "requests")
+    check(all(len([e for e in r["events"] if e["name"] == "token"]) == GEN
+              for r in roots), f"[obs] {label}: a root's token events are "
+                               "not its tokens")
+    generated = sum(len(x) for x in streams)
+    collect_process_metrics(registry)
+    text = registry.to_prometheus()
+    parsed = parse_prometheus(text)
+    tokens = parsed[("repro_serve_tokens_total", ())]
+    check(tokens == generated, f"[obs] {label}: token counter {tokens} != "
+                               f"{generated} generated")
+    sweep = kernel_launch_counts()
+    for name, n in launches.items():
+        key = {P_GEOM_NAME: "flash_prefill_paged_geom",
+               "qmatmul_fused fold": "qmatmul_fused.fold"}.get(name, name)
+        check(sweep.get(key) == n and parsed[
+            ("repro_kernel_launches", (("kernel", key),))] == n,
+            f"[obs] {label}: launch gauge of {key} is not its count {n}")
+    lats = request_latencies(spans)
+    ttft = [r["ttft"] for r in lats]
+    tpot = [r["tpot"] for r in lats]
+    return dict(spans=len(spans), prom_lines=len(text.splitlines()),
+                samples=len(parsed), tokens=tokens,
+                ttft=(percentile(ttft, 50), percentile(ttft, 99)),
+                tpot=(percentile(tpot, 50), percentile(tpot, 99)),
+                text=text, span_dicts=spans)
+
+
+def phase_obs(cfg, params, dev, prompts, eager_runs, graph_runs) -> dict:
+    """``[obs]``: the serve cell's one-shot and ``SLAB``-token runs, eager
+    and on CUDA graphs, each with a ``Tracer`` and a ``MetricsRegistry``:
+    streams and arena bitwise the same runs without them (``[serve]``,
+    ``[serve-graph]``), the checks of ``_obs_checks``, the kernels
+    launched, and the end-to-end time against the obs-off run's in this
+    call.  The graphed runs are engines of their own on the
+    ``[serve-graph]`` runs' warmed executors (no capture: their graphs are
+    replayed), whose arena is zeroed in place first, the state the
+    obs-off run started from, so that a KV write the obs-on run skipped
+    shows in the arena.  The spans of the graphed one-shot run and its
+    Prometheus text go to ``build/``."""
+    from repro_torch.models.api import get_model
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serve.scheduler import ServeEngine
+
+    out = {}
+    for graphs in (False, True):
+        counters = _graph_counters() if graphs else dict(
+            _counters(), **{"qmatmul_fused fold": (
+                _counters()["qmatmul_fused"][0], "fold_launches")})
+        for chunk, base in zip((None, SLAB),
+                               eager_runs if not graphs else (
+                                   graph_runs["chunk=one-shot"],
+                                   graph_runs[f"chunk={SLAB}"])):
+            label = (f"{'graphed' if graphs else 'eager'} "
+                     f"chunk={chunk or 'one-shot'}")
+            tracer, registry = Tracer(), MetricsRegistry()
+            if graphs:
+                ex = base["executor"]
+                for t in ex.kv.values():    # the graphs keep their pointers
+                    t.zero_()
+                eng = ServeEngine(get_model(cfg), params,
+                                  n_pages=serve_pages(), page_size=PAGE,
+                                  max_batch=MAX_BATCH,
+                                  prefill_chunk_tokens=chunk, executor=ex,
+                                  device=dev, tracer=tracer,
+                                  metrics=registry)
+            else:
+                eng = build_engine(cfg, params, dev, chunk, tracer=tracer,
+                                   metrics=registry)
+            rids = [eng.submit(p, GEN) for p in prompts]
+            zero_counts(counters)
+            torch.cuda.synchronize()
+            with eng.executor.compile_stats_scope() as delta:
+                t0 = time.perf_counter()
+                results = eng.run()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            launches = read_counts(counters)
+            check(not graphs or delta["compiles"] == 0,
+                  f"[obs] {label}: captured {delta['compiles']} graphs")
+            streams = [results[r] for r in rids]
+            same = sum(a == b for a, b in zip(streams, base["streams"]))
+            arena = _same_arena(eng.executor.kv, base["arena"])
+            for k in ("qmatmul_fused", "paged_attn_decode"):
+                check(launches[k] > 0, f"[obs] {label}: {k} not launched")
+            r = _obs_checks(label, tracer, registry, streams, launches)
+            ratio = dt / base["seconds"]
+            print(f"[obs] {label}: {same}/{len(rids)} streams and the arena "
+                  f"{'bitwise' if arena else 'DIFFERENT'} against the run "
+                  f"without obs; {r['spans']} spans ({len(rids)} request "
+                  f"roots), token counter {r['tokens']:.0f}, Prometheus "
+                  f"text {r['prom_lines']} lines, {r['samples']} samples "
+                  f"parsed; TTFT p50/p99 {r['ttft'][0]:.4f}/"
+                  f"{r['ttft'][1]:.4f} s, TPOT p50/p99 {r['tpot'][0]:.4f}/"
+                  f"{r['tpot'][1]:.4f} s; end to end {dt:.3f} s against "
+                  f"{base['seconds']:.3f} s without obs ({ratio:.3f}x); "
+                  f"launches {launches}", flush=True)
+            check(same == len(rids) and arena,
+                  f"[obs] {label}: obs changed a stream or the arena")
+            if graphs and chunk is None:
+                OBS_SPANS.unlink(missing_ok=True)
+                tracer.export_jsonl(str(OBS_SPANS))
+                OBS_PROM.write_text(r["text"])
+            out[label] = dict(seconds=dt, base_seconds=base["seconds"],
+                              ratio=ratio, launches=launches,
+                              **{k: r[k] for k in ("spans", "tokens", "ttft",
+                                                   "tpot")})
+            eng.pool.check_invariants()
+            del eng, tracer, registry
+            if graphs:
+                del ex
+                base.pop("executor")
+            gc.collect()
+    return out
+
+
+def phase_reserve(cfg, params, dev, prompts, one_shot) -> dict:
+    """``[reserve]``: the serve prompts through the engine on CUDA graphs
+    (the card's default) with ``reserve_admission=True`` on a pool of
+    ``RESERVE_PAGES`` pages, under the ``[serve]`` run's plan: no
+    preemption, every G, D and P(geom) launch shape recorded at its first
+    call and held against its plain version (``check_recorded``; G also
+    bitwise on the recorded operands), the kernels launched, and every
+    stream bitwise the optimistic one-shot run's: a row's logits depend
+    on its own tokens and its step's carry format only, and every bucket
+    of this plan carries one format, so the schedule cannot move a
+    request to another one."""
+    from repro_torch.serve.plan import plan_attention
+
+    counters = _graph_counters()
+    plan = plan_attention((serve_pages() - 1) * PAGE, PAGE)
+    formats = {tuple(b.acc) for b in plan.buckets}
+    check(len(formats) == 1, f"[reserve] the plan's buckets carry "
+                             f"{sorted(formats)}: a schedule may change a "
+                             "request's format")
+    eng = build_engine(cfg, params, dev, None, graphs=True,
+                       n_pages=RESERVE_PAGES, plan=plan,
+                       reserve_admission=True)
+    rids = [eng.submit(p, GEN) for p in prompts]
+    calls: dict = {}
+    admitted = []
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_kernels(calls):
+        while eng.pending or eng.active or eng.swapped:
+            admitted.append(eng.step()["admitted"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts(counters)
+    streams = [eng.finished[r] for r in rids]
+    same = [a == b for a, b in zip(streams, one_shot["streams"])]
+    late = [i for i, a in enumerate(admitted) if a is not None]
+    need = sum(eng.pool.pages_for(len(p) + GEN) for p in prompts)
+    print(f"[reserve] reservation admission, {RESERVE_PAGES}-page pool (the "
+          f"{len(prompts)} requests reserve {need} pages), graphed, no "
+          f"warmup: {eng.decoded_tokens} tokens in {dt:.3f} s; admitted at "
+          f"steps {late}; preemptions {eng.preemptions}, max concurrent "
+          f"{eng.max_concurrent}; streams equal to the optimistic one-shot "
+          f"run's: {sum(same)}/{len(rids)} (every bucket carries "
+          f"{formats.pop()}; streams that differ: "
+          f"{[i for i, x in enumerate(same) if not x]}); launches "
+          f"{launches}", flush=True)
+    check(eng.preemptions == 0, "[reserve] reservation admission preempted")
+    check(all(same), "[reserve] a stream differs from the optimistic "
+                     "run's under a one-format plan")
+    for k in ("qmatmul_fused", "paged_attn_decode", P_GEOM_NAME):
+        check(launches[k] > 0, f"[reserve] {k} was not launched")
+    eng.pool.check_invariants()
+    del eng
+    gc.collect()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 81)
+    rec = check_recorded("reservation admission", calls, gen, tag="[reserve]")
+    check(rec["err"]["G"] == 0.0, "[reserve] G not bitwise its plain "
+                                  "version on the recorded operands")
+    del calls
+    return dict(seconds=dt, launches=launches, same=sum(same),
+                preemptions=0, kernels=rec)
+
+
+def phase_legacy(dev, smi: str) -> dict:
+    """``[legacy]``: the legacy static batch through the launcher
+    (``launch/serve.py --legacy``: ``_legacy_main``) at full width and
+    depth: 4 ``SyntheticLM`` prompts of 32 tokens, 16 generated, the
+    predicted plan.  G launched (its count from this run), every G launch
+    shape recorded at its first call and held against its plain version
+    (``check_recorded``), bitwise on the recorded operands too; tok/s of
+    the decode loop beside the card's name and power limit."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as S
+
+    counters = {"qmatmul_fused": _counters()["qmatmul_fused"],
+                "qmatmul_fused fold": (_counters()["qmatmul_fused"][0],
+                                       "fold_launches")}
+    argv = ["--arch", "qwen2-1.5b", "--legacy", "--policy", "predicted",
+            "--chunk", "64", "--seed", str(SEED), "--device", "cuda",
+            *LEGACY_ARGV]
+    calls: dict = {}
+    zero_counts(counters)
+    buf = io.StringIO()
+    with recording_kernels(calls), contextlib.redirect_stdout(buf):
+        res = S.main(argv)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    gen_tokens = res["gen"]
+    print(f"[legacy] {buf.getvalue().strip().splitlines()[0]}; prefill "
+          f"{res['prefill_s']:.3f} s, decode {res['decode_s']:.3f} s, "
+          f"{res['tok_per_s']:.1f} tok/s on {smi}; launches {launches}; "
+          f"sample {gen_tokens[0].tolist()}", flush=True)
+    check(tuple(gen_tokens.shape) == (4, 16), "[legacy] short generation")
+    check(bool(((gen_tokens >= 0) & (gen_tokens < 151936)).all()),
+          "[legacy] token out of range")
+    check(launches["qmatmul_fused"] > 0, "[legacy] G was not launched")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 91)
+    rec = check_recorded("legacy static batch", calls, gen, kinds=("G",),
+                         tag="[legacy]")
+    check(rec["err"]["G"] == 0.0, "[legacy] G not bitwise its plain "
+                                  "version on the recorded operands")
+    out = dict(launches=launches, tok_per_s=res["tok_per_s"], kernels=rec)
+    del calls, res
+    gc.collect()
+    return out
 
 
 # One request's prefill logits, kernels vs plain versions on the card.
@@ -2349,14 +2678,19 @@ def phase_train_kernels(dev) -> dict:
     calls = [(tensors[(k, n)], qc) for _ in range(depth)
              for _, _, k, n, qc in layer]
 
-    def run_e(fn):
-        for (x, w, _, _, _), qc in calls:
+    # the plain versions are timed at a cut depth: one layer's 7 calls
+    # (no lm_head), beside the kernels on the same calls
+    one_layer = calls[:len(layer)]
+
+    def run_e(fn, seq=calls, head=True):
+        for (x, w, _, _, _), qc in seq:
             fn(x, w, return_quantized=True, **_e_kw(qc))
 
-    def run_b(fn):
-        for (_, _, g, xq, wq), qc in calls:
+    def run_b(fn, seq=calls, head=True):
+        for (_, _, g, xq, wq), qc in seq:
             fn(g, xq, wq, **_b_kw(qc))
-        fn(hg, hx, emb.T, **hkw)
+        if head:
+            fn(hg, hx, emb.T, **hkw)
 
     def lib_e():
         for (x, w, _, _, _), _ in calls:
@@ -2373,15 +2707,17 @@ def phase_train_kernels(dev) -> dict:
     # the saved codes (and the raw lm_head) and the stats pairs
     hkw8 = _e_kw(qc)
 
-    def run_k8(fn):
-        for (_, _, _, xq, wq), qc_ in calls:
+    def run_k8(fn, seq=calls, head=True):
+        for (_, _, _, xq, wq), qc_ in seq:
             fn(xq, wq, **_k8_codes_kw(_e_kw(qc_)))
-        fn(hx, emb.T, **hkw8)
+        if head:
+            fn(hx, emb.T, **hkw8)
 
-    def run_k9(fn):
-        for (_, _, g, xq, wq), qc_ in calls:
+    def run_k9(fn, seq=calls, head=True):
+        for (_, _, g, xq, wq), qc_ in seq:
             fn(g, xq, wq, **_b_kw(qc_))
-        fn(hg, hx, emb.T, **hkw)
+        if head:
+            fn(hg, hx, emb.T, **hkw)
 
     def lib_k8():
         lib_e()
@@ -2408,25 +2744,35 @@ def phase_train_kernels(dev) -> dict:
              k8_cost, s_err),
             ("K9", run_k9, k9, k9_plain, lib_b, b_cost, p_err)):
         ms = cuda_time(lambda: run(fn), reps=2, warmup=1)
-        plain = cuda_time(lambda: run(ref), reps=1, warmup=0)
+        plain = cuda_time(lambda: run(ref, one_layer, False), reps=1,
+                          warmup=0)
+        layer_ms = cuda_time(lambda: run(fn, one_layer, False), reps=3)
         lib_ms = lib_time(lib, reps=3)
         b_ms, b_by = seq_bound(cost)
         f_ms = fma_bound(cost)
         what = ("one in-graph telemetry tick" if name in ("K8", "K9")
                 else "one training step")
+        cut = f"one layer's {len(one_layer)} calls at T={t}"
         print(f"[kernels] {name} {what} ({len(cost)} launches, "
-              f"T={t}): kernel {ms:.3f} ms, plain {plain:.1f} ms, library "
-              f"{lib_str(lib_ms)}, bound {b_ms:.4f} ms ({b_by}), "
-              f"{b_ms / ms:.4f} of bound; f32-FMA bound {f_ms:.3f} ms, "
-              f"{f_ms / ms:.4f} of it; {ms / lib_ms[0]:.2f}x the library",
+              f"T={t}): kernel {ms:.3f} ms, library {lib_str(lib_ms)}, "
+              f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.4f} of bound; "
+              f"f32-FMA bound {f_ms:.3f} ms, {f_ms / ms:.4f} of it; "
+              f"{ms / lib_ms[0]:.2f}x the library; plain at {cut} "
+              f"{plain:.1f} ms against the kernel's {layer_ms:.3f} ms there",
               flush=True)
-        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms[0],
+        out[name] = dict(ms=ms, plain_ms=plain, plain_depth=cut,
+                         plain_depth_kernel_ms=layer_ms,
+                         library_ms=lib_ms[0],
                          library_spread_ms=list(lib_ms[1]), bound_ms=b_ms,
                          bound_by=b_by, fma_bound_ms=f_ms, max_abs_err=err)
     print(f"[kernels] stats overhead over one step's sequence: K8 "
           f"{out['K8']['ms'] / out['E']['ms']:.3f}x E, K9 "
           f"{out['K9']['ms'] / out['B']['ms']:.3f}x B", flush=True)
-    out["K7"] = dict(ms=k7_ms, plain_ms=k7_plain, library_ms=k7_lib[0],
+    # K7's plain chain is the lm_head's bitwise check, timed as it runs
+    out["K7"] = dict(ms=k7_ms, plain_ms=k7_plain,
+                     plain_depth=f"the lm_head backward in {HEAD_SEGMENTS} "
+                                 f"chained segments at T={t}",
+                     library_ms=k7_lib[0],
                      library_spread_ms=list(k7_lib[1]), bound_ms=k7_b,
                      bound_by=k7_by, fma_bound_ms=k7_f, max_abs_err=k7_err)
     return out
@@ -2862,6 +3208,8 @@ def phase_train_ingraph(dev, steady_step_ms: float) -> dict:
 
 
 REPLAN_STEPS = 3
+TRAIN_METRICS = ROOT / "build" / "train_metrics.jsonl"   # gitignored
+TRAIN_PROM = ROOT / "build" / "train.prom"               # gitignored
 
 
 def phase_train_replan(dev) -> dict:
@@ -2877,7 +3225,10 @@ def phase_train_replan(dev) -> dict:
     a bump logged before the last step, the last step built for a model
     that carries every width the controller set, 15 verdicts a tick,
     finite losses, and the whole run's launches (a step's E, G and B, an
-    eager tick's G and K8; in-graph, K8 and K9 and no B)."""
+    eager tick's G and K8; in-graph, K8 and K9 and no B).  The in-graph run
+    also exports the metrics registry (``--obs-metrics``,
+    ``--obs-prometheus``, ``[obs]``): every controller event counted, the
+    launch gauges the run's counts, the Prometheus text parsed."""
     import contextlib
     import io
 
@@ -2906,12 +3257,18 @@ def phase_train_replan(dev) -> dict:
 
     counters = _train_counters()
     out = {}
+    from repro_torch.obs.metrics import (MetricsRegistry, parse_prometheus,
+                                         set_registry)
+
     for ingraph in (False, True):
+        obs = (("--ingraph-telemetry", "--obs-metrics", str(TRAIN_METRICS),
+                "--obs-prometheus", str(TRAIN_PROM)) if ingraph else ())
         argv = _train_argv("--policy", "perturbed", "--pp", "-2",
                            "--telemetry-cadence", "1", "--steps", str(s),
-                           "--log-every", "1",
-                           *(("--ingraph-telemetry",) if ingraph else ()))
+                           "--log-every", "1", *obs)
         TELEMETRY_LOG.unlink(missing_ok=True)
+        TRAIN_METRICS.unlink(missing_ok=True)
+        set_registry(MetricsRegistry())
         built.clear()
         buf = io.StringIO()
         LT.make_train_step = recording
@@ -2956,6 +3313,26 @@ def phase_train_replan(dev) -> dict:
               f"re-plan ({what}): schedule {res['schedule']}")
         check(used == wants[ingraph],
               f"re-plan ({what}): launches {used} != {wants[ingraph]}")
+        if ingraph:
+            rows = [json.loads(ln) for ln in open(TRAIN_METRICS)]
+            events = sum(r["value"] for r in rows
+                         if r["metric"] == "repro_controller_events_total")
+            gauges = {r["labels"]["kernel"]: r["value"] for r in rows
+                      if r["metric"] == "repro_kernel_launches"}
+            prom = parse_prometheus(TRAIN_PROM.read_text())
+            print(f"[obs] training export (--obs-metrics, --obs-prometheus):"
+                  f" {len(rows)} samples, {events:.0f} controller events of "
+                  f"{len(logged)} logged, launch gauges K8 "
+                  f"{gauges.get('qmatmul_fused.stats')} K9 "
+                  f"{gauges.get('qmatmul_bwd_pair.stats')}, Prometheus "
+                  f"{len(prom)} samples parsed", flush=True)
+            check(events == len(logged), "[obs] the training export lacks "
+                                         "a controller event")
+            check(gauges.get("qmatmul_fused.stats") == used[K8_NAME]
+                  and gauges.get("qmatmul_bwd_pair.stats") == used[K9_NAME],
+                  "[obs] the training export's launch gauges are not the "
+                  "run's counts")
+        set_registry(None)
         out[what] = dict(launches=used, losses=losses, acted=len(acted))
         del res
         torch.cuda.empty_cache()
@@ -3428,14 +3805,19 @@ def phase_oracle_kernels(dev) -> dict:
         yield hx.T, hg, hq.grad, BF16_FLOPS
 
     k3_list = list(k3_calls())
+    # the plain version is timed at a cut depth: one layer's calls and the
+    # lm_head's three, whose outputs the whole-head check needs; the kernel
+    # beside it on the same calls
+    k3_cut = k3_list[:3 * len(layer)] + k3_list[-3:]
     head_out = {}
 
-    def run_k3(fn):
-        """One step's K3 calls; keeps the whole lm_head's three outputs."""
+    def run_k3(fn, seq=k3_list):
+        """K3's calls of ``seq`` (one step's by default); keeps the whole
+        lm_head's three outputs, its last three."""
         outs = head_out[fn] = []
-        for i, (a, b, p, _) in enumerate(k3_list):
+        for i, (a, b, p, _) in enumerate(seq):
             y = fn(a, b, **_k3_kw(p))
-            if i >= len(k3_list) - 3:
+            if i >= len(seq) - 3:
                 outs.append(y)
 
     def check_head() -> float:
@@ -3476,9 +3858,15 @@ def phase_oracle_kernels(dev) -> dict:
             graph = lib_time(lambda: run(fn), reps=3)
         eager = cuda_time(lambda: run(fn), reps=2, warmup=1)
         ms = graph[0] if graph else eager
-        plain = cuda_time(lambda: run(ref), reps=1, warmup=0)
         if name == "K3":
+            plain = cuda_time(lambda: run(ref, k3_cut), reps=1, warmup=0)
+            cut_ms = cuda_time(lambda: run(fn, k3_cut), reps=2, warmup=1)
             err = max(err, check_head())
+            cut = (f"one layer's {3 * len(layer)} calls and the lm_head's "
+                   f"3 at T={t}")
+        else:
+            plain = cuda_time(lambda: run(ref), reps=1, warmup=0)
+            cut_ms, cut = eager, f"the whole step's {len(cost)} calls"
         lib_ms = lib_time(lib, reps=3) if lib is not None else None
         b_ms, b_by = seq_bound(cost)
         lib_s = (f"library {lib_str(lib_ms)}" if lib_ms is not None else
@@ -3491,10 +3879,12 @@ def phase_oracle_kernels(dev) -> dict:
         k_s = (f"graph replay {lib_str(graph)}, eager {eager:.4f} ms" if graph
                else f"kernel {ms:.3f} ms")
         print(f"[kernels] {name} one oracle training step ({len(cost)} "
-              f"launches, T={t}): {k_s}, plain {plain:.1f} ms, "
-              f"{lib_s}, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.4f} of "
-              f"bound{fma_s}", flush=True)
-        out[name] = dict(ms=ms, plain_ms=plain,
+              f"launches, T={t}): {k_s}, {lib_s}, bound {b_ms:.4f} ms "
+              f"({b_by}), {b_ms / ms:.4f} of bound{fma_s}; plain at {cut} "
+              f"{plain:.1f} ms against the kernel's {cut_ms:.3f} ms there "
+              f"(eager)", flush=True)
+        out[name] = dict(ms=ms, plain_ms=plain, plain_depth=cut,
+                         plain_depth_kernel_ms=cut_ms,
                          library_ms=lib_ms and lib_ms[0],
                          library_spread_ms=lib_ms and list(lib_ms[1]),
                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
@@ -3700,6 +4090,14 @@ def phase_dense_prefill(cfg, params, dev, plan, prompts) -> dict:
     real = L.flash_prefill
 
     def recording(q, k, v, **kw):
+        # the layers pass an AttnCall: kept as the keywords it stands for
+        call = kw.pop("call", None)
+        if call is not None:
+            kw.update(acc=call.acc, chunk=call.chunk,
+                      block_q=call.resolve_block_q(), q_offset=call.q_offset,
+                      kv_offset=call.kv_offset)
+            if call.return_carry:
+                kw["return_carry"] = True
         oneshot_inputs.append((q, k, v, kw))
         return real(q, k, v, **kw)
 
@@ -6206,8 +6604,15 @@ def main() -> None:
     gc.collect()
     mem0 = torch.cuda.memory_allocated()
     sgr = phase_serve_graph(cfg, params, dev, prompts, (one, chunked))
+    phase_obs(cfg, params, dev, prompts, (one, chunked), sgr)
+    for run in (one, chunked, *sgr.values()):
+        run.pop("arena", None)
+        run.pop("executor", None)
+    phase_reserve(cfg, params, dev, prompts, one)
     phase_spec(cfg, params, dev, prompts, one)
     phase_graph_teardown(mem0)
+    torch.cuda.empty_cache()
+    leg = phase_legacy(dev, smi)
     torch.cuda.empty_cache()
     phase_serve_oracle(cfg, params, dev, prompts[0])
     dp = phase_dense_prefill(cfg, params, dev, plan, prompts)
@@ -6273,9 +6678,11 @@ def main() -> None:
              replaces="src/repro/kernels/fused.py:107",
              launches=one["launches"]["qmatmul_fused"],
              fold_launches=one["fold_launches"],
+             legacy_launches=leg["launches"]["qmatmul_fused"],
              max_abs_err=g_err, **{k: g_step[k] for k in (
-                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                 "library_spread_ms", "fma_bound_ms")}),
+                 "ms", "plain_ms", "plain_depth", "plain_depth_kernel_ms",
+                 "bound_ms", "bound_by", "library_ms", "library_spread_ms",
+                 "fma_bound_ms")}),
         dict(name="paged_attn_decode", route="cuda",
              source="src/repro_torch/csrc/paged_decode.cu",
              replaces="src/repro/kernels/attention.py:560",

@@ -149,9 +149,12 @@ class AttnCall:
     """One attention call, the fields of ``repro.kernels.autotune.AttnCall``
     the port's prefill kernels read.  The paged prefill takes the carry
     format, the KV code format and the padded page-row width ``max_pages``
-    (0 = any); the dense ``flash_prefill`` takes the carry format, the KV
-    block length ``chunk`` (0 = the caller's), ``block_q`` (0 =
-    ``BLOCK_Q``; schedule only), the offsets and ``return_carry``."""
+    (0 = any): the serve plan's ``kernel_call``.  The dense
+    ``flash_prefill`` takes the carry format, the KV block length
+    ``chunk`` (0 = the caller's), ``block_q`` (0 = ``BLOCK_Q``; schedule
+    only, checked against ``BLOCK_QS``), the offsets and
+    ``return_carry``: the dense-prefill layers' calls
+    (``models.layers.attn_prefill_paged``, ``attn_prefill_chunk_paged``)."""
 
     e_acc: int = 8
     m_acc: int = 23
@@ -824,14 +827,20 @@ def flash_prefill_reference(q, k, v, *, acc=_WIDE, chunk: int = 128,
                             block_q: int = BLOCK_Q, q_offset: int = 0,
                             kv_offset: int = 0, carry=None,
                             return_carry: bool = False,
-                            rounding: str = "rne", sr_seed: int = 0):
+                            rounding: str = "rne", sr_seed: int = 0,
+                            call: AttnCall | None = None):
     """Plain PyTorch version of ``flash_prefill``: every ``chunk``-long KV
     block in order (blocks in a row's causal future are masked, hence
     carry no-ops), with the kernels' summation order (``_seq_dot``,
     ``_online_update``).  It has no query blocks: ``block_q``, schedule
-    only, is taken and ignored so that the two share a signature.  Under
-    ``rounding="sr"`` block ``kk`` of this call is KV block ``kv_offset //
-    chunk + kk``, its dither ``_sr_attn_bits`` of the whole slab."""
+    only, is taken and ignored so that the two share a signature (``call``
+    too, read as ``flash_prefill`` reads it).  Under ``rounding="sr"``
+    block ``kk`` of this call is KV block ``kv_offset // chunk + kk``, its
+    dither ``_sr_attn_bits`` of the whole slab."""
+    if call is not None:
+        acc, chunk = call.acc, call.chunk or chunk
+        q_offset, kv_offset = call.q_offset, call.kv_offset
+        return_carry = bool(return_carry or call.return_carry)
     _check_dense(q, k, v, carry, chunk, kv_offset)
     sr = check_rounding(rounding)
     s, h, dh = q.shape

@@ -38,6 +38,30 @@ query heads, and split each tile's page walk over the ``cluster`` blocks
 of a thread-block cluster, ``rank_pages`` pages a block a round: from the
 rows, the KV heads, the head shape and the pages the longest tile walks,
 all host-known.  Any tile, cluster and round size give the same bits.
+
+The JAX package's autotuner (``repro.kernels.autotune``) has no module
+here, on purpose: its choices are of Pallas blocks under a TPU's VMEM, and
+the schedules above follow from the shapes alone (and never change a bit).
+What of it a ported caller reaches lives elsewhere: ``AttnCall`` in
+``kernels.attention`` (the serve plan's and the dense-prefill layers'
+call), ``fmt_tuple`` in ``kernels.common``.  No counterpart, each on
+purpose:
+
+* ``register_kernel``/``get_kernel``/``registered_kernels``: a registry of
+  Pallas entry points; each wrapper here is imported where it is used.
+* ``vmem_budget``/``VMEM_PER_GENERATION``/``vmem_block_bytes``/
+  ``attn_vmem_bytes``: TPU VMEM sizing; the shared-memory sizes here are
+  ``smem_bytes``-style functions held against the kernels' ``*_smem``.
+* ``candidate_blocks``/``time_kernel``/``autotune_qmatmul``/
+  ``autotune_bwd_pair``/``autotune_flash_prefill``: a search over Pallas
+  blocks; a Hopper kernel's schedule is picked from the shape here.
+* ``TuningTable``/``get_table``/``set_table_path``/``blocks_for``/
+  ``pair_blocks_for``/``attn_blocks_for``: the table of that search's
+  winners, consulted at trace time; nothing here has a block to look up.
+* ``operand_dtype``: a table key's part.
+* ``train.loop.warmup_gemm_autotune`` and the in-graph tick's re-tune
+  after a re-plan: they fill that table; a re-planned model here needs no
+  new schedule.
 """
 
 from __future__ import annotations

@@ -22,6 +22,23 @@ vocabulary; its weights seeded from ``--seed`` + 7) proposes K tokens a
 round, one batched verify scores them, and a rejection is a page-exact
 rollback; the streams stay bitwise plain greedy decode.
 
+Without ``--prompt-lens`` the requests are ``--batch`` prompts of
+``--prompt-len`` tokens, as in JAX.  ``--reserve-admission`` admits by
+worst-case page reservation (no preemption, the baseline of the bursty
+utilization comparison); ``--v-hint`` bounds the attention carry's
+per-term magnitude for the planner's exponent; ``--events-capacity``
+bounds the engine's event ring buffer (0 = unbounded).  ``--obs-spans
+PATH`` traces every request (``obs.trace``) and writes its span tree as
+JSONL, with TTFT percentiles from the spans; ``--obs-metrics PATH`` and
+``--obs-prometheus PATH`` export the engine's metrics registry
+(``obs.metrics``), with the kernels' launch counts, the certification
+memo and the compile cache swept in at exit.  ``--legacy`` serves the
+static batch instead (``_legacy_main``: one prefill, then every prompt
+token and ``--gen`` tokens through ``models.lm.decode_step`` over a dense
+bf16 cache, all rows at one position; ``--batch`` prompts of
+``--prompt-len`` tokens from ``SyntheticLM``); the port's other families
+are not ported, so it serves the dense family only.
+
 ``--serve-mesh N`` serves tensor-parallel over N ranks, which the launcher
 spawns itself (one process a rank, rank r on ``cuda:(r % cards)``): each
 runs the same engine schedule in lockstep on its output-dim slice of the
@@ -37,6 +54,8 @@ int8 wire instead of gathering them (lossy in general).
       predicted --device cpu --serve-mesh 2
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --policy \
       predicted --device cpu --spec-decode 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --policy \
+      predicted --device cpu --legacy
 """
 
 from __future__ import annotations
@@ -59,8 +78,11 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--prompt-lens", default="16,32,48",
-                    help="comma-separated prompt lengths, one request each")
+    ap.add_argument("--prompt-lens", default="",
+                    help="comma-separated prompt lengths, one request each; "
+                         "default: --batch prompts of --prompt-len tokens")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--pages", type=int, default=0,
@@ -69,9 +91,17 @@ def parse_args(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="chunked-prefill slab size in tokens (multiple of "
                          "--page-size; 0 = one-shot prefill)")
+    ap.add_argument("--reserve-admission", action="store_true",
+                    help="worst-case page-reservation admission, no "
+                         "preemption (the baseline)")
     ap.add_argument("--policy", choices=["exact", "predicted"],
                     default="exact")
     ap.add_argument("--chunk", type=int, default=64)
+    ap.add_argument("--v-hint", type=float, default=0.0,
+                    help="certified per-term bound on the attention carry "
+                         "(value magnitude x softmax weight) for the "
+                         "planner's e_acc; 0 = serve.plan.DEFAULT_V_HINT.  "
+                         "The monitor reports the measured hint beside it")
     ap.add_argument("--monitor-cadence", type=int, default=0,
                     help="decode steps between serve-time VRR probes "
                          "(0 = off)")
@@ -103,7 +133,22 @@ def parse_args(argv=None):
                     help="skip the warmup before traffic (each bucket's "
                          "signatures are then made, on the card captured, "
                          "by its first request)")
+    ap.add_argument("--legacy", action="store_true",
+                    help="serve the static batch (models.lm.decode_step)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--obs-spans", default="",
+                    help="trace the request lifecycle (obs.trace) and "
+                         "export the span tree as JSONL here")
+    ap.add_argument("--obs-metrics", default="",
+                    help="record engine metrics in the registry "
+                         "(obs.metrics) and export them as JSONL here")
+    ap.add_argument("--obs-prometheus", default="",
+                    help="also export the registry in Prometheus textfile-"
+                         "collector format here")
+    ap.add_argument("--events-capacity", type=int, default=4096,
+                    help="ring-buffer capacity of the engine's events "
+                         "(monitor, preempt, restore, spec rounds; 0 = "
+                         "unbounded)")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
@@ -149,15 +194,22 @@ def plan_widths(cfg) -> dict:
     return out
 
 
-def build(args):
-    """(engine, prompts, restored schedule) for parsed ``args``: planned
-    config, bf16 params from a seeded generator on the device (or from
-    ``--ckpt-dir``), the engine, and seeded prompts."""
+def prompt_lengths(args) -> list[int]:
+    """``--prompt-lens``, or ``--batch`` copies of ``--prompt-len``."""
+    if args.prompt_lens:
+        return [int(x) for x in args.prompt_lens.split(",")]
+    return [args.prompt_len] * args.batch
+
+
+def build_params(args):
+    """(planned config, model, bf16 params, restored schedule, device) for
+    parsed ``args``: params from a seeded generator on the device, or from
+    ``--ckpt-dir``."""
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
-    prompt_lens = [int(x) for x in args.prompt_lens.split(",")]
+    prompt_lens = prompt_lengths(args)
     max_ctx = max(prompt_lens) + args.gen
     policy = AccumulationPolicy(mode=args.policy, chunk=args.chunk)
     cfg = plan_for_model(cfg, seq_len=max_ctx, global_batch=len(prompt_lens),
@@ -175,15 +227,44 @@ def build(args):
     # the JAX driver serves bf16 params
     params = _map(lambda x: x.to(torch.bfloat16)
                   if x.dtype == torch.float32 else x, params)
+    return cfg, model, params, schedule, device
+
+
+def obs_of(args):
+    """(tracer, registry) that ``--obs-spans`` and ``--obs-metrics``/
+    ``--obs-prometheus`` ask for, each None when off."""
+    tracer = registry = None
+    if args.obs_spans:
+        from repro_torch.obs.trace import Tracer
+
+        tracer = Tracer()
+    if args.obs_metrics or args.obs_prometheus:
+        from repro_torch.obs.metrics import get_registry
+
+        registry = get_registry()
+    return tracer, registry
+
+
+def build(args, tracer=None, registry=None):
+    """(engine, prompts, restored schedule) for parsed ``args``: planned
+    config, bf16 params from a seeded generator on the device (or from
+    ``--ckpt-dir``), the engine (tracing into ``tracer``, recording into
+    ``registry``), and seeded prompts."""
+    cfg, model, params, schedule, device = build_params(args)
+    prompt_lens = prompt_lengths(args)
+    max_ctx = max(prompt_lens) + args.gen
+    policy = AccumulationPolicy(mode=args.policy, chunk=args.chunk)
     tokens_needed = sum(n + args.gen for n in prompt_lens)
     n_pages = args.pages or (
         -(-int(tokens_needed * 1.25) // args.page_size) + 1)
     eng_kw = dict(n_pages=n_pages, page_size=args.page_size,
-                  max_batch=args.max_batch,
+                  max_batch=args.max_batch, v_hint=args.v_hint or None,
                   prefill_chunk_tokens=args.prefill_chunk or None,
+                  reserve_admission=args.reserve_admission,
                   monitor_cadence=args.monitor_cadence,
                   monitor_log=args.monitor_log or None, seed=args.seed,
-                  device=device)
+                  device=device, tracer=tracer, metrics=registry,
+                  events_capacity=args.events_capacity or None)
     if args.spec_decode:
         from repro_torch.serve.spec import SpecDecodeEngine
 
@@ -223,12 +304,16 @@ def _map(fn, tree):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    if args.legacy:
+        cfg, model, params, _, device = build_params(args)
+        return _legacy_main(args, cfg, model, params, device)
     if args.serve_mesh:
         if args.spec_decode:
             raise SystemExit("--spec-decode does not compose with "
                              "--serve-mesh (single device only)")
         return main_tp(args)
-    eng, prompts, schedule = build(args)
+    tracer, registry = obs_of(args)
+    eng, prompts, schedule = build(args, tracer, registry)
     if not args.no_warmup:
         warm = eng.warmup()
         print(f"warmup: {warm['compiles']} compiles across "
@@ -250,10 +335,11 @@ def main(argv=None) -> dict:
           f"{eng.prefill_tokens} prefill tokens in {dt:.3f}s, max "
           f"concurrent {eng.max_concurrent}, pool {eng.n_pages} x "
           f"{args.page_size}-token pages")
+    admission = "reservation" if args.reserve_admission else "optimistic"
     print(f"scheduler: {eng.prefill_slabs} prefill slabs "
           f"(chunk={args.prefill_chunk or 'one-shot'}), {eng.preemptions} "
           f"preemptions / {eng.restores} restores, utilization "
-          f"{eng.utilization():.3f}")
+          f"{eng.utilization():.3f} ({admission} admission)")
     print(f"KV bytes/token: packed {packed:.1f} vs f32 {f32:.1f}")
     if args.monitor_cadence:
         kinds = [e["event"] for e in eng.events]
@@ -277,18 +363,119 @@ def main(argv=None) -> dict:
           f"{' (CUDA graphs)' if eng.executor.graphs else ''}")
     print("sample generation (request 0):", results[rids[0]])
     eng.pool.check_invariants()
+    latency = export_obs(args, tracer, registry)
     out = {"seconds": dt, "results": results,
            "schedule": schedule, "plan": plan_widths(eng.cfg),
            "decoded_tokens": eng.decoded_tokens,
            "prefill_tokens": eng.prefill_tokens,
            "kv_bytes_per_token": packed, "max_concurrent": eng.max_concurrent,
            "preemptions": eng.preemptions, "restores": eng.restores,
-           "compile_stats": cstats}
+           "utilization": eng.utilization(), "events": list(eng.events),
+           "compile_stats": cstats, "latency": latency}
     if args.spec_decode:
         out.update(spec_rounds=eng.spec_rounds,
                    acceptance_rate=eng.acceptance_rate(),
                    spec_rollback_tokens=eng.spec_rollback_tokens)
     return out
+
+
+def export_obs(args, tracer, registry) -> dict | None:
+    """Write the spans and the registry ``args`` ask for; returns the
+    TTFT/TPOT percentiles of the traced requests (host seconds), or None
+    without a tracer."""
+    latency = None
+    if tracer is not None:
+        from repro_torch.obs.trace import percentile, request_latencies
+
+        n = tracer.export_jsonl(args.obs_spans)
+        lats = request_latencies(tracer.spans)
+        ttft = [r["ttft"] for r in lats]
+        tpot = [r["tpot"] for r in lats]
+        latency = {"requests": len(lats),
+                   "ttft_p50": percentile(ttft, 50),
+                   "ttft_p99": percentile(ttft, 99),
+                   "tpot_p50": percentile(tpot, 50),
+                   "tpot_p99": percentile(tpot, 99)}
+        print(f"spans: {n} exported to {args.obs_spans}; TTFT "
+              f"p50={latency['ttft_p50']} p99={latency['ttft_p99']} (s), "
+              f"TPOT p50={latency['tpot_p50']} p99={latency['tpot_p99']} "
+              f"(s)")
+    if registry is not None:
+        from repro_torch.obs.metrics import collect_process_metrics
+
+        collect_process_metrics(registry)
+        if args.obs_metrics:
+            registry.export_jsonl(args.obs_metrics)
+        if args.obs_prometheus:
+            registry.export_prometheus(args.obs_prometheus)
+    return latency
+
+
+# --------------------------------------------------------------------------
+# the legacy static batch
+# --------------------------------------------------------------------------
+
+
+def _legacy_main(args, cfg, model, params, device) -> dict:
+    """Static-batch prefill and greedy decode (JAX's ``_legacy_main``, the
+    dense family): ``--batch`` ``SyntheticLM`` prompts of ``--prompt-len``
+    tokens, one prefill (whose logits JAX's launcher discards too), then
+    every prompt token and ``--gen`` - 1 more through ``decode_step`` over
+    a dense bf16 cache, all rows at one position.  The positions are a
+    device tensor made once, so no step reads anything back to the host;
+    the tokens come back at the end.  Returns tok/s over the decode loop
+    and the (batch, gen) generated tokens."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    prompt_len = args.prompt_len
+    if args.prompt_lens:
+        print(f"note: legacy static batch serves {args.batch} uniform "
+              f"prompts of {prompt_len} tokens; --prompt-lens "
+              f"{args.prompt_lens!r} applies to the paged engine only")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=prompt_len, global_batch=args.batch,
+                                  seed=args.seed), device=device)
+    batch = next(data)
+    max_t = prompt_len + args.gen
+    pos = torch.arange(max_t, dtype=torch.int32, device=device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model.prefill(params, batch, cfg)
+        state = model.init_decode_state(cfg, args.batch, max_t, device)
+        # replay the prompt through decode to fill the caches
+        prompt = batch["tokens"]
+        for i in range(prompt.shape[1]):
+            logits, state = model.decode_step(params, prompt[:, i:i + 1],
+                                              state, pos[i], cfg)
+        tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
+        sync()
+        t_prefill = time.perf_counter() - t0
+        out_tokens = [tok]
+        t0 = time.perf_counter()
+        base = prompt.shape[1]
+        for i in range(args.gen - 1):
+            logits, state = model.decode_step(params, tok, state,
+                                              pos[base + i], cfg)
+            tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
+            out_tokens.append(tok)
+        sync()
+    t_decode = time.perf_counter() - t0
+    gen = torch.cat(out_tokens, dim=1).cpu()
+    toks_per_s = args.batch * (args.gen - 1) / max(t_decode, 1e-9)
+    print(f"arch={cfg.name} device={device} batch={args.batch} "
+          f"prompt={prompt_len} gen={args.gen} [legacy static batch]")
+    print(f"prefill: {t_prefill:.3f}s   decode: {t_decode:.3f}s "
+          f"({toks_per_s:.1f} tok/s)")
+    print("sample generation (seq 0):", gen[0].tolist())
+    return {"tok_per_s": float(toks_per_s), "gen": gen,
+            "prefill_s": t_prefill, "decode_s": t_decode,
+            "prompt": batch["tokens"].cpu()}
 
 
 # --------------------------------------------------------------------------
@@ -445,7 +632,7 @@ def main_tp(args) -> dict:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
-    prompt_lens = [int(x) for x in args.prompt_lens.split(",")]
+    prompt_lens = prompt_lengths(args)
     cfg = plan_for_model(cfg, seq_len=max(prompt_lens) + args.gen,
                          global_batch=len(prompt_lens),
                          policy=AccumulationPolicy(mode=args.policy,

@@ -35,7 +35,13 @@ K9 carry it on the card; the lm_head keeps its RNE 16-bit carry.
 of every 2-D parameter, from the plan's narrowest accumulator format and
 ``--a2q-x-bound``, penalized in the loss at strength S and projected after
 every step, so that carry can never overflow.
-Not ported: the metrics registry and meshes.
+
+``--obs-metrics PATH`` and ``--obs-prometheus PATH`` export the process's
+metrics registry (``obs.metrics``) at exit, as JSONL and in Prometheus's
+textfile format: the in-graph ticks' controller events (the registry is
+kept whenever ``--ingraph-telemetry`` is on, as JAX's launcher keeps it;
+the eager tick records none, as in JAX), the kernels' launch counts, the
+certification memo and the compile cache.  Not ported: meshes.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --smoke --steps 20 --policy predicted --device cpu \\
@@ -125,14 +131,46 @@ def parse_args(argv=None):
     ap.add_argument("--n-layers", type=int, default=0,
                     help="cut the model to this many layers (0 = the "
                          "config's depth)")
+    ap.add_argument("--obs-metrics", default="",
+                    help="export the metrics registry as JSONL here at "
+                         "exit (repro_torch.obs.metrics)")
+    ap.add_argument("--obs-prometheus", default="",
+                    help="export the registry in Prometheus textfile-"
+                         "collector format here at exit")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
 
-def build_telemetry(args, tc):
+def obs_registry(args):
+    """The process-wide metrics registry when ``--obs-metrics``,
+    ``--obs-prometheus`` or ``--ingraph-telemetry`` asks for it (JAX's
+    rule), else None."""
+    if args.obs_metrics or args.obs_prometheus or args.ingraph_telemetry:
+        from repro_torch.obs.metrics import get_registry
+
+        return get_registry()
+    return None
+
+
+def export_obs(args, registry) -> None:
+    """Sweep the process's counters into ``registry`` and write the
+    exports ``args`` asks for."""
+    if registry is None:
+        return
+    from repro_torch.obs.metrics import collect_process_metrics
+
+    collect_process_metrics(registry)
+    if args.obs_metrics:
+        registry.export_jsonl(args.obs_metrics)
+    if args.obs_prometheus:
+        registry.export_prometheus(args.obs_prometheus)
+
+
+def build_telemetry(args, tc, registry=None):
     """(controller, in-graph tick runner) for parsed ``args``; both None
     when telemetry is off (cadence 0 or the exact policy), the runner None
-    without ``--ingraph-telemetry``."""
+    without ``--ingraph-telemetry``; the runner records its events in
+    ``registry``."""
     if args.telemetry_cadence <= 0 or args.policy == "exact":
         if args.ingraph_telemetry:
             raise SystemExit("--ingraph-telemetry needs --telemetry-cadence "
@@ -151,7 +189,8 @@ def build_telemetry(args, tc):
     ingraph = None
     if args.ingraph_telemetry:
         ingraph = InGraphTelemetry(controller, tc, seq_len=args.seq_len,
-                                   global_batch=args.global_batch)
+                                   global_batch=args.global_batch,
+                                   registry=registry)
     return controller, ingraph
 
 
@@ -271,7 +310,8 @@ def main(argv=None) -> dict:
           f"{param_count(state['params']) / 1e6:.1f}M policy={args.policy} "
           f"pp={args.pp} rounding={args.rounding} device={device}",
           flush=True)
-    controller, ingraph = build_telemetry(args, tc)
+    registry = obs_registry(args)
+    controller, ingraph = build_telemetry(args, tc, registry)
     model, state, start = resume(args, model, state, data, controller)
     step_fn = make_train_step(model, tc)
     metrics_f = open(args.metrics_out, "a") if args.metrics_out else None
@@ -322,6 +362,7 @@ def main(argv=None) -> dict:
         _save(args, args.steps, state, data, controller)
     if metrics_f:
         metrics_f.close()
+    export_obs(args, registry)
     return {"final_loss": last_loss, "steps": args.steps,
             "schedule": controller.to_meta() if controller else {}}
 

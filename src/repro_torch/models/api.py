@@ -22,6 +22,10 @@ class Model:
     cfg: ModelConfig
     init_params: Callable  # (generator, device) -> params
     loss_fn: Callable      # (params, batch, cfg) -> (loss, metrics)
+    forward: Callable | None = None
+    prefill: Callable | None = None            # the legacy static batch
+    decode_step: Callable | None = None
+    init_decode_state: Callable | None = None  # (cfg, batch, max_t, device)
 
 
 def get_model(cfg: ModelConfig) -> Model:
@@ -29,7 +33,9 @@ def get_model(cfg: ModelConfig) -> Model:
     return Model(cfg=cfg,
                  init_params=lambda gen, device: lm.init_params(cfg, gen,
                                                                 device),
-                 loss_fn=lm.loss_fn)
+                 loss_fn=lm.loss_fn, forward=lm.forward, prefill=lm.prefill,
+                 decode_step=lm.decode_step,
+                 init_decode_state=lm.init_decode_state)
 
 
 def param_count(params: Any) -> int:

@@ -1,7 +1,9 @@
 """Layer functions of the dense decoder (plain functions on tensors).
 
 Counterpart of ``repro.models.layers`` for the dense family: training
-attention (``attn_apply``), the paged serving entries (the bucketed slab
+attention (``attn_apply``), the legacy static batch's decode over a dense
+bf16 cache (``attn_decode``, ``attn_cache_init``), the paged serving
+entries (the bucketed slab
 ``attn_prefill_bucketed`` through P, the dense one-shot and slab prefills
 ``attn_prefill_paged`` and ``attn_prefill_chunk_paged`` through K10,
 ``attn_decode_paged`` and the speculative verify ``attn_verify_paged``
@@ -33,11 +35,15 @@ from repro_torch.dist import LOCAL, Dist, gather_cols, psum_carry
 from repro_torch.kernels.attention import (
     BLOCK_Q,
     NEG,
+    AttnCall,
     finalize_carry,
     flash_prefill,
     flash_prefill_paged,
     flash_prefill_paged_geom,
+    flash_prefill_paged_geom_reference,
+    flash_prefill_paged_reference,
     paged_attn_decode,
+    paged_attn_decode_reference,
     prefill_geom,
 )
 from repro_torch.kernels.ops import QDotConfig, qdot
@@ -180,6 +186,40 @@ def attn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return dense(o, p["wo"], cfg.quant.attn_out)
 
 
+def attn_decode(p: Params, x: torch.Tensor, cache: dict[str, torch.Tensor],
+                pos, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """One-token decode of the legacy static batch against a dense bf16
+    cache.  ``x`` (b, 1, d); ``cache`` k/v (b, T, kv, dh); ``pos`` the
+    position of this token for every row, an int or a 0-d integer tensor
+    on x's device (never read on the host).  This token's K/V are written
+    at ``pos`` in place (JAX's ``dynamic_update_slice``); the queries
+    attend cache slots ``<= pos`` through ``_gqa_attend``'s f32 einsums (no
+    kernel); ``wo`` goes through ``dense``.  Returns (y (b, 1, d), the
+    cache)."""
+    b = x.shape[0]
+    pos_t = torch.as_tensor(pos, device=x.device).to(torch.long).reshape(1)
+    positions = pos_t.expand(b)[:, None]
+    q = _q_proj(p, x, cfg, positions)
+    k1, v1 = _kv_proj(p, x, cfg, positions)
+    ck, cv = cache["k"], cache["v"]
+    ck.index_copy_(1, pos_t, k1.to(ck.dtype))
+    cv.index_copy_(1, pos_t, v1.to(cv.dtype))
+    t = ck.shape[1]
+    mask = (torch.arange(t, device=x.device) <= pos_t)[None, None, None,
+                                                        None]
+    o = _gqa_attend(q, ck.to(COMPUTE_DTYPE), cv.to(COMPUTE_DTYPE), mask, cfg)
+    return dense(o, p["wo"], cfg.quant.attn_out), cache
+
+
+def attn_cache_init(cfg: ModelConfig, batch: int, max_t: int,
+                    device) -> dict[str, torch.Tensor]:
+    """The legacy decode's zero bf16 cache, k and v (batch, max_t, kv,
+    dh)."""
+    shape = (batch, max_t, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
+            "v": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)}
+
+
 def _merge_sharded_carry(o_l: torch.Tensor, m_l: torch.Tensor,
                          l_l: torch.Tensor, dist: Dist) -> torch.Tensor:
     """The ranks' local-head carries ``o_l`` (..., h_loc, dh), ``m_l``/``l_l``
@@ -208,13 +248,16 @@ def _merge_sharded_carry(o_l: torch.Tensor, m_l: torch.Tensor,
 def attn_decode_paged(p: Params, x: torch.Tensor, kv: dict[str, torch.Tensor],
                       page_table: torch.Tensor, positions: torch.Tensor,
                       seq_lens: torch.Tensor, cfg: ModelConfig, *, kv_fmt,
-                      acc: tuple[int, int], dist: Dist = LOCAL) -> torch.Tensor:
+                      acc: tuple[int, int], dist: Dist = LOCAL,
+                      oracle: bool = False) -> torch.Tensor:
     """One-token decode against a layer's arena slice ``kv`` (updated in
     place).  ``x`` (B, 1, D); ``page_table`` (B, W) int32; ``positions``
     (B,) each row's write position; ``seq_lens`` (B,) int32 attended
     tokens including this one, 0 for padded rows (whose write lands in the
     null page).  Under a sharded ``dist`` each rank walks its own heads
-    (D's carry entry) and the carries merge exactly."""
+    (D's carry entry) and the carries merge exactly.  ``oracle``: the
+    attention through D's plain version, on any device (JAX's
+    ``oracle=True``, its jnp reference)."""
     b = x.shape[0]
     pos2 = positions[:, None]
     q = _q_proj(p, x, cfg, pos2)                   # (B, 1, H, dh)
@@ -230,10 +273,11 @@ def attn_decode_paged(p: Params, x: torch.Tensor, kv: dict[str, torch.Tensor],
                     page_id, slot, kv_fmt, pmax_axis=ax)
     args = (q[:, 0].to(torch.float32), kv["k"], kv["v"], kv["k_se"],
             kv["v_se"], page_table, seq_lens)
+    decode = paged_attn_decode_reference if oracle else paged_attn_decode
     if ax is None:
-        o = paged_attn_decode(*args, kv_fmt=kv_fmt, acc=acc)
+        o = decode(*args, kv_fmt=kv_fmt, acc=acc)
     else:
-        o = _merge_sharded_carry(*paged_attn_decode(
+        o = _merge_sharded_carry(*decode(
             *args, kv_fmt=kv_fmt, acc=acc, return_carry=True), dist)
     o = o.reshape(b, 1, -1).to(COMPUTE_DTYPE)
     y = dense(o, p["wo"], cfg.quant.attn_out)
@@ -243,7 +287,8 @@ def attn_decode_paged(p: Params, x: torch.Tensor, kv: dict[str, torch.Tensor],
 def attn_verify_paged(p: Params, x: torch.Tensor, kv: dict[str, torch.Tensor],
                       page_table: torch.Tensor, positions: torch.Tensor,
                       seq_lens: torch.Tensor, cfg: ModelConfig, *, kv_fmt,
-                      acc: tuple[int, int], dist: Dist = LOCAL) -> torch.Tensor:
+                      acc: tuple[int, int], dist: Dist = LOCAL,
+                      oracle: bool = False) -> torch.Tensor:
     """Speculative-decode verify through a layer: ``S = k + 1`` tokens a
     sequence in one batched pass, bitwise ``S`` sequential
     ``attn_decode_paged`` steps.  ``x`` (B, S, D), the last committed
@@ -256,7 +301,8 @@ def attn_verify_paged(p: Params, x: torch.Tensor, kv: dict[str, torch.Tensor],
     flattened rows, row (i, j) with sequence i's page-table row and its
     own length ``seq_lens + j``, so each row's walk is the decode walk at
     that context.  Under a sharded ``dist`` each rank walks its own heads
-    (D's carry entry) and the carries merge exactly."""
+    (D's carry entry) and the carries merge exactly.  ``oracle``: D's
+    plain version, as ``attn_decode_paged``."""
     b, s, _ = x.shape
     steps = torch.arange(s, device=x.device)
     pos2 = positions[:, None] + steps[None, :]
@@ -280,10 +326,11 @@ def attn_verify_paged(p: Params, x: torch.Tensor, kv: dict[str, torch.Tensor],
                           torch.zeros_like(seq_lens)[:, None]).reshape(b * s)
     args = (q_flat, kv["k"], kv["v"], kv["k_se"], kv["v_se"], pt_flat,
             sl_flat.to(torch.int32))
+    decode = paged_attn_decode_reference if oracle else paged_attn_decode
     if ax is None:
-        o = paged_attn_decode(*args, kv_fmt=kv_fmt, acc=acc)
+        o = decode(*args, kv_fmt=kv_fmt, acc=acc)
     else:
-        o = _merge_sharded_carry(*paged_attn_decode(
+        o = _merge_sharded_carry(*decode(
             *args, kv_fmt=kv_fmt, acc=acc, return_carry=True), dist)
     o = o.reshape(b, s, -1).to(COMPUTE_DTYPE)
     y = dense(o, p["wo"], cfg.quant.attn_out)
@@ -295,7 +342,8 @@ def attn_prefill_bucketed(p: Params, x: torch.Tensor,
                           slab_page_ids: torch.Tensor, q_offset, q_len,
                           cfg: ModelConfig, *, kv_fmt,
                           acc: tuple[int, int], call=None,
-                          dist: Dist = LOCAL) -> torch.Tensor:
+                          dist: Dist = LOCAL,
+                          oracle: bool = False) -> torch.Tensor:
     """One prefill slab of one sequence through a layer.  ``x`` (1, T, D)
     holds the slab (rows ``>= q_len`` are padding, zeroed before the
     arena write); the slab's K/V are quantized into ``slab_page_ids``, then
@@ -308,7 +356,8 @@ def attn_prefill_bucketed(p: Params, x: torch.Tensor,
     (``flash_prefill_paged_geom``), so the layer can be captured in a CUDA
     graph that serves every slab geometry.  Under a sharded ``dist`` (host
     ints only) each rank walks its own heads (P's carry out) and the
-    carries merge exactly."""
+    carries merge exactly.  ``oracle``: P's plain versions (eager only:
+    the host-int one reads its geometry on the host)."""
     t = x.shape[1]
     on_device = isinstance(q_offset, torch.Tensor) or isinstance(
         q_len, torch.Tensor)
@@ -330,17 +379,20 @@ def attn_prefill_bucketed(p: Params, x: torch.Tensor,
                     pmax_axis=ax)
     pages = (q[0].to(torch.float32), kv["k"], kv["v"], kv["k_se"],
              kv["v_se"], page_row)
+    geom_fn, host_fn = ((flash_prefill_paged_geom_reference,
+                         flash_prefill_paged_reference) if oracle else
+                        (flash_prefill_paged_geom, flash_prefill_paged))
     if on_device:
         if ax is not None:
             raise NotImplementedError(
                 "the sharded prefill takes its geometry as host ints")
-        o = flash_prefill_paged_geom(*pages, prefill_geom(q_offset, q_len),
-                                     kv_fmt=kv_fmt, acc=acc, call=call)
+        o = geom_fn(*pages, prefill_geom(q_offset, q_len), kv_fmt=kv_fmt,
+                    acc=acc, call=call)
     elif ax is None:
-        o = flash_prefill_paged(*pages, q_offset, q_len, q_offset + q_len,
-                                kv_fmt=kv_fmt, acc=acc, call=call)
+        o = host_fn(*pages, q_offset, q_len, q_offset + q_len,
+                    kv_fmt=kv_fmt, acc=acc, call=call)
     else:
-        o = _merge_sharded_carry(*flash_prefill_paged(
+        o = _merge_sharded_carry(*host_fn(
             *pages, q_offset, q_len, q_offset + q_len, kv_fmt=kv_fmt,
             acc=acc, call=call, return_carry=True), dist)
     o = o.reshape(1, t, -1).to(COMPUTE_DTYPE)
@@ -365,8 +417,9 @@ def attn_prefill_paged(p: Params, x: torch.Tensor, kv: dict[str, torch.Tensor],
                           page_ids, kv_fmt)
     vdq = KV.write_prompt(kv["v"], kv["v_se"], v[0].to(torch.float32),
                           page_ids, kv_fmt)
-    o = flash_prefill(q[0].to(torch.float32), kdq, vdq, acc=acc,
-                      chunk=kv["k"].shape[2], block_q=block_q or BLOCK_Q)
+    call = AttnCall(e_acc=acc[0], m_acc=acc[1], chunk=kv["k"].shape[2],
+                    block_q=block_q or BLOCK_Q)
+    o = flash_prefill(q[0].to(torch.float32), kdq, vdq, call=call)
     o = o.reshape(1, s, -1).to(COMPUTE_DTYPE)
     return dense(o, p["wo"], cfg.quant.attn_out)
 
@@ -399,15 +452,19 @@ def attn_prefill_chunk_paged(p: Params, x: torch.Tensor,
                           slab_page_ids, kv_fmt)
     vdq = KV.write_prompt(kv["v"], kv["v_se"], v[0].to(torch.float32),
                           slab_page_ids, kv_fmt)
-    kw = dict(acc=acc, chunk=page_size, block_q=block_q or BLOCK_Q,
-              q_offset=t0)
+    # the history pass (carry out) and the slab's pass (resumed at t0),
+    # each one AttnCall of the dense kernel
+    call = AttnCall(e_acc=acc[0], m_acc=acc[1], chunk=page_size,
+                    block_q=block_q or BLOCK_Q, q_offset=t0)
     qf = q[0].to(torch.float32)
     carry = None
     if t0 > 0:
         kh = KV.gather_pages(kv["k"], kv["k_se"], hist_page_ids, kv_fmt)
         vh = KV.gather_pages(kv["v"], kv["v_se"], hist_page_ids, kv_fmt)
-        carry = flash_prefill(qf, kh[:t0], vh[:t0], return_carry=True, **kw)
-    o = flash_prefill(qf, kdq, vdq, kv_offset=t0, carry=carry, **kw)
+        carry = flash_prefill(qf, kh[:t0], vh[:t0], call=dataclasses.replace(
+            call, return_carry=True))
+    o = flash_prefill(qf, kdq, vdq, carry=carry,
+                      call=dataclasses.replace(call, kv_offset=t0))
     o = o.reshape(1, s, -1).to(COMPUTE_DTYPE)
     return dense(o, p["wo"], cfg.quant.attn_out)
 

@@ -1,5 +1,6 @@
-"""Dense decoder-only LM: parameters, the training forward and loss, and
-the paged serving entry points.
+"""Dense decoder-only LM: parameters, the training forward and loss, the
+legacy static batch's ``prefill``/``decode_step`` over a dense bf16 cache,
+and the paged serving entry points.
 
 Counterpart of ``repro.models.lm`` for the dense family.  The layer stack
 keeps the JAX layout (every per-layer tensor stacked on a leading layer
@@ -303,16 +304,89 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
     return loss, {"ce": loss}
 
 
+# --------------------------------------------------------------------------
+# the legacy static batch (JAX's decode_step / prefill)
+# --------------------------------------------------------------------------
+
+
+def _check_legacy(cfg: ModelConfig, dist: Dist) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the legacy decode of family {cfg.family!r} is not ported yet "
+            "(ROADMAP [families]); the port serves the dense family")
+    if dist.sharded:
+        raise NotImplementedError("the legacy static batch is single-device")
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_t: int,
+                      device) -> Params:
+    """The legacy decode's state: every layer's bf16 cache stacked on a
+    leading layer axis, ``{"layers": {"k", "v"}}`` of (L, batch, max_t,
+    kv, dh) zeros on ``device``."""
+    _check_legacy(cfg, LOCAL)
+    shape = (cfg.n_layers, batch, max_t, cfg.n_kv_heads, cfg.head_dim)
+    return {"layers": {"k": torch.zeros(shape, dtype=L.COMPUTE_DTYPE,
+                                        device=device),
+                       "v": torch.zeros(shape, dtype=L.COMPUTE_DTYPE,
+                                        device=device)}}
+
+
+def _decode_block(bp: Params, x: torch.Tensor, cache: dict, pos,
+                  cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    h, nc = L.attn_decode(bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps),
+                          cache, pos, cfg)
+    x = x + h
+    z = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    return x + L.mlp_apply(bp["mlp"], z, cfg), nc
+
+
+def decode_step(params: Params, tokens: torch.Tensor, state: Params, pos,
+                cfg: ModelConfig, dist: Dist = LOCAL
+                ) -> tuple[torch.Tensor, Params]:
+    """One token for every sequence of the static batch, all at position
+    ``pos`` (an int, or a 0-d integer tensor on the device: the step then
+    reads nothing back to the host).  ``tokens`` (B, 1).  Writes each
+    layer's K/V into ``state`` in place; returns (logits (B, 1, V) bf16,
+    state)."""
+    _check_legacy(cfg, dist)
+    x = _embed(params, tokens)
+    for i in range(cfg.n_layers):
+        cache = {name: t[i] for name, t in state["layers"].items()}
+        x, _ = _decode_block(_layer(params["layers"], i), x, cache, pos, cfg)
+    return _unembed(params, x, cfg), state
+
+
+def prefill(params: Params, batch: dict, cfg: ModelConfig,
+            dist: Dist = LOCAL) -> torch.Tensor:
+    """Inference prefill of the static batch: the next-token logits (B, V)
+    of the last position only (``forward_hidden`` without remat)."""
+    _check_legacy(cfg, dist)
+    x = forward_hidden(params, batch, cfg, remat=False)
+    return _unembed(params, x[:, -1:], cfg)[:, 0]
+
+
+def init_paged_state(cfg: ModelConfig, *, n_pages: int, page_size: int,
+                     device, kv_fmt=None) -> dict:
+    """Deprecated: ``models.api.paged_init_state``."""
+    from repro_torch.models.api import paged_init_state
+
+    return paged_init_state(cfg, n_pages=n_pages, page_size=page_size,
+                            device=device, kv_fmt=kv_fmt)
+
+
 def paged_decode(params: Params, tokens: torch.Tensor, kv_state: dict,
                  page_table: torch.Tensor, positions: torch.Tensor,
                  seq_lens: torch.Tensor, cfg: ModelConfig, *, kv_fmt,
-                 acc: tuple[int, int], dist: Dist = LOCAL) -> torch.Tensor:
+                 acc: tuple[int, int], dist: Dist = LOCAL,
+                 oracle: bool = False) -> torch.Tensor:
     """One continuous-batching decode token per sequence: ``tokens`` (B, 1),
     ``page_table`` (B, W) int32, ``positions`` (B,) per-row write
     positions, ``seq_lens`` (B,) int32 (0 for padded rows).  Appends each
     row's K/V to ``kv_state`` in place; returns logits (B, 1, V) bf16.
     Under a sharded ``dist``: the rank's slices of params and arena, the
-    full logits on every rank."""
+    full logits on every rank.  ``oracle``: the attention through D's plain
+    version on any device, the logit-exactness oracle (JAX's
+    ``oracle=True``)."""
     _check_paged(cfg)
     x = _embed(params, tokens)
     for i in range(cfg.n_layers):
@@ -321,7 +395,7 @@ def paged_decode(params: Params, tokens: torch.Tensor, kv_state: dict,
         x = x + L.attn_decode_paged(
             lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), kvl,
             page_table, positions, seq_lens, cfg, kv_fmt=kv_fmt, acc=acc,
-            dist=dist)
+            dist=dist, oracle=oracle)
         z = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + L.mlp_apply(lp["mlp"], z, cfg, dist)
     return _unembed(params, x, cfg, dist)
@@ -331,7 +405,8 @@ def paged_prefill(params: Params, tokens: torch.Tensor, kv_state: dict,
                   page_row: torch.Tensor, slab_page_ids: torch.Tensor,
                   q_offset, q_len, cfg: ModelConfig, *, kv_fmt,
                   acc: tuple[int, int], call=None, want_logits: bool = True,
-                  dist: Dist = LOCAL) -> torch.Tensor | None:
+                  dist: Dist = LOCAL,
+                  oracle: bool = False) -> torch.Tensor | None:
     """One prefill slab of one sequence through the stack: each layer
     writes the slab's K/V into its pages (in place) and attends history
     and slab in one P pass.  ``tokens`` (1, T), padded past ``q_len``;
@@ -340,7 +415,8 @@ def paged_prefill(params: Params, tokens: torch.Tensor, kv_state: dict,
     (JAX's traced geometry: nothing then reads them on the host, and the
     logits row is taken by a device index).  Returns the logits (1, V) of
     row ``q_len - 1`` (row 0 when ``q_len`` is 0) when ``want_logits``,
-    else None."""
+    else None.  ``oracle``: the attention through P's plain versions
+    (JAX's ``oracle=True``)."""
     _check_paged(cfg)
     if tokens.shape[0] != 1:
         raise ValueError("prefill is per admitted sequence (B = 1)")
@@ -351,7 +427,7 @@ def paged_prefill(params: Params, tokens: torch.Tensor, kv_state: dict,
         x = x + L.attn_prefill_bucketed(
             lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), kvl,
             page_row, slab_page_ids, q_offset, q_len, cfg, kv_fmt=kv_fmt,
-            acc=acc, call=call, dist=dist)
+            acc=acc, call=call, dist=dist, oracle=oracle)
         z = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + L.mlp_apply(lp["mlp"], z, cfg, dist)
     if not want_logits:
@@ -369,7 +445,8 @@ def paged_prefill(params: Params, tokens: torch.Tensor, kv_state: dict,
 def paged_verify(params: Params, tokens: torch.Tensor, kv_state: dict,
                  page_table: torch.Tensor, positions: torch.Tensor,
                  seq_lens: torch.Tensor, cfg: ModelConfig, *, kv_fmt,
-                 acc: tuple[int, int], dist: Dist = LOCAL) -> torch.Tensor:
+                 acc: tuple[int, int], dist: Dist = LOCAL,
+                 oracle: bool = False) -> torch.Tensor:
     """Speculative-decode verify: ``tokens`` (B, S), the last committed
     token and the k = S - 1 draft proposals of each row, scored in one
     pass, bitwise S sequential ``paged_decode`` steps over the same arena
@@ -389,7 +466,7 @@ def paged_verify(params: Params, tokens: torch.Tensor, kv_state: dict,
         x = x + L.attn_verify_paged(
             lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), kvl,
             page_table, positions, seq_lens, cfg, kv_fmt=kv_fmt, acc=acc,
-            dist=dist)
+            dist=dist, oracle=oracle)
         z = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + L.mlp_apply(lp["mlp"], z, cfg, dist)
     return _unembed(params, x, cfg, dist)

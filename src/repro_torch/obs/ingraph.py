@@ -25,9 +25,11 @@ as in the JAX package, whose collector records no rounding.
 
 ``InGraphTelemetry`` runs the cadence tick: it caches the tagged model's
 step and runs observe -> (on a schedule change) re-plan, as
-``repro_torch.train.loop.run_telemetry_tick`` does.  The JAX package's
-``stats_axis`` mesh reduction and its metrics-registry hook are not ported
-yet (sharding and observability slices).
+``repro_torch.train.loop.run_telemetry_tick`` does; with a ``registry``
+(``obs.metrics``) each tick's controller events are recorded there
+(``record_controller_events``, area ``controller``), as JAX's tick does.
+The JAX package's ``stats_axis`` mesh reduction is not ported yet (ROADMAP
+[dist-train]).
 """
 
 from __future__ import annotations
@@ -160,15 +162,13 @@ class InGraphTelemetry:
     metrics, events, new_model_or_None)``, the re-plan contract of
     ``run_telemetry_tick``.  The tagged model's step is built once and
     cached until the model changes.  The port has no autotuner, so a
-    re-plan has nothing to re-tune.
+    re-plan has nothing to re-tune.  ``registry``: a ``MetricsRegistry``
+    that records each tick's controller events.
     """
 
     def __init__(self, controller, train_cfg, *, seq_len: int,
                  global_batch: int, axis: str | None = None, registry=None):
-        if registry is not None:
-            raise NotImplementedError(
-                "the metrics registry comes with the observability slice "
-                "(ROADMAP [obs])")
+        self.registry = registry
         self.controller = controller
         self.train_cfg = train_cfg
         self.seq_len = seq_len
@@ -197,6 +197,11 @@ class InGraphTelemetry:
         with collecting(collector):
             new_state, metrics = fn(state, batch)
         events = self.controller.observe(step, collector.probes())
+        if self.registry is not None:
+            from repro_torch.obs.metrics import record_controller_events
+
+            record_controller_events(self.registry, events,
+                                     area="controller")
         if not self.controller.dirty:
             return new_state, metrics, events, None
         from repro_torch.models.api import get_model

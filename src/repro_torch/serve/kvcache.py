@@ -264,6 +264,9 @@ class SwapStore:
     def __init__(self):
         self._entries: dict[int, tuple[dict[str, np.ndarray], int]] = {}
 
+    def __len__(self) -> int:
+        return len(self._entries)
+
     def put(self, sid: int, blob: dict[str, np.ndarray],
             n_tokens: int) -> None:
         if sid in self._entries:
@@ -327,6 +330,12 @@ class PagePool:
 
     def pages(self, sid: int) -> list[int]:
         return list(self._pages[sid])
+
+    def can_extend(self, sid: int, n_new: int = 1) -> bool:
+        """Whether ``sid`` can grow by ``n_new`` tokens from the free
+        pages."""
+        need = self.pages_for(self._lens[sid] + n_new) - len(self._pages[sid])
+        return need <= self.free_pages
 
     def allocate(self, sid: int, n_tokens: int) -> list[int]:
         """Claim pages for a new sequence of ``n_tokens`` cached tokens."""

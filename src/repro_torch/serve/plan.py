@@ -23,8 +23,10 @@ from repro_torch.kernels.attention import AttnCall
 from repro_torch.quant.formats import FPFormat
 from repro_torch.telemetry.stats import predicted_kernel_vrr
 
-__all__ = ["AttnBucket", "AttnPlan", "certified_log_v", "decode_m_acc",
-           "min_e_acc", "extra_carry_events", "max_carry_resumptions",
+__all__ = ["AttnBucket", "AttnPlan", "certified_log_v",
+           "certification_stats", "reset_certification_stats",
+           "decode_m_acc", "min_e_acc", "extra_carry_events",
+           "max_carry_resumptions",
            "plan_attention", "derive_v_hint", "DEFAULT_V_HINT",
            "VerifyPlan", "plan_verify"]
 
@@ -117,13 +119,42 @@ def extra_carry_events(page_size: int, prefill_chunk: int | None,
     return 0 if prefill_chunk % page_size == 0 else resumptions
 
 
+# The knee certification is a pure function of a bucket's geometry, so it
+# is memoized process-wide, as JAX's: the monitor and the planner's width
+# search evaluate it once per (bucket, width, resumptions), and the
+# counters let a test pin that.
+_CERT_MEMO: dict[tuple, float] = {}
+_CERT_STATS = {"evaluations": 0, "hits": 0}
+
+
 def certified_log_v(m_acc: int, m_p: int, page_size: int, max_ctx: int,
                     extra_events: int = 0) -> float:
-    """Knee statistic ``v = n2 (1 - VRR)`` at a bucket's worst case."""
+    """Knee statistic ``v = n2 (1 - VRR)`` at a bucket's worst case,
+    memoized on the whole geometry key."""
+    key = (m_acc, m_p, page_size, max_ctx, extra_events)
+    hit = _CERT_MEMO.get(key)
+    if hit is not None:
+        _CERT_STATS["hits"] += 1
+        return hit
+    _CERT_STATS["evaluations"] += 1
     n2 = max(-(-max_ctx // page_size), 1) + max(extra_events, 0)
-    if n2 <= 1:
-        return 0.0
-    return n2 * (1.0 - predicted_kernel_vrr(m_acc, m_p, page_size, n2))
+    v = 0.0 if n2 <= 1 else n2 * (1.0 - predicted_kernel_vrr(
+        m_acc, m_p, page_size, n2))
+    _CERT_MEMO[key] = v
+    return v
+
+
+def certification_stats() -> dict:
+    """Copy of the memo's counters (``evaluations``: closed-form
+    computations, ``hits``: memo hits)."""
+    return dict(_CERT_STATS)
+
+
+def reset_certification_stats() -> None:
+    """Zero the counters and drop the memo (a cold start)."""
+    _CERT_MEMO.clear()
+    _CERT_STATS["evaluations"] = 0
+    _CERT_STATS["hits"] = 0
 
 
 def decode_m_acc(ctx: int, page_size: int, m_p: int, *,

@@ -30,8 +30,13 @@ breach, the measured swamp rate at or over ``swamp_threshold`` or the
 closed-form knee test of the context's bucket, bumps that bucket's m_acc
 (``AttnPlan.bumped``) before the context swamps; the bucket is the one of
 the grown context.  Each tick logs one event (``self.events``, and
-``monitor_log`` as JSON lines).  Tracing, metrics and speculative decoding
-are not ported yet; speculative decoding is ``serve.spec``.
+``monitor_log`` as JSON lines).  Speculative decoding is ``serve.spec``.
+
+Reservation admission (``reserve_admission``), EOS (``eos_id``), the
+planner's ``v_hint``, the executor's attention ``oracle``, request spans
+(``tracer``), the metrics registry (``metrics``) and the ring-buffered
+``events`` follow JAX's engine; ``serve.sim.SimExecutor`` replays the
+same engine on a host-only stamped arena.
 
 Tensor-parallel serving (``ShardedModelExecutor``): each rank of a
 ``torch.distributed`` group runs the same engine schedule in lockstep on
@@ -64,7 +69,7 @@ from repro_torch.models.api import (
     VerifyRequest,
     get_paged_model,
 )
-from repro_torch.obs.sink import jsonl_append
+from repro_torch.obs.sink import RingBuffer, jsonl_append
 from repro_torch.quant.formats import FPFormat
 from repro_torch.serve.kvcache import (
     PagedKVConfig,
@@ -137,6 +142,7 @@ class _Swapped:
 
     seq: _Seq
     n_tokens: int
+    final_pages: int | None = None   # its reservation (reservation mode)
 
 
 def measure_decode_vrr(kv_state, page_row, seq_len: int, *, cfg,
@@ -302,7 +308,9 @@ class ModelExecutor:
     later call copies its inputs into the graph's static int32 buffer
     (one host-to-device copy), replays it and reads the ``max_batch``
     greedy tokens, formed by the argmax inside the graph (one
-    device-to-host read).  All graphs of an executor share one memory
+    device-to-host read).  ``oracle=True`` (JAX's executor flag) runs the
+    attention through D's and P's plain versions, on any device, as the
+    logit-exactness oracle; it is eager.  All graphs of an executor share one memory
     pool.  A capture that fails raises; nothing falls back to the eager
     step.  ``graphs=False`` on the card is the eager executor, kept for
     the bitwise gates: the same steps, launched call by call, with P's
@@ -320,17 +328,22 @@ class ModelExecutor:
     dist: Dist = LOCAL
 
     def __init__(self, model, params, pc: PagedKVConfig, *, kv_fmt: FPFormat,
-                 max_batch: int = 8, device="cuda", graphs: bool | None = None):
+                 max_batch: int = 8, device="cuda", graphs: bool | None = None,
+                 oracle: bool = False):
         self.cfg = model.cfg
         self.params = params
         self.pc = pc
         self.kv_fmt = kv_fmt
         self.max_batch = max_batch
+        self.oracle = bool(oracle)
         self.device = resolve_device(device)
         cuda = self.device.type == "cuda"
         if graphs and not cuda:
             raise ValueError("CUDA graphs need a CUDA device")
-        self.graphs = cuda if graphs is None else bool(graphs)
+        if graphs and self.oracle:
+            raise ValueError("the oracle executor is eager")
+        self.graphs = (cuda and not self.oracle) if graphs is None \
+            else bool(graphs)
         # P's geometry as device tensors, except on the eager executor on
         # the card (its launch-argument entry)
         self.device_geometry = self.graphs or not cuda
@@ -351,7 +364,7 @@ class ModelExecutor:
         and arena (a graph's pointers).  Subclasses add their own."""
         return ("model-executor", self.cfg, self.kv_fmt, self.max_batch,
                 self.pc, _device_topology(self.device), self.graphs,
-                _storage(self.params), _storage(self.kv))
+                self.oracle, _storage(self.params), _storage(self.kv))
 
     # ------------------------------ dispatch -------------------------------
     def _pool(self):
@@ -406,7 +419,7 @@ class ModelExecutor:
             logits = self.pm.decode(
                 self.params, tok.long().reshape(b, 1), self.kv,
                 pt.reshape(b, width), pos, sl, kv_fmt=self.kv_fmt, acc=acc,
-                dist=self.dist)
+                dist=self.dist, oracle=self.oracle)
             return {"logits": logits,
                     "tokens": torch.argmax(logits[:, 0], dim=-1)}
 
@@ -427,7 +440,7 @@ class ModelExecutor:
             logits = self.pm.prefill(
                 self.params, toks.long().reshape(1, slab_w), self.kv, row,
                 slab.long(), *geom, kv_fmt=self.kv_fmt, acc=acc, call=call,
-                want_logits=final, dist=self.dist)
+                want_logits=final, dist=self.dist, oracle=self.oracle)
             if logits is None:
                 return {"logits": None, "tokens": None}
             return {"logits": logits,
@@ -444,7 +457,7 @@ class ModelExecutor:
             logits = self.pm.verify(
                 self.params, tok.long().reshape(b, s_v), self.kv,
                 pt.reshape(b, width), pos, sl, kv_fmt=self.kv_fmt, acc=acc,
-                dist=self.dist)
+                dist=self.dist, oracle=self.oracle)
             return {"logits": logits,
                     "tokens": torch.argmax(logits, dim=-1)}
 
@@ -761,15 +774,36 @@ class ShardedModelExecutor(ModelExecutor):
 
 
 class ServeEngine:
-    """Continuous-batching serving over one model's paged KV arena."""
+    """Continuous-batching serving over one model's paged KV arena.
+
+    As JAX's engine: ``eos_id`` ends a sequence at that token;
+    ``reserve_admission`` admits a request only when the free pool less
+    every active sequence's outstanding reservation covers its final
+    length (no preemption; the baseline the bursty-utilization comparison
+    measures against); ``v_hint`` is the planner's KV-magnitude bound;
+    ``oracle`` the executor's attention oracle.  Observability is opt-in:
+    ``tracer`` (``obs.trace.Tracer``) records each request's span tree
+    and the engine's ``decode_step`` spans, ``metrics`` (an
+    ``obs.metrics.MetricsRegistry``) its counters, gauges and TTFT/TPOT
+    histograms; both are host records, so with or without them the same
+    kernels run on the same inputs.  ``events`` (the monitor's ticks,
+    preemptions, restores, speculative rounds) is a ring buffer of
+    ``events_capacity`` (None: unbounded).  ``model`` may be None with an
+    ``executor`` of its own (the simulation's ``serve.sim.SimExecutor``).
+    """
 
     def __init__(self, model, params, *, n_pages: int, page_size: int,
                  kv_fmt: FPFormat | None = None, max_batch: int = 8,
+                 eos_id: int | None = None,
                  prefill_chunk_tokens: int | None = None,
+                 reserve_admission: bool = False,
                  plan: AttnPlan | None = None, monitor_cadence: int = 0,
                  monitor_log: str | None = None,
-                 swamp_threshold: float = 0.15, seed: int = 0,
-                 executor=None, device="cuda", warm_start: bool = False):
+                 swamp_threshold: float = 0.15,
+                 v_hint: float | None = None, oracle: bool = False,
+                 seed: int = 0, executor=None, device="cuda",
+                 warm_start: bool = False, tracer=None, metrics=None,
+                 events_capacity: int | None = 4096):
         if prefill_chunk_tokens is not None and (
                 prefill_chunk_tokens <= 0
                 or prefill_chunk_tokens % page_size != 0):
@@ -777,16 +811,23 @@ class ServeEngine:
                 f"prefill_chunk_tokens {prefill_chunk_tokens} must be a "
                 f"positive multiple of page_size {page_size}: slab "
                 "boundaries must land on page (carry-block) edges")
-        self.cfg = model.cfg
+        self.model = model
+        self.cfg = model.cfg if model is not None else None
         self.kv_fmt = kv_fmt or FPFormat(e=5, m=2)
         self.page_size = page_size
         self.n_pages = n_pages
-        self.pc = PagedKVConfig.for_model(self.cfg, n_pages=n_pages,
-                                          page_size=page_size,
-                                          kv_fmt=self.kv_fmt)
-        self.executor = executor or ModelExecutor(
-            model, params, self.pc, kv_fmt=self.kv_fmt, max_batch=max_batch,
-            device=device)
+        self.tokens_capacity = (n_pages - 1) * page_size
+        # the whole arena's config (a tensor-parallel executor holds its
+        # rank's slice); the simulation's executor has none
+        self.pc = (PagedKVConfig.for_model(self.cfg, n_pages=n_pages,
+                                           page_size=page_size,
+                                           kv_fmt=self.kv_fmt)
+                   if self.cfg is not None else getattr(executor, "pc", None))
+        if executor is None:
+            executor = ModelExecutor(
+                model, params, self.pc, kv_fmt=self.kv_fmt,
+                max_batch=max_batch, device=device, oracle=oracle)
+        self.executor = executor
         # a tensor-parallel executor gives its rank count: the engine then
         # allocates through a ShardedPagePool (one allocator, a mirrored
         # pool a rank) and plans for the cross-rank carry merge
@@ -796,25 +837,35 @@ class ServeEngine:
                      if self.tp_shards > 1 else PagePool(n_pages, page_size))
         self.store = SwapStore()
         self.plan = plan or plan_attention(
-            self.pc.tokens_capacity, page_size,
+            self.tokens_capacity, page_size,
             prefill_chunk_tokens=prefill_chunk_tokens,
-            tp_shards=self.tp_shards)
+            tp_shards=self.tp_shards, v_hint=v_hint)
         self.max_batch = max_batch
+        self.eos_id = eos_id
         self.prefill_chunk = prefill_chunk_tokens
+        self.reserve_admission = reserve_admission
         self.monitor_cadence = monitor_cadence
         self.monitor_log = monitor_log
         self.swamp_threshold = swamp_threshold
+        self.oracle = oracle
         # the monitor's query draws, on the host (the JAX engine splits a
         # PRNGKey(seed)); one (1, H, dh) query a tick
         self._gen = torch.Generator().manual_seed(seed)
-        self.events: list[dict] = []
-        self._decode_steps = 0
+
+        self.tracer = tracer
+        self.metrics = metrics
+        self._spans: dict[int, dict] = {}   # rid -> {root, queued, swapped}
+        if metrics is not None:
+            self._init_metrics(metrics)
 
         self.pending: deque[Request] = deque()
         self.active: dict[int, _Seq] = {}
         self.swapped: dict[int, _Swapped] = {}
         self.finished: dict[int, list[int]] = {}
+        self.events: RingBuffer = RingBuffer(events_capacity)
         self._next_rid = 0
+        self._final_pages: dict[int, int] = {}   # reservation mode only
+        self._decode_steps = 0
         self.steps = 0
         self.decoded_tokens = 0
         self.prefill_tokens = 0
@@ -825,16 +876,86 @@ class ServeEngine:
         if warm_start:
             self.warmup()
 
+    @property
+    def kv(self):
+        """The executor's arena (None for the simulation's)."""
+        return getattr(self.executor, "kv", None)
+
     # ------------------------------ compile cache --------------------------
-    def warmup(self) -> dict:
+    def warmup(self) -> dict | None:
         """Make every certified bucket's prefill and decode signatures up
         front (on the card, capture their graphs), so steady-state serving
-        makes none."""
-        return self.executor.warmup(self.plan, self.prefill_chunk)
+        makes none.  None for an executor without a compile cache (the
+        simulation's)."""
+        fn = getattr(self.executor, "warmup", None)
+        return fn(self.plan, self.prefill_chunk) if fn is not None else None
 
-    def compile_stats(self) -> dict:
-        """The executor's compile-cache counters."""
-        return self.executor.compile_stats()
+    def compile_stats(self) -> dict | None:
+        """The executor's compile-cache counters (None for the
+        simulation's)."""
+        fn = getattr(self.executor, "compile_stats", None)
+        return fn() if fn is not None else None
+
+    # ------------------------------ observability --------------------------
+    def _init_metrics(self, registry) -> None:
+        """Register the engine's metrics on ``registry`` (JAX's names)."""
+        c, g, h = registry.counter, registry.gauge, registry.histogram
+        self._m_tokens = c("repro_serve_tokens_total",
+                           "generated tokens (first token + decode)")
+        self._m_slabs = c("repro_serve_prefill_slabs_total",
+                          "prefill slabs executed")
+        self._m_preempt = c("repro_serve_preemptions_total",
+                            "sequences swapped out under page pressure")
+        self._m_restore = c("repro_serve_restores_total",
+                            "swapped sequences swapped back in")
+        self._m_decode = c("repro_serve_decode_steps_total",
+                           "batched decode steps executed")
+        self._m_done = c("repro_serve_requests_finished_total",
+                         "requests run to completion")
+        self._m_free = g("repro_serve_free_pages", "free KV pages")
+        self._m_active = g("repro_serve_active_sequences",
+                           "resident sequences")
+        self._m_pending = g("repro_serve_pending_requests",
+                            "submitted, not yet admitted")
+        self._m_swapped = g("repro_serve_swapped_sequences",
+                            "preempted sequences awaiting restore")
+        self._m_ttft = h("repro_serve_ttft_seconds",
+                         "time to first token (clock units)")
+        self._m_tpot = h("repro_serve_tpot_seconds",
+                         "mean inter-token gap (clock units)")
+
+    def _obs_token(self, rid: int) -> None:
+        """One emitted token: a ``token`` event on the request's root span
+        and the token counter."""
+        if self.tracer is not None:
+            h = self._spans.get(rid)
+            if h is not None:
+                self.tracer.event(h["root"], "token")
+        if self.metrics is not None:
+            self._m_tokens.inc()
+
+    def _obs_finish(self, rid: int) -> None:
+        """Close the request's span tree and record its TTFT/TPOT."""
+        if self.metrics is not None:
+            self._m_done.inc()
+        if self.tracer is None:
+            return
+        h = self._spans.pop(rid, None)
+        if h is None:
+            return
+        for key in ("queued", "swapped"):
+            child = h.get(key)
+            if child is not None and child.open:
+                self.tracer.end(child)
+        root = self.tracer.end(h["root"],
+                               tokens=len(self.finished.get(rid, ())))
+        if self.metrics is not None:
+            from repro_torch.obs.trace import request_latencies
+
+            for lat in request_latencies([root]):
+                self._m_ttft.observe(lat["ttft"])
+                if lat["tpot"] is not None:
+                    self._m_tpot.observe(lat["tpot"])
 
     # ------------------------------ intake ---------------------------------
     def submit(self, prompt: list[int], max_new: int) -> int:
@@ -846,30 +967,63 @@ class ServeEngine:
         rid = self._next_rid
         self._next_rid += 1
         self.pending.append(Request(rid, list(prompt), max_new))
+        if self.tracer is not None:
+            root = self.tracer.start("request", trace_id=rid,
+                                     prompt_len=len(prompt), max_new=max_new)
+            self._spans[rid] = {
+                "root": root,
+                "queued": self.tracer.start("queued", parent=root),
+                "swapped": None,
+            }
         return rid
 
     # ------------------------------ admission ------------------------------
     def _admit_one(self) -> int | None:
-        """Admit at most one pending request when its first slab's pages
-        fit.  While any sequence is swapped out, nothing new is admitted
-        (restore before admit)."""
+        """Admit at most one pending request: when its first slab's pages
+        fit (optimistic), or, under ``reserve_admission``, when the free
+        pool less the active sequences' outstanding reservations covers its
+        final length.  While any sequence is swapped out, nothing new is
+        admitted (restore before admit)."""
         if not self.pending or self.swapped \
                 or len(self.active) >= self.max_batch:
             return None
         req = self.pending[0]
-        first = min(self.prefill_chunk or len(req.prompt), len(req.prompt))
-        if self.pool.free_pages < self.pool.pages_for(first):
-            return None
+        if self.reserve_admission:
+            need = self.pool.pages_for(len(req.prompt) + req.max_new)
+            if self.pool.free_pages - self._reserved_outstanding() < need:
+                return None
+            self._final_pages[req.rid] = need
+        else:
+            first = min(self.prefill_chunk or len(req.prompt),
+                        len(req.prompt))
+            if self.pool.free_pages < self.pool.pages_for(first):
+                return None
         self.pending.popleft()
         self.active[req.rid] = _Seq(rid=req.rid, tokens=list(req.prompt),
                                     prompt_len=len(req.prompt),
                                     max_new=req.max_new)
+        if self.tracer is not None:
+            h = self._spans.get(req.rid)
+            if h is not None and h["queued"] is not None:
+                self.tracer.end(h["queued"])
+                h["queued"] = None
         return req.rid
+
+    def _reserved_outstanding(self) -> int:
+        """Pages the active sequences may still claim (reservation mode).
+        Held pages convert reservations one for one, so ``free >=
+        reserved`` holds throughout: every admitted sequence can run to its
+        final length."""
+        return sum(
+            max(self._final_pages[sid]
+                - (len(self.pool.pages(sid)) if self.pool.owns(sid) else 0),
+                0)
+            for sid in self.active)
 
     # ------------------------------ preemption -----------------------------
     def preempt(self, rid: int) -> None:
         """Swap one resident sequence out to the host store and queue it for
-        an oldest-first restore."""
+        an oldest-first restore (public, so a harness can force one)."""
         seq = self.active.pop(rid)
         n_tok = 0
         if self.pool.owns(rid):
@@ -877,8 +1031,21 @@ class ServeEngine:
             self.store.put(rid, self.executor.swap_out(rid, self.pool.pages(rid)),
                            n_tok)
             self.pool.release(rid)
-        self.swapped[rid] = _Swapped(seq=seq, n_tokens=n_tok)
+        self.swapped[rid] = _Swapped(
+            seq=seq, n_tokens=n_tok,
+            final_pages=self._final_pages.pop(rid, None))
         self.preemptions += 1
+        self.events.append({
+            "step": self._decode_steps, "event": "preempt", "role": "serve",
+            "rid": rid, "ctx": n_tok, "free_pages": self.pool.free_pages,
+        })
+        if self.tracer is not None:
+            h = self._spans.get(rid)
+            if h is not None:
+                h["swapped"] = self.tracer.start("swapped", parent=h["root"],
+                                                 ctx=n_tok)
+        if self.metrics is not None:
+            self._m_preempt.inc()
 
     def _ensure_pages(self, rid: int, new_len: int) -> bool:
         """Make room to grow ``rid`` to ``new_len`` tokens by preempting
@@ -895,21 +1062,40 @@ class ServeEngine:
         return True
 
     def _restore_one(self) -> int | None:
-        """Re-admit the oldest swapped sequence once its pages fit."""
+        """Re-admit the oldest swapped sequence once its pages fit (under
+        reservation, once its whole entitlement fits again)."""
         if not self.swapped or len(self.active) >= self.max_batch:
             return None
         rid = min(self.swapped)
         ent = self.swapped[rid]
-        if ent.n_tokens and \
+        if ent.final_pages is not None:
+            if self.pool.free_pages - self._reserved_outstanding() \
+                    < ent.final_pages:
+                return None
+        elif ent.n_tokens and \
                 self.pool.free_pages < self.pool.pages_for(ent.n_tokens):
             return None
         if ent.n_tokens:
             pages = self.pool.allocate(rid, ent.n_tokens)
             blob, _ = self.store.take(rid)
             self.executor.swap_in(rid, pages, blob)
+        if ent.final_pages is not None:
+            self._final_pages[rid] = ent.final_pages
         del self.swapped[rid]
         self.active[rid] = ent.seq
         self.restores += 1
+        self.events.append({
+            "step": self._decode_steps, "event": "restore", "role": "serve",
+            "rid": rid, "ctx": ent.n_tokens,
+            "free_pages": self.pool.free_pages,
+        })
+        if self.tracer is not None:
+            h = self._spans.get(rid)
+            if h is not None and h["swapped"] is not None:
+                self.tracer.end(h["swapped"])
+                h["swapped"] = None
+        if self.metrics is not None:
+            self._m_restore.inc()
         return rid
 
     # ------------------------------ prefill --------------------------------
@@ -922,7 +1108,7 @@ class ServeEngine:
         seq = self.active[rid]
         t0 = seq.prefilled
         t1 = min(t0 + (self.prefill_chunk or seq.prompt_len), seq.prompt_len)
-        if not self._ensure_pages(rid, t1):
+        if not self.reserve_admission and not self._ensure_pages(rid, t1):
             return None
         if self.pool.owns(rid):
             self.pool.extend(rid, t1 - t0)
@@ -935,18 +1121,29 @@ class ServeEngine:
         # carry format is the one-shot walk's
         bucket_i, bucket = self.plan.bucket_for(seq.prompt_len)
         call = self.plan.kernel_call(bucket_i, kv_fmt=self.kv_fmt)
+        slab_span = None
+        if self.tracer is not None:
+            h = self._spans.get(rid)
+            slab_span = self.tracer.start(
+                "prefill_slab", parent=h["root"] if h else None,
+                trace_id=rid, t0=t0, t1=t1, final=final, bucket=bucket_i)
         tok = self.executor.prefill(PrefillRequest(
             rid=rid, tokens=tuple(seq.tokens[t0:t1]),
             hist_pages=tuple(pages[:n_hist]),
             slab_pages=tuple(pages[n_hist:]), t0=t0, acc=bucket.acc,
             final=final, bucket_pages=bucket.max_pages(self.page_size),
             slab_width=self.prefill_chunk or bucket.max_ctx, call=call))
+        if slab_span is not None:
+            self.tracer.end(slab_span)
+        if self.metrics is not None:
+            self._m_slabs.inc()
         seq.prefilled = t1
         self.prefill_slabs += 1
         self.prefill_tokens += t1 - t0
         if final:
             seq.tokens.append(int(tok))
             seq.generated.append(int(tok))
+            self._obs_token(rid)
             self._maybe_finish(seq)
         return rid
 
@@ -958,7 +1155,10 @@ class ServeEngine:
             seq = self.active.get(rid)
             if seq is None or seq.in_prefill:
                 continue
-            if not self._ensure_pages(rid, self.pool.seq_len(rid) + 1):
+            if self.reserve_admission:
+                if not self.pool.can_extend(rid):
+                    continue   # unreachable under reservation
+            elif not self._ensure_pages(rid, self.pool.seq_len(rid) + 1):
                 continue
             self.pool.extend(rid)
             batch.append(seq)
@@ -968,17 +1168,28 @@ class ServeEngine:
             max(self.pool.seq_len(s.rid) for s in batch))
         pt = self.pool.page_table([s.rid for s in batch],
                                   bucket.max_pages(self.page_size))
+        step_span = None
+        if self.tracer is not None:
+            # one step batches many requests: no trace id, the rids attr
+            # links it to their trees
+            step_span = self.tracer.start(
+                "decode_step", rids=[s.rid for s in batch])
         next_toks = self.executor.decode(DecodeRequest(
             rids=tuple(s.rid for s in batch),
             last_tokens=tuple(s.tokens[-1] for s in batch),
             page_table=tuple(tuple(r) for r in pt.tolist()),
             positions=tuple(s.pos for s in batch),
             seq_lens=tuple(s.pos + 1 for s in batch), acc=bucket.acc))
+        if step_span is not None:
+            self.tracer.end(step_span)
+        if self.metrics is not None:
+            self._m_decode.inc()
         finished = []
         for seq, tok in zip(batch, next_toks):
             seq.tokens.append(int(tok))
             seq.generated.append(int(tok))
             self.decoded_tokens += 1
+            self._obs_token(seq.rid)
             if self._maybe_finish(seq):
                 finished.append(seq.rid)
         self._decode_steps += 1
@@ -988,10 +1199,14 @@ class ServeEngine:
         return finished
 
     def _maybe_finish(self, seq: _Seq) -> bool:
-        if seq.done:
+        if seq.done or (self.eos_id is not None and seq.generated
+                        and seq.generated[-1] == self.eos_id):
             self.finished[seq.rid] = list(seq.generated)
             self.pool.release(seq.rid)
             del self.active[seq.rid]
+            self._final_pages.pop(seq.rid, None)
+            if self.tracer is not None or self.metrics is not None:
+                self._obs_finish(seq.rid)
             return True
         return False
 
@@ -1005,6 +1220,11 @@ class ServeEngine:
         self.max_concurrent = max(self.max_concurrent, len(self.active))
         prefilled = self._prefill_slab()
         finished = self._decode_batch() if self.active else []
+        if self.metrics is not None:
+            self._m_free.set(self.pool.free_pages)
+            self._m_active.set(len(self.active))
+            self._m_pending.set(len(self.pending))
+            self._m_swapped.set(len(self.swapped))
         return {"admitted": admitted, "restored": restored,
                 "prefilled": prefilled, "finished": finished,
                 "active": len(self.active), "pending": len(self.pending),
@@ -1077,6 +1297,11 @@ class ServeEngine:
         self.events.append(event)
         if self.monitor_log:
             jsonl_append(self.monitor_log, [event])
+        if self.metrics is not None:
+            from repro_torch.obs.metrics import record_controller_events
+
+            record_controller_events(self.metrics, [event],
+                                     area="serve_monitor")
 
     # ------------------------------ accounting -----------------------------
     def utilization(self) -> float:

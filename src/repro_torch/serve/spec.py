@@ -32,7 +32,13 @@ bucket's verify and the rollback scrub, so steady-state speculative
 serving makes no signature.  The counters (``spec_rounds``,
 ``spec_proposed``, ``spec_accepted``, ``spec_emitted``,
 ``spec_rollback_tokens``) and one ``spec_round`` event a row a round
-(``engine.events``) are JAX's; its spans wait for the port of ``obs``.
+(``engine.events``) are JAX's; with a registry they flow through
+``obs.metrics.record_spec_events`` (``repro_serve_spec_*``), and with a
+tracer every round emits ``draft`` and ``verify`` spans and a rejection a
+``rollback`` span under its request.  ``eos_id`` cuts a round's emitted
+tokens at the EOS, and under ``reserve_admission`` a round borrows free
+pages only, returned by the rollback within the step.  The simulation's
+``SimExecutor`` drives both lanes without a model.
 """
 
 from __future__ import annotations
@@ -61,7 +67,7 @@ class SpecDecodeEngine(ServeEngine):
                 "the rollback scrub are not partitioned), as JAX's")
         self.spec_k = spec_k
         ps = self.page_size
-        capacity = self.pc.tokens_capacity
+        capacity = self.tokens_capacity
         if draft_n_pages is None:
             # room for every batch row's proposals in flight, so the draft
             # lane runs short of pages strictly less often than the target
@@ -82,7 +88,8 @@ class SpecDecodeEngine(ServeEngine):
             draft_executor = ModelExecutor(
                 draft_model, draft_params, dpc, kv_fmt=self.kv_fmt,
                 max_batch=self.max_batch, device=self.executor.device,
-                graphs=self.executor.graphs)
+                graphs=self.executor.graphs, oracle=self.oracle)
+        self.draft_model = draft_model
         self.draft_executor = draft_executor
         self.draft_pool = PagePool(draft_n_pages, ps)
         # the draft lane prefills one-shot: its primes are single calls,
@@ -96,6 +103,10 @@ class SpecDecodeEngine(ServeEngine):
         self.spec_rollback_tokens = 0
         self.draft_primes = 0
         self.fallback_rows = 0
+        if self.metrics is not None:
+            self._m_spec_acc = self.metrics.gauge(
+                "repro_serve_spec_acceptance_rate",
+                "cumulative accepted/proposed draft tokens")
         if warm:
             self.warmup()
 
@@ -104,17 +115,20 @@ class SpecDecodeEngine(ServeEngine):
         return self.spec_accepted / max(self.spec_proposed, 1)
 
     # ------------------------------ warmup ---------------------------------
-    def warmup(self) -> dict:
+    def warmup(self) -> dict | None:
         """The base warmup and the speculative lane's signatures: every
         bucket's (bucket, k) verify and the rollback scrub on the target,
         the draft's per-bucket decode, one-shot ``final=False`` prefill and
-        rollback."""
+        rollback (none for executors without a compile cache)."""
         out = super().warmup()
-        self.executor.warmup_verify(self.plan, self.spec_k)
-        self.draft_executor.warmup(self.draft_plan, None,
-                                   prefill_finals=(False,))
-        self.draft_executor.warmup_verify(self.draft_plan, self.spec_k,
-                                          include_verify=False)
+        wv = getattr(self.executor, "warmup_verify", None)
+        if wv is not None:
+            wv(self.plan, self.spec_k)
+        if getattr(self.draft_executor, "warmup", None) is not None:
+            self.draft_executor.warmup(self.draft_plan, None,
+                                       prefill_finals=(False,))
+            self.draft_executor.warmup_verify(self.draft_plan, self.spec_k,
+                                              include_verify=False)
         return out
 
     # ------------------------------ lifecycle ------------------------------
@@ -182,9 +196,15 @@ class SpecDecodeEngine(ServeEngine):
 
     def _reserve_spec(self, seq: _Seq) -> int | None:
         """Claim a row's round: ``k + 1`` target pages (the verify slab) and
-        a ready draft lane.  Returns the draft lane's start, or None."""
+        a ready draft lane.  Under reservation the overshoot borrows free
+        pages only (never another row's entitlement) and the rollback
+        returns them within the step.  Returns the draft lane's start, or
+        None."""
         rid = seq.rid
-        if not self._ensure_pages(
+        if self.reserve_admission:
+            if not self.pool.can_extend(rid, 1 + self.spec_k):
+                return None
+        elif not self._ensure_pages(
                 rid, self.pool.seq_len(rid) + 1 + self.spec_k):
             return None
         d0 = self._draft_ready(seq)
@@ -202,7 +222,9 @@ class SpecDecodeEngine(ServeEngine):
             return 0
         pages_old = pool.pages(rid)
         pool.rollback_seq_len(rid, keep)
-        executor.rollback(rid, pages_old, keep, old)
+        fn = getattr(executor, "rollback", None)
+        if fn is not None:
+            fn(rid, pages_old, keep, old)
         return old - keep
 
     # ------------------------------ decode ---------------------------------
@@ -222,7 +244,10 @@ class SpecDecodeEngine(ServeEngine):
                 if d0 is not None:
                     spec.append((seq, d0))
                     continue
-            if not self._ensure_pages(rid, self.pool.seq_len(rid) + 1):
+            if self.reserve_admission:
+                if not self.pool.can_extend(rid):
+                    continue
+            elif not self._ensure_pages(rid, self.pool.seq_len(rid) + 1):
                 continue
             if self.active.get(rid) is None:
                 continue
@@ -288,12 +313,20 @@ class SpecDecodeEngine(ServeEngine):
         k = self.spec_k
         rows = [s for s, _ in batch]
         rids = [s.rid for s in rows]
-        props, _ = self._propose(batch)
+        draft_span = None
+        if self.tracer is not None:
+            draft_span = self.tracer.start("draft", rids=rids, k=k)
+        props, steps = self._propose(batch)
+        if draft_span is not None:
+            self.tracer.end(draft_span, steps=steps)
         # the target pool already covers pos + k + 1 a row (_reserve_spec)
         _, bucket = self.verify_plan.bucket_for(
             max(self.pool.seq_len(r) for r in rids))
         width = bucket.max_pages(self.page_size)
         pt = self.pool.page_table(rids, width)
+        verify_span = None
+        if self.tracer is not None:
+            verify_span = self.tracer.start("verify", rids=rids, k=k)
         outs = self.executor.verify(VerifyRequest(
             rids=tuple(rids),
             tokens=tuple((s.tokens[-1], *props[s.rid]) for s in rows),
@@ -301,7 +334,12 @@ class SpecDecodeEngine(ServeEngine):
             positions=tuple(s.pos for s in rows),
             seq_lens=tuple(s.pos + 1 for s in rows),
             acc=bucket.acc))
+        if verify_span is not None:
+            self.tracer.end(verify_span)
+        if self.metrics is not None:
+            self._m_decode.inc()
         finished: list[int] = []
+        events = []
         for seq, u in zip(rows, outs):
             rid = seq.rid
             p = props[rid]
@@ -311,6 +349,8 @@ class SpecDecodeEngine(ServeEngine):
             # u[:m] are the m accepted proposals; u[m] is the target's own
             # next token after them, so every round commits at least one
             emit = u[:m + 1][:seq.max_new - len(seq.generated)]
+            if self.eos_id is not None and self.eos_id in emit:
+                emit = emit[:emit.index(self.eos_id) + 1]
             n_e = len(emit)
             old_t = self.pool.seq_len(rid)           # pos + k + 1
             keep_t = seq.pos + n_e
@@ -318,16 +358,22 @@ class SpecDecodeEngine(ServeEngine):
             old_d = self.draft_pool.seq_len(rid)     # pos + k
             self._rollback(self.draft_pool, self.draft_executor, rid,
                            min(old_d, keep_t), old_d)
+            if rb and self.tracer is not None:
+                h = self._spans.get(rid)
+                self.tracer.end(self.tracer.start(
+                    "rollback", parent=h["root"] if h else None,
+                    trace_id=rid, depth=rb, ctx=keep_t))
             for t in emit:
                 seq.tokens.append(int(t))
                 seq.generated.append(int(t))
                 self.decoded_tokens += 1
+                self._obs_token(rid)
             self.spec_rounds += 1
             self.spec_proposed += k
             self.spec_accepted += m
             self.spec_emitted += n_e
             self.spec_rollback_tokens += rb
-            self.events.append({
+            events.append({
                 "step": self._decode_steps, "event": "spec_round",
                 "role": "serve", "rid": rid, "k": k, "proposed": k,
                 "accepted": m, "emitted": n_e, "rollback_depth": rb,
@@ -335,6 +381,12 @@ class SpecDecodeEngine(ServeEngine):
             })
             if self._maybe_finish(seq):
                 finished.append(rid)
+        self.events.extend(events)
+        if self.metrics is not None:
+            from repro_torch.obs.metrics import record_spec_events
+
+            record_spec_events(self.metrics, events)
+            self._m_spec_acc.set(self.acceptance_rate())
         return finished
 
     def _plain_decode(self, batch: list[_Seq]) -> list[int]:
@@ -345,17 +397,26 @@ class SpecDecodeEngine(ServeEngine):
             max(self.pool.seq_len(s.rid) for s in batch))
         width = bucket.max_pages(self.page_size)
         pt = self.pool.page_table([s.rid for s in batch], width)
+        step_span = None
+        if self.tracer is not None:
+            step_span = self.tracer.start(
+                "decode_step", rids=[s.rid for s in batch])
         next_toks = self.executor.decode(DecodeRequest(
             rids=tuple(s.rid for s in batch),
             last_tokens=tuple(s.tokens[-1] for s in batch),
             page_table=tuple(tuple(r) for r in pt.tolist()),
             positions=tuple(s.pos for s in batch),
             seq_lens=tuple(s.pos + 1 for s in batch), acc=bucket.acc))
+        if step_span is not None:
+            self.tracer.end(step_span)
+        if self.metrics is not None:
+            self._m_decode.inc()
         finished = []
         for seq, tok in zip(batch, next_toks):
             seq.tokens.append(int(tok))
             seq.generated.append(int(tok))
             self.decoded_tokens += 1
+            self._obs_token(seq.rid)
             if self._maybe_finish(seq):
                 finished.append(seq.rid)
         return finished

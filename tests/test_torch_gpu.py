@@ -2302,3 +2302,113 @@ def test_verify_bitwise_sequential_decode_on_the_card(dev):
             assert torch.equal(lv[:, j], lj[:, 0]), j
     for k in kv:
         assert torch.equal(kv[k], kv_seq[k]), k
+
+
+def test_legacy_decode_step_on_the_card(dev):
+    """The legacy static batch at 2 layers of qwen2-1.5b: the prompt
+    replayed through ``decode_step`` (positions a device tensor) bitwise
+    the training forward's logits on the card, ``prefill`` bitwise its last
+    row, every GEMM through G (its launches counted), and the cache written
+    at the replayed positions only."""
+    model, params = _serve_smoke(dev)
+    cfg = model.cfg
+    b, s = 4, 32
+    toks = torch.from_numpy(np.random.RandomState(6).randint(
+        0, cfg.vocab_size, (b, s))).to(dev)
+    pos = torch.arange(s + 4, dtype=torch.int32, device=dev)
+    n0 = qmatmul_fused.launches
+    with torch.no_grad():
+        fwd = model.forward(params, {"tokens": toks}, cfg, remat=False)
+        pre = model.prefill(params, {"tokens": toks}, cfg)
+        state = model.init_decode_state(cfg, b, s + 4, dev)
+        rows = []
+        for i in range(s):
+            logits, state = model.decode_step(params, toks[:, i:i + 1],
+                                              state, pos[i], cfg)
+            rows.append(logits[:, 0])
+    torch.cuda.synchronize()
+    replay = torch.stack(rows, dim=1)
+    assert torch.equal(replay, fwd)
+    assert torch.equal(pre, fwd[:, -1])
+    # per step: 7 layer GEMMs a layer and the head
+    assert qmatmul_fused.launches - n0 >= s * (7 * cfg.n_layers + 1)
+    for name in ("k", "v"):
+        t = state["layers"][name]
+        assert bool(t[:, :, :s].abs().sum(dim=(0, 2, 3, 4)).gt(0).all())
+        assert not bool(t[:, :, s:].any())
+
+
+def test_obs_on_engine_bitwise_obs_off_on_the_card(dev):
+    """The engine with a tracer and a metrics registry, eager and on CUDA
+    graphs, at 2 layers of qwen2-1.5b: streams and arena bitwise the same
+    engine without them; one request root a request; the token counter the
+    tokens generated."""
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.trace import Tracer, span_forest
+    from repro_torch.serve.kvcache import PagedKVConfig
+    from repro_torch.serve.scheduler import ModelExecutor, ServeEngine
+
+    model, params = _serve_smoke(dev)
+    rng = np.random.RandomState(8)
+    prompts = [rng.randint(0, model.cfg.vocab_size, n).tolist()
+               for n in (17, 40, 70)]
+    for graphs in (False, True):
+        runs = []
+        for obs in (False, True):
+            pc = PagedKVConfig.for_model(model.cfg, n_pages=24, page_size=16)
+            ex = ModelExecutor(model, params, pc, kv_fmt=FP8_152,
+                               max_batch=4, device=dev, graphs=graphs)
+            tracer = Tracer() if obs else None
+            reg = MetricsRegistry() if obs else None
+            eng = ServeEngine(model, params, n_pages=24, page_size=16,
+                              max_batch=4, prefill_chunk_tokens=32,
+                              executor=ex, device=dev, tracer=tracer,
+                              metrics=reg)
+            rids = [eng.submit(p, 6) for p in prompts]
+            out = eng.run()
+            torch.cuda.synchronize()
+            runs.append(([out[r] for r in rids],
+                         {k: v.clone() for k, v in ex.kv.items()}))
+        (s0, a0), (s1, a1) = runs
+        assert s0 == s1
+        for k in a0:
+            assert torch.equal(a0[k], a1[k]), (graphs, k)
+        roots = [n for n in span_forest(tracer.spans).values()
+                 if n["span"]["name"] == "request"]
+        assert len(roots) == len(prompts)
+        tokens = reg.counter("repro_serve_tokens_total").value()
+        assert tokens == sum(len(x) for x in s1)
+
+
+def test_oracle_executor_streams_equal_the_kernels(dev):
+    """``ModelExecutor(oracle=True)`` (JAX's flag: the attention through
+    D's and P's plain versions, eager) at 2 layers of qwen2-1.5b: streams
+    and arena bitwise the kernels' eager executor, and no D or P launch."""
+    from repro_torch.kernels.attention import flash_prefill_paged_geom
+    from repro_torch.serve.kvcache import PagedKVConfig
+    from repro_torch.serve.scheduler import ModelExecutor, ServeEngine
+
+    model, params = _serve_smoke(dev)
+    prompts = [np.random.RandomState(9).randint(
+        0, model.cfg.vocab_size, n).tolist() for n in (20, 45)]
+    runs = []
+    for oracle in (False, True):
+        pc = PagedKVConfig.for_model(model.cfg, n_pages=16, page_size=16)
+        ex = ModelExecutor(model, params, pc, kv_fmt=FP8_152, max_batch=4,
+                           device=dev, graphs=False, oracle=oracle)
+        eng = ServeEngine(model, params, n_pages=16, page_size=16,
+                          max_batch=4, executor=ex, device=dev)
+        n0 = (paged_attn_decode.launches, flash_prefill_paged.launches,
+              flash_prefill_paged_geom.launches)
+        rids = [eng.submit(p, 5) for p in prompts]
+        out = eng.run()
+        torch.cuda.synchronize()
+        n1 = (paged_attn_decode.launches, flash_prefill_paged.launches,
+              flash_prefill_paged_geom.launches)
+        runs.append(([out[r] for r in rids],
+                     {k: v.clone() for k, v in ex.kv.items()},
+                     [b - a for a, b in zip(n0, n1)]))
+    assert runs[0][0] == runs[1][0]
+    for k in runs[0][1]:
+        assert torch.equal(runs[0][1][k], runs[1][1][k]), k
+    assert runs[0][2][0] > 0 and sum(runs[1][2]) == 0

@@ -852,7 +852,7 @@ def test_engine_monitor_rebuckets_on_breach(smoke_serving, tmp_path):
     assert rebuckets, f"no rebucket event in {eng.events}"
     assert rebuckets[0]["source"] in ("measured", "both")
     assert eng.plan.buckets[0].m_acc > 1
-    assert [json.loads(ln) for ln in open(log)] == eng.events
+    assert [json.loads(ln) for ln in open(log)] == list(eng.events)
     assert {"v_hint_plan", "v_hint_measured", "swamp_threshold"} <= \
         set(eng.events[0])
 
@@ -892,5 +892,5 @@ def test_engine_monitor_without_breach_keeps_the_streams(smoke_serving):
     on, streams_on = run(monitor_cadence=2)
     off, streams_off = run()
     assert on.events and all(e["event"] == "ok" for e in on.events)
-    assert off.events == []
+    assert list(off.events) == []
     assert streams_on == streams_off
