@@ -3251,9 +3251,9 @@ def phase_train_replan(dev) -> dict:
                K9_NAME: s * n_qdot}}
     make_step, built = LT.make_train_step, []
 
-    def recording(model, tc):   # the plan of every step the launcher builds
+    def recording(model, tc, *rest):   # the plan of every step it builds
         built.append(model.cfg)
-        return make_step(model, tc)
+        return make_step(model, tc, *rest)
 
     counters = _train_counters()
     out = {}
@@ -5587,17 +5587,6 @@ def phase_tp_kernels(cfg, dev, plan) -> dict:
     return dict(D=d, P=p["carry"], resume=p["resume"])
 
 
-def _tp_counters():
-    from repro_torch.kernels.attention import flash_prefill_paged, paged_attn_decode
-    from repro_torch.kernels.fused import qmatmul_fused
-
-    return {"qmatmul_fused": (qmatmul_fused, "launches"),
-            "paged_attn_decode": (paged_attn_decode, "launches"),
-            D_CARRY_NAME: (paged_attn_decode, "carry_launches"),
-            "flash_prefill_paged": (flash_prefill_paged, "launches"),
-            P_CARRY_NAME: (flash_prefill_paged, "carry_launches")}
-
-
 def _tp_int8_wire(cfg, dist, dev) -> dict:
     """The int8 logit wire against the gather wire on a lattice input: x
     and the head in {-1, 0, 1} (sparse), rank 0's partial logit (0, 0)
@@ -5637,51 +5626,36 @@ def _tp_int8_wire(cfg, dist, dev) -> dict:
                 psum=torch.equal(wire, psum(parts, dist)))
 
 
-def tp_rank(rank: int, size: int, init_method: str, jobs: list, cfg,
-            device: str) -> dict:
-    """One rank of the ``[tp]`` engine phase on ``device`` (card 0, gloo):
-    which gloo collectives take CUDA tensors directly, the int8 wire on a
-    lattice input, then each job through ``serve_job`` with the kernel
-    counts set to 0 just before and read just after."""
+def tp_setup(cfg, dist, dev) -> dict:
+    """What each ``[tp]`` rank runs before its jobs (``run_tp``'s
+    ``setup``): which gloo collectives take CUDA tensors directly, and the
+    int8 wire on a lattice input."""
     import torch.distributed as tdist
 
-    from repro_torch.dist import init_group
-    from repro_torch.launch.serve import serve_job
-
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    dist = init_group(rank, size, init_method, "gloo", device=dev)
     probe = {}
     for name, fn in (("all_reduce", lambda t: tdist.all_reduce(t)),
                      ("all_gather", lambda t: tdist.all_gather(
-                         [torch.empty_like(t) for _ in range(size)], t))):
+                         [torch.empty_like(t) for _ in range(dist.size)], t))):
         try:
             fn(torch.ones(4, device=dev))
             probe[name] = f"takes {dev.type} tensors"
         except Exception as e:  # noqa: BLE001 -- reported
             probe[name] = f"refuses {dev.type} tensors ({type(e).__name__})"
-    out = dict(gloo=probe, int8=_tp_int8_wire(cfg, dist, dev), runs=[])
-    counters = _tp_counters()
-    for job in jobs:
-        zero_counts(counters)
-        r = serve_job(job, dist, dev)
-        r["launches"] = read_counts(counters)
-        out["runs"].append(r)
-    return out
+    return dict(gloo=probe, int8=_tp_int8_wire(cfg, dist, dev))
 
 
 def phase_tp_engine(cfg, dev, prompts) -> dict:
     """2 ranks (gloo) on the one card serve the serve cell's prompts at
-    full width and depth (``TP_GEN`` tokens each): one-shot through the
-    launcher (``launch/serve.py
-    --serve-mesh 2``) and with 64-token slabs and a forced preemption
-    through ``serve_job`` (the kernel counts read there); each against the
+    full width and depth (``TP_GEN`` tokens each), one-shot and with
+    64-token slabs and a forced preemption, both through the launcher's
+    own ``--serve-mesh 2`` entry (``launch/serve.py``'s ``main``, whose
+    ``run_tp`` starts the ranks once for its job and the slab job; each
+    job's kernel counts read by ``serve_job``, from 0 at its start); each
+    against the
     single-device engine under the same ``tp_shards=2`` plan: tokens, the
     logits of every decode step (sha256) and of one bitwise, the arena
     gathered from the ranks byte for byte; the pools checked
     (``ShardedPagePool.check_invariants`` in ``serve_job``)."""
-    from repro_torch.dist import spawn
     from repro_torch.launch import serve as S
     from repro_torch.serve.plan import plan_attention
 
@@ -5701,24 +5675,24 @@ def phase_tp_engine(cfg, dev, prompts) -> dict:
     t_single = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    # the launcher's own --serve-mesh entry, its ranks started once for its
+    # one-shot job and the slab job
     argv = ["--arch", "qwen2-1.5b", "--policy", "predicted", "--chunk", "64",
             "--prompt-lens", ",".join(map(str, PROMPT_LENS)), "--gen",
             str(TP_GEN), "--page-size", str(PAGE), "--max-batch", str(MAX_BATCH),
             "--seed", str(SEED), "--serve-mesh", str(TP_RANKS),
             "--device", dev.type]
-    launched = S.main(argv)["rank0"]
-    t_launcher = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ranks = spawn(tp_rank, TP_RANKS, ([chunk_job], cfg, str(dev)),
-                  timeout_s=600)
-    t_spawn = time.perf_counter() - t0
+    out = S.main_tp(S.parse_args(argv), [chunk_job],
+                    functools.partial(tp_setup, cfg))
+    t_ranks = time.perf_counter() - t0
+    setups = out["setups"]
     print(f"[tp] engine: single device {t_single:.1f}s (2 runs), the "
-          f"launcher's 2 ranks {t_launcher:.1f}s, chip_smoke's 2 ranks "
-          f"{t_spawn:.1f}s (process start included); gloo: "
-          f"{ranks[0]['gloo']}", flush=True)
-    runs = (("one-shot (launch/serve.py --serve-mesh 2)", single[0], launched),
+          f"launcher's 2 ranks {t_ranks:.1f}s for both jobs (process start "
+          f"included); gloo: {setups[0]['gloo']}", flush=True)
+    runs = (("one-shot (launch/serve.py --serve-mesh 2)", single[0],
+             out["rank0"]),
             (f"{SLAB}-token slabs, forced preemption", single[1],
-             ranks[0]["runs"][0]))
+             out["extra"][0]))
     for label, one, tp in runs:
         check(tp["tp_shards"] == TP_RANKS, f"{label}: not {TP_RANKS} ranks")
         check(tp["tokens"] == one["tokens"],
@@ -5743,15 +5717,15 @@ def phase_tp_engine(cfg, dev, prompts) -> dict:
               f"ranks sharing one card (not a TP speed figure); KV "
               f"bytes/token {tp['kv_bytes_per_token']:.1f}, a rank "
               f"{tp['kv_bytes_per_token_shard']:.1f}", flush=True)
-    chunked = ranks[0]["runs"][0]
+    chunked = out["extra"][0]
     check(chunked["preemptions"] >= 1 and chunked["restores"] >= 1,
           "[tp] the forced preemption did not happen")
-    for r in ranks:
+    for r in setups:
         check(r["int8"]["logits"] and r["int8"]["psum"],
               f"[tp] the int8 wire is not bitwise on the lattice input: "
               f"{r['int8']}")
     print(f"[tp] int8 logit wire on the lattice input: logits bitwise the "
-          f"gather wire's (max |logit| {ranks[0]['int8']['max_logit']:.0f}); "
+          f"gather wire's (max |logit| {setups[0]['int8']['max_logit']:.0f}); "
           f"compressed_psum bitwise the f32 sum on integer partials",
           flush=True)
     launches = chunked["launches"]
@@ -5764,6 +5738,309 @@ def phase_tp_engine(cfg, dev, prompts) -> dict:
     return dict(launches=launches,
                 decode_ms=[1e3 * r["decode_s"] / len(r["logit_hashes"])
                            for r in (single[1], chunked)])
+
+
+# --------------------------------------------------------------------------
+# phase 13: training over a mesh's data axis ([dist-train])
+# --------------------------------------------------------------------------
+
+DIST_SHAPE = {"data": 2, "model": 1}      # --mesh 2x1: 2 ranks, one card
+B_KSLICE_NAME = "qmatmul_bwd_pair (K-slice)"
+K9_KSLICE_NAME = "qmatmul_bwd_pair(collect_stats) (K-slice)"
+DIST_RECORD = ("step", "loss", "grad_norm", "lr", "skipped", "loss_scale")
+
+
+def _dist_argv(*extra) -> list:
+    """The launcher's arguments of the [dist-train] runs: qwen2-1.5b at
+    full width, the predicted plan, 8 x 64 tokens, 3 steps."""
+    return ["--arch", "qwen2-1.5b", "--policy", "predicted", "--chunk",
+            "64", "--steps", "3", "--global-batch", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--log-every", "1", "--seed",
+            str(SEED), "--device", "cuda", *extra]
+
+
+def phase_dist_kslices(dev) -> dict:
+    """B and K9 on a rank's K-slice, as the data-parallel backward calls
+    them (every row of g, the rank's K columns of the residual codes, its
+    K rows of w), at every distinct layer shape of the training step (T =
+    512) and on a 4096-column slice of the tied lm_head (f32 x, the
+    embed.T view): for each of the 2 ranks' slices, dx and dw bitwise the
+    whole call's slices and within 1 carry ulp of the plain version on the
+    same slice; K9's dx and dw bitwise B's, its two rows' counters summed
+    over the slices equal to the whole call's.  Timed at mlp_up's slice
+    (K = 768 of 1536, N = 8960) beside the plain version, the bound and
+    the bf16 library pair."""
+    from repro_torch.kernels.bwd_pair import (
+        qmatmul_bwd_pair, qmatmul_bwd_pair_reference,
+        qmatmul_bwd_pair_stats_reference)
+    from repro_torch.kernels.common import STAT_COUNT, STAT_MAX_ABS
+    from repro_torch.kernels.fused import qmatmul_fused
+    from repro_torch.models.api import dense_gemm_shapes
+
+    cfg = _train_cfg()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    shapes = dense_gemm_shapes(cfg, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH)
+    head, layer = shapes[0], shapes[1:]
+    t, ranks = head[1], DIST_SHAPE["data"]
+    cases, seen = [], set()
+    for tag, _, k, n, qc in layer:
+        if (k, n) in seen:
+            continue
+        seen.add((k, n))
+        x = torch.randn((t, k), generator=gen, device=dev)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             / math.sqrt(k)).to(torch.bfloat16)
+        _, xq, wq = qmatmul_fused(x, w, return_quantized=True, **_e_kw(qc))
+        g = torch.randn((t, n), generator=gen, device=dev) / math.sqrt(n)
+        cases.append((f"{tag} K={k} N={n}", g, xq, wq, _b_kw(qc)))
+    d = cfg.d_model
+    hx = torch.randn((t, d), generator=gen, device=dev)
+    emb = (torch.randn((4096, d), generator=gen, device=dev)
+           / math.sqrt(d)).to(torch.bfloat16)
+    hg = torch.randn((t, 4096), generator=gen, device=dev) / 64.0
+    cases.append((f"lm_head K={d} N=4096 (of {cfg.vocab_size})", hg, hx,
+                  emb.T, _b_kw(cfg.quant.lm_head)))
+    b_err = k9_err = 0.0
+    print(f"[dist-train] B and K9 on the {ranks} ranks' K-slices vs the "
+          f"whole call and the plain version at T={t}", flush=True)
+    for label, g, xq, wq, kw in cases:
+        (eb, mb), (eg, mg) = kw["bwd_acc"], kw["grad_acc"]
+        whole = qmatmul_bwd_pair(g, xq, wq, **kw)
+        wstat = qmatmul_bwd_pair(g, xq, wq, collect_stats=True, **kw)
+        ks = xq.shape[1] // ranks
+        rows = []
+        for r in range(ranks):
+            sl = slice(r * ks, (r + 1) * ks)
+            xs, ws = xq[:, sl].contiguous(), wq[sl]
+            dx, dw = qmatmul_bwd_pair(g, xs, ws, **kw)
+            sdx, sdw, row = qmatmul_bwd_pair(g, xs, ws, collect_stats=True,
+                                             **kw)
+            pdx, pdw = qmatmul_bwd_pair_reference(g, xs, ws, **kw)
+            quiet = r > 0
+            compare(f"B dx {label} rank {r} vs whole", dx, whole[0][:, sl],
+                    mb, eb, bitwise=True, quiet=quiet)
+            compare(f"B dw {label} rank {r} vs whole", dw, whole[1][sl],
+                    mg, eg, bitwise=True, quiet=quiet)
+            b_err = max(b_err, compare(f"B dx {label} rank {r} vs plain",
+                                       dx, pdx, mb, eb, bitwise=False,
+                                       quiet=True),
+                        compare(f"B dw {label} rank {r} vs plain", dw, pdw,
+                                mg, eg, bitwise=False, quiet=True))
+            check(torch.equal(sdx, dx) and torch.equal(sdw, dw),
+                  f"K9 {label} rank {r}: dx/dw differ from B's")
+            if r == 0:
+                _, _, prow = qmatmul_bwd_pair_stats_reference(g, xs, ws,
+                                                              **kw)
+                k9_err = max(k9_err, check_stats(
+                    f"K9 {label} rank 0 slice", row, prow))
+            rows.append(row.double())
+        tot = sum(rows)
+        check(torch.equal(tot[:, STAT_COUNT],
+                          wstat[2].double()[:, STAT_COUNT])
+              and torch.equal(torch.stack(rows)[:, :, STAT_MAX_ABS].amax(0),
+                              wstat[2].double()[:, STAT_MAX_ABS]),
+              f"K9 {label}: the slices' counts or max differ from the "
+              "whole call's")
+    # time one rank's slice at mlp_up
+    _, g, xq, wq, kw = next(c for c in cases if "mlp_up" in c[0]
+                            or "mlp_gate" in c[0])
+    k, n = xq.shape[1], wq.shape[1]
+    ks = k // ranks
+    xs, ws = xq[:, :ks].contiguous(), wq[:ks]
+    gb = g.to(torch.bfloat16)
+    xsb, wsb = xs.to(torch.bfloat16), ws.to(torch.bfloat16)
+    out = {}
+    for name, extra, ref in (
+            ("B", {}, qmatmul_bwd_pair_reference),
+            ("K9", dict(collect_stats=True),
+             qmatmul_bwd_pair_stats_reference)):
+        ms = cuda_time(lambda: qmatmul_bwd_pair(g, xs, ws, **extra, **kw),
+                       reps=5)
+        plain = cuda_time(lambda: ref(g, xs, ws, **kw), reps=1, warmup=1)
+        lib = lib_time(lambda: (torch.matmul(gb, wsb.T),
+                                torch.matmul(xsb.T, gb)))
+        bnd, by = bound_ms(*_b_cost(t, ks, n))
+        print(f"[dist-train] {name} on a K-slice (T={t}, K={ks} of {k}, "
+              f"N={n}): kernel {ms:.4f} ms, plain {plain:.1f} ms, library "
+              f"{lib_str(lib)}, bound {bnd:.4f} ms ({by})", flush=True)
+        out[name] = dict(max_abs_err=b_err if name == "B" else k9_err,
+                         ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                         library_ms=lib[0], library_spread_ms=list(lib[1]),
+                         shape=[t, ks, n])
+    return out
+
+
+def _dist_records(res) -> list:
+    return [{k: r[k] for k in DIST_RECORD} for r in res["records"]]
+
+
+def digest(t: torch.Tensor) -> tuple[int, int]:
+    """Two integer sums of a tensor's bit patterns (plain and weighted by
+    position mod 65521), computed where the tensor lives: equal tensors
+    give equal digests, and a changed bit changes both."""
+    flat = t.detach().contiguous().view(-1)
+    bits = flat.view({4: torch.int32, 2: torch.int16,
+                      1: torch.int8}[flat.element_size()])
+    plain, weighted, step = 0, 0, 1 << 24
+    for lo in range(0, bits.numel(), step):
+        c = bits[lo:lo + step].to(torch.int64)
+        w = torch.arange(lo, lo + c.numel(), device=c.device) % 65521 + 1
+        plain += int(c.sum())
+        weighted += int((c * w).sum())
+    return plain, weighted
+
+
+def _leaves(tree, prefix):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def state_digests(state: dict, specs=None, mesh=None, rank=None) -> dict:
+    """``digest`` of every params, ``m`` and ``v`` leaf by path; with
+    ``specs`` and ``mesh``, of rank ``rank``'s block of each (whole state
+    in), which that rank's own digests must equal."""
+    from repro_torch.sharding.specs import shard, tree_specs_map
+
+    out = {}
+    for name, tree in (("params", state["params"]),
+                       ("m", state["opt"]["m"]), ("v", state["opt"]["v"])):
+        if specs is not None:
+            tree = tree_specs_map(lambda x, sp: shard(x, sp, mesh, rank),
+                                  tree, specs)
+        for path, x in _leaves(tree, name):
+            out[path] = digest(x)
+    return out
+
+
+def rank_digests(state, model, dist) -> dict:
+    """``launch.train.train``'s ``finish``: the digests of the state this
+    rank holds."""
+    return {"digests": state_digests(state)}
+
+
+def block_digests(shape: dict, state, model, dist) -> dict:
+    """``launch.train.train``'s ``finish`` on the single device: the
+    digests of every rank's blocks of its (whole) state under a mesh of
+    ``shape``."""
+    from repro_torch.dist import Dist
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train.loop import param_specs
+
+    mesh = Mesh(dict(shape))
+    specs = param_specs(model, Dist(mesh=mesh))
+    return {"block_digests": [state_digests(state, specs, mesh, r)
+                              for r in range(mesh.size)]}
+
+
+def phase_dist_train(dev, smi: str) -> dict:
+    """The launcher's ``--mesh 2x1`` (2 ranks sharing the card, gloo)
+    against its single device on the same arguments: qwen2-1.5b at full
+    width and depth, 3 steps (losses, grad norms, lrs, skip flags and
+    loss scales bitwise; each rank's blocks of the final params and both
+    moments by digests, two integer sums of their bits computed on the
+    card, equal to the same blocks of the single device's state); then 2
+    steps at 2 layers, ``--microbatches 2 --loss-scaling``, and with an
+    in-graph tick at step 2 (the same records, schedule and tick
+    verdicts).  The ranks start
+    once for the three runs (``run_mesh``); their kernel counts are read
+    over each run (from 0 at its start).  Prints each rank's peak memory
+    and rank 0's step times: not a speed figure, the two ranks share one
+    card through host memory."""
+    from repro_torch.launch import train as LT
+
+    logs = [ROOT / "build" / f"dist_tick_{who}.jsonl"
+            for who in ("single", "mesh")]
+    for f in logs:
+        f.parent.mkdir(exist_ok=True)
+        if f.exists():
+            f.unlink()
+    tick = ["--policy", "perturbed", "--pp", "-2", "--telemetry-cadence",
+            "2", "--ingraph-telemetry"]
+    two = ["--n-layers", "2", "--steps", "2"]
+    jobs = [_dist_argv(), _dist_argv(*two, "--microbatches", "2",
+                                     "--loss-scaling"),
+            _dist_argv(*two, *tick)]
+    t0 = time.perf_counter()
+    single = []
+    for i, argv in enumerate(jobs):
+        extra = ["--telemetry-log", str(logs[0])] if i == 2 else []
+        single.append(LT.train(
+            LT.parse_args(argv + extra),
+            finish=functools.partial(block_digests, DIST_SHAPE)
+            if i == 0 else None))
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_single = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = LT.run_mesh([LT.parse_args(a + (["--telemetry-log", str(logs[1])]
+                                           if i == 2 else [])
+                                      + ["--mesh", "2x1"])
+                        for i, a in enumerate(jobs)], DIST_SHAPE,
+                       finish=rank_digests, timeout_s=600)
+    t_mesh = time.perf_counter() - t0
+    labels = ("full depth", "2 layers, --microbatches 2 --loss-scaling",
+              "2 layers, in-graph tick at step 2")
+    for i, label in enumerate(labels):
+        for r, per_rank in enumerate(outs):
+            res = per_rank[i]
+            check(_dist_records(res) == _dist_records(single[i]),
+                  f"[dist-train] {label}: rank {r}'s records differ from "
+                  f"the single device's: {_dist_records(res)} vs "
+                  f"{_dist_records(single[i])}")
+            check(res["schedule"] == single[i]["schedule"],
+                  f"[dist-train] {label}: rank {r}'s schedule differs")
+        print(f"[dist-train] {label}: losses "
+              f"{[r['loss'] for r in single[i]['records']]}, grad norms "
+              f"{[r['grad_norm'] for r in single[i]['records']]} bitwise on "
+              f"both ranks", flush=True)
+    for r, per_rank in enumerate(outs):
+        check(per_rank[0]["digests"] == single[0]["block_digests"][r],
+              f"[dist-train] rank {r}'s blocks of the final state differ "
+              "from the single device's")
+    n_leaves = len(single[0]["block_digests"][0])
+    print(f"[dist-train] full depth: each rank's blocks of the final params "
+          f"and both moments ({n_leaves} leaves) bitwise the same blocks of "
+          f"the single device's state (by digests)", flush=True)
+    import json as _json
+
+    def verdicts(path):
+        with open(path) as f:
+            return [{k: e.get(k) for k in ("step", "gemm", "role", "event",
+                                            "m_acc")}
+                    for e in map(_json.loads, f)]
+
+    v_single, v_mesh = verdicts(logs[0]), verdicts(logs[1])
+    check(v_single and v_single == v_mesh,
+          "[dist-train] the in-graph tick's verdicts differ")
+    bumps = sum(e["event"] != "ok" for e in v_single)
+    print(f"[dist-train] in-graph tick: {len(v_single)} verdicts equal "
+          f"({bumps} not ok), schedule {single[2]['schedule']}", flush=True)
+    main_l, tick_l = outs[0][0]["launches"], outs[0][2]["launches"]
+    for name in ("qmatmul_fused", E_NAME, "qmatmul_bwd_pair"):
+        check(main_l[name] > 0, f"[dist-train] {name} was not launched")
+    check(tick_l[K9_NAME] > 0 and tick_l[K8_NAME] > 0,
+          "[dist-train] the tick launched no K9 or K8")
+    check(main_l[K7_NAME] == 0, "[dist-train] a dx carry entry ran")
+    print(f"[dist-train] launches on rank 0: full depth {main_l}; tick run "
+          f"{tick_l}", flush=True)
+    step_ms = [1e3 * x for x in outs[0][0]["step_seconds"]]
+    one_ms = [1e3 * x for x in single[0]["step_seconds"]]
+    print(f"[dist-train] {smi.strip()}: backend gloo (2 ranks share the "
+          f"card); full-depth step ms on rank 0's host clock "
+          f"{[round(x, 1) for x in step_ms]} (single device "
+          f"{[round(x, 1) for x in one_ms]}); peak allocated GiB by rank "
+          f"{[round(p[0].get('peak_bytes', 0) / 2**30, 2) for p in outs]} "
+          f"(single device {single[0].get('peak_bytes', 0) / 2**30:.2f}); "
+          f"single-device "
+          f"runs {t_single:.1f}s, the mesh's {t_mesh:.1f}s (process start "
+          f"included); not a speed figure", flush=True)
+    return dict(launches=main_l["qmatmul_bwd_pair"]
+                + outs[0][1]["launches"]["qmatmul_bwd_pair"],
+                k9_launches=tick_l[K9_NAME], step_ms=step_ms)
 
 
 # --------------------------------------------------------------------------
@@ -6625,6 +6902,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     tpe = phase_tp_engine(cfg, dev, prompts)
     torch.cuda.empty_cache()
+    dks = phase_dist_kslices(dev)
+    torch.cuda.empty_cache()
+    dtr = phase_dist_train(dev, smi)
+    torch.cuda.empty_cache()
 
     tk = phase_train_kernels(dev)
     torch.cuda.empty_cache()
@@ -6790,6 +7071,17 @@ def main() -> None:
              source="src/repro_torch/csrc/paged_prefill.cu",
              replaces="src/repro/kernels/attention.py:930",
              launches=tpe["launches"][P_CARRY_NAME], **tpk["P"]),
+        # B and K9 on a rank's K-slice: the data-parallel backward
+        # ([dist-train]); launches over rank 0's full-depth and microbatch
+        # runs (B) and its tick run (K9); timed at mlp_up's slice
+        dict(name=B_KSLICE_NAME, route="cuda",
+             source="src/repro_torch/csrc/bwd_pair.cu",
+             replaces="src/repro/kernels/bwd_pair.py:96",
+             launches=dtr["launches"], **dks["B"]),
+        dict(name=K9_KSLICE_NAME, route="cuda",
+             source="src/repro_torch/csrc/bwd_pair.cu",
+             replaces="src/repro/kernels/bwd_pair.py:214",
+             launches=dtr["k9_launches"], **dks["K9"]),
         dict(name=P_RESUME_NAME, route="cuda",
              source="src/repro_torch/csrc/paged_prefill.cu",
              replaces="src/repro/kernels/attention.py:930",

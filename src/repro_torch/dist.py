@@ -1,10 +1,10 @@
-"""Tensor-parallel serving across processes: the group, its collectives and
-the spawning of ranks.
+"""Ranks across processes: the groups, their collectives and the spawning
+of ranks, for tensor-parallel serving and data-parallel training.
 
-Counterpart of ``repro.models.layers.Dist`` (its serving fields),
-``repro.launch.mesh.make_serve_mesh`` and ``repro.kernels.attention.
-psum_carry``.  The JAX engine runs every shard in one process under
-``shard_map``; here each shard is a process (a rank) of a
+Counterpart of ``repro.models.layers.Dist``, ``repro.launch.mesh.
+make_serve_mesh`` and ``repro.kernels.attention.psum_carry``.  The JAX
+engine runs every shard in one process under ``shard_map``; here each
+shard is a process (a rank) of a
 ``torch.distributed`` group, and the collectives are explicit calls:
 
 * ``psum_carry``: the cross-rank merge of online-softmax carries, in
@@ -13,6 +13,14 @@ psum_carry``.  The JAX engine runs every shard in one process under
 * ``gather_cols``: a tiled all-gather on the last dim (pure movement);
 * ``pmax``: an all-reduce MAX (the KV page scales);
 * ``psum``: an all-reduce SUM (the int8 logit wire's int32 payloads).
+
+Training over a mesh (``launch.mesh.Mesh``; ``Dist.mesh``) splits the
+batch's rows over ``Dist.batch_axes`` and the params and moments over
+``Dist.fsdp_axis`` (FSDP).  Its collectives name the axes they run over,
+each on the mesh's subgroup: ``all_gather`` and ``gather_rows`` (rows in
+rank order, the global batch's), ``all_to_all`` (an all-gather and a
+slice: pure movement), ``psum`` (the gathered values summed in rank
+order, so every rank holds the same bits) and ``pmax``.
 
 Backend rule (``serve_backend``): NCCL when every rank has a card of its
 own, gloo when ranks share one (NCCL refuses two ranks on one device) and
@@ -37,9 +45,9 @@ from typing import Any, Callable
 import torch
 import torch.distributed as tdist
 
-__all__ = ["Dist", "LOCAL", "serve_backend", "init_group", "psum_carry",
-           "gather_cols", "pmax", "psum", "all_gather", "spawn",
-           "rank_device", "GROUP_TIMEOUT_S"]
+__all__ = ["Dist", "LOCAL", "serve_backend", "init_group", "init_mesh",
+           "psum_carry", "gather_cols", "gather_rows", "all_to_all", "pmax",
+           "psum", "all_gather", "spawn", "rank_device", "GROUP_TIMEOUT_S"]
 
 # a collective that waits longer than this fails (a desync, a dead rank)
 GROUP_TIMEOUT_S = 300.0
@@ -54,16 +62,51 @@ class Dist:
     ``size`` whose params are their output-dim slices
     (``sharding.specs.serve_param_specs``) and whose arena holds its
     KV-head slice.  ``logit_wire`` picks the unembed: ``"gather"`` (exact
-    movement) or ``"int8"`` (``train.compression.compressed_psum``)."""
+    movement) or ``"int8"`` (``train.compression.compressed_psum``).
+
+    Training: ``mesh`` (a ``launch.mesh.Mesh`` with its subgroups) splits
+    the batch's rows over ``batch_axes`` (JAX's ``batch_spec``) and the
+    params and AdamW moments over ``fsdp_axis``."""
 
     rank: int = 0
     size: int = 1
     group: Any = None
     logit_wire: str = "gather"
+    mesh: Any = None
+    batch_axes: tuple = ()
+    fsdp_axis: str | None = None
 
     @property
     def sharded(self) -> bool:
         return self.size > 1
+
+    @property
+    def batch_split(self) -> bool:
+        """Whether the batch's rows are split over ranks."""
+        return self.mesh is not None and \
+            self.mesh.axis_size(self.batch_axes) > 1
+
+    @property
+    def batch_size(self) -> int:
+        return 1 if self.mesh is None else \
+            self.mesh.axis_size(self.batch_axes)
+
+    @property
+    def batch_rank(self) -> int:
+        return 0 if self.mesh is None else \
+            self.mesh.axis_index(self.batch_axes)
+
+    def local_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global batch tensor (a contiguous block,
+        in rank order)."""
+        n = self.batch_size
+        if n == 1:
+            return x
+        if x.shape[0] % n:
+            raise ValueError(f"{x.shape[0]} rows do not split over {n} "
+                             "ranks")
+        per = x.shape[0] // n
+        return x[self.batch_rank * per:(self.batch_rank + 1) * per]
 
 
 LOCAL = Dist()
@@ -94,32 +137,97 @@ def init_group(rank: int, size: int, init_method: str, backend: str, *,
     return Dist(rank=rank, size=size, group=tdist.group.WORLD, **kw)
 
 
-def _all_reduce(t: torch.Tensor, op, dist: Dist) -> torch.Tensor:
+def init_mesh(rank: int, mesh_shape: dict, init_method: str, backend: str,
+              *, batch_axes: tuple, fsdp_axis: str | None = "data",
+              timeout_s: float = GROUP_TIMEOUT_S,
+              device: torch.device | None = None) -> Dist:
+    """Join the world group as rank ``rank`` of a training mesh of
+    ``mesh_shape`` (axis -> size), make the subgroups its collectives run
+    over (the batch axes, the FSDP axis), and return this rank's
+    ``Dist``."""
+    from repro_torch.launch.mesh import Mesh
+
+    mesh = Mesh(dict(mesh_shape), rank)
+    if backend == "nccl" and device is not None:
+        torch.cuda.set_device(device)
+    tdist.init_process_group(
+        backend, init_method=init_method, world_size=mesh.size, rank=rank,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    mesh.init_groups([tuple(batch_axes)] + ([(fsdp_axis,)] if fsdp_axis
+                                            else []))
+    return Dist(mesh=mesh, batch_axes=tuple(batch_axes), fsdp_axis=fsdp_axis)
+
+
+def _group(dist: Dist, axis):
+    """(process group, ranks) of ``axis`` (the TP group when None)."""
+    if axis is None:
+        return dist.group, dist.size
+    if dist.mesh is None:
+        return None, 1
+    return dist.mesh.group(axis), dist.mesh.axis_size(axis)
+
+
+def _all_reduce(t: torch.Tensor, op, dist: Dist, axis=None) -> torch.Tensor:
     """All-reduce a fresh contiguous copy of ``t`` (``t`` is not touched)."""
     out = t.contiguous().clone()
-    if dist.sharded:
-        tdist.all_reduce(out, op=op, group=dist.group)
+    group, n = _group(dist, axis)
+    if n > 1:
+        tdist.all_reduce(out, op=op, group=group)
     return out
 
 
-def pmax(x: torch.Tensor, dist: Dist) -> torch.Tensor:
-    """Elementwise max over the ranks."""
-    return _all_reduce(x, tdist.ReduceOp.MAX, dist)
+def pmax(x: torch.Tensor, dist: Dist, axis=None) -> torch.Tensor:
+    """Elementwise max over the ranks (of mesh ``axis`` when given)."""
+    return _all_reduce(x, tdist.ReduceOp.MAX, dist, axis)
 
 
-def psum(x: torch.Tensor, dist: Dist) -> torch.Tensor:
-    """Elementwise sum over the ranks."""
-    return _all_reduce(x, tdist.ReduceOp.SUM, dist)
+def psum(x: torch.Tensor, dist: Dist, axis=None) -> torch.Tensor:
+    """Elementwise sum over the ranks.  Over a mesh ``axis`` the ranks'
+    values are gathered and summed in rank order, so every rank holds the
+    same bits whatever the backend's reduction order."""
+    if axis is None:
+        return _all_reduce(x, tdist.ReduceOp.SUM, dist)
+    parts = all_gather(x, dist, axis)
+    out = parts[0].clone()
+    for p in parts[1:]:
+        out = out + p
+    return out
 
 
-def all_gather(x: torch.Tensor, dist: Dist) -> list[torch.Tensor]:
-    """Every rank's ``x``, in rank order (pure movement)."""
+def all_gather(x: torch.Tensor, dist: Dist, axis=None) -> list[torch.Tensor]:
+    """Every rank's ``x``, in rank order (pure movement); over mesh
+    ``axis`` when given, else the TP group."""
     x = x.contiguous()
-    if not dist.sharded:
+    group, n = _group(dist, axis)
+    if n == 1:
         return [x]
-    parts = [torch.empty_like(x) for _ in range(dist.size)]
-    tdist.all_gather(parts, x, group=dist.group)
+    parts = [torch.empty_like(x) for _ in range(n)]
+    tdist.all_gather(parts, x, group=group)
     return parts
+
+
+def gather_rows(x: torch.Tensor, dist: Dist) -> torch.Tensor:
+    """The global batch's rows of a row-split tensor: every batch rank's
+    ``x`` concatenated on dim 0 in rank order (pure movement)."""
+    if not dist.batch_split:
+        return x
+    return torch.cat(all_gather(x, dist, dist.batch_axes), dim=0)
+
+
+def all_to_all(x: torch.Tensor, dist: Dist, axis, split_dim: int,
+               cat_dim: int) -> torch.Tensor:
+    """JAX's ``all_to_all`` over mesh ``axis``: ``x`` split in equal blocks
+    on ``split_dim``, block q to rank q, the received blocks concatenated
+    on ``cat_dim`` in rank order.  Built from an all-gather and slicing
+    (gloo takes all-gathers of CUDA tensors): pure movement."""
+    n = dist.mesh.axis_size(axis) if dist.mesh is not None else 1
+    if n == 1:
+        return x
+    me = dist.mesh.axis_index(axis)
+    size = x.shape[split_dim] // n
+    parts = all_gather(x, dist, axis)
+    return torch.cat([p.narrow(split_dim, me * size, size) for p in parts],
+                     dim=cat_dim)
 
 
 def gather_cols(y: torch.Tensor, dist: Dist) -> torch.Tensor:

@@ -45,6 +45,19 @@ saved residuals through K8's kernel (the FWD row), and hands the three
 device rows to the active in-graph collector (``obs.ingraph``) without a
 host sync.  A tagged oracle (``fused=False``) replays all three roles
 through K8's kernel on its f32 residuals and g, as the JAX package does.
+
+Under a mesh whose batch is split over ranks (``qdot(..., dist=)`` with
+``dist.batch_split``), FWD runs on the rank's rows with the whole w (rows
+are independent), and the backward splits outputs, never a contraction:
+g is gathered over the batch ranks in row order, each rank receives the
+residual codes of every row for its slice of K's columns (an all-to-all),
+and one B launch on that K-slice gives ``dx[:, ks]`` for every row and
+``dw[ks, :]``, each element the single device's chunked sum in its order.
+dx returns to the rows' owners (an all-to-all) and dw's K-slices are
+gathered, so every rank holds the single device's dw bit for bit.  A
+config's ``stats_axis`` (the batch axes) reduces each stats row over those
+ranks (``_psum_row``, JAX's ``_emit_stats_row``); every rank keeps the
+global row, since each rank's controller must reach the same verdicts.
 """
 
 from __future__ import annotations
@@ -54,6 +67,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core.policy import GEMMPrecision
+from repro_torch.dist import LOCAL, Dist, all_gather, all_to_all, gather_rows
 from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
 from repro_torch.kernels.common import ROUNDINGS, threefry2x32
 from repro_torch.kernels.fused import as_sr_seed, qmatmul_fused
@@ -94,8 +108,8 @@ class QDotConfig:
     ``out_fmt`` rounds the forward output to a consumer's representation
     format.  ``stats_tag`` turns on the in-graph telemetry of the backward
     (numerics untouched); ``stats_axis``, the mesh
-    axis to reduce the rows over, comes with the sharding slice and must
-    be None.  ``rounding`` is the carries' rounding in all three roles,
+    axes to reduce the rows over (the fused path; the oracle's is not
+    ported).  ``rounding`` is the carries' rounding in all three roles,
     ``"rne"`` or ``"sr"`` (fused only); ``sr_seed`` the base seed the
     roles' SR streams derive from.
     """
@@ -108,16 +122,15 @@ class QDotConfig:
     pack_residuals: bool = True
     out_fmt: FPFormat | None = None
     stats_tag: str | None = None
-    stats_axis: str | None = None
+    stats_axis: str | tuple | None = None
     rounding: str = "rne"
     sr_seed: int = 0
 
     def __post_init__(self):
-        if self.stats_axis is not None:
+        if self.stats_axis is not None and not self.fused:
             raise NotImplementedError(
-                "stats_axis (a mesh-wide reduction of the stats rows) comes "
-                "with the training half of the sharding (ROADMAP "
-                "[dist-train])")
+                "stats_axis of the unfused oracle (a mesh-wide reduction of "
+                "its replayed rows) is not ported (ROADMAP [dist-train])")
         if self.rounding not in ROUNDINGS:
             raise ValueError(f"rounding must be one of {ROUNDINGS}, got "
                              f"{self.rounding!r}")
@@ -195,9 +208,10 @@ class _QDot(torch.autograd.Function):
     oracle through K2 and K3."""
 
     @staticmethod
-    def forward(ctx, x2, w, cfg, seed):
+    def forward(ctx, x2, w, cfg, seed, dist):
         ctx.cfg = cfg
         ctx.seed = seed
+        ctx.dist = dist
         ctx.dtypes = (x2.dtype, w.dtype)
         if not cfg.fused:
             y, xq, wq = _oracle_fwd(x2, w, cfg)
@@ -225,7 +239,7 @@ class _QDot(torch.autograd.Function):
             dw = _mm(xq.T, gq, cfg.grad)
             if cfg.stats_tag is not None:
                 _emit_qdot_stats(cfg, xq, wq, None, ctx.seed, g=g32)
-            return dx.to(x_dtype), dw.to(w_dtype), None, None
+            return dx.to(x_dtype), dw.to(w_dtype), None, None, None
         e_b, m_b, _ = _acc_params(cfg.bwd)
         e_g, m_g, _ = _acc_params(cfg.grad)
         grad_chunk, bwd_chunk = _pair_chunks(cfg)
@@ -237,17 +251,51 @@ class _QDot(torch.autograd.Function):
                   rounding=cfg.rounding,
                   sr_seed_bwd=_role_seed(cfg, ctx.seed, "bwd"),
                   sr_seed_grad=_role_seed(cfg, ctx.seed, "grad"))
+        dist = ctx.dist
+        if dist.batch_split:
+            return _mesh_backward(ctx, g, xq, wq, kw)
         if cfg.stats_tag is None:
             dx, dw = qmatmul_bwd_pair(g.to(torch.float32), xq, wq, **kw)
         else:
             dx, dw, rows = qmatmul_bwd_pair(g.to(torch.float32), xq, wq,
                                             collect_stats=True, **kw)
-            _emit_qdot_stats(cfg, xq, wq, rows, ctx.seed)
-        return dx.to(x_dtype), dw.to(w_dtype), None, None
+            _emit_qdot_stats(cfg, xq, wq, rows, ctx.seed, dist=dist)
+        return dx.to(x_dtype), dw.to(w_dtype), None, None, None
+
+
+def _k_slice(k: int, dist: Dist) -> tuple[int, int]:
+    """(first column, width) of this batch rank's slice of K."""
+    n = dist.batch_size
+    if k % n:
+        raise ValueError(f"K = {k} does not split over {n} batch ranks")
+    return dist.batch_rank * (k // n), k // n
+
+
+def _mesh_backward(ctx, g, xq, wq, kw):
+    """BWD and GRAD of a row-split qdot: one B launch on this rank's
+    K-slice over every row (see the module docstring)."""
+    cfg, dist = ctx.cfg, ctx.dist
+    x_dtype, w_dtype = ctx.dtypes
+    axes = dist.batch_axes
+    k0, kw_ = _k_slice(xq.shape[1], dist)
+    g_all = gather_rows(g.to(torch.float32), dist)
+    x_cols = all_to_all(xq, dist, axes, split_dim=1, cat_dim=0)
+    w_rows = wq[k0:k0 + kw_]
+    if cfg.stats_tag is None:
+        dx_s, dw_s = qmatmul_bwd_pair(g_all, x_cols, w_rows, **kw)
+    else:
+        dx_s, dw_s, rows = qmatmul_bwd_pair(g_all, x_cols, w_rows,
+                                            collect_stats=True, **kw)
+        _emit_qdot_stats(cfg, xq, wq, rows, ctx.seed, dist=dist,
+                         t=g_all.shape[0])
+    dx = all_to_all(dx_s.to(x_dtype), dist, axes, split_dim=0, cat_dim=1)
+    dw = torch.cat(all_gather(dw_s.to(w_dtype), dist, axes), dim=0)
+    return dx, dw, None, None, None
 
 
 def _emit_qdot_stats(cfg: QDotConfig, xq, wq, pair_rows, seed: int, *,
-                     g=None) -> None:
+                     g=None, dist: Dist = LOCAL, t: int | None = None
+                     ) -> None:
     """The three roles' stats rows of one tagged backward, to the active
     in-graph collector.  FWD is one K8 replay of the saved residuals (the
     forward itself stays G/E/K3), under the forward's rounding and role
@@ -256,13 +304,21 @@ def _emit_qdot_stats(cfg: QDotConfig, xq, wq, pair_rows, seed: int, *,
     contractions on the f32 ``g``: (g, wq^T) with g quantized and (xq^T,
     g) with g quantized, the residuals taken as they are (the JAX
     package's branch without ``raw_pair``).  Geometry as the eager
-    probe's: accumulation length K / N / T, chunk the role's rounding
-    cadence."""
-    from repro_torch.obs.ingraph import dispatch_raw
+    probe's: accumulation length K / N / T (``t``, the global tokens
+    under a row split), chunk the role's rounding cadence.  With
+    ``stats_axis`` each row is reduced over those mesh axes of ``dist``
+    first."""
+    from repro_torch.obs.ingraph import dispatch_raw as _dispatch
     from repro_torch.telemetry.stats import stats_kw
 
+    def dispatch_raw(tag, role, n, n1, m_acc, raw):
+        if cfg.stats_axis is not None:
+            raw = _psum_row(raw, cfg.stats_axis, dist)
+        _dispatch(tag, role, n, n1, m_acc, raw)
+
     tag = cfg.stats_tag
-    t, k = xq.shape
+    t_loc, k = xq.shape
+    t = t_loc if t is None else t
     n = wq.shape[1]
     quantize = cfg.repr_fmt is not None
 
@@ -295,13 +351,38 @@ def _emit_qdot_stats(cfg: QDotConfig, xq, wq, pair_rows, seed: int, *,
                      raw)
 
 
+def _psum_row(raw: torch.Tensor, axis, dist: Dist) -> torch.Tensor:
+    """One stats row reduced over mesh ``axis``, on the row's device: the
+    ranks' rows gathered and merged in rank order in float64 (slot-wise
+    ``+``, ``max`` for MAX_ABS), the ensemble union that
+    ``EnsembleStats.psum`` forms from the Welford moments (JAX's
+    ``_emit_stats_row``), without their float32 round trip, so the sums
+    stay within ``SUM_REL``/``SUM_ABS`` of the single device's."""
+    from repro_torch.kernels.common import STAT_MAX_ABS
+
+    rows = [r.reshape(-1).to(torch.float64)
+            for r in all_gather(raw.reshape(-1), dist, axis)]
+    out = rows[0].clone()
+    for r in rows[1:]:
+        out = out + r
+    out[STAT_MAX_ABS] = torch.stack([r[STAT_MAX_ABS] for r in rows]).max()
+    return out
+
+
 def qdot(x: torch.Tensor, w: torch.Tensor, cfg: QDotConfig, *,
-         sr_seed: int | None = None) -> torch.Tensor:
+         sr_seed: int | None = None, dist: Dist = LOCAL) -> torch.Tensor:
     """y[..., N] = x[..., K] @ w[K, N] with the plan's per-role
     accumulation; float32 out.  Differentiable in x and w.  ``sr_seed``
-    overrides ``cfg.sr_seed`` for this call (SR only)."""
+    overrides ``cfg.sr_seed`` for this call (SR only).  Under ``dist``
+    with a row split, x holds this rank's rows and the backward runs on
+    K-slices (module docstring)."""
     if cfg.rounding == "sr" and not cfg.fused:
         raise ValueError("rounding='sr' requires cfg.fused=True")
+    if dist.batch_split and (cfg.rounding == "sr" or not cfg.fused):
+        raise NotImplementedError(
+            "a row-split qdot under stochastic rounding (the SR keys need "
+            "row and K origins) or the unfused oracle is not ported "
+            "(ROADMAP [dist-train])")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     seed = as_sr_seed(cfg.sr_seed if sr_seed is None else sr_seed)
@@ -310,7 +391,7 @@ def qdot(x: torch.Tensor, w: torch.Tensor, cfg: QDotConfig, *,
         # kernel at the roles' seeds of this one (repro_torch.telemetry.probe)
         _capture.record(x=x2, w=w, cfg=cfg, sr_seed=seed)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        y = _QDot.apply(x2, w, cfg, seed)
+        y = _QDot.apply(x2, w, cfg, seed, dist)
     elif not cfg.fused:
         y = _oracle_fwd(x2, w, cfg)[0]
     else:

@@ -498,7 +498,8 @@ def serve_job(job: dict, dist: Dist = LOCAL, device="cuda") -> dict:
     Returns the token streams, the sha256 of every decode step's logits,
     the ``logit_step``-th step's logits, the arena (every rank's KV heads
     gathered; rank 0 only), the host seconds of the decode steps and the
-    prefill slabs, the engine's counts and the monitor's events."""
+    prefill slabs, the engine's counts, the monitor's events and the
+    kernels' launches over the job (``launches``)."""
     import hashlib
 
     from repro_torch.quant.formats import FPFormat
@@ -506,6 +507,7 @@ def serve_job(job: dict, dist: Dist = LOCAL, device="cuda") -> dict:
     from repro_torch.serve.scheduler import ModelExecutor, ShardedModelExecutor
 
     device = torch.device(device)
+    launches0 = launch_counts()
     cfg = job["cfg"]
     model = get_model(cfg)
     if job.get("params") is not None:
@@ -586,11 +588,28 @@ def serve_job(job: dict, dist: Dist = LOCAL, device="cuda") -> dict:
         plan_m_acc=[b.m_acc for b in eng.plan.buckets],
         kv_bytes_per_token=eng.kv_bytes_per_token(),
         kv_bytes_per_token_shard=eng.kv_bytes_per_token(per_shard=True),
-        tp_shards=eng.tp_shards)
+        tp_shards=eng.tp_shards,
+        launches={k: v - launches0[k] for k, v in launch_counts().items()})
 
 
-def _serve_rank(rank: int, size: int, init_method: str, job: dict,
-                device: str, backend: str) -> dict:
+def launch_counts() -> dict:
+    """The serving kernels' launch counters now (each wrapper counts where
+    it launches its kernel): G/E, D and its carry entry, P and its carry
+    entry."""
+    from repro_torch.kernels.attention import (flash_prefill_paged,
+                                               paged_attn_decode)
+    from repro_torch.kernels.fused import qmatmul_fused
+
+    d, p = paged_attn_decode, flash_prefill_paged
+    return {"qmatmul_fused": qmatmul_fused.launches,
+            "paged_attn_decode": d.launches,
+            "paged_attn_decode(return_carry)": d.carry_launches,
+            "flash_prefill_paged": p.launches,
+            "flash_prefill_paged(return_carry)": p.carry_launches}
+
+
+def _serve_rank(rank: int, size: int, init_method: str, jobs: list,
+                device: str, backend: str, setup=None):
     from repro_torch.dist import init_group, rank_device
 
     dev = rank_device(rank, torch.device(device))
@@ -599,32 +618,41 @@ def _serve_rank(rank: int, size: int, init_method: str, job: dict,
     else:
         torch.set_num_threads(1)   # the ranks share the host's cores
     dist = init_group(rank, size, init_method, backend, device=dev,
-                      logit_wire=job.get("logit_wire", "gather"))
-    return serve_job(job, dist, dev)
+                      logit_wire=jobs[0].get("logit_wire", "gather"))
+    first = setup(dist, dev) if setup is not None else None
+    return first, [serve_job(job, dist, dev) for job in jobs]
 
 
-def run_tp(job: dict, n_ranks: int, device="cuda", *,
-           timeout_s: float = 1800.0) -> list[dict]:
-    """``serve_job`` over ``n_ranks`` spawned ranks (each rank's result in
-    rank order).  The kernels are built here first, so the ranks only load
+def run_tp(jobs, n_ranks: int, device="cuda", *, timeout_s: float = 1800.0,
+           setup=None) -> list:
+    """``serve_job`` over ``n_ranks`` spawned ranks, started once for every
+    job of the list ``jobs`` (run in order; one logit wire for all).  Each
+    rank's result in rank order: ``{"setup": setup(dist, device) or None,
+    "runs": [each job's result]}`` (``setup``, a picklable function every
+    rank calls first).  The kernels are built here first, so the ranks only load
     them; the backend follows ``dist.serve_backend`` (printed)."""
     from repro_torch.dist import serve_backend, spawn
 
+    jobs = list(jobs)
     dev = resolve_device(device)
     backend, rule = serve_backend(dev, n_ranks)
     print(f"serve mesh: {n_ranks} tensor-parallel ranks, backend {rule}; "
-          f"logit wire {job.get('logit_wire', 'gather')}", flush=True)
+          f"logit wire {jobs[0].get('logit_wire', 'gather')}; "
+          f"{len(jobs)} job(s)", flush=True)
     if dev.type == "cuda":
         from repro_torch.kernels import build as kernel_build
 
         kernel_build.build_all()
-    return spawn(_serve_rank, n_ranks, (job, str(dev), backend),
+    outs = spawn(_serve_rank, n_ranks, (jobs, str(dev), backend, setup),
                  timeout_s=timeout_s)
+    return [{"setup": first, "runs": runs} for first, runs in outs]
 
 
-def main_tp(args) -> dict:
+def main_tp(args, extra_jobs=(), setup=None) -> dict:
     """``main`` under ``--serve-mesh``: the seeded model and prompts of
-    ``build``, served over the spawned ranks."""
+    ``build``, served over the spawned ranks, then ``extra_jobs`` on the
+    same ranks (rank 0's results under ``"extra"``, every rank's
+    ``setup`` result under ``"setups"``)."""
     if args.ckpt_dir:
         raise NotImplementedError("--ckpt-dir is not served under "
                                   "--serve-mesh")
@@ -647,7 +675,8 @@ def main_tp(args) -> dict:
                prefill_chunk=args.prefill_chunk or None, prompts=prompts,
                gen=args.gen, monitor_cadence=args.monitor_cadence,
                logit_wire=args.logit_wire)
-    r0 = run_tp(job, args.serve_mesh, device)[0]
+    ranks = run_tp([job, *extra_jobs], args.serve_mesh, device, setup=setup)
+    r0 = ranks[0]["runs"][0]
     print(f"arch={cfg.name} device={device} ranks={args.serve_mesh} "
           f"requests={len(prompts)} prompt_lens={prompt_lens} gen={args.gen}")
     print(f"continuous batching: {r0['decoded']} decoded + "
@@ -663,7 +692,9 @@ def main_tp(args) -> dict:
             "prefill_tokens": r0["prefill_tokens"],
             "kv_bytes_per_token": r0["kv_bytes_per_token"],
             "preemptions": r0["preemptions"], "restores": r0["restores"],
-            "plan": plan_widths(cfg), "ranks": args.serve_mesh, "rank0": r0}
+            "plan": plan_widths(cfg), "ranks": args.serve_mesh, "rank0": r0,
+            "extra": ranks[0]["runs"][1:],
+            "setups": [r["setup"] for r in ranks]}
 
 
 if __name__ == "__main__":

@@ -41,7 +41,17 @@ metrics registry (``obs.metrics``) at exit, as JSONL and in Prometheus's
 textfile format: the in-graph ticks' controller events (the registry is
 kept whenever ``--ingraph-telemetry`` is on, as JAX's launcher keeps it;
 the eager tick records none, as in JAX), the kernels' launch counts, the
-certification memo and the compile cache.  Not ported: meshes.
+certification memo and the compile cache.
+
+``--mesh`` (JAX's: ``auto``, ``DxM``, ``PxDxM``) trains over a mesh of
+spawned ranks (``run_mesh``): the batch's rows split over the data axes
+(``pod`` x ``data``, ``sharding.specs.batch_spec``), the f32 masters and
+both AdamW moments over ``data`` (FSDP, ``ShardingRules``), every GEMM's
+backward on K-slices, so every rank's losses, grad norms, params and
+moments are the single device's, bit for bit (``train.loop``).  ``auto``
+is the single device on one card.  Ranks that share a card talk over
+gloo, ranks with a card each over NCCL.  The model axis (``M > 1``) and
+``--rounding sr`` over more than one rank raise (ROADMAP [dist-train]).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --smoke --steps 20 --policy predicted --device cpu \\
@@ -53,6 +63,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import time
 
@@ -61,6 +72,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.policy import AccumulationPolicy, plan_for_model
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.dist import LOCAL, Dist
 from repro_torch.models.api import get_model, param_count
 from repro_torch.serve.scheduler import resolve_device
 from repro_torch.train import optimizer as O
@@ -73,6 +85,7 @@ from repro_torch.train.loop import (
     TrainConfig,
     init_train_state,
     make_train_step,
+    param_specs,
     run_telemetry_tick,
 )
 
@@ -137,6 +150,8 @@ def parse_args(argv=None):
     ap.add_argument("--obs-prometheus", default="",
                     help="export the registry in Prometheus textfile-"
                          "collector format here at exit")
+    ap.add_argument("--mesh", default="auto",
+                    help="'auto' (every card as data), 'DxM' or 'PxDxM'")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
@@ -166,11 +181,12 @@ def export_obs(args, registry) -> None:
         registry.export_prometheus(args.obs_prometheus)
 
 
-def build_telemetry(args, tc, registry=None):
+def build_telemetry(args, tc, registry=None, dist: Dist = LOCAL):
     """(controller, in-graph tick runner) for parsed ``args``; both None
     when telemetry is off (cadence 0 or the exact policy), the runner None
     without ``--ingraph-telemetry``; the runner records its events in
-    ``registry``."""
+    ``registry``.  Under a row-split ``dist`` the tagged rows reduce over
+    the batch axes."""
     if args.telemetry_cadence <= 0 or args.policy == "exact":
         if args.ingraph_telemetry:
             raise SystemExit("--ingraph-telemetry needs --telemetry-cadence "
@@ -188,9 +204,10 @@ def build_telemetry(args, tc, registry=None):
                                                     "telemetry.jsonl"))
     ingraph = None
     if args.ingraph_telemetry:
-        ingraph = InGraphTelemetry(controller, tc, seq_len=args.seq_len,
-                                   global_batch=args.global_batch,
-                                   registry=registry)
+        ingraph = InGraphTelemetry(
+            controller, tc, seq_len=args.seq_len,
+            global_batch=args.global_batch, registry=registry,
+            axis=dist.batch_axes if dist.batch_split else None, dist=dist)
     return controller, ingraph
 
 
@@ -213,9 +230,30 @@ def model_config(args):
     return cfg
 
 
-def _save(args, step, state, data, controller) -> None:
+def _lead(dist: Dist) -> bool:
+    """Whether this process prints and writes files (rank 0 of a mesh)."""
+    return dist.mesh is None or dist.mesh.rank == 0
+
+
+def _save(args, step, state, data, controller, dist: Dist = LOCAL,
+          specs=None) -> None:
     """Write the step's checkpoint; prints its bytes on disk and the
-    write's wall milliseconds as a ``{"checkpoint": ...}`` line."""
+    write's wall milliseconds as a ``{"checkpoint": ...}`` line.  Under a
+    mesh every rank gathers the whole arrays and rank 0 writes them."""
+    if dist.mesh is not None:
+        from repro_torch.sharding.specs import tree_specs_map, unshard
+
+        def whole(tree):
+            return tree_specs_map(lambda p, sp: unshard(p, sp, dist).cpu(),
+                                  tree, specs)
+
+        state = {"params": whole(state["params"]),
+                 "opt": {"m": whole(state["opt"]["m"]),
+                         "v": whole(state["opt"]["v"]),
+                         "step": state["opt"]["step"]},
+                 "scaler": state["scaler"]}
+        if not _lead(dist):
+            return
     meta = {"data": data.state_dict()}
     if controller is not None:
         meta["telemetry_streaks"] = controller.streaks_meta()
@@ -229,19 +267,55 @@ def _save(args, step, state, data, controller) -> None:
                                      "save_ms": round(ms, 1)}}), flush=True)
 
 
-def resume(args, model, state, data, controller):
+def _restore(args, last, model, state, dist: Dist, specs):
+    """(state, meta) of checkpoint ``last``; under a mesh each rank reads
+    the whole arrays and keeps its blocks (JAX's elastic restore)."""
+    if dist.mesh is None:
+        return restore_checkpoint(args.ckpt_dir, last, state)
+    from repro_torch.sharding.specs import shard
+
+    whole = whole_shapes(model)
+    like = {"params": whole, "opt": {"m": whole, "v": whole,
+                                     "step": state["opt"]["step"]},
+            "scaler": state["scaler"]}
+
+    def block(path, t):
+        # params/... and opt/{m,v}/... split as the params do; the rest
+        # (the AdamW step, the scaler) is replicated
+        parts = path.split("/")
+        if parts[0] == "params":
+            keys = parts[1:]
+        elif parts[:2] in (["opt", "m"], ["opt", "v"]):
+            keys = parts[2:]
+        else:
+            return t
+        sp = specs
+        for key in keys:
+            sp = sp[key]
+        return shard(t, sp, dist.mesh).contiguous().clone()
+
+    device = state["opt"]["step"].device
+    return restore_checkpoint(args.ckpt_dir, last, like, device=device,
+                              shardings=block)
+
+
+def resume(args, model, state, data, controller, dist: Dist = LOCAL,
+           specs=None):
     """(model, state, first step): from the latest checkpoint in
     ``--ckpt-dir``, if there is one; the controller's schedule and streaks
-    restored and the model re-planned under the schedule."""
+    restored and the model re-planned under the schedule.  Under a mesh,
+    onto this rank's blocks, whatever mesh wrote it."""
     last = latest_step(args.ckpt_dir) if args.ckpt_dir else None
     if last is None:
         return model, state, 0
     t0 = time.perf_counter()
-    state, meta = restore_checkpoint(args.ckpt_dir, last, state)
+    state, meta = _restore(args, last, model, state, dist, specs)
     ms = (time.perf_counter() - t0) * 1e3
     data.load_state_dict(meta["data"])
     start = int(meta["step"])
-    print(f"resumed from step {start} (restored in {ms:.1f} ms)", flush=True)
+    if _lead(dist):
+        print(f"resumed from step {start} (restored in {ms:.1f} ms)",
+              flush=True)
     schedule = meta.get("precision_schedule")
     if controller is not None:
         controller.restore_streaks(meta.get("telemetry_streaks"))
@@ -252,14 +326,15 @@ def resume(args, model, state, data, controller):
             model = get_model(apply_schedule(
                 model.cfg, _policy(args), controller.schedule(),
                 seq_len=args.seq_len, global_batch=args.global_batch))
-            print(f"restored precision schedule: {schedule}", flush=True)
+            if _lead(dist):
+                print(f"restored precision schedule: {schedule}", flush=True)
     return model, state, start
 
 
-def a2q_config(args, cfg) -> O.A2QConfig | None:
+def a2q_config(args, cfg, show: bool = True) -> O.A2QConfig | None:
     """``--a2q-reg``'s constraint for the planned ``cfg``: the cap from
     the narrowest accumulator format of the plan (a certificate against it
-    covers every wider one); None when off."""
+    covers every wider one), printed when ``show``; None when off."""
     if args.a2q_reg <= 0:
         return None
     from repro_torch.telemetry.controller import PLAN_FIELDS, ROLES
@@ -274,15 +349,19 @@ def a2q_config(args, cfg) -> O.A2QConfig | None:
     a2q = O.A2QConfig(e_acc=narrow.e_acc, m_acc=narrow.m_acc,
                       x_bound=args.a2q_x_bound, strength=args.a2q_reg,
                       project=True)
-    print(f"a2q: cap per-column l1 at {O.a2q_l1_cap(a2q):.4g} (acc "
-          f"({narrow.e_acc},{narrow.m_acc}), x_bound {args.a2q_x_bound})",
-          flush=True)
+    if show:
+        print(f"a2q: cap per-column l1 at {O.a2q_l1_cap(a2q):.4g} (acc "
+              f"({narrow.e_acc},{narrow.m_acc}), x_bound "
+              f"{args.a2q_x_bound})", flush=True)
     return a2q
 
 
-def build(args):
-    """(model, train config, state, data, device) for parsed ``args``."""
-    device = resolve_device(args.device)
+def build(args, dist: Dist = LOCAL, device=None):
+    """(model, train config, state, data, device) for parsed ``args``;
+    under a mesh ``dist`` the state holds this rank's blocks on ``device``
+    and the data stream draws the global batch (JAX's single-process
+    ``SyntheticLM``; the step takes the rank's rows)."""
+    device = resolve_device(args.device) if device is None else device
     cfg = model_config(args)
     cfg = plan_for_model(cfg, seq_len=args.seq_len,
                          global_batch=args.global_batch, policy=_policy(args))
@@ -292,10 +371,10 @@ def build(args):
                         total_steps=args.steps),
         microbatches=args.microbatches, use_loss_scaling=args.loss_scaling,
         scaler=O.LossScaleConfig(init_scale=1000.0, dynamic=True),
-        a2q=a2q_config(args, cfg))
+        a2q=a2q_config(args, cfg, show=_lead(dist)))
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    state = init_train_state(model, gen, device, tc)
+    state = init_train_state(model, gen, device, tc, dist)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=args.seq_len,
                                   global_batch=args.global_batch,
@@ -303,21 +382,86 @@ def build(args):
     return model, tc, state, data, device
 
 
+def build_mesh(spec: str, device: torch.device) -> dict | None:
+    """JAX's ``--mesh``: ``auto`` puts every card on the data axis, ``(n,
+    1)`` over (data, model), and is the single device on one card or the
+    CPU; ``DxM`` is (data, model), ``PxDxM`` (pod, data, model).  Returns
+    the axis sizes, or None for one rank."""
+    if spec == "auto":
+        n = torch.cuda.device_count() if device.type == "cuda" else 1
+        shape = {"data": n, "model": 1}
+    else:
+        dims = [int(x) for x in spec.lower().split("x")]
+        names = {2: ("data", "model"), 3: ("pod", "data", "model")}.get(
+            len(dims))
+        if names is None or min(dims) < 1:
+            raise SystemExit(f"--mesh {spec!r}: want auto, DxM or PxDxM")
+        shape = dict(zip(names, dims))
+    if math.prod(shape.values()) == 1:
+        return None
+    if shape["model"] > 1:
+        raise NotImplementedError(
+            f"--mesh {spec}: the model axis in training is not ported "
+            "(ROADMAP [dist-train], the model axis)")
+    return shape
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    model, tc, state, data, device = build(args)
-    print(f"arch={model.cfg.name} params="
-          f"{param_count(state['params']) / 1e6:.1f}M policy={args.policy} "
-          f"pp={args.pp} rounding={args.rounding} device={device}",
-          flush=True)
-    registry = obs_registry(args)
-    controller, ingraph = build_telemetry(args, tc, registry)
-    model, state, start = resume(args, model, state, data, controller)
-    step_fn = make_train_step(model, tc)
-    metrics_f = open(args.metrics_out, "a") if args.metrics_out else None
+    shape = build_mesh(args.mesh, torch.device(args.device))
+    if shape is not None:
+        return run_mesh([args], shape)[0][0]
+    return train(args)
+
+
+def launch_counts() -> dict:
+    """The training kernels' launch counters now (each wrapper counts where
+    it launches its kernel): G, E, K8, B, B's carry entry and K9."""
+    from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair as b
+    from repro_torch.kernels.fused import qmatmul_fused as f
+
+    return {"qmatmul_fused": f.launches,
+            "qmatmul_fused(return_quantized)": f.emitq_launches,
+            "qmatmul_fused(collect_stats)": f.stats_launches,
+            "qmatmul_bwd_pair": b.launches,
+            "qmatmul_bwd_pair(dx_carry)": b.carry_launches,
+            "qmatmul_bwd_pair(collect_stats)": b.stats_launches}
+
+
+def train(args, dist: Dist = LOCAL, device=None, finish=None) -> dict:
+    """The training run of parsed ``args`` on this process (one rank of a
+    mesh under ``dist``).  Returns the final loss, the logged records, the
+    schedule, the host seconds of each logged step (the logging reads the
+    loss, so each holds its step's device work), the kernels' launches over
+    the run and whatever ``finish(state, model, dist)`` returns (a dict; a
+    picklable function under ``run_mesh``), read from the final state this
+    process holds."""
+    lead = _lead(dist)
+    launches0 = launch_counts()
+    model, tc, state, data, device = build(args, dist, device)
+    specs = param_specs(model, dist)
+    if lead:
+        n = param_count(whole_shapes(model)) / 1e6
+        print(f"arch={model.cfg.name} params={n:.1f}M policy={args.policy} "
+              f"pp={args.pp} rounding={args.rounding} device={device}"
+              + (f" mesh={dist.mesh.describe()}" if dist.mesh else ""),
+              flush=True)
+    registry = obs_registry(args) if lead else None
+    if dist.mesh is not None and not lead:
+        # one event log: rank 0's (every rank's controller decides alike)
+        args = argparse.Namespace(**{**vars(args),
+                                     "telemetry_log": os.devnull})
+    controller, ingraph = build_telemetry(args, tc, registry, dist)
+    model, state, start = resume(args, model, state, data, controller, dist,
+                                 specs)
+    step_fn = make_train_step(model, tc, dist)
+    metrics_f = open(args.metrics_out, "a") if (args.metrics_out and
+                                                lead) else None
     t0 = time.time()
     last_loss = float("nan")
+    records, step_seconds = [], []
     for step in range(start, args.steps):
+        t_step = time.perf_counter()
         if step == args.crash_at_step and start == 0:
             # one-shot fault injection: only a fresh run dies here; the
             # supervisor's restart resumes from the latest checkpoint
@@ -337,14 +481,15 @@ def main(argv=None) -> dict:
                 gen.manual_seed(args.seed * 1000003 + step + 1)
                 events, new_model = run_telemetry_tick(
                     controller, model, state, batch, step=step + 1, gen=gen,
-                    seq_len=args.seq_len, global_batch=args.global_batch)
+                    seq_len=args.seq_len, global_batch=args.global_batch,
+                    dist=dist)
         for e in events:
-            if e["event"] != "ok":
+            if e["event"] != "ok" and lead:
                 print(json.dumps({"telemetry": e}), flush=True)
         if new_model is not None:
             # the controller changed some m_acc: train on under the new plan
             model = new_model
-            step_fn = make_train_step(model, tc)
+            step_fn = make_train_step(model, tc, dist)
         if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
             last_loss = float(m["loss"])
             rec = {"step": step + 1, "loss": last_loss,
@@ -352,19 +497,109 @@ def main(argv=None) -> dict:
                    "skipped": float(m["skipped"]),
                    "loss_scale": float(m["loss_scale"]),
                    "elapsed_s": round(time.time() - t0, 1)}
-            print(json.dumps(rec), flush=True)
+            records.append(rec)
+            step_seconds.append(time.perf_counter() - t_step)
+            if lead:
+                print(json.dumps(rec), flush=True)
             if metrics_f:
                 metrics_f.write(json.dumps(rec) + "\n")
                 metrics_f.flush()
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            _save(args, step + 1, state, data, controller)
-    if args.ckpt_dir and latest_step(args.ckpt_dir) != args.steps:
-        _save(args, args.steps, state, data, controller)
+            _save(args, step + 1, state, data, controller, dist, specs)
+    # the loop saved the last step already when it fell on the cadence
+    saved_last = start >= args.steps or args.steps % args.ckpt_every == 0
+    if args.ckpt_dir and not saved_last:
+        _save(args, args.steps, state, data, controller, dist, specs)
     if metrics_f:
         metrics_f.close()
     export_obs(args, registry)
-    return {"final_loss": last_loss, "steps": args.steps,
-            "schedule": controller.to_meta() if controller else {}}
+    out = {"final_loss": last_loss, "steps": args.steps, "records": records,
+           "schedule": controller.to_meta() if controller else {},
+           "step_seconds": step_seconds}
+    if finish is not None:
+        out.update(finish(state, model, dist))
+    out["launches"] = {k: v - launches0[k]
+                       for k, v in launch_counts().items()}
+    if device.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    return out
+
+
+def whole_shapes(model):
+    """The model's whole params as meta tensors (their shapes)."""
+    return model.init_params(torch.Generator(), "meta")
+
+
+def _train_rank(rank: int, size: int, init_method: str, jobs: list,
+                shape: dict, batch_axes: tuple, device: str, backend: str,
+                finish) -> list[dict]:
+    from repro_torch.dist import init_mesh, rank_device
+
+    dev = rank_device(rank, torch.device(device))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)   # the ranks share the host's cores
+    dist = init_mesh(rank, shape, init_method, backend,
+                     batch_axes=batch_axes, fsdp_axis="data", device=dev)
+    outs = []
+    for args in jobs:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = train(args, dist, dev, finish)
+        out.update(rank=rank, seconds=time.perf_counter() - t0)
+        outs.append(out)
+    return outs
+
+
+def run_mesh(jobs, shape: dict, *, finish=None,
+             timeout_s: float = 1800.0) -> list:
+    """``train`` over a mesh of ``shape`` (axis -> size), one spawned rank a
+    mesh point, started once for every job of the list ``jobs`` (parsed
+    args, run in order, one global batch for all).  Each rank's list of
+    results, in rank order.  The kernels are built here first, so the ranks only load them; the
+    backend follows ``dist.serve_backend``'s rule (printed): NCCL when
+    every rank has a card of its own, gloo when ranks share one and on the
+    CPU."""
+    from repro_torch.dist import serve_backend, spawn
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding.specs import batch_spec
+
+    jobs = list(jobs)
+    if any(a.rounding == "sr" for a in jobs):
+        raise NotImplementedError(
+            "--rounding sr under a mesh of more than one rank is not ported "
+            "(ROADMAP [dist-train], the SR keys' row and K origins)")
+    if shape.get("model", 1) > 1:
+        raise NotImplementedError("the model axis in training is not "
+                                  "ported (ROADMAP [dist-train])")
+    dev = resolve_device(jobs[0].device)
+    mesh = Mesh(dict(shape))
+    baxes = batch_spec(jobs[0].global_batch, mesh)
+    backend, rule = serve_backend(dev, mesh.size)
+    print(f"train mesh: {mesh.describe()} ({mesh.size} ranks), batch over "
+          f"{baxes or 'no axis'}, FSDP over data; backend {rule}",
+          flush=True)
+    for a in jobs:
+        if a.global_batch != jobs[0].global_batch or (
+                a.global_batch // a.microbatches % mesh.axis_size(baxes)):
+            raise SystemExit(f"a microbatch of {a.global_batch} // "
+                             f"{a.microbatches} rows does not split over "
+                             f"the batch axes {baxes}")
+    if dev.type == "cuda":
+        from repro_torch.kernels import build as kernel_build
+
+        kernel_build.build_all()
+    outs = spawn(_train_rank, mesh.size,
+                 (jobs, dict(shape), baxes, str(dev), backend, finish),
+                 timeout_s=timeout_s)
+    for per_rank in outs:
+        for o in per_rank:
+            if "peak_bytes" in o:
+                print(f"rank {o['rank']}: peak {o['peak_bytes'] / 2**30:.2f} "
+                      f"GiB allocated, {o['seconds']:.1f} s", flush=True)
+    return outs
 
 
 if __name__ == "__main__":

@@ -17,6 +17,15 @@ single-device kernel's order and rounding, emits the raw carry, and the
 ranks merge the carries exactly (``_merge_sharded_carry``); every
 output-split GEMM is gathered back on its last dim (``dist.gather_cols``,
 JAX's ``_gather_cols``).
+Under data-parallel training (a ``dist.Dist`` whose batch rows are split
+over ranks, ``dist.batch_split``) each rank runs the training functions on
+its rows, and every reduction over tokens runs on the global batch's
+full shape, as the single device runs it: the GEMMs' GRAD through
+``qdot``'s K-slices, and the norm scales' and qkv biases' gradients as the
+same reduction of the per-token products gathered over the batch ranks
+(``_MeshScale``, ``_MeshBias``); so each gradient is the single device's
+bit for bit.
+
 Params are nested dicts of tensors; compute is bf16 with float32 where the
 JAX package uses it.  Every dense GEMM goes through ``dense``, which runs
 the differentiable quantized ``qdot`` when the model's QuantPlan assigns a
@@ -31,7 +40,8 @@ from typing import Any
 
 import torch
 
-from repro_torch.dist import LOCAL, Dist, gather_cols, psum_carry
+from repro_torch.dist import (LOCAL, Dist, all_gather, all_to_all,
+                              gather_cols, gather_rows, psum_carry)
 from repro_torch.kernels.attention import (
     BLOCK_Q,
     NEG,
@@ -55,8 +65,68 @@ Params = dict[str, Any]
 COMPUTE_DTYPE = torch.bfloat16
 
 
+class _MeshBias(torch.autograd.Function):
+    """``y + b`` of row-split y; b's gradient is the single device's: the
+    cotangent gathered over the batch ranks and summed to b's shape."""
+
+    @staticmethod
+    def forward(ctx, y, b, dist):
+        ctx.dist, ctx.shape = dist, b.shape
+        return y + b
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, gather_rows(g, ctx.dist).sum_to_size(ctx.shape), None
+
+
+class _MeshScale(torch.autograd.Function):
+    """``a * s`` of row-split a and a broadcast scale s; s's gradient is
+    the single device's: ``g * a`` gathered over the batch ranks and
+    summed to s's shape (autograd's own reduction, on the full shape)."""
+
+    @staticmethod
+    def forward(ctx, a, s, dist):
+        ctx.dist = dist
+        ctx.save_for_backward(a, s)
+        return a * s
+
+    @staticmethod
+    def backward(ctx, g):
+        a, s = ctx.saved_tensors
+        gs = gather_rows(g * a, ctx.dist).sum_to_size(s.shape)
+        return g * s, gs, None
+
+
+class _MeshMatmul(torch.autograd.Function):
+    """The exact plan's bf16 ``x @ w`` of row-split x: dx on the rank's
+    rows, dw on its K-slice of every row (the global batch's contraction)
+    and gathered, as ``qdot``'s backward splits it."""
+
+    @staticmethod
+    def forward(ctx, x, w, dist):
+        ctx.dist = dist
+        ctx.save_for_backward(x, w)
+        return torch.matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dist = ctx.dist
+        n = dist.batch_size
+        k = w.shape[0]
+        if k % n:
+            raise ValueError(f"K = {k} does not split over {n} batch ranks")
+        x2, g2 = x.reshape(-1, k), g.reshape(-1, w.shape[1])
+        x_cols = all_to_all(x2, dist, dist.batch_axes, split_dim=1,
+                            cat_dim=0)
+        dw_s = x_cols.t().mm(gather_rows(g2, dist))
+        dw = torch.cat(all_gather(dw_s, dist, dist.batch_axes), dim=0)
+        return g2.mm(w.t()).reshape(x.shape), dw, None
+
+
 def dense(x: torch.Tensor, w: torch.Tensor, qcfg: QDotConfig | None = None,
-          bias: torch.Tensor | None = None, out_fmt=None) -> torch.Tensor:
+          bias: torch.Tensor | None = None, out_fmt=None,
+          dist: Dist = LOCAL) -> torch.Tensor:
     """y = x @ w (+ bias), bf16 out.
 
     With a QDotConfig: float32 x into ``qdot`` (the bf16 weights go to the
@@ -68,22 +138,36 @@ def dense(x: torch.Tensor, w: torch.Tensor, qcfg: QDotConfig | None = None,
     op that takes y unchanged, into which the GEMM's epilogue rounds y
     (replacing the config's ``out_fmt``), so that op can skip its own
     quantization; straight-through in the backward.
+
+    ``dist`` with a row split: x holds this rank's rows (module
+    docstring).
     """
+    split = dist.batch_split
     if qcfg is not None and not qcfg.is_exact:
         if out_fmt is not None and out_fmt != qcfg.out_fmt:
             qcfg = dataclasses.replace(qcfg, out_fmt=out_fmt)
-        y = qdot(x.to(torch.float32), w, qcfg).to(COMPUTE_DTYPE)
+        y = qdot(x.to(torch.float32), w, qcfg, dist=dist).to(COMPUTE_DTYPE)
+    elif split and torch.is_grad_enabled():
+        y = _MeshMatmul.apply(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE), dist)
     else:
         y = torch.matmul(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))
     if bias is not None:
-        y = y + bias.to(y.dtype)
+        b = bias.to(y.dtype)
+        y = _MeshBias.apply(y, b, dist) if split and \
+            torch.is_grad_enabled() else y + b
     return y
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             dist: Dist = LOCAL) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * scale.to(torch.float32)
+    a = xf * torch.rsqrt(var + eps)
+    s = scale.to(torch.float32)
+    if dist.batch_split and torch.is_grad_enabled():
+        out = _MeshScale.apply(a, s, dist)
+    else:
+        out = a * s
     return out.to(x.dtype)
 
 
@@ -133,19 +217,21 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 
 
 def _q_proj(p: Params, x: torch.Tensor, cfg: ModelConfig,
-            positions: torch.Tensor) -> torch.Tensor:
+            positions: torch.Tensor, dist: Dist = LOCAL) -> torch.Tensor:
     b, s, _ = x.shape
-    q = dense(x, p["wq"], cfg.quant.attn_qkv, p.get("bq")).reshape(
-        b, s, -1, cfg.head_dim)
+    q = dense(x, p["wq"], cfg.quant.attn_qkv, p.get("bq"),
+              dist=dist).reshape(b, s, -1, cfg.head_dim)
     return rope(q, positions, cfg.rope_theta)
 
 
 def _kv_proj(p: Params, x: torch.Tensor, cfg: ModelConfig,
-             positions: torch.Tensor):
+             positions: torch.Tensor, dist: Dist = LOCAL):
     b, s, _ = x.shape
     dh = cfg.head_dim
-    k = dense(x, p["wk"], cfg.quant.attn_qkv, p.get("bk")).reshape(b, s, -1, dh)
-    v = dense(x, p["wv"], cfg.quant.attn_qkv, p.get("bv")).reshape(b, s, -1, dh)
+    k = dense(x, p["wk"], cfg.quant.attn_qkv, p.get("bk"),
+              dist=dist).reshape(b, s, -1, dh)
+    v = dense(x, p["wv"], cfg.quant.attn_qkv, p.get("bv"),
+              dist=dist).reshape(b, s, -1, dh)
     return rope(k, positions, cfg.rope_theta), v
 
 
@@ -175,15 +261,16 @@ def _gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor, dist: Dist = LOCAL) -> torch.Tensor:
     """Causal (training) self-attention over x (B, S, D) at ``positions``
-    (B, S); plain PyTorch ops, differentiable."""
-    k, v = _kv_proj(p, x, cfg, positions)
+    (B, S); plain PyTorch ops, differentiable.  ``dist``: a row-split
+    batch's (module docstring)."""
+    k, v = _kv_proj(p, x, cfg, positions, dist)
     m = positions[:, :, None] >= positions[:, None, :]          # (B, S, S)
     mask = m[:, None, None]                                     # (B,1,1,S,S)
-    q = _q_proj(p, x, cfg, positions)
+    q = _q_proj(p, x, cfg, positions, dist)
     o = _gqa_attend(q, k, v, mask, cfg)
-    return dense(o, p["wo"], cfg.quant.attn_out)
+    return dense(o, p["wo"], cfg.quant.attn_out, dist=dist)
 
 
 def attn_decode(p: Params, x: torch.Tensor, cache: dict[str, torch.Tensor],
@@ -504,10 +591,10 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     output dim: w_gate/w_up give the rank's d_ff slice, the gate is
     elementwise, the hidden is gathered to the full d_ff for w_down's
     contraction, and w_down's d_model slice is gathered back."""
-    g = dense(x, p["w_gate"], cfg.quant.mlp_up)
-    u = dense(x, p["w_up"], cfg.quant.mlp_up)
+    g = dense(x, p["w_gate"], cfg.quant.mlp_up, dist=dist)
+    u = dense(x, p["w_up"], cfg.quant.mlp_up, dist=dist)
     h = silu(g) * u
     if dist.sharded:
         h = gather_cols(h, dist)
         return gather_cols(dense(h, p["w_down"], cfg.quant.mlp_down), dist)
-    return dense(h, p["w_down"], cfg.quant.mlp_down)
+    return dense(h, p["w_down"], cfg.quant.mlp_down, dist=dist)

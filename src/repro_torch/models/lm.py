@@ -16,6 +16,18 @@ program (JAX's ``dots_with_no_batch_dims_saveable``); ``none`` keeps
 everything autograd saves.  The recompute is bitwise the forward (every
 kernel is deterministic and the SR dither is keyed by seed, chunk and
 output), so the policy changes memory and time, never numbers.
+
+Data-parallel training (``loss_fn(..., dist=)`` with the batch's rows split
+over ranks, JAX's ``dist``): each rank runs the stack on its rows, and the
+reductions over tokens run on the global batch's full shape
+(``models.layers``).  Here that is the embedding's scatter-add (the ids
+and cotangents gathered over the batch ranks) and the loss: the logits
+are gathered over the batch ranks (``_GatherRows``) and every rank takes
+the cross entropy of the whole batch, as the single device does (the
+logsumexp's row sums over V are a reduction whose order on the card
+depends on the number of rows), divided by the global token count.  The
+recompute under remat issues no collective: every collective is in a
+backward, in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -32,7 +44,7 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
-from repro_torch.dist import LOCAL, Dist, gather_cols
+from repro_torch.dist import LOCAL, Dist, gather_cols, gather_rows
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.telemetry import capture
@@ -99,19 +111,24 @@ class _EmbedGather(torch.autograd.Function):
     bf16 sum per row, as XLA's scatter-add on the CPU computes it; PyTorch's
     own ``index_put_(accumulate=True)`` on the card sums in an order that
     can change from run to run.
+
+    Under a row split (``dist.batch_split``) the ids and cotangents of
+    every rank are gathered in row order first: each rank forms the
+    single device's gradient.
     """
 
     @staticmethod
-    def forward(ctx, table, tokens):
+    def forward(ctx, table, tokens, dist):
         ctx.save_for_backward(tokens)
         ctx.n_rows = table.shape[0]
+        ctx.dist = dist
         return table[tokens]
 
     @staticmethod
     def backward(ctx, g):
         (tokens,) = ctx.saved_tensors
-        ids = tokens.reshape(-1).long()
-        rows = g.reshape(ids.numel(), -1)
+        ids = gather_rows(tokens.reshape(-1).long(), ctx.dist)
+        rows = gather_rows(g.reshape(tokens.numel(), -1), ctx.dist)
         out = torch.zeros((ctx.n_rows, rows.shape[1]), dtype=g.dtype,
                           device=g.device)
         # occurrence rank of each position among the positions of its id
@@ -127,23 +144,38 @@ class _EmbedGather(torch.autograd.Function):
             sel = rank == r
             idx = ids[sel]
             out[idx] = out[idx] + rows[sel]
-        return out, None
+        return out, None, None
 
 
-def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return _EmbedGather.apply(params["embed"], tokens.long()).to(
+class _GatherRows(torch.autograd.Function):
+    """The global batch's rows of a row-split tensor (every batch rank's,
+    in order); the backward keeps this rank's rows of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, dist):
+        ctx.dist, ctx.rows = dist, x.shape[0]
+        return gather_rows(x, dist)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(0, ctx.dist.batch_rank * ctx.rows, ctx.rows), None
+
+
+def _embed(params: Params, tokens: torch.Tensor,
+           dist: Dist = LOCAL) -> torch.Tensor:
+    return _EmbedGather.apply(params["embed"], tokens.long(), dist).to(
         L.COMPUTE_DTYPE)
 
 
 def _unembed(params: Params, x: torch.Tensor, cfg: ModelConfig,
              dist: Dist = LOCAL) -> torch.Tensor:
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, dist)
     # the tied head is a transposed VIEW of the embedding: the GEMM kernel
     # reads it through its strides, no copy is made
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     if dist.sharded:
         return _unembed_sharded(x, head, cfg, dist)
-    return L.dense(x, head, cfg.quant.lm_head)
+    return L.dense(x, head, cfg.quant.lm_head, dist=dist)
 
 
 def _unembed_sharded(x: torch.Tensor, head: torch.Tensor, cfg: ModelConfig,
@@ -248,25 +280,27 @@ def _remat(body):
 
 
 def _block(cfg: ModelConfig, x: torch.Tensor, lp: Params,
-           positions: torch.Tensor) -> torch.Tensor:
+           positions: torch.Tensor, dist: Dist = LOCAL) -> torch.Tensor:
     """One pre-norm attention + SwiGLU layer."""
-    x = x + L.attn_apply(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                         cfg, positions=positions)
-    z = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + L.mlp_apply(lp["mlp"], z, cfg)
+    x = x + L.attn_apply(lp["attn"],
+                         L.rms_norm(x, lp["ln1"], cfg.norm_eps, dist),
+                         cfg, positions=positions, dist=dist)
+    z = L.rms_norm(x, lp["ln2"], cfg.norm_eps, dist)
+    return x + L.mlp_apply(lp["mlp"], z, cfg, dist)
 
 
-def forward_hidden(params: Params, batch: dict, cfg: ModelConfig, *,
-                   remat: bool = True) -> torch.Tensor:
+def forward_hidden(params: Params, batch: dict, cfg: ModelConfig,
+                   dist: Dist = LOCAL, *, remat: bool = True) -> torch.Tensor:
     """Full-sequence forward up to the final hidden state (B, S, D) bf16;
-    ``batch["tokens"]`` (B, S).  ``remat``: each layer under ``_remat``."""
+    ``batch["tokens"]`` (B, S), this rank's rows under a row-split
+    ``dist``.  ``remat``: each layer under ``_remat``."""
     _check_paged(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, dist)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
-    block = functools.partial(_block, cfg)
+    block = functools.partial(_block, cfg, dist=dist)
     if remat:
         block = _remat(block)
     # The telemetry probe must capture the JAX package's set of GEMMs.
@@ -280,19 +314,25 @@ def forward_hidden(params: Params, batch: dict, cfg: ModelConfig, *,
     return x
 
 
-def forward(params: Params, batch: dict, cfg: ModelConfig, *,
-            remat: bool = True) -> torch.Tensor:
-    """Full-sequence forward: logits (B, S, V) bf16."""
-    return _unembed(params, forward_hidden(params, batch, cfg, remat=remat),
-                    cfg)
+def forward(params: Params, batch: dict, cfg: ModelConfig,
+            dist: Dist = LOCAL, *, remat: bool = True) -> torch.Tensor:
+    """Full-sequence forward: logits (B, S, V) bf16 (this rank's rows under
+    a row-split ``dist``)."""
+    return _unembed(params, forward_hidden(params, batch, cfg, dist,
+                                           remat=remat), cfg, dist)
 
 
-def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
-            remat: bool = True) -> tuple[torch.Tensor, dict]:
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig,
+            dist: Dist = LOCAL, *, remat: bool = True
+            ) -> tuple[torch.Tensor, dict]:
     """Next-token cross entropy in f32: logsumexp as the JAX package takes
-    it (max subtracted, exp, sum, log, max added back)."""
-    logits = forward(params, batch, cfg, remat=remat)
+    it (max subtracted, exp, sum, log, max added back).  Under a row-split
+    ``dist`` the global batch's loss on every rank (module docstring)."""
+    logits = forward(params, batch, cfg, dist, remat=remat)
     tokens = batch["tokens"]
+    if dist.batch_split:
+        logits = _GatherRows.apply(logits, dist)
+        tokens = gather_rows(tokens, dist)
     tgt = tokens[:, 1:].long()
     lg = logits[:, :-1].to(torch.float32)
     amax = lg.detach().amax(dim=-1, keepdim=True)

@@ -28,8 +28,12 @@ step and runs observe -> (on a schedule change) re-plan, as
 ``repro_torch.train.loop.run_telemetry_tick`` does; with a ``registry``
 (``obs.metrics``) each tick's controller events are recorded there
 (``record_controller_events``, area ``controller``), as JAX's tick does.
-The JAX package's ``stats_axis`` mesh reduction is not ported yet (ROADMAP
-[dist-train]).
+
+Under a mesh (``InGraphTelemetry(dist=, axis=)``, the batch axes) every
+tagged config carries ``stats_axis``: each row is reduced over the batch
+ranks as it is emitted (``kernels.ops._psum_row``), so every rank's collector
+holds one global window per site, whose counts and max are the single
+device's, and every rank's controller reaches the same verdicts.
 """
 
 from __future__ import annotations
@@ -92,8 +96,8 @@ class InGraphCollector:
     def flush(self) -> None:
         if not self._pending:
             return
-        host = torch.stack([r.reshape(-1) for *_, r in self._pending]).to(
-            "cpu", torch.float64).numpy()
+        host = torch.stack([r.reshape(-1).to(torch.float64)
+                            for *_, r in self._pending]).cpu().numpy()
         for (tag, role, n, n1, m_acc, _), row in zip(self._pending, host):
             if row[STAT_COUNT] > 0:
                 self.ingest(tag, role, n, n1, m_acc, row)
@@ -140,9 +144,10 @@ class InGraphCollector:
         }
 
 
-def tag_quant_plan(model_cfg, *, axis: str | None = None):
+def tag_quant_plan(model_cfg, *, axis=None):
     """The stats-variant ModelConfig: every quantized plan field tagged
-    with its own name.  Numerics are untouched."""
+    with its own name (and ``axis``, the mesh axes its rows reduce over).
+    Numerics are untouched."""
     plan = model_cfg.quant
     for name in PLAN_FIELDS:
         qcfg = getattr(plan, name, None)
@@ -167,8 +172,11 @@ class InGraphTelemetry:
     """
 
     def __init__(self, controller, train_cfg, *, seq_len: int,
-                 global_batch: int, axis: str | None = None, registry=None):
+                 global_batch: int, axis=None, registry=None, dist=None):
+        from repro_torch.dist import LOCAL
+
         self.registry = registry
+        self.dist = LOCAL if dist is None else dist
         self.controller = controller
         self.train_cfg = train_cfg
         self.seq_len = seq_len
@@ -187,7 +195,7 @@ class InGraphTelemetry:
         from repro_torch.train.loop import make_train_step
 
         tagged = get_model(tag_quant_plan(model.cfg, axis=self.axis))
-        fn = make_train_step(tagged, self.train_cfg)
+        fn = make_train_step(tagged, self.train_cfg, self.dist)
         self._cached = (model.cfg, fn)
         return fn
 

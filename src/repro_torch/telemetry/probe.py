@@ -123,15 +123,28 @@ def probe_gemm(x: torch.Tensor, w: torch.Tensor, qcfg, *,
     return out
 
 
-def probe_model_stats(model, params, batch, *, gen: torch.Generator
-                      ) -> dict[tuple[str, str], GemmProbe]:
+def probe_model_stats(model, params, batch, *, gen: torch.Generator,
+                      dist=None) -> dict[tuple[str, str], GemmProbe]:
     """One telemetry tick: capture the quantized GEMMs of a forward pass
     and measure their three accumulators.  Returns ``{(plan_field, role):
     GemmProbe}`` with same-field GEMMs merged.  ``gen`` (a generator on the
-    params' device) draws the synthetic gradients and operands."""
+    params' device) draws the synthetic gradients and operands.
+
+    Under a row-split ``dist`` (``batch`` the global batch, ``params``
+    whole) each rank runs the forward on its rows and gathers each
+    captured activation over the batch ranks in row order, so every rank
+    replays the single device's operands with the same draws."""
+    from repro_torch.dist import gather_rows
+
     cfg = model.cfg
+    split = dist is not None and dist.batch_split
+    fwd_batch = ({k: dist.local_rows(v) for k, v in batch.items()}
+                 if split else batch)
     with torch.no_grad(), capture.capture_gemms() as buf:
-        model.loss_fn(params, batch, cfg)
+        model.loss_fn(params, fwd_batch, cfg)
+    if split:
+        for rec in buf:
+            rec["x"] = gather_rows(rec["x"], dist)
 
     probes: dict[tuple[str, str], GemmProbe] = {}
 

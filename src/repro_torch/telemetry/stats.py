@@ -148,10 +148,35 @@ class EnsembleStats:
             err_sumsq=self.err_sumsq + other.err_sumsq,
         )
 
-    def psum(self, axis_name: str) -> "EnsembleStats":
-        raise NotImplementedError(
-            "mesh-wide reduction of stats windows comes with the training "
-            "half of the sharding (ROADMAP [dist-train])")
+    def psum(self, axis_name, dist) -> "EnsembleStats":
+        """Mesh-wide reduction of the ranks' windows over ``axis_name`` (a
+        mesh axis of ``dist``, or a tuple of them): JAX's ``psum`` algebra
+        (the ensemble union, as ``merge``) in float32, through
+        ``dist.psum`` and ``dist.pmax`` over the axis on CPU tensors; every
+        rank holds the same bits."""
+        from repro_torch.dist import pmax, psum
+
+        c, mq, mi = self.count, self.mean_q, self.mean_i
+        mine = torch.tensor(np.array(
+            [c, c * mq, self.m2_q + c * mq * mq, c * mi,
+             self.m2_i + c * mi * mi, self.swamped, self.adds, self.err_sum,
+             self.err_sumsq], np.float32))
+        tot = psum(mine, dist, axis_name).numpy()
+        max_abs = _f32(pmax(torch.tensor([self.max_abs]), dist,
+                            axis_name).item())
+        c = tot[0]
+        safe = np.maximum(c, _f32(1.0))
+
+        def comb(s, ss):
+            gm = s / safe
+            return gm, np.maximum(ss - safe * gm * gm, _ZERO)
+
+        mq, m2q = comb(tot[1], tot[2])
+        mi, m2i = comb(tot[3], tot[4])
+        return EnsembleStats(
+            count=c, mean_q=mq, m2_q=m2q, mean_i=mi, m2_i=m2i,
+            max_abs=max_abs, swamped=tot[5], adds=tot[6], err_sum=tot[7],
+            err_sumsq=tot[8])
 
     # ----------------------------- read-outs -------------------------------
     @property

@@ -16,6 +16,11 @@ Packed tensors: a ``QTensor`` is stored as its int8 payload, and
 ``precision_schedule`` (the telemetry controller's realized per-GEMM
 m_acc, ``"<gemm>:<role>" -> m_acc``) goes into the meta, so a resumed run
 or a server trains or serves under the widths the run reached.
+
+Under a mesh the arrays are the whole ones, as JAX writes them: the ranks
+gather their blocks and rank 0 writes (the launcher's ``_save``), and a
+restore onto any mesh (``restore_checkpoint(shardings=)``, JAX's elastic
+restore) reads each whole array and keeps the rank's block of it.
 """
 
 from __future__ import annotations
@@ -118,10 +123,12 @@ def _tensor(arr: np.ndarray, like: torch.Tensor, key: str, device):
 
 
 def restore_checkpoint(ckpt_dir: str, step: int, like: Any,
-                       device=None) -> tuple[Any, dict]:
+                       device=None, *, shardings=None) -> tuple[Any, dict]:
     """Restore into the structure, shapes and dtypes of ``like``, each
     tensor on its ``like`` leaf's device (or on ``device``); returns
-    (state, meta)."""
+    (state, meta).  ``shardings(path, tensor)``, when given, maps each
+    whole restored tensor to the block this rank keeps (``like`` then
+    holds the whole shapes, meta tensors will do)."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     data = np.load(os.path.join(d, "arrays.npz"))
     with open(os.path.join(d, "meta.json")) as f:
@@ -152,6 +159,7 @@ def restore_checkpoint(ckpt_dir: str, step: int, like: Any,
                            fmt=tree.fmt, scale=scale)
         if tree is None:
             return None
-        return _tensor(data[path], tree, path, device)
+        t = _tensor(data[path], tree, path, device)
+        return t if shardings is None else shardings(path, t)
 
     return rebuild(like, ""), meta

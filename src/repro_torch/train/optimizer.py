@@ -13,6 +13,11 @@ visits the leaves in sorted-key order, as ``jax.tree.leaves`` does.
 ``adamw_update`` updates the parameters and moments in place (JAX returns
 new arrays): the full qwen2-1.5b state would otherwise exist twice.
 
+Under FSDP the params and moments are this rank's blocks: the update is
+elementwise on them, with the clip norm of the whole gradients passed in
+(``adamw_update(grad_norm=)``), and the A2Q projection's columns are whole
+on every rank (the data axis splits the embedding's D, never its V).
+
 A2Q (accumulator-aware weight norms, Colbert et al. arXiv:2301.13376, as
 the JAX package adapts it to the chunked carries): a GEMM's reduced
 carry can never reach its saturation clamp if every output column of the
@@ -149,15 +154,24 @@ def a2q_project(params: Any, cfg: A2QConfig) -> Any:
                     params)
 
 
-def a2q_certificate(params: Any, cfg: A2QConfig) -> dict:
+def a2q_certificate(params: Any, cfg: A2QConfig, dist=None) -> dict:
     """The guarantee, stated: the worst column l1 norm and carry bound
     against the cap and the format's ceiling; ``ok`` is the verdict that no
-    carry can overflow."""
+    carry can overflow.  Under FSDP (``dist`` with a mesh, ``params`` this
+    rank's blocks, each column whole) the worst is the max over the
+    ranks."""
     cap = a2q_l1_cap(cfg)
     worst = 0.0
     for p in tree_leaves(params):
         if p.ndim == 2 and p.numel():
             worst = max(worst, float(torch.max(_col_l1(p))))
+    if dist is not None and dist.mesh is not None and dist.fsdp_axis:
+        from repro_torch.dist import pmax
+
+        some = tree_leaves(params)[0]
+        worst = float(pmax(torch.tensor(worst, dtype=torch.float32,
+                                        device=some.device), dist,
+                           dist.fsdp_axis))
     return {"l1_cap": cap, "max_col_l1": worst,
             "carry_bound": worst * cfg.x_bound,
             "acc_max": acc_format_max(cfg.e_acc, cfg.m_acc),
@@ -193,16 +207,20 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 def adamw_update(params: Any, grads: Any, opt: dict, cfg: OptConfig, *,
                  skip: torch.Tensor | None = None,
-                 a2q: A2QConfig | None = None) -> tuple[Any, dict, dict]:
+                 a2q: A2QConfig | None = None,
+                 grad_norm: torch.Tensor | None = None
+                 ) -> tuple[Any, dict, dict]:
     """One AdamW step, in place.  ``skip`` (bool tensor) makes the whole
     update a no-op without a host round-trip.  ``a2q`` (with ``project``)
     rescales every 2-D leaf's columns onto the A2Q cap after the step, so
     the certificate holds at every step boundary.  Returns ``(params,
-    opt, {"grad_norm", "lr"})`` (the same tensors, updated)."""
+    opt, {"grad_norm", "lr"})`` (the same tensors, updated).  Under FSDP
+    the trees are this rank's blocks and ``grad_norm`` the whole
+    gradients' norm."""
     cap = a2q_l1_cap(a2q) if (a2q is not None and a2q.project) else None
     step = opt["step"] + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.minimum(_c(1.0, gnorm),
                           _c(cfg.grad_clip, gnorm) / (gnorm + 1e-12))
     b1, b2 = cfg.beta1, cfg.beta2
@@ -271,6 +289,15 @@ def unscale_and_check(grads: Any, scaler: dict, cfg: LossScaleConfig):
     skip = torch.logical_not(all_finite(grads))
     if not cfg.dynamic:
         return grads, scaler, skip
+    grads = tree_map(lambda g: torch.where(skip, torch.zeros_like(g), g),
+                     grads)
+    return grads, update_scaler(scaler, skip, cfg), skip
+
+
+def update_scaler(scaler: dict, skip: torch.Tensor,
+                  cfg: LossScaleConfig) -> dict:
+    """The dynamic loss scale after a step that ``skip`` says overflowed
+    or not."""
     good = torch.where(skip, 0, scaler["good_steps"] + 1)
     grow = good >= cfg.growth_interval
     s = scaler["scale"]
@@ -279,6 +306,4 @@ def unscale_and_check(grads: Any, scaler: dict, cfg: LossScaleConfig):
         torch.where(grow, torch.clamp(s * cfg.growth_factor,
                                       max=cfg.max_scale), s))
     good = torch.where(grow, 0, good).to(torch.int32)
-    grads = tree_map(lambda g: torch.where(skip, torch.zeros_like(g), g),
-                     grads)
-    return grads, {"scale": scale, "good_steps": good}, skip
+    return {"scale": scale, "good_steps": good}

@@ -591,7 +591,8 @@ def test_sharded_engine_bitwise_single_device(single, tp):
     from repro_torch.launch.serve import run_tp
 
     one = single[tp]
-    ranks = run_tp(_job(tp), tp, "cpu", timeout_s=SPAWN_TIMEOUT_S)
+    ranks = [r["runs"][0] for r in run_tp([_job(tp)], tp, "cpu",
+                                          timeout_s=SPAWN_TIMEOUT_S)]
     r0 = ranks[0]
     assert r0["tp_shards"] == tp and one["tp_shards"] == 1
     assert all(r["tokens"] == one["tokens"] for r in ranks)

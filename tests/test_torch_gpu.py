@@ -12,6 +12,7 @@ kernel's exp2f and PyTorch's), and demand bitwise on lattice operands.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -1824,7 +1825,7 @@ def test_tp_engine_on_one_card_matches_single_device(dev):
                                                  prefill_chunk_tokens=32,
                                                  tp_shards=2))
     one = serve_job(job, device=dev)
-    ranks = run_tp(job, 2, dev, timeout_s=600)
+    ranks = [r["runs"][0] for r in run_tp([job], 2, dev, timeout_s=600)]
     assert all(r["tokens"] == one["tokens"] for r in ranks)
     assert ranks[0]["logit_hashes"] == one["logit_hashes"]
     assert np.array_equal(ranks[0]["logits"], one["logits"])
@@ -2412,3 +2413,92 @@ def test_oracle_executor_streams_equal_the_kernels(dev):
     for k in runs[0][1]:
         assert torch.equal(runs[0][1][k], runs[1][1][k]), k
     assert runs[0][2][0] > 0 and sum(runs[1][2]) == 0
+
+
+# --------------------------------------------------------------------------
+# training over a mesh's data axis: B and K9 on K-slices, 2 ranks on one
+# card
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("stats", [False, True], ids=["B", "K9"])
+def test_pair_on_k_slices_bitwise_whole_call(dev, stats):
+    """B and K9 as the data-parallel backward calls them (every row of g,
+    a rank's K columns of the residual codes and K rows of w) at every
+    layer shape of the training step (T = 512) and each of 2 and 4 ranks'
+    slices: dx and dw bitwise the whole call's slices."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import AccumulationPolicy, plan_for_model
+    from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
+    from repro_torch.kernels.ops import _acc_params, _pair_chunks
+    from repro_torch.models.api import dense_gemm_shapes
+
+    cfg = plan_for_model(get_config("qwen2-1.5b"), seq_len=64,
+                         global_batch=8,
+                         policy=AccumulationPolicy(mode="predicted",
+                                                   chunk=64))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    seen = set()
+    for tag, t, k, n, qc in dense_gemm_shapes(cfg, seq_len=64,
+                                              global_batch=8)[1:]:
+        if (k, n) in seen:
+            continue
+        seen.add((k, n))
+        e = _acc_params(qc.fwd)
+        x = torch.randn((t, k), generator=gen, device=dev)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             / math.sqrt(k)).to(torch.bfloat16)
+        _, xq, wq = qmatmul_fused(x, w, repr_fmt=qc.repr_fmt, e_acc=e[0],
+                                  m_acc=e[1], block_k=e[2] or 128,
+                                  return_quantized=True)
+        g = torch.randn((t, n), generator=gen, device=dev) / math.sqrt(n)
+        gc_, bc = _pair_chunks(qc)
+        (eb, mb, _), (eg, mg, _) = _acc_params(qc.bwd), _acc_params(qc.grad)
+        kw = dict(repr_fmt=qc.repr_fmt, bwd_acc=(eb, mb), grad_acc=(eg, mg),
+                  bwd_chunk=bc, grad_chunk=gc_, packed=True,
+                  collect_stats=stats)
+        whole = qmatmul_bwd_pair(g, xq, wq, **kw)
+        for ranks in (2, 4):
+            ks = k // ranks
+            for r in range(ranks):
+                sl = slice(r * ks, (r + 1) * ks)
+                part = qmatmul_bwd_pair(g, xq[:, sl].contiguous(), wq[sl],
+                                        **kw)
+                assert torch.equal(part[0], whole[0][:, sl]), (tag, ranks, r)
+                assert torch.equal(part[1], whole[1][sl]), (tag, ranks, r)
+
+
+@pytest.mark.parametrize("policy", ["predicted", "exact"])
+def test_mesh_train_step_on_one_card_bitwise_single_device(dev, policy):
+    """2 ranks sharing the card (gloo) train qwen2-1.5b at full width and
+    2 layers for 2 steps through the launcher's ``--mesh 2x1``: losses,
+    grad norms and each rank's blocks of the final params and both
+    moments (by digests) bitwise the single device's.  Under the exact
+    plan the layer GEMMs are cuBLAS's ``torch.matmul`` on a rank's rows
+    and K-slices, whose bits depend on the row count (ROADMAP Queue 3,
+    F8): losses and grad norms within 1e-3 relative (2.63e-5 measured
+    over the 2 steps on the H100)."""
+    from chip_smoke import block_digests, rank_digests
+    from repro_torch.launch import train as LT
+
+    argv = ["--arch", "qwen2-1.5b", "--n-layers", "2", "--policy",
+            policy, "--chunk", "64", "--steps", "2", "--global-batch",
+            "8", "--seq-len", "64", "--log-every", "1", "--device", "cuda"]
+    shape = {"data": 2, "model": 1}
+    one = LT.train(LT.parse_args(argv),
+                   finish=functools.partial(block_digests, shape))
+    torch.cuda.empty_cache()
+    ranks = LT.run_mesh([LT.parse_args(argv + ["--mesh", "2x1"])], shape,
+                        finish=rank_digests, timeout_s=600)
+    for r, [res] in enumerate(ranks):
+        got = [(x["loss"], x["grad_norm"]) for x in res["records"]]
+        want = [(x["loss"], x["grad_norm"]) for x in one["records"]]
+        if policy == "exact":
+            gap = max(abs(a - b) / abs(b) for g, w in zip(got, want)
+                      for a, b in zip(g, w))
+            print(f"exact plan, rank {r}: largest relative gap {gap:.3g} "
+                  f"over {got} against {want}")
+            assert len(got) == len(want) and gap <= 1e-3
+        else:
+            assert got == want
+            assert res["digests"] == one["block_digests"][r]

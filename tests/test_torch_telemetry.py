@@ -344,8 +344,19 @@ def test_ensemble_stats_merge_readouts_to_raw_match_jax():
                 assert getattr(got, f) == np.float32(getattr(want, f)), f
     z = EnsembleStats.zero()
     assert z.merge(stats[0]) == stats[0]
-    with pytest.raises(NotImplementedError):
-        stats[0].psum("data")
+    # psum over a one-rank axis against JAX's under a one-element named
+    # vmap axis: the count bitwise, the rest within 2^-22 (its summands'
+    # float32 products; over 2 and 4 ranks: tests/test_torch_dist_train.py)
+    from repro_torch.dist import LOCAL
+
+    for a in stats:
+        got = a.psum("data", LOCAL)
+        want = jax.vmap(lambda s: s.psum("i"), axis_name="i")(
+            jax.tree.map(lambda v: jnp.asarray(v)[None], _j(a)))
+        for f in _FIELDS:
+            w = float(np.asarray(getattr(want, f))[0])
+            assert abs(float(getattr(got, f)) - w) <= 2.0 ** -22 * abs(w), f
+        assert got.count == a.count and got.max_abs == a.max_abs
 
 
 # --------------------------------------------------------------------------
@@ -807,8 +818,25 @@ def test_capture_records_quantized_gemms_and_suspends():
         assert capture.active()
     assert len(buf) == 1 and buf[0]["x"].shape == (16, 16)
     assert buf[0]["cfg"] is cfg and not capture.active()
-    with pytest.raises(NotImplementedError):
-        QDotConfig(stats_axis="data")
+    # stats_axis on one rank: the tagged backward's rows are the rows
+    # without it (the reduction over a one-rank axis is the identity; over
+    # 2 and 4 ranks: tests/test_torch_dist_train.py)
+    from repro_torch.obs.ingraph import InGraphCollector, collecting
+
+    rows = []
+    for axis in (None, "data"):
+        tagged = QDotConfig(fwd=GEMMPrecision(m_acc=6, chunk=8),
+                            bwd=GEMMPrecision(m_acc=6, chunk=8),
+                            grad=GEMMPrecision(m_acc=6, chunk=8),
+                            repr_fmt=FP8_152, stats_tag="t", stats_axis=axis)
+        col = InGraphCollector()
+        xg = x.clone().requires_grad_()
+        with collecting(col):
+            qdot(xg, w, tagged).sum().backward()
+        rows.append(col.rows())
+    assert sorted(rows[0]) == sorted(rows[1]) and len(rows[0]) == 3
+    for key in rows[0]:
+        np.testing.assert_array_equal(rows[0][key], rows[1][key])
 
 
 # --------------------------------------------------------------------------
