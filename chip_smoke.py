@@ -95,7 +95,7 @@ on its own line:
    ``REPRO_REMAT_POLICY=full``, whose backward recomputes each layer, G 1,
    B 197 a step; G 197 and K8 24 a tick), each tick's time, events and
    schedule; the loss must be finite and fall; 2 more steps under
-   ``none`` (E 196) beside the steady ``full`` step; one step of a 2-layer cut through the kernels and
+   ``none`` (E 196) beside the steady ``full`` step; one step of a 1-layer cut through the kernels and
    through their plain versions, bitwise; then 3 full-depth in-graph
    ticks (``--ingraph-telemetry``: K9 197, K8 197, B 0 each; median and
    spread of their times) and, at the 2-layer
@@ -150,7 +150,7 @@ on its own line:
    sr --sr-seed 7 --policy perturbed --pp -2`` at full width and depth, 6
    steps with the eager tick every 2 steps (its no-grad forward through G
    under SR, no E) and step 5 in-graph (the loss must fall; the SR
-   launches of G, E, B, K8 and K9 counted); a 2-layer SR step bitwise
+   launches of G, E, B, K8 and K9 counted); a 1-layer SR step bitwise
    through the plain versions; a 2-layer tagged oracle step
    (``fused=False``: the rows from K8 on its f32 residuals) against the
    tagged fused step, loss and gradients bitwise, every row's counters and
@@ -170,7 +170,7 @@ on its own line:
    pages 1, 7, 12 and 23 of the 384-token prompt from the carry of the
    pages before, bitwise the one-shot walk; G at a rank's seven weight
    slices at M = 8, 64 and 384, bitwise.  Engine: the serve prompts at
-   full width and depth, half the serve cell's tokens each, one-shot
+   full width and 4 layers, half the serve cell's tokens each, one-shot
    through ``launch/serve.py --serve-mesh 2`` and with 64-token slabs and
    a forced preemption through ``serve_job``, each against the
    single-device engine under the same ``tp_shards=2`` plan: tokens, every
@@ -180,6 +180,20 @@ on its own line:
    card: not a TP speed figure); which gloo collectives take CUDA
    tensors; the int8 logit wire bitwise the gather wire on a lattice
    input; the carry entries' launches counted on rank 0;
+   then training over a mesh of ranks sharing the card (gloo; not a speed
+   figure): ``[dist-train]`` B and K9 on both ranks' K-slices (RNE);
+   ``[dist-sr]`` the SR keys' origins (E, K8 and G on a rank's rows and
+   columns, G's decode route on 2 x 8 rows, B and K9 on K-slices) bitwise
+   the whole SR calls and the plain versions, timed beside RNE; the
+   launcher's ``--mesh 2x1`` at full width and 4 layers (3 steps), 2
+   layers with microbatches and loss scaling, 2 layers with an in-graph
+   tick, ``--rounding sr`` at 4 layers with an in-graph tick, and the
+   unfused oracle at 2 layers with an in-graph tick, each against the
+   single device (records, schedules, tick verdicts and the blocks of the
+   final state by digests); ``[dist-model]`` the model axis: ``--mesh
+   1x2`` at 4 layers, and ``--mesh 2x2`` (4 ranks) under the predicted
+   plan, ``--rounding sr`` with an eager tick and ``--policy exact``
+   (within 1e-3, ROADMAP F8) at 2 layers, against the single device;
 10. ckpt: the train cell at full width and 2 layers through the launcher,
    uninterrupted and then under the restart supervisor with a crash at
    step 3 and a checkpoint every 2 steps (losses after the resume bitwise
@@ -209,9 +223,9 @@ on its own line:
    depth for 3 steps with the certificate ok after each, and
    ``tests/test_a2q.py``'s adversarial check through K8 under RNE and SR;
 12. result: one JSON line per kernel (the SR carries of G, E, B, K7, K8,
-   K9 and K10, D's and P's carry variants, and the fused GEMM's variants
-   as entries of their own; ``plain_depth`` says what a ``plain_ms``
-   covers, ``plain_depth_kernel_ms`` the kernel there), the seconds by
+   K9 and K10, D's and P's carry variants, B's and K9's K-slices, the SR
+   origins, and the fused GEMM's variants as entries of their own;
+   ``plain_depth`` says what a ``plain_ms`` covers, ``plain_depth_kernel_ms`` the kernel there), the seconds by
    phase, the card's name and power limit, and the final JSON line.
 
 Any failed check exits non-zero.  Without a CUDA device it exits non-zero
@@ -5328,6 +5342,7 @@ def phase_ckpt(dev) -> dict:
 # --------------------------------------------------------------------------
 
 TP_RANKS = 2
+TP_LAYERS = 4                   # [tp]'s engines: full width, cut depth
 # tokens generated a request in the [tp] engine runs: half the serve cell's
 # (a decode step of 2 ranks sharing the card takes about 4x one device's)
 TP_GEN = GEN // 2
@@ -5646,7 +5661,8 @@ def tp_setup(cfg, dist, dev) -> dict:
 
 def phase_tp_engine(cfg, dev, prompts) -> dict:
     """2 ranks (gloo) on the one card serve the serve cell's prompts at
-    full width and depth (``TP_GEN`` tokens each), one-shot and with
+    full width, ``TP_LAYERS`` layers (``--n-layers``: the gloo traffic
+    grows with depth; ``TP_GEN`` tokens each), one-shot and with
     64-token slabs and a forced preemption, both through the launcher's
     own ``--serve-mesh 2`` entry (``launch/serve.py``'s ``main``, whose
     ``run_tp`` starts the ranks once for its job and the slab job; each
@@ -5659,7 +5675,9 @@ def phase_tp_engine(cfg, dev, prompts) -> dict:
     from repro_torch.launch import serve as S
     from repro_torch.serve.plan import plan_attention
 
-    # the launcher's pool for these requests, and its engine's plan
+    # the launcher's pool for these requests, and its engine's plan (the
+    # plan does not depend on the depth)
+    cfg = dataclasses.replace(cfg, n_layers=TP_LAYERS)
     n_pages = -(-int(sum(n + TP_GEN for n in PROMPT_LENS) * 1.25) // PAGE) + 1
     base = dict(cfg=cfg, seed=SEED, n_pages=n_pages, page_size=PAGE,
                 max_batch=MAX_BATCH, prompts=prompts, gen=TP_GEN,
@@ -5681,7 +5699,7 @@ def phase_tp_engine(cfg, dev, prompts) -> dict:
             "--prompt-lens", ",".join(map(str, PROMPT_LENS)), "--gen",
             str(TP_GEN), "--page-size", str(PAGE), "--max-batch", str(MAX_BATCH),
             "--seed", str(SEED), "--serve-mesh", str(TP_RANKS),
-            "--device", dev.type]
+            "--n-layers", str(TP_LAYERS), "--device", dev.type]
     out = S.main_tp(S.parse_args(argv), [chunk_job],
                     functools.partial(tp_setup, cfg))
     t_ranks = time.perf_counter() - t0
@@ -5745,6 +5763,15 @@ def phase_tp_engine(cfg, dev, prompts) -> dict:
 # --------------------------------------------------------------------------
 
 DIST_SHAPE = {"data": 2, "model": 1}      # --mesh 2x1: 2 ranks, one card
+MODEL_SHAPE = {"data": 1, "model": 2}     # --mesh 1x2
+MESH_2X2 = {"data": 2, "model": 2}        # --mesh 2x2: 4 ranks, one card
+DIST_LAYERS = 4          # the mesh runs' depth at full width
+E_SR_ORIGIN_NAME = "qmatmul_fused(return_quantized, rounding=sr) (row0, col0)"
+K8_SR_ORIGIN_NAME = "qmatmul_fused(collect_stats, rounding=sr) (row0, col0)"
+G_SR_ORIGIN_NAME = "qmatmul_fused(rounding=sr) (row0, col0)"
+B_SR_KSLICE_NAME = "qmatmul_bwd_pair(rounding=sr) (K-slice)"
+K9_SR_KSLICE_NAME = "qmatmul_bwd_pair(collect_stats, rounding=sr) (K-slice)"
+EXACT_REL = 1e-3         # --policy exact on the card (ROADMAP F8)
 B_KSLICE_NAME = "qmatmul_bwd_pair (K-slice)"
 K9_KSLICE_NAME = "qmatmul_bwd_pair(collect_stats) (K-slice)"
 DIST_RECORD = ("step", "loss", "grad_norm", "lr", "skipped", "loss_scale")
@@ -5767,9 +5794,9 @@ def phase_dist_kslices(dev) -> dict:
     embed.T view): for each of the 2 ranks' slices, dx and dw bitwise the
     whole call's slices and within 1 carry ulp of the plain version on the
     same slice; K9's dx and dw bitwise B's, its two rows' counters summed
-    over the slices equal to the whole call's.  Timed at mlp_up's slice
-    (K = 768 of 1536, N = 8960) beside the plain version, the bound and
-    the bf16 library pair."""
+    over the slices equal to the whole call's.  Timed at mlp_gate's slice
+    (K = 768 of 1536, N = 8960; mlp_up's shape, de-duplicated) beside the
+    plain version, the bound and the bf16 library pair."""
     from repro_torch.kernels.bwd_pair import (
         qmatmul_bwd_pair, qmatmul_bwd_pair_reference,
         qmatmul_bwd_pair_stats_reference)
@@ -5842,9 +5869,8 @@ def phase_dist_kslices(dev) -> dict:
                               wstat[2].double()[:, STAT_MAX_ABS]),
               f"K9 {label}: the slices' counts or max differ from the "
               "whole call's")
-    # time one rank's slice at mlp_up
-    _, g, xq, wq, kw = next(c for c in cases if "mlp_up" in c[0]
-                            or "mlp_gate" in c[0])
+    # time one rank's slice at mlp_gate (mlp_up's shape)
+    _, g, xq, wq, kw = next(c for c in cases if c[0].startswith("mlp_gate"))
     k, n = xq.shape[1], wq.shape[1]
     ks = k // ranks
     xs, ws = xq[:, :ks].contiguous(), wq[:ks]
@@ -5868,6 +5894,227 @@ def phase_dist_kslices(dev) -> dict:
                          ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                          library_ms=lib[0], library_spread_ms=list(lib[1]),
                          shape=[t, ks, n])
+    return out
+
+
+DIST_SR_DECODE_M = 16   # G's decode route under [dist-sr]: 2 ranks' 8 rows
+
+
+def _origin_blocks(t, n):
+    """{label: (rows, cols)} of the blocks 2 ranks hold: a batch rank's rows
+    and a model rank's columns, rank 1's (non-zero origins) last."""
+    ht, hn = t // 2, n // 2
+    return {f"rank {r} rows": (slice(r * ht, (r + 1) * ht), slice(0, n))
+            for r in range(2)} | {
+        f"rank {r} columns": (slice(0, t), slice(r * hn, (r + 1) * hn))
+        for r in range(2)}
+
+
+def _origin_kw(rows, cols, n):
+    return dict(row0=rows.start, col0=cols.start, n_cols=n)
+
+
+def phase_dist_sr(dev) -> dict:
+    """``[dist-sr]``: the SR keys' origins at the training path's shapes
+    (T = 512, full width, the SR plan's role seeds of ``--sr-seed 7``), at
+    every distinct layer GEMM shape and at the tied lm_head's (f32 x, the
+    embed.T view; SR forced, the plan's lm_head being RNE), the lm_head
+    both at the full vocab and on a 4096-column slice.  E, K8 (on E's
+    codes) and G (the routed call: the tile at these rows) on each of 2
+    batch ranks' rows (``row0``) and each of 2 model ranks' columns
+    (``col0``, ``n_cols``), and G's decode route on 2 ranks' 8 rows of a
+    16-row call: each bitwise the whole SR call's block and, rank 1's, its
+    plain version on the block.  B and K9 on both ranks' K-slices
+    (``k_offset``, ``k_total``): bitwise the whole SR pair's slices and,
+    rank 1's, the plain version; K9's dx and dw B's.  The plain versions
+    run on the lm_head's slice only (at the full vocab they take minutes).
+    Timed at mlp_gate (mlp_up's shape; rank 1's block) by CUDA events
+    beside the RNE call on the same block; the bound is the RNE entry's
+    and SR has no library call."""
+    from repro_torch.kernels import sm90
+    from repro_torch.kernels.bwd_pair import (
+        qmatmul_bwd_pair, qmatmul_bwd_pair_reference,
+        qmatmul_bwd_pair_stats_reference)
+    from repro_torch.kernels.fused import (
+        qmatmul_fused, qmatmul_fused_reference, qmatmul_fused_stats_reference,
+        qmatmul_fused_with)
+    from repro_torch.models.api import dense_gemm_shapes
+
+    cfg = _train_cfg(rounding="sr")
+    shapes = dense_gemm_shapes(cfg, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH)
+    head, layer = shapes[0], shapes[1:]
+    t = head[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 91)
+    print(f"[dist-sr] E, K8, G, B and K9 under SR at their mesh origins "
+          f"(T={t}, 2 ranks' rows, columns and K-slices) vs the whole SR "
+          f"call and the plain version", flush=True)
+    cases, seen = [], set()
+    for tag, _, k, n, qc in layer:
+        if (k, n) in seen:
+            continue
+        seen.add((k, n))
+        ekw, bkw = _sr_kw(qc)
+        x = torch.randn((t, k), generator=gen, device=dev)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             / math.sqrt(k)).to(torch.bfloat16)
+        g = torch.randn((t, n), generator=gen, device=dev) / math.sqrt(n)
+        cases.append((f"{tag} K={k} N={n}", x, w, g, ekw, bkw, True))
+    d, v = cfg.d_model, cfg.vocab_size
+    hq = cfg.quant.lm_head
+    hkw = dict(_e_kw(hq), rounding="sr", sr_seed=TRAIN_SR_SEED)
+    hbkw = dict(_b_kw(hq), rounding="sr", sr_seed_bwd=TRAIN_SR_SEED + 1,
+                sr_seed_grad=TRAIN_SR_SEED + 2)
+    for cols, plain_too in ((v, False), (4096, True)):
+        emb = (torch.randn((cols, d), generator=gen, device=dev)
+               / math.sqrt(d)).to(torch.bfloat16)
+        cases.append((f"lm_head K={d} N={cols}" + (
+            f" (of {v})" if cols < v else ""),
+            torch.randn((t, d), generator=gen, device=dev), emb.T,
+            torch.randn((t, cols), generator=gen, device=dev) / 64.0,
+            hkw, hbkw, plain_too))
+    err = dict.fromkeys(("E", "K8", "G", "B", "K9"), 0.0)
+    for label, x, w, g, ekw, bkw, plain_too in cases:
+        k, n = w.shape
+        m, e = ekw["m_acc"], ekw["e_acc"]
+        (eb, mb), (eg, mg) = bkw["bwd_acc"], bkw["grad_acc"]
+        head_case = ekw["repr_fmt"] is None
+        y = qmatmul_fused(x, w, **ekw)
+        if not head_case:
+            ye, xq, wq = qmatmul_fused(x, w, return_quantized=True, **ekw)
+            check(torch.equal(ye, y), f"[dist-sr] {label}: E's C is not G's")
+            k8kw = _k8_codes_kw(ekw)
+        else:
+            xq, wq, k8kw = x, w, ekw
+        for blk, (rows, cols) in _origin_blocks(t, n).items():
+            o = _origin_kw(rows, cols, n)
+            want = y[rows, cols]
+            plain = plain_too and blk.startswith("rank 1")
+            got = {"G": qmatmul_fused(x[rows], w[:, cols], **ekw, **o)}
+            if not head_case:
+                got["E"] = qmatmul_fused(x[rows], w[:, cols],
+                                         return_quantized=True, **ekw,
+                                         **o)[0]
+            got["K8"], row = qmatmul_fused(xq[rows], wq[:, cols],
+                                           collect_stats=True, **k8kw, **o)
+            for name, c in got.items():
+                compare(f"{name} sr {label} {blk} vs whole", c, want, m, e,
+                        bitwise=True, quiet=True)
+            if plain:
+                pw = qmatmul_fused_reference(x[rows], w[:, cols], **ekw, **o)
+                pc, prow = qmatmul_fused_stats_reference(
+                    xq[rows], wq[:, cols], **k8kw, **o)
+                for name, c, ref in (("G", got["G"], pw), ("E", got.get("E"),
+                                                            pw),
+                                     ("K8", got["K8"], pc)):
+                    if c is not None:
+                        err[name] = max(err[name], compare(
+                            f"{name} sr {label} {blk} vs plain", c, ref, m,
+                            e, bitwise=True, quiet=True))
+                err["K8"] = max(err["K8"], check_stats(
+                    f"K8 sr {label} {blk}", row, prow))
+        # G's decode route: 2 ranks' 8 rows of a 16-row call
+        xm = x[:DIST_SR_DECODE_M]
+        dec = sm90.decode_schedule(DIST_SR_DECODE_M // 2, n, k,
+                                   ekw["block_k"],
+                                   int(w.dtype == torch.bfloat16))
+        if dec is not None:
+            whole = qmatmul_fused(xm, w, **ekw)
+            h = DIST_SR_DECODE_M // 2
+            for r in range(2):
+                got = qmatmul_fused_with(xm[r * h:(r + 1) * h], w, dec,
+                                         row0=r * h, **ekw)
+                compare(f"G decode sr {label} rank {r} rows vs whole", got,
+                        whole[r * h:(r + 1) * h], m, e, bitwise=True,
+                        quiet=True)
+        # B and K9 on both ranks' K-slices
+        wdx, wdw = qmatmul_bwd_pair(g, xq, wq, **bkw)
+        ks = k // 2
+        for r in range(2):
+            sl = slice(r * ks, (r + 1) * ks)
+            xs, ws = xq[:, sl].contiguous(), wq[sl]
+            o = dict(k_offset=r * ks, k_total=k)
+            dx, dw = qmatmul_bwd_pair(g, xs, ws, **bkw, **o)
+            sdx, sdw, rows2 = qmatmul_bwd_pair(g, xs, ws, collect_stats=True,
+                                               **bkw, **o)
+            compare(f"B sr dx {label} rank {r} vs whole", dx, wdx[:, sl], mb,
+                    eb, bitwise=True, quiet=True)
+            compare(f"B sr dw {label} rank {r} vs whole", dw, wdw[sl], mg, eg,
+                    bitwise=True, quiet=True)
+            check(torch.equal(sdx, dx) and torch.equal(sdw, dw),
+                  f"[dist-sr] K9 {label} rank {r}: dx/dw differ from B's")
+            if r == 1 and plain_too:
+                pdx, pdw = qmatmul_bwd_pair_reference(g, xs, ws, **bkw, **o)
+                err["B"] = max(err["B"], compare(
+                    f"B sr dx {label} rank 1 vs plain", dx, pdx, mb, eb,
+                    bitwise=True, quiet=True), compare(
+                    f"B sr dw {label} rank 1 vs plain", dw, pdw, mg, eg,
+                    bitwise=True, quiet=True))
+                _, _, prows = qmatmul_bwd_pair_stats_reference(g, xs, ws,
+                                                               **bkw, **o)
+                err["K9"] = max(err["K9"], check_stats(
+                    f"K9 sr {label} rank 1", rows2, prows))
+        print(f"  [dist-sr] {label}: E, K8, G at both ranks' rows and "
+              f"columns, G's decode route at 2 x 8 rows, B and K9 at both "
+              f"K-slices bitwise the whole SR calls"
+              + (" and the plain versions" if plain_too else ""),
+              flush=True)
+    # timed at mlp_gate (mlp_up's shape), rank 1's block, beside RNE on
+    # the same block
+    label, x, w, g, ekw, bkw, _ = next(c for c in cases
+                                       if c[0].startswith("mlp_gate"))
+    k, n = w.shape
+    _, xq, wq = qmatmul_fused(x, w, return_quantized=True, **ekw)
+    rows = slice(t // 2, t)
+    xr, xqr = x[rows], xq[rows]
+    o = dict(row0=t // 2, col0=0, n_cols=n)
+    ks = k // 2
+    xs, ws = xq[:, ks:].contiguous(), wq[ks:]
+    ko = dict(k_offset=ks, k_total=k)
+    rne_e, rne_b = dict(ekw, rounding="rne"), dict(bkw, rounding="rne")
+    k8 = _k8_codes_kw(ekw)
+    th = t // 2
+    calls = {
+        "E": (lambda kw: qmatmul_fused(xr, w, return_quantized=True, **kw,
+                                       **o),
+              lambda: qmatmul_fused_reference(xr, w, return_quantized=True,
+                                              **ekw, **o),
+              ekw, rne_e, _e_cost(th, k, n)),
+        "K8": (lambda kw: qmatmul_fused(xqr, wq, collect_stats=True, **kw,
+                                        **o),
+               lambda: qmatmul_fused_stats_reference(xqr, wq, **k8, **o),
+               k8, dict(k8, rounding="rne"), _k8_cost(th, k, n, True)),
+        "G": (lambda kw: qmatmul_fused(xr, w, **kw, **o),
+              lambda: qmatmul_fused_reference(xr, w, **ekw, **o),
+              ekw, rne_e,
+              (th * k * 4 + k * n * 2 + th * n * 4, 2 * th * k * n,
+               FP8_FLOPS)),
+        "B": (lambda kw: qmatmul_bwd_pair(g, xs, ws, **kw, **ko),
+              lambda: qmatmul_bwd_pair_reference(g, xs, ws, **bkw, **ko),
+              bkw, rne_b, _b_cost(t, ks, n)),
+        "K9": (lambda kw: qmatmul_bwd_pair(g, xs, ws, collect_stats=True,
+                                           **kw, **ko),
+               lambda: qmatmul_bwd_pair_stats_reference(g, xs, ws, **bkw,
+                                                        **ko),
+               bkw, rne_b, _b_cost(t, ks, n))}
+    out = {}
+    for name, (fn, ref, sr_kw, rne_kw, cost) in calls.items():
+        reps = 5 if name in ("B", "K9") else 10
+        rne_ms = cuda_time(lambda: fn(rne_kw), reps=reps)
+        ms = cuda_time(lambda: fn(sr_kw), reps=reps)
+        plain = cuda_time(ref, reps=1, warmup=0)
+        bnd, by = bound_ms(*cost)
+        where = (f"K-slice K={ks} of {k}" if name in ("B", "K9")
+                 else f"rows {t // 2}..{t} of {t}")
+        print(f"[dist-sr] {name} at its SR origin ({label}, rank 1's "
+              f"{where}): SR {ms:.4f} ms, RNE {rne_ms:.4f} ms "
+              f"({ms / rne_ms:.3f}x), plain {plain:.1f} ms, bound "
+              f"{bnd:.4f} ms ({by})", flush=True)
+        out[name] = dict(max_abs_err=err[name], ms=ms, rne_ms=rne_ms,
+                         plain_ms=plain, bound_ms=bnd, bound_by=by,
+                         library_ms=None, shape=[
+                             t if name in ("B", "K9") else th,
+                             ks if name in ("B", "K9") else k, n])
     return out
 
 
@@ -5922,125 +6169,275 @@ def rank_digests(state, model, dist) -> dict:
     return {"digests": state_digests(state)}
 
 
-def block_digests(shape: dict, state, model, dist) -> dict:
+def block_digests(shapes: tuple, state, model, dist) -> dict:
     """``launch.train.train``'s ``finish`` on the single device: the
     digests of every rank's blocks of its (whole) state under a mesh of
-    ``shape``."""
+    each shape of ``shapes``, by the shape's ``describe``."""
     from repro_torch.dist import Dist
     from repro_torch.launch.mesh import Mesh
     from repro_torch.train.loop import param_specs
 
-    mesh = Mesh(dict(shape))
-    specs = param_specs(model, Dist(mesh=mesh))
-    return {"block_digests": [state_digests(state, specs, mesh, r)
-                              for r in range(mesh.size)]}
+    out = {}
+    for shape in shapes:
+        mesh = Mesh(dict(shape))
+        specs = param_specs(model, Dist(mesh=mesh))
+        out[mesh.describe()] = [state_digests(state, specs, mesh, r)
+                                for r in range(mesh.size)]
+    return {"block_digests": out}
 
 
-def phase_dist_train(dev, smi: str) -> dict:
-    """The launcher's ``--mesh 2x1`` (2 ranks sharing the card, gloo)
-    against its single device on the same arguments: qwen2-1.5b at full
-    width and depth, 3 steps (losses, grad norms, lrs, skip flags and
-    loss scales bitwise; each rank's blocks of the final params and both
-    moments by digests, two integer sums of their bits computed on the
-    card, equal to the same blocks of the single device's state); then 2
-    steps at 2 layers, ``--microbatches 2 --loss-scaling``, and with an
-    in-graph tick at step 2 (the same records, schedule and tick
-    verdicts).  The ranks start
-    once for the three runs (``run_mesh``); their kernel counts are read
-    over each run (from 0 at its start).  Prints each rank's peak memory
-    and rank 0's step times: not a speed figure, the two ranks share one
-    card through host memory."""
-    from repro_torch.launch import train as LT
+def _tick_verdicts(path) -> list:
+    with open(path) as f:
+        return [{k: e.get(k) for k in ("step", "gemm", "role", "event",
+                                        "m_acc")}
+                for e in map(json.loads, f)]
 
-    logs = [ROOT / "build" / f"dist_tick_{who}.jsonl"
+
+def _tick_logs(name: str):
+    """(single device's, mesh's) event logs of tick run ``name``, fresh."""
+    logs = [ROOT / "build" / f"dist_tick_{name}_{who}.jsonl"
             for who in ("single", "mesh")]
     for f in logs:
         f.parent.mkdir(exist_ok=True)
         if f.exists():
             f.unlink()
+    return logs
+
+
+def _mesh_vs_single(groups, *, twins=None, digest_runs=(), exact_runs=()):
+    """``groups``: lists of jobs, (tag, label, mesh shape, argv, plan or
+    None, tick) each, a list's shapes of one size.  Each list is one start
+    of its ranks (``run_mesh``, the launcher's ``--mesh``), every list's
+    start at once, each waited on by a thread of its own (the ranks are
+    processes: they share nothing of this one), while this process runs
+    the single-device runs on the same arguments (``twins``: already-run
+    ones by label).  Each run is held to its single device: every rank's
+    records and schedule bitwise (within F8's 1e-3 relative for
+    ``exact_runs``), the blocks of the final state by digests for
+    ``digest_runs``, the tick verdicts equal.  Returns (single results,
+    every list's ranks' results, every list's seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch import train as LT
+
+    twins = dict(twins or {})
+    jobs = [job for group in groups for job in group]
+    logs = {label: _tick_logs(f"{tag}_{i}") for i, (tag, label, *_, tick)
+            in enumerate(jobs) if tick}
+
+    def mesh(group):
+        t0 = time.perf_counter()
+        outs = LT.run_mesh(
+            [LT.MeshJob(LT.parse_args(
+                argv + (["--telemetry-log", str(logs[label][1])]
+                        if label in logs else [])
+                + ["--mesh", "x".join(map(str, shape.values()))]),
+                shape, plan) for _, label, shape, argv, plan, _ in group],
+            finish=rank_digests, timeout_s=600)
+        return outs, time.perf_counter() - t0
+
+    single, secs = {}, {}
+    with ThreadPoolExecutor(len(groups)) as pool:
+        futures = [pool.submit(mesh, group) for group in groups]
+        for _, label, shape, argv, plan, _ in jobs:
+            if label in twins:
+                single[label] = twins[label]
+                continue
+            extra = (["--telemetry-log", str(logs[label][0])]
+                     if label in logs else [])
+            t0 = time.perf_counter()
+            single[label] = LT.train(
+                LT.parse_args(argv + extra),
+                finish=functools.partial(block_digests, (shape,))
+                if label in digest_runs else None, plan=plan)
+            secs[label] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+        done = [f.result() for f in futures]
+    for group, (outs, _) in zip(groups, done):
+        for i, (tag, label, shape, _, _, _) in enumerate(group):
+            _check_mesh_run(tag, label, shape, i, outs, single[label],
+                            secs.get(label), logs.get(label),
+                            label in digest_runs, label in exact_runs)
+    return single, [o for o, _ in done], [t for _, t in done]
+
+
+def _check_mesh_run(tag, label, shape, i, outs, want, secs, logs, digests,
+                    exact) -> None:
+    """``_mesh_vs_single``'s checks of run ``i`` of one start of ranks."""
+    desc = _desc(shape)
+    for r, per_rank in enumerate(outs):
+        res = per_rank[i]
+        if exact:
+            got, ref = _dist_records(res), _dist_records(want)
+            check([a["step"] for a in got] == [b["step"] for b in ref],
+                  f"[{tag}] {desc} {label}: rank {r} logged steps "
+                  f"{[a['step'] for a in got]}, the single device "
+                  f"{[b['step'] for b in ref]}")
+            for a, b in zip(got, ref):
+                for key in ("loss", "grad_norm"):
+                    rel = abs(a[key] - b[key]) / max(abs(b[key]), 1e-30)
+                    check(rel <= EXACT_REL,
+                          f"[{tag}] {desc} {label}: rank {r}'s {key} "
+                          f"{a[key]} vs {b[key]} beyond {EXACT_REL}")
+            continue
+        check(_dist_records(res) == _dist_records(want),
+              f"[{tag}] {desc} {label}: rank {r}'s records differ from the "
+              f"single device's: {_dist_records(res)} vs "
+              f"{_dist_records(want)}")
+        check(res["schedule"] == want["schedule"],
+              f"[{tag}] {desc} {label}: rank {r}'s schedule differs")
+        if digests:
+            check(res["digests"] == want["block_digests"][desc][r],
+                  f"[{tag}] {desc} {label}: rank {r}'s blocks of the final "
+                  "state differ from the single device's")
+    how = "within F8's relative 1e-3" if exact else "bitwise"
+    extra = (", every rank's blocks of the final params and both moments "
+             "by digests" if digests else "")
+    took = f"single device {secs:.1f}s, " if secs is not None else ""
+    print(f"[{tag}] {desc} {label}: losses "
+          f"{[r['loss'] for r in want['records']]}, grad norms "
+          f"{[r['grad_norm'] for r in want['records']]} {how} on every "
+          f"rank{extra} ({took}rank 0 {outs[0][i]['seconds']:.1f}s, peak "
+          f"GiB by rank {_peaks(outs, i)})", flush=True)
+    if logs:
+        v_single, v_mesh = (_tick_verdicts(f) for f in logs)
+        check(v_single and v_single == v_mesh,
+              f"[{tag}] {desc} {label}: the tick's verdicts differ")
+        print(f"[{tag}] {desc} {label}: {len(v_single)} tick verdicts equal "
+              f"({sum(e['event'] != 'ok' for e in v_single)} not ok), "
+              f"schedule {want['schedule']}", flush=True)
+
+
+def _peaks(outs, i) -> list:
+    return [round(p[i].get("peak_bytes", 0) / 2**30, 2) for p in outs]
+
+
+def phase_dist_train(dev, smi: str) -> dict:
+    """Training over meshes of ranks sharing the card (gloo) against the
+    single device on the same arguments, qwen2-1.5b at full width.
+
+    ``[dist-train]``, ``--mesh 2x1``: ``DIST_LAYERS`` layers (the gloo
+    traffic grows with depth), 3 steps (losses, grad norms, lrs, skip
+    flags and loss scales bitwise; each rank's blocks of the final params
+    and both moments by digests, two integer sums of their bits computed
+    on the card, equal to the same blocks of the single device's state);
+    2 steps at 2 layers with ``--microbatches 2 --loss-scaling`` and with
+    an in-graph tick at step 2 (the same records, schedule and tick
+    verdicts); SR under the mesh, ``--rounding sr --policy perturbed --pp
+    -2`` at ``DIST_LAYERS`` layers, 2 steps, an in-graph tick at step 2
+    (E's rows, B's and K9's K-slices and K8's FWD replay at their SR
+    origins); the unfused oracle (``plan=oracle_plan``: K2 and K3 on the
+    rows and K-slices) at 2 layers, 2 steps, an in-graph tick at step 2.
+
+    ``[dist-model]``, the model axis: ``--mesh 1x2`` on the first run's
+    arguments (each GEMM's output columns over the model axis, its
+    K-slices over both ranks), in the same start of 2 ranks (``run_mesh``
+    with a mesh a job); ``--mesh 2x2`` (4 ranks) at 2 layers, 2 steps: the
+    predicted plan and ``--rounding sr`` with an eager tick at step 2 (G's
+    SR forward on the rows, at their origins), bitwise, and ``--policy
+    exact`` within 1e-3 relative (ROADMAP F8: cuBLAS's bits depend on the
+    shape).
+
+    The 2 ranks and the 4 start at once, beside the single-device runs
+    (``_mesh_vs_single``); each rank's kernel counts are read over each
+    run (from 0 at its start).  Prints each rank's peak memory and rank
+    0's step times: not a speed figure, the ranks share one card through
+    host memory, and the two starts share the host."""
+    from repro_torch.launch import train as LT
+
     tick = ["--policy", "perturbed", "--pp", "-2", "--telemetry-cadence",
             "2", "--ingraph-telemetry"]
     two = ["--n-layers", "2", "--steps", "2"]
-    jobs = [_dist_argv(), _dist_argv(*two, "--microbatches", "2",
-                                     "--loss-scaling"),
-            _dist_argv(*two, *tick)]
+    depth = ["--n-layers", str(DIST_LAYERS)]
+    sr = ["--rounding", "sr", "--sr-seed", str(TRAIN_SR_SEED)]
+    first_label = f"{DIST_LAYERS} layers"
+    t, m, s2 = "dist-train", "dist-model", DIST_SHAPE
+    ranks2 = [(t, first_label, s2, _dist_argv(*depth), None, False),
+              (t, "2 layers, --microbatches 2 --loss-scaling", s2,
+               _dist_argv(*two, "--microbatches", "2", "--loss-scaling"),
+               None, False),
+              (t, "2 layers, in-graph tick at step 2", s2,
+               _dist_argv(*two, *tick), None, True),
+              (t, f"{DIST_LAYERS} layers, --rounding sr, in-graph tick at "
+               "step 2", s2, _dist_argv(*depth, "--steps", "2", *tick, *sr),
+               None, True),
+              (t, "2 layers, the oracle, in-graph tick at step 2", s2,
+               _dist_argv(*two, *tick), LT.oracle_plan, True),
+              (m, f"{DIST_LAYERS} layers, the model axis", MODEL_SHAPE,
+               _dist_argv(*depth), None, False)]
+    eager_sr = ["--policy", "perturbed", "--pp", "-2", "--telemetry-cadence",
+                "2", *sr]
+    ranks4 = [(m, "2 layers, predicted", MESH_2X2, _dist_argv(*two), None,
+               False),
+              (m, "2 layers, --rounding sr, eager tick at step 2", MESH_2X2,
+               _dist_argv(*two, *eager_sr), None, True),
+              (m, "2 layers, --policy exact", MESH_2X2,
+               _dist_argv(*two, "--policy", "exact"), None, False)]
     t0 = time.perf_counter()
-    single = []
-    for i, argv in enumerate(jobs):
-        extra = ["--telemetry-log", str(logs[0])] if i == 2 else []
-        single.append(LT.train(
-            LT.parse_args(argv + extra),
-            finish=functools.partial(block_digests, DIST_SHAPE)
-            if i == 0 else None))
-        gc.collect()
-        torch.cuda.empty_cache()
-    t_single = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    outs = LT.run_mesh([LT.parse_args(a + (["--telemetry-log", str(logs[1])]
-                                           if i == 2 else [])
-                                      + ["--mesh", "2x1"])
-                        for i, a in enumerate(jobs)], DIST_SHAPE,
-                       finish=rank_digests, timeout_s=600)
-    t_mesh = time.perf_counter() - t0
-    labels = ("full depth", "2 layers, --microbatches 2 --loss-scaling",
-              "2 layers, in-graph tick at step 2")
-    for i, label in enumerate(labels):
-        for r, per_rank in enumerate(outs):
-            res = per_rank[i]
-            check(_dist_records(res) == _dist_records(single[i]),
-                  f"[dist-train] {label}: rank {r}'s records differ from "
-                  f"the single device's: {_dist_records(res)} vs "
-                  f"{_dist_records(single[i])}")
-            check(res["schedule"] == single[i]["schedule"],
-                  f"[dist-train] {label}: rank {r}'s schedule differs")
-        print(f"[dist-train] {label}: losses "
-              f"{[r['loss'] for r in single[i]['records']]}, grad norms "
-              f"{[r['grad_norm'] for r in single[i]['records']]} bitwise on "
-              f"both ranks", flush=True)
-    for r, per_rank in enumerate(outs):
-        check(per_rank[0]["digests"] == single[0]["block_digests"][r],
-              f"[dist-train] rank {r}'s blocks of the final state differ "
-              "from the single device's")
-    n_leaves = len(single[0]["block_digests"][0])
-    print(f"[dist-train] full depth: each rank's blocks of the final params "
-          f"and both moments ({n_leaves} leaves) bitwise the same blocks of "
-          f"the single device's state (by digests)", flush=True)
-    import json as _json
-
-    def verdicts(path):
-        with open(path) as f:
-            return [{k: e.get(k) for k in ("step", "gemm", "role", "event",
-                                            "m_acc")}
-                    for e in map(_json.loads, f)]
-
-    v_single, v_mesh = verdicts(logs[0]), verdicts(logs[1])
-    check(v_single and v_single == v_mesh,
-          "[dist-train] the in-graph tick's verdicts differ")
-    bumps = sum(e["event"] != "ok" for e in v_single)
-    print(f"[dist-train] in-graph tick: {len(v_single)} verdicts equal "
-          f"({bumps} not ok), schedule {single[2]['schedule']}", flush=True)
+    first = LT.train(LT.parse_args(ranks2[0][3]), finish=functools.partial(
+        block_digests, (DIST_SHAPE, MODEL_SHAPE)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_first = time.perf_counter() - t0
+    single, (outs, outs4), (t2, t4) = _mesh_vs_single(
+        [ranks2, ranks4], twins={first_label: first, ranks2[-1][1]: first},
+        digest_runs=[label for _, label, *_ in ranks2 + ranks4[:2]],
+        exact_runs=[ranks4[2][1]])
+    n_leaves = len(first["block_digests"][_desc(DIST_SHAPE)][0])
+    print(f"[dist-train] {n_leaves} leaves of params and moments compared "
+          "by digests in each run", flush=True)
     main_l, tick_l = outs[0][0]["launches"], outs[0][2]["launches"]
+    sr_l, or_l = outs[1][3]["launches"], outs[0][4]["launches"]
+    m_l = outs[1][5]["launches"]
+    # rank 3 of 2x2: the second batch rank and the second model rank
+    l22 = outs4[-1][1]["launches"]
     for name in ("qmatmul_fused", E_NAME, "qmatmul_bwd_pair"):
         check(main_l[name] > 0, f"[dist-train] {name} was not launched")
+        check(m_l[name] > 0, f"[dist-model] 1x2: {name} was not launched")
     check(tick_l[K9_NAME] > 0 and tick_l[K8_NAME] > 0,
           "[dist-train] the tick launched no K9 or K8")
     check(main_l[K7_NAME] == 0, "[dist-train] a dx carry entry ran")
-    print(f"[dist-train] launches on rank 0: full depth {main_l}; tick run "
-          f"{tick_l}", flush=True)
+    for name in (E_SR_NAME, B_SR_NAME, K8_SR_NAME, K9_SR_NAME):
+        check(sr_l[name] > 0, f"[dist-train] sr: {name} was not launched "
+              "on rank 1")
+    check(sr_l[E_NAME] == 0, "[dist-train] sr: a layer GEMM ran RNE E")
+    check(or_l[K2_NAME] > 0 and or_l[K3_NAME] > 0 and or_l[E_NAME] == 0
+          and or_l["qmatmul_bwd_pair"] == 0,
+          f"[dist-train] the oracle's launches are not K2 and K3: {or_l}")
+    for name in (E_SR_NAME, B_SR_NAME, G_SR_NAME, K8_SR_NAME):
+        check(l22[name] > 0, f"[dist-model] 2x2 sr: {name} was not "
+              "launched on rank 3")
+    print(f"[dist-train] launches on rank 0: {DIST_LAYERS} layers {main_l}; "
+          f"tick run {tick_l}; on rank 1, the SR run {sr_l}; on rank 0, "
+          f"the oracle run {or_l}", flush=True)
+    print(f"[dist-model] launches on rank 1 of 1x2 {m_l}; on rank 3 of 2x2 "
+          f"over the SR run {l22}", flush=True)
     step_ms = [1e3 * x for x in outs[0][0]["step_seconds"]]
-    one_ms = [1e3 * x for x in single[0]["step_seconds"]]
-    print(f"[dist-train] {smi.strip()}: backend gloo (2 ranks share the "
-          f"card); full-depth step ms on rank 0's host clock "
+    one_ms = [1e3 * x for x in first["step_seconds"]]
+    new = sum(outs[0][i]["seconds"] for i in (3, 4, 5))
+    print(f"[dist-train] {smi.strip()}: backend gloo (ranks share the "
+          f"card); {DIST_LAYERS}-layer step ms on rank 0's host clock "
           f"{[round(x, 1) for x in step_ms]} (single device "
           f"{[round(x, 1) for x in one_ms]}); peak allocated GiB by rank "
-          f"{[round(p[0].get('peak_bytes', 0) / 2**30, 2) for p in outs]} "
-          f"(single device {single[0].get('peak_bytes', 0) / 2**30:.2f}); "
-          f"single-device "
-          f"runs {t_single:.1f}s, the mesh's {t_mesh:.1f}s (process start "
-          f"included); not a speed figure", flush=True)
+          f"{_peaks(outs, 0)} at {DIST_LAYERS} layers (single device "
+          f"{first.get('peak_bytes', 0) / 2**30:.2f}; at full depth 20.92 "
+          f"against 34.62, PERF.md's record); the first single-device run "
+          f"{t_first:.1f}s; the 2 ranks {t2:.1f}s for 6 runs and the 4 "
+          f"{t4:.1f}s for 3, at once, beside the other single-device runs "
+          f"(process starts included); of the 2 ranks' time, the SR, oracle "
+          f"and 1x2 runs {new:.1f}s on rank 0; not a speed figure",
+          flush=True)
     return dict(launches=main_l["qmatmul_bwd_pair"]
                 + outs[0][1]["launches"]["qmatmul_bwd_pair"],
-                k9_launches=tick_l[K9_NAME], step_ms=step_ms)
+                k9_launches=tick_l[K9_NAME], step_ms=step_ms,
+                sr_launches=sr_l, sr4_launches=l22)
+
+
+def _desc(shape) -> str:
+    from repro_torch.launch.mesh import Mesh
+
+    return Mesh(dict(shape)).describe()
 
 
 # --------------------------------------------------------------------------
@@ -6904,6 +7301,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     dks = phase_dist_kslices(dev)
     torch.cuda.empty_cache()
+    dsr = phase_dist_sr(dev)
+    torch.cuda.empty_cache()
     dtr = phase_dist_train(dev, smi)
     torch.cuda.empty_cache()
 
@@ -7073,7 +7472,7 @@ def main() -> None:
              launches=tpe["launches"][P_CARRY_NAME], **tpk["P"]),
         # B and K9 on a rank's K-slice: the data-parallel backward
         # ([dist-train]); launches over rank 0's full-depth and microbatch
-        # runs (B) and its tick run (K9); timed at mlp_up's slice
+        # runs (B) and its tick run (K9); timed at mlp_gate's slice
         dict(name=B_KSLICE_NAME, route="cuda",
              source="src/repro_torch/csrc/bwd_pair.cu",
              replaces="src/repro/kernels/bwd_pair.py:96",
@@ -7082,6 +7481,32 @@ def main() -> None:
              source="src/repro_torch/csrc/bwd_pair.cu",
              replaces="src/repro/kernels/bwd_pair.py:214",
              launches=dtr["k9_launches"], **dks["K9"]),
+        # the SR keys' origins under a mesh ([dist-sr]): E's, K8's and G's
+        # rows and columns, B's and K9's K-slices; launches over the mesh SR
+        # runs on a rank whose origins are not 0 (rank 1 of [dist-train]'s
+        # 2x1 SR run for E, B and its tick's K8 and K9; rank 3 of
+        # [dist-model]'s 2x2 SR run for G, its eager tick's forward); timed
+        # at mlp_gate's rank-1 block (mlp_up's shape)
+        dict(name=E_SR_ORIGIN_NAME, route="cuda",
+             source="src/repro_torch/csrc/qgemm_emitq.cu",
+             replaces="src/repro/kernels/fused.py:136",
+             launches=dtr["sr_launches"][E_SR_NAME], **dsr["E"]),
+        dict(name=K8_SR_ORIGIN_NAME, route="cuda",
+             source="src/repro_torch/csrc/qgemm_stats.cu",
+             replaces="src/repro/kernels/fused.py:174",
+             launches=dtr["sr_launches"][K8_SR_NAME], **dsr["K8"]),
+        dict(name=G_SR_ORIGIN_NAME, route="cuda",
+             source="src/repro_torch/csrc/qgemm.cu",
+             replaces="src/repro/kernels/fused.py:107",
+             launches=dtr["sr4_launches"][G_SR_NAME], **dsr["G"]),
+        dict(name=B_SR_KSLICE_NAME, route="cuda",
+             source="src/repro_torch/csrc/bwd_pair.cu",
+             replaces="src/repro/kernels/bwd_pair.py:96",
+             launches=dtr["sr_launches"][B_SR_NAME], **dsr["B"]),
+        dict(name=K9_SR_KSLICE_NAME, route="cuda",
+             source="src/repro_torch/csrc/bwd_pair.cu",
+             replaces="src/repro/kernels/bwd_pair.py:214",
+             launches=dtr["sr_launches"][K9_SR_NAME], **dsr["K9"]),
         dict(name=P_RESUME_NAME, route="cuda",
              source="src/repro_torch/csrc/paged_prefill.cu",
              replaces="src/repro/kernels/attention.py:930",

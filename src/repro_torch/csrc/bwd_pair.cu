@@ -45,7 +45,10 @@
 // (Gemm::chunk0; the flat index (t, k) of K columns is unchanged), and its
 // dw column n is logical column n_offset + n of n_total (Gemm::col0, ldf;
 // the T chunk is unchanged).  So the chained segments draw the unsplit
-// call's bits.
+// call's bits.  A K-slice (k_offset, k_total: a mesh rank's columns of x
+// and rows of w) keys dx's column k as k_offset + k of k_total and dw's
+// row k as k_offset + k (Gemm::col0, ldf and row0), so the slices draw
+// the whole call's bits.
 //
 // bwd_pair_stats is the swamping-telemetry variant (K9, replacing
 // ::_pair_kernel_stats): the same pair grid on the same tile with its STATS
@@ -164,9 +167,10 @@ int launch(const float* g, long long sgt, long long sgn, const void* x,
            int K, int N, int bwd_chunk, int grad_chunk, sm90::Quant qr, int quant_g,
            sm90::Dec dec, sm90::Quant qbwd, sm90::Quant qgrad, int groups,
            unsigned seed_bwd, unsigned seed_grad, __nv_bfloat16* gq, double* part,
-           float* stats, int n_offset, int n_total, cudaStream_t s) {
+           float* stats, int n_offset, int n_total, int k_offset, int k_total,
+           cudaStream_t s) {
   if (!valid_groups(groups)) return static_cast<int>(cudaErrorInvalidValue);
-  if (SR && (n_offset % bwd_chunk != 0 || n_total < n_offset + N))
+  if (SR && (n_offset % bwd_chunk != 0 || n_total < n_offset + N || k_total < k_offset + K))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = pair_blocks(T, K, N);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
@@ -188,12 +192,12 @@ int launch(const float* g, long long sgt, long long sgn, const void* x,
   p.dx = sm90::Gemm{sm90::operand(G, sizeof(TG), sgt, sgn, T, bwd_chunk, quant_g),
                     sm90::operand(w, sizeof(TW), swk, swn, K, bwd_chunk, 0),
                     dx, K, dx_carry, T, K, N, bwd_chunk, qr, qbwd, dec, seed_bwd,
-                    n_offset / bwd_chunk};
+                    n_offset / bwd_chunk, k_offset, k_total};
   // dw[k, n] = sum_t x[t, k] g[t, n]: A = x^T (m = k, k = t), B = g
   p.dw = sm90::Gemm{sm90::operand(x, sizeof(TX), sxk, sxt, K, grad_chunk, 0),
                     sm90::operand(G, sizeof(TG), sgn, sgt, N, grad_chunk, quant_g),
                     dw, N, nullptr, K, N, T, grad_chunk, qr, qgrad, dec, seed_grad,
-                    0, n_offset, n_total};
+                    0, n_offset, n_total, k_offset};
   p.dx_tiles_n = (K + TILE - 1) / TILE;
   p.dx_blocks = ((T + TILE - 1) / TILE) * p.dx_tiles_n;
   p.dw_tiles_n = (N + TILE - 1) / TILE;
@@ -251,7 +255,7 @@ int run(const void* g, long long sgt, long long sgn, const void* x, int x_kind,
         long long sxt, long long sxk, const void* w, int w_kind, long long swk,
         long long swn, const void* dx_carry, void* dx, void* dw, int T, int K, int N,
         int bwd_chunk, int grad_chunk, int quant_g, int groups, const Call& c,
-        void* part, void* stats, int n_offset, int n_total) {
+        void* part, void* stats, int n_offset, int n_total, int k_offset, int k_total) {
   if (c.gq != nullptr && !quant_g) return static_cast<int>(cudaErrorInvalidValue);
   return by_kinds(x_kind, w_kind, c.gq != nullptr, [&](auto tx, auto tw, auto tg) {
     using TX = decltype(tx);
@@ -263,7 +267,8 @@ int run(const void* g, long long sgt, long long sgn, const void* x, int x_kind,
           static_cast<const float*>(dx_carry), static_cast<float*>(dx),
           static_cast<float*>(dw), T, K, N, bwd_chunk, grad_chunk, c.qr, quant_g, c.dec,
           c.qbwd, c.qgrad, groups, c.seed_bwd, c.seed_grad, c.gq,
-          static_cast<double*>(part), static_cast<float*>(stats), n_offset, n_total, c.s);
+          static_cast<double*>(part), static_cast<float*>(stats), n_offset, n_total, k_offset,
+          k_total, c.s);
     };
     return c.sr ? go(std::true_type{}) : go(std::false_type{});
   });
@@ -286,8 +291,10 @@ Call call_of(int e_r, int m_r, QFmt qr, QFmt qbwd, QFmt qgrad, int sr, unsigned 
 // rounding of both carries, dx's dithered under seed_bwd and dw's under
 // seed_grad, at the coordinates of the unsplit N: this call's g and w are
 // columns [n_offset, n_offset + N) of n_total (n_offset a multiple of
-// bwd_chunk; 0 and N for an unsplit call).  Returns the cudaError_t of the
-// launches.
+// bwd_chunk; 0 and N for an unsplit call), and its x columns and w rows
+// are [k_offset, k_offset + K) of k_total (a mesh rank's K-slice: dx's
+// columns and dw's rows there; 0 and K for a whole call).  Returns the
+// cudaError_t of the launches.
 extern "C" int bwd_pair(const void* g, long long sgt, long long sgn,
                         const void* x, int x_kind, long long sxt,
                         long long sxk, const void* w, int w_kind,
@@ -299,17 +306,19 @@ extern "C" int bwd_pair(const void* g, long long sgt, long long sgn,
                         float b_min, int w_identity, int w_shift,
                         float w_max, float w_min, int groups, int sr,
                         unsigned seed_bwd, unsigned seed_grad, int n_offset,
-                        int n_total, void* gq, void* stream) {
+                        int n_total, int k_offset, int k_total, void* gq,
+                        void* stream) {
   const Call c = call_of(e_r, m_r, QFmt{r_identity, r_shift, r_max, r_min},
                          QFmt{b_identity, b_shift, b_max, b_min},
                          QFmt{w_identity, w_shift, w_max, w_min}, sr, seed_bwd,
                          seed_grad, gq, stream);
   return run<false>(g, sgt, sgn, x, x_kind, sxt, sxk, w, w_kind, swk, swn, dx_carry, dx,
                     dw, T, K, N, bwd_chunk, grad_chunk, quant_g, groups, c, nullptr,
-                    nullptr, n_offset, n_total);
+                    nullptr, n_offset, n_total, k_offset, k_total);
 }
 
-// K9: bwd_pair (no carry in; sr and the seeds as there) plus stats
+// K9: bwd_pair (no carry in or N segment; sr, the seeds and the K-slice as
+// there) plus stats
 // [2, N_STATS] f32: row 0 dx (BWD), row 1 dw (GRAD); part holds
 // bwd_pair_stats_blocks(T, K, N) rows of N_STATS doubles.
 extern "C" int bwd_pair_stats(const void* g, long long sgt, long long sgn,
@@ -323,14 +332,16 @@ extern "C" int bwd_pair_stats(const void* g, long long sgt, long long sgn,
                               int b_shift, float b_max, float b_min,
                               int w_identity, int w_shift, float w_max,
                               float w_min, int groups, int sr,
-                              unsigned seed_bwd, unsigned seed_grad, void* gq,
+                              unsigned seed_bwd, unsigned seed_grad,
+                              int k_offset, int k_total, void* gq,
                               void* part, void* stats, void* stream) {
   const Call c = call_of(e_r, m_r, QFmt{r_identity, r_shift, r_max, r_min},
                          QFmt{b_identity, b_shift, b_max, b_min},
                          QFmt{w_identity, w_shift, w_max, w_min}, sr, seed_bwd,
                          seed_grad, gq, stream);
   return run<true>(g, sgt, sgn, x, x_kind, sxt, sxk, w, w_kind, swk, swn, nullptr, dx, dw,
-                   T, K, N, bwd_chunk, grad_chunk, quant_g, groups, c, part, stats, 0, N);
+                   T, K, N, bwd_chunk, grad_chunk, quant_g, groups, c, part, stats, 0, N,
+                   k_offset, k_total);
 }
 
 // Partial rows bwd_pair_stats writes (its workspace `part`, in doubles:

@@ -47,8 +47,10 @@
 //
 // Stochastic rounding (an SR template flag on the decode kernel, its fold
 // kernel and the tile): each carry update rounds with quant_sr and the
-// dither sr_bits(seed, c, m * N + n) of common.cuh, c the chunk's index in
-// the K walk and (m, n) the output, every product mod 2^32: the stream of
+// dither sr_bits(seed, c, (row0 + m) * n_cols + col0 + n) of common.cuh, c
+// the chunk's index in the K walk, (m, n) the output and (row0, col0) its
+// place in a whole output of n_cols columns (0, 0 and N by default; a mesh
+// rank's rows and columns otherwise), every product mod 2^32: the stream of
 // the JAX package's SR kernel and of E, K8 and the plain version, so C is
 // bitwise theirs under one seed on either route and any split.  In the
 // unsplit decode route a block folds its chunks in rounds of `slots`, so a
@@ -120,7 +122,15 @@ struct Decode {
   // the output epilogue (OUT bodies only): format, int8 codes, code layout
   sm90::Quant qout;
   int pack, e_o, m_o;
+  // SR only: the logical row and column of output (0, 0) in a whole
+  // output of ldf columns (0: N), a block of a longer GEMM (a mesh rank's)
+  int row0 = 0, col0 = 0, ldf = 0;
 };
+
+// The SR counter of output (m, n): its flat index in the whole output
+__device__ __forceinline__ unsigned sr_flat(const Decode& p, int m, int n) {
+  return (unsigned)(p.row0 + m) * (unsigned)(p.ldf ? p.ldf : p.N) + (unsigned)(p.col0 + n);
+}
 
 // A carry update: carry + part rounded to q, stochastically (SR) with the
 // dither of chunk c at flat index `flat`
@@ -375,7 +385,7 @@ __device__ __forceinline__ void decode_body(const Decode& p) {
       const int nr = min(slots, c_end - c0);
       for (int o = threadIdx.x; o < ROWS * W; o += blockDim.x) {
         // rows past M and columns past N alias flat indices: never stored
-        const unsigned flat = (unsigned)(m0 + o / W) * (unsigned)p.N + (unsigned)(n0 + o % W);
+        const unsigned flat = sr_flat(p, m0 + o / W, n0 + o % W);
         float carry = Cs[o];
         for (int q = 0; q < nr; ++q)
           carry = carry_add<SR>(carry, As[q * ROWS * W + o], p, (unsigned)(c0 + q), flat);
@@ -411,10 +421,11 @@ __device__ __forceinline__ void fold_body(const Decode& p) {
   if (o >= (long long)p.M * p.N) return;
   const int nc = (int)(((long long)p.K + p.chunk - 1) / p.chunk);
   const long long stride = (long long)p.M * p.N;
+  const unsigned flat = sr_flat(p, (int)(o / p.N), (int)(o % p.N));
   float carry = 0.0f;
 #pragma unroll 4
   for (int c = 0; c < nc; ++c)
-    carry = carry_add<SR>(carry, p.ws[o + c * stride], p, (unsigned)c, (unsigned)o);
+    carry = carry_add<SR>(carry, p.ws[o + c * stride], p, (unsigned)c, flat);
   store_c<OUT>(p, o, carry);
 }
 
@@ -656,7 +667,8 @@ extern "C" int qgemm_tile_out_occupancy(int a_kind, int b_kind, int groups) {
 // else a fold kernel follows), `ws` the workspace of qgemm_decode_ws
 // floats.  route 1 is the tile: `par` chunk groups a block (1, 2 or 4).
 // kernels/sm90.py picks all of them.  sr: the carries round stochastically
-// under `seed`.  Float operands without an output format run the base
+// under `seed`, C being the block at (row0, col0) of a whole output of
+// n_cols columns (0: N); RNE ignores the three.  Float operands without an output format run the base
 // kernels, the rest the out kernels.  Returns the cudaError_t of the
 // launches.
 extern "C" int qgemm(const void* A, int a_kind, long long sam, long long sak,
@@ -667,7 +679,7 @@ extern "C" int qgemm(const void* A, int a_kind, long long sam, long long sak,
                      int c_identity, int c_shift, float c_max, float c_min,
                      int o_identity, int o_shift, float o_max, float o_min,
                      int pack, int e_o, int m_o, int sr, unsigned seed,
-                     int route, int par, int slices, void* ws, void* stream) {
+                     int row0, int col0, int n_cols, int route, int par, int slices, void* ws, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const QFmt qr{r_identity, r_shift, r_max, r_min};
   const sm90::Quant qacc = sm90::quant_of(QFmt{c_identity, c_shift, c_max, c_min});
@@ -682,6 +694,9 @@ extern "C" int qgemm(const void* A, int a_kind, long long sam, long long sak,
                    sm90::operand(B, sizeof(TB), sbn, sbk, N, chunk, quant_b),
                    static_cast<float*>(C), N, nullptr, M, N, K, chunk, sm90::quant_of(qr),
                    qacc, dec, seed};
+      p.row0 = row0;
+      p.col0 = col0;
+      p.ldf = n_cols;
       p.qout = qout;
       p.pack = pack;
       p.e_o = e_o;
@@ -702,7 +717,8 @@ extern "C" int qgemm(const void* A, int a_kind, long long sam, long long sak,
   const QFmt ident{1, 0, 0.0f, 0.0f};
   const Decode p{A, sam, sak, B, sbk, sbn, static_cast<float*>(C), static_cast<float*>(ws),
                  M, N, K, chunk, slices, 0, sm90::quant_of(quant_a ? qr : ident),
-                 sm90::quant_of(quant_b ? qr : ident), qacc, seed, qout, pack, e_o, m_o};
+                 sm90::quant_of(quant_b ? qr : ident), qacc, seed, qout, pack, e_o, m_o,
+                 row0, col0, n_cols};
   return by_types(a_kind, b_kind, [&](auto ta, auto tb) {
     using TA = decltype(ta);
     using TB = decltype(tb);

@@ -224,8 +224,8 @@ template <typename TA, typename TB, typename TS>
 int launch(const void* A, long long sam, long long sak, const void* B, long long sbk,
            long long sbn, void* C, int M, int N, int K, int chunk, int e_r, int m_r, QFmt qa,
            QFmt qb, QFmt qacc, QFmt qout, int pack_out, int e_o, int m_o, int packr,
-           int groups, int sr, unsigned seed, void* Aq, void* Bq, void* QA, void* QB,
-           cudaStream_t s) {
+           int groups, int sr, unsigned seed, int row0, int col0, int n_cols, void* Aq,
+           void* Bq, void* QA, void* QB, cudaStream_t s) {
   if (!valid_groups(groups)) return static_cast<int>(cudaErrorInvalidValue);
   void* sa = packr ? QA : Aq;
   void* sb = packr ? QB : Bq;
@@ -244,6 +244,9 @@ int launch(const void* A, long long sam, long long sak, const void* B, long long
                sm90::operand(sb, sizeof(TS), 1, N, N, chunk, 0),
                static_cast<float*>(C), N, nullptr, M, N, K, chunk, sm90::quant_of(qa),
                sm90::quant_of(qacc), sm90::dec_of(e_r, m_r), seed};
+  p.row0 = row0;
+  p.col0 = col0;
+  p.ldf = n_cols;
   p.qout = sm90::quant_of(qout);
   p.pack = pack_out;
   p.e_o = e_o;
@@ -282,7 +285,9 @@ extern "C" int qgemm_emitq_out_occupancy(int f32, int groups) {
 // format); packr 0, Aq and Bq are the f32 residuals and the GEMM reads them
 // (QA, QB unused).  groups: chunk groups a block (1, 2 or 4;
 // kernels/sm90.py picks them); sr: stochastic rounding of the carry,
-// dithered under seed.  Returns the cudaError_t of the launches.
+// dithered under seed, C being the block at (row0, col0) of a whole output
+// of n_cols columns (0: N; RNE ignores the three).  Returns the
+// cudaError_t of the launches.
 extern "C" int qgemm_emitq(const void* A, int a_bf16, long long sam, long long sak,
                            const void* B, int b_bf16, long long sbk, long long sbn,
                            void* C, int M, int N, int K, int chunk, int e_r, int m_r,
@@ -291,8 +296,9 @@ extern "C" int qgemm_emitq(const void* A, int a_bf16, long long sam, long long s
                            int c_identity, int c_shift, float c_max, float c_min,
                            int o_identity, int o_shift, float o_max, float o_min,
                            int pack_out, int e_o, int m_o, int packr, int scratch_f32,
-                           int groups, int sr, unsigned seed, void* Aq, void* Bq,
-                           void* QA, void* QB, void* stream) {
+                           int groups, int sr, unsigned seed, int row0, int col0,
+                           int n_cols, void* Aq, void* Bq, void* QA, void* QB,
+                           void* stream) {
   const QFmt qa{qa_identity, qa_shift, qa_max, qa_min};
   const QFmt qb{qb_identity, qb_shift, qb_max, qb_min};
   const QFmt qacc{c_identity, c_shift, c_max, c_min};
@@ -303,7 +309,8 @@ extern "C" int qgemm_emitq(const void* A, int a_bf16, long long sam, long long s
     using TA = decltype(ta);
     using TB = decltype(tb);
 #define EMITQ_ARGS A, sam, sak, B, sbk, sbn, C, M, N, K, chunk, e_r, m_r, qa, qb, qacc, qout, \
-                   pack_out, e_o, m_o, packr, groups, sr, seed, Aq, Bq, QA, QB, s
+                   pack_out, e_o, m_o, packr, groups, sr, seed, row0, col0, n_cols, Aq, Bq, \
+                   QA, QB, s
     return f32 ? launch<TA, TB, float>(EMITQ_ARGS) : launch<TA, TB, bf>(EMITQ_ARGS);
 #undef EMITQ_ARGS
   };

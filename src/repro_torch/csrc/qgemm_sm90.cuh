@@ -46,13 +46,15 @@
 //
 // Stochastic rounding (the SR template flag of block_tile; E, K8, B, K9 and
 // G's tile route instantiate both): the fold rounds carry + partial with
-// quant_sr and the dither sr_bits(seed, chunk0 + c, (m0 + r) * ldf + col0 +
-// n0 + col) of common.cuh, c the chunk's index in this call's K walk (the
-// global one: under chunk groups, group g folds chunks g, g + G, ...),
+// quant_sr and the dither sr_bits(seed, chunk0 + c, (row0 + m0 + r) * ldf +
+// col0 + n0 + col) of common.cuh, c the chunk's index in this call's K walk
+// (the global one: under chunk groups, group g folds chunks g, g + G, ...),
 // every product mod 2^32 as the JAX package's uint32 arithmetic.  chunk0,
-// col0 and ldf place a segment of a longer GEMM (K7's dx carry entry: its
-// N segment's first chunk, and the dw segment's first column of ldf); by
-// default they are 0, 0 and N, the whole output.  The dither depends on
+// row0, col0 and ldf place a block of a longer GEMM (K7's dx carry entry:
+// its N segment's first chunk, and the dw segment's first column of ldf;
+// under a mesh, a rank's rows and columns of the whole output, and a
+// K-slice's dx columns and dw rows); by default they are 0, 0, 0 and N,
+// the whole output.  The dither depends on
 // the output element and the chunk only, so every tile, group count and
 // kernel variant of one GEMM draws the same bits.  The Threefry rounds run
 // in the fold, once a chunk an output, outside the FMA loop; the RNE
@@ -124,10 +126,11 @@ struct Gemm {
   Quant qr, qacc;
   Dec dec;
   // SR instantiations only: the dither's seed, the K-walk index of this
-  // call's first chunk, the logical column of output column 0 and the
-  // logical output's column count (0: N)
+  // call's first chunk, the logical column of output column 0, the
+  // logical output's column count (0: N) and the logical row of output
+  // row 0
   unsigned seed = 0;
-  int chunk0 = 0, col0 = 0, ldf = 0;
+  int chunk0 = 0, col0 = 0, ldf = 0, row0 = 0;
   // OUT instantiations only (block_tile's output epilogue): the output's
   // format (the identity: C as the carry) and, with pack, C as int8 codes
   // of (1, e_o, m_o) instead of floats
@@ -461,7 +464,7 @@ __device__ __forceinline__ void fold(float (&acc)[8][8], float4* P, float* Cs, f
         iv[0] = i4.x; iv[1] = i4.y; iv[2] = i4.z; iv[3] = i4.w;
       }
       // the logical flat index of the row's first output here (SR)
-      const unsigned flat0 = (unsigned)(m0 + r) * (unsigned)(p.ldf ? p.ldf : p.N) +
+      const unsigned flat0 = (unsigned)(p.row0 + m0 + r) * (unsigned)(p.ldf ? p.ldf : p.N) +
                              (unsigned)(p.col0 + n0 + c);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {

@@ -132,8 +132,9 @@ extern "C" int qgemm_stats_occupancy(int a_kind, int b_kind, int groups) {
 // int8 codes of (1, e_o, m_o) (M x N bytes); the stats row [N_STATS] f32
 // reads the carry, so it is the same with or without that epilogue;
 // groups: chunk groups a block (1, 2 or 4; kernels/sm90.py picks them);
-// sr: stochastic rounding of the carry, dithered under seed.  Returns the
-// cudaError_t of the launches.
+// sr: stochastic rounding of the carry, dithered under seed, C being the
+// block at (row0, col0) of a whole output of n_cols columns (0: N; RNE
+// ignores the three).  Returns the cudaError_t of the launches.
 extern "C" int qgemm_stats(const void* A, int a_kind, long long sam,
                            long long sak, const void* B, int b_kind,
                            long long sbk, long long sbn, void* C, int M,
@@ -144,7 +145,7 @@ extern "C" int qgemm_stats(const void* A, int a_kind, long long sam,
                            float c_min, int o_identity, int o_shift,
                            float o_max, float o_min, int pack, int e_o,
                            int m_o, int groups, int sr, unsigned seed,
-                           void* part, void* stats, void* stream) {
+                           int row0, int col0, int n_cols, void* part, void* stats, void* stream) {
   const QFmt qr{r_identity, r_shift, r_max, r_min};
   const QFmt qacc{c_identity, c_shift, c_max, c_min};
   const bool out = !o_identity || pack;
@@ -158,6 +159,9 @@ extern "C" int qgemm_stats(const void* A, int a_kind, long long sam,
                  sm90::operand(B, sizeof(TB), sbn, sbk, N, chunk, quant_b),
                  static_cast<float*>(C), N, nullptr, M, N, K, chunk, sm90::quant_of(qr),
                  sm90::quant_of(qacc), sm90::dec_of(e_r, m_r), seed};
+    p.row0 = row0;
+    p.col0 = col0;
+    p.ldf = n_cols;
     p.qout = sm90::quant_of(QFmt{o_identity, o_shift, o_max, o_min});
     p.pack = pack;
     p.e_o = e_o;

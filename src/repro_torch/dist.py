@@ -19,8 +19,10 @@ batch's rows over ``Dist.batch_axes`` and the params and moments over
 ``Dist.fsdp_axis`` (FSDP).  Its collectives name the axes they run over,
 each on the mesh's subgroup: ``all_gather`` and ``gather_rows`` (rows in
 rank order, the global batch's), ``all_to_all`` (an all-gather and a
-slice: pure movement), ``psum`` (the gathered values summed in rank
-order, so every rank holds the same bits) and ``pmax``.
+slice: pure movement), ``cat_over`` (an all-gather concatenated on a
+dim), ``psum`` (the gathered values summed in rank order, so every rank
+holds the same bits) and ``pmax``; ``k_slice`` says which slice of a
+contraction's K a rank's backward takes.
 
 Backend rule (``serve_backend``): NCCL when every rank has a card of its
 own, gloo when ranks share one (NCCL refuses two ranks on one device) and
@@ -46,7 +48,9 @@ import torch
 import torch.distributed as tdist
 
 __all__ = ["Dist", "LOCAL", "serve_backend", "init_group", "init_mesh",
+           "init_meshes",
            "psum_carry", "gather_cols", "gather_rows", "all_to_all", "pmax",
+           "split_size", "k_slice", "cat_over",
            "psum", "all_gather", "spawn", "rank_device", "GROUP_TIMEOUT_S"]
 
 # a collective that waits longer than this fails (a desync, a dead rank)
@@ -95,6 +99,38 @@ class Dist:
     def batch_rank(self) -> int:
         return 0 if self.mesh is None else \
             self.mesh.axis_index(self.batch_axes)
+
+    @property
+    def replica_axes(self) -> tuple:
+        """The mesh axes of more than one rank off the batch split (the
+        model axis; a data axis that does not divide the batch): the ranks
+        along them hold the same rows, and each GEMM splits its output
+        columns, and its backward's K-slices, over them."""
+        if self.mesh is None:
+            return ()
+        return tuple(a for a in self.mesh.axis_names
+                     if a not in self.batch_axes and self.mesh.shape[a] > 1)
+
+    @property
+    def replica_size(self) -> int:
+        return 1 if self.mesh is None else \
+            self.mesh.axis_size(self.replica_axes)
+
+    @property
+    def replica_rank(self) -> int:
+        return 0 if self.mesh is None else \
+            self.mesh.axis_index(self.replica_axes)
+
+    @property
+    def mesh_split(self) -> bool:
+        """Whether the GEMMs run on a mesh of more than one rank (their
+        backward on K-slices over every rank)."""
+        return self.batch_split or self.replica_size > 1
+
+    @property
+    def slice_axes(self) -> tuple:
+        """Every split axis: the K-slices' (batch and replica axes)."""
+        return tuple(self.batch_axes) + self.replica_axes
 
     def local_rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a global batch tensor (a contiguous block,
@@ -145,17 +181,41 @@ def init_mesh(rank: int, mesh_shape: dict, init_method: str, backend: str,
     ``mesh_shape`` (axis -> size), make the subgroups its collectives run
     over (the batch axes, the FSDP axis), and return this rank's
     ``Dist``."""
+    return init_meshes(rank, [(mesh_shape, batch_axes)], init_method,
+                       backend, fsdp_axis=fsdp_axis, timeout_s=timeout_s,
+                       device=device)[0]
+
+
+def init_meshes(rank: int, meshes: list, init_method: str, backend: str, *,
+                fsdp_axis: str | None = "data",
+                timeout_s: float = GROUP_TIMEOUT_S,
+                device: torch.device | None = None) -> list[Dist]:
+    """``init_mesh`` for several meshes over the same ranks (``meshes``:
+    (axis sizes, batch axes) pairs of one size): the world group joined
+    once, each mesh's subgroups made in order (every rank passes the same
+    list), one ``Dist`` each."""
     from repro_torch.launch.mesh import Mesh
 
-    mesh = Mesh(dict(mesh_shape), rank)
     if backend == "nccl" and device is not None:
         torch.cuda.set_device(device)
+    size = Mesh(dict(meshes[0][0])).size
     tdist.init_process_group(
-        backend, init_method=init_method, world_size=mesh.size, rank=rank,
+        backend, init_method=init_method, world_size=size, rank=rank,
         timeout=datetime.timedelta(seconds=timeout_s))
-    mesh.init_groups([tuple(batch_axes)] + ([(fsdp_axis,)] if fsdp_axis
-                                            else []))
-    return Dist(mesh=mesh, batch_axes=tuple(batch_axes), fsdp_axis=fsdp_axis)
+    out = []
+    for shape, batch_axes in meshes:
+        mesh = Mesh(dict(shape), rank)
+        if mesh.size != size:
+            raise ValueError(f"meshes of {size} and {mesh.size} ranks")
+        dist = Dist(mesh=mesh, batch_axes=tuple(batch_axes),
+                    fsdp_axis=fsdp_axis)
+        # the batch axes, FSDP's, each axis a param's storage splits over,
+        # and the replica and slice axes of the GEMMs
+        mesh.init_groups([tuple(batch_axes)]
+                         + [(a,) for a in mesh.axis_names]
+                         + [dist.replica_axes, dist.slice_axes])
+        out.append(dist)
+    return out
 
 
 def _group(dist: Dist, axis):
@@ -228,6 +288,32 @@ def all_to_all(x: torch.Tensor, dist: Dist, axis, split_dim: int,
     parts = all_gather(x, dist, axis)
     return torch.cat([p.narrow(split_dim, me * size, size) for p in parts],
                      dim=cat_dim)
+
+
+def split_size(n: int, parts: int, what: str) -> int:
+    """``n`` over ``parts`` ranks; raises naming ``what`` where it does not
+    split evenly."""
+    if n % parts:
+        raise ValueError(f"{what} = {n} does not split over {parts} ranks")
+    return n // parts
+
+
+def k_slice(k: int, dist: Dist) -> tuple[int, int, int]:
+    """(replica block's first column, slice's first column, slice width) of
+    this rank's slice of K: K in replica blocks over the replica axes, each
+    block in slices over the batch axes."""
+    per = split_size(k, dist.replica_size, "K")
+    width = split_size(per, dist.batch_size, "K")
+    r0 = dist.replica_rank * per
+    return r0, r0 + dist.batch_rank * width, width
+
+
+def cat_over(x: torch.Tensor, dist: Dist, axes, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` along mesh ``axes``, concatenated on ``dim`` in
+    rank order (pure movement); ``x`` itself along axes of one rank."""
+    if dist.mesh is None or dist.mesh.axis_size(axes) == 1:
+        return x
+    return torch.cat(all_gather(x, dist, axes), dim=dim)
 
 
 def gather_cols(y: torch.Tensor, dist: Dist) -> torch.Tensor:

@@ -57,7 +57,11 @@ JAX's ``_pair_kernel_seg`` does (``step_off``, ``col_off``, ``n_total``):
 ``n_offset``, the segment's first column in the unsplit N, shifts dx's
 N-chunk index by ``n_offset / bwd_chunk`` and dw's column by ``n_offset``
 of ``n_total`` columns, so the chained SR segments are bitwise the
-unsplit SR pair.
+unsplit SR pair.  A K-slice (``k_offset``, ``k_total``: x's columns and
+w's rows ``[k_offset, k_offset + K)`` of ``k_total``, a mesh rank's share
+of the backward) keys dx's column k as ``k_offset + k`` of ``k_total`` and
+dw's row k as ``k_offset + k``, so B's and K9's slices are bitwise the
+whole SR call's.
 
 On CPU tensors the wrappers run the plain PyTorch version; on CUDA tensors
 they launch the kernel or raise.
@@ -84,7 +88,7 @@ _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk,
-           n_offset=0, n_total=None):
+           n_offset=0, n_total=None, k_offset=0, k_total=None):
     if g.ndim != 2 or xq.ndim != 2 or wq.ndim != 2:
         raise ValueError("2-D operands required")
     t, n = g.shape
@@ -112,6 +116,10 @@ def _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk,
     if n_offset < 0 or (n_total is not None and n_total < n_offset + n):
         raise ValueError(f"segment [{n_offset}, {n_offset + n}) outside "
                          f"n_total {n_total}")
+    k = xq.shape[1]
+    if k_offset < 0 or (k_total is not None and k_total < k_offset + k):
+        raise ValueError(f"K-slice [{k_offset}, {k_offset + k}) outside "
+                         f"k_total {k_total}")
 
 
 def _operands32(g, xq, wq, fmt, packed, quantize_g):
@@ -138,27 +146,36 @@ def qmatmul_bwd_pair_reference(g, xq, wq, *, repr_fmt, bwd_acc, grad_acc,
                                quantize_g: bool = True, dx_carry=None,
                                rounding: str = "rne", sr_seed_bwd: int = 0,
                                sr_seed_grad: int = 0, n_offset: int = 0,
-                               n_total: int | None = None):
+                               n_total: int | None = None,
+                               k_offset: int = 0, k_total: int | None = None):
     """Plain PyTorch version: unpack the residuals, quantize g, then the two
     chunked GEMMs in the kernel's order (``chunked_gemm_reference``), dx
     resuming from ``dx_carry``; under SR at the segment's place
-    ``n_offset`` in ``n_total`` columns.  Bitwise the kernel."""
+    ``n_offset`` in ``n_total`` columns and the K-slice's ``k_offset`` in
+    ``k_total``.  Bitwise the kernel."""
     fmt = fmt_tuple(repr_fmt)
     _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk,
-           n_offset, n_total)
+           n_offset, n_total, k_offset, k_total)
     _check_sr(rounding, n_offset, bwd_chunk)
     g32, x32, w32 = _operands32(g, xq, wq, fmt, packed, quantize_g)
     dx = chunked_gemm_reference(g32, w32.T, e_acc=bwd_acc[0],
                                 m_acc=bwd_acc[1], block_k=bwd_chunk,
                                 carry=dx_carry, rounding=rounding,
                                 sr_seed=as_sr_seed(sr_seed_bwd),
-                                step0=n_offset // bwd_chunk)
+                                step0=n_offset // bwd_chunk, col0=k_offset,
+                                n_cols=_total(k_offset, k_total, x32))
     dw = chunked_gemm_reference(x32.T, g32, e_acc=grad_acc[0],
                                 m_acc=grad_acc[1], block_k=grad_chunk,
                                 rounding=rounding,
                                 sr_seed=as_sr_seed(sr_seed_grad),
-                                col0=n_offset, n_cols=n_total)
+                                col0=n_offset, n_cols=n_total, row0=k_offset)
     return dx, dw
+
+
+def _total(k_offset: int, k_total: int | None, x) -> int:
+    """The whole K of a K-slice at ``k_offset`` (None: this slice ends
+    it)."""
+    return k_offset + x.shape[1] if k_total is None else k_total
 
 
 def qmatmul_bwd_pair_stats_reference(g, xq, wq, *, repr_fmt, bwd_acc,
@@ -167,23 +184,29 @@ def qmatmul_bwd_pair_stats_reference(g, xq, wq, *, repr_fmt, bwd_acc,
                                      quantize_g: bool = True,
                                      rounding: str = "rne",
                                      sr_seed_bwd: int = 0,
-                                     sr_seed_grad: int = 0):
+                                     sr_seed_grad: int = 0,
+                                     k_offset: int = 0,
+                                     k_total: int | None = None):
     """Plain PyTorch version of K9's kernel: ``(dx, dw, rows)`` with dx, dw
-    as ``qmatmul_bwd_pair_reference`` and ``rows`` the (2, N_STATS)
-    float32 stats of the dx and dw accumulators
+    as ``qmatmul_bwd_pair_reference`` (the K-slice too) and ``rows`` the
+    (2, N_STATS) float32 stats of the dx and dw accumulators
     (``chunked_gemm_reference(..., stats=True)``)."""
     fmt = fmt_tuple(repr_fmt)
-    _check(g, xq, wq, fmt, packed, None, bwd_chunk, grad_chunk)
+    _check(g, xq, wq, fmt, packed, None, bwd_chunk, grad_chunk,
+           k_offset=k_offset, k_total=k_total)
     check_rounding(rounding)
     g32, x32, w32 = _operands32(g, xq, wq, fmt, packed, quantize_g)
     dx, rx = chunked_gemm_reference(g32, w32.T, e_acc=bwd_acc[0],
                                     m_acc=bwd_acc[1], block_k=bwd_chunk,
                                     stats=True, rounding=rounding,
-                                    sr_seed=as_sr_seed(sr_seed_bwd))
+                                    sr_seed=as_sr_seed(sr_seed_bwd),
+                                    col0=k_offset,
+                                    n_cols=_total(k_offset, k_total, x32))
     dw, rw = chunked_gemm_reference(x32.T, g32, e_acc=grad_acc[0],
                                     m_acc=grad_acc[1], block_k=grad_chunk,
                                     stats=True, rounding=rounding,
-                                    sr_seed=as_sr_seed(sr_seed_grad))
+                                    sr_seed=as_sr_seed(sr_seed_grad),
+                                    row0=k_offset)
     return dx, dw, torch.stack([rx, rw])
 
 
@@ -191,12 +214,13 @@ _LL, _I, _P, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_flo
 _U = ctypes.c_uint
 _ARGTYPES = ([_P, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _P, _P,
               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I]
-             + [_I, _I, _F, _F] * 2 + [_I, _I, _U, _U, _I, _I, _P, _P])
+             + [_I, _I, _F, _F] * 2 + [_I, _I, _U, _U, _I, _I, _I, _I, _P, _P])
 
 
 _STATS_ARGTYPES = ([_P, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I]
-                   + [_I, _I, _F, _F] * 2 + [_I, _I, _U, _U, _P, _P, _P, _P])
+                   + [_I, _I, _F, _F] * 2
+                   + [_I, _I, _U, _U, _I, _I, _P, _P, _P, _P])
 
 
 def _check_devices(*ts):
@@ -217,7 +241,7 @@ def _g_scratch(g, fmt, quantize_g):
 
 
 def _launch_stats(g, xq, wq, *, fmt, bwd_acc, grad_acc, bwd_chunk,
-                  grad_chunk, quantize_g, sr, seeds):
+                  grad_chunk, quantize_g, sr, seeds, k_offset, k_total):
     """K9, ``qmatmul_bwd_pair(..., collect_stats=True)``."""
     _check_devices(g, xq, wq)
     t, n = g.shape
@@ -244,7 +268,8 @@ def _launch_stats(g, xq, wq, *, fmt, bwd_acc, grad_acc, bwd_chunk,
         dx.data_ptr(), dw.data_ptr(), t, k, n, bwd_chunk, grad_chunk,
         e_r, m_r, *qfmt_args(fmt or _WIDE), int(quant),
         *qfmt_args(bwd_acc), *qfmt_args(grad_acc), sched.groups, int(sr),
-        *seeds, None if gq is None else gq.data_ptr(), part.data_ptr(),
+        *seeds, k_offset, _total(k_offset, k_total, xq),
+        None if gq is None else gq.data_ptr(), part.data_ptr(),
         rows.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bwd_pair_stats launch failed: CUDA error {rc}")
@@ -256,7 +281,8 @@ def _launch_stats(g, xq, wq, *, fmt, bwd_acc, grad_acc, bwd_chunk,
 
 
 def _launch(g, xq, wq, dx_carry, *, fmt, bwd_acc, grad_acc, bwd_chunk,
-            grad_chunk, quantize_g, sr, seeds, n_offset, n_total):
+            grad_chunk, quantize_g, sr, seeds, n_offset, n_total, k_offset,
+            k_total):
     _check_devices(g, xq, wq, dx_carry)
     t, n = g.shape
     k = xq.shape[1]
@@ -285,6 +311,7 @@ def _launch(g, xq, wq, dx_carry, *, fmt, bwd_acc, grad_acc, bwd_chunk,
         e_r, m_r, *qfmt_args(fmt or _WIDE), int(quant),
         *qfmt_args(bwd_acc), *qfmt_args(grad_acc), sched.groups, int(sr),
         *seeds, n_offset, n_offset + n if n_total is None else n_total,
+        k_offset, _total(k_offset, k_total, xq),
         None if gq is None else gq.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -307,7 +334,8 @@ def qmatmul_bwd_pair(g, xq, wq, *, repr_fmt, bwd_acc=_WIDE, grad_acc=_WIDE,
                      dx_carry=None, collect_stats: bool = False,
                      rounding: str = "rne", sr_seed_bwd: int = 0,
                      sr_seed_grad: int = 0, n_offset: int = 0,
-                     n_total: int | None = None):
+                     n_total: int | None = None, k_offset: int = 0,
+                     k_total: int | None = None):
     """``(dx, dw)`` of one dense layer, both float32, in one launch.
 
     * ``g`` [T, N] float32, any strides; quantized to ``repr_fmt`` on load
@@ -324,6 +352,10 @@ def qmatmul_bwd_pair(g, xq, wq, *, repr_fmt, bwd_acc=_WIDE, grad_acc=_WIDE,
       ``n_offset + N``), read only under SR, where ``n_offset`` must be a
       multiple of ``bwd_chunk``: the segment's dither keys on the unsplit
       call's N chunks and dw columns;
+    * ``k_offset``/``k_total``: this call's x columns and w rows are
+      ``[k_offset, k_offset + K)`` of a whole K of ``k_total`` (None:
+      ``k_offset + K``), read only under SR: dx's columns and dw's rows
+      key on the whole call's (a mesh rank's K-slice; with stats too);
     * ``collect_stats=True`` is K9's kernel: returns ``(dx, dw, rows)``
       with ``rows`` the (2, N_STATS) float32 stats on the device (row 0
       dx, row 1 dw), counted on ``stats_launches``; no ``dx_carry``;
@@ -339,7 +371,7 @@ def qmatmul_bwd_pair(g, xq, wq, *, repr_fmt, bwd_acc=_WIDE, grad_acc=_WIDE,
     bwd_acc, grad_acc = tuple(bwd_acc), tuple(grad_acc)
     tensors = [t for t in (g, xq, wq, dx_carry) if t is not None]
     sr_kw = dict(rounding=rounding, sr_seed_bwd=seeds[0],
-                 sr_seed_grad=seeds[1])
+                 sr_seed_grad=seeds[1], k_offset=k_offset, k_total=k_total)
     if collect_stats:
         if dx_carry is not None or n_offset or n_total is not None:
             raise ValueError("collect_stats takes no dx_carry or segment "
@@ -350,9 +382,11 @@ def qmatmul_bwd_pair(g, xq, wq, *, repr_fmt, bwd_acc=_WIDE, grad_acc=_WIDE,
         if all(t.device.type == "cpu" for t in tensors):
             return qmatmul_bwd_pair_stats_reference(g, xq, wq, packed=packed,
                                                     **kw, **sr_kw)
-        _check(g, xq, wq, fmt, packed, None, bwd_chunk, grad_chunk)
+        _check(g, xq, wq, fmt, packed, None, bwd_chunk, grad_chunk,
+               k_offset=k_offset, k_total=k_total)
         kw["fmt"] = kw.pop("repr_fmt")
-        return _launch_stats(g, xq, wq, sr=sr, seeds=seeds, **kw)
+        return _launch_stats(g, xq, wq, sr=sr, seeds=seeds,
+                             k_offset=k_offset, k_total=k_total, **kw)
     if all(t.device.type == "cpu" for t in tensors):
         return qmatmul_bwd_pair_reference(
             g, xq, wq, repr_fmt=fmt, bwd_acc=bwd_acc, grad_acc=grad_acc,
@@ -360,11 +394,12 @@ def qmatmul_bwd_pair(g, xq, wq, *, repr_fmt, bwd_acc=_WIDE, grad_acc=_WIDE,
             quantize_g=quantize_g, dx_carry=dx_carry, n_offset=n_offset,
             n_total=n_total, **sr_kw)
     _check(g, xq, wq, fmt, packed, dx_carry, bwd_chunk, grad_chunk,
-           n_offset, n_total)
+           n_offset, n_total, k_offset, k_total)
     return _launch(g, xq, wq, dx_carry, fmt=fmt, bwd_acc=bwd_acc,
                    grad_acc=grad_acc, bwd_chunk=bwd_chunk,
                    grad_chunk=grad_chunk, quantize_g=quantize_g, sr=sr,
-                   seeds=seeds, n_offset=n_offset, n_total=n_total)
+                   seeds=seeds, n_offset=n_offset, n_total=n_total,
+                   k_offset=k_offset, k_total=k_total)
 
 
 qmatmul_bwd_pair.launches = 0

@@ -68,7 +68,11 @@ rounds once to float32, so the row is the same bits on every launch.
 an output's carry update is a Threefry draw keyed on the seed, the chunk's
 index in the K walk and the output's flat logical index
 (``kernels.common.sr_random_bits``), the JAX package's stream bit for
-bit, so G's, E's and K8's C agree under one seed.  All three carry it on
+bit, so G's, E's and K8's C agree under one seed.  ``row0``, ``col0`` and
+``n_cols`` place the output in a whole one (a mesh rank's rows or
+columns), so each block draws the whole call's bits there; the kernels
+take them as three more arguments and only their SR folds read them.
+All three carry it on
 the card: the tile's fold (``csrc/qgemm_sm90.cuh``) for E, K8 and G's
 tile route, and G's decode kernel and its split call's fold kernel
 (``csrc/qgemm.cu``), each an SR instantiation beside the RNE one.  The
@@ -122,7 +126,7 @@ from repro_torch.quant.qtensor import pack_block, unpack_block
 
 __all__ = ["qmatmul_fused", "qmatmul_fused_reference", "qmatmul_fused_with",
            "qmatmul_fused_stats_reference", "chunked_gemm_reference",
-           "emit_output", "as_sr_seed"]
+           "emit_output", "as_sr_seed", "check_origin"]
 
 _WIDE = (8, 23)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -185,7 +189,7 @@ def chunked_gemm_reference(a32: torch.Tensor, b32: torch.Tensor, *,
                            carry: torch.Tensor | None = None,
                            stats: bool = False, rounding: str = "rne",
                            sr_seed: int = 0, step0: int = 0, col0: int = 0,
-                           n_cols: int | None = None):
+                           n_cols: int | None = None, row0: int = 0):
     """The kernels' chunked carry on float32 operands taken as they are:
     per chunk of K, an f32 partial of rank-1 updates in increasing k (one
     multiply-add each), then ``carry = q_acc(carry + partial)``, with a
@@ -194,9 +198,10 @@ def chunked_gemm_reference(a32: torch.Tensor, b32: torch.Tensor, *,
 
     ``rounding="sr"`` rounds each update stochastically, the dither keyed
     on ``sr_seed``, the chunk's index ``step0 + c`` (c from 0, the first
-    chunk dithered too) and the flat index ``row * n_cols + col0 + col``
-    of the (M, N) output (``n_cols`` None: N).  ``step0``, ``col0`` and
-    ``n_cols`` place a segment in a longer GEMM, as K7's kernel does.
+    chunk dithered too) and the flat index ``(row0 + row) * n_cols + col0
+    + col`` of the (M, N) output (``n_cols`` None: N).  ``step0``,
+    ``row0``, ``col0`` and ``n_cols`` place a block in a longer GEMM, as
+    K7's kernel does and as a mesh rank's rows, columns or K-slice do.
 
     ``stats=True`` also keeps the f32 shadow carry ``ideal += partial`` and
     returns ``(carry, row)``: the float32 (N_STATS,) stats row, reduced in
@@ -213,7 +218,7 @@ def chunked_gemm_reference(a32: torch.Tensor, b32: torch.Tensor, *,
     if rounding == "sr":
         dev = carry.device
         flat = sr_flat_index(
-            torch.arange(m, dtype=torch.int64, device=dev)[:, None],
+            row0 + torch.arange(m, dtype=torch.int64, device=dev)[:, None],
             col0 + torch.arange(n, dtype=torch.int64, device=dev)[None, :],
             n if n_cols is None else n_cols)
     for k0 in range(0, k, block_k):
@@ -250,11 +255,13 @@ def qmatmul_fused_reference(a: torch.Tensor, b: torch.Tensor, *,
                             return_quantized: bool = False,
                             pack_residuals: bool = True, out_fmt=None,
                             pack_out: bool = False, rounding: str = "rne",
-                            sr_seed: int = 0):
+                            sr_seed: int = 0, row0: int = 0, col0: int = 0,
+                            n_cols: int | None = None):
     """Plain PyTorch version of G (and of E with ``return_quantized``), in
     the kernel's order: each operand unpacked (int8 codes) or quantized
     (unless its ``quantize_*`` is off), then ``chunked_gemm_reference``
-    (under ``rounding``/``sr_seed``), then the output epilogue
+    (under ``rounding``/``sr_seed``, the output the block at ``row0``,
+    ``col0`` of ``n_cols`` columns), then the output epilogue
     (``emit_output``); E's residuals are the quantized operands, as int8
     codes (``pack_block``) with ``pack_residuals`` or as float32.
     Bitwise the kernels; bitwise the JAX reference wherever the
@@ -267,11 +274,13 @@ def qmatmul_fused_reference(a: torch.Tensor, b: torch.Tensor, *,
     check_rounding(rounding)
     if return_quantized and pack_residuals:
         _check_packable(fmt)
+    n_cols = check_origin(row0, col0, n_cols, b.shape[1])
     a32 = _operand32(a, a_packed, quantize_a, fmt)
     b32 = _operand32(b, b_packed, quantize_b, fmt)
     y = chunked_gemm_reference(a32, b32, e_acc=e_acc, m_acc=m_acc,
                                block_k=block_k, rounding=rounding,
-                               sr_seed=as_sr_seed(sr_seed))
+                               sr_seed=as_sr_seed(sr_seed), row0=row0,
+                               col0=col0, n_cols=n_cols)
     y = emit_output(y, out_fmt, pack_out)
     if return_quantized and pack_residuals:
         return y, pack_block(a32, *fmt), pack_block(b32, *fmt)
@@ -288,9 +297,12 @@ def qmatmul_fused_stats_reference(a: torch.Tensor, b: torch.Tensor, *,
                                   a_packed: bool = False,
                                   b_packed: bool = False, out_fmt=None,
                                   pack_out: bool = False,
-                                  rounding: str = "rne", sr_seed: int = 0):
+                                  rounding: str = "rne", sr_seed: int = 0,
+                                  row0: int = 0, col0: int = 0,
+                                  n_cols: int | None = None):
     """Plain PyTorch version of K8's kernel: ``(C, row)``, C as
-    ``qmatmul_fused_reference`` and the float32 (N_STATS,) stats row of
+    ``qmatmul_fused_reference`` (the SR origin too) and the float32
+    (N_STATS,) stats row of
     ``chunked_gemm_reference(..., stats=True)``, taken from the carry
     before the output epilogue.  C, the counters and MAX_ABS are bitwise
     the kernel's; the float64 sums add the same terms in another order."""
@@ -298,13 +310,29 @@ def qmatmul_fused_stats_reference(a: torch.Tensor, b: torch.Tensor, *,
     _check(a, b, fmt, a_packed, b_packed)
     _check_out(out_fmt, pack_out)
     check_rounding(rounding)
+    n_cols = check_origin(row0, col0, n_cols, b.shape[1])
     a32 = _operand32(a, a_packed, quantize_a, fmt)
     b32 = _operand32(b, b_packed, quantize_b, fmt)
     c, row = chunked_gemm_reference(a32, b32, e_acc=e_acc, m_acc=m_acc,
                                     block_k=block_k, stats=True,
                                     rounding=rounding,
-                                    sr_seed=as_sr_seed(sr_seed))
+                                    sr_seed=as_sr_seed(sr_seed), row0=row0,
+                                    col0=col0, n_cols=n_cols)
     return emit_output(c, out_fmt, pack_out), row
+
+
+def check_origin(row0: int, col0: int, n_cols: int | None, n: int) -> int:
+    """The SR origin's logical column count (``n_cols``, None: N) after
+    its checks: the (M, N) output is the block at ``row0``, ``col0`` of a
+    whole output of ``n_cols`` columns."""
+    if n_cols is None:
+        if col0:
+            raise ValueError("col0 needs n_cols, the whole output's columns")
+        n_cols = n
+    if row0 < 0 or col0 < 0 or n_cols < col0 + n:
+        raise ValueError(f"columns [{col0}, {col0 + n}) (row0 {row0}) "
+                         f"outside n_cols {n_cols}")
+    return n_cols
 
 
 def _check_packable(fmt) -> None:
@@ -325,8 +353,9 @@ _U = ctypes.c_uint
 _Q = [_I, _I, _F, _F]           # a QFmt's four C arguments
 # the operands, C, M, N, K, the chunk and the code layout (e_r, m_r)
 _GEMM = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P, _I, _I, _I, _I, _I, _I]
+_ORIGIN = [_I, _I, _I]          # the SR origin: row0, col0, n_cols
 _ARGTYPES = (_GEMM + _Q + [_I, _I] + _Q + _Q
-             + [_I, _I, _I, _I, _U, _I, _I, _I, _P, _P])
+             + [_I, _I, _I, _I, _U] + _ORIGIN + [_I, _I, _I, _P, _P])
 
 
 def qmatmul_fused_with(a: torch.Tensor, b: torch.Tensor, schedule, *,
@@ -335,21 +364,24 @@ def qmatmul_fused_with(a: torch.Tensor, b: torch.Tensor, schedule, *,
                        quantize_b: bool = True, a_packed: bool = False,
                        b_packed: bool = False, out_fmt=None,
                        pack_out: bool = False, rounding: str = "rne",
-                       sr_seed: int = 0) -> torch.Tensor:
+                       sr_seed: int = 0, row0: int = 0, col0: int = 0,
+                       n_cols: int | None = None) -> torch.Tensor:
     """G on CUDA tensors under a given schedule: a ``sm90.DecodeSchedule``
     (the decode route, any split; float operands only) or a
-    ``sm90.Schedule`` (the tile), under ``rounding``/``sr_seed``, with
-    G's operand and output variants.  Every schedule gives the same
-    bits; ``qmatmul_fused`` takes ``sm90.g_schedule``'s.  Counts nothing:
-    it serves route timings and the tests of each schedule."""
+    ``sm90.Schedule`` (the tile), under ``rounding``/``sr_seed`` (and the
+    SR origin), with G's operand and output variants.  Every schedule
+    gives the same bits; ``qmatmul_fused`` takes ``sm90.g_schedule``'s.
+    Counts nothing: it serves route timings and the tests of each
+    schedule."""
     fmt = fmt_tuple(repr_fmt)
     _check(a, b, fmt, a_packed, b_packed)
     out = _check_out(out_fmt, pack_out)
     sr = check_rounding(rounding)
     _check_cuda(a, b, block_k)
+    origin = (row0, col0, check_origin(row0, col0, n_cols, b.shape[1]))
     return _g(a, b, schedule, fmt, e_acc, m_acc, block_k, sr,
               as_sr_seed(sr_seed), qa=quantize_a, qb=quantize_b, out=out,
-              pack=pack_out)
+              pack=pack_out, origin=origin)
 
 
 # qfmt_args of the few formats in use, built once (G runs ~200 times a
@@ -358,9 +390,10 @@ _qfmt = functools.lru_cache(maxsize=64)(qfmt_args)
 
 
 def _g(a, b, schedule, fmt, e_acc, m_acc, block_k, sr: bool, seed: int, *,
-       qa: bool = True, qb: bool = True, out=None,
-       pack: bool = False) -> torch.Tensor:
-    """G's launch on checked CUDA operands (SR: under ``seed``), with the
+       qa: bool = True, qb: bool = True, out=None, pack: bool = False,
+       origin=(0, 0, 0)) -> torch.Tensor:
+    """G's launch on checked CUDA operands (SR: under ``seed`` at the
+    checked ``origin``, (row0, col0, n_cols)), with the
     output format ``out`` (``pack``: as int8 codes).  ``qa``/``qb`` off:
     that operand is not quantized (codes never are)."""
     m, k = a.shape
@@ -386,7 +419,7 @@ def _g(a, b, schedule, fmt, e_acc, m_acc, block_k, sr: bool, seed: int, *,
         c.data_ptr(), m, n, k, block_k, *fmt, *_qfmt(fmt),
         int(quant and qa and ka != 2), int(quant and qb and kb != 2),
         *_qfmt((e_acc, m_acc)), *_qfmt(o), int(pack), *o, int(sr), seed,
-        route, par, slices, None if ws is None else ws.data_ptr(),
+        *origin, route, par, slices, None if ws is None else ws.data_ptr(),
         torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qgemm launch failed: CUDA error {rc}")
@@ -400,7 +433,8 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
                   return_quantized: bool = False,
                   pack_residuals: bool = True, out_fmt=None,
                   pack_out: bool = False, collect_stats: bool = False,
-                  rounding: str = "rne", sr_seed: int = 0):
+                  rounding: str = "rne", sr_seed: int = 0, row0: int = 0,
+                  col0: int = 0, n_cols: int | None = None):
     """C[M, N] = Q(A) @ Q(B) with a (1, e_acc, m_acc) carry rounded every
     ``block_k`` products (the chunk n1).
 
@@ -428,7 +462,12 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
       device (read with ``telemetry.stats.EnsembleStats.from_raw``);
       exclusive with ``return_quantized``;
     * ``rounding``: ``"rne"`` or ``"sr"``, the carry's rounding;
-      ``sr_seed`` (an int, taken mod 2^32) keys SR's dither.
+      ``sr_seed`` (an int, taken mod 2^32) keys SR's dither;
+    * ``row0``, ``col0``, ``n_cols``: C is the block at row ``row0`` and
+      column ``col0`` of a whole output of ``n_cols`` columns (None: N),
+      so SR's dither keys on the whole output's flat index, the same bits
+      as the whole call's there (a mesh rank's rows or columns); RNE
+      ignores them.
 
     Counts, one a call: G's base calls on ``launches`` (RNE) or
     ``sr_launches``, the fold kernels of split decode calls on
@@ -447,6 +486,7 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
     _check(a, b, fmt, a_packed, b_packed)
     out = (None if out_fmt is None and not pack_out
            else _check_out(out_fmt, pack_out))
+    origin = (row0, col0, check_origin(row0, col0, n_cols, b.shape[1]))
     on_cpu = a.device.type == "cpu" and b.device.type == "cpu"
     if collect_stats or return_quantized or on_cpu:
         _check_variants(return_quantized, a_packed, b_packed)
@@ -456,7 +496,8 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
                              "pick one")
         kw = dict(repr_fmt=fmt, e_acc=e_acc, m_acc=m_acc, block_k=block_k,
                   quantize_a=quantize_a, quantize_b=quantize_b, out_fmt=out,
-                  pack_out=pack_out, rounding=rounding, sr_seed=seed)
+                  pack_out=pack_out, rounding=rounding, sr_seed=seed,
+                  row0=origin[0], col0=origin[1], n_cols=origin[2])
         if collect_stats:
             return _stats(a, b, a_packed=a_packed, b_packed=b_packed, **kw)
         if return_quantized:
@@ -469,7 +510,8 @@ def qmatmul_fused(a: torch.Tensor, b: torch.Tensor, *, repr_fmt=None,
     sched = sm90.g_schedule(m, n, k, block_k, _KINDS[a.dtype],
                             _KINDS[b.dtype])
     c = _g(a, b, sched, fmt, e_acc, m_acc, block_k, sr, seed,
-           qa=quantize_a, qb=quantize_b, out=out, pack=pack_out)
+           qa=quantize_a, qb=quantize_b, out=out, pack=pack_out,
+           origin=origin)
     if m and n:
         fold = isinstance(sched, sm90.DecodeSchedule) and sched.slices > 1
         operands = a_packed or b_packed or (
@@ -505,17 +547,19 @@ qmatmul_fused.emitq_f32_launches = 0
 qmatmul_fused.stats_out_launches = 0
 
 _STATS_ARGTYPES = (_GEMM + _Q + [_I, _I] + _Q + _Q
-                   + [_I, _I, _I, _I, _I, _U, _P, _P, _P])
+                   + [_I, _I, _I, _I, _I, _U] + _ORIGIN + [_P, _P, _P])
 
 
 def _stats(a, b, *, repr_fmt, e_acc, m_acc, block_k, quantize_a, quantize_b,
-           a_packed, b_packed, out_fmt, pack_out, rounding, sr_seed):
+           a_packed, b_packed, out_fmt, pack_out, rounding, sr_seed, row0,
+           col0, n_cols):
     """K8, ``qmatmul_fused(..., collect_stats=True)``, on checked operands
-    (``out_fmt`` as ``_check_out`` returns it)."""
+    (``out_fmt`` as ``_check_out`` returns it, the origin checked)."""
     kw = dict(repr_fmt=repr_fmt, e_acc=e_acc, m_acc=m_acc, block_k=block_k,
               quantize_a=quantize_a, quantize_b=quantize_b,
               a_packed=a_packed, b_packed=b_packed, out_fmt=out_fmt,
-              pack_out=pack_out, rounding=rounding, sr_seed=sr_seed)
+              pack_out=pack_out, rounding=rounding, sr_seed=sr_seed,
+              row0=row0, col0=col0, n_cols=n_cols)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return qmatmul_fused_stats_reference(a, b, **kw)
     _check_cuda(a, b, block_k)
@@ -543,7 +587,8 @@ def _stats(a, b, *, repr_fmt, e_acc, m_acc, block_k, quantize_a, quantize_b,
         int(quant and quantize_a and not a_packed),
         int(quant and quantize_b and not b_packed),
         *_qfmt((e_acc, m_acc)), *_qfmt(o), int(pack_out), *o, sched.groups,
-        int(rounding == "sr"), sr_seed, part.data_ptr(), row.data_ptr(),
+        int(rounding == "sr"), sr_seed, row0, col0, n_cols, part.data_ptr(),
+        row.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qgemm_stats launch failed: CUDA error {rc}")
@@ -564,11 +609,13 @@ def _check_cuda(a, b, block_k) -> None:
 
 
 _EMITQ_ARGTYPES = (_GEMM + _Q + _Q + _Q + _Q
-                   + [_I, _I, _I, _I, _I, _I, _I, _U, _P, _P, _P, _P, _P])
+                   + [_I, _I, _I, _I, _I, _I, _I, _U] + _ORIGIN
+                   + [_P, _P, _P, _P, _P])
 
 
 def _emitq(a, b, *, repr_fmt, e_acc, m_acc, block_k, quantize_a, quantize_b,
-           pack_residuals, out_fmt, pack_out, rounding, sr_seed):
+           pack_residuals, out_fmt, pack_out, rounding, sr_seed, row0, col0,
+           n_cols):
     """Kernel E, ``qmatmul_fused(..., return_quantized=True)``, on checked
     operands: the quantize-and-pack pass, then the GEMM; one count a
     call, the base calls (int8 residuals of both operands quantized, no
@@ -581,7 +628,8 @@ def _emitq(a, b, *, repr_fmt, e_acc, m_acc, block_k, quantize_a, quantize_b,
             a, b, repr_fmt=fmt, e_acc=e_acc, m_acc=m_acc, block_k=block_k,
             quantize_a=quantize_a, quantize_b=quantize_b,
             return_quantized=True, pack_residuals=packr, out_fmt=out_fmt,
-            pack_out=pack_out, rounding=rounding, sr_seed=sr_seed)
+            pack_out=pack_out, rounding=rounding, sr_seed=sr_seed, row0=row0,
+            col0=col0, n_cols=n_cols)
     _check_cuda(a, b, block_k)
     m, k = a.shape
     n = b.shape[1]
@@ -616,7 +664,8 @@ def _emitq(a, b, *, repr_fmt, e_acc, m_acc, block_k, quantize_a, quantize_b,
         out.data_ptr(), m, n, k, block_k, e_r, m_r,
         *_qfmt(fmt if qa else _WIDE), *_qfmt(fmt if qb else _WIDE),
         *_qfmt((e_acc, m_acc)), *_qfmt(o), int(pack_out), *o, int(packr),
-        int(f32), sched.groups, sr, sr_seed, aq.data_ptr(), bq.data_ptr(),
+        int(f32), sched.groups, sr, sr_seed, row0, col0, n_cols,
+        aq.data_ptr(), bq.data_ptr(),
         None if sa is None else sa.data_ptr(),
         None if sb is None else sb.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)

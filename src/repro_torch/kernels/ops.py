@@ -46,18 +46,26 @@ device rows to the active in-graph collector (``obs.ingraph``) without a
 host sync.  A tagged oracle (``fused=False``) replays all three roles
 through K8's kernel on its f32 residuals and g, as the JAX package does.
 
-Under a mesh whose batch is split over ranks (``qdot(..., dist=)`` with
-``dist.batch_split``), FWD runs on the rank's rows with the whole w (rows
-are independent), and the backward splits outputs, never a contraction:
-g is gathered over the batch ranks in row order, each rank receives the
-residual codes of every row for its slice of K's columns (an all-to-all),
-and one B launch on that K-slice gives ``dx[:, ks]`` for every row and
-``dw[ks, :]``, each element the single device's chunked sum in its order.
-dx returns to the rows' owners (an all-to-all) and dw's K-slices are
-gathered, so every rank holds the single device's dw bit for bit.  A
-config's ``stats_axis`` (the batch axes) reduces each stats row over those
-ranks (``_psum_row``, JAX's ``_emit_stats_row``); every rank keeps the
-global row, since each rank's controller must reach the same verdicts.
+Under a mesh (``qdot(..., dist=)`` with ``dist.mesh_split``) the port
+splits outputs, never a contraction (a split contraction would sum
+partial sums in another order).  FWD runs on the rank's rows (the batch
+axes split them) and, over the replica axes (the model axis; ranks that
+hold the same rows), on the rank's block of w's columns, the blocks
+gathered after it: every element is the single device's, and under SR
+its dither keys on its place in the whole output (``row0``, ``col0``,
+``n_cols``).  The backward runs on K-slices over every rank: g is
+gathered over the batch ranks in row order, each rank receives the
+residuals of every row for its slice of K's columns (an all-to-all over
+the batch axes inside its replica block of K), and one B launch on that
+K-slice gives ``dx[:, ks]`` for every row and ``dw[ks, :]``, each element
+the single device's chunked sum in its order (``k_offset``/``k_total``
+key SR there).  dx returns to the rows' owners (an all-to-all, then the
+replica blocks gathered) and dw's K-slices are gathered, so every rank
+holds the single device's dw bit for bit.  The oracle splits alike (K2
+and K3 on the same blocks).  A tagged backward reduces each stats row
+over the axes its role's work is split over (``_psum_row``, JAX's
+``_emit_stats_row``); every rank keeps the global row, since each rank's
+controller must reach the same verdicts.
 """
 
 from __future__ import annotations
@@ -67,7 +75,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core.policy import GEMMPrecision
-from repro_torch.dist import LOCAL, Dist, all_gather, all_to_all, gather_rows
+from repro_torch.dist import (LOCAL, Dist, all_gather, all_to_all, cat_over,
+                              gather_rows, k_slice, split_size)
 from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
 from repro_torch.kernels.common import ROUNDINGS, threefry2x32
 from repro_torch.kernels.fused import as_sr_seed, qmatmul_fused
@@ -107,9 +116,9 @@ class QDotConfig:
     where ``repr_fmt`` fits in 8 bits (float32 otherwise, e.g. (1,6,9));
     ``out_fmt`` rounds the forward output to a consumer's representation
     format.  ``stats_tag`` turns on the in-graph telemetry of the backward
-    (numerics untouched); ``stats_axis``, the mesh
-    axes to reduce the rows over (the fused path; the oracle's is not
-    ported).  ``rounding`` is the carries' rounding in all three roles,
+    (numerics untouched; under a mesh each role's rows reduce over the
+    axes its work is split over, ``_emit_qdot_stats``).
+    ``rounding`` is the carries' rounding in all three roles,
     ``"rne"`` or ``"sr"`` (fused only); ``sr_seed`` the base seed the
     roles' SR streams derive from.
     """
@@ -122,15 +131,10 @@ class QDotConfig:
     pack_residuals: bool = True
     out_fmt: FPFormat | None = None
     stats_tag: str | None = None
-    stats_axis: str | tuple | None = None
     rounding: str = "rne"
     sr_seed: int = 0
 
     def __post_init__(self):
-        if self.stats_axis is not None and not self.fused:
-            raise NotImplementedError(
-                "stats_axis of the unfused oracle (a mesh-wide reduction of "
-                "its replayed rows) is not ported (ROADMAP [dist-train])")
         if self.rounding not in ROUNDINGS:
             raise ValueError(f"rounding must be one of {ROUNDINGS}, got "
                              f"{self.rounding!r}")
@@ -205,7 +209,8 @@ def _oracle_fwd(x2: torch.Tensor, w: torch.Tensor, cfg: QDotConfig):
 
 class _QDot(torch.autograd.Function):
     """FWD through E (or G), BWD and GRAD through one B launch; the
-    oracle through K2 and K3."""
+    oracle through K2 and K3; under a mesh, ``_mesh_forward`` and
+    ``_mesh_backward``."""
 
     @staticmethod
     def forward(ctx, x2, w, cfg, seed, dist):
@@ -213,6 +218,10 @@ class _QDot(torch.autograd.Function):
         ctx.seed = seed
         ctx.dist = dist
         ctx.dtypes = (x2.dtype, w.dtype)
+        if dist.mesh_split:
+            y, xq, wq, ctx.w_whole = _mesh_forward(x2, w, cfg, seed, dist)
+            ctx.save_for_backward(xq, wq)
+            return y
         if not cfg.fused:
             y, xq, wq = _oracle_fwd(x2, w, cfg)
             ctx.save_for_backward(xq, wq)
@@ -228,6 +237,8 @@ class _QDot(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.dist.mesh_split:
+            return _mesh_backward(ctx, g)
         xq, wq = ctx.saved_tensors
         cfg = ctx.cfg
         x_dtype, w_dtype = ctx.dtypes
@@ -240,62 +251,101 @@ class _QDot(torch.autograd.Function):
             if cfg.stats_tag is not None:
                 _emit_qdot_stats(cfg, xq, wq, None, ctx.seed, g=g32)
             return dx.to(x_dtype), dw.to(w_dtype), None, None, None
-        e_b, m_b, _ = _acc_params(cfg.bwd)
-        e_g, m_g, _ = _acc_params(cfg.grad)
-        grad_chunk, bwd_chunk = _pair_chunks(cfg)
-        # out_fmt's rounding is straight-through: g passes unscaled
-        kw = dict(repr_fmt=cfg.repr_fmt, bwd_acc=(e_b, m_b),
-                  grad_acc=(e_g, m_g), bwd_chunk=bwd_chunk,
-                  grad_chunk=grad_chunk, packed=cfg.packs,
-                  quantize_g=cfg.repr_fmt is not None,
-                  rounding=cfg.rounding,
-                  sr_seed_bwd=_role_seed(cfg, ctx.seed, "bwd"),
-                  sr_seed_grad=_role_seed(cfg, ctx.seed, "grad"))
-        dist = ctx.dist
-        if dist.batch_split:
-            return _mesh_backward(ctx, g, xq, wq, kw)
+        kw = _pair_kw(cfg, ctx.seed)
         if cfg.stats_tag is None:
             dx, dw = qmatmul_bwd_pair(g.to(torch.float32), xq, wq, **kw)
         else:
             dx, dw, rows = qmatmul_bwd_pair(g.to(torch.float32), xq, wq,
                                             collect_stats=True, **kw)
-            _emit_qdot_stats(cfg, xq, wq, rows, ctx.seed, dist=dist)
+            _emit_qdot_stats(cfg, xq, wq, rows, ctx.seed)
         return dx.to(x_dtype), dw.to(w_dtype), None, None, None
 
 
-def _k_slice(k: int, dist: Dist) -> tuple[int, int]:
-    """(first column, width) of this batch rank's slice of K."""
-    n = dist.batch_size
-    if k % n:
-        raise ValueError(f"K = {k} does not split over {n} batch ranks")
-    return dist.batch_rank * (k // n), k // n
+def _pair_kw(cfg: QDotConfig, seed: int) -> dict:
+    """B's keywords under base seed ``seed``: the roles' carries, chunks
+    and seeds.  ``out_fmt``'s rounding is straight-through: g passes
+    unscaled."""
+    e_b, m_b, _ = _acc_params(cfg.bwd)
+    e_g, m_g, _ = _acc_params(cfg.grad)
+    grad_chunk, bwd_chunk = _pair_chunks(cfg)
+    return dict(repr_fmt=cfg.repr_fmt, bwd_acc=(e_b, m_b),
+                grad_acc=(e_g, m_g), bwd_chunk=bwd_chunk,
+                grad_chunk=grad_chunk, packed=cfg.packs,
+                quantize_g=cfg.repr_fmt is not None, rounding=cfg.rounding,
+                sr_seed_bwd=_role_seed(cfg, seed, "bwd"),
+                sr_seed_grad=_role_seed(cfg, seed, "grad"))
 
 
-def _mesh_backward(ctx, g, xq, wq, kw):
-    """BWD and GRAD of a row-split qdot: one B launch on this rank's
-    K-slice over every row (see the module docstring)."""
+def _mesh_forward(x2, w, cfg: QDotConfig, seed: int, dist: Dist):
+    """(y, xq, wq, whole) of a qdot under a mesh: x2 holds this rank's
+    rows, and each rank of the replica axes computes its block of the
+    output columns (every output element the single device's: a column's
+    sum over K does not depend on the split; under SR its dither keys on
+    the whole output's row and column, ``row0``/``col0``/``n_cols``); the
+    blocks are gathered, so every replica holds the rows' whole y.  The residuals are
+    this rank's rows of Q(x) and its columns of Q(w) (the oracle's float32
+    ones), or x and the whole w for the lm_head (``whole``)."""
+    n = w.shape[1]
+    width = split_size(n, dist.replica_size, "N")
+    c0 = dist.replica_rank * width
+    w_c = w if width == n else w[:, c0:c0 + width]
+    if not cfg.fused:
+        y, xq, wq = _oracle_fwd(x2, w_c, cfg)
+    else:
+        kw = dict(_fwd_kw(cfg, seed), row0=dist.batch_rank * x2.shape[0],
+                  col0=c0, n_cols=n)
+        if cfg.repr_fmt is None:
+            y = qmatmul_fused(x2, w_c, **kw)
+            return cat_over(y, dist, dist.replica_axes, 1), x2, w, True
+        y, xq, wq = qmatmul_fused(x2, w_c, return_quantized=True,
+                                  pack_residuals=cfg.packs, **kw)
+    return cat_over(y, dist, dist.replica_axes, 1), xq, wq, width == n
+
+
+def _mesh_backward(ctx, g):
+    """BWD and GRAD of a qdot under a mesh: one B launch (two K3 calls for
+    the oracle) on this rank's K-slice over every row of the batch (see
+    the module docstring), at the slice's place in K under SR."""
+    xq, wq = ctx.saved_tensors
     cfg, dist = ctx.cfg, ctx.dist
     x_dtype, w_dtype = ctx.dtypes
-    axes = dist.batch_axes
-    k0, kw_ = _k_slice(xq.shape[1], dist)
+    baxes, raxes = dist.batch_axes, dist.replica_axes
+    k = xq.shape[1]
+    r0, k0, width = k_slice(k, dist)
+    per = k // dist.replica_size
+    if not ctx.w_whole:     # the whole Q(w): the replicas' columns
+        wq = cat_over(wq, dist, raxes, 1)
     g_all = gather_rows(g.to(torch.float32), dist)
-    x_cols = all_to_all(xq, dist, axes, split_dim=1, cat_dim=0)
-    w_rows = wq[k0:k0 + kw_]
-    if cfg.stats_tag is None:
-        dx_s, dw_s = qmatmul_bwd_pair(g_all, x_cols, w_rows, **kw)
+    x_cols = all_to_all(xq[:, r0:r0 + per], dist, baxes, split_dim=1,
+                        cat_dim=0).contiguous()
+    w_rows = wq[k0:k0 + width]
+    stats = cfg.stats_tag is not None
+    if cfg.fused:
+        kw = dict(_pair_kw(cfg, ctx.seed), k_offset=k0, k_total=k)
+        out = qmatmul_bwd_pair(g_all, x_cols, w_rows, collect_stats=stats,
+                               **kw)
+        dx_s, dw_s = out[0], out[1]
+        if stats:
+            _emit_qdot_stats(cfg, xq, wq, out[2], ctx.seed, dist=dist,
+                             t=g_all.shape[0])
     else:
-        dx_s, dw_s, rows = qmatmul_bwd_pair(g_all, x_cols, w_rows,
-                                            collect_stats=True, **kw)
-        _emit_qdot_stats(cfg, xq, wq, rows, ctx.seed, dist=dist,
-                         t=g_all.shape[0])
-    dx = all_to_all(dx_s.to(x_dtype), dist, axes, split_dim=0, cat_dim=1)
-    dw = torch.cat(all_gather(dw_s.to(w_dtype), dist, axes), dim=0)
+        gq = _maybe_q(g_all, cfg.repr_fmt)
+        dx_s = _mm(gq, w_rows.T, cfg.bwd)
+        dw_s = _mm(x_cols.T, gq, cfg.grad)
+        if stats:
+            _emit_qdot_stats(cfg, xq, wq, None, ctx.seed, g=g_all,
+                             pair=(x_cols, w_rows), dist=dist,
+                             t=g_all.shape[0])
+    dx = all_to_all(dx_s.to(x_dtype), dist, baxes, split_dim=0, cat_dim=1)
+    dx = cat_over(dx, dist, raxes, 1)
+    dw = cat_over(torch.cat(all_gather(dw_s.to(w_dtype), dist, baxes),
+                             dim=0), dist, raxes, 0)
     return dx, dw, None, None, None
 
 
 def _emit_qdot_stats(cfg: QDotConfig, xq, wq, pair_rows, seed: int, *,
-                     g=None, dist: Dist = LOCAL, t: int | None = None
-                     ) -> None:
+                     g=None, pair=None, dist: Dist = LOCAL,
+                     t: int | None = None) -> None:
     """The three roles' stats rows of one tagged backward, to the active
     in-graph collector.  FWD is one K8 replay of the saved residuals (the
     forward itself stays G/E/K3), under the forward's rounding and role
@@ -305,16 +355,16 @@ def _emit_qdot_stats(cfg: QDotConfig, xq, wq, pair_rows, seed: int, *,
     g) with g quantized, the residuals taken as they are (the JAX
     package's branch without ``raw_pair``).  Geometry as the eager
     probe's: accumulation length K / N / T (``t``, the global tokens
-    under a row split), chunk the role's rounding cadence.  With
-    ``stats_axis`` each row is reduced over those mesh axes of ``dist``
-    first."""
-    from repro_torch.obs.ingraph import dispatch_raw as _dispatch
-    from repro_torch.telemetry.stats import stats_kw
+    under a row split), chunk the role's rounding cadence.
 
-    def dispatch_raw(tag, role, n, n1, m_acc, raw):
-        if cfg.stats_axis is not None:
-            raw = _psum_row(raw, cfg.stats_axis, dist)
-        _dispatch(tag, role, n, n1, m_acc, raw)
+    Under a mesh xq holds this rank's rows (and wq is whole): the FWD row
+    is reduced over the batch axes, the replay keyed at the rows' place
+    under SR.  The pair's rows, or the oracle's replays on this rank's
+    K-slice (``pair``: the slice's x columns and w rows, g every row), are
+    reduced over every split axis (``_psum_row``).  Every rank keeps the
+    global rows (the reduction JAX's ``stats_axis`` names)."""
+    from repro_torch.obs.ingraph import dispatch_raw
+    from repro_torch.telemetry.stats import stats_kw
 
     tag = cfg.stats_tag
     t_loc, k = xq.shape
@@ -329,12 +379,16 @@ def _emit_qdot_stats(cfg: QDotConfig, xq, wq, pair_rows, seed: int, *,
                                **kw, **stats_kw(p))
         return raw
 
+    def merged(raw, axes):
+        return _psum_row(raw, axes, dist) if dist.mesh_split else raw
+
     if cfg.fwd is not None:
         raw = replay("fwd", cfg.fwd, xq, wq, quantize_a=False,
                      quantize_b=False, a_packed=cfg.packs,
-                     b_packed=cfg.packs)
+                     b_packed=cfg.packs, row0=dist.batch_rank * t_loc)
         dispatch_raw(tag, "fwd", k, stats_kw(cfg.fwd)["block_k"],
-                     cfg.fwd.m_acc, raw)
+                     cfg.fwd.m_acc, merged(raw, dist.batch_axes))
+    x_p, w_p = (xq, wq) if pair is None else pair
     for role, p, length, row in (("bwd", cfg.bwd, n, 0),
                                  ("grad", cfg.grad, t, 1)):
         if p is None:
@@ -342,13 +396,13 @@ def _emit_qdot_stats(cfg: QDotConfig, xq, wq, pair_rows, seed: int, *,
         if pair_rows is not None:
             raw = pair_rows[row]
         elif role == "bwd":
-            raw = replay(role, p, g, wq.T, quantize_a=quantize,
+            raw = replay(role, p, g, w_p.T, quantize_a=quantize,
                          quantize_b=False)
         else:
-            raw = replay(role, p, xq.T, g, quantize_a=False,
+            raw = replay(role, p, x_p.T, g, quantize_a=False,
                          quantize_b=quantize)
         dispatch_raw(tag, role, length, stats_kw(p)["block_k"], p.m_acc,
-                     raw)
+                     merged(raw, dist.slice_axes))
 
 
 def _psum_row(raw: torch.Tensor, axis, dist: Dist) -> torch.Tensor:
@@ -378,11 +432,6 @@ def qdot(x: torch.Tensor, w: torch.Tensor, cfg: QDotConfig, *,
     K-slices (module docstring)."""
     if cfg.rounding == "sr" and not cfg.fused:
         raise ValueError("rounding='sr' requires cfg.fused=True")
-    if dist.batch_split and (cfg.rounding == "sr" or not cfg.fused):
-        raise NotImplementedError(
-            "a row-split qdot under stochastic rounding (the SR keys need "
-            "row and K origins) or the unfused oracle is not ported "
-            "(ROADMAP [dist-train])")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     seed = as_sr_seed(cfg.sr_seed if sr_seed is None else sr_seed)
@@ -395,7 +444,9 @@ def qdot(x: torch.Tensor, w: torch.Tensor, cfg: QDotConfig, *,
     elif not cfg.fused:
         y = _oracle_fwd(x2, w, cfg)[0]
     else:
-        y = qmatmul_fused(x2, w, **_fwd_kw(cfg, seed))
+        # under a row split, at the rows' place in the batch (SR)
+        y = qmatmul_fused(x2, w, row0=dist.batch_rank * x2.shape[0],
+                          **_fwd_kw(cfg, seed))
     return y.reshape(*lead, w.shape[1])
 
 

@@ -9,7 +9,7 @@ devices out) and, once ``init_groups`` has run, one process subgroup per
 line of every axis set a collective reduces over (``"data"``, ``("pod",
 "data")``, ...).  Builders mirror JAX's: ``make_smoke_mesh``,
 ``make_serve_mesh`` and ``make_production_mesh``; the last is a
-description (its dry run is ROADMAP [dist-train]'s second half).
+description (its dry run is ROADMAP [dry-runs]).
 """
 
 from __future__ import annotations

@@ -46,12 +46,16 @@ certification memo and the compile cache.
 ``--mesh`` (JAX's: ``auto``, ``DxM``, ``PxDxM``) trains over a mesh of
 spawned ranks (``run_mesh``): the batch's rows split over the data axes
 (``pod`` x ``data``, ``sharding.specs.batch_spec``), the f32 masters and
-both AdamW moments over ``data`` (FSDP, ``ShardingRules``), every GEMM's
-backward on K-slices, so every rank's losses, grad norms, params and
-moments are the single device's, bit for bit (``train.loop``).  ``auto``
-is the single device on one card.  Ranks that share a card talk over
-gloo, ranks with a card each over NCCL.  The model axis (``M > 1``) and
-``--rounding sr`` over more than one rank raise (ROADMAP [dist-train]).
+both AdamW moments stored as JAX's rules split them (FSDP over ``data``,
+``model`` where JAX puts it, ``ShardingRules``), each GEMM's output
+columns split over the model axis, every GEMM's backward on K-slices over
+every rank, so every rank's losses, grad norms, params and moments are
+the single device's, bit for bit (``train.loop``), under ``--rounding sr``
+too (the SR keys take each block's place in the whole GEMM).  ``auto`` is
+the single device on one card.  Ranks that share a card talk over gloo,
+ranks with a card each over NCCL.  A model axis must divide the KV heads,
+d_ff and the vocab.  ``run_mesh([MeshJob(args, shape, oracle_plan)])``
+(no flag, as in JAX) trains the unfused oracle (K2 and K3) over the mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --smoke --steps 20 --policy predicted --device cpu \\
@@ -66,6 +70,7 @@ import json
 import math
 import os
 import time
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -206,8 +211,7 @@ def build_telemetry(args, tc, registry=None, dist: Dist = LOCAL):
     if args.ingraph_telemetry:
         ingraph = InGraphTelemetry(
             controller, tc, seq_len=args.seq_len,
-            global_batch=args.global_batch, registry=registry,
-            axis=dist.batch_axes if dist.batch_split else None, dist=dist)
+            global_batch=args.global_batch, registry=registry, dist=dist)
     return controller, ingraph
 
 
@@ -356,15 +360,32 @@ def a2q_config(args, cfg, show: bool = True) -> O.A2QConfig | None:
     return a2q
 
 
-def build(args, dist: Dist = LOCAL, device=None):
+def oracle_plan(cfg):
+    """``cfg`` with ``fused=False`` in every QDotConfig of its plan: the
+    unfused oracle (K2 and K3) in place of G, E and B (``train``'s and
+    ``MeshJob``'s ``plan``; no flag, as in JAX)."""
+    from repro_torch.telemetry.controller import PLAN_FIELDS
+
+    fields = {name: dataclasses.replace(getattr(cfg.quant, name),
+                                        fused=False)
+              for name in PLAN_FIELDS if getattr(cfg.quant, name) is not None}
+    return dataclasses.replace(cfg, quant=dataclasses.replace(cfg.quant,
+                                                              **fields))
+
+
+def build(args, dist: Dist = LOCAL, device=None, plan=None):
     """(model, train config, state, data, device) for parsed ``args``;
     under a mesh ``dist`` the state holds this rank's blocks on ``device``
     and the data stream draws the global batch (JAX's single-process
-    ``SyntheticLM``; the step takes the rank's rows)."""
+    ``SyntheticLM``; the step takes the rank's rows).  ``plan`` (a
+    function of the planned model config, e.g. ``oracle_plan``) rewrites
+    the plan."""
     device = resolve_device(args.device) if device is None else device
     cfg = model_config(args)
     cfg = plan_for_model(cfg, seq_len=args.seq_len,
                          global_batch=args.global_batch, policy=_policy(args))
+    if plan is not None:
+        cfg = plan(cfg)
     model = get_model(cfg)
     tc = TrainConfig(
         opt=O.OptConfig(lr=args.lr, warmup_steps=args.warmup,
@@ -399,10 +420,6 @@ def build_mesh(spec: str, device: torch.device) -> dict | None:
         shape = dict(zip(names, dims))
     if math.prod(shape.values()) == 1:
         return None
-    if shape["model"] > 1:
-        raise NotImplementedError(
-            f"--mesh {spec}: the model axis in training is not ported "
-            "(ROADMAP [dist-train], the model axis)")
     return shape
 
 
@@ -410,35 +427,47 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     shape = build_mesh(args.mesh, torch.device(args.device))
     if shape is not None:
-        return run_mesh([args], shape)[0][0]
+        return run_mesh([MeshJob(args, shape)])[0][0]
     return train(args)
 
 
 def launch_counts() -> dict:
     """The training kernels' launch counters now (each wrapper counts where
-    it launches its kernel): G, E, K8, B, B's carry entry and K9."""
+    it launches its kernel): G, E, K8, B, B's carry entry and K9, their SR
+    instantiations apart, and the oracle's K2 and K3."""
     from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair as b
     from repro_torch.kernels.fused import qmatmul_fused as f
+    from repro_torch.kernels.qmatmul import qmatmul
+    from repro_torch.kernels.quantize import quantize
 
     return {"qmatmul_fused": f.launches,
             "qmatmul_fused(return_quantized)": f.emitq_launches,
             "qmatmul_fused(collect_stats)": f.stats_launches,
             "qmatmul_bwd_pair": b.launches,
             "qmatmul_bwd_pair(dx_carry)": b.carry_launches,
-            "qmatmul_bwd_pair(collect_stats)": b.stats_launches}
+            "qmatmul_bwd_pair(collect_stats)": b.stats_launches,
+            "qmatmul_fused(rounding=sr)": f.sr_launches,
+            "qmatmul_fused(return_quantized, rounding=sr)":
+                f.sr_emitq_launches,
+            "qmatmul_fused(collect_stats, rounding=sr)": f.sr_stats_launches,
+            "qmatmul_bwd_pair(rounding=sr)": b.sr_launches,
+            "qmatmul_bwd_pair(collect_stats, rounding=sr)":
+                b.sr_stats_launches,
+            "quantize": quantize.launches, "qmatmul": qmatmul.launches}
 
 
-def train(args, dist: Dist = LOCAL, device=None, finish=None) -> dict:
+def train(args, dist: Dist = LOCAL, device=None, finish=None,
+          plan=None) -> dict:
     """The training run of parsed ``args`` on this process (one rank of a
-    mesh under ``dist``).  Returns the final loss, the logged records, the
-    schedule, the host seconds of each logged step (the logging reads the
-    loss, so each holds its step's device work), the kernels' launches over
-    the run and whatever ``finish(state, model, dist)`` returns (a dict; a
-    picklable function under ``run_mesh``), read from the final state this
-    process holds."""
+    mesh under ``dist``; ``plan`` as ``build``'s).  Returns the final loss,
+    the logged records, the schedule, the host seconds of each logged step
+    (the logging reads the loss, so each holds its step's device work), the
+    kernels' launches over the run and whatever ``finish(state, model,
+    dist)`` returns (a dict; a picklable function under ``run_mesh``), read
+    from the final state this process holds."""
     lead = _lead(dist)
     launches0 = launch_counts()
-    model, tc, state, data, device = build(args, dist, device)
+    model, tc, state, data, device = build(args, dist, device, plan)
     specs = param_specs(model, dist)
     if lead:
         n = param_count(whole_shapes(model)) / 1e6
@@ -530,69 +559,86 @@ def whole_shapes(model):
     return model.init_params(torch.Generator(), "meta")
 
 
+class MeshJob(NamedTuple):
+    """One job of ``run_mesh``: parsed ``args``, the mesh ``shape`` (axis ->
+    size) it trains over, and its ``plan`` (picklable, as ``build``'s)."""
+
+    args: argparse.Namespace
+    shape: dict
+    plan: Callable | None = None
+
+
 def _train_rank(rank: int, size: int, init_method: str, jobs: list,
-                shape: dict, batch_axes: tuple, device: str, backend: str,
+                batch_axes: list, device: str, backend: str,
                 finish) -> list[dict]:
-    from repro_torch.dist import init_mesh, rank_device
+    from repro_torch.dist import init_meshes, rank_device
 
     dev = rank_device(rank, torch.device(device))
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     else:
         torch.set_num_threads(1)   # the ranks share the host's cores
-    dist = init_mesh(rank, shape, init_method, backend,
-                     batch_axes=batch_axes, fsdp_axis="data", device=dev)
+    meshes = list(dict.fromkeys(
+        (_key(j.shape), b) for j, b in zip(jobs, batch_axes)))
+    dists = dict(zip(meshes, init_meshes(
+        rank, [(dict(k), b) for k, b in meshes], init_method, backend,
+        fsdp_axis="data", device=dev)))
     outs = []
-    for args in jobs:
+    for job, baxes in zip(jobs, batch_axes):
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        out = train(args, dist, dev, finish)
+        out = train(job.args, dists[_key(job.shape), baxes], dev, finish,
+                    job.plan)
         out.update(rank=rank, seconds=time.perf_counter() - t0)
         outs.append(out)
     return outs
 
 
-def run_mesh(jobs, shape: dict, *, finish=None,
+def _key(shape: dict) -> tuple:
+    return tuple(shape.items())
+
+
+def run_mesh(jobs: list[MeshJob], *, finish=None,
              timeout_s: float = 1800.0) -> list:
-    """``train`` over a mesh of ``shape`` (axis -> size), one spawned rank a
-    mesh point, started once for every job of the list ``jobs`` (parsed
-    args, run in order, one global batch for all).  Each rank's list of
-    results, in rank order.  The kernels are built here first, so the ranks only load them; the
-    backend follows ``dist.serve_backend``'s rule (printed): NCCL when
+    """``train`` for every job of the list ``jobs`` (``MeshJob``s, run in
+    order; their meshes all of one size), one spawned rank a mesh point,
+    the ranks started once for all.  Each rank's list of results, in rank
+    order.  The kernels are built here first, so the ranks only load them;
+    the backend follows ``dist.serve_backend``'s rule (printed): NCCL when
     every rank has a card of its own, gloo when ranks share one and on the
-    CPU."""
+    CPU.  A model axis that does not divide the KV heads, d_ff or the
+    vocab raises here, before any rank starts."""
     from repro_torch.dist import serve_backend, spawn
     from repro_torch.launch.mesh import Mesh
     from repro_torch.sharding.specs import batch_spec
+    from repro_torch.train.loop import check_model_axis
 
-    jobs = list(jobs)
-    if any(a.rounding == "sr" for a in jobs):
-        raise NotImplementedError(
-            "--rounding sr under a mesh of more than one rank is not ported "
-            "(ROADMAP [dist-train], the SR keys' row and K origins)")
-    if shape.get("model", 1) > 1:
-        raise NotImplementedError("the model axis in training is not "
-                                  "ported (ROADMAP [dist-train])")
-    dev = resolve_device(jobs[0].device)
-    mesh = Mesh(dict(shape))
-    baxes = batch_spec(jobs[0].global_batch, mesh)
-    backend, rule = serve_backend(dev, mesh.size)
-    print(f"train mesh: {mesh.describe()} ({mesh.size} ranks), batch over "
-          f"{baxes or 'no axis'}, FSDP over data; backend {rule}",
-          flush=True)
-    for a in jobs:
-        if a.global_batch != jobs[0].global_batch or (
-                a.global_batch // a.microbatches % mesh.axis_size(baxes)):
+    jobs = [MeshJob(j.args, dict(j.shape), j.plan) for j in jobs]
+    for j in jobs:
+        check_model_axis(model_config(j.args), j.shape.get("model", 1))
+    dev = resolve_device(jobs[0].args.device)
+    meshes = [Mesh(j.shape) for j in jobs]
+    baxes = [batch_spec(j.args.global_batch, m) for j, m in zip(jobs, meshes)]
+    backend, rule = serve_backend(dev, meshes[0].size)
+    for m, b in {(_key(m.shape), b): (m, b)
+                 for m, b in zip(meshes, baxes)}.values():
+        cols = tuple(a for a in m.shape if a not in b and m.shape[a] > 1)
+        print(f"train mesh: {m.describe()} ({m.size} ranks), batch over "
+              f"{b or 'no axis'}, FSDP over data, GEMM columns over "
+              f"{cols or 'no axis'}; backend {rule}", flush=True)
+    for j, m, b in zip(jobs, meshes, baxes):
+        a = j.args
+        if a.global_batch // a.microbatches % m.axis_size(b):
             raise SystemExit(f"a microbatch of {a.global_batch} // "
                              f"{a.microbatches} rows does not split over "
-                             f"the batch axes {baxes}")
+                             f"the batch axes {b}")
     if dev.type == "cuda":
         from repro_torch.kernels import build as kernel_build
 
         kernel_build.build_all()
-    outs = spawn(_train_rank, mesh.size,
-                 (jobs, dict(shape), baxes, str(dev), backend, finish),
+    outs = spawn(_train_rank, meshes[0].size,
+                 (jobs, baxes, str(dev), backend, finish),
                  timeout_s=timeout_s)
     for per_rank in outs:
         for o in per_rank:

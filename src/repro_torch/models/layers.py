@@ -24,7 +24,9 @@ full shape, as the single device runs it: the GEMMs' GRAD through
 ``qdot``'s K-slices, and the norm scales' and qkv biases' gradients as the
 same reduction of the per-token products gathered over the batch ranks
 (``_MeshScale``, ``_MeshBias``); so each gradient is the single device's
-bit for bit.
+bit for bit.  The ranks of a replica axis (the model axis) hold the same
+rows: each GEMM splits its output columns over them and gathers them
+(``qdot``), and everything else runs whole on each of them.
 
 Params are nested dicts of tensors; compute is bf16 with float32 where the
 JAX package uses it.  Every dense GEMM goes through ``dense``, which runs
@@ -41,7 +43,8 @@ from typing import Any
 import torch
 
 from repro_torch.dist import (LOCAL, Dist, all_gather, all_to_all,
-                              gather_cols, gather_rows, psum_carry)
+                              cat_over, gather_cols, gather_rows, k_slice,
+                              psum_carry)
 from repro_torch.kernels.attention import (
     BLOCK_Q,
     NEG,
@@ -98,9 +101,10 @@ class _MeshScale(torch.autograd.Function):
 
 
 class _MeshMatmul(torch.autograd.Function):
-    """The exact plan's bf16 ``x @ w`` of row-split x: dx on the rank's
-    rows, dw on its K-slice of every row (the global batch's contraction)
-    and gathered, as ``qdot``'s backward splits it."""
+    """The exact plan's bf16 ``x @ w`` under a mesh (x this rank's rows):
+    the whole y and dx on the rank's rows, dw on its K-slice of every row
+    (the global batch's contraction) and gathered, as ``qdot``'s backward
+    splits it."""
 
     @staticmethod
     def forward(ctx, x, w, dist):
@@ -112,15 +116,15 @@ class _MeshMatmul(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dist = ctx.dist
-        n = dist.batch_size
         k = w.shape[0]
-        if k % n:
-            raise ValueError(f"K = {k} does not split over {n} batch ranks")
+        r0, _, _ = k_slice(k, dist)
+        per = k // dist.replica_size
         x2, g2 = x.reshape(-1, k), g.reshape(-1, w.shape[1])
-        x_cols = all_to_all(x2, dist, dist.batch_axes, split_dim=1,
-                            cat_dim=0)
+        x_cols = all_to_all(x2[:, r0:r0 + per], dist, dist.batch_axes,
+                            split_dim=1, cat_dim=0)
         dw_s = x_cols.t().mm(gather_rows(g2, dist))
-        dw = torch.cat(all_gather(dw_s, dist, dist.batch_axes), dim=0)
+        dw = cat_over(torch.cat(all_gather(dw_s, dist, dist.batch_axes),
+                                 dim=0), dist, dist.replica_axes, 0)
         return g2.mm(w.t()).reshape(x.shape), dw, None
 
 
@@ -147,7 +151,7 @@ def dense(x: torch.Tensor, w: torch.Tensor, qcfg: QDotConfig | None = None,
         if out_fmt is not None and out_fmt != qcfg.out_fmt:
             qcfg = dataclasses.replace(qcfg, out_fmt=out_fmt)
         y = qdot(x.to(torch.float32), w, qcfg, dist=dist).to(COMPUTE_DTYPE)
-    elif split and torch.is_grad_enabled():
+    elif dist.mesh_split and torch.is_grad_enabled():
         y = _MeshMatmul.apply(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE), dist)
     else:
         y = torch.matmul(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))

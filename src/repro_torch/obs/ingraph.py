@@ -29,11 +29,13 @@ step and runs observe -> (on a schedule change) re-plan, as
 (``obs.metrics``) each tick's controller events are recorded there
 (``record_controller_events``, area ``controller``), as JAX's tick does.
 
-Under a mesh (``InGraphTelemetry(dist=, axis=)``, the batch axes) every
-tagged config carries ``stats_axis``: each row is reduced over the batch
-ranks as it is emitted (``kernels.ops._psum_row``), so every rank's collector
-holds one global window per site, whose counts and max are the single
-device's, and every rank's controller reaches the same verdicts.
+Under a mesh (``InGraphTelemetry(dist=)``) each row is reduced as it is
+emitted over the mesh axes its role's work is split over (the batch axes
+for FWD, every split axis for BWD and GRAD; ``kernels.ops._psum_row``), so
+every rank's collector holds one global window per site, whose counts and
+max are the single device's, and every rank's controller reaches the same
+verdicts.  JAX's configs name the reduction's axes (``stats_axis``); no
+one tuple names the port's per-role axes, so its configs carry none.
 """
 
 from __future__ import annotations
@@ -144,17 +146,15 @@ class InGraphCollector:
         }
 
 
-def tag_quant_plan(model_cfg, *, axis=None):
+def tag_quant_plan(model_cfg):
     """The stats-variant ModelConfig: every quantized plan field tagged
-    with its own name (and ``axis``, the mesh axes its rows reduce over).
-    Numerics are untouched."""
+    with its own name.  Numerics are untouched."""
     plan = model_cfg.quant
     for name in PLAN_FIELDS:
         qcfg = getattr(plan, name, None)
         if qcfg is None or qcfg.is_exact:
             continue
-        plan = replace(plan, **{name: replace(qcfg, stats_tag=name,
-                                              stats_axis=axis)})
+        plan = replace(plan, **{name: replace(qcfg, stats_tag=name)})
     return replace(model_cfg, quant=plan)
 
 
@@ -172,7 +172,7 @@ class InGraphTelemetry:
     """
 
     def __init__(self, controller, train_cfg, *, seq_len: int,
-                 global_batch: int, axis=None, registry=None, dist=None):
+                 global_batch: int, registry=None, dist=None):
         from repro_torch.dist import LOCAL
 
         self.registry = registry
@@ -181,7 +181,6 @@ class InGraphTelemetry:
         self.train_cfg = train_cfg
         self.seq_len = seq_len
         self.global_batch = global_batch
-        self.axis = axis
         self._cached: tuple | None = None  # (model_cfg, step fn)
 
     def due(self, step: int) -> bool:
@@ -194,7 +193,7 @@ class InGraphTelemetry:
         from repro_torch.models.api import get_model
         from repro_torch.train.loop import make_train_step
 
-        tagged = get_model(tag_quant_plan(model.cfg, axis=self.axis))
+        tagged = get_model(tag_quant_plan(model.cfg))
         fn = make_train_step(tagged, self.train_cfg, self.dist)
         self._cached = (model.cfg, fn)
         return fn

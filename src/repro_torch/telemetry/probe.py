@@ -133,7 +133,8 @@ def probe_model_stats(model, params, batch, *, gen: torch.Generator,
     Under a row-split ``dist`` (``batch`` the global batch, ``params``
     whole) each rank runs the forward on its rows and gathers each
     captured activation over the batch ranks in row order, so every rank
-    replays the single device's operands with the same draws."""
+    replays the single device's operands with the same draws (under SR
+    the forward's GEMMs key on their rows' place in the batch)."""
     from repro_torch.dist import gather_rows
 
     cfg = model.cfg
@@ -141,7 +142,8 @@ def probe_model_stats(model, params, batch, *, gen: torch.Generator,
     fwd_batch = ({k: dist.local_rows(v) for k, v in batch.items()}
                  if split else batch)
     with torch.no_grad(), capture.capture_gemms() as buf:
-        model.loss_fn(params, fwd_batch, cfg)
+        # under a mesh each GEMM knows its rows' place (SR's keys)
+        model.loss_fn(params, fwd_batch, cfg, *([dist] if split else []))
     if split:
         for rec in buf:
             rec["x"] = gather_rows(rec["x"], dist)

@@ -33,7 +33,10 @@ with the single device's ops, no collective needed, and the rank keeps
 its block of it.  So every rank's losses, grad norms, params and moments
 are the single device's, bit for bit, and a rank holds the whole bf16
 gradients and one whole float32 leaf, never the whole float32 gradients
-(under ``--microbatches`` the float32 accumulator stays whole).
+(under ``--microbatches`` the float32 accumulator stays whole).  The
+model axis changes none of this: its ranks hold the same rows, each GEMM
+splits its output columns over them (``kernels.ops``), and the backward's
+K-slices run over every rank of the mesh.
 """
 
 from __future__ import annotations
@@ -48,7 +51,8 @@ from repro_torch.models.api import Model
 from repro_torch.train import optimizer as O
 
 __all__ = ["TrainConfig", "init_train_state", "make_train_step",
-           "run_telemetry_tick", "param_specs", "whole_params"]
+           "run_telemetry_tick", "param_specs", "whole_params",
+           "check_model_axis"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +75,18 @@ def param_specs(model: Model, dist: Dist) -> dict | None:
 
     shapes = model.init_params(torch.Generator(), "meta")
     return build_param_specs(shapes, ShardingRules(dist.mesh))
+
+
+def check_model_axis(cfg, n: int) -> None:
+    """Refuse a model axis of ``n`` ranks that does not divide the KV
+    heads, d_ff or the vocab (JAX's head and column splits)."""
+    if n <= 1:
+        return
+    for what, size in (("KV heads", cfg.n_kv_heads), ("d_ff", cfg.d_ff),
+                       ("vocab", cfg.vocab_size)):
+        if size % n:
+            raise ValueError(f"a model axis of {n} ranks does not divide "
+                             f"the {size} {what} of {cfg.name}")
 
 
 def init_train_state(model: Model, gen: torch.Generator, device,
@@ -234,9 +250,8 @@ def make_train_step(model: Model, train_cfg: TrainConfig,
     nmb = train_cfg.microbatches
     a2q = train_cfg.a2q
     specs = param_specs(model, dist)
-    if dist.batch_split and dist.mesh.axis_size("model") > 1:
-        raise NotImplementedError("the model axis in training is not ported "
-                                  "(ROADMAP [dist-train])")
+    if dist.mesh is not None:
+        check_model_axis(cfg, dist.mesh.axis_size("model"))
 
     def grads_of(compute, batch, scale):
         batch = {k: dist.local_rows(v) for k, v in batch.items()}

@@ -36,6 +36,8 @@ Tolerances:
   on the card see ROADMAP Queue 3).
 * Checkpoints: a run resumed across meshes (2 ranks -> 1, 1 -> 2) gives
   the uninterrupted run's step-3 record, bitwise.
+* ``--mesh 1x2`` and ``--mesh 2x1 --rounding sr`` through the launcher:
+  one step, the single device's record bitwise.
 """
 
 from __future__ import annotations
@@ -101,8 +103,7 @@ def _tagged_rows(args, dist):
     from repro_torch.train.loop import make_train_step
 
     model, tc, state, data, _ = T.build(args, dist, torch.device("cpu"))
-    axis = dist.batch_axes if dist.batch_split else None
-    tagged = get_model(tag_quant_plan(model.cfg, axis=axis))
+    tagged = get_model(tag_quant_plan(model.cfg))
     col = InGraphCollector()
     with collecting(col):
         make_train_step(tagged, tc, dist)(state, next(data))
@@ -582,5 +583,12 @@ def test_launcher_mesh_entry(capsys):
                                     "--policy", "perturbed"]],
                          ids=["model-axis", "sr"])
 def test_mesh_refuses_what_it_does_not_take(extra):
-    with pytest.raises(NotImplementedError, match=r"\[dist-train\]"):
-        T.main(BASE + extra)
+    """What this mesh path once refused runs: the model axis and SR over
+    ranks, one step through the launcher's ``--mesh``, the single
+    device's record bitwise (``tests/test_torch_dist_model.py`` holds
+    them over more steps, meshes and the state)."""
+    argv = BASE[:2] + ["1"] + BASE[3:] + extra[2:]
+    with _threads(1):
+        want = T.main(argv)["records"]
+    got = T.main(argv + extra[:2])["records"]
+    assert _records({"records": got}) == _records({"records": want})

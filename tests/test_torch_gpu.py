@@ -2486,9 +2486,10 @@ def test_mesh_train_step_on_one_card_bitwise_single_device(dev, policy):
             "8", "--seq-len", "64", "--log-every", "1", "--device", "cuda"]
     shape = {"data": 2, "model": 1}
     one = LT.train(LT.parse_args(argv),
-                   finish=functools.partial(block_digests, shape))
+                   finish=functools.partial(block_digests, (shape,)))
     torch.cuda.empty_cache()
-    ranks = LT.run_mesh([LT.parse_args(argv + ["--mesh", "2x1"])], shape,
+    ranks = LT.run_mesh([LT.MeshJob(LT.parse_args(argv + ["--mesh", "2x1"]),
+                                    shape)],
                         finish=rank_digests, timeout_s=600)
     for r, [res] in enumerate(ranks):
         got = [(x["loss"], x["grad_norm"]) for x in res["records"]]
@@ -2501,4 +2502,120 @@ def test_mesh_train_step_on_one_card_bitwise_single_device(dev, policy):
             assert len(got) == len(want) and gap <= 1e-3
         else:
             assert got == want
-            assert res["digests"] == one["block_digests"][r]
+            assert res["digests"] == one["block_digests"][
+                "2x1 (data, model)"][r]
+
+
+def test_model_axis_step_on_one_card_bitwise_single_device(dev):
+    """``--mesh 1x2``: 2 ranks sharing the card (gloo) split every GEMM's
+    output columns and its backward's K-slices over the model axis;
+    qwen2-1.5b at full width and 2 layers, 2 steps of the predicted plan:
+    losses, grad norms and each rank's blocks of the final state (by
+    digests) bitwise the single device's."""
+    from chip_smoke import block_digests, rank_digests
+    from repro_torch.launch import train as LT
+
+    argv = ["--arch", "qwen2-1.5b", "--n-layers", "2", "--policy",
+            "predicted", "--chunk", "64", "--steps", "2", "--global-batch",
+            "8", "--seq-len", "64", "--log-every", "1", "--device", "cuda"]
+    shape = {"data": 1, "model": 2}
+    one = LT.train(LT.parse_args(argv),
+                   finish=functools.partial(block_digests, (shape,)))
+    torch.cuda.empty_cache()
+    ranks = LT.run_mesh([LT.MeshJob(LT.parse_args(argv + ["--mesh", "1x2"]),
+                                    shape)],
+                        finish=rank_digests, timeout_s=600)
+    for r, [res] in enumerate(ranks):
+        assert [(x["loss"], x["grad_norm"]) for x in res["records"]] == \
+            [(x["loss"], x["grad_norm"]) for x in one["records"]]
+        assert res["digests"] == one["block_digests"]["1x2 (data, model)"][r]
+
+
+def _sr_plan_kw():
+    """E's and B's SR keywords at every distinct layer shape of the train
+    cell (T = 512, the plan's chunk 64, the SR plan's role seeds)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import AccumulationPolicy, plan_for_model
+    from repro_torch.kernels.ops import _fwd_kw, _pair_kw
+    from repro_torch.models.api import dense_gemm_shapes
+
+    cfg = plan_for_model(get_config("qwen2-1.5b"), seq_len=64,
+                         global_batch=8,
+                         policy=AccumulationPolicy(mode="predicted",
+                                                   chunk=64, rounding="sr",
+                                                   sr_seed=7))
+    out, seen = [], set()
+    for tag, t, k, n, qc in dense_gemm_shapes(cfg, seq_len=64,
+                                              global_batch=8)[1:]:
+        if (k, n) not in seen:
+            seen.add((k, n))
+            ekw = _fwd_kw(qc, qc.sr_seed)
+            ekw.pop("out_fmt")
+            out.append((tag, t, k, n, ekw, _pair_kw(qc, qc.sr_seed)))
+    return out
+
+
+def test_sr_origins_match_whole_call_and_plain(dev):
+    """The SR keys' origins at every layer shape of the training step (T =
+    512): E, K8 (on E's codes) and G (both routes: the tile at a rank's
+    256 rows, the decode kernel at 8 of 16) on each of 2 ranks' rows
+    (``row0``) and columns (``col0``, ``n_cols``), bitwise the whole SR
+    call's block and the plain version on rank 1's block; B and K9 on 2
+    ranks' K-slices (``k_offset``, ``k_total``) bitwise the whole SR
+    pair's slices and, rank 1's, the plain version."""
+    from repro_torch.kernels import sm90
+    from repro_torch.kernels.bwd_pair import (qmatmul_bwd_pair,
+                                              qmatmul_bwd_pair_reference)
+    from repro_torch.kernels.fused import (qmatmul_fused_stats_reference,
+                                           qmatmul_fused_with)
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    for tag, t, k, n, ekw, bkw in _sr_plan_kw():
+        x = torch.randn((t, k), generator=gen, device=dev)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             / math.sqrt(k)).to(torch.bfloat16)
+        g = torch.randn((t, n), generator=gen, device=dev) / math.sqrt(n)
+        y, xq, wq = qmatmul_fused(x, w, return_quantized=True, **ekw)
+        k8 = dict(ekw, quantize_a=False, quantize_b=False, a_packed=True,
+                  b_packed=True)
+        for r in range(2):
+            for rows, cols in ((slice(r * t // 2, (r + 1) * t // 2),
+                                slice(0, n)),
+                               (slice(0, t),
+                                slice(r * n // 2, (r + 1) * n // 2))):
+                o = dict(row0=rows.start, col0=cols.start, n_cols=n)
+                want = y[rows, cols]
+                got = [qmatmul_fused(x[rows], w[:, cols], **ekw, **o),
+                       qmatmul_fused(x[rows], w[:, cols],
+                                     return_quantized=True, **ekw, **o)[0],
+                       qmatmul_fused(xq[rows], wq[:, cols],
+                                     collect_stats=True, **k8, **o)[0]]
+                for c in got:
+                    assert torch.equal(c, want), (tag, r, o)
+                if r == 1:
+                    plain = qmatmul_fused_stats_reference(
+                        xq[rows], wq[:, cols], **k8, **o)[0]
+                    assert torch.equal(got[2], plain), (tag, o)
+                    assert torch.equal(got[0], qmatmul_fused_reference(
+                        x[rows], w[:, cols], **ekw, **o)), (tag, o)
+        dec = sm90.decode_schedule(8, n, k, ekw["block_k"], 1)
+        whole = qmatmul_fused(x[:16], w, **ekw)
+        for r in range(2):
+            got = qmatmul_fused_with(x[8 * r:8 * r + 8], w, dec, row0=8 * r,
+                                     **ekw)
+            assert torch.equal(got, whole[8 * r:8 * r + 8]), (tag, r)
+        dx, dw = qmatmul_bwd_pair(g, xq, wq, **bkw)
+        ks = k // 2
+        for r in range(2):
+            sl = slice(r * ks, (r + 1) * ks)
+            o = dict(k_offset=r * ks, k_total=k)
+            xs, ws = xq[:, sl].contiguous(), wq[sl]
+            for stats in (False, True):
+                part = qmatmul_bwd_pair(g, xs, ws, collect_stats=stats,
+                                        **bkw, **o)
+                assert torch.equal(part[0], dx[:, sl]), (tag, r, stats)
+                assert torch.equal(part[1], dw[sl]), (tag, r, stats)
+            if r == 1:
+                pdx, pdw = qmatmul_bwd_pair_reference(g, xs, ws, **bkw, **o)
+                assert torch.equal(part[0], pdx) and \
+                    torch.equal(part[1], pdw), tag

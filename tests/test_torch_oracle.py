@@ -217,10 +217,10 @@ def _plan(kind, fused):
     return replace(t, fused=fused), replace(j, fused=fused)
 
 
-def _port_vjp(x, w, cfg, g):
+def _port_vjp(x, w, cfg, g, dist=None):
     xt = x.clone().requires_grad_()
     wt = w.clone().requires_grad_()
-    y = qdot(xt, wt, cfg)
+    y = qdot(xt, wt, cfg) if dist is None else qdot(xt, wt, cfg, dist=dist)
     y.backward(g)
     return y.detach(), xt.grad, wt.grad
 
@@ -290,8 +290,11 @@ def test_oracle_refuses_stats_tag():
     rows) runs: its three roles' rows come from K8's plain version on the
     f32 residuals and g, and equal the tagged fused qdot's rows (K8 and
     K9's plain versions: the same chained sums), with y, dx and dw
-    unchanged by the tag; a mesh-wide reduction is still refused, and the
-    oracle never packs its residuals."""
+    unchanged by the tag; on a mesh of one rank it gives the same
+    outputs and rows (nothing is split; ``tests/test_torch_dist_model.py``
+    runs it over ranks), and the oracle never packs its residuals."""
+    from repro_torch.dist import Dist
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.obs.ingraph import InGraphCollector, collecting
 
     p = GEMMPrecision(m_acc=5, chunk=16)
@@ -318,9 +321,18 @@ def test_oracle_refuses_stats_tag():
     for key, row in rows[True, "mlp_up"].items():
         np.testing.assert_array_equal(np.asarray(row),
                                       np.asarray(rows[False, "mlp_up"][key]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        QDotConfig(fwd=p, repr_fmt=FP8_152, fused=False, stats_tag="mlp_up",
-                   stats_axis="dp")
+    cfg = QDotConfig(fwd=p, bwd=p, grad=p, repr_fmt=FP8_152, fused=False,
+                     stats_tag="mlp_up")
+    one = Dist(mesh=Mesh({"data": 1, "model": 1}), batch_axes=("data",),
+               fsdp_axis="data")
+    col = InGraphCollector()
+    with collecting(col):
+        for a, b in zip(_port_vjp(x, w, cfg, g, one), outs[False, None]):
+            assert torch.equal(a, b)
+    assert sorted(col.rows()) == sorted(rows[False, "mlp_up"])
+    for key, row in col.rows().items():
+        np.testing.assert_array_equal(np.asarray(row),
+                                      np.asarray(rows[False, "mlp_up"][key]))
     assert not QDotConfig(repr_fmt=FP8_152, fused=False).packs
     assert QDotConfig(repr_fmt=FP8_152).packs
 

@@ -818,21 +818,24 @@ def test_capture_records_quantized_gemms_and_suspends():
         assert capture.active()
     assert len(buf) == 1 and buf[0]["x"].shape == (16, 16)
     assert buf[0]["cfg"] is cfg and not capture.active()
-    # stats_axis on one rank: the tagged backward's rows are the rows
-    # without it (the reduction over a one-rank axis is the identity; over
-    # 2 and 4 ranks: tests/test_torch_dist_train.py)
+    # a mesh of one rank: the tagged backward's rows are the rows without
+    # a mesh (nothing is split, so nothing is reduced; over 2 and 4 ranks:
+    # tests/test_torch_dist_train.py)
+    from repro_torch.dist import LOCAL, Dist
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.obs.ingraph import InGraphCollector, collecting
 
+    tagged = QDotConfig(fwd=GEMMPrecision(m_acc=6, chunk=8),
+                        bwd=GEMMPrecision(m_acc=6, chunk=8),
+                        grad=GEMMPrecision(m_acc=6, chunk=8),
+                        repr_fmt=FP8_152, stats_tag="t")
     rows = []
-    for axis in (None, "data"):
-        tagged = QDotConfig(fwd=GEMMPrecision(m_acc=6, chunk=8),
-                            bwd=GEMMPrecision(m_acc=6, chunk=8),
-                            grad=GEMMPrecision(m_acc=6, chunk=8),
-                            repr_fmt=FP8_152, stats_tag="t", stats_axis=axis)
+    for dist in (LOCAL, Dist(mesh=Mesh({"data": 1, "model": 1}),
+                             batch_axes=("data",), fsdp_axis="data")):
         col = InGraphCollector()
         xg = x.clone().requires_grad_()
         with collecting(col):
-            qdot(xg, w, tagged).sum().backward()
+            qdot(xg, w, tagged, dist=dist).sum().backward()
         rows.append(col.rows())
     assert sorted(rows[0]) == sorted(rows[1]) and len(rows[0]) == 3
     for key in rows[0]:

@@ -6,8 +6,9 @@ the host clock (the call returns when its tensors are on this rank, so the
 time holds the transfer and any wait for the other rank).  Each step ends
 in a device synchronisation.  Prints one JSON line a rank and step: the
 step's seconds, the seconds in collectives and their share, the calls and
-the bytes received.  The ranks take the launcher's backend rule (gloo when
-they share a card, and on the CPU).
+the bytes received, and the ``TOP`` call sites by seconds (op, shape and
+dtype: their calls, seconds and bytes received).  The ranks take the
+launcher's backend rule (gloo when they share a card, and on the CPU).
 
   PYTHONPATH=src python tools/dist_step_share.py [--steps 3] [extra launcher args]
 
@@ -24,6 +25,8 @@ import time
 import torch
 import torch.distributed as tdist
 
+TOP = 8     # the call sites (op, shape, dtype) with the most seconds a step
+
 
 def _rank(rank, size, init_method, argv, steps, batch_axes, backend):
     from repro_torch.dist import init_mesh, rank_device
@@ -39,14 +42,22 @@ def _rank(rank, size, init_method, argv, steps, batch_axes, backend):
     dist = init_mesh(rank, {"data": size, "model": 1}, init_method, backend,
                      batch_axes=batch_axes, fsdp_axis="data", device=dev)
     tally = {"s": 0.0, "calls": 0, "bytes": 0}
+    by_shape: dict = {}
 
     def timed(fn, received):
         def call(*a, **k):
             t0 = time.perf_counter()
             out = fn(*a, **k)
-            tally["s"] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            tally["s"] += dt
             tally["calls"] += 1
             tally["bytes"] += received(*a)
+            x = a[1] if fn is gather else a[0]
+            key = f"{fn.__name__} {tuple(x.shape)} {x.dtype}"
+            row = by_shape.setdefault(key, [0, 0.0, 0])
+            row[0] += 1
+            row[1] += dt
+            row[2] += received(*a)
             return out
         return call
 
@@ -56,6 +67,7 @@ def _rank(rank, size, init_method, argv, steps, batch_axes, backend):
     def reduced(x, *rest, **kw):
         return x.numel() * x.element_size()
 
+    gather = tdist.all_gather
     tdist.all_gather = timed(tdist.all_gather, gathered)
     tdist.all_reduce = timed(tdist.all_reduce, reduced)
 
@@ -70,6 +82,7 @@ def _rank(rank, size, init_method, argv, steps, batch_axes, backend):
         batch = next(data)
         sync()
         tally.update(s=0.0, calls=0, bytes=0)
+        by_shape.clear()
         t0 = time.perf_counter()
         state, m = step_fn(state, batch)
         float(m["loss"])
@@ -78,7 +91,9 @@ def _rank(rank, size, init_method, argv, steps, batch_axes, backend):
         out.append(dict(rank=rank, step=step + 1, step_s=secs,
                         collective_s=tally["s"],
                         collective_share=tally["s"] / secs,
-                        calls=tally["calls"], bytes_in=tally["bytes"]))
+                        calls=tally["calls"], bytes_in=tally["bytes"],
+                        top=sorted(([k, *v] for k, v in by_shape.items()),
+                                   key=lambda r: -r[2])[:TOP]))
     return out
 
 

@@ -126,8 +126,8 @@ def main() -> None:
                        64, *(fmt or (8, 23)), *qfmt_args(fmt or (8, 23)),
                        int(fmt is not None), int(fmt is not None),
                        *qfmt_args((6, 9 if head else 5)),
-                       *qfmt_args((8, 23)), 0, 8, 23, 0, 0, 0, s.slots,
-                       s.slices, ws.data_ptr(),
+                       *qfmt_args((8, 23)), 0, 8, 23, 0, 0, 0, 0, 0, 0,
+                       s.slots, s.slices, ws.data_ptr(),
                        torch.cuda.current_stream().cuda_stream)
                 assert rc == 0, rc
 
