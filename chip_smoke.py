@@ -155,7 +155,8 @@ on its own line:
    (``fused=False``: the rows from K8 on its f32 residuals) against the
    tagged fused step, loss and gradients bitwise, every row's counters and
    MAX_ABS bitwise and its sums within ``SUM_REL``/``SUM_ABS``;
-8. analysis: the Monte Carlo of swamped accumulation on the card at
+8. analysis (first, while the build runs on a thread of its own: it runs
+   PyTorch ops only): the Monte Carlo of swamped accumulation on the card at
    ``tests/test_vrr_montecarlo.py``'s points under its assertions, Table
    1's assignment of the paper's three networks against the published
    table (the JAX package's match count), and qwen2-1.5b's accumulation
@@ -185,7 +186,7 @@ on its own line:
    ``[dist-sr]`` the SR keys' origins (E, K8 and G on a rank's rows and
    columns, G's decode route on 2 x 8 rows, B and K9 on K-slices) bitwise
    the whole SR calls and the plain versions, timed beside RNE; the
-   launcher's ``--mesh 2x1`` at full width and 4 layers (3 steps), 2
+   launcher's ``--mesh 2x1`` at full width and 4 layers (2 steps), 2
    layers with microbatches and loss scaling, 2 layers with an in-graph
    tick, ``--rounding sr`` at 4 layers with an in-graph tick, and the
    unfused oracle at 2 layers with an in-graph tick, each against the
@@ -222,9 +223,37 @@ on its own line:
    launcher under ``--a2q-reg 1e-4 --a2q-x-bound 16`` at full width and
    depth for 3 steps with the certificate ok after each, and
    ``tests/test_a2q.py``'s adversarial check through K8 under RNE and SR;
-12. result: one JSON line per kernel (the SR carries of G, E, B, K7, K8,
+12. families (last): ``[families]``, the paged half of the other model
+   families at their published widths.  G at moonshot-v1-16b-a3b's expert
+   shapes (gate/up 2048 x 1408, down 1408 x 2048; the (8, 23) carry at
+   chunk 128, no representation format, f32 activations of bf16 values,
+   bf16 weights) at the capacities of a decode step (1), a 64-token slab
+   (7) and the train cell (60), and B at 60 with raw f32 residuals, one
+   expert's 3 GEMMs each, bitwise their plain versions on random and
+   lattice operands, timed beside the bound and bf16 ``torch.matmul``.
+   ``moe-serve``: moonshot at 8 of 48 layers (5.37 B parameters; 48 would
+   need a 115.6 GB f32 draw), the predicted plan, the serve cell's 8
+   prompts one-shot, eager with every G (expert and dense) and D call
+   recorded and the expert launches counted, then on CUDA graphs (P's
+   device-geometry entry recorded on a prompt's slab): each recorded call
+   against its plain version, the graphed streams and arena bitwise the
+   eager ones, a full decode step's launches by kernel (192 expert G a
+   layer), the decode tok/s and the expert G calls' share of a decode
+   step's kernel time (their graph replay over the profiler's sum).
+   ``moe-train``: moonshot at 2 layers (1.85 B parameters; 4 would need
+   about 48 GB before activations) through the launcher, 8 x 64, AdamW,
+   3 steps: finite losses and aux, the expert G and B calls at capacity 60
+   recorded and bitwise their plain versions, the step time and peak
+   memory; a 1-layer step (2 x 64, no remat) bitwise through the plain
+   versions.  ``qk-norm``: qwen3-8b at full width and depth on graphs, G,
+   D and P recorded on a slab and a decode step, the decode tok/s.
+   ``vlm``: internvl2-2b at 2 layers, 2 steps of 2 x 512 with 256 patch
+   embeddings a row bitwise through the plain versions, the loss unmoved
+   by the image positions' tokens;
+13. result: one JSON line per kernel (the SR carries of G, E, B, K7, K8,
    K9 and K10, D's and P's carry variants, B's and K9's K-slices, the SR
-   origins, and the fused GEMM's variants as entries of their own;
+   origins, the fused GEMM's variants and the MoE experts' G and B as
+   entries of their own;
    ``plain_depth`` says what a ``plain_ms`` covers, ``plain_depth_kernel_ms`` the kernel there), the seconds by
    phase, the card's name and power limit, and the final JSON line.
 
@@ -398,21 +427,47 @@ def check_stats(label: str, got, want) -> float:
 # --------------------------------------------------------------------------
 
 
-def phase_build() -> str:
+def start_build():
+    """The kernels' build (``build.build_all``: one ``nvcc`` a source, all
+    at once) on a thread of its own, so that work which needs no kernel
+    (``phase_analysis``: PyTorch ops only) runs on the card meanwhile;
+    ``phase_build`` waits for it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import build
+
+    pool = ThreadPoolExecutor(1)
+    t0 = time.perf_counter()
+    fut = pool.submit(lambda: (build.build_all(), time.perf_counter() - t0))
+    pool.shutdown(wait=False)
+    return fut
+
+
+def phase_build(background=None) -> str:
+    """The build (waiting for ``start_build``'s, where given), with each
+    source's seconds, the card and the compiler, the ptxas reports and
+    ``sm90_report``."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    built = build.build_all()
-    dt = time.perf_counter() - t0
+    if background is not None:
+        built, dt = background.result()
+        waited = time.perf_counter() - t0
+    else:
+        built = build.build_all()
+        dt = waited = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
+    ends = {k: round(v, 1) for k, v in sorted(built.items(),
+                                              key=lambda kv: kv[1])}
     print(f"[build] {len(built)} kernels built in {dt:.2f}s into "
-          f"{build.BUILD_DIR} ({', '.join(sorted(built)) or 'cached'})",
-          flush=True)
+          f"{build.BUILD_DIR} ({', '.join(sorted(built)) or 'cached'}), "
+          f"{waited:.2f}s of it waited for; seconds to each source's end "
+          f"{ends}", flush=True)
     for name in build.KERNELS:
         log = build._lib_path(name).with_suffix(".log")
         regs = [ln.strip() for ln in log.read_text().splitlines()
@@ -5210,7 +5265,65 @@ def _records(path: Path) -> list[dict]:
     return [json.loads(line) for line in path.read_text().splitlines()]
 
 
-def phase_ckpt(dev) -> dict:
+def _ckpt_counters():
+    # the launcher serves on CUDA graphs: its P is the device-geometry entry
+    return dict(_train_counters(), **_counters(),
+                **{P_GEOM_NAME: _graph_counters()[P_GEOM_NAME]})
+
+
+def phase_ckpt_start(dev) -> dict:
+    """``[ckpt]``'s first half: CKPT_STEPS steps through the training
+    launcher uninterrupted, then the supervised run started in a child
+    process, which ``phase_ckpt`` waits for (the checks between the two
+    run beside it: the child is mostly process starts and checkpoint
+    I/O)."""
+    import atexit
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.launch import train as LT
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    counters = _ckpt_counters()
+    plain = CKPT_DIR / "plain.jsonl"
+    zero_counts(counters)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        LT.main(_ckpt_argv("--metrics-out", str(plain)))
+    torch.cuda.synchronize()
+    train_used = read_counts(counters)
+    want = [(r["step"], r["loss"], r["grad_norm"]) for r in _records(plain)]
+    print(f"[ckpt] uninterrupted: {CKPT_STEPS} steps at {CKPT_LAYERS} "
+          f"layers, full width: losses {[w[1] for w in want]}, launches "
+          f"{train_used}", flush=True)
+    check(all(math.isfinite(w[1]) for w in want), "a loss is not finite")
+    torch.cuda.empty_cache()        # room for the child processes
+    check(all(train_used[k] > 0 for k in (E_NAME, "qmatmul_bwd_pair",
+                                          "qmatmul_fused", K8_NAME)),
+          "the uninterrupted run missed a kernel of the training path")
+    run, resumed = CKPT_DIR / "run", CKPT_DIR / "resumed.jsonl"
+    cmd = [sys.executable, "-m", "repro_torch.launch.supervisor",
+           "--max-restarts", "2", "--backoff-s", "0.1", "--",
+           sys.executable, "-m", "repro_torch.launch.train",
+           *_ckpt_argv("--ckpt-dir", str(run), "--ckpt-every",
+                       str(CKPT_EVERY), "--crash-at-step",
+                       str(CKPT_CRASH), "--metrics-out", str(resumed),
+                       "--telemetry-log", str(CKPT_DIR / "t.jsonl"))]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out, err = (open(CKPT_DIR / name, "w") for name in ("out.log",
+                                                         "err.log"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=out, stderr=err, text=True, env=env,
+                            cwd=ROOT)
+    # a check failing before phase_ckpt exits the script: the child goes too
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return dict(want=want, train_used=train_used, proc=proc, t0=t0,
+                files=(out, err), run=run, resumed=resumed)
+
+
+def phase_ckpt(dev, started: dict) -> dict:
     """Checkpoints and restarts on the card: qwen2-1.5b at full width, the
     depth cut to CKPT_LAYERS layers (at full depth a checkpoint holds about
     18.5 GB of f32 masters and moments).  CKPT_STEPS steps through the
@@ -5220,55 +5333,28 @@ def phase_ckpt(dev) -> dict:
     loss after the resume bitwise the uninterrupted run's.  Then the last
     checkpoint served through ``launch/serve.py --ckpt-dir``: one request,
     under the recorded precision schedule.  Prints the checkpoint's bytes
-    on disk and its save and restore ms; deletes the checkpoints."""
+    on disk and its save and restore ms; deletes the checkpoints.  The
+    uninterrupted steps and the supervised child were started by
+    ``phase_ckpt_start`` (``started``); this waits for the child."""
     import contextlib
     import io
-    import os
     import shutil
 
     from repro_torch.core.policy import AccumulationPolicy, plan_for_model
     from repro_torch.launch import serve as LS
     from repro_torch.launch import train as LT
 
-    shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    CKPT_DIR.mkdir(parents=True)
-    # the launcher serves on CUDA graphs: its P is the device-geometry entry
-    counters = dict(_train_counters(), **_counters(),
-                    **{P_GEOM_NAME: _graph_counters()[P_GEOM_NAME]})
+    counters = _ckpt_counters()
+    want, run, resumed = (started[k] for k in ("want", "run", "resumed"))
     try:
-        plain = CKPT_DIR / "plain.jsonl"
-        zero_counts(counters)
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            LT.main(_ckpt_argv("--metrics-out", str(plain)))
-        torch.cuda.synchronize()
-        train_used = read_counts(counters)
-        want = [(r["step"], r["loss"], r["grad_norm"]) for r in _records(plain)]
-        print(f"[ckpt] uninterrupted: {CKPT_STEPS} steps at {CKPT_LAYERS} "
-              f"layers, full width: losses {[w[1] for w in want]}, launches "
-              f"{train_used}", flush=True)
-        check(all(math.isfinite(w[1]) for w in want), "a loss is not finite")
-        torch.cuda.empty_cache()        # room for the child processes
-        check(all(train_used[k] > 0 for k in (E_NAME, "qmatmul_bwd_pair",
-                                              "qmatmul_fused", K8_NAME)),
-              "the uninterrupted run missed a kernel of the training path")
-
-        run, resumed = CKPT_DIR / "run", CKPT_DIR / "resumed.jsonl"
-        cmd = [sys.executable, "-m", "repro_torch.launch.supervisor",
-               "--max-restarts", "2", "--backoff-s", "0.1", "--",
-               sys.executable, "-m", "repro_torch.launch.train",
-               *_ckpt_argv("--ckpt-dir", str(run), "--ckpt-every",
-                           str(CKPT_EVERY), "--crash-at-step",
-                           str(CKPT_CRASH), "--metrics-out", str(resumed),
-                           "--telemetry-log", str(CKPT_DIR / "t.jsonl"))]
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-        t0 = time.perf_counter()
-        out = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                             cwd=ROOT, timeout=600)
-        secs = time.perf_counter() - t0
-        log = out.stdout
-        check(out.returncode == 0, f"supervised run exit {out.returncode}: "
-              f"{log[-2000:]} {out.stderr[-2000:]}")
+        proc = started["proc"]
+        rc = proc.wait(timeout=600)
+        secs = time.perf_counter() - started["t0"]
+        for f in started["files"]:
+            f.close()
+        log = (CKPT_DIR / "out.log").read_text()
+        check(rc == 0, f"supervised run exit {rc}: {log[-2000:]} "
+              f"{(CKPT_DIR / 'err.log').read_text()[-2000:]}")
         for want_s in (f"FAULT INJECTION: dying at step {CKPT_CRASH}",
                        "restart 1/2", f"resumed from step {CKPT_EVERY}"):
             check(want_s in log, f"supervised run: no {want_s!r} in its log")
@@ -5282,7 +5368,8 @@ def phase_ckpt(dev) -> dict:
         after = got[CKPT_CRASH:]
         same = after == want[CKPT_EVERY:] and got[:CKPT_CRASH] == want[:CKPT_CRASH]
         print(f"[ckpt] supervised (--crash-at-step {CKPT_CRASH}, "
-              f"--ckpt-every {CKPT_EVERY}): {secs:.1f} s, one restart; "
+              f"--ckpt-every {CKPT_EVERY}; beside the phases after "
+              f"phase_ckpt_start): {secs:.1f} s, one restart; "
               f"losses after the resume {[a[1] for a in after]} "
               f"{'bitwise' if same else 'DIFFERENT from'} the uninterrupted "
               f"run's; schedule restored at the resume: "
@@ -5332,7 +5419,8 @@ def phase_ckpt(dev) -> dict:
                                               P_GEOM_NAME)),
               "serving from the checkpoint missed a kernel of the serve path")
         return dict(saves=saves, restore_ms=restore_ms, seconds=secs,
-                    train_launches=train_used, serve_launches=serve_used)
+                    train_launches=started["train_used"],
+                    serve_launches=serve_used)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
@@ -5779,9 +5867,11 @@ DIST_RECORD = ("step", "loss", "grad_norm", "lr", "skipped", "loss_scale")
 
 def _dist_argv(*extra) -> list:
     """The launcher's arguments of the [dist-train] runs: qwen2-1.5b at
-    full width, the predicted plan, 8 x 64 tokens, 3 steps."""
+    full width, the predicted plan, 8 x 64 tokens, 2 steps (a mesh step
+    is mostly gloo traffic through the host: a third step checked nothing
+    the first two do not)."""
     return ["--arch", "qwen2-1.5b", "--policy", "predicted", "--chunk",
-            "64", "--steps", "3", "--global-batch", str(TRAIN_BATCH),
+            "64", "--steps", "2", "--global-batch", str(TRAIN_BATCH),
             "--seq-len", str(TRAIN_SEQ), "--log-every", "1", "--seed",
             str(SEED), "--device", "cuda", *extra]
 
@@ -6204,14 +6294,15 @@ def _tick_logs(name: str):
     return logs
 
 
-def _mesh_vs_single(groups, *, twins=None, digest_runs=(), exact_runs=()):
+def _mesh_vs_single(groups, *, same=None, digest_runs=(), exact_runs=()):
     """``groups``: lists of jobs, (tag, label, mesh shape, argv, plan or
     None, tick) each, a list's shapes of one size.  Each list is one start
     of its ranks (``run_mesh``, the launcher's ``--mesh``), every list's
     start at once, each waited on by a thread of its own (the ranks are
     processes: they share nothing of this one), while this process runs
-    the single-device runs on the same arguments (``twins``: already-run
-    ones by label).  Each run is held to its single device: every rank's
+    the single-device runs on the same arguments (``same``: label -> the
+    label whose single-device run it shares, its digests taken under both
+    meshes).  Each run is held to its single device: every rank's
     records and schedule bitwise (within F8's 1e-3 relative for
     ``exact_runs``), the blocks of the final state by digests for
     ``digest_runs``, the tick verdicts equal.  Returns (single results,
@@ -6220,8 +6311,11 @@ def _mesh_vs_single(groups, *, twins=None, digest_runs=(), exact_runs=()):
 
     from repro_torch.launch import train as LT
 
-    twins = dict(twins or {})
+    same = dict(same or {})
     jobs = [job for group in groups for job in group]
+    shapes: dict = {}
+    for _, label, shape, *_ in jobs:
+        shapes.setdefault(same.get(label, label), []).append(shape)
     logs = {label: _tick_logs(f"{tag}_{i}") for i, (tag, label, *_, tick)
             in enumerate(jobs) if tick}
 
@@ -6240,26 +6334,27 @@ def _mesh_vs_single(groups, *, twins=None, digest_runs=(), exact_runs=()):
     with ThreadPoolExecutor(len(groups)) as pool:
         futures = [pool.submit(mesh, group) for group in groups]
         for _, label, shape, argv, plan, _ in jobs:
-            if label in twins:
-                single[label] = twins[label]
+            if label in same:
                 continue
             extra = (["--telemetry-log", str(logs[label][0])]
                      if label in logs else [])
             t0 = time.perf_counter()
             single[label] = LT.train(
                 LT.parse_args(argv + extra),
-                finish=functools.partial(block_digests, (shape,))
+                finish=functools.partial(block_digests, tuple(shapes[label]))
                 if label in digest_runs else None, plan=plan)
             secs[label] = time.perf_counter() - t0
             gc.collect()
             torch.cuda.empty_cache()
+        for label, twin in same.items():
+            single[label] = single[twin]
         done = [f.result() for f in futures]
     for group, (outs, _) in zip(groups, done):
         for i, (tag, label, shape, _, _, _) in enumerate(group):
             _check_mesh_run(tag, label, shape, i, outs, single[label],
                             secs.get(label), logs.get(label),
                             label in digest_runs, label in exact_runs)
-    return single, [o for o, _ in done], [t for _, t in done]
+    return single, [o for o, _ in done], [t for _, t in done], secs
 
 
 def _check_mesh_run(tag, label, shape, i, outs, want, secs, logs, digests,
@@ -6318,7 +6413,7 @@ def phase_dist_train(dev, smi: str) -> dict:
     single device on the same arguments, qwen2-1.5b at full width.
 
     ``[dist-train]``, ``--mesh 2x1``: ``DIST_LAYERS`` layers (the gloo
-    traffic grows with depth), 3 steps (losses, grad norms, lrs, skip
+    traffic grows with depth), 2 steps (losses, grad norms, lrs, skip
     flags and loss scales bitwise; each rank's blocks of the final params
     and both moments by digests, two integer sums of their bits computed
     on the card, equal to the same blocks of the single device's state);
@@ -6374,16 +6469,13 @@ def phase_dist_train(dev, smi: str) -> dict:
                _dist_argv(*two, *eager_sr), None, True),
               (m, "2 layers, --policy exact", MESH_2X2,
                _dist_argv(*two, "--policy", "exact"), None, False)]
-    t0 = time.perf_counter()
-    first = LT.train(LT.parse_args(ranks2[0][3]), finish=functools.partial(
-        block_digests, (DIST_SHAPE, MODEL_SHAPE)))
-    gc.collect()
-    torch.cuda.empty_cache()
-    t_first = time.perf_counter() - t0
-    single, (outs, outs4), (t2, t4) = _mesh_vs_single(
-        [ranks2, ranks4], twins={first_label: first, ranks2[-1][1]: first},
+    # the first single-device run, beside the ranks' start, serves the
+    # 2x1 and 1x2 runs of its arguments
+    single, (outs, outs4), (t2, t4), secs = _mesh_vs_single(
+        [ranks2, ranks4], same={ranks2[-1][1]: first_label},
         digest_runs=[label for _, label, *_ in ranks2 + ranks4[:2]],
         exact_runs=[ranks4[2][1]])
+    first, t_first = single[first_label], secs[first_label]
     n_leaves = len(first["block_digests"][_desc(DIST_SHAPE)][0])
     print(f"[dist-train] {n_leaves} leaves of params and moments compared "
           "by digests in each run", flush=True)
@@ -7206,6 +7298,804 @@ def phase_a2q(dev) -> dict:
 
 # Seconds spent in each phase (a nested phase's time also counts in its
 # caller's), printed before the result: where the script's time limit goes
+# --------------------------------------------------------------------------
+# [families]: the paged half of the other model families (MoE, qk-norm, the
+# VLM stub), at their published widths
+# --------------------------------------------------------------------------
+
+MOE_ARCH = "moonshot-v1-16b-a3b"
+# moe-serve: 8 of moonshot's 48 layers (5.37 B parameters, a 21.5 GB f32
+# draw; 48 would need 115.6 GB); moe-train: 2 layers (1.85 B parameters,
+# about 30 GB of masters, moments, bf16 copy and gradients at 16 bytes a
+# parameter; 4 would be about 48 GB before activations); its plain-version
+# step at 1 layer (the plain expert GEMMs run one launch a k)
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS, MOE_PLAIN_LAYERS = 8, 2, 1
+MOE_TRAIN_STEPS = 3
+QK_ARCH = "qwen3-8b"                     # full depth: 36 layers, 8.19 B
+VLM_ARCH = "internvl2-2b"
+VLM_LAYERS, VLM_SEQ, VLM_BATCH, VLM_STEPS = 2, 512, 2, 2
+# the expert GEMMs: moonshot's gate/up and down, at the capacities of a
+# decode step (8 rows: 1), a 64-token slab (7) and the train cell (60)
+EXPERT_GEMMS = (("gate", 2048, 1408), ("up", 2048, 1408),
+                ("down", 1408, 2048))
+EXPERT_CAPS = (1, 7, 60)
+G_EXPERT_NAME = "qmatmul_fused (MoE experts)"
+B_EXPERT_NAME = "qmatmul_bwd_pair (MoE experts)"
+EXPERT_KW = dict(repr_fmt=None, e_acc=8, m_acc=23, block_k=128)
+EXPERT_B_KW = dict(repr_fmt=None, bwd_acc=(8, 23), grad_acc=(8, 23),
+                   bwd_chunk=128, grad_chunk=128, packed=False,
+                   quantize_g=False)
+
+
+def _bf16_draw(model, seed: int, dev):
+    """``model``'s seeded float32 parameters as bf16, a leaf at a time (the
+    float32 leaf freed once cast), as the serving launcher holds them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init_params(gen, dev)
+
+    def cast(tree):
+        for k, v in list(tree.items()):
+            if isinstance(v, dict):
+                cast(v)
+            elif v.dtype == torch.float32:
+                tree[k] = v.to(torch.bfloat16)
+                del v
+        return tree
+
+    return cast(params)
+
+
+@contextmanager
+def counting_experts(counts: dict):
+    """Count the G and B launches the MoE expert MLPs make (the wrappers'
+    counters read around each ``_moe_expert_mlp_fused`` call and its
+    backward): ``counts["G"]``, ``counts["B"]``."""
+    from repro_torch.kernels.bwd_pair import qmatmul_bwd_pair
+    from repro_torch.kernels.fused import qmatmul_fused
+    from repro_torch.models import layers as L
+
+    inner = L._moe_expert_mlp_fused
+    counts.setdefault("G", 0)
+    counts.setdefault("B", 0)
+
+    class _Marks(torch.autograd.Function):
+        """Identity whose backward reads B's counter at its two ends."""
+
+        @staticmethod
+        def forward(ctx, h, end):
+            ctx.end = end
+            return h.view_as(h)
+
+        @staticmethod
+        def backward(ctx, g):
+            if ctx.end:     # runs first in the backward: the experts' end
+                counts["_b0"] = qmatmul_bwd_pair.launches
+            else:
+                counts["B"] += qmatmul_bwd_pair.launches - counts.pop("_b0")
+            return g, None
+
+    def wrapped(h, *w):
+        g0 = qmatmul_fused.launches
+        grad = torch.is_grad_enabled() and h.requires_grad
+        if grad:
+            h = _Marks.apply(h, False)
+        out = inner(h, *w)
+        counts["G"] += qmatmul_fused.launches - g0
+        return _Marks.apply(out, True) if grad else out
+
+    L._moe_expert_mlp_fused = wrapped
+    try:
+        yield counts
+    finally:
+        L._moe_expert_mlp_fused = inner
+
+
+@contextmanager
+def recording_calls(calls: dict, keep=None):
+    """Record G's (every ``qmatmul_fused`` call: G, E, and K8) and B's
+    calls as ``qdot`` makes them, those ``keep(args, kw)`` accepts: one
+    entry a launch shape and keywords, ``key -> (args cloned, kwargs)``.
+    The calls still run their kernels."""
+    from repro_torch.kernels import ops as O
+
+    def recorder(kind, fn):
+        def rec(*args, **kw):
+            key = (kind, tuple(tuple(a.shape) for a in args
+                               if torch.is_tensor(a)),
+                   tuple(str(a.dtype) for a in args if torch.is_tensor(a)),
+                   repr(sorted(kw.items())))
+            if key not in calls and (keep is None or keep(args, kw)):
+                calls[key] = (tuple(a.clone() if torch.is_tensor(a) else a
+                                    for a in args), dict(kw))
+            return fn(*args, **kw)
+        return rec
+
+    saved = (O.qmatmul_fused, O.qmatmul_bwd_pair)
+    O.qmatmul_fused = recorder("G", saved[0])
+    O.qmatmul_bwd_pair = recorder("B", saved[1])
+    try:
+        yield calls
+    finally:
+        O.qmatmul_fused, O.qmatmul_bwd_pair = saved
+
+
+def check_recorded_bitwise(label: str, calls: dict) -> dict:
+    """Each recorded G/E/K8 or B call through its kernel and its plain
+    version on the recorded operands: every output (E's codes, B's dx and
+    dw) bitwise.  Returns the shapes checked by kind (expert calls are the
+    ones without a representation format)."""
+    from repro_torch.kernels import bwd_pair as B
+    from repro_torch.kernels import fused as F
+
+    seen: dict = {}
+    for key, (args, kw) in calls.items():
+        kind = key[0]
+        run, ref = ((F.qmatmul_fused, F.qmatmul_fused_reference)
+                    if kind == "G" else
+                    (B.qmatmul_bwd_pair, B.qmatmul_bwd_pair_reference))
+        got, want = run(*args, **kw), ref(*args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        name = kind
+        if kind == "G" and kw.get("return_quantized"):
+            name = "E"
+        elif kind == "G" and kw.get("collect_stats"):
+            name = "K8"
+        if kw.get("repr_fmt") is None and name in ("G", "B") \
+                and kw.get("m_acc", kw.get("bwd_acc", (8, 23))) in (23, (8, 23)):
+            name += " expert"
+        for a, b in zip(got, want):
+            check(torch.equal(a, b), f"{label} {name} {key[1]}: not bitwise "
+                                     "its plain version")
+        seen.setdefault(name, []).append(key[1])
+    print(f"[families] {label}: {len(calls)} launch shapes recorded, each "
+          f"bitwise its plain version: " + "; ".join(
+              f"{k} {v}" for k, v in sorted(seen.items())), flush=True)
+    return seen
+
+
+def _expert_costs(m: int, b_pass: bool):
+    """(bytes, operations, peak) of one expert's 3 GEMMs at capacity m: G
+    reads f32 x and bf16 w and writes f32 y; B reads f32 g and x and bf16
+    w and writes f32 dx and dw."""
+    out = []
+    for _, k, n in EXPERT_GEMMS:
+        if b_pass:
+            out.append((4 * m * n + 4 * m * k + 2 * k * n + 4 * m * k
+                        + 4 * k * n, 4 * m * k * n, BF16_FLOPS))
+        else:
+            out.append((4 * m * k + 2 * k * n + 4 * m * n, 2 * m * k * n,
+                        BF16_FLOPS))
+    return out
+
+
+def _expert_kernels(dev) -> dict:
+    """The expert GEMMs' kernels at moonshot's shapes: G at capacities 1,
+    7 and 60, B at 60, one expert's 3 GEMMs each (f32 activations of bf16
+    values, the bf16 weights as the layer hands them), bitwise their plain
+    versions on random and lattice operands; their time (CUDA events),
+    the plain versions', the bound and bf16 ``torch.matmul`` on the same
+    shapes (B: the two matmuls of dx and dw) by graph replay."""
+    from repro_torch.kernels.bwd_pair import (qmatmul_bwd_pair,
+                                              qmatmul_bwd_pair_reference)
+    from repro_torch.kernels.fused import (qmatmul_fused,
+                                           qmatmul_fused_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 91)
+
+    def operands(m, lattice):
+        ops = []
+        for _, k, n in EXPERT_GEMMS:
+            mk = ((lambda s: _lattice(gen, s, dev)) if lattice else
+                  (lambda s: torch.randn(s, generator=gen, device=dev)
+                   .to(torch.bfloat16).float()))
+            ops.append((mk((m, k)), (mk((k, n)) / 8).to(torch.bfloat16),
+                        mk((m, n))))
+        return ops
+
+    out = {}
+    for m in EXPERT_CAPS:
+        err = 0.0
+        for lattice in (False, True):
+            for a, w, _ in operands(m, lattice):
+                got = qmatmul_fused(a, w, **EXPERT_KW)
+                want = qmatmul_fused_reference(a, w, **EXPERT_KW)
+                check(torch.equal(got, want), f"[families] expert G at M = "
+                      f"{m}, {tuple(a.shape)} x {tuple(w.shape)}, "
+                      f"{'lattice' if lattice else 'random'}: not bitwise")
+                err = max(err, float((got - want).abs().max()))
+        ops = operands(m, False)
+
+        def run():
+            for a, w, _ in ops:
+                qmatmul_fused(a, w, **EXPERT_KW)
+
+        # device time by graph replay: 3 eager launches of a few tens of
+        # microseconds each are bound by the host's launch work
+        ms = lib_time(run)[0]
+        eager_ms = cuda_time(run, reps=20)
+        t0 = time.perf_counter()
+        for a, w, _ in ops:
+            qmatmul_fused_reference(a, w, **EXPERT_KW)
+        torch.cuda.synchronize()
+        plain = 1e3 * (time.perf_counter() - t0)
+        lib = lib_time(lambda: [torch.matmul(a.to(torch.bfloat16), w)
+                                for a, w, _ in ops])
+        bnd, by = seq_bound(_expert_costs(m, False))
+        out[f"G{m}"] = dict(ms=ms, eager_ms=eager_ms, plain_ms=plain,
+                            bound_ms=bnd, bound_by=by, library_ms=lib[0],
+                            library_spread_ms=lib[1], max_abs_err=err)
+        print(f"[families] expert G at M = {m} (one expert's gate, up, down: "
+              f"2048x1408, 2048x1408, 1408x2048; (8,23) at chunk 128): "
+              f"bitwise its plain version on random and lattice operands; "
+              f"{ms:.4f} ms by graph replay (eager {eager_ms:.4f}), bound {bnd:.4f} ms ({by}; {bnd / ms:.3f}), "
+              f"plain {plain:.1f} ms, bf16 torch.matmul {lib_str(lib)} "
+              f"({ms / lib[0]:.2f}x)", flush=True)
+    m = EXPERT_CAPS[-1]
+    err = 0.0
+    for lattice in (False, True):
+        for a, w, g in operands(m, lattice):
+            got = qmatmul_bwd_pair(g, a, w, **EXPERT_B_KW)
+            want = qmatmul_bwd_pair_reference(g, a, w, **EXPERT_B_KW)
+            for x, y in zip(got, want):
+                check(torch.equal(x, y), f"[families] expert B at T = {m}, "
+                      f"K {a.shape[1]}, N {w.shape[1]}: not bitwise")
+                err = max(err, float((x - y).abs().max()))
+    ops = operands(m, False)
+
+    def run_b():
+        for a, w, g in ops:
+            qmatmul_bwd_pair(g, a, w, **EXPERT_B_KW)
+
+    ms = lib_time(run_b)[0]
+    eager_ms = cuda_time(run_b, reps=20)
+    t0 = time.perf_counter()
+    for a, w, g in ops:
+        qmatmul_bwd_pair_reference(g, a, w, **EXPERT_B_KW)
+    torch.cuda.synchronize()
+    plain = 1e3 * (time.perf_counter() - t0)
+    lib = lib_time(lambda: [(torch.matmul(g.to(torch.bfloat16), w.T),
+                             torch.matmul(a.to(torch.bfloat16).T,
+                                          g.to(torch.bfloat16)))
+                            for a, w, g in ops])
+    bnd, by = seq_bound(_expert_costs(m, True))
+    out["B60"] = dict(ms=ms, eager_ms=eager_ms, plain_ms=plain, bound_ms=bnd,
+                      bound_by=by, library_ms=lib[0],
+                      library_spread_ms=lib[1], max_abs_err=err)
+    print(f"[families] expert B at T = {m} (one expert's 3 GEMMs, f32 "
+          f"residuals, bf16 w, g unquantized, (8,23) at chunks 128): bitwise "
+          f"its plain version on random and lattice operands; {ms:.4f} ms by "
+          f"graph replay (eager {eager_ms:.4f}), "
+          f"bound {bnd:.4f} ms ({by}; {bnd / ms:.3f}), plain {plain:.1f} ms, "
+          f"2 bf16 torch.matmul {lib_str(lib)} ({ms / lib[0]:.2f}x)",
+          flush=True)
+    return out
+
+
+def _moe_serve_cfg(n_layers):
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import AccumulationPolicy, plan_for_model
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=n_layers)
+    return plan_for_model(cfg, seq_len=max(PROMPT_LENS) + GEN,
+                          global_batch=len(PROMPT_LENS),
+                          policy=AccumulationPolicy(mode="predicted",
+                                                    chunk=64))
+
+
+def _graph_run(cfg, params, dev, prompts, label: str, eager=None) -> dict:
+    """The serve cell's prompts one-shot on CUDA graphs, warmed: streams,
+    arena, decode tok/s; against ``eager`` (a ``phase_serve``-like
+    result) the streams and arena bitwise, 0 steady-state captures."""
+    counters = _graph_counters()
+    eng = build_engine(cfg, params, dev, None, graphs=True)
+    ex = eng.executor
+    warm = eng.warmup()
+    ex.prefill_s = ex.decode_s = 0.0
+    rids = [eng.submit(p, GEN) for p in prompts]
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    with ex.compile_stats_scope() as delta:
+        t0 = time.perf_counter()
+        results = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = read_counts(counters)
+    streams = [results[r] for r in rids]
+    check(delta["compiles"] == 0 and delta["misses"] == 0,
+          f"[families] {label}: steady-state captures {delta}")
+    check(all(len(s) == GEN for s in streams), f"[families] {label}: short "
+                                                "stream")
+    for k in ("qmatmul_fused", "paged_attn_decode", P_GEOM_NAME):
+        check(launches[k] > 0, f"[families] {label}: kernel {k} was not "
+                               "launched on the graphed path")
+    out = dict(streams=streams, warm=warm, seconds=dt, decode_s=ex.decode_s,
+               decoded=eng.decoded_tokens, launches=launches,
+               tok_s=eng.decoded_tokens / ex.decode_s)
+    msg = ""
+    if eager is not None:
+        same = sum(a == b for a, b in zip(streams, eager["streams"]))
+        # every page but the null page (0): each padded decode row writes
+        # its K/V there at slot 0, and a MoE step's padded rows differ
+        # (each one's capacity slots depend on its place in the batch), so
+        # which row's write lands is the scatter's pick; no row reads it
+        arena = _same_arena({k: v[:, 1:] for k, v in ex.kv.items()},
+                            {k: v[:, 1:] for k, v in eager["arena"].items()})
+        check(same == len(rids), f"[families] {label}: a graphed stream "
+                                 "differs from the eager run's")
+        if not arena:   # where: by tensor, the layers and pages that differ
+            where = {k: sorted({(int(i[0]), int(i[1])) for i in (
+                v != eager["arena"][k]).nonzero()[:, :2].tolist()})[:16]
+                for k, v in ex.kv.items()}
+            print(f"[families] {label}: arena differs at (layer, page) "
+                  f"{where}", flush=True)
+        check(arena, f"[families] {label}: the graphed arena differs from "
+                     "the eager run's")
+        msg = (f"; {same}/{len(rids)} streams and the arena (but the null "
+               f"page) bitwise the eager run's (eager decode steps "
+               f"{eager['decoded']} tokens in "
+               f"{eager['decode_s']:.3f}s, "
+               f"{eager['decoded'] / eager['decode_s']:.1f} tok/s)")
+    print(f"[families] {label} on graphs: warmup {warm['compiles']} captures "
+          f"in {warm['seconds']:.2f}s; {eng.decoded_tokens} decoded tokens in "
+          f"{dt:.3f}s end to end; decode steps {ex.decode_s:.3f}s "
+          f"({out['tok_s']:.1f} tok/s); launches over the replays "
+          f"{launches}{msg}", flush=True)
+    out["executor"], out["plan"], out["pool"] = ex, eng.plan, eng.pool
+    return out
+
+
+def _record_graph_prefill(out: dict, prompts, calls: dict) -> None:
+    """The 64-token prompt's prefill slab through the graphed executor's
+    step function run eagerly (``_eager``: P's device-geometry entry and G
+    as the graph captured them), every kernel call recorded
+    (``recording_kernels``; a short slab keeps the plain versions'
+    checks short)."""
+    from repro_torch.models.api import PrefillRequest
+
+    ex, plan, pool = out["executor"], out["plan"], out["pool"]
+    p = prompts[PROMPT_LENS.index(64)]
+    pages = pool.allocate(10 ** 6, len(p))
+    bi, bucket = plan.bucket_for(len(p))
+    req = PrefillRequest(
+        rid=10 ** 6, tokens=tuple(p), hist_pages=(), slab_pages=tuple(pages),
+        t0=0, acc=bucket.acc, final=True,
+        bucket_pages=bucket.max_pages(PAGE), slab_width=bucket.max_ctx,
+        call=plan.kernel_call(bi, kv_fmt=ex.kv_fmt))
+    with recording_kernels(calls):
+        slab_w, width, values = ex._prefill_inputs(req)
+        ex._eager(ex._prefill_fn(req.acc, width, slab_w, True, req.call),
+                  values)
+    torch.cuda.synchronize()
+    pool.release(10 ** 6)
+
+
+def _decode_profile(step, label: str, expert_ms: float) -> float | None:
+    """One eager decode step (``step()``) under ``torch.profiler``: the
+    kernels' summed device time, and the expert G calls' share of it
+    (``expert_ms``, their graph-replayed time over the step's calls)."""
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3
+    except Exception as exc:  # the profiler is a reading, not a check
+        print(f"[families] {label} profile: not measured "
+              f"({type(exc).__name__}: {exc})", flush=True)
+        return None
+    if busy <= 0:
+        print(f"[families] {label} profile: not measured (no device time)",
+              flush=True)
+        return None
+    print(f"[families] {label}: one decode step's kernels {busy:.2f} ms in "
+          f"all (profiler); the expert G calls {expert_ms:.2f} ms of it "
+          f"(graph replay of the step's expert calls), a share of "
+          f"{expert_ms / busy:.3f}", flush=True)
+    return busy
+
+
+def _moe_serve(dev) -> dict:
+    """``[families] moe-serve``: moonshot-v1-16b-a3b at full width and
+    ``MOE_SERVE_LAYERS`` layers, the predicted plan, the serve cell's 8
+    prompts (32 tokens each) one-shot, eager with every kernel call
+    recorded (G of the experts and of the dense GEMMs, D), then on CUDA
+    graphs (with P's device-geometry entry recorded on a prompt's slab):
+    every recorded call held against its plain version, the graphed
+    streams and arena bitwise the eager ones, the launches of a decode
+    step by kernel, the decode tok/s, the expert G calls' share of a
+    decode step's kernel time."""
+    from repro_torch.kernels.fused import qmatmul_fused
+    from repro_torch.models.api import get_model
+
+    cfg = _moe_serve_cfg(MOE_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    params = _bf16_draw(get_model(cfg), SEED + 51, dev)
+    torch.cuda.synchronize()
+    t_draw = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED + 1)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+    calls: dict = {}
+    experts: dict = {}
+    counters = _counters()
+    eng = build_engine(cfg, params, dev, None)
+    rids = [eng.submit(p, GEN) for p in prompts]
+    step_launches, full_req = [], []
+    decode = eng.executor.decode
+
+    def counted_decode(req):
+        before = read_counts(counters)
+        g0, f0 = experts.get("G", 0), qmatmul_fused.fold_launches
+        res = decode(req)
+        after = read_counts(counters)
+        step_launches.append(dict(
+            rows=len(req.rids), **{k: after[k] - before[k] for k in after},
+            fold=qmatmul_fused.fold_launches - f0,
+            expert_G=experts["G"] - g0))
+        if len(req.rids) == MAX_BATCH:
+            full_req[:] = [req]
+        return res
+
+    eng.executor.decode = counted_decode
+    zero_counts(counters)
+    qmatmul_fused.fold_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_kernels(calls), counting_experts(experts):
+        results = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts(counters)
+    ex = eng.executor
+    eager = dict(streams=[results[r] for r in rids],
+                 arena={k: v.clone() for k, v in ex.kv.items()},
+                 decoded=eng.decoded_tokens, decode_s=ex.decode_s,
+                 seconds=dt)
+    full = [s for s in step_launches if s["rows"] == MAX_BATCH]
+    check(full, "[families] moe-serve: no decode step over the full batch")
+    for k, v in launches.items():
+        check(v > 0, f"[families] moe-serve: kernel {k} was not launched")
+    per_layer = 3 * cfg.moe.n_experts
+    check(full[0]["expert_G"] == per_layer * cfg.n_layers,
+          f"[families] moe-serve: {full[0]['expert_G']} expert G launches in "
+          f"a decode step, not {per_layer} a layer")
+    eng.pool.check_invariants()
+    print(f"[families] moe-serve: {MOE_ARCH} at full width (d 2048, 16/16 "
+          f"heads, dh 128, 64 experts top-6 of d_ff 1408, 2 shared, vocab "
+          f"163840), {cfg.n_layers} of 48 layers (drawn in {t_draw:.1f}s), "
+          f"predicted plan; eager one-shot: {eng.decoded_tokens} decoded "
+          f"tokens in {dt:.3f}s; decode steps {ex.decode_s:.3f}s "
+          f"({eng.decoded_tokens / ex.decode_s:.1f} tok/s); launches over "
+          f"the run {launches} (G's expert calls {experts['G']}); one "
+          f"decode step over 8 rows: {full[0]} (capacity 1 a decode step: "
+          f"{per_layer} expert G a layer)", flush=True)
+    # the expert G calls of one decode step, graph-replayed: the step's
+    # decode-route calls at M = 1 over the layers' weights
+    a = torch.randn((1, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(SEED + 52), device=dev).to(
+        torch.bfloat16).float()
+    moe = params["layers"]["moe"]
+
+    def step_experts():
+        for li in range(cfg.n_layers):
+            for e in range(cfg.moe.n_experts):
+                h = qmatmul_fused(a, moe["w_gate"][li, e], **EXPERT_KW)
+                qmatmul_fused(a, moe["w_up"][li, e], **EXPERT_KW)
+                qmatmul_fused(h, moe["w_down"][li, e], **EXPERT_KW)
+
+    expert_ms = lib_time(step_experts, reps=3, rounds=3)[0]
+    # one more full-batch decode step (into the finished run's pages)
+    busy = _decode_profile(lambda: decode(full_req[0]), "moe-serve",
+                           expert_ms)
+    graphed = _graph_run(cfg, params, dev, prompts, "moe-serve", eager)
+    _record_graph_prefill(graphed, prompts, calls)
+    rec = check_recorded("moe-serve", calls, torch.Generator(
+        device=dev).manual_seed(SEED + 53), tag="[families]")
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    cap = _capacity(cfg, MAX_BATCH)
+    check(any(s[0][0] == cap and s[1] in ((d, f), (f, d))
+              for s in rec["shapes"]["G"]),
+          f"[families] moe-serve: no expert G at a decode step's capacity "
+          f"{cap} recorded")
+    del graphed["executor"], eng, ex, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, expert_G=experts["G"], step=full[0],
+                tok_s=graphed["tok_s"], eager_tok_s=eager["decoded"]
+                / eager["decode_s"], expert_ms=expert_ms, busy_ms=busy,
+                err=rec["err"], shapes=rec["shapes"])
+
+
+def _record_graph_decode(out: dict, prompts, calls: dict) -> None:
+    """One decode step over the 8 prompts' rows (positions at their
+    lengths, in pages allocated for it) through the graphed executor's
+    step function run eagerly, every kernel call recorded."""
+    from repro_torch.models.api import DecodeRequest
+
+    ex, plan, pool = out["executor"], out["plan"], out["pool"]
+    rids = [10 ** 6 + i for i in range(len(prompts))]
+    for rid, p in zip(rids, prompts):
+        pool.allocate(rid, len(p) + 1)
+    _, bucket = plan.bucket_for(max(len(p) + 1 for p in prompts))
+    pt = pool.page_table(rids, bucket.max_pages(PAGE))
+    req = DecodeRequest(
+        rids=tuple(rids), last_tokens=tuple(p[0] for p in prompts),
+        page_table=tuple(tuple(r) for r in pt.tolist()),
+        positions=tuple(len(p) for p in prompts),
+        seq_lens=tuple(len(p) + 1 for p in prompts), acc=bucket.acc)
+    with recording_kernels(calls):
+        _, width, values = ex._batch_inputs(
+            req, np.asarray(req.last_tokens, np.int32))
+        ex._eager(ex._decode_fn(req.acc, width), values)
+    torch.cuda.synchronize()
+    for rid in rids:
+        pool.release(rid)
+
+
+def _expert_call(cfg):
+    """Whether a recorded G or B call is one of ``cfg``'s MoE experts': no
+    representation format, its weight (G's b, B's wq) of an expert's
+    shape."""
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+
+    def keep(args, kw) -> bool:
+        w = args[1] if len(args) == 2 else args[2]
+        return kw.get("repr_fmt") is None and tuple(w.shape) in ((d, f),
+                                                                 (f, d))
+    return keep
+
+
+def _capacity(cfg, tokens: int) -> int:
+    mc = cfg.moe
+    return max(int(mc.capacity_factor * mc.top_k * tokens / mc.n_experts), 1)
+
+
+def _moe_train(dev) -> dict:
+    """``[families] moe-train``: moonshot at full width and
+    ``MOE_TRAIN_LAYERS`` layers through the training launcher, the train
+    cell's ``SyntheticLM`` 8 x 64 and AdamW, 3 steps, predicted: finite
+    losses and the aux term, the expert G (capacity 60) and B calls
+    recorded and bitwise their plain versions, the expert launches counted,
+    the step time and peak memory; then one step at
+    ``MOE_PLAIN_LAYERS`` layer (batch 2 x 64, no remat, so the plain
+    version's recompute is left out) through the kernels and through their
+    plain versions, loss and every gradient bitwise."""
+    from repro_torch.core.policy import AccumulationPolicy, plan_for_model
+    from repro_torch.launch import train as LT
+    from repro_torch.models.api import get_model
+    from repro_torch.train.loop import _grads, compute_copy
+    from repro_torch.train.optimizer import tree_leaves
+
+    args = LT.parse_args(_train_argv(
+        "--arch", MOE_ARCH, "--n-layers", str(MOE_TRAIN_LAYERS), "--steps",
+        str(MOE_TRAIN_STEPS), "--log-every", "1"))
+    mcfg = LT.model_config(args)
+    cap = _capacity(mcfg, TRAIN_BATCH * TRAIN_SEQ)
+    experts: dict = {}
+    calls: dict = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with counting_experts(experts), recording_calls(calls,
+                                                    _expert_call(mcfg)):
+        res = LT.train(args)
+    recs = res["records"]
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["aux"])
+              for r in recs), f"[families] moe-train: non-finite {recs}")
+    per_layer = 3 * mcfg.moe.n_experts * MOE_TRAIN_LAYERS
+    check(experts["G"] == 2 * per_layer * MOE_TRAIN_STEPS
+          and experts["B"] == per_layer * MOE_TRAIN_STEPS,
+          f"[families] moe-train: expert launches {experts}")
+    check(any(k[0] == "G" and k[1][0][0] == cap for k in calls)
+          and any(k[0] == "B" and k[1][0][0] == cap for k in calls),
+          f"[families] moe-train: no expert G and B at capacity {cap} "
+          "recorded")
+    seen = check_recorded_bitwise("moe-train (expert calls)", calls)
+    del calls
+    step_ms = [round(1e3 * x, 1) for x in res["step_seconds"]]
+    print(f"[families] moe-train: {MOE_ARCH} at full width, "
+          f"{MOE_TRAIN_LAYERS} layers (1.85 B parameters), SyntheticLM 8 x "
+          f"64, AdamW, predicted: losses {[r['loss'] for r in recs]}, aux "
+          f"{[r['aux'] for r in recs]}, step ms {step_ms}, peak "
+          f"{res.get('peak_bytes', 0) / 2**30:.2f} GiB; expert launches over the "
+          f"{MOE_TRAIN_STEPS} steps: G {experts['G']} (forward and the "
+          f"remat recompute), B {experts['B']}; every launch "
+          f"{res['launches']}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from repro_torch.configs import get_config
+
+    cfg = plan_for_model(dataclasses.replace(get_config(MOE_ARCH),
+                                             n_layers=MOE_PLAIN_LAYERS),
+                         seq_len=TRAIN_SEQ, global_batch=2,
+                         policy=AccumulationPolicy(mode="predicted",
+                                                   chunk=64))
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 57)
+    params = model.init_params(gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, TRAIN_SEQ), generator=gen,
+                           device=dev, dtype=torch.int32)
+
+    def step():
+        c = compute_copy(params)
+        loss, m = model.loss_fn(c, {"tokens": tokens}, cfg)
+        loss.backward()
+        return loss.detach(), m["aux"].detach(), _grads(c, params)
+
+    with remat_policy("none"):
+        lk, ak, gk = step()
+        with plain_versions():
+            t0 = time.perf_counter()
+            lp, ap, gp = step()
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+    leaves = list(zip(tree_leaves(gk), tree_leaves(gp)))
+    same = sum(bool(torch.equal(a, b)) for a, b in leaves)
+    print(f"[families] moe-train kernels vs plain, {MOE_PLAIN_LAYERS} layer "
+          f"at full width, batch 2 x {TRAIN_SEQ} (expert capacity "
+          f"{_capacity(cfg, 2 * TRAIN_SEQ)}): loss {float(lk):.6f} vs "
+          f"{float(lp):.6f}, aux {float(ak):.6f} vs {float(ap):.6f}; "
+          f"{same}/{len(leaves)} gradient leaves bitwise; plain step "
+          f"{plain_s:.1f} s", flush=True)
+    check(torch.equal(lk, lp) and torch.equal(ak, ap),
+          "[families] moe-train: loss or aux differs from the plain versions")
+    check(same == len(leaves), "[families] moe-train: a gradient differs "
+                               "from the plain versions")
+    return dict(records=recs, step_ms=step_ms, peak=res.get("peak_bytes"),
+                experts=experts, launches=res["launches"], seen=seen)
+
+
+def _qk_norm(dev) -> dict:
+    """``[families] qk-norm``: qwen3-8b at full width and depth, the
+    predicted plan, the serve cell's 8 prompts one-shot on CUDA graphs;
+    G, D and P recorded on a prompt's prefill slab and one decode step
+    through the graphed step functions, each held against its plain
+    version; the decode tok/s."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import AccumulationPolicy, plan_for_model
+    from repro_torch.models.api import get_model
+
+    cfg = plan_for_model(get_config(QK_ARCH), seq_len=max(PROMPT_LENS) + GEN,
+                         global_batch=len(PROMPT_LENS),
+                         policy=AccumulationPolicy(mode="predicted",
+                                                   chunk=64))
+    t0 = time.perf_counter()
+    params = _bf16_draw(get_model(cfg), SEED + 61, dev)
+    torch.cuda.synchronize()
+    t_draw = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED + 1)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+    out = _graph_run(cfg, params, dev, prompts, "qk-norm")
+    calls: dict = {}
+    _record_graph_prefill(out, prompts, calls)
+    _record_graph_decode(out, prompts, calls)
+    rec = check_recorded("qk-norm", calls, torch.Generator(
+        device=dev).manual_seed(SEED + 62), tag="[families]")
+    print(f"[families] qk-norm: {QK_ARCH} at full width and depth (36 "
+          f"layers, d 4096, 32/8 heads, dh 128, d_ff 12288, vocab 151936, "
+          f"drawn in {t_draw:.1f}s): {out['tok_s']:.1f} decode tok/s on "
+          f"graphs", flush=True)
+    del out["executor"], params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(tok_s=out["tok_s"], err=rec["err"])
+
+
+def _vlm(dev) -> dict:
+    """``[families] vlm``: internvl2-2b at full width and ``VLM_LAYERS``
+    layers, ``VLM_STEPS`` AdamW steps of 2 x 512 tokens with
+    ``with_extras``' 256 patch embeddings a row, through the kernels and
+    then through their plain versions from the same seed (no remat in
+    either): losses, grad norms and the final parameters bitwise; the loss
+    unchanged by the tokens at the image positions."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import AccumulationPolicy, plan_for_model
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLM,
+                                           with_extras)
+    from repro_torch.models.api import get_model
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.loop import (TrainConfig, init_train_state,
+                                        make_train_step)
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = plan_for_model(dataclasses.replace(get_config(VLM_ARCH),
+                                             n_layers=VLM_LAYERS),
+                         seq_len=VLM_SEQ, global_batch=VLM_BATCH,
+                         policy=AccumulationPolicy(mode="predicted",
+                                                   chunk=64))
+    model = get_model(cfg)
+    tc = TrainConfig(opt=O.OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                                     total_steps=VLM_STEPS))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=VLM_SEQ,
+                                  global_batch=VLM_BATCH, seed=SEED),
+                       device=dev)
+    batches = [with_extras(next(data), cfg) for _ in range(VLM_STEPS)]
+
+    def run():
+        gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+        state = init_train_state(model, gen, dev, tc)
+        step = make_train_step(model, tc)
+        recs = []
+        for b in batches:
+            state, m = step(state, b)
+            recs.append((m["loss"].clone(), m["grad_norm"].clone()))
+        return recs, state["params"]
+
+    counters = _train_counters()
+    with remat_policy("none"):
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        rk, pk = run()
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        used = read_counts(counters)
+        with plain_versions():
+            t0 = time.perf_counter()
+            rp, pp = run()
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+    check(used[E_NAME] > 0 and used["qmatmul_bwd_pair"] > 0,
+          "[families] vlm: the kernel steps launched no E or B")
+    same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+               for a, b in zip(rk, rp))
+    leaves = list(zip(tree_leaves(pk), tree_leaves(pp)))
+    same_p = sum(bool(torch.equal(a, b)) for a, b in leaves)
+    losses = [float(r[0]) for r in rk]
+    check(all(math.isfinite(x) for x in losses), "[families] vlm: loss")
+    check(same, "[families] vlm: a step's loss or grad norm differs from "
+                "the plain versions")
+    check(same_p == len(leaves), "[families] vlm: the parameters after the "
+                                 "steps differ from the plain versions'")
+    vt = cfg.vision_tokens
+    with torch.no_grad():
+        b = batches[0]
+        base = model.loss_fn(pk, b, cfg, remat=False)[0]
+        inside = b["tokens"].clone()
+        inside[:, :vt] = (inside[:, :vt] + 1) % cfg.vocab_size
+        same_in = model.loss_fn(pk, {**b, "tokens": inside}, cfg,
+                                remat=False)[0]
+        after = b["tokens"].clone()
+        after[:, vt + 1] = (after[:, vt + 1] + 1) % cfg.vocab_size
+        moved = model.loss_fn(pk, {**b, "tokens": after}, cfg,
+                              remat=False)[0]
+    check(torch.equal(base, same_in) and not torch.equal(base, moved),
+          "[families] vlm: the loss scores an image position")
+    print(f"[families] vlm: {VLM_ARCH} at full width (d 2048, 16/8 heads, "
+          f"d_ff 8192, vocab 92553), {VLM_LAYERS} of 24 layers, "
+          f"{VLM_STEPS} steps of {VLM_BATCH} x {VLM_SEQ} with {vt} patch "
+          f"embeddings a row: losses {losses}, each step's loss and grad "
+          f"norm and all {len(leaves)} parameter leaves after the steps "
+          f"bitwise the plain versions' (kernels {kernel_s:.1f}s, plain "
+          f"{plain_s:.1f}s; launches {used}); the loss unchanged by the "
+          f"tokens at the {vt} image positions, moved by one after them",
+          flush=True)
+    return dict(losses=losses, launches=used)
+
+
+def phase_families(dev, smi: str) -> dict:
+    """``[families]``: the expert GEMMs' kernels at moonshot's shapes
+    (``_expert_kernels``), then the runs ``moe-serve``, ``moe-train``,
+    ``qk-norm`` and ``vlm``, each with the card's name and power limit and
+    its seconds."""
+    out, secs = {}, {}
+    for name, fn in (("expert kernels", _expert_kernels),
+                     ("moe-serve", _moe_serve), ("moe-train", _moe_train),
+                     ("qk-norm", _qk_norm), ("vlm", _vlm)):
+        t0 = time.perf_counter()
+        out[name] = fn(dev)
+        secs[name] = round(time.perf_counter() - t0, 1)
+        print(f"[families] {name}: {secs[name]}s on {smi.strip()}",
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[families] seconds by run {secs}", flush=True)
+    return out
+
+
 PHASE_SECONDS: dict = {}
 
 
@@ -7237,7 +8127,12 @@ def main() -> None:
     from repro_torch.serve.plan import plan_attention
 
     t_start = time.perf_counter()
-    smi = phase_build()
+    # the build on its own thread, the Monte Carlo (PyTorch ops only) on
+    # the card meanwhile
+    background = start_build()
+    phase_analysis(dev)
+    torch.cuda.empty_cache()
+    smi = phase_build(background)
     max_ctx = max(PROMPT_LENS) + GEN
     cfg = plan_for_model(get_config("qwen2-1.5b"), seq_len=max_ctx,
                          global_batch=len(PROMPT_LENS),
@@ -7322,8 +8217,6 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_train_4k(dev)
     torch.cuda.empty_cache()
-    phase_fig6(dev)
-    torch.cuda.empty_cache()
     sk = phase_sr_kernels(dev)
     torch.cuda.empty_cache()
     sg = phase_sr_g(dev)
@@ -7336,21 +8229,28 @@ def main() -> None:
     phase_sr_below_knee(dev)
     ts = phase_train_sr(dev, min(tr["step_ms"][1:]), tr["tick_ms"])
     torch.cuda.empty_cache()
-    phase_train_vs_plain(dev, rounding="sr")
-    torch.cuda.empty_cache()
-    phase_train_oracle_rows(dev)
-    torch.cuda.empty_cache()
+    # [ckpt]'s supervised child (process starts, checkpoint I/O; its 4
+    # 2-layer steps the only card work) runs beside the phases up to
+    # phase_ckpt
+    ck = phase_ckpt_start(dev)
     var = phase_variants(cfg, dev)
     torch.cuda.empty_cache()
     qt = phase_qout_train(dev, min(tr["step_ms"][1:]), tr["profile"])
+    torch.cuda.empty_cache()
+    phase_fig6(dev)
+    torch.cuda.empty_cache()
+    phase_train_vs_plain(dev, rounding="sr")
+    torch.cuda.empty_cache()
+    phase_train_oracle_rows(dev)
     torch.cuda.empty_cache()
     qp = phase_qout_vs_plain(dev)
     torch.cuda.empty_cache()
     phase_a2q(dev)
     torch.cuda.empty_cache()
-    phase_analysis(dev)
+    phase_ckpt(dev, ck)
     torch.cuda.empty_cache()
-    phase_ckpt(dev)
+    fam = phase_families(dev, smi)
+    ek, ms, mt = fam["expert kernels"], fam["moe-serve"], fam["moe-train"]
 
     kernels = [
         dict(name="qmatmul_fused", route="cuda",
@@ -7535,6 +8435,21 @@ def main() -> None:
         dict(name=K8_OUT_NAME, route="cuda",
              source="src/repro_torch/csrc/qgemm_stats.cu",
              replaces="src/repro/kernels/fused.py:229", **var["K8_out"]),
+        # the MoE experts' G and B ([families]): G's launches in the experts
+        # over [families] moe-serve's eager one-shot run, timed over one
+        # expert's 3 GEMMs at a decode step's capacity 1 (capacities 7 and
+        # 60 under "by_capacity"); B's launches in the experts over
+        # moe-train's 3 steps, timed over one expert's 3 GEMMs at 60
+        dict(name=G_EXPERT_NAME, route="cuda",
+             source="src/repro_torch/csrc/qgemm.cu",
+             replaces="src/repro/kernels/fused.py:107",
+             launches=ms["expert_G"], train_launches=mt["experts"]["G"],
+             by_capacity={m: ek[f"G{m}"] for m in EXPERT_CAPS},
+             **ek[f"G{EXPERT_CAPS[0]}"]),
+        dict(name=B_EXPERT_NAME, route="cuda",
+             source="src/repro_torch/csrc/bwd_pair.cu",
+             replaces="src/repro/kernels/bwd_pair.py:96",
+             launches=mt["experts"]["B"], **ek["B60"]),
     ]
     print("[time] seconds by phase " + json.dumps(
         {k: round(v, 1) for k, v in sorted(PHASE_SECONDS.items(),

@@ -283,6 +283,11 @@ Call call_of(int e_r, int m_r, QFmt qr, QFmt qbwd, QFmt qgrad, int sr, unsigned 
 
 }  // namespace
 
+// kernels/build.py compiles this file in two parts, each its own nvcc
+// process, and links them: PAIR_PART 0 emits B's entries, PAIR_PART 1 K9's
+// (each part instantiates its own kernels only); undefined, both.
+#if !defined(PAIR_PART) || PAIR_PART == 0
+
 // Strides are in elements; dx [T, K] and dw [K, N] are row-major; dx_carry
 // is [T, K] row-major or null.  x_kind / w_kind: 0 f32, 1 bf16, 2 int8
 // codes of (1, e_r, m_r).  gq: null (g read as f32), or a [T, N] bf16
@@ -316,6 +321,23 @@ extern "C" int bwd_pair(const void* g, long long sgt, long long sgn,
                     dw, T, K, N, bwd_chunk, grad_chunk, quant_g, groups, c, nullptr,
                     nullptr, n_offset, n_total, k_offset, k_total);
 }
+
+// Dynamic shared memory a block (bytes) and resident blocks an SM at
+// `groups` chunk groups, of B (and below, of K9); g_kind 0 f32, 1 bf16
+// (gq); kernels/sm90.py mirrors the first.
+extern "C" int bwd_pair_smem(int x_kind, int w_kind, int g_kind, int groups) {
+  return by_kinds(x_kind, w_kind, g_kind, [&](auto tx, auto tw, auto tg) {
+    return pair_smem<decltype(tx), decltype(tw), decltype(tg), false>(groups);
+  });
+}
+extern "C" int bwd_pair_occupancy(int x_kind, int w_kind, int g_kind, int groups) {
+  return by_kinds(x_kind, w_kind, g_kind, [&](auto tx, auto tw, auto tg) {
+    return occupancy<decltype(tx), decltype(tw), decltype(tg), false>(groups);
+  });
+}
+
+#endif
+#if !defined(PAIR_PART) || PAIR_PART == 1
 
 // K9: bwd_pair (no carry in or N segment; sr, the seeds and the K-slice as
 // there) plus stats
@@ -351,19 +373,6 @@ extern "C" int bwd_pair_stats_blocks(int T, int K, int N) {
   return b > 0x7fffffffLL ? -1 : (int)b;
 }
 
-// Dynamic shared memory a block (bytes) and resident blocks an SM at
-// `groups` chunk groups, of B and of K9; g_kind 0 f32, 1 bf16 (gq);
-// kernels/sm90.py mirrors the first.
-extern "C" int bwd_pair_smem(int x_kind, int w_kind, int g_kind, int groups) {
-  return by_kinds(x_kind, w_kind, g_kind, [&](auto tx, auto tw, auto tg) {
-    return pair_smem<decltype(tx), decltype(tw), decltype(tg), false>(groups);
-  });
-}
-extern "C" int bwd_pair_occupancy(int x_kind, int w_kind, int g_kind, int groups) {
-  return by_kinds(x_kind, w_kind, g_kind, [&](auto tx, auto tw, auto tg) {
-    return occupancy<decltype(tx), decltype(tw), decltype(tg), false>(groups);
-  });
-}
 extern "C" int bwd_pair_stats_smem(int x_kind, int w_kind, int g_kind, int groups) {
   return by_kinds(x_kind, w_kind, g_kind, [&](auto tx, auto tw, auto tg) {
     return pair_smem<decltype(tx), decltype(tw), decltype(tg), true>(groups);
@@ -374,3 +383,5 @@ extern "C" int bwd_pair_stats_occupancy(int x_kind, int w_kind, int g_kind, int 
     return occupancy<decltype(tx), decltype(tw), decltype(tg), true>(groups);
   });
 }
+
+#endif

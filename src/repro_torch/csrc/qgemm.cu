@@ -459,8 +459,13 @@ auto fold_kernel() {
 
 bool valid_slots(int slots) { return slots >= 1 && slots <= MAX_SLOTS; }
 
+// Raises the kernel's dynamic shared memory limit where `bytes` is above the
+// default 48 KiB, and only there: the launches and the occupancy report
+// keep one rule, so a report at a small size never lowers the limit under a
+// later launch's (a long chunk's) needs.
 template <typename TA, typename TB, bool KFAST, bool SR = false, bool OUT = false>
 int decode_set_smem(int bytes) {
+  if (bytes <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(decode_kernel<TA, TB, KFAST, SR, OUT>(),
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
@@ -474,8 +479,8 @@ int decode_launch(const Decode& p, int slots, cudaStream_t s) {
       (split && (p.slices != (nc + slots - 1) / slots || p.ws == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int bytes = decode_smem(slots, p.chunk, W);
-  // above the default 48 KiB only (a long chunk): the call costs host time
-  int rc = bytes > 48 * 1024 ? decode_set_smem<TA, TB, KFAST, SR, OUT>(bytes) : 0;
+  // a call above the default 48 KiB only (a long chunk): it costs host time
+  int rc = decode_set_smem<TA, TB, KFAST, SR, OUT>(bytes);
   if (rc != 0) return rc;
   dim3 grid((p.N + W - 1) / W, p.slices, (p.M + ROWS - 1) / ROWS);
   const auto kernel = decode_kernel<TA, TB, KFAST, SR, OUT>();

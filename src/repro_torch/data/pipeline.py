@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.data import prng
 
-__all__ = ["DataConfig", "SyntheticLM"]
+__all__ = ["DataConfig", "SyntheticLM", "with_extras"]
 
 
 @dataclass(frozen=True)
@@ -101,3 +101,23 @@ class SyntheticLM:
         if int(d["seed"]) != self.cfg.seed:
             raise ValueError("data seed mismatch on resume")
         self.step = int(d["step"])
+
+
+def with_extras(batch: dict, cfg, key: torch.Tensor | None = None) -> dict:
+    """``batch`` with the modality-stub inputs of its family: for the VLM
+    stub (``cfg.vision_tokens``), ``patch_embeds`` (B, vision_tokens,
+    d_model) float32 drawn by ``prng.normal`` from ``key`` (default JAX's
+    ``PRNGKey(0)``) on the tokens' device.  The encoder-decoder family's
+    frames are not ported (ROADMAP [families-encdec])."""
+    tokens = batch["tokens"]
+    b = tokens.shape[0]
+    key = prng.prng_key(0) if key is None else key
+    out = dict(batch)
+    if getattr(cfg, "vision_tokens", 0):
+        out["patch_embeds"] = prng.normal(
+            key, (b, cfg.vision_tokens, cfg.d_model)).to(tokens.device)
+    if getattr(cfg, "family", "") == "encdec":
+        raise NotImplementedError(
+            "the encoder-decoder family's frames are not ported yet "
+            "(ROADMAP [families-encdec], the rest of [families])")
+    return out

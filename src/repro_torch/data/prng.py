@@ -17,7 +17,14 @@ returns, bit for bit, on every input it accepts:
 * ``uniform`` puts the top 23 bits of a draw into the mantissa of a float
   in [1, 2), subtracts 1 and scales with one fused multiply-add (XLA:CPU
   fuses JAX's ``floats * (maxval - minval) + minval``); ``bernoulli``
-  compares the [0, 1) draw with p in float32.
+  compares the [0, 1) draw with p in float32;
+* ``normal`` is ``sqrt(2) * erfinv(u)`` of a uniform draw on
+  [nextafter(-1, 0), 1), with XLA's float32 ``erf_inv`` polynomial (its
+  Horner steps fused multiply-adds, as XLA:CPU contracts them).  Its
+  ``log1p`` is PyTorch's, not XLA's, so ``normal`` alone is not bitwise:
+  about 1% of the float32 draws differ from ``jax.random.normal``'s, by at
+  most 3 ulp (measured; with XLA's ``log1p`` values the polynomial is
+  bitwise), and their bf16 roundings agree.
 
 The arithmetic runs on the CPU in int64 tensors masked to 32 bits, with the
 Threefry block of ``repro_torch.kernels.common``.
@@ -32,7 +39,7 @@ import torch
 from repro_torch.kernels.common import threefry2x32
 
 __all__ = ["prng_key", "fold_in", "split", "random_bits", "randint",
-           "uniform", "bernoulli"]
+           "uniform", "normal", "bernoulli"]
 
 _M32 = 0xFFFFFFFF
 _I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
@@ -144,3 +151,39 @@ def bernoulli(key: torch.Tensor, p: float = 0.5, shape=()) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)`` for a float ``p`` (float32,
     JAX's default ``mode="low"``): a bool tensor."""
     return uniform(key, shape) < torch.tensor(p, dtype=torch.float32)
+
+
+# XLA's float32 erf_inv: Horner coefficients for w < 5 and w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv``: w = -log1p(-x^2), a degree-8 polynomial
+    in w - 2.5 (w < 5) or sqrt(w) - 3, times x; +-inf at x = +-1."""
+    f32 = torch.float32
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], dtype=f32),
+                           torch.tensor(_ERFINV_GE5[i], dtype=f32))
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = _fma32(p, w, coef(i))
+    return torch.where(x.abs() == 1, x * torch.finfo(f32).max, p * x)
+
+
+def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)`` (module docstring: within
+    3 ulp, not bitwise)."""
+    # the float32 neighbour of -1 toward 0
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    u = uniform(key, shape, lo, 1.0)
+    return torch.tensor(math.sqrt(2), dtype=torch.float32) * _erf_inv(u)

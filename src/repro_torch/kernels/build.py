@@ -5,7 +5,10 @@ with a plain C interface (no PyTorch headers, so a build takes seconds),
 and loaded with ``ctypes``.  Libraries land in ``build/`` at the root of
 the checkout, named by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one is reused.  All missing libraries
-are compiled in parallel, one ``nvcc`` process per source.
+are compiled in parallel, one ``nvcc`` process per source, or per part of
+a source that ``PARTS`` splits (each part compiled to an object with its
+define, then the parts linked into the one library), so that the longest
+source does not set the whole build's time.
 
 Nothing is built when this module is imported: the first call of a
 kernel wrapper on a CUDA tensor builds what it needs.
@@ -45,6 +48,10 @@ KERNELS = {
     "flash_prefill": "flash_prefill.cu",
 }
 _HEADERS = ("common.cuh", "qgemm_sm90.cuh", "attn_prefill_sm90.cuh")
+# library -> the defines of its parts, one compile each: bwd_pair.cu emits
+# B's entries under PAIR_PART=0 and K9's under PAIR_PART=1 (its two
+# template families, about half of its instantiations each)
+PARTS = {"bwd_pair": ("-DPAIR_PART=0", "-DPAIR_PART=1")}
 
 # --fmad=false: no multiply-add is contracted behind the source's back;
 # the kernels call __fmaf_rn where a fused multiply-add is intended.
@@ -52,6 +59,8 @@ _HEADERS = ("common.cuh", "qgemm_sm90.cuh", "attn_prefill_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "--fmad=false", "-Xptxas", "-v")
+# a part's compile: an object, not a library
+_PART_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -68,13 +77,14 @@ def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
     for f in (KERNELS[name], *_HEADERS):
         h.update((CSRC_DIR / f).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + PARTS.get(name, ())).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict[str, float]:
-    """Compile every missing library (all in parallel); returns the wall
-    seconds of the whole build per name that was compiled.  ``nvcc``'s
+    """Compile every missing library (all in parallel); returns, per name
+    that was compiled, the wall seconds from the build's start until its
+    ``nvcc`` ended (the largest is the whole build's).  ``nvcc``'s
     ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
     each library as ``<lib>.log``.  Raises with the compiler's output on
     any failure."""
@@ -85,26 +95,63 @@ def build_all(names=None) -> dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
+
+    def start(cmd, tmp):
+        # the report goes to a file: a pipe left undrained would stall nvcc
+        log = open(tmp.with_suffix(".log"), "w")
+        return (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                 text=True), tmp, log)
+
     procs = {}
     for n in todo:
         out = _lib_path(n)
+        src = str(CSRC_DIR / KERNELS[n])
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[n] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / KERNELS[n])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, out)
-    failed = []
-    for n, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- {n} (nvcc exit {proc.returncode}) ---\n{log}")
-            continue
-        out.with_suffix(".log").write_text(log)
-        os.replace(tmp, out)
+        if n in PARTS:
+            procs[n] = [start([nvcc, *_PART_FLAGS, d, "-o", str(obj), src],
+                              obj) for d, obj in (
+                (d, out.with_suffix(f".{os.getpid()}.p{i}.o"))
+                for i, d in enumerate(PARTS[n]))]
+        else:
+            procs[n] = [start([nvcc, *NVCC_FLAGS, "-o", str(tmp), src], tmp)]
+    failed, done = [], {}
+    while len(done) < len(procs):
+        for n, parts in procs.items():
+            if n in done or any(p.poll() is None for p, _, _ in parts):
+                continue
+            reports, ok = [], True
+            for p, path, log in parts:
+                log.close()
+                report = path.with_suffix(".log")
+                reports.append(report.read_text())
+                report.unlink()
+                if p.returncode != 0:
+                    ok = False
+                    failed.append(f"--- {n} (nvcc exit {p.returncode}) ---\n"
+                                  f"{reports[-1]}")
+            out = _lib_path(n)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            if n in PARTS:
+                objs = [path for _, path, _ in parts]
+                if ok:
+                    link = subprocess.run(
+                        [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                         *map(str, objs)], capture_output=True, text=True)
+                    if link.returncode != 0:
+                        ok = False
+                        failed.append(f"--- {n} (link exit "
+                                      f"{link.returncode}) ---\n"
+                                      f"{link.stdout}{link.stderr}")
+                for obj in objs:
+                    obj.unlink(missing_ok=True)
+            done[n] = time.perf_counter() - t0
+            if ok:
+                out.with_suffix(".log").write_text("".join(reports))
+                os.replace(tmp, out)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    dt = time.perf_counter() - t0
-    return {n: dt for n in todo}
+    return done
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -1,6 +1,6 @@
 """Serving driver: continuous batching over the paged int8 KV arena.
 
-Counterpart of ``repro.launch.serve`` for the dense family on one device:
+Counterpart of ``repro.launch.serve`` on one device:
 paged int8 KV pages, the hand-written Hopper kernels for the quantized
 GEMMs and the paged attention, optimistic admission with preemption/swap,
 chunked prefill slabs interleaved with batched decode, and the serve-time
@@ -36,8 +36,10 @@ memo and the compile cache swept in at exit.  ``--legacy`` serves the
 static batch instead (``_legacy_main``: one prefill, then every prompt
 token and ``--gen`` tokens through ``models.lm.decode_step`` over a dense
 bf16 cache, all rows at one position; ``--batch`` prompts of
-``--prompt-len`` tokens from ``SyntheticLM``); the port's other families
-are not ported, so it serves the dense family only.
+``--prompt-len`` tokens from ``SyntheticLM``).  ``--arch`` takes the
+dense, MoE and VLM configs (``configs.ARCHS``; the SSM, hybrid and
+encoder-decoder ones are not ported yet and raise); the VLM stub is
+served on tokens only, as JAX's engine serves it.
 
 ``--serve-mesh N`` serves tensor-parallel over N ranks, which the launcher
 spawns itself (one process a rank, rank r on ``cuda:(r % cards)``): each
@@ -418,14 +420,16 @@ def export_obs(args, tracer, registry) -> dict | None:
 
 def _legacy_main(args, cfg, model, params, device) -> dict:
     """Static-batch prefill and greedy decode (JAX's ``_legacy_main``, the
-    dense family): ``--batch`` ``SyntheticLM`` prompts of ``--prompt-len``
+    dense, MoE and VLM families; the VLM stub's patch embeddings from
+    ``with_extras`` at JAX's ``PRNGKey(1)`` feed the prefill): ``--batch`` ``SyntheticLM`` prompts of ``--prompt-len``
     tokens, one prefill (whose logits JAX's launcher discards too), then
     every prompt token and ``--gen`` - 1 more through ``decode_step`` over
     a dense bf16 cache, all rows at one position.  The positions are a
     device tensor made once, so no step reads anything back to the host;
     the tokens come back at the end.  Returns tok/s over the decode loop
     and the (batch, gen) generated tokens."""
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.data import prng
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, with_extras
 
     prompt_len = args.prompt_len
     if args.prompt_lens:
@@ -435,7 +439,7 @@ def _legacy_main(args, cfg, model, params, device) -> dict:
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=prompt_len, global_batch=args.batch,
                                   seed=args.seed), device=device)
-    batch = next(data)
+    batch = with_extras(next(data), cfg, key=prng.prng_key(1))
     max_t = prompt_len + args.gen
     pos = torch.arange(max_t, dtype=torch.int32, device=device)
 
@@ -660,6 +664,10 @@ def main_tp(args, extra_jobs=(), setup=None) -> dict:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            "--serve-mesh does not take MoE models (ROADMAP [moe-ep]: "
+            "moe_apply's expert-parallel branch)")
     prompt_lens = prompt_lengths(args)
     cfg = plan_for_model(cfg, seq_len=max(prompt_lens) + args.gen,
                          global_batch=len(prompt_lens),

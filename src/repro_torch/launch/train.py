@@ -76,7 +76,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.policy import AccumulationPolicy, plan_for_model
-from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.data.pipeline import DataConfig, SyntheticLM, with_extras
 from repro_torch.dist import LOCAL, Dist
 from repro_torch.models.api import get_model, param_count
 from repro_torch.serve.scheduler import resolve_device
@@ -489,6 +489,7 @@ def train(args, dist: Dist = LOCAL, device=None, finish=None,
     t0 = time.time()
     last_loss = float("nan")
     records, step_seconds = [], []
+    patch_embeds = None     # the VLM stub's, drawn once: JAX's fixed key
     for step in range(start, args.steps):
         t_step = time.perf_counter()
         if step == args.crash_at_step and start == 0:
@@ -497,6 +498,10 @@ def train(args, dist: Dist = LOCAL, device=None, finish=None,
             print(f"FAULT INJECTION: dying at step {step}", flush=True)
             os._exit(42)
         batch = next(data)
+        if model.cfg.vision_tokens:
+            if patch_embeds is None:
+                patch_embeds = with_extras(batch, model.cfg)["patch_embeds"]
+            batch = {**batch, "patch_embeds": patch_embeds}
         events, new_model = [], None
         if ingraph is not None and ingraph.due(step + 1):
             # the tagged step takes the normal step's place: the same
@@ -526,6 +531,8 @@ def train(args, dist: Dist = LOCAL, device=None, finish=None,
                    "skipped": float(m["skipped"]),
                    "loss_scale": float(m["loss_scale"]),
                    "elapsed_s": round(time.time() - t0, 1)}
+            if "aux" in m:      # a MoE config's load-balance term
+                rec["aux"] = float(m["aux"])
             records.append(rec)
             step_seconds.append(time.perf_counter() - t_step)
             if lead:

@@ -1,7 +1,8 @@
 """Model API: the launcher-facing model and the paged serving protocol.
 
-Counterpart of ``repro.models.api`` for the dense family: training
-(``Model.loss_fn``), the GEMM work-list ``dense_gemm_shapes`` and serving.
+Counterpart of ``repro.models.api`` for the dense, MoE and VLM families:
+training (``Model.loss_fn``), the GEMM work-lists ``dense_gemm_shapes``
+and ``moe_expert_gemm_shapes``, and serving.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["Model", "get_model", "param_count", "dense_gemm_shapes",
+           "moe_expert_gemm_shapes",
            "PagedModel", "get_paged_model", "paged_init_state",
            "PrefillRequest", "DecodeRequest", "VerifyRequest"]
 
@@ -50,21 +52,47 @@ def dense_gemm_shapes(cfg: ModelConfig, *, seq_len: int, global_batch: int
     K, N, qcfg): M the tokens of a step, K/N the fan-in/fan-out, ``qcfg``
     the layer's ``QDotConfig`` from the plan (exact GEMMs are left out).
     The lm_head comes first, then one layer's GEMMs in the order it runs
-    them."""
+    them.  A MoE layer's dense MLP is its shared expert, of width
+    ``n_shared * d_ff_expert`` (its plan sizes ``mlp_down`` by ``d_ff``
+    all the same, as JAX's does); the expert GEMMs are
+    ``moe_expert_gemm_shapes``."""
     t = seq_len * global_batch
     d, dh = cfg.d_model, cfg.head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
-    f = cfg.d_ff or d
+    if cfg.family == "moe" and cfg.moe is not None:
+        f = cfg.moe.n_shared * cfg.moe.d_ff_expert
+    else:
+        f = cfg.d_ff or d
     q = cfg.quant
     entries = [("lm_head", t, d, cfg.vocab_size, q.lm_head),
                ("attn_q", t, d, h * dh, q.attn_qkv),
                ("attn_k", t, d, kv * dh, q.attn_qkv),
                ("attn_v", t, d, kv * dh, q.attn_qkv),
-               ("attn_out", t, h * dh, d, q.attn_out),
-               ("mlp_gate", t, d, f, q.mlp_up),
-               ("mlp_up", t, d, f, q.mlp_up),
-               ("mlp_down", t, f, d, q.mlp_down)]
+               ("attn_out", t, h * dh, d, q.attn_out)]
+    if f:
+        entries += [("mlp_gate", t, d, f, q.mlp_up),
+                    ("mlp_up", t, d, f, q.mlp_up),
+                    ("mlp_down", t, f, d, q.mlp_down)]
     return [e for e in entries if e[4] is not None and not e[4].is_exact]
+
+
+def moe_expert_gemm_shapes(cfg: ModelConfig, *, seq_len: int,
+                           global_batch: int, ep_size: int = 1
+                           ) -> list[tuple[str, int, int, int]]:
+    """The per-expert GEMMs of a MoE layer as (tag, M, K, N): M the expert
+    capacity at ``seq_len * global_batch / ep_size`` tokens, K/N the
+    expert's fan-in/fan-out.  Each runs once an expert (``layers.
+    _moe_expert_mlp_fused``: G forward, B backward, the (8, 23) carry at
+    chunk 128).  Empty for the other families."""
+    if cfg.family != "moe" or cfg.moe is None:
+        return []
+    mc = cfg.moe
+    t = seq_len * global_batch // max(ep_size, 1)
+    cap = max(int(mc.capacity_factor * mc.top_k * t / mc.n_experts), 1)
+    d, f = cfg.d_model, mc.d_ff_expert
+    return [("moe_expert_gate", cap, d, f),
+            ("moe_expert_up", cap, d, f),
+            ("moe_expert_down", cap, f, d)]
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,9 @@
-"""Layer functions of the dense decoder (plain functions on tensors).
+"""Layer functions of the decoder (plain functions on tensors).
 
-Counterpart of ``repro.models.layers`` for the dense family: training
+Counterpart of ``repro.models.layers`` for the dense family (with qwen3's
+qk-norm: q and k rms-normed per head after the bias and before RoPE, in
+every path that projects them) and the MoE block (``moe_apply``: top-k
+routing, fixed capacity, the expert MLPs one ``qdot`` a GEMM); training
 attention (``attn_apply``), the legacy static batch's decode over a dense
 bf16 cache (``attn_decode``, ``attn_cache_init``), the paged serving
 entries (the bucketed slab
@@ -38,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -60,7 +63,7 @@ from repro_torch.kernels.attention import (
     prefill_geom,
 )
 from repro_torch.kernels.ops import QDotConfig, qdot
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.serve import kvcache as KV
 
 Params = dict[str, Any]
@@ -207,11 +210,15 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     if cfg.attn_bias:
         for name, n in (("bq", h * dh), ("bk", kv * dh), ("bv", kv * dh)):
             p[name] = torch.zeros((n,), dtype=torch.float32, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((dh,), dtype=torch.float32, device=device)
+        p["k_norm"] = torch.ones((dh,), dtype=torch.float32, device=device)
     return p
 
 
-def mlp_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, device,
+             d_ff: int | None = None) -> Params:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     return {
         "w_gate": _normal(gen, (d, f), 1.0 / math.sqrt(d), device),
         "w_up": _normal(gen, (d, f), 1.0 / math.sqrt(d), device),
@@ -225,6 +232,8 @@ def _q_proj(p: Params, x: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     q = dense(x, p["wq"], cfg.quant.attn_qkv, p.get("bq"),
               dist=dist).reshape(b, s, -1, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps, dist)
     return rope(q, positions, cfg.rope_theta)
 
 
@@ -236,6 +245,8 @@ def _kv_proj(p: Params, x: torch.Tensor, cfg: ModelConfig,
               dist=dist).reshape(b, s, -1, dh)
     v = dense(x, p["wv"], cfg.quant.attn_qkv, p.get("bv"),
               dist=dist).reshape(b, s, -1, dh)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps, dist)
     return rope(k, positions, cfg.rope_theta), v
 
 
@@ -602,3 +613,208 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
         h = gather_cols(h, dist)
         return gather_cols(dense(h, p["w_down"], cfg.quant.mlp_down), dist)
     return dense(h, p["w_down"], cfg.quant.mlp_down, dist=dist)
+
+
+# --------------------------------------------------------------------------
+# MoE (top-k routing, fixed capacity; the expert-parallel branch waits for
+# ROADMAP [moe-ep])
+# --------------------------------------------------------------------------
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    d = cfg.d_model
+    mc: MoEConfig = cfg.moe
+    e, f = mc.n_experts, mc.d_ff_expert
+    p: Params = {
+        "router": _normal(gen, (d, e), 1.0 / math.sqrt(d), device),
+        "w_gate": _normal(gen, (e, d, f), 1.0 / math.sqrt(d), device),
+        "w_up": _normal(gen, (e, d, f), 1.0 / math.sqrt(d), device),
+        "w_down": _normal(gen, (e, f, d), 1.0 / math.sqrt(f)
+                          / math.sqrt(2 * cfg.n_layers), device),
+    }
+    if mc.n_shared:
+        p["shared"] = mlp_init(gen, cfg, device,
+                               d_ff=mc.n_shared * mc.d_ff_expert)
+    return p
+
+
+def _moe_fused_enabled() -> bool:
+    """The expert MLPs run through ``qdot`` (kernel G forward, B backward)
+    unless ``REPRO_MOE_FUSED=0`` (the JAX package's knob), which selects
+    the einsum route."""
+    import os
+
+    return os.environ.get("REPRO_MOE_FUSED", "1") != "0"
+
+
+# the expert GEMMs' config (and the router's, ``_moe_route``): no
+# representation format, the (8, 23) carry at the wide chunk 128 in all
+# three roles (JAX's QDotConfig(table_dtype="bf16"); the port picks
+# schedules from shapes, so the label has no counterpart)
+_EXPERT_QCFG = QDotConfig()
+
+
+def _moe_expert_mlp_fused(h: torch.Tensor, wl: torch.Tensor,
+                          wu: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
+    """The per-expert SwiGLU, one ``qdot`` a GEMM (3 G launches an expert
+    forward, 3 B launches backward).  ``h`` (E, cap, D) bf16.  The weights
+    go to the kernels as bf16, the values of JAX's float32 copies of the
+    bf16-rounded weights (bf16 -> f32 is exact), and their gradients come
+    back rounded to bf16 once, as JAX's casts round them."""
+    outs = []
+    for i in range(h.shape[0]):
+        hi = h[i].to(torch.float32)
+        g = qdot(hi, wl[i].to(COMPUTE_DTYPE), _EXPERT_QCFG).to(COMPUTE_DTYPE)
+        u = qdot(hi, wu[i].to(COMPUTE_DTYPE), _EXPERT_QCFG).to(COMPUTE_DTYPE)
+        a = (silu(g) * u).to(torch.float32)
+        outs.append(qdot(a, wd[i].to(COMPUTE_DTYPE),
+                         _EXPERT_QCFG).to(COMPUTE_DTYPE))
+    return torch.stack(outs)
+
+
+def _moe_expert_mlp_einsum(h: torch.Tensor, wl: torch.Tensor,
+                           wu: torch.Tensor, wd: torch.Tensor
+                           ) -> torch.Tensor:
+    """JAX's einsum route (``REPRO_MOE_FUSED=0``): bf16 operands, float32
+    accumulation (products of bf16 values are exact in float32, so the
+    GEMMs run on float32 copies), bf16 out."""
+    def bmm(a, w):
+        return torch.bmm(a.to(torch.float32),
+                         w.to(COMPUTE_DTYPE).to(torch.float32)).to(
+                             COMPUTE_DTYPE)
+
+    return bmm(silu(bmm(h, wl)) * bmm(h, wu), wd)
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` on the last dim: the k largest values and their
+    indices, largest first and the lowest index first among equals (a
+    stable descending sort; ``torch.topk`` promises no order among
+    equals)."""
+    idx = torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+    return torch.gather(x, -1, idx), idx
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last dim: exp of x less its (constant)
+    max, over the sum."""
+    u = torch.exp(x - x.detach().amax(dim=-1, keepdim=True))
+    return u / u.sum(dim=-1, keepdim=True)
+
+
+class MoERoute(NamedTuple):
+    """Where ``_moe_route`` sends each (token, slot) pair of T tokens: the
+    renormalized gates (T, k) float32 and experts (T, k), the expert
+    buffer row of each pair in token-then-slot order (T * k,) (``e_loc *
+    cap``, the sink, for a dropped or non-local pair), whether it was kept,
+    the capacity, and the load-balance aux loss."""
+
+    gate: torch.Tensor
+    idx: torch.Tensor
+    slot: torch.Tensor
+    ok: torch.Tensor
+    cap: int
+    aux: torch.Tensor
+
+
+def _moe_route(p: Params, x2: torch.Tensor, cfg: ModelConfig,
+               ep_rank: int = 0, ep_size: int = 1) -> MoERoute:
+    """JAX's routing of the tokens ``x2`` (T, D) over the experts
+    ``ep_rank`` holds of ``ep_size`` ranks: the router's bf16 output (JAX's
+    exact ``dense``) in float32, softmax, top-k (``top_k``), the gates
+    renormalized over the k (summed in slot order); each expert keeps the
+    first ``cap = max(int(capacity_factor * k * T / E), 1)`` of its pairs
+    in token-then-slot order and drops the rest.
+
+    The router's GEMM runs on G at the experts' wide config (bf16 values,
+    float32 accumulation in a fixed order, one rounding to bf16), not on a
+    cuBLAS bf16 GEMM: cuBLAS may pick another algorithm, with another
+    summation order, when the step is captured in a CUDA graph, and the
+    routing must be the same bits eager and graphed."""
+    mc: MoEConfig = cfg.moe
+    t = x2.shape[0]
+    e, k = mc.n_experts, mc.top_k
+    e_loc = e // ep_size
+    dev = x2.device
+
+    logits = qdot(x2.to(torch.float32), p["router"].to(COMPUTE_DTYPE),
+                  _EXPERT_QCFG).to(COMPUTE_DTYPE).to(torch.float32)  # (T, E)
+    probs = _softmax(logits)
+    gate, idx = top_k(probs, k)                                 # (T, k)
+    total = gate[:, 0]
+    for j in range(1, k):
+        total = total + gate[:, j]
+    gate = gate / total[:, None]
+
+    # load balance (Switch): E * sum_e fraction_tokens_e * mean_prob_e
+    # (counted by comparison: bincount reads its input's max on the host)
+    counts = (idx.reshape(-1, 1) == torch.arange(e, device=dev)).sum(
+        dim=0).to(torch.float32)
+    aux = e * torch.sum(true_div(counts, t * k)
+                        * true_div(probs.sum(dim=0), t))
+
+    flat_e = idx.reshape(-1)                                    # (T*k,)
+    lo = ep_rank * e_loc
+    local = (flat_e >= lo) & (flat_e < lo + e_loc)
+    le = torch.clamp(flat_e - lo, 0, e_loc - 1)
+    cap = max(int(mc.capacity_factor * k * t / e), 1)
+    onehot = (local[:, None] & (le[:, None] == torch.arange(
+        e_loc, device=dev)[None, :])).to(torch.int64)
+    pos = torch.sum((torch.cumsum(onehot, dim=0) - 1) * onehot, dim=1)
+    ok = local & (pos < cap)
+    slot = torch.where(ok, le * cap + pos, e_loc * cap)
+    return MoERoute(gate, idx, slot, ok, cap, aux)
+
+
+def _moe_local(p: Params, x2: torch.Tensor, cfg: ModelConfig,
+               ep_rank: int = 0, ep_size: int = 1
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE of the tokens ``x2`` (T, D) over the experts ``ep_rank``
+    holds of ``ep_size`` ranks: (this rank's partial output (T, D) bf16,
+    the load-balance aux loss).  Routed by ``_moe_route``; the dispatch
+    writes each kept pair's token into its expert buffer row (the dropped
+    ones into the sink row, thrown away); the combine adds each token's k
+    gated contributions in slot order, each add rounded to bf16 (JAX's
+    bf16 scatter-add)."""
+    t, d = x2.shape
+    k = cfg.moe.top_k
+    e_loc = cfg.moe.n_experts // ep_size
+    dev = x2.device
+    r = _moe_route(p, x2, cfg, ep_rank, ep_size)
+    flat_tok = torch.arange(t, device=dev)[:, None].expand(t, k).reshape(-1)
+
+    buf = torch.zeros((e_loc * r.cap + 1, d), dtype=COMPUTE_DTYPE, device=dev)
+    buf = buf.index_put((r.slot,), x2.to(COMPUTE_DTYPE)[flat_tok])
+    h = buf[:-1].reshape(e_loc, r.cap, d)
+
+    expert = (_moe_expert_mlp_fused if _moe_fused_enabled()
+              else _moe_expert_mlp_einsum)
+    o = expert(h, p["w_gate"], p["w_up"], p["w_down"])
+
+    o_flat = torch.cat([o.reshape(e_loc * r.cap, d),
+                        torch.zeros((1, d), dtype=COMPUTE_DTYPE, device=dev)])
+    gate = r.gate.reshape(-1).to(COMPUTE_DTYPE) * r.ok.to(COMPUTE_DTYPE)
+    contrib = (o_flat[r.slot] * gate[:, None]).reshape(t, k, d)
+    y = torch.zeros((t, d), dtype=COMPUTE_DTYPE, device=dev)
+    for j in range(k):
+        y = y + contrib[:, j]
+    return y, r.aux
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              dist: Dist = LOCAL) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (y, aux float32): every token routed over all the
+    experts on this device (JAX's single-device branch), plus the shared
+    experts' SwiGLU.  The expert-parallel branch (the experts over the
+    model axis) is not ported: a mesh or a sharded serve group raises."""
+    if dist.mesh is not None or dist.sharded:
+        raise NotImplementedError(
+            "MoE under a mesh or a tensor-parallel serve group is not "
+            "ported yet (ROADMAP [moe-ep]: moe_apply's expert-parallel "
+            "branch)")
+    b, s, d = x.shape
+    y, aux = _moe_local(p, x.reshape(b * s, d), cfg)
+    out = y.reshape(b, s, d)
+    if cfg.moe.n_shared:
+        out = out + mlp_apply(p["shared"], x, cfg)
+    return out, aux.to(torch.float32)

@@ -1,8 +1,16 @@
-"""Dense decoder-only LM: parameters, the training forward and loss, the
-legacy static batch's ``prefill``/``decode_step`` over a dense bf16 cache,
-and the paged serving entry points.
+"""Decoder-only LM: parameters, the training forward and loss, the legacy
+static batch's ``prefill``/``decode_step`` over a dense bf16 cache, and
+the paged serving entry points.
 
-Counterpart of ``repro.models.lm`` for the dense family.  The layer stack
+Counterpart of ``repro.models.lm`` for the families JAX serves through its
+paged engine (``PAGED_FAMILIES``): dense, MoE (a block's MLP is
+``layers.moe_apply``, whose load-balance ``aux`` the training forward
+sums over the layers and the loss weighs by ``aux_loss_weight /
+n_layers``) and the VLM stub (``vision_tokens`` patch embeddings from
+``batch["patch_embeds"]`` replace the first token positions in training,
+and the loss does not score them; serving takes tokens only, as JAX's).
+The SSM, hybrid and encoder-decoder families are refused
+(``models.config.refuse_family``).  The layer stack
 keeps the JAX layout (every per-layer tensor stacked on a leading layer
 axis); the ``scan`` over layers is a Python loop, which also takes the
 stack as a list of per-layer trees (the trainer's compute copy).
@@ -46,19 +54,35 @@ from torch.utils.checkpoint import (
 
 from repro_torch.dist import LOCAL, Dist, gather_cols, gather_rows
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, refuse_family
 from repro_torch.telemetry import capture
 
 Params = dict[str, Any]
 
-PAGED_FAMILIES = ("dense",)
+# the families the paged serving path covers (JAX's; the others keep its
+# legacy static batch)
+PAGED_FAMILIES = ("dense", "moe", "vlm")
+
+
+def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    """One decoder block of the dense/moe family."""
+    d = cfg.d_model
+    p: Params = {
+        "ln1": torch.ones((d,), dtype=torch.float32, device=device),
+        "ln2": torch.ones((d,), dtype=torch.float32, device=device),
+        "attn": L.attn_init(gen, cfg, device),
+    }
+    if cfg.moe is not None:
+        p["moe"] = L.moe_init(gen, cfg, device)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     """float32 parameters with the JAX package's shapes and scales, drawn
     from ``gen`` (a generator on ``device``)."""
-    if cfg.family not in PAGED_FAMILIES:
-        raise ValueError(f"family {cfg.family!r} is not ported")
+    _check_paged(cfg)
     d = cfg.d_model
     p: Params = {
         # std d^-1/2 keeps tied-head logits O(1) at init
@@ -68,19 +92,17 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     if not cfg.tie_embeddings:
         p["lm_head"] = L._normal(gen, (d, cfg.vocab_size), 1.0 / d ** 0.5,
                                  device)
-    blocks = [{
-        "ln1": torch.ones((d,), dtype=torch.float32, device=device),
-        "ln2": torch.ones((d,), dtype=torch.float32, device=device),
-        "attn": L.attn_init(gen, cfg, device),
-        "mlp": L.mlp_init(gen, cfg, device),
-    } for _ in range(cfg.n_layers)]
-    p["layers"] = _stack(blocks)
+    p["layers"] = _stack([_block_init(gen, cfg, device)
+                          for _ in range(cfg.n_layers)])
     return p
 
 
 def _stack(trees: list) -> Any:
+    """The leaves of ``trees`` stacked on a new leading axis, one leaf at a
+    time, each popped from its tree once stacked (so a whole model's draw
+    peaks at its size and one stacked leaf's)."""
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+        return {k: _stack([t.pop(k) for t in trees]) for k in list(trees[0])}
     return torch.stack(trees)
 
 
@@ -96,8 +118,7 @@ def _layer(tree: Any, i: int) -> Any:
 
 def _check_paged(cfg: ModelConfig) -> None:
     if cfg.family not in PAGED_FAMILIES:
-        raise ValueError(f"paged serving covers {PAGED_FAMILIES}; "
-                         f"family {cfg.family!r} is not ported")
+        refuse_family(cfg.family)
 
 
 class _EmbedGather(torch.autograd.Function):
@@ -165,6 +186,18 @@ def _embed(params: Params, tokens: torch.Tensor,
            dist: Dist = LOCAL) -> torch.Tensor:
     return _EmbedGather.apply(params["embed"], tokens.long(), dist).to(
         L.COMPUTE_DTYPE)
+
+
+def _embed_batch(params: Params, batch: dict, cfg: ModelConfig,
+                 dist: Dist = LOCAL) -> torch.Tensor:
+    """The training forward's embedding: the tokens', with the first
+    ``vision_tokens`` positions replaced by ``batch["patch_embeds"]`` in
+    bf16 (the VLM stub)."""
+    x = _embed(params, batch["tokens"], dist)
+    if cfg.vision_tokens:
+        pe = batch["patch_embeds"].to(L.COMPUTE_DTYPE)
+        x = torch.cat([pe, x[:, cfg.vision_tokens:]], dim=1)
+    return x
 
 
 def _unembed(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -279,25 +312,39 @@ def _remat(body):
     return run
 
 
+def _ffn(lp: Params, z: torch.Tensor, cfg: ModelConfig,
+         dist: Dist = LOCAL) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """A block's MLP on the normed ``z``: (out, the MoE aux or None)."""
+    if cfg.moe is not None and "moe" in lp:
+        return L.moe_apply(lp["moe"], z, cfg, dist)
+    return L.mlp_apply(lp["mlp"], z, cfg, dist), None
+
+
 def _block(cfg: ModelConfig, x: torch.Tensor, lp: Params,
-           positions: torch.Tensor, dist: Dist = LOCAL) -> torch.Tensor:
-    """One pre-norm attention + SwiGLU layer."""
+           positions: torch.Tensor, dist: Dist = LOCAL):
+    """One pre-norm attention + MLP (or MoE) layer: y, or (y, aux) for a
+    MoE config."""
     x = x + L.attn_apply(lp["attn"],
                          L.rms_norm(x, lp["ln1"], cfg.norm_eps, dist),
                          cfg, positions=positions, dist=dist)
-    z = L.rms_norm(x, lp["ln2"], cfg.norm_eps, dist)
-    return x + L.mlp_apply(lp["mlp"], z, cfg, dist)
+    f, aux = _ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps, dist), cfg,
+                  dist)
+    return x + f if aux is None else (x + f, aux)
 
 
 def forward_hidden(params: Params, batch: dict, cfg: ModelConfig,
-                   dist: Dist = LOCAL, *, remat: bool = True) -> torch.Tensor:
-    """Full-sequence forward up to the final hidden state (B, S, D) bf16;
-    ``batch["tokens"]`` (B, S), this rank's rows under a row-split
-    ``dist``.  ``remat``: each layer under ``_remat``."""
+                   dist: Dist = LOCAL, *, remat: bool = True
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward up to the final hidden state: (x (B, S, D)
+    bf16, the MoE aux summed over the layers, float32; 0 for the other
+    families).  ``batch["tokens"]`` (B, S), this rank's rows under a
+    row-split ``dist``, with ``batch["patch_embeds"]`` (B, vision_tokens,
+    D) for the VLM stub.  ``remat``: each layer under ``_remat``."""
     _check_paged(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = _embed(params, tokens, dist)
+    x = _embed_batch(params, batch, cfg, dist)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
     block = functools.partial(_block, cfg, dist=dist)
@@ -311,7 +358,10 @@ def forward_hidden(params: Params, batch: dict, cfg: ModelConfig,
     with capture.suspended():
         for i in range(cfg.n_layers):
             x = block(x, _layer(params["layers"], i), positions)
-    return x
+            if cfg.moe is not None:
+                x, a = x
+                aux = aux + a
+    return x, aux
 
 
 def forward(params: Params, batch: dict, cfg: ModelConfig,
@@ -319,16 +369,20 @@ def forward(params: Params, batch: dict, cfg: ModelConfig,
     """Full-sequence forward: logits (B, S, V) bf16 (this rank's rows under
     a row-split ``dist``)."""
     return _unembed(params, forward_hidden(params, batch, cfg, dist,
-                                           remat=remat), cfg, dist)
+                                           remat=remat)[0], cfg, dist)
 
 
 def loss_fn(params: Params, batch: dict, cfg: ModelConfig,
             dist: Dist = LOCAL, *, remat: bool = True
             ) -> tuple[torch.Tensor, dict]:
     """Next-token cross entropy in f32: logsumexp as the JAX package takes
-    it (max subtracted, exp, sum, log, max added back).  Under a row-split
-    ``dist`` the global batch's loss on every rank (module docstring)."""
-    logits = forward(params, batch, cfg, dist, remat=remat)
+    it (max subtracted, exp, sum, log, max added back), the VLM stub's
+    image positions not scored, plus ``aux_loss_weight * aux / n_layers``
+    for a MoE config (``metrics["aux"]``, the layers' summed aux).  Under a
+    row-split ``dist`` the global batch's loss on every rank (module
+    docstring)."""
+    x, aux = forward_hidden(params, batch, cfg, dist, remat=remat)
+    logits = _unembed(params, x, cfg, dist)
     tokens = batch["tokens"]
     if dist.batch_split:
         logits = _GatherRows.apply(logits, dist)
@@ -340,8 +394,17 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig,
     lse = torch.log(torch.sum(torch.exp(lg - amax), dim=-1)) + amax[..., 0]
     gold = torch.take_along_dim(lg, tgt[..., None], dim=-1)[..., 0]
     ce = lse - gold
-    loss = L.true_div(torch.sum(ce), ce.numel())
-    return loss, {"ce": loss}
+    if cfg.vision_tokens:       # the image-stub positions are not scored
+        mask = torch.ones_like(ce)
+        mask[:, :cfg.vision_tokens] = 0.0
+        loss = torch.sum(ce * mask) / torch.sum(mask)
+    else:
+        loss = L.true_div(torch.sum(ce), ce.numel())
+    if cfg.moe is None:
+        return loss, {"ce": loss}
+    loss = loss + L.true_div(cfg.moe.aux_loss_weight * aux,
+                             max(cfg.n_layers, 1))
+    return loss, {"ce": loss, "aux": aux}
 
 
 # --------------------------------------------------------------------------
@@ -350,10 +413,8 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig,
 
 
 def _check_legacy(cfg: ModelConfig, dist: Dist) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the legacy decode of family {cfg.family!r} is not ported yet "
-            "(ROADMAP [families]); the port serves the dense family")
+    if cfg.family not in PAGED_FAMILIES:
+        refuse_family(cfg.family, "the legacy decode")
     if dist.sharded:
         raise NotImplementedError("the legacy static batch is single-device")
 
@@ -376,8 +437,8 @@ def _decode_block(bp: Params, x: torch.Tensor, cache: dict, pos,
     h, nc = L.attn_decode(bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps),
                           cache, pos, cfg)
     x = x + h
-    z = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + L.mlp_apply(bp["mlp"], z, cfg), nc
+    f, _ = _ffn(bp, L.rms_norm(x, bp["ln2"], cfg.norm_eps), cfg)
+    return x + f, nc
 
 
 def decode_step(params: Params, tokens: torch.Tensor, state: Params, pos,
@@ -401,7 +462,7 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig,
     """Inference prefill of the static batch: the next-token logits (B, V)
     of the last position only (``forward_hidden`` without remat)."""
     _check_legacy(cfg, dist)
-    x = forward_hidden(params, batch, cfg, remat=False)
+    x, _ = forward_hidden(params, batch, cfg, remat=False)
     return _unembed(params, x[:, -1:], cfg)[:, 0]
 
 
@@ -436,8 +497,8 @@ def paged_decode(params: Params, tokens: torch.Tensor, kv_state: dict,
             lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), kvl,
             page_table, positions, seq_lens, cfg, kv_fmt=kv_fmt, acc=acc,
             dist=dist, oracle=oracle)
-        z = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], z, cfg, dist)
+        f, _ = _ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg, dist)
+        x = x + f
     return _unembed(params, x, cfg, dist)
 
 
@@ -468,8 +529,8 @@ def paged_prefill(params: Params, tokens: torch.Tensor, kv_state: dict,
             lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), kvl,
             page_row, slab_page_ids, q_offset, q_len, cfg, kv_fmt=kv_fmt,
             acc=acc, call=call, dist=dist, oracle=oracle)
-        z = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], z, cfg, dist)
+        f, _ = _ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg, dist)
+        x = x + f
     if not want_logits:
         return None
     if isinstance(q_len, torch.Tensor):
@@ -507,6 +568,6 @@ def paged_verify(params: Params, tokens: torch.Tensor, kv_state: dict,
             lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), kvl,
             page_table, positions, seq_lens, cfg, kv_fmt=kv_fmt, acc=acc,
             dist=dist, oracle=oracle)
-        z = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], z, cfg, dist)
+        f, _ = _ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg, dist)
+        x = x + f
     return _unembed(params, x, cfg, dist)

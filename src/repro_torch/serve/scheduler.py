@@ -721,10 +721,11 @@ class ShardedModelExecutor(ModelExecutor):
         s = dist.size
         if dist.logit_wire not in ("gather", "int8"):
             raise ValueError(f"unknown logit_wire {dist.logit_wire!r}")
-        if cfg.family != "dense":
+        if cfg.moe is not None:
             raise NotImplementedError(
-                f"tensor-parallel serving covers the dense family; "
-                f"{cfg.family!r} (MoE's expert sharding) is refused")
+                "tensor-parallel serving does not take MoE models (ROADMAP "
+                "[moe-ep]: moe_apply's expert-parallel branch), as JAX's "
+                "ShardedModelExecutor refuses them")
         for name, dim in (("n_heads", cfg.n_heads),
                           ("n_kv_heads", cfg.n_kv_heads), ("d_ff", cfg.d_ff)):
             if dim % s != 0:

@@ -78,8 +78,13 @@ def param_specs(model: Model, dist: Dist) -> dict | None:
 
 
 def check_model_axis(cfg, n: int) -> None:
-    """Refuse a model axis of ``n`` ranks that does not divide the KV
-    heads, d_ff or the vocab (JAX's head and column splits)."""
+    """Refuse a MoE config under any mesh (its expert-parallel branch is
+    not ported), and a model axis of ``n`` ranks that does not divide the
+    KV heads, d_ff or the vocab (JAX's head and column splits)."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            "MoE under a mesh is not ported yet (ROADMAP [moe-ep]: "
+            "moe_apply's expert-parallel branch)")
     if n <= 1:
         return
     for what, size in (("KV heads", cfg.n_kv_heads), ("d_ff", cfg.d_ff),
@@ -252,10 +257,15 @@ def make_train_step(model: Model, train_cfg: TrainConfig,
     specs = param_specs(model, dist)
     if dist.mesh is not None:
         check_model_axis(cfg, dist.mesh.axis_size("model"))
+    # the MoE aux of the step's (last micro)batch, as JAX's loss_fn
+    # reports it
+    aux = {}
 
     def grads_of(compute, batch, scale):
         batch = {k: dist.local_rows(v) for k, v in batch.items()}
-        loss, _ = model.loss_fn(compute, batch, cfg, dist)
+        loss, metrics = model.loss_fn(compute, batch, cfg, dist)
+        if "aux" in metrics:
+            aux["aux"] = metrics["aux"].detach()
         if a2q is not None and a2q.strength > 0:
             # before the loss scale: its gradient is unscaled with the rest
             loss = loss + O.a2q_penalty(stacked_2d(compute), a2q)
@@ -324,7 +334,7 @@ def make_train_step(model: Model, train_cfg: TrainConfig,
                                             grad_norm=gnorm)
         new_state = {"params": params, "opt": opt, "scaler": scaler}
         metrics = {"loss": loss, "skipped": skip.to(torch.float32),
-                   "loss_scale": scaler["scale"], **stats}
+                   "loss_scale": scaler["scale"], **stats, **aux}
         return new_state, metrics
 
     return train_step

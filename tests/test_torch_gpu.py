@@ -2619,3 +2619,75 @@ def test_sr_origins_match_whole_call_and_plain(dev):
                 pdx, pdw = qmatmul_bwd_pair_reference(g, xs, ws, **bkw, **o)
                 assert torch.equal(part[0], pdx) and \
                     torch.equal(part[1], pdw), tag
+
+
+# the MoE expert GEMMs ([families]): moonshot-v1-16b-a3b's gate/up (K 2048,
+# N 1408) and down (K 1408, N 2048) at the expert capacities of a decode
+# step (1), a 64-token slab (7) and the 8 x 64 training step (60); no
+# representation format, the (8, 23) carry at chunk 128 in all three roles
+EXPERT_SHAPES = ((2048, 1408), (1408, 2048))
+
+
+def _expert_operands(gen, shape, dev, lattice):
+    """f32 operands: (1,5,2) lattice points, or bf16-rounded normals (the
+    experts' activations and weights are bf16 values)."""
+    if lattice:
+        return _lattice(gen, shape, dev)
+    return torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("lattice", [False, True])
+@pytest.mark.parametrize("m", [1, 7, 60])
+@pytest.mark.parametrize("k,n", EXPERT_SHAPES)
+def test_expert_g_matches_plain(dev, k, n, m, lattice):
+    """G at the expert shapes, f32 operands and the weights as bf16 (the
+    layer's call), bitwise its plain version; after the decode kernel's
+    occupancy report at a shorter chunk (``chip_smoke``'s ``[build]``
+    lines), which must not lower its shared memory limit under a chunk-128
+    launch's."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    occ = build.function("qgemm", "qgemm_decode_occupancy",
+                         [ctypes.c_int] * 6)
+    for b_bf16 in (0, 1):
+        for slots in (1, 2, 4, 8):
+            assert occ(0, b_bf16, 0, slots, 64, 0) > 0
+    gen = torch.Generator(device=dev).manual_seed(m * 7 + k)
+    kw = dict(repr_fmt=None, e_acc=8, m_acc=23, block_k=128)
+    a = _expert_operands(gen, (m, k), dev, lattice)
+    b = _expert_operands(gen, (k, n), dev, lattice) / 8
+    for w in (b, b.to(torch.bfloat16)):
+        n0 = qmatmul_fused.launches
+        got = qmatmul_fused(a, w, **kw)
+        want = qmatmul_fused_reference(a, w, **kw)
+        torch.cuda.synchronize()
+        assert qmatmul_fused.launches == n0 + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("lattice", [False, True])
+@pytest.mark.parametrize("k,n", EXPERT_SHAPES)
+def test_expert_b_matches_plain(dev, k, n, lattice):
+    """B at T = 60 (the training step's capacity) with raw f32 residuals
+    (and the weights as bf16), g unquantized, both chunks 128 at (8, 23):
+    dx and dw bitwise the plain version."""
+    from repro_torch.kernels.bwd_pair import (
+        qmatmul_bwd_pair, qmatmul_bwd_pair_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(k + 60)
+    kw = dict(repr_fmt=None, bwd_acc=(8, 23), grad_acc=(8, 23),
+              bwd_chunk=128, grad_chunk=128, packed=False, quantize_g=False)
+    g = _expert_operands(gen, (60, n), dev, lattice)
+    x = _expert_operands(gen, (60, k), dev, lattice)
+    w = _expert_operands(gen, (k, n), dev, lattice) / 8
+    for wq in (w, w.to(torch.bfloat16)):
+        n0 = qmatmul_bwd_pair.launches
+        got = qmatmul_bwd_pair(g, x, wq, **kw)
+        want = qmatmul_bwd_pair_reference(g, x, wq, **kw)
+        torch.cuda.synchronize()
+        assert qmatmul_bwd_pair.launches == n0 + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
